@@ -1,0 +1,275 @@
+// gmm1_ring / gmm2_combine_ring: the W8A8 grouped expert GEMMs of the MoE
+// layer, for Hopper.
+//
+// Replace the TPU kernels sgl_kernel_npu_tpu/ops/gmm_ring.py:gmm1_ring
+// (_gmm1_ring_kernel) and gmm2_combine_ring (_gmm2_combine_ring_kernel).  Those
+// run one sequential grid step that streams each live group's weights through
+// a manual DMA ring and build the row dispatch and the combine as one-hot MXU
+// products.  Here the routing is plain indexing: a block gathers its rows by
+// tok_of_row, finds its group's rows from the offsets, and the combine gathers
+// each token's top-k rows by dest.
+//
+// Bound on the H100: bytes.  At decode and prefill-chunk sizes every touched
+// expert holds a few rows, so each touched expert's int8 slab (7168 x 4096 for
+// GMM1, 2048 x 7168 for GMM2 at DeepSeek-V3 width) must stream from HBM once
+// and the int8 operations (2 x rows x K x N) are far below the card's rate.
+//
+// Design: no tile schedule and no staging of weights in shared memory.  Block
+// (group g, column tile of 128 columns per segment), 4 warps.  Lane l owns 4
+// consecutive columns of each segment it reads (GMM1: gate columns c..c+3 AND
+// up columns I+c..I+c+3, so SwiGLU pairs within the lane; GMM2: c..c+3); warp
+// w walks the w-th quarter of the K depth (split-K: 4x the loads in flight of
+// one warp walking all of K).  Per step a lane loads one 4-byte word from each
+// of 4 consecutive k-rows (a warp reads 128 contiguous bytes of a row),
+// transposes the 4 x 4 bytes in registers into dp4a operands and accumulates
+// int8 x int8 in int32 exactly for up to 4 rows of the group at once.  The
+// quarters meet in shared memory, where warp r sums row r's four partial
+// sums (in a fixed order: deterministic) and runs its epilogue.  Weights
+// stream from HBM once per 4 rows of a group (a group of at most 4 rows, the
+// decode case, reads its weights exactly once; larger groups re-read them,
+// mostly from L2).  Epilogues:
+// - GMM1: dequant by scale_x[token] x scale_w, SwiGLU on the full-width
+//   gate || up packing, the activation to an f32 scratch row and its |max| to
+//   a per-row atomicMax (non-negative floats order as unsigned ints, so the
+//   result is exact and deterministic); a second pass requantizes each row to
+//   int8 (the amax over the row's whole width is known only after every
+//   column tile has run).
+// - GMM2: dequant by hs[row] x scale_w into an f32 scratch [S, N]; a second
+//   pass sums each token's top-k rows with its f32 weights, plus the optional
+//   init, in a fixed order (deterministic, no float atomics).
+// Rows outside every group read as zeros (h1 = 0, hs = 0; no combine
+// contribution).
+#include "common.cuh"
+
+namespace gmm {
+
+constexpr int WARPS = 4;                 // K quarters, one per warp
+constexpr int THREADS = 32 * WARPS;
+constexpr int RP = WARPS;                // rows of a group per pass (warp r finishes row r)
+constexpr int CPT = 4;                   // columns per lane and segment (one 4-byte word)
+constexpr int COLS = 32 * CPT;           // columns of a segment per block
+constexpr int MAX_TOPK = 32;
+
+enum Epilogue { kSwiGLU = 0, kDequant = 1 };
+
+// 4 words = 4 consecutive k-rows x 4 columns of int8 -> 4 words = the 4 k
+// bytes of each column (the dp4a operand of that column).
+__device__ __forceinline__ void transpose4x4(const uint32_t (&a)[4], uint32_t (&t)[4]) {
+  const uint32_t lo01 = __byte_perm(a[0], a[1], 0x5140), lo23 = __byte_perm(a[2], a[3], 0x5140);
+  const uint32_t hi01 = __byte_perm(a[0], a[1], 0x7362), hi23 = __byte_perm(a[2], a[3], 0x7362);
+  t[0] = __byte_perm(lo01, lo23, 0x5410);
+  t[1] = __byte_perm(lo01, lo23, 0x7632);
+  t[2] = __byte_perm(hi01, hi23, 0x5410);
+  t[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+// x [n_src, K] int8 rows (row r reads x[row_src[r]], or x[r] without row_src),
+// w [G, K, N] int8, offsets [G + 1].  NSEG segments of seg_width columns each
+// (GMM1: gate then up, seg_width = N / 2; GMM2: one of N); lane l's columns
+// are c = blockIdx.y * COLS + 4 l of each segment.  K % 4 == 0.
+template <int NSEG, int EPI>
+__global__ void __launch_bounds__(THREADS)
+    grouped_w8a8_kernel(const int8_t* __restrict__ x, const int* __restrict__ row_src,
+                        int n_src, const int8_t* __restrict__ w,
+                        const int* __restrict__ offsets, const float* __restrict__ scale_x,
+                        const float* __restrict__ scale_w, int K, int N,
+                        float* __restrict__ out, unsigned* __restrict__ amax) {
+  __shared__ int part[WARPS][RP][NSEG][CPT][32];   // each quarter's partial sums
+  const int g = blockIdx.x;
+  const int r_begin = offsets[g], r_end = offsets[g + 1];
+  if (r_begin >= r_end) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int seg_width = N / NSEG;
+  const int c = blockIdx.y * COLS + CPT * lane;
+  const bool active = c < seg_width;     // inactive lanes still join the shuffles
+  const int8_t* wg = w + (size_t)g * K * N + (active ? c : 0);
+  const int quarter = (K / 4 + WARPS - 1) / WARPS * 4;
+  const int k_lo = min(K, warp * quarter), k_hi = min(K, k_lo + quarter);
+
+  for (int r0 = r_begin; r0 < r_end; r0 += RP) {
+    const int nr = min(RP, r_end - r0);
+    const int8_t* xr[RP];
+#pragma unroll
+    for (int rr = 0; rr < RP; ++rr) {
+      int src = -1;
+      if (rr < nr) {
+        src = row_src ? row_src[r0 + rr] : r0 + rr;
+        if (src < 0 || src >= n_src) src = -1;   // pad row: reads as zero
+      }
+      xr[rr] = src >= 0 ? x + (size_t)src * K : nullptr;
+    }
+    int acc[RP][NSEG][CPT];
+#pragma unroll
+    for (int rr = 0; rr < RP; ++rr)
+#pragma unroll
+      for (int s = 0; s < NSEG; ++s)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) acc[rr][s][j] = 0;
+
+    if (active) {
+      // 32 weight words in flight per lane whatever the segment count
+#pragma unroll (8 / NSEG)
+      for (int k = k_lo; k < k_hi; k += 4) {
+        uint32_t wt[NSEG][4];
+#pragma unroll
+        for (int s = 0; s < NSEG; ++s) {
+          uint32_t a[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            a[j] = __ldg(reinterpret_cast<const uint32_t*>(wg + (size_t)(k + j) * N +
+                                                           s * seg_width));
+          transpose4x4(a, wt[s]);
+        }
+#pragma unroll
+        for (int rr = 0; rr < RP; ++rr) {
+          if (xr[rr] == nullptr) continue;
+          const int xv = __ldg(reinterpret_cast<const int*>(xr[rr] + k));
+#pragma unroll
+          for (int s = 0; s < NSEG; ++s)
+#pragma unroll
+            for (int j = 0; j < CPT; ++j) acc[rr][s][j] = __dp4a(xv, (int)wt[s][j], acc[rr][s][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < RP; ++rr)
+#pragma unroll
+      for (int s = 0; s < NSEG; ++s)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) part[warp][rr][s][j][lane] = acc[rr][s][j];
+    __syncthreads();
+
+    if (warp < nr) {                      // warp r finishes row r of this pass
+      const int rr = warp, row = r0 + rr;
+      int src = row_src ? row_src[row] : row;
+      const float sx = (src >= 0 && src < n_src) ? scale_x[src] : 0.f;
+      int sum[NSEG][CPT];
+#pragma unroll
+      for (int s = 0; s < NSEG; ++s)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j)
+          sum[s][j] = part[0][rr][s][j][lane] + part[1][rr][s][j][lane] +
+                      part[2][rr][s][j][lane] + part[3][rr][s][j][lane];
+      const float* sw = scale_w + (size_t)g * N + c;
+      if (EPI == kSwiGLU) {
+        float m = 0.f;
+        if (active) {
+          float act[CPT];
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) {
+            const float d0 = (float)sum[0][j] * sx * sw[j];
+            const float d1 = (float)sum[NSEG - 1][j] * sx * sw[seg_width + j];
+            act[j] = d0 * (1.f / (1.f + expf(-d0))) * d1;
+            m = fmaxf(m, fabsf(act[j]));
+          }
+          *reinterpret_cast<float4*>(out + (size_t)row * seg_width + c) =
+              make_float4(act[0], act[1], act[2], act[3]);
+        }
+        m = sgl::warp_max(m);
+        if (lane == 0) atomicMax(amax + row, __float_as_uint(m));
+      } else if (active) {
+        float d[CPT];
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) d[j] = (float)sum[0][j] * sx * sw[j];
+        *reinterpret_cast<float4*>(out + (size_t)row * N + c) = make_float4(d[0], d[1], d[2], d[3]);
+      }
+    }
+    __syncthreads();                      // part is rewritten by the next pass
+  }
+}
+
+// Per-row int8 requant of the SwiGLU activation: scale = max(amax / 127, 1e-12),
+// h1 = clip(round_half_even(act / scale)).  Rows past the group total -> 0.
+__global__ void swiglu_requant_kernel(const float* __restrict__ act,
+                                      const unsigned* __restrict__ amax,
+                                      const int* __restrict__ offsets, int groups, int I,
+                                      int8_t* __restrict__ h1, float* __restrict__ hs) {
+  const int row = blockIdx.x;
+  const bool live = row < offsets[groups];
+  const float scale = live ? fmaxf(__uint_as_float(amax[row]) / 127.f, 1e-12f) : 0.f;
+  for (int c = threadIdx.x; c < I; c += blockDim.x) {
+    int8_t v = 0;
+    if (live) {
+      const float qv = rintf(act[(size_t)row * I + c] / scale);
+      v = (int8_t)fminf(fmaxf(qv, -128.f), 127.f);
+    }
+    h1[(size_t)row * I + c] = v;
+  }
+  if (threadIdx.x == 0) hs[row] = scale;
+}
+
+// out[t] = init[t] + sum_k topw[t, k] * y[dest[t, k]]; dest rows outside every
+// group contribute nothing.
+__global__ void combine_kernel(const float* __restrict__ y, const int* __restrict__ dest,
+                               const float* __restrict__ topw,
+                               const float* __restrict__ init,
+                               const int* __restrict__ offsets, int groups, int ktop,
+                               int N, float* __restrict__ out) {
+  __shared__ int d_s[MAX_TOPK];
+  __shared__ float w_s[MAX_TOPK];
+  const int t = blockIdx.x;
+  if (threadIdx.x < ktop) {
+    const int total = offsets[groups];
+    const int d = dest[(size_t)t * ktop + threadIdx.x];
+    d_s[threadIdx.x] = (d >= 0 && d < total) ? d : -1;
+    w_s[threadIdx.x] = topw[(size_t)t * ktop + threadIdx.x];
+  }
+  __syncthreads();
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    float acc = init ? init[(size_t)t * N + n] : 0.f;
+    for (int k = 0; k < ktop; ++k)
+      if (d_s[k] >= 0) acc += w_s[k] * y[(size_t)d_s[k] * N + n];
+    out[(size_t)t * N + n] = acc;
+  }
+}
+
+}  // namespace gmm
+
+// xq [n_tok, K] int8, tok_of_row [S] int32, w1 [G, K, N] int8 (N = 2I, gate ||
+// up full width), offsets [G + 1] int32, sx_tok [n_tok] f32, sw [G, N] f32;
+// scratch act [S, I] f32 and amax [S] u32; out h1 [S, I] int8, hs [S] f32.
+// Needs K % 4 == 0 and I % 4 == 0.
+extern "C" int gmm1_ring_launch(const void* xq, const void* tok_of_row, int n_tok,
+                                const void* w1, const void* offsets, int groups, int S,
+                                int K, int N, const void* sx_tok, const void* sw,
+                                void* act, void* amax, void* h1, void* hs, void* stream) {
+  if (S == 0) return 0;
+  if (K % 4 != 0 || N % (2 * gmm::CPT) != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int I = N / 2;
+  cudaMemsetAsync(amax, 0, sizeof(unsigned) * (size_t)S, s);
+  dim3 grid(groups, (I + gmm::COLS - 1) / gmm::COLS);
+  gmm::grouped_w8a8_kernel<2, gmm::kSwiGLU><<<grid, gmm::THREADS, 0, s>>>(
+      (const int8_t*)xq, (const int*)tok_of_row, n_tok, (const int8_t*)w1,
+      (const int*)offsets, (const float*)sx_tok, (const float*)sw, K, N, (float*)act,
+      (unsigned*)amax);
+  gmm::swiglu_requant_kernel<<<S, 256, 0, s>>>(
+      (const float*)act, (const unsigned*)amax, (const int*)offsets, groups, I,
+      (int8_t*)h1, (float*)hs);
+  return (int)cudaGetLastError();
+}
+
+// x [S, K] int8 (GMM1 output), w2 [G, K, N] int8, offsets [G + 1], sx [S] f32,
+// sw [G, N] f32, dest / topw [n_tok, ktop], init [n_tok, N] f32 or null;
+// scratch y [S, N] f32; out [n_tok, N] f32.  Needs K % 4 == 0, N % 4 == 0
+// and ktop <= 32.
+extern "C" int gmm2_combine_ring_launch(const void* x, int S, int K, const void* w2,
+                                        const void* offsets, int groups, int N,
+                                        const void* sx, const void* sw, const void* dest,
+                                        const void* topw, const void* init, int n_tok,
+                                        int ktop, void* y, void* out, void* stream) {
+  if (n_tok == 0) return 0;
+  if (K % 4 != 0 || N % gmm::CPT != 0 || ktop > gmm::MAX_TOPK)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (S > 0) {
+    dim3 grid(groups, (N + gmm::COLS - 1) / gmm::COLS);
+    gmm::grouped_w8a8_kernel<1, gmm::kDequant><<<grid, gmm::THREADS, 0, s>>>(
+        (const int8_t*)x, nullptr, S, (const int8_t*)w2, (const int*)offsets,
+        (const float*)sx, (const float*)sw, K, N, (float*)y, nullptr);
+  }
+  gmm::combine_kernel<<<n_tok, 256, 0, s>>>(
+      (const float*)y, (const int*)dest, (const float*)topw, (const float*)init,
+      (const int*)offsets, groups, ktop, N, (float*)out);
+  return (int)cudaGetLastError();
+}

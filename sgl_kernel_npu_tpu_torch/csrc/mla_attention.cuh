@@ -1,0 +1,259 @@
+// Paged MLA attention over the latent cache: the block body shared by
+// decode_mla (decode_mla.cu) and mla_prefill (mla_prefill.cu).
+//
+// Layouts are the JAX package's: q [tokens, H, 512 + 64] (absorbed nope || rope),
+// latent cache kn [pages, 1, page, 512], rope cache transposed
+// kr [pages, 1, 64, page], block table [B, max_pages], all bf16.  V aliases
+// K_nope.
+//
+// One block owns ROWS = 16 query rows: TQ consecutive tokens of one request x
+// 16 / TQ heads, which is one m16 tile of the bf16 tensor-core product
+// mma.sync.m16n8k16 (f32 accumulate).  The block walks the request's keys in
+// chunks of KT = 32 (any page size: each key finds its page through the block
+// table).  Each chunk's latent ++ rope rows are staged in shared memory ONCE
+// for all 16 rows; the next chunk's global loads are in flight in registers
+// while the current chunk computes.  Per chunk:
+//   S = Q K^T   8 warps: warp w takes keys 8 (w % 4) .. + 8 over half of the
+//               576-deep product (w / 4); the two halves meet in shared memory,
+//   softmax     online (m, l) per row in f32; P rounded to bf16 (as the TPU
+//               kernel feeds its PV product),
+//   O += P V    warp w owns output columns 64 w .. 64 w + 64 (8 n-tiles), the
+//               [16, 512] f32 accumulator spread over the warps' registers.
+// Keys past the block's last causal position are never read (the causal page
+// pruning of the TPU kernels, at key granularity).
+#pragma once
+
+#include "common.cuh"
+
+namespace mla {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int DN = 512;                  // latent (nope) width, also V width
+constexpr int DR = 64;                   // rope width
+constexpr int DQ = DN + DR;
+constexpr int LD = DQ + 8;               // smem row stride: rows 16 B apart in banks
+constexpr int ROWS = 16;                 // query rows per block (the mma M)
+constexpr int KT = 32;                   // keys per staged chunk (= warp size)
+constexpr int LDP = KT + 8;              // smem row stride of P
+constexpr int THREADS = 256;             // 8 warps
+constexpr float NEG = -1e30f;
+constexpr size_t SMEM_BYTES = sizeof(bf16) * (ROWS * LD + KT * LD + ROWS * LDP) +
+                              sizeof(float) * (2 * ROWS * KT + 3 * ROWS);
+
+constexpr int VEC = 8;                                  // bf16 values in one 16-byte load
+constexpr int NV = KT * DN / VEC / THREADS;              // latent loads a thread per chunk
+constexpr int NR = KT * DR / THREADS;                    // rope values a thread per chunk
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Issue the global loads of keys [k0, k0 + KT) into registers: every load of
+// a thread is independent of the others, so they are all in flight at once.
+__device__ __forceinline__ void load_chunk(const bf16* __restrict__ kn,
+                                           const bf16* __restrict__ kr,
+                                           const int* __restrict__ bt_row, int k0, int kend,
+                                           int page_size, uint4 (&v)[NV], bf16 (&r)[NR]) {
+#pragma unroll
+  for (int it = 0; it < NV; ++it) {
+    const int e = threadIdx.x + it * THREADS;
+    const int t = e / (DN / VEC), c = e % (DN / VEC), key = k0 + t;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (key < kend) {
+      const int pg = bt_row[key / page_size], off = key % page_size;
+      val = *reinterpret_cast<const uint4*>(kn + ((size_t)pg * page_size + off) * DN + c * VEC);
+    }
+    v[it] = val;
+  }
+#pragma unroll
+  for (int it = 0; it < NR; ++it) {
+    const int e = threadIdx.x + it * THREADS;
+    const int t = e % KT, rr = e / KT, key = k0 + t;
+    bf16 val = __float2bfloat16(0.f);
+    if (key < kend) {
+      const int pg = bt_row[key / page_size], off = key % page_size;
+      val = kr[((size_t)pg * DR + rr) * page_size + off];
+    }
+    r[it] = val;
+  }
+}
+
+// Registers of load_chunk -> the key rows [KT][LD] (latent ++ rope) in smem.
+__device__ __forceinline__ void store_chunk(bf16* ks, const uint4 (&v)[NV], const bf16 (&r)[NR]) {
+#pragma unroll
+  for (int it = 0; it < NV; ++it) {
+    const int e = threadIdx.x + it * THREADS;
+    const int t = e / (DN / VEC), c = e % (DN / VEC);
+    *reinterpret_cast<uint4*>(ks + t * LD + c * VEC) = v[it];
+  }
+#pragma unroll
+  for (int it = 0; it < NR; ++it) {
+    const int e = threadIdx.x + it * THREADS;
+    ks[(e % KT) * LD + DN + e / KT] = r[it];
+  }
+}
+
+// Rows r of the block: token j = j0 + r / (ROWS / tq) of the request, head
+// h0 + r % (ROWS / tq).  Token j sits at packed index tok_base + j and sees
+// cache positions <= ctx - seq_len + j.  Rows past seq_len or past the head
+// count are dead: they read nothing and write nothing.
+__device__ __forceinline__ void mla_block(
+    const bf16* __restrict__ q, const bf16* __restrict__ kn, const bf16* __restrict__ kr,
+    const int* __restrict__ bt_row, bf16* __restrict__ out, int tok_base, int j0,
+    int seq_len, int ctx, int heads, int h0, int tq, int page_size, float sm_scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);          // [ROWS][LD]
+  bf16* ks = qs + ROWS * LD;                              // [KT][LD]
+  bf16* pb = ks + KT * LD;                                // [ROWS][LDP] probabilities
+  float* ss = reinterpret_cast<float*>(pb + ROWS * LDP);  // [2][ROWS][KT] score halves
+  float* m_s = ss + 2 * ROWS * KT;                        // [ROWS] running max
+  float* l_s = m_s + ROWS;                                // [ROWS] running denominator
+  float* a_s = l_s + ROWS;                                // [ROWS] this chunk's rescale
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;     // mma fragment row / column pair
+  const int ht = ROWS / tq;
+
+  for (int i = tid; i < ROWS * DQ / VEC; i += THREADS) {
+    const int r = i / (DQ / VEC), c = i % (DQ / VEC);
+    const int j = j0 + r / ht, h = h0 + r % ht;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (j < seq_len && h < heads)
+      v = *reinterpret_cast<const uint4*>(q + ((size_t)(tok_base + j) * heads + h) * DQ + c * VEC);
+    *reinterpret_cast<uint4*>(qs + r * LD + c * VEC) = v;
+  }
+  if (tid < ROWS) {
+    m_s[tid] = NEG;
+    l_s[tid] = 0.f;
+  }
+  // exclusive key bound: the causal limit of the block's last live token
+  const int kend = ctx - seq_len + min(j0 + tq, seq_len);
+  float o[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+
+  // ldmatrix lane addresses: A tiles (16 x 16) and B tiles (8 keys x 16)
+  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
+  const int b_row = lane & 7, b_col = 8 * ((lane >> 3) & 1);
+  const int s_keys = 8 * (warp & 3), s_half = warp >> 2;  // this warp's S tile
+
+  uint4 kv_next[NV];
+  bf16 kr_next[NR];
+  if (kend > 0) load_chunk(kn, kr, bt_row, 0, kend, page_size, kv_next, kr_next);
+  for (int k0 = 0; k0 < kend; k0 += KT) {
+    // the chunk loaded into registers last iteration goes to shared memory;
+    // the next chunk's loads are issued before this chunk's arithmetic
+    store_chunk(ks, kv_next, kr_next);
+    __syncthreads();
+    if (k0 + KT < kend) load_chunk(kn, kr, bt_row, k0 + KT, kend, page_size, kv_next, kr_next);
+
+    // S half-products: keys s_keys .. + 8, depth [288 s_half, 288 s_half + 288)
+    {
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 6
+      for (int kk = 0; kk < DQ / 32; ++kk) {
+        const int d0 = s_half * (DQ / 2) + kk * 16;
+        uint32_t a[4], b[2];
+        ldsm_x4(a, qs + a_row * LD + d0 + a_col);
+        ldsm_x2(b, ks + (s_keys + b_row) * LD + d0 + b_col);
+        mma_16816(s, a, b);
+      }
+      float* sh = ss + s_half * ROWS * KT;
+      sh[g * KT + s_keys + 2 * t4] = s[0];
+      sh[g * KT + s_keys + 2 * t4 + 1] = s[1];
+      sh[(g + 8) * KT + s_keys + 2 * t4] = s[2];
+      sh[(g + 8) * KT + s_keys + 2 * t4 + 1] = s[3];
+    }
+    __syncthreads();
+
+    // online softmax: warp w takes rows w and w + 8; lane = key of the chunk
+    for (int r = warp; r < ROWS; r += THREADS / 32) {
+      const int j = j0 + r / ht, h = h0 + r % ht, key = k0 + lane;
+      const bool ok = j < seq_len && h < heads && key <= ctx - seq_len + j;
+      const float s = ok ? (ss[r * KT + lane] + ss[ROWS * KT + r * KT + lane]) * sm_scale : NEG;
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, sgl::warp_max(s));
+      const float p = ok ? expf(s - m_new) : 0.f;
+      const bf16 pq = __float2bfloat16(p);
+      pb[r * LDP + lane] = pq;
+      const float sum = sgl::warp_sum(__bfloat162float(pq));
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        a_s[r] = alpha;
+        l_s[r] = l_s[r] * alpha + sum;
+        m_s[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // O = O * alpha + P V over this warp's 64 output columns
+    const float al0 = a_s[g], al1 = a_s[g + 8];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      o[nt][0] *= al0;
+      o[nt][1] *= al0;
+      o[nt][2] *= al1;
+      o[nt][3] *= al1;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, pb + a_row * LDP + kk * 16 + a_col);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        uint32_t b[2];
+        ldsm_x2_trans(b, ks + (kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
+                             warp * 64 + nt * 8);
+        mma_16816(o[nt], a, b);
+      }
+    }
+    __syncthreads();
+  }
+
+  // rows g and g + 8 of the tile, columns 64 warp + 8 nt + 2 t4 (+1)
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = g + 8 * half;
+    const int j = j0 + r / ht, h = h0 + r % ht;
+    if (j < seq_len && h < heads) {
+      const float l = l_s[r];
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      bf16* orow = out + ((size_t)(tok_base + j) * heads + h) * DN + warp * 64 + 2 * t4;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(orow + nt * 8) =
+            __floats2bfloat162_rn(o[nt][2 * half] * inv, o[nt][2 * half + 1] * inv);
+    }
+  }
+}
+
+}  // namespace mla

@@ -1,0 +1,387 @@
+"""DeepSeek-V3 MLA + MoE model for serving: paged prefill and decode.
+
+Counterpart of ``sgl_kernel_npu_tpu/models/deepseek_v3.py`` on the
+configuration ``decode_step / prefill_step(moe_weights_q=...)``: the float MLA
+prologue, MLA attention over the paged latent cache (``decode_mla`` K2,
+``mla_prefill_pallas`` K9) and the W8A8 routed experts through the ring GEMMs
+(``gmm1_ring`` K3, ``gmm2_combine_ring`` K4).  The switches this slice does not
+take are absent (the fused W8A8 prologue ``mla_wq``, W8A8 dense weights
+``dense_wq``, expert parallelism, EPLB, DSA sparse attention, the int8
+latent cache) or raise ``NotImplementedError`` (the dense float MoE, the
+MoE of more than 512 tokens).
+
+Weights are a plain dict of tensors (``layers`` a list of per-layer dicts),
+with the JAX package's names and layouts; caches are a list of per-layer
+dicts ``{"nope", "rope"}`` updated in place.  ``plain=True`` on the steps runs
+the kernels' plain PyTorch versions on the same tensors (for comparing the
+kernels with them on the card).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from sgl_kernel_npu_tpu_torch.ops.attention.decode_attention import decode_mla, decode_mla_ref
+from sgl_kernel_npu_tpu_torch.ops.attention.mla_prefill import (
+    mla_prefill_pallas,
+    mla_prefill_ref,
+)
+from sgl_kernel_npu_tpu_torch.ops.gmm_ring import (
+    gmm1_ring,
+    gmm1_ring_ref,
+    gmm2_combine_ring,
+    gmm2_combine_ring_ref,
+)
+from sgl_kernel_npu_tpu_torch.ops.mem_cache.kv_cache import (
+    reshape_and_cache,
+    reshape_and_cache_transposed,
+)
+from sgl_kernel_npu_tpu_torch.ops.norm import rms_norm_ref
+from sgl_kernel_npu_tpu_torch.ops.quant import INT8_MAX, saturate_int8
+from sgl_kernel_npu_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from sgl_kernel_npu_tpu_torch.parallel.fused_moe import quantize_expert_weights
+from sgl_kernel_npu_tpu_torch.utils.common import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekV3Config:
+    """The JAX package's config fields that this path reads, with the same
+    defaults (DSA, the int8 latent cache and the unused rope base are not
+    ported)."""
+
+    vocab_size: int = 512
+    hidden: int = 256
+    num_layers: int = 2
+    num_heads: int = 8
+    kv_lora_rank: int = 128      # latent dim (512 at full scale)
+    qk_rope_dim: int = 64
+    qk_nope_dim: int = 64        # 128 at full scale
+    q_lora_rank: int = 192       # 1536 at full scale
+    v_head_dim: int = 64         # 128 at full scale
+    num_experts: int = 16
+    num_shared_experts: int = 1
+    topk: int = 4
+    moe_intermediate: int = 128  # per expert (2048 at full scale)
+    page_size: int = 16
+    router_scoring: str = "softmax"   # or "sigmoid_v3" (needs router_bias)
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = True
+
+    @property
+    def qk_dim(self):
+        return self.qk_nope_dim + self.qk_rope_dim
+
+    @property
+    def sm_scale(self):
+        return 1.0 / (self.qk_dim ** 0.5)
+
+
+# ---------------------------------------------------------------------------
+# weights and caches
+# ---------------------------------------------------------------------------
+
+def _randn(gen, shape, scale, dtype, device):
+    return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+
+def init_weights(cfg: DeepSeekV3Config, seed: int = 0, dtype=torch.float32,
+                 device="cuda", *, with_experts: bool = True) -> dict:
+    """Random weights from ``seed`` (scales as the JAX package's).
+
+    ``with_experts=False`` leaves out the float routed experts, which at full
+    width do not fit beside the rest: build their W8A8 form directly with
+    :func:`init_quantized_experts`.  ``router_bias`` (the sigmoid_v3 choice
+    bias, which a checkpoint carries) is added for ``sigmoid_v3``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, lat, rope = cfg.hidden, cfg.kv_lora_rank, cfg.qk_rope_dim
+
+    def rnd(*shape, scale=None):
+        return _randn(gen, shape, scale if scale is not None else shape[0] ** -0.5, dtype, dev)
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype, device=dev)
+
+    def layer():
+        lw = {
+            "ln1": ones(h),
+            "wdqkv": rnd(h, lat + rope + cfg.q_lora_rank),
+            "q_ln": ones(cfg.q_lora_rank),
+            "wuq": rnd(cfg.q_lora_rank, cfg.num_heads * cfg.qk_dim),
+            "wuk": rnd(cfg.num_heads, cfg.qk_nope_dim, lat, scale=cfg.qk_nope_dim ** -0.5),
+            "kv_ln": ones(lat),
+            "wvu": rnd(cfg.num_heads, lat, cfg.v_head_dim, scale=lat ** -0.5),
+            "wo": rnd(cfg.num_heads * cfg.v_head_dim, h),
+            "ln2": ones(h),
+            "router": rnd(h, cfg.num_experts),
+            "ws_gate": rnd(h, cfg.num_shared_experts * cfg.moe_intermediate),
+            "ws_up": rnd(h, cfg.num_shared_experts * cfg.moe_intermediate),
+            "ws_down": rnd(cfg.num_shared_experts * cfg.moe_intermediate, h),
+        }
+        if with_experts:
+            e, i = cfg.num_experts, cfg.moe_intermediate
+            lw["w_gate"] = rnd(e, h, i, scale=h ** -0.5)
+            lw["w_up"] = rnd(e, h, i, scale=h ** -0.5)
+            lw["w_down"] = rnd(e, i, h, scale=i ** -0.5)
+        if cfg.router_scoring == "sigmoid_v3":
+            lw["router_bias"] = rnd(cfg.num_experts, scale=0.01).float()
+        return lw
+
+    return {
+        "embed": rnd(cfg.vocab_size, h, scale=0.02),
+        "layers": [layer() for _ in range(cfg.num_layers)],
+        "final_ln": ones(h),
+    }
+
+
+_EXPERT_CHUNK = 16   # experts made in f32 at once: 2.8 GB at DeepSeek-V3 width
+
+
+def init_quantized_experts(cfg: DeepSeekV3Config, seed: int = 1,
+                           device="cuda") -> list[tuple]:
+    """W8A8 routed experts of every layer, made from ``seed`` a chunk of
+    experts at a time: the float experts (2 bytes x 3 x H x I each in bf16) are
+    never all resident, only one chunk of them in f32."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    e, h, i = cfg.num_experts, cfg.hidden, cfg.moe_intermediate
+    out = []
+    for _ in range(cfg.num_layers):
+        w1 = torch.empty((e, h, 2 * i), dtype=torch.int8, device=dev)
+        s1 = torch.empty((e, 2 * i), dtype=torch.float32, device=dev)
+        w2 = torch.empty((e, i, h), dtype=torch.int8, device=dev)
+        s2 = torch.empty((e, h), dtype=torch.float32, device=dev)
+        for e0 in range(0, e, _EXPERT_CHUNK):
+            c = min(_EXPERT_CHUNK, e - e0)
+            wg = _randn(gen, (c, h, i), h ** -0.5, torch.float32, dev)
+            wu = _randn(gen, (c, h, i), h ** -0.5, torch.float32, dev)
+            wd = _randn(gen, (c, i, h), i ** -0.5, torch.float32, dev)
+            q = quantize_expert_weights(wg, wu, wd)
+            w1[e0 : e0 + c], s1[e0 : e0 + c], w2[e0 : e0 + c], s2[e0 : e0 + c] = q
+            del wg, wu, wd, q
+        out.append((w1, s1, w2, s2))
+    return out
+
+
+def _to_torch(a, dev: torch.device) -> torch.Tensor:
+    a = np.array(a)                      # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":       # ml_dtypes bfloat16: reinterpret the bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def from_jax_params(params_np: dict, moe_weights_q_np: list | None = None,
+                    device="cuda") -> tuple[dict, list | None]:
+    """The JAX package's weight pytree (leaves as numpy arrays) → the port's
+    weights, ``router_bias`` included when present; the optional per-layer
+    quantized expert tuples ``(w1, s1, w2, s2)`` likewise.  Returns
+    ``(params, moe_weights_q or None)``."""
+    dev = resolve_device(device)
+    params = {k: _to_torch(v, dev) for k, v in params_np.items() if k != "layers"}
+    params["layers"] = [{k: _to_torch(v, dev) for k, v in lw.items()}
+                        for lw in params_np["layers"]]
+    moe = None
+    if moe_weights_q_np is not None:
+        moe = [tuple(_to_torch(a, dev) for a in t) for t in moe_weights_q_np]
+    return params, moe
+
+
+def quantize_moe_weights(cfg: DeepSeekV3Config, params: dict):
+    """Per-layer W8A8 expert weights for the ring-GEMM MoE."""
+    return [quantize_expert_weights(lw["w_gate"], lw["w_up"], lw["w_down"])
+            for lw in params["layers"]]
+
+
+def init_kv_cache(cfg: DeepSeekV3Config, num_pages: int, dtype=torch.bfloat16,
+                  device="cuda") -> list[dict]:
+    dev = resolve_device(device)
+    return [{
+        "nope": torch.zeros((num_pages, 1, cfg.page_size, cfg.kv_lora_rank), dtype=dtype,
+                            device=dev),
+        "rope": torch.zeros((num_pages, 1, cfg.qk_rope_dim, cfg.page_size), dtype=dtype,
+                            device=dev),
+    } for _ in range(cfg.num_layers)]
+
+
+def embed(params: dict, ids: torch.Tensor) -> torch.Tensor:
+    return params["embed"][ids.long()]
+
+
+def lm_head(params: dict, x: torch.Tensor) -> torch.Tensor:
+    w = params["w_lm"] if "w_lm" in params else params["embed"].T
+    return rms_norm_ref(x, params["final_ln"]) @ w
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _mla_qkv(cfg: DeepSeekV3Config, lw: dict, x, cos, sin):
+    """Float MLA prologue: hidden → (absorbed q_nope, q_rope, latent kv, rope k)."""
+    n = x.shape[0]
+    lat, rope = cfg.kv_lora_rank, cfg.qk_rope_dim
+    h1 = rms_norm_ref(x, lw["ln1"])
+    f = h1 @ lw["wdqkv"]                                      # [N, lat + rope + q_lora]
+    ckv, kpe, cq = f[:, :lat], f[:, lat : lat + rope], f[:, lat + rope :]
+    q = (rms_norm_ref(cq, lw["q_ln"]) @ lw["wuq"]).reshape(n, cfg.num_heads, cfg.qk_dim)
+    qn, qpe = q[..., : cfg.qk_nope_dim], q[..., cfg.qk_nope_dim :]
+    q_lat = torch.einsum("nhk,hkl->nhl", qn, lw["wuk"])      # [N, H, lat]
+    qpe = apply_rope(qpe, cos, sin)
+    kpe = apply_rope(kpe[:, None, :], cos, sin)[:, 0]         # [N, rope]
+    k_lat = rms_norm_ref(ckv, lw["kv_ln"])                    # [N, lat]
+    return q_lat, qpe, k_lat, kpe, h1
+
+
+def _write_nope(cfg: DeepSeekV3Config, k_lat, cache, slot_mapping):
+    return reshape_and_cache(k_lat[:, None, :].to(cache.dtype), cache, slot_mapping)
+
+
+def _mla_output(cfg: DeepSeekV3Config, lw: dict, attn_lat):
+    """Latent attention output → hidden (absorbed V up-proj + output proj)."""
+    o = torch.einsum("nhl,hlv->nhv", attn_lat.to(lw["wvu"].dtype), lw["wvu"])
+    return o.reshape(o.shape[0], -1) @ lw["wo"]
+
+
+def _router(cfg: DeepSeekV3Config, lw: dict, x):
+    """Top-k routing (``softmax``, or DeepSeek-V3's ``sigmoid_v3``: sigmoid
+    scores, choice by score + bias within the ``topk_group`` best groups,
+    weights the raw scores of the chosen experts, optionally sum-normalized,
+    times ``routed_scaling_factor``)."""
+    logits = x.float() @ lw["router"].float()
+    if cfg.router_scoring == "softmax":
+        topw, topi = torch.topk(logits, cfg.topk, dim=-1)
+        return topi.to(torch.int32), torch.softmax(topw, dim=-1)
+    if cfg.router_scoring != "sigmoid_v3":
+        raise ValueError(f"unknown router_scoring {cfg.router_scoring!r}")
+    n, e = logits.shape
+    scores = torch.sigmoid(logits)
+    choice = scores + lw["router_bias"].float()[None, :]
+    if cfg.n_group > 1:
+        g = choice.reshape(n, cfg.n_group, e // cfg.n_group)
+        group_scores = torch.topk(g, 2, dim=-1).values.sum(dim=-1)       # [N, G]
+        gi = torch.topk(group_scores, cfg.topk_group, dim=-1).indices
+        gmask = torch.zeros((n, cfg.n_group), dtype=torch.bool, device=x.device)
+        gmask.scatter_(1, gi, True)
+        choice = torch.where(gmask.repeat_interleave(e // cfg.n_group, dim=1), choice, 0.0)
+    topi = torch.topk(choice, cfg.topk, dim=-1).indices
+    topw = scores.gather(1, topi)
+    if cfg.norm_topk_prob:
+        topw = topw / (topw.sum(dim=-1, keepdim=True) + 1e-20)
+    return topi.to(torch.int32), topw * cfg.routed_scaling_factor
+
+
+def _shared_expert(lw: dict, x):
+    g = x @ lw["ws_gate"]
+    u = x @ lw["ws_up"]
+    return (g * torch.sigmoid(g) * u) @ lw["ws_down"]
+
+
+def _gmm_moe(cfg: DeepSeekV3Config, wq: tuple, x, topk_idx, topk_w, *, plain: bool = False):
+    """Single-GPU W8A8 grouped MoE: per-token int8 quant → counting sort of the
+    (token, k) pairs by expert → ``gmm1_ring`` (gather, GMM1, SwiGLU, requant)
+    → ``gmm2_combine_ring`` (GMM2 and the weighted top-k combine)."""
+    w1, s1, w2, s2 = wq
+    n, hidden = x.shape
+    k = topk_idx.shape[1]
+    if not (n <= 512 and hidden % 128 == 0 and w2.shape[1] % 128 == 0
+            and w1.shape[2] % 256 == 0):
+        raise NotImplementedError(
+            f"MoE of {n} tokens (hidden {hidden}, intermediate {w2.shape[1]}) needs the "
+            "BlockSpec grouped GEMMs (K8 grouped_matmul / grouped_matmul_combine), not "
+            "ported yet (ROADMAP queue B)")
+    xf = x.float()
+    sx_tok = torch.clamp_min(xf.abs().amax(dim=-1) / INT8_MAX, 1e-12)
+    xq_tok = saturate_int8(xf / sx_tok[:, None])
+    flat_e = topk_idx.reshape(-1).long()
+    gsizes = torch.bincount(flat_e, minlength=w1.shape[0]).to(torch.int32)
+    src = torch.argsort(flat_e, stable=True).to(torch.int32)      # sorted slot → pair row
+    dest = torch.empty_like(src)
+    dest[src.long()] = torch.arange(n * k, dtype=torch.int32, device=x.device)
+    tok_of_row = src // k
+    gm1, gm2 = (gmm1_ring_ref, gmm2_combine_ring_ref) if plain else (gmm1_ring,
+                                                                    gmm2_combine_ring)
+    h1, hs = gm1(xq_tok, tok_of_row, w1, gsizes, sx_tok, s1)
+    out = gm2(h1, w2, gsizes, hs, s2, dest.reshape(n, k), topk_w.float())
+    return out.to(x.dtype)
+
+
+def _moe_and_shared(cfg, lw, wq, x, plain):
+    h2 = rms_norm_ref(x, lw["ln2"])
+    topk_idx, topk_w = _router(cfg, lw, h2)
+    return x + _gmm_moe(cfg, wq, h2, topk_idx, topk_w, plain=plain) + _shared_expert(lw, h2)
+
+
+def _require_moe_q(moe_weights_q) -> None:
+    if moe_weights_q is None:
+        raise NotImplementedError("the dense float MoE is not ported yet: pass "
+                                  "moe_weights_q (quantize_moe_weights) (ROADMAP queue A)")
+
+
+def _attention_inputs(cfg, lw, x, cos, sin, cache, slot_mapping):
+    """Prologue + cache writes (in place) → the absorbed query [N, H, lat+rope]."""
+    q_lat, qpe, k_lat, kpe, _ = _mla_qkv(cfg, lw, x, cos, sin)
+    _write_nope(cfg, k_lat, cache["nope"], slot_mapping)
+    reshape_and_cache_transposed(kpe[:, None, :].to(cache["rope"].dtype), cache["rope"],
+                                 slot_mapping)
+    return torch.cat([q_lat, qpe], dim=-1).to(cache["rope"].dtype)
+
+
+# ---------------------------------------------------------------------------
+# serving steps
+# ---------------------------------------------------------------------------
+
+def decode_step(cfg: DeepSeekV3Config, params: dict, hidden, positions, kv_caches,
+                block_table, seq_lens, slot_mapping, moe_weights_q=None, *,
+                plain: bool = False):
+    """One decode step over all layers: ``hidden [N, H]`` current-token
+    activations at ``positions``; ``seq_lens`` include the current token;
+    slot ``-1`` rows write nothing.  Returns ``(hidden, kv_caches)`` with the
+    caches updated in place."""
+    _require_moe_q(moe_weights_q)
+    attend = decode_mla_ref if plain else decode_mla
+    cos, sin = rope_cos_sin(positions, cfg.qk_rope_dim)
+    x = hidden
+    for li, lw in enumerate(params["layers"]):
+        cache = kv_caches[li]
+        q = _attention_inputs(cfg, lw, x, cos, sin, cache, slot_mapping)
+        attn = attend(q, cache["nope"], cache["rope"], seq_lens, cfg.sm_scale, block_table)
+        x = x + _mla_output(cfg, lw, attn)
+        x = _moe_and_shared(cfg, lw, moe_weights_q[li], x, plain)
+    return x, kv_caches
+
+
+def prefill_step(cfg: DeepSeekV3Config, params: dict, hidden, seq_lens, kv_caches,
+                 block_tables, context_lens, slot_mapping, *, max_q: int | None = None,
+                 moe_weights_q=None, plain: bool = False):
+    """Varlen (chunked) prefill over all layers: ``hidden [S, H]`` packed by
+    request, ``seq_lens [B]`` new tokens, ``context_lens [B]`` totals including
+    them.  Returns ``(hidden, kv_caches)`` with the caches updated in place."""
+    _require_moe_q(moe_weights_q)
+    s = hidden.shape[0]
+    dev = hidden.device
+    sl = seq_lens.to(dev).long()
+    ctx = context_lens.to(dev).long()
+    ends = torch.cumsum(sl, 0)
+    req = torch.clamp(torch.searchsorted(ends, torch.arange(s, device=dev), right=True),
+                      0, sl.shape[0] - 1)
+    j = torch.arange(s, device=dev) - (ends[req] - sl[req])
+    positions = ctx[req] - sl[req] + j
+    cos, sin = rope_cos_sin(positions, cfg.qk_rope_dim)
+    x = hidden
+    for li, lw in enumerate(params["layers"]):
+        cache = kv_caches[li]
+        q = _attention_inputs(cfg, lw, x, cos, sin, cache, slot_mapping)
+        if plain:
+            attn = mla_prefill_ref(q, cache["nope"], cache["rope"], seq_lens, block_tables,
+                                   context_lens, cfg.sm_scale)
+        else:
+            attn = mla_prefill_pallas(q, cache["nope"], cache["rope"], seq_lens,
+                                      block_tables, context_lens, cfg.sm_scale, max_q=max_q)
+        x = x + _mla_output(cfg, lw, attn)
+        x = _moe_and_shared(cfg, lw, moe_weights_q[li], x, plain)
+    return x, kv_caches

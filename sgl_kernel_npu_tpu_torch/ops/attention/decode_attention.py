@@ -1,0 +1,94 @@
+"""Paged MLA decode attention: plain version and the Hopper kernel (K2).
+
+Counterpart of ``sgl_kernel_npu_tpu/ops/attention/decode_attention.py``
+(``decode_mla_ref``, ``decode_mla``).  Layouts are the JAX package's: q
+``[B, Hq, 512 + 64]`` (nope ‖ rope), latent cache ``[pages, 1, page, 512]``,
+rope cache transposed ``[pages, 1, 64, page]``; V aliases K_nope.  The CUDA
+kernel is ``csrc/decode_mla.cu``.  The int8 latent cache of the JAX package is
+not ported yet: both paths raise for it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sgl_kernel_npu_tpu_torch.utils import cuda_lib
+from sgl_kernel_npu_tpu_torch.utils.common import cdiv, on_cuda
+from sgl_kernel_npu_tpu_torch.utils.counters import counted
+
+NEG_INF = -1e30
+D_NOPE, D_ROPE = 512, 64   # widths the CUDA kernels are built for
+
+
+def _gather_pages(buffer: torch.Tensor, block_table: torch.Tensor, max_len: int) -> torch.Tensor:
+    """``[pages, H, page, D]`` + ``[B, max_pages]`` → ``[B, H, max_len, D]``."""
+    _, h, page_size, d = buffer.shape
+    n_pages = cdiv(max_len, page_size)
+    pages = buffer[block_table[:, :n_pages].long()]            # [B, n, H, page, D]
+    b = pages.shape[0]
+    return pages.permute(0, 2, 1, 3, 4).reshape(b, h, n_pages * page_size, d)[:, :, :max_len]
+
+
+def _reject_int8(k_nope_buffer: torch.Tensor) -> None:
+    if k_nope_buffer.dtype == torch.int8:
+        raise NotImplementedError(
+            "the int8 latent cache is not ported yet (ROADMAP queue A)")
+
+
+def check_mla_operands(q, k_nope_buffer, k_rope_buffer) -> None:
+    """What the CUDA MLA kernels take: bf16 throughout, 512 + 64 wide, one
+    latent head, the transposed rope layout, contiguous caches."""
+    page_size = k_nope_buffer.shape[2]
+    if not q.dtype == k_nope_buffer.dtype == k_rope_buffer.dtype == torch.bfloat16:
+        raise ValueError(f"the CUDA MLA kernels take bf16 q and caches, got "
+                         f"{q.dtype}, {k_nope_buffer.dtype}, {k_rope_buffer.dtype}")
+    if (q.shape[-1] != D_NOPE + D_ROPE or k_nope_buffer.shape[1] != 1
+            or k_nope_buffer.shape[3] != D_NOPE
+            or tuple(k_rope_buffer.shape[1:]) != (1, D_ROPE, page_size)):
+        raise ValueError(f"MLA kernel shapes: q [.., 576], latent [P, 1, page, 512], "
+                         f"rope [P, 1, 64, page]; got {tuple(q.shape)}, "
+                         f"{tuple(k_nope_buffer.shape)}, {tuple(k_rope_buffer.shape)}")
+    if not (k_nope_buffer.is_contiguous() and k_rope_buffer.is_contiguous()):
+        raise ValueError("paged caches must be contiguous")
+
+
+def decode_mla_ref(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale, block_table):
+    """Plain paged MLA decode attention (f32 math).  ``kv_seq_lens`` count the
+    keys each sequence sees; the whole block table is gathered."""
+    d_nope = k_nope_buffer.shape[-1]
+    max_len = block_table.shape[1] * k_nope_buffer.shape[2]
+    q_nope, q_pe = q[..., :d_nope].float(), q[..., d_nope:].float()
+    k_nope = _gather_pages(k_nope_buffer, block_table, max_len)[:, 0].float()   # [B, L, 512]
+    k_rope = _gather_pages(k_rope_buffer.transpose(-1, -2), block_table,
+                           max_len)[:, 0].float()                               # [B, L, 64]
+    qk = torch.einsum("bhd,bld->bhl", q_nope, k_nope)
+    qk = (qk + torch.einsum("bhd,bld->bhl", q_pe, k_rope)) * sm_scale
+    pos = torch.arange(max_len, device=q.device)
+    qk = torch.where(pos[None, None, :] < kv_seq_lens.to(q.device)[:, None, None], qk, NEG_INF)
+    p = torch.softmax(qk, dim=-1)
+    return torch.einsum("bhl,bld->bhd", p, k_nope).to(q.dtype)
+
+
+@counted
+def decode_mla(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale, block_table):
+    """Paged MLA decode attention → ``[B, Hq, 512]``.
+
+    CUDA tensors launch ``csrc/decode_mla.cu``; CPU tensors take
+    :func:`decode_mla_ref`.  Pad rows (ctx 1, block table of zeros) are safe."""
+    _reject_int8(k_nope_buffer)
+    if not on_cuda(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, block_table):
+        return decode_mla_ref(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale,
+                              block_table)
+    check_mla_operands(q, k_nope_buffer, k_rope_buffer)
+    b, hq, _ = q.shape
+    q = q.contiguous()
+    bt = block_table.to(torch.int32).contiguous()
+    ctx = kv_seq_lens.to(torch.int32).contiguous()
+    out = torch.empty((b, hq, D_NOPE), dtype=q.dtype, device=q.device)
+    lib = cuda_lib.load_library()
+    cuda_lib.check(lib, lib.decode_mla_launch(
+        q.data_ptr(), k_nope_buffer.data_ptr(), k_rope_buffer.data_ptr(), bt.data_ptr(),
+        ctx.data_ptr(), out.data_ptr(), b, hq, bt.shape[1], k_nope_buffer.shape[2],
+        float(sm_scale), cuda_lib.stream_ptr(q)), "decode_mla")
+    decode_mla.launches += 1
+    return out

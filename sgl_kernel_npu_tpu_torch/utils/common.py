@@ -1,0 +1,49 @@
+"""Shared helpers for the port's modules.
+
+Counterpart of ``sgl_kernel_npu_tpu/utils/common.py``.  Where the JAX package
+chose Pallas interpret mode from the backend (``interpret_default``), the port
+chooses per tensor: a wrapper runs its hand-written CUDA kernel for a CUDA
+tensor and its plain PyTorch version for a CPU tensor, and never falls back
+from one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def kernels_available() -> bool:
+    """True where the hand-written kernels can run: a CUDA device is present.
+    (Replaces ``interpret_default``: there is no interpret mode for CUDA.)"""
+    return torch.cuda.is_available()
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on.  ``"cuda"`` (the default of every
+    entry point) raises when no GPU is present: the port never carries on
+    quietly on the CPU unless the caller asks for ``"cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "PyTorch path on the CPU")
+    return dev
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """Dispatch rule of every kernel wrapper: all CUDA → kernel, all CPU →
+    plain version, anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"tensors must all lie on one CUDA device or all on the CPU, got {kinds}")

@@ -1,0 +1,37 @@
+"""Launch counters of the kernel wrappers.
+
+Each kernel wrapper carries a plain integer ``launches`` that it raises by one
+where it launches its CUDA kernel (and nowhere else: the plain path for CPU
+tensors does not count).  A run resets the counters, drives the main path, and
+reads them to show which kernels the path went through.
+"""
+
+from __future__ import annotations
+
+
+def counted(fn):
+    """Give a wrapper its ``launches`` counter, starting at 0."""
+    fn.launches = 0
+    return fn
+
+
+def wrappers() -> dict:
+    """Every kernel wrapper of the port, by name."""
+    from sgl_kernel_npu_tpu_torch.ops import gmm_ring
+    from sgl_kernel_npu_tpu_torch.ops.attention import decode_attention, mla_prefill
+
+    return {
+        "decode_mla": decode_attention.decode_mla,
+        "mla_prefill_pallas": mla_prefill.mla_prefill_pallas,
+        "gmm1_ring": gmm_ring.gmm1_ring,
+        "gmm2_combine_ring": gmm_ring.gmm2_combine_ring,
+    }
+
+
+def reset() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read() -> dict[str, int]:
+    return {name: fn.launches for name, fn in wrappers().items()}

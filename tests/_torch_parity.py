@@ -1,0 +1,38 @@
+"""Shared by the port's parity tests (tests/test_torch_*.py): one numpy input
+goes to the JAX package (Pallas kernels in interpret mode on the CPU) and to
+the port's plain PyTorch path, and the outputs come back as numpy."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+# the suite runs several pytest workers on a few cores: keep each one small
+torch.set_num_threads(2)
+
+
+def jx(a, dtype=None):
+    """numpy → jax array (optionally cast, e.g. to bf16)."""
+    arr = jnp.asarray(a)
+    return arr if dtype is None else arr.astype(dtype)
+
+
+def tt(a, dtype=None):
+    """numpy → CPU torch tensor (optionally cast; bf16 rounds like jnp)."""
+    t = torch.from_numpy(np.array(a))
+    return t if dtype is None else t.to(dtype)
+
+
+def np32(x):
+    """jax array or torch tensor → float32 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def port_config(jax_cfg, port_cls):
+    """The port's config with the JAX config's values for the fields it has
+    (the port leaves out DSA, the int8 cache and the unused rope base)."""
+    return port_cls(**{f.name: getattr(jax_cfg, f.name)
+                       for f in dataclasses.fields(port_cls)})

@@ -1,0 +1,129 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: they skip where no GPU is present (a CUDA kernel has no CPU
+mode).  On a machine with the card:
+
+    python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
+
+Tolerances: bf16 attention outputs 2e-2 (f32 math, another summation order,
+bf16 rounding of the output); int8 GMM1 outputs 1 level and scales rtol 1e-5;
+f32 GMM2 + combine 1e-5 of the largest value (f32 sums in another order)."""
+
+import pytest
+import torch
+
+from sgl_kernel_npu_tpu_torch.ops import gmm_ring
+from sgl_kernel_npu_tpu_torch.ops.attention import decode_attention as da
+from sgl_kernel_npu_tpu_torch.ops.attention import mla_prefill as mp
+from sgl_kernel_npu_tpu_torch.utils.common import kernels_available
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not kernels_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _cache(gen, dev, n_pages, page, dtype):
+    kn = torch.randn((n_pages, 1, page, 512), generator=gen, device=dev).to(dtype)
+    kr = torch.randn((n_pages, 1, 64, page), generator=gen, device=dev).to(dtype)
+    return kn, kr
+
+
+@pytest.mark.parametrize("heads,page", [(128, 128), (8, 16), (20, 4)])
+def test_decode_mla_kernel(dev, heads, page):
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ctx = [1, page + 3, 5 * page, 2]
+    b, max_pages = len(ctx), 6
+    kn, kr = _cache(gen, dev, b * max_pages + 1, page, dtype)
+    bt = (torch.arange(b * max_pages, device=dev, dtype=torch.int32) + 1).reshape(b, max_pages)
+    bt = torch.cat([bt, torch.zeros((1, max_pages), dtype=torch.int32, device=dev)])  # pad row
+    ctx_t = torch.tensor(ctx + [1], dtype=torch.int32, device=dev)
+    q = torch.randn((b + 1, heads, 576), generator=gen, device=dev).to(dtype)
+    before = da.decode_mla.launches
+    got = da.decode_mla(q, kn, kr, ctx_t, 0.07, bt)
+    want = da.decode_mla_ref(q, kn, kr, ctx_t, 0.07, bt)
+    torch.cuda.synchronize()
+    assert da.decode_mla.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("heads", [128, 8])
+def test_mla_prefill_kernel(dev, heads):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    page, max_pages = 16, 6
+    seq, ctx = [1, 37, 64], [1, 50, 90]
+    kn, kr = _cache(gen, dev, 3 * max_pages, page, torch.bfloat16)
+    bt = torch.arange(3 * max_pages, device=dev, dtype=torch.int32).reshape(3, max_pages)
+    s = sum(seq) + 3
+    q = torch.randn((s, heads, 576), generator=gen, device=dev).to(torch.bfloat16)
+    seq_t = torch.tensor(seq, dtype=torch.int32, device=dev)
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    got = mp.mla_prefill_pallas(q, kn, kr, seq_t, bt, ctx_t, 0.07, max_q=64)
+    want = mp.mla_prefill_ref(q, kn, kr, seq_t, bt, ctx_t, 0.07)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert bool((got[-3:] == 0).all())
+
+
+@pytest.mark.parametrize("sizes", [(0, 5, 0, 17, 1, 0, 40, 1), (16,) * 8])
+def test_gmm_ring_kernels(dev, sizes):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    g, k, n, h, n_tok, ktop = 8, 1024, 512, 768, 12, 8
+    s = sum(sizes)
+    w1 = torch.randint(-127, 128, (g, k, n), generator=gen, device=dev, dtype=torch.int8)
+    w2 = torch.randint(-127, 128, (g, n // 2, h), generator=gen, device=dev, dtype=torch.int8)
+    s1 = torch.rand((g, n), generator=gen, device=dev) / 100
+    s2 = torch.rand((g, h), generator=gen, device=dev) / 100
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    tok = torch.randint(0, n_tok + 1, (s,), generator=gen, device=dev, dtype=torch.int32)
+    xq = torch.randint(-127, 128, (n_tok, k), generator=gen, device=dev, dtype=torch.int8)
+    sx = torch.rand(n_tok, generator=gen, device=dev) / 50
+    h1, hs = gmm_ring.gmm1_ring(xq, tok, w1, gs, sx, s1)
+    h1_p, hs_p = gmm_ring.gmm1_ring_ref(xq, tok, w1, gs, sx, s1)
+    torch.cuda.synchronize()
+    assert int((h1.int() - h1_p.int()).abs().max()) <= 1
+    torch.testing.assert_close(hs, hs_p, rtol=1e-5, atol=0)
+    dest = torch.randint(0, s + 4, (n_tok, ktop), generator=gen, device=dev,
+                         dtype=torch.int32)   # some rows past the groups' total
+    topw = torch.rand((n_tok, ktop), generator=gen, device=dev)
+    init = torch.randn((n_tok, h), generator=gen, device=dev)
+    out = gmm_ring.gmm2_combine_ring(h1_p, w2, gs, hs_p, s2, dest, topw, init=init)
+    out_p = gmm_ring.gmm2_combine_ring_ref(h1_p, w2, gs, hs_p, s2, dest, topw, init=init)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5 * float(out_p.abs().max()))
+
+
+def test_decode_step_kernels_match_plain(dev):
+    """A small model with the kernels' widths (latent 512, rope 64): one decode
+    step through the kernels equals the plain path (bf16 activations)."""
+    from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as m
+
+    cfg = m.DeepSeekV3Config(vocab_size=256, hidden=512, num_layers=2, num_heads=16,
+                             kv_lora_rank=512, qk_nope_dim=64, q_lora_rank=128,
+                             v_head_dim=64, num_experts=16, topk=4, moe_intermediate=256,
+                             page_size=16, router_scoring="sigmoid_v3", n_group=4,
+                             topk_group=2, routed_scaling_factor=2.5)
+    params = m.init_weights(cfg, 0, torch.bfloat16, device=dev)
+    moe = m.quantize_moe_weights(cfg, m.init_weights(cfg, 1, torch.float32, device=dev))
+    caches = m.init_kv_cache(cfg, 40, torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for c in caches:
+        c["nope"].copy_(torch.randn(c["nope"].shape, generator=gen, device=dev))
+        c["rope"].copy_(torch.randn(c["rope"].shape, generator=gen, device=dev))
+    b = 6
+    ctx = torch.tensor([1, 9, 30, 64, 17, 2], dtype=torch.int32, device=dev)
+    bt = (torch.arange(b * 6, dtype=torch.int32, device=dev) + 1).reshape(b, 6)
+    pos = ctx - 1
+    slots = bt[torch.arange(b, device=dev), pos // 16] * 16 + pos % 16
+    slots[-1] = -1
+    x = torch.randn((b, cfg.hidden), generator=gen, device=dev).to(torch.bfloat16)
+    y_k, _ = m.decode_step(cfg, params, x, pos, caches, bt, ctx, slots, moe)
+    y_p, _ = m.decode_step(cfg, params, x, pos, caches, bt, ctx, slots, moe, plain=True)
+    torch.cuda.synchronize()
+    rel = float((y_k.float() - y_p.float()).abs().max() / y_p.float().abs().max())
+    assert rel < 3e-2, rel

@@ -1,0 +1,136 @@
+"""Port: the serving engine with the DeepSeek-V3 W8A8 adapter on the CPU.
+
+The port's Engine must equal the port's straight-line prefill + decode chain
+token for token (same kernels' plain versions, same arithmetic); radix reuse
+and page release must work; and teacher-forced on the port's tokens, the JAX
+package's adapter path must give the same logits (tolerance 1% of max|logit|:
+int8 requant flips and the JAX GMM2's bf16 expert outputs, as in
+test_torch_deepseek_v3.py) and log-probabilities (atol 2e-2)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import jx, np32, port_config
+from sgl_kernel_npu_tpu.models import deepseek_v3 as jm
+from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as tm
+from sgl_kernel_npu_tpu_torch.runtime.engine import Engine, deepseek_adapter
+
+PROMPT = [5, 9, 2, 33, 17, 4, 8, 21, 60, 3]       # 10 tokens: 2.5 pages of 4
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg = jm.DeepSeekV3Config(num_layers=1, page_size=4, vocab_size=61)
+    params = jm.init_weights(jax.random.key(3), jcfg, jnp.float32)
+    moe_j = jm.quantize_moe_weights(jcfg, params)
+    tparams, moe_t = tm.from_jax_params(jax.tree.map(np.asarray, params),
+                                        jax.tree.map(np.asarray, moe_j), device="cpu")
+    tcfg = port_config(jcfg, tm.DeepSeekV3Config)
+    return jcfg, params, moe_j, tcfg, tparams, moe_t
+
+
+def _engine(model, num_pages=64, **kw):
+    _, _, _, tcfg, tparams, moe_t = model
+    kw = {"max_batch": 2, "max_pages_per_req": 16, "prefill_chunk": 8, **kw}
+    return Engine(deepseek_adapter(tcfg, tparams, moe_weights_q=moe_t, device="cpu"),
+                  num_pages=num_pages, device="cpu", **kw)
+
+
+def _chain(model, prompt, n_new):
+    """Straight-line generation through the port's model functions: the whole
+    prompt in one prefill, then one decode per token; returns (tokens, logits)."""
+    _, _, _, cfg, params, moe = model
+    caches = tm.init_kv_cache(cfg, 32, torch.float32, device="cpu")
+    page = cfg.page_size
+    bt = torch.arange(1, 17, dtype=torch.int32).reshape(1, 16)
+    slot = lambda i: int(bt[0, i // page]) * page + i % page
+    n = len(prompt)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)
+    h, caches = tm.prefill_step(cfg, params, tm.embed(params, i32(prompt)), i32([n]), caches,
+                                bt, i32([n]), i32([slot(i) for i in range(n)]), max_q=16,
+                                moe_weights_q=moe)
+    logits = [tm.lm_head(params, h[n - 1 : n])[0]]
+    toks = [int(torch.argmax(logits[-1]))]
+    for _ in range(n_new - 1):
+        i = n + len(toks) - 1
+        y, caches = tm.decode_step(cfg, params, tm.embed(params, i32([toks[-1]])), i32([i]),
+                                   caches, bt, i32([i + 1]), i32([slot(i)]),
+                                   moe_weights_q=moe)
+        logits.append(tm.lm_head(params, y)[0])
+        toks.append(int(torch.argmax(logits[-1])))
+    return toks, torch.stack(logits)
+
+
+def test_engine_matches_chain_batched_and_mixed(model):
+    """Two prompts served together, the second admitted while the first
+    decodes (mixed prefill + decode ticks), each equal to its own chain."""
+    p2 = [40, 41, 42, 43, 44, 45, 46, 47, 48, 49, 50, 51]
+    eng = _engine(model, prefill_chunk=4)
+    r1 = eng.add_request(PROMPT, 6)
+    while not any(r.pos >= r.prompt_len for r in eng.running):
+        eng.step()
+    r2 = eng.add_request(p2, 4)
+    while eng.waiting or eng.running:
+        eng.step()
+    assert eng.finished[r1] == _chain(model, PROMPT, 6)[0]
+    assert eng.finished[r2] == _chain(model, p2, 4)[0]
+    assert eng.cm.free_pages + eng.cm.cached_pages == 64
+
+
+def test_radix_reuse_and_page_release(model):
+    shared = [5, 9, 2, 33, 17, 4, 8, 21]            # 2 full pages
+    p1, p2 = shared + [60, 3], shared + [11, 12, 13]
+    eng = _engine(model)
+    out1 = eng.run([p1], 3)[0]
+    pre1 = eng.stats["prefill_tokens"]
+    assert eng.cm.cached_pages >= 2
+    out2 = eng.run([p2], 3)[0]
+    assert eng.stats["cached_tokens"] >= 8
+    assert eng.stats["prefill_tokens"] - pre1 == len(p2) - 8   # only the tail
+    assert out1 == _chain(model, p1, 3)[0] and out2 == _chain(model, p2, 3)[0]
+    got = eng.run([p1, p1], 2)                      # identical in-flight prompts
+    assert got[0] == got[1] == out1[:2]
+    assert eng.cm.free_pages + eng.cm.cached_pages == 64
+
+
+def test_teacher_forced_logits_match_jax_adapter(model):
+    from sgl_kernel_npu_tpu.ops.sampling import token_logprobs as jlogprobs
+    from sgl_kernel_npu_tpu.runtime.engine import deepseek_adapter as jadapter
+
+    jcfg, params, moe_j, _, _, _ = model
+    n_new = 4
+    eng = _engine(model)
+    rid = eng.add_request(PROMPT, n_new, logprobs=True)
+    while eng.waiting or eng.running:
+        eng.step()
+    toks, lps = eng.finished[rid], eng.logprobs[rid]
+    chain_toks, chain_logits = _chain(model, PROMPT, n_new)
+    assert toks == chain_toks
+
+    a = jadapter(jcfg, params, moe_weights_q=moe_j)
+    caches = a.init_cache(32, 2)
+    page = jcfg.page_size
+    bt = np.arange(1, 17, dtype=np.int32).reshape(1, 16)
+    slot = lambda i: int(bt[0, i // page]) * page + i % page
+    n = len(PROMPT)
+    h, caches = a.prefill_step(a.embed(jx(np.asarray(PROMPT, np.int32))),
+                               jx(np.asarray([n], np.int32)), caches, jx(bt),
+                               jx(np.asarray([n], np.int32)),
+                               jx(np.asarray([slot(i) for i in range(n)], np.int32)),
+                               None, None)
+    logits = [a.lm_head(h[n - 1 : n])[0]]
+    for t, tok in enumerate(toks[:-1]):             # feed the port's tokens
+        i = n + t
+        y, caches = a.decode_step(a.embed(jx(np.asarray([tok], np.int32))),
+                                  jx(np.asarray([i], np.int32)), caches, jx(bt),
+                                  jx(np.asarray([i + 1], np.int32)),
+                                  jx(np.asarray([slot(i)], np.int32)), None, None)
+        logits.append(a.lm_head(y)[0])
+    want = np.stack([np32(x) for x in logits])
+    np.testing.assert_allclose(np32(chain_logits), want, rtol=0,
+                               atol=0.01 * np.abs(want).max())
+    want_lp = np32(jlogprobs(jnp.asarray(want), jnp.asarray(toks, jnp.int32)))
+    np.testing.assert_allclose(np.asarray(lps), want_lp, atol=2e-2)
