@@ -7,26 +7,39 @@ Phases (any failure raises and the script exits non-zero without a result):
 
 1. Build the hand-written kernels from ``sgl_kernel_npu_tpu_torch/csrc`` with
    nvcc for sm_90a; print the build time and the card's name and power limit.
-2. Hold each kernel (decode_mla, mla_prefill_pallas, gmm1_ring,
-   gmm2_combine_ring) against its plain PyTorch version on the card, at the
-   main path's full-width shapes and at one small ragged case; time the
-   kernel, the plain version and, where one exists, a single PyTorch call
-   computing the same function (CUDA events, L2 flushed before each launch);
-   compute each kernel's bound from the bytes and operations of its inputs.
-3. Serve DeepSeek-V3 at its published widths (depth cut from 61 to 2 layers,
-   random weights from a seed) through ``Engine`` + ``deepseek_adapter`` with
-   W8A8 routed experts: 6 requests of 96-700 prompt tokens (two share a
-   256-token prefix, served so that the second reuses it from the radix
-   cache), 16 new tokens each.  Launch counts are reset just before and read
-   just after; every kernel must have run, every request finished and every
-   page come back.  Then one decode step on a live batch runs through the
-   kernels and through the plain versions, and their logits are compared.
-4. Print the kernels' JSON line, the card line, and last the result line
+2. Weights: DeepSeek-V3 at its published widths (depth cut from 61 to 2
+   layers, random weights from a seed), W8A8 routed experts, the fused
+   prologue's W8A8 weights (calibrated on the embeddings of the prompts
+   below) and the W8A8 dense weights.
+3. Hold each kernel (decode_mla, mla_prefill_pallas, gmm1_ring,
+   gmm2_combine_ring, quant_matmul, quant_per_token, swiglu_quant) against
+   its plain PyTorch version on the card, at the main path's full-width
+   shapes and at small ragged cases; time the kernel, the plain version and,
+   where one exists, a single PyTorch call computing the same function (CUDA
+   events, L2 flushed before each launch); compute each kernel's bound from
+   the bytes and operations of its inputs.
+4. Serve through ``Engine`` + ``deepseek_adapter``: 6 requests of 96-700
+   prompt tokens (two share a 256-token prefix, served so that the second
+   reuses it from the radix cache), 16 new tokens each; first with the float
+   MLA prologue (``moe_weights_q``), then with the fused W8A8 prologue
+   (``mla_wq`` too).  Launch counts are reset just before each run and read
+   just after; every kernel of the path must have run, every request
+   finished and every page come back.  After each run one decode step on a
+   live batch runs through the kernels and through the plain versions, and
+   their logits are compared.
+4b. The fully W8A8 layer (``mla_wq`` + ``dense_wq`` + ``moe_weights_q``)
+   through ``decode_step`` on the live batch and ``prefill_step`` on one
+   64-token chunk, each against its plain versions; all seven kernels must
+   have launched.
+5. ``torch.profiler`` breakdowns of a decode step, a mixed tick and the fully
+   W8A8 decode step.
+6. Print the kernels' JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -39,7 +52,7 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device is available")
 
 from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as m  # noqa: E402
-from sgl_kernel_npu_tpu_torch.ops import gmm_ring  # noqa: E402
+from sgl_kernel_npu_tpu_torch.ops import activation, gmm_ring, matmul, quant  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import decode_attention as da  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_prefill as mp  # noqa: E402
 from sgl_kernel_npu_tpu_torch.runtime.engine import Engine, deepseek_adapter  # noqa: E402
@@ -50,6 +63,7 @@ DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # dense tensor-core peaks, H100 SXM data sheet
 INT8_OPS = 1979e12
+F32_FLOPS = 67e12              # f32 outside the tensor cores
 
 # deepseek-ai/DeepSeek-V3 config.json: hidden 7168, 128 heads, kv_lora_rank 512,
 # q_lora_rank 1536, qk_nope 128, qk_rope 64, v_head 128, vocab 129280, 256 routed
@@ -70,8 +84,10 @@ MAX_BATCH, PREFILL_CHUNK, MAX_PAGES_PER_REQ, NUM_PAGES = 8, 64, 8, 64
 PROMPT_LENS = [96, 700, 150, 450, 520, 300]     # the 2nd and 6th share 256 tokens
 SHARED_PREFIX = 256
 NEW_TOKENS = 16
+BASE_KERNELS = ("decode_mla", "mla_prefill_pallas", "gmm1_ring", "gmm2_combine_ring")  # every path
 
 _flush_buf = None
+SPIN_CYCLES = 200_000          # ~100 us at the H100's 1.98 GHz boost clock
 
 
 def log(msg: str) -> None:
@@ -79,17 +95,22 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Median device time of ``fn`` over ``iters`` launches, each after a
-    64 MB write that evicts the 50 MB L2 (the main path finds these inputs
-    cold: a layer's weights and cache were last touched a layer ago)."""
+    """Median device time of ``fn`` over ``iters`` launches.  Before each: a
+    64 MB read that evicts the 50 MB L2 and leaves it clean (the main path
+    finds these inputs cold: a layer's weights and cache were last touched a
+    layer ago; a write would leave dirty lines whose write-back the timed
+    kernel would pay), then a ~100 us device spin, so that the host has
+    enqueued ``fn``'s launches before the start event runs and the events time
+    the device's work, not the host's Python overhead before the launch."""
     global _flush_buf
     if _flush_buf is None:
-        _flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+        _flush_buf = torch.ones(16 << 20, dtype=torch.int32, device=DEV)
     fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(iters):
-        _flush_buf.zero_()
+        _flush_buf.sum()
+        torch.cuda._sleep(SPIN_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -302,8 +323,144 @@ def check_gmm_small(gen):
         raise AssertionError(f"gmm small case disagrees: {err1}, {err2}")
 
 
+def check_quant_matmul(gen, label, w, ds, bias, m, out_dtype=torch.float32, timed=False):
+    """K1 at ``w [N, K]`` (a path weight or a random one) on ``m`` random int8
+    rows: exact equality in f32 and bf16 out (exact integer sums, the same f32
+    epilogue).  Timed: the kernel, its plain version, and ``torch._int_mm``
+    (cuBLASLt int8 -> int32, rows padded to 32 as it refuses 16 or fewer; its
+    epilogue, + bias and x descale, is not timed)."""
+    n, k = w.shape
+    x = torch.randint(-128, 128, (m, k), generator=gen, device=DEV, dtype=torch.int8)
+    got = matmul.quant_matmul(x, w, ds, bias, out_dtype=out_dtype)
+    want = matmul.quant_matmul_ref(x, w, ds, bias, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    err = max_abs(got, want)
+    log(f"  quant_matmul {label}: M={m} N={n} K={k} bias={bias is not None} "
+        f"out={str(out_dtype)[6:]}: max|err| {err:.3e} (tol 0: exact)")
+    if err != 0:
+        raise AssertionError(f"quant_matmul disagrees with its plain version: {err}")
+    if not timed:
+        return None
+    r = dict(err=err,
+             ms=time_ms(lambda: matmul.quant_matmul(x, w, ds, bias, out_dtype=out_dtype), 50),
+             plain_ms=time_ms(lambda: matmul.quant_matmul_ref(x, w, ds, bias,
+                                                              out_dtype=out_dtype), 5))
+    xp = torch.zeros((max(32, -(-m // 8) * 8), k), dtype=torch.int8, device=DEV)
+    xp[:m] = x
+    wt = w.t()
+    r["library_ms"] = time_ms(lambda: torch._int_mm(xp, wt), 50)
+    nbytes = (m * k + n * k + 4 * n + (0 if bias is None else 4 * n)
+              + m * n * got.element_size())
+    r["bound_ms"], r["bound_by"] = bound(nbytes, 2 * m * n * k, INT8_OPS)
+    log(f"    {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, torch._int_mm {r['library_ms']:.4f}, "
+        f"bound {r['bound_ms']:.4f} {r['bound_by']})")
+    return r
+
+
+def check_quant_per_token(gen, rows, hidden, timed):
+    """K5 on bf16 ``[rows, hidden]`` with a zero row: int8 within one level
+    (the kernel and torch may round a tie differently after an ulp of the
+    scale), scales rtol 1e-6."""
+    x = randn(gen, (rows, hidden), scale=3.0)
+    x[rows // 2] = 0
+    q, s = quant.quant_per_token(x)
+    q_p, s_p = quant.quant_per_token_ref(x)
+    torch.cuda.synchronize()
+    err = max_abs(q, q_p)
+    rel = float(((s - s_p).abs() / s_p).max())
+    log(f"  quant_per_token [{rows}, {hidden}] bf16, zero row: max|q err| {err:.0f} level "
+        f"(tol 1), scale rel err {rel:.2e} (tol 1e-6)")
+    if not (err <= 1 and rel <= 1e-6 and not q[rows // 2].any()):
+        raise AssertionError(f"quant_per_token disagrees with its plain version: {err}, {rel}")
+    if not timed:
+        return None
+    r = dict(err=err, ms=time_ms(lambda: quant.quant_per_token(x), 50),
+             plain_ms=time_ms(lambda: quant.quant_per_token_ref(x), 20), library_ms=None)
+    r["bound_ms"], r["bound_by"] = bound(3 * rows * hidden + 4 * rows, 4 * rows * hidden,
+                                         F32_FLOPS)
+    log(f"    {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} "
+        f"{r['bound_by']})")
+    return r
+
+
+def check_swiglu_quant(gen, rows, width, group, timed):
+    """K7a on bf16 ``[rows, width]`` (gate || up) with a zero row and, for a
+    group list, rows past its total: int8 within one level (the SiLU's exp
+    differs by ulps), scales rtol 1e-6, zero rows scale 0."""
+    x = randn(gen, (rows, width), scale=2.0)
+    x[0] = 0
+    gl = None if group is None else torch.tensor([2, 0, rows - 5], dtype=torch.int32,
+                                                 device=DEV)
+    kw = dict(group_list_type=1)
+    q, s = activation.swiglu_quant(x, gl, **kw)
+    q_p, s_p = activation.swiglu_quant_ref(x, gl, **kw)
+    torch.cuda.synchronize()
+    live = rows if gl is None else rows - 3
+    err = max_abs(q, q_p)
+    rel = float(((s[1:live] - s_p[1:live]).abs() / s_p[1:live]).max())
+    log(f"  swiglu_quant [{rows}, {width}] bf16, group_list {None if gl is None else 'type 1'}"
+        f" ({live} live rows, row 0 zero): max|q err| {err:.0f} level (tol 1), scale rel err "
+        f"{rel:.2e} (tol 1e-6)")
+    if not (err <= 1 and rel <= 1e-6 and float(s[0]) == 0 and not s[live:].any()
+            and not q[live:].any()):
+        raise AssertionError(f"swiglu_quant disagrees with its plain version: {err}, {rel}")
+    if not timed:
+        return None
+    r = dict(err=err, ms=time_ms(lambda: activation.swiglu_quant(x, gl, **kw), 50),
+             plain_ms=time_ms(lambda: activation.swiglu_quant_ref(x, gl, **kw), 20),
+             library_ms=None)
+    r["bound_ms"], r["bound_by"] = bound(2 * rows * width + rows * width // 2 + 4 * rows,
+                                         8 * rows * width // 2, F32_FLOPS)
+    log(f"    {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} "
+        f"{r['bound_by']})")
+    return r
+
+
+def summed(label, rows):
+    """One JSON row for a kernel called several times a layer: the sums of
+    the calls' times and bounds, the largest error."""
+    out = dict(err=max(r["err"] for r in rows),
+               ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+               bound_ms=sum(r["bound_ms"] for r in rows),
+               bound_by="/".join(sorted({r["bound_by"] for r in rows})))
+    libs = [r["library_ms"] for r in rows]
+    out["library_ms"] = None if None in libs else sum(libs)
+    log(f"  {label}: {out['ms']:.4f} ms (plain {out['plain_ms']:.4f}, library "
+        f"{out['library_ms']}, bound {out['bound_ms']:.4f} {out['bound_by']})")
+    return out
+
+
+def check_w8a8_kernels(gen, mla_wq, dense_wq):
+    """K1, K5 and K7a at the shapes one layer of the fully W8A8 path gives
+    them at decode (8 rows), ``wo`` also at a prefill chunk's 64 rows, and
+    small ragged cases.  Returns the JSON rows (per-layer sums at decode)."""
+    mw, dq = mla_wq[0], dense_wq[0]
+    gemms = [("wdqkv", mw.wdqkv, mw.descale1, mw.bias1), ("wuq", mw.wuq, mw.descale2, mw.bias2),
+             ("wo", *dq["wo"], None), ("ws_gate_up", *dq["ws_gate_up"], None),
+             ("ws_down", *dq["ws_down"], None)]
+    k1 = [check_quant_matmul(gen, name, w, ds, b, MAX_BATCH, timed=True)
+          for name, w, ds, b in gemms]
+    check_quant_matmul(gen, "wo (prefill chunk)", *dq["wo"], None, PREFILL_CHUNK, timed=True)
+    pad = torch.zeros((64, mw.wdqkv.shape[1]), dtype=torch.int8, device=DEV)
+    check_quant_matmul(gen, "wdqkv lane-padded (the JAX layout)",
+                       torch.cat([mw.wdqkv, pad]), torch.cat([mw.descale1, mw.descale1[:64]]),
+                       torch.cat([mw.bias1, mw.bias1[:64]]), MAX_BATCH)
+    w_small = torch.randint(-128, 128, (100, 64), generator=gen, device=DEV, dtype=torch.int8)
+    ds_small = torch.rand(100, generator=gen, device=DEV) / 1000
+    b_small = torch.randint(-1000, 1000, (100,), generator=gen, device=DEV, dtype=torch.int32)
+    for b in (None, b_small):
+        for dt in (torch.float32, torch.bfloat16):
+            check_quant_matmul(gen, "small ragged", w_small, ds_small, b, 1, dt)
+    k5 = [check_quant_per_token(gen, MAX_BATCH, h, True)
+          for h in (dq["wo"][0].shape[1], dq["ws_gate_up"][0].shape[1])]
+    k7 = check_swiglu_quant(gen, MAX_BATCH, dq["ws_gate_up"][0].shape[0], None, True)
+    check_swiglu_quant(gen, MAX_BATCH, dq["ws_gate_up"][0].shape[0], 1, False)
+    return (summed("quant_matmul, a layer's 5 GEMMs at decode", k1),
+            summed("quant_per_token, a layer's 2 calls at decode", k5), k7)
+
+
 # ---------------------------------------------------------------------------
-# phase 3: serve
+# phase 4: serve
 # ---------------------------------------------------------------------------
 
 class StepTimer:
@@ -331,8 +488,10 @@ def prompts(gen):
     return ids
 
 
-def serve(params, moe):
-    adapter = deepseek_adapter(CFG, params, torch.bfloat16, moe_weights_q=moe)
+def serve(params, moe, mla_wq=None):
+    """Serve the request mix; with ``mla_wq`` through the fused W8A8 prologue.
+    Returns the engine, the prompts and the launch counts of the run."""
+    adapter = deepseek_adapter(CFG, params, torch.bfloat16, moe_weights_q=moe, mla_wq=mla_wq)
     timer = StepTimer(adapter)
     eng = Engine(adapter, NUM_PAGES, max_batch=MAX_BATCH, max_pages_per_req=MAX_PAGES_PER_REQ,
                  prefill_chunk=PREFILL_CHUNK)
@@ -358,9 +517,14 @@ def serve(params, moe):
         raise AssertionError("KV pages leaked")
     if eng.stats["cached_tokens"] < SHARED_PREFIX:
         raise AssertionError(f"radix reuse missed: {eng.stats['cached_tokens']} cached tokens")
-    missing = [k for k, v in launches.items() if v == 0]
+    expected = BASE_KERNELS + (() if mla_wq is None else ("quant_matmul",))
+    missing = [k for k in expected if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    calls = eng.stats["decode_steps"] + launches["mla_prefill_pallas"] // CFG.num_layers
+    if mla_wq is not None and launches["quant_matmul"] != 2 * CFG.num_layers * calls:
+        raise AssertionError(f"quant_matmul launched {launches['quant_matmul']} times, not 2 "
+                             f"per layer in each of {calls} model calls")
     dec_tokens = len(rids) * (NEW_TOKENS - 1)      # the first token comes from prefill
     log(f"  served {len(rids)} requests (prompts {PROMPT_LENS}, {NEW_TOKENS} new tokens "
         f"each) in {wall:.2f} s wall; prefill {eng.stats['prefill_tokens']} tokens in "
@@ -374,67 +538,244 @@ def serve(params, moe):
     return eng, ps, launches
 
 
-def compare_plain_decode(eng, ps, params, moe):
-    """One decode step on a live batch, through the kernels and through the
-    plain versions (each run writes the same KV rows itself before it reads).
+def with_routes(fn, forced=None):
+    """Run ``fn()`` recording each layer's routing ``(ids, weights)`` →
+    ``(fn(), record)``.  With ``forced`` (another run's record) the router
+    hands out that run's routing, layer by layer, instead of choosing."""
+    record, router = [], m._router
+    replay = None if forced is None else iter(forced)
 
-    Routing is discrete: a row whose top-k expert set differs between the two
-    runs in any layer (a near-tie moved by one bf16 rounding) takes other
-    experts and its logits move by far more than rounding.  So the check
-    compares the rows whose routing agrees in every layer, and requires at
-    least half of the rows to be such rows."""
+    def recording_router(cfg, lw, x):
+        ids, w = router(cfg, lw, x) if replay is None else next(replay)
+        record.append((ids, w))
+        return ids, w
+
+    m._router = recording_router
+    try:
+        return fn(), record
+    finally:
+        m._router = router
+
+
+def same_routing(rec_a, rec_b, n):
+    """Which of the first ``n`` rows chose the same expert set in every layer."""
+    def ids(r):
+        return torch.sort(r[0][:n], dim=-1).values
+    return torch.stack([(ids(a) == ids(b)).all(-1) for a, b in zip(rec_a, rec_b)]).all(0)
+
+
+def routing_rule(label, got, want, same, logits: bool, *, forced: bool = False):
+    """Kernels vs plain versions on one model call, rows relative to their
+    largest value (tol 5e-2: bf16 activations, int8 requant flips); on
+    logits, top-1 must agree wherever the top-2 margin exceeds twice the
+    row's error.  Routing is discrete: a row whose top-k expert set differs
+    between the two runs in any layer (a near-tie moved by one bf16 rounding
+    or one int8 level) takes other experts and moves by far more than
+    rounding.  Without ``forced`` the check compares the rows whose routing
+    agrees in every layer (``same``), and at least half must be such rows.
+    With ``forced`` the plain run took the kernel run's routing (expert ids
+    and weights) layer by layer, so every row is compared; ``same`` then
+    counts the rows whose own choice agreed, which is reported only."""
+    n = got.shape[0]
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: kernel-path output is not finite")
+    cmp = torch.ones_like(same) if forced else same
+    err_row = (got - want).abs().amax(-1)
+    rel_row = err_row / want.abs().amax(-1)
+    rel_cmp = float(rel_row[cmp].max()) if bool(cmp.any()) else float("nan")
+    tol = 5e-2
+    rows = "every row (routing replayed)" if forced else "the routing-agreeing rows"
+    msg = (f"  {label} on {n} rows, kernels vs plain versions: routing agrees in every layer "
+           f"on {int(same.sum())}/{n} rows; on {rows}, max rel err {rel_cmp:.3e} (tol {tol}); "
+           f"all rows {float(rel_row.max()):.3e}")
+    ok = (forced or 2 * int(same.sum()) >= n) and rel_cmp <= tol
+    if logits:
+        top2 = torch.topk(want, 2, dim=-1).values
+        clear = cmp & ((top2[:, 0] - top2[:, 1]) > 2 * err_row)
+        agree = got.argmax(-1) == want.argmax(-1)
+        msg += (f"; top-1 agrees on {int(agree.sum())}/{n} rows, required on the "
+                f"{int(clear.sum())} compared rows whose top-2 margin exceeds 2x their error")
+        ok = ok and bool(agree[clear].all())
+    log(msg)
+    return ok
+
+
+def compare_runs(label, run_kernel, run_plain, n, *, logits: bool, forced: bool):
+    """Run one model call through the kernels and through the plain versions
+    (each run writes the same KV rows itself before it reads) and hold them
+    to :func:`routing_rule`; with ``forced`` the plain versions run a second
+    time on the kernel run's routing.  Returns whether the rule held."""
+    got, rec_k = with_routes(lambda: run_kernel()[:n].float())
+    want, rec_p = with_routes(lambda: run_plain()[:n].float())
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: kernel path {tuple(got.shape)} vs plain "
+                             f"{tuple(want.shape)}")
+    same = same_routing(rec_k, rec_p, n)
+    if forced:
+        want, _ = with_routes(lambda: run_plain()[:n].float(), rec_k)
+    return routing_rule(label, got, want, same, logits, forced=forced)
+
+
+def live_batch(eng, ps):
+    """Re-admit the prompts (prefixes from the radix cache) and prefill them:
+    a decode batch of live rows."""
     for p in ps:
         eng.add_request(p, 32)
     while any(r.pos < r.prompt_len for r in eng.running) or eng.waiting:
         eng.step()
     live = [r for r in eng.running if not r.done]
-    n = len(live)
-    batch = eng.decode_inputs(live)
-    plain = lambda x, pos, c, bt, ctx, slots: m.decode_step(  # noqa: E731
-        CFG, params, x, pos, c, bt, ctx, slots, moe_weights_q=moe, plain=True)
-    routes, router = [], m._router
+    return eng.decode_inputs(live), len(live)
 
-    def recording_router(cfg, lw, x):
-        ids, w = router(cfg, lw, x)
-        routes.append(torch.sort(ids[:n], dim=-1).values)
-        return ids, w
 
-    m._router = recording_router
+def decode_step_fn(params, moe, **kw):
+    return lambda x, pos, c, bt, ctx, slots: m.decode_step(
+        CFG, params, x, pos, c, bt, ctx, slots, moe_weights_q=moe, **kw)
+
+
+def compare_plain_decode(eng, ps, params, moe, mla_wq=None):
+    """One decode step on a live batch through the engine's own switches,
+    through the kernels and through the plain versions; logits held to
+    :func:`routing_rule` (the float prologue on the rows whose routing
+    agrees; the fused W8A8 prologue, whose int8 steps move more near-ties,
+    with the routing replayed)."""
+    batch, n = live_batch(eng, ps)
+    ok = compare_runs(
+        "decode step" + (" (fused W8A8 prologue)" if mla_wq else ""),
+        lambda: eng.decode_logits(batch),
+        lambda: eng.decode_logits(batch, decode_step_fn(params, moe, mla_wq=mla_wq,
+                                                        plain=True)),
+        n, logits=True, forced=mla_wq is not None)
+    if not ok:
+        raise AssertionError("kernel decode disagrees with the plain path")
+    return batch, n
+
+
+@contextlib.contextmanager
+def base_kernels():
+    """The plain path with the attention kernels (K2, K9a) and the ring GEMMs
+    (K3, K4) in place of their plain versions: only K1, K5 and K7a stay
+    plain."""
+    names = ("decode_mla", "mla_prefill_pallas", "gmm1_ring", "gmm2_combine_ring")
+    refs = {name: getattr(m, name + "_ref") for name in ("decode_mla", "gmm1_ring",
+                                                         "gmm2_combine_ring")}
+    refs["mla_prefill"] = m.mla_prefill_ref
+    m.decode_mla_ref, m.mla_prefill_ref, m.gmm1_ring_ref, m.gmm2_combine_ring_ref = (
+        getattr(m, name) for name in names)
     try:
-        got = eng.decode_logits(batch)[:n].float()
-        routes_k = routes[:]
-        routes.clear()
-        want = eng.decode_logits(batch, plain)[:n].float()
-        routes_p = routes[:]
+        yield
     finally:
-        m._router = router
-    if not bool(torch.isfinite(got).all()) or got.shape != (n, CFG.vocab_size):
-        raise AssertionError("kernel-path logits are not finite or mis-shaped")
-    same = torch.stack([(a == b).all(-1) for a, b in zip(routes_k, routes_p)]).all(0)
-    err_row = (got - want).abs().amax(-1)
-    rel_row = err_row / want.abs().amax(-1)
-    top2 = torch.topk(want, 2, dim=-1).values
-    clear = same & ((top2[:, 0] - top2[:, 1]) > 2 * err_row)
-    agree = got.argmax(-1) == want.argmax(-1)
-    rel_same = float(rel_row[same].max()) if bool(same.any()) else float("nan")
-    tol = 5e-2
-    log(f"  decode step on {n} live rows, kernels vs plain versions: routing agrees in "
-        f"every layer on {int(same.sum())}/{n} rows; on those, logits max rel err "
-        f"{rel_same:.3e} (tol {tol}: bf16 activations, int8 requant flips); all rows "
-        f"{float(rel_row.max()):.3e}; top-1 agrees on {int(agree.sum())}/{n} rows, "
-        f"required on the {int(clear.sum())} routing-agreeing rows whose top-2 margin "
-        f"exceeds 2x their error")
-    if not (2 * int(same.sum()) >= n and rel_same <= tol and bool(agree[clear].all())):
-        raise AssertionError(f"kernel decode disagrees with the plain path: {rel_same}")
-    return batch
+        for name, fn in refs.items():
+            setattr(m, name + "_ref", fn)
 
 
-def profile_steps(eng, batch, prompt):
-    """Device time by kernel of one decode call on the live batch, and of one
-    mixed engine tick (that decode plus a 64-token prefill chunk)."""
-    regions = [("decode step", lambda: eng.decode_logits(batch))]
+def w8a8_rule(label, kernel_run, run_plain, n, logits: bool):
+    """The fully W8A8 call through the kernels (``kernel_run``: its output and
+    routing record) against its plain versions, the routing replayed.  This
+    layer's int8 steps (a static per-tensor quant before each prologue GEMM,
+    five requantizations a layer) turn rounding-level differences upstream
+    into whole int8 levels: the attention kernels and ring GEMMs differ from
+    their plain versions by bf16 rounding and f32 summation order, and the
+    plain path itself moves by several percent when they replace their plain
+    versions.  So two rules, row by row, relative to each row's
+    largest value:
+    - against the path with only K1, K5 and K7a plain:
+      within 1e-2 (K1 is exact, and the plain K5 / K7a do the same IEEE
+      operations), and on logits top-1 equal wherever the top-2 margin
+      exceeds twice the row's error;
+    - against the all-plain path: no further than that path itself moves
+      when the attention kernels and ring GEMMs replace their plain
+      versions, + 1e-2.
+    Returns whether both held."""
+    got, rec_k = kernel_run
+    _, rec_p = with_routes(lambda: run_plain()[:n].float())
+    same = same_routing(rec_k, rec_p, n)
+    want, _ = with_routes(lambda: run_plain()[:n].float(), rec_k)
+    with base_kernels():
+        want_base, _ = with_routes(lambda: run_plain()[:n].float(), rec_k)
+    if not (got.shape == want.shape == want_base.shape and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{label}: kernel-path output mis-shaped or not finite")
+
+    def rel(a, b):
+        return (a - b).abs().amax(-1) / b.abs().amax(-1)
+
+    rel_new, rel_plain, base_move = rel(got, want_base), rel(got, want), rel(want_base, want)
+    ok = bool((rel_new <= 1e-2).all()) and bool((rel_plain <= base_move + 1e-2).all())
+    msg = (f"  {label} on {n} rows: routing agrees in every layer on {int(same.sum())}/{n} "
+           f"rows on its own, replayed for the comparisons; vs K1, K5 and K7a plain: max rel "
+           f"err {float(rel_new.max()):.3e} (tol 1e-2); vs all plain: "
+           f"{float(rel_plain.max()):.3e}, where the attention kernels and ring GEMMs alone move the plain path by "
+           f"{float(base_move.max()):.3e} (tol: that + 1e-2, row by row)")
+    if logits:
+        err_row = (got - want_base).abs().amax(-1)
+        top2 = torch.topk(want_base, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * err_row
+        agree = got.argmax(-1) == want_base.argmax(-1)
+        msg += (f"; top-1 agrees on {int(agree.sum())}/{n} rows, required on the "
+                f"{int(clear.sum())} rows whose top-2 margin exceeds 2x their error")
+        ok = ok and bool(agree[clear].all())
+    log(msg)
+    return ok
+
+
+def fully_w8a8(eng, batch, n, params, moe, mla_wq, dense_wq, ps):
+    """Phase 4b: the fully W8A8 layer through ``decode_step`` on the engine's
+    live batch and ``prefill_step`` on one 64-token chunk (the second chunk of
+    a 128-token prompt, at context 128), held to :func:`w8a8_rule`.  Launch
+    counts are reset just before the two kernel runs and read just after,
+    before any comparison run."""
+    kw = dict(mla_wq=mla_wq, dense_wq=dense_wq)
+    pages = eng.cm.alloc(-(-2 * PREFILL_CHUNK // CFG.page_size))
+    ids = torch.tensor(ps[3][:2 * PREFILL_CHUNK], dtype=torch.int32, device=DEV)
+    bt = torch.zeros((1, MAX_PAGES_PER_REQ), dtype=torch.int32, device=DEV)
+    bt[0, : len(pages)] = torch.tensor([int(p) for p in pages], dtype=torch.int32)
+    pos = torch.arange(2 * PREFILL_CHUNK, device=DEV)
+    slots = (bt[0, pos // CFG.page_size] * CFG.page_size + pos % CFG.page_size).to(torch.int32)
+    sl = torch.tensor([PREFILL_CHUNK], dtype=torch.int32, device=DEV)
+
+    def chunk(c, plain):
+        rows = slice(c * PREFILL_CHUNK, (c + 1) * PREFILL_CHUNK)
+        ctx = torch.tensor([(c + 1) * PREFILL_CHUNK], dtype=torch.int32, device=DEV)
+        h, _ = m.prefill_step(CFG, params, m.embed(params, ids[rows]), sl, eng.caches, bt, ctx,
+                              slots[rows], max_q=PREFILL_CHUNK, moe_weights_q=moe,
+                              plain=plain, **kw)
+        return h
+
+    def decode(plain):
+        return eng.decode_logits(batch, decode_step_fn(params, moe, plain=plain, **kw))
+
+    chunk(0, False)                                 # the chunk's context, written once
+    counters.reset()
+    dec_k = with_routes(lambda: decode(False)[:n].float())
+    pre_k = with_routes(lambda: chunk(1, False).float())
+    torch.cuda.synchronize()
+    launches = counters.read()
+    log(f"  launches on the fully W8A8 path (1 decode step + 1 prefill chunk): "
+        f"{json.dumps(launches)}")
+    ok_d = w8a8_rule("fully W8A8 decode step (logits)", dec_k, lambda: decode(True), n, True)
+    ok_p = w8a8_rule("fully W8A8 prefill chunk (hidden)", pre_k, lambda: chunk(1, True),
+                     PREFILL_CHUNK, False)
+    eng.cm.free(pages)
+    if not (ok_d and ok_p):
+        raise AssertionError("the fully W8A8 kernels disagree with the plain path")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the fully W8A8 path: {missing}")
+    layers = CFG.num_layers
+    want_counts = {"quant_matmul": 2 * 5 * layers, "quant_per_token": 2 * 2 * layers,
+                   "swiglu_quant": 2 * layers}
+    if any(launches[k] != v for k, v in want_counts.items()):
+        raise AssertionError(f"W8A8 launches {launches} are not {want_counts}")
+    return launches
+
+
+def profile_steps(eng, batch, prompt, w8a8_step):
+    """Device time by kernel of one decode call on the live batch, of one
+    mixed engine tick (that decode plus a 64-token prefill chunk), and of the
+    fully W8A8 decode step on the same batch."""
+    regions = [("decode step (fused W8A8 prologue)", lambda: eng.decode_logits(batch))]
     eng.add_request(prompt, 1)
     regions.append(("mixed tick (decode + prefill chunk)", eng.step))
+    regions.append(("fully W8A8 decode step", lambda: eng.decode_logits(batch, w8a8_step)))
     for label, fn in regions:
         rows, busy, wall = trace_profile.device_breakdown(fn)
         log(f"  {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
@@ -463,8 +804,14 @@ def main() -> None:
     t0 = time.perf_counter()
     params = m.init_weights(CFG, SEED, torch.bfloat16, with_experts=False)
     moe = m.init_quantized_experts(CFG, SEED + 1)
+    ps = prompts(torch.Generator().manual_seed(SEED))
+    sample = m.embed(params, torch.tensor(sum(ps, []), dtype=torch.int32, device=DEV))
+    mla_wq = m.make_mla_preprocess_weights(CFG, params, sample)
+    dense_wq = m.quantize_dense_weights(CFG, params)
+    del sample
     torch.cuda.synchronize()
-    log(f"  made in {time.perf_counter() - t0:.1f} s; "
+    log(f"  made in {time.perf_counter() - t0:.1f} s (fused-prologue scales calibrated on "
+        f"the {sum(PROMPT_LENS)} prompt tokens' embeddings); "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
 
     log("[3] kernels against their plain versions")
@@ -477,12 +824,21 @@ def main() -> None:
     g1, g2 = check_gmm(gen, moe[0], MAX_BATCH, CFG.topk, True, "gmm decode shape")
     check_gmm(gen, moe[0], PREFILL_CHUNK, CFG.topk, False, "gmm prefill-chunk shape")
     check_gmm_small(gen)
+    k1, k5, k7 = check_w8a8_kernels(gen, mla_wq, dense_wq)
 
-    log("[4] serve through Engine + deepseek_adapter(moe_weights_q=...)")
+    log("[4] serve through Engine + deepseek_adapter(moe_weights_q=...): float prologue")
     eng, ps, launches = serve(params, moe)
-    batch = compare_plain_decode(eng, ps, params, moe)
+    compare_plain_decode(eng, ps, params, moe)
+    del eng
+    log("[4] serve through Engine + deepseek_adapter(moe_weights_q=..., mla_wq=...)")
+    eng, ps, launches_q = serve(params, moe, mla_wq)
+    batch, n = compare_plain_decode(eng, ps, params, moe, mla_wq)
+    log("[4b] the fully W8A8 layer: decode_step / prefill_step(mla_wq=..., dense_wq=..., "
+        "moe_weights_q=...)")
+    launches_w = fully_w8a8(eng, batch, n, params, moe, mla_wq, dense_wq, ps)
     log("[5] device time by kernel (torch.profiler)")
-    profile_steps(eng, batch, ps[3][:200])
+    profile_steps(eng, batch, ps[3][:200],
+                  decode_step_fn(params, moe, mla_wq=mla_wq, dense_wq=dense_wq))
 
     src = "sgl_kernel_npu_tpu_torch/csrc/"
     tpu = "sgl_kernel_npu_tpu/ops/"
@@ -494,10 +850,20 @@ def main() -> None:
          (g1["err"], g1["ms"], g1["plain_ms"], None, g1["bound_ms"], g1["bound_by"])),
         ("gmm2_combine_ring", src + "gmm_ring.cu", tpu + "gmm_ring.py:487",
          (g2["err"], g2["ms"], g2["plain_ms"], None, g2["bound_ms"], g2["bound_by"])),
-    ]
+    ] + [(name, src + cu, tpu + site,
+          (r["err"], r["ms"], r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"]))
+         for name, cu, site, r in (("quant_matmul", "quant_matmul.cu", "matmul.py:127", k1),
+                                   ("quant_per_token", "quant.cu", "quant.py:69", k5),
+                                   ("swiglu_quant", "quant.cu", "activation.py:112", k7))]
+    # launches: each kernel's count on the first path that runs it (the base
+    # four on the float-prologue serve, K1 on the fused-prologue serve, K5
+    # and K7a on the fully W8A8 step and chunk)
+    path_launches = {**launches, "quant_matmul": launches_q["quant_matmul"],
+                     "quant_per_token": launches_w["quant_per_token"],
+                     "swiglu_quant": launches_w["swiglu_quant"]}
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "launches": path_launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
     } for name, source, replaces, (err, ms, plain_ms, library_ms, bound_ms, bound_by) in rows]
     print(json.dumps({"kernels": kernels}))

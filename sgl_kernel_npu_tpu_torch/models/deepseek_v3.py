@@ -1,20 +1,26 @@
 """DeepSeek-V3 MLA + MoE model for serving: paged prefill and decode.
 
 Counterpart of ``sgl_kernel_npu_tpu/models/deepseek_v3.py`` on the
-configuration ``decode_step / prefill_step(moe_weights_q=...)``: the float MLA
-prologue, MLA attention over the paged latent cache (``decode_mla`` K2,
-``mla_prefill_pallas`` K9) and the W8A8 routed experts through the ring GEMMs
-(``gmm1_ring`` K3, ``gmm2_combine_ring`` K4).  The switches this slice does not
-take are absent (the fused W8A8 prologue ``mla_wq``, W8A8 dense weights
-``dense_wq``, expert parallelism, EPLB, DSA sparse attention, the int8
-latent cache) or raise ``NotImplementedError`` (the dense float MoE, the
-MoE of more than 512 tokens).
+configurations ``decode_step / prefill_step(moe_weights_q=..., mla_wq=...,
+dense_wq=...)``: MLA attention over the paged latent cache (``decode_mla``
+K2, ``mla_prefill_pallas`` K9) and the W8A8 routed experts through the ring
+GEMMs (``gmm1_ring`` K3, ``gmm2_combine_ring`` K4), behind either the float
+MLA prologue or the fused W8A8 one (``mla_wq``: ``mla_preprocess`` on
+``quant_matmul`` K1), and with the output projection and the shared expert
+either float or W8A8 (``dense_wq``: ``quant_per_token`` K5, ``quant_matmul``
+K1, ``swiglu_quant`` K7a).  The switches this slice does not take are absent
+(expert parallelism, EPLB, DSA sparse attention) or raise
+``NotImplementedError`` (the int8 latent cache, the dense float MoE, the MoE
+of more than 512 tokens).
 
 Weights are a plain dict of tensors (``layers`` a list of per-layer dicts),
 with the JAX package's names and layouts; caches are a list of per-layer
 dicts ``{"nope", "rope"}`` updated in place.  ``plain=True`` on the steps runs
 the kernels' plain PyTorch versions on the same tensors (for comparing the
 kernels with them on the card).
+
+Dtypes follow JAX's promotion: with ``dense_wq`` the W8A8 projections return
+f32, so the residual stream turns f32 after the first layer's attention.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from sgl_kernel_npu_tpu_torch.models import w8a8
+from sgl_kernel_npu_tpu_torch.ops.attention import mla_preprocess as mp
 from sgl_kernel_npu_tpu_torch.ops.attention.decode_attention import decode_mla, decode_mla_ref
 from sgl_kernel_npu_tpu_torch.ops.attention.mla_prefill import (
     mla_prefill_pallas,
@@ -40,7 +48,7 @@ from sgl_kernel_npu_tpu_torch.ops.mem_cache.kv_cache import (
     reshape_and_cache_transposed,
 )
 from sgl_kernel_npu_tpu_torch.ops.norm import rms_norm_ref
-from sgl_kernel_npu_tpu_torch.ops.quant import INT8_MAX, saturate_int8
+from sgl_kernel_npu_tpu_torch.ops.quant import row_scale, saturate_int8
 from sgl_kernel_npu_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from sgl_kernel_npu_tpu_torch.parallel.fused_moe import quantize_expert_weights
 from sgl_kernel_npu_tpu_torch.utils.common import resolve_device
@@ -49,8 +57,8 @@ from sgl_kernel_npu_tpu_torch.utils.common import resolve_device
 @dataclasses.dataclass(frozen=True)
 class DeepSeekV3Config:
     """The JAX package's config fields that this path reads, with the same
-    defaults (DSA, the int8 latent cache and the unused rope base are not
-    ported)."""
+    defaults (DSA and the unused rope base are not ported; ``kv_cache_dtype``
+    "int8" raises)."""
 
     vocab_size: int = 512
     hidden: int = 256
@@ -71,6 +79,7 @@ class DeepSeekV3Config:
     topk_group: int = 1
     routed_scaling_factor: float = 1.0
     norm_topk_prob: bool = True
+    kv_cache_dtype: str = "bf16"      # "int8": not ported yet (ROADMAP queue A item 5)
 
     @property
     def qk_dim(self):
@@ -176,19 +185,29 @@ def _to_torch(a, dev: torch.device) -> torch.Tensor:
 
 
 def from_jax_params(params_np: dict, moe_weights_q_np: list | None = None,
-                    device="cuda") -> tuple[dict, list | None]:
-    """The JAX package's weight pytree (leaves as numpy arrays) → the port's
-    weights, ``router_bias`` included when present; the optional per-layer
-    quantized expert tuples ``(w1, s1, w2, s2)`` likewise.  Returns
-    ``(params, moe_weights_q or None)``."""
+                    device="cuda", *, mla_wq_np: list | None = None,
+                    dense_wq_np: list | None = None) -> tuple:
+    """The JAX package's weight pytrees (leaves as numpy arrays) → the port's:
+    the weights (``router_bias`` included when present) and, each optional,
+    the per-layer quantized expert tuples ``(w1, s1, w2, s2)``, the fused
+    prologue's ``MlaPreprocessWeights`` and the W8A8 dense weights (dicts of
+    ``(w_q, scale)``).  Returns ``(params, moe_weights_q, mla_wq, dense_wq)``,
+    None for each one not given."""
     dev = resolve_device(device)
-    params = {k: _to_torch(v, dev) for k, v in params_np.items() if k != "layers"}
-    params["layers"] = [{k: _to_torch(v, dev) for k, v in lw.items()}
-                        for lw in params_np["layers"]]
-    moe = None
+
+    def conv(a):
+        return None if a is None else _to_torch(a, dev)
+
+    params = {k: conv(v) for k, v in params_np.items() if k != "layers"}
+    params["layers"] = [{k: conv(v) for k, v in lw.items()} for lw in params_np["layers"]]
+    moe = mla = dense = None
     if moe_weights_q_np is not None:
-        moe = [tuple(_to_torch(a, dev) for a in t) for t in moe_weights_q_np]
-    return params, moe
+        moe = [tuple(conv(a) for a in t) for t in moe_weights_q_np]
+    if mla_wq_np is not None:
+        mla = [mp.MlaPreprocessWeights(*(conv(a) for a in w)) for w in mla_wq_np]
+    if dense_wq_np is not None:
+        dense = [{k: tuple(conv(a) for a in v) for k, v in d.items()} for d in dense_wq_np]
+    return params, moe, mla, dense
 
 
 def quantize_moe_weights(cfg: DeepSeekV3Config, params: dict):
@@ -197,8 +216,68 @@ def quantize_moe_weights(cfg: DeepSeekV3Config, params: dict):
             for lw in params["layers"]]
 
 
+def _require_bf16_cache(cfg: DeepSeekV3Config) -> None:
+    if cfg.kv_cache_dtype != "bf16":
+        raise NotImplementedError(
+            f"kv_cache_dtype={cfg.kv_cache_dtype!r} (the int8 latent cache) is not ported "
+            "yet (ROADMAP queue A item 5)")
+
+
+def make_mla_preprocess_weights(cfg: DeepSeekV3Config, params: dict,
+                                sample_hidden: torch.Tensor) -> list:
+    """The float MLA prologue weights of every layer → W8A8
+    :class:`~sgl_kernel_npu_tpu_torch.ops.attention.mla_preprocess.MlaPreprocessWeights`
+    for ``decode_step / prefill_step(mla_wq=...)``.
+
+    ``sample_hidden [N, hidden]`` calibrates the two static activation-quant
+    scales (max over the sample × 1.25 headroom, over 127).  Both quantized
+    activations are post-RMSNorm, whose magnitude does not grow with depth,
+    so one sample serves every layer (each layer's scales still use that
+    layer's own weights).  Weights are quantized per output channel.  Unlike
+    the JAX package, ``wdqkv`` keeps its own row count (no lane pad: the CUDA
+    GEMM masks the ragged edge, and a pad would stream 3% more bytes)."""
+    _require_bf16_cache(cfg)
+    lat, rope = cfg.kv_lora_rank, cfg.qk_rope_dim
+    margin = 1.25
+    out = []
+    for lw in params["layers"]:
+        h1 = rms_norm_ref(sample_hidden.float(), lw["ln1"])
+        qs1 = h1.abs().max() / 127.0 * margin
+        wd_q, sw1 = w8a8.quantize_matrix(lw["wdqkv"])
+        fused = h1 @ lw["wdqkv"].float()
+        cq = rms_norm_ref(fused[:, lat + rope :], lw["q_ln"])
+        qs2 = cq.abs().max() / 127.0 * margin
+        wuq_q, sw2 = w8a8.quantize_matrix(lw["wuq"])
+        zero = torch.zeros((), dtype=torch.float32, device=h1.device)
+        out.append(mp.MlaPreprocessWeights(
+            gamma1=lw["ln1"], beta1=torch.zeros_like(lw["ln1"]),
+            qscale1=qs1.float(), qoffset1=zero,
+            wdqkv=wd_q, descale1=(sw1 * qs1).float(),
+            bias1=torch.zeros((wd_q.shape[0],), dtype=torch.int32, device=h1.device),
+            gamma2=lw["q_ln"], beta2=torch.zeros_like(lw["q_ln"]),
+            qscale2=qs2.float(), qoffset2=zero,
+            wuq=wuq_q, descale2=(sw2 * qs2).float(),
+            bias2=torch.zeros((wuq_q.shape[0],), dtype=torch.int32, device=h1.device),
+            gamma3=lw["kv_ln"], wuk=lw["wuk"],
+        ))
+    return out
+
+
+def quantize_dense_weights(cfg: DeepSeekV3Config, params: dict) -> list:
+    """W8A8 ``(w_q [N, K], scale [N])`` of each layer's output projection and
+    shared expert (gate ‖ up stacked for the fused SwiGLU requant), for
+    ``decode_step / prefill_step(dense_wq=...)``.  Router, ``wvu`` and the
+    norms stay float."""
+    return [{
+        "wo": w8a8.quantize_matrix(lw["wo"]),
+        "ws_gate_up": w8a8.quantize_matrix(torch.cat([lw["ws_gate"], lw["ws_up"]], dim=1)),
+        "ws_down": w8a8.quantize_matrix(lw["ws_down"]),
+    } for lw in params["layers"]]
+
+
 def init_kv_cache(cfg: DeepSeekV3Config, num_pages: int, dtype=torch.bfloat16,
                   device="cuda") -> list[dict]:
+    _require_bf16_cache(cfg)
     dev = resolve_device(device)
     return [{
         "nope": torch.zeros((num_pages, 1, cfg.page_size, cfg.kv_lora_rank), dtype=dtype,
@@ -212,9 +291,16 @@ def embed(params: dict, ids: torch.Tensor) -> torch.Tensor:
     return params["embed"][ids.long()]
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the promoted dtype, as JAX's matmul promotes (an f32
+    residual after the W8A8 projections meets bf16 weights)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
 def lm_head(params: dict, x: torch.Tensor) -> torch.Tensor:
     w = params["w_lm"] if "w_lm" in params else params["embed"].T
-    return rms_norm_ref(x, params["final_ln"]) @ w
+    return _mm(rms_norm_ref(x, params["final_ln"]), w)
 
 
 # ---------------------------------------------------------------------------
@@ -226,11 +312,11 @@ def _mla_qkv(cfg: DeepSeekV3Config, lw: dict, x, cos, sin):
     n = x.shape[0]
     lat, rope = cfg.kv_lora_rank, cfg.qk_rope_dim
     h1 = rms_norm_ref(x, lw["ln1"])
-    f = h1 @ lw["wdqkv"]                                      # [N, lat + rope + q_lora]
+    f = _mm(h1, lw["wdqkv"])                                  # [N, lat + rope + q_lora]
     ckv, kpe, cq = f[:, :lat], f[:, lat : lat + rope], f[:, lat + rope :]
-    q = (rms_norm_ref(cq, lw["q_ln"]) @ lw["wuq"]).reshape(n, cfg.num_heads, cfg.qk_dim)
+    q = _mm(rms_norm_ref(cq, lw["q_ln"]), lw["wuq"]).reshape(n, cfg.num_heads, cfg.qk_dim)
     qn, qpe = q[..., : cfg.qk_nope_dim], q[..., cfg.qk_nope_dim :]
-    q_lat = torch.einsum("nhk,hkl->nhl", qn, lw["wuk"])      # [N, H, lat]
+    q_lat = torch.einsum("nhk,hkl->nhl", qn, lw["wuk"].to(qn.dtype))   # [N, H, lat]
     qpe = apply_rope(qpe, cos, sin)
     kpe = apply_rope(kpe[:, None, :], cos, sin)[:, 0]         # [N, rope]
     k_lat = rms_norm_ref(ckv, lw["kv_ln"])                    # [N, lat]
@@ -241,8 +327,23 @@ def _write_nope(cfg: DeepSeekV3Config, k_lat, cache, slot_mapping):
     return reshape_and_cache(k_lat[:, None, :].to(cache.dtype), cache, slot_mapping)
 
 
-def _mla_output(cfg: DeepSeekV3Config, lw: dict, attn_lat):
-    """Latent attention output → hidden (absorbed V up-proj + output proj)."""
+def _mla_preprocess_qkv(cfg: DeepSeekV3Config, w, x, cos, sin, cache, slot_mapping,
+                        plain: bool):
+    """Fused W8A8 prologue + cache writes (in place) → the absorbed query
+    [N, H, lat+rope] in the cache's dtype."""
+    qn, qpe, _, _ = mp.mla_preprocess(x, w, (cos, sin), cache["nope"], cache["rope"],
+                                      slot_mapping, plain=plain)
+    return torch.cat([qn.float(), qpe.float()], dim=-1).to(cache["rope"].dtype)
+
+
+def _mla_output(cfg: DeepSeekV3Config, lw: dict, attn_lat, dq=None, plain: bool = False):
+    """Latent attention output → hidden (absorbed V up-proj + output proj).
+    ``dq`` (a :func:`quantize_dense_weights` layer): the output projection
+    runs W8A8 and returns f32; the per-head ``wvu`` einsum stays float."""
+    if dq is not None:
+        o = torch.einsum("nhl,hlv->nhv", attn_lat.float(), lw["wvu"].float())
+        return w8a8.project(o.reshape(o.shape[0], -1).to(torch.bfloat16), dq["wo"],
+                            torch.float32, plain=plain)
     o = torch.einsum("nhl,hlv->nhv", attn_lat.to(lw["wvu"].dtype), lw["wvu"])
     return o.reshape(o.shape[0], -1) @ lw["wo"]
 
@@ -276,9 +377,14 @@ def _router(cfg: DeepSeekV3Config, lw: dict, x):
 
 
 def _shared_expert(lw: dict, x):
-    g = x @ lw["ws_gate"]
-    u = x @ lw["ws_up"]
-    return (g * torch.sigmoid(g) * u) @ lw["ws_down"]
+    g = _mm(x, lw["ws_gate"])
+    u = _mm(x, lw["ws_up"])
+    return _mm(g * torch.sigmoid(g) * u, lw["ws_down"])
+
+
+def _shared_expert_q(dq: dict, x, plain: bool):
+    return w8a8.mlp_swiglu(x.to(torch.bfloat16), dq["ws_gate_up"], dq["ws_down"],
+                           torch.float32, plain=plain)
 
 
 def _gmm_moe(cfg: DeepSeekV3Config, wq: tuple, x, topk_idx, topk_w, *, plain: bool = False):
@@ -295,7 +401,7 @@ def _gmm_moe(cfg: DeepSeekV3Config, wq: tuple, x, topk_idx, topk_w, *, plain: bo
             "BlockSpec grouped GEMMs (K8 grouped_matmul / grouped_matmul_combine), not "
             "ported yet (ROADMAP queue B)")
     xf = x.float()
-    sx_tok = torch.clamp_min(xf.abs().amax(dim=-1) / INT8_MAX, 1e-12)
+    sx_tok = torch.clamp_min(row_scale(xf), 1e-12)
     xq_tok = saturate_int8(xf / sx_tok[:, None])
     flat_e = topk_idx.reshape(-1).long()
     gsizes = torch.bincount(flat_e, minlength=w1.shape[0]).to(torch.int32)
@@ -310,10 +416,11 @@ def _gmm_moe(cfg: DeepSeekV3Config, wq: tuple, x, topk_idx, topk_w, *, plain: bo
     return out.to(x.dtype)
 
 
-def _moe_and_shared(cfg, lw, wq, x, plain):
+def _moe_and_shared(cfg, lw, wq, dq, x, plain):
     h2 = rms_norm_ref(x, lw["ln2"])
     topk_idx, topk_w = _router(cfg, lw, h2)
-    return x + _gmm_moe(cfg, wq, h2, topk_idx, topk_w, plain=plain) + _shared_expert(lw, h2)
+    shared = _shared_expert(lw, h2) if dq is None else _shared_expert_q(dq, h2, plain)
+    return x + _gmm_moe(cfg, wq, h2, topk_idx, topk_w, plain=plain) + shared
 
 
 def _require_moe_q(moe_weights_q) -> None:
@@ -322,8 +429,11 @@ def _require_moe_q(moe_weights_q) -> None:
                                   "moe_weights_q (quantize_moe_weights) (ROADMAP queue A)")
 
 
-def _attention_inputs(cfg, lw, x, cos, sin, cache, slot_mapping):
-    """Prologue + cache writes (in place) → the absorbed query [N, H, lat+rope]."""
+def _attention_inputs(cfg, lw, mw, x, cos, sin, cache, slot_mapping, plain):
+    """Prologue (float, or the fused W8A8 one given ``mw``) + cache writes (in
+    place) → the absorbed query [N, H, lat+rope]."""
+    if mw is not None:
+        return _mla_preprocess_qkv(cfg, mw, x, cos, sin, cache, slot_mapping, plain)
     q_lat, qpe, k_lat, kpe, _ = _mla_qkv(cfg, lw, x, cos, sin)
     _write_nope(cfg, k_lat, cache["nope"], slot_mapping)
     reshape_and_cache_transposed(kpe[:, None, :].to(cache["rope"].dtype), cache["rope"],
@@ -335,32 +445,41 @@ def _attention_inputs(cfg, lw, x, cos, sin, cache, slot_mapping):
 # serving steps
 # ---------------------------------------------------------------------------
 
+def _layer_switches(mla_wq, dense_wq, li):
+    return (None if mla_wq is None else mla_wq[li],
+            None if dense_wq is None else dense_wq[li])
+
+
 def decode_step(cfg: DeepSeekV3Config, params: dict, hidden, positions, kv_caches,
                 block_table, seq_lens, slot_mapping, moe_weights_q=None, *,
-                plain: bool = False):
+                mla_wq=None, dense_wq=None, plain: bool = False):
     """One decode step over all layers: ``hidden [N, H]`` current-token
     activations at ``positions``; ``seq_lens`` include the current token;
-    slot ``-1`` rows write nothing.  Returns ``(hidden, kv_caches)`` with the
-    caches updated in place."""
+    slot ``-1`` rows write nothing.  ``mla_wq`` (:func:`make_mla_preprocess_weights`)
+    runs the fused W8A8 prologue, ``dense_wq`` (:func:`quantize_dense_weights`)
+    the W8A8 output projection and shared expert.  Returns ``(hidden,
+    kv_caches)`` with the caches updated in place."""
     _require_moe_q(moe_weights_q)
     attend = decode_mla_ref if plain else decode_mla
     cos, sin = rope_cos_sin(positions, cfg.qk_rope_dim)
     x = hidden
     for li, lw in enumerate(params["layers"]):
         cache = kv_caches[li]
-        q = _attention_inputs(cfg, lw, x, cos, sin, cache, slot_mapping)
+        mw, dq = _layer_switches(mla_wq, dense_wq, li)
+        q = _attention_inputs(cfg, lw, mw, x, cos, sin, cache, slot_mapping, plain)
         attn = attend(q, cache["nope"], cache["rope"], seq_lens, cfg.sm_scale, block_table)
-        x = x + _mla_output(cfg, lw, attn)
-        x = _moe_and_shared(cfg, lw, moe_weights_q[li], x, plain)
+        x = x + _mla_output(cfg, lw, attn, dq, plain)
+        x = _moe_and_shared(cfg, lw, moe_weights_q[li], dq, x, plain)
     return x, kv_caches
 
 
 def prefill_step(cfg: DeepSeekV3Config, params: dict, hidden, seq_lens, kv_caches,
                  block_tables, context_lens, slot_mapping, *, max_q: int | None = None,
-                 moe_weights_q=None, plain: bool = False):
+                 moe_weights_q=None, mla_wq=None, dense_wq=None, plain: bool = False):
     """Varlen (chunked) prefill over all layers: ``hidden [S, H]`` packed by
     request, ``seq_lens [B]`` new tokens, ``context_lens [B]`` totals including
-    them.  Returns ``(hidden, kv_caches)`` with the caches updated in place."""
+    them; ``mla_wq`` and ``dense_wq`` as in :func:`decode_step`.  Returns
+    ``(hidden, kv_caches)`` with the caches updated in place."""
     _require_moe_q(moe_weights_q)
     s = hidden.shape[0]
     dev = hidden.device
@@ -375,13 +494,14 @@ def prefill_step(cfg: DeepSeekV3Config, params: dict, hidden, seq_lens, kv_cache
     x = hidden
     for li, lw in enumerate(params["layers"]):
         cache = kv_caches[li]
-        q = _attention_inputs(cfg, lw, x, cos, sin, cache, slot_mapping)
+        mw, dq = _layer_switches(mla_wq, dense_wq, li)
+        q = _attention_inputs(cfg, lw, mw, x, cos, sin, cache, slot_mapping, plain)
         if plain:
             attn = mla_prefill_ref(q, cache["nope"], cache["rope"], seq_lens, block_tables,
                                    context_lens, cfg.sm_scale)
         else:
             attn = mla_prefill_pallas(q, cache["nope"], cache["rope"], seq_lens,
                                       block_tables, context_lens, cfg.sm_scale, max_q=max_q)
-        x = x + _mla_output(cfg, lw, attn)
-        x = _moe_and_shared(cfg, lw, moe_weights_q[li], x, plain)
+        x = x + _mla_output(cfg, lw, attn, dq, plain)
+        x = _moe_and_shared(cfg, lw, moe_weights_q[li], dq, x, plain)
     return x, kv_caches

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from sgl_kernel_npu_tpu_torch.ops.grouped_matmul import gmm_dequant_ref, swiglu_block
-from sgl_kernel_npu_tpu_torch.ops.quant import INT8_MAX, saturate_int8
+from sgl_kernel_npu_tpu_torch.ops.quant import row_scale, saturate_int8
 from sgl_kernel_npu_tpu_torch.utils import cuda_lib
 from sgl_kernel_npu_tpu_torch.utils.common import on_cuda
 from sgl_kernel_npu_tpu_torch.utils.counters import counted
@@ -48,7 +48,7 @@ def gmm1_ring_ref(xq, tok_of_row, w1, group_sizes, scale_x_tok, scale_w):
     xs = torch.where(valid[:, None], xq[tok], 0)
     sx = torch.where(valid, scale_x_tok.float()[tok], 0.0)
     act = swiglu_block(gmm_dequant_ref(xs, w1, group_sizes, sx, scale_w.float()))
-    scale = torch.clamp_min(act.abs().amax(dim=-1) / INT8_MAX, 1e-12)
+    scale = torch.clamp_min(row_scale(act), 1e-12)
     q = saturate_int8(act / scale[:, None])
     live = torch.arange(tok_of_row.shape[0], device=xq.device) < group_sizes.sum()
     return torch.where(live[:, None], q, 0).to(torch.int8), torch.where(live, scale, 0.0)

@@ -1,12 +1,18 @@
-"""Per-token dynamic INT8 quantization helpers.
+"""Per-token dynamic INT8 quantization: plain helpers and the Hopper kernel (K5).
 
-Counterpart of ``sgl_kernel_npu_tpu/ops/quant.py`` (the plain helpers this
-slice needs; the ``quant_per_token`` kernel K5 is not ported yet).
+Counterpart of ``sgl_kernel_npu_tpu/ops/quant.py``.  :func:`quant_per_token`
+launches ``csrc/quant.cu`` for a CUDA tensor and takes
+:func:`quant_per_token_ref` for a CPU tensor.  ``wire_quant`` (the EP
+dispatch's wire quant) waits for expert parallelism.
 """
 
 from __future__ import annotations
 
 import torch
+
+from sgl_kernel_npu_tpu_torch.utils import cuda_lib
+from sgl_kernel_npu_tpu_torch.utils.common import on_cuda
+from sgl_kernel_npu_tpu_torch.utils.counters import counted
 
 INT8_MAX = 127.0
 
@@ -16,8 +22,52 @@ def saturate_int8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x), -128.0, INT8_MAX).to(torch.int8)
 
 
+def row_scale(xf: torch.Tensor) -> torch.Tensor:
+    """Per-row ``amax / 127`` of an f32 tensor, by true division, as the JAX
+    code and the CUDA kernels compute it.  (PyTorch divides a CUDA tensor by
+    a Python scalar as a multiply by its reciprocal, one ulp off at times,
+    and a scale one ulp off moves every value at a rounding tie by a level.)"""
+    amax = xf.abs().amax(dim=-1)
+    return amax / torch.full_like(amax, INT8_MAX)
+
+
 def quant_per_token_ref(x: torch.Tensor, eps: float = 1e-12):
     """Per-row symmetric dynamic quant: (int8 values, float32 scales [rows])."""
     xf = x.float()
-    scale = torch.clamp_min(xf.abs().amax(dim=-1) / INT8_MAX, eps)
+    scale = torch.clamp_min(row_scale(xf), eps)
     return saturate_int8(xf / scale[..., None]), scale
+
+
+def quant_per_channel(w: torch.Tensor, dim: int):
+    """Symmetric int8 weight quant, one scale per channel, the amax taken over
+    ``dim`` → (int8 values, f32 scales without ``dim``)."""
+    wf = w.float()
+    s = torch.clamp_min(wf.abs().amax(dim=dim) / INT8_MAX, 1e-12)
+    return saturate_int8(wf / s.unsqueeze(dim)), s
+
+
+def dequant_per_token(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+@counted
+def quant_per_token(x: torch.Tensor):
+    """Per-token dynamic int8 quant of ``x [rows, hidden]`` (bf16 or f32) →
+    ``(int8 [rows, hidden], f32 scales [rows])``, the scale clamped at 1e-12.
+    CUDA tensors launch ``csrc/quant.cu``; CPU tensors take
+    :func:`quant_per_token_ref`."""
+    if not on_cuda(x):
+        return quant_per_token_ref(x)
+    if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"quant_per_token takes a 2-D bf16 or f32 tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    x = x.contiguous()
+    rows, hidden = x.shape
+    q = torch.empty((rows, hidden), dtype=torch.int8, device=x.device)
+    scale = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    lib = cuda_lib.load_library()
+    cuda_lib.check(lib, lib.quant_per_token_launch(
+        x.data_ptr(), rows, hidden, int(x.dtype == torch.bfloat16), q.data_ptr(),
+        scale.data_ptr(), cuda_lib.stream_ptr(x)), "quant_per_token")
+    quant_per_token.launches += 1
+    return q, scale

@@ -6,20 +6,12 @@ Counterpart of ``sgl_kernel_npu_tpu/parallel/fused_moe.py:quantize_expert_weight
 
 from __future__ import annotations
 
-import torch
-
 from sgl_kernel_npu_tpu_torch.ops.grouped_matmul import (
     moe_pack_tn,
     pack_gmm1_scales,
     pack_gmm1_weights,
 )
-from sgl_kernel_npu_tpu_torch.ops.quant import INT8_MAX, saturate_int8
-
-
-def _chan_quant(w: torch.Tensor):
-    """Per-output-channel symmetric int8: ``w [E, K, N]`` → (int8, scales [E, N])."""
-    s = torch.clamp_min(w.abs().amax(dim=1) / INT8_MAX, 1e-12)
-    return saturate_int8(w / s[:, None, :]), s
+from sgl_kernel_npu_tpu_torch.ops.quant import quant_per_channel
 
 
 def quantize_expert_weights(w_gate, w_up, w_down):
@@ -35,7 +27,7 @@ def quantize_expert_weights(w_gate, w_up, w_down):
         raise NotImplementedError(
             f"gate/up packing of width {tn} < {n} feeds the BlockSpec grouped GEMMs "
             "(K8), not ported yet (ROADMAP queue B)")
-    qg, sg = _chan_quant(w_gate.float())
-    qu, su = _chan_quant(w_up.float())
-    qd, sd = _chan_quant(w_down.float())
+    qg, sg = quant_per_channel(w_gate, dim=1)     # [E, K, N]: per output channel
+    qu, su = quant_per_channel(w_up, dim=1)
+    qd, sd = quant_per_channel(w_down, dim=1)
     return pack_gmm1_weights(qg, qu, tn), pack_gmm1_scales(sg, su, tn), qd, sd

@@ -50,11 +50,12 @@ class ModelAdapter:
 
 
 def deepseek_adapter(cfg, params, dtype=torch.float32, *, moe_weights_q=None,
-                     device="cuda") -> ModelAdapter:
+                     mla_wq=None, device="cuda") -> ModelAdapter:
     """DeepSeek-V3 with W8A8 routed experts: ``moe_weights_q``
     (``models.deepseek_v3.quantize_moe_weights`` or ``init_quantized_experts``)
-    is required, the dense float MoE is not ported yet.  ``dtype`` is the KV
-    cache's."""
+    is required, the dense float MoE is not ported yet.  ``mla_wq``
+    (``models.deepseek_v3.make_mla_preprocess_weights``) runs the fused W8A8
+    prologue on prefill and decode.  ``dtype`` is the KV cache's."""
     from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as m
 
     dev = resolve_device(device)
@@ -68,9 +69,10 @@ def deepseek_adapter(cfg, params, dtype=torch.float32, *, moe_weights_q=None,
         lm_head=lambda x: m.lm_head(params, x),
         prefill_step=lambda x, sl, c, bt, ctx, slots: m.prefill_step(
             cfg, params, x, sl, c, bt, ctx, slots, max_q=x.shape[0],
-            moe_weights_q=moe_weights_q),
+            moe_weights_q=moe_weights_q, mla_wq=mla_wq),
         decode_step=lambda x, pos, c, bt, ctx, slots: m.decode_step(
-            cfg, params, x, pos, c, bt, ctx, slots, moe_weights_q=moe_weights_q),
+            cfg, params, x, pos, c, bt, ctx, slots, moe_weights_q=moe_weights_q,
+            mla_wq=mla_wq),
         init_cache=lambda n: m.init_kv_cache(cfg, n, dtype, device=dev),
     )
 

@@ -17,7 +17,7 @@ def counted(fn):
 
 def wrappers() -> dict:
     """Every kernel wrapper of the port, by name."""
-    from sgl_kernel_npu_tpu_torch.ops import gmm_ring
+    from sgl_kernel_npu_tpu_torch.ops import activation, gmm_ring, matmul, quant
     from sgl_kernel_npu_tpu_torch.ops.attention import decode_attention, mla_prefill
 
     return {
@@ -25,6 +25,9 @@ def wrappers() -> dict:
         "mla_prefill_pallas": mla_prefill.mla_prefill_pallas,
         "gmm1_ring": gmm_ring.gmm1_ring,
         "gmm2_combine_ring": gmm_ring.gmm2_combine_ring,
+        "quant_matmul": matmul.quant_matmul,
+        "quant_per_token": quant.quant_per_token,
+        "swiglu_quant": activation.swiglu_quant,
     }
 
 

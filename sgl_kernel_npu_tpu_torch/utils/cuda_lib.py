@@ -37,6 +37,9 @@ _SIGNATURES = {
                          _P, _P],
     "gmm2_combine_ring_launch": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                                  _I, _I, _P, _P, _P],
+    "quant_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "quant_per_token_launch": [_P, _I, _I, _I, _P, _P, _P],
+    "swiglu_quant_launch": [_P, _I, _I, _I, _P, _I, _P, _P, _P],
 }
 
 _lib = None

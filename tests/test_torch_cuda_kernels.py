@@ -7,12 +7,15 @@ mode).  On a machine with the card:
 
 Tolerances: bf16 attention outputs 2e-2 (f32 math, another summation order,
 bf16 rounding of the output); int8 GMM1 outputs 1 level and scales rtol 1e-5;
-f32 GMM2 + combine 1e-5 of the largest value (f32 sums in another order)."""
+f32 GMM2 + combine 1e-5 of the largest value (f32 sums in another order);
+``quant_matmul`` exact (exact integer sums, the same f32 epilogue);
+``quant_per_token`` and ``swiglu_quant`` int8 within one level (the SiLU's
+exp differs by ulps between libraries), scales rtol 1e-6."""
 
 import pytest
 import torch
 
-from sgl_kernel_npu_tpu_torch.ops import gmm_ring
+from sgl_kernel_npu_tpu_torch.ops import activation, gmm_ring, matmul, quant
 from sgl_kernel_npu_tpu_torch.ops.attention import decode_attention as da
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_prefill as mp
 from sgl_kernel_npu_tpu_torch.utils.common import kernels_available
@@ -126,4 +129,118 @@ def test_decode_step_kernels_match_plain(dev):
     y_p, _ = m.decode_step(cfg, params, x, pos, caches, bt, ctx, slots, moe, plain=True)
     torch.cuda.synchronize()
     rel = float((y_k.float() - y_p.float()).abs().max() / y_p.float().abs().max())
+    assert rel < 3e-2, rel
+
+
+# (M, N, K): the W8A8 GEMMs of the path at DeepSeek-V3 width (wdqkv as made
+# and lane-padded, wuq, wo, shared gate || up, shared down) at decode and
+# prefill-chunk rows, then ragged edges (77 rows: two passes of 64)
+QMM_CASES = ([(m, n, k) for m in (1, 8, 64)
+              for n, k in ((2112, 7168), (2176, 7168), (24576, 1536), (7168, 16384),
+                           (4096, 7168), (7168, 2048))]
+             + [(m, n, k) for m in (1, 8, 77) for n, k in ((100, 64), (264, 208))])
+
+
+@pytest.mark.parametrize("m,n,k", QMM_CASES)
+def test_quant_matmul_kernel(dev, m, n, k):
+    gen = torch.Generator(device=dev).manual_seed(n + m)
+    x = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+    w = torch.randint(-128, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+    ds = torch.rand(n, generator=gen, device=dev) / 1000
+    bias = torch.randint(-1000, 1000, (n,), generator=gen, device=dev, dtype=torch.int32)
+    for b in (None, bias):
+        for dt in (torch.float32, torch.bfloat16):
+            got = matmul.quant_matmul(x, w, ds, b, out_dtype=dt)
+            want = matmul.quant_matmul_ref(x, w, ds, b, out_dtype=dt)
+            torch.cuda.synchronize()
+            assert got.dtype == dt
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_quant_matmul_rejects(dev):
+    """What the kernel does not take raises; nothing falls back."""
+    w = torch.zeros((8, 24), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="K % 16"):
+        matmul.quant_matmul(torch.zeros((2, 24), dtype=torch.int8, device=dev), w,
+                            torch.ones(8, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul.quant_matmul(torch.zeros((32, 2), dtype=torch.int8, device=dev).T,
+                            torch.zeros((8, 32), dtype=torch.int8, device=dev),
+                            torch.ones(8, device=dev))
+
+
+@pytest.mark.parametrize("rows,hidden", [(8, 16384), (8, 7168), (64, 16384), (3, 100)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quant_per_token_kernel(dev, rows, hidden, dtype):
+    gen = torch.Generator(device=dev).manual_seed(rows + hidden)
+    x = (torch.randn((rows, hidden), generator=gen, device=dev) * 3).to(dtype)
+    x[1] = 0
+    q, s = quant.quant_per_token(x)
+    q_p, s_p = quant.quant_per_token_ref(x)
+    torch.cuda.synchronize()
+    assert int((q.int() - q_p.int()).abs().max()) <= 1
+    torch.testing.assert_close(s, s_p, rtol=1e-6, atol=0)
+    assert float(s[1]) == pytest.approx(1e-12) and not q[1].any()
+
+
+@pytest.mark.parametrize("rows,h", [(8, 4096), (64, 4096), (5, 200)])
+@pytest.mark.parametrize("group", [None, 0, 1])
+@pytest.mark.parametrize("need_quant", [True, False])
+def test_swiglu_quant_kernel(dev, rows, h, group, need_quant):
+    gen = torch.Generator(device=dev).manual_seed(rows + h)
+    x = (torch.randn((rows, h), generator=gen, device=dev) * 2).to(torch.bfloat16)
+    x[0] = 0
+    counts = torch.tensor([1, 0, rows // 2], dtype=torch.int32, device=dev)
+    gl = None if group is None else (torch.cumsum(counts, 0).to(torch.int32) if group == 0
+                                     else counts)
+    kw = dict(group_list_type=1 if group is None else group, need_quant=need_quant)
+    out, s = activation.swiglu_quant(x, gl, **kw)
+    out_p, s_p = activation.swiglu_quant_ref(x, gl, **kw)
+    torch.cuda.synchronize()
+    live = rows if gl is None else 1 + rows // 2
+    assert float(s[0]) == 0.0 and not s[live:].any()
+    if need_quant:
+        assert int((out.int() - out_p.int()).abs().max()) <= 1
+        torch.testing.assert_close(s, s_p, rtol=1e-6, atol=0)
+        assert not out[0].any() and not out[live:].any()
+    else:
+        assert out.dtype == torch.bfloat16 and not s.any()
+        torch.testing.assert_close(out.float(), out_p.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_fully_w8a8_decode_step_kernels_match_plain(dev):
+    """The fused W8A8 prologue and the W8A8 dense weights on a small model
+    with the kernels' widths: one decode step through the kernels equals the
+    plain path within 3% of the largest output (int8 requant flips)."""
+    from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as m
+
+    cfg = m.DeepSeekV3Config(vocab_size=256, hidden=512, num_layers=2, num_heads=16,
+                             kv_lora_rank=512, qk_nope_dim=64, q_lora_rank=128,
+                             v_head_dim=64, num_experts=16, topk=4, moe_intermediate=256,
+                             page_size=16)
+    params = m.init_weights(cfg, 0, torch.bfloat16, device=dev)
+    moe = m.quantize_moe_weights(cfg, m.init_weights(cfg, 1, torch.float32, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sample = torch.randn((16, cfg.hidden), generator=gen, device=dev)
+    kw = dict(mla_wq=m.make_mla_preprocess_weights(cfg, params, sample),
+              dense_wq=m.quantize_dense_weights(cfg, params))
+    caches = m.init_kv_cache(cfg, 40, torch.bfloat16, device=dev)
+    for c in caches:
+        c["nope"].copy_(torch.randn(c["nope"].shape, generator=gen, device=dev))
+        c["rope"].copy_(torch.randn(c["rope"].shape, generator=gen, device=dev))
+    b = 6
+    ctx = torch.tensor([1, 9, 30, 64, 17, 2], dtype=torch.int32, device=dev)
+    bt = (torch.arange(b * 6, dtype=torch.int32, device=dev) + 1).reshape(b, 6)
+    pos = ctx - 1
+    slots = bt[torch.arange(b, device=dev), pos // 16] * 16 + pos % 16
+    slots[-1] = -1
+    x = torch.randn((b, cfg.hidden), generator=gen, device=dev).to(torch.bfloat16)
+    before = {f: getattr(f, "launches") for f in (matmul.quant_matmul, quant.quant_per_token,
+                                                  activation.swiglu_quant)}
+    y_k, _ = m.decode_step(cfg, params, x, pos, caches, bt, ctx, slots, moe, **kw)
+    y_p, _ = m.decode_step(cfg, params, x, pos, caches, bt, ctx, slots, moe, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert all(f.launches > n for f, n in before.items())
+    assert y_k.dtype == y_p.dtype == torch.float32
+    rel = float((y_k - y_p).abs().max() / y_p.abs().max())
     assert rel < 3e-2, rel

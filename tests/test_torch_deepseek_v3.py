@@ -6,6 +6,8 @@ requantize the expert activations to int8 (a boundary value can flip by one
 level) and the JAX GMM2 kernel rounds each expert output to bf16 before the
 combine, where the port keeps f32 (relative 2^-9 per expert)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,8 +34,8 @@ def _setup(scoring):
             lw["router_bias"] = jnp.asarray(
                 rng.standard_normal(jcfg.num_experts) * 0.01, jnp.float32)
     moe_j = jm.quantize_moe_weights(jcfg, params)
-    tparams, moe_t = tm.from_jax_params(jax.tree.map(np.asarray, params),
-                                        jax.tree.map(np.asarray, moe_j), device="cpu")
+    tparams, moe_t, _, _ = tm.from_jax_params(jax.tree.map(np.asarray, params),
+                                              jax.tree.map(np.asarray, moe_j), device="cpu")
     return jcfg, tcfg, params, moe_j, tparams, moe_t, rng
 
 
@@ -50,14 +52,9 @@ def _close(got, want):
     np.testing.assert_allclose(np32(got), want, rtol=0, atol=0.01 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("scoring", ["softmax", "sigmoid_v3"])
-def test_decode_then_prefill_match_jax(scoring):
-    """One decode step (a length-1 sequence and a slot -1 row included), then
-    a packed varlen prefill of three requests with two pad rows, on the cache
-    state the decode left; hidden outputs and caches compared."""
-    jcfg, tcfg, params, moe_j, tparams, moe_t, rng = _setup(scoring)
-    assert ("router_bias" in tparams["layers"][0]) == (scoring == "sigmoid_v3")
-    n = 5
+def _decode_inputs(rng, jcfg, n=5):
+    """A decode batch with a length-1 sequence and a slot -1 row, over random
+    caches: ``(kv_j, kv_t, hidden, bt, seq, pos, slots)``."""
     kv_j, kv_t = _random_caches(rng, jcfg, 4 * n + 1)
     hidden = rng.standard_normal((n, jcfg.hidden)).astype(np.float32)
     bt = np.arange(1, 1 + 4 * n).reshape(n, 4).astype(np.int32)
@@ -65,14 +62,27 @@ def test_decode_then_prefill_match_jax(scoring):
     pos = seq - 1
     slots = (bt[np.arange(n), pos // PAGE] * PAGE + pos % PAGE).astype(np.int32)
     slots[0] = -1
-    yj, kv_j = jm.decode_step(jcfg, params, jx(hidden), jx(pos), kv_j, jx(bt), jx(seq),
-                              jx(slots), moe_weights_q=moe_j)
-    yt, kv_t = tm.decode_step(tcfg, tparams, tt(hidden), tt(pos), kv_t, tt(bt), tt(seq),
-                              tt(slots), moe_weights_q=moe_t)
-    _close(yt, yj)
+    return kv_j, kv_t, hidden, bt, seq, pos, slots
+
+
+def _decode_then_prefill(jcfg, tcfg, params, tparams, rng, jkw, tkw, close,
+                         dtype=np.float32, cache_atol=1e-2):
+    """One decode step (:func:`_decode_inputs`), then a packed varlen prefill of three requests with two pad rows, on the cache
+    state the decode left; hidden outputs (via ``close``) and caches (within
+    ``cache_atol``) compared.  ``dtype`` is the hidden states' (``"bfloat16"``
+    rounds them on both sides); the steps' keyword switches are ``jkw`` /
+    ``tkw``."""
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16"
+                else (jnp.float32, torch.float32))
+    kv_j, kv_t, hidden, bt, seq, pos, slots = _decode_inputs(rng, jcfg)
+    yj, kv_j = jm.decode_step(jcfg, params, jx(hidden, jdt), jx(pos), kv_j, jx(bt), jx(seq),
+                              jx(slots), **jkw)
+    yt, kv_t = tm.decode_step(tcfg, tparams, tt(hidden, tdt), tt(pos), kv_t, tt(bt), tt(seq),
+                              tt(slots), **tkw)
+    close(yt, yj)
     for cj, ct in zip(kv_j, kv_t):
         for key in ("nope", "rope"):
-            np.testing.assert_allclose(np32(ct[key]), np32(cj[key]), atol=1e-2)
+            np.testing.assert_allclose(np32(ct[key]), np32(cj[key]), atol=cache_atol)
 
     sl = np.asarray([3, 25, 10], np.int32)
     ctx = np.asarray([40, 25, 64], np.int32)
@@ -81,11 +91,111 @@ def test_decode_then_prefill_match_jax(scoring):
               for b in range(3) for p in range(ctx[b] - sl[b], ctx[b])] + [-1, -1]
     slots3 = np.asarray(slots3, np.int32)
     hid = rng.standard_normal((len(slots3), jcfg.hidden)).astype(np.float32)
-    yj, _ = jm.prefill_step(jcfg, params, jx(hid), jx(sl), kv_j, jx(bt3), jx(ctx),
-                            jx(slots3), max_q=len(slots3), moe_weights_q=moe_j)
-    yt, _ = tm.prefill_step(tcfg, tparams, tt(hid), tt(sl), kv_t, tt(bt3), tt(ctx),
-                            tt(slots3), max_q=len(slots3), moe_weights_q=moe_t)
-    _close(yt, yj)
+    yj, _ = jm.prefill_step(jcfg, params, jx(hid, jdt), jx(sl), kv_j, jx(bt3), jx(ctx),
+                            jx(slots3), max_q=len(slots3), **jkw)
+    yt, _ = tm.prefill_step(tcfg, tparams, tt(hid, tdt), tt(sl), kv_t, tt(bt3), tt(ctx),
+                            tt(slots3), max_q=len(slots3), **tkw)
+    close(yt, yj)
+
+
+@pytest.mark.parametrize("scoring", ["softmax", "sigmoid_v3"])
+def test_decode_then_prefill_match_jax(scoring):
+    jcfg, tcfg, params, moe_j, tparams, moe_t, rng = _setup(scoring)
+    assert ("router_bias" in tparams["layers"][0]) == (scoring == "sigmoid_v3")
+    _decode_then_prefill(jcfg, tcfg, params, tparams, rng, dict(moe_weights_q=moe_j),
+                         dict(moe_weights_q=moe_t), _close)
+
+
+def _w8a8_weights(jcfg, params):
+    """The JAX package's fused-prologue and dense W8A8 weights, and the port's
+    copies of them (calibrated on one sample of post-embedding scale)."""
+    sample = jx(np.random.default_rng(14).standard_normal((16, jcfg.hidden)) * 0.3,
+                jnp.float32)
+    mla_j = jm.make_mla_preprocess_weights(jcfg, params, sample)
+    dense_j = jm.quantize_dense_weights(jcfg, params)
+    _, _, mla_t, dense_t = tm.from_jax_params(
+        jax.tree.map(np.asarray, params), device="cpu",
+        mla_wq_np=jax.tree.map(np.asarray, mla_j), dense_wq_np=jax.tree.map(np.asarray, dense_j))
+    return sample, mla_j, dense_j, mla_t, dense_t
+
+
+def _rows_close(got, want, tol=0.02, outliers=0):
+    """Every row within ``tol`` of max|want|, but for up to ``outliers`` rows."""
+    want = np32(want)
+    err_row = np.abs(np32(got) - want).max(axis=-1) / np.abs(want).max()
+    assert (err_row > tol).sum() <= outliers, err_row
+
+
+def test_fully_w8a8_decode_then_prefill_match_jax():
+    """The fully W8A8 layer (``mla_wq`` + ``dense_wq`` + ``moe_weights_q``).
+    Rows within 2% of max|hidden| (int8 activations are requantized five
+    times a layer, and a value at a rounding tie may land one level apart on
+    the two sides), but one row a step: such a flip can move a router
+    near-tie, and a row routed to other experts on one side is not comparable
+    (this input's prefill has one, in layer 2).  Caches within 8e-2, 2% of
+    their largest values (a flip of the static quant before ``wdqkv`` moves a
+    latent by up to ~4e-2)."""
+    jcfg, tcfg, params, moe_j, tparams, moe_t, rng = _setup("softmax")
+    _, mla_j, dense_j, mla_t, dense_t = _w8a8_weights(jcfg, params)
+    _decode_then_prefill(
+        jcfg, tcfg, params, tparams, rng,
+        dict(moe_weights_q=moe_j, mla_wq=mla_j, dense_wq=dense_j),
+        dict(moe_weights_q=moe_t, mla_wq=mla_t, dense_wq=dense_t),
+        lambda got, want: _rows_close(got, want, outliers=1), cache_atol=8e-2)
+
+
+def test_fully_w8a8_residual_turns_f32_like_jax():
+    """bf16 hidden states through the fully W8A8 decode step: the W8A8
+    projections return f32, so the residual stream turns f32 on both sides.
+    Rows within 2% of max|hidden|, but one (a routing flip, as above)."""
+    jcfg, tcfg, params, moe_j, tparams, moe_t, rng = _setup("softmax")
+    _, mla_j, dense_j, mla_t, dense_t = _w8a8_weights(jcfg, params)
+    kv_j, kv_t, hidden, bt, seq, pos, slots = _decode_inputs(rng, jcfg)
+    yj, _ = jm.decode_step(jcfg, params, jx(hidden, jnp.bfloat16), jx(pos), kv_j, jx(bt),
+                           jx(seq), jx(slots), moe_weights_q=moe_j, mla_wq=mla_j,
+                           dense_wq=dense_j)
+    yt, _ = tm.decode_step(tcfg, tparams, tt(hidden, torch.bfloat16), tt(pos), kv_t, tt(bt),
+                           tt(seq), tt(slots), moe_weights_q=moe_t, mla_wq=mla_t,
+                           dense_wq=dense_t)
+    assert yj.dtype == jnp.float32 and yt.dtype == torch.float32
+    _rows_close(yt, yj, outliers=1)
+
+
+def test_w8a8_weights_match_jax():
+    """``make_mla_preprocess_weights`` and ``quantize_dense_weights`` made by
+    the port from the same float weights: int8 within one level (XLA on the
+    CPU may multiply by a reciprocal where torch divides), scales rtol 1e-6,
+    everything else equal.  The JAX ``wdqkv`` carries a lane pad of zero rows
+    that the port's leaves out."""
+    jcfg, tcfg, params, _, tparams, _, _ = _setup("softmax")
+    sample, mla_j, dense_j, _, _ = _w8a8_weights(jcfg, params)
+    mla_t = tm.make_mla_preprocess_weights(tcfg, tparams, tt(np.asarray(sample)))
+    dense_t = tm.quantize_dense_weights(tcfg, tparams)
+
+    def same(at, aj, what):
+        aj = np.asarray(aj)
+        if what in ("wdqkv", "descale1", "bias1"):
+            assert aj.shape[0] % 128 == 0 and not aj[at.shape[0]:].any(), what
+            aj = aj[: at.shape[0]]
+        assert at.dtype == _TORCH_OF[aj.dtype] and tuple(at.shape) == aj.shape, what
+        if aj.dtype == np.int8:
+            assert np.abs(at.numpy().astype(np.int32) - aj.astype(np.int32)).max() <= 1, what
+        else:
+            np.testing.assert_allclose(at.numpy(), aj, rtol=1e-6, err_msg=what)
+
+    for wj, wt in zip(mla_j, mla_t):
+        assert wt.qnope_scale is None
+        for name in wj._fields:
+            if name not in ("qnope_scale", "ctkv_scale"):
+                same(getattr(wt, name), getattr(wj, name), name)
+    for dj, dt in zip(dense_j, dense_t):
+        for name in ("wo", "ws_gate_up", "ws_down"):
+            same(dt[name][0], dj[name][0], name)
+            same(dt[name][1], dj[name][1], name)
+
+
+_TORCH_OF = {np.dtype(np.int8): torch.int8, np.dtype(np.int32): torch.int32,
+             np.dtype(np.float32): torch.float32}
 
 
 def test_quantize_moe_weights_within_one_lsb():
@@ -94,8 +204,7 @@ def test_quantize_moe_weights_within_one_lsb():
     for lj, lt in zip(moe_j, ours):
         for aj, at in zip(lj, lt):
             aj = np.asarray(aj)
-            assert at.dtype == {np.dtype(np.int8): torch.int8,
-                                np.dtype(np.float32): torch.float32}[aj.dtype]
+            assert at.dtype == _TORCH_OF[aj.dtype]
             if aj.dtype == np.int8:
                 assert np.abs(at.numpy().astype(np.int32) - aj.astype(np.int32)).max() <= 1
             else:
@@ -127,6 +236,11 @@ def test_unported_switches_raise():
                        tm.init_kv_cache(cfg, 2, device="cpu"),
                        torch.zeros((1, 1), dtype=torch.int32),
                        torch.ones(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32))
+    int8_cache = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tm.init_kv_cache(int8_cache, 2, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tm.make_mla_preprocess_weights(int8_cache, params, torch.zeros((2, cfg.hidden)))
     with pytest.raises(NotImplementedError, match="K8"):   # packing narrower than 2I
         quantize_expert_weights(torch.zeros((1, 128, 8192)), torch.zeros((1, 128, 8192)),
                                    torch.zeros((1, 8192, 128)))

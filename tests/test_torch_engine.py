@@ -26,20 +26,28 @@ def model():
     jcfg = jm.DeepSeekV3Config(num_layers=1, page_size=4, vocab_size=61)
     params = jm.init_weights(jax.random.key(3), jcfg, jnp.float32)
     moe_j = jm.quantize_moe_weights(jcfg, params)
-    tparams, moe_t = tm.from_jax_params(jax.tree.map(np.asarray, params),
-                                        jax.tree.map(np.asarray, moe_j), device="cpu")
+    tparams, moe_t, _, _ = tm.from_jax_params(jax.tree.map(np.asarray, params),
+                                              jax.tree.map(np.asarray, moe_j), device="cpu")
     tcfg = port_config(jcfg, tm.DeepSeekV3Config)
     return jcfg, params, moe_j, tcfg, tparams, moe_t
 
 
-def _engine(model, num_pages=64, **kw):
+def _mla_wq(model):
+    """The port's fused-prologue weights, calibrated on the prompt's embeddings."""
+    _, _, _, tcfg, tparams, _ = model
+    return tm.make_mla_preprocess_weights(
+        tcfg, tparams, tm.embed(tparams, torch.tensor(PROMPT, dtype=torch.int32)))
+
+
+def _engine(model, num_pages=64, mla_wq=None, **kw):
     _, _, _, tcfg, tparams, moe_t = model
     kw = {"max_batch": 2, "max_pages_per_req": 16, "prefill_chunk": 8, **kw}
-    return Engine(deepseek_adapter(tcfg, tparams, moe_weights_q=moe_t, device="cpu"),
+    return Engine(deepseek_adapter(tcfg, tparams, moe_weights_q=moe_t, mla_wq=mla_wq,
+                                   device="cpu"),
                   num_pages=num_pages, device="cpu", **kw)
 
 
-def _chain(model, prompt, n_new):
+def _chain(model, prompt, n_new, mla_wq=None):
     """Straight-line generation through the port's model functions: the whole
     prompt in one prefill, then one decode per token; returns (tokens, logits)."""
     _, _, _, cfg, params, moe = model
@@ -51,32 +59,35 @@ def _chain(model, prompt, n_new):
     i32 = lambda v: torch.tensor(v, dtype=torch.int32)
     h, caches = tm.prefill_step(cfg, params, tm.embed(params, i32(prompt)), i32([n]), caches,
                                 bt, i32([n]), i32([slot(i) for i in range(n)]), max_q=16,
-                                moe_weights_q=moe)
+                                moe_weights_q=moe, mla_wq=mla_wq)
     logits = [tm.lm_head(params, h[n - 1 : n])[0]]
     toks = [int(torch.argmax(logits[-1]))]
     for _ in range(n_new - 1):
         i = n + len(toks) - 1
         y, caches = tm.decode_step(cfg, params, tm.embed(params, i32([toks[-1]])), i32([i]),
                                    caches, bt, i32([i + 1]), i32([slot(i)]),
-                                   moe_weights_q=moe)
+                                   moe_weights_q=moe, mla_wq=mla_wq)
         logits.append(tm.lm_head(params, y)[0])
         toks.append(int(torch.argmax(logits[-1])))
     return toks, torch.stack(logits)
 
 
-def test_engine_matches_chain_batched_and_mixed(model):
+@pytest.mark.parametrize("fused_prologue", [False, True])
+def test_engine_matches_chain_batched_and_mixed(model, fused_prologue):
     """Two prompts served together, the second admitted while the first
-    decodes (mixed prefill + decode ticks), each equal to its own chain."""
+    decodes (mixed prefill + decode ticks), each equal to its own chain;
+    with the float MLA prologue and with the fused W8A8 one (``mla_wq``)."""
+    mla_wq = _mla_wq(model) if fused_prologue else None
     p2 = [40, 41, 42, 43, 44, 45, 46, 47, 48, 49, 50, 51]
-    eng = _engine(model, prefill_chunk=4)
+    eng = _engine(model, prefill_chunk=4, mla_wq=mla_wq)
     r1 = eng.add_request(PROMPT, 6)
     while not any(r.pos >= r.prompt_len for r in eng.running):
         eng.step()
     r2 = eng.add_request(p2, 4)
     while eng.waiting or eng.running:
         eng.step()
-    assert eng.finished[r1] == _chain(model, PROMPT, 6)[0]
-    assert eng.finished[r2] == _chain(model, p2, 4)[0]
+    assert eng.finished[r1] == _chain(model, PROMPT, 6, mla_wq)[0]
+    assert eng.finished[r2] == _chain(model, p2, 4, mla_wq)[0]
     assert eng.cm.free_pages + eng.cm.cached_pages == 64
 
 
