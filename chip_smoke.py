@@ -12,9 +12,13 @@ Phases (any failure raises and the script exits non-zero without a result):
    prologue's W8A8 weights (calibrated on the embeddings of the prompts
    below) and the W8A8 dense weights.
 3. Hold each kernel (decode_mla, mla_prefill_pallas, gmm1_ring,
-   gmm2_combine_ring, quant_matmul, quant_per_token, swiglu_quant) against
-   its plain PyTorch version on the card, at the main path's full-width
-   shapes and at small ragged cases; time the kernel, the plain version and,
+   gmm2_combine_ring, quant_matmul, quant_per_token, swiglu_quant,
+   grouped_matmul) against its plain PyTorch version on the card, at the
+   main path's full-width shapes and at small ragged cases, decode_mla and
+   mla_prefill_pallas also on an int8 latent cache (there also at the shapes
+   of phase 4c: decode contexts of 916-4016 keys on a 33-page table, a
+   2048-row chunk at context 4096), grouped_matmul at 2048 and 4096 tokens
+   of top-8 routing; time the kernel, the plain version and,
    where one exists, a single PyTorch call computing the same function (CUDA
    events, L2 flushed before each launch); compute each kernel's bound from
    the bytes and operations of its inputs.
@@ -29,10 +33,20 @@ Phases (any failure raises and the script exits non-zero without a result):
    their logits are compared.
 4b. The fully W8A8 layer (``mla_wq`` + ``dense_wq`` + ``moe_weights_q``)
    through ``decode_step`` on the live batch and ``prefill_step`` on one
-   64-token chunk, each against its plain versions; all seven kernels must
+   64-token chunk, each against its plain versions; K1, K5 and K7a must
    have launched.
-5. ``torch.profiler`` breakdowns of a decode step, a mixed tick and the fully
-   W8A8 decode step.
+4c. Long prompts on the int8 latent cache: ``Engine`` with
+   ``prefill_chunk=2048`` over ``deepseek_adapter`` on
+   ``kv_cache_dtype="int8"`` with the fused prologue (``mla_wq`` calibrated
+   with its per-head q scales): 5 prompts of 900-4000 tokens (two share a
+   2048-token prefix, served so that the second reuses it), 16 new tokens
+   each.  Every prefill call is 2048 rows, so its MoE runs on grouped_matmul
+   (2 a layer); decode runs the ring GEMMs.  Launch counts, page release,
+   radix reuse and the int8 cache are checked; then one decode step and one
+   2048-row prefill chunk (at context 4096) are held to their plain
+   versions with the routing replayed.
+5. ``torch.profiler`` breakdowns of a decode step, a mixed tick, the fully
+   W8A8 decode step and one 2048-token prefill call on the int8 cache.
 6. Print the kernels' JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -40,6 +54,7 @@ Phases (any failure raises and the script exits non-zero without a result):
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -52,7 +67,13 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device is available")
 
 from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as m  # noqa: E402
-from sgl_kernel_npu_tpu_torch.ops import activation, gmm_ring, matmul, quant  # noqa: E402
+from sgl_kernel_npu_tpu_torch.ops import (  # noqa: E402
+    activation,
+    gmm_ring,
+    grouped_matmul,
+    matmul,
+    quant,
+)
 from sgl_kernel_npu_tpu_torch.ops.attention import decode_attention as da  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_prefill as mp  # noqa: E402
 from sgl_kernel_npu_tpu_torch.runtime.engine import Engine, deepseek_adapter  # noqa: E402
@@ -85,6 +106,12 @@ PROMPT_LENS = [96, 700, 150, 450, 520, 300]     # the 2nd and 6th share 256 toke
 SHARED_PREFIX = 256
 NEW_TOKENS = 16
 BASE_KERNELS = ("decode_mla", "mla_prefill_pallas", "gmm1_ring", "gmm2_combine_ring")  # every path
+
+# [4c] long prompts on the int8 latent cache (the JAX config's ctkv_scale 1/32)
+CFG_INT8 = dataclasses.replace(CFG, kv_cache_dtype="int8")
+LONG_CHUNK, LONG_PAGES_PER_REQ, LONG_NUM_PAGES = 2048, 33, 256
+LONG_PROMPT_LENS = [3500, 1800, 4000, 900, 2600]  # the 1st and 5th share 2048 tokens
+LONG_SHARED = 2048
 
 _flush_buf = None
 SPIN_CYCLES = 200_000          # ~100 us at the H100's 1.98 GHz boost clock
@@ -145,39 +172,50 @@ def randn(gen, shape, dtype=torch.bfloat16, scale=1.0):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def paged_cache(gen, n_pages, page):
+def paged_cache(gen, n_pages, page, int8=False):
+    """Random latent and rope caches; ``int8``: the latent as levels
+    round(k / ctkv_scale) of the same N(0, 1) values (k_scale = ctkv_scale)."""
     kn = randn(gen, (n_pages, 1, page, 512))
     kr = randn(gen, (n_pages, 1, 64, page))
+    if int8:
+        kn = torch.clamp(torch.round(kn.float() / CFG.ctkv_scale), -128, 127).to(torch.int8)
     return kn, kr
 
 
-def check_decode_mla(gen, b, heads, page, ctx_list, pad_rows, timed):
+def check_decode_mla(gen, b, heads, page, ctx_list, pad_rows, timed, int8=False,
+                     table_pages=None):
+    """``table_pages``: block-table width (the engine's ``max_pages_per_req``;
+    the pages the contexts need by default)."""
     max_pages = max(-(-c // page) for c in ctx_list)
     n_pages = b * max_pages + 1
-    kn, kr = paged_cache(gen, n_pages, page)
+    kn, kr = paged_cache(gen, n_pages, page, int8)
+    ks = CFG.ctkv_scale if int8 else None
     perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(b)) + 1
-    bt = torch.zeros((b + pad_rows, max_pages), dtype=torch.int32)
-    bt[:b] = perm[: b * max_pages].reshape(b, max_pages)
+    bt = torch.zeros((b + pad_rows, table_pages or max_pages), dtype=torch.int32)
+    bt[:b, :max_pages] = perm[: b * max_pages].reshape(b, max_pages)
     bt = bt.to(DEV)
     ctx = torch.tensor(ctx_list + [1] * pad_rows, dtype=torch.int32, device=DEV)
     q = randn(gen, (b + pad_rows, heads, 576))
     scale = CFG.sm_scale
     args = (q, kn, kr, ctx, scale, bt)
-    got, want = da.decode_mla(*args), da.decode_mla_ref(*args)
+    got, want = da.decode_mla(*args, k_scale=ks), da.decode_mla_ref(*args, k_scale=ks)
     torch.cuda.synchronize()
     err, ok = attention_close(got, want)
-    log(f"  decode_mla B={b}+{pad_rows} pad H={heads} page={page} ctx={ctx_list}: "
-        f"max|err| {err:.3e} (tol 2e-2 + 2e-2 |plain|)")
+    log(f"  decode_mla B={b}+{pad_rows} pad H={heads} page={page} ctx={ctx_list} "
+        f"table {bt.shape[1]} pages, {'int8' if int8 else 'bf16'} latent: max|err| {err:.3e} "
+        f"(tol 2e-2 + 2e-2 |plain|)")
     if not ok:
         raise AssertionError(f"decode_mla disagrees with its plain version: {err}")
     if not timed:
         return None
-    ms = time_ms(lambda: da.decode_mla(*args), 50)
-    plain_ms = time_ms(lambda: da.decode_mla_ref(*args), 10)
+    ms = time_ms(lambda: da.decode_mla(*args, k_scale=ks), 50)
+    plain_ms = time_ms(lambda: da.decode_mla_ref(*args, k_scale=ks), 10)
     # one PyTorch call for the same function: SDPA over the cache gathered to
-    # dense [B, 1, L, 576] beforehand (the gather is not timed)
+    # dense [B, 1, L, 576] (and an int8 latent dequantized) beforehand, not timed
     max_len = max_pages * page
     kd = da._gather_pages(kn, bt, max_len)                           # [B, 1, L, 512]
+    if int8:
+        kd = (kd.float() * ks).to(torch.bfloat16)
     krd = da._gather_pages(kr.transpose(-1, -2), bt, max_len)
     kcat = torch.cat([kd, krd], dim=-1)
     mask = (torch.arange(max_len, device=DEV)[None, :] < ctx[:, None])[:, None, None, :]
@@ -185,28 +223,37 @@ def check_decode_mla(gen, b, heads, page, ctx_list, pad_rows, timed):
         q[:, :, None, :], kcat, kd, attn_mask=mask, scale=scale, enable_gqa=True)
     library_ms = time_ms(lib_fn, 50)
     keys = sum(ctx_list)
-    nbytes = q.numel() * 2 + keys * 576 * 2 + got.numel() * 2 + bt.numel() * 4 + ctx.numel() * 4
-    ops = keys * heads * (576 + 512) * 2
-    return err, ms, plain_ms, library_ms, *bound(nbytes, ops, BF16_FLOPS)
+    key_bytes = (512 if int8 else 1024) + 128                        # latent + bf16 rope
+    nbytes = q.numel() * 2 + keys * key_bytes + got.numel() * 2 + bt.numel() * 4 + ctx.numel() * 4
+    t_bound, by = bound(nbytes, keys * heads * (576 + 512) * 2, BF16_FLOPS)
+    log(f"    {'int8' if int8 else 'bf16'} latent: {ms:.4f} ms (plain {plain_ms:.4f}, SDPA "
+        f"{library_ms:.4f}, bound {t_bound:.4f} {by})")
+    return err, ms, plain_ms, library_ms, t_bound, by
 
 
-def check_mla_prefill(gen, heads, page, seq_list, ctx_list, pad_rows, timed):
+def check_mla_prefill(gen, heads, page, seq_list, ctx_list, pad_rows, timed, int8=False,
+                      table_pages=None):
     bsz = len(seq_list)
     max_pages = max(-(-c // page) for c in ctx_list)
     n_pages = bsz * max_pages
-    kn, kr = paged_cache(gen, n_pages, page)
-    bt = torch.arange(n_pages, dtype=torch.int32, device=DEV).reshape(bsz, max_pages)
+    kn, kr = paged_cache(gen, n_pages, page, int8)
+    ks = CFG.ctkv_scale if int8 else None
+    bt = torch.zeros((bsz, table_pages or max_pages), dtype=torch.int32, device=DEV)
+    bt[:, :max_pages] = torch.arange(n_pages, dtype=torch.int32, device=DEV).reshape(bsz,
+                                                                                      max_pages)
     seq = torch.tensor(seq_list, dtype=torch.int32, device=DEV)
     ctx = torch.tensor(ctx_list, dtype=torch.int32, device=DEV)
     s = sum(seq_list) + pad_rows
     q = randn(gen, (s, heads, 576))
     scale = CFG.sm_scale
-    got = mp.mla_prefill_pallas(q, kn, kr, seq, bt, ctx, scale, max_q=max(seq_list))
-    want = mp.mla_prefill_ref(q, kn, kr, seq, bt, ctx, scale)
+    got = mp.mla_prefill_pallas(q, kn, kr, seq, bt, ctx, scale, max_q=max(seq_list),
+                                k_scale=ks)
+    want = mp.mla_prefill_ref(q, kn, kr, seq, bt, ctx, scale, k_scale=ks)
     torch.cuda.synchronize()
     err, ok = attention_close(got, want)
     log(f"  mla_prefill H={heads} page={page} seq={seq_list} ctx={ctx_list} +{pad_rows} "
-        f"pad rows: max|err| {err:.3e} (tol 2e-2 + 2e-2 |plain|)")
+        f"pad rows, table {bt.shape[1]} pages, {'int8' if int8 else 'bf16'} latent: max|err| "
+        f"{err:.3e} (tol 2e-2 + 2e-2 |plain|)")
     if not ok:
         raise AssertionError(f"mla_prefill disagrees with its plain version: {err}")
     if pad_rows and not bool((got[-pad_rows:] == 0).all()):
@@ -214,23 +261,33 @@ def check_mla_prefill(gen, heads, page, seq_list, ctx_list, pad_rows, timed):
     if not timed:
         return None
     ms = time_ms(lambda: mp.mla_prefill_pallas(q, kn, kr, seq, bt, ctx, scale,
-                                               max_q=max(seq_list)), 20)
-    plain_ms = time_ms(lambda: mp.mla_prefill_ref(q, kn, kr, seq, bt, ctx, scale), 5)
-    # one request: SDPA over its dense cache with the causal offset mask
-    sl, cl = seq_list[0], ctx_list[0]
-    kd = da._gather_pages(kn, bt[:1], cl)
-    kcat = torch.cat([kd, da._gather_pages(kr.transpose(-1, -2), bt[:1], cl)], dim=-1)
-    qpos = cl - sl + torch.arange(sl, device=DEV)
-    mask = (torch.arange(cl, device=DEV)[None, :] <= qpos[:, None])[None, None]
-    qh = q[:sl].transpose(0, 1)[None]                                  # [1, H, S, 576]
-    lib_fn = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        qh, kcat, kd, attn_mask=mask, scale=scale, enable_gqa=True)
-    library_ms = time_ms(lib_fn, 20) if bsz == 1 else None
-    nbytes = (q.numel() * 2 + got.numel() * 2
-              + sum(ctx_list) * 576 * 2 + bt.numel() * 4)
+                                               max_q=max(seq_list), k_scale=ks), 20)
+    plain_ms = time_ms(lambda: mp.mla_prefill_ref(q, kn, kr, seq, bt, ctx, scale,
+                                                  k_scale=ks), 5)
+    # one request: SDPA over its dense cache (an int8 latent dequantized
+    # beforehand, not timed) with the causal offset mask
+    library_ms = None
+    if bsz == 1:
+        sl, cl = seq_list[0], ctx_list[0]
+        kd = da._gather_pages(kn, bt[:1], cl)
+        if int8:
+            kd = (kd.float() * ks).to(torch.bfloat16)
+        kcat = torch.cat([kd, da._gather_pages(kr.transpose(-1, -2), bt[:1], cl)], dim=-1)
+        qpos = cl - sl + torch.arange(sl, device=DEV)
+        mask = (torch.arange(cl, device=DEV)[None, :] <= qpos[:, None])[None, None]
+        qh = q[:sl].transpose(0, 1)[None]                                  # [1, H, S, 576]
+        lib_fn = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qh, kcat, kd, attn_mask=mask, scale=scale, enable_gqa=True)
+        library_ms = time_ms(lib_fn, 20)
+        del kd, kcat, mask
     ops = sum(heads * (c - sq + j + 1) * (576 + 512) * 2
               for sq, c in zip(seq_list, ctx_list) for j in range(sq))
-    return err, ms, plain_ms, library_ms, *bound(nbytes, ops, BF16_FLOPS)
+    key_bytes = (512 if int8 else 1024) + 128                            # latent + bf16 rope
+    nbytes = q.numel() * 2 + got.numel() * 2 + sum(ctx_list) * key_bytes + bt.numel() * 4
+    t_bound, by = bound(nbytes, ops, BF16_FLOPS)
+    log(f"    {'int8' if int8 else 'bf16'} latent: {ms:.4f} ms (plain {plain_ms:.4f}, SDPA "
+        f"{library_ms}, bound {t_bound:.4f} {by})")
+    return err, ms, plain_ms, library_ms, t_bound, by
 
 
 def routing(gen, n_tok, topk, n_exp):
@@ -321,6 +378,96 @@ def check_gmm_small(gen):
         f"{err1:.0f} (tol 1), gmm2 max|err| {err2:.3e} (tol 1e-4)")
     if not (err1 <= 1 and bool((h1[3] == 0).all()) and err2 <= 1e-4):
         raise AssertionError(f"gmm small case disagrees: {err1}, {err2}")
+
+
+def check_grouped_matmul(gen, moe, n_tok, topk, timed):
+    """K8a on one layer's experts at a prefill batch of ``n_tok`` tokens of
+    random top-k routing: GMM1 (``dequant_swiglu_quant``) on the gathered
+    token rows, then GMM2 (``dequant``, bf16 out) on the plain GMM1's output.
+    Tolerances: int8 within one level (the SiLU's exp), scales rtol 1e-6,
+    GMM2 within one bf16 ulp (2^-7 |plain|: the same f32 operations)."""
+    w1, s1, w2, s2 = moe
+    n_exp, k, n = w1.shape
+    i, h = n // 2, w2.shape[2]
+    gsizes, tok_of_row, _ = routing(gen, n_tok, topk, n_exp)
+    x = randn(gen, (n_tok, k), torch.float32)
+    sx_tok = torch.clamp_min(quant.row_scale(x), 1e-12)
+    xq = quant.saturate_int8(x / sx_tok[:, None])
+    rows = tok_of_row.long()
+    xg, sxg = xq[rows], sx_tok[rows]
+    gm, gm_p = grouped_matmul.grouped_matmul, grouped_matmul.grouped_matmul_plain
+    kw1 = dict(epilogue="dequant_swiglu_quant")
+    kw2 = dict(epilogue="dequant")
+    h1, hs = gm(xg, w1, gsizes, sxg, s1, **kw1)
+    h1_p, hs_p = gm_p(xg, w1, gsizes, sxg, s1, **kw1)
+    y = gm(h1_p, w2, gsizes, hs_p, s2, **kw2)
+    y_p = gm_p(h1_p, w2, gsizes, hs_p, s2, **kw2)
+    torch.cuda.synchronize()
+    err1 = max_abs(h1, h1_p)
+    err_s = float(((hs - hs_p).abs() / hs_p.abs().clamp_min(1e-30)).max())
+    err2 = max_abs(y, y_p)
+    rel2 = float(((y.float() - y_p.float()).abs() / y_p.float().abs().clamp_min(1e-30)).max())
+    s_rows = rows.numel()
+    touched = int((gsizes > 0).sum())
+    log(f"  grouped_matmul {n_tok} tokens x top-{topk} = {s_rows} rows over {touched} experts: "
+        f"GMM1 max|h1 err| {err1:.0f} int8 levels (tol 1), scale rel err {err_s:.2e} "
+        f"(tol 1e-6); GMM2 max|err| {err2:.3e}, max rel {rel2:.2e} (tol 2^-7: a bf16 ulp)")
+    if not (err1 <= 1 and err_s <= 1e-6 and rel2 <= 2 ** -7):
+        raise AssertionError(f"grouped_matmul disagrees with its plain version: {err1}, "
+                             f"{err_s}, {rel2}")
+    if not timed:
+        return None
+    r1 = dict(err=err1, library_ms=None,
+              ms=time_ms(lambda: gm(xg, w1, gsizes, sxg, s1, **kw1), 10),
+              plain_ms=time_ms(lambda: gm_p(xg, w1, gsizes, sxg, s1, **kw1), 2))
+    r1["bound_ms"], r1["bound_by"] = bound(
+        s_rows * k + touched * k * n + touched * n * 4 + s_rows * 4 + s_rows * i + s_rows * 4,
+        2 * s_rows * k * n, INT8_OPS)
+    r2 = dict(err=err2, library_ms=None,
+              ms=time_ms(lambda: gm(h1_p, w2, gsizes, hs_p, s2, **kw2), 10),
+              plain_ms=time_ms(lambda: gm_p(h1_p, w2, gsizes, hs_p, s2, **kw2), 2))
+    r2["bound_ms"], r2["bound_by"] = bound(
+        s_rows * i + touched * i * h + touched * h * 4 + s_rows * 4 + s_rows * h * 2,
+        2 * s_rows * i * h, INT8_OPS)
+    for name, r in (("GMM1", r1), ("GMM2", r2)):
+        log(f"    {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} {r['bound_by']})")
+    return r1, r2
+
+
+def check_grouped_matmul_small(gen):
+    """K8a on ragged cases: empty groups and rows past the total, a single
+    row, K not a multiple of the kernel's 128-byte stage (nor of 32), groups
+    of more than one 64-row tile; both epilogues."""
+    cases = [((0, 5, 0, 17, 1, 0, 40, 1), 80, 1024, 256), ((0, 1, 0, 0), 1, 256, 128),
+             ((3, 0, 70, 9), 100, 336, 160), ((130, 64, 65, 0, 200), 500, 512, 512)]
+    gm, gm_p = grouped_matmul.grouped_matmul, grouped_matmul.grouped_matmul_plain
+    for sizes, s, k, i in cases:
+        g = len(sizes)
+        gs = torch.tensor(sizes, dtype=torch.int32, device=DEV)
+        x = torch.randint(-127, 128, (s, k), generator=gen, device=DEV, dtype=torch.int8)
+        w1 = torch.randint(-127, 128, (g, k, 2 * i), generator=gen, device=DEV, dtype=torch.int8)
+        w2 = torch.randint(-127, 128, (g, i, k), generator=gen, device=DEV, dtype=torch.int8)
+        sx = torch.rand(s, generator=gen, device=DEV) / 50 + 1e-3
+        s1 = torch.rand((g, 2 * i), generator=gen, device=DEV) / 500 + 1e-4
+        s2 = torch.rand((g, k), generator=gen, device=DEV) / 500 + 1e-4
+        total = sum(sizes)
+        kw1 = dict(epilogue="dequant_swiglu_quant")
+        h1, hs = gm(x, w1, gs, sx, s1, **kw1)
+        h1_p, hs_p = gm_p(x, w1, gs, sx, s1, **kw1)
+        ok = max_abs(h1, h1_p) <= 1 and bool(torch.allclose(hs, hs_p, rtol=1e-6, atol=0))
+        ok = ok and not h1[total:].any() and not hs[total:].any()
+        kw2 = dict(epilogue="dequant")
+        y, y_p = gm(h1_p, w2, gs, hs_p, s2, **kw2), gm_p(h1_p, w2, gs, hs_p, s2, **kw2)
+        rel = float(((y.float() - y_p.float()).abs()
+                     / y_p.float().abs().clamp_min(1e-30))[:total].max()) if total else 0.0
+        ok = ok and rel <= 2 ** -7 and not y[total:].any()
+        torch.cuda.synchronize()
+        log(f"  grouped_matmul ragged (groups {list(sizes)}, S={s}, K={k}, I={i}): GMM1 max|h1 "
+            f"err| {max_abs(h1, h1_p):.0f} (tol 1), GMM2 max rel err {rel:.2e} (tol 2^-7: a "
+            f"bf16 ulp), rows past the total zero: {ok}")
+        if not ok:
+            raise AssertionError(f"grouped_matmul small case disagrees: {sizes}")
 
 
 def check_quant_matmul(gen, label, w, ds, bias, m, out_dtype=torch.float32, timed=False):
@@ -464,10 +611,12 @@ def check_w8a8_kernels(gen, mla_wq, dense_wq):
 # ---------------------------------------------------------------------------
 
 class StepTimer:
-    """Wall time of the adapter's prefill and decode calls (synchronized)."""
+    """Wall time and count of the adapter's prefill and decode calls
+    (synchronized)."""
 
     def __init__(self, adapter):
         self.t = {"prefill": 0.0, "decode": 0.0}
+        self.calls = {"prefill": 0, "decode": 0}
         for name in self.t:
             setattr(adapter, f"{name}_step", self._wrap(name, getattr(adapter, f"{name}_step")))
 
@@ -478,33 +627,46 @@ class StepTimer:
             out = fn(*args)
             torch.cuda.synchronize()
             self.t[name] += time.perf_counter() - t0
+            self.calls[name] += 1
             return out
         return run
 
 
-def prompts(gen):
-    ids = [torch.randint(0, CFG.vocab_size, (n,), generator=gen).tolist() for n in PROMPT_LENS]
-    ids[5][:SHARED_PREFIX] = ids[1][:SHARED_PREFIX]
+def prompts(gen, lens=PROMPT_LENS, share=(1, SHARED_PREFIX)):
+    """Random prompts of ``lens`` tokens; the last shares its first ``share[1]``
+    tokens with prompt ``share[0]``."""
+    ids = [torch.randint(0, CFG.vocab_size, (n,), generator=gen).tolist() for n in lens]
+    i, n = share
+    ids[-1][:n] = ids[i][:n]
     return ids
 
 
-def serve(params, moe, mla_wq=None):
-    """Serve the request mix; with ``mla_wq`` through the fused W8A8 prologue.
-    Returns the engine, the prompts and the launch counts of the run."""
-    adapter = deepseek_adapter(CFG, params, torch.bfloat16, moe_weights_q=moe, mla_wq=mla_wq)
+def serve(params, moe, mla_wq=None, *, cfg=CFG, ps=None, share=(1, SHARED_PREFIX),
+          chunk=PREFILL_CHUNK, num_pages=NUM_PAGES, pages_per_req=MAX_PAGES_PER_REQ):
+    """Serve the prompts ``ps`` (the 6-request mix by default) through
+    ``Engine(prefill_chunk=chunk)``; with ``mla_wq`` through the fused W8A8
+    prologue, on ``cfg``'s latent cache.  The last prompt shares a prefix with
+    prompt ``share[0]`` and arrives once that one is through prefill, so its
+    admission finds the shared pages in the radix cache.  Checks outputs,
+    page release, radix reuse, the cache type and the launch counts: every
+    MoE of a prefill call runs K8a when the chunk is above 512 tokens, the
+    ring GEMMs otherwise.  Returns the engine, the prompts and the counts."""
+    adapter = deepseek_adapter(cfg, params, torch.bfloat16, moe_weights_q=moe, mla_wq=mla_wq)
     timer = StepTimer(adapter)
-    eng = Engine(adapter, NUM_PAGES, max_batch=MAX_BATCH, max_pages_per_req=MAX_PAGES_PER_REQ,
-                 prefill_chunk=PREFILL_CHUNK)
-    ps = prompts(torch.Generator().manual_seed(SEED))
+    eng = Engine(adapter, num_pages, max_batch=MAX_BATCH, max_pages_per_req=pages_per_req,
+                 prefill_chunk=chunk)
+    want_nope = torch.int8 if cfg.kv_cache_dtype == "int8" else torch.bfloat16
+    if eng.caches[0]["nope"].dtype != want_nope:
+        raise AssertionError(f"the latent cache is {eng.caches[0]['nope'].dtype}, not {want_nope}")
+    ps = ps or prompts(torch.Generator().manual_seed(SEED))
     counters.reset()
     t0 = time.perf_counter()
-    rids = [eng.add_request(p, NEW_TOKENS) for p in ps[:5]]
-    # the prefix-sharing 6th request arrives once the 2nd is through prefill,
-    # so its admission finds the shared pages in the radix cache
-    while not any(r.rid == rids[1] and r.pos >= r.prompt_len for r in eng.running) \
-            and rids[1] not in eng.finished:
+    rids = [eng.add_request(p, NEW_TOKENS) for p in ps[:-1]]
+    first = rids[share[0]]
+    while not any(r.rid == first and r.pos >= r.prompt_len for r in eng.running) \
+            and first not in eng.finished:
         eng.step()
-    rids.append(eng.add_request(ps[5], NEW_TOKENS))
+    rids.append(eng.add_request(ps[-1], NEW_TOKENS))
     while eng.waiting or eng.running:
         eng.step()
     torch.cuda.synchronize()
@@ -513,28 +675,33 @@ def serve(params, moe, mla_wq=None):
     outs = [eng.finished[r] for r in rids]
     if not all(len(o) == NEW_TOKENS and all(0 <= t < CFG.vocab_size for t in o) for o in outs):
         raise AssertionError(f"unfinished or invalid outputs: {[len(o) for o in outs]}")
-    if eng.cm.free_pages + eng.cm.cached_pages != NUM_PAGES:
+    if eng.cm.free_pages + eng.cm.cached_pages != num_pages:
         raise AssertionError("KV pages leaked")
-    if eng.stats["cached_tokens"] < SHARED_PREFIX:
+    if eng.stats["cached_tokens"] < share[1]:
         raise AssertionError(f"radix reuse missed: {eng.stats['cached_tokens']} cached tokens")
-    expected = BASE_KERNELS + (() if mla_wq is None else ("quant_matmul",))
+    long = chunk > 512
+    expected = BASE_KERNELS + (() if mla_wq is None else ("quant_matmul",)) + (
+        ("grouped_matmul",) if long else ())
     missing = [k for k in expected if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    calls = eng.stats["decode_steps"] + launches["mla_prefill_pallas"] // CFG.num_layers
-    if mla_wq is not None and launches["quant_matmul"] != 2 * CFG.num_layers * calls:
-        raise AssertionError(f"quant_matmul launched {launches['quant_matmul']} times, not 2 "
-                             f"per layer in each of {calls} model calls")
+    n_pre, n_dec = timer.calls["prefill"], timer.calls["decode"]
+    layers = cfg.num_layers
+    want = {"quant_matmul": 0 if mla_wq is None else 2 * layers * (n_pre + n_dec),
+            "grouped_matmul": 2 * layers * n_pre if long else 0,
+            "gmm1_ring": layers * (n_dec + (0 if long else n_pre))}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"launches {launches} over {n_pre} prefill and {n_dec} decode "
+                             f"calls; want {want}")
     dec_tokens = len(rids) * (NEW_TOKENS - 1)      # the first token comes from prefill
-    log(f"  served {len(rids)} requests (prompts {PROMPT_LENS}, {NEW_TOKENS} new tokens "
-        f"each) in {wall:.2f} s wall; prefill {eng.stats['prefill_tokens']} tokens in "
+    log(f"  served {len(rids)} requests (prompts {[len(p) for p in ps]}, {NEW_TOKENS} new tokens "
+        f"each, {cfg.kv_cache_dtype} latent cache) in {wall:.2f} s wall; prefill "
+        f"{eng.stats['prefill_tokens']} tokens in {n_pre} calls of {chunk} rows, "
         f"{timer.t['prefill']:.3f} s = {eng.stats['prefill_tokens'] / timer.t['prefill']:.1f} "
-        f"tok/s; decode {dec_tokens} tokens in {eng.stats['decode_steps']} steps, "
+        f"tok/s; decode {dec_tokens} tokens in {n_dec} steps, "
         f"{timer.t['decode']:.3f} s = {dec_tokens / timer.t['decode']:.1f} tok/s; "
         f"radix cached tokens {eng.stats['cached_tokens']}; all pages returned")
-    log(f"  launches on the main path: {json.dumps(launches)} over "
-        f"{eng.stats['decode_steps']} decode steps and "
-        f"{launches['mla_prefill_pallas'] // CFG.num_layers} prefill chunks")
+    log(f"  launches on the main path: {json.dumps(launches)}")
     return eng, ps, launches
 
 
@@ -627,9 +794,9 @@ def live_batch(eng, ps):
     return eng.decode_inputs(live), len(live)
 
 
-def decode_step_fn(params, moe, **kw):
+def decode_step_fn(params, moe, cfg=CFG, **kw):
     return lambda x, pos, c, bt, ctx, slots: m.decode_step(
-        CFG, params, x, pos, c, bt, ctx, slots, moe_weights_q=moe, **kw)
+        cfg, params, x, pos, c, bt, ctx, slots, moe_weights_q=moe, **kw)
 
 
 def compare_plain_decode(eng, ps, params, moe, mla_wq=None):
@@ -668,8 +835,8 @@ def base_kernels():
             setattr(m, name + "_ref", fn)
 
 
-def w8a8_rule(label, kernel_run, run_plain, n, logits: bool):
-    """The fully W8A8 call through the kernels (``kernel_run``: its output and
+def w8a8_rule(label, kernel_run, run_plain, n, logits: bool, plain_set="K1, K5 and K7a"):
+    """A W8A8 call through the kernels (``kernel_run``: its output and
     routing record) against its plain versions, the routing replayed.  This
     layer's int8 steps (a static per-tensor quant before each prologue GEMM,
     five requantizations a layer) turn rounding-level differences upstream
@@ -678,13 +845,17 @@ def w8a8_rule(label, kernel_run, run_plain, n, logits: bool):
     plain path itself moves by several percent when they replace their plain
     versions.  So two rules, row by row, relative to each row's
     largest value:
-    - against the path with only K1, K5 and K7a plain:
-      within 1e-2 (K1 is exact, and the plain K5 / K7a do the same IEEE
-      operations), and on logits top-1 equal wherever the top-2 margin
-      exceeds twice the row's error;
+    - against the path with only ``plain_set`` plain (K1, K5, K7a, K8a):
+      within 1e-2 (K1 is exact, K8a's dequant does the same f32 operations,
+      and the plain K5 / K7a / K8a requant do the same IEEE operations), and
+      on logits top-1 equal wherever the top-2 margin exceeds twice the
+      row's error;
     - against the all-plain path: no further than that path itself moves
       when the attention kernels and ring GEMMs replace their plain
-      versions, + 1e-2.
+      versions, + 1e-2; and that move itself at most 1e-1 (the rounding
+      above moves it by a few percent, a wrong kernel by the order of the
+      values).  Phase [3] holds those kernels to their plain versions
+      directly at the shapes these calls give them.
     Returns whether both held."""
     got, rec_k = kernel_run
     _, rec_p = with_routes(lambda: run_plain()[:n].float())
@@ -699,12 +870,14 @@ def w8a8_rule(label, kernel_run, run_plain, n, logits: bool):
         return (a - b).abs().amax(-1) / b.abs().amax(-1)
 
     rel_new, rel_plain, base_move = rel(got, want_base), rel(got, want), rel(want_base, want)
-    ok = bool((rel_new <= 1e-2).all()) and bool((rel_plain <= base_move + 1e-2).all())
+    ok = (bool((rel_new <= 1e-2).all()) and bool((rel_plain <= base_move + 1e-2).all())
+          and float(base_move.max()) <= 1e-1)
     msg = (f"  {label} on {n} rows: routing agrees in every layer on {int(same.sum())}/{n} "
-           f"rows on its own, replayed for the comparisons; vs K1, K5 and K7a plain: max rel "
+           f"rows on its own, replayed for the comparisons; vs {plain_set} plain: max rel "
            f"err {float(rel_new.max()):.3e} (tol 1e-2); vs all plain: "
-           f"{float(rel_plain.max()):.3e}, where the attention kernels and ring GEMMs alone move the plain path by "
-           f"{float(base_move.max()):.3e} (tol: that + 1e-2, row by row)")
+           f"{float(rel_plain.max()):.3e}, where the attention kernels and ring GEMMs alone "
+           f"move the plain path by {float(base_move.max()):.3e} (tol 1e-1; the former: that "
+           f"+ 1e-2, row by row)")
     if logits:
         err_row = (got - want_base).abs().amax(-1)
         top2 = torch.topk(want_base, 2, dim=-1).values
@@ -757,9 +930,11 @@ def fully_w8a8(eng, batch, n, params, moe, mla_wq, dense_wq, ps):
     eng.cm.free(pages)
     if not (ok_d and ok_p):
         raise AssertionError("the fully W8A8 kernels disagree with the plain path")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the fully W8A8 path: {missing}")
+    missing = [k for k in BASE_KERNELS + ("quant_matmul", "quant_per_token", "swiglu_quant")
+               if launches[k] == 0]
+    if missing or launches["grouped_matmul"]:
+        raise AssertionError(f"kernels never launched on the fully W8A8 path: {missing} (or "
+                             f"grouped_matmul at {PREFILL_CHUNK} rows: {launches})")
     layers = CFG.num_layers
     want_counts = {"quant_matmul": 2 * 5 * layers, "quant_per_token": 2 * 2 * layers,
                    "swiglu_quant": 2 * layers}
@@ -768,14 +943,65 @@ def fully_w8a8(eng, batch, n, params, moe, mla_wq, dense_wq, ps):
     return launches
 
 
-def profile_steps(eng, batch, prompt, w8a8_step):
+def long_prompt_checks(eng, params, moe, mla_wq8, ps):
+    """Phase [4c] continued: one decode step on a live batch of the long
+    prompts and one 2048-row prefill chunk at context 4096 (the second chunk
+    of a 4096-token sequence; the plain attention at 2048 x 4096 x 128 heads
+    in f32 takes ~13 GB), through the kernels and through the plain versions,
+    the routing replayed, held to :func:`w8a8_rule` with K1 and K8a plain.
+    Returns the kernel-path chunk for the profile."""
+    batch, n = live_batch(eng, ps)
+    ok_d = w8a8_rule(
+        "long-prompt decode step, int8 cache (logits)",
+        with_routes(lambda: eng.decode_logits(batch)[:n].float()),
+        lambda: eng.decode_logits(batch, decode_step_fn(params, moe, cfg=CFG_INT8,
+                                                        mla_wq=mla_wq8, plain=True)),
+        n, True, plain_set="K1")
+    seq = (ps[2] + ps[3])[: 2 * LONG_CHUNK]
+    pages = eng.cm.alloc(-(-2 * LONG_CHUNK // CFG.page_size))
+    ids = torch.tensor(seq, dtype=torch.int32, device=DEV)
+    bt = torch.zeros((1, LONG_PAGES_PER_REQ), dtype=torch.int32, device=DEV)
+    bt[0, : len(pages)] = torch.tensor([int(p) for p in pages], dtype=torch.int32)
+    pos = torch.arange(2 * LONG_CHUNK, device=DEV)
+    slots = (bt[0, pos // CFG.page_size] * CFG.page_size + pos % CFG.page_size).to(torch.int32)
+    sl = torch.tensor([LONG_CHUNK], dtype=torch.int32, device=DEV)
+
+    def chunk(c, plain):
+        rows = slice(c * LONG_CHUNK, (c + 1) * LONG_CHUNK)
+        ctx = torch.tensor([(c + 1) * LONG_CHUNK], dtype=torch.int32, device=DEV)
+        h, _ = m.prefill_step(CFG_INT8, params, m.embed(params, ids[rows]), sl, eng.caches, bt,
+                              ctx, slots[rows], max_q=LONG_CHUNK, moe_weights_q=moe,
+                              mla_wq=mla_wq8, plain=plain)
+        return h
+
+    chunk(0, False)                                 # the chunk's context, written once
+    counters.reset()
+    pre_k = with_routes(lambda: chunk(1, False).float())
+    torch.cuda.synchronize()
+    launches = counters.read()
+    ok_p = w8a8_rule(f"long-prompt prefill chunk of {LONG_CHUNK} rows at context "
+                     f"{2 * LONG_CHUNK}, int8 cache (hidden)", pre_k, lambda: chunk(1, True),
+                     LONG_CHUNK, False, plain_set="K1 and K8a")
+    log(f"  launches in that {LONG_CHUNK}-row prefill chunk: {json.dumps(launches)}")
+    if not (ok_d and ok_p):
+        raise AssertionError("the long-prompt kernels disagree with the plain path")
+    if launches["grouped_matmul"] != 2 * CFG.num_layers:
+        raise AssertionError(f"the 2048-row chunk launched grouped_matmul "
+                             f"{launches['grouped_matmul']} times, not 2 a layer")
+    return lambda: chunk(1, False)
+
+
+def profile_steps(eng, batch, prompt, w8a8_step, long_prefill):
     """Device time by kernel of one decode call on the live batch, of one
-    mixed engine tick (that decode plus a 64-token prefill chunk), and of the
-    fully W8A8 decode step on the same batch."""
+    mixed engine tick (that decode plus a 64-token prefill chunk), of the
+    fully W8A8 decode step on the same batch, and of one 2048-token prefill
+    call on the int8 latent cache (``long_prefill``)."""
     regions = [("decode step (fused W8A8 prologue)", lambda: eng.decode_logits(batch))]
     eng.add_request(prompt, 1)
     regions.append(("mixed tick (decode + prefill chunk)", eng.step))
     regions.append(("fully W8A8 decode step", lambda: eng.decode_logits(batch, w8a8_step)))
+    regions.append((f"{LONG_CHUNK}-token prefill call at context {2 * LONG_CHUNK}, int8 cache",
+                    long_prefill))
     for label, fn in regions:
         rows, busy, wall = trace_profile.device_breakdown(fn)
         log(f"  {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
@@ -825,6 +1051,22 @@ def main() -> None:
     check_gmm(gen, moe[0], PREFILL_CHUNK, CFG.topk, False, "gmm prefill-chunk shape")
     check_gmm_small(gen)
     k1, k5, k7 = check_w8a8_kernels(gen, mla_wq, dense_wq)
+    # the long-prompt slice: the int8 latent in K2 / K9a (times beside the
+    # bf16 ones above, then at the shapes [4c] gives them: the five long
+    # prompts' decode contexts on a 33-page table, a 2048-row chunk at
+    # context 4096), and K8a at a 2048-token chunk and a 4096-token batch
+    check_decode_mla(gen, MAX_BATCH, CFG.num_heads, CFG.page_size, ctx_decode, 0, True, True)
+    check_decode_mla(gen, 3, CFG.num_heads, 16, [1, 17, 40], 2, False, True)
+    check_mla_prefill(gen, CFG.num_heads, CFG.page_size, [PREFILL_CHUNK], [700], 0, True, True)
+    check_mla_prefill(gen, CFG.num_heads, 16, [1, 5], [1, 30], 2, False, True)
+    long_ctx = [n + NEW_TOKENS for n in LONG_PROMPT_LENS]     # a decode step's longest contexts
+    check_decode_mla(gen, len(long_ctx), CFG.num_heads, CFG.page_size, long_ctx,
+                     MAX_BATCH - len(long_ctx), True, True, LONG_PAGES_PER_REQ)
+    check_mla_prefill(gen, CFG.num_heads, CFG.page_size, [LONG_CHUNK], [2 * LONG_CHUNK], 0,
+                      True, True, LONG_PAGES_PER_REQ)
+    k8 = check_grouped_matmul(gen, moe[0], LONG_CHUNK, CFG.topk, True)
+    check_grouped_matmul(gen, moe[0], 2 * LONG_CHUNK, CFG.topk, True)
+    check_grouped_matmul_small(gen)
 
     log("[4] serve through Engine + deepseek_adapter(moe_weights_q=...): float prologue")
     eng, ps, launches = serve(params, moe)
@@ -836,9 +1078,24 @@ def main() -> None:
     log("[4b] the fully W8A8 layer: decode_step / prefill_step(mla_wq=..., dense_wq=..., "
         "moe_weights_q=...)")
     launches_w = fully_w8a8(eng, batch, n, params, moe, mla_wq, dense_wq, ps)
+    log(f"[4c] long prompts on the int8 latent cache: Engine(prefill_chunk={LONG_CHUNK}) + "
+        "deepseek_adapter(kv_cache_dtype='int8', moe_weights_q=..., mla_wq=...)")
+    lps = prompts(torch.Generator().manual_seed(SEED + 3), LONG_PROMPT_LENS, (0, LONG_SHARED))
+    t0 = time.perf_counter()
+    sample = m.embed(params, torch.tensor(sum(lps, [])[:LONG_CHUNK], dtype=torch.int32,
+                                          device=DEV))
+    mla_wq8 = m.make_mla_preprocess_weights(CFG_INT8, params, sample)
+    del sample
+    log(f"  int8-cache prologue weights calibrated on {LONG_CHUNK} prompt tokens' embeddings "
+        f"in {time.perf_counter() - t0:.1f} s (per-head q_nope scales of layer 0: "
+        f"{float(mla_wq8[0].qnope_scale.min()):.2f}-{float(mla_wq8[0].qnope_scale.max()):.2f})")
+    eng8, _, launches_l = serve(params, moe, mla_wq8, cfg=CFG_INT8, ps=lps,
+                                share=(0, LONG_SHARED), chunk=LONG_CHUNK,
+                                num_pages=LONG_NUM_PAGES, pages_per_req=LONG_PAGES_PER_REQ)
+    long_prefill = long_prompt_checks(eng8, params, moe, mla_wq8, lps)
     log("[5] device time by kernel (torch.profiler)")
     profile_steps(eng, batch, ps[3][:200],
-                  decode_step_fn(params, moe, mla_wq=mla_wq, dense_wq=dense_wq))
+                  decode_step_fn(params, moe, mla_wq=mla_wq, dense_wq=dense_wq), long_prefill)
 
     src = "sgl_kernel_npu_tpu_torch/csrc/"
     tpu = "sgl_kernel_npu_tpu/ops/"
@@ -854,13 +1111,18 @@ def main() -> None:
           (r["err"], r["ms"], r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"]))
          for name, cu, site, r in (("quant_matmul", "quant_matmul.cu", "matmul.py:127", k1),
                                    ("quant_per_token", "quant.cu", "quant.py:69", k5),
-                                   ("swiglu_quant", "quant.cu", "activation.py:112", k7))]
+                                   ("swiglu_quant", "quant.cu", "activation.py:112", k7),
+                                   ("grouped_matmul", "grouped_matmul.cu",
+                                    "grouped_matmul.py:538",
+                                    summed(f"grouped_matmul, a layer's 2 calls at {LONG_CHUNK} "
+                                           "tokens", k8)))]
     # launches: each kernel's count on the first path that runs it (the base
     # four on the float-prologue serve, K1 on the fused-prologue serve, K5
-    # and K7a on the fully W8A8 step and chunk)
+    # and K7a on the fully W8A8 step and chunk, K8a on the long-prompt serve)
     path_launches = {**launches, "quant_matmul": launches_q["quant_matmul"],
                      "quant_per_token": launches_w["quant_per_token"],
-                     "swiglu_quant": launches_w["swiglu_quant"]}
+                     "swiglu_quant": launches_w["swiglu_quant"],
+                     "grouped_matmul": launches_l["grouped_matmul"]}
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": path_launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

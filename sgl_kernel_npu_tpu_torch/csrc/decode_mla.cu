@@ -5,8 +5,9 @@
 // step with a [Hq, 512] f32 accumulator in VMEM.
 //
 // Bound on the H100: bytes.  Each sequence's latent + rope rows (1152 B a key
-// in bf16) must be read once; the arithmetic (2 x 1088 flops a key a head) is
-// far below the card's rate at decode batch sizes.
+// in bf16, 640 B with the int8 latent) must be read once; the arithmetic
+// (2 x 1088 flops a key a head) is far below the card's rate at decode batch
+// sizes.
 //
 // Design: one block per (sequence, tile of 16 heads) (mla_attention.cuh), so a
 // key row staged in shared memory serves 16 heads and the batch spreads over
@@ -18,8 +19,11 @@
 
 using bf16 = __nv_bfloat16;
 
+namespace {
+
+template <typename KN>
 __global__ void __launch_bounds__(mla::THREADS)
-    decode_mla_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kn,
+    decode_mla_kernel(const bf16* __restrict__ q, const KN* __restrict__ kn,
                       const bf16* __restrict__ kr, const int* __restrict__ block_table,
                       const int* __restrict__ ctx_lens, bf16* __restrict__ out, int heads,
                       int max_pages, int page_size, float sm_scale) {
@@ -29,18 +33,32 @@ __global__ void __launch_bounds__(mla::THREADS)
                  /*tq=*/1, page_size, sm_scale);
 }
 
-// bf16 q [B, H, 576], kn [P, 1, page, 512], kr [P, 1, 64, page]; int32
-// bt [B, max_pages], ctx [B] -> bf16 out [B, H, 512].
+template <typename KN>
+int launch(const void* q, const void* kn, const void* kr, const void* bt, const void* ctx,
+           void* out, int batch, int heads, int max_pages, int page_size, float sm_scale,
+           cudaStream_t stream) {
+  cudaFuncSetAttribute(decode_mla_kernel<KN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)mla::SMEM_BYTES);
+  dim3 grid(batch, (heads + mla::ROWS - 1) / mla::ROWS);
+  decode_mla_kernel<KN><<<grid, mla::THREADS, mla::SMEM_BYTES, stream>>>(
+      (const bf16*)q, (const KN*)kn, (const bf16*)kr, (const int*)bt, (const int*)ctx,
+      (bf16*)out, heads, max_pages, page_size, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// bf16 q [B, H, 576], kn [P, 1, page, 512] (bf16, or int8 levels with
+// kn_int8 = 1), bf16 kr [P, 1, 64, page]; int32 bt [B, max_pages], ctx [B]
+// -> bf16 out [B, H, 512].
 extern "C" int decode_mla_launch(const void* q, const void* kn, const void* kr,
                                  const void* bt, const void* ctx, void* out, int batch,
                                  int heads, int max_pages, int page_size, float sm_scale,
-                                 void* stream) {
+                                 int kn_int8, void* stream) {
   if (batch == 0) return 0;
-  cudaFuncSetAttribute(decode_mla_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)mla::SMEM_BYTES);
-  dim3 grid(batch, (heads + mla::ROWS - 1) / mla::ROWS);
-  decode_mla_kernel<<<grid, mla::THREADS, mla::SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)kn, (const bf16*)kr, (const int*)bt, (const int*)ctx,
-      (bf16*)out, heads, max_pages, page_size, sm_scale);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  return kn_int8 ? launch<int8_t>(q, kn, kr, bt, ctx, out, batch, heads, max_pages,
+                                  page_size, sm_scale, s)
+                 : launch<bf16>(q, kn, kr, bt, ctx, out, batch, heads, max_pages, page_size,
+                                sm_scale, s);
 }

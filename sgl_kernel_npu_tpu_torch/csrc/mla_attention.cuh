@@ -3,8 +3,10 @@
 //
 // Layouts are the JAX package's: q [tokens, H, 512 + 64] (absorbed nope || rope),
 // latent cache kn [pages, 1, page, 512], rope cache transposed
-// kr [pages, 1, 64, page], block table [B, max_pages], all bf16.  V aliases
-// K_nope.
+// kr [pages, 1, 64, page], block table [B, max_pages]; q, kr and the output
+// bf16, the latent bf16 or int8 (the int8_nzcache levels round(k / k_scale):
+// the wrappers fold k_scale into q_nope and the output, as the JAX wrappers
+// do, so the kernels only read levels).  V aliases K_nope.
 //
 // One block owns ROWS = 16 query rows: TQ consecutive tokens of one request x
 // 16 / TQ heads, which is one m16 tile of the bf16 tensor-core product
@@ -20,7 +22,10 @@
 //   O += P V    warp w owns output columns 64 w .. 64 w + 64 (8 n-tiles), the
 //               [16, 512] f32 accumulator spread over the warps' registers.
 // Keys past the block's last causal position are never read (the causal page
-// pruning of the TPU kernels, at key granularity).
+// pruning of the TPU kernels, at key granularity).  An int8 latent is loaded 8
+// levels (8 bytes) at a time, half the bytes of bf16, and widened to bf16 as
+// it is stored to shared memory: levels in [-128, 127] are exact in bf16, so
+// the mma path is the same for both.
 #pragma once
 
 #include "common.cuh"
@@ -41,9 +46,36 @@ constexpr float NEG = -1e30f;
 constexpr size_t SMEM_BYTES = sizeof(bf16) * (ROWS * LD + KT * LD + ROWS * LDP) +
                               sizeof(float) * (2 * ROWS * KT + 3 * ROWS);
 
-constexpr int VEC = 8;                                  // bf16 values in one 16-byte load
+constexpr int VEC = 8;                                  // latent values in one load
 constexpr int NV = KT * DN / VEC / THREADS;              // latent loads a thread per chunk
 constexpr int NR = KT * DR / THREADS;                    // rope values a thread per chunk
+
+// VEC latent values as loaded from the cache: 16 bytes of bf16, 8 of int8.
+template <typename KN>
+struct Chunk;
+template <>
+struct Chunk<bf16> {
+  using type = uint4;
+};
+template <>
+struct Chunk<int8_t> {
+  using type = uint2;
+};
+
+__device__ __forceinline__ uint4 widen(uint4 v) { return v; }
+
+// 8 int8 levels -> 8 bf16 (exact).
+__device__ __forceinline__ uint4 widen(uint2 v) {
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t word = (i < 2 ? v.x : v.y) >> (16 * (i & 1));
+    const __nv_bfloat162 p = __floats2bfloat162_rn((float)(int8_t)(word & 0xffu),
+                                                   (float)(int8_t)((word >> 8) & 0xffu));
+    o[i] = *reinterpret_cast<const uint32_t*>(&p);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -79,18 +111,19 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
 
 // Issue the global loads of keys [k0, k0 + KT) into registers: every load of
 // a thread is independent of the others, so they are all in flight at once.
-__device__ __forceinline__ void load_chunk(const bf16* __restrict__ kn,
+template <typename KN, typename V = typename Chunk<KN>::type>
+__device__ __forceinline__ void load_chunk(const KN* __restrict__ kn,
                                            const bf16* __restrict__ kr,
                                            const int* __restrict__ bt_row, int k0, int kend,
-                                           int page_size, uint4 (&v)[NV], bf16 (&r)[NR]) {
+                                           int page_size, V (&v)[NV], bf16 (&r)[NR]) {
 #pragma unroll
   for (int it = 0; it < NV; ++it) {
     const int e = threadIdx.x + it * THREADS;
     const int t = e / (DN / VEC), c = e % (DN / VEC), key = k0 + t;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    V val{};
     if (key < kend) {
       const int pg = bt_row[key / page_size], off = key % page_size;
-      val = *reinterpret_cast<const uint4*>(kn + ((size_t)pg * page_size + off) * DN + c * VEC);
+      val = *reinterpret_cast<const V*>(kn + ((size_t)pg * page_size + off) * DN + c * VEC);
     }
     v[it] = val;
   }
@@ -108,12 +141,13 @@ __device__ __forceinline__ void load_chunk(const bf16* __restrict__ kn,
 }
 
 // Registers of load_chunk -> the key rows [KT][LD] (latent ++ rope) in smem.
-__device__ __forceinline__ void store_chunk(bf16* ks, const uint4 (&v)[NV], const bf16 (&r)[NR]) {
+template <typename V>
+__device__ __forceinline__ void store_chunk(bf16* ks, const V (&v)[NV], const bf16 (&r)[NR]) {
 #pragma unroll
   for (int it = 0; it < NV; ++it) {
     const int e = threadIdx.x + it * THREADS;
     const int t = e / (DN / VEC), c = e % (DN / VEC);
-    *reinterpret_cast<uint4*>(ks + t * LD + c * VEC) = v[it];
+    *reinterpret_cast<uint4*>(ks + t * LD + c * VEC) = widen(v[it]);
   }
 #pragma unroll
   for (int it = 0; it < NR; ++it) {
@@ -126,8 +160,9 @@ __device__ __forceinline__ void store_chunk(bf16* ks, const uint4 (&v)[NV], cons
 // h0 + r % (ROWS / tq).  Token j sits at packed index tok_base + j and sees
 // cache positions <= ctx - seq_len + j.  Rows past seq_len or past the head
 // count are dead: they read nothing and write nothing.
+template <typename KN>
 __device__ __forceinline__ void mla_block(
-    const bf16* __restrict__ q, const bf16* __restrict__ kn, const bf16* __restrict__ kr,
+    const bf16* __restrict__ q, const KN* __restrict__ kn, const bf16* __restrict__ kr,
     const int* __restrict__ bt_row, bf16* __restrict__ out, int tok_base, int j0,
     int seq_len, int ctx, int heads, int h0, int tq, int page_size, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -166,7 +201,7 @@ __device__ __forceinline__ void mla_block(
   const int b_row = lane & 7, b_col = 8 * ((lane >> 3) & 1);
   const int s_keys = 8 * (warp & 3), s_half = warp >> 2;  // this warp's S tile
 
-  uint4 kv_next[NV];
+  typename Chunk<KN>::type kv_next[NV];
   bf16 kr_next[NR];
   if (kend > 0) load_chunk(kn, kr, bt_row, 0, kend, page_size, kv_next, kr_next);
   for (int k0 = 0; k0 < kend; k0 += KT) {

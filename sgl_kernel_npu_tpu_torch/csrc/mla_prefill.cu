@@ -21,8 +21,11 @@
 
 using bf16 = __nv_bfloat16;
 
+namespace {
+
+template <typename KN>
 __global__ void __launch_bounds__(mla::THREADS)
-    mla_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kn,
+    mla_prefill_kernel(const bf16* __restrict__ q, const KN* __restrict__ kn,
                        const bf16* __restrict__ kr, const int* __restrict__ block_tables,
                        const int* __restrict__ seq_lens, const int* __restrict__ ctx_lens,
                        const int* __restrict__ starts, bf16* __restrict__ out, int heads,
@@ -35,24 +38,38 @@ __global__ void __launch_bounds__(mla::THREADS)
                  ctx_lens[b], heads, blockIdx.z * (mla::ROWS / tq), tq, page_size, sm_scale);
 }
 
-// bf16 q [S, H, 576] packed by request, kn [P, 1, page, 512], kr [P, 1, 64, page];
-// int32 bt [B, max_pages], seq_lens / ctx / starts [B] (starts = exclusive
-// cumsum of seq_lens) -> bf16 out [S, H, 512] (zeroed by the caller).  max_q
-// bounds every seq_len; tq (1, 2, 4, 8 or 16) tokens share a block.
+template <typename KN>
+int launch(const void* q, const void* kn, const void* kr, const void* bt, const void* seq_lens,
+           const void* ctx, const void* starts, void* out, int batch, int heads, int max_pages,
+           int page_size, int max_q, int tq, float sm_scale, cudaStream_t stream) {
+  cudaFuncSetAttribute(mla_prefill_kernel<KN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)mla::SMEM_BYTES);
+  const int ht = mla::ROWS / tq;
+  dim3 grid(batch, (max_q + tq - 1) / tq, (heads + ht - 1) / ht);
+  mla_prefill_kernel<KN><<<grid, mla::THREADS, mla::SMEM_BYTES, stream>>>(
+      (const bf16*)q, (const KN*)kn, (const bf16*)kr, (const int*)bt, (const int*)seq_lens,
+      (const int*)ctx, (const int*)starts, (bf16*)out, heads, max_pages, page_size, tq,
+      sm_scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// bf16 q [S, H, 576] packed by request, kn [P, 1, page, 512] (bf16, or int8
+// levels with kn_int8 = 1), bf16 kr [P, 1, 64, page]; int32 bt [B, max_pages],
+// seq_lens / ctx / starts [B] (starts = exclusive cumsum of seq_lens) -> bf16
+// out [S, H, 512] (zeroed by the caller).  max_q bounds every seq_len; tq (1,
+// 2, 4, 8 or 16) tokens share a block.
 extern "C" int mla_prefill_launch(const void* q, const void* kn, const void* kr,
                                   const void* bt, const void* seq_lens, const void* ctx,
                                   const void* starts, void* out, int batch, int heads,
                                   int max_pages, int page_size, int max_q, int tq,
-                                  float sm_scale, void* stream) {
+                                  float sm_scale, int kn_int8, void* stream) {
   if (batch == 0 || max_q == 0) return 0;
   if (tq < 1 || mla::ROWS % tq != 0) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(mla_prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)mla::SMEM_BYTES);
-  const int ht = mla::ROWS / tq;
-  dim3 grid(batch, (max_q + tq - 1) / tq, (heads + ht - 1) / ht);
-  mla_prefill_kernel<<<grid, mla::THREADS, mla::SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)kn, (const bf16*)kr, (const int*)bt, (const int*)seq_lens,
-      (const int*)ctx, (const int*)starts, (bf16*)out, heads, max_pages, page_size, tq,
-      sm_scale);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  return kn_int8 ? launch<int8_t>(q, kn, kr, bt, seq_lens, ctx, starts, out, batch, heads,
+                                  max_pages, page_size, max_q, tq, sm_scale, s)
+                 : launch<bf16>(q, kn, kr, bt, seq_lens, ctx, starts, out, batch, heads,
+                                max_pages, page_size, max_q, tq, sm_scale, s);
 }

@@ -2,16 +2,18 @@
 
 Counterpart of ``sgl_kernel_npu_tpu/models/deepseek_v3.py`` on the
 configurations ``decode_step / prefill_step(moe_weights_q=..., mla_wq=...,
-dense_wq=...)``: MLA attention over the paged latent cache (``decode_mla``
-K2, ``mla_prefill_pallas`` K9) and the W8A8 routed experts through the ring
-GEMMs (``gmm1_ring`` K3, ``gmm2_combine_ring`` K4), behind either the float
-MLA prologue or the fused W8A8 one (``mla_wq``: ``mla_preprocess`` on
+dense_wq=...)``: MLA attention over the paged latent cache, bf16 or int8
+(``kv_cache_dtype``; ``decode_mla`` K2, ``mla_prefill_pallas`` K9), and the
+W8A8 routed experts through the ring GEMMs (``gmm1_ring`` K3,
+``gmm2_combine_ring`` K4) up to 512 tokens and through ``grouped_matmul``
+(K8a, twice) with a gather combine above, behind either the float MLA
+prologue or the fused W8A8 one (``mla_wq``: ``mla_preprocess`` on
 ``quant_matmul`` K1), and with the output projection and the shared expert
 either float or W8A8 (``dense_wq``: ``quant_per_token`` K5, ``quant_matmul``
 K1, ``swiglu_quant`` K7a).  The switches this slice does not take are absent
 (expert parallelism, EPLB, DSA sparse attention) or raise
-``NotImplementedError`` (the int8 latent cache, the dense float MoE, the MoE
-of more than 512 tokens).
+``NotImplementedError`` (the dense float MoE, and the MoE of at most 512
+tokens at widths the ring GEMMs do not take, which needs K8b).
 
 Weights are a plain dict of tensors (``layers`` a list of per-layer dicts),
 with the JAX package's names and layouts; caches are a list of per-layer
@@ -43,6 +45,7 @@ from sgl_kernel_npu_tpu_torch.ops.gmm_ring import (
     gmm2_combine_ring,
     gmm2_combine_ring_ref,
 )
+from sgl_kernel_npu_tpu_torch.ops.grouped_matmul import grouped_matmul, grouped_matmul_plain
 from sgl_kernel_npu_tpu_torch.ops.mem_cache.kv_cache import (
     reshape_and_cache,
     reshape_and_cache_transposed,
@@ -57,8 +60,7 @@ from sgl_kernel_npu_tpu_torch.utils.common import resolve_device
 @dataclasses.dataclass(frozen=True)
 class DeepSeekV3Config:
     """The JAX package's config fields that this path reads, with the same
-    defaults (DSA and the unused rope base are not ported; ``kv_cache_dtype``
-    "int8" raises)."""
+    defaults (DSA and the unused rope base are not ported)."""
 
     vocab_size: int = 512
     hidden: int = 256
@@ -79,7 +81,10 @@ class DeepSeekV3Config:
     topk_group: int = 1
     routed_scaling_factor: float = 1.0
     norm_topk_prob: bool = True
-    kv_cache_dtype: str = "bf16"      # "int8": not ported yet (ROADMAP queue A item 5)
+    # "int8" stores the latent (nope) cache as round(k / ctkv_scale) int8
+    # levels (the int8_nzcache mode); the rope cache stays in the cache dtype
+    kv_cache_dtype: str = "bf16"
+    ctkv_scale: float = 1.0 / 32      # static calibration: rms-normed latent, |k| <~ 4
 
     @property
     def qk_dim(self):
@@ -216,13 +221,6 @@ def quantize_moe_weights(cfg: DeepSeekV3Config, params: dict):
             for lw in params["layers"]]
 
 
-def _require_bf16_cache(cfg: DeepSeekV3Config) -> None:
-    if cfg.kv_cache_dtype != "bf16":
-        raise NotImplementedError(
-            f"kv_cache_dtype={cfg.kv_cache_dtype!r} (the int8 latent cache) is not ported "
-            "yet (ROADMAP queue A item 5)")
-
-
 def make_mla_preprocess_weights(cfg: DeepSeekV3Config, params: dict,
                                 sample_hidden: torch.Tensor) -> list:
     """The float MLA prologue weights of every layer → W8A8
@@ -230,13 +228,14 @@ def make_mla_preprocess_weights(cfg: DeepSeekV3Config, params: dict,
     for ``decode_step / prefill_step(mla_wq=...)``.
 
     ``sample_hidden [N, hidden]`` calibrates the two static activation-quant
-    scales (max over the sample × 1.25 headroom, over 127).  Both quantized
-    activations are post-RMSNorm, whose magnitude does not grow with depth,
-    so one sample serves every layer (each layer's scales still use that
-    layer's own weights).  Weights are quantized per output channel.  Unlike
-    the JAX package, ``wdqkv`` keeps its own row count (no lane pad: the CUDA
-    GEMM masks the ragged edge, and a pad would stream 3% more bytes)."""
-    _require_bf16_cache(cfg)
+    scales (max over the sample × 1.25 headroom, over 127) and, on an int8
+    cache, the per-head q_nope scales (``126 / (max |q_lat| × 1.25)``).  The
+    quantized activations are post-RMSNorm, whose magnitude does not grow
+    with depth, so one sample serves every layer (each layer's scales still
+    use that layer's own weights).  Weights are quantized per output channel.
+    Unlike the JAX package, ``wdqkv`` keeps its own row count (no lane pad:
+    the CUDA GEMM masks the ragged edge, and a pad would stream 3% more
+    bytes)."""
     lat, rope = cfg.kv_lora_rank, cfg.qk_rope_dim
     margin = 1.25
     out = []
@@ -249,6 +248,15 @@ def make_mla_preprocess_weights(cfg: DeepSeekV3Config, params: dict,
         qs2 = cq.abs().max() / 127.0 * margin
         wuq_q, sw2 = w8a8.quantize_matrix(lw["wuq"])
         zero = torch.zeros((), dtype=torch.float32, device=h1.device)
+        qnope_scale = ctkv_scale = None
+        if cfg.kv_cache_dtype == "int8":
+            q_nope = (cq @ lw["wuq"].float()).reshape(
+                cq.shape[0], cfg.num_heads, cfg.qk_dim)[..., : cfg.qk_nope_dim]
+            q_lat = torch.einsum("nhk,hkl->nhl", q_nope, lw["wuk"].float())
+            denom = q_lat.abs().amax(dim=(0, 2)) * margin + 1e-12
+            qnope_scale = torch.full_like(denom, 126.0) / denom
+            ctkv_scale = torch.tensor(cfg.ctkv_scale, dtype=torch.float32, device=h1.device)
+            del q_nope, q_lat
         out.append(mp.MlaPreprocessWeights(
             gamma1=lw["ln1"], beta1=torch.zeros_like(lw["ln1"]),
             qscale1=qs1.float(), qoffset1=zero,
@@ -259,6 +267,7 @@ def make_mla_preprocess_weights(cfg: DeepSeekV3Config, params: dict,
             wuq=wuq_q, descale2=(sw2 * qs2).float(),
             bias2=torch.zeros((wuq_q.shape[0],), dtype=torch.int32, device=h1.device),
             gamma3=lw["kv_ln"], wuk=lw["wuk"],
+            qnope_scale=qnope_scale, ctkv_scale=ctkv_scale,
         ))
     return out
 
@@ -277,10 +286,12 @@ def quantize_dense_weights(cfg: DeepSeekV3Config, params: dict) -> list:
 
 def init_kv_cache(cfg: DeepSeekV3Config, num_pages: int, dtype=torch.bfloat16,
                   device="cuda") -> list[dict]:
-    _require_bf16_cache(cfg)
+    """Per-layer ``{"nope", "rope"}`` paged caches of zeros; the latent cache
+    is int8 when ``cfg.kv_cache_dtype == "int8"``, else ``dtype``."""
     dev = resolve_device(device)
+    nope_dt = torch.int8 if cfg.kv_cache_dtype == "int8" else dtype
     return [{
-        "nope": torch.zeros((num_pages, 1, cfg.page_size, cfg.kv_lora_rank), dtype=dtype,
+        "nope": torch.zeros((num_pages, 1, cfg.page_size, cfg.kv_lora_rank), dtype=nope_dt,
                             device=dev),
         "rope": torch.zeros((num_pages, 1, cfg.qk_rope_dim, cfg.page_size), dtype=dtype,
                             device=dev),
@@ -323,17 +334,31 @@ def _mla_qkv(cfg: DeepSeekV3Config, lw: dict, x, cos, sin):
     return q_lat, qpe, k_lat, kpe, h1
 
 
+def _nope_scale(cfg: DeepSeekV3Config):
+    """Dequant scale of the latent cache, or None on the bf16 path."""
+    return cfg.ctkv_scale if cfg.kv_cache_dtype == "int8" else None
+
+
 def _write_nope(cfg: DeepSeekV3Config, k_lat, cache, slot_mapping):
+    """Write latents into the paged nope cache, quantizing on an int8 cache."""
+    if cache.dtype == torch.int8:
+        kf = k_lat.float()    # true division, as JAX divides
+        k_lat = saturate_int8(kf / torch.full_like(kf, cfg.ctkv_scale))
     return reshape_and_cache(k_lat[:, None, :].to(cache.dtype), cache, slot_mapping)
 
 
 def _mla_preprocess_qkv(cfg: DeepSeekV3Config, w, x, cos, sin, cache, slot_mapping,
                         plain: bool):
     """Fused W8A8 prologue + cache writes (in place) → the absorbed query
-    [N, H, lat+rope] in the cache's dtype."""
+    [N, H, lat+rope] in the rope cache's dtype; on an int8 cache the int8
+    q_nope is dequantized by ``qnope_scale`` (the attention kernels fold
+    ``ctkv_scale`` through ``k_scale``)."""
+    int8 = cfg.kv_cache_dtype == "int8"
     qn, qpe, _, _ = mp.mla_preprocess(x, w, (cos, sin), cache["nope"], cache["rope"],
-                                      slot_mapping, plain=plain)
-    return torch.cat([qn.float(), qpe.float()], dim=-1).to(cache["rope"].dtype)
+                                      slot_mapping, plain=plain,
+                                      cache_mode="int8_nzcache" if int8 else "krope_ctkv")
+    qn = qn.float() / w.qnope_scale.float()[None, :, None] if int8 else qn.float()
+    return torch.cat([qn, qpe.float()], dim=-1).to(cache["rope"].dtype)
 
 
 def _mla_output(cfg: DeepSeekV3Config, lw: dict, attn_lat, dq=None, plain: bool = False):
@@ -387,19 +412,37 @@ def _shared_expert_q(dq: dict, x, plain: bool):
                            torch.float32, plain=plain)
 
 
+def _combine(y: torch.Tensor, dest: torch.Tensor, topk_w: torch.Tensor) -> torch.Tensor:
+    """The weighted top-k combine as a gather: ``out[t] = Σ_k topk_w[t, k] ·
+    y[dest[t, k]]`` in f32, k summed in order.  (JAX builds an ``[n, n·k]``
+    mask, splits it into bf16 hi + lo and makes two dense products; the port
+    keeps the f32 weights, as the ring GEMM2 does.)"""
+    d = dest.long()
+    w = topk_w.float()
+    out = w[:, 0, None] * y[d[:, 0]].float()
+    for j in range(1, d.shape[1]):
+        out = out + w[:, j, None] * y[d[:, j]].float()
+    return out
+
+
 def _gmm_moe(cfg: DeepSeekV3Config, wq: tuple, x, topk_idx, topk_w, *, plain: bool = False):
     """Single-GPU W8A8 grouped MoE: per-token int8 quant → counting sort of the
-    (token, k) pairs by expert → ``gmm1_ring`` (gather, GMM1, SwiGLU, requant)
-    → ``gmm2_combine_ring`` (GMM2 and the weighted top-k combine)."""
+    (token, k) pairs by expert → up to 512 tokens (widths permitting, JAX's
+    branch conditions) ``gmm1_ring`` (gather, GMM1, SwiGLU, requant) and
+    ``gmm2_combine_ring`` (GMM2 and the weighted top-k combine); above 512
+    tokens the gather ``xq_tok[tok_of_row]``, ``grouped_matmul`` (K8a) with
+    the ``dequant_swiglu_quant`` and then the ``dequant`` (bf16) epilogue, and
+    the gather combine."""
     w1, s1, w2, s2 = wq
     n, hidden = x.shape
     k = topk_idx.shape[1]
-    if not (n <= 512 and hidden % 128 == 0 and w2.shape[1] % 128 == 0
-            and w1.shape[2] % 256 == 0):
+    ring = (n <= 512 and hidden % 128 == 0 and w2.shape[1] % 128 == 0
+            and w1.shape[2] % 256 == 0)
+    if n <= 512 and not ring:
         raise NotImplementedError(
-            f"MoE of {n} tokens (hidden {hidden}, intermediate {w2.shape[1]}) needs the "
-            "BlockSpec grouped GEMMs (K8 grouped_matmul / grouped_matmul_combine), not "
-            "ported yet (ROADMAP queue B)")
+            f"MoE of {n} <= 512 tokens at hidden {hidden} / intermediate {w2.shape[1]} "
+            "needs grouped_matmul's dispatch_p mode and grouped_matmul_combine (K8b), "
+            "not ported yet (ROADMAP queue B)")
     xf = x.float()
     sx_tok = torch.clamp_min(row_scale(xf), 1e-12)
     xq_tok = saturate_int8(xf / sx_tok[:, None])
@@ -409,6 +452,12 @@ def _gmm_moe(cfg: DeepSeekV3Config, wq: tuple, x, topk_idx, topk_w, *, plain: bo
     dest = torch.empty_like(src)
     dest[src.long()] = torch.arange(n * k, dtype=torch.int32, device=x.device)
     tok_of_row = src // k
+    if not ring:
+        rows = tok_of_row.long()
+        gm = grouped_matmul_plain if plain else grouped_matmul
+        h1, hs = gm(xq_tok[rows], w1, gsizes, sx_tok[rows], s1, epilogue="dequant_swiglu_quant")
+        y = gm(h1, w2, gsizes, hs, s2, epilogue="dequant")
+        return _combine(y, dest.reshape(n, k), topk_w).to(x.dtype)
     gm1, gm2 = (gmm1_ring_ref, gmm2_combine_ring_ref) if plain else (gmm1_ring,
                                                                     gmm2_combine_ring)
     h1, hs = gm1(xq_tok, tok_of_row, w1, gsizes, sx_tok, s1)
@@ -460,14 +509,19 @@ def decode_step(cfg: DeepSeekV3Config, params: dict, hidden, positions, kv_cache
     the W8A8 output projection and shared expert.  Returns ``(hidden,
     kv_caches)`` with the caches updated in place."""
     _require_moe_q(moe_weights_q)
-    attend = decode_mla_ref if plain else decode_mla
+    ks = _nope_scale(cfg)
     cos, sin = rope_cos_sin(positions, cfg.qk_rope_dim)
     x = hidden
     for li, lw in enumerate(params["layers"]):
         cache = kv_caches[li]
         mw, dq = _layer_switches(mla_wq, dense_wq, li)
         q = _attention_inputs(cfg, lw, mw, x, cos, sin, cache, slot_mapping, plain)
-        attn = attend(q, cache["nope"], cache["rope"], seq_lens, cfg.sm_scale, block_table)
+        if plain:
+            attn = decode_mla_ref(q, cache["nope"], cache["rope"], seq_lens, cfg.sm_scale,
+                                  block_table, k_scale=ks)
+        else:
+            attn = decode_mla(q, cache["nope"], cache["rope"], seq_lens, cfg.sm_scale,
+                              block_table, k_scale=ks)
         x = x + _mla_output(cfg, lw, attn, dq, plain)
         x = _moe_and_shared(cfg, lw, moe_weights_q[li], dq, x, plain)
     return x, kv_caches
@@ -481,6 +535,7 @@ def prefill_step(cfg: DeepSeekV3Config, params: dict, hidden, seq_lens, kv_cache
     them; ``mla_wq`` and ``dense_wq`` as in :func:`decode_step`.  Returns
     ``(hidden, kv_caches)`` with the caches updated in place."""
     _require_moe_q(moe_weights_q)
+    ks = _nope_scale(cfg)
     s = hidden.shape[0]
     dev = hidden.device
     sl = seq_lens.to(dev).long()
@@ -498,10 +553,11 @@ def prefill_step(cfg: DeepSeekV3Config, params: dict, hidden, seq_lens, kv_cache
         q = _attention_inputs(cfg, lw, mw, x, cos, sin, cache, slot_mapping, plain)
         if plain:
             attn = mla_prefill_ref(q, cache["nope"], cache["rope"], seq_lens, block_tables,
-                                   context_lens, cfg.sm_scale)
+                                   context_lens, cfg.sm_scale, k_scale=ks)
         else:
             attn = mla_prefill_pallas(q, cache["nope"], cache["rope"], seq_lens,
-                                      block_tables, context_lens, cfg.sm_scale, max_q=max_q)
+                                      block_tables, context_lens, cfg.sm_scale, max_q=max_q,
+                                      k_scale=ks)
         x = x + _mla_output(cfg, lw, attn, dq, plain)
         x = _moe_and_shared(cfg, lw, moe_weights_q[li], dq, x, plain)
     return x, kv_caches

@@ -4,8 +4,10 @@ Counterpart of ``sgl_kernel_npu_tpu/ops/attention/decode_attention.py``
 (``decode_mla_ref``, ``decode_mla``).  Layouts are the JAX package's: q
 ``[B, Hq, 512 + 64]`` (nope ‖ rope), latent cache ``[pages, 1, page, 512]``,
 rope cache transposed ``[pages, 1, 64, page]``; V aliases K_nope.  The CUDA
-kernel is ``csrc/decode_mla.cu``.  The int8 latent cache of the JAX package is
-not ported yet: both paths raise for it.
+kernel is ``csrc/decode_mla.cu``.  The latent cache is bf16 or int8: the
+``int8_nzcache`` levels ``round(k / k_scale)``, where the plain version
+dequantizes and the kernel's wrapper folds ``k_scale`` into q_nope and the
+output, as the JAX wrapper does (the kernel reads levels only).
 """
 
 from __future__ import annotations
@@ -29,19 +31,41 @@ def _gather_pages(buffer: torch.Tensor, block_table: torch.Tensor, max_len: int)
     return pages.permute(0, 2, 1, 3, 4).reshape(b, h, n_pages * page_size, d)[:, :, :max_len]
 
 
-def _reject_int8(k_nope_buffer: torch.Tensor) -> None:
-    if k_nope_buffer.dtype == torch.int8:
-        raise NotImplementedError(
-            "the int8 latent cache is not ported yet (ROADMAP queue A)")
+def int8_scale(k_nope_buffer: torch.Tensor, k_scale):
+    """The dequant scale of an int8 latent cache (1 when not given), None for
+    a float cache."""
+    if k_nope_buffer.dtype != torch.int8:
+        return None
+    return 1.0 if k_scale is None else k_scale
+
+
+def dequant_latent(k_nope: torch.Tensor, ks) -> torch.Tensor:
+    """Gathered latent rows → f32 (× ``ks`` for int8 levels, ``ks`` not None)."""
+    return k_nope.float() if ks is None else k_nope.float() * ks
+
+
+def fold_q_scale(q: torch.Tensor, ks) -> torch.Tensor:
+    """q with ``ks`` folded into its nope part, cast back to q's dtype (JAX
+    ``decode_attention.py:314-317``): scores see ``(q · ks) · k_level``."""
+    qn = (q[..., :D_NOPE].float() * ks).to(q.dtype)
+    return torch.cat([qn, q[..., D_NOPE:]], dim=-1)
+
+
+def unfold_out_scale(out: torch.Tensor, ks) -> torch.Tensor:
+    """The kernel's output over int8 levels × ``ks`` (V aliases K)."""
+    return (out.float() * ks).to(out.dtype)
 
 
 def check_mla_operands(q, k_nope_buffer, k_rope_buffer) -> None:
-    """What the CUDA MLA kernels take: bf16 throughout, 512 + 64 wide, one
-    latent head, the transposed rope layout, contiguous caches."""
+    """What the CUDA MLA kernels take: bf16 q and rope cache, a bf16 or int8
+    latent cache, 512 + 64 wide, one latent head, the transposed rope
+    layout, contiguous caches."""
     page_size = k_nope_buffer.shape[2]
-    if not q.dtype == k_nope_buffer.dtype == k_rope_buffer.dtype == torch.bfloat16:
-        raise ValueError(f"the CUDA MLA kernels take bf16 q and caches, got "
-                         f"{q.dtype}, {k_nope_buffer.dtype}, {k_rope_buffer.dtype}")
+    if not (q.dtype == k_rope_buffer.dtype == torch.bfloat16
+            and k_nope_buffer.dtype in (torch.bfloat16, torch.int8)):
+        raise ValueError(f"the CUDA MLA kernels take bf16 q and rope cache and a bf16 or "
+                         f"int8 latent cache, got {q.dtype}, {k_nope_buffer.dtype}, "
+                         f"{k_rope_buffer.dtype}")
     if (q.shape[-1] != D_NOPE + D_ROPE or k_nope_buffer.shape[1] != 1
             or k_nope_buffer.shape[3] != D_NOPE
             or tuple(k_rope_buffer.shape[1:]) != (1, D_ROPE, page_size)):
@@ -52,13 +76,16 @@ def check_mla_operands(q, k_nope_buffer, k_rope_buffer) -> None:
         raise ValueError("paged caches must be contiguous")
 
 
-def decode_mla_ref(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale, block_table):
+def decode_mla_ref(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale, block_table,
+                   k_scale=None):
     """Plain paged MLA decode attention (f32 math).  ``kv_seq_lens`` count the
-    keys each sequence sees; the whole block table is gathered."""
+    keys each sequence sees; the whole block table is gathered.  An int8
+    latent cache holds ``round(k / k_scale)`` levels."""
     d_nope = k_nope_buffer.shape[-1]
     max_len = block_table.shape[1] * k_nope_buffer.shape[2]
     q_nope, q_pe = q[..., :d_nope].float(), q[..., d_nope:].float()
-    k_nope = _gather_pages(k_nope_buffer, block_table, max_len)[:, 0].float()   # [B, L, 512]
+    k_nope = dequant_latent(_gather_pages(k_nope_buffer, block_table, max_len)[:, 0],
+                            int8_scale(k_nope_buffer, k_scale))                # [B, L, 512]
     k_rope = _gather_pages(k_rope_buffer.transpose(-1, -2), block_table,
                            max_len)[:, 0].float()                               # [B, L, 64]
     qk = torch.einsum("bhd,bld->bhl", q_nope, k_nope)
@@ -70,18 +97,20 @@ def decode_mla_ref(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale, block
 
 
 @counted
-def decode_mla(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale, block_table):
+def decode_mla(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale, block_table, *,
+               k_scale=None):
     """Paged MLA decode attention → ``[B, Hq, 512]``.
 
     CUDA tensors launch ``csrc/decode_mla.cu``; CPU tensors take
-    :func:`decode_mla_ref`.  Pad rows (ctx 1, block table of zeros) are safe."""
-    _reject_int8(k_nope_buffer)
+    :func:`decode_mla_ref`.  Pad rows (ctx 1, block table of zeros) are safe.
+    ``k_scale``: the dequant scale of an int8 latent cache (``ctkv_scale``)."""
     if not on_cuda(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, block_table):
         return decode_mla_ref(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale,
-                              block_table)
+                              block_table, k_scale)
     check_mla_operands(q, k_nope_buffer, k_rope_buffer)
+    ks = int8_scale(k_nope_buffer, k_scale)
     b, hq, _ = q.shape
-    q = q.contiguous()
+    q = (q if ks is None else fold_q_scale(q, ks)).contiguous()
     bt = block_table.to(torch.int32).contiguous()
     ctx = kv_seq_lens.to(torch.int32).contiguous()
     out = torch.empty((b, hq, D_NOPE), dtype=q.dtype, device=q.device)
@@ -89,6 +118,6 @@ def decode_mla(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale, block_tab
     cuda_lib.check(lib, lib.decode_mla_launch(
         q.data_ptr(), k_nope_buffer.data_ptr(), k_rope_buffer.data_ptr(), bt.data_ptr(),
         ctx.data_ptr(), out.data_ptr(), b, hq, bt.shape[1], k_nope_buffer.shape[2],
-        float(sm_scale), cuda_lib.stream_ptr(q)), "decode_mla")
+        float(sm_scale), int(ks is not None), cuda_lib.stream_ptr(q)), "decode_mla")
     decode_mla.launches += 1
-    return out
+    return out if ks is None else unfold_out_scale(out, ks)

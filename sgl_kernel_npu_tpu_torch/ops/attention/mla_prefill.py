@@ -7,6 +7,7 @@ counterpart is easy to find, but the kernel is CUDA: ``csrc/mla_prefill.cu``).
 Absorbed queries q ``[S, H, 512 + 64]``, packed by request, attend to the
 latent cache; token j of request b sees cache positions
 ``<= context_len - seq_len + j``.  Rows past the request lengths are zeros.
+The latent cache is bf16 or int8 (``k_scale``), as in ``decode_attention``.
 """
 
 from __future__ import annotations
@@ -17,8 +18,11 @@ from sgl_kernel_npu_tpu_torch.ops.attention.decode_attention import (
     D_NOPE,
     NEG_INF,
     _gather_pages,
-    _reject_int8,
     check_mla_operands,
+    dequant_latent,
+    fold_q_scale,
+    int8_scale,
+    unfold_out_scale,
 )
 from sgl_kernel_npu_tpu_torch.ops.attention.sinks_attention import _prefill_page_bounds
 from sgl_kernel_npu_tpu_torch.utils import cuda_lib
@@ -29,12 +33,14 @@ ROWS = 16   # query rows (tokens x heads) per CUDA block, csrc/mla_attention.cuh
 
 
 def mla_prefill_ref(q, k_nope_buffer, k_rope_buffer, seq_lens, block_tables, context_lens,
-                    sm_scale):
+                    sm_scale, k_scale=None):
     """Plain varlen causal MLA prefill (f32 math), one request at a time over
-    the pages its queries can see."""
+    the pages its queries can see.  An int8 latent cache holds
+    ``round(k / k_scale)`` levels."""
     s, h, _ = q.shape
     page_size, dn = k_nope_buffer.shape[2], k_nope_buffer.shape[3]
     max_pages = block_tables.shape[1]
+    ks = int8_scale(k_nope_buffer, k_scale)
     out = q.new_zeros((s, h, dn))
     start = 0
     for b, (sl, cl) in enumerate(zip(seq_lens.tolist(), context_lens.tolist())):
@@ -44,7 +50,7 @@ def mla_prefill_ref(q, k_nope_buffer, k_rope_buffer, seq_lens, block_tables, con
                                      max_pages=max_pages)
         n_keys = (hi + 1) * page_size
         bt = block_tables[b : b + 1]
-        kn = _gather_pages(k_nope_buffer, bt, n_keys)[0, 0].float()                  # [L, 512]
+        kn = dequant_latent(_gather_pages(k_nope_buffer, bt, n_keys)[0, 0], ks)      # [L, 512]
         kr = _gather_pages(k_rope_buffer.transpose(-1, -2), bt, n_keys)[0, 0].float()
         qb = q[start : start + sl].float()
         qk = torch.einsum("shd,ld->shl", qb[..., :dn], kn)
@@ -59,20 +65,20 @@ def mla_prefill_ref(q, k_nope_buffer, k_rope_buffer, seq_lens, block_tables, con
 
 @counted
 def mla_prefill_pallas(q, k_nope_buffer, k_rope_buffer, seq_lens, block_tables,
-                       context_lens, sm_scale, *, max_q: int | None = None):
+                       context_lens, sm_scale, *, max_q: int | None = None, k_scale=None):
     """Varlen paged MLA prefill: q ``[S, H, 576]`` → ``[S, H, 512]``.
 
-    ``max_q`` bounds every request's new-token count (defaults to ``S``).
-    CUDA tensors launch ``csrc/mla_prefill.cu``; CPU tensors take
-    :func:`mla_prefill_ref`."""
-    _reject_int8(k_nope_buffer)
+    ``max_q`` bounds every request's new-token count (defaults to ``S``);
+    ``k_scale`` is the dequant scale of an int8 latent cache.  CUDA tensors
+    launch ``csrc/mla_prefill.cu``; CPU tensors take :func:`mla_prefill_ref`."""
     if not on_cuda(q, k_nope_buffer, k_rope_buffer, seq_lens, block_tables, context_lens):
         return mla_prefill_ref(q, k_nope_buffer, k_rope_buffer, seq_lens, block_tables,
-                               context_lens, sm_scale)
+                               context_lens, sm_scale, k_scale)
     check_mla_operands(q, k_nope_buffer, k_rope_buffer)
+    ks = int8_scale(k_nope_buffer, k_scale)
     s, h, _ = q.shape
     bsz = seq_lens.shape[0]
-    q = q.contiguous()
+    q = (q if ks is None else fold_q_scale(q, ks)).contiguous()
     sl = seq_lens.to(torch.int32).contiguous()
     starts = (torch.cumsum(sl, 0, dtype=torch.int32) - sl).contiguous()
     ctx = context_lens.to(torch.int32).contiguous()
@@ -85,6 +91,6 @@ def mla_prefill_pallas(q, k_nope_buffer, k_rope_buffer, seq_lens, block_tables,
         q.data_ptr(), k_nope_buffer.data_ptr(), k_rope_buffer.data_ptr(), bt.data_ptr(),
         sl.data_ptr(), ctx.data_ptr(), starts.data_ptr(), out.data_ptr(), bsz, h,
         bt.shape[1], k_nope_buffer.shape[2], int(max_q or s), ROWS // heads_per_block,
-        float(sm_scale), cuda_lib.stream_ptr(q)), "mla_prefill")
+        float(sm_scale), int(ks is not None), cuda_lib.stream_ptr(q)), "mla_prefill")
     mla_prefill_pallas.launches += 1
-    return out
+    return out if ks is None else unfold_out_scale(out, ks)

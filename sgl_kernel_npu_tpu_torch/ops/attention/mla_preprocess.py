@@ -11,8 +11,9 @@ the two GEMMs, as it is XLA glue around them in the JAX package.
 JAX donates the caches; the port writes them in place and returns them.
 JAX's ``use_pallas`` is the port's ``plain`` (inverted): ``plain=True`` runs
 the GEMMs' plain version.  Cache modes: ``krope_ctkv`` (bf16 split caches)
-and its alias ``nzcache``; ``int8_nzcache`` (the int8 latent cache) is not
-ported yet and raises.
+and its alias ``nzcache``; ``int8_nzcache``: the latent cache holds
+``round(k / ctkv_scale)`` int8 levels and ``q_nope_out`` is returned as
+``round(q · qnope_scale)`` int8 per head (both from f32, as in JAX).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from sgl_kernel_npu_tpu_torch.ops.mem_cache.kv_cache import (
     reshape_and_cache_transposed,
 )
 from sgl_kernel_npu_tpu_torch.ops.norm import rms_norm_ref
+from sgl_kernel_npu_tpu_torch.ops.quant import saturate_int8
 from sgl_kernel_npu_tpu_torch.ops.rope import apply_rope
 
 K_NOPE = 512
@@ -84,13 +86,15 @@ def mla_preprocess(hidden, w: MlaPreprocessWeights, cos_sin, kv_cache_nope, kv_c
     Returns ``(q_nope_out [N, heads, 512], q_pe [N, heads, 64],
     kv_cache_nope, kv_cache_rope)``, the caches written in place.
     ``first_norm=False`` quantizes ``hidden`` directly (the first norm folded
-    into the caller)."""
-    if cache_mode == "int8_nzcache":
-        raise NotImplementedError(
-            "mla_preprocess cache_mode='int8_nzcache' (the int8 latent cache) is not "
-            "ported yet (ROADMAP queue A item 5)")
-    if cache_mode not in ("krope_ctkv", "nzcache"):
+    into the caller).  ``int8_nzcache`` needs ``w.qnope_scale`` and
+    ``w.ctkv_scale`` and an int8 latent cache."""
+    int8 = cache_mode == "int8_nzcache"
+    if cache_mode not in ("krope_ctkv", "nzcache", "int8_nzcache"):
         raise ValueError(f"unknown cache_mode {cache_mode!r}")
+    if int8 and (w.qnope_scale is None or w.ctkv_scale is None
+                 or kv_cache_nope.dtype != torch.int8):
+        raise ValueError("cache_mode='int8_nzcache' needs qnope_scale, ctkv_scale and an "
+                         f"int8 latent cache (got {kv_cache_nope.dtype})")
     n = hidden.shape[0]
     heads = w.wuk.shape[0]
     dtype = hidden.dtype
@@ -121,8 +125,14 @@ def mla_preprocess(hidden, w: MlaPreprocessWeights, cos_sin, kv_cache_nope, kv_c
 
     q_pe = apply_rope(q_pe.to(dtype), cos, sin)
     k_pe = apply_rope(k_pe.to(dtype), cos, sin)
-    q_nope_out = torch.einsum("nhk,hkd->nhd", q_nope, w.wuk.float()).to(dtype)
+    q_nope_out = torch.einsum("nhk,hkd->nhd", q_nope, w.wuk.float())    # [N, H, 512] f32
     k_nope = rms_norm_ref(ckv.to(dtype), w.gamma3)[:, None, :]            # [N, 1, 512]
+    if int8:
+        q_nope_out = saturate_int8(q_nope_out * w.qnope_scale.float()[None, :, None])
+        kf = k_nope.float()   # true division by a tensor (never a reciprocal multiply)
+        k_nope = saturate_int8(kf / w.ctkv_scale.to(kf.device, torch.float32).expand_as(kf))
+    else:
+        q_nope_out = q_nope_out.to(dtype)
 
     reshape_and_cache(k_nope, kv_cache_nope, slot_mapping)
     reshape_and_cache_transposed(k_pe.to(kv_cache_rope.dtype), kv_cache_rope, slot_mapping)

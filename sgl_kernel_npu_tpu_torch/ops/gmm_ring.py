@@ -18,19 +18,16 @@ from __future__ import annotations
 
 import torch
 
-from sgl_kernel_npu_tpu_torch.ops.grouped_matmul import gmm_dequant_ref, swiglu_block
-from sgl_kernel_npu_tpu_torch.ops.quant import row_scale, saturate_int8
+from sgl_kernel_npu_tpu_torch.ops.grouped_matmul import (
+    _offsets,
+    gmm_dequant_ref,
+    swiglu_requant_ref,
+)
 from sgl_kernel_npu_tpu_torch.utils import cuda_lib
 from sgl_kernel_npu_tpu_torch.utils.common import on_cuda
 from sgl_kernel_npu_tpu_torch.utils.counters import counted
 
 MAX_TOPK = 32   # csrc/gmm_ring.cu: the kernels read 4-byte words of K and N
-
-
-def _offsets(group_sizes: torch.Tensor) -> torch.Tensor:
-    off = torch.zeros(group_sizes.shape[0] + 1, dtype=torch.int32, device=group_sizes.device)
-    off[1:] = torch.cumsum(group_sizes.to(torch.int32), 0)
-    return off
 
 
 def _check_int8(name: str, t: torch.Tensor) -> None:
@@ -47,11 +44,8 @@ def gmm1_ring_ref(xq, tok_of_row, w1, group_sizes, scale_x_tok, scale_w):
     tok = torch.where(valid, tok_of_row, 0).long()
     xs = torch.where(valid[:, None], xq[tok], 0)
     sx = torch.where(valid, scale_x_tok.float()[tok], 0.0)
-    act = swiglu_block(gmm_dequant_ref(xs, w1, group_sizes, sx, scale_w.float()))
-    scale = torch.clamp_min(row_scale(act), 1e-12)
-    q = saturate_int8(act / scale[:, None])
     live = torch.arange(tok_of_row.shape[0], device=xq.device) < group_sizes.sum()
-    return torch.where(live[:, None], q, 0).to(torch.int8), torch.where(live, scale, 0.0)
+    return swiglu_requant_ref(gmm_dequant_ref(xs, w1, group_sizes, sx, scale_w.float()), live)
 
 
 def gmm2_combine_ring_ref(x, w2, group_sizes, scale_x, scale_w, dest, topk_w, *,

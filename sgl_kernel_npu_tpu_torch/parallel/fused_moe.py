@@ -25,8 +25,8 @@ def quantize_expert_weights(w_gate, w_up, w_down):
     tn = moe_pack_tn(n)
     if tn != n:
         raise NotImplementedError(
-            f"gate/up packing of width {tn} < {n} feeds the BlockSpec grouped GEMMs "
-            "(K8), not ported yet (ROADMAP queue B)")
+            f"gate/up packing of width {tn} < {n} feeds grouped_matmul's float "
+            "dequant_swiglu epilogue (K8a), not ported yet (ROADMAP queue B)")
     qg, sg = quant_per_channel(w_gate, dim=1)     # [E, K, N]: per output channel
     qu, su = quant_per_channel(w_up, dim=1)
     qd, sd = quant_per_channel(w_down, dim=1)

@@ -1,10 +1,10 @@
-"""ctypes binding of the native radix cache manager (``csrc/cache_manager.cpp``
-at the repository root: host C++, shared with the JAX package's runtime).
+"""ctypes binding of the native radix cache manager (the port's own
+``sgl_kernel_npu_tpu_torch/csrc/cache_manager.cpp``: host C++).
 
 Counterpart of ``sgl_kernel_npu_tpu/runtime/cache_manager.py``: prefix-cache
 matching, page allocation with LRU eviction, refcounted sharing.  The port
-compiles the source with ``g++`` into its own git-ignored ``_build/``
-directory at first use.
+compiles its copy of the source with ``g++`` into its own git-ignored
+``_build/`` directory at first use, and reads no file outside its package.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import threading
 
 import numpy as np
 
-_SRC = pathlib.Path(__file__).resolve().parents[2] / "csrc" / "cache_manager.cpp"
+_SRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "cache_manager.cpp"
 _LIB_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 _LIB = _LIB_DIR / "libcache_manager.so"
 

@@ -8,7 +8,9 @@ release.  Where JAX jits each call with the caches donated, the port runs
 eagerly and the model updates the cache tensors in place.  The engine keeps
 the JAX engine's fixed batch widths (``prefill_chunk`` rows per prefill call,
 ``max_batch`` rows per decode call): pad rows carry slot -1, context 1 and a
-block table of zeros.
+block table of zeros.  A request's pages are bounded by
+``max_pages_per_req`` (33 pages of 128 hold a 4096-token prompt and its
+decode).
 
 Not ported yet (ROADMAP): speculative decoding, the host KV tier, sampled
 decoding and penalties, stop tokens, prefill-priority (unmixed) scheduling,
@@ -55,7 +57,10 @@ def deepseek_adapter(cfg, params, dtype=torch.float32, *, moe_weights_q=None,
     (``models.deepseek_v3.quantize_moe_weights`` or ``init_quantized_experts``)
     is required, the dense float MoE is not ported yet.  ``mla_wq``
     (``models.deepseek_v3.make_mla_preprocess_weights``) runs the fused W8A8
-    prologue on prefill and decode.  ``dtype`` is the KV cache's."""
+    prologue on prefill and decode.  ``dtype`` is the KV cache's; the int8
+    latent cache rides on ``cfg.kv_cache_dtype``, as in JAX.  Each prefill
+    call takes ``max_q`` = its row count, the engine's ``prefill_chunk``: a
+    chunk above 512 tokens runs its MoE on ``grouped_matmul`` (K8a)."""
     from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as m
 
     dev = resolve_device(device)

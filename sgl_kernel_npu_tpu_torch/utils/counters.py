@@ -17,7 +17,7 @@ def counted(fn):
 
 def wrappers() -> dict:
     """Every kernel wrapper of the port, by name."""
-    from sgl_kernel_npu_tpu_torch.ops import activation, gmm_ring, matmul, quant
+    from sgl_kernel_npu_tpu_torch.ops import activation, gmm_ring, grouped_matmul, matmul, quant
     from sgl_kernel_npu_tpu_torch.ops.attention import decode_attention, mla_prefill
 
     return {
@@ -28,6 +28,7 @@ def wrappers() -> dict:
         "quant_matmul": matmul.quant_matmul,
         "quant_per_token": quant.quant_per_token,
         "swiglu_quant": activation.swiglu_quant,
+        "grouped_matmul": grouped_matmul.grouped_matmul,
     }
 
 

@@ -30,9 +30,9 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
-    "decode_mla_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "decode_mla_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "mla_prefill_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _F, _P],
+                           _F, _I, _P],
     "gmm1_ring_launch": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                          _P, _P],
     "gmm2_combine_ring_launch": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P,
@@ -40,6 +40,9 @@ _SIGNATURES = {
     "quant_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "quant_per_token_launch": [_P, _I, _I, _I, _P, _P, _P],
     "swiglu_quant_launch": [_P, _I, _I, _I, _P, _I, _P, _P, _P],
+    "grouped_matmul_dequant_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "grouped_matmul_swiglu_quant_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                                           _P, _P, _P],
 }
 
 _lib = None

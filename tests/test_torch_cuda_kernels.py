@@ -10,12 +10,14 @@ bf16 rounding of the output); int8 GMM1 outputs 1 level and scales rtol 1e-5;
 f32 GMM2 + combine 1e-5 of the largest value (f32 sums in another order);
 ``quant_matmul`` exact (exact integer sums, the same f32 epilogue);
 ``quant_per_token`` and ``swiglu_quant`` int8 within one level (the SiLU's
-exp differs by ulps between libraries), scales rtol 1e-6."""
+exp differs by ulps between libraries), scales rtol 1e-6; ``grouped_matmul``
+``dequant`` within one bf16 ulp (the same f32 operations; exact in f32 out),
+``dequant_swiglu_quant`` int8 within one level and scales rtol 1e-6."""
 
 import pytest
 import torch
 
-from sgl_kernel_npu_tpu_torch.ops import activation, gmm_ring, matmul, quant
+from sgl_kernel_npu_tpu_torch.ops import activation, gmm_ring, grouped_matmul, matmul, quant
 from sgl_kernel_npu_tpu_torch.ops.attention import decode_attention as da
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_prefill as mp
 from sgl_kernel_npu_tpu_torch.utils.common import kernels_available
@@ -53,6 +55,45 @@ def test_decode_mla_kernel(dev, heads, page):
     torch.cuda.synchronize()
     assert da.decode_mla.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def _int8_latent(kn):
+    return torch.clamp(torch.round(kn.float() * 32), -128, 127).to(torch.int8)
+
+
+@pytest.mark.parametrize("heads,page", [(128, 128), (8, 16)])
+def test_decode_mla_kernel_int8_latent(dev, heads, page):
+    """The int8 latent cache (levels round(k * 32), k_scale 1/32) against the
+    plain version, which dequantizes."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ctx = [1, page + 3, 5 * page, 2]
+    b, max_pages = len(ctx), 6
+    kn, kr = _cache(gen, dev, b * max_pages + 1, page, torch.bfloat16)
+    kn8 = _int8_latent(kn)
+    bt = (torch.arange(b * max_pages, device=dev, dtype=torch.int32) + 1).reshape(b, max_pages)
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    q = torch.randn((b, heads, 576), generator=gen, device=dev).to(torch.bfloat16)
+    got = da.decode_mla(q, kn8, kr, ctx_t, 0.07, bt, k_scale=1 / 32)
+    want = da.decode_mla_ref(q, kn8, kr, ctx_t, 0.07, bt, 1 / 32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_mla_prefill_kernel_int8_latent(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    page, max_pages = 16, 6
+    seq, ctx = [1, 37, 64], [1, 50, 90]
+    kn, kr = _cache(gen, dev, 3 * max_pages, page, torch.bfloat16)
+    kn8 = _int8_latent(kn)
+    bt = torch.arange(3 * max_pages, device=dev, dtype=torch.int32).reshape(3, max_pages)
+    q = torch.randn((sum(seq) + 3, 128, 576), generator=gen, device=dev).to(torch.bfloat16)
+    seq_t = torch.tensor(seq, dtype=torch.int32, device=dev)
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    got = mp.mla_prefill_pallas(q, kn8, kr, seq_t, bt, ctx_t, 0.07, max_q=64, k_scale=1 / 32)
+    want = mp.mla_prefill_ref(q, kn8, kr, seq_t, bt, ctx_t, 0.07, 1 / 32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert bool((got[-3:] == 0).all())
 
 
 @pytest.mark.parametrize("heads", [128, 8])
@@ -244,3 +285,72 @@ def test_fully_w8a8_decode_step_kernels_match_plain(dev):
     assert y_k.dtype == y_p.dtype == torch.float32
     rel = float((y_k - y_p).abs().max() / y_p.abs().max())
     assert rel < 3e-2, rel
+
+
+# (group sizes, S, K, I): empty groups and rows past the total; a single row;
+# K not a multiple of the 128-byte stage (and of 32); groups above 64 rows
+GMM_CASES = [((0, 5, 0, 17, 1, 0, 40, 1), 80, 1024, 256),
+             ((0, 1, 0, 0), 1, 256, 128),
+             ((3, 0, 70, 9), 100, 336, 160),
+             ((130, 64, 65, 0, 200), 500, 512, 512)]
+
+
+@pytest.mark.parametrize("sizes,s,k,i", GMM_CASES)
+def test_grouped_matmul_kernel(dev, sizes, s, k, i):
+    gen = torch.Generator(device=dev).manual_seed(s + k)
+    g = len(sizes)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    x = torch.randint(-127, 128, (s, k), generator=gen, device=dev, dtype=torch.int8)
+    w1 = torch.randint(-127, 128, (g, k, 2 * i), generator=gen, device=dev, dtype=torch.int8)
+    w2 = torch.randint(-127, 128, (g, i, k), generator=gen, device=dev, dtype=torch.int8)
+    sx = torch.rand(s, generator=gen, device=dev) / 50 + 1e-3
+    s1 = torch.rand((g, 2 * i), generator=gen, device=dev) / 500 + 1e-4
+    s2 = torch.rand((g, k), generator=gen, device=dev) / 500 + 1e-4
+    total = sum(sizes)
+    before = grouped_matmul.grouped_matmul.launches
+    h1, hs = grouped_matmul.grouped_matmul(x, w1, gs, sx, s1, epilogue="dequant_swiglu_quant")
+    h1_p, hs_p = grouped_matmul.grouped_matmul_plain(x, w1, gs, sx, s1,
+                                                     epilogue="dequant_swiglu_quant")
+    torch.cuda.synchronize()
+    assert int((h1.int() - h1_p.int()).abs().max()) <= 1
+    torch.testing.assert_close(hs, hs_p, rtol=1e-6, atol=0)
+    assert not h1[total:].any() and not hs[total:].any()
+    y = grouped_matmul.grouped_matmul(h1_p, w2, gs, hs_p, s2, epilogue="dequant")
+    y_p = grouped_matmul.grouped_matmul_plain(h1_p, w2, gs, hs_p, s2, epilogue="dequant")
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and not y[total:].any()
+    torch.testing.assert_close(y.float(), y_p.float(), atol=0, rtol=2 ** -7)
+    assert grouped_matmul.grouped_matmul.launches == before + 2
+
+
+def test_moe_above_512_tokens_kernels_match_plain(dev):
+    """A small model's 600-token prefill chunk: the MoE on K8a, through the
+    kernels and through the plain versions, on the int8 latent cache."""
+    from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as m
+
+    cfg = m.DeepSeekV3Config(vocab_size=256, hidden=512, num_layers=2, num_heads=16,
+                             kv_lora_rank=512, qk_nope_dim=64, q_lora_rank=128,
+                             v_head_dim=64, num_experts=16, topk=4, moe_intermediate=256,
+                             page_size=16, kv_cache_dtype="int8")
+    params = m.init_weights(cfg, 0, torch.bfloat16, device=dev)
+    moe = m.quantize_moe_weights(cfg, m.init_weights(cfg, 1, torch.float32, device=dev))
+    n = 600
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((n, cfg.hidden), generator=gen, device=dev).to(torch.bfloat16)
+    mla_wq = m.make_mla_preprocess_weights(cfg, params, x[:64].float())
+    bt = torch.arange(1, 41, dtype=torch.int32, device=dev)[None, :]
+    slots = (bt[0, torch.arange(n, device=dev) // 16] * 16
+             + torch.arange(n, device=dev) % 16).to(torch.int32)
+    sl = torch.tensor([n], dtype=torch.int32, device=dev)
+    outs = []
+    for plain in (False, True):
+        caches = m.init_kv_cache(cfg, 41, torch.bfloat16, device=dev)
+        before = grouped_matmul.grouped_matmul.launches
+        y, _ = m.prefill_step(cfg, params, x, sl, caches, bt, sl, slots, max_q=n,
+                              moe_weights_q=moe, mla_wq=mla_wq, plain=plain)
+        torch.cuda.synchronize()
+        assert grouped_matmul.grouped_matmul.launches == before + (0 if plain else 4)
+        assert caches[0]["nope"].dtype == torch.int8
+        outs.append(y.float())
+    rel = (outs[0] - outs[1]).abs().amax(-1) / outs[1].abs().amax()
+    assert float(torch.quantile(rel, 0.9)) < 3e-2, rel.max()

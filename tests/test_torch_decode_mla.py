@@ -58,8 +58,14 @@ def test_decode_mla_small_pages_len1_and_pad_rows(page):
 
 
 def test_decode_mla_int8_cache_not_ported():
-    q = torch.zeros((1, 8, 576))
-    with pytest.raises(NotImplementedError):
-        tda.decode_mla(q, torch.zeros((2, 1, 16, 512), dtype=torch.int8),
-                       torch.zeros((2, 1, 64, 16)), torch.ones(1, dtype=torch.int32), 0.1,
-                       torch.zeros((1, 1), dtype=torch.int32))
+    """The int8 latent cache, once left to the JAX package, now runs: levels
+    ``round(k / k_scale)`` with ``k_scale`` give the JAX kernel's output (the
+    name is kept from the slice that refused it)."""
+    rng = np.random.default_rng(7)
+    q, kn, kr, bt, ctx = _case(rng, 2, 8, 512, 64, 16, 3, [9, 40], pad_rows=1)
+    kn8 = np.clip(np.round(kn / (1 / 32)), -128, 127).astype(np.int8)
+    want = jda.decode_mla(jx(q, jnp.bfloat16), jx(kn8), jx(kr, jnp.bfloat16), jx(ctx),
+                          576 ** -0.5, jx(bt), k_scale=1 / 32)
+    got = tda.decode_mla(tt(q, torch.bfloat16), tt(kn8), tt(kr, torch.bfloat16), tt(ctx),
+                         576 ** -0.5, tt(bt), k_scale=1 / 32)
+    np.testing.assert_allclose(np32(got), np32(want), atol=3e-2, rtol=3e-2)

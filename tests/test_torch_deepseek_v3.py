@@ -6,8 +6,6 @@ requantize the expert activations to int8 (a boundary value can flip by one
 level) and the JAX GMM2 kernel rounds each expert output to bf16 before the
 combine, where the port keeps f32 (relative 2^-9 per expert)."""
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -223,24 +221,36 @@ def test_router_matches_jax():
 
 
 def test_unported_switches_raise():
-    cfg = tm.DeepSeekV3Config(num_layers=1)
+    """What the port still leaves to the JAX package raises, naming ROADMAP:
+    the MoE of at most 512 tokens at widths the ring GEMMs do not take (K8b
+    and K8a's dispatch_p), K8a's float, training and non-bf16 output modes, the dense float
+    MoE, and gate/up packing narrower than 2I."""
+    from sgl_kernel_npu_tpu_torch.ops.grouped_matmul import grouped_matmul
+
+    cfg = tm.DeepSeekV3Config(num_layers=1, moe_intermediate=96)   # 2I % 256 != 0
     params = tm.init_weights(cfg, 0, device="cpu")
-    x = torch.zeros((600, cfg.hidden))
-    idx = torch.zeros((600, cfg.topk), dtype=torch.int32)
-    w = torch.ones((600, cfg.topk))
+    x = torch.zeros((8, cfg.hidden))
+    idx = torch.zeros((8, cfg.topk), dtype=torch.int32)
+    w = torch.ones((8, cfg.topk))
     moe = tm.quantize_moe_weights(cfg, params)[0]
-    with pytest.raises(NotImplementedError, match="K8"):
+    with pytest.raises(NotImplementedError, match="K8b"):
         tm._gmm_moe(cfg, moe, x, idx, w)
+    xq, gs = torch.zeros((8, 128), dtype=torch.int8), torch.tensor([8], dtype=torch.int32)
+    wq = torch.zeros((1, 128, 256), dtype=torch.int8)
+    sx, sw = torch.ones(8), torch.ones((1, 256))
+    for kw in (dict(epilogue="none"), dict(epilogue="dequant_swiglu"),
+               dict(epilogue="dequant", dispatch_p=torch.ones((8, 8), dtype=torch.int8)),
+               dict(epilogue="dequant", rhs_contract_last=True),
+               dict(epilogue="dequant", out_dtype=torch.float32)):
+        with pytest.raises(NotImplementedError, match="K8a"):
+            grouped_matmul(xq, wq, gs, sx, sw, **kw)
+    with pytest.raises(NotImplementedError, match="K8a"):       # float rows
+        grouped_matmul(xq.float(), wq, gs, sx, sw, epilogue="dequant")
     with pytest.raises(NotImplementedError):
         tm.decode_step(cfg, params, x[:1], torch.zeros(1, dtype=torch.int32),
                        tm.init_kv_cache(cfg, 2, device="cpu"),
                        torch.zeros((1, 1), dtype=torch.int32),
                        torch.ones(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32))
-    int8_cache = dataclasses.replace(cfg, kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tm.init_kv_cache(int8_cache, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tm.make_mla_preprocess_weights(int8_cache, params, torch.zeros((2, cfg.hidden)))
     with pytest.raises(NotImplementedError, match="K8"):   # packing narrower than 2I
         quantize_expert_weights(torch.zeros((1, 128, 8192)), torch.zeros((1, 128, 8192)),
                                    torch.zeros((1, 8192, 128)))

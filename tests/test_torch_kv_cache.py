@@ -40,3 +40,18 @@ def test_reshape_and_cache_writes_in_place():
     assert out is cache
     np.testing.assert_array_equal(np32(cache[1, 0, 1]), np32(vals[0, 0]))
     assert float(cache.abs().sum()) == float(vals[0].abs().sum())
+
+
+def test_reshape_and_cache_int8_latent_cache():
+    """The int8 latent cache takes the same writes: levels copied exactly,
+    slot -1 dropped."""
+    rng = np.random.default_rng(2)
+    page, n_pages = 16, 4
+    cache = rng.integers(-128, 128, (n_pages, 1, page, 64)).astype(np.int8)
+    vals = rng.integers(-128, 128, (4, 1, 64)).astype(np.int8)
+    slots = np.array([-1, 5, page * n_pages - 1, -1], np.int32)
+    want = np.asarray(jkv.reshape_and_cache(jx(vals), jx(cache), jx(slots)))
+    got = tkv.reshape_and_cache(tt(vals), tt(cache), tt(slots))
+    assert got.dtype == tt(cache).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy() != cache).any(axis=-1).sum() <= 2

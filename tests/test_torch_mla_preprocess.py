@@ -82,11 +82,19 @@ def test_mla_preprocess_matches_jax(padded, dtype):
 
 
 def test_int8_nzcache_raises():
+    """``int8_nzcache`` without its per-head q scales and latent scale, or
+    with a float latent cache, raises (the mode itself is ported:
+    ``tests/test_torch_int8_cache.py``)."""
     rng = np.random.default_rng(0)
     w = tmp.MlaPreprocessWeights(**{k: tt(v) for k, v in _weights(rng).items()})
     cos, sin = rope_cos_sin(torch.arange(2), 64)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tmp.mla_preprocess(torch.zeros((2, HID)), w, (cos, sin),
-                           torch.zeros((1, 1, PAGE, 512), dtype=torch.int8),
-                           torch.zeros((1, 1, 64, PAGE)), torch.zeros(2, dtype=torch.int32),
-                           cache_mode="int8_nzcache")
+    args = (torch.zeros((2, HID)), w, (cos, sin), torch.zeros((1, 1, PAGE, 512), dtype=torch.int8),
+            torch.zeros((1, 1, 64, PAGE)), torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="qnope_scale"):
+        tmp.mla_preprocess(*args, cache_mode="int8_nzcache")
+    scaled = w._replace(qnope_scale=torch.ones(HEADS), ctkv_scale=torch.tensor(1 / 32))
+    with pytest.raises(ValueError, match="int8 latent cache"):
+        tmp.mla_preprocess(args[0], scaled, *args[2:3], torch.zeros((1, 1, PAGE, 512)),
+                           *args[4:], cache_mode="int8_nzcache")
+    q, _, cache, _ = tmp.mla_preprocess(args[0], scaled, *args[2:], cache_mode="int8_nzcache")
+    assert q.dtype == cache.dtype == torch.int8

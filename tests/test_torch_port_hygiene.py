@@ -1,7 +1,9 @@
-"""Port boundaries: the port imports nothing of JAX or of the JAX package, and
-its entry points refuse to run quietly on the CPU when no GPU is present."""
+"""Port boundaries: the port imports nothing of JAX or of the JAX package,
+builds and loads nothing from outside its own package, and its entry points
+refuse to run quietly on the CPU when no GPU is present."""
 
 import ast
+import importlib
 import pathlib
 
 import pytest
@@ -36,6 +38,52 @@ def test_port_imports_no_jax():
             elif isinstance(node, ast.Constant) and isinstance(node.value, str):
                 if node.value in FORBIDDEN:          # importlib.import_module("jax")
                     bad.append((path, node.value))
+    assert not bad, bad
+
+
+def _climb(node) -> int | None:
+    """How many directories ``node`` climbs from ``__file__``'s path:
+    ``.parents[k]`` climbs k + 1, each ``.parent`` one; None if ``node`` is
+    not such an expression."""
+    if isinstance(node, ast.Subscript) and isinstance(node.value, ast.Attribute) \
+            and node.value.attr == "parents" and isinstance(node.slice, ast.Constant):
+        inner = _climb(node.value.value)
+        return None if inner is None else inner + node.slice.value + 1
+    if isinstance(node, ast.Attribute) and node.attr == "parent":
+        inner = _climb(node.value)
+        return None if inner is None else inner + 1
+    if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) \
+            and node.func.attr in ("resolve", "absolute"):
+        return _climb(node.func.value)
+    if isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", "")) \
+            in ("Path", "PurePath") and node.args:
+        return _climb(node.args[0])
+    if isinstance(node, ast.Name) and node.id == "__file__":
+        return 0
+    return None
+
+
+def test_port_builds_no_path_above_its_package():
+    """No port module builds a filesystem path above its own package (as
+    ``Path(__file__).parents[2] / "csrc"`` once reached the JAX package's
+    sources), and no module-level path of a port module lies outside it.
+    Strings that only cite a JAX file for the record are not paths."""
+    pkg = REPO / "sgl_kernel_npu_tpu_torch"
+    bad = []
+    for path in sorted(pkg.rglob("*.py")):
+        depth = len(path.relative_to(pkg).parts)     # climbs that still end inside the package
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            up = _climb(node)
+            if up is not None and up > depth:
+                bad.append((path.name, node.lineno, ast.unparse(node)))
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                    and ("../" in node.value or node.value == ".."):
+                bad.append((path.name, node.lineno, node.value))
+        name = ".".join(path.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for attr, value in vars(importlib.import_module(name)).items():
+            if isinstance(value, pathlib.PurePath) and not pathlib.Path(value).is_relative_to(pkg):
+                bad.append((name, attr, str(value)))
     assert not bad, bad
 
 
