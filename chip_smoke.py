@@ -8,17 +8,22 @@ Phases (any failure raises and the script exits non-zero without a result):
 1. Build the hand-written kernels from ``sgl_kernel_npu_tpu_torch/csrc`` with
    nvcc for sm_90a; print the build time and the card's name and power limit.
 2. Weights: DeepSeek-V3 at its published widths (depth cut from 61 to 2
-   layers, random weights from a seed), W8A8 routed experts, the fused
+   layers, random weights from a seed) with DeepSeek-V3.2's indexer
+   projections (drawn last: the other weights are DeepSeek-V3's), W8A8
+   routed experts, the fused
    prologue's W8A8 weights (calibrated on the embeddings of the prompts
    below) and the W8A8 dense weights.
 3. Hold each kernel (decode_mla, mla_prefill_pallas, gmm1_ring,
    gmm2_combine_ring, quant_matmul, quant_per_token, swiglu_quant,
-   grouped_matmul) against its plain PyTorch version on the card, at the
+   grouped_matmul, lightning_indexer_scores_prefill_pallas,
+   mla_prefill_block_sparse) against its plain PyTorch version on the card, at the
    main path's full-width shapes and at small ragged cases, decode_mla and
    mla_prefill_pallas also on an int8 latent cache (there also at the shapes
    of phase 4c: decode contexts of 916-4016 keys on a 33-page table, a
    2048-row chunk at context 4096), grouped_matmul at 2048 and 4096 tokens
-   of top-8 routing; time the kernel, the plain version and,
+   of top-8 routing, the DSA kernels on a 2048-token chunk at context 4096
+   (K9b on pages selected from K10's scores) and small ragged cases; time
+   the kernel, the plain version and,
    where one exists, a single PyTorch call computing the same function (CUDA
    events, L2 flushed before each launch); compute each kernel's bound from
    the bytes and operations of its inputs.
@@ -45,8 +50,18 @@ Phases (any failure raises and the script exits non-zero without a result):
    radix reuse and the int8 cache are checked; then one decode step and one
    2048-row prefill chunk (at context 4096) are held to their plain
    versions with the routing replayed.
+4d. DeepSeek-V3.2's sparse attention (DSA) in page mode on 4c's setup: the
+   same prompts through ``Engine(prefill_chunk=2048)``; each prefill call
+   scores its chunks with the lightning indexer (K10) and attends 16 selected
+   pages a 64-token chunk (K9b, never K9a), each decode row 16 selected pages
+   (K2 over a pruned block table).  Launch counts, pages, radix reuse and
+   real pruning are checked; one decode step and one 2048-row chunk are held
+   to their plain versions with the routing and the page selections
+   replayed; then a decode step in token mode (K10 through
+   ``lightning_indexer``), its token selections replayed.
 5. ``torch.profiler`` breakdowns of a decode step, a mixed tick, the fully
-   W8A8 decode step and one 2048-token prefill call on the int8 cache.
+   W8A8 decode step, one 2048-token prefill call on the int8 cache, and one
+   DSA prefill call and DSA decode step.
 6. Print the kernels' JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -75,6 +90,7 @@ from sgl_kernel_npu_tpu_torch.ops import (  # noqa: E402
     quant,
 )
 from sgl_kernel_npu_tpu_torch.ops.attention import decode_attention as da  # noqa: E402
+from sgl_kernel_npu_tpu_torch.ops.attention import lightning_indexer as li  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_prefill as mp  # noqa: E402
 from sgl_kernel_npu_tpu_torch.runtime.engine import Engine, deepseek_adapter  # noqa: E402
 from sgl_kernel_npu_tpu_torch.utils import counters, cuda_lib, trace_profile  # noqa: E402
@@ -112,6 +128,15 @@ CFG_INT8 = dataclasses.replace(CFG, kv_cache_dtype="int8")
 LONG_CHUNK, LONG_PAGES_PER_REQ, LONG_NUM_PAGES = 2048, 33, 256
 LONG_PROMPT_LENS = [3500, 1800, 4000, 900, 2600]  # the 1st and 5th share 2048 tokens
 LONG_SHARED = 2048
+
+# [4d] deepseek-ai/DeepSeek-V3.2-Exp config.json: index_n_heads 64,
+# index_head_dim 128, index_topk 2048, every other width DeepSeek-V3's; DSA in
+# page mode (2048 keys = 16 pages of 128 a decode row or 64-token chunk) on
+# [4c]'s int8 cache, fused prologue, chunks, prompts and 33-page tables
+CFG_DSA = dataclasses.replace(CFG_INT8, sparse_count=2048, idx_heads=64, idx_dim=128,
+                              sparse_granularity="page")
+DSA_PAGES = -(-CFG_DSA.sparse_count // CFG_DSA.page_size)
+DSA_KERNELS = ("lightning_indexer_scores_prefill_pallas", "mla_prefill_block_sparse")
 
 _flush_buf = None
 SPIN_CYCLES = 200_000          # ~100 us at the H100's 1.98 GHz boost clock
@@ -470,6 +495,163 @@ def check_grouped_matmul_small(gen):
             raise AssertionError(f"grouped_matmul small case disagrees: {sizes}")
 
 
+def check_indexer(gen, label, lens_q, lens_k, max_q, page, table_pages, timed, q_chunk=64,
+                  heads=64, dim=128):
+    """K10 on random bf16 index queries and keys (f32 weights) for requests
+    of ``lens_q`` new tokens at contexts ``lens_k`` on ``table_pages``-page
+    tables: -inf at the same positions as the plain version and the finite
+    scores within 1e-4 of each row's largest |score| (f32 sums of exact bf16
+    products, in another order).  Returns the kernel's scores (and the
+    inputs) and, timed, the JSON numbers."""
+    b = len(lens_q)
+    n_pages = b * table_pages + 1
+    key = randn(gen, (n_pages, 1, page, dim))
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(b)) + 1
+    bt = perm[: b * table_pages].reshape(b, table_pages).to(torch.int32).to(DEV)
+    q = randn(gen, (b, max_q, heads, dim))
+    w = randn(gen, (b, max_q, heads), torch.float32)
+    lq = torch.tensor(lens_q, dtype=torch.int32, device=DEV)
+    lk = torch.tensor(lens_k, dtype=torch.int32, device=DEV)
+    args = (q, w, key, lq, lk, bt)
+    got = li.lightning_indexer_scores_prefill_pallas(*args, q_chunk=q_chunk)
+    want = li.lightning_indexer_scores_prefill_ref(*args, q_chunk=q_chunk)
+    torch.cuda.synchronize()
+    dead = torch.isinf(want)
+    same_dead = bool((torch.isinf(got) == dead).all()) and bool((got[dead] < 0).all())
+    diff = (torch.where(dead, 0.0, got) - torch.where(dead, 0.0, want)).abs()
+    err = float(diff.max())
+    rel = float((diff / torch.where(dead, 0.0, want).abs().amax(-1, keepdim=True)
+                 .clamp_min(1e-30)).max())
+    log(f"  lightning_indexer_scores_prefill {label}: {heads} heads x {dim}, page {page}, "
+        f"lens_q {lens_q}, lens_k {lens_k}, max_q {max_q} (chunk {min(q_chunk, max(8, max_q))}), "
+        f"table {table_pages} pages: -inf positions equal: {same_dead}; max|err| {err:.3e}, "
+        f"max err / row's max|score| {rel:.2e} (tol 1e-4)")
+    if not (same_dead and rel <= 1e-4):
+        raise AssertionError(f"the indexer kernel disagrees with its plain version: {rel}")
+    if not timed:
+        return got, args, None
+    r = dict(err=err, library_ms=None,
+             ms=time_ms(lambda: li.lightning_indexer_scores_prefill_pallas(*args), 20),
+             plain_ms=time_ms(lambda: li.lightning_indexer_scores_prefill_ref(*args), 3))
+    # this run's (token, key) pairs: each live token against its causal keys
+    pairs = sum(lk_ - lq_ + t + 1 for lq_, lk_ in zip(lens_q, lens_k) for t in range(lq_))
+    nbytes = (q.numel() * 2 + w.numel() * 4 + sum(lens_k) * dim * 2 + got.numel() * 4
+              + bt.numel() * 4 + 8 * b)
+    r["bound_ms"], r["bound_by"] = bound(nbytes, pairs * heads * (2 * dim + 2), BF16_FLOPS)
+    log(f"    {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, no single PyTorch call, bound "
+        f"{r['bound_ms']:.4f} {r['bound_by']})")
+    return got, args, r
+
+
+def check_block_sparse(gen, label, heads, page, seq_list, ctx_list, table_pages, pos_sel,
+                       q_chunk, timed, int8=False):
+    """K9b on random queries and caches over the pages ``pos_sel`` names,
+    against its plain version (``attention_close``), pad rows zero.  Timed
+    (one request): the kernel, the plain version and one SDPA call over each
+    chunk's selected pages gathered (and, for int8, dequantized) beforehand,
+    not timed; the bound counts each selected page once and each row's
+    visible keys among its chunk's pages."""
+    bsz = len(seq_list)
+    kn, kr = paged_cache(gen, bsz * table_pages, page, int8)
+    ks = CFG.ctkv_scale if int8 else None
+    bt = torch.arange(bsz * table_pages, dtype=torch.int32, device=DEV).reshape(bsz,
+                                                                                table_pages)
+    seq = torch.tensor(seq_list, dtype=torch.int32, device=DEV)
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=DEV)
+    pad_rows = 2
+    q = randn(gen, (sum(seq_list) + pad_rows, heads, 576))
+    scale = CFG.sm_scale
+    kw = dict(max_q=max(seq_list), q_chunk=q_chunk, k_scale=ks)
+    args = (q, kn, kr, seq, bt, ctx, scale, pos_sel)
+    got = mp.mla_prefill_block_sparse(*args, **kw)
+    want = mp.mla_prefill_block_sparse_ref(*args, **kw)
+    torch.cuda.synchronize()
+    err, ok = attention_close(got, want)
+    live = (pos_sel >= 0).sum(-1)
+    log(f"  mla_prefill_block_sparse {label}: H={heads} page={page} seq={seq_list} "
+        f"ctx={ctx_list}, {pos_sel.shape[1]} chunks of {min(q_chunk, max(8, max(seq_list)))}, "
+        f"{int(live.min())}-{int(live.max())} live of {pos_sel.shape[2]} slots, "
+        f"{'int8' if int8 else 'bf16'} latent: max|err| {err:.3e} (tol 2e-2 + 2e-2 |plain|)")
+    if not ok or not bool((got[-pad_rows:] == 0).all()):
+        raise AssertionError(f"mla_prefill_block_sparse disagrees with its plain version: {err}")
+    if not timed:
+        return None
+    r = dict(err=err, ms=time_ms(lambda: mp.mla_prefill_block_sparse(*args, **kw), 20),
+             plain_ms=time_ms(lambda: mp.mla_prefill_block_sparse_ref(*args, **kw), 3))
+    sl, cl = seq_list[0], ctx_list[0]
+    cq = min(q_chunk, max(8, sl))
+    sel = pos_sel[0].tolist()
+    n_sel = max(len([p for p in c if p >= 0]) for c in sel)
+    qs, ks_, vs, masks, ops = [], [], [], [], 0
+    for c in range(-(-sl // cq)):
+        pages = [p for p in sel[c] if p >= 0]
+        kpos = (torch.tensor(pages, device=DEV)[:, None] * page
+                + torch.arange(page, device=DEV)[None, :]).reshape(-1)
+        kd = da._gather_pages(kn, bt[:1, pages], len(pages) * page)[0, 0]
+        if int8:
+            kd = (kd.float() * ks).to(torch.bfloat16)
+        krd = da._gather_pages(kr.transpose(-1, -2), bt[:1, pages], len(pages) * page)[0, 0]
+        rows = torch.arange(c * cq, min((c + 1) * cq, sl), device=DEV)
+        mask = kpos[None, :] <= (cl - sl + rows)[:, None]
+        ops += int(mask.sum()) * heads * (576 + 512) * 2
+        extra = (n_sel - len(pages)) * page
+        kcat = torch.nn.functional.pad(torch.cat([kd, krd], dim=-1), (0, 0, 0, extra))
+        ks_.append(kcat)
+        vs.append(torch.nn.functional.pad(kd, (0, 0, 0, extra)))
+        masks.append(torch.nn.functional.pad(mask, (0, extra, 0, cq - len(rows))))
+        qs.append(torch.nn.functional.pad(q[rows], (0, 0, 0, 0, 0, cq - len(rows))))
+    # the chunks as the batch, each chunk's (token, head) rows as one query
+    # sequence against its single latent head (no GQA expansion of K and V)
+    n_c = len(qs)
+    qh = torch.stack(qs).reshape(n_c, 1, cq * heads, 576)
+    kh, vh = torch.stack(ks_)[:, None], torch.stack(vs)[:, None]           # [C, 1, L, .]
+    mh = torch.stack(masks).repeat_interleave(heads, dim=1)[:, None]       # [C, 1, cq H, L]
+    r["library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mh, scale=scale), 20)
+    del qh, kh, vh, mh
+    distinct = {p for c in sel for p in c if p >= 0}
+    key_bytes = (512 if int8 else 1024) + 128
+    nbytes = (q.numel() * 2 + got.numel() * 2 + len(distinct) * page * key_bytes
+              + pos_sel.numel() * 4 + bt.numel() * 4)
+    r["bound_ms"], r["bound_by"] = bound(nbytes, ops, BF16_FLOPS)
+    log(f"    {'int8' if int8 else 'bf16'} latent: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+        f"SDPA {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} {r['bound_by']})")
+    return r
+
+
+def check_dsa_kernels(gen):
+    """Phase [3] for DSA: K10 at full width on a 2048-token chunk at context
+    4096 (a 33-page table), on ragged requests (page 16; 1, 5 and 40 new
+    tokens after earlier context; pad rows; max_q 45 in chunks of 16) and at
+    the decode shape (one token in each of 8 rows: [4c]'s five contexts and
+    three engine pad rows); K9b on that chunk over the pages
+    select_prefill_pages takes from K10's scores (16 of each 64-token
+    chunk's 17-32 causal pages), bf16 and int8 latent, and on a small case
+    with dead slots, a dead page before the live ones and a chunk straddling
+    two pages.  Returns the two kernels' JSON numbers."""
+    page, pages = CFG.page_size, LONG_PAGES_PER_REQ
+    scores, (_, _, _, lq, lk, _), r10 = check_indexer(
+        gen, "full width", [LONG_CHUNK], [2 * LONG_CHUNK], LONG_CHUNK, page, pages, True)
+    check_indexer(gen, "ragged", [1, 5, 40], [30, 70, 40], 45, 16, 5, False, q_chunk=16)
+    long_ctx = [n + NEW_TOKENS for n in LONG_PROMPT_LENS]
+    check_indexer(gen, "decode shape", [1] * MAX_BATCH,
+                  long_ctx + [1] * (MAX_BATCH - len(long_ctx)), 1, page, pages, False)
+    page_scores = scores.reshape(1, LONG_CHUNK, pages, page).amax(-1)
+    pos_sel = mp.select_prefill_pages(page_scores, lq, lk, cq=64, page_size=page,
+                                      num_sel=DSA_PAGES)
+    r9b = check_block_sparse(gen, "2048-row chunk at context 4096, pages from K10", CFG.num_heads,
+                             page, [LONG_CHUNK], [2 * LONG_CHUNK], pages, pos_sel, 64, True)
+    r9b8 = check_block_sparse(gen, "2048-row chunk at context 4096, pages from K10",
+                              CFG.num_heads, page, [LONG_CHUNK], [2 * LONG_CHUNK], pages, pos_sel,
+                              64, True, int8=True)
+    small = torch.tensor([[[3, 2, 1, 0], [3, -1, 0, -1]], [[1, -1, -1, 1], [-1, -1, -1, -1]]],
+                         dtype=torch.int32, device=DEV)
+    for int8 in (False, True):
+        check_block_sparse(gen, "small (dead slots, dead page first, straddling chunk)",
+                           CFG.num_heads, 16, [16, 5], [60, 17], 4, small, 8, False, int8)
+    return r10, r9b, r9b8
+
+
 def check_quant_matmul(gen, label, w, ds, bias, m, out_dtype=torch.float32, timed=False):
     """K1 at ``w [N, K]`` (a path weight or a random one) on ``m`` random int8
     rows: exact equality in f32 and bf16 out (exact integer sums, the same f32
@@ -650,7 +832,10 @@ def serve(params, moe, mla_wq=None, *, cfg=CFG, ps=None, share=(1, SHARED_PREFIX
     admission finds the shared pages in the radix cache.  Checks outputs,
     page release, radix reuse, the cache type and the launch counts: every
     MoE of a prefill call runs K8a when the chunk is above 512 tokens, the
-    ring GEMMs otherwise.  Returns the engine, the prompts and the counts."""
+    ring GEMMs otherwise; K2 runs once a layer a decode step; under DSA in
+    page mode every prefill call runs K10 and K9b once a layer and K9a
+    never, and the index-key cache exists.  Returns the engine, the prompts
+    and the counts."""
     adapter = deepseek_adapter(cfg, params, torch.bfloat16, moe_weights_q=moe, mla_wq=mla_wq)
     timer = StepTimer(adapter)
     eng = Engine(adapter, num_pages, max_batch=MAX_BATCH, max_pages_per_req=pages_per_req,
@@ -658,6 +843,9 @@ def serve(params, moe, mla_wq=None, *, cfg=CFG, ps=None, share=(1, SHARED_PREFIX
     want_nope = torch.int8 if cfg.kv_cache_dtype == "int8" else torch.bfloat16
     if eng.caches[0]["nope"].dtype != want_nope:
         raise AssertionError(f"the latent cache is {eng.caches[0]['nope'].dtype}, not {want_nope}")
+    dsa = cfg.sparse_count > 0
+    if dsa != ("kidx" in eng.caches[0]):
+        raise AssertionError(f"index-key cache present: {'kidx' in eng.caches[0]}, DSA: {dsa}")
     ps = ps or prompts(torch.Generator().manual_seed(SEED))
     counters.reset()
     t0 = time.perf_counter()
@@ -680,8 +868,10 @@ def serve(params, moe, mla_wq=None, *, cfg=CFG, ps=None, share=(1, SHARED_PREFIX
     if eng.stats["cached_tokens"] < share[1]:
         raise AssertionError(f"radix reuse missed: {eng.stats['cached_tokens']} cached tokens")
     long = chunk > 512
-    expected = BASE_KERNELS + (() if mla_wq is None else ("quant_matmul",)) + (
-        ("grouped_matmul",) if long else ())
+    prefill_attn = DSA_KERNELS if dsa else ("mla_prefill_pallas",)
+    expected = (("decode_mla", "gmm1_ring", "gmm2_combine_ring") + prefill_attn
+                + (() if mla_wq is None else ("quant_matmul",))
+                + (("grouped_matmul",) if long else ()))
     missing = [k for k in expected if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -689,13 +879,17 @@ def serve(params, moe, mla_wq=None, *, cfg=CFG, ps=None, share=(1, SHARED_PREFIX
     layers = cfg.num_layers
     want = {"quant_matmul": 0 if mla_wq is None else 2 * layers * (n_pre + n_dec),
             "grouped_matmul": 2 * layers * n_pre if long else 0,
-            "gmm1_ring": layers * (n_dec + (0 if long else n_pre))}
+            "gmm1_ring": layers * (n_dec + (0 if long else n_pre)),
+            "decode_mla": layers * n_dec,
+            "mla_prefill_pallas": 0 if dsa else layers * n_pre,
+            **{k: layers * n_pre if dsa else 0 for k in DSA_KERNELS}}
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"launches {launches} over {n_pre} prefill and {n_dec} decode "
                              f"calls; want {want}")
     dec_tokens = len(rids) * (NEW_TOKENS - 1)      # the first token comes from prefill
     log(f"  served {len(rids)} requests (prompts {[len(p) for p in ps]}, {NEW_TOKENS} new tokens "
-        f"each, {cfg.kv_cache_dtype} latent cache) in {wall:.2f} s wall; prefill "
+        f"each, {cfg.kv_cache_dtype} latent cache{', DSA' if dsa else ''}) in {wall:.2f} s "
+        f"wall; prefill "
         f"{eng.stats['prefill_tokens']} tokens in {n_pre} calls of {chunk} rows, "
         f"{timer.t['prefill']:.3f} s = {eng.stats['prefill_tokens'] / timer.t['prefill']:.1f} "
         f"tok/s; decode {dec_tokens} tokens in {n_dec} steps, "
@@ -705,23 +899,40 @@ def serve(params, moe, mla_wq=None, *, cfg=CFG, ps=None, share=(1, SHARED_PREFIX
     return eng, ps, launches
 
 
+class Record(list):
+    """A model call's discrete choices: each layer's routing ``(ids,
+    weights)`` (the list) and each DSA selection (``.sel``: pages of the
+    prefill chunks or decode rows, or tokens)."""
+
+    def __init__(self):
+        super().__init__()
+        self.sel = []
+
+
 def with_routes(fn, forced=None):
-    """Run ``fn()`` recording each layer's routing ``(ids, weights)`` →
-    ``(fn(), record)``.  With ``forced`` (another run's record) the router
-    hands out that run's routing, layer by layer, instead of choosing."""
-    record, router = [], m._router
+    """Run ``fn()`` recording each layer's routing and DSA selection →
+    ``(fn(), record)``.  With ``forced`` (another run's :class:`Record`) the
+    router and the selection hand out that run's choices, layer by layer,
+    instead of choosing (``models.deepseek_v3._router`` / ``_selected``)."""
+    record, router, selected = Record(), m._router, m._selected
     replay = None if forced is None else iter(forced)
+    replay_sel = None if forced is None else iter(forced.sel)
 
     def recording_router(cfg, lw, x):
         ids, w = router(cfg, lw, x) if replay is None else next(replay)
         record.append((ids, w))
         return ids, w
 
-    m._router = recording_router
+    def recording_selected(sel):
+        sel = sel if replay_sel is None else next(replay_sel)
+        record.sel.append(sel)
+        return sel
+
+    m._router, m._selected = recording_router, recording_selected
     try:
         return fn(), record
     finally:
-        m._router = router
+        m._router, m._selected = router, selected
 
 
 def same_routing(rec_a, rec_b, n):
@@ -819,20 +1030,21 @@ def compare_plain_decode(eng, ps, params, moe, mla_wq=None):
 
 @contextlib.contextmanager
 def base_kernels():
-    """The plain path with the attention kernels (K2, K9a) and the ring GEMMs
-    (K3, K4) in place of their plain versions: only K1, K5 and K7a stay
-    plain."""
-    names = ("decode_mla", "mla_prefill_pallas", "gmm1_ring", "gmm2_combine_ring")
-    refs = {name: getattr(m, name + "_ref") for name in ("decode_mla", "gmm1_ring",
-                                                         "gmm2_combine_ring")}
-    refs["mla_prefill"] = m.mla_prefill_ref
-    m.decode_mla_ref, m.mla_prefill_ref, m.gmm1_ring_ref, m.gmm2_combine_ring_ref = (
-        getattr(m, name) for name in names)
+    """The plain path with the attention kernels (K2, K9a, and DSA's K10 and
+    K9b) and the ring GEMMs (K3, K4) in place of their plain versions: only
+    K1, K5, K7a and K8a stay plain."""
+    swaps = {"decode_mla_ref": "decode_mla", "mla_prefill_ref": "mla_prefill_pallas",
+             "gmm1_ring_ref": "gmm1_ring", "gmm2_combine_ring_ref": "gmm2_combine_ring",
+             "lightning_indexer_scores_prefill_ref": "lightning_indexer_scores_prefill_pallas",
+             "mla_prefill_block_sparse_ref": "mla_prefill_block_sparse"}
+    refs = {ref: getattr(m, ref) for ref in swaps}
+    for ref, kernel in swaps.items():
+        setattr(m, ref, getattr(m, kernel))
     try:
         yield
     finally:
-        for name, fn in refs.items():
-            setattr(m, name + "_ref", fn)
+        for ref, fn in refs.items():
+            setattr(m, ref, fn)
 
 
 def w8a8_rule(label, kernel_run, run_plain, n, logits: bool, plain_set="K1, K5 and K7a"):
@@ -943,20 +1155,34 @@ def fully_w8a8(eng, batch, n, params, moe, mla_wq, dense_wq, ps):
     return launches
 
 
-def long_prompt_checks(eng, params, moe, mla_wq8, ps):
-    """Phase [4c] continued: one decode step on a live batch of the long
-    prompts and one 2048-row prefill chunk at context 4096 (the second chunk
-    of a 4096-token sequence; the plain attention at 2048 x 4096 x 128 heads
-    in f32 takes ~13 GB), through the kernels and through the plain versions,
-    the routing replayed, held to :func:`w8a8_rule` with K1 and K8a plain.
-    Returns the kernel-path chunk for the profile."""
+def long_prompt_checks(eng, params, moe, mla_wq8, ps, cfg=CFG_INT8):
+    """Phase [4c] (and, on ``CFG_DSA``, [4d]) continued: one decode step on a
+    live batch of the long prompts and one 2048-row prefill chunk at context
+    4096 (the second chunk of a 4096-token sequence; the plain attention at
+    2048 x 4096 x 128 heads in f32 takes ~13 GB), through the kernels and
+    through the plain versions, the routing (and DSA's page selections)
+    replayed, held to :func:`w8a8_rule` with K1 and K8a plain.  Returns the
+    kernel-path chunk and decode step for the profile, and the live batch."""
+    dsa = cfg.sparse_count > 0
+    what = "DSA " if dsa else "long-prompt "
     batch, n = live_batch(eng, ps)
+    counters.reset()
+    dec_k = with_routes(lambda: eng.decode_logits(batch)[:n].float())
+    torch.cuda.synchronize()
+    dec_launches = counters.read()
     ok_d = w8a8_rule(
-        "long-prompt decode step, int8 cache (logits)",
-        with_routes(lambda: eng.decode_logits(batch)[:n].float()),
-        lambda: eng.decode_logits(batch, decode_step_fn(params, moe, cfg=CFG_INT8,
+        f"{what}decode step, int8 cache (logits)", dec_k,
+        lambda: eng.decode_logits(batch, decode_step_fn(params, moe, cfg=cfg,
                                                         mla_wq=mla_wq8, plain=True)),
         n, True, plain_set="K1")
+    if dsa:
+        pruned = [int(((s_.long() * cfg.page_size) < sl).sum()) for s_, sl in
+                  zip(dec_k[1].sel[0], batch.ctx.tolist())]
+        log(f"  that decode step: launches {json.dumps(dec_launches)}; layer 0's rows attend "
+            f"{pruned} pages of contexts {batch.ctx.tolist()[:n]} (replayed in the plain runs)")
+        if dec_launches["decode_mla"] != cfg.num_layers or any(
+                dec_launches[k] for k in DSA_KERNELS + ("mla_prefill_pallas",)):
+            raise AssertionError(f"DSA decode step launches: {dec_launches}")
     seq = (ps[2] + ps[3])[: 2 * LONG_CHUNK]
     pages = eng.cm.alloc(-(-2 * LONG_CHUNK // CFG.page_size))
     ids = torch.tensor(seq, dtype=torch.int32, device=DEV)
@@ -969,7 +1195,7 @@ def long_prompt_checks(eng, params, moe, mla_wq8, ps):
     def chunk(c, plain):
         rows = slice(c * LONG_CHUNK, (c + 1) * LONG_CHUNK)
         ctx = torch.tensor([(c + 1) * LONG_CHUNK], dtype=torch.int32, device=DEV)
-        h, _ = m.prefill_step(CFG_INT8, params, m.embed(params, ids[rows]), sl, eng.caches, bt,
+        h, _ = m.prefill_step(cfg, params, m.embed(params, ids[rows]), sl, eng.caches, bt,
                               ctx, slots[rows], max_q=LONG_CHUNK, moe_weights_q=moe,
                               mla_wq=mla_wq8, plain=plain)
         return h
@@ -979,29 +1205,123 @@ def long_prompt_checks(eng, params, moe, mla_wq8, ps):
     pre_k = with_routes(lambda: chunk(1, False).float())
     torch.cuda.synchronize()
     launches = counters.read()
-    ok_p = w8a8_rule(f"long-prompt prefill chunk of {LONG_CHUNK} rows at context "
+    ok_p = w8a8_rule(f"{what}prefill chunk of {LONG_CHUNK} rows at context "
                      f"{2 * LONG_CHUNK}, int8 cache (hidden)", pre_k, lambda: chunk(1, True),
                      LONG_CHUNK, False, plain_set="K1 and K8a")
     log(f"  launches in that {LONG_CHUNK}-row prefill chunk: {json.dumps(launches)}")
     if not (ok_d and ok_p):
-        raise AssertionError("the long-prompt kernels disagree with the plain path")
-    if launches["grouped_matmul"] != 2 * CFG.num_layers:
-        raise AssertionError(f"the 2048-row chunk launched grouped_matmul "
-                             f"{launches['grouped_matmul']} times, not 2 a layer")
-    return lambda: chunk(1, False)
+        raise AssertionError(f"the {what}kernels disagree with the plain path")
+    layers = cfg.num_layers
+    want = {"grouped_matmul": 2 * layers, "mla_prefill_pallas": 0 if dsa else layers,
+            **{k: layers if dsa else 0 for k in DSA_KERNELS}}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"the {LONG_CHUNK}-row chunk's launches {launches}; want {want}")
+    if dsa:
+        pos_sel, cq = pre_k[1].sel[0][0], 64
+        live = (pos_sel >= 0).sum(-1)
+        causal = [(LONG_CHUNK + (c + 1) * cq - 1) // cfg.page_size + 1
+                  for c in range(pos_sel.shape[0])]
+        log(f"  its {pos_sel.shape[0]} chunks attend {int(live.min())}-{int(live.max())} pages "
+            f"of their {min(causal)}-{max(causal)} causal ones (layer 0; replayed in the plain "
+            f"runs)")
+    return (lambda: chunk(1, False)), (lambda: eng.decode_logits(batch)), batch, n
 
 
-def profile_steps(eng, batch, prompt, w8a8_step, long_prefill):
+def dsa_serve(params, moe, mla_wq8, ps):
+    """Phase [4d]: :func:`serve` on ``CFG_DSA`` with [4c]'s prompts, every
+    page selection recorded (``select_prefill_pages`` /
+    ``select_decode_pages`` wrapped, the model looks them up at each call).
+    Pruning must have happened: at least one prefill chunk and one decode
+    row attended fewer pages than their causal range.  Returns the engine and
+    the launch counts."""
+    seen = {"prefill": [], "decode": []}
+    select_p, select_d = m.select_prefill_pages, m.select_decode_pages
+
+    def prefill_pages(page_scores, seq_lens, context_lens, *, cq, page_size, num_sel):
+        out = select_p(page_scores, seq_lens, context_lens, cq=cq, page_size=page_size,
+                       num_sel=num_sel)
+        seen["prefill"].append((seq_lens, context_lens, cq, out))
+        return out
+
+    def decode_pages(scores, seq_lens, page_size, num_sel):
+        out = select_d(scores, seq_lens, page_size, num_sel)
+        seen["decode"].append((seq_lens, out))
+        return out
+
+    m.select_prefill_pages, m.select_decode_pages = prefill_pages, decode_pages
+    try:
+        eng, _, launches = serve(params, moe, mla_wq8, cfg=CFG_DSA, ps=ps, share=(0, LONG_SHARED),
+                                 chunk=LONG_CHUNK, num_pages=LONG_NUM_PAGES,
+                                 pages_per_req=LONG_PAGES_PER_REQ)
+    finally:
+        m.select_prefill_pages, m.select_decode_pages = select_p, select_d
+    page = CFG_DSA.page_size
+    chunks = pruned_chunks = 0
+    for seq_lens, ctx_lens, cq, pos_sel in seen["prefill"]:
+        for b, (sl, cl) in enumerate(zip(seq_lens.tolist(), ctx_lens.tolist())):
+            for qc in range(-(-sl // cq)):
+                causal = (cl - sl + min((qc + 1) * cq, sl) - 1) // page + 1
+                attended = int((pos_sel[b, qc] >= 0).sum())
+                if attended > min(causal, DSA_PAGES):
+                    raise AssertionError(f"a chunk attends {attended} of {causal} causal pages")
+                chunks += 1
+                pruned_chunks += attended < causal
+    rows = pruned_rows = 0
+    for seq_lens, sel in seen["decode"]:
+        for sl, pages in zip(seq_lens.tolist(), sel.tolist()):
+            attended = sum(p * page < sl for p in pages)
+            rows += 1
+            pruned_rows += attended < -(-sl // page)
+    log(f"  pruning: {pruned_chunks} of {chunks} (prefill chunk, layer) pairs and "
+        f"{pruned_rows} of {rows} (decode row, layer) pairs attended fewer pages than their "
+        f"causal range (at most {DSA_PAGES} of up to {LONG_PAGES_PER_REQ})")
+    if not (pruned_chunks and pruned_rows):
+        raise AssertionError("DSA pruned no prefill chunk or no decode row")
+    return eng, launches
+
+
+def dsa_token_decode(eng, batch, n, params, moe, mla_wq8):
+    """Phase [4d], token mode: one decode step on the DSA engine's live batch
+    with ``sparse_granularity="token"`` (the same caches: the index keys are
+    the page mode's): K10 once a layer through ``lightning_indexer``, K2
+    never; held to :func:`w8a8_rule` with the routing and the token
+    selections replayed."""
+    cfg = dataclasses.replace(CFG_DSA, sparse_granularity="token")
+    counters.reset()
+    dec_k = with_routes(lambda: eng.decode_logits(
+        batch, decode_step_fn(params, moe, cfg=cfg, mla_wq=mla_wq8))[:n].float())
+    torch.cuda.synchronize()
+    launches = counters.read()
+    sel = dec_k[1].sel[0]
+    log(f"  token-mode decode step: launches {json.dumps(launches)}; layer 0's rows select "
+        f"{(sel.reshape(sel.shape[0], -1) >= 0).sum(-1).tolist()} tokens (sparse_count "
+        f"{cfg.sparse_count})")
+    ok = w8a8_rule("DSA token-mode decode step, int8 cache (logits)", dec_k,
+                   lambda: eng.decode_logits(batch, decode_step_fn(params, moe, cfg=cfg,
+                                                                   mla_wq=mla_wq8, plain=True)),
+                   n, True, plain_set="K1")
+    want = {"lightning_indexer_scores_prefill_pallas": cfg.num_layers, "decode_mla": 0,
+            "mla_prefill_block_sparse": 0}
+    if not ok or any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"the token-mode decode step: rule held {ok}, launches {launches}, "
+                             f"want {want}")
+
+
+def profile_steps(eng, batch, prompt, w8a8_step, long_prefill, dsa_prefill, dsa_decode):
     """Device time by kernel of one decode call on the live batch, of one
     mixed engine tick (that decode plus a 64-token prefill chunk), of the
-    fully W8A8 decode step on the same batch, and of one 2048-token prefill
-    call on the int8 latent cache (``long_prefill``)."""
+    fully W8A8 decode step on the same batch, of one 2048-token prefill call
+    on the int8 latent cache (``long_prefill``), and of one 2048-token DSA
+    prefill call and one DSA decode step (page mode)."""
     regions = [("decode step (fused W8A8 prologue)", lambda: eng.decode_logits(batch))]
     eng.add_request(prompt, 1)
     regions.append(("mixed tick (decode + prefill chunk)", eng.step))
     regions.append(("fully W8A8 decode step", lambda: eng.decode_logits(batch, w8a8_step)))
     regions.append((f"{LONG_CHUNK}-token prefill call at context {2 * LONG_CHUNK}, int8 cache",
                     long_prefill))
+    regions.append((f"DSA {LONG_CHUNK}-token prefill call at context {2 * LONG_CHUNK}, int8 "
+                    "cache", dsa_prefill))
+    regions.append(("DSA decode step (page mode), int8 cache", dsa_decode))
     for label, fn in regions:
         rows, busy, wall = trace_profile.device_breakdown(fn)
         log(f"  {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
@@ -1028,7 +1348,8 @@ def main() -> None:
     log(f"[2] weights: DeepSeek-V3 widths, {CFG.num_layers} of {FULL_LAYERS} layers, "
         f"seed {SEED}")
     t0 = time.perf_counter()
-    params = m.init_weights(CFG, SEED, torch.bfloat16, with_experts=False)
+    # CFG_DSA's weights: CFG's, plus the indexer projections drawn last
+    params = m.init_weights(CFG_DSA, SEED, torch.bfloat16, with_experts=False)
     moe = m.init_quantized_experts(CFG, SEED + 1)
     ps = prompts(torch.Generator().manual_seed(SEED))
     sample = m.embed(params, torch.tensor(sum(ps, []), dtype=torch.int32, device=DEV))
@@ -1067,6 +1388,8 @@ def main() -> None:
     k8 = check_grouped_matmul(gen, moe[0], LONG_CHUNK, CFG.topk, True)
     check_grouped_matmul(gen, moe[0], 2 * LONG_CHUNK, CFG.topk, True)
     check_grouped_matmul_small(gen)
+    # DSA: K10 and K9b at [4d]'s shapes and on ragged cases
+    k10, k9b, k9b8 = check_dsa_kernels(gen)
 
     log("[4] serve through Engine + deepseek_adapter(moe_weights_q=...): float prologue")
     eng, ps, launches = serve(params, moe)
@@ -1092,10 +1415,19 @@ def main() -> None:
     eng8, _, launches_l = serve(params, moe, mla_wq8, cfg=CFG_INT8, ps=lps,
                                 share=(0, LONG_SHARED), chunk=LONG_CHUNK,
                                 num_pages=LONG_NUM_PAGES, pages_per_req=LONG_PAGES_PER_REQ)
-    long_prefill = long_prompt_checks(eng8, params, moe, mla_wq8, lps)
+    long_prefill, _, _, _ = long_prompt_checks(eng8, params, moe, mla_wq8, lps)
+    del eng8
+    log(f"[4d] DeepSeek-V3.2 sparse attention (DSA, page mode, {CFG_DSA.idx_heads} index heads "
+        f"x {CFG_DSA.idx_dim}, {CFG_DSA.sparse_count} keys = {DSA_PAGES} pages) on [4c]'s "
+        f"setup: Engine(prefill_chunk={LONG_CHUNK}) + deepseek_adapter(CFG_DSA, ...)")
+    eng_d, launches_d = dsa_serve(params, moe, mla_wq8, lps)
+    dsa_prefill, dsa_decode, batch_d, n_d = long_prompt_checks(eng_d, params, moe, mla_wq8, lps,
+                                                              cfg=CFG_DSA)
+    dsa_token_decode(eng_d, batch_d, n_d, params, moe, mla_wq8)
     log("[5] device time by kernel (torch.profiler)")
     profile_steps(eng, batch, ps[3][:200],
-                  decode_step_fn(params, moe, mla_wq=mla_wq, dense_wq=dense_wq), long_prefill)
+                  decode_step_fn(params, moe, mla_wq=mla_wq, dense_wq=dense_wq), long_prefill,
+                  dsa_prefill, dsa_decode)
 
     src = "sgl_kernel_npu_tpu_torch/csrc/"
     tpu = "sgl_kernel_npu_tpu/ops/"
@@ -1115,14 +1447,22 @@ def main() -> None:
                                    ("grouped_matmul", "grouped_matmul.cu",
                                     "grouped_matmul.py:538",
                                     summed(f"grouped_matmul, a layer's 2 calls at {LONG_CHUNK} "
-                                           "tokens", k8)))]
+                                           "tokens", k8)),
+                                   ("lightning_indexer_scores_prefill_pallas",
+                                    "lightning_indexer.cu", "attention/lightning_indexer.py:144",
+                                    k10),
+                                   ("mla_prefill_block_sparse", "mla_prefill.cu",
+                                    "attention/mla_prefill.py:403",
+                                    {**k9b8, "err": max(k9b["err"], k9b8["err"])}))]
     # launches: each kernel's count on the first path that runs it (the base
     # four on the float-prologue serve, K1 on the fused-prologue serve, K5
-    # and K7a on the fully W8A8 step and chunk, K8a on the long-prompt serve)
+    # and K7a on the fully W8A8 step and chunk, K8a on the long-prompt serve,
+    # K10 and K9b on the DSA serve)
     path_launches = {**launches, "quant_matmul": launches_q["quant_matmul"],
                      "quant_per_token": launches_w["quant_per_token"],
                      "swiglu_quant": launches_w["swiglu_quant"],
-                     "grouped_matmul": launches_l["grouped_matmul"]}
+                     "grouped_matmul": launches_l["grouped_matmul"],
+                     **{k: launches_d[k] for k in DSA_KERNELS}}
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": path_launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

@@ -17,6 +17,15 @@
 // the request's start offset, walks keys only up to the causal limit of its
 // last live token, and writes only live rows (the caller zeroes the output,
 // so rows past the request lengths come out as zeros).
+//
+// mla_prefill_block_sparse (DSA) replaces the TPU kernel of the same file:
+// mla_prefill_block_sparse (_mla_prefill_pruned_kernel), the same function
+// restricted to the pages the lightning indexer selected for each 64-token
+// chunk (pos_sel[b, chunk, :], -1 = a dead slot).  Bound: operations, as
+// above, over the selected keys only (16 pages of 128 at DeepSeek-V3.2's
+// 2048-key budget).  Design: K9a's block and key pipeline; the block's keys
+// are the live pages of its chunk's selection, gathered into shared memory
+// in their order, walked whole and masked by position (mla_attention.cuh).
 #include "mla_attention.cuh"
 
 using bf16 = __nv_bfloat16;
@@ -53,6 +62,51 @@ int launch(const void* q, const void* kn, const void* kr, const void* bt, const 
   return (int)cudaGetLastError();
 }
 
+constexpr int MAX_SEL = 256;   // selected pages a chunk can name
+
+template <typename KN>
+__global__ void __launch_bounds__(mla::THREADS)
+    mla_prefill_sparse_kernel(const bf16* __restrict__ q, const KN* __restrict__ kn,
+                              const bf16* __restrict__ kr, const int* __restrict__ block_tables,
+                              const int* __restrict__ seq_lens, const int* __restrict__ ctx_lens,
+                              const int* __restrict__ starts, const int* __restrict__ pos_sel,
+                              bf16* __restrict__ out, int heads, int max_pages, int page_size,
+                              int tq, int cq, int n_chunks, int n_sel, float sm_scale) {
+  __shared__ int sel[MAX_SEL];
+  __shared__ int n_live;
+  const int b = blockIdx.x;
+  const int seq = seq_lens[b];
+  const int j0 = blockIdx.y * tq;             // tq divides cq: the block is in one chunk
+  if (j0 >= seq) return;
+  if (threadIdx.x == 0) {                     // the chunk's live slots, in order
+    const int* ps = pos_sel + ((size_t)b * n_chunks + j0 / cq) * n_sel;
+    int n = 0;
+    for (int i = 0; i < n_sel; ++i)
+      if (ps[i] >= 0) sel[n++] = ps[i];
+    n_live = n;
+  }
+  __syncthreads();
+  mla::mla_block<KN, true>(q, kn, kr, block_tables + (size_t)b * max_pages, out, starts[b], j0,
+                           seq, ctx_lens[b], heads, blockIdx.z * (mla::ROWS / tq), tq,
+                           page_size, sm_scale, sel, n_live);
+}
+
+template <typename KN>
+int launch_sparse(const void* q, const void* kn, const void* kr, const void* bt,
+                  const void* seq_lens, const void* ctx, const void* starts, const void* pos_sel,
+                  void* out, int batch, int heads, int max_pages, int page_size, int max_q,
+                  int tq, int cq, int n_chunks, int n_sel, float sm_scale, cudaStream_t stream) {
+  cudaFuncSetAttribute(mla_prefill_sparse_kernel<KN>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)mla::SMEM_BYTES);
+  const int ht = mla::ROWS / tq;
+  dim3 grid(batch, (max_q + tq - 1) / tq, (heads + ht - 1) / ht);
+  mla_prefill_sparse_kernel<KN><<<grid, mla::THREADS, mla::SMEM_BYTES, stream>>>(
+      (const bf16*)q, (const KN*)kn, (const bf16*)kr, (const int*)bt, (const int*)seq_lens,
+      (const int*)ctx, (const int*)starts, (const int*)pos_sel, (bf16*)out, heads, max_pages,
+      page_size, tq, cq, n_chunks, n_sel, sm_scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // bf16 q [S, H, 576] packed by request, kn [P, 1, page, 512] (bf16, or int8
@@ -72,4 +126,26 @@ extern "C" int mla_prefill_launch(const void* q, const void* kn, const void* kr,
                                   max_pages, page_size, max_q, tq, sm_scale, s)
                  : launch<bf16>(q, kn, kr, bt, seq_lens, ctx, starts, out, batch, heads,
                                 max_pages, page_size, max_q, tq, sm_scale, s);
+}
+
+// mla_prefill_launch's operands plus int32 pos_sel [B, n_chunks, n_sel]: the
+// pages (positions in the sequence, -1 = dead) that chunk j / cq of request b
+// attends; tq divides cq, n_sel <= 256.
+extern "C" int mla_prefill_sparse_launch(const void* q, const void* kn, const void* kr,
+                                         const void* bt, const void* seq_lens, const void* ctx,
+                                         const void* starts, const void* pos_sel, void* out,
+                                         int batch, int heads, int max_pages, int page_size,
+                                         int max_q, int tq, int cq, int n_chunks, int n_sel,
+                                         float sm_scale, int kn_int8, void* stream) {
+  if (batch == 0 || max_q == 0) return 0;
+  if (tq < 1 || mla::ROWS % tq != 0 || cq % tq != 0 || n_sel > MAX_SEL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return kn_int8
+             ? launch_sparse<int8_t>(q, kn, kr, bt, seq_lens, ctx, starts, pos_sel, out, batch,
+                                     heads, max_pages, page_size, max_q, tq, cq, n_chunks, n_sel,
+                                     sm_scale, s)
+             : launch_sparse<bf16>(q, kn, kr, bt, seq_lens, ctx, starts, pos_sel, out, batch,
+                                   heads, max_pages, page_size, max_q, tq, cq, n_chunks, n_sel,
+                                   sm_scale, s);
 }

@@ -10,16 +10,22 @@ W8A8 routed experts through the ring GEMMs (``gmm1_ring`` K3,
 prologue or the fused W8A8 one (``mla_wq``: ``mla_preprocess`` on
 ``quant_matmul`` K1), and with the output projection and the shared expert
 either float or W8A8 (``dense_wq``: ``quant_per_token`` K5, ``quant_matmul``
-K1, ``swiglu_quant`` K7a).  The switches this slice does not take are absent
-(expert parallelism, EPLB, DSA sparse attention) or raise
-``NotImplementedError`` (the dense float MoE, and the MoE of at most 512
-tokens at widths the ring GEMMs do not take, which needs K8b).
+K1, ``swiglu_quant`` K7a).  DeepSeek-V3.2's sparse attention (DSA,
+``sparse_count > 0``) adds the lightning indexer: in page mode prefill scores
+its q-chunks on ``lightning_indexer_scores_prefill_pallas`` (K10) and attends
+their selected pages on ``mla_prefill_block_sparse`` (K9b), decode attends
+each row's selected pages on K2; in token mode decode selects tokens through
+``lightning_indexer`` (K10) and prefill stays dense (K9a), as in JAX.  The
+switches this slice does not take are absent (expert parallelism, EPLB) or
+raise ``NotImplementedError`` (the dense float MoE, and the MoE of at most
+512 tokens at widths the ring GEMMs do not take, which needs K8b).
 
 Weights are a plain dict of tensors (``layers`` a list of per-layer dicts),
 with the JAX package's names and layouts; caches are a list of per-layer
-dicts ``{"nope", "rope"}`` updated in place.  ``plain=True`` on the steps runs
-the kernels' plain PyTorch versions on the same tensors (for comparing the
-kernels with them on the card).
+dicts ``{"nope", "rope"}`` (and ``"kidx"``, the index keys, under DSA)
+updated in place.  ``plain=True`` on the steps runs the kernels' plain
+PyTorch versions on the same tensors (for comparing the kernels with them on
+the card).
 
 Dtypes follow JAX's promotion: with ``dense_wq`` the W8A8 projections return
 f32, so the residual stream turns f32 after the first layer's attention.
@@ -34,11 +40,27 @@ import torch
 
 from sgl_kernel_npu_tpu_torch.models import w8a8
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_preprocess as mp
-from sgl_kernel_npu_tpu_torch.ops.attention.decode_attention import decode_mla, decode_mla_ref
+from sgl_kernel_npu_tpu_torch.ops.attention.decode_attention import (
+    decode_mla,
+    decode_mla_ref,
+    decode_mla_sparse,
+    pruned_block_table,
+    select_decode_pages,
+)
+from sgl_kernel_npu_tpu_torch.ops.attention.lightning_indexer import (
+    lightning_indexer,
+    lightning_indexer_scores_decode,
+    lightning_indexer_scores_prefill_pallas,
+    lightning_indexer_scores_prefill_ref,
+)
 from sgl_kernel_npu_tpu_torch.ops.attention.mla_prefill import (
+    mla_prefill_block_sparse,
+    mla_prefill_block_sparse_ref,
     mla_prefill_pallas,
     mla_prefill_ref,
+    select_prefill_pages,
 )
+from sgl_kernel_npu_tpu_torch.ops.attention.sinks_attention import prefill_q_chunk
 from sgl_kernel_npu_tpu_torch.ops.gmm_ring import (
     gmm1_ring,
     gmm1_ring_ref,
@@ -54,13 +76,13 @@ from sgl_kernel_npu_tpu_torch.ops.norm import rms_norm_ref
 from sgl_kernel_npu_tpu_torch.ops.quant import row_scale, saturate_int8
 from sgl_kernel_npu_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from sgl_kernel_npu_tpu_torch.parallel.fused_moe import quantize_expert_weights
-from sgl_kernel_npu_tpu_torch.utils.common import resolve_device
+from sgl_kernel_npu_tpu_torch.utils.common import cdiv, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
 class DeepSeekV3Config:
     """The JAX package's config fields that this path reads, with the same
-    defaults (DSA and the unused rope base are not ported)."""
+    defaults (the unused rope base is left out)."""
 
     vocab_size: int = 512
     hidden: int = 256
@@ -76,6 +98,14 @@ class DeepSeekV3Config:
     topk: int = 4
     moe_intermediate: int = 128  # per expert (2048 at full scale)
     page_size: int = 16
+    # DeepSeek-V3.2 sparse attention (DSA): 0 = dense; > 0 = the lightning
+    # indexer (idx_heads x idx_dim queries, one idx_dim key a token) picks that
+    # many keys of each decode row ("token"), or ceil(sparse_count /
+    # page_size) pages of each decode row and prefill q-chunk ("page")
+    sparse_count: int = 0
+    idx_heads: int = 4           # 64 at full scale
+    idx_dim: int = 64            # 128 at full scale
+    sparse_granularity: str = "page"
     router_scoring: str = "softmax"   # or "sigmoid_v3" (needs router_bias)
     n_group: int = 1
     topk_group: int = 1
@@ -110,7 +140,10 @@ def init_weights(cfg: DeepSeekV3Config, seed: int = 0, dtype=torch.float32,
     ``with_experts=False`` leaves out the float routed experts, which at full
     width do not fit beside the rest: build their W8A8 form directly with
     :func:`init_quantized_experts`.  ``router_bias`` (the sigmoid_v3 choice
-    bias, which a checkpoint carries) is added for ``sigmoid_v3``."""
+    bias, which a checkpoint carries) is added for ``sigmoid_v3``.  Under DSA
+    (``sparse_count > 0``) each layer also gets the indexer projections
+    ``w_qidx``, ``w_kidx`` and ``w_widx``, drawn last from a generator of
+    their own, so every other weight keeps the value it has without DSA."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     h, lat, rope = cfg.hidden, cfg.kv_lora_rank, cfg.qk_rope_dim
@@ -146,11 +179,21 @@ def init_weights(cfg: DeepSeekV3Config, seed: int = 0, dtype=torch.float32,
             lw["router_bias"] = rnd(cfg.num_experts, scale=0.01).float()
         return lw
 
-    return {
+    params = {
         "embed": rnd(cfg.vocab_size, h, scale=0.02),
         "layers": [layer() for _ in range(cfg.num_layers)],
         "final_ln": ones(h),
     }
+    if cfg.sparse_count > 0:
+        gen = torch.Generator(device=dev).manual_seed(seed + _INDEXER_SEED)
+        for lw in params["layers"]:
+            lw["w_qidx"] = rnd(h, cfg.idx_heads * cfg.idx_dim)
+            lw["w_kidx"] = rnd(h, cfg.idx_dim)
+            lw["w_widx"] = rnd(h, cfg.idx_heads, scale=0.2)
+    return params
+
+
+_INDEXER_SEED = 1 << 20   # the indexer projections' stream: seed + this
 
 
 _EXPERT_CHUNK = 16   # experts made in f32 at once: 2.8 GB at DeepSeek-V3 width
@@ -287,15 +330,25 @@ def quantize_dense_weights(cfg: DeepSeekV3Config, params: dict) -> list:
 def init_kv_cache(cfg: DeepSeekV3Config, num_pages: int, dtype=torch.bfloat16,
                   device="cuda") -> list[dict]:
     """Per-layer ``{"nope", "rope"}`` paged caches of zeros; the latent cache
-    is int8 when ``cfg.kv_cache_dtype == "int8"``, else ``dtype``."""
+    is int8 when ``cfg.kv_cache_dtype == "int8"``, else ``dtype``.  Under DSA
+    the index-key cache ``"kidx" [pages, 1, page, idx_dim]`` too, always in
+    ``dtype`` (never int8), written at the latent's slots."""
     dev = resolve_device(device)
     nope_dt = torch.int8 if cfg.kv_cache_dtype == "int8" else dtype
-    return [{
-        "nope": torch.zeros((num_pages, 1, cfg.page_size, cfg.kv_lora_rank), dtype=nope_dt,
-                            device=dev),
-        "rope": torch.zeros((num_pages, 1, cfg.qk_rope_dim, cfg.page_size), dtype=dtype,
-                            device=dev),
-    } for _ in range(cfg.num_layers)]
+
+    def layer_cache():
+        c = {
+            "nope": torch.zeros((num_pages, 1, cfg.page_size, cfg.kv_lora_rank),
+                                dtype=nope_dt, device=dev),
+            "rope": torch.zeros((num_pages, 1, cfg.qk_rope_dim, cfg.page_size), dtype=dtype,
+                                device=dev),
+        }
+        if cfg.sparse_count > 0:
+            c["kidx"] = torch.zeros((num_pages, 1, cfg.page_size, cfg.idx_dim), dtype=dtype,
+                                    device=dev)
+        return c
+
+    return [layer_cache() for _ in range(cfg.num_layers)]
 
 
 def embed(params: dict, ids: torch.Tensor) -> torch.Tensor:
@@ -491,6 +544,93 @@ def _attention_inputs(cfg, lw, mw, x, cos, sin, cache, slot_mapping, plain):
 
 
 # ---------------------------------------------------------------------------
+# DSA: the lightning indexer and the sparse attention
+# ---------------------------------------------------------------------------
+
+def _selected(sel):
+    """Every DSA selection of a step passes through here: each prefill
+    chunk's pages, each decode row's pages or tokens.  A caller replaces it
+    to record one run's selections and replay them in another, as it does
+    with :func:`_router` for routing (the f32 scores of two runs can rank a
+    page or token at the boundary differently)."""
+    return sel
+
+
+def _write_index_keys(lw: dict, x, cache, slot_mapping):
+    """The indexer's input ``h1 = rms_norm(x)`` (the prologue's first norm);
+    its index keys ``h1 @ w_kidx`` go to ``cache["kidx"]`` (in place) at the
+    latent's slots.  Returns ``h1``."""
+    h1 = rms_norm_ref(x, lw["ln1"])
+    kidx = cache["kidx"]
+    reshape_and_cache(_mm(h1, lw["w_kidx"])[:, None, :].to(kidx.dtype), kidx, slot_mapping)
+    return h1
+
+
+def _index_queries(cfg: DeepSeekV3Config, lw: dict, h1, dtype):
+    """The indexer's queries ``[N, idx_heads, idx_dim]`` in ``dtype`` (the key
+    cache's) and weights ``[N, idx_heads]``."""
+    qidx = _mm(h1, lw["w_qidx"]).reshape(h1.shape[0], cfg.idx_heads, cfg.idx_dim)
+    return qidx.to(dtype), _mm(h1, lw["w_widx"])
+
+
+def _dsa_decode(cfg: DeepSeekV3Config, lw: dict, x, q, cache, block_table, seq_lens,
+                slot_mapping, ks, plain: bool):
+    """DSA decode attention: the indexer's pages (page mode, K2 over the
+    pruned block table) or tokens (token mode, K10 through
+    ``lightning_indexer``, then the sparse gather)."""
+    h1 = _write_index_keys(lw, x, cache, slot_mapping)
+    kidx = cache["kidx"]
+    qidx, widx = _index_queries(cfg, lw, h1, kidx.dtype)
+    if cfg.sparse_granularity == "page":
+        scores = lightning_indexer_scores_decode(qidx, kidx, widx, seq_lens, block_table)
+        sel = _selected(select_decode_pages(scores, seq_lens, cfg.page_size,
+                                            cdiv(cfg.sparse_count, cfg.page_size)))
+        bt_sel, seq_sel = pruned_block_table(block_table, seq_lens, sel, cfg.page_size)
+        attend = decode_mla_ref if plain else decode_mla
+        return attend(q, cache["nope"], cache["rope"], seq_sel, cfg.sm_scale, bt_sel,
+                      k_scale=ks)
+    if cfg.sparse_granularity != "token":
+        raise ValueError(f"unknown sparse_granularity {cfg.sparse_granularity!r}")
+    n = x.shape[0]
+    sel = _selected(lightning_indexer(qidx[:, None], kidx, widx[:, None], None, seq_lens,
+                                      block_table, sparse_count=cfg.sparse_count,
+                                      backend="xla" if plain else "pallas"))
+    return decode_mla_sparse(q, cache["nope"], cache["rope"], seq_lens, cfg.sm_scale,
+                             block_table, sel.reshape(n, cfg.sparse_count), k_scale=ks)
+
+
+def _dsa_prefill(cfg: DeepSeekV3Config, lw: dict, h1, q, cache, seq_lens, block_tables,
+                 context_lens, req, j, max_q, ks, plain: bool):
+    """DSA page-mode prefill attention: the indexer's queries dense-padded per
+    request, K10's masked scores, their page maxima, the top pages of each
+    q-chunk (:func:`select_prefill_pages`), then K9b over those pages."""
+    kidx = cache["kidx"]
+    qidx, widx = _index_queries(cfg, lw, h1, kidx.dtype)
+    bsz, s = seq_lens.shape[0], h1.shape[0]
+    mq = max_q or s
+    cq = prefill_q_chunk(mq)
+    mq_pad = cdiv(mq, cq) * cq
+    if s > mq_pad:                  # rows past max_q: JAX scatters with mode="drop"
+        keep = j < mq_pad
+        req, j, qidx, widx = req[keep], j[keep], qidx[keep], widx[keep]
+    qd = qidx.new_zeros((bsz, mq_pad, cfg.idx_heads, cfg.idx_dim))
+    qd[req, j] = qidx
+    wd = torch.zeros((bsz, mq_pad, cfg.idx_heads), dtype=torch.float32, device=h1.device)
+    wd[req, j] = widx.float()
+    score = (lightning_indexer_scores_prefill_ref if plain
+             else lightning_indexer_scores_prefill_pallas)
+    scores = score(qd, wd, kidx, seq_lens, context_lens, block_tables, q_chunk=cq)
+    max_pages = block_tables.shape[1]
+    page_scores = scores.reshape(bsz, mq_pad, max_pages, cfg.page_size).amax(dim=-1)
+    num_sel = min(cdiv(cfg.sparse_count, cfg.page_size), max_pages)
+    pos_sel = _selected(select_prefill_pages(page_scores, seq_lens, context_lens, cq=cq,
+                                             page_size=cfg.page_size, num_sel=num_sel))
+    attend = mla_prefill_block_sparse_ref if plain else mla_prefill_block_sparse
+    return attend(q, cache["nope"], cache["rope"], seq_lens, block_tables, context_lens,
+                  cfg.sm_scale, pos_sel, max_q=mq, q_chunk=cq, k_scale=ks)
+
+
+# ---------------------------------------------------------------------------
 # serving steps
 # ---------------------------------------------------------------------------
 
@@ -516,7 +656,10 @@ def decode_step(cfg: DeepSeekV3Config, params: dict, hidden, positions, kv_cache
         cache = kv_caches[li]
         mw, dq = _layer_switches(mla_wq, dense_wq, li)
         q = _attention_inputs(cfg, lw, mw, x, cos, sin, cache, slot_mapping, plain)
-        if plain:
+        if cfg.sparse_count > 0:
+            attn = _dsa_decode(cfg, lw, x, q, cache, block_table, seq_lens, slot_mapping, ks,
+                               plain)
+        elif plain:
             attn = decode_mla_ref(q, cache["nope"], cache["rope"], seq_lens, cfg.sm_scale,
                                   block_table, k_scale=ks)
         else:
@@ -551,7 +694,12 @@ def prefill_step(cfg: DeepSeekV3Config, params: dict, hidden, seq_lens, kv_cache
         cache = kv_caches[li]
         mw, dq = _layer_switches(mla_wq, dense_wq, li)
         q = _attention_inputs(cfg, lw, mw, x, cos, sin, cache, slot_mapping, plain)
-        if plain:
+        if cfg.sparse_count > 0:                    # token mode: then dense attention, as JAX
+            h1 = _write_index_keys(lw, x, cache, slot_mapping)
+        if cfg.sparse_count > 0 and cfg.sparse_granularity == "page":
+            attn = _dsa_prefill(cfg, lw, h1, q, cache, seq_lens, block_tables, context_lens,
+                                req, j, max_q, ks, plain)
+        elif plain:
             attn = mla_prefill_ref(q, cache["nope"], cache["rope"], seq_lens, block_tables,
                                    context_lens, cfg.sm_scale, k_scale=ks)
         else:

@@ -8,6 +8,11 @@ kernel is ``csrc/decode_mla.cu``.  The latent cache is bf16 or int8: the
 ``int8_nzcache`` levels ``round(k / k_scale)``, where the plain version
 dequantizes and the kernel's wrapper folds ``k_scale`` into q_nope and the
 output, as the JAX wrapper does (the kernel reads levels only).
+
+DeepSeek-V3.2's sparse decode (DSA) is glue around K2, as in JAX:
+``decode_mla_block_sparse`` (page mode: the indexer's top pages, sorted, as a
+pruned block table for K2) and ``decode_mla_sparse`` (token mode: a gather of
+the selected latents and one masked softmax).
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from sgl_kernel_npu_tpu_torch.utils import cuda_lib
-from sgl_kernel_npu_tpu_torch.utils.common import cdiv, on_cuda
+from sgl_kernel_npu_tpu_torch.utils.common import cdiv, on_cuda, top_k
 from sgl_kernel_npu_tpu_torch.utils.counters import counted
 
 NEG_INF = -1e30
@@ -121,3 +126,70 @@ def decode_mla(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale, block_tab
         float(sm_scale), int(ks is not None), cuda_lib.stream_ptr(q)), "decode_mla")
     decode_mla.launches += 1
     return out if ks is None else unfold_out_scale(out, ks)
+
+
+# ---------------------------------------------------------------------------
+# DSA sparse decode (glue around K2)
+# ---------------------------------------------------------------------------
+
+def select_decode_pages(token_scores, kv_seq_lens, page_size: int, num_sel_pages: int):
+    """Page mode's choice for each decode row: the top ``num_sel_pages`` pages
+    by the maximum indexer score of their valid tokens, the row's last
+    (partial) page forced in, **sorted ascending** → ``[B, min(num_sel_pages,
+    max_pages)]``.  Sorted, the full pages come first, then the partial page,
+    then pages past the context (chosen only when fewer pages are valid), so
+    K2 can walk the pruned table as if it were contiguous."""
+    b, width = token_scores.shape
+    max_pages = width // page_size
+    sl = kv_seq_lens.to(token_scores.device).long()
+    pos = torch.arange(width, device=token_scores.device).reshape(max_pages, page_size)
+    valid = pos[None] < sl[:, None, None]
+    ps = token_scores.reshape(b, max_pages, page_size).float()
+    pscore = torch.where(valid, ps, float("-inf")).amax(dim=-1)
+    last = torch.div(sl - 1, page_size, rounding_mode="floor")
+    pscore = pscore.scatter(1, last[:, None], float("inf"))
+    sel = top_k(pscore, min(num_sel_pages, max_pages))[1]
+    return torch.sort(sel, dim=-1).values
+
+
+def pruned_block_table(block_table, kv_seq_lens, sel_pages, page_size: int):
+    """The block table of the selected pages and the keys K2 then walks: the
+    valid tokens of the selected pages, summed."""
+    bt_sel = torch.gather(block_table.long(), 1, sel_pages.long()).to(torch.int32)
+    sl = kv_seq_lens.to(sel_pages.device).long()
+    vp = torch.clamp(sl[:, None] - sel_pages.long() * page_size, 0, page_size)
+    return bt_sel, vp.sum(dim=-1).to(torch.int32)
+
+
+def decode_mla_block_sparse(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale,
+                            block_table, token_scores, num_sel_pages: int, *, k_scale=None,
+                            plain: bool = False):
+    """Block-sparse MLA decode (DSA page mode): :func:`select_decode_pages`
+    over ``token_scores [B, max_pages · page]`` (the indexer's), then K2
+    :func:`decode_mla` (``plain``: :func:`decode_mla_ref`) over the pruned
+    block table.  Softmax covers every valid token of every selected page."""
+    page = k_nope_buffer.shape[2]
+    sel = select_decode_pages(token_scores, kv_seq_lens, page, num_sel_pages)
+    bt_sel, seq_sel = pruned_block_table(block_table, kv_seq_lens, sel, page)
+    attend = decode_mla_ref if plain else decode_mla
+    return attend(q, k_nope_buffer, k_rope_buffer, seq_sel, sm_scale, bt_sel, k_scale=k_scale)
+
+
+def decode_mla_sparse(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale, block_table,
+                      topk_index, k_scale=None):
+    """Sparse MLA decode over token positions ``topk_index [B, K]`` (DSA token
+    mode, -1 = pad): the selected latents gathered, one masked f32 softmax
+    (``-1e30`` sentinel) → ``[B, Hq, 512]`` in q's dtype.  Glue, as in JAX."""
+    page_size, d_nope = k_nope_buffer.shape[2], k_nope_buffer.shape[3]
+    idx = topk_index.long()
+    live = (idx >= 0) & (idx < kv_seq_lens.to(idx.device).long()[:, None])
+    safe = torch.where(live, idx, 0)
+    phys = torch.gather(block_table.long(), 1, torch.div(safe, page_size, rounding_mode="floor"))
+    slot = safe % page_size
+    kn = dequant_latent(k_nope_buffer[phys, 0, slot, :], int8_scale(k_nope_buffer, k_scale))
+    kr = k_rope_buffer[phys, 0, :, slot].float()                        # [B, K, Lrope]
+    qk = torch.einsum("bhd,bkd->bhk", q[..., :d_nope].float(), kn)
+    qk = qk + torch.einsum("bhd,bkd->bhk", q[..., d_nope:].float(), kr)
+    qk = torch.where(live[:, None, :], qk * sm_scale, NEG_INF)
+    p = torch.softmax(qk, dim=-1)
+    return torch.einsum("bhk,bkd->bhd", p, kn).to(q.dtype)

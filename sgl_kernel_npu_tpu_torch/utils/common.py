@@ -47,3 +47,12 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"tensors must all lie on one CUDA device or all on the CPU, got {kinds}")
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest values along the last dimension and their indices,
+    in ``jax.lax.top_k``'s order: descending, equal values by ascending index
+    (a stable sort; ``torch.topk`` leaves the order of ties open, and the DSA
+    selections meet ties of -inf at every dead position)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]

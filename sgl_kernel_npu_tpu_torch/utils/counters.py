@@ -18,7 +18,11 @@ def counted(fn):
 def wrappers() -> dict:
     """Every kernel wrapper of the port, by name."""
     from sgl_kernel_npu_tpu_torch.ops import activation, gmm_ring, grouped_matmul, matmul, quant
-    from sgl_kernel_npu_tpu_torch.ops.attention import decode_attention, mla_prefill
+    from sgl_kernel_npu_tpu_torch.ops.attention import (
+        decode_attention,
+        lightning_indexer,
+        mla_prefill,
+    )
 
     return {
         "decode_mla": decode_attention.decode_mla,
@@ -29,6 +33,9 @@ def wrappers() -> dict:
         "quant_per_token": quant.quant_per_token,
         "swiglu_quant": activation.swiglu_quant,
         "grouped_matmul": grouped_matmul.grouped_matmul,
+        "lightning_indexer_scores_prefill_pallas":
+            lightning_indexer.lightning_indexer_scores_prefill_pallas,
+        "mla_prefill_block_sparse": mla_prefill.mla_prefill_block_sparse,
     }
 
 

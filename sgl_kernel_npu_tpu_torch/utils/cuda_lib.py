@@ -33,6 +33,10 @@ _SIGNATURES = {
     "decode_mla_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "mla_prefill_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _F, _I, _P],
+    "mla_prefill_sparse_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _F, _I, _P],
+    "lightning_indexer_prefill_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                         _I, _P],
     "gmm1_ring_launch": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                          _P, _P],
     "gmm2_combine_ring_launch": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P,

@@ -33,6 +33,6 @@ def np32(x):
 
 def port_config(jax_cfg, port_cls):
     """The port's config with the JAX config's values for the fields it has
-    (the port leaves out DSA, the int8 cache and the unused rope base)."""
+    (all but the rope base, which the port leaves out: no path reads it)."""
     return port_cls(**{f.name: getattr(jax_cfg, f.name)
                        for f in dataclasses.fields(port_cls)})

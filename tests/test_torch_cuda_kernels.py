@@ -12,13 +12,18 @@ f32 GMM2 + combine 1e-5 of the largest value (f32 sums in another order);
 ``quant_per_token`` and ``swiglu_quant`` int8 within one level (the SiLU's
 exp differs by ulps between libraries), scales rtol 1e-6; ``grouped_matmul``
 ``dequant`` within one bf16 ulp (the same f32 operations; exact in f32 out),
-``dequant_swiglu_quant`` int8 within one level and scales rtol 1e-6."""
+``dequant_swiglu_quant`` int8 within one level and scales rtol 1e-6;
+``lightning_indexer_scores_prefill_pallas`` the same -inf positions and
+finite scores within 1e-4 of the row's largest |score| (f32 sums of exact
+bf16 products in another order); ``mla_prefill_block_sparse`` as the MLA
+kernels, 2e-2."""
 
 import pytest
 import torch
 
 from sgl_kernel_npu_tpu_torch.ops import activation, gmm_ring, grouped_matmul, matmul, quant
 from sgl_kernel_npu_tpu_torch.ops.attention import decode_attention as da
+from sgl_kernel_npu_tpu_torch.ops.attention import lightning_indexer as li
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_prefill as mp
 from sgl_kernel_npu_tpu_torch.utils.common import kernels_available
 
@@ -354,3 +359,152 @@ def test_moe_above_512_tokens_kernels_match_plain(dev):
         outs.append(y.float())
     rel = (outs[0] - outs[1]).abs().amax(-1) / outs[1].abs().amax()
     assert float(torch.quantile(rel, 0.9)) < 3e-2, rel.max()
+
+
+def _scores_close(got, want):
+    """The indexer's rule: -inf exactly where the plain version has it, the
+    finite scores within 1e-4 of each row's largest |score|."""
+    dead = torch.isinf(want)
+    assert bool((torch.isinf(got) == dead).all()) and bool((got[dead] < 0).all())
+    scale = torch.where(dead, 0.0, want).abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    err = torch.where(dead, 0.0, (got - want).abs()) / scale
+    assert float(err.max()) <= 1e-4, float(err.max())
+
+
+# (lens_q, lens_k, max_q, page, max_pages, causal): full width (a 2048-token
+# chunk at context 4096 on a 33-page table), ragged (page 16, requests of 1, 5
+# and 40 new tokens after earlier context, max_q 45 not a multiple of the
+# chunk), the decode shape (8 rows of one token), and non-causal
+LI_CASES = [([2048], [4096], 2048, 128, 33, True),
+            ([1, 5, 40], [17, 60, 40], 45, 16, 5, True),
+            ([1] * 8, [916, 1816, 4016, 3516, 2616, 1, 1, 1], 1, 128, 33, True),
+            ([3, 12], [30, 12], 12, 16, 2, False)]
+
+
+@pytest.mark.parametrize("heads", [64, 16])
+@pytest.mark.parametrize("lens_q,lens_k,max_q,page,max_pages,causal", LI_CASES)
+def test_lightning_indexer_kernel(dev, heads, lens_q, lens_k, max_q, page, max_pages, causal):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b = len(lens_q)
+    n_pages = b * max_pages + 1
+    key = torch.randn((n_pages, 1, page, 128), generator=gen, device=dev).to(torch.bfloat16)
+    bt = torch.randperm(n_pages - 1, device=dev)[: b * max_pages].reshape(b, max_pages) + 1
+    bt = bt.to(torch.int32)
+    q = torch.randn((b, max_q, heads, 128), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((b, max_q, heads), generator=gen, device=dev)
+    lq = torch.tensor(lens_q, dtype=torch.int32, device=dev)
+    lk = torch.tensor(lens_k, dtype=torch.int32, device=dev)
+    before = li.lightning_indexer_scores_prefill_pallas.launches
+    got = li.lightning_indexer_scores_prefill_pallas(q, w, key, lq, lk, bt, causal=causal)
+    want = li.lightning_indexer_scores_prefill_ref(q, w, key, lq, lk, bt, causal=causal)
+    torch.cuda.synchronize()
+    assert li.lightning_indexer_scores_prefill_pallas.launches == before + 1
+    assert got.shape == want.shape and got.shape[1] % min(64, max(8, max_q)) == 0
+    _scores_close(got, want)
+
+
+def _sparse_case(dev, gen, heads, page, seq, ctx, max_pages, pos_sel, int8):
+    kn, kr = _cache(gen, dev, len(seq) * max_pages, page, torch.bfloat16)
+    if int8:
+        kn = _int8_latent(kn)
+    bt = torch.arange(len(seq) * max_pages, device=dev, dtype=torch.int32).reshape(len(seq),
+                                                                                  max_pages)
+    q = torch.randn((sum(seq) + 2, heads, 576), generator=gen, device=dev).to(torch.bfloat16)
+    seq_t = torch.tensor(seq, dtype=torch.int32, device=dev)
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    return q, kn, kr, seq_t, bt, ctx_t, torch.tensor(pos_sel, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("heads", [128, 8])
+def test_mla_prefill_block_sparse_kernel(dev, heads, int8):
+    """Page 16, chunks of 8 tokens (max_q 16): dead slots, a dead page walked
+    before the live ones, a chunk whose rows straddle two pages, and a chunk
+    whose first rows see none of its pages (the mean of the walked latents,
+    as in JAX)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    seq, ctx, max_pages = [16, 5], [60, 20], 4
+    pos_sel = [[[3, 2, 1, 0], [3, -1, 0, -1]],        # request 0: rows at 44..59
+               [[1, -1, -1, 1], [-1, -1, -1, -1]]]    # request 1: rows 15..19; chunk 1 dead
+    args = _sparse_case(dev, gen, heads, 16, seq, ctx, max_pages, pos_sel, int8)
+    ks = 1 / 32 if int8 else None
+    before = mp.mla_prefill_block_sparse.launches
+    got = mp.mla_prefill_block_sparse(*args[:6], 0.07, args[6], max_q=16, q_chunk=8, k_scale=ks)
+    want = mp.mla_prefill_block_sparse_ref(*args[:6], 0.07, args[6], max_q=16, q_chunk=8,
+                                           k_scale=ks)
+    torch.cuda.synchronize()
+    assert mp.mla_prefill_block_sparse.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert bool((got[-2:] == 0).all())
+
+
+def test_mla_prefill_block_sparse_all_pages_equals_dense_kernel(dev):
+    """Every causal page selected, in reverse order: K9b equals K9a."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    seq, ctx, page, max_pages = [64, 40], [300, 40], 128, 3
+    n_chunks = 1
+    pos_sel = [[[2, 1, 0]], [[0, -1, -1]]]
+    q, kn, kr, seq_t, bt, ctx_t, sel = _sparse_case(dev, gen, 128, page, seq, ctx, max_pages,
+                                                    pos_sel, False)
+    assert sel.shape[1] == n_chunks
+    got = mp.mla_prefill_block_sparse(q, kn, kr, seq_t, bt, ctx_t, 0.07, sel, max_q=64)
+    want = mp.mla_prefill_pallas(q, kn, kr, seq_t, bt, ctx_t, 0.07, max_q=64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("gran", ["page", "token"])
+def test_dsa_steps_kernels_match_plain(dev, gran):
+    """A small DSA model (64 index heads x 128, page 16) on the int8 latent
+    cache with the fused prologue: a 96-token prefill chunk after 64 tokens of
+    context and a decode step, through the kernels and the plain versions,
+    the selections and the routing replayed; hidden rows within 5e-2 of
+    their largest value (the rule of ``chip_smoke.routing_rule``: the W8A8
+    prologue's static int8 quant and the experts' requant turn bf16 rounding
+    in the attention kernels into whole int8 levels, measured 1.5-3e-2)."""
+    from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as m
+
+    cfg = m.DeepSeekV3Config(vocab_size=256, hidden=512, num_layers=2, num_heads=16,
+                             kv_lora_rank=512, qk_nope_dim=64, q_lora_rank=128,
+                             v_head_dim=64, num_experts=16, topk=4, moe_intermediate=128,
+                             page_size=16, kv_cache_dtype="int8", sparse_count=48,
+                             idx_heads=64, idx_dim=128, sparse_granularity=gran)
+    params = m.init_weights(cfg, 0, torch.bfloat16, device=dev)
+    moe = m.quantize_moe_weights(cfg, m.init_weights(cfg, 1, torch.float32, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(10)
+    n = 160
+    x = torch.randn((n + 1, cfg.hidden), generator=gen, device=dev).to(torch.bfloat16)
+    mla_wq = m.make_mla_preprocess_weights(cfg, params, x[:64].float())
+    bt = torch.arange(1, 12, dtype=torch.int32, device=dev)[None, :]
+    pos = torch.arange(n + 1, device=dev)
+    slots = (bt[0, pos // 16] * 16 + pos % 16).to(torch.int32)
+    kw = dict(moe_weights_q=moe, mla_wq=mla_wq)
+
+    def run(plain, replay):
+        caches = m.init_kv_cache(cfg, 12, torch.bfloat16, device=dev)
+        one = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)  # noqa: E731
+        m.prefill_step(cfg, params, x[:64], one(64), caches, bt, one(64), slots[:64],
+                       max_q=64, plain=plain, **kw)
+        y, _ = m.prefill_step(cfg, params, x[64:n], one(96), caches, bt, one(n), slots[64:n],
+                              max_q=96, plain=plain, **kw)
+        d, _ = m.decode_step(cfg, params, x[n:], pos[n:].to(torch.int32), caches, bt,
+                             one(n + 1), slots[n:], plain=plain, **kw)
+        return torch.cat([y, d]).float()
+
+    record, sel, router, selected = [], [], m._router, m._selected
+    try:
+        m._router = lambda c, lw, h: record.append(router(c, lw, h)) or record[-1]
+        m._selected = lambda s: sel.append(s) or s
+        launches = li.lightning_indexer_scores_prefill_pallas.launches
+        got = run(False, False)
+        torch.cuda.synchronize()
+        launches = li.lightning_indexer_scores_prefill_pallas.launches - launches
+        it_r, it_s = iter(record), iter(sel)
+        m._router = lambda c, lw, h: next(it_r)
+        m._selected = lambda s: next(it_s)
+        want = run(True, True)
+    finally:
+        m._router, m._selected = router, selected
+    assert launches == (4 if gran == "page" else 2)      # 2 prefill calls / 1 decode step
+    rel = (got - want).abs().amax(-1) / want.abs().amax(-1)
+    assert bool(torch.isfinite(got).all()) and float(rel.max()) < 5e-2, float(rel.max())
