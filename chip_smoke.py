@@ -59,9 +59,22 @@ Phases (any failure raises and the script exits non-zero without a result):
    to their plain versions with the routing and the page selections
    replayed; then a decode step in token mode (K10 through
    ``lightning_indexer``), its token selections replayed.
+4e. GPT-OSS-20B at its published widths (2 of 24 layers, random bf16
+   weights from a seed, nonzero biases, untied head): rms_norm (K6a),
+   swiglu_oai (K7b), attention_sinks (K12a) and attention_sinks_prefill_pallas
+   (K12d) held to their plain versions at the shapes the serve gives them and
+   on ragged cases (ctx 1, windows starting inside a page, pad rows, dead
+   rows of a q-block, no sinks), timed beside their bounds, their plain
+   versions and a library call (``F.rms_norm``; SDPA with one extra zero key
+   whose mask is the sink logit); then ``Engine(prefill_chunk=512)`` +
+   ``gpt_oss_adapter`` serves 5 prompts of 300-2000 tokens (two share a
+   512-token prefix), 16 new tokens each, with exact launch counts, page
+   release and radix reuse checked; then one decode step and one 512-row
+   chunk at context 1024 held to ``plain=True``, the routing replayed.
 5. ``torch.profiler`` breakdowns of a decode step, a mixed tick, the fully
-   W8A8 decode step, one 2048-token prefill call on the int8 cache, and one
-   DSA prefill call and DSA decode step.
+   W8A8 decode step, one 2048-token prefill call on the int8 cache, one
+   DSA prefill call and DSA decode step, and a GPT-OSS decode step and
+   512-row prefill call.
 6. Print the kernels' JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -71,6 +84,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -82,17 +96,24 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device is available")
 
 from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as m  # noqa: E402
+from sgl_kernel_npu_tpu_torch.models import gpt_oss as g  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops import (  # noqa: E402
     activation,
     gmm_ring,
     grouped_matmul,
     matmul,
+    norm,
     quant,
 )
 from sgl_kernel_npu_tpu_torch.ops.attention import decode_attention as da  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import lightning_indexer as li  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_prefill as mp  # noqa: E402
-from sgl_kernel_npu_tpu_torch.runtime.engine import Engine, deepseek_adapter  # noqa: E402
+from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa  # noqa: E402
+from sgl_kernel_npu_tpu_torch.runtime.engine import (  # noqa: E402
+    Engine,
+    deepseek_adapter,
+    gpt_oss_adapter,
+)
 from sgl_kernel_npu_tpu_torch.utils import counters, cuda_lib, trace_profile  # noqa: E402
 
 SEED = 0
@@ -137,6 +158,22 @@ CFG_DSA = dataclasses.replace(CFG_INT8, sparse_count=2048, idx_heads=64, idx_dim
                               sparse_granularity="page")
 DSA_PAGES = -(-CFG_DSA.sparse_count // CFG_DSA.page_size)
 DSA_KERNELS = ("lightning_indexer_scores_prefill_pallas", "mla_prefill_block_sparse")
+
+# [4e] openai/gpt-oss-20b config.json: hidden 2880, 64 q heads and 8 kv heads
+# of 64, 32 local experts top-4, intermediate 2880 a half, sliding window 128
+# on the even layers (layer_types), vocab 201088, rms_norm_eps 1e-5,
+# rope_theta 150000 (its YaRN scaling is not made: standard tables),
+# attention_bias, an untied lm_head.  Cut: 24 layers -> 2 (one sliding, one
+# full), bf16 weights from a seed with biases N(0, 0.02^2), page 16.
+GPT_FULL_LAYERS = 24
+CFG_GPT = g.GptOssConfig(
+    vocab_size=201088, hidden=2880, num_layers=2, num_heads=64, num_kv_heads=8, head_dim=64,
+    intermediate=2880, sliding_window=128, page_size=16, rope_theta=150000.0, rms_eps=1e-5,
+    num_experts=32, topk=4, attention_bias=True)
+GPT_CHUNK, GPT_PAGES_PER_REQ, GPT_NUM_PAGES = 512, 128, 1024
+GPT_PROMPT_LENS = [1100, 300, 2000, 700, 1500]  # the 1st and 5th share 512 tokens
+GPT_SHARED = 512
+GPT_KERNELS = ("rms_norm", "swiglu_oai", "attention_sinks", "attention_sinks_prefill_pallas")
 
 _flush_buf = None
 SPIN_CYCLES = 200_000          # ~100 us at the H100's 1.98 GHz boost clock
@@ -793,14 +830,15 @@ def check_w8a8_kernels(gen, mla_wq, dense_wq):
 # ---------------------------------------------------------------------------
 
 class StepTimer:
-    """Wall time and count of the adapter's prefill and decode calls
+    """Wall time and count of the adapter's prefill, decode and lm_head calls
     (synchronized)."""
 
     def __init__(self, adapter):
-        self.t = {"prefill": 0.0, "decode": 0.0}
-        self.calls = {"prefill": 0, "decode": 0}
-        for name in self.t:
-            setattr(adapter, f"{name}_step", self._wrap(name, getattr(adapter, f"{name}_step")))
+        self.t = {"prefill": 0.0, "decode": 0.0, "lm_head": 0.0}
+        self.calls = {"prefill": 0, "decode": 0, "lm_head": 0}
+        for name, attr in (("prefill", "prefill_step"), ("decode", "decode_step"),
+                           ("lm_head", "lm_head")):
+            setattr(adapter, attr, self._wrap(name, getattr(adapter, attr)))
 
     def _wrap(self, name, fn):
         def run(*args):
@@ -814,10 +852,10 @@ class StepTimer:
         return run
 
 
-def prompts(gen, lens=PROMPT_LENS, share=(1, SHARED_PREFIX)):
+def prompts(gen, lens=PROMPT_LENS, share=(1, SHARED_PREFIX), vocab=CFG.vocab_size):
     """Random prompts of ``lens`` tokens; the last shares its first ``share[1]``
     tokens with prompt ``share[0]``."""
-    ids = [torch.randint(0, CFG.vocab_size, (n,), generator=gen).tolist() for n in lens]
+    ids = [torch.randint(0, vocab, (n,), generator=gen).tolist() for n in lens]
     i, n = share
     ids[-1][:n] = ids[i][:n]
     return ids
@@ -847,26 +885,7 @@ def serve(params, moe, mla_wq=None, *, cfg=CFG, ps=None, share=(1, SHARED_PREFIX
     if dsa != ("kidx" in eng.caches[0]):
         raise AssertionError(f"index-key cache present: {'kidx' in eng.caches[0]}, DSA: {dsa}")
     ps = ps or prompts(torch.Generator().manual_seed(SEED))
-    counters.reset()
-    t0 = time.perf_counter()
-    rids = [eng.add_request(p, NEW_TOKENS) for p in ps[:-1]]
-    first = rids[share[0]]
-    while not any(r.rid == first and r.pos >= r.prompt_len for r in eng.running) \
-            and first not in eng.finished:
-        eng.step()
-    rids.append(eng.add_request(ps[-1], NEW_TOKENS))
-    while eng.waiting or eng.running:
-        eng.step()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = counters.read()
-    outs = [eng.finished[r] for r in rids]
-    if not all(len(o) == NEW_TOKENS and all(0 <= t < CFG.vocab_size for t in o) for o in outs):
-        raise AssertionError(f"unfinished or invalid outputs: {[len(o) for o in outs]}")
-    if eng.cm.free_pages + eng.cm.cached_pages != num_pages:
-        raise AssertionError("KV pages leaked")
-    if eng.stats["cached_tokens"] < share[1]:
-        raise AssertionError(f"radix reuse missed: {eng.stats['cached_tokens']} cached tokens")
+    rids, wall, launches = run_requests(eng, ps, share, num_pages, CFG.vocab_size)
     long = chunk > 512
     prefill_attn = DSA_KERNELS if dsa else ("mla_prefill_pallas",)
     expected = (("decode_mla", "gmm1_ring", "gmm2_combine_ring") + prefill_attn
@@ -899,6 +918,36 @@ def serve(params, moe, mla_wq=None, *, cfg=CFG, ps=None, share=(1, SHARED_PREFIX
     return eng, ps, launches
 
 
+def run_requests(eng, ps, share, num_pages, vocab):
+    """Serve ``ps`` through ``eng``, 16 new tokens each, the last prompt
+    arriving once prompt ``share[0]`` is through prefill (so its admission
+    finds their ``share[1]`` shared tokens in the radix cache), with the
+    launch counts reset just before and read just after.  Checks that every
+    request finished with valid tokens, every page came back and the prefix
+    was reused.  Returns the request ids, the wall time and the counts."""
+    counters.reset()
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, NEW_TOKENS) for p in ps[:-1]]
+    first = rids[share[0]]
+    while not any(r.rid == first and r.pos >= r.prompt_len for r in eng.running) \
+            and first not in eng.finished:
+        eng.step()
+    rids.append(eng.add_request(ps[-1], NEW_TOKENS))
+    while eng.waiting or eng.running:
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    outs = [eng.finished[r] for r in rids]
+    if not all(len(o) == NEW_TOKENS and all(0 <= t < vocab for t in o) for o in outs):
+        raise AssertionError(f"unfinished or invalid outputs: {[len(o) for o in outs]}")
+    if eng.cm.free_pages + eng.cm.cached_pages != num_pages:
+        raise AssertionError("KV pages leaked")
+    if eng.stats["cached_tokens"] < share[1]:
+        raise AssertionError(f"radix reuse missed: {eng.stats['cached_tokens']} cached tokens")
+    return rids, wall, launches
+
+
 class Record(list):
     """A model call's discrete choices: each layer's routing ``(ids,
     weights)`` (the list) and each DSA selection (``.sel``: pages of the
@@ -909,12 +958,14 @@ class Record(list):
         self.sel = []
 
 
-def with_routes(fn, forced=None):
+def with_routes(fn, forced=None, model=m):
     """Run ``fn()`` recording each layer's routing and DSA selection →
     ``(fn(), record)``.  With ``forced`` (another run's :class:`Record`) the
     router and the selection hand out that run's choices, layer by layer,
-    instead of choosing (``models.deepseek_v3._router`` / ``_selected``)."""
-    record, router, selected = Record(), m._router, m._selected
+    instead of choosing (``model._router`` / ``_selected``: DeepSeek's by
+    default; GPT-OSS has a router only)."""
+    record, router = Record(), model._router
+    selected = getattr(model, "_selected", None)
     replay = None if forced is None else iter(forced)
     replay_sel = None if forced is None else iter(forced.sel)
 
@@ -928,11 +979,15 @@ def with_routes(fn, forced=None):
         record.sel.append(sel)
         return sel
 
-    m._router, m._selected = recording_router, recording_selected
+    model._router = recording_router
+    if selected is not None:
+        model._selected = recording_selected
     try:
         return fn(), record
     finally:
-        m._router, m._selected = router, selected
+        model._router = router
+        if selected is not None:
+            model._selected = selected
 
 
 def same_routing(rec_a, rec_b, n):
@@ -978,19 +1033,19 @@ def routing_rule(label, got, want, same, logits: bool, *, forced: bool = False):
     return ok
 
 
-def compare_runs(label, run_kernel, run_plain, n, *, logits: bool, forced: bool):
+def compare_runs(label, run_kernel, run_plain, n, *, logits: bool, forced: bool, model=m):
     """Run one model call through the kernels and through the plain versions
     (each run writes the same KV rows itself before it reads) and hold them
     to :func:`routing_rule`; with ``forced`` the plain versions run a second
     time on the kernel run's routing.  Returns whether the rule held."""
-    got, rec_k = with_routes(lambda: run_kernel()[:n].float())
-    want, rec_p = with_routes(lambda: run_plain()[:n].float())
+    got, rec_k = with_routes(lambda: run_kernel()[:n].float(), model=model)
+    want, rec_p = with_routes(lambda: run_plain()[:n].float(), model=model)
     if got.shape != want.shape:
         raise AssertionError(f"{label}: kernel path {tuple(got.shape)} vs plain "
                              f"{tuple(want.shape)}")
     same = same_routing(rec_k, rec_p, n)
     if forced:
-        want, _ = with_routes(lambda: run_plain()[:n].float(), rec_k)
+        want, _ = with_routes(lambda: run_plain()[:n].float(), rec_k, model=model)
     return routing_rule(label, got, want, same, logits, forced=forced)
 
 
@@ -1307,12 +1362,299 @@ def dsa_token_decode(eng, batch, n, params, moe, mla_wq8):
                              f"want {want}")
 
 
-def profile_steps(eng, batch, prompt, w8a8_step, long_prefill, dsa_prefill, dsa_decode):
+# ---------------------------------------------------------------------------
+# phase 4e: GPT-OSS
+# ---------------------------------------------------------------------------
+
+def ulp_close(got, want):
+    """Max |err| and whether it is within one bf16 ulp of the output's
+    largest value: both compute in f32 and round once to bf16, so an element
+    moves at most by a rounding flip (K6a, K7b)."""
+    err = max_abs(got, want)
+    return err, err <= 2.0 ** (math.floor(math.log2(float(want.float().abs().max()))) - 7)
+
+
+def check_rms_norm(gen, rows, timed):
+    """K6a at ``[rows, 2880]`` bf16 (bf16 weight, eps 1e-5) against its plain
+    version within a bf16 ulp; timed with ``torch.nn.functional.rms_norm``
+    as the library call."""
+    h = CFG_GPT.hidden
+    x = randn(gen, (rows, h), scale=3.0)
+    w = (1 + 0.1 * torch.randn(h, generator=gen, device=DEV)).to(torch.bfloat16)
+    eps = CFG_GPT.rms_eps
+    err, ok = ulp_close(norm.rms_norm(x, w, eps), norm.rms_norm_ref(x, w, eps))
+    torch.cuda.synchronize()
+    log(f"  rms_norm [{rows}, {h}] bf16: max|err| {err:.3e} (tol one bf16 ulp of the largest "
+        f"output)")
+    if not ok:
+        raise AssertionError(f"rms_norm disagrees with its plain version: {err}")
+    if not timed:
+        return None
+    r = dict(err=err, ms=time_ms(lambda: norm.rms_norm(x, w, eps), 50),
+             plain_ms=time_ms(lambda: norm.rms_norm_ref(x, w, eps), 20),
+             library_ms=time_ms(lambda: torch.nn.functional.rms_norm(x, (h,), w, eps), 50))
+    r["bound_ms"], r["bound_by"] = bound(2 * 2 * rows * h + 2 * h, 4 * rows * h, F32_FLOPS)
+    log(f"    {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, F.rms_norm {r['library_ms']:.4f}, "
+        f"bound {r['bound_ms']:.5f} {r['bound_by']})")
+    return r
+
+
+def check_swiglu_oai(gen, rows, timed):
+    """K7b on bf16 ``[rows, 2 x 2880]`` interleaved gate / up, N(0, 4²) so that
+    values lie past ±limit, within a bf16 ulp of its plain version."""
+    i = CFG_GPT.intermediate
+    x = randn(gen, (rows, 2 * i), scale=4.0)
+    a, lim = CFG_GPT.alpha, CFG_GPT.limit
+    err, ok = ulp_close(activation.swiglu_oai(x, a, lim), activation.swiglu_oai_ref(x, a, lim))
+    torch.cuda.synchronize()
+    past = float((x.float().abs() > lim).float().mean())
+    log(f"  swiglu_oai [{rows}, {2 * i}] bf16 ({100 * past:.1f} % of values past ±{lim}): "
+        f"max|err| {err:.3e} (tol one bf16 ulp of the largest output)")
+    if not ok:
+        raise AssertionError(f"swiglu_oai disagrees with its plain version: {err}")
+    if not timed:
+        return None
+    r = dict(err=err, ms=time_ms(lambda: activation.swiglu_oai(x, a, lim), 20),
+             plain_ms=time_ms(lambda: activation.swiglu_oai_ref(x, a, lim), 5), library_ms=None)
+    r["bound_ms"], r["bound_by"] = bound(3 * rows * i * 2, 8 * rows * i, F32_FLOPS)
+    log(f"    {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, no single PyTorch call, bound "
+        f"{r['bound_ms']:.4f} {r['bound_by']})")
+    return r
+
+
+def sinks_cache(gen, n_pages):
+    """Random bf16 K and V caches at GPT-OSS's kv heads and head width."""
+    shape = (n_pages, CFG_GPT.num_kv_heads, CFG_GPT.page_size, CFG_GPT.head_dim)
+    return randn(gen, shape), randn(gen, shape)
+
+
+def sdpa_with_sink(q, k, v, mask, sinks):
+    """SDPA over dense keys with one more all-zero key and value whose
+    additive mask is each head's sink logit: q ``[B, Hq, T, D]``, k / v
+    ``[B, Hkv, L, D]``, bool mask ``[B, 1, T, L]``; the yardstick of K12a /
+    K12d (the mask in the queries' dtype, as SDPA takes it)."""
+    b, hq, t, _ = q.shape
+    zero = k.new_zeros((*k.shape[:2], 1, k.shape[3]))
+    kz, vz = torch.cat([k, zero], dim=2), torch.cat([v, zero], dim=2)
+    add = torch.zeros(mask.shape[:-1] + (mask.shape[-1] + 1,), dtype=q.dtype, device=DEV)
+    add = add.expand(b, hq, t, -1).clone()
+    add[..., :-1].masked_fill_(~mask, float("-inf"))
+    add[..., -1] = sinks.to(q.dtype)[None, :, None]
+    scale = CFG_GPT.head_dim ** -0.5
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kz, vz, attn_mask=add, scale=scale, enable_gqa=True)
+
+
+def check_sinks_decode(gen, ctx_list, window, pad_rows, timed, table_pages=GPT_PAGES_PER_REQ):
+    """K12a at GPT-OSS's heads over ``ctx_list`` contexts (page 16, permuted
+    pages, a ``table_pages``-page table) and ``pad_rows`` engine pad rows
+    (ctx 1, a table of zeros) against its plain version (``attention_close``).
+    The bound counts the keys each row reads: its window's, else its context."""
+    hq, hkv, d, page = CFG_GPT.num_heads, CFG_GPT.num_kv_heads, CFG_GPT.head_dim, 16
+    b = len(ctx_list)
+    max_pages = max(-(-c // page) for c in ctx_list)
+    n_pages = b * max_pages + 1
+    kc, vc = sinks_cache(gen, n_pages)
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(b)) + 1
+    bt = torch.zeros((b + pad_rows, table_pages), dtype=torch.int32)
+    bt[:b, :max_pages] = perm[: b * max_pages].reshape(b, max_pages)
+    bt = bt.to(DEV)
+    ctx = torch.tensor(ctx_list + [1] * pad_rows, dtype=torch.int32, device=DEV)
+    q = randn(gen, (b + pad_rows, hq * d))
+    sinks = torch.randn(hq, generator=gen, device=DEV) * 2
+    args = (q, kc, vc, sinks, bt, ctx, d ** -0.5, window, hq, hkv)
+    got, want = sa.attention_sinks(*args), sa.attention_sinks_ref(*args)
+    torch.cuda.synchronize()
+    err, ok = attention_close(got, want)
+    log(f"  attention_sinks B={b}+{pad_rows} pad, {hq}/{hkv} heads x {d}, page {page}, ctx "
+        f"{ctx_list}, window {window}: max|err| {err:.3e} (tol 2e-2 + 2e-2 |plain|)")
+    if not ok:
+        raise AssertionError(f"attention_sinks disagrees with its plain version: {err}")
+    if not timed:
+        return None
+    r = dict(err=err, ms=time_ms(lambda: sa.attention_sinks(*args), 50),
+             plain_ms=time_ms(lambda: sa.attention_sinks_ref(*args), 10))
+    max_len = table_pages * page
+    kd, vd = sa._gather_pages(kc, bt, max_len), sa._gather_pages(vc, bt, max_len)
+    pos = torch.arange(max_len, device=DEV)[None, :]
+    mask = (pos < ctx[:, None]) & ((pos >= ctx[:, None] - window) if window else True)
+    r["library_ms"] = time_ms(sdpa_with_sink(q.reshape(-1, hq, 1, d), kd, vd,
+                                             mask[:, None, None, :], sinks), 50)
+    keys = sum(min(c, window) if window else c for c in ctx.tolist())
+    nbytes = 2 * q.numel() * 2 + keys * hkv * 2 * d * 2 + bt.numel() * 4 + ctx.numel() * 4 + hq * 4
+    r["bound_ms"], r["bound_by"] = bound(nbytes, keys * hq * 4 * d, BF16_FLOPS)
+    log(f"    {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, bound "
+        f"{r['bound_ms']:.5f} {r['bound_by']})")
+    return r
+
+
+def check_sinks_prefill(gen, seq_list, ctx_list, window, pad_rows, timed, with_sinks=True,
+                        table_pages=GPT_PAGES_PER_REQ):
+    """K12d at GPT-OSS's heads on packed requests (page 16) and ``pad_rows``
+    rows past them against its plain version (``attention_close``), the pad
+    rows exactly 0.  Timed (one request): the kernel, the plain version and
+    SDPA with the sink key over the request's gathered keys; the bound counts
+    each visible (row, key) pair and each key of the walked range once."""
+    hq, hkv, d, page = CFG_GPT.num_heads, CFG_GPT.num_kv_heads, CFG_GPT.head_dim, 16
+    bsz = len(seq_list)
+    max_pages = max(-(-c // page) for c in ctx_list)
+    kc, vc = sinks_cache(gen, bsz * max_pages)
+    bt = torch.zeros((bsz, table_pages), dtype=torch.int32, device=DEV)
+    bt[:, :max_pages] = torch.arange(bsz * max_pages, dtype=torch.int32,
+                                     device=DEV).reshape(bsz, max_pages)
+    seq = torch.tensor(seq_list, dtype=torch.int32, device=DEV)
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=DEV)
+    q = randn(gen, (sum(seq_list) + pad_rows, hq * d))
+    sinks = torch.randn(hq, generator=gen, device=DEV) * 2 if with_sinks else None
+    args = (q, kc, vc, sinks, seq, bt, ctx, d ** -0.5, window, hq, hkv)
+    kw = dict(max_q=max(seq_list))
+    got = sa.attention_sinks_prefill_pallas(*args, **kw)
+    want = sa.attention_sinks_prefill_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err, ok = attention_close(got, want)
+    log(f"  attention_sinks_prefill seq={seq_list} ctx={ctx_list} +{pad_rows} pad rows, "
+        f"{hq}/{hkv} heads x {d}, page {page}, window {window}, sinks {with_sinks}: max|err| "
+        f"{err:.3e} (tol 2e-2 + 2e-2 |plain|)")
+    if not ok or (pad_rows and bool(got[-pad_rows:].any())):
+        raise AssertionError(f"attention_sinks_prefill disagrees with its plain version: {err}")
+    if not timed:
+        return None
+    r = dict(err=err, ms=time_ms(lambda: sa.attention_sinks_prefill_pallas(*args, **kw), 20),
+             plain_ms=time_ms(lambda: sa.attention_sinks_prefill_plain(*args, **kw), 5))
+    sl, cl = seq_list[0], ctx_list[0]
+    kd, vd = sa._gather_pages(kc, bt[:1], cl), sa._gather_pages(vc, bt[:1], cl)
+    qpos = cl - sl + torch.arange(sl, device=DEV)[:, None]
+    kpos = torch.arange(cl, device=DEV)[None, :]
+    mask = (kpos <= qpos) & ((kpos > qpos - window) if window else True)
+    r["library_ms"] = time_ms(sdpa_with_sink(q[:sl].reshape(1, sl, hq, d).transpose(1, 2), kd,
+                                             vd, mask[None, None], sinks), 20)
+    pairs = int(mask.sum())
+    keys = cl - max(cl - sl - window + 1, 0) if window else cl
+    nbytes = 2 * sl * hq * d * 2 + keys * hkv * 2 * d * 2 + bt.numel() * 4 + hq * 4
+    r["bound_ms"], r["bound_by"] = bound(nbytes, pairs * hq * 4 * d, BF16_FLOPS)
+    log(f"    {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, bound "
+        f"{r['bound_ms']:.5f} {r['bound_by']})")
+    return r
+
+
+def check_gpt_oss_kernels(gen):
+    """K6a, K7b, K12a and K12d at the shapes [4e] gives them and on small
+    ragged cases (ctx 1, a window whose first key lies inside a page, pad
+    rows, dead rows of a q-block, no sinks).  Returns the JSON numbers: K6a
+    and K7b at a 512-row prefill call's shapes; K12a and K12d summed over a
+    step's two layers (window 128, then full)."""
+    r6 = check_rms_norm(gen, GPT_CHUNK, True)
+    check_rms_norm(gen, MAX_BATCH, True)
+    check_rms_norm(gen, 1, False)
+    n_exp = CFG_GPT.num_experts
+    r7 = check_swiglu_oai(gen, GPT_CHUNK * n_exp, True)
+    check_swiglu_oai(gen, MAX_BATCH * n_exp, True)
+    dec_ctx = [n + NEW_TOKENS for n in GPT_PROMPT_LENS]
+    pads = MAX_BATCH - len(dec_ctx)
+    r12a = [check_sinks_decode(gen, dec_ctx, w, pads, True) for w in (CFG_GPT.sliding_window, 0)]
+    for w in (8, 0):
+        check_sinks_decode(gen, [1, 16, 17, 37, 40], w, 2, False, table_pages=4)
+    r12d = [check_sinks_prefill(gen, [GPT_CHUNK], [2 * GPT_CHUNK], w, 0, True)
+            for w in (CFG_GPT.sliding_window, 0)]
+    for w, with_sinks in ((8, True), (0, True), (8, False)):
+        check_sinks_prefill(gen, [1, 5, 40], [1, 30, 70], w, 3, False, with_sinks, table_pages=5)
+    return (r6, r7, summed("attention_sinks, a decode step's two layers", r12a),
+            summed(f"attention_sinks_prefill, a {GPT_CHUNK}-row chunk's two layers", r12d))
+
+
+def gpt_oss_serve(params):
+    """Serve [4e]'s prompts through ``Engine(prefill_chunk=512)`` +
+    ``gpt_oss_adapter``: outputs, pages and radix reuse (``run_requests``),
+    and exact launch counts from the engine's own calls: K12d once a layer a
+    prefill call, K12a once a layer a decode call, K7b once a layer a model
+    call, K6a twice a layer a model call and once a head call; no DeepSeek
+    kernel.  Returns the engine, the prompts and the counts."""
+    adapter = gpt_oss_adapter(CFG_GPT, params, torch.bfloat16)
+    timer = StepTimer(adapter)
+    eng = Engine(adapter, GPT_NUM_PAGES, max_batch=MAX_BATCH, max_pages_per_req=GPT_PAGES_PER_REQ,
+                 prefill_chunk=GPT_CHUNK)
+    ps = prompts(torch.Generator().manual_seed(SEED + 4), GPT_PROMPT_LENS, (0, GPT_SHARED),
+                 CFG_GPT.vocab_size)
+    rids, wall, launches = run_requests(eng, ps, (0, GPT_SHARED), GPT_NUM_PAGES,
+                                        CFG_GPT.vocab_size)
+    n_pre, n_dec, n_head = (timer.calls[k] for k in ("prefill", "decode", "lm_head"))
+    layers = CFG_GPT.num_layers
+    want = {k: 0 for k in launches}
+    want.update({"attention_sinks_prefill_pallas": layers * n_pre,
+                 "attention_sinks": layers * n_dec, "swiglu_oai": layers * (n_pre + n_dec),
+                 "rms_norm": 2 * layers * (n_pre + n_dec) + n_head})
+    if launches != want:
+        raise AssertionError(f"launches {launches} over {n_pre} prefill, {n_dec} decode and "
+                             f"{n_head} head calls; want {want}")
+    dec_tokens = len(rids) * (NEW_TOKENS - 1)
+    log(f"  served {len(rids)} requests (prompts {[len(p) for p in ps]}, {NEW_TOKENS} new tokens "
+        f"each) in {wall:.2f} s wall; prefill {eng.stats['prefill_tokens']} tokens in {n_pre} "
+        f"calls of {GPT_CHUNK} rows, {timer.t['prefill']:.3f} s = "
+        f"{eng.stats['prefill_tokens'] / timer.t['prefill']:.1f} tok/s; decode {dec_tokens} "
+        f"tokens in {n_dec} steps, {timer.t['decode']:.3f} s = "
+        f"{dec_tokens / timer.t['decode']:.1f} tok/s; {n_head} head calls; radix cached tokens "
+        f"{eng.stats['cached_tokens']}; all pages returned")
+    log(f"  launches on the main path: {json.dumps({k: launches[k] for k in GPT_KERNELS})} "
+        f"(every other kernel 0)")
+    return eng, ps, launches
+
+
+def gpt_oss_step_checks(eng, params, ps):
+    """One decode step on a live batch of [4e]'s prompts and one 512-row
+    prefill chunk at context 1024 (the second chunk of a 1024-token
+    sequence), through the kernels and through ``plain=True`` (the head's
+    norm too), the routing replayed, held to :func:`routing_rule`; each
+    layer of each kernel run must have launched K12a / K12d.  Returns the
+    kernel-path decode logits and chunk for the profile."""
+    batch, n = live_batch(eng, ps)
+
+    def decode(plain):
+        h, _ = g.decode_step(CFG_GPT, params, g.embed(params, batch.ids), batch.pos, eng.caches,
+                             batch.block_table, batch.ctx, batch.slots, plain=plain)
+        return g.lm_head(params, h, plain=plain)
+
+    seq = (ps[2] + ps[1])[: 2 * GPT_CHUNK]
+    page = CFG_GPT.page_size
+    pages = eng.cm.alloc(2 * GPT_CHUNK // page)
+    ids = torch.tensor(seq, dtype=torch.int32, device=DEV)
+    bt = torch.zeros((1, GPT_PAGES_PER_REQ), dtype=torch.int32, device=DEV)
+    bt[0, : len(pages)] = torch.tensor([int(p) for p in pages], dtype=torch.int32)
+    pos = torch.arange(2 * GPT_CHUNK, device=DEV)
+    slots = (bt[0, pos // page] * page + pos % page).to(torch.int32)
+    sl = torch.tensor([GPT_CHUNK], dtype=torch.int32, device=DEV)
+
+    def chunk(c, plain):
+        rows = slice(c * GPT_CHUNK, (c + 1) * GPT_CHUNK)
+        ctx = torch.tensor([(c + 1) * GPT_CHUNK], dtype=torch.int32, device=DEV)
+        h, _ = g.prefill_step(CFG_GPT, params, g.embed(params, ids[rows]), sl, eng.caches, bt, ctx,
+                              slots[rows], max_q=GPT_CHUNK, plain=plain)
+        return h
+
+    chunk(0, False)                                 # the chunk's context, written once
+    layers = CFG_GPT.num_layers
+    checks = [("GPT-OSS decode step (logits)", decode, n, True, "attention_sinks"),
+              (f"GPT-OSS prefill chunk of {GPT_CHUNK} rows at context {2 * GPT_CHUNK} (hidden)",
+               lambda plain: chunk(1, plain), GPT_CHUNK, False, "attention_sinks_prefill_pallas")]
+    for label, run, rows, logits, attn in checks:
+        counters.reset()
+        ok = compare_runs(label, lambda: run(False), lambda: run(True), rows, logits=logits,
+                          forced=True, model=g)
+        launches = counters.read()
+        if not ok or launches[attn] != layers or launches["swiglu_oai"] != layers:
+            raise AssertionError(f"{label}: the kernels disagree with the plain path (rule held "
+                                 f"{ok}) or launched {launches}")
+    eng.cm.free(pages)
+    return (lambda: decode(False)), (lambda: chunk(1, False))
+
+
+def profile_steps(eng, batch, prompt, w8a8_step, long_prefill, dsa_prefill, dsa_decode,
+                  gpt_decode, gpt_prefill):
     """Device time by kernel of one decode call on the live batch, of one
     mixed engine tick (that decode plus a 64-token prefill chunk), of the
     fully W8A8 decode step on the same batch, of one 2048-token prefill call
-    on the int8 latent cache (``long_prefill``), and of one 2048-token DSA
-    prefill call and one DSA decode step (page mode)."""
+    on the int8 latent cache (``long_prefill``), of one 2048-token DSA
+    prefill call and one DSA decode step (page mode), and of a GPT-OSS decode
+    step and 512-row prefill call."""
     regions = [("decode step (fused W8A8 prologue)", lambda: eng.decode_logits(batch))]
     eng.add_request(prompt, 1)
     regions.append(("mixed tick (decode + prefill chunk)", eng.step))
@@ -1322,6 +1664,9 @@ def profile_steps(eng, batch, prompt, w8a8_step, long_prefill, dsa_prefill, dsa_
     regions.append((f"DSA {LONG_CHUNK}-token prefill call at context {2 * LONG_CHUNK}, int8 "
                     "cache", dsa_prefill))
     regions.append(("DSA decode step (page mode), int8 cache", dsa_decode))
+    regions.append(("GPT-OSS decode step (logits)", gpt_decode))
+    regions.append((f"GPT-OSS {GPT_CHUNK}-row prefill call at context {2 * GPT_CHUNK}",
+                    gpt_prefill))
     for label, fn in regions:
         rows, busy, wall = trace_profile.device_breakdown(fn)
         log(f"  {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
@@ -1424,10 +1769,21 @@ def main() -> None:
     dsa_prefill, dsa_decode, batch_d, n_d = long_prompt_checks(eng_d, params, moe, mla_wq8, lps,
                                                               cfg=CFG_DSA)
     dsa_token_decode(eng_d, batch_d, n_d, params, moe, mla_wq8)
+    log(f"[4e] GPT-OSS-20B widths, {CFG_GPT.num_layers} of {GPT_FULL_LAYERS} layers, seed {SEED}: "
+        f"Engine(prefill_chunk={GPT_CHUNK}) + gpt_oss_adapter")
+    t0 = time.perf_counter()
+    gparams = g.init_weights(CFG_GPT, SEED, torch.bfloat16, bias_scale=0.02, untied_lm_head=True)
+    gparams["rms_eps"] = CFG_GPT.rms_eps             # a checkpoint carries it; the head reads it
+    torch.cuda.synchronize()
+    log(f"  weights made in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    k6, k7, k12a, k12d = check_gpt_oss_kernels(torch.Generator(device=DEV).manual_seed(SEED + 5))
+    eng_g, gps, launches_g = gpt_oss_serve(gparams)
+    gpt_decode, gpt_prefill = gpt_oss_step_checks(eng_g, gparams, gps)
     log("[5] device time by kernel (torch.profiler)")
     profile_steps(eng, batch, ps[3][:200],
                   decode_step_fn(params, moe, mla_wq=mla_wq, dense_wq=dense_wq), long_prefill,
-                  dsa_prefill, dsa_decode)
+                  dsa_prefill, dsa_decode, gpt_decode, gpt_prefill)
 
     src = "sgl_kernel_npu_tpu_torch/csrc/"
     tpu = "sgl_kernel_npu_tpu/ops/"
@@ -1453,16 +1809,23 @@ def main() -> None:
                                     k10),
                                    ("mla_prefill_block_sparse", "mla_prefill.cu",
                                     "attention/mla_prefill.py:403",
-                                    {**k9b8, "err": max(k9b["err"], k9b8["err"])}))]
+                                    {**k9b8, "err": max(k9b["err"], k9b8["err"])}),
+                                   ("rms_norm", "norm.cu", "norm.py:87", k6),
+                                   ("swiglu_oai", "activation.cu", "activation.py:162", k7),
+                                   ("attention_sinks", "sinks_attention.cu",
+                                    "attention/sinks_attention.py:226", k12a),
+                                   ("attention_sinks_prefill_pallas", "sinks_attention.cu",
+                                    "attention/sinks_attention.py:721", k12d))]
     # launches: each kernel's count on the first path that runs it (the base
     # four on the float-prologue serve, K1 on the fused-prologue serve, K5
     # and K7a on the fully W8A8 step and chunk, K8a on the long-prompt serve,
-    # K10 and K9b on the DSA serve)
+    # K10 and K9b on the DSA serve, K6a, K7b, K12a and K12d on the GPT-OSS serve)
     path_launches = {**launches, "quant_matmul": launches_q["quant_matmul"],
                      "quant_per_token": launches_w["quant_per_token"],
                      "swiglu_quant": launches_w["swiglu_quant"],
                      "grouped_matmul": launches_l["grouped_matmul"],
-                     **{k: launches_d[k] for k in DSA_KERNELS}}
+                     **{k: launches_d[k] for k in DSA_KERNELS},
+                     **{k: launches_g[k] for k in GPT_KERNELS}}
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": path_launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

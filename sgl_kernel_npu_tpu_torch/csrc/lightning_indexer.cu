@@ -37,30 +37,9 @@ constexpr int KC = 64;           // keys a chunk
 constexpr int THREADS = 256;     // 8 warps x 16 rows
 constexpr size_t SMEM_BYTES = sizeof(bf16) * (ROWS + KC) * LDK + sizeof(float) * (8 * KC + ROWS);
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using sgl::ldsm_x2;
+using sgl::ldsm_x4;
+using sgl::mma_16816;
 
 // q [B, mq_in, N1, 128] bf16, w [B, mq_in, N1] f32, k [P, 1, page, 128] bf16,
 // bt [B, max_pages], lens_q / lens_k [B] -> out [B, mq_out, max_pages * page] f32.

@@ -88,37 +88,10 @@ __device__ __forceinline__ uint4 widen(uint2 v) {
   return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using sgl::ldsm_x2;
+using sgl::ldsm_x2_trans;
+using sgl::ldsm_x4;
+using sgl::mma_16816;
 
 // Position in the sequence of the block's key i: i itself on the dense walk,
 // on the sparse walk offset i % page of the selected page sel[i / page].

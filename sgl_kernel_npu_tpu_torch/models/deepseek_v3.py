@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from sgl_kernel_npu_tpu_torch.models import w8a8
@@ -60,7 +59,7 @@ from sgl_kernel_npu_tpu_torch.ops.attention.mla_prefill import (
     mla_prefill_ref,
     select_prefill_pages,
 )
-from sgl_kernel_npu_tpu_torch.ops.attention.sinks_attention import prefill_q_chunk
+from sgl_kernel_npu_tpu_torch.ops.attention.sinks_attention import packed_rows, prefill_q_chunk
 from sgl_kernel_npu_tpu_torch.ops.gmm_ring import (
     gmm1_ring,
     gmm1_ring_ref,
@@ -76,7 +75,7 @@ from sgl_kernel_npu_tpu_torch.ops.norm import rms_norm_ref
 from sgl_kernel_npu_tpu_torch.ops.quant import row_scale, saturate_int8
 from sgl_kernel_npu_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from sgl_kernel_npu_tpu_torch.parallel.fused_moe import quantize_expert_weights
-from sgl_kernel_npu_tpu_torch.utils.common import cdiv, resolve_device
+from sgl_kernel_npu_tpu_torch.utils.common import cdiv, resolve_device, to_torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,13 +224,6 @@ def init_quantized_experts(cfg: DeepSeekV3Config, seed: int = 1,
     return out
 
 
-def _to_torch(a, dev: torch.device) -> torch.Tensor:
-    a = np.array(a)                      # a writable, contiguous copy
-    if a.dtype.name == "bfloat16":       # ml_dtypes bfloat16: reinterpret the bits
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
-    return torch.from_numpy(a).to(dev)
-
-
 def from_jax_params(params_np: dict, moe_weights_q_np: list | None = None,
                     device="cuda", *, mla_wq_np: list | None = None,
                     dense_wq_np: list | None = None) -> tuple:
@@ -244,7 +236,7 @@ def from_jax_params(params_np: dict, moe_weights_q_np: list | None = None,
     dev = resolve_device(device)
 
     def conv(a):
-        return None if a is None else _to_torch(a, dev)
+        return None if a is None else to_torch(a, dev)
 
     params = {k: conv(v) for k, v in params_np.items() if k != "layers"}
     params["layers"] = [{k: conv(v) for k, v in lw.items()} for lw in params_np["layers"]]
@@ -679,15 +671,10 @@ def prefill_step(cfg: DeepSeekV3Config, params: dict, hidden, seq_lens, kv_cache
     ``(hidden, kv_caches)`` with the caches updated in place."""
     _require_moe_q(moe_weights_q)
     ks = _nope_scale(cfg)
-    s = hidden.shape[0]
     dev = hidden.device
     sl = seq_lens.to(dev).long()
-    ctx = context_lens.to(dev).long()
-    ends = torch.cumsum(sl, 0)
-    req = torch.clamp(torch.searchsorted(ends, torch.arange(s, device=dev), right=True),
-                      0, sl.shape[0] - 1)
-    j = torch.arange(s, device=dev) - (ends[req] - sl[req])
-    positions = ctx[req] - sl[req] + j
+    req, j = packed_rows(sl, hidden.shape[0])
+    positions = context_lens.to(dev).long()[req] - sl[req] + j
     cos, sin = rope_cos_sin(positions, cfg.qk_rope_dim)
     x = hidden
     for li, lw in enumerate(params["layers"]):

@@ -1,7 +1,7 @@
 """Continuous-batching serving engine over the native radix cache.
 
 Counterpart of ``sgl_kernel_npu_tpu/runtime/engine.py`` (``ModelAdapter``,
-``deepseek_adapter``, ``Engine``): request admission → radix prefix reuse
+``deepseek_adapter``, ``gpt_oss_adapter``, ``Engine``): request admission → radix prefix reuse
 (``csrc/cache_manager.cpp``) → chunked varlen prefill → batched paged decode,
 mixed with prefill → greedy tokens with their log-probabilities → refcounted
 release.  Where JAX jits each call with the caches donated, the port runs
@@ -12,9 +12,10 @@ block table of zeros.  A request's pages are bounded by
 ``max_pages_per_req`` (33 pages of 128 hold a 4096-token prompt and its
 decode).
 
-Not ported yet (ROADMAP): speculative decoding, the host KV tier, sampled
-decoding and penalties, stop tokens, prefill-priority (unmixed) scheduling,
-LoRA, and the other model adapters.
+Adapters: ``deepseek_adapter`` and ``gpt_oss_adapter``.  Not ported yet
+(ROADMAP): speculative decoding, the host KV tier, sampled decoding and
+penalties, stop tokens, prefill-priority (unmixed) scheduling, LoRA, and the
+other model adapters.
 
 Radix refcount protocol (single-threaded engine; see csrc/cache_manager.cpp):
   admit       — match(prompt[:-1]) holds the shared prefix; allocate the tail
@@ -78,6 +79,27 @@ def deepseek_adapter(cfg, params, dtype=torch.float32, *, moe_weights_q=None,
         decode_step=lambda x, pos, c, bt, ctx, slots: m.decode_step(
             cfg, params, x, pos, c, bt, ctx, slots, moe_weights_q=moe_weights_q,
             mla_wq=mla_wq),
+        init_cache=lambda n: m.init_kv_cache(cfg, n, dtype, device=dev),
+    )
+
+
+def gpt_oss_adapter(cfg, params, dtype=torch.float32, *, device="cuda") -> ModelAdapter:
+    """GPT-OSS (``models.gpt_oss``) on its float path: ``dtype`` is the KV
+    cache's.  Each prefill call takes ``max_q`` = its row count, the engine's
+    ``prefill_chunk``.  W8A8 (``weights_q``) and expert-parallel serving
+    (``ep_buffer``) are not ported yet (ROADMAP queue A)."""
+    from sgl_kernel_npu_tpu_torch.models import gpt_oss as m
+
+    dev = resolve_device(device)
+    return ModelAdapter(
+        page_size=cfg.page_size,
+        device=dev,
+        embed=lambda ids: m.embed(params, ids),
+        lm_head=lambda x: m.lm_head(params, x),
+        prefill_step=lambda x, sl, c, bt, ctx, slots: m.prefill_step(
+            cfg, params, x, sl, c, bt, ctx, slots, max_q=x.shape[0]),
+        decode_step=lambda x, pos, c, bt, ctx, slots: m.decode_step(
+            cfg, params, x, pos, c, bt, ctx, slots),
         init_cache=lambda n: m.init_kv_cache(cfg, n, dtype, device=dev),
     )
 

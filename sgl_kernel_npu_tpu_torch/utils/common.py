@@ -9,6 +9,7 @@ from one to the other.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -56,3 +57,11 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     selections meet ties of -inf at every dead position)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def to_torch(a, dev: torch.device) -> torch.Tensor:
+    """A numpy array (an ml_dtypes bfloat16 one too) → a tensor on ``dev``."""
+    a = np.array(a)                      # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":       # ml_dtypes bfloat16: reinterpret the bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)

@@ -17,11 +17,19 @@ def counted(fn):
 
 def wrappers() -> dict:
     """Every kernel wrapper of the port, by name."""
-    from sgl_kernel_npu_tpu_torch.ops import activation, gmm_ring, grouped_matmul, matmul, quant
+    from sgl_kernel_npu_tpu_torch.ops import (
+        activation,
+        gmm_ring,
+        grouped_matmul,
+        matmul,
+        norm,
+        quant,
+    )
     from sgl_kernel_npu_tpu_torch.ops.attention import (
         decode_attention,
         lightning_indexer,
         mla_prefill,
+        sinks_attention,
     )
 
     return {
@@ -36,6 +44,10 @@ def wrappers() -> dict:
         "lightning_indexer_scores_prefill_pallas":
             lightning_indexer.lightning_indexer_scores_prefill_pallas,
         "mla_prefill_block_sparse": mla_prefill.mla_prefill_block_sparse,
+        "rms_norm": norm.rms_norm,
+        "swiglu_oai": activation.swiglu_oai,
+        "attention_sinks": sinks_attention.attention_sinks,
+        "attention_sinks_prefill_pallas": sinks_attention.attention_sinks_prefill_pallas,
     }
 
 

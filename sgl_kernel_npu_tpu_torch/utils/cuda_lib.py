@@ -47,6 +47,11 @@ _SIGNATURES = {
     "grouped_matmul_dequant_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "grouped_matmul_swiglu_quant_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                                            _P, _P, _P],
+    "rms_norm_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "swiglu_oai_launch": [_P, _P, _I, _I, _I, _F, _F, _P],
+    "sinks_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "sinks_prefill_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _F, _P],
 }
 
 _lib = None

@@ -16,7 +16,14 @@ exp differs by ulps between libraries), scales rtol 1e-6; ``grouped_matmul``
 ``lightning_indexer_scores_prefill_pallas`` the same -inf positions and
 finite scores within 1e-4 of the row's largest |score| (f32 sums of exact
 bf16 products in another order); ``mla_prefill_block_sparse`` as the MLA
-kernels, 2e-2."""
+kernels, 2e-2; ``rms_norm`` and ``swiglu_oai`` in bf16 within one bf16 ulp of
+the output's largest value, in f32 within 1e-5 of it (f32 math in another
+order); the sinks attention kernels 2e-2, as the MLA kernels, with pad rows
+exactly 0; a small GPT-OSS's prefill and decode through the kernels within
+3e-2 of a row's largest value of the plain path (bf16 activations, the
+routing replayed)."""
+
+import math
 
 import pytest
 import torch
@@ -508,3 +515,146 @@ def test_dsa_steps_kernels_match_plain(dev, gran):
     assert launches == (4 if gran == "page" else 2)      # 2 prefill calls / 1 decode step
     rel = (got - want).abs().amax(-1) / want.abs().amax(-1)
     assert bool(torch.isfinite(got).all()) and float(rel.max()) < 5e-2, float(rel.max())
+
+
+# ---------------------------------------------------------------------------
+# GPT-OSS: rms_norm (K6a), swiglu_oai (K7b), sinks attention (K12a, K12d)
+# ---------------------------------------------------------------------------
+
+def _ulp_close(got, want, dtype):
+    """bf16: within one bf16 ulp of the output's largest value (the f32
+    results differ by a rounding, the bf16 rounding can then flip); f32:
+    within 1e-5 of it."""
+    scale = float(want.float().abs().max())
+    tol = 2.0 ** (math.floor(math.log2(scale)) - 7) if dtype == torch.bfloat16 else 1e-5 * scale
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("x_dt,w_dt", [(torch.bfloat16, torch.bfloat16),
+                                       (torch.float32, torch.float32),
+                                       (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("rows,hidden", [(1, 2880), (512, 2880), (7, 100), (3, 4097)])
+def test_rms_norm_kernel(dev, rows, hidden, x_dt, w_dt):
+    from sgl_kernel_npu_tpu_torch.ops import norm
+
+    gen = torch.Generator(device=dev).manual_seed(rows + hidden)
+    x = (torch.randn((rows, hidden), generator=gen, device=dev) * 3).to(x_dt)
+    w = (1 + 0.1 * torch.randn(hidden, generator=gen, device=dev)).to(w_dt)
+    before = norm.rms_norm.launches
+    got = norm.rms_norm(x, w, 1e-5)
+    want = norm.rms_norm_ref(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert norm.rms_norm.launches == before + 1 and got.dtype == x_dt
+    _ulp_close(got, want, x_dt)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,inter", [(256, 2880), (3, 3), (5, 6)])
+def test_swiglu_oai_kernel(dev, rows, inter, dtype):
+    """Interleaved gate / up with values past ±limit; (3, 3) and (5, 6) take
+    the one-pair-at-a-time path or a ragged vector count."""
+    gen = torch.Generator(device=dev).manual_seed(rows + inter)
+    x = (torch.randn((rows, 2 * inter), generator=gen, device=dev) * 5).to(dtype)
+    before = activation.swiglu_oai.launches
+    got = activation.swiglu_oai(x, 1.702, 7.0)
+    want = activation.swiglu_oai_ref(x, 1.702, 7.0)
+    torch.cuda.synchronize()
+    assert activation.swiglu_oai.launches == before + 1 and got.shape == (rows, inter)
+    _ulp_close(got, want, dtype)
+
+
+def _sinks_inputs(gen, dev, n_rows, ctx_max, hq, hkv, d, n_tables, page=16):
+    max_pages = -(-ctx_max // page)
+    n_pages = n_tables * max_pages + 1
+    kc = torch.randn((n_pages, hkv, page, d), generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn((n_pages, hkv, page, d), generator=gen, device=dev).to(torch.bfloat16)
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(n_rows)) + 1
+    bt = perm[: n_tables * max_pages].reshape(n_tables, max_pages).to(torch.int32).to(dev)
+    q = torch.randn((n_rows, hq * d), generator=gen, device=dev).to(torch.bfloat16)
+    sinks = torch.randn(hq, generator=gen, device=dev) * 2
+    return q, kc, vc, bt, sinks
+
+
+@pytest.mark.parametrize("window", [0, 8, 128])
+@pytest.mark.parametrize("hq,hkv,d", [(64, 8, 64), (16, 4, 128), (6, 2, 64)])
+def test_attention_sinks_kernel(dev, hq, hkv, d, window):
+    """Contexts 1, 16, 17, 37 (window 8: first key mid-page), 40 (first key
+    on a page boundary), 300 and 2000, and a pad row (ctx 1, zero table)."""
+    from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa
+
+    gen = torch.Generator(device=dev).manual_seed(hq + d + window)
+    ctx_l = [1, 16, 17, 37, 40, 300, 2000, 1]
+    q, kc, vc, bt, sinks = _sinks_inputs(gen, dev, len(ctx_l), max(ctx_l), hq, hkv, d,
+                                         len(ctx_l))
+    bt[-1] = 0
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
+    args = (q, kc, vc, sinks, bt, ctx, d ** -0.5, window, hq, hkv)
+    before = sa.attention_sinks.launches
+    got = sa.attention_sinks(*args)
+    want = sa.attention_sinks_ref(*args)
+    torch.cuda.synchronize()
+    assert sa.attention_sinks.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("window,with_sinks", [(0, True), (6, True), (128, True), (0, False)])
+@pytest.mark.parametrize("hq,hkv,d", [(64, 8, 64), (16, 4, 128), (3, 3, 64)])
+def test_attention_sinks_prefill_kernel(dev, hq, hkv, d, window, with_sinks):
+    """Ragged requests (1 token at context 1, 37 at 50, 200 at 700) and 3 pad
+    rows, which stay exactly 0; windows across pages of 16."""
+    from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa
+
+    gen = torch.Generator(device=dev).manual_seed(hq + d + window + with_sinks)
+    seq_l, ctx_l = [1, 37, 200], [1, 50, 700]
+    q, kc, vc, bt, sinks = _sinks_inputs(gen, dev, sum(seq_l) + 3, max(ctx_l), hq, hkv, d, 3)
+    seq = torch.tensor(seq_l, dtype=torch.int32, device=dev)
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
+    args = (q, kc, vc, sinks if with_sinks else None, seq, bt, ctx, d ** -0.5, window, hq, hkv)
+    before = sa.attention_sinks_prefill_pallas.launches
+    got = sa.attention_sinks_prefill_pallas(*args, max_q=200)
+    want = sa.attention_sinks_prefill_plain(*args)
+    torch.cuda.synchronize()
+    assert sa.attention_sinks_prefill_pallas.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert not got[-3:].any()
+
+
+@pytest.mark.parametrize("moe", [False, True])
+def test_gpt_oss_steps_kernels_match_plain(dev, moe):
+    """A small GPT-OSS at the kernels' widths (head_dim 64, 8 q heads a kv
+    head): a 40-token prefill then a decode step through the kernels equal
+    the plain path (bf16; the routing replayed)."""
+    from sgl_kernel_npu_tpu_torch.models import gpt_oss as g
+
+    cfg = g.GptOssConfig(vocab_size=256, hidden=256, num_layers=2, num_heads=16,
+                         num_kv_heads=2, head_dim=64, intermediate=256, sliding_window=16,
+                         **(dict(num_experts=8, topk=2, attention_bias=True) if moe else {}))
+    params = g.init_weights(cfg, 0, torch.bfloat16, device=dev, bias_scale=0.02)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((41, cfg.hidden), generator=gen, device=dev).to(torch.bfloat16)
+    bt = torch.arange(1, 5, dtype=torch.int32, device=dev)[None, :]
+    pos = torch.arange(41, device=dev)
+    slots = (bt[0, pos // 16] * 16 + pos % 16).to(torch.int32)
+    one = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)  # noqa: E731
+
+    def run(plain):
+        caches = g.init_kv_cache(cfg, 5, torch.bfloat16, device=dev)
+        y, _ = g.prefill_step(cfg, params, x[:40], one(40), caches, bt, one(40), slots[:40],
+                              max_q=40, plain=plain)
+        d, _ = g.decode_step(cfg, params, x[40:], pos[40:], caches, bt, one(41), slots[40:],
+                             plain=plain)
+        return torch.cat([y, d]).float()
+
+    record, router = [], g._router
+    try:
+        g._router = lambda c, lw, h: record.append(router(c, lw, h)) or record[-1]
+        got = run(False)
+        replay = iter(record)
+        g._router = lambda c, lw, h: next(replay)
+        want = run(True)
+    finally:
+        g._router = router
+    torch.cuda.synchronize()
+    rel = (got - want).abs().amax(-1) / want.abs().amax(-1)
+    assert bool(torch.isfinite(got).all()) and float(rel.max()) < 3e-2, float(rel.max())

@@ -1,0 +1,205 @@
+"""Port parity: GPT-OSS decode_step / prefill_step, decode_step_ref and the
+engine.
+
+Two layers (one sliding-window layer of 8 keys, one full) at hidden 256, the
+dense MLP and the MoE (4 experts, top-2, q / k / v / o biases), f32 and bf16;
+the JAX weights (biases made nonzero) cross over through ``from_jax_params``.
+The JAX side runs its Pallas kernels in interpret mode, the port its plain
+versions.  Tolerances: f32 within 1e-5 of the largest value (sums in another
+order), bf16 within 2e-2 (both round at every bf16 step, not at the same
+places); the engines' greedy tokens equal.  The JAX functions run under
+``jax.jit`` (one compile instead of op-by-op dispatch)."""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import jx, np32, port_config, tt
+from sgl_kernel_npu_tpu.models import gpt_oss as jm
+from sgl_kernel_npu_tpu_torch.models import gpt_oss as tm
+from sgl_kernel_npu_tpu_torch.runtime.engine import Engine, gpt_oss_adapter
+
+PAGE = 16
+DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5), "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+MOE = dict(num_experts=4, topk=2, attention_bias=True)
+BIASES = ("bq", "bk", "bv", "bo", "router_b", "b_gate_up", "b_down")
+
+
+def _setup(moe: bool, dt: str, seed: int = 0, **extra):
+    """JAX config and weights (biases drawn nonzero) and the port's copies."""
+    jdt, tdt, _ = DTYPES[dt]
+    jcfg = jm.GptOssConfig(num_layers=2, page_size=PAGE, vocab_size=64, sliding_window=8,
+                           **(MOE if moe else {}))
+    init = jax.jit(jm.init_weights, static_argnums=(1, 2))
+    params = jax.tree.map(np.asarray, init(jax.random.key(seed), jcfg, jnp.float32))
+    rng = np.random.default_rng(seed)
+    for lw in params["layers"]:
+        for name in BIASES:
+            if name in lw:
+                lw[name] = (rng.standard_normal(lw[name].shape) * 0.05).astype(np.float32)
+    params.update(extra)
+    jparams = jax.tree.map(lambda a: jx(a, jdt) if isinstance(a, np.ndarray) else a, params)
+    tparams = tm.from_jax_params(params, device="cpu", dtype=tdt)
+    return jcfg, port_config(jcfg, tm.GptOssConfig), jparams, tparams, rng
+
+
+def _jit(fn, cfg, **kw):
+    return jax.jit(functools.partial(fn, cfg, **kw))
+
+
+def _close(got, want, rel):
+    want = np32(want)
+    np.testing.assert_allclose(np32(got), want, rtol=0, atol=rel * np.abs(want).max())
+
+
+def _caches(rng, cfg, num_pages, jdt, tdt):
+    """Per-layer K / V caches of random history, as JAX and as port tensors."""
+    shape = (num_pages, cfg.num_kv_heads, PAGE, cfg.head_dim)
+    kv = [(rng.standard_normal(shape).astype(np.float32) * 0.5,
+           rng.standard_normal(shape).astype(np.float32) * 0.5) for _ in range(cfg.num_layers)]
+    return ([(jx(k, jdt), jx(v, jdt)) for k, v in kv],
+            [(tt(k, tdt), tt(v, tdt)) for k, v in kv])
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("moe", [False, True])
+def test_decode_then_prefill_match_jax(moe, dt):
+    """One decode step (contexts 1, 7, 20 and 33 over random history, a pad
+    row with slot -1), then a packed prefill of three requests (12 tokens at
+    context 30, 1 at context 1, 5 at context 21) and two pad rows on the
+    caches the decode left: hidden states and caches compared."""
+    jdt, tdt, rel = DTYPES[dt]
+    jcfg, tcfg, jp, tp, rng = _setup(moe, dt)
+    kv_j, kv_t = _caches(rng, jcfg, 17, jdt, tdt)
+    bt = np.arange(1, 17, dtype=np.int32).reshape(4, 4)
+    ctx = np.asarray([1, 7, 20, 33], np.int32)
+    pos = ctx - 1
+    slots = (bt[np.arange(4), pos // PAGE] * PAGE + pos % PAGE).astype(np.int32)
+    slots[0] = -1
+    x = (rng.standard_normal((4, jcfg.hidden)) * 0.5).astype(np.float32)
+    yj, kv_j = _jit(jm.decode_step, jcfg)(jp, jx(x, jdt), jx(pos), kv_j, jx(bt), jx(ctx),
+                                          jx(slots))
+    yt, kv_t = tm.decode_step(tcfg, tp, tt(x, tdt), tt(pos), kv_t, tt(bt), tt(ctx), tt(slots))
+    assert yt.dtype == tdt
+    _close(yt, yj, rel)
+
+    seq = np.asarray([12, 1, 5], np.int32)
+    pctx = np.asarray([30, 1, 21], np.int32)
+    rows = [(b, int(pctx[b] - seq[b] + t)) for b in range(3) for t in range(seq[b])]
+    pslots = np.asarray([bt[b, p // PAGE] * PAGE + p % PAGE for b, p in rows] + [-1, -1],
+                        np.int32)
+    xp = (rng.standard_normal((len(pslots), jcfg.hidden)) * 0.5).astype(np.float32)
+    hj, kv_j = _jit(jm.prefill_step, jcfg, max_q=16)(jp, jx(xp, jdt), jx(seq), kv_j, jx(bt[:3]),
+                                                    jx(pctx), jx(pslots))
+    ht, kv_t = tm.prefill_step(tcfg, tp, tt(xp, tdt), tt(seq), kv_t, tt(bt[:3]), tt(pctx),
+                               tt(pslots), max_q=16)
+    _close(ht[:18], hj[:18], rel)
+    for (kj, vj), (kt, vt) in zip(kv_j, kv_t):
+        _close(kt, kj, rel)
+        _close(vt, vj, rel)
+
+
+def test_prefill_golden_path_matches_jax():
+    """``use_pallas=False``: the golden prefill attention on both sides."""
+    jcfg, tcfg, jp, tp, rng = _setup(True, "f32", seed=1)
+    kv_j, kv_t = _caches(rng, jcfg, 5, jnp.float32, torch.float32)
+    bt = np.arange(1, 5, dtype=np.int32).reshape(1, 4)
+    x = (rng.standard_normal((10, jcfg.hidden)) * 0.5).astype(np.float32)
+    slots = (bt[0, np.arange(30, 40) // PAGE] * PAGE + np.arange(30, 40) % PAGE).astype(np.int32)
+    seq, ctx = np.asarray([10], np.int32), np.asarray([40], np.int32)
+    hj, _ = _jit(jm.prefill_step, jcfg, use_pallas=False)(jp, jx(x), jx(seq), kv_j, jx(bt),
+                                                          jx(ctx), jx(slots))
+    ht, _ = tm.prefill_step(tcfg, tp, tt(x), tt(seq), kv_t, tt(bt), tt(ctx), tt(slots),
+                            use_pallas=False)
+    _close(ht, hj, 1e-5)
+
+
+def test_decode_step_ref_matches_jax_and_decode_step():
+    """JAX's golden (dense MLP, no biases) against the port's, and the
+    port's decode_step on the same weights and caches."""
+    jcfg, tcfg, jp, tp, rng = _setup(False, "f32", seed=2)
+    kv_j, kv_t = _caches(rng, jcfg, 9, jnp.float32, torch.float32)
+    kv_t2 = [(k.clone(), v.clone()) for k, v in kv_t]
+    bt = np.arange(1, 9, dtype=np.int32).reshape(2, 4)
+    ctx = np.asarray([9, 50], np.int32)
+    pos = ctx - 1
+    slots = (bt[np.arange(2), pos // PAGE] * PAGE + pos % PAGE).astype(np.int32)
+    x = (rng.standard_normal((2, jcfg.hidden)) * 0.5).astype(np.float32)
+    args_j = (jx(x), jx(pos), kv_j, jx(bt), jx(ctx), jx(slots))
+    want, _ = _jit(jm.decode_step_ref, jcfg)(jp, *args_j)
+    got, _ = tm.decode_step_ref(tcfg, tp, tt(x), tt(pos), kv_t, tt(bt), tt(ctx), tt(slots))
+    _close(got, want, 1e-5)
+    got2, _ = tm.decode_step(tcfg, tp, tt(x), tt(pos), kv_t2, tt(bt), tt(ctx), tt(slots))
+    _close(got2, want, 1e-5)
+
+
+def test_checkpoint_extras_match_jax():
+    """An untied head (``w_lm``), a checkpoint's ``rms_eps`` (which the head
+    reads, as JAX's does) and scaled rope tables (``rope_inv_freq``,
+    ``rope_attention_scaling``) cross over and give JAX's logits."""
+    jcfg0 = jm.GptOssConfig(num_layers=2, page_size=PAGE, vocab_size=64, sliding_window=8)
+    rng = np.random.default_rng(5)
+    inv_freq = (1.0 / 150000 ** (np.arange(0, jcfg0.head_dim, 2) / jcfg0.head_dim) * 0.7)
+    extra = {"w_lm": (rng.standard_normal((jcfg0.hidden, 64)) * 0.02).astype(np.float32),
+             "rms_eps": 1e-5, "rope_inv_freq": inv_freq.astype(np.float32),
+             "rope_attention_scaling": np.float32(1.2)}
+    jcfg, tcfg, jp, tp, rng = _setup(True, "f32", seed=3, **extra)
+    assert tp["rms_eps"] == 1e-5 and tp["w_lm"].shape == (jcfg.hidden, 64)
+    kv_j, kv_t = _caches(rng, jcfg, 3, jnp.float32, torch.float32)
+    bt = np.asarray([[1, 2]], np.int32)
+    x = (rng.standard_normal((6, jcfg.hidden)) * 0.5).astype(np.float32)
+    slots = (bt[0, np.arange(20, 26) // PAGE] * PAGE + np.arange(20, 26) % PAGE).astype(np.int32)
+    seq, ctx = np.asarray([6], np.int32), np.asarray([26], np.int32)
+    hj, _ = _jit(jm.prefill_step, jcfg, max_q=6)(jp, jx(x), jx(seq), kv_j, jx(bt), jx(ctx),
+                                                 jx(slots))
+    ht, _ = tm.prefill_step(tcfg, tp, tt(x), tt(seq), kv_t, tt(bt), tt(ctx), tt(slots), max_q=6)
+    _close(tm.lm_head(tp, ht), jm.lm_head(jp, hj), 1e-5)
+
+
+def test_engine_matches_jax_engine():
+    """The port's Engine with gpt_oss_adapter and the JAX package's: the same
+    greedy tokens for two prompts served together (chunked prefill of 8, one
+    crossing the 8-key window)."""
+    from sgl_kernel_npu_tpu.runtime.engine import Engine as JEngine
+    from sgl_kernel_npu_tpu.runtime.engine import gpt_oss_adapter as jadapter
+
+    jcfg, tcfg, jp, tp, _ = _setup(True, "f32", seed=4)
+    prompts = [[5, 9, 2, 33, 17, 4, 8, 21, 60, 3, 11, 40, 7], [40, 41, 42, 43, 44]]
+    kw = dict(num_pages=64, max_batch=2, max_pages_per_req=16, prefill_chunk=8)
+    want = JEngine(jadapter(jcfg, jp), **kw).run(prompts, 5)
+    eng = Engine(gpt_oss_adapter(tcfg, tp, device="cpu"), device="cpu", **kw)
+    assert eng.run(prompts, 5) == want
+    assert eng.cm.free_pages + eng.cm.cached_pages == 64
+
+
+def test_unported_switches_raise():
+    cfg = tm.GptOssConfig(num_layers=1, vocab_size=32)
+    params = tm.init_weights(cfg, 0, device="cpu")
+    for bad in (dict(packed_kv=True), dict(kv_cache_dtype="int8")):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tm.init_kv_cache(dataclasses.replace(cfg, **bad), 4, device="cpu")
+    caches = tm.init_kv_cache(cfg, 4, device="cpu")
+    x = torch.zeros((1, cfg.hidden))
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    for kw in (dict(weights_q={}), dict(kv_scales=[]), dict(ep_buffer=object())):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tm.decode_step(cfg, params, x, i32([0]), caches, i32([[1]]), i32([1]), i32([16]),
+                           **kw)
+
+
+def test_default_device_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    cfg = tm.GptOssConfig(num_layers=1, vocab_size=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tm.init_weights(cfg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tm.init_kv_cache(cfg, 4)
+    params = tm.init_weights(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gpt_oss_adapter(cfg, params)
