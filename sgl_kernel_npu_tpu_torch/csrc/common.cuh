@@ -19,6 +19,33 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// 8 cache values as one load: 16 bytes of bf16, 8 of int8 levels.
+template <typename T>
+struct Vec8;
+template <>
+struct Vec8<__nv_bfloat16> {
+  using type = uint4;
+};
+template <>
+struct Vec8<int8_t> {
+  using type = uint2;
+};
+
+__device__ __forceinline__ uint4 widen(uint4 v) { return v; }
+
+// 8 int8 levels -> 8 bf16 (exact).
+__device__ __forceinline__ uint4 widen(uint2 v) {
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t word = (i < 2 ? v.x : v.y) >> (16 * (i & 1));
+    const __nv_bfloat162 p = __floats2bfloat162_rn((float)(int8_t)(word & 0xffu),
+                                                   (float)(int8_t)((word >> 8) & 0xffu));
+    o[i] = *reinterpret_cast<const uint32_t*>(&p);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
 // bf16 tensor-core tiles: ldmatrix from shared memory and mma.sync.m16n8k16.
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -63,30 +63,8 @@ constexpr int NR = KT * DR / THREADS;                    // rope values a thread
 
 // VEC latent values as loaded from the cache: 16 bytes of bf16, 8 of int8.
 template <typename KN>
-struct Chunk;
-template <>
-struct Chunk<bf16> {
-  using type = uint4;
-};
-template <>
-struct Chunk<int8_t> {
-  using type = uint2;
-};
-
-__device__ __forceinline__ uint4 widen(uint4 v) { return v; }
-
-// 8 int8 levels -> 8 bf16 (exact).
-__device__ __forceinline__ uint4 widen(uint2 v) {
-  uint32_t o[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t word = (i < 2 ? v.x : v.y) >> (16 * (i & 1));
-    const __nv_bfloat162 p = __floats2bfloat162_rn((float)(int8_t)(word & 0xffu),
-                                                   (float)(int8_t)((word >> 8) & 0xffu));
-    o[i] = *reinterpret_cast<const uint32_t*>(&p);
-  }
-  return make_uint4(o[0], o[1], o[2], o[3]);
-}
+using Chunk = sgl::Vec8<KN>;
+using sgl::widen;
 
 using sgl::ldsm_x2;
 using sgl::ldsm_x2_trans;

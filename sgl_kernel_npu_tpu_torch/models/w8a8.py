@@ -4,8 +4,9 @@ Counterpart of ``sgl_kernel_npu_tpu/models/w8a8.py``: per-output-channel
 symmetric weight quant at load time, per-token dynamic activation quant
 (``quant_per_token``, K5) at run time, the int8 GEMM ``quant_matmul`` (K1)
 and the fused SwiGLU requant ``swiglu_quant`` (K7a).  ``plain=True`` takes
-the kernels' plain versions.  ``calibrate_kv_scales`` waits for Llama's int8
-KV cache.
+the kernels' plain versions.  Also the int8 KV cache's calibration
+(``calibrate_kv_scales``) and the converter of JAX's quantized weights
+(``from_jax_weights_q``).
 """
 
 from __future__ import annotations
@@ -15,10 +16,12 @@ import torch
 from sgl_kernel_npu_tpu_torch.ops.activation import swiglu_quant, swiglu_quant_ref
 from sgl_kernel_npu_tpu_torch.ops.matmul import quant_matmul, quant_matmul_ref
 from sgl_kernel_npu_tpu_torch.ops.quant import (
+    INT8_MAX,
     quant_per_channel,
     quant_per_token,
     quant_per_token_ref,
 )
+from sgl_kernel_npu_tpu_torch.utils.common import resolve_device, to_torch
 
 
 def quantize_matrix(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -50,3 +53,24 @@ def mlp_swiglu(x, w_gate_up_q, w_down_q, out_dtype, *, plain: bool = False):
     gu = project(x, w_gate_up_q, plain=plain)
     a_q, sa = (swiglu_quant_ref if plain else swiglu_quant)(gu.to(torch.bfloat16))
     return qmm(a_q, sa, w_down_q, out_dtype, plain=plain)
+
+
+def calibrate_kv_scales(caches) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Per-kv-head int8 cache scales read off a float run's paged caches
+    ``[(k_cache, v_cache)]`` of layout ``[P, Hkv, page, D]`` (unwritten pages
+    are zeros and raise no maximum): ``max(|x|max, 1e-6) / 127`` per layer
+    and kv head → ``[(k_scale [Hkv], v_scale [Hkv])]``, the models'
+    ``kv_scales``."""
+    def head_scale(c):
+        amax = c.float().abs().amax(dim=(0, 2, 3)).clamp_min(1e-6)
+        return amax / torch.full_like(amax, INT8_MAX)
+    return [(head_scale(k), head_scale(v)) for k, v in caches]
+
+
+def from_jax_weights_q(weights_q_np: dict, device="cuda") -> dict:
+    """JAX's quantized projections ``{"layers": [{name: (w_q [N, K] int8,
+    de_scale [N] f32)}]}`` (numpy leaves, the models' ``quantize_weights``)
+    → the port's tensors on ``device``; the layouts already agree."""
+    dev = resolve_device(device)
+    return {"layers": [{name: (to_torch(w, dev), to_torch(s, dev)) for name, (w, s) in lw.items()}
+                       for lw in weights_q_np["layers"]]}

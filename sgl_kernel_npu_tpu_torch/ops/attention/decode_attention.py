@@ -1,13 +1,24 @@
-"""Paged MLA decode attention: plain version and the Hopper kernel (K2).
+"""Paged decode attention: MLA (K2) and GQA (K11a / K11b), plain versions and
+the Hopper kernels.
 
 Counterpart of ``sgl_kernel_npu_tpu/ops/attention/decode_attention.py``
-(``decode_mla_ref``, ``decode_mla``).  Layouts are the JAX package's: q
-``[B, Hq, 512 + 64]`` (nope ‖ rope), latent cache ``[pages, 1, page, 512]``,
-rope cache transposed ``[pages, 1, 64, page]``; V aliases K_nope.  The CUDA
-kernel is ``csrc/decode_mla.cu``.  The latent cache is bf16 or int8: the
+(``decode_mla_ref``, ``decode_mla``, ``decode_gqa_ref``, ``decode_gqa``,
+``decode_gqa_high_performance``).  MLA: q ``[B, Hq, 512 + 64]`` (nope ‖
+rope), latent cache ``[pages, 1, page, 512]``, rope cache transposed
+``[pages, 1, 64, page]``; V aliases K_nope; the CUDA kernel is
+``csrc/decode_mla.cu``.  The latent cache is bf16 or int8: the
 ``int8_nzcache`` levels ``round(k / k_scale)``, where the plain version
 dequantizes and the kernel's wrapper folds ``k_scale`` into q_nope and the
 output, as the JAX wrapper does (the kernel reads levels only).
+
+GQA: q ``[B, Hq, D]``, caches ``[pages, Hkv, page, D]`` bf16, f32 or int8
+(levels ``round(x / scale)``, a scalar or per-kv-head scale) → ``[B, Hq,
+D]``.  Its CUDA kernel is the decode kernel of ``csrc/sinks_attention.cu``
+without a sink (:func:`paged_decode`, shared with the sinks attention of
+``sinks_attention.py``), bf16 or int8 caches only.  Its goldens dequantize
+the gathered keys, as JAX's do; its plain version
+(:func:`paged_decode_plain`) takes the wrapper's fold, so that kernel and
+plain version differ only in the kernel's arithmetic.
 
 DeepSeek-V3.2's sparse decode (DSA) is glue around K2, as in JAX:
 ``decode_mla_block_sparse`` (page mode: the indexer's top pages, sorted, as a
@@ -25,15 +36,21 @@ from sgl_kernel_npu_tpu_torch.utils.counters import counted
 
 NEG_INF = -1e30
 D_NOPE, D_ROPE = 512, 64   # widths the CUDA kernels are built for
+KERNEL_HEAD_DIMS = (32, 64, 128)   # head widths of the GQA / sinks kernels
 
 
-def _gather_pages(buffer: torch.Tensor, block_table: torch.Tensor, max_len: int) -> torch.Tensor:
-    """``[pages, H, page, D]`` + ``[B, max_pages]`` → ``[B, H, max_len, D]``."""
-    _, h, page_size, d = buffer.shape
+def _gather_pages(buffer: torch.Tensor, block_table: torch.Tensor, max_len: int,
+                  heads_per_row: int = 1) -> torch.Tensor:
+    """``[pages, H / hpr, page, hpr * D]`` + ``[B, max_pages]`` → ``[B, H,
+    max_len, D]``; ``heads_per_row`` 2 reads the packed layout
+    (``sinks_attention.pack_kv_sinks``: heads 2j and 2j + 1 side by side)."""
+    _, rows, page_size, width = buffer.shape
+    d = width // heads_per_row
     n_pages = cdiv(max_len, page_size)
-    pages = buffer[block_table[:, :n_pages].long()]            # [B, n, H, page, D]
+    pages = buffer[block_table[:, :n_pages].long()]            # [B, n, H / hpr, page, hpr * D]
     b = pages.shape[0]
-    return pages.permute(0, 2, 1, 3, 4).reshape(b, h, n_pages * page_size, d)[:, :, :max_len]
+    pages = pages.reshape(b, n_pages, rows, page_size, heads_per_row, d).permute(0, 2, 4, 1, 3, 5)
+    return pages.reshape(b, rows * heads_per_row, n_pages * page_size, d)[:, :, :max_len]
 
 
 def int8_scale(k_nope_buffer: torch.Tensor, k_scale):
@@ -126,6 +143,201 @@ def decode_mla(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale, block_tab
         float(sm_scale), int(ks is not None), cuda_lib.stream_ptr(q)), "decode_mla")
     decode_mla.launches += 1
     return out if ks is None else unfold_out_scale(out, ks)
+
+
+# ---------------------------------------------------------------------------
+# paged GQA decode (K11a, K11b), and the kernel it shares with sinks attention
+# ---------------------------------------------------------------------------
+
+def _kv_head_scale(scale, hkv: int, device) -> torch.Tensor:
+    """An int8 cache's dequant scale (scalar, per-kv-head ``[Hkv]``, or None
+    for 1) → ``[Hkv, 1, 1]`` f32 on ``device``."""
+    s = torch.as_tensor(1.0 if scale is None else scale, dtype=torch.float32, device=device)
+    return (s.reshape(-1, 1, 1) if s.dim() else s).expand(hkv, 1, 1)
+
+
+def scale_heads(x: torch.Tensor, scale, hkv: int) -> torch.Tensor:
+    """``x [N, Hkv, G, D]`` times an int8 cache's per-kv-head scale in f32,
+    cast back to x's dtype: the fold of ``k_scale`` into q and of ``v_scale``
+    into the output (JAX ``decode_attention.py:644-645``, ``:703-704``)."""
+    return (x * _kv_head_scale(scale, hkv, x.device)).to(x.dtype)   # promotes to f32
+
+
+def softmax_with_sink(logits: torch.Tensor, sinks, hkv: int, group: int) -> torch.Tensor:
+    """Softmax over the last dim of ``logits [..., Hkv, G, L]``, with head
+    (k, g)'s sink logit as one more entry that is then dropped (``sinks``
+    None: the plain softmax)."""
+    if sinks is None:
+        return torch.softmax(logits, dim=-1)
+    sink = sinks.float().reshape(hkv, group)[..., None].expand(*logits.shape[:-1], 1)
+    return torch.softmax(torch.cat([logits, sink], dim=-1), dim=-1)[..., :-1]
+
+
+def decode_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, context_lens, scale,
+                window: int, sinks) -> torch.Tensor:
+    """f32 attention of ``q [S, Hkv, G, D]`` over gathered ``k`` / ``v [S,
+    Hkv, L, D]``: row s sees positions ``[ctx - window, ctx)`` (all before
+    ``ctx`` at window 0), with the sink logits when given → ``[S, Hkv, G,
+    Dv]`` f32."""
+    hkv, group = q.shape[1], q.shape[2]
+    logits = torch.einsum("skgd,skld->skgl", q.float(), k.float()) * scale
+    pos = torch.arange(k.shape[2], device=q.device)[None, None, None, :]
+    ctx = context_lens.to(q.device).long()[:, None, None, None]
+    mask = pos < ctx
+    if window > 0:
+        mask &= pos >= ctx - window
+    p = softmax_with_sink(torch.where(mask, logits, NEG_INF), sinks, hkv, group)
+    return torch.einsum("skgl,skld->skgd", p, v.float())
+
+
+def check_paged_operands(query, k_cache, v_cache, q_head_num: int, k_head_num: int,
+                         heads_per_row: int, max_group: int | None = None) -> tuple[int, int]:
+    """What the CUDA kernels of ``csrc/sinks_attention.cu`` take → ``(head_dim,
+    group)``: a bf16 query, bf16 or int8 caches alike in the layout of
+    ``heads_per_row``, Dk = Dv in ``KERNEL_HEAD_DIMS``, contiguous caches."""
+    d = query.shape[-1] // q_head_num
+    group = q_head_num // k_head_num
+    if query.dtype != torch.bfloat16 or k_cache.dtype != v_cache.dtype \
+            or k_cache.dtype not in (torch.bfloat16, torch.int8):
+        raise ValueError(f"the CUDA attention kernels take a bf16 query and bf16 or int8 caches "
+                         f"alike, got {query.dtype}, {k_cache.dtype}, {v_cache.dtype}")
+    rows = k_head_num // heads_per_row
+    if d not in KERNEL_HEAD_DIMS or group * k_head_num != q_head_num \
+            or k_head_num % heads_per_row or k_cache.shape != v_cache.shape \
+            or (k_cache.shape[1], k_cache.shape[3]) != (rows, heads_per_row * d) \
+            or (max_group is not None and group > max_group):
+        raise ValueError(f"attention kernel shapes: head_dim (Dk = Dv) in {KERNEL_HEAD_DIMS}, "
+                         f"caches [P, {rows}, page, {heads_per_row * d}] alike"
+                         + ("" if max_group is None else f", at most {max_group} q heads a kv head")
+                         + f"; got query {tuple(query.shape)} with {q_head_num} heads, caches "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError("paged caches must be contiguous")
+    return d, group
+
+
+def paged_decode_ref(query, k_cache, v_cache, sinks, block_tables, context_lens, scale,
+                     window: int, q_head_num: int, k_head_num: int, k_scale=None,
+                     v_scale=None) -> torch.Tensor:
+    """Golden of :func:`paged_decode` on the plain layout, as JAX's goldens:
+    f32 math over the whole block table, int8 levels dequantized after the
+    gather.  query ``[S, Hq * Dk]`` → ``[S, Hq * Dv]``."""
+    s = query.shape[0]
+    d = query.shape[-1] // q_head_num
+    max_len = block_tables.shape[1] * k_cache.shape[2]
+    k = _gather_pages(k_cache, block_tables, max_len).float()           # [S, Hkv, L, D]
+    v = _gather_pages(v_cache, block_tables, max_len).float()
+    if k_cache.dtype == torch.int8:
+        k = k * _kv_head_scale(k_scale, k_head_num, k.device)[None]
+    if v_cache.dtype == torch.int8:
+        v = v * _kv_head_scale(v_scale, k_head_num, v.device)[None]
+    q = query.reshape(s, k_head_num, q_head_num // k_head_num, d)
+    out = decode_math(q, k, v, context_lens, scale, window, sinks)
+    return out.reshape(s, -1).to(query.dtype)
+
+
+def paged_decode_plain(query, k_cache, v_cache, sinks, block_tables, context_lens, scale,
+                       window: int, q_head_num: int, k_head_num: int, k_scale=None, v_scale=None,
+                       heads_per_row: int = 1) -> torch.Tensor:
+    """Plain version of :func:`paged_decode` (f32 math over the whole block
+    table), on the kernel's terms: an int8 cache's ``k_scale`` folded into q
+    (cast back to q's dtype), the levels read as they are, then ``v_scale``
+    folded into the output.  query ``[S, Hq * D]`` → ``[S, Hq * Dv]``."""
+    s = query.shape[0]
+    d = query.shape[-1] // q_head_num
+    max_len = block_tables.shape[1] * k_cache.shape[2]
+    q = query.reshape(s, k_head_num, q_head_num // k_head_num, d)
+    if k_cache.dtype == torch.int8:
+        q = scale_heads(q, k_scale, k_head_num)
+    k = _gather_pages(k_cache, block_tables, max_len, heads_per_row)
+    v = _gather_pages(v_cache, block_tables, max_len, heads_per_row)
+    out = decode_math(q, k, v, context_lens, scale, window, sinks).to(query.dtype)
+    if v_cache.dtype == torch.int8:
+        out = scale_heads(out, v_scale, k_head_num)
+    return out.reshape(s, -1)
+
+
+def paged_decode(query, k_cache, v_cache, sinks, block_tables, context_lens, scale,
+                 window: int, q_head_num: int, k_head_num: int, k_scale=None, v_scale=None,
+                 heads_per_row: int = 1) -> torch.Tensor:
+    """Launch the decode kernel of ``csrc/sinks_attention.cu`` on CUDA
+    tensors: query ``[S, Hq * D]`` (one new token a row, ``context_lens``
+    including it) over the paged caches (``heads_per_row`` 2: the packed
+    layout), with the sink logits ``sinks [Hq]`` or none, a sliding
+    ``window`` or none (0) → ``[S, Hq * D]`` bf16.  An int8 cache's scales
+    fold into q and the output here (JAX's wrappers fold them on the host);
+    the kernel reads levels.  Uncounted: each public wrapper counts its own
+    launches."""
+    d, group = check_paged_operands(query, k_cache, v_cache, q_head_num, k_head_num,
+                                    heads_per_row)
+    s = query.shape[0]
+    int8 = k_cache.dtype == torch.int8
+    q = query.reshape(s, k_head_num, group, d)
+    q = (scale_heads(q, k_scale, k_head_num) if int8 else q).contiguous()
+    bt = block_tables.to(torch.int32).contiguous()
+    ctx = context_lens.to(torch.int32).contiguous()
+    sk = None if sinks is None else sinks.float().contiguous()
+    out = torch.empty((s, q_head_num * d), dtype=torch.bfloat16, device=q.device)
+    lib = cuda_lib.load_library()
+    cuda_lib.check(lib, lib.sinks_decode_launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), None if sk is None else sk.data_ptr(),
+        bt.data_ptr(), ctx.data_ptr(), out.data_ptr(), s, k_head_num, heads_per_row, group, d,
+        int(int8), k_cache.shape[2], bt.shape[1], int(window), float(scale),
+        cuda_lib.stream_ptr(q)), "paged decode")
+    if int8:
+        out = scale_heads(out.reshape(s, k_head_num, group, d), v_scale, k_head_num).reshape(s, -1)
+    return out
+
+
+def decode_gqa_ref(q, k_buffer, v_buffer, kv_seq_lens, sm_scale, block_table, k_scale=None,
+                   v_scale=None):
+    """Golden paged GQA decode (:func:`paged_decode_ref`): ``q [B, Hq, Dk]``
+    → ``[B, Hq, Dv]``."""
+    b, hq, dk = q.shape
+    out = paged_decode_ref(q.reshape(b, hq * dk), k_buffer, v_buffer, None, block_table,
+                           kv_seq_lens, sm_scale, 0, hq, k_buffer.shape[1], k_scale, v_scale)
+    return out.reshape(b, hq, -1)
+
+
+def decode_gqa_plain(q, k_buffer, v_buffer, kv_seq_lens, sm_scale, block_table, *, k_scale=None,
+                     v_scale=None):
+    """Plain version of :func:`decode_gqa` (:func:`paged_decode_plain`: the
+    wrapper's fold of the int8 scales)."""
+    b, hq, dk = q.shape
+    out = paged_decode_plain(q.reshape(b, hq * dk), k_buffer, v_buffer, None, block_table,
+                             kv_seq_lens, sm_scale, 0, hq, k_buffer.shape[1], k_scale, v_scale)
+    return out.reshape(b, hq, -1)
+
+
+@counted
+def decode_gqa(q, k_buffer, v_buffer, kv_seq_lens, sm_scale, block_table, *, k_scale=None,
+               v_scale=None):
+    """Paged GQA decode attention (K11a): ``q [B, Hq, D]`` over caches
+    ``[pages, Hkv, page, D]`` → ``[B, Hq, D]``; ``kv_seq_lens`` count the
+    keys each row sees.  Int8 caches hold ``round(x / scale)`` levels,
+    ``k_scale`` / ``v_scale`` scalar or ``[Hkv]``.  CUDA tensors launch
+    ``csrc/sinks_attention.cu``'s decode kernel without a sink (bf16 or int8
+    caches, D in ``KERNEL_HEAD_DIMS``, Dk = Dv; anything else raises); CPU
+    tensors take :func:`decode_gqa_plain`.  Pad rows (ctx 1, block table of
+    zeros) are safe."""
+    if not on_cuda(q, k_buffer, v_buffer, kv_seq_lens, block_table):
+        return decode_gqa_plain(q, k_buffer, v_buffer, kv_seq_lens, sm_scale, block_table,
+                                k_scale=k_scale, v_scale=v_scale)
+    b, hq, dk = q.shape
+    out = paged_decode(q.reshape(b, hq * dk), k_buffer, v_buffer, None, block_table, kv_seq_lens,
+                       sm_scale, 0, hq, k_buffer.shape[1], k_scale, v_scale)
+    decode_gqa.launches += 1
+    return out.reshape(b, hq, dk)
+
+
+def decode_gqa_high_performance(q, k_buffer, v_buffer, kv_seq_lens, sm_scale, block_table, *,
+                                k_scale=None, v_scale=None):
+    """K11b: :func:`decode_gqa`'s function, which JAX computes as a flat page
+    walk with a 4-deep DMA ring where the head dims are lane-aligned (K11a
+    elsewhere).  Both are TPU schedules of one function: here it is
+    :func:`decode_gqa`, and it counts there."""
+    return decode_gqa(q, k_buffer, v_buffer, kv_seq_lens, sm_scale, block_table,
+                      k_scale=k_scale, v_scale=v_scale)
 
 
 # ---------------------------------------------------------------------------

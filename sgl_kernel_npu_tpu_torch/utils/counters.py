@@ -34,6 +34,7 @@ def wrappers() -> dict:
 
     return {
         "decode_mla": decode_attention.decode_mla,
+        "decode_gqa": decode_attention.decode_gqa,
         "mla_prefill_pallas": mla_prefill.mla_prefill_pallas,
         "gmm1_ring": gmm_ring.gmm1_ring,
         "gmm2_combine_ring": gmm_ring.gmm2_combine_ring,
@@ -47,6 +48,7 @@ def wrappers() -> dict:
         "rms_norm": norm.rms_norm,
         "swiglu_oai": activation.swiglu_oai,
         "attention_sinks": sinks_attention.attention_sinks,
+        "attention_sinks_packed": sinks_attention.attention_sinks_packed,
         "attention_sinks_prefill_pallas": sinks_attention.attention_sinks_prefill_pallas,
     }
 

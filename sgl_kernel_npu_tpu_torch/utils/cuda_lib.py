@@ -49,9 +49,8 @@ _SIGNATURES = {
                                            _P, _P, _P],
     "rms_norm_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "swiglu_oai_launch": [_P, _P, _I, _I, _I, _F, _F, _P],
-    "sinks_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "sinks_prefill_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _F, _P],
+    "sinks_decode_launch": [_P] * 7 + [_I] * 9 + [_F, _P],
+    "sinks_prefill_launch": [_P] * 9 + [_I] * 10 + [_F, _P],
 }
 
 _lib = None

@@ -658,3 +658,243 @@ def test_gpt_oss_steps_kernels_match_plain(dev, moe):
     torch.cuda.synchronize()
     rel = (got - want).abs().amax(-1) / want.abs().amax(-1)
     assert bool(torch.isfinite(got).all()) and float(rel.max()) < 3e-2, float(rel.max())
+
+
+# ---------------------------------------------------------------------------
+# int8 and packed caches (K12a, K12b / K12c, K12d), paged GQA decode (K11a /
+# K11b), GPT-OSS's cache modes and W8A8, Llama
+# ---------------------------------------------------------------------------
+
+def _levels(x):
+    """int8 levels of N(0, 1) values at scale 1/32."""
+    return torch.clamp(torch.round(x.float() * 32), -128, 127).to(torch.int8)
+
+
+def _cache_mode(kc, vc, kind, hkv, dev):
+    """The caches in ``kind``'s form (int8 levels and / or the packed layout)
+    and the per-kv-head scales the int8 ones need."""
+    from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa
+
+    sc = {}
+    if "int8" in kind:
+        kc, vc = _levels(kc), _levels(vc)
+        ramp = 1 + 0.1 * torch.arange(hkv, device=dev)
+        sc = dict(k_scale=ramp / 32, v_scale=ramp.flip(0) / 32)
+    if "packed" in kind:
+        kc, vc = sa.pack_kv_sinks(kc), sa.pack_kv_sinks(vc)
+    return kc, vc, sc
+
+
+@pytest.mark.parametrize("kind", ["int8", "packed", "packed_int8"])
+@pytest.mark.parametrize("window", [0, 8])
+@pytest.mark.parametrize("hq,hkv,d", [(64, 8, 64), (32, 2, 32), (32, 4, 128)])
+def test_attention_sinks_cache_modes_kernel(dev, hq, hkv, d, window, kind):
+    """K12a on int8 levels (per-kv-head scales) and K12b / K12c on the
+    packed cache against their plain versions: the contexts of
+    ``test_attention_sinks_kernel``, a group of 16 at head_dim 32."""
+    from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa
+
+    gen = torch.Generator(device=dev).manual_seed(hq + d + window + len(kind))
+    ctx_l = [1, 16, 17, 37, 40, 300, 2000, 1]
+    q, kc, vc, bt, sinks = _sinks_inputs(gen, dev, len(ctx_l), max(ctx_l), hq, hkv, d,
+                                         len(ctx_l))
+    bt[-1] = 0
+    kc, vc, sc = _cache_mode(kc, vc, kind, hkv, dev)
+    packed = "packed" in kind
+    fn = sa.attention_sinks_packed if packed else sa.attention_sinks
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
+    args = (q, kc, vc, sinks, bt, ctx, d ** -0.5, window, hq, hkv)
+    before = fn.launches
+    got = fn(*args, **sc)
+    want = sa.attention_sinks_plain(*args, packed=packed, **sc)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (32, 2, 32), (64, 4, 64)])
+def test_decode_gqa_kernel(dev, hq, hkv, d, int8):
+    """K11a at Llama-3.1-8B's heads (32 / 8 x 128), a group of 16 at head_dim
+    32 and 16 at 64, bf16 and int8 (per-kv-head scales); K11b launches the
+    same kernel and counts under K11a."""
+    gen = torch.Generator(device=dev).manual_seed(hq + d + int8)
+    ctx_l = [1, 16, 17, 300, 2000, 1]
+    q, kc, vc, bt, _ = _sinks_inputs(gen, dev, len(ctx_l), max(ctx_l), hq, hkv, d, len(ctx_l))
+    bt[-1] = 0
+    kc, vc, sc = _cache_mode(kc, vc, "int8" if int8 else "", hkv, dev)
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
+    args = (q.reshape(len(ctx_l), hq, d), kc, vc, ctx, d ** -0.5, bt)
+    before = da.decode_gqa.launches
+    got = da.decode_gqa(*args, **sc)
+    hp = da.decode_gqa_high_performance(*args, **sc)
+    want = da.decode_gqa_plain(*args, **sc)
+    torch.cuda.synchronize()
+    assert da.decode_gqa.launches == before + 2 and got.shape == (len(ctx_l), hq, d)
+    assert torch.equal(got, hp)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("kind", ["int8", "packed", "packed_int8"])
+@pytest.mark.parametrize("window,with_sinks", [(128, True), (0, False)])
+@pytest.mark.parametrize("hq,hkv,d", [(64, 8, 64), (32, 8, 128), (16, 2, 32)])
+def test_attention_sinks_prefill_cache_modes_kernel(dev, hq, hkv, d, window, with_sinks, kind):
+    """K12d on int8 levels and on the packed cache, with sinks and a window,
+    and without either (Llama's prefill, group 4 at 128): ragged requests
+    and 3 pad rows, which stay exactly 0."""
+    from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa
+
+    gen = torch.Generator(device=dev).manual_seed(hq + d + window + len(kind))
+    seq_l, ctx_l = [1, 37, 200], [1, 50, 700]
+    q, kc, vc, bt, sinks = _sinks_inputs(gen, dev, sum(seq_l) + 3, max(ctx_l), hq, hkv, d, 3)
+    kc, vc, sc = _cache_mode(kc, vc, kind, hkv, dev)
+    packed = "packed" in kind
+    seq = torch.tensor(seq_l, dtype=torch.int32, device=dev)
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
+    args = (q, kc, vc, sinks if with_sinks else None, seq, bt, ctx, d ** -0.5, window, hq, hkv)
+    before = sa.attention_sinks_prefill_pallas.launches
+    got = sa.attention_sinks_prefill_pallas(*args, max_q=200, packed=packed, **sc)
+    want = sa.attention_sinks_prefill_plain(*args, packed=packed, **sc)
+    torch.cuda.synchronize()
+    assert sa.attention_sinks_prefill_pallas.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert not got[-3:].any()
+
+
+def test_attention_kernels_reject_what_they_do_not_take(dev):
+    """What the kernels do not take raises ValueError on the card, nothing
+    falls back: Dk ≠ Dv, head_dim 256, an f32 cache, K and V of two types."""
+    from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa
+
+    bt = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    ctx = torch.ones(1, dtype=torch.int32, device=dev)
+    q = torch.zeros((1, 8, 192), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((2, 2, 16, 192), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="Dk = Dv"):
+        da.decode_gqa(q, k, k[..., :128].contiguous(), ctx, 0.1, bt)
+    q256 = torch.zeros((1, 8 * 256), dtype=torch.bfloat16, device=dev)
+    k256 = torch.zeros((2, 2, 16, 256), dtype=torch.bfloat16, device=dev)
+    sinks = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        sa.attention_sinks(q256, k256, k256, sinks, bt, ctx, 0.1, 0, 8, 2)
+    with pytest.raises(ValueError, match="head_dim"):
+        sa.attention_sinks_prefill_pallas(q256, k256, k256, None, ctx, bt, ctx, 0.1, 0, 8, 2)
+    q64 = torch.zeros((1, 8 * 64), dtype=torch.bfloat16, device=dev)
+    k64 = torch.zeros((2, 2, 16, 64), device=dev)
+    with pytest.raises(ValueError, match="bf16 or int8"):
+        sa.attention_sinks(q64, k64, k64, sinks, bt, ctx, 0.1, 0, 8, 2)
+    with pytest.raises(ValueError, match="bf16 or int8"):
+        sa.attention_sinks(q64, k64.to(torch.int8), k64.to(torch.bfloat16), sinks, bt, ctx, 0.1,
+                           0, 8, 2)
+
+
+def _small_gpt_oss(dev, **fields):
+    from sgl_kernel_npu_tpu_torch.models import gpt_oss as g
+
+    cfg = g.GptOssConfig(vocab_size=256, hidden=256, num_layers=2, num_heads=16, num_kv_heads=2,
+                         head_dim=64, intermediate=256, sliding_window=16, **fields)
+    return cfg, g.init_weights(cfg, 0, torch.bfloat16, device=dev)
+
+
+def test_gpt_oss_adapter_defaults_serve(dev):
+    """``gpt_oss_adapter(cfg, params)`` with its defaults serves on the card
+    (a bf16 cache); an explicit f32 cache raises at the first attention
+    call."""
+    from sgl_kernel_npu_tpu_torch.runtime.engine import Engine, gpt_oss_adapter
+
+    cfg, params = _small_gpt_oss(dev)
+    eng = Engine(gpt_oss_adapter(cfg, params), 32, max_batch=2, max_pages_per_req=8,
+                 prefill_chunk=32)
+    assert eng.caches[0][0].dtype == torch.bfloat16
+    outs = eng.run([list(range(3, 40)), [7, 8, 9]], 4)
+    assert [len(o) for o in outs] == [4, 4]
+    assert eng.cm.free_pages + eng.cm.cached_pages == 32
+    eng32 = Engine(gpt_oss_adapter(cfg, params, torch.float32), 32, max_batch=2,
+                   max_pages_per_req=8, prefill_chunk=32)
+    with pytest.raises(ValueError, match="bf16 or int8"):
+        eng32.run([[1, 2, 3]], 2)
+
+
+@pytest.mark.parametrize("mode", ["int8", "packed", "packed_int8", "weights_q"])
+def test_gpt_oss_modes_kernels_match_plain(dev, mode):
+    """A small dense GPT-OSS (head_dim 64, 8 q heads a kv head): a 40-token
+    prefill then a decode step through the kernels equal the plain path
+    within 3e-2 of a row's largest value (5e-2 where int8 levels or W8A8
+    take part), on the int8 cache with per-kv-head scales, the packed cache,
+    both, and W8A8 projections; packed decode launches K12b / K12c."""
+    from sgl_kernel_npu_tpu_torch.models import gpt_oss as g
+    from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa
+
+    fields = {"int8": dict(kv_cache_dtype="int8"), "packed": dict(packed_kv=True),
+              "packed_int8": dict(packed_kv=True, kv_cache_dtype="int8"), "weights_q": {}}[mode]
+    cfg, params = _small_gpt_oss(dev, **fields)
+    kw = {}
+    if "int8" in mode:
+        ramp = (1 + 0.1 * torch.arange(2, device=dev)) / 64
+        kw["kv_scales"] = [(ramp, ramp.flip(0))] * 2
+    if mode == "weights_q":
+        kw["weights_q"] = g.quantize_weights(cfg, params)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((41, cfg.hidden), generator=gen, device=dev).to(torch.bfloat16)
+    bt = torch.arange(1, 5, dtype=torch.int32, device=dev)[None, :]
+    pos = torch.arange(41, device=dev)
+    slots = (bt[0, pos // 16] * 16 + pos % 16).to(torch.int32)
+    one = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)  # noqa: E731
+
+    def run(plain):
+        caches = g.init_kv_cache(cfg, 5, torch.bfloat16, device=dev)
+        y, _ = g.prefill_step(cfg, params, x[:40], one(40), caches, bt, one(40), slots[:40],
+                              max_q=40, plain=plain, **kw)
+        d, _ = g.decode_step(cfg, params, x[40:], pos[40:], caches, bt, one(41), slots[40:],
+                             plain=plain, **kw)
+        return torch.cat([y, d]).float()
+
+    decode = sa.attention_sinks_packed if cfg.packed_kv else sa.attention_sinks
+    before = decode.launches
+    got = run(False)
+    want = run(True)
+    torch.cuda.synchronize()
+    assert decode.launches == before + cfg.num_layers
+    rel = (got - want).abs().amax(-1) / want.abs().amax(-1)
+    tol = 3e-2 if mode == "packed" else 5e-2
+    assert bool(torch.isfinite(got).all()) and float(rel.max()) < tol, float(rel.max())
+
+
+@pytest.mark.parametrize("mode", ["float", "w8a8_int8"])
+def test_llama_steps_kernels_match_plain(dev, mode):
+    """A small Llama (8 q / 2 kv heads of 32, JAX's default widths): a
+    40-token prefill then a decode step through the kernels (K11a, K12d
+    without sinks, K6a; with W8A8 on the int8 cache K1, K5, K7a too) equal
+    the plain path within 3e-2 of a row's largest value (5e-2 with W8A8 and
+    int8 levels)."""
+    from sgl_kernel_npu_tpu_torch.models import llama as lm
+
+    w8 = mode == "w8a8_int8"
+    cfg = lm.LlamaConfig(vocab_size=256, hidden=256, num_layers=2,
+                         **(dict(kv_cache_dtype="int8", kv_scale=0.02) if w8 else {}))
+    params = lm.init_weights(cfg, 0, torch.bfloat16, device=dev)
+    kw = {"weights_q": lm.quantize_weights(cfg, params)} if w8 else {}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((41, cfg.hidden), generator=gen, device=dev).to(torch.bfloat16)
+    bt = torch.arange(1, 5, dtype=torch.int32, device=dev)[None, :]
+    pos = torch.arange(41, device=dev)
+    slots = (bt[0, pos // 16] * 16 + pos % 16).to(torch.int32)
+    one = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)  # noqa: E731
+
+    def run(plain):
+        caches = lm.init_kv_cache(cfg, 5, torch.bfloat16, device=dev)
+        y, _ = lm.prefill_step(cfg, params, x[:40], one(40), caches, bt, one(40), slots[:40],
+                               max_q=40, plain=plain, **kw)
+        d, _ = lm.decode_step(cfg, params, x[40:], pos[40:], caches, bt, one(41), slots[40:],
+                              plain=plain, **kw)
+        return torch.cat([y, d]).float()
+
+    before = (da.decode_gqa.launches, matmul.quant_matmul.launches)
+    got = run(False)
+    want = run(True)
+    torch.cuda.synchronize()
+    assert da.decode_gqa.launches == before[0] + cfg.num_layers
+    assert matmul.quant_matmul.launches == before[1] + (12 * cfg.num_layers if w8 else 0)
+    rel = (got - want).abs().amax(-1) / want.abs().amax(-1)
+    tol = 5e-2 if w8 else 3e-2
+    assert bool(torch.isfinite(got).all()) and float(rel.max()) < tol, float(rel.max())

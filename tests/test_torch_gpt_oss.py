@@ -178,18 +178,176 @@ def test_engine_matches_jax_engine():
 
 
 def test_unported_switches_raise():
+    """Expert-parallel serving (``ep_buffer``) is not ported: the steps and
+    the adapter raise."""
     cfg = tm.GptOssConfig(num_layers=1, vocab_size=32)
     params = tm.init_weights(cfg, 0, device="cpu")
-    for bad in (dict(packed_kv=True), dict(kv_cache_dtype="int8")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tm.init_kv_cache(dataclasses.replace(cfg, **bad), 4, device="cpu")
     caches = tm.init_kv_cache(cfg, 4, device="cpu")
     x = torch.zeros((1, cfg.hidden))
     i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
-    for kw in (dict(weights_q={}), dict(kv_scales=[]), dict(ep_buffer=object())):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tm.decode_step(cfg, params, x, i32([0]), caches, i32([[1]]), i32([1]), i32([16]),
-                           **kw)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tm.decode_step(cfg, params, x, i32([0]), caches, i32([[1]]), i32([1]), i32([16]),
+                       ep_buffer=object())
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tm.prefill_step(cfg, params, x, i32([1]), caches, i32([[1]]), i32([1]), i32([16]),
+                        ep_buffer=object())
+    with pytest.raises(NotImplementedError, match="not ported"):
+        gpt_oss_adapter(cfg, params, ep_buffer=object(), device="cpu")
+
+
+def test_adapters_default_cache_dtype():
+    """``dtype=None``: an f32 cache on the CPU (JAX's default); the card's
+    default, bf16, is the ``cuda`` tests'.  A named dtype is kept; the int8
+    and packed caches ride on the config."""
+    from sgl_kernel_npu_tpu_torch.models import llama as tl
+    from sgl_kernel_npu_tpu_torch.runtime.engine import llama_adapter
+
+    cfg = tm.GptOssConfig(num_layers=1, vocab_size=32)
+    params = tm.init_weights(cfg, 0, device="cpu")
+    assert gpt_oss_adapter(cfg, params, device="cpu").init_cache(2)[0][0].dtype == torch.float32
+    bf = gpt_oss_adapter(cfg, params, torch.bfloat16, device="cpu").init_cache(2)[0][0]
+    assert bf.dtype == torch.bfloat16
+    c8 = gpt_oss_adapter(dataclasses.replace(cfg, kv_cache_dtype="int8", packed_kv=True), params,
+                         device="cpu").init_cache(2)[0][0]
+    assert c8.dtype == torch.int8 and c8.shape == (2, 1, cfg.page_size, 2 * cfg.head_dim)
+    lcfg = tl.LlamaConfig(num_layers=1, vocab_size=32)
+    lp = tl.init_weights(lcfg, 0, device="cpu")
+    assert llama_adapter(lcfg, lp, device="cpu").init_cache(2)[0][0].dtype == torch.float32
+
+
+# cache modes: (config fields, per-kv-head kv_scales passed to the steps)
+MODES = {"int8": (dict(kv_cache_dtype="int8"), False),
+         "packed": (dict(packed_kv=True), False),
+         "packed_int8": (dict(packed_kv=True, kv_cache_dtype="int8"), True)}
+
+
+def _mode_caches(rng, cfg, num_pages, jdt, tdt):
+    """Random history in the mode's cache: packed rows, int8 levels."""
+    hkv, d = cfg.num_kv_heads, cfg.head_dim
+    shape = (num_pages, hkv // 2, PAGE, 2 * d) if cfg.packed_kv else (num_pages, hkv, PAGE, d)
+    out_j, out_t = [], []
+    for _ in range(cfg.num_layers):
+        pair = []
+        for _ in range(2):
+            a = rng.standard_normal(shape).astype(np.float32) * 0.5
+            if cfg.kv_cache_dtype == "int8":
+                a = np.clip(np.round(a * 64), -128, 127).astype(np.int8)
+            pair.append(a)
+        out_j.append(tuple(jx(a) if a.dtype == np.int8 else jx(a, jdt) for a in pair))
+        out_t.append(tuple(tt(a) if a.dtype == np.int8 else tt(a, tdt) for a in pair))
+    return out_j, out_t
+
+
+@pytest.mark.parametrize("mode,dt", [("int8", "f32"), ("packed", "f32"), ("packed", "bf16"),
+                                     ("packed_int8", "f32")])
+def test_cache_modes_match_jax(mode, dt):
+    """The int8 cache (``cfg.kv_scale``), the packed cache, and the packed
+    int8 cache with per-kv-head ``kv_scales``: a decode step (a pad row) then
+    a packed prefill of three requests on the caches it left, hidden states
+    and caches against JAX's (its packed decode on the flat kernel, JAX's
+    default).  int8 within 1e-4 (a rounding tie moves a level), levels of
+    the new rows equal."""
+    fields, per_head = MODES[mode]
+    jdt, tdt, rel = DTYPES[dt]
+    rel = 1e-4 if "int8" in mode else rel
+    jcfg, tcfg, jp, tp, rng = _setup(False, dt, seed=6, **{})
+    jcfg = dataclasses.replace(jcfg, **fields)
+    tcfg = dataclasses.replace(tcfg, **fields)
+    kv_j, kv_t = _mode_caches(rng, jcfg, 9, jdt, tdt)
+    kw_j, kw_t = {}, {}
+    if per_head:
+        sc = [(rng.uniform(0.01, 0.03, 2).astype(np.float32),
+               rng.uniform(0.01, 0.03, 2).astype(np.float32)) for _ in range(2)]
+        kw_j = {"kv_scales": [(jx(a), jx(b)) for a, b in sc]}
+        kw_t = {"kv_scales": [(tt(a), tt(b)) for a, b in sc]}
+    bt = np.arange(1, 9, dtype=np.int32).reshape(2, 4)
+    ctx = np.asarray([20, 33], np.int32)
+    pos = ctx - 1
+    slots = (bt[np.arange(2), pos // PAGE] * PAGE + pos % PAGE).astype(np.int32)
+    bt3 = np.concatenate([bt, np.zeros((1, 4), np.int32)])
+    ctx3, pos3 = np.append(ctx, 1), np.append(pos, 0)
+    slots3 = np.append(slots, -1).astype(np.int32)
+    x = (rng.standard_normal((3, jcfg.hidden)) * 0.5).astype(np.float32)
+    yj, kv_j = _jit(jm.decode_step, jcfg)(jp, jx(x, jdt), jx(pos3), kv_j, jx(bt3), jx(ctx3),
+                                          jx(slots3), **kw_j)
+    yt, kv_t = tm.decode_step(tcfg, tp, tt(x, tdt), tt(pos3), kv_t, tt(bt3), tt(ctx3), tt(slots3),
+                              **kw_t)
+    _close(yt, yj, rel)
+    seq = np.asarray([12, 1], np.int32)
+    pctx = np.asarray([40, 1], np.int32)
+    rows = [(b, int(pctx[b] - seq[b] + t)) for b in range(2) for t in range(seq[b])]
+    pslots = np.asarray([bt[b, p // PAGE] * PAGE + p % PAGE for b, p in rows] + [-1], np.int32)
+    xp = (rng.standard_normal((len(pslots), jcfg.hidden)) * 0.5).astype(np.float32)
+    hj, kv_j = _jit(jm.prefill_step, jcfg, max_q=12)(jp, jx(xp, jdt), jx(seq), kv_j, jx(bt),
+                                                    jx(pctx), jx(pslots), **kw_j)
+    ht, kv_t = tm.prefill_step(tcfg, tp, tt(xp, tdt), tt(seq), kv_t, tt(bt), tt(pctx),
+                               tt(pslots), max_q=12, **kw_t)
+    _close(ht[:13], hj[:13], rel)
+    for (kj, vj), (kt, vt) in zip(kv_j, kv_t):
+        assert kt.dtype == (torch.int8 if "int8" in mode else tdt)
+        if "int8" in mode:     # every level but a rare rounding tie
+            for a, b in ((kt, kj), (vt, vj)):
+                diff = np.abs(a.numpy().astype(int) - np.asarray(b).astype(int))
+                assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+        else:
+            _close(kt, kj, rel)
+            _close(vt, vj, rel)
+
+
+def _jax_weights_q(jcfg, params_np):
+    """JAX's quantize_weights on the f32 weights → (jax tree, numpy tree)."""
+    jparams = jax.tree.map(jx, params_np)
+    wq = jm.quantize_weights(jcfg, jparams)
+    return wq, jax.tree.map(np.asarray, wq)
+
+
+@pytest.mark.parametrize("moe", [False, True])
+def test_quantize_weights_bit_equal_to_jax(moe):
+    """The port's quantize_weights on the same f32 weights: the same int8
+    matrices and scales, bit for bit (every projection in dense mode, the
+    attention ones only in MoE mode)."""
+    from sgl_kernel_npu_tpu_torch.models.w8a8 import from_jax_weights_q
+
+    jcfg, tcfg, _, tp, _ = _setup(moe, "f32", seed=8)
+    params_np = {"layers": [{n: a.numpy() for n, a in lw.items()} for lw in tp["layers"]]}
+    _, wq_np = _jax_weights_q(jcfg, params_np)
+    got = tm.quantize_weights(tcfg, tp)
+    want = from_jax_weights_q(wq_np, device="cpu")
+    names = {"wq", "wk", "wv", "wo"} | (set() if moe else {"w_gate_up", "w_down"})
+    for lg, lw in zip(got["layers"], want["layers"]):
+        assert set(lg) == set(lw) == names
+        for n in names:
+            assert torch.equal(lg[n][0], lw[n][0]) and torch.equal(lg[n][1], lw[n][1])
+
+
+def test_weights_q_engine_matches_jax_engine():
+    """W8A8 (``weights_q``, dense mode: every projection on K5 / K1) through
+    both engines: the same greedy tokens; and one decode step's hidden state
+    within 1e-4 of JAX's."""
+    from sgl_kernel_npu_tpu.runtime.engine import Engine as JEngine
+    from sgl_kernel_npu_tpu.runtime.engine import gpt_oss_adapter as jadapter
+    from sgl_kernel_npu_tpu_torch.models.w8a8 import from_jax_weights_q
+
+    jcfg, tcfg, jp, tp, rng = _setup(False, "f32", seed=9)
+    params_np = jax.tree.map(np.asarray, jp)
+    wq_j, wq_np = _jax_weights_q(jcfg, params_np)
+    wq_t = from_jax_weights_q(wq_np, device="cpu")
+    prompts = [[5, 9, 2, 33, 17, 4, 8, 21, 60, 3, 11], [40, 41, 42, 43, 44]]
+    kw = dict(num_pages=64, max_batch=2, max_pages_per_req=16, prefill_chunk=8)
+    want = JEngine(jadapter(jcfg, jp, weights_q=wq_j), **kw).run(prompts, 4)
+    eng = Engine(gpt_oss_adapter(tcfg, tp, weights_q=wq_t, device="cpu"), device="cpu", **kw)
+    assert eng.run(prompts, 4) == want
+
+    kv_j, kv_t = _caches(rng, jcfg, 5, jnp.float32, torch.float32)
+    bt = np.arange(1, 5, dtype=np.int32).reshape(1, 4)
+    x = (rng.standard_normal((1, jcfg.hidden)) * 0.5).astype(np.float32)
+    args = (np.asarray([30], np.int32), bt, np.asarray([31], np.int32),
+            np.asarray([bt[0, 1] * PAGE + 14], np.int32))
+    yj, _ = _jit(jm.decode_step, jcfg)(jp, jx(x), *(jx(a) for a in args[:1]), kv_j,
+                                       *(jx(a) for a in args[1:]), weights_q=wq_j)
+    yt, _ = tm.decode_step(tcfg, tp, tt(x), tt(args[0]), kv_t, *(tt(a) for a in args[1:]),
+                           weights_q=wq_t)
+    _close(yt, yj, 1e-4)
 
 
 def test_default_device_raises_without_gpu():
