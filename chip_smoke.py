@@ -88,12 +88,31 @@ Phases (any failure raises and the script exits non-zero without a result):
    int8 cache (its ``kv_scale`` calibrated), with exact launch counts
    (K11a, K12d, K6a; K1, K5, K7a), pages and radix reuse checked and a
    decode step and a 512-row chunk of each held to ``plain=True``.
+4g. Multi-LoRA on [4f]'s Llama, and the add-RMSNorm ops: add_rms_norm_bias
+   (K6b, with and without its static int8 quant), add_gemma_rms_norm (K6c,
+   on K6b's kernel) and l1_norm (K6d, bf16 and f32) at [512, 4096] and [8,
+   4096]; bgmv_fused (K13a) at H = D = 4096, rank 16, over 4 adapters at 8
+   and 512 tokens, over 64 at 8, and with ids outside the pool;
+   sgmv_fused (K13b) over a 512-row chunk of 4 sequences (one empty, a
+   tail), ranks 16 / 8 / 4 / 16 and mixed scalings: each held to its plain
+   version and timed; then the ops that no model calls (K6b-d, K13b) once
+   through their entry points with their launches counted.  Then
+   ``Engine(prefill_chunk=512)`` + ``llama_adapter(lora=...)`` (4 random
+   adapters of rank 16 on q and o, adapter 0 zero) serves [4f]'s prompts
+   under adapters 0-3 and two more requests on one prompt under adapters 1
+   and 2: exact launch counts (K13a twice a layer a model call), pages,
+   radix reuse among adapter-0 requests only (the LoRA requests on a cached
+   prompt find 0 cached tokens), different tokens from the two adapters; a
+   decode step of rows under adapters 0-3 and a 512-row chunk held to
+   ``plain=True``, float and with W8A8 ``weights_q``.
 5. ``torch.profiler`` breakdowns of a decode step, a mixed tick, the fully
    W8A8 decode step, one 2048-token prefill call on the int8 cache, one
    DSA prefill call and DSA decode step, a GPT-OSS decode step and 512-row
-   prefill call, and a Llama decode step and 512-row prefill call.
-6. Print the kernels' JSON line (16 rows, each from its own result), the
-   card line, and last the result line ``{"ok": true, "device": {...}}``.
+   prefill call, a Llama decode step and 512-row prefill call, and a Llama
+   decode step under LoRA.
+6. Print the kernels' JSON line (21 rows for the 23 ported TPU kernel
+   sites, each from its own result), the card line, and last the result
+   line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -120,6 +139,8 @@ from sgl_kernel_npu_tpu_torch.ops import (  # noqa: E402
     activation,
     gmm_ring,
     grouped_matmul,
+    lora,
+    lora_pallas,
     matmul,
     norm,
     quant,
@@ -204,6 +225,12 @@ LLAMA_FULL_LAYERS = 32
 CFG_LLAMA = lm.LlamaConfig(
     vocab_size=128256, hidden=4096, num_layers=2, num_heads=32, num_kv_heads=8, head_dim=128,
     intermediate=14336, page_size=16, rope_theta=500000.0, rms_eps=1e-5)
+
+# [4g] multi-LoRA on [4f]'s Llama: 4 adapters of rank 16 on q and o (adapter
+# 0 zero, as JAX's init_lora), random from a seed; the prompts' adapters (the
+# 1st and 5th, which share 512 tokens, under adapter 0)
+LORA_ADAPTERS, LORA_RANK = 4, 16
+LORA_IDS = [0, 1, 2, 3, 0]
 
 _flush_buf = None
 SPIN_CYCLES = 1_000_000        # ~500 us at the H100's 1.98 GHz boost clock
@@ -1089,11 +1116,11 @@ def compare_runs(label, run_kernel, run_plain, n, *, logits: bool, forced: bool,
     return routing_rule(label, got, want, same, logits, forced=forced)
 
 
-def live_batch(eng, ps):
-    """Re-admit the prompts (prefixes from the radix cache) and prefill them:
-    a decode batch of live rows."""
-    for p in ps:
-        eng.add_request(p, 32)
+def live_batch(eng, ps, lora_ids=None):
+    """Re-admit the prompts (prefixes from the radix cache; with ``lora_ids``
+    each under its adapter) and prefill them: a decode batch of live rows."""
+    for i, p in enumerate(ps):
+        eng.add_request(p, 32, lora_id=lora_ids[i] if lora_ids else 0)
     while any(r.pos < r.prompt_len for r in eng.running) or eng.waiting:
         eng.step()
     live = [r for r in eng.running if not r.done]
@@ -1101,7 +1128,7 @@ def live_batch(eng, ps):
 
 
 def decode_step_fn(params, moe, cfg=CFG, **kw):
-    return lambda x, pos, c, bt, ctx, slots: m.decode_step(
+    return lambda x, pos, c, bt, ctx, slots, lora_idx: m.decode_step(
         cfg, params, x, pos, c, bt, ctx, slots, moe_weights_q=moe, **kw)
 
 
@@ -1144,14 +1171,14 @@ def base_kernels():
 
 @contextlib.contextmanager
 def llama_base_kernels():
-    """Llama's plain path with K11a, K12d and K6a in place of their plain
-    versions: only K1, K5 and K7a stay plain."""
-    swaps = {"decode_gqa_plain": "decode_gqa",
-             "attention_sinks_prefill_plain": "attention_sinks_prefill_pallas",
-             "rms_norm_ref": "rms_norm"}
+    """Llama's plain path with K11a, K12d, K6a and K13a in place of their
+    plain versions: only K1, K5 and K7a stay plain."""
+    swaps = {"decode_gqa_plain": lm.decode_gqa,
+             "attention_sinks_prefill_plain": lm.attention_sinks_prefill_pallas,
+             "rms_norm_ref": lm.rms_norm, "bgmv_fused_plain": lora_pallas.bgmv_fused}
     refs = {ref: getattr(lm, ref) for ref in swaps}
     for ref, kernel in swaps.items():
-        setattr(lm, ref, getattr(lm, kernel))
+        setattr(lm, ref, kernel)
     try:
         yield
     finally:
@@ -1715,6 +1742,232 @@ def check_llama_kernels(gen):
     return r11["bf16"]
 
 
+NORM_HIDDEN = CFG_LLAMA.hidden     # the add-RMSNorm ops at Llama-3.1-8B's width
+
+
+def check_add_rms_norm(gen, rows, mode, timed):
+    """K6b (``mode`` "bias", or "quant": a static per-channel int8 scale of
+    20-40 and offset in ±2) or K6c ("gemma", on K6b's kernel) at ``[rows,
+    4096]`` bf16, bf16 weight and bias, eps 1e-5: the residual sum bit-equal
+    to the plain version's, the output within one bf16 ulp of its largest
+    value (int8: one level, and equal on 99 % of elements: 1 / sqrt against
+    rsqrt can move a value at a rounding tie).  No single PyTorch call
+    computes either function."""
+    h = NORM_HIDDEN
+    x = randn(gen, (rows, h), scale=2.0)
+    res = randn(gen, (rows, h))
+    w = (1 + 0.1 * torch.randn(h, generator=gen, device=DEV)).to(torch.bfloat16)
+    b = randn(gen, (h,), scale=0.1)
+    q = {}
+    if mode == "quant":
+        q = {"quant_scale": 20 + 20 * torch.rand(h, generator=gen, device=DEV),
+             "quant_offset": 4 * torch.rand(h, generator=gen, device=DEV) - 2}
+    if mode == "gemma":
+        name, fn = "add_gemma_rms_norm", lambda: norm.add_gemma_rms_norm(x, w, res, 1e-5)
+        ref = lambda: norm.add_gemma_rms_norm_ref(x, w, res, 1e-5)  # noqa: E731
+    else:
+        name, fn = "add_rms_norm_bias", lambda: norm.add_rms_norm_bias(x, res, w, b, 1e-5, **q)
+        ref = lambda: norm.add_rms_norm_bias_ref(x, res, w, b, 1e-5, **q)  # noqa: E731
+    (got, added), (want, want_added) = fn(), ref()
+    torch.cuda.synchronize()
+    if mode == "quant":
+        diff = (got.int() - want.int()).abs()
+        err = float(diff.max())
+        ok = err <= 1 and float((diff == 0).float().mean()) >= 0.99
+        tol = "int8 within one level, equal on 99 %"
+    else:
+        err, ok = ulp_close(got, want)
+        tol = "one bf16 ulp of the largest output"
+    log(f"  {name} ({mode}) [{rows}, {h}] bf16: max|err| {err:.3e} ({tol}); residual sum "
+        f"bit-equal: {torch.equal(added, want_added)}")
+    if not ok or not torch.equal(added, want_added):
+        raise AssertionError(f"{name} ({mode}) disagrees with its plain version: {err}")
+    if not timed:
+        return None
+    r = dict(err=err, ms=time_ms(fn, 50), plain_ms=time_ms(ref, 20), library_ms=None)
+    out_bytes = 1 if mode == "quant" else 2
+    vec_bytes = 2 * h * (2 if mode != "gemma" else 1) + (8 * h if mode == "quant" else 0)
+    r["bound_ms"], r["bound_by"] = bound(rows * h * (3 * 2 + out_bytes) + vec_bytes,
+                                         8 * rows * h, F32_FLOPS)
+    log(f"    {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, no single PyTorch call, bound "
+        f"{r['bound_ms']:.5f} {r['bound_by']})")
+    return r
+
+
+def check_l1_norm(gen, rows, dtype, timed):
+    """K6d at ``[rows, 4096]``: N(0.5, 1) rows (signed sums far from 0)
+    within 1e-5 of the largest output (f32 sums in another order, IEEE
+    division on both sides).  ``F.normalize(p=1)`` divides by Σ|x|, another
+    function: no library call."""
+    h = NORM_HIDDEN
+    x = (torch.randn((rows, h), generator=gen, device=DEV) + 0.5).to(dtype)
+    got, want = norm.l1_norm(x), norm.l1_norm_ref(x)
+    torch.cuda.synchronize()
+    err = max_abs(got, want)
+    scale = float(want.abs().max())
+    log(f"  l1_norm [{rows}, {h}] {str(dtype)[6:]}: max|err| {err:.3e} (tol 1e-5 x "
+        f"{scale:.3e})")
+    if got.dtype != torch.float32 or err > 1e-5 * scale:
+        raise AssertionError(f"l1_norm disagrees with its plain version: {err}")
+    if not timed:
+        return None
+    r = dict(err=err, ms=time_ms(lambda: norm.l1_norm(x), 50),
+             plain_ms=time_ms(lambda: norm.l1_norm_ref(x), 20), library_ms=None)
+    r["bound_ms"], r["bound_by"] = bound(rows * h * (x.element_size() + 4), 2 * rows * h,
+                                         F32_FLOPS)
+    log(f"    {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} "
+        f"{r['bound_by']})")
+    return r
+
+
+def lora_weights(gen, n_adapters, rank=LORA_RANK, h=NORM_HIDDEN, d=NORM_HIDDEN):
+    """Random bf16 adapters at Llama-3.1-8B's q / o widths: A [L, R, H] and B
+    [L, D, R], N(0, 0.1²)."""
+    return (randn(gen, (n_adapters, rank, h), scale=0.1),
+            randn(gen, (n_adapters, d, rank), scale=0.1))
+
+
+def lora_close(label, got, want, dead):
+    """K13a / K13b against their plain versions: within 1e-4 of the largest
+    value (f32 sums of the same products in another order), dead rows
+    exactly 0."""
+    err = max_abs(got, want)
+    scale = float(want.abs().max())
+    zero = not bool(got[dead].any())
+    log(f"  {label}: max|err| {err:.3e} (tol 1e-4 x {scale:.3e}); dead rows 0: {zero}")
+    if err > 1e-4 * scale or not zero or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def lora_bound(x, n_live_rows, ranks_read, d):
+    """The least time for a LoRA delta: x read, each adapter a live row uses
+    read once (its live ranks' A rows and B columns), f32 out written; 2 r
+    (H + D) bf16 operations a live row."""
+    h = x.shape[1]
+    rows_ops = sum(2 * r * (h + d) * n for r, n in n_live_rows)
+    nbytes = x.numel() * 2 + sum(r * (h + d) * 2 for r in ranks_read) + x.shape[0] * d * 4
+    return bound(nbytes, rows_ops, BF16_FLOPS)
+
+
+def check_bgmv(gen, t, n_adapters, timed, out_of_range=False):
+    """K13a at Llama-3.1-8B's widths (H = D = 4096), rank 16, bf16, ``t``
+    tokens over a pool of ``n_adapters``; ``out_of_range`` puts ids -1 and L
+    on two rows (a zero delta, no read).  Timed against its plain version;
+    no single PyTorch call computes it."""
+    a, b = lora_weights(gen, n_adapters)
+    x = randn(gen, (t, NORM_HIDDEN))
+    idx = torch.randint(0, n_adapters, (t,), generator=gen, device=DEV, dtype=torch.int32)
+    if out_of_range:
+        idx[0], idx[-1] = -1, n_adapters
+    dead = (idx < 0) | (idx >= n_adapters)
+    label = (f"bgmv_fused T {t}, {n_adapters} adapters of rank {LORA_RANK}"
+             f"{', ids -1 and L' if out_of_range else ''}")
+    fn = lambda: lora_pallas.bgmv_fused(x, a, b, idx)  # noqa: E731
+    plain = lambda: lora_pallas.bgmv_fused_plain(x, a, b, idx)  # noqa: E731
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    err = lora_close(label, got, want, dead)
+    if not timed:
+        return None
+    r = dict(err=err, ms=time_ms(fn, 50), plain_ms=time_ms(plain, 10), library_ms=None)
+    live = idx[~dead]
+    used = len(set(live.tolist()))
+    r["bound_ms"], r["bound_by"] = lora_bound(x, [(LORA_RANK, int(live.numel()))],
+                                              [LORA_RANK] * used, NORM_HIDDEN)
+    log(f"    {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, no single PyTorch call, bound "
+        f"{r['bound_ms']:.5f} {r['bound_by']}; {used} adapters read)")
+    return r
+
+
+SGMV_LENS = [100, 0, 250, 140]           # 490 of 512 rows: one empty sequence, a tail
+SGMV_IDS, SGMV_RANKS = [1, 2, 3, 0], [16, 8, 4, 16]
+SGMV_SCALINGS = [1.0, 0.5, 2.0, 0.25]
+
+
+def sgmv_inputs(gen):
+    a, b = lora_weights(gen, LORA_ADAPTERS)
+    x = randn(gen, (GPT_CHUNK, NORM_HIDDEN))
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=DEV)  # noqa: E731
+    return (x, a, b, i32(SGMV_IDS), i32(SGMV_LENS), i32(SGMV_RANKS),
+            torch.tensor(SGMV_SCALINGS, device=DEV))
+
+
+def check_sgmv(gen):
+    """K13b over a 512-row chunk at H = D = 4096: 4 sequences (one empty),
+    adapters of ranks 16 / 8 / 4 / 16 and mixed scalings, a 22-row tail
+    exactly 0.  Timed; no single PyTorch call."""
+    args = sgmv_inputs(gen)
+    fn = lambda: lora_pallas.sgmv_fused(*args)  # noqa: E731
+    plain = lambda: lora_pallas.sgmv_fused_plain(*args)  # noqa: E731
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    label = (f"sgmv_fused S {GPT_CHUNK}, sequences {SGMV_LENS} under adapters {SGMV_IDS}, ranks "
+             f"{SGMV_RANKS}, scalings {SGMV_SCALINGS}")
+    err = lora_close(label, got, want, torch.arange(GPT_CHUNK, device=DEV) >= sum(SGMV_LENS))
+    r = dict(err=err, ms=time_ms(fn, 50), plain_ms=time_ms(plain, 10), library_ms=None)
+    live = [(SGMV_RANKS[a], n) for a, n in zip(SGMV_IDS, SGMV_LENS) if n]
+    r["bound_ms"], r["bound_by"] = lora_bound(args[0], live, [r_ for r_, _ in live], NORM_HIDDEN)
+    log(f"    {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, no single PyTorch call, bound "
+        f"{r['bound_ms']:.5f} {r['bound_by']})")
+    return r
+
+
+def check_lora_norm_kernels(gen):
+    """[4g]'s kernel checks: K6b with and without its quant and K6c at
+    [512, 4096] and [8, 4096] bf16; K6d there in bf16 and f32; K13a at T 8
+    and 512 over 4 adapters, at T 8 over 64, with out-of-range ids; K13b.
+    Returns the JSON rows' numbers: K6b, K6c, K6d at [512, 4096] bf16, K13a
+    at T 8 over 4 adapters (a decode call's shape), K13b."""
+    r6b = check_add_rms_norm(gen, GPT_CHUNK, "bias", True)
+    check_add_rms_norm(gen, GPT_CHUNK, "quant", True)
+    r6c = check_add_rms_norm(gen, GPT_CHUNK, "gemma", True)
+    for mode in ("bias", "quant", "gemma"):
+        check_add_rms_norm(gen, MAX_BATCH, mode, True)
+    check_add_rms_norm(gen, 3, "quant", False)
+    r6d = check_l1_norm(gen, GPT_CHUNK, torch.bfloat16, True)
+    check_l1_norm(gen, GPT_CHUNK, torch.float32, True)
+    check_l1_norm(gen, MAX_BATCH, torch.bfloat16, True)
+    r13a = check_bgmv(gen, MAX_BATCH, LORA_ADAPTERS, True)
+    check_bgmv(gen, GPT_CHUNK, LORA_ADAPTERS, True)
+    check_bgmv(gen, MAX_BATCH, 64, True)
+    check_bgmv(gen, MAX_BATCH, LORA_ADAPTERS, False, out_of_range=True)
+    r13b = check_sgmv(gen)
+    return r6b, r6c, r6d, r13a, r13b
+
+
+def op_paths(gen):
+    """The ops no model calls (K6b, K6c, K6d, K13b), each through its public
+    entry point at [4g]'s shapes, with the launch counts reset just before
+    and read just after: add_rms_norm_bias without and with its quant and
+    add_gemma_rms_norm at [512, 4096] and [8, 4096], l1_norm in bf16 and f32,
+    fused_sgmv_delta on the 512-row chunk.  Outputs must be finite and
+    shaped.  Returns the counts."""
+    h = NORM_HIDDEN
+    w, b = randn(gen, (h,)), randn(gen, (h,), scale=0.1)
+    qs, qo = torch.full((h,), 30.0, device=DEV), torch.zeros(h, device=DEV)
+    sg = sgmv_inputs(gen)
+    counters.reset()
+    outs = []
+    for rows in (GPT_CHUNK, MAX_BATCH):
+        x, res = randn(gen, (rows, h)), randn(gen, (rows, h))
+        outs += norm.add_rms_norm_bias(x, res, w, b, 1e-5)
+        outs += norm.add_rms_norm_bias(x, res, w, b, 1e-5, quant_scale=qs, quant_offset=qo)
+        outs += norm.add_gemma_rms_norm(x, w, res, 1e-5)
+        outs += [norm.l1_norm(x + 2), norm.l1_norm(x.float() + 2)]
+    outs.append(lora.fused_sgmv_delta(*sg))
+    torch.cuda.synchronize()
+    launches = counters.read()
+    if not all(bool(torch.isfinite(o.float()).all()) for o in outs) \
+            or outs[-1].shape != (GPT_CHUNK, h) or outs[-1].dtype != torch.bfloat16:
+        raise AssertionError("an op's output is not finite or mis-shaped")
+    want = {"add_rms_norm_bias": 4, "add_gemma_rms_norm": 2, "l1_norm": 4, "sgmv_fused": 1}
+    if {k: launches[k] for k in want} != want or sum(launches.values()) != sum(want.values()):
+        raise AssertionError(f"op launches {launches}, want {want}")
+    log(f"  ops through their entry points: launches {json.dumps(want)}")
+    return launches
+
+
 def cache_desc(cfg) -> str:
     return f"{'packed ' if cfg.packed_kv else ''}{cfg.kv_cache_dtype} cache"
 
@@ -1768,7 +2021,8 @@ def log_serve(eng, rids, ps, wall, timer, what):
         f"cached tokens {eng.stats['cached_tokens']}; all pages returned")
 
 
-def step_checks(eng, ps, model, cfg, params, label, attn_kernel, routed, head, **step_kw):
+def step_checks(eng, ps, model, cfg, params, label, attn_kernel, routed, head, lora_ids=None,
+                **step_kw):
     """One decode step on a live batch of [4e]'s prompts and one 512-row
     prefill chunk at context 1024 (the second chunk of a 1024-token
     sequence), through the kernels and through ``plain=True``, held to
@@ -1777,15 +2031,23 @@ def step_checks(eng, ps, model, cfg, params, label, attn_kernel, routed, head, *
     rounding into int8 levels, to :func:`w8a8_verdict` against the path
     with only K1, K5 and K7a plain); each layer of each kernel run must
     have launched the decode kernel ``attn_kernel`` / K12d, and with
-    ``weights_q`` K1 and K5 their counts.  ``head(h, plain)``
-    makes the logits.  Returns the kernel-path decode logits and chunk for
-    the profile."""
-    batch, n = live_batch(eng, ps)
+    ``weights_q`` K1 and K5 their counts; with ``lora`` (Llama) the decode
+    rows run under ``lora_ids`` (prompt by prompt, pad rows 0), the chunk
+    under the last of them, and K13a must have launched twice a layer.
+    ``head(h, plain)`` makes the logits.  Returns the kernel-path decode
+    logits and chunk for the profile."""
+    batch, n = live_batch(eng, ps, lora_ids)
+    lora = step_kw.get("lora") is not None
+    dec_kw, chunk_kw = dict(step_kw), dict(step_kw)
+    if lora:
+        dec_kw["lora_idx"] = batch.lora_idx
+        chunk_kw["lora_idx"] = torch.full((GPT_CHUNK,), lora_ids[-1], dtype=torch.int32,
+                                          device=DEV)
 
     def decode(plain):
         h, _ = model.decode_step(cfg, params, model.embed(params, batch.ids), batch.pos,
                                  eng.caches, batch.block_table, batch.ctx, batch.slots,
-                                 plain=plain, **step_kw)
+                                 plain=plain, **dec_kw)
         return head(h, plain)
 
     seq = (ps[2] + ps[1])[: 2 * GPT_CHUNK]
@@ -1802,7 +2064,7 @@ def step_checks(eng, ps, model, cfg, params, label, attn_kernel, routed, head, *
         rows = slice(c * GPT_CHUNK, (c + 1) * GPT_CHUNK)
         ctx = torch.tensor([(c + 1) * GPT_CHUNK], dtype=torch.int32, device=DEV)
         h, _ = model.prefill_step(cfg, params, model.embed(params, ids[rows]), sl, eng.caches, bt,
-                                  ctx, slots[rows], max_q=GPT_CHUNK, plain=plain, **step_kw)
+                                  ctx, slots[rows], max_q=GPT_CHUNK, plain=plain, **chunk_kw)
         return h
 
     chunk(0, False)                                 # the chunk's context, written once
@@ -1831,7 +2093,8 @@ def step_checks(eng, ps, model, cfg, params, label, attn_kernel, routed, head, *
         # on Llama every projection: K1 six a layer, K5 three
         k1, k5 = (4, 2) if routed else (6, 3)
         want = {attn: layers, "quant_matmul": k1 * layers if w8 else 0,
-                "quant_per_token": k5 * layers if w8 else 0}
+                "quant_per_token": k5 * layers if w8 else 0,
+                "bgmv_fused": 2 * layers if lora else 0}
         if not ok or any(launches[k] != v for k, v in want.items()):
             raise AssertionError(f"{label_}: the kernels disagree with the plain path (rule held "
                                  f"{ok}) or launched {launches}, want {want}")
@@ -1871,9 +2134,9 @@ def gpt_oss_modes(params, eng_bf16, ps):
     cfg_p8 = dataclasses.replace(CFG_GPT, packed_kv=True, kv_cache_dtype="int8")
     adapter = gpt_oss_adapter(cfg_p8, params)
     # the engine's own steps write and read the cache at the calibrated scales
-    adapter.prefill_step = lambda x, sl, c, bt, ctx, slots: g.prefill_step(
+    adapter.prefill_step = lambda x, sl, c, bt, ctx, slots, lora_idx: g.prefill_step(
         cfg_p8, params, x, sl, c, bt, ctx, slots, max_q=x.shape[0], kv_scales=scales)
-    adapter.decode_step = lambda x, pos, c, bt, ctx, slots: g.decode_step(
+    adapter.decode_step = lambda x, pos, c, bt, ctx, slots, lora_idx: g.decode_step(
         cfg_p8, params, x, pos, c, bt, ctx, slots, kv_scales=scales)
     eng_p8 = Engine(adapter, GPT_NUM_PAGES, max_batch=MAX_BATCH,
                     max_pages_per_req=GPT_PAGES_PER_REQ, prefill_chunk=GPT_CHUNK)
@@ -1929,15 +2192,83 @@ def llama_step_checks(eng, params, ps, cfg, label, **step_kw):
                        lambda h, plain: lm.lm_head(params, h), **step_kw)
 
 
+def llama_lora_serve(params, lora, card):
+    """Phase [4g]: [4f]'s prompts through ``Engine(prefill_chunk=512)`` +
+    ``llama_adapter(lora=...)``, under adapters ``LORA_IDS`` (the two
+    prompts that share 512 tokens both under adapter 0), then two further
+    requests on the first prompt (in the radix from its adapter-0 request)
+    under adapters 1 and 2.  Checks outputs and pages; that radix reuse
+    happened among the adapter-0 requests and never for a LoRA request (the
+    further requests find no cached token, where a radix keyed by tokens
+    alone would hand them 1088); that the two adapters give the prompt
+    different tokens; exact launch counts from the engine's own calls: K13a
+    twice a layer a model call, K11a, K12d and K6a as [4f], nothing else.
+    Returns the engine, the prompts and the counts."""
+    cfg = CFG_LLAMA
+    adapter = llama_adapter(cfg, params, lora=lora)
+    timer = StepTimer(adapter)
+    eng = Engine(adapter, GPT_NUM_PAGES, max_batch=MAX_BATCH, max_pages_per_req=GPT_PAGES_PER_REQ,
+                 prefill_chunk=GPT_CHUNK)
+    ps = prompts(torch.Generator().manual_seed(SEED + 6), GPT_PROMPT_LENS, (0, GPT_SHARED),
+                 cfg.vocab_size)
+    counters.reset()
+    t0 = time.perf_counter()
+
+    def drain():
+        while eng.waiting or eng.running:
+            eng.step()
+
+    rids = [eng.add_request(p, NEW_TOKENS, lora_id=i) for p, i in zip(ps[:-1], LORA_IDS)]
+    while not any(r.rid == rids[0] and r.pos >= r.prompt_len for r in eng.running) \
+            and rids[0] not in eng.finished:
+        eng.step()
+    rids.append(eng.add_request(ps[-1], NEW_TOKENS, lora_id=LORA_IDS[-1]))
+    drain()
+    cached = eng.stats["cached_tokens"]
+    pair = [eng.add_request(ps[0], NEW_TOKENS, lora_id=i) for i in (1, 2)]
+    drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    outs = [eng.finished[r] for r in rids + pair]
+    if not all(len(o) == NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o) for o in outs):
+        raise AssertionError(f"unfinished or invalid outputs: {[len(o) for o in outs]}")
+    if eng.cm.free_pages + eng.cm.cached_pages != GPT_NUM_PAGES:
+        raise AssertionError("KV pages leaked")
+    if cached < GPT_SHARED or eng.stats["cached_tokens"] != cached:
+        raise AssertionError(f"radix: {cached} cached tokens among the adapter-0 requests (want "
+                             f">= {GPT_SHARED}), {eng.stats['cached_tokens'] - cached} for the "
+                             "LoRA requests on a cached prompt (want 0)")
+    if eng.finished[pair[0]] == eng.finished[pair[1]]:
+        raise AssertionError("adapters 1 and 2 gave one prompt the same tokens")
+    n_pre, n_dec = timer.calls["prefill"], timer.calls["decode"]
+    layers, calls = cfg.num_layers, n_pre + n_dec
+    want = {k: 0 for k in launches}
+    want.update({"attention_sinks_prefill_pallas": layers * n_pre, "decode_gqa": layers * n_dec,
+                 "rms_norm": (2 * layers + 1) * calls, "bgmv_fused": 2 * layers * calls})
+    if launches != want:
+        raise AssertionError(f"launches {launches} over {n_pre} prefill and {n_dec} decode "
+                             f"calls; want {want}")
+    log_serve(eng, rids + pair, ps + [ps[0]] * 2, wall, timer,
+              f"adapters {LORA_IDS} + 1 and 2 on the first prompt; {card}")
+    log(f"  radix: {cached} cached tokens among the adapter-0 requests, 0 for the LoRA "
+        f"requests; adapters 1 / 2 on one prompt: {eng.finished[pair[0]][:6]} / "
+        f"{eng.finished[pair[1]][:6]}")
+    log(f"  launches on the main path: "
+        f"{json.dumps({k: v for k, v in launches.items() if v})} (every other kernel 0)")
+    return eng, ps, launches
+
+
 def profile_steps(eng, batch, prompt, w8a8_step, long_prefill, dsa_prefill, dsa_decode,
-                  gpt_decode, gpt_prefill, llama_decode, llama_prefill):
+                  gpt_decode, gpt_prefill, llama_decode, llama_prefill, lora_decode):
     """Device time by kernel of one decode call on the live batch, of one
     mixed engine tick (that decode plus a 64-token prefill chunk), of the
     fully W8A8 decode step on the same batch, of one 2048-token prefill call
     on the int8 latent cache (``long_prefill``), of one 2048-token DSA
     prefill call and one DSA decode step (page mode), of a GPT-OSS decode
-    step and 512-row prefill call, and of a Llama decode step and 512-row
-    prefill call."""
+    step and 512-row prefill call, of a Llama decode step and 512-row
+    prefill call, and of a Llama decode step under LoRA (rows of adapters
+    0-3)."""
     regions = [("decode step (fused W8A8 prologue)", lambda: eng.decode_logits(batch))]
     eng.add_request(prompt, 1)
     regions.append(("mixed tick (decode + prefill chunk)", eng.step))
@@ -1953,6 +2284,7 @@ def profile_steps(eng, batch, prompt, w8a8_step, long_prefill, dsa_prefill, dsa_
     regions.append(("Llama-3.1-8B decode step (logits)", llama_decode))
     regions.append((f"Llama-3.1-8B {GPT_CHUNK}-row prefill call at context {2 * GPT_CHUNK}",
                     llama_prefill))
+    regions.append(("Llama-3.1-8B LoRA decode step (logits)", lora_decode))
     for label, fn in regions:
         rows, busy, wall = trace_profile.device_breakdown(fn)
         log(f"  {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
@@ -2086,10 +2418,24 @@ def main() -> None:
     eng_l8, _, _ = llama_serve(lparams, cfg_l8, card, lwq)
     llama_step_checks(eng_l8, lparams, lps_, cfg_l8, "Llama W8A8, int8 cache", weights_q=lwq)
     del eng_l8
+    log(f"[4g] multi-LoRA on Llama-3.1-8B widths: {LORA_ADAPTERS} adapters of rank {LORA_RANK} "
+        f"on q and o (adapter 0 zero), Engine(prefill_chunk={GPT_CHUNK}) + "
+        f"llama_adapter(lora=...); the add-RMSNorm ops")
+    gen_l = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    k6b, k6c, k6d, k13a, k13b = check_lora_norm_kernels(gen_l)
+    launches_ops = op_paths(gen_l)
+    lora_w = lm.init_lora(SEED + 8, CFG_LLAMA, LORA_ADAPTERS, LORA_RANK, torch.bfloat16)
+    eng_lo, _, launches_lo = llama_lora_serve(lparams, lora_w, card)
+    lora_ids = [1, 2, 3, 0, 2]                       # the live batch's rows, prompt by prompt
+    lora_decode, _ = llama_step_checks(eng_lo, lparams, lps_, CFG_LLAMA, "Llama LoRA",
+                                       lora_ids=lora_ids, lora=lora_w)
+    llama_step_checks(eng_lo, lparams, lps_, CFG_LLAMA, "Llama LoRA W8A8 (weights_q)",
+                      lora_ids=lora_ids, lora=lora_w, weights_q=lwq)
     log("[5] device time by kernel (torch.profiler)")
     profile_steps(eng, batch, ps[3][:200],
                   decode_step_fn(params, moe, mla_wq=mla_wq, dense_wq=dense_wq), long_prefill,
-                  dsa_prefill, dsa_decode, gpt_decode, gpt_prefill, llama_decode, llama_prefill)
+                  dsa_prefill, dsa_decode, gpt_decode, gpt_prefill, llama_decode, llama_prefill,
+                  lora_decode)
 
     src = "sgl_kernel_npu_tpu_torch/csrc/"
     tpu = "sgl_kernel_npu_tpu/ops/"
@@ -2118,6 +2464,11 @@ def main() -> None:
          "attention/sinks_attention.py:721", k12d),
         ("decode_gqa", "sinks_attention.cu",
          "attention/decode_attention.py:696 and :539", k11),
+        ("add_rms_norm_bias", "norm.cu", "norm.py:149", k6b),
+        ("add_gemma_rms_norm", "norm.cu", "norm.py:193", k6c),
+        ("l1_norm", "norm.cu", "norm.py:265", k6d),
+        ("bgmv_fused", "lora.cu", "lora_pallas.py:137", k13a),
+        ("sgmv_fused", "lora.cu", "lora_pallas.py:244", k13b),
     ]
     if len({id(r) for *_, r in rows}) != len(rows):
         raise AssertionError("two kernel rows share one result: a result was rebound")
@@ -2125,7 +2476,9 @@ def main() -> None:
     # four on the float-prologue serve, K1 on the fused-prologue serve, K5
     # and K7a on the fully W8A8 step and chunk, K8a on the long-prompt serve,
     # K10 and K9b on the DSA serve, K6a, K7b, K12a and K12d on the GPT-OSS
-    # serve, K12b / K12c on its packed serve, K11a on the Llama serve)
+    # serve, K12b / K12c on its packed serve, K11a on the Llama serve, K13a on
+    # the LoRA serve; K6b, K6c, K6d and K13b, which no model calls, on their
+    # ops' own run)
     path_launches = {**launches, "quant_matmul": launches_q["quant_matmul"],
                      "quant_per_token": launches_w["quant_per_token"],
                      "swiglu_quant": launches_w["swiglu_quant"],
@@ -2133,7 +2486,10 @@ def main() -> None:
                      **{k: launches_d[k] for k in DSA_KERNELS},
                      **{k: launches_g[k] for k in GPT_KERNELS},
                      "attention_sinks_packed": launches_gp["attention_sinks_packed"],
-                     "decode_gqa": launches_ll["decode_gqa"]}
+                     "decode_gqa": launches_ll["decode_gqa"],
+                     "bgmv_fused": launches_lo["bgmv_fused"],
+                     **{k: launches_ops[k] for k in ("add_rms_norm_bias", "add_gemma_rms_norm",
+                                                     "l1_norm", "sgmv_fused")}}
     kernels = [{
         "name": name, "route": "cuda", "source": src + cu, "replaces": tpu + replaces,
         "launches": path_launches[name], "max_abs_err": r["err"], "ms": r["ms"],

@@ -16,9 +16,12 @@ projection W8A8: q / k / v off one ``quant_per_token`` (K5) and three
 The steps return the final-normed hidden state, as JAX's; :func:`lm_head`
 applies no norm.  Weights are a plain dict of tensors with the JAX package's
 names and layouts; caches a list of per-layer ``(k_cache, v_cache)`` updated
-in place; ``plain=True`` runs the kernels' plain versions.  Not ported yet:
-LoRA (``init_lora``, ``lora=``; K13a / K13b, ROADMAP item 28) and the
-context-parallel prefill (``prefill_step_cp``, item 16).
+in place; ``plain=True`` runs the kernels' plain versions.  Multi-LoRA
+(``lora`` from :func:`init_lora` or :func:`from_jax_lora`, ``lora_idx`` an
+adapter per row, 0 = adapter 0, all zeros) adds a delta to the q and o
+projections through ``fused_lora_delta`` (K13a ``bgmv_fused``), on the float
+and the W8A8 path alike.  Not ported yet: the context-parallel prefill
+(``prefill_step_cp``, ROADMAP item 16).
 """
 
 from __future__ import annotations
@@ -36,11 +39,13 @@ from sgl_kernel_npu_tpu_torch.ops.attention.sinks_attention import (
     attention_sinks_prefill_plain,
     packed_rows,
 )
+from sgl_kernel_npu_tpu_torch.ops.lora import fused_lora_delta
+from sgl_kernel_npu_tpu_torch.ops.lora_pallas import bgmv_fused_plain
 from sgl_kernel_npu_tpu_torch.ops.mem_cache.kv_cache import write_kv
 from sgl_kernel_npu_tpu_torch.ops.norm import rms_norm, rms_norm_ref
 from sgl_kernel_npu_tpu_torch.ops.quant import quant_per_token, quant_per_token_ref
 from sgl_kernel_npu_tpu_torch.ops.rope import apply_rope, rope_cos_sin
-from sgl_kernel_npu_tpu_torch.utils.common import resolve_device
+from sgl_kernel_npu_tpu_torch.utils.common import resolve_device, to_torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,11 +64,6 @@ class LlamaConfig:
     rms_eps: float = 1e-6
     kv_cache_dtype: str = "bf16"   # "int8": K / V pages hold round(x / kv_scale)
     kv_scale: float = 1.0 / 64     # the int8 cache's scale when no kv_scales are given
-
-
-def _no_lora(lora) -> None:
-    if lora is not None:
-        raise NotImplementedError("Llama LoRA (lora=) not ported yet (ROADMAP item 28)")
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +111,46 @@ def quantize_weights(cfg: LlamaConfig, params: dict) -> dict:
         **{name: w8a8.quantize_matrix(lw[name]) for name in ("wq", "wk", "wv", "wo", "w_down")},
         "w_gate_up": w8a8.quantize_matrix(torch.cat([lw["w_gate"], lw["w_up"]], dim=1)),
     } for lw in params["layers"]]}
+
+
+def init_lora(seed: int, cfg: LlamaConfig, num_adapters: int, rank: int, dtype=torch.float32,
+              device="cuda") -> dict:
+    """Per-layer LoRA on the q and o projections with the JAX package's
+    shapes: ``qA [L, R, hidden]``, ``qB [L, Hq·D, R]``, ``oA [L, R, Hq·D]``,
+    ``oB [L, hidden, R]``, N(0, 0.1²) from ``seed``.  Adapter 0 is all zeros
+    (the "no adapter" row); each adapter's scaling is folded into its B."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, hq = cfg.hidden, cfg.num_heads * cfg.head_dim
+
+    def rnd(*shape):
+        w = torch.randn(shape, generator=gen, device=dev) * 0.1
+        w[0] = 0.0
+        return w.to(dtype)
+
+    return {"layers": [{"qA": rnd(num_adapters, rank, h), "qB": rnd(num_adapters, hq, rank),
+                        "oA": rnd(num_adapters, rank, hq), "oB": rnd(num_adapters, h, rank)}
+                       for _ in range(cfg.num_layers)]}
+
+
+def from_jax_lora(lora_np: dict, device="cuda", dtype=None) -> dict:
+    """The JAX package's LoRA weights (``init_lora``'s pytree, numpy leaves)
+    → the port's (the same dict; cast to ``dtype`` when given)."""
+    dev = resolve_device(device)
+
+    def conv(a):
+        t = to_torch(a, dev)
+        return t if dtype is None else t.to(dtype)
+
+    return {"layers": [{k: conv(v) for k, v in layer.items()} for layer in lora_np["layers"]]}
+
+
+def _lora_delta(x, a, b, idx, plain: bool):
+    """``(x @ A[i]ᵀ) @ B[i]ᵀ`` per row in x's type: K13a, or its plain
+    version."""
+    if plain:
+        return bgmv_fused_plain(x, a, b, idx).to(x.dtype)
+    return fused_lora_delta(x, a, b, idx)
 
 
 def init_kv_cache(cfg: LlamaConfig, num_pages: int, dtype=torch.float32,
@@ -165,13 +205,17 @@ def _qkv_attn_proj(lq: dict, hidden_n, plain: bool):
 
 
 def _layers(cfg: LlamaConfig, params: dict, x, positions, caches, slot_mapping, attend,
-            weights_q, kv_scales, plain: bool):
+            weights_q, kv_scales, lora, lora_idx, plain: bool):
     """The layer stack over ``x [N, hidden]``, then the final norm: each
     layer writes its K / V rows (int8 levels on the int8 path) at
     ``slot_mapping``, then ``attend(q [N, Hq, D], k_cache, v_cache, k_scale,
-    v_scale)`` reads them back."""
+    v_scale)`` reads them back.  With ``lora`` the q and o projections add
+    each row's adapter delta (``lora_idx [N]``)."""
     norm = rms_norm_ref if plain else rms_norm
     n, d = x.shape[0], cfg.head_dim
+    if lora is not None and (lora_idx is None or lora_idx.shape != (n,)):
+        raise ValueError(f"lora needs lora_idx [{n}], an adapter per row, got "
+                         f"{None if lora_idx is None else tuple(lora_idx.shape)}")
     cos, sin = rope_cos_sin(positions, d, base=cfg.rope_theta)
     for li, lw in enumerate(params["layers"]):
         lq = None if weights_q is None else weights_q["layers"][li]
@@ -181,6 +225,9 @@ def _layers(cfg: LlamaConfig, params: dict, x, positions, caches, slot_mapping, 
             qp, kp, vp = _qkv_attn_proj(lq, hidden_n, plain)
         else:
             qp, kp, vp = hidden_n @ lw["wq"], hidden_n @ lw["wk"], hidden_n @ lw["wv"]
+        if lora is not None:
+            la = lora["layers"][li]
+            qp = qp + _lora_delta(hidden_n, la["qA"], la["qB"], lora_idx, plain)
         q = apply_rope(qp.reshape(n, cfg.num_heads, d), cos, sin)
         k = apply_rope(kp.reshape(n, cfg.num_kv_heads, d), cos, sin)
         ks, vs = (None, None) if kv_scales is None else kv_scales[li]
@@ -188,8 +235,10 @@ def _layers(cfg: LlamaConfig, params: dict, x, positions, caches, slot_mapping, 
         write_kv(k, k_cache, slot_mapping, ks)
         write_kv(vp.reshape(n, cfg.num_kv_heads, d), v_cache, slot_mapping, vs)
         attn = attend(q, k_cache, v_cache, ks, vs).reshape(n, -1)
-        x = x + (attn @ lw["wo"] if lq is None
-                 else w8a8.project(attn, lq["wo"], x.dtype, plain=plain))
+        op = attn @ lw["wo"] if lq is None else w8a8.project(attn, lq["wo"], x.dtype, plain=plain)
+        if lora is not None:
+            op = op + _lora_delta(attn, la["oA"], la["oB"], lora_idx, plain)
+        x = x + op
         mlp_in = norm(x, lw["ln2"], cfg.rms_eps)
         x = x + (_mlp(lw, mlp_in) if lq is None else _mlp_q(lq, mlp_in, plain))
     return norm(x, params["ln_f"], cfg.rms_eps), caches
@@ -203,9 +252,9 @@ def decode_step(cfg: LlamaConfig, params: dict, x, positions, caches, block_tabl
                 context_lens, slot_mapping, *, lora=None, lora_idx=None, weights_q=None,
                 kv_scales=None, plain: bool = False):
     """One decode step over the stack: ``x [B, hidden]`` at ``positions``;
-    ``context_lens`` include the new token; slot ``-1`` rows write nothing.
-    Returns ``(final-normed hidden, caches)``, the caches updated in place."""
-    _no_lora(lora)
+    ``context_lens`` include the new token; slot ``-1`` rows write nothing;
+    ``lora_idx [B]`` is each row's adapter under ``lora``.  Returns
+    ``(final-normed hidden, caches)``, the caches updated in place."""
     decode = decode_gqa_plain if plain else decode_gqa
     scale = 1.0 / math.sqrt(cfg.head_dim)
 
@@ -213,7 +262,7 @@ def decode_step(cfg: LlamaConfig, params: dict, x, positions, caches, block_tabl
         return decode(q, kc, vc, context_lens, scale, block_tables, k_scale=ks, v_scale=vs)
 
     return _layers(cfg, params, x, positions, caches, slot_mapping, attend, weights_q,
-                   kv_scales, plain)
+                   kv_scales, lora, lora_idx, plain)
 
 
 def prefill_step(cfg: LlamaConfig, params: dict, x, seq_lens, caches, block_tables,
@@ -224,9 +273,8 @@ def prefill_step(cfg: LlamaConfig, params: dict, x, seq_lens, caches, block_tabl
     ``seq_lens[b]`` tokens, packed; K / V land in the paged cache first,
     then attention (no sinks, no window) reads them back.
     ``use_pallas=False`` attends with the golden
-    :func:`attention_sinks_prefill`.  Returns ``(final-normed hidden,
-    caches)``."""
-    _no_lora(lora)
+    :func:`attention_sinks_prefill`; ``lora_idx [S]`` is each row's adapter
+    under ``lora``.  Returns ``(final-normed hidden, caches)``."""
     prefill = attention_sinks_prefill_plain if plain else attention_sinks_prefill_pallas
     s = x.shape[0]
     sl = seq_lens.to(x.device).long()
@@ -242,4 +290,4 @@ def prefill_step(cfg: LlamaConfig, params: dict, x, seq_lens, caches, block_tabl
         return prefill(*args, max_q=max_q, k_scale=ks, v_scale=vs)
 
     return _layers(cfg, params, x, positions, caches, slot_mapping, attend, weights_q,
-                   kv_scales, plain)
+                   kv_scales, lora, lora_idx, plain)

@@ -46,6 +46,12 @@ def quant_per_channel(w: torch.Tensor, dim: int):
     return saturate_int8(wf / s.unsqueeze(dim)), s
 
 
+def quant_static_per_channel_ref(x: torch.Tensor, scale: torch.Tensor,
+                                 offset: torch.Tensor) -> torch.Tensor:
+    """Static per-channel quant: ``saturate_int8(x · scale + offset)`` in f32."""
+    return saturate_int8(x.float() * scale.float() + offset.float())
+
+
 def dequant_per_token(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     return (q.float() * scale[..., None]).to(dtype)
 

@@ -16,10 +16,20 @@ decode).
 Adapters: ``deepseek_adapter``, ``gpt_oss_adapter`` and ``llama_adapter``.
 Their KV cache is bf16 on the card and f32 on the CPU unless the caller
 names a dtype: the card's attention kernels take bf16 or int8 caches, where
-JAX defaults to f32 everywhere.  Not ported yet (ROADMAP): speculative
+JAX defaults to f32 everywhere.  Multi-LoRA: ``llama_adapter(lora=...)`` and
+``add_request(lora_id=...)``; every model call passes each row's adapter
+(``lora_idx``: the request's on every prefill row, 0 on decode pad rows),
+and the other adapters ignore it.  Not ported yet (ROADMAP): speculative
 decoding, the host KV tier, sampled decoding and penalties, stop tokens,
-prefill-priority (unmixed) scheduling, LoRA, the context- and
-pipeline-parallel Llama adapters, and the other model adapters.
+prefill-priority (unmixed) scheduling, the context- and pipeline-parallel
+Llama adapters, and the other model adapters.
+
+Prefix reuse and LoRA (a departure from the JAX engine, whose radix is keyed
+by tokens alone): LoRA on the q and o projections makes every layer's K / V
+after the first depend on the adapter, so a request with ``lora_id != 0``
+neither matches nor inserts into the radix; adapter-0 requests share pages
+as before.  JAX reuses one adapter's pages for another's request on the same
+prompt.
 
 Radix refcount protocol (single-threaded engine; see csrc/cache_manager.cpp):
   admit       — match(prompt[:-1]) holds the shared prefix; allocate the tail
@@ -51,8 +61,8 @@ class ModelAdapter:
     device: torch.device
     embed: Callable            # ids [N] → hidden [N, H]
     lm_head: Callable          # hidden [N, H] → logits [N, V]
-    prefill_step: Callable     # (x, seq_lens, caches, bt, ctx, slots) → (h, caches)
-    decode_step: Callable      # (x, pos, caches, bt, ctx, slots) → (h, caches)
+    prefill_step: Callable     # (x, seq_lens, caches, bt, ctx, slots, lora_idx) → (h, caches)
+    decode_step: Callable      # (x, pos, caches, bt, ctx, slots, lora_idx) → (h, caches)
     init_cache: Callable       # num_pages → caches
 
 
@@ -89,10 +99,10 @@ def deepseek_adapter(cfg, params, dtype=None, *, moe_weights_q=None, mla_wq=None
         device=dev,
         embed=lambda ids: m.embed(params, ids),
         lm_head=lambda x: m.lm_head(params, x),
-        prefill_step=lambda x, sl, c, bt, ctx, slots: m.prefill_step(
+        prefill_step=lambda x, sl, c, bt, ctx, slots, li: m.prefill_step(
             cfg, params, x, sl, c, bt, ctx, slots, max_q=x.shape[0],
             moe_weights_q=moe_weights_q, mla_wq=mla_wq),
-        decode_step=lambda x, pos, c, bt, ctx, slots: m.decode_step(
+        decode_step=lambda x, pos, c, bt, ctx, slots, li: m.decode_step(
             cfg, params, x, pos, c, bt, ctx, slots, moe_weights_q=moe_weights_q,
             mla_wq=mla_wq),
         init_cache=lambda n: m.init_kv_cache(cfg, n, dtype, device=dev),
@@ -118,9 +128,9 @@ def gpt_oss_adapter(cfg, params, dtype=None, *, weights_q=None, ep_buffer=None,
         device=dev,
         embed=lambda ids: m.embed(params, ids),
         lm_head=lambda x: m.lm_head(params, x),
-        prefill_step=lambda x, sl, c, bt, ctx, slots: m.prefill_step(
+        prefill_step=lambda x, sl, c, bt, ctx, slots, li: m.prefill_step(
             cfg, params, x, sl, c, bt, ctx, slots, max_q=x.shape[0], weights_q=weights_q),
-        decode_step=lambda x, pos, c, bt, ctx, slots: m.decode_step(
+        decode_step=lambda x, pos, c, bt, ctx, slots, li: m.decode_step(
             cfg, params, x, pos, c, bt, ctx, slots, weights_q=weights_q),
         init_cache=lambda n: m.init_kv_cache(cfg, n, dtype, device=dev),
     )
@@ -131,22 +141,24 @@ def llama_adapter(cfg, params, dtype=None, *, lora=None, weights_q=None,
     """Llama (``models.llama``): ``dtype`` is the KV cache's
     (:func:`_cache_dtype`; the int8 cache rides on ``cfg``, its scale
     ``cfg.kv_scale``); ``weights_q`` (``models.llama.quantize_weights``)
-    serves W8A8.  Each prefill call takes ``max_q`` = its row count.  LoRA
-    (``lora``) is not ported yet (ROADMAP item 28)."""
+    serves W8A8; ``lora`` (``models.llama.init_lora`` or ``from_jax_lora``)
+    serves multiple adapters, each request choosing one by
+    ``Engine.add_request(lora_id=...)``.  Each prefill call takes ``max_q`` =
+    its row count."""
     from sgl_kernel_npu_tpu_torch.models import llama as m
 
     dev = resolve_device(device)
-    m._no_lora(lora)
     dtype = _cache_dtype(dtype, dev)
     return ModelAdapter(
         page_size=cfg.page_size,
         device=dev,
         embed=lambda ids: m.embed(params, ids),
         lm_head=lambda x: m.lm_head(params, x),
-        prefill_step=lambda x, sl, c, bt, ctx, slots: m.prefill_step(
-            cfg, params, x, sl, c, bt, ctx, slots, max_q=x.shape[0], weights_q=weights_q),
-        decode_step=lambda x, pos, c, bt, ctx, slots: m.decode_step(
-            cfg, params, x, pos, c, bt, ctx, slots, weights_q=weights_q),
+        prefill_step=lambda x, sl, c, bt, ctx, slots, li: m.prefill_step(
+            cfg, params, x, sl, c, bt, ctx, slots, max_q=x.shape[0], lora=lora, lora_idx=li,
+            weights_q=weights_q),
+        decode_step=lambda x, pos, c, bt, ctx, slots, li: m.decode_step(
+            cfg, params, x, pos, c, bt, ctx, slots, lora=lora, lora_idx=li, weights_q=weights_q),
         init_cache=lambda n: m.init_kv_cache(cfg, n, dtype, device=dev),
     )
 
@@ -156,6 +168,7 @@ class _Request:
     rid: int
     prompt: np.ndarray            # int32 token ids
     max_new_tokens: int
+    lora_id: int = 0              # LoRA adapter (0 = none)
     pages: list = dataclasses.field(default_factory=list)   # block table (physical)
     pos: int = 0                  # tokens whose KV is in the cache
     want_logprobs: bool = False
@@ -184,6 +197,7 @@ class DecodeBatch:
     block_table: torch.Tensor
     ctx: torch.Tensor
     slots: torch.Tensor
+    lora_idx: torch.Tensor        # each row's adapter, 0 on pad rows
 
 
 class Engine:
@@ -212,11 +226,12 @@ class Engine:
 
     # ---------------- public API ----------------
 
-    def add_request(self, prompt, max_new_tokens: int, logprobs: bool = False) -> int:
+    def add_request(self, prompt, max_new_tokens: int, lora_id: int = 0,
+                    logprobs: bool = False) -> int:
         rid = self._next_rid
         self._next_rid += 1
         self.waiting.append(_Request(rid, np.asarray(prompt, np.int32), max_new_tokens,
-                                     want_logprobs=logprobs))
+                                     lora_id=lora_id, want_logprobs=logprobs))
         return rid
 
     def run(self, prompts, max_new_tokens: int) -> list[list[int]]:
@@ -247,6 +262,7 @@ class Engine:
         ctx = np.ones((b,), np.int32)
         slots = np.full((b,), -1, np.int32)
         bt = np.zeros((b, self.max_pages_per_req), np.int32)
+        lora_idx = np.zeros((b,), np.int32)
         for i, r in enumerate(live):
             seq_i = r.prompt_len + len(r.out_tokens)   # includes the new token
             self._ensure_pages(r, seq_i)
@@ -255,8 +271,9 @@ class Engine:
             ctx[i] = seq_i
             slots[i] = self._slot(r, seq_i - 1)
             bt[i, : len(r.pages)] = r.pages
+            lora_idx[i] = r.lora_id
         t = self._tensor
-        return DecodeBatch(t(ids), t(pos), t(bt), t(ctx), t(slots))
+        return DecodeBatch(t(ids), t(pos), t(bt), t(ctx), t(slots), t(lora_idx))
 
     def decode_logits(self, batch: DecodeBatch, decode_step: Callable | None = None):
         """Run one decode call → logits ``[max_batch, V]`` (writes the batch's
@@ -264,7 +281,7 @@ class Engine:
         step = decode_step or self.a.decode_step
         x = self.a.embed(batch.ids)
         h, self.caches = step(x, batch.pos, self.caches, batch.block_table, batch.ctx,
-                              batch.slots)
+                              batch.slots, batch.lora_idx)
         return self.a.lm_head(h)
 
     # ---------------- internals ----------------
@@ -276,8 +293,10 @@ class Engine:
         while self.waiting and len(self.running) < self.max_batch:
             r = self.waiting.popleft()
             # match only up to prompt_len-1: the last prompt token always
-            # re-prefills so there is a live row to take logits from
-            matched, pages = self.cm.match(r.prompt[: r.prompt_len - 1])
+            # re-prefills so there is a live row to take logits from; a LoRA
+            # request's K / V depend on its adapter, so it shares no pages
+            matched, pages = (0, []) if r.lora_id else self.cm.match(
+                r.prompt[: r.prompt_len - 1])
             r.admit_matched = matched
             r.pages = [int(p) for p in pages]
             r.pos = matched
@@ -314,7 +333,8 @@ class Engine:
         x = self.a.embed(t(ids))
         h, self.caches = self.a.prefill_step(
             x, t(np.asarray([chunk], np.int32)), self.caches, t(bt),
-            t(np.asarray([r.pos + chunk], np.int32)), t(slots))
+            t(np.asarray([r.pos + chunk], np.int32)), t(slots),
+            t(np.full((s,), r.lora_id, np.int32)))
         r.pos += chunk
         self.stats["prefill_tokens"] += chunk
         if r.pos == r.prompt_len:
@@ -327,7 +347,7 @@ class Engine:
 
     def _share_prefix(self, r: _Request) -> None:
         span = (r.prompt_len // self.page) * self.page
-        if span == 0:
+        if span == 0 or r.lora_id:                     # adapter-specific K / V: private
             return
         npg = span // self.page
         _, dup = self.cm.insert(r.prompt[:span], np.asarray(r.pages[:npg]), ref=0)

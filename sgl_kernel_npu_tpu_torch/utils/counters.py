@@ -21,6 +21,7 @@ def wrappers() -> dict:
         activation,
         gmm_ring,
         grouped_matmul,
+        lora_pallas,
         matmul,
         norm,
         quant,
@@ -46,10 +47,15 @@ def wrappers() -> dict:
             lightning_indexer.lightning_indexer_scores_prefill_pallas,
         "mla_prefill_block_sparse": mla_prefill.mla_prefill_block_sparse,
         "rms_norm": norm.rms_norm,
+        "add_rms_norm_bias": norm.add_rms_norm_bias,
+        "add_gemma_rms_norm": norm.add_gemma_rms_norm,
+        "l1_norm": norm.l1_norm,
         "swiglu_oai": activation.swiglu_oai,
         "attention_sinks": sinks_attention.attention_sinks,
         "attention_sinks_packed": sinks_attention.attention_sinks_packed,
         "attention_sinks_prefill_pallas": sinks_attention.attention_sinks_prefill_pallas,
+        "bgmv_fused": lora_pallas.bgmv_fused,
+        "sgmv_fused": lora_pallas.sgmv_fused,
     }
 
 

@@ -21,7 +21,11 @@ the output's largest value, in f32 within 1e-5 of it (f32 math in another
 order); the sinks attention kernels 2e-2, as the MLA kernels, with pad rows
 exactly 0; a small GPT-OSS's prefill and decode through the kernels within
 3e-2 of a row's largest value of the plain path (bf16 activations, the
-routing replayed)."""
+routing replayed); ``add_rms_norm_bias`` / ``add_gemma_rms_norm`` their
+residual sums bit-equal and outputs within one ulp (int8 one level);
+``l1_norm`` 1e-5 of the largest value; ``bgmv_fused`` and ``sgmv_fused``
+1e-4 of the largest value (f32 sums of the same products in another
+order), dead rows exactly 0."""
 
 import math
 
@@ -897,4 +901,162 @@ def test_llama_steps_kernels_match_plain(dev, mode):
     assert matmul.quant_matmul.launches == before[1] + (12 * cfg.num_layers if w8 else 0)
     rel = (got - want).abs().amax(-1) / want.abs().amax(-1)
     tol = 5e-2 if w8 else 3e-2
+    assert bool(torch.isfinite(got).all()) and float(rel.max()) < tol, float(rel.max())
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+@pytest.mark.parametrize("mode", ["bias", "bias_quant", "gemma"])
+@pytest.mark.parametrize("x_dt,w_dt", [(torch.bfloat16, torch.bfloat16),
+                                       (torch.float32, torch.float32),
+                                       (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("rows,hidden", [(1, 4096), (512, 4096), (7, 100), (3, 4097)])
+def test_add_rms_norm_kernel(dev, rows, hidden, x_dt, w_dt, mode):
+    """K6b (with and without its static int8 quant) and K6c on K6b's kernel:
+    the residual sum bit-equal, the normed output within one ulp of x's type
+    (int8 within one level: the kernel's 1 / sqrt and torch's rsqrt may
+    differ by an ulp); (7, 100) and (3, 4097) take the one-element path."""
+    from sgl_kernel_npu_tpu_torch.ops import norm
+
+    gen = torch.Generator(device=dev).manual_seed(rows + hidden)
+    x = (torch.randn((rows, hidden), generator=gen, device=dev) * 2).to(x_dt)
+    res = torch.randn((rows, hidden), generator=gen, device=dev).to(x_dt)
+    w = (1 + 0.1 * torch.randn(hidden, generator=gen, device=dev)).to(w_dt)
+    b = (0.1 * torch.randn(hidden, generator=gen, device=dev)).to(w_dt)
+    if mode == "gemma":
+        fn, before = norm.add_gemma_rms_norm, norm.add_gemma_rms_norm.launches
+        (got, added), (want, want_added) = (fn(x, w, res, 1e-5),
+                                            norm.add_gemma_rms_norm_ref(x, w, res, 1e-5))
+    else:
+        q = {}
+        if mode == "bias_quant":
+            q = {"quant_scale": 60 + 40 * torch.rand(hidden, generator=gen, device=dev),
+                 "quant_offset": 6 * torch.rand(hidden, generator=gen, device=dev) - 3}
+        fn, before = norm.add_rms_norm_bias, norm.add_rms_norm_bias.launches
+        (got, added), (want, want_added) = (fn(x, res, w, b, 1e-5, **q),
+                                            norm.add_rms_norm_bias_ref(x, res, w, b, 1e-5, **q))
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and torch.equal(added, want_added)
+    if mode == "bias_quant":
+        diff = (got.int() - want.int()).abs()
+        assert got.dtype == torch.int8 and int(diff.max()) <= 1
+        assert float((diff == 0).float().mean()) > 0.99
+    else:
+        assert got.dtype == x_dt
+        _ulp_close(got, want, x_dt)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,hidden", [(1, 4096), (512, 4096), (7, 100), (3, 4097)])
+def test_l1_norm_kernel(dev, rows, hidden, dtype):
+    """K6d: a row over its signed sum, f32 out, within 1e-5 of the largest
+    value (f32 sums in another order; IEEE division on both sides)."""
+    from sgl_kernel_npu_tpu_torch.ops import norm
+
+    gen = torch.Generator(device=dev).manual_seed(rows * hidden)
+    x = (torch.randn((rows, hidden), generator=gen, device=dev) + 0.5).to(dtype)
+    before = norm.l1_norm.launches
+    got = norm.l1_norm(x)
+    want = norm.l1_norm_ref(x)
+    torch.cuda.synchronize()
+    assert norm.l1_norm.launches == before + 1 and got.dtype == torch.float32
+    assert _rel_err(got, want) < 1e-5
+
+
+def _lora_weights(gen, dev, t, h, l, r, d, dtype):
+    x = torch.randn((t, h), generator=gen, device=dev).to(dtype)
+    a = (0.1 * torch.randn((l, r, h), generator=gen, device=dev)).to(dtype)
+    b = (0.1 * torch.randn((l, d, r), generator=gen, device=dev)).to(dtype)
+    return x, a, b
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["b", "bt"])
+@pytest.mark.parametrize("t,h,l,r,d", [(8, 4096, 4, 16, 4096), (512, 4096, 4, 16, 1024),
+                                       (8, 4096, 64, 16, 4096), (5, 100, 3, 3, 70)])
+def test_bgmv_fused_kernel(dev, t, h, l, r, d, layout, dtype):
+    """K13a against its plain version within 1e-4 of the largest value (f32
+    sums of the same products in another order), B in its stored layout or
+    as ``bt``; ids outside ``[0, L)`` give exact zeros; (5, 100, 3, 3, 70)
+    takes the one-element paths."""
+    from sgl_kernel_npu_tpu_torch.ops import lora_pallas as lp
+
+    gen = torch.Generator(device=dev).manual_seed(t + l + r)
+    x, a, b = _lora_weights(gen, dev, t, h, l, r, d, dtype)
+    idx = torch.randint(0, l, (t,), generator=gen, device=dev, dtype=torch.int32)
+    idx[0], idx[-1] = -1, l
+    kw = {"bt": b.transpose(1, 2).contiguous()} if layout == "bt" else {}
+    bb = None if kw else b
+    before = lp.bgmv_fused.launches
+    got = lp.bgmv_fused(x, a, bb, idx, scaling=0.5, **kw)
+    want = lp.bgmv_fused_plain(x, a, bb, idx, scaling=0.5, **kw)
+    torch.cuda.synchronize()
+    assert lp.bgmv_fused.launches == before + 1 and got.dtype == torch.float32
+    assert not got[0].any() and not got[-1].any()
+    assert _rel_err(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lens,s", [([100, 0, 250, 140], 512), ([1], 3), ([0, 0, 7], 9)])
+def test_sgmv_fused_kernel(dev, lens, s, dtype):
+    """K13b against its plain version within 1e-4 of the largest value:
+    empty sequences, a tail of rows past the sequences (exactly 0), ranks
+    below the stored 16 and mixed scalings."""
+    from sgl_kernel_npu_tpu_torch.ops import lora_pallas as lp
+
+    gen = torch.Generator(device=dev).manual_seed(s + len(lens))
+    x, a, b = _lora_weights(gen, dev, s, 4096, 4, 16, 4096, dtype)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    widx = i32([(3 * i + 1) % 4 for i in range(len(lens))])
+    args = (widx, i32(lens), i32([16, 8, 4, 16]),
+            torch.tensor([1.0, 0.5, 2.0, 0.25], device=dev))
+    before = lp.sgmv_fused.launches
+    got = lp.sgmv_fused(x, a, b, *args)
+    want = lp.sgmv_fused_plain(x, a, b, *args)
+    torch.cuda.synchronize()
+    assert lp.sgmv_fused.launches == before + 1
+    assert not got[sum(lens):].any()
+    assert _rel_err(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("w8a8", [False, True])
+def test_llama_lora_steps_kernels_match_plain(dev, w8a8):
+    """A small Llama with 4 adapters of rank 8 (adapter 0 zero): a 40-token
+    prefill under adapter 2, then a decode step of rows under adapters 1, 3,
+    0 through the kernels (K13a twice a layer a call) equal the plain path
+    within 3e-2 of a row's largest value (5e-2 with W8A8)."""
+    from sgl_kernel_npu_tpu_torch.models import llama as lm
+    from sgl_kernel_npu_tpu_torch.ops import lora_pallas as lp
+
+    cfg = lm.LlamaConfig(vocab_size=256, hidden=256, num_layers=2)
+    params = lm.init_weights(cfg, 0, torch.bfloat16, device=dev)
+    lora = lm.init_lora(1, cfg, 4, 8, torch.bfloat16, device=dev)
+    kw = {"weights_q": lm.quantize_weights(cfg, params)} if w8a8 else {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((43, cfg.hidden), generator=gen, device=dev).to(torch.bfloat16)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    bt = torch.arange(1, 13, dtype=torch.int32, device=dev).reshape(3, 4)
+    pos = torch.arange(40, device=dev)
+    slots = (bt[0, pos // 16] * 16 + pos % 16).to(torch.int32)
+    dpos = i32([40, 7, 3])
+    dslots = (bt[torch.arange(3, device=dev), dpos // 16] * 16 + dpos % 16).to(torch.int32)
+
+    def run(plain):
+        caches = lm.init_kv_cache(cfg, 13, torch.bfloat16, device=dev)
+        y, _ = lm.prefill_step(cfg, params, x[:40], i32([40]), caches, bt[:1], i32([40]), slots,
+                               max_q=40, lora=lora, lora_idx=torch.full_like(slots, 2),
+                               plain=plain, **kw)
+        d, _ = lm.decode_step(cfg, params, x[40:], dpos, caches, bt, dpos + 1, dslots, lora=lora,
+                              lora_idx=i32([1, 3, 0]), plain=plain, **kw)
+        return torch.cat([y, d]).float()
+
+    before = lp.bgmv_fused.launches
+    got = run(False)
+    want = run(True)
+    torch.cuda.synchronize()
+    assert lp.bgmv_fused.launches == before + 4 * cfg.num_layers
+    rel = (got - want).abs().amax(-1) / want.abs().amax(-1)
+    tol = 5e-2 if w8a8 else 3e-2
     assert bool(torch.isfinite(got).all()) and float(rel.max()) < tol, float(rel.max())
