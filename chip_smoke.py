@@ -110,7 +110,22 @@ Phases (any failure raises and the script exits non-zero without a result):
    DSA prefill call and DSA decode step, a GPT-OSS decode step and 512-row
    prefill call, a Llama decode step and 512-row prefill call, and a Llama
    decode step under LoRA.
-6. Print the kernels' JSON line (21 rows for the 23 ported TPU kernel
+4h. DeepSeek-V3 training on one GPU, once every weight, engine and cache of
+   the phases above is dropped (the memory on the card printed at the
+   start, the peak at the end): mla_flash_fwd (K14a), mla_flash_bwd_dq
+   (K14b) and mla_flash_bwd_dk (K14c) held to their plain versions at B 2 x
+   S 520 x 128 heads and at S 1, 17 and 40 (16 heads), timed beside their
+   bounds, plain versions and SDPA; DeepSeek-V3's published widths cut to
+   1 of 61 layers, bf16, with the float routed experts, served through
+   ``Engine`` + ``deepseek_adapter`` without ``moe_weights_q`` (the dense
+   float MoE) on [4]'s three shortest prompts (exact K2 / K9a counts, a
+   decode step held to ``plain=True``); one training step's loss and every
+   gradient leaf held to the ``plain=True`` and the dense-attention runs,
+   the routing replayed; three SGD steps of ``make_train_step(flash=True)``
+   on tokens [2, 520] with K14a-c exactly 3 launches each and finite
+   losses; a step profiled, with no copy operator on a tensor of an expert
+   weight's shape.
+6. Print the kernels' JSON line (24 rows for the 26 ported TPU kernel
    sites, each from its own result), the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 """
@@ -119,6 +134,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -148,6 +164,7 @@ from sgl_kernel_npu_tpu_torch.ops import (  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import decode_attention as da  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import lightning_indexer as li  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_prefill as mp  # noqa: E402
+from sgl_kernel_npu_tpu_torch.ops.attention import mla_train as mt  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa  # noqa: E402
 from sgl_kernel_npu_tpu_torch.runtime.engine import (  # noqa: E402
     Engine,
@@ -231,6 +248,19 @@ CFG_LLAMA = lm.LlamaConfig(
 # 1st and 5th, which share 512 tokens, under adapter 0)
 LORA_ADAPTERS, LORA_RANK = 4, 16
 LORA_IDS = [0, 1, 2, 3, 0]
+
+# [4h] DeepSeek-V3 training on one GPU: CFG's published widths cut to 1 of 61
+# layers, bf16 weights with the float routed experts (12.43 B parameters,
+# 24.9 GB; f32 would not fit beside the gradients), B x S = 2 x 520 tokens;
+# SGD steps of make_train_step(flash=True) on K14a-c; the dense float MoE
+# served on [4]'s three shortest prompts
+CFG_TRAIN = dataclasses.replace(CFG, num_layers=1)
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_NEW_TOKENS = 2, 520, 3, 8
+TRAIN_KERNELS = ("mla_flash_fwd", "mla_flash_bwd_dq", "mla_flash_bwd_dk")
+# max |g_flash - g| / max |g| per gradient leaf, against the step with K14a-c's
+# plain versions (the same arithmetic: bf16 rounding flips) and against the
+# dense einsum attention (bf16 scores and probabilities), the routing replayed
+TRAIN_TOL_PLAIN, TRAIN_TOL_DENSE = 5e-2, 1e-1
 
 _flush_buf = None
 SPIN_CYCLES = 1_000_000        # ~500 us at the H100's 1.98 GHz boost clock
@@ -2293,21 +2323,318 @@ def profile_steps(eng, batch, prompt, w8a8_step, long_prefill, dsa_prefill, dsa_
             log(f"    {ms:9.3f} ms  x{count:<4d} {name[:110]}")
 
 
-def main() -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False     # f32 matmuls in full f32
-    torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
-    log(f"[1] build  (torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)})")
-    t0 = time.perf_counter()
-    cuda_lib.load_library()
-    built = (f"nvcc build {cuda_lib.build_seconds:.1f} s" if cuda_lib.build_seconds
-             else "already built in this checkout")
-    log(f"  kernels loaded in {time.perf_counter() - t0:.1f} s ({built})")
-    log(f"  card: {card}")
+# ---------------------------------------------------------------------------
+# phase 4h: DeepSeek-V3 training on one GPU
+# ---------------------------------------------------------------------------
 
+def train_bound(b, s, h, ops_per_pair, row_bytes, key_bytes):
+    """(ms, by) of a K14 kernel: ``ops_per_pair`` operations for each live
+    (row, key) pair (B H S (S + 1) / 2 of them), ``row_bytes`` read or
+    written once a (token, head) row and ``key_bytes`` a key."""
+    pairs = b * h * s * (s + 1) // 2
+    return bound(b * s * h * row_bytes + b * s * key_bytes, pairs * ops_per_pair, BF16_FLOPS)
+
+
+def sdpa_backend(fn) -> str:
+    """The CUDA kernels of one ``fn()`` (an SDPA call), the longest first: they
+    name the backend PyTorch picked."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    return "; ".join(k[:60] for _, k in rows[:2])
+
+
+def check_mla_train(gen, b, s, h, timed):
+    """K14a, K14b and K14c against their plain versions on random bf16 inputs
+    at ``[B, S, H]``: the output within 2e-2 + 2e-2 |plain|, the LSE 1e-4, dQ
+    and dK within 1e-2 of the tensor's largest |value| plus 1e-4 (dS and P
+    round to bf16 on both sides, a tie moved by an f32 ulp flips one; at S =
+    1 the true dQ is 0 and both sides are f32 cancellation noise).  ``timed``:
+    each kernel, its plain version and SDPA over the latent || rope keys
+    expanded to the heads (forward; backward for K14b + K14c together).
+    Returns the three kernels' results."""
+    r = lambda *sh: randn(gen, sh)  # noqa: E731
+    x = (r(b, s, h, 512), r(b, s, h, 64), r(b, s, 512), r(b, s, 64))
+    sc = CFG.sm_scale
+    out, lse = mt.mla_flash_fwd(*x, sc)
+    out_p, lse_p = mt.mla_flash_fwd_plain(*x, sc)
+    do = r(b, s, h, 512)
+    delta = (do.float() * out_p.float()).sum(-1)
+    args = (*x, do, lse_p, delta, sc)
+    dq, dq_p = mt.mla_flash_bwd_dq(*args), mt.mla_flash_bwd_dq_plain(*args)
+    dk, dk_p = mt.mla_flash_bwd_dk(*args), mt.mla_flash_bwd_dk_plain(*args)
+    torch.cuda.synchronize()
+    err_o, ok_o = attention_close(out, out_p)
+    err_l = max_abs(lse, lse_p)
+    errs = {"dq": [max_abs(a, w) for a, w in zip(dq, dq_p)],
+            "dk": [max_abs(a, w) for a, w in zip(dk, dk_p)]}
+    ok_g = all(max_abs(a, w) <= 1e-2 * float(w.float().abs().max()) + 1e-4
+               for a, w in zip((*dq, *dk), (*dq_p, *dk_p)))
+    log(f"  mla_flash_* B={b} S={s} H={h}: out max|err| {err_o:.3e} (tol 2e-2 + 2e-2 |plain|), "
+        f"lse {err_l:.3e} (tol 1e-4); dq_lat / dq_pe {errs['dq'][0]:.3e} / {errs['dq'][1]:.3e} "
+        f"of max {float(dq_p[0].float().abs().max()):.3e} / "
+        f"{float(dq_p[1].float().abs().max()):.3e}; dk_lat / dk_pe {errs['dk'][0]:.3e} / "
+        f"{errs['dk'][1]:.3e} of max {float(dk_p[0].float().abs().max()):.3e} / "
+        f"{float(dk_p[1].float().abs().max()):.3e} (tol 1e-2 of max + 1e-4)")
+    if not (ok_o and err_l <= 1e-4 and ok_g):
+        raise AssertionError("an MLA training kernel disagrees with its plain version")
+    res = [dict(err=max(err_o, err_l)), dict(err=max(errs["dq"])), dict(err=max(errs["dk"]))]
+    if not timed:
+        return res
+    kernels = [lambda: mt.mla_flash_fwd(*x, sc), lambda: mt.mla_flash_bwd_dq(*args),
+               lambda: mt.mla_flash_bwd_dk(*args)]
+    plains = [lambda: mt.mla_flash_fwd_plain(*x, sc), lambda: mt.mla_flash_bwd_dq_plain(*args),
+              lambda: mt.mla_flash_bwd_dk_plain(*args)]
+    # SDPA over q = latent || rope [B, H, S, 576] and the shared keys expanded
+    # to the heads; its backward sums dK + dV into the one latent leaf
+    q = torch.cat([x[0], x[1]], dim=-1).transpose(1, 2).detach().requires_grad_()
+    kcat = torch.cat([x[2], x[3]], dim=-1)[:, None].detach().requires_grad_()
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, kcat.expand(b, h, s, 576), kcat[..., :512].expand(b, h, s, 512), is_causal=True,
+            scale=sc)
+
+    with torch.no_grad():
+        lib_fwd = time_ms(sdpa, 20)
+        backend = sdpa_backend(sdpa)
+    o = sdpa()
+    do_h = do.transpose(1, 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(o, (q, kcat), do_h, retain_graph=True), 10)
+    del o, q, kcat
+    bounds = [train_bound(b, s, h, 2 * (576 + 512), 2 * 576 + 2 * 512 + 4, 2 * 576),
+              train_bound(b, s, h, 2 * (576 + 512 + 576), 2 * 576 * 2 + 2 * 512 + 8, 2 * 576),
+              train_bound(b, s, h, 2 * (576 + 512 + 576 + 512), 2 * 576 + 2 * 512 + 8,
+                          2 * 576 * 2)]
+    for i, name in enumerate(TRAIN_KERNELS):
+        res[i].update(ms=time_ms(kernels[i], 20), plain_ms=time_ms(plains[i], 3),
+                      library_ms=lib_fwd if i == 0 else lib_bwd, bound_ms=bounds[i][0],
+                      bound_by=bounds[i][1])
+        log(f"    {name}: {res[i]['ms']:.4f} ms (plain {res[i]['plain_ms']:.4f}, SDPA "
+            f"{'forward' if i == 0 else 'backward (dQ + dK together)'} "
+            f"{res[i]['library_ms']:.4f}, bound {res[i]['bound_ms']:.4f} {res[i]['bound_by']})")
+    log(f"    SDPA's kernels (the backend PyTorch picked, forward): {backend}")
+    return res
+
+
+def dense_moe_serve(params, ps):
+    """``Engine`` + ``deepseek_adapter(CFG_TRAIN, params)`` without
+    ``moe_weights_q`` (the dense float MoE) serves ``ps``, 8 new tokens each,
+    counts reset just before and read just after: K2 exactly once a layer a
+    decode call, K9a once a layer a prefill call, no other kernel.  Then one
+    decode step on a live batch held to ``plain=True``, the routing replayed."""
+    adapter = deepseek_adapter(CFG_TRAIN, params, torch.bfloat16)
+    timer = StepTimer(adapter)
+    eng = Engine(adapter, NUM_PAGES, max_batch=MAX_BATCH, max_pages_per_req=MAX_PAGES_PER_REQ,
+                 prefill_chunk=PREFILL_CHUNK)
+    counters.reset()
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, TRAIN_NEW_TOKENS) for p in ps]
+    while eng.waiting or eng.running:
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    outs = [eng.finished[r] for r in rids]
+    if not all(len(o) == TRAIN_NEW_TOKENS and all(0 <= t < CFG.vocab_size for t in o)
+               for o in outs):
+        raise AssertionError(f"unfinished or invalid outputs: {outs}")
+    if eng.cm.free_pages + eng.cm.cached_pages != NUM_PAGES:
+        raise AssertionError("KV pages leaked")
+    n_pre, n_dec = timer.calls["prefill"], timer.calls["decode"]
+    want = {k: 0 for k in launches}
+    want.update(decode_mla=CFG_TRAIN.num_layers * n_dec,
+                mla_prefill_pallas=CFG_TRAIN.num_layers * n_pre)
+    if launches != want:
+        raise AssertionError(f"launches {launches} over {n_pre} prefill and {n_dec} decode "
+                             f"calls; want {want}")
+    dec_tokens = len(rids) * (TRAIN_NEW_TOKENS - 1)
+    log(f"  served {len(rids)} requests (prompts {[len(p) for p in ps]}, {TRAIN_NEW_TOKENS} new "
+        f"tokens each) in {wall:.2f} s wall; prefill {eng.stats['prefill_tokens']} tokens in "
+        f"{n_pre} calls of {PREFILL_CHUNK} rows, {timer.t['prefill']:.3f} s = "
+        f"{eng.stats['prefill_tokens'] / timer.t['prefill']:.1f} tok/s; decode {dec_tokens} "
+        f"tokens in {n_dec} steps, {timer.t['decode']:.3f} s = "
+        f"{dec_tokens / timer.t['decode']:.1f} tok/s; all pages returned")
+    log(f"  launches: decode_mla {launches['decode_mla']}, mla_prefill_pallas "
+        f"{launches['mla_prefill_pallas']}, every other kernel 0")
+    batch, n = live_batch(eng, ps)
+    ok = compare_runs("dense-MoE decode step", lambda: eng.decode_logits(batch),
+                      lambda: eng.decode_logits(batch, decode_step_fn(params, None, CFG_TRAIN,
+                                                                      plain=True)),
+                      n, logits=True, forced=True)
+    if not ok:
+        raise AssertionError("the dense-MoE decode step disagrees with the plain path")
+
+
+@contextlib.contextmanager
+def routes(record, replay=None):
+    """Record each layer's expert choice into ``record`` (``m._routed``), or
+    hand out ``replay``'s instead: the replaying run weighs those experts with
+    its own scores, so its gradients stay its own."""
+    it = None if replay is None else iter(replay)
+    routed = m._routed
+    m._routed = lambda ids: record.append(ids if it is None else next(it)) or record[-1]
+    try:
+        yield
+    finally:
+        m._routed = routed
+
+
+def leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in leaf_names(v, f"{prefix}.{k}" if prefix
+                                                                  else k)]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix] if isinstance(tree, torch.Tensor) else []
+
+
+def leaf_diff(host, g, piece=1 << 26):
+    """``(max |host - g|, max |g|)`` of a gradient leaf on the host and one on
+    the card, about ``piece`` elements at a time along the first dimension
+    (an expert leaf is 7.5 GB in bf16, twice that in f32)."""
+    step = max(1, g.shape[0] * piece // g.numel())
+    diff = top = 0.0
+    for i in range(0, g.shape[0], step):
+        b = g[i : i + step].float()
+        diff = max(diff, float((host[i : i + step].to(DEV).float() - b).abs().max()))
+        top = max(top, float(b.abs().max()))
+    return diff, top
+
+
+def compare_grads(label, loss_f, grads_f, params, tokens, chosen, tol, **kw):
+    """The flash step's loss and gradients (``grads_f``, on the host) against
+    ``loss_and_grads(**kw)`` on the same params and tokens with the flash
+    run's routing replayed: per leaf max |Δ| / max |g|, held to ``tol``; the
+    loss to 1e-2 relative."""
+    with routes([], chosen):
+        loss, grads = m.loss_and_grads(CFG_TRAIN, params, tokens, **kw)
+    names, rels = leaf_names(grads), []
+    for name, gf, g in zip(names, m._flatten(grads_f), m._flatten(grads)):
+        diff, top = leaf_diff(gf, g)
+        rels.append((name, diff / top if top else None))
+    del grads
+    loss_rel = abs(float(loss_f) - float(loss)) / abs(float(loss))
+    worst = max(r for _, r in rels if r is not None)
+    log(f"  flash step vs {label}: loss {float(loss_f):.6f} vs {float(loss):.6f} (rel "
+        f"{loss_rel:.2e}, tol 1e-2); per-leaf max|Δ| / max|g| (tol {tol}): "
+        + ", ".join(f"{n} {'unreached' if r is None else f'{r:.2e}'}" for n, r in rels))
+    if loss_rel > 1e-2 or worst > tol:
+        raise AssertionError(f"the flash step disagrees with the {label} run: worst leaf "
+                             f"{worst:.3e}, loss {loss_rel:.3e}")
+    return worst
+
+
+COPY_OPS = ("aten::copy_", "aten::clone", "aten::contiguous", "aten::_to_copy")
+
+
+def expert_copies(fn, shapes) -> list:
+    """The copy operators of one ``fn()`` whose input has an expert weight's
+    shape (profiler shapes), as ``(op, shapes, count)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.input_shapes, e.count)
+            for e in prof.key_averages(group_by_input_shape=True)
+            if e.key in COPY_OPS and any(list(sh) in shapes for sh in e.input_shapes)]
+
+
+def training_phase():
+    """Phase [4h] (see the module docstring).  Returns the three K14 results
+    and the training steps' launch counts."""
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[4h] DeepSeek-V3 training on one GPU: {CFG_TRAIN.num_layers} of {FULL_LAYERS} layers, "
+        f"bf16, B x S = {TRAIN_B} x {TRAIN_S}; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated on the card at the start")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    k14 = check_mla_train(gen, TRAIN_B, TRAIN_S, CFG.num_heads, True)
+    for b, s, h in ((2, 1, CFG.num_heads), (2, 17, CFG.num_heads), (1, 40, 16)):
+        check_mla_train(gen, b, s, h, False)
+
+    t0 = time.perf_counter()
+    params = m.init_weights(CFG_TRAIN, SEED, torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in m._flatten(params))
+    log(f"  weights: {n_params / 1e9:.2f} B parameters in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+
+    ps = sorted(prompts(torch.Generator().manual_seed(SEED)), key=len)[:3]
+    log(f"  the dense float MoE: Engine + deepseek_adapter(CFG_TRAIN, params), no moe_weights_q")
+    dense_moe_serve(params, ps)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tokens = torch.randint(0, CFG.vocab_size, (TRAIN_B, TRAIN_S),
+                           generator=torch.Generator().manual_seed(SEED + 12)).to(DEV)
+    chosen = []
+    with routes(chosen):
+        loss_f, grads = m.loss_and_grads(CFG_TRAIN, params, tokens, flash=True)
+    grads_f = [g.cpu() for g in m._flatten(grads)]            # the host holds them
+    del grads
+    worst_p = compare_grads("plain K14a-c (plain=True)", loss_f, grads_f, params, tokens, chosen,
+                            TRAIN_TOL_PLAIN, flash=True, plain=True)
+    worst_d = compare_grads("dense attention (flash=False)", loss_f, grads_f, params, tokens,
+                            chosen, TRAIN_TOL_DENSE, flash=False)
+    del grads_f
+
+    step = m.make_train_step(CFG_TRAIN, None, flash=True)
+    counters.reset()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, loss = step(params, tokens)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = counters.read()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"a training loss is not finite: {losses}")
+    want = {k: TRAIN_STEPS * CFG_TRAIN.num_layers if k in TRAIN_KERNELS else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"launches over {TRAIN_STEPS} training steps {launches}; want "
+                             f"{want}")
+    log(f"  {TRAIN_STEPS} SGD steps of make_train_step(flash=True): losses "
+        + ", ".join(f"{v:.6f}" for v in losses)
+        + f"; step ms {', '.join(f'{t:.1f}' for t in times)} (host clock, synchronized) = "
+        f"{TRAIN_B * TRAIN_S / (statistics.median(times) / 1e3):.1f} tokens/s at the median; "
+        f"launches {', '.join(f'{k} {launches[k]}' for k in TRAIN_KERNELS)}, every other "
+        f"kernel 0; worst leaf vs plain {worst_p:.2e}, vs dense {worst_d:.2e}")
+
+    state = {"params": params}
+    del params
+
+    def one_step():
+        state["params"], state["loss"] = step(state["params"], tokens)
+
+    rows, busy, wall = trace_profile.device_breakdown(one_step)
+    log(f"  one training step under torch.profiler: wall {wall:.3f} ms, device busy {busy:.3f} "
+        f"ms ({100 * busy / wall:.1f} %)")
+    for name, ms, count in rows:
+        log(f"    {ms:9.3f} ms  x{count:<4d} {name[:110]}")
+    e, h, i = CFG.num_experts, CFG.hidden, CFG.moe_intermediate
+    copies = expert_copies(one_step, [[e, h, i], [e, i, h]])
+    if copies:
+        raise AssertionError(f"a training step copies expert weights: {copies}")
+    log(f"  no copy operator ({', '.join(COPY_OPS)}) takes a tensor of an expert weight's "
+        f"shape in a training step; peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
+        f"allocated on the card in [4h]")
+    return k14, launches
+
+
+def serving_phases(card: str):
+    """Phases [2] to [5]: the serving paths, their kernels and their
+    profiles.  Returns the kernel rows (name, source, replaced TPU kernel,
+    result) and each kernel's launches on the path that first runs it; every
+    weight, engine and cache of these phases is dropped when it returns."""
     log(f"[2] weights: DeepSeek-V3 widths, {CFG.num_layers} of {FULL_LAYERS} layers, "
         f"seed {SEED}")
     t0 = time.perf_counter()
@@ -2437,7 +2764,6 @@ def main() -> None:
                   dsa_prefill, dsa_decode, gpt_decode, gpt_prefill, llama_decode, llama_prefill,
                   lora_decode)
 
-    src = "sgl_kernel_npu_tpu_torch/csrc/"
     tpu = "sgl_kernel_npu_tpu/ops/"
     # (name, source, the TPU kernels it replaces, its result: a dict of err, ms,
     # plain_ms, library_ms, bound_ms, bound_by)
@@ -2470,8 +2796,6 @@ def main() -> None:
         ("bgmv_fused", "lora.cu", "lora_pallas.py:137", k13a),
         ("sgmv_fused", "lora.cu", "lora_pallas.py:244", k13b),
     ]
-    if len({id(r) for *_, r in rows}) != len(rows):
-        raise AssertionError("two kernel rows share one result: a result was rebound")
     # launches: each kernel's count on the first path that runs it (the base
     # four on the float-prologue serve, K1 on the fused-prologue serve, K5
     # and K7a on the fully W8A8 step and chunk, K8a on the long-prompt serve,
@@ -2490,6 +2814,34 @@ def main() -> None:
                      "bgmv_fused": launches_lo["bgmv_fused"],
                      **{k: launches_ops[k] for k in ("add_rms_norm_bias", "add_gemma_rms_norm",
                                                      "l1_norm", "sgmv_fused")}}
+    return rows, path_launches
+
+
+def main() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False     # f32 matmuls in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    log(f"[1] build  (torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)})")
+    t0 = time.perf_counter()
+    cuda_lib.load_library()
+    built = (f"nvcc build {cuda_lib.build_seconds:.1f} s" if cuda_lib.build_seconds
+             else "already built in this checkout")
+    log(f"  kernels loaded in {time.perf_counter() - t0:.1f} s ({built})")
+    log(f"  card: {card}")
+    rows, path_launches = serving_phases(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    (k14a, k14b, k14c), launches_t = training_phase()
+    src, tpu = "sgl_kernel_npu_tpu_torch/csrc/", "sgl_kernel_npu_tpu/ops/"
+    rows += [("mla_flash_fwd", "mla_train.cu", "attention/mla_train.py:222", k14a),
+             ("mla_flash_bwd_dq", "mla_train.cu", "attention/mla_train.py:277", k14b),
+             ("mla_flash_bwd_dk", "mla_train.cu", "attention/mla_train.py:294", k14c)]
+    path_launches.update({k: launches_t[k] for k in TRAIN_KERNELS})
+    if len({id(r) for *_, r in rows}) != len(rows):
+        raise AssertionError("two kernel rows share one result: a result was rebound")
     kernels = [{
         "name": name, "route": "cuda", "source": src + cu, "replaces": tpu + replaces,
         "launches": path_launches[name], "max_abs_err": r["err"], "ms": r["ms"],

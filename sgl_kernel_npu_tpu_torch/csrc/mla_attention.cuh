@@ -71,6 +71,43 @@ using sgl::ldsm_x2_trans;
 using sgl::ldsm_x4;
 using sgl::mma_16816;
 
+// s[16 x 8] += A[16, d0 : d0 + 16 N] . B[8, d0 : d0 + 16 N]^T, A and B row-major in
+// shared memory (row strides lda, ldb): the score tile of 8 keys (B's rows) over a
+// depth range.  s holds the mma fragment: rows g and g + 8, columns 2 t4 and + 1.
+template <int N>
+__device__ __forceinline__ void mma_abt(float (&s)[4], const bf16* a, int lda, const bf16* b,
+                                        int ldb, int d0, int lane) {
+  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
+  const int b_row = lane & 7, b_col = 8 * ((lane >> 3) & 1);
+#pragma unroll 6
+  for (int kk = 0; kk < N; ++kk) {
+    uint32_t af[4], bf[2];
+    ldsm_x4(af, a + a_row * lda + d0 + kk * 16 + a_col);
+    ldsm_x2(bf, b + b_row * ldb + d0 + kk * 16 + b_col);
+    mma_16816(s, af, bf);
+  }
+}
+
+// o[nt] += A[16, 0 : 16 KSTEPS] . B[0 : 16 KSTEPS, col0 + 8 nt : + 8] for nt < NT, A and B
+// row-major in shared memory (B's rows are the depth, read transposed by ldmatrix).
+template <int KSTEPS, int NT>
+__device__ __forceinline__ void mma_ab(float (&o)[NT][4], const bf16* a, int lda, const bf16* b,
+                                       int ldb, int col0, int lane) {
+  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
+  const int b_row = (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, a + a_row * lda + kk * 16 + a_col);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t bf[2];
+      ldsm_x2_trans(bf, b + (kk * 16 + b_row) * ldb + col0 + nt * 8);
+      mma_16816(o[nt], af, bf);
+    }
+  }
+}
+
 // Position in the sequence of the block's key i: i itself on the dense walk,
 // on the sparse walk offset i % page of the selected page sel[i / page].
 template <bool SPARSE>
@@ -172,9 +209,6 @@ __device__ __forceinline__ void mla_block(
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
 
-  // ldmatrix lane addresses: A tiles (16 x 16) and B tiles (8 keys x 16)
-  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
-  const int b_row = lane & 7, b_col = 8 * ((lane >> 3) & 1);
   const int s_keys = 8 * (warp & 3), s_half = warp >> 2;  // this warp's S tile
 
   typename Chunk<KN>::type kv_next[NV];
@@ -191,14 +225,7 @@ __device__ __forceinline__ void mla_block(
     // S half-products: keys s_keys .. + 8, depth [288 s_half, 288 s_half + 288)
     {
       float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 6
-      for (int kk = 0; kk < DQ / 32; ++kk) {
-        const int d0 = s_half * (DQ / 2) + kk * 16;
-        uint32_t a[4], b[2];
-        ldsm_x4(a, qs + a_row * LD + d0 + a_col);
-        ldsm_x2(b, ks + (s_keys + b_row) * LD + d0 + b_col);
-        mma_16816(s, a, b);
-      }
+      mma_abt<DQ / 32>(s, qs, LD, ks + s_keys * LD, LD, s_half * (DQ / 2), lane);
       float* sh = ss + s_half * ROWS * KT;
       sh[g * KT + s_keys + 2 * t4] = s[0];
       sh[g * KT + s_keys + 2 * t4 + 1] = s[1];
@@ -240,18 +267,7 @@ __device__ __forceinline__ void mla_block(
       o[nt][2] *= al1;
       o[nt][3] *= al1;
     }
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, pb + a_row * LDP + kk * 16 + a_col);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        uint32_t b[2];
-        ldsm_x2_trans(b, ks + (kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
-                             warp * 64 + nt * 8);
-        mma_16816(o[nt], a, b);
-      }
-    }
+    mma_ab<KT / 16, 8>(o, pb, LDP, ks, LD, warp * 64, lane);
     __syncthreads();
   }
 

@@ -1,13 +1,14 @@
-"""DeepSeek-V3 MLA + MoE model for serving: paged prefill and decode.
+"""DeepSeek-V3 MLA + MoE model: paged prefill and decode, and training.
 
 Counterpart of ``sgl_kernel_npu_tpu/models/deepseek_v3.py`` on the
 configurations ``decode_step / prefill_step(moe_weights_q=..., mla_wq=...,
 dense_wq=...)``: MLA attention over the paged latent cache, bf16 or int8
 (``kv_cache_dtype``; ``decode_mla`` K2, ``mla_prefill_pallas`` K9), and the
-W8A8 routed experts through the ring GEMMs (``gmm1_ring`` K3,
-``gmm2_combine_ring`` K4) up to 512 tokens and through ``grouped_matmul``
-(K8a, twice) with a gather combine above, behind either the float MLA
-prologue or the fused W8A8 one (``mla_wq``: ``mla_preprocess`` on
+routed experts either float (``moe_weights_q`` None: the dense MoE, every
+expert for every token, as JAX on one chip) or W8A8 through the ring GEMMs
+(``gmm1_ring`` K3, ``gmm2_combine_ring`` K4) up to 512 tokens and through
+``grouped_matmul`` (K8a, twice) with a gather combine above, behind either
+the float MLA prologue or the fused W8A8 one (``mla_wq``: ``mla_preprocess`` on
 ``quant_matmul`` K1), and with the output projection and the shared expert
 either float or W8A8 (``dense_wq``: ``quant_per_token`` K5, ``quant_matmul``
 K1, ``swiglu_quant`` K7a).  DeepSeek-V3.2's sparse attention (DSA,
@@ -15,10 +16,16 @@ K1, ``swiglu_quant`` K7a).  DeepSeek-V3.2's sparse attention (DSA,
 its q-chunks on ``lightning_indexer_scores_prefill_pallas`` (K10) and attends
 their selected pages on ``mla_prefill_block_sparse`` (K9b), decode attends
 each row's selected pages on K2; in token mode decode selects tokens through
-``lightning_indexer`` (K10) and prefill stays dense (K9a), as in JAX.  The
-switches this slice does not take are absent (expert parallelism, EPLB) or
-raise ``NotImplementedError`` (the dense float MoE, and the MoE of at most
-512 tokens at widths the ring GEMMs do not take, which needs K8b).
+``lightning_indexer`` (K10) and prefill stays dense (K9a), as in JAX.
+
+Training on one GPU: ``train_forward`` (the causal LM loss) and
+``make_train_step`` (SGD), with the dense MoE and causal MLA attention over
+the whole sequence, either dense (an einsum) or ``flash=True`` through
+``ops.attention.mla_train.mla_flash_train`` (K14a forward, K14b / K14c
+backward).  The switches this slice does not take are absent (EPLB) or
+raise ``NotImplementedError``: expert-parallel serving and training
+(``mesh``, ROADMAP item 16), and the W8A8 MoE of at most 512 tokens at
+widths the ring GEMMs do not take, which needs K8b.
 
 Weights are a plain dict of tensors (``layers`` a list of per-layer dicts),
 with the JAX package's names and layouts; caches are a list of per-layer
@@ -59,6 +66,7 @@ from sgl_kernel_npu_tpu_torch.ops.attention.mla_prefill import (
     mla_prefill_ref,
     select_prefill_pages,
 )
+from sgl_kernel_npu_tpu_torch.ops.attention.mla_train import mla_flash_train
 from sgl_kernel_npu_tpu_torch.ops.attention.sinks_attention import packed_rows, prefill_q_chunk
 from sgl_kernel_npu_tpu_torch.ops.gmm_ring import (
     gmm1_ring,
@@ -418,6 +426,14 @@ def _mla_output(cfg: DeepSeekV3Config, lw: dict, attn_lat, dq=None, plain: bool 
     return o.reshape(o.shape[0], -1) @ lw["wo"]
 
 
+def _routed(ids):
+    """Every routing choice (each layer's top-k expert ids) passes through
+    here, before the router weighs the chosen experts.  A caller replaces it
+    to record one run's choices and replay them in another: the weights stay
+    the replaying run's own (differentiable) scores of those experts."""
+    return ids
+
+
 def _router(cfg: DeepSeekV3Config, lw: dict, x):
     """Top-k routing (``softmax``, or DeepSeek-V3's ``sigmoid_v3``: sigmoid
     scores, choice by score + bias within the ``topk_group`` best groups,
@@ -425,8 +441,8 @@ def _router(cfg: DeepSeekV3Config, lw: dict, x):
     times ``routed_scaling_factor``)."""
     logits = x.float() @ lw["router"].float()
     if cfg.router_scoring == "softmax":
-        topw, topi = torch.topk(logits, cfg.topk, dim=-1)
-        return topi.to(torch.int32), torch.softmax(topw, dim=-1)
+        topi = _routed(torch.topk(logits, cfg.topk, dim=-1).indices)
+        return topi.to(torch.int32), torch.softmax(logits.gather(1, topi.long()), dim=-1)
     if cfg.router_scoring != "sigmoid_v3":
         raise ValueError(f"unknown router_scoring {cfg.router_scoring!r}")
     n, e = logits.shape
@@ -439,8 +455,8 @@ def _router(cfg: DeepSeekV3Config, lw: dict, x):
         gmask = torch.zeros((n, cfg.n_group), dtype=torch.bool, device=x.device)
         gmask.scatter_(1, gi, True)
         choice = torch.where(gmask.repeat_interleave(e // cfg.n_group, dim=1), choice, 0.0)
-    topi = torch.topk(choice, cfg.topk, dim=-1).indices
-    topw = scores.gather(1, topi)
+    topi = _routed(torch.topk(choice, cfg.topk, dim=-1).indices)
+    topw = scores.gather(1, topi.long())
     if cfg.norm_topk_prob:
         topw = topw / (topw.sum(dim=-1, keepdim=True) + 1e-20)
     return topi.to(torch.int32), topw * cfg.routed_scaling_factor
@@ -510,17 +526,37 @@ def _gmm_moe(cfg: DeepSeekV3Config, wq: tuple, x, topk_idx, topk_w, *, plain: bo
     return out.to(x.dtype)
 
 
+def _dense_moe(cfg: DeepSeekV3Config, lw: dict, x, topk_idx, topk_w):
+    """The float routed experts on one GPU, JAX's ``_dense_moe``: every
+    expert's SwiGLU MLP for every token, then each token's top-k outputs
+    weighed by its f32 router weights, so the result is f32 (JAX promotes
+    the experts' outputs against the weights).  The products are batched
+    over the experts on the weights as stored (``[E, H, I]``, ``[E, I, H]``;
+    x broadcast over the experts, never an expert weight copied per call);
+    the combine gathers each token's k outputs where JAX multiplies by an
+    ``[N, E]`` one-hot matrix (the same f32 products, without the zero
+    terms).  The activations take the experts' dtype: an f32 residual meets
+    bf16 experts from a bf16 model's second layer on, where JAX converts the
+    experts to f32 (ROADMAP §C)."""
+    w_gate, w_up, w_down = lw["w_gate"], lw["w_up"], lw["w_down"]
+    xe = x.to(w_gate.dtype).expand(cfg.num_experts, *x.shape)            # [E, N, H]
+    gate = torch.bmm(xe, w_gate)                                          # [E, N, I]
+    up = torch.bmm(xe, w_up)
+    y = torch.bmm(gate * torch.sigmoid(gate) * up, w_down)                # [E, N, H]
+    tok = torch.arange(x.shape[0], device=x.device)
+    yk = y[topk_idx.T.long(), tok]                                        # [K, N, H]
+    return (topk_w.T.float()[..., None] * yk.float()).sum(dim=0)
+
+
 def _moe_and_shared(cfg, lw, wq, dq, x, plain):
+    """The MoE (float with ``wq`` None, else W8A8) and the shared expert, and
+    the residual."""
     h2 = rms_norm_ref(x, lw["ln2"])
     topk_idx, topk_w = _router(cfg, lw, h2)
     shared = _shared_expert(lw, h2) if dq is None else _shared_expert_q(dq, h2, plain)
-    return x + _gmm_moe(cfg, wq, h2, topk_idx, topk_w, plain=plain) + shared
-
-
-def _require_moe_q(moe_weights_q) -> None:
-    if moe_weights_q is None:
-        raise NotImplementedError("the dense float MoE is not ported yet: pass "
-                                  "moe_weights_q (quantize_moe_weights) (ROADMAP queue A)")
+    moe = (_dense_moe(cfg, lw, h2, topk_idx, topk_w) if wq is None
+           else _gmm_moe(cfg, wq, h2, topk_idx, topk_w, plain=plain))
+    return x + moe + shared
 
 
 def _attention_inputs(cfg, lw, mw, x, cos, sin, cache, slot_mapping, plain):
@@ -626,9 +662,8 @@ def _dsa_prefill(cfg: DeepSeekV3Config, lw: dict, h1, q, cache, seq_lens, block_
 # serving steps
 # ---------------------------------------------------------------------------
 
-def _layer_switches(mla_wq, dense_wq, li):
-    return (None if mla_wq is None else mla_wq[li],
-            None if dense_wq is None else dense_wq[li])
+def _layer_switches(mla_wq, dense_wq, moe_weights_q, li):
+    return tuple(None if w is None else w[li] for w in (mla_wq, dense_wq, moe_weights_q))
 
 
 def decode_step(cfg: DeepSeekV3Config, params: dict, hidden, positions, kv_caches,
@@ -636,17 +671,18 @@ def decode_step(cfg: DeepSeekV3Config, params: dict, hidden, positions, kv_cache
                 mla_wq=None, dense_wq=None, plain: bool = False):
     """One decode step over all layers: ``hidden [N, H]`` current-token
     activations at ``positions``; ``seq_lens`` include the current token;
-    slot ``-1`` rows write nothing.  ``mla_wq`` (:func:`make_mla_preprocess_weights`)
+    slot ``-1`` rows write nothing.  ``moe_weights_q``
+    (:func:`quantize_moe_weights`) runs the W8A8 MoE, else the float experts
+    (:func:`_dense_moe`); ``mla_wq`` (:func:`make_mla_preprocess_weights`)
     runs the fused W8A8 prologue, ``dense_wq`` (:func:`quantize_dense_weights`)
     the W8A8 output projection and shared expert.  Returns ``(hidden,
     kv_caches)`` with the caches updated in place."""
-    _require_moe_q(moe_weights_q)
     ks = _nope_scale(cfg)
     cos, sin = rope_cos_sin(positions, cfg.qk_rope_dim)
     x = hidden
     for li, lw in enumerate(params["layers"]):
         cache = kv_caches[li]
-        mw, dq = _layer_switches(mla_wq, dense_wq, li)
+        mw, dq, wq = _layer_switches(mla_wq, dense_wq, moe_weights_q, li)
         q = _attention_inputs(cfg, lw, mw, x, cos, sin, cache, slot_mapping, plain)
         if cfg.sparse_count > 0:
             attn = _dsa_decode(cfg, lw, x, q, cache, block_table, seq_lens, slot_mapping, ks,
@@ -658,7 +694,7 @@ def decode_step(cfg: DeepSeekV3Config, params: dict, hidden, positions, kv_cache
             attn = decode_mla(q, cache["nope"], cache["rope"], seq_lens, cfg.sm_scale,
                               block_table, k_scale=ks)
         x = x + _mla_output(cfg, lw, attn, dq, plain)
-        x = _moe_and_shared(cfg, lw, moe_weights_q[li], dq, x, plain)
+        x = _moe_and_shared(cfg, lw, wq, dq, x, plain)
     return x, kv_caches
 
 
@@ -667,9 +703,9 @@ def prefill_step(cfg: DeepSeekV3Config, params: dict, hidden, seq_lens, kv_cache
                  moe_weights_q=None, mla_wq=None, dense_wq=None, plain: bool = False):
     """Varlen (chunked) prefill over all layers: ``hidden [S, H]`` packed by
     request, ``seq_lens [B]`` new tokens, ``context_lens [B]`` totals including
-    them; ``mla_wq`` and ``dense_wq`` as in :func:`decode_step`.  Returns
-    ``(hidden, kv_caches)`` with the caches updated in place."""
-    _require_moe_q(moe_weights_q)
+    them; ``moe_weights_q``, ``mla_wq`` and ``dense_wq`` as in
+    :func:`decode_step`.  Returns ``(hidden, kv_caches)`` with the caches
+    updated in place."""
     ks = _nope_scale(cfg)
     dev = hidden.device
     sl = seq_lens.to(dev).long()
@@ -679,7 +715,7 @@ def prefill_step(cfg: DeepSeekV3Config, params: dict, hidden, seq_lens, kv_cache
     x = hidden
     for li, lw in enumerate(params["layers"]):
         cache = kv_caches[li]
-        mw, dq = _layer_switches(mla_wq, dense_wq, li)
+        mw, dq, wq = _layer_switches(mla_wq, dense_wq, moe_weights_q, li)
         q = _attention_inputs(cfg, lw, mw, x, cos, sin, cache, slot_mapping, plain)
         if cfg.sparse_count > 0:                    # token mode: then dense attention, as JAX
             h1 = _write_index_keys(lw, x, cache, slot_mapping)
@@ -694,5 +730,141 @@ def prefill_step(cfg: DeepSeekV3Config, params: dict, hidden, seq_lens, kv_cache
                                       block_tables, context_lens, cfg.sm_scale, max_q=max_q,
                                       k_scale=ks)
         x = x + _mla_output(cfg, lw, attn, dq, plain)
-        x = _moe_and_shared(cfg, lw, moe_weights_q[li], dq, x, plain)
+        x = _moe_and_shared(cfg, lw, wq, dq, x, plain)
     return x, kv_caches
+
+
+# ---------------------------------------------------------------------------
+# training on one GPU
+# ---------------------------------------------------------------------------
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "expert-parallel training (mesh=...) runs the MoE on gmm_train (K8a's float and "
+            "rhs_contract_last modes) behind ep_core's ragged dispatch: not ported yet "
+            "(ROADMAP item 16)")
+
+
+def _train_attention(cfg: DeepSeekV3Config, lw: dict, x, cos, sin, *, flash: bool = False,
+                     plain: bool = False):
+    """Causal MLA attention over whole sequences ``x [B, S, H]`` → the
+    attention block's output ``[B, S, H]``.  ``flash=False``: dense scores in
+    the activations' dtype (JAX's einsum path); ``flash=True``:
+    :func:`~sgl_kernel_npu_tpu_torch.ops.attention.mla_train.mla_flash_train`
+    (K14a-c on the card, their plain versions on the CPU or with ``plain``)."""
+    b, s, h = x.shape
+    q_lat, qpe, k_lat, kpe, _ = _mla_qkv(cfg, lw, x.reshape(b * s, h), cos, sin)
+    q_lat = q_lat.reshape(b, s, cfg.num_heads, -1)
+    qpe = qpe.reshape(b, s, cfg.num_heads, -1)
+    k_lat = k_lat.reshape(b, s, -1)
+    kpe = kpe.reshape(b, s, -1)
+    if flash:
+        attn = mla_flash_train(q_lat, qpe, k_lat, kpe, cfg.sm_scale, plain=plain)
+    else:
+        scores = torch.einsum("bqhl,bkl->bhqk", q_lat, k_lat)
+        scores = (scores + torch.einsum("bqhr,bkr->bhqk", qpe, kpe)) * cfg.sm_scale
+        causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=x.device))
+        p = torch.softmax(torch.where(causal, scores, -1e30), dim=-1)
+        attn = torch.einsum("bhqk,bkl->bqhl", p, k_lat)
+    return _mla_output(cfg, lw, attn.reshape(b * s, cfg.num_heads, -1)).reshape(b, s, h)
+
+
+def train_forward(cfg: DeepSeekV3Config, params: dict, tokens, *, mesh=None,
+                  flash: bool = False, plain: bool = False):
+    """The causal LM loss of ``tokens [B, S]``: the mean next-token NLL over
+    the first S - 1 positions of every row, from f32 log-softmax logits of
+    the tied head (``embed``ᵀ).  Each layer: attention
+    (:func:`_train_attention`, ``flash`` and ``plain`` as there), then the
+    dense float MoE (:func:`_dense_moe`) and the shared expert.  ``mesh``
+    must be None: one GPU, no expert parallelism (ROADMAP item 16)."""
+    _no_mesh(mesh)
+    b, s = tokens.shape
+    x = embed(params, tokens)                                            # [B, S, H]
+    cos, sin = rope_cos_sin(torch.arange(s, device=x.device), cfg.qk_rope_dim)
+    cos, sin = cos.repeat(b, 1), sin.repeat(b, 1)
+    for lw in params["layers"]:
+        x = x + _train_attention(cfg, lw, x, cos, sin, flash=flash, plain=plain)
+        h2 = rms_norm_ref(x.reshape(b * s, -1), lw["ln2"])
+        topk_idx, topk_w = _router(cfg, lw, h2)
+        moe = _dense_moe(cfg, lw, h2, topk_idx, topk_w)
+        x = x + (moe + _shared_expert(lw, h2)).reshape(b, s, -1)
+    logits = _mm(rms_norm_ref(x.reshape(b * s, -1), params["final_ln"]), params["embed"].T)
+    labels = torch.roll(tokens, -1, dims=1).reshape(-1).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    mask = (torch.arange(s, device=x.device) < s - 1).repeat(b)
+    nll = -logp.gather(1, labels[:, None])[:, 0]
+    return (nll * mask).sum() / mask.sum()
+
+
+def _flatten(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _flatten(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _flatten(v)]
+    return []
+
+
+def _unflatten(tree, leaves):
+    """``tree`` with its tensor leaves replaced, in :func:`_flatten`'s order,
+    by the iterator ``leaves``."""
+    if isinstance(tree, torch.Tensor):
+        return next(leaves)
+    if isinstance(tree, dict):
+        return {k: _unflatten(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_unflatten(v, leaves) for v in tree)
+    return tree
+
+
+def _loss_and_leaf_grads(cfg, params, tokens, **kw):
+    """The loss, the params' tensor leaves and their gradients (None where the
+    loss does not reach a leaf: ``router_bias``, the DSA indexer
+    projections)."""
+    leaves = _flatten(params)
+    live = [p.detach().requires_grad_(p.is_floating_point()) for p in leaves]
+    loss = train_forward(cfg, _unflatten(params, iter(live)), tokens, **kw)
+    wrt = [p for p in live if p.requires_grad]
+    grads = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+    return loss.detach(), leaves, [next(grads) if p.requires_grad else None for p in live]
+
+
+def loss_and_grads(cfg: DeepSeekV3Config, params: dict, tokens, *, mesh=None,
+                   flash: bool = False, plain: bool = False):
+    """``jax.value_and_grad(train_forward)``: the loss and its gradient
+    w.r.t. every tensor of ``params``, in ``params``' own structure (zeros
+    where the loss does not reach, as JAX)."""
+    loss, leaves, grads = _loss_and_leaf_grads(cfg, params, tokens, mesh=mesh, flash=flash,
+                                                plain=plain)
+    full = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return loss, _unflatten(params, iter(full))
+
+
+def make_train_step(cfg: DeepSeekV3Config, mesh=None, lr: float = 1e-3, flash: bool = False,
+                    plain: bool = False):
+    """``step(params, tokens) -> (new_params, loss)``: one SGD step ``p - lr
+    g`` out of place, as JAX's (``lr`` rounded to each leaf's dtype first, as
+    JAX's weak-typed scalar is).  Each gradient is freed as its new leaf is
+    made, so the peak holds the weights, the gradients and the activations,
+    not three copies of the weights.  Leaves the loss does not reach come
+    back unchanged (the same tensors).  ``mesh`` must be None (ROADMAP item
+    16)."""
+    _no_mesh(mesh)
+
+    def step(params, tokens):
+        loss, leaves, grads = _loss_and_leaf_grads(cfg, params, tokens, flash=flash,
+                                                    plain=plain)
+        new = []
+        with torch.no_grad():
+            for i, p in enumerate(leaves):
+                g, grads[i] = grads[i], None
+                if g is None:
+                    new.append(p)
+                    continue
+                new.append(p - g.mul_(torch.tensor(lr, dtype=g.dtype).item()))
+                del g
+        return _unflatten(params, iter(new)), loss
+
+    return step

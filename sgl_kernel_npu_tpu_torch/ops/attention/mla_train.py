@@ -1,0 +1,227 @@
+"""Differentiable dense causal MLA flash attention for training: plain
+versions and the Hopper kernels (K14a forward, K14b dQ, K14c dK).
+
+Counterpart of ``sgl_kernel_npu_tpu/ops/attention/mla_train.py``
+(``mla_train_ref``, ``mla_flash_train``, whose ``jax.custom_vjp`` becomes a
+``torch.autograd.Function``; the kernels are CUDA: ``csrc/mla_train.cu``).
+Queries ``q_lat [B, S, H, L]`` ‖ ``q_pe [B, S, H, R]`` attend to the latent
+keys of their batch row, ``k_lat [B, S, L]`` + ``k_pe [B, S, R]`` (shared by
+the heads), token t to keys ``0 .. t``; V aliases ``k_lat``, so its gradient
+collects the dK and the dV terms.  The log-sum-exp rides as ``[B, S, H]``
+f32 (JAX's ``[rows, 128]`` lane broadcast is a TPU layout).
+
+The plain versions follow the TPU kernels' arithmetic: f32 scores of the
+inputs' products, P rounded to the inputs' dtype for the PV product while
+the denominator sums the unrounded P, dS rounded to it before the dQ / dK
+products, f32 sums rounded once.  They compute the whole ``[B, H, S, S]``
+score matrix at once where the kernels walk 32-key chunks (the online
+softmax's rescaling rounds P at another scale: bf16 rounding-level
+differences).
+
+The CUDA kernels take bf16 with L = 512 and R = 64 (DeepSeek-V3's widths,
+as the MLA serving kernels); f32 or other widths raise ``ValueError`` on the
+card, where JAX takes any (ROADMAP §C).  JAX's tile arguments (``q_chunk``,
+``k_chunk``, ``bwd_k_chunk``, ``interpret``) are dropped: the CUDA kernels
+fix their own tiles.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sgl_kernel_npu_tpu_torch.ops.attention.decode_attention import D_NOPE, D_ROPE, NEG_INF
+from sgl_kernel_npu_tpu_torch.utils import cuda_lib
+from sgl_kernel_npu_tpu_torch.utils.common import cdiv, on_cuda
+from sgl_kernel_npu_tpu_torch.utils.counters import counted
+
+ROWS = 16        # query rows per CUDA block, csrc/mla_train.cu (one K14c step)
+DK_PIECE = 128   # tokens of a K14c block: a key chunk's rows split into such pieces
+
+
+def _causal(s: int, device) -> torch.Tensor:
+    return torch.tril(torch.ones((s, s), dtype=torch.bool, device=device))
+
+
+def _scores(q_lat, q_pe, k_lat, k_pe, sm_scale):
+    """Masked f32 scores ``[B, H, S, S]``: exact products of the inputs, f32
+    sums, dead keys ``NEG_INF``."""
+    s = torch.einsum("bqhl,bkl->bhqk", q_lat.float(), k_lat.float())
+    s = (s + torch.einsum("bqhr,bkr->bhqk", q_pe.float(), k_pe.float())) * sm_scale
+    return torch.where(_causal(q_lat.shape[1], q_lat.device), s, NEG_INF)
+
+
+def mla_train_ref(q_lat, q_pe, k_lat, k_pe, sm_scale):
+    """Golden dense causal MLA attention: ``[B, S, H, L]`` in f32 math, cast
+    to q's dtype."""
+    p = torch.softmax(_scores(q_lat, q_pe, k_lat, k_pe, sm_scale), dim=-1)
+    return torch.einsum("bhqk,bkl->bqhl", p, k_lat.float()).to(q_lat.dtype)
+
+
+def mla_flash_fwd_plain(q_lat, q_pe, k_lat, k_pe, sm_scale):
+    """K14a's plain version → ``(out [B, S, H, L] in q's dtype, lse [B, S, H]
+    f32)``."""
+    s = _scores(q_lat, q_pe, k_lat, k_pe, sm_scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    acc = torch.einsum("bhqk,bkl->bhql", p.to(k_lat.dtype).float(), k_lat.float())
+    out = (acc / l).permute(0, 2, 1, 3).to(q_lat.dtype)
+    return out, (m + torch.log(l))[..., 0].permute(0, 2, 1).contiguous()
+
+
+def _p_ds(q_lat, q_pe, k_lat, k_pe, do, lse, delta, sm_scale):
+    """The backward's f32 ``P = exp(S - lse)`` (0 on dead keys) and ``dS = P
+    (dP - delta) sm_scale`` rounded to the keys' dtype, ``[B, H, S, S]``."""
+    s = _scores(q_lat, q_pe, k_lat, k_pe, sm_scale)
+    live = _causal(q_lat.shape[1], q_lat.device)
+    p = torch.where(live, torch.exp(s - lse.permute(0, 2, 1)[..., None]), 0.0)
+    dp = torch.einsum("bqhl,bkl->bhqk", do.float(), k_lat.float())
+    ds = p * (dp - delta.permute(0, 2, 1)[..., None]) * sm_scale
+    return p, ds.to(k_lat.dtype).float()
+
+
+def mla_flash_bwd_dq_plain(q_lat, q_pe, k_lat, k_pe, do, lse, delta, sm_scale):
+    """K14b's plain version → ``(dq_lat, dq_pe)`` in q's dtypes; ``do`` in q's
+    dtype, ``lse`` / ``delta`` ``[B, S, H]`` f32."""
+    _, ds = _p_ds(q_lat, q_pe, k_lat, k_pe, do, lse, delta, sm_scale)
+    dq_lat = torch.einsum("bhqk,bkl->bqhl", ds, k_lat.float())
+    dq_pe = torch.einsum("bhqk,bkr->bqhr", ds, k_pe.float())
+    return dq_lat.to(q_lat.dtype), dq_pe.to(q_pe.dtype)
+
+
+def mla_flash_bwd_dk_plain(q_lat, q_pe, k_lat, k_pe, do, lse, delta, sm_scale):
+    """K14c's plain version → ``(dk_lat, dk_pe)`` in k's dtypes: ``dk_lat =
+    dSᵀ q_lat + Pᵀ dO`` (P rounded to k's dtype), ``dk_pe = dSᵀ q_pe``."""
+    p, ds = _p_ds(q_lat, q_pe, k_lat, k_pe, do, lse, delta, sm_scale)
+    pb = p.to(k_lat.dtype).float()
+    dk_lat = (torch.einsum("bhqk,bqhl->bkl", ds, q_lat.float())
+              + torch.einsum("bhqk,bqhl->bkl", pb, do.float()))
+    dk_pe = torch.einsum("bhqk,bqhr->bkr", ds, q_pe.float())
+    return dk_lat.to(k_lat.dtype), dk_pe.to(k_pe.dtype)
+
+
+def check_train_operands(q_lat, q_pe, k_lat, k_pe, do=None, lse=None, delta=None) -> None:
+    """What the K14 kernels take: bf16 ``q_lat [B, S, H, 512]``, ``q_pe [B, S,
+    H, 64]``, ``k_lat [B, S, 512]``, ``k_pe [B, S, 64]`` (and ``do`` like
+    ``q_lat``, f32 ``lse`` / ``delta [B, S, H]``), all contiguous.  Raises
+    ``ValueError`` on anything else: the JAX kernels take f32 and any width,
+    the port's only these (ROADMAP §C)."""
+    bf16 = [t for t in (q_lat, q_pe, k_lat, k_pe, do) if t is not None]
+    if any(t.dtype != torch.bfloat16 for t in bf16):
+        raise ValueError("the CUDA MLA training kernels take bf16 q, k and dO, got "
+                         f"{[t.dtype for t in bf16]} (f32 runs on the CPU only; ROADMAP §C)")
+    b, s, h, dl = q_lat.shape
+    want = {"q_pe": (b, s, h, D_ROPE), "k_lat": (b, s, D_NOPE), "k_pe": (b, s, D_ROPE),
+            "do": (b, s, h, D_NOPE)}
+    got = {"q_pe": q_pe, "k_lat": k_lat, "k_pe": k_pe, "do": do}
+    if dl != D_NOPE or any(t is not None and tuple(t.shape) != want[k] for k, t in got.items()):
+        raise ValueError(f"the CUDA MLA training kernels take latent {D_NOPE} and rope "
+                         f"{D_ROPE}: q_lat [B, S, H, 512], q_pe [B, S, H, 64], k_lat [B, S, "
+                         f"512], k_pe [B, S, 64]; got {tuple(q_lat.shape)}, "
+                         f"{tuple(q_pe.shape)}, {tuple(k_lat.shape)}, {tuple(k_pe.shape)} "
+                         "(ROADMAP §C)")
+    for t in (lse, delta):
+        if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != (b, s, h)):
+            raise ValueError(f"lse and delta are f32 [B, S, H], got {t.dtype} {tuple(t.shape)}")
+    if not all(t.is_contiguous() for t in bf16 + [t for t in (lse, delta) if t is not None]):
+        raise ValueError("the CUDA MLA training kernels take contiguous tensors")
+
+
+@counted
+def mla_flash_fwd(q_lat, q_pe, k_lat, k_pe, sm_scale):
+    """K14a → ``(out [B, S, H, 512], lse [B, S, H] f32)``.  CUDA tensors
+    launch ``csrc/mla_train.cu``; CPU tensors take :func:`mla_flash_fwd_plain`."""
+    if not on_cuda(q_lat, q_pe, k_lat, k_pe):
+        return mla_flash_fwd_plain(q_lat, q_pe, k_lat, k_pe, sm_scale)
+    check_train_operands(q_lat, q_pe, k_lat, k_pe)
+    b, s, h, _ = q_lat.shape
+    out = torch.empty_like(q_lat)
+    lse = torch.empty((b, s, h), dtype=torch.float32, device=q_lat.device)
+    lib = cuda_lib.load_library()
+    cuda_lib.check(lib, lib.mla_train_fwd_launch(
+        q_lat.data_ptr(), q_pe.data_ptr(), k_lat.data_ptr(), k_pe.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, s, h, float(sm_scale), cuda_lib.stream_ptr(q_lat)), "mla_flash_fwd")
+    mla_flash_fwd.launches += 1
+    return out, lse
+
+
+@counted
+def mla_flash_bwd_dq(q_lat, q_pe, k_lat, k_pe, do, lse, delta, sm_scale):
+    """K14b → ``(dq_lat, dq_pe)``.  CUDA tensors launch ``csrc/mla_train.cu``;
+    CPU tensors take :func:`mla_flash_bwd_dq_plain`."""
+    if not on_cuda(q_lat, q_pe, k_lat, k_pe, do, lse, delta):
+        return mla_flash_bwd_dq_plain(q_lat, q_pe, k_lat, k_pe, do, lse, delta, sm_scale)
+    check_train_operands(q_lat, q_pe, k_lat, k_pe, do, lse, delta)
+    b, s, h, _ = q_lat.shape
+    dq_lat, dq_pe = torch.empty_like(q_lat), torch.empty_like(q_pe)
+    lib = cuda_lib.load_library()
+    cuda_lib.check(lib, lib.mla_train_bwd_dq_launch(
+        q_lat.data_ptr(), q_pe.data_ptr(), k_lat.data_ptr(), k_pe.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq_lat.data_ptr(), dq_pe.data_ptr(), b, s, h,
+        float(sm_scale), cuda_lib.stream_ptr(q_lat)), "mla_flash_bwd_dq")
+    mla_flash_bwd_dq.launches += 1
+    return dq_lat, dq_pe
+
+
+def dk_head_groups(heads: int) -> int:
+    """K14c's head groups: groups of 16 heads where the heads divide so (8 at
+    DeepSeek-V3's 128, giving 8 blocks a 32-key chunk), else one."""
+    return heads // ROWS if heads % ROWS == 0 else 1
+
+
+@counted
+def mla_flash_bwd_dk(q_lat, q_pe, k_lat, k_pe, do, lse, delta, sm_scale):
+    """K14c → ``(dk_lat, dk_pe)``: f32 partials per group of heads
+    (:func:`dk_head_groups`) and piece of ``DK_PIECE`` tokens, summed in the
+    kernel's second pass.  CUDA tensors launch ``csrc/mla_train.cu``; CPU
+    tensors take :func:`mla_flash_bwd_dk_plain`."""
+    if not on_cuda(q_lat, q_pe, k_lat, k_pe, do, lse, delta):
+        return mla_flash_bwd_dk_plain(q_lat, q_pe, k_lat, k_pe, do, lse, delta, sm_scale)
+    check_train_operands(q_lat, q_pe, k_lat, k_pe, do, lse, delta)
+    b, s, h, _ = q_lat.shape
+    groups, pieces = dk_head_groups(h), cdiv(s, DK_PIECE)
+    part = torch.empty((groups * pieces, b, s, D_NOPE + D_ROPE), dtype=torch.float32,
+                       device=q_lat.device)
+    dk_lat, dk_pe = torch.empty_like(k_lat), torch.empty_like(k_pe)
+    lib = cuda_lib.load_library()
+    cuda_lib.check(lib, lib.mla_train_bwd_dk_launch(
+        q_lat.data_ptr(), q_pe.data_ptr(), k_lat.data_ptr(), k_pe.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), part.data_ptr(), dk_lat.data_ptr(), dk_pe.data_ptr(),
+        b, s, h, groups, DK_PIECE, float(sm_scale), cuda_lib.stream_ptr(q_lat)),
+        "mla_flash_bwd_dk")
+    mla_flash_bwd_dk.launches += 1
+    return dk_lat, dk_pe
+
+
+class _MlaFlash(torch.autograd.Function):
+    """JAX's ``_flash`` ``custom_vjp``: the forward saves ``(q_lat, q_pe,
+    k_lat, k_pe, out, lse)``, the backward runs dQ and dK."""
+
+    @staticmethod
+    def forward(ctx, q_lat, q_pe, k_lat, k_pe, sm_scale, plain):
+        fwd = mla_flash_fwd_plain if plain else mla_flash_fwd
+        out, lse = fwd(q_lat, q_pe, k_lat, k_pe, sm_scale)
+        ctx.save_for_backward(q_lat, q_pe, k_lat, k_pe, out, lse)
+        ctx.sm_scale, ctx.plain = sm_scale, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q_lat, q_pe, k_lat, k_pe, out, lse = ctx.saved_tensors
+        do = g.to(q_lat.dtype).contiguous()
+        # delta = rowsum(dO o O) in f32 from the f32 gradient (JAX :267-270)
+        delta = (g.float() * out.float()).sum(dim=-1)
+        dq, dk = ((mla_flash_bwd_dq_plain, mla_flash_bwd_dk_plain) if ctx.plain
+                  else (mla_flash_bwd_dq, mla_flash_bwd_dk))
+        args = (q_lat, q_pe, k_lat, k_pe, do, lse, delta, ctx.sm_scale)
+        return (*dq(*args), *dk(*args), None, None)
+
+
+def mla_flash_train(q_lat, q_pe, k_lat, k_pe, sm_scale, *, plain: bool = False):
+    """Differentiable dense causal MLA flash attention → ``[B, S, H, L]``.
+
+    The forward is K14a (saving the LSE), the backward K14b (dQ) and K14c
+    (dK, V = ``k_lat``) on CUDA tensors; CPU tensors, or ``plain=True``, run
+    the plain versions."""
+    return _MlaFlash.apply(q_lat.contiguous(), q_pe.contiguous(), k_lat.contiguous(),
+                           k_pe.contiguous(), sm_scale, plain)

@@ -78,21 +78,19 @@ def _cache_dtype(dtype, dev: torch.device):
 
 def deepseek_adapter(cfg, params, dtype=None, *, moe_weights_q=None, mla_wq=None,
                      device="cuda") -> ModelAdapter:
-    """DeepSeek-V3 with W8A8 routed experts: ``moe_weights_q``
+    """DeepSeek-V3: ``moe_weights_q``
     (``models.deepseek_v3.quantize_moe_weights`` or ``init_quantized_experts``)
-    is required, the dense float MoE is not ported yet.  ``mla_wq``
+    serves W8A8 routed experts, without it the float experts of ``params``
+    serve on the dense MoE (every expert for every token).  ``mla_wq``
     (``models.deepseek_v3.make_mla_preprocess_weights``) runs the fused W8A8
     prologue on prefill and decode.  ``dtype`` is the KV cache's
     (:func:`_cache_dtype`); the int8 latent cache rides on
     ``cfg.kv_cache_dtype``, as in JAX.  Each prefill call takes ``max_q`` =
     its row count, the engine's ``prefill_chunk``: a chunk above 512 tokens
-    runs its MoE on ``grouped_matmul`` (K8a)."""
+    runs its W8A8 MoE on ``grouped_matmul`` (K8a)."""
     from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as m
 
     dev = resolve_device(device)
-    if moe_weights_q is None:
-        raise NotImplementedError("deepseek_adapter needs moe_weights_q: the dense float "
-                                  "MoE is not ported yet (ROADMAP queue A)")
     dtype = _cache_dtype(dtype, dev)
     return ModelAdapter(
         page_size=cfg.page_size,

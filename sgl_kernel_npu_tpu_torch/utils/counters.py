@@ -30,6 +30,7 @@ def wrappers() -> dict:
         decode_attention,
         lightning_indexer,
         mla_prefill,
+        mla_train,
         sinks_attention,
     )
 
@@ -56,6 +57,9 @@ def wrappers() -> dict:
         "attention_sinks_prefill_pallas": sinks_attention.attention_sinks_prefill_pallas,
         "bgmv_fused": lora_pallas.bgmv_fused,
         "sgmv_fused": lora_pallas.sgmv_fused,
+        "mla_flash_fwd": mla_train.mla_flash_fwd,
+        "mla_flash_bwd_dq": mla_train.mla_flash_bwd_dq,
+        "mla_flash_bwd_dk": mla_train.mla_flash_bwd_dk,
     }
 
 

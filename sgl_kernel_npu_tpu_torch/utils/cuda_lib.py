@@ -55,6 +55,9 @@ _SIGNATURES = {
     "sinks_prefill_launch": [_P] * 9 + [_I] * 10 + [_F, _P],
     "lora_shrink_launch": [_P] * 6 + [_F] + [_I] * 7 + [_P, _P, _P],
     "lora_expand_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "mla_train_fwd_launch": [_P] * 6 + [_I] * 3 + [_F, _P],
+    "mla_train_bwd_dq_launch": [_P] * 9 + [_I] * 3 + [_F, _P],
+    "mla_train_bwd_dk_launch": [_P] * 10 + [_I] * 5 + [_F, _P],
 }
 
 _lib = None

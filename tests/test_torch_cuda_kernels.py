@@ -25,7 +25,13 @@ routing replayed); ``add_rms_norm_bias`` / ``add_gemma_rms_norm`` their
 residual sums bit-equal and outputs within one ulp (int8 one level);
 ``l1_norm`` 1e-5 of the largest value; ``bgmv_fused`` and ``sgmv_fused``
 1e-4 of the largest value (f32 sums of the same products in another
-order), dead rows exactly 0."""
+order), dead rows exactly 0; the MLA training kernels (K14a-c): the output
+as the MLA kernels (2e-2 + 2e-2 |plain|), the LSE 1e-4 absolute (f32 sums in
+another order), dQ and dK 1e-2 of the tensor's largest |value| plus 1e-4
+(dS rounds to bf16 on both sides, and a rounding tie moved by an f32 ulp
+flips it; at S = 1 the true dQ is 0 and both sides are noise), a
+small DeepSeek-V3 training step through the kernels within 2e-2 of each
+gradient leaf's largest value of the plain step (bf16 end to end)."""
 
 import math
 
@@ -36,6 +42,7 @@ from sgl_kernel_npu_tpu_torch.ops import activation, gmm_ring, grouped_matmul, m
 from sgl_kernel_npu_tpu_torch.ops.attention import decode_attention as da
 from sgl_kernel_npu_tpu_torch.ops.attention import lightning_indexer as li
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_prefill as mp
+from sgl_kernel_npu_tpu_torch.ops.attention import mla_train as mt
 from sgl_kernel_npu_tpu_torch.utils.common import kernels_available
 
 pytestmark = pytest.mark.cuda
@@ -1060,3 +1067,101 @@ def test_llama_lora_steps_kernels_match_plain(dev, w8a8):
     rel = (got - want).abs().amax(-1) / want.abs().amax(-1)
     tol = 5e-2 if w8a8 else 3e-2
     assert bool(torch.isfinite(got).all()) and float(rel.max()) < tol, float(rel.max())
+
+
+# (B, S, H): the training slice's shape, one token, a 16-row block of one
+# token's heads, 16 heads, 4 heads (a block spans 4 tokens), 20 heads (K14c's
+# steps cross tokens)
+TRAIN_CASES = [(2, 520, 128), (1, 1, 16), (1, 17, 128), (1, 40, 16), (2, 33, 4), (1, 70, 20)]
+
+
+def _train_inputs(gen, dev, b, s, h):
+    r = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)  # noqa: E731
+    return r(b, s, h, 512), r(b, s, h, 64), r(b, s, 512), r(b, s, 64)
+
+
+def _grad_close(got, want, tol=1e-2):
+    """Within ``tol`` of the largest |value|, plus 1e-4: at S = 1 the true dQ
+    is 0 (a softmax over one key) and both sides are f32 cancellation noise."""
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * float(want.float().abs().max()) + 1e-4, err
+
+
+@pytest.mark.parametrize("b,s,h", TRAIN_CASES)
+def test_mla_train_kernels(dev, b, s, h):
+    gen = torch.Generator(device=dev).manual_seed(b * 1000 + s + h)
+    x = _train_inputs(gen, dev, b, s, h)
+    sc = 1 / math.sqrt(192)
+    before = [f.launches for f in (mt.mla_flash_fwd, mt.mla_flash_bwd_dq, mt.mla_flash_bwd_dk)]
+    out, lse = mt.mla_flash_fwd(*x, sc)
+    out_p, lse_p = mt.mla_flash_fwd_plain(*x, sc)
+    do = torch.randn((b, s, h, 512), generator=gen, device=dev).to(torch.bfloat16)
+    delta = (do.float() * out_p.float()).sum(-1)
+    args = (*x, do, lse_p, delta, sc)
+    dq, dq_p = mt.mla_flash_bwd_dq(*args), mt.mla_flash_bwd_dq_plain(*args)
+    dk, dk_p = mt.mla_flash_bwd_dk(*args), mt.mla_flash_bwd_dk_plain(*args)
+    torch.cuda.synchronize()
+    after = [f.launches for f in (mt.mla_flash_fwd, mt.mla_flash_bwd_dq, mt.mla_flash_bwd_dk)]
+    assert after == [n + 1 for n in before]
+    torch.testing.assert_close(out.float(), out_p.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=0)
+    for got, want in zip((*dq, *dk), (*dq_p, *dk_p)):
+        assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got.float()).all())
+        _grad_close(got, want)
+
+
+def test_mla_flash_train_function_matches_plain(dev):
+    """The autograd Function on the kernels against ``plain=True``: out and
+    the four gradients of (out . G).sum()."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = _train_inputs(gen, dev, 2, 96, 32)
+    go = torch.randn((2, 96, 32, 512), generator=gen, device=dev).to(torch.bfloat16)
+    res = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in x]
+        out = mt.mla_flash_train(*leaves, 0.07, plain=plain)
+        (out.float() * go.float()).sum().backward()
+        res.append([out] + [t.grad for t in leaves])
+    torch.testing.assert_close(res[0][0].float(), res[1][0].float(), atol=2e-2, rtol=2e-2)
+    for got, want in zip(res[0][1:], res[1][1:]):
+        _grad_close(got, want)
+
+
+def test_mla_train_kernels_reject_what_they_do_not_take(dev):
+    """f32 and other widths raise ValueError on the card (ROADMAP §C)."""
+    x = [t.float() for t in _train_inputs(torch.Generator(device=dev).manual_seed(0), dev, 1,
+                                           8, 4)]
+    with pytest.raises(ValueError, match="bf16"):
+        mt.mla_flash_fwd(*x, 0.1)
+    narrow = [t[..., :256].contiguous().to(torch.bfloat16) for t in x]
+    with pytest.raises(ValueError, match="latent 512"):
+        mt.mla_flash_fwd(*narrow, 0.1)
+
+
+def test_deepseek_train_step_kernels_match_plain(dev):
+    """A small bf16 DeepSeek-V3 (latent 512 + 64, 16 heads, 8 experts) through
+    ``loss_and_grads(flash=True)`` on the kernels against ``plain=True``, the
+    routing of the kernel run replayed: the loss within 1e-2 relative, each
+    gradient leaf within 2e-2 of its largest value."""
+    from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as m
+
+    cfg = m.DeepSeekV3Config(vocab_size=256, hidden=256, num_layers=1, num_heads=16,
+                             kv_lora_rank=512, qk_rope_dim=64, qk_nope_dim=32, q_lora_rank=128,
+                             v_head_dim=32, num_experts=8, topk=2, moe_intermediate=64)
+    params = m.init_weights(cfg, 0, torch.bfloat16, device=dev)
+    tokens = torch.randint(0, 256, (2, 40), generator=torch.Generator().manual_seed(1)).to(dev)
+    chosen, routed = [], m._routed
+    m._routed = lambda ids: chosen.append(ids) or ids
+    try:
+        before = mt.mla_flash_bwd_dk.launches
+        lk, gk = m.loss_and_grads(cfg, params, tokens, flash=True)
+        assert mt.mla_flash_bwd_dk.launches == before + 1
+        replay = iter(chosen)
+        m._routed = lambda ids: next(replay)
+        lp, gp = m.loss_and_grads(cfg, params, tokens, flash=True, plain=True)
+    finally:
+        m._routed = routed
+    assert abs(float(lk) - float(lp)) <= 1e-2 * abs(float(lp))
+    for a, b in zip(m._flatten(gk), m._flatten(gp)):
+        if b.any():
+            _grad_close(a, b, 2e-2)

@@ -223,8 +223,9 @@ def test_router_matches_jax():
 def test_unported_switches_raise():
     """What the port still leaves to the JAX package raises, naming ROADMAP:
     the MoE of at most 512 tokens at widths the ring GEMMs do not take (K8b
-    and K8a's dispatch_p), K8a's float, training and non-bf16 output modes, the dense float
-    MoE, and gate/up packing narrower than 2I."""
+    and K8a's dispatch_p), K8a's float, training and non-bf16 output modes,
+    expert-parallel training (``mesh``, item 16), and gate/up packing
+    narrower than 2I."""
     from sgl_kernel_npu_tpu_torch.ops.grouped_matmul import grouped_matmul
 
     cfg = tm.DeepSeekV3Config(num_layers=1, moe_intermediate=96)   # 2I % 256 != 0
@@ -246,11 +247,8 @@ def test_unported_switches_raise():
             grouped_matmul(xq, wq, gs, sx, sw, **kw)
     with pytest.raises(NotImplementedError, match="K8a"):       # float rows
         grouped_matmul(xq.float(), wq, gs, sx, sw, epilogue="dequant")
-    with pytest.raises(NotImplementedError):
-        tm.decode_step(cfg, params, x[:1], torch.zeros(1, dtype=torch.int32),
-                       tm.init_kv_cache(cfg, 2, device="cpu"),
-                       torch.zeros((1, 1), dtype=torch.int32),
-                       torch.ones(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="item 16"):
+        tm.train_forward(cfg, params, torch.zeros((1, 4), dtype=torch.int32), mesh=object())
     with pytest.raises(NotImplementedError, match="K8"):   # packing narrower than 2I
         quantize_expert_weights(torch.zeros((1, 128, 8192)), torch.zeros((1, 128, 8192)),
                                    torch.zeros((1, 8192, 128)))
