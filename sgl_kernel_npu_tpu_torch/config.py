@@ -1,0 +1,77 @@
+"""Typed configuration for the expert-parallel communication layer.
+
+Counterpart of ``sgl_kernel_npu_tpu/config.py``: the same dataclass, fields
+and defaults, and the same capacity rule.  The port moves the payloads on the
+default transport only (``comm_backend="xla"``: an all-to-all collective of
+the process group, NCCL on the card).  Where a config is read, the other
+transports (``"pallas"``, ``"pallas_ragged"``: the one-sided window kernels
+K15), the monitored and validated exchanges and multi-round dispatch raise
+``NotImplementedError`` (:func:`check_supported`; ROADMAP item 16).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+
+@dataclasses.dataclass(frozen=True)
+class EPConfig:
+    """Static sizing for expert-parallel dispatch / combine.
+
+    Attributes (as in the JAX package):
+        num_max_dispatch_tokens_per_rank: worst-case local tokens per rank;
+            bounds the per-(expert, source rank) segment.
+        capacity_factor: sizes the per-(src, dst)-rank send buffer as
+            ``ceil(mean · f + 3 sqrt(mean · f))`` with ``mean = T K / R``;
+            ``None`` is the exact worst case ``T · min(K, E_local)`` (never
+            drops).  Smaller values may drop rows (counted).
+        use_int8_dispatch: int8 per-token payloads on the dispatch wire.
+        normal_round_tokens: per-round token chunk of multi-round dispatch
+            (``None`` disables it).
+        comm_backend: ``"xla"`` (the all-to-all collective), ``"pallas"`` or
+            ``"pallas_ragged"`` (one-sided windows, not ported).
+        monitor_comm / validate_comm: the exchange's wait-cost statistics and
+            checksum guard (not ported).
+    """
+
+    num_max_dispatch_tokens_per_rank: int = 128
+    capacity_factor: float | None = None
+    use_int8_dispatch: bool = True
+    normal_round_tokens: int | None = None
+    comm_backend: str = "xla"
+    monitor_comm: bool = False
+    validate_comm: bool = False
+
+    def pair_capacity(self, num_tokens: int, topk: int, num_ranks: int,
+                      experts_per_rank: int) -> int:
+        """Rows a single source rank may send to a single destination rank."""
+        exact = num_tokens * min(topk, experts_per_rank)
+        if self.capacity_factor is None:
+            return exact
+        scaled_mean = num_tokens * topk * self.capacity_factor / num_ranks
+        est = math.ceil(scaled_mean + 3.0 * math.sqrt(scaled_mean))
+        return int(min(exact, max(1, est)))
+
+
+def check_backend(backend: str) -> None:
+    """Raise unless ``backend`` is the transport the port has."""
+    if backend in ("pallas", "pallas_ragged"):
+        raise NotImplementedError(
+            f"comm_backend {backend!r} (the one-sided window all-to-all, K15 in "
+            "parallel/pallas_a2a.py) is not ported yet (ROADMAP item 16); use 'xla'")
+    if backend != "xla":
+        raise ValueError(f"unknown comm backend {backend!r}; expected 'xla', 'pallas', or "
+                         "'pallas_ragged'")
+
+
+def check_supported(config: EPConfig) -> None:
+    """Raise on every setting of ``config`` the port does not take."""
+    check_backend(config.comm_backend)
+    if config.monitor_comm or config.validate_comm:
+        raise NotImplementedError("monitor_comm / validate_comm (the exchange's wait-cost "
+                                  "statistics and checksum guard) are not ported yet "
+                                  "(ROADMAP item 16)")
+    if config.normal_round_tokens:
+        raise NotImplementedError("normal_round_tokens (multi-round dispatch) is not ported "
+                                  "yet (ROADMAP item 16)")

@@ -70,6 +70,12 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const __nv_bfloa
                : "r"(smem_addr(p)));
 }
 
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
 // d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
                                           const uint32_t (&b)[2]) {

@@ -18,14 +18,19 @@ their selected pages on ``mla_prefill_block_sparse`` (K9b), decode attends
 each row's selected pages on K2; in token mode decode selects tokens through
 ``lightning_indexer`` (K10) and prefill stays dense (K9a), as in JAX.
 
-Training on one GPU: ``train_forward`` (the causal LM loss) and
-``make_train_step`` (SGD), with the dense MoE and causal MLA attention over
-the whole sequence, either dense (an einsum) or ``flash=True`` through
-``ops.attention.mla_train.mla_flash_train`` (K14a forward, K14b / K14c
-backward).  The switches this slice does not take are absent (EPLB) or
-raise ``NotImplementedError``: expert-parallel serving and training
-(``mesh``, ROADMAP item 16), and the W8A8 MoE of at most 512 tokens at
-widths the ring GEMMs do not take, which needs K8b.
+Training: ``train_forward`` (the causal LM loss) and ``make_train_step``
+(SGD), with causal MLA attention over the whole sequence, either dense (an
+einsum) or ``flash=True`` through ``ops.attention.mla_train.mla_flash_train``
+(K14a forward, K14b / K14c backward), and the routed experts either dense
+(``mesh=None``: every expert for every token, JAX's single-device form) or
+expert parallel (``mesh``, a ``DeviceMesh`` with dims ``("dp", "ep")``:
+:func:`_ep_moe_train`, ragged dispatch and combine over the mesh's EP group
+around three ``gmm_train`` products, K8a's ``none`` mode forward and
+``rhs_contract_last`` for dx).  The switches this slice does not take are
+absent (EPLB) or raise ``NotImplementedError``: expert-parallel serving,
+the gradients over a mesh of more than one rank (ROADMAP item 16), and the
+W8A8 MoE of at most 512 tokens at widths the ring GEMMs do not take, which
+needs K8b.
 
 Weights are a plain dict of tensors (``layers`` a list of per-layer dicts),
 with the JAX package's names and layouts; caches are a list of per-layer
@@ -74,7 +79,11 @@ from sgl_kernel_npu_tpu_torch.ops.gmm_ring import (
     gmm2_combine_ring,
     gmm2_combine_ring_ref,
 )
-from sgl_kernel_npu_tpu_torch.ops.grouped_matmul import grouped_matmul, grouped_matmul_plain
+from sgl_kernel_npu_tpu_torch.ops.grouped_matmul import (
+    gmm_train,
+    grouped_matmul,
+    grouped_matmul_plain,
+)
 from sgl_kernel_npu_tpu_torch.ops.mem_cache.kv_cache import (
     reshape_and_cache,
     reshape_and_cache_transposed,
@@ -82,6 +91,7 @@ from sgl_kernel_npu_tpu_torch.ops.mem_cache.kv_cache import (
 from sgl_kernel_npu_tpu_torch.ops.norm import rms_norm_ref
 from sgl_kernel_npu_tpu_torch.ops.quant import row_scale, saturate_int8
 from sgl_kernel_npu_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from sgl_kernel_npu_tpu_torch.parallel import ep_core
 from sgl_kernel_npu_tpu_torch.parallel.fused_moe import quantize_expert_weights
 from sgl_kernel_npu_tpu_torch.utils.common import cdiv, resolve_device, to_torch
 
@@ -735,15 +745,53 @@ def prefill_step(cfg: DeepSeekV3Config, params: dict, hidden, seq_lens, kv_cache
 
 
 # ---------------------------------------------------------------------------
-# training on one GPU
+# training
 # ---------------------------------------------------------------------------
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
+def _mesh_dims(mesh):
+    """The ``("dp", "ep")`` DeviceMesh's EP sub-mesh and DP sub-mesh."""
+    if tuple(getattr(mesh, "mesh_dim_names", None) or ()) != ("dp", "ep"):
+        raise ValueError("mesh must be a torch.distributed DeviceMesh with dims ('dp', 'ep'), "
+                         "the JAX mesh's axes")
+    return mesh["ep"], mesh["dp"]
+
+
+def _one_rank(mesh, what: str) -> None:
+    if mesh is not None and mesh.size() > 1:
         raise NotImplementedError(
-            "expert-parallel training (mesh=...) runs the MoE on gmm_train (K8a's float and "
-            "rhs_contract_last modes) behind ep_core's ragged dispatch: not ported yet "
-            "(ROADMAP item 16)")
+            f"{what} on a mesh of {mesh.size()} ranks: the gradients of the replicated leaves "
+            "need an all-reduce over the mesh, not ported yet (ROADMAP item 16)")
+
+
+def _ep_moe_train(cfg: DeepSeekV3Config, lw: dict, x_flat, topk_idx, topk_w, *, mesh,
+                  plain: bool = False):
+    """Differentiable expert-parallel MoE (JAX's ``_ep_moe_train``, the
+    ``shard_map`` body on this rank): ragged dispatch of this rank's tokens
+    ``x_flat [T, H]`` at their dtype over the mesh's EP group, ``gate`` and
+    ``up`` through :func:`gmm_train` on this rank's experts ``[rank·E_local,
+    (rank + 1)·E_local)``, SwiGLU in f32 cast to x's dtype, ``down`` through
+    :func:`gmm_train`, combine weighed by ``topk_w`` in f32 → ``[T, H]`` in
+    x's dtype.  Capacities exact (``T · min(K, E_local)`` a rank pair, ``T``
+    a segment): no row drops.  ``plain`` runs K8a's plain versions."""
+    ep, _ = _mesh_dims(mesh)
+    group, ranks, rank = ep.get_group(), ep.size(), ep.get_local_rank()
+    t = x_flat.shape[0]
+    e_local = cfg.num_experts // ranks
+    kw = dict(group=group, num_ranks=ranks, seg_capacity=t)
+    d = ep_core.dispatch_ragged_core(x_flat, topk_idx, num_experts=cfg.num_experts,
+                                     pair_capacity=t * min(cfg.topk, e_local), use_int8=False,
+                                     **kw)
+    gs, xin = d["group_sizes"], d["recv_x_sorted"]
+
+    def local(w):     # never a slice of the whole range: its backward copies the leaf
+        return w if ranks == 1 else w[rank * e_local : (rank + 1) * e_local]
+
+    gate = gmm_train(xin, local(lw["w_gate"]), gs, plain=plain)
+    up = gmm_train(xin, local(lw["w_up"]), gs, plain=plain)
+    act = (gate * torch.sigmoid(gate) * up).to(xin.dtype)
+    y = gmm_train(act, local(lw["w_down"]), gs, plain=plain)
+    return ep_core.combine_ragged_core(y.to(xin.dtype), topk_w, d["handle"],
+                                       num_local_experts=e_local, out_dtype=xin.dtype, **kw)
 
 
 def _train_attention(cfg: DeepSeekV3Config, lw: dict, x, cos, sin, *, flash: bool = False,
@@ -776,9 +824,12 @@ def train_forward(cfg: DeepSeekV3Config, params: dict, tokens, *, mesh=None,
     the first S - 1 positions of every row, from f32 log-softmax logits of
     the tied head (``embed``ᵀ).  Each layer: attention
     (:func:`_train_attention`, ``flash`` and ``plain`` as there), then the
-    dense float MoE (:func:`_dense_moe`) and the shared expert.  ``mesh``
-    must be None: one GPU, no expert parallelism (ROADMAP item 16)."""
-    _no_mesh(mesh)
+    routed experts and the shared expert.  ``mesh=None``: the dense float MoE
+    (:func:`_dense_moe`, f32 out, so the residual turns f32 as in JAX);
+    ``mesh``: the expert-parallel MoE (:func:`_ep_moe_train`, out in the
+    activations' dtype, as JAX's), ``tokens`` this rank's batch shard and
+    the loss the mean over every rank's tokens (its gradient this rank's
+    share)."""
     b, s = tokens.shape
     x = embed(params, tokens)                                            # [B, S, H]
     cos, sin = rope_cos_sin(torch.arange(s, device=x.device), cfg.qk_rope_dim)
@@ -787,14 +838,23 @@ def train_forward(cfg: DeepSeekV3Config, params: dict, tokens, *, mesh=None,
         x = x + _train_attention(cfg, lw, x, cos, sin, flash=flash, plain=plain)
         h2 = rms_norm_ref(x.reshape(b * s, -1), lw["ln2"])
         topk_idx, topk_w = _router(cfg, lw, h2)
-        moe = _dense_moe(cfg, lw, h2, topk_idx, topk_w)
+        if mesh is None:
+            moe = _dense_moe(cfg, lw, h2, topk_idx, topk_w)
+        else:
+            moe = _ep_moe_train(cfg, lw, h2, topk_idx, topk_w, mesh=mesh, plain=plain)
         x = x + (moe + _shared_expert(lw, h2)).reshape(b, s, -1)
     logits = _mm(rms_norm_ref(x.reshape(b * s, -1), params["final_ln"]), params["embed"].T)
     labels = torch.roll(tokens, -1, dims=1).reshape(-1).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     mask = (torch.arange(s, device=x.device) < s - 1).repeat(b)
     nll = -logp.gather(1, labels[:, None])[:, 0]
-    return (nll * mask).sum() / mask.sum()
+    total, count = (nll * mask).sum(), mask.sum()
+    if mesh is not None and mesh.size() > 1:
+        sums = torch.stack([total.detach(), count.to(total.dtype)])
+        for sub in _mesh_dims(mesh):
+            torch.distributed.all_reduce(sums, group=sub.get_group())
+        return (total + (sums[0] - total.detach())) / sums[1]
+    return total / count
 
 
 def _flatten(tree) -> list:
@@ -835,7 +895,9 @@ def loss_and_grads(cfg: DeepSeekV3Config, params: dict, tokens, *, mesh=None,
                    flash: bool = False, plain: bool = False):
     """``jax.value_and_grad(train_forward)``: the loss and its gradient
     w.r.t. every tensor of ``params``, in ``params``' own structure (zeros
-    where the loss does not reach, as JAX)."""
+    where the loss does not reach, as JAX).  ``mesh``: of one rank (more
+    raise, ROADMAP item 16)."""
+    _one_rank(mesh, "loss_and_grads")
     loss, leaves, grads = _loss_and_leaf_grads(cfg, params, tokens, mesh=mesh, flash=flash,
                                                 plain=plain)
     full = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
@@ -849,12 +911,14 @@ def make_train_step(cfg: DeepSeekV3Config, mesh=None, lr: float = 1e-3, flash: b
     JAX's weak-typed scalar is).  Each gradient is freed as its new leaf is
     made, so the peak holds the weights, the gradients and the activations,
     not three copies of the weights.  Leaves the loss does not reach come
-    back unchanged (the same tensors).  ``mesh`` must be None (ROADMAP item
-    16)."""
-    _no_mesh(mesh)
+    back unchanged (the same tensors).  ``mesh`` (of one rank; more raise,
+    ROADMAP item 16) trains the routed experts expert parallel
+    (:func:`_ep_moe_train`).  Returns the step alone, where JAX's returns it
+    with the parameters' shardings for a mesh."""
+    _one_rank(mesh, "make_train_step")
 
     def step(params, tokens):
-        loss, leaves, grads = _loss_and_leaf_grads(cfg, params, tokens, flash=flash,
+        loss, leaves, grads = _loss_and_leaf_grads(cfg, params, tokens, mesh=mesh, flash=flash,
                                                     plain=plain)
         new = []
         with torch.no_grad():

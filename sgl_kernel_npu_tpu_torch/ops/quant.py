@@ -2,8 +2,8 @@
 
 Counterpart of ``sgl_kernel_npu_tpu/ops/quant.py``.  :func:`quant_per_token`
 launches ``csrc/quant.cu`` for a CUDA tensor and takes
-:func:`quant_per_token_ref` for a CPU tensor.  ``wire_quant`` (the EP
-dispatch's wire quant) waits for expert parallelism.
+:func:`quant_per_token_ref` for a CPU tensor.  :func:`wire_quant`, the
+expert-parallel exchange's wire quant, rides the same kernel.
 """
 
 from __future__ import annotations
@@ -77,3 +77,13 @@ def quant_per_token(x: torch.Tensor):
         scale.data_ptr(), cuda_lib.stream_ptr(x)), "quant_per_token")
     quant_per_token.launches += 1
     return q, scale
+
+
+def wire_quant(x: torch.Tensor):
+    """Per-row int8 wire quant of ``[..., H]`` payloads for the
+    expert-parallel dispatch and combine → ``(int8 [..., H], f32 scales
+    [...])``, through :func:`quant_per_token` (K5) as JAX's goes through its
+    Pallas kernel."""
+    lead, h = x.shape[:-1], x.shape[-1]
+    q, s = quant_per_token(x.reshape(-1, h))
+    return q.reshape(*lead, h), s.reshape(lead)

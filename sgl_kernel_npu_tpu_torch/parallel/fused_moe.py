@@ -1,17 +1,53 @@
-"""Expert-weight quantization for the W8A8 MoE.
+"""Expert-parallel fused MoE bodies and the W8A8 expert-weight quant.
 
-Counterpart of ``sgl_kernel_npu_tpu/parallel/fused_moe.py:quantize_expert_weights``
-(the expert-parallel fused MoE of that module is not ported yet).
+Counterpart of ``sgl_kernel_npu_tpu/parallel/fused_moe.py``:
+:func:`fused_oai_moe_rank` (GPT-OSS's MoE on one rank, behind
+``Buffer.fused_oai_moe``) and :func:`quantize_expert_weights`.
+``fused_deep_moe_rank`` (the W8A8 DeepSeek MoE body) is not ported yet
+(ROADMAP item 16).
 """
 
 from __future__ import annotations
 
+from sgl_kernel_npu_tpu_torch.ops.activation import swiglu_oai_ref
 from sgl_kernel_npu_tpu_torch.ops.grouped_matmul import (
+    _row_groups,
+    grouped_matmul_float,
+    grouped_matmul_float_plain,
     moe_pack_tn,
     pack_gmm1_scales,
     pack_gmm1_weights,
 )
 from sgl_kernel_npu_tpu_torch.ops.quant import quant_per_channel
+from sgl_kernel_npu_tpu_torch.parallel import ep_core
+
+
+def fused_oai_moe_rank(x, topk_idx, topk_weights, w_gate_up, b_gate_up, w_down, b_down, *,
+                       group, num_experts: int, num_ranks: int, pair_capacity: int,
+                       seg_capacity: int, alpha: float = 1.702, limit: float = 7.0,
+                       plain: bool = False):
+    """GPT-OSS's MoE on one rank: ragged dispatch at x's dtype → ``x @
+    w_gate_up[e]`` (interleaved gate | up, ``[E_local, H, 2I]``) on K8a's
+    ``none`` mode, plus the expert's bias in f32 → the clamped SwiGLU in f32
+    (``swiglu_oai_ref``, as JAX), cast to x's dtype → ``@ w_down[e]`` plus its
+    bias → combine at x's dtype.  Each sorted row's expert comes from a
+    device search over the groups' prefix sum.  ``plain`` runs K8a's plain
+    version.  Returns ``(combined [T, H], group_sizes [E_local],
+    num_dropped [])``."""
+    d = ep_core.dispatch_ragged_core(
+        x, topk_idx, group=group, num_experts=num_experts, num_ranks=num_ranks,
+        pair_capacity=pair_capacity, seg_capacity=seg_capacity, use_int8=False)
+    xin, gs = d["recv_x_sorted"], d["group_sizes"]
+    row_e = _row_groups(gs, xin.shape[0])                  # expert of each sorted row
+    gmm = grouped_matmul_float_plain if plain else grouped_matmul_float
+    gu = gmm(xin, w_gate_up, gs) + b_gate_up[row_e]
+    act = swiglu_oai_ref(gu, alpha, limit).to(xin.dtype)
+    y = gmm(act, w_down, gs) + b_down[row_e]
+    combined = ep_core.combine_ragged_core(
+        y.to(xin.dtype), topk_weights, d["handle"], group=group, num_ranks=num_ranks,
+        num_local_experts=num_experts // num_ranks, seg_capacity=seg_capacity,
+        out_dtype=x.dtype)
+    return combined, gs, d["num_dropped"]
 
 
 def quantize_expert_weights(w_gate, w_up, w_down):

@@ -44,6 +44,8 @@ def wrappers() -> dict:
         "quant_per_token": quant.quant_per_token,
         "swiglu_quant": activation.swiglu_quant,
         "grouped_matmul": grouped_matmul.grouped_matmul,
+        "grouped_matmul_float": grouped_matmul.grouped_matmul_float,
+        "grouped_matmul_dx": grouped_matmul.grouped_matmul_dx,
         "lightning_indexer_scores_prefill_pallas":
             lightning_indexer.lightning_indexer_scores_prefill_pallas,
         "mla_prefill_block_sparse": mla_prefill.mla_prefill_block_sparse,

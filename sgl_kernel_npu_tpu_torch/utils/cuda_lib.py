@@ -47,6 +47,7 @@ _SIGNATURES = {
     "grouped_matmul_dequant_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "grouped_matmul_swiglu_quant_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                                            _P, _P, _P],
+    "grouped_matmul_bf16_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "rms_norm_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "add_rms_norm_launch": [_P] * 8 + [_I] * 6 + [_F, _P],
     "l1_norm_launch": [_P, _P, _I, _I, _I, _P],

@@ -1,0 +1,71 @@
+"""One rank of ``test_torch_ep_two_ranks.py`` (not a test module: the test
+starts two of these processes).
+
+    python tests/_torch_ep_ranks.py <work dir> <rank>
+
+Reads ``inputs.pkl`` from the work directory, joins a two-rank gloo group
+through a ``FileStore`` there (no port of its own to pick; gloo's pair
+connections use the loopback), runs the port's ``Buffer`` methods and the
+expert-parallel ``train_forward`` on this rank's share of the inputs, and
+writes ``rank<r>.pkl``.  Imports torch and the port, never JAX.
+"""
+
+import pathlib
+import pickle
+import sys
+
+import torch
+import torch.distributed as dist
+
+torch.set_num_threads(1)
+
+
+def main(work: pathlib.Path, rank: int) -> None:
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from sgl_kernel_npu_tpu_torch.config import EPConfig
+    from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as tm
+    from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer
+
+    inp = pickle.loads((work / "inputs.pkl").read_bytes())
+    dist.init_process_group("gloo", store=dist.FileStore(str(work / "store"), 2), rank=rank,
+                            world_size=2)
+    t = inp["x"].shape[0] // 2
+    mine = slice(rank * t, (rank + 1) * t)
+
+    def local(name, dtype=None):
+        v = torch.from_numpy(inp[name][mine].copy())
+        return v if dtype is None else v.to(dtype)
+
+    out = {}
+    for case in inp["cases"]:
+        buf = Buffer(None, num_experts=inp["E"], config=EPConfig(**case["config"]))
+        xs, sc, gs, handle, st = buf.dispatch(local("x"), local("idx"), use_int8=case["int8"])
+        y = torch.from_numpy(case["y"][rank].copy())
+        comb = buf.combine(y, local("w"), handle, out_dtype=torch.float32)
+        out[case["name"]] = dict(xs=xs.float().numpy(), sc=None if sc is None else sc.numpy(),
+                                 gs=gs.numpy(), counts=st["recv_count_matrix"].numpy(),
+                                 dropped=int(st["num_dropped"]), combined=comb.numpy())
+    buf = Buffer(None, num_experts=inp["E"])
+    moe = inp["oai"]
+    o, gs, dropped = buf.fused_oai_moe(local("x", torch.bfloat16), local("idx_live"), local("w"),
+                                       *(torch.from_numpy(moe[k]) for k in
+                                         ("w_gate_up", "b_gate_up", "w_down", "b_down")))
+    out["oai"] = dict(out=o.float().numpy(), gs=gs.numpy(), dropped=int(dropped))
+
+    mesh = init_device_mesh("cpu", (1, 2), mesh_dim_names=("dp", "ep"))
+    cfg = tm.DeepSeekV3Config(**inp["train_cfg"])
+    params, _, _, _ = tm.from_jax_params(inp["train_params"], device="cpu")
+    tokens = torch.from_numpy(inp["tokens"][rank : rank + 1].copy())
+    out["loss"] = float(tm.train_forward(cfg, params, tokens, mesh=mesh))
+    try:
+        tm.make_train_step(cfg, mesh)
+        out["step_refused"] = ""
+    except NotImplementedError as e:
+        out["step_refused"] = str(e)
+    (work / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(pathlib.Path(sys.argv[1]), int(sys.argv[2]))

@@ -36,3 +36,32 @@ def port_config(jax_cfg, port_cls):
     (all but the rope base, which the port leaves out: no path reads it)."""
     return port_cls(**{f.name: getattr(jax_cfg, f.name)
                        for f in dataclasses.fields(port_cls)})
+
+
+def one_rank_group():
+    """The default ``torch.distributed`` group of this test process, made on
+    first use: one gloo rank over an in-process store (no port, no file)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    return dist.group.WORLD
+
+
+def one_rank_mesh():
+    """A one-rank ``DeviceMesh`` with the JAX training mesh's axes ``("dp",
+    "ep")`` on :func:`one_rank_group`."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    one_rank_group()
+    return init_device_mesh("cpu", (1, 1), mesh_dim_names=("dp", "ep"))
+
+
+class TwoRankMesh:
+    """Stands for a ``("dp", "ep")`` DeviceMesh of two ranks, which one
+    process cannot make (``test_torch_ep_two_ranks.py`` makes a real one)."""
+
+    mesh_dim_names = ("dp", "ep")
+
+    def size(self):
+        return 2

@@ -12,7 +12,11 @@ f32 GMM2 + combine 1e-5 of the largest value (f32 sums in another order);
 ``quant_per_token`` and ``swiglu_quant`` int8 within one level (the SiLU's
 exp differs by ulps between libraries), scales rtol 1e-6; ``grouped_matmul``
 ``dequant`` within one bf16 ulp (the same f32 operations; exact in f32 out),
-``dequant_swiglu_quant`` int8 within one level and scales rtol 1e-6;
+``dequant_swiglu_quant`` int8 within one level and scales rtol 1e-6, its
+bf16 modes (``grouped_matmul_float``, ``grouped_matmul_dx``) 1e-4 of the
+largest |value| (f32 sums of exact bf16 products in another order), the
+expert-parallel GPT-OSS steps and DeepSeek-V3 training step on one NCCL rank
+as their model's kernel tests;
 ``lightning_indexer_scores_prefill_pallas`` the same -inf positions and
 finite scores within 1e-4 of the row's largest |score| (f32 sums of exact
 bf16 products in another order); ``mla_prefill_block_sparse`` as the MLA
@@ -344,6 +348,67 @@ def test_grouped_matmul_kernel(dev, sizes, s, k, i):
     assert y.dtype == torch.bfloat16 and not y[total:].any()
     torch.testing.assert_close(y.float(), y_p.float(), atol=0, rtol=2 ** -7)
     assert grouped_matmul.grouped_matmul.launches == before + 2
+
+
+@pytest.mark.parametrize("contract_last", [False, True], ids=["none", "rhs_contract_last"])
+@pytest.mark.parametrize("sizes,s,k,i", GMM_CASES)
+def test_grouped_matmul_bf16_kernel(dev, sizes, s, k, i, contract_last):
+    """K8a's bf16 modes on ragged groups (empty ones, a single row, groups
+    of more than one 64-row tile, rows past the total) against the plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(s + k + contract_last)
+    g, n = len(sizes), 2 * i
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    x = torch.randn((s, k), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((g, n, k) if contract_last else (g, k, n), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    fn = grouped_matmul.grouped_matmul_dx if contract_last else grouped_matmul.grouped_matmul_float
+    before = fn.launches
+    y = fn(x, w, gs)
+    y_p = grouped_matmul.grouped_matmul_float_plain(x, w, gs, rhs_contract_last=contract_last)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and y.dtype == torch.float32
+    assert not y[sum(sizes):].any()
+    assert float((y - y_p).abs().max()) <= 1e-4 * float(y_p.abs().max()) + 1e-6
+
+
+def test_grouped_matmul_bf16_rejects(dev):
+    """f32 input and non-contiguous weights raise ValueError on the card."""
+    gs = torch.tensor([3, 5], dtype=torch.int32, device=dev)
+    x = torch.randn((8, 64), device=dev)
+    w = torch.randn((2, 64, 32), device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        grouped_matmul.grouped_matmul_float(x, w, gs)
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped_matmul.grouped_matmul_dx(x.bfloat16(), w.bfloat16().transpose(1, 2), gs)
+
+
+def test_gmm_train_kernels_match_plain(dev):
+    """``gmm_train``'s forward (K8a ``none``) and dx (``rhs_contract_last``)
+    against ``plain=True``: the output 1e-4, dx (bf16) 1e-2 of the largest
+    |value|; dw is the same library product on both sides, exact."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gs = torch.tensor([0, 70, 1, 0, 33], dtype=torch.int32, device=dev)
+    x0 = torch.randn((120, 256), generator=gen, device=dev).to(torch.bfloat16)
+    w0 = (torch.randn((5, 256, 192), generator=gen, device=dev) / 16).to(torch.bfloat16)
+    ct = torch.randn((120, 192), generator=gen, device=dev)
+    res = []
+    for plain in (False, True):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        before = (grouped_matmul.grouped_matmul_float.launches,
+                  grouped_matmul.grouped_matmul_dx.launches)
+        out = grouped_matmul.gmm_train(x, w, gs, plain=plain)
+        (out * ct).sum().backward()
+        after = (grouped_matmul.grouped_matmul_float.launches,
+                 grouped_matmul.grouped_matmul_dx.launches)
+        assert after == tuple(b + (0 if plain else 1) for b in before)
+        res.append((out.detach(), x.grad, w.grad))
+    torch.cuda.synchronize()
+    (o, dx, dw), (o_p, dx_p, dw_p) = res
+    assert float((o - o_p).abs().max()) <= 1e-4 * float(o_p.abs().max())
+    _grad_close(dx, dx_p)
+    assert not dx[104:].any()
+    torch.testing.assert_close(dw, dw_p, rtol=0, atol=0)
 
 
 def test_moe_above_512_tokens_kernels_match_plain(dev):
@@ -1159,6 +1224,98 @@ def test_deepseek_train_step_kernels_match_plain(dev):
         replay = iter(chosen)
         m._routed = lambda ids: next(replay)
         lp, gp = m.loss_and_grads(cfg, params, tokens, flash=True, plain=True)
+    finally:
+        m._routed = routed
+    assert abs(float(lk) - float(lp)) <= 1e-2 * abs(float(lp))
+    for a, b in zip(m._flatten(gk), m._flatten(gp)):
+        if b.any():
+            _grad_close(a, b, 2e-2)
+
+
+# ---------------------------------------------------------------------------
+# the expert-parallel MoE on one NCCL rank (K8a's bf16 modes)
+# ---------------------------------------------------------------------------
+
+def _nccl_group():
+    """This process's default group: one NCCL rank over an in-process store."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    return dist.group.WORLD
+
+def test_gpt_oss_ep_steps_kernels_match_plain(dev):
+    """A small GPT-OSS with ``ep_buffer`` (a one-rank NCCL group): a 40-token
+    prefill then a decode step through the kernels (K8a ``none`` twice a
+    layer a call) against ``plain=True``, the routing replayed, within 3e-2
+    of a row's largest value; no drops at the exact capacity."""
+    from sgl_kernel_npu_tpu_torch.config import EPConfig
+    from sgl_kernel_npu_tpu_torch.models import gpt_oss as g
+    from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer
+
+    cfg = g.GptOssConfig(vocab_size=256, hidden=256, num_layers=2, num_heads=16,
+                         num_kv_heads=2, head_dim=64, intermediate=256, sliding_window=16,
+                         num_experts=8, topk=2, attention_bias=True)
+    params = g.init_weights(cfg, 0, torch.bfloat16, device=dev, bias_scale=0.02)
+    buf = Buffer(_nccl_group(), num_experts=8, config=EPConfig())
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((41, cfg.hidden), generator=gen, device=dev).to(torch.bfloat16)
+    bt = torch.arange(1, 5, dtype=torch.int32, device=dev)[None, :]
+    pos = torch.arange(41, device=dev)
+    slots = (bt[0, pos // 16] * 16 + pos % 16).to(torch.int32)
+    one = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)  # noqa: E731
+
+    def run(plain):
+        caches = g.init_kv_cache(cfg, 5, torch.bfloat16, device=dev)
+        y, _ = g.prefill_step(cfg, params, x[:40], one(40), caches, bt, one(40), slots[:40],
+                              max_q=40, plain=plain, ep_buffer=buf)
+        d, _ = g.decode_step(cfg, params, x[40:], pos[40:], caches, bt, one(41), slots[40:],
+                             plain=plain, ep_buffer=buf)
+        return torch.cat([y, d]).float()
+
+    record, router = [], g._router
+    try:
+        g._router = lambda c, lw, h: record.append(router(c, lw, h)) or record[-1]
+        before = grouped_matmul.grouped_matmul_float.launches
+        got = run(False)
+        assert grouped_matmul.grouped_matmul_float.launches == before + 2 * 2 * cfg.num_layers
+        replay = iter(record)
+        g._router = lambda c, lw, h: next(replay)
+        want = run(True)
+    finally:
+        g._router = router
+    torch.cuda.synchronize()
+    rel = (got - want).abs().amax(-1) / want.abs().amax(-1)
+    assert bool(torch.isfinite(got).all()) and float(rel.max()) < 3e-2, float(rel.max())
+
+
+def test_deepseek_ep_train_step_kernels_match_plain(dev):
+    """A small bf16 DeepSeek-V3 through ``loss_and_grads(mesh=<one NCCL
+    rank>, flash=True)``: K8a ``none`` and ``rhs_contract_last`` three times
+    each, against ``plain=True`` with the routing replayed; the loss within
+    1e-2 relative, each gradient leaf within 2e-2 of its largest value."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as m
+
+    cfg = m.DeepSeekV3Config(vocab_size=256, hidden=256, num_layers=1, num_heads=16,
+                             kv_lora_rank=512, qk_rope_dim=64, qk_nope_dim=32, q_lora_rank=128,
+                             v_head_dim=32, num_experts=8, topk=2, moe_intermediate=64)
+    params = m.init_weights(cfg, 0, torch.bfloat16, device=dev)
+    tokens = torch.randint(0, 256, (2, 40), generator=torch.Generator().manual_seed(1)).to(dev)
+    _nccl_group()
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("dp", "ep"))
+    chosen, routed = [], m._routed
+    m._routed = lambda ids: chosen.append(ids) or ids
+    try:
+        before = (grouped_matmul.grouped_matmul_float.launches,
+                  grouped_matmul.grouped_matmul_dx.launches)
+        lk, gk = m.loss_and_grads(cfg, params, tokens, mesh=mesh, flash=True)
+        assert (grouped_matmul.grouped_matmul_float.launches,
+                grouped_matmul.grouped_matmul_dx.launches) == (before[0] + 3, before[1] + 3)
+        replay = iter(chosen)
+        m._routed = lambda ids: next(replay)
+        lp, gp = m.loss_and_grads(cfg, params, tokens, mesh=mesh, flash=True, plain=True)
     finally:
         m._routed = routed
     assert abs(float(lk) - float(lp)) <= 1e-2 * abs(float(lp))

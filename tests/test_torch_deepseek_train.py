@@ -17,7 +17,11 @@ crossing over through ``from_jax_params``:
   relative, every new leaf within 1e-6 + 1e-5 |p| (one SGD step of lr 1e-3 on
   the gradients above);
 - the leaves the loss does not reach (``router_bias``, the DSA indexer
-  projections) come back unchanged, and ``mesh`` raises;
+  projections) come back unchanged, and a mesh of two ranks raises;
+- the expert-parallel MoE on a one-rank ``DeviceMesh``: ``loss_and_grads``
+  (every leaf, dense and flash attention) against ``jax.value_and_grad`` of
+  ``train_forward(mesh=Mesh(1x1, ("dp", "ep")))``, and one
+  ``make_train_step`` step, with the same tolerances;
 - ``decode_step`` / ``prefill_step`` without ``moe_weights_q`` (the dense
   float MoE) against JAX's, 1e-5 of max|hidden| (no int8 anywhere);
 - ``Engine`` + ``deepseek_adapter`` without ``moe_weights_q``: its greedy
@@ -29,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import jx, np32, port_config
+from _torch_parity import TwoRankMesh, jx, np32, port_config
 from sgl_kernel_npu_tpu.models import deepseek_v3 as jm
 from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as tm
 from sgl_kernel_npu_tpu_torch.runtime.engine import Engine, deepseek_adapter
@@ -120,11 +124,68 @@ def test_unreached_leaves_come_back_unchanged(model):
 
 
 def test_mesh_raises(model):
+    """A mesh of more than one rank: ``make_train_step`` and
+    ``loss_and_grads`` raise (the replicated gradients need an all-reduce,
+    ROADMAP item 16); a mesh without the ("dp", "ep") axes is refused."""
     _, tcfg, _, tparams, tokens = model
     with pytest.raises(NotImplementedError, match="item 16"):
-        tm.train_forward(tcfg, tparams, torch.from_numpy(tokens), mesh=object())
+        tm.loss_and_grads(tcfg, tparams, torch.from_numpy(tokens), mesh=TwoRankMesh())
     with pytest.raises(NotImplementedError, match="item 16"):
-        tm.make_train_step(tcfg, mesh=object())
+        tm.make_train_step(tcfg, mesh=TwoRankMesh())
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        tm.train_forward(tcfg, tparams, torch.from_numpy(tokens), mesh=object())
+
+
+@pytest.fixture(scope="module")
+def jax_ep_mesh():
+    from jax.sharding import Mesh
+
+    return Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("dp", "ep"))
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_ep_loss_and_grads_match_jax(model, jax_ep_mesh, flash):
+    """The expert-parallel MoE (``_ep_moe_train`` on ``gmm_train``) on a
+    one-rank ``DeviceMesh``: the loss and every gradient leaf against
+    ``jax.value_and_grad(train_forward(mesh=Mesh(1x1, ("dp", "ep"))))``, JAX's
+    dense attention (its flash path equals it, see above); tolerances as
+    :func:`test_loss_and_grads_match_jax`."""
+    from _torch_parity import one_rank_mesh
+
+    jcfg, tcfg, params, tparams, tokens = model
+    lj, gj = jax.jit(jax.value_and_grad(
+        lambda p: jm.train_forward(jcfg, p, jx(tokens), mesh=jax_ep_mesh)))(params)
+    lt, gt = tm.loss_and_grads(tcfg, tparams, torch.from_numpy(tokens), mesh=one_rank_mesh(),
+                               flash=flash)
+    assert abs(float(lt) - float(lj)) <= 1e-5 * abs(float(lj))
+
+    def check(name, g, w):
+        assert g.shape == tuple(w.shape), name
+        if not np.abs(np32(w)).max():
+            assert not bool(g.any()), name
+            return
+        assert _leaf_rel(g, w) < 1e-4, (name, _leaf_rel(g, w))
+
+    _assert_tree_close(gt, gj, check)
+
+
+def test_ep_train_step_matches_jax(model, jax_ep_mesh):
+    """One ``make_train_step(cfg, mesh)`` step on the one-rank mesh against
+    JAX's (its jitted step; the shardings it returns beside it are moot on
+    one device); tolerances as :func:`test_train_steps_match_jax`."""
+    from _torch_parity import one_rank_mesh
+
+    jcfg, tcfg, params, tparams, tokens = model
+    jstep, _ = jm.make_train_step(jcfg, jax_ep_mesh)
+    pj, lj = jstep(params, jx(tokens))
+    pt, lt = tm.make_train_step(tcfg, one_rank_mesh(), flash=True)(tparams,
+                                                                    torch.from_numpy(tokens))
+    assert abs(float(lt) - float(lj)) <= 1e-5 * abs(float(lj))
+
+    def check(name, g, w):
+        np.testing.assert_allclose(np32(g), np32(w), rtol=1e-5, atol=1e-6, err_msg=name)
+
+    _assert_tree_close(pt, pj, check)
 
 
 def test_dense_moe_decode_then_prefill_match_jax():

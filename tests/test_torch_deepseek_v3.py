@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import jx, np32, port_config, tt
+from _torch_parity import TwoRankMesh, jx, np32, port_config, tt
 from sgl_kernel_npu_tpu.models import deepseek_v3 as jm
 from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as tm
 from sgl_kernel_npu_tpu_torch.parallel.fused_moe import quantize_expert_weights
@@ -223,9 +223,11 @@ def test_router_matches_jax():
 def test_unported_switches_raise():
     """What the port still leaves to the JAX package raises, naming ROADMAP:
     the MoE of at most 512 tokens at widths the ring GEMMs do not take (K8b
-    and K8a's dispatch_p), K8a's float, training and non-bf16 output modes,
-    expert-parallel training (``mesh``, item 16), and gate/up packing
-    narrower than 2I."""
+    and K8a's dispatch_p), K8a's float SwiGLU epilogue, its integer rows
+    without an epilogue, its outputs other than bf16 (W8A8) and f32 (float),
+    float rows into a W8A8 epilogue, the gradients of a mesh of more than one
+    rank (item 16), and gate/up packing narrower than 2I; K8a refuses
+    ``rhs_contract_last`` with an epilogue, as JAX asserts."""
     from sgl_kernel_npu_tpu_torch.ops.grouped_matmul import grouped_matmul
 
     cfg = tm.DeepSeekV3Config(num_layers=1, moe_intermediate=96)   # 2I % 256 != 0
@@ -241,14 +243,17 @@ def test_unported_switches_raise():
     sx, sw = torch.ones(8), torch.ones((1, 256))
     for kw in (dict(epilogue="none"), dict(epilogue="dequant_swiglu"),
                dict(epilogue="dequant", dispatch_p=torch.ones((8, 8), dtype=torch.int8)),
-               dict(epilogue="dequant", rhs_contract_last=True),
                dict(epilogue="dequant", out_dtype=torch.float32)):
         with pytest.raises(NotImplementedError, match="K8a"):
             grouped_matmul(xq, wq, gs, sx, sw, **kw)
     with pytest.raises(NotImplementedError, match="K8a"):       # float rows
         grouped_matmul(xq.float(), wq, gs, sx, sw, epilogue="dequant")
+    with pytest.raises(NotImplementedError, match="K8a"):       # float 'none' to bf16
+        grouped_matmul(xq.float(), wq.float(), gs, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="rhs_contract_last"):
+        grouped_matmul(xq, wq, gs, sx, sw, epilogue="dequant", rhs_contract_last=True)
     with pytest.raises(NotImplementedError, match="item 16"):
-        tm.train_forward(cfg, params, torch.zeros((1, 4), dtype=torch.int32), mesh=object())
+        tm.make_train_step(cfg, mesh=TwoRankMesh())
     with pytest.raises(NotImplementedError, match="K8"):   # packing narrower than 2I
         quantize_expert_weights(torch.zeros((1, 128, 8192)), torch.zeros((1, 128, 8192)),
                                    torch.zeros((1, 8192, 128)))

@@ -1,0 +1,217 @@
+"""Port parity: the expert-parallel core on one rank (``config``,
+``parallel/layout``, ``parallel/ep_core``, ``parallel/buffer``).
+
+The JAX side runs its ``Buffer`` on a one-device mesh of the conftest's CPU
+devices (``shard_map``), the port its ``Buffer`` on a one-rank gloo group of
+this process.  The pure routing functions also run at 2 and 4 ranks here (a
+rank's plan needs no exchange).  Same numpy inputs; capacities exact
+(``capacity_factor`` None) and small enough to drop rows.  Tolerances: the
+routing, the counts and the dispatched rows exact (the port's sort keeps
+JAX's order of ties); the int8 wire's scales within 2e-7 relative (an f32
+ulp: XLA may compile JAX's interpret-mode ``amax / 127`` as a multiply by the
+reciprocal, the port divides) and its levels exact; the combine
+within 1e-6 of the largest |value| (f32 sums of the same k products in
+another order); ``fused_oai_moe`` (bf16 wire, f32 weights) within 1e-2 of a
+row's largest |value| (bf16 rounding of the activation and the output in
+another order)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh
+
+from _torch_parity import jx, np32, one_rank_group, tt
+from sgl_kernel_npu_tpu.config import EPConfig as JEPConfig
+from sgl_kernel_npu_tpu.parallel import ep_core as jep
+from sgl_kernel_npu_tpu.parallel.buffer import Buffer as JBuffer
+from sgl_kernel_npu_tpu.parallel.layout import get_dispatch_layout as jlayout
+from sgl_kernel_npu_tpu_torch.config import EPConfig
+from sgl_kernel_npu_tpu_torch.parallel import ep_core as tep
+from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer
+from sgl_kernel_npu_tpu_torch.parallel.layout import get_dispatch_layout
+
+E, K, T, H = 8, 3, 24, 32
+
+
+def _routing(rng, t=T, e=E, k=K, dead=0.1):
+    """Distinct experts per token, some slots inactive (-1)."""
+    idx = np.stack([rng.choice(e, k, replace=False) for _ in range(t)]).astype(np.int32)
+    idx[rng.random(idx.shape) < dead] = -1
+    w = rng.random((t, k)).astype(np.float32)
+    return idx, w / w.sum(-1, keepdims=True)
+
+
+@pytest.fixture(scope="module")
+def group():
+    return one_rank_group()
+
+
+@pytest.fixture(scope="module")
+def mesh1():
+    return Mesh(np.array(jax.devices()[:1]), ("ep",))
+
+
+def test_ep_config_matches_jax():
+    for kw in ({}, {"capacity_factor": 1.0}, {"capacity_factor": 0.25}):
+        for args in ((T, K, 1, E), (T, K, 4, 2), (512, 8, 8, 32)):
+            assert EPConfig(**kw).pair_capacity(*args) == JEPConfig(**kw).pair_capacity(*args)
+    assert dataclasses.asdict(EPConfig()) == dataclasses.asdict(JEPConfig())
+
+
+@pytest.mark.parametrize("ranks", [1, 4])
+def test_dispatch_layout_matches_jax(ranks):
+    idx, _ = _routing(np.random.default_rng(0))
+    got = get_dispatch_layout(tt(idx), E, ranks)
+    want = jlayout(jx(idx), E, ranks)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("ranks,rank,pair,seg", [(1, 0, T * K, T), (2, 1, 20, 9), (4, 2, 7, 3)])
+def test_routing_plan_matches_jax(ranks, rank, pair, seg):
+    """Every field of the plan, exact capacities and dropping ones."""
+    idx, _ = _routing(np.random.default_rng(1))
+    got = tep.make_routing_plan(tt(idx), num_experts=E, num_ranks=ranks, my_rank=rank,
+                                pair_capacity=pair, seg_capacity=seg)
+    want = jep.make_routing_plan(jx(idx), num_experts=E, num_ranks=ranks,
+                                 my_rank=jnp.int32(rank), pair_capacity=pair, seg_capacity=seg)
+    for name, a, b in zip(tep.RoutingPlan._fields, got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+    assert int(got.num_dropped) > 0 or pair == T * K
+
+
+def _jax_dispatch(mesh1, cfg, x, idx, use_int8):
+    buf = JBuffer(mesh1, "ep", num_experts=E, config=cfg)
+    return buf, buf.dispatch(jx(x), jx(idx), use_int8=use_int8)
+
+
+@pytest.mark.parametrize("use_int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("capacity_factor", [None, 0.3], ids=["exact", "dropping"])
+def test_buffer_dispatch_combine_match_jax(group, mesh1, capacity_factor, use_int8):
+    """``Buffer.dispatch``: the expert-sorted rows (and int8 scales), group
+    sizes, counts and drops; ``Buffer.combine`` of expert outputs given in
+    that order."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((T, H)).astype(np.float32)
+    idx, w = _routing(rng)
+    kw = dict(capacity_factor=capacity_factor, num_max_dispatch_tokens_per_rank=4)
+    jbuf, (jxs, jsc, jgs, jh, jst) = _jax_dispatch(mesh1, JEPConfig(**kw), x, idx, use_int8)
+    buf = Buffer(group, num_experts=E, config=EPConfig(**kw))
+    xs, sc, gs, handle, st = buf.dispatch(tt(x), tt(idx), use_int8=use_int8)
+    np.testing.assert_array_equal(np32(xs), np32(jxs[0]))
+    if use_int8:
+        assert xs.dtype == torch.int8
+        np.testing.assert_allclose(sc.numpy(), np.asarray(jsc[0]), rtol=2e-7, atol=0)
+    else:
+        assert sc is None and jsc is None
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(jgs[0]))
+    np.testing.assert_array_equal(st["recv_count_matrix"].numpy(),
+                                  np.asarray(jst["recv_count_matrix"][0]))
+    assert int(st["num_dropped"]) == int(jst["num_dropped"][0])
+    assert (int(st["num_dropped"]) > 0) == (capacity_factor is not None)
+
+    y = rng.standard_normal(xs.shape).astype(np.float32)
+    want = np32(jbuf.combine(jx(y)[None], jx(w), jh, out_dtype=jnp.float32))
+    got = buf.combine(tt(y), tt(w), handle, out_dtype=torch.float32)
+    np.testing.assert_allclose(np32(got), want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+def test_dispatch_core_padded_layout_matches_jax(group, mesh1):
+    """``dispatch_core`` / ``combine_core``: JAX's padded receiver layout
+    ``[E_local, R·seg, H]`` (int8 wire), and the combine from it (with the
+    int8 return wire too)."""
+    from jax.sharding import PartitionSpec as P
+
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((T, H)).astype(np.float32)
+    idx, w = _routing(rng)
+    pair, seg = 30, 6
+    y = rng.standard_normal((E, seg, H)).astype(np.float32)
+    common = dict(num_ranks=1, seg_capacity=seg)
+
+    def body(xs, ids, ws, ys):
+        d = jep.dispatch_core(xs, ids, axis_name="ep", num_experts=E, pair_capacity=pair,
+                              use_int8=True, **common)
+        outs = [jep.combine_core(ys, ws, d["handle"], axis_name="ep", out_dtype=jnp.float32,
+                                 use_int8_comm=q, **common) for q in (False, True)]
+        return d["recv_x"], d["recv_scales"], d["recv_count"], outs[0], outs[1]
+
+    want = jax.shard_map(body, mesh=mesh1, in_specs=(P("ep"),) * 4, out_specs=(P("ep"),) * 5,
+                         check_vma=False)(jx(x), jx(idx), jx(w), jx(y))
+    d = tep.dispatch_core(tt(x), tt(idx), group=group, num_experts=E, pair_capacity=pair,
+                          use_int8=True, **common)
+    for key, ref in zip(("recv_x", "recv_count"), (want[0], want[2])):
+        np.testing.assert_array_equal(np32(d[key]), np32(ref), err_msg=key)
+    np.testing.assert_allclose(np32(d["recv_scales"]), np32(want[1]), rtol=2e-7, atol=0)
+    for q, ref in zip((False, True), want[3:]):
+        got = tep.combine_core(tt(y), tt(w), d["handle"], group=group, out_dtype=torch.float32,
+                               use_int8_comm=q, **common)
+        np.testing.assert_allclose(np32(got), np32(ref), rtol=0,
+                                   atol=1e-6 * np.abs(np32(ref)).max())
+
+
+def test_fused_oai_moe_matches_jax(group, mesh1):
+    """``Buffer.fused_oai_moe`` (bf16 wire, f32 expert weights and biases)
+    against JAX's: the combined output, group sizes and drops."""
+    rng = np.random.default_rng(4)
+    inter = 16
+    x = rng.standard_normal((T, H)).astype(np.float32)
+    idx, w = _routing(rng, dead=0.0)
+    wgu = (rng.standard_normal((E, H, 2 * inter)) * H ** -0.5).astype(np.float32)
+    bgu = (rng.standard_normal((E, 2 * inter)) * 0.1).astype(np.float32)
+    wd = (rng.standard_normal((E, inter, H)) * inter ** -0.5).astype(np.float32)
+    bd = (rng.standard_normal((E, H)) * 0.1).astype(np.float32)
+    jbuf = JBuffer(mesh1, "ep", num_experts=E, config=JEPConfig())
+    want, jgs, jdrop = jbuf.fused_oai_moe(jx(x, jnp.bfloat16), jx(idx), jx(w), jx(wgu), jx(bgu),
+                                          jx(wd), jx(bd))
+    buf = Buffer(group, num_experts=E, config=EPConfig())
+    got, gs, drop = buf.fused_oai_moe(tt(x, torch.bfloat16), tt(idx), tt(w), tt(wgu), tt(bgu),
+                                      tt(wd), tt(bd))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (T, H)
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(jgs[0]))
+    assert int(drop) == int(jdrop[0]) == 0
+    want = np32(want)
+    err = np.abs(np32(got) - want).max(-1) / np.abs(want).max(-1)
+    assert err.max() <= 1e-2, err.max()
+
+
+def test_all_to_all_counts_and_differentiates(group):
+    """The exchange counts its calls and passes gradients back (one rank:
+    the identity both ways)."""
+    before = tep.all_to_all.calls
+    x = torch.randn((1, 5, 3), requires_grad=True)
+    y = tep.all_to_all(x, group)
+    (y * 2).sum().backward()
+    torch.testing.assert_close(y, x)
+    torch.testing.assert_close(x.grad, torch.full_like(x, 2.0))
+    assert tep.all_to_all.calls == before + 2           # forward and backward
+
+
+def test_unported_ep_switches_raise(group):
+    """What the slice leaves raises, naming ROADMAP item 16 (K15 for the
+    one-sided transports)."""
+    for cfg in (EPConfig(comm_backend="pallas"), EPConfig(comm_backend="pallas_ragged")):
+        with pytest.raises(NotImplementedError, match="K15"):
+            Buffer(group, num_experts=E, config=cfg)
+    for cfg in (EPConfig(monitor_comm=True), EPConfig(validate_comm=True),
+                EPConfig(normal_round_tokens=8)):
+        with pytest.raises(NotImplementedError, match="item 16"):
+            Buffer(group, num_experts=E, config=cfg)
+    buf = Buffer(group, num_experts=E)
+    x, idx = torch.zeros((4, H)), torch.zeros((4, K), dtype=torch.int32)
+    for call in (lambda: buf.low_latency_dispatch(x, idx), lambda: buf.low_latency_combine(),
+                 lambda: buf.fused_deep_moe(), lambda: buf.dispatch(x, idx, rounds=2),
+                 lambda: tep.dispatch_tp_allgather(x), lambda: tep.dispatch_ragged_multi_round(x),
+                 lambda: tep.make_routing_plan(idx, num_experts=E, num_ranks=1, my_rank=0,
+                                               pair_capacity=4, seg_capacity=4,
+                                               rank_remap=torch.zeros(1))):
+        with pytest.raises(NotImplementedError, match="item 16"):
+            call()
+    with pytest.raises(NotImplementedError, match="K15"):
+        buf.dispatch(x, idx, backend="pallas")
+    with pytest.raises(ValueError, match="divisible"):
+        get_dispatch_layout(idx, 7, 2)

@@ -133,3 +133,98 @@ def test_grouped_matmul_plain_matches_golden(epilogue):
         want = tgm.swiglu_requant_ref(y, torch.arange(ROWS) < int(SIZES.sum()))
     for u, v in zip(got if isinstance(got, tuple) else (got,), want):
         torch.testing.assert_close(u, v, rtol=0, atol=0)
+
+
+# --- K8a's float modes and gmm_train -------------------------------------------------
+#
+# JAX's kernel in interpret mode against the port's plain version on the same
+# rows and weights (f32, or both rounded to bf16): per group the f32 product of
+# the inputs, rows past the groups' total zero.  The products of two bf16 or two
+# f32 values are summed in f32 in another order on each side: within 1e-5 of the
+# output's largest |value|.
+
+FLOAT_K, FLOAT_N = 96, 64
+
+
+def _float_inputs(rng, dtype, contract_last):
+    x = rng.standard_normal((ROWS, FLOAT_K)).astype(np.float32)
+    shape = (len(SIZES),) + ((FLOAT_N, FLOAT_K) if contract_last else (FLOAT_K, FLOAT_N))
+    w = (rng.standard_normal(shape) * FLOAT_K ** -0.5).astype(np.float32)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (None, None)
+    return jx(x, jdt), jx(w, jdt), tt(x, tdt), tt(w, tdt)
+
+
+@pytest.mark.parametrize("contract_last", [False, True], ids=["none", "rhs_contract_last"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_grouped_matmul_float_modes_match_jax(dtype, contract_last):
+    rng = np.random.default_rng(5)
+    xj, wj, xt, wt = _float_inputs(rng, dtype, contract_last)
+    want = np32(jgm.grouped_matmul(xj, wj, jx(SIZES), rhs_contract_last=contract_last))
+    got = tgm.grouped_matmul(xt, wt, tt(SIZES), rhs_contract_last=contract_last)
+    direct = (tgm.grouped_matmul_dx if contract_last else tgm.grouped_matmul_float)(
+        xt, wt, tt(SIZES))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape == (ROWS, FLOAT_N)
+    torch.testing.assert_close(got, direct, rtol=0, atol=0)
+    np.testing.assert_allclose(np32(got), want, rtol=0, atol=1e-5 * np.abs(want).max())
+    total = int(SIZES.sum())
+    assert not got[total:].any() and not want[total:].any()
+    assert tgm.grouped_matmul_float.launches == tgm.grouped_matmul_dx.launches == 0
+
+
+def test_grouped_matmul_float_empty_and_single_groups():
+    """Every group empty but one of a single row, and no row at all in the
+    groups: the output is that row's product, zeros elsewhere."""
+    rng = np.random.default_rng(6)
+    xj, wj, xt, wt = _float_inputs(rng, "f32", False)
+    for sizes in ([0, 0, 1, 0, 0, 0, 0], [0] * len(SIZES)):
+        sz = np.asarray(sizes, np.int32)
+        want = np32(jgm.grouped_matmul(xj, wj, jx(sz)))
+        got = np32(tgm.grouped_matmul_float(xt, wt, tt(sz)))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * max(np.abs(want).max(), 1))
+        assert not got[int(sz.sum()):].any()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_gmm_train_grads_match_jax(dtype):
+    """``gmm_train``'s forward and gradients against ``jax.grad`` of JAX's
+    (its custom_vjp: dx on the kernel's ``rhs_contract_last`` mode with dy
+    rounded to x's type, dw by ``ragged_dot_general``) on a random cotangent.
+    f32: the output and dw within 1e-5, dx 1e-5 of the largest |value|; bf16:
+    dx and dw are rounded to bf16 on both sides from f32 sums in another
+    order, within 1e-2 of the largest |value| (an ulp of bf16 is 2^-8)."""
+    import jax
+
+    rng = np.random.default_rng(7)
+    xj, wj, xt, wt = _float_inputs(rng, dtype, False)
+    ct = rng.standard_normal((ROWS, FLOAT_N)).astype(np.float32)
+
+    def loss_j(x, w):
+        return jnp.sum(jgm.gmm_train(x, w, jx(SIZES)) * jx(ct))
+
+    (dxj, dwj) = jax.grad(loss_j, argnums=(0, 1))(xj, wj)
+    xt.requires_grad_()
+    wt.requires_grad_()
+    out = tgm.gmm_train(xt, wt, tt(SIZES))
+    (out * tt(ct)).sum().backward()
+    assert xt.grad.dtype == xt.dtype and wt.grad.dtype == wt.dtype
+    tol = 1e-5 if dtype == "f32" else 1e-2
+    for got, want in ((out, jgm.gmm_train(xj, wj, jx(SIZES))), (xt.grad, dxj), (wt.grad, dwj)):
+        want = np32(want)
+        np.testing.assert_allclose(np32(got), want, rtol=0, atol=tol * np.abs(want).max())
+    assert not xt.grad[int(SIZES.sum()):].any()          # rows past the total get no gradient
+    for g, size in enumerate(SIZES):                     # empty groups: zero weight gradient
+        assert bool(wt.grad[g].any()) == bool(size)
+
+
+def test_gmm_train_plain_switch_matches_default_on_cpu():
+    """``plain=True`` takes the same plain versions on CPU tensors."""
+    rng = np.random.default_rng(8)
+    _, _, xt, wt = _float_inputs(rng, "f32", False)
+    grads = []
+    for plain in (False, True):
+        x, w = xt.clone().requires_grad_(), wt.clone().requires_grad_()
+        out = tgm.gmm_train(x, w, tt(SIZES), plain=plain)
+        out.square().sum().backward()
+        grads.append((out.detach(), x.grad, w.grad))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
