@@ -150,7 +150,30 @@ Phases (any failure raises and the script exits non-zero without a result):
    flash=True)``: finite losses, K8a ``none`` and ``rhs_contract_last`` 3
    launches a layer a step, K14a-c one, all-to-alls counted; a step
    profiled, no expert weight copied, the peak memory.
-6. Print the kernels' JSON line (26 rows for the 26 ported TPU kernel
+4k. DeepSeek-V3 W8A8 expert parallel on the one-sided window transport,
+   after [4i] while [4]'s weights are alive: pallas_ragged_all_to_all (K15b)
+   bit-exact against its plain version (``all_to_all_single``) on a
+   2048-token chunk's dispatch ([1, 16384, 7168] int8 and its [1, 16384, 2]
+   int32 blob) and a decode step's, counts 0 to full; pallas_all_to_all
+   (K15a) on the per-expert counts and on a chunk's payload; the monitored
+   form (K15c) without a fault and with this rank muted (returns with its
+   timeout flags); each timed beside its bound (live bytes read and written
+   once), its plain version and ``all_to_all_single``.  fused_deep_moe_full_rank
+   (K16b) at a decode step's rows, 512 and 2048 tokens against its plain
+   version (1e-2 of a row's largest) and the unfused ``fused_deep_moe``
+   (relative mean difference < 4e-4), timed beside the unfused form and
+   ``_gmm_moe``.  Then ``Engine`` + ``deepseek_adapter(moe_weights_q=...,
+   mla_wq=..., ep_buffer=Buffer(<one-rank NCCL group>, 256,
+   EPConfig(comm_backend="pallas_ragged")))`` serves [4]'s prompts: a MoE
+   call launches K15b 3 times, K15a and K5 once, K8a twice, never K3 / K4;
+   no row dropped; tok/s beside [4]'s; a decode step and a 64-row chunk held
+   to ``plain=True`` and to [4]'s single-GPU W8A8 path, the routing
+   replayed, within 5e-2 of a row's largest; the decode step bit-identical
+   on the ``"pallas_ragged"``, ``"pallas"`` and ``"xla"`` transports; a
+   monitored ``Buffer.dispatch`` (K15c once); the decode step with
+   ``single_kernel=True`` (K16b once a layer) held to its plain version;
+   the four steps profiled (device busy share, launches a step).
+6. Print the kernels' JSON line (30 rows for the 30 ported TPU kernel
    sites, K8a's bf16 modes in rows of their own, each from its own
    result), the card line, and last the result line ``{"ok": true,
    "device": {...}}``.
@@ -196,7 +219,7 @@ from sgl_kernel_npu_tpu_torch.ops.attention import lightning_indexer as li  # no
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_prefill as mp  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_train as mt  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa  # noqa: E402
-from sgl_kernel_npu_tpu_torch.parallel import ep_core  # noqa: E402
+from sgl_kernel_npu_tpu_torch.parallel import ep_core, pallas_a2a  # noqa: E402
 from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer  # noqa: E402
 from sgl_kernel_npu_tpu_torch.runtime.engine import (  # noqa: E402
     Engine,
@@ -1038,6 +1061,7 @@ def serve(params, moe, mla_wq=None, *, cfg=CFG, ps=None, share=(1, SHARED_PREFIX
         raise AssertionError(f"launches {launches} over {n_pre} prefill and {n_dec} decode "
                              f"calls; want {want}")
     dec_tokens = len(rids) * (NEW_TOKENS - 1)      # the first token comes from prefill
+    eng.rates = (eng.stats["prefill_tokens"] / timer.t["prefill"], dec_tokens / timer.t["decode"])
     log(f"  served {len(rids)} requests (prompts {[len(p) for p in ps]}, {NEW_TOKENS} new tokens "
         f"each, {cfg.kv_cache_dtype} latent cache{', DSA' if dsa else ''}) in {wall:.2f} s "
         f"wall; prefill "
@@ -2918,6 +2942,355 @@ def ep_training_phase(params, tokens):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 4k: DeepSeek-V3 W8A8 served expert parallel on the one-sided window
+# transport (K15a-c, K16b)
+# ---------------------------------------------------------------------------
+
+# launches a MoE call on the window transport (JAX's ep_core.py:298-336, :442-498)
+EP_DEEP_CALL = {"pallas_ragged_all_to_all": 3, "pallas_all_to_all": 1, "grouped_matmul": 2,
+                "quant_per_token": 1}
+EP_DEEP_TOL = 1e-2                             # K16b vs plain: a row's largest |value|
+EP_DEEP_REL_MEAN = 4e-4                        # K16b vs the unfused form (JAX's bar)
+
+
+def a2a_bytes_bound(live_bytes):
+    """A window all-to-all's bound on one rank: its live bytes read once and
+    written once at the HBM rate."""
+    return bound(2 * live_bytes, 0, INT8_OPS)
+
+
+def collective_ms(x, group):
+    """``all_to_all_single`` of ``x`` on the NCCL group: the yardstick."""
+    out = torch.empty_like(x)
+    return time_ms(lambda: dist.all_to_all_single(out, x, group=group), 10)
+
+
+def check_window_a2a(gen, group, label, rows, width, counts_list, timed):
+    """K15b on ``[1, rows, width]`` int8 (a dispatch payload) and on its
+    ``[1, rows, 2]`` int32 slot / scale blob, each ragged count of
+    ``counts_list``, against its plain version (``all_to_all_single``):
+    bit-exact on the live rows and counts.  ``timed``: the full count, the
+    kernel, its plain version, the collective (``library_ms``) and a
+    ``Tensor.copy_`` of the same bytes (logged)."""
+    x = torch.randint(-128, 128, (1, rows, width), generator=gen, device=DEV).to(torch.int8)
+    blob = torch.randint(-2**30, 2**30, (1, rows, 2), generator=gen, device=DEV).to(torch.int32)
+    for payload in (x, blob):
+        for count in counts_list:
+            c = torch.tensor([count], dtype=torch.int32, device=DEV)
+            got, rc = pallas_a2a.pallas_ragged_all_to_all(payload, c, group=group)
+            want, wrc = pallas_a2a.pallas_ragged_all_to_all_plain(payload, c, group=group)
+            torch.cuda.synchronize()
+            if not (torch.equal(rc, wrc) and int(rc[0]) == count
+                    and torch.equal(got[0, :count], want[0, :count])):
+                raise AssertionError(f"pallas_ragged_all_to_all disagrees with its plain version: "
+                                     f"{label}, {tuple(payload.shape)}, count {count}")
+    log(f"  pallas_ragged_all_to_all {label}: [1, {rows}, {width}] int8 and its [1, {rows}, 2] "
+        f"int32 blob at counts {counts_list}: live rows and counts bit-exact")
+    if not timed:
+        return None
+    c = torch.tensor([rows], dtype=torch.int32, device=DEV)
+    res = dict(err=0.0, ms=time_ms(lambda: pallas_a2a.pallas_ragged_all_to_all(x, c, group=group),
+                                   10),
+               plain_ms=time_ms(lambda: pallas_a2a.pallas_ragged_all_to_all_plain(
+                   x, c, group=group), 5),
+               library_ms=collective_ms(x, group))
+    res["bound_ms"], res["bound_by"] = a2a_bytes_bound(x.numel())
+    out = torch.empty_like(x)
+    copy_ms = time_ms(lambda: out.copy_(x), 10)
+    log(f"    {res['ms']:.4f} ms (plain {res['plain_ms']:.4f}, all_to_all_single "
+        f"{res['library_ms']:.4f}, Tensor.copy_ {copy_ms:.4f}, bound {res['bound_ms']:.4f} "
+        f"{res['bound_by']}: {x.numel() / 1e6:.1f} MB read and written once)")
+    return res
+
+
+def check_window_fixed(group, label, x, timed):
+    """K15a on ``x [1, ...]`` against ``all_to_all_single``: bit-exact."""
+    got = pallas_a2a.pallas_all_to_all(x, group=group)
+    want = pallas_a2a.pallas_all_to_all_plain(x, group=group)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"pallas_all_to_all disagrees with its plain version: {label}")
+    nbytes = x.numel() * x.element_size()
+    log(f"  pallas_all_to_all {label}: {list(x.shape)} {x.dtype} bit-exact")
+    if not timed:
+        return None
+    res = dict(err=0.0, ms=time_ms(lambda: pallas_a2a.pallas_all_to_all(x, group=group), 10),
+               plain_ms=time_ms(lambda: pallas_a2a.pallas_all_to_all_plain(x, group=group), 5),
+               library_ms=collective_ms(x, group))
+    res["bound_ms"], res["bound_by"] = a2a_bytes_bound(nbytes)
+    log(f"    {res['ms']:.4f} ms (plain {res['plain_ms']:.4f}, all_to_all_single "
+        f"{res['library_ms']:.4f}, bound {res['bound_ms']:.6f} {res['bound_by']})")
+    return res
+
+
+def check_monitored(gen, group, rows, width):
+    """K15c: without a fault the rows and counts of K15b, statistics with no
+    timeout (col 3 = col 0, cols 1, 2, 4, 5 zero); this rank muted
+    (``inject_send_fault``) with 2000 polls: the call returns with the
+    timeout and missing-payload flags set and count 0.  Timed on the full
+    count."""
+    x = torch.randint(-128, 128, (1, rows, width), generator=gen, device=DEV).to(torch.int8)
+    c = torch.tensor([rows - 3], dtype=torch.int32, device=DEV)
+    got, rc, st = pallas_a2a.pallas_ragged_all_to_all(x, c, group=group, monitor=True)
+    torch.cuda.synchronize()
+    ok = (int(rc[0]) == rows - 3 and torch.equal(got[0, :rows - 3], x[0, :rows - 3])
+          and int(st[0, 3]) == int(st[0, 0]) and not st[0, [1, 2, 4, 5]].any())
+    t0 = time.perf_counter()
+    _, rc_f, st_f = pallas_a2a.pallas_ragged_all_to_all(x, c, group=group, monitor=True,
+                                                        max_poll_rounds=2000,
+                                                        inject_send_fault=True)
+    torch.cuda.synchronize()
+    fault_s = time.perf_counter() - t0
+    ok = ok and int(rc_f[0]) == 0 and st_f[0].tolist() == [2000, 1, 0, 2000, 1, 0]
+    log(f"  pallas_ragged_all_to_all(monitor=True) [1, {rows}, {width}] int8: no fault, stats "
+        f"{st[0].tolist()}; muted (inject_send_fault, max_poll_rounds 2000): returned in "
+        f"{fault_s * 1e3:.2f} ms, stats {st_f[0].tolist()}, count {int(rc_f[0])}")
+    if not ok:
+        raise AssertionError("pallas_ragged_all_to_all(monitor=True) is wrong")
+    full = torch.tensor([rows], dtype=torch.int32, device=DEV)
+    res = dict(err=0.0, ms=time_ms(lambda: pallas_a2a.pallas_ragged_all_to_all(
+        x, full, group=group, monitor=True), 10),
+        plain_ms=time_ms(lambda: pallas_a2a.pallas_ragged_all_to_all_plain(
+            x, full, group=group, monitor=True), 5), library_ms=collective_ms(x, group))
+    res["bound_ms"], res["bound_by"] = a2a_bytes_bound(x.numel())
+    log(f"    {res['ms']:.4f} ms (plain {res['plain_ms']:.4f}, all_to_all_single "
+        f"{res['library_ms']:.4f}, bound {res['bound_ms']:.4f} {res['bound_by']})")
+    return res
+
+
+def deep_routing(gen, n_tok):
+    """Random top-8 routing over DeepSeek-V3's 256 experts with sum-one weights."""
+    idx = torch.topk(torch.rand((n_tok, CFG.num_experts), generator=gen, device=DEV),
+                     CFG.topk, dim=-1).indices.to(torch.int32)
+    w = torch.rand((n_tok, CFG.topk), generator=gen, device=DEV)
+    return idx, w / w.sum(-1, keepdim=True)
+
+
+def check_fused_full(gen, group, moe, n_tok, timed):
+    """K16b on one layer's experts at ``n_tok`` tokens of random top-8
+    routing, against its plain version (counts and drops exact, ``combined``
+    within ``EP_DEEP_TOL`` of a row's largest |value|) and the unfused
+    ``fused_deep_moe`` on the window transport (relative mean difference
+    below ``EP_DEEP_REL_MEAN``).  ``timed``: K16b, its plain version, the
+    unfused form (all its launches) and ``_gmm_moe`` on the same rows; the
+    bound is the touched experts' weights and scales read once, the rows
+    read and the output written once, against the GEMMs' int8 operations."""
+    x = randn(gen, (n_tok, CFG.hidden))
+    idx, w = deep_routing(gen, n_tok)
+    buf = Buffer(group, CFG.num_experts, EPConfig(comm_backend="pallas_ragged"))
+    got, cnt, drop = buf.fused_deep_moe(x, idx, w, *moe, single_kernel=True)
+    want, wcnt, wdrop = buf.fused_deep_moe(x, idx, w, *moe, single_kernel=True, plain=True)
+    unf, ucnt, udrop = buf.fused_deep_moe(x, idx, w, *moe)
+    torch.cuda.synchronize()
+    err = float(((got.float() - want.float()).abs().amax(-1)
+                 / want.float().abs().amax(-1)).max())
+    rel = float((got.float() - unf.float()).abs().mean() / unf.float().abs().mean())
+    touched = int((cnt > 0).sum())
+    exact = torch.equal(cnt, wcnt) and torch.equal(cnt, ucnt)
+    log(f"  fused_deep_moe_full_rank {n_tok} tokens x top-8 over {touched} experts: vs plain "
+        f"max row rel err {err:.3e} (tol {EP_DEEP_TOL}); vs unfused rel mean diff {rel:.3e} "
+        f"(tol {EP_DEEP_REL_MEAN}); counts exact {exact}, drops {int(drop)}/{int(wdrop)}/"
+        f"{int(udrop)}")
+    if not (err <= EP_DEEP_TOL and rel < EP_DEEP_REL_MEAN and exact
+            and int(drop) == int(wdrop) == int(udrop) == 0
+            and bool(torch.isfinite(got.float()).all())):
+        raise AssertionError(f"fused_deep_moe_full_rank is wrong at {n_tok} tokens")
+    if not timed:
+        return None
+    w1, s1, w2, s2 = moe
+    h, n1 = w1.shape[1], w1.shape[2]
+    i = n1 // 2
+    rows = int(cnt.sum())
+    res = dict(err=err, library_ms=None,
+               ms=time_ms(lambda: buf.fused_deep_moe(x, idx, w, *moe, single_kernel=True), 5),
+               plain_ms=time_ms(lambda: buf.fused_deep_moe(x, idx, w, *moe, single_kernel=True,
+                                                           plain=True), 2))
+    res["bound_ms"], res["bound_by"] = bound(
+        touched * (h * n1 + i * h + 4 * (n1 + h)) + n_tok * h * 2 * 2,
+        2 * rows * (h * n1 + i * h), INT8_OPS)
+    unf_ms = time_ms(lambda: buf.fused_deep_moe(x, idx, w, *moe), 5)
+    gmm_ms = time_ms(lambda: m._gmm_moe(CFG, moe, x, idx, w), 5)
+    log(f"    {res['ms']:.4f} ms (plain {res['plain_ms']:.4f}; unfused fused_deep_moe "
+        f"{unf_ms:.4f}; single-GPU _gmm_moe {gmm_ms:.4f}; bound {res['bound_ms']:.4f} "
+        f"{res['bound_by']}: {touched} experts' weights read once)")
+    return res
+
+
+def deepseek_ep_phase(params, moe, mla_wq, eng_q):
+    """Phase [4k] (see the module docstring).  Returns the four kernels'
+    JSON numbers and their launches on their paths."""
+    group = dist.group.WORLD
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 17)
+    layers = CFG.num_layers
+    rows_chunk = LONG_CHUNK * CFG.topk
+    k15b = check_window_a2a(gen, group, f"at a {LONG_CHUNK}-token chunk's dispatch", rows_chunk,
+                            CFG.hidden, [0, 1, 12345, rows_chunk], True)
+    check_window_a2a(gen, group, "at a decode step's dispatch", MAX_BATCH * CFG.topk, CFG.hidden,
+                     [0, 5, MAX_BATCH * CFG.topk], False)
+    counts = torch.randint(0, 64, (1, CFG.num_experts), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    k15a = check_window_fixed(group, "the per-expert counts", counts, True)
+    big = torch.randint(-128, 128, (1, rows_chunk, CFG.hidden), generator=gen,
+                        device=DEV).to(torch.int8)
+    check_window_fixed(group, f"a {LONG_CHUNK}-token chunk's payload (the 'pallas' transport)",
+                       big, True)
+    del big
+    k15c = check_monitored(gen, group, rows_chunk, CFG.hidden)
+    k16 = {}
+    for n_tok in (MAX_BATCH, 512, LONG_CHUNK):
+        k16[n_tok] = check_fused_full(gen, group, moe[0], n_tok, True)
+
+    log(f"  serve [4]'s prompts: Engine + deepseek_adapter(moe_weights_q=..., mla_wq=..., "
+        f"ep_buffer=Buffer(<one-rank NCCL group>, {CFG.num_experts}, "
+        f"EPConfig(comm_backend='pallas_ragged')))")
+    buf = Buffer(group, CFG.num_experts, EPConfig(comm_backend="pallas_ragged"))
+    drops, fused = [], buf.fused_deep_moe
+
+    def recording(*args, **kw):
+        out = fused(*args, **kw)
+        drops.append(out[2])
+        return out
+
+    buf.fused_deep_moe = recording
+    adapter = deepseek_adapter(CFG, params, torch.bfloat16, moe_weights_q=moe, mla_wq=mla_wq,
+                               ep_buffer=buf)
+    timer = StepTimer(adapter)
+    eng = Engine(adapter, NUM_PAGES, max_batch=MAX_BATCH, max_pages_per_req=MAX_PAGES_PER_REQ,
+                 prefill_chunk=PREFILL_CHUNK)
+    ps = prompts(torch.Generator().manual_seed(SEED))
+    rids, wall, launches = run_requests(eng, ps, (1, SHARED_PREFIX), NUM_PAGES, CFG.vocab_size)
+    n_pre, n_dec = timer.calls["prefill"], timer.calls["decode"]
+    calls = layers * (n_pre + n_dec)
+    want = {**{k: v * calls for k, v in EP_DEEP_CALL.items()}, "gmm1_ring": 0,
+            "gmm2_combine_ring": 0, "decode_mla": layers * n_dec,
+            "mla_prefill_pallas": layers * n_pre, "quant_matmul": 2 * calls,
+            "pallas_ragged_all_to_all_monitored": 0, "fused_deep_moe_full_rank": 0}
+    dropped = int(torch.stack(drops).sum())
+    if any(launches[k] != v for k, v in want.items()) or dropped:
+        raise AssertionError(f"EP serve launches {launches} over {n_pre} prefill and {n_dec} "
+                             f"decode calls, want {want}; {dropped} drops")
+    dec_tokens = len(rids) * (NEW_TOKENS - 1)
+    pre_tps = eng.stats["prefill_tokens"] / timer.t["prefill"]
+    dec_tps = dec_tokens / timer.t["decode"]
+    log(f"  served {len(rids)} requests in {wall:.2f} s wall: prefill {pre_tps:.1f} tok/s, decode "
+        f"{dec_tps:.1f} tok/s (the single-GPU W8A8 serve of [4], this call: prefill "
+        f"{eng_q.rates[0]:.1f}, decode {eng_q.rates[1]:.1f} tok/s); launches a MoE call "
+        f"{ {k: launches[k] // calls for k in EP_DEEP_CALL} } over {calls} MoE calls; "
+        f"num_dropped 0 in every call")
+    log(f"  launches on the EP path: {json.dumps(launches)}")
+
+    batch, n = live_batch(eng, ps)
+    pages = eng.cm.alloc(-(-2 * PREFILL_CHUNK // CFG.page_size))
+    ids = torch.tensor(ps[3][:2 * PREFILL_CHUNK], dtype=torch.int32, device=DEV)
+    bt = torch.zeros((1, MAX_PAGES_PER_REQ), dtype=torch.int32, device=DEV)
+    bt[0, : len(pages)] = torch.tensor([int(p) for p in pages], dtype=torch.int32)
+    pos = torch.arange(2 * PREFILL_CHUNK, device=DEV)
+    slots = (bt[0, pos // CFG.page_size] * CFG.page_size + pos % CFG.page_size).to(torch.int32)
+    sl = torch.tensor([PREFILL_CHUNK], dtype=torch.int32, device=DEV)
+
+    def chunk(c, plain=False, **kw):
+        rows = slice(c * PREFILL_CHUNK, (c + 1) * PREFILL_CHUNK)
+        ctx = torch.tensor([(c + 1) * PREFILL_CHUNK], dtype=torch.int32, device=DEV)
+        h, _ = m.prefill_step(CFG, params, m.embed(params, ids[rows]), sl, eng.caches, bt, ctx,
+                              slots[rows], max_q=PREFILL_CHUNK, moe_weights_q=moe, mla_wq=mla_wq,
+                              plain=plain, **{"ep_buffer": buf, **kw})
+        return h
+
+    def decode(plain=False, **kw):
+        return eng.decode_logits(batch, decode_step_fn(params, moe, mla_wq=mla_wq, plain=plain,
+                                                       **{"ep_buffer": buf, **kw}))
+
+    chunk(0)                                        # the chunk's context, written once
+    checks = [("EP decode step (logits)", decode, n, True),
+              (f"EP prefill chunk of {PREFILL_CHUNK} rows at context {2 * PREFILL_CHUNK} "
+               "(hidden)", lambda plain=False, **kw: chunk(1, plain, **kw), PREFILL_CHUNK, False)]
+    for label, run, rows, logits in checks:
+        counters.reset()
+        got, rec = with_routes(lambda: run()[:rows].float())
+        step_launches = counters.read()
+        want_l = {k: v * layers for k, v in EP_DEEP_CALL.items()}
+        if any(step_launches[k] != v for k, v in want_l.items()):
+            raise AssertionError(f"{label}: launches {step_launches}, want {want_l}")
+        plain, _ = with_routes(lambda: run(True)[:rows].float(), rec)
+        single_gpu, _ = with_routes(lambda: run(ep_buffer=None)[:rows].float(), rec)
+        same = torch.ones(rows, dtype=torch.bool, device=DEV)
+        ok = (routing_rule(label, got, plain, same, logits, forced=True)
+              and routing_rule(label, got, single_gpu, same, logits, forced=True,
+                               vs="[4]'s single-GPU W8A8 path (gmm1_ring / gmm2_combine_ring)"))
+        if not ok:
+            raise AssertionError(f"{label}: the EP path disagrees with its references")
+    outs, first = {}, None
+    for backend in ("pallas_ragged", "pallas", "xla"):
+        b = Buffer(group, CFG.num_experts, EPConfig(comm_backend=backend))
+        if first is None:
+            outs[backend], first = with_routes(lambda: decode(ep_buffer=b)[:n].float())
+        else:
+            outs[backend], _ = with_routes(lambda: decode(ep_buffer=b)[:n].float(), first)
+    diffs = {k: max_abs(v, outs["pallas_ragged"]) for k, v in outs.items()}
+    log(f"  the same EP decode step on the transports 'pallas_ragged', 'pallas', 'xla' "
+        f"(routing replayed): max |logit diff| to 'pallas_ragged' {diffs}; bit-identical "
+        f"{all(d == 0.0 for d in diffs.values())}")
+    if any(d != 0.0 for d in diffs.values()):
+        raise AssertionError(f"the transports disagree on one rank: {diffs}")
+
+    log("  monitored dispatch: Buffer(EPConfig(comm_backend='pallas_ragged', monitor_comm=True))"
+        f".dispatch on a decode step's {MAX_BATCH} rows")
+    mbuf = Buffer(group, CFG.num_experts, EPConfig(comm_backend="pallas_ragged",
+                                                   monitor_comm=True))
+    xd = randn(gen, (MAX_BATCH, CFG.hidden))
+    idx_d, _ = deep_routing(gen, MAX_BATCH)
+    counters.reset()
+    _, _, gs_m, _, st_m = mbuf.dispatch(xd, idx_d)
+    torch.cuda.synchronize()
+    launches_c = counters.read()
+    if launches_c["pallas_ragged_all_to_all_monitored"] != 1 or st_m["timeout_flags"].any() \
+            or int(gs_m.sum()) != MAX_BATCH * CFG.topk:
+        raise AssertionError(f"monitored dispatch: {launches_c}, {st_m}")
+    log(f"    K15c launched once; wait_recv_cost_stats {st_m['wait_recv_cost_stats'].tolist()}, "
+        f"timeout_flags {st_m['timeout_flags'].tolist()}")
+
+    log("  single_kernel=True: the EP decode step and chunk with Buffer.fused_deep_moe(..., "
+        "single_kernel=True) on each layer's routed rows (K16b, one launch a MoE call)")
+    sbuf = Buffer(group, CFG.num_experts, EPConfig(comm_backend="pallas_ragged"))
+    single = sbuf.fused_deep_moe
+    sbuf.fused_deep_moe = lambda *a, **kw: single(*a, **{**kw, "single_kernel": True})
+    counters.reset()
+    got_s, rec_s = with_routes(lambda: decode(ep_buffer=sbuf)[:n].float())
+    launches_s = counters.read()
+    want_s = {"fused_deep_moe_full_rank": layers, "pallas_all_to_all": layers,
+              "pallas_ragged_all_to_all": 0, "grouped_matmul": 0}
+    if any(launches_s[k] != v for k, v in want_s.items()):
+        raise AssertionError(f"single-kernel decode step: launches {launches_s}, want {want_s}")
+    plain_s, _ = with_routes(lambda: decode(True, ep_buffer=sbuf)[:n].float(), rec_s)
+    if not routing_rule("EP decode step, single_kernel=True (logits)", got_s, plain_s,
+                        torch.ones(n, dtype=torch.bool, device=DEV), True, forced=True):
+        raise AssertionError("the single-kernel EP decode step disagrees with its plain path")
+
+    log("  profile (torch.profiler): the EP decode step and 64-row chunk, unfused and "
+        "single_kernel=True")
+    for label, fn in (("EP decode step (logits), window transport", decode),
+                      (f"EP {PREFILL_CHUNK}-row prefill chunk, window transport", lambda: chunk(1)),
+                      ("EP decode step (logits), single_kernel=True",
+                       lambda: decode(ep_buffer=sbuf)),
+                      (f"EP {PREFILL_CHUNK}-row prefill chunk, single_kernel=True",
+                       lambda: chunk(1, ep_buffer=sbuf))):
+        rows_p, busy, wall_ms = trace_profile.device_breakdown(fn, top=1000)
+        log(f"  {label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+            f"({100 * busy / wall_ms:.1f} %), {sum(c for _, _, c in rows_p)} kernel launches "
+            f"a step ({layers} MoE calls)")
+        for name, ms, count in rows_p[:12]:
+            log(f"    {ms:9.3f} ms  x{count:<4d} {name[:110]}")
+    eng.cm.free(pages)
+    del eng
+    k16b = k16[LONG_CHUNK]
+    return (k15a, k15b, k15c, k16b), {
+        "pallas_all_to_all": launches["pallas_all_to_all"],
+        "pallas_ragged_all_to_all": launches["pallas_ragged_all_to_all"],
+        "pallas_ragged_all_to_all_monitored": launches_c["pallas_ragged_all_to_all_monitored"],
+        "fused_deep_moe_full_rank": launches_s["fused_deep_moe_full_rank"]}
+
+
 def serving_phases(card: str):
     """Phases [2] to [5]: the serving paths, their kernels and their
     profiles.  Returns the kernel rows (name, source, replaced TPU kernel,
@@ -3018,6 +3391,10 @@ def serving_phases(card: str):
     log(f"[4i] GPT-OSS-20B expert parallel: [4e]'s setup, gpt_oss_adapter(ep_buffer=Buffer(<one-rank "
         f"NCCL group>, num_experts={CFG_GPT.num_experts}, config=EPConfig()))")
     k8f, launches_i, gpt_ep_decode, gpt_ep_prefill = gpt_oss_ep_phase(gparams)
+    log(f"[4k] DeepSeek-V3 W8A8 expert parallel on the one-sided window transport: [4]'s "
+        f"setup (fused prologue), deepseek_adapter(ep_buffer=Buffer(<one-rank NCCL group>, "
+        f"{CFG.num_experts}, EPConfig(comm_backend='pallas_ragged'))); K15a-c, K16b")
+    (k15a, k15b, k15c, k16b), launches_k = deepseek_ep_phase(params, moe, mla_wq, eng)
     log(f"[4f] Llama-3.1-8B widths, {CFG_LLAMA.num_layers} of {LLAMA_FULL_LAYERS} layers, seed "
         f"{SEED}: Engine(prefill_chunk={GPT_CHUNK}) + llama_adapter")
     t0 = time.perf_counter()
@@ -3087,6 +3464,13 @@ def serving_phases(card: str):
         ("bgmv_fused", "lora.cu", "lora_pallas.py:137", k13a),
         ("sgmv_fused", "lora.cu", "lora_pallas.py:244", k13b),
         ("grouped_matmul_float", "grouped_matmul.cu", "grouped_matmul.py:538", k8f),
+        ("pallas_all_to_all", "a2a.cu", "sgl_kernel_npu_tpu/parallel/pallas_a2a.py:703", k15a),
+        ("pallas_ragged_all_to_all", "a2a.cu", "sgl_kernel_npu_tpu/parallel/pallas_a2a.py:637",
+         k15b),
+        ("pallas_ragged_all_to_all_monitored", "a2a.cu",
+         "sgl_kernel_npu_tpu/parallel/pallas_a2a.py:594", k15c),
+        ("fused_deep_moe_full_rank", "fused_full.cu",
+         "sgl_kernel_npu_tpu/parallel/fused_full.py:1015", k16b),
     ]
     # launches: each kernel's count on the first path that runs it (the base
     # four on the float-prologue serve, K1 on the fused-prologue serve, K5
@@ -3106,7 +3490,8 @@ def serving_phases(card: str):
                      "bgmv_fused": launches_lo["bgmv_fused"],
                      **{k: launches_ops[k] for k in ("add_rms_norm_bias", "add_gemma_rms_norm",
                                                      "l1_norm", "sgmv_fused")},
-                     "grouped_matmul_float": launches_i["grouped_matmul_float"]}
+                     "grouped_matmul_float": launches_i["grouped_matmul_float"],
+                     **launches_k}
     return rows, path_launches
 
 
@@ -3143,7 +3528,8 @@ def main() -> None:
     if len({id(r) for *_, r in rows}) != len(rows):
         raise AssertionError("two kernel rows share one result: a result was rebound")
     kernels = [{
-        "name": name, "route": "cuda", "source": src + cu, "replaces": tpu + replaces,
+        "name": name, "route": "cuda", "source": src + cu,
+        "replaces": replaces if replaces.startswith("sgl_kernel_npu_tpu/") else tpu + replaces,
         "launches": path_launches[name], "max_abs_err": r["err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],

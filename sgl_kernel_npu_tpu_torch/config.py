@@ -1,12 +1,14 @@
 """Typed configuration for the expert-parallel communication layer.
 
 Counterpart of ``sgl_kernel_npu_tpu/config.py``: the same dataclass, fields
-and defaults, and the same capacity rule.  The port moves the payloads on the
-default transport only (``comm_backend="xla"``: an all-to-all collective of
-the process group, NCCL on the card).  Where a config is read, the other
-transports (``"pallas"``, ``"pallas_ragged"``: the one-sided window kernels
-K15), the monitored and validated exchanges and multi-round dispatch raise
-``NotImplementedError`` (:func:`check_supported`; ROADMAP item 16).
+and defaults, and the same capacity rule.  The port moves the payloads on
+the three transports of JAX's ``comm_backend``: ``"xla"`` (an all-to-all
+collective of the process group, NCCL on the card), ``"pallas"`` and
+``"pallas_ragged"`` (the one-sided window all-to-alls K15a / K15b,
+``parallel/pallas_a2a.py``).  ``monitor_comm`` takes effect on
+``"pallas_ragged"`` (K15c), as in JAX.  Where a config is read, the
+validated exchange and multi-round dispatch raise ``NotImplementedError``
+(:func:`check_supported`; ROADMAP item 16).
 """
 
 from __future__ import annotations
@@ -30,9 +32,10 @@ class EPConfig:
         normal_round_tokens: per-round token chunk of multi-round dispatch
             (``None`` disables it).
         comm_backend: ``"xla"`` (the all-to-all collective), ``"pallas"`` or
-            ``"pallas_ragged"`` (one-sided windows, not ported).
-        monitor_comm / validate_comm: the exchange's wait-cost statistics and
-            checksum guard (not ported).
+            ``"pallas_ragged"`` (the one-sided window all-to-alls).
+        monitor_comm: the ragged exchange's wait-cost and timeout statistics
+            (``"pallas_ragged"`` only, as in JAX).
+        validate_comm: the exchange's checksum guard (not ported).
     """
 
     num_max_dispatch_tokens_per_rank: int = 128
@@ -55,12 +58,8 @@ class EPConfig:
 
 
 def check_backend(backend: str) -> None:
-    """Raise unless ``backend`` is the transport the port has."""
-    if backend in ("pallas", "pallas_ragged"):
-        raise NotImplementedError(
-            f"comm_backend {backend!r} (the one-sided window all-to-all, K15 in "
-            "parallel/pallas_a2a.py) is not ported yet (ROADMAP item 16); use 'xla'")
-    if backend != "xla":
+    """Raise unless ``backend`` is one of JAX's transports."""
+    if backend not in ("xla", "pallas", "pallas_ragged"):
         raise ValueError(f"unknown comm backend {backend!r}; expected 'xla', 'pallas', or "
                          "'pallas_ragged'")
 
@@ -68,10 +67,9 @@ def check_backend(backend: str) -> None:
 def check_supported(config: EPConfig) -> None:
     """Raise on every setting of ``config`` the port does not take."""
     check_backend(config.comm_backend)
-    if config.monitor_comm or config.validate_comm:
-        raise NotImplementedError("monitor_comm / validate_comm (the exchange's wait-cost "
-                                  "statistics and checksum guard) are not ported yet "
-                                  "(ROADMAP item 16)")
+    if config.validate_comm:
+        raise NotImplementedError("validate_comm (the exchange's checksum guard) is not ported "
+                                  "yet (ROADMAP item 16)")
     if config.normal_round_tokens:
         raise NotImplementedError("normal_round_tokens (multi-round dispatch) is not ported "
                                   "yet (ROADMAP item 16)")

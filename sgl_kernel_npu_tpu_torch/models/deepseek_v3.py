@@ -26,11 +26,15 @@ einsum) or ``flash=True`` through ``ops.attention.mla_train.mla_flash_train``
 expert parallel (``mesh``, a ``DeviceMesh`` with dims ``("dp", "ep")``:
 :func:`_ep_moe_train`, ragged dispatch and combine over the mesh's EP group
 around three ``gmm_train`` products, K8a's ``none`` mode forward and
-``rhs_contract_last`` for dx).  The switches this slice does not take are
-absent (EPLB) or raise ``NotImplementedError``: expert-parallel serving,
-the gradients over a mesh of more than one rank (ROADMAP item 16), and the
-W8A8 MoE of at most 512 tokens at widths the ring GEMMs do not take, which
-needs K8b.
+``rhs_contract_last`` for dx).  Expert-parallel serving: ``ep_buffer`` (a
+``parallel.buffer.Buffer``) with ``moe_weights_q`` runs the W8A8 MoE
+through ``Buffer.fused_deep_moe`` (its exchanges on the buffer's transport,
+K8a twice), after ``eplb_tables`` (``parallel.eplb.make_remap_tables``)
+remap the routing to physical expert slots, in JAX's branch order.  The
+switches this slice does not take raise ``NotImplementedError``: the
+gradients over a mesh of more than one rank (ROADMAP item 16), and the W8A8
+MoE of at most 512 tokens at widths the ring GEMMs do not take, which needs
+K8b.
 
 Weights are a plain dict of tensors (``layers`` a list of per-layer dicts),
 with the JAX package's names and layouts; caches are a list of per-layer
@@ -92,6 +96,7 @@ from sgl_kernel_npu_tpu_torch.ops.norm import rms_norm_ref
 from sgl_kernel_npu_tpu_torch.ops.quant import row_scale, saturate_int8
 from sgl_kernel_npu_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from sgl_kernel_npu_tpu_torch.parallel import ep_core
+from sgl_kernel_npu_tpu_torch.parallel.eplb import remap_topk
 from sgl_kernel_npu_tpu_torch.parallel.fused_moe import quantize_expert_weights
 from sgl_kernel_npu_tpu_torch.utils.common import cdiv, resolve_device, to_torch
 
@@ -558,14 +563,28 @@ def _dense_moe(cfg: DeepSeekV3Config, lw: dict, x, topk_idx, topk_w):
     return (topk_w.T.float()[..., None] * yk.float()).sum(dim=0)
 
 
-def _moe_and_shared(cfg, lw, wq, dq, x, plain):
-    """The MoE (float with ``wq`` None, else W8A8) and the shared expert, and
-    the residual."""
+def _moe_and_shared(cfg, lw, wq, dq, x, plain, ep=None):
+    """The MoE and the shared expert, and the residual, in JAX's branch
+    order: ``ep`` (``(ep_buffer, use_int8_dispatch, eplb_tables)``) remaps
+    the routing with the EPLB tables, then with ``wq`` runs
+    ``ep_buffer.fused_deep_moe`` on the bf16 rows (x's dtype out); else
+    ``wq`` runs the W8A8 MoE on one GPU and ``wq`` None the float one."""
+    ep_buffer, use_int8_dispatch, eplb_tables = ep or (None, True, None)
     h2 = rms_norm_ref(x, lw["ln2"])
     topk_idx, topk_w = _router(cfg, lw, h2)
+    if eplb_tables is not None:
+        if ep_buffer is None:
+            raise ValueError("EPLB serving rides the EP buffer: pass ep_buffer with eplb_tables")
+        topk_idx = remap_topk(topk_idx, *eplb_tables)
     shared = _shared_expert(lw, h2) if dq is None else _shared_expert_q(dq, h2, plain)
-    moe = (_dense_moe(cfg, lw, h2, topk_idx, topk_w) if wq is None
-           else _gmm_moe(cfg, wq, h2, topk_idx, topk_w, plain=plain))
+    if ep_buffer is not None and wq is not None:
+        moe, _, _ = ep_buffer.fused_deep_moe(h2.to(torch.bfloat16), topk_idx, topk_w, *wq,
+                                             use_int8_dispatch=use_int8_dispatch, plain=plain)
+        moe = moe.to(x.dtype)
+    elif wq is not None:
+        moe = _gmm_moe(cfg, wq, h2, topk_idx, topk_w, plain=plain)
+    else:
+        moe = _dense_moe(cfg, lw, h2, topk_idx, topk_w)
     return x + moe + shared
 
 
@@ -678,15 +697,19 @@ def _layer_switches(mla_wq, dense_wq, moe_weights_q, li):
 
 def decode_step(cfg: DeepSeekV3Config, params: dict, hidden, positions, kv_caches,
                 block_table, seq_lens, slot_mapping, moe_weights_q=None, *,
-                mla_wq=None, dense_wq=None, plain: bool = False):
+                ep_buffer=None, use_int8_dispatch: bool = True, mla_wq=None, dense_wq=None,
+                eplb_tables=None, plain: bool = False):
     """One decode step over all layers: ``hidden [N, H]`` current-token
     activations at ``positions``; ``seq_lens`` include the current token;
     slot ``-1`` rows write nothing.  ``moe_weights_q``
     (:func:`quantize_moe_weights`) runs the W8A8 MoE, else the float experts
-    (:func:`_dense_moe`); ``mla_wq`` (:func:`make_mla_preprocess_weights`)
-    runs the fused W8A8 prologue, ``dense_wq`` (:func:`quantize_dense_weights`)
-    the W8A8 output projection and shared expert.  Returns ``(hidden,
-    kv_caches)`` with the caches updated in place."""
+    (:func:`_dense_moe`); with ``ep_buffer`` the W8A8 MoE runs expert
+    parallel (``Buffer.fused_deep_moe``, ``use_int8_dispatch`` its wire),
+    ``eplb_tables`` remapping the routing first; ``mla_wq``
+    (:func:`make_mla_preprocess_weights`) runs the fused W8A8 prologue,
+    ``dense_wq`` (:func:`quantize_dense_weights`) the W8A8 output projection
+    and shared expert.  Returns ``(hidden, kv_caches)`` with the caches
+    updated in place."""
     ks = _nope_scale(cfg)
     cos, sin = rope_cos_sin(positions, cfg.qk_rope_dim)
     x = hidden
@@ -704,18 +727,20 @@ def decode_step(cfg: DeepSeekV3Config, params: dict, hidden, positions, kv_cache
             attn = decode_mla(q, cache["nope"], cache["rope"], seq_lens, cfg.sm_scale,
                               block_table, k_scale=ks)
         x = x + _mla_output(cfg, lw, attn, dq, plain)
-        x = _moe_and_shared(cfg, lw, wq, dq, x, plain)
+        x = _moe_and_shared(cfg, lw, wq, dq, x, plain, (ep_buffer, use_int8_dispatch,
+                                                         eplb_tables))
     return x, kv_caches
 
 
 def prefill_step(cfg: DeepSeekV3Config, params: dict, hidden, seq_lens, kv_caches,
                  block_tables, context_lens, slot_mapping, *, max_q: int | None = None,
-                 moe_weights_q=None, mla_wq=None, dense_wq=None, plain: bool = False):
+                 moe_weights_q=None, ep_buffer=None, use_int8_dispatch: bool = True,
+                 mla_wq=None, dense_wq=None, eplb_tables=None, plain: bool = False):
     """Varlen (chunked) prefill over all layers: ``hidden [S, H]`` packed by
     request, ``seq_lens [B]`` new tokens, ``context_lens [B]`` totals including
-    them; ``moe_weights_q``, ``mla_wq`` and ``dense_wq`` as in
-    :func:`decode_step`.  Returns ``(hidden, kv_caches)`` with the caches
-    updated in place."""
+    them; ``moe_weights_q``, ``ep_buffer``, ``use_int8_dispatch``,
+    ``eplb_tables``, ``mla_wq`` and ``dense_wq`` as in :func:`decode_step`.
+    Returns ``(hidden, kv_caches)`` with the caches updated in place."""
     ks = _nope_scale(cfg)
     dev = hidden.device
     sl = seq_lens.to(dev).long()
@@ -740,7 +765,8 @@ def prefill_step(cfg: DeepSeekV3Config, params: dict, hidden, seq_lens, kv_cache
                                       block_tables, context_lens, cfg.sm_scale, max_q=max_q,
                                       k_scale=ks)
         x = x + _mla_output(cfg, lw, attn, dq, plain)
-        x = _moe_and_shared(cfg, lw, wq, dq, x, plain)
+        x = _moe_and_shared(cfg, lw, wq, dq, x, plain, (ep_buffer, use_int8_dispatch,
+                                                         eplb_tables))
     return x, kv_caches
 
 

@@ -26,9 +26,16 @@ int slot per row.
   the exchanged rows are 0.12 GB.  The handle's ``gather_idx`` and
   ``recv_sort_order`` index the exchange layout accordingly (ROADMAP §C).
 
-The one-sided window transports (K15), the monitored and validated
-exchanges, the TP all-gather, multi-round dispatch, elastic rank remaps and
-shared-expert ranks are not ported (ROADMAP item 16) and raise.
+Transports (``backend``), as JAX's ``_make_a2a``: ``"xla"`` is the
+collective of the group; ``"pallas"`` runs every exchange on the window
+all-to-all K15a (:func:`~sgl_kernel_npu_tpu_torch.parallel.pallas_a2a.pallas_all_to_all`);
+``"pallas_ragged"`` moves the dispatched rows and their slot / scale blob on
+the ragged window all-to-all K15b (live rows only, after a count phase), the
+per-expert counts on K15a, and on the combine's return hop again only the
+live rows (K15b).  ``monitor`` (``"pallas_ragged"`` only) runs the payload
+exchange as K15c and returns JAX's wait-cost and timeout statistics.  The
+validated exchange, the TP all-gather, multi-round dispatch, elastic rank
+remaps and shared-expert ranks are not ported (ROADMAP item 16) and raise.
 """
 
 from __future__ import annotations
@@ -40,6 +47,14 @@ import torch.distributed as dist
 
 from sgl_kernel_npu_tpu_torch.config import check_backend
 from sgl_kernel_npu_tpu_torch.ops.quant import wire_quant
+from sgl_kernel_npu_tpu_torch.parallel.pallas_a2a import (
+    group_info,
+    pallas_all_to_all,
+    pallas_ragged_all_to_all,
+)
+
+STAT_KEYS = ("wait_recv_cost_stats", "timeout_flags", "abort_observed",
+             "payload_wait_cost_stats", "payload_timeout_flags")   # stats columns 0-4
 
 
 def _unported(what: str):
@@ -84,9 +99,14 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 all_to_all.calls = 0
 
 
-def group_info(group) -> tuple[int, int]:
-    """(size, this rank) of a process group (None: the default group)."""
-    return dist.get_world_size(group), dist.get_rank(group)
+def _make_a2a(group, backend: str):
+    """The equal-block exchange of a transport, as JAX's: the group's
+    collective (:func:`all_to_all`) or, for both one-sided transports, the
+    window all-to-all K15a."""
+    if backend in ("pallas", "pallas_ragged"):
+        return lambda x: pallas_all_to_all(x.contiguous(), group=group)
+    check_backend(backend)
+    return lambda x: all_to_all(x, group)
 
 
 # ---------------------------------------------------------------------------
@@ -207,10 +227,11 @@ class _Exchanged(NamedTuple):
     recv_meta: torch.Tensor       # [R, C] their slots in the padded layout, -1 none
     counts: torch.Tensor          # [R, E_local] rows received from (src, local expert)
     recv_scale: torch.Tensor | None   # [R, C] int8 wire scales
+    stats: torch.Tensor | None = None  # [R, 6] the monitored payload exchange's
 
 
 def _dispatch_exchange(x, topk_idx, *, group, num_experts, num_ranks, pair_capacity,
-                       seg_capacity, use_int8) -> _Exchanged:
+                       seg_capacity, use_int8, backend="xla", monitor=False) -> _Exchanged:
     size, me = group_info(group)
     if size != num_ranks:
         raise ValueError(f"num_ranks {num_ranks} but the group has {size} ranks")
@@ -220,21 +241,45 @@ def _dispatch_exchange(x, topk_idx, *, group, num_experts, num_ranks, pair_capac
     payload, scale = wire_quant(x) if use_int8 else (x, None)
     src = _send_sources(plan, num_ranks, pair_capacity)
     send_x = _pack_send_buffers(plan, payload, num_ranks, pair_capacity, src)
-    send_meta = _take(plan.dest_slot, src, -1).reshape(num_ranks, pair_capacity)
-    counts = all_to_all(plan.counts_per_expert.reshape(num_ranks, -1), group)
-    recv = all_to_all(send_x, group)
-    recv_meta = all_to_all(send_meta, group)
-    recv_scale = None
+    send_meta = _take(plan.dest_slot, src, -1).reshape(num_ranks, pair_capacity).to(torch.int32)
+    send_counts = plan.counts_per_expert.reshape(num_ranks, -1)
+    send_scale = (_pack_send_buffers(plan, scale, num_ranks, pair_capacity, src)
+                  if use_int8 else None)
+    if backend != "pallas_ragged":
+        a2a = _make_a2a(group, backend)
+        counts = a2a(send_counts)
+        recv, recv_meta = a2a(send_x), a2a(send_meta)
+        return _Exchanged(plan, recv, recv_meta, counts,
+                          a2a(send_scale) if use_int8 else None)
+    # the payload, then its slots (and scale bits) as one int32 blob, live rows
+    # only; the per-expert counts on K15a (JAX's ep_core.py:298-336)
+    rows_to_dst = send_counts.sum(-1, dtype=torch.int32)
+    res = pallas_ragged_all_to_all(send_x, rows_to_dst, group=group, monitor=monitor)
+    recv, rcnt = res[0], res[1]
+    blob = send_meta[:, :, None]
     if use_int8:
-        recv_scale = all_to_all(_pack_send_buffers(plan, scale, num_ranks, pair_capacity, src),
-                                group)
-    return _Exchanged(plan, recv, recv_meta, counts, recv_scale)
+        blob = torch.cat([blob, send_scale.float().view(torch.int32)[:, :, None]], dim=-1)
+    recv_blob, _ = pallas_ragged_all_to_all(blob, rows_to_dst, group=group)
+    # rows past rcnt[s] are undefined window memory: their slots must not scatter
+    live = torch.arange(pair_capacity, device=x.device)[None, :] < rcnt[:, None]
+    recv_meta = torch.where(live, recv_blob[:, :, 0], -1)
+    recv_scale = recv_blob[:, :, 1].contiguous().view(torch.float32) if use_int8 else None
+    counts = pallas_all_to_all(send_counts.contiguous(), group=group)
+    return _Exchanged(plan, recv, recv_meta, counts, recv_scale,
+                      res[2] if monitor else None)
 
 
 def _check_transport(backend: str, monitor: bool = False, validate: bool = False) -> None:
     check_backend(backend)
-    if monitor or validate:
-        _unported("the monitored / validated exchange")
+    if validate:
+        _unported("the validated exchange (validate_comm)")
+    if monitor and backend != "pallas_ragged":
+        raise ValueError(f"monitor needs the 'pallas_ragged' transport, not {backend!r}")
+
+
+def _stat_columns(stats: torch.Tensor | None) -> dict:
+    """JAX's statistics keys from a monitored exchange's ``stats [R, 6]``."""
+    return {} if stats is None else {k: stats[:, i] for i, k in enumerate(STAT_KEYS)}
 
 
 def dispatch_core(x, topk_idx, *, group, num_experts: int, num_ranks: int, pair_capacity: int,
@@ -243,15 +288,17 @@ def dispatch_core(x, topk_idx, *, group, num_experts: int, num_ranks: int, pair_
     """Per-rank dispatch into JAX's padded receiver layout: ``recv_x
     [E_local, R·seg, H]`` (int8 with ``use_int8``, then ``recv_scales
     [E_local, R·seg]``), ``recv_count [E_local]``, ``recv_count_matrix [R,
-    E_local]``, ``num_dropped`` and the combine ``handle``."""
+    E_local]``, ``num_dropped`` and the combine ``handle``; with ``monitor``
+    also JAX's statistics keys (``wait_recv_cost_stats`` …)."""
     _check_transport(backend, monitor, validate)
     t, hidden = x.shape
     e_local = num_experts // num_ranks
     ex = _dispatch_exchange(x, topk_idx, group=group, num_experts=num_experts,
                             num_ranks=num_ranks, pair_capacity=pair_capacity,
-                            seg_capacity=seg_capacity, use_int8=use_int8)
+                            seg_capacity=seg_capacity, use_int8=use_int8, backend=backend,
+                            monitor=monitor)
     n_slots = e_local * num_ranks * seg_capacity
-    meta = ex.recv_meta.reshape(-1)
+    meta = ex.recv_meta.reshape(-1).long()
     meta = torch.where(meta >= 0, meta, n_slots)
 
     def packed(rows, *shape):
@@ -269,6 +316,7 @@ def dispatch_core(x, topk_idx, *, group, num_experts: int, num_ranks: int, pair_
             recv_sort_order=None, recv_valid_count=None,
             sent_counts=plan.counts_per_expert.reshape(num_ranks, e_local),
             recv_counts=ex.counts),
+        **_stat_columns(ex.stats),
     }
     if use_int8:
         out["recv_scales"] = packed(ex.recv_scale.reshape(-1), e_local, num_ranks * seg_capacity)
@@ -277,11 +325,21 @@ def dispatch_core(x, topk_idx, *, group, num_experts: int, num_ranks: int, pair_
 
 def _weighted_sum(rows: torch.Tensor, topk_weights, handle: DispatchHandle, out_dtype):
     """``Σ_k w[t, k] · rows[gather_idx[t, k]]`` in f32 over the surviving
-    pairs, then ``out_dtype``."""
+    pairs, then ``out_dtype``.  A dropped pair's row is masked, not weighed
+    by 0: after a ragged return it may be undefined window memory."""
     t, k = handle.gather_idx.shape
-    picked = rows[handle.gather_idx.reshape(-1)].reshape(t, k, -1)
+    picked = rows[handle.gather_idx.reshape(-1)].reshape(t, k, -1).float()
+    picked = torch.where(handle.ok[..., None], picked, 0.0)
     w = torch.where(handle.ok, topk_weights, 0.0).float()
-    return (picked.float() * w[..., None]).sum(dim=1).to(out_dtype)
+    return (picked * w[..., None]).sum(dim=1).to(out_dtype)
+
+
+def _ragged_return(rows: torch.Tensor, counts: torch.Tensor, group, monitor: bool = False):
+    """The live-rows return hop: ``rows [R, C, ...]`` whose first
+    ``counts[d]`` rows go back to rank d, on K15b (K15c with ``monitor``)."""
+    res = pallas_ragged_all_to_all(rows.contiguous(), counts.to(torch.int32), group=group,
+                                   monitor=monitor)
+    return res[0], (res[2] if monitor else None)
 
 
 def combine_core(y, topk_weights, handle: DispatchHandle, *, group, num_ranks: int,
@@ -290,18 +348,47 @@ def combine_core(y, topk_weights, handle: DispatchHandle, *, group, num_ranks: i
     """Per-rank combine of expert outputs in :func:`dispatch_core`'s padded
     layout ``y [E_local, R·seg, H]`` → ``[T, H]`` = Σ_k w[t, k] ·
     expert_out(t, k) in f32, then ``out_dtype`` (y's by default).
-    ``use_int8_comm`` returns the rows int8 per row with their scales."""
+    ``use_int8_comm`` returns the rows int8 per row with their scales.
+    ``"pallas_ragged"`` compacts each destination's live rows (expert, then
+    slot) by ``handle.recv_counts``, moves them on K15b and re-expands them
+    at the source by ``handle.sent_counts`` (JAX's ep_core.py:442-498);
+    with ``monitor`` it returns ``(combined, stats [R, 6])``."""
     _check_transport(backend, monitor)
     e_local, slots, hidden = y.shape
     if slots != num_ranks * seg_capacity:
         raise ValueError(f"y has {slots} slots an expert, want {num_ranks} x {seg_capacity}")
     by_rank = y.reshape(e_local, num_ranks, seg_capacity, hidden).transpose(0, 1)
-    if use_int8_comm:
+    stats = None
+    if backend == "pallas_ragged":
+        cap = e_local * seg_capacity
+        seg_pos = torch.arange(seg_capacity, device=y.device)
+        occ = (seg_pos[None, None, :] < handle.recv_counts[:, :, None]).reshape(num_ranks, cap)
+        tgt = torch.where(occ, torch.cumsum(occ.long(), 1) - 1, cap)
+        rows = by_rank.reshape(num_ranks, cap, hidden)
+        if use_int8_comm:
+            rows, row_scale = wire_quant(rows.contiguous())
+        send = torch.zeros((num_ranks, cap + 1, hidden), dtype=rows.dtype, device=y.device)
+        send.scatter_(1, tgt[..., None].expand(-1, -1, hidden), rows)
+        back_counts = handle.recv_counts.sum(1, dtype=torch.int32)
+        recv, stats = _ragged_return(send[:, :cap], back_counts, group, monitor)
+        if use_int8_comm:
+            sc = torch.zeros((num_ranks, cap + 1), dtype=torch.float32, device=y.device)
+            sc.scatter_(1, tgt, row_scale)
+            rs, _ = _ragged_return(sc[:, :cap, None], back_counts, group)
+            recv = recv.float() * rs
+        # expand: the block from d holds my rows in (expert, slot) order
+        occ2 = (seg_pos[None, None, :] < handle.sent_counts[:, :, None]).reshape(num_ranks, cap)
+        src_pos = torch.where(occ2, torch.cumsum(occ2.long(), 1) - 1, cap)
+        recvp = torch.cat([recv, recv.new_zeros((num_ranks, 1, hidden))], dim=1)
+        back = torch.gather(recvp, 1, src_pos[..., None].expand(-1, -1, hidden))
+    elif use_int8_comm:
+        a2a = _make_a2a(group, backend)
         q, scale = wire_quant(by_rank.contiguous())
-        back = all_to_all(q, group).float() * all_to_all(scale[..., None], group)
+        back = a2a(q).float() * a2a(scale[..., None])
     else:
-        back = all_to_all(by_rank.contiguous(), group)
-    return _weighted_sum(back.reshape(-1, hidden), topk_weights, handle, out_dtype or y.dtype)
+        back = _make_a2a(group, backend)(by_rank.contiguous())
+    out = _weighted_sum(back.reshape(-1, hidden), topk_weights, handle, out_dtype or y.dtype)
+    return (out, stats) if monitor else out
 
 
 def dispatch_ragged_core(x, topk_idx, *, group, num_experts: int, num_ranks: int,
@@ -311,18 +398,20 @@ def dispatch_ragged_core(x, topk_idx, *, group, num_experts: int, num_ranks: int
     received rows grouped by local expert (within an expert by source rank,
     then in the source's order; rows past the total zero), ``group_sizes
     [E_local]``, ``recv_count_matrix``, ``num_dropped``, the ``handle`` and,
-    with ``use_int8``, ``recv_scales_sorted [R·C]``.  The rows are JAX's;
-    the padded layout is never built (the module docstring)."""
+    with ``use_int8``, ``recv_scales_sorted [R·C]``; with ``monitor``
+    JAX's statistics keys.  The rows are JAX's; the padded layout is never
+    built (the module docstring)."""
     _check_transport(backend, monitor)
     t, hidden = x.shape
     ex = _dispatch_exchange(x, topk_idx, group=group, num_experts=num_experts,
                             num_ranks=num_ranks, pair_capacity=pair_capacity,
-                            seg_capacity=seg_capacity, use_int8=use_int8)
+                            seg_capacity=seg_capacity, use_int8=use_int8, backend=backend,
+                            monitor=monitor)
     plan, counts = ex.plan, ex.counts
     group_sizes = counts.sum(0, dtype=torch.int32)
     expert_off = (torch.cumsum(group_sizes, 0) - group_sizes).long()
     src_off = (torch.cumsum(counts, 0) - counts).long()       # rows of expert e from ranks < s
-    meta = ex.recv_meta.reshape(-1)
+    meta = ex.recv_meta.reshape(-1).long()
     live = meta >= 0
     m = torch.where(live, meta, 0)
     e, s, i = m // (num_ranks * seg_capacity), (m // seg_capacity) % num_ranks, m % seg_capacity
@@ -341,6 +430,7 @@ def dispatch_ragged_core(x, topk_idx, *, group, num_experts: int, num_ranks: int
             ok=plan.ok.reshape(t, -1), recv_sort_order=row,
             recv_valid_count=group_sizes.sum(dtype=torch.int32),
             sent_counts=plan.counts_per_expert.reshape(num_ranks, -1), recv_counts=counts),
+        **_stat_columns(ex.stats),
     }
     if use_int8:
         out["recv_scales_sorted"] = _take(ex.recv_scale.reshape(cap), slot)
@@ -353,11 +443,16 @@ def combine_ragged_core(y_sorted, topk_weights, handle: DispatchHandle, *, group
     """Normal-mode combine: each received row's expert output (``y_sorted``
     in :func:`dispatch_ragged_core`'s order) goes back to the slot it came in
     on, and each source weighs its (token, k) pairs: ``[T, H]`` in f32, then
-    ``out_dtype`` (y's by default)."""
+    ``out_dtype`` (y's by default).  On ``"pallas_ragged"`` only the live
+    rows go back (K15b): the rows received from each source are a prefix of
+    its block."""
     _check_transport(backend)
     cap, hidden = y_sorted.shape
-    back = all_to_all(_take(y_sorted, handle.recv_sort_order.clamp(max=cap))
-                      .reshape(num_ranks, -1, hidden), group)
+    rows = _take(y_sorted, handle.recv_sort_order.clamp(max=cap)).reshape(num_ranks, -1, hidden)
+    if backend == "pallas_ragged":
+        back, _ = _ragged_return(rows, handle.recv_counts.sum(1, dtype=torch.int32), group)
+    else:
+        back = _make_a2a(group, backend)(rows)
     return _weighted_sum(back.reshape(-1, hidden), topk_weights, handle,
                          out_dtype or y_sorted.dtype)
 

@@ -77,21 +77,27 @@ def _cache_dtype(dtype, dev: torch.device):
 
 
 def deepseek_adapter(cfg, params, dtype=None, *, moe_weights_q=None, mla_wq=None,
-                     device="cuda") -> ModelAdapter:
+                     ep_buffer=None, eplb_tables=None, device="cuda") -> ModelAdapter:
     """DeepSeek-V3: ``moe_weights_q``
     (``models.deepseek_v3.quantize_moe_weights`` or ``init_quantized_experts``)
     serves W8A8 routed experts, without it the float experts of ``params``
-    serve on the dense MoE (every expert for every token).  ``mla_wq``
+    serve on the dense MoE (every expert for every token).  Adding
+    ``ep_buffer`` (a ``parallel.buffer.Buffer`` built for the expert count)
+    serves the W8A8 MoE expert parallel through ``Buffer.fused_deep_moe``;
+    ``eplb_tables`` (``parallel.eplb.make_remap_tables``) serves an EPLB
+    placement (pass physically gathered ``moe_weights_q`` and a Buffer built
+    for the physical expert count).  ``mla_wq``
     (``models.deepseek_v3.make_mla_preprocess_weights``) runs the fused W8A8
     prologue on prefill and decode.  ``dtype`` is the KV cache's
     (:func:`_cache_dtype`); the int8 latent cache rides on
     ``cfg.kv_cache_dtype``, as in JAX.  Each prefill call takes ``max_q`` =
     its row count, the engine's ``prefill_chunk``: a chunk above 512 tokens
-    runs its W8A8 MoE on ``grouped_matmul`` (K8a)."""
+    runs its single-GPU W8A8 MoE on ``grouped_matmul`` (K8a)."""
     from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as m
 
     dev = resolve_device(device)
     dtype = _cache_dtype(dtype, dev)
+    ep = dict(ep_buffer=ep_buffer, eplb_tables=eplb_tables)
     return ModelAdapter(
         page_size=cfg.page_size,
         device=dev,
@@ -99,10 +105,10 @@ def deepseek_adapter(cfg, params, dtype=None, *, moe_weights_q=None, mla_wq=None
         lm_head=lambda x: m.lm_head(params, x),
         prefill_step=lambda x, sl, c, bt, ctx, slots, li: m.prefill_step(
             cfg, params, x, sl, c, bt, ctx, slots, max_q=x.shape[0],
-            moe_weights_q=moe_weights_q, mla_wq=mla_wq),
+            moe_weights_q=moe_weights_q, mla_wq=mla_wq, **ep),
         decode_step=lambda x, pos, c, bt, ctx, slots, li: m.decode_step(
             cfg, params, x, pos, c, bt, ctx, slots, moe_weights_q=moe_weights_q,
-            mla_wq=mla_wq),
+            mla_wq=mla_wq, **ep),
         init_cache=lambda n: m.init_kv_cache(cfg, n, dtype, device=dev),
     )
 

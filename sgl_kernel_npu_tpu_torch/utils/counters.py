@@ -33,6 +33,7 @@ def wrappers() -> dict:
         mla_train,
         sinks_attention,
     )
+    from sgl_kernel_npu_tpu_torch.parallel import fused_full, pallas_a2a
 
     return {
         "decode_mla": decode_attention.decode_mla,
@@ -62,6 +63,10 @@ def wrappers() -> dict:
         "mla_flash_fwd": mla_train.mla_flash_fwd,
         "mla_flash_bwd_dq": mla_train.mla_flash_bwd_dq,
         "mla_flash_bwd_dk": mla_train.mla_flash_bwd_dk,
+        "pallas_all_to_all": pallas_a2a.pallas_all_to_all,
+        "pallas_ragged_all_to_all": pallas_a2a.pallas_ragged_all_to_all,
+        "pallas_ragged_all_to_all_monitored": pallas_a2a.pallas_ragged_all_to_all_monitored,
+        "fused_deep_moe_full_rank": fused_full.fused_deep_moe_full_rank,
     }
 
 

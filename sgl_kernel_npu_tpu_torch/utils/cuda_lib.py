@@ -28,6 +28,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L, _U = ctypes.c_longlong, ctypes.c_ulonglong
 # C entry points: name -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "decode_mla_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
@@ -59,6 +60,13 @@ _SIGNATURES = {
     "mla_train_fwd_launch": [_P] * 6 + [_I] * 3 + [_F, _P],
     "mla_train_bwd_dq_launch": [_P] * 9 + [_I] * 3 + [_F, _P],
     "mla_train_bwd_dk_launch": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "window_alloc": [_L, _P],
+    "window_free": [_P],
+    "window_ipc_handle": [_P, _P],
+    "window_ipc_open": [_P, _P],
+    "window_ipc_close": [_P],
+    "a2a_launch": [_P, _I, _I, _U, _L, _P, _L, _L, _I, _L, _P, _P, _P, _P, _I, _L, _I, _P],
+    "fused_full_launch": [_P, _P],
 }
 
 _lib = None

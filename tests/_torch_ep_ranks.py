@@ -5,9 +5,10 @@ starts two of these processes).
 
 Reads ``inputs.pkl`` from the work directory, joins a two-rank gloo group
 through a ``FileStore`` there (no port of its own to pick; gloo's pair
-connections use the loopback), runs the port's ``Buffer`` methods and the
-expert-parallel ``train_forward`` on this rank's share of the inputs, and
-writes ``rank<r>.pkl``.  Imports torch and the port, never JAX.
+connections use the loopback), runs the port's ``Buffer`` methods (on the
+three transports; ``fused_deep_moe`` unfused and as K16b's plain version)
+and the expert-parallel ``train_forward`` on this rank's share of the
+inputs, and writes ``rank<r>.pkl``.  Imports torch and the port, never JAX.
 """
 
 import pathlib
@@ -46,6 +47,15 @@ def main(work: pathlib.Path, rank: int) -> None:
         out[case["name"]] = dict(xs=xs.float().numpy(), sc=None if sc is None else sc.numpy(),
                                  gs=gs.numpy(), counts=st["recv_count_matrix"].numpy(),
                                  dropped=int(st["num_dropped"]), combined=comb.numpy())
+    deep = inp["deep"]
+    dx, didx, dw = (torch.from_numpy(deep[k][mine].copy()) for k in ("x", "idx", "w"))
+    for backend in ("xla", "pallas", "pallas_ragged"):
+        buf = Buffer(None, num_experts=deep["E"], config=EPConfig(comm_backend=backend))
+        for single in (False, True):
+            o, gs, dropped = buf.fused_deep_moe(dx, didx, dw, *map(torch.from_numpy, deep["wq"]),
+                                                single_kernel=single)
+            out[f"deep-{backend}-{single}"] = dict(out=o.float().numpy(), gs=gs.numpy(),
+                                                   dropped=int(dropped))
     buf = Buffer(None, num_experts=inp["E"])
     moe = inp["oai"]
     o, gs, dropped = buf.fused_oai_moe(local("x", torch.bfloat16), local("idx_live"), local("w"),

@@ -1,0 +1,62 @@
+"""One rank of ``test_torch_cuda_kernels.py::test_two_processes_on_one_card``
+(not a test module: the test starts two of these processes on one GPU).
+
+    python tests/_torch_ipc_ranks.py <work dir> <rank>
+
+Joins a two-rank gloo group through a ``FileStore`` in the work directory,
+makes the group's window (each process opens the other's by CUDA IPC), runs
+K15b (``pallas_ragged_all_to_all``) and K16b (``fused_deep_moe_full_rank``)
+on CUDA tensors, runs the same calls' plain versions on CPU copies over the
+same group, and prints ``ok`` when they agree (K15b bit-exact on the live
+rows and counts; K16b's counts and drops exact, its output within 1e-2 of a
+row's largest |value|).
+"""
+
+import pathlib
+import sys
+
+import torch
+import torch.distributed as dist
+
+
+def main(work: pathlib.Path, rank: int) -> None:
+    from sgl_kernel_npu_tpu_torch.parallel import fused_full
+    from sgl_kernel_npu_tpu_torch.parallel import pallas_a2a as pa
+    from sgl_kernel_npu_tpu_torch.parallel.fused_moe import quantize_expert_weights
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(work / "store"), 2), rank=rank,
+                            world_size=2)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(100 + rank)
+    x = torch.randint(-128, 128, (2, 96, 1024), generator=gen).to(torch.int8)
+    counts = torch.tensor([[0, 96], [37, 5]][rank], dtype=torch.int32)
+    got, rc = pa.pallas_ragged_all_to_all(x.to(dev), counts.to(dev), chunk_rows=16)
+    want, wrc = pa.pallas_ragged_all_to_all_plain(x, counts)
+    torch.cuda.synchronize()
+    assert torch.equal(rc.cpu(), wrc), (rc, wrc)
+    for s in range(2):
+        n = int(wrc[s])
+        assert torch.equal(got[s, :n].cpu(), want[s, :n]), s
+
+    wgen = torch.Generator(device="cpu").manual_seed(7)          # the same weights on both ranks
+    w = quantize_expert_weights(*(torch.randn(s, generator=wgen) * 0.05
+                                  for s in ((8, 256, 128), (8, 256, 128), (8, 128, 256))))
+    t, k = 24, 4
+    xs = torch.randn((t, 256), generator=gen).to(torch.bfloat16)
+    idx = torch.argsort(torch.rand((t, 8), generator=gen), dim=-1)[:, :k].to(torch.int32)
+    tw = torch.rand((t, k), generator=gen)
+    local = [a[rank * 4:(rank + 1) * 4] for a in w]
+    kw = dict(num_experts=8, num_ranks=2, seg_capacity=t)
+    out, cnt, drop = fused_full.fused_deep_moe_full_rank(
+        xs.to(dev), idx.to(dev), tw.to(dev), *(a.to(dev) for a in local), **kw)
+    ref, wcnt, wdrop = fused_full.fused_deep_moe_full_rank(xs, idx, tw, *local, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(cnt.cpu(), wcnt) and int(drop) == int(wdrop) == 0
+    err = (out.cpu().float() - ref.float()).abs().amax(-1) / ref.float().abs().amax(-1)
+    assert float(err.max()) <= 1e-2, float(err.max())
+    print("ok", flush=True)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(pathlib.Path(sys.argv[1]), int(sys.argv[2]))

@@ -1322,3 +1322,143 @@ def test_deepseek_ep_train_step_kernels_match_plain(dev):
     for a, b in zip(m._flatten(gk), m._flatten(gp)):
         if b.any():
             _grad_close(a, b, 2e-2)
+
+
+# ---------------------------------------------------------------------------
+# the window all-to-alls (K15a-c) and the single-kernel MoE (K16b)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,dtype", [((1, 300, 7168), torch.int8), ((1, 5, 3), torch.float32),
+                                         ((1, 1, 256), torch.int32)],
+                         ids=["rows", "thin", "counts"])
+def test_pallas_all_to_all_kernel(dev, shape, dtype):
+    """K15a on one rank (its own only peer) against ``all_to_all_single``
+    on the NCCL group: bit-exact."""
+    from sgl_kernel_npu_tpu_torch.parallel import pallas_a2a as pa
+
+    group = _nccl_group()
+    x = torch.randint(-100, 100, shape, device=dev).to(dtype)
+    before = pa.pallas_all_to_all.launches
+    got = pa.pallas_all_to_all(x, group=group)
+    want = pa.pallas_all_to_all_plain(x, group=group)
+    torch.cuda.synchronize()
+    assert pa.pallas_all_to_all.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("count,chunk", [(0, 32), (1, 32), (77, 32), (300, 32), (300, 7)])
+def test_pallas_ragged_all_to_all_kernel(dev, count, chunk):
+    """K15b: the live rows and the counts bit-exact, counts 0 and full, for
+    int8 rows and a two-column int32 blob."""
+    from sgl_kernel_npu_tpu_torch.parallel import pallas_a2a as pa
+
+    group = _nccl_group()
+    counts = torch.tensor([count], dtype=torch.int32, device=dev)
+    for x in (torch.randint(-128, 128, (1, 300, 7168), device=dev).to(torch.int8),
+              torch.randint(-2**30, 2**30, (1, 300, 2), device=dev).to(torch.int32)):
+        before = pa.pallas_ragged_all_to_all.launches
+        got, rc = pa.pallas_ragged_all_to_all(x, counts, group=group, chunk_rows=chunk)
+        want, wrc = pa.pallas_ragged_all_to_all_plain(x, counts, group=group)
+        torch.cuda.synchronize()
+        assert pa.pallas_ragged_all_to_all.launches == before + 1
+        assert torch.equal(rc, wrc) and int(rc[0]) == count
+        assert torch.equal(got[0, :count], want[0, :count])
+
+
+def test_monitored_kernel_stats_and_timeout(dev):
+    """K15c: without a fault the rows arrive and the statistics read no
+    timeout (col 3 = col 0, cols 1, 2, 4, 5 zero); with this rank muted the
+    wait returns after ``max_poll_rounds`` polls with the timeout and
+    missing-payload flags set and count 0; the next call runs normally."""
+    from sgl_kernel_npu_tpu_torch.parallel import pallas_a2a as pa
+
+    group = _nccl_group()
+    x = torch.randint(-128, 128, (1, 64, 512), device=dev).to(torch.int8)
+    counts = torch.tensor([40], dtype=torch.int32, device=dev)
+    got, rc, st = pa.pallas_ragged_all_to_all(x, counts, group=group, monitor=True)
+    torch.cuda.synchronize()
+    assert int(rc[0]) == 40 and torch.equal(got[0, :40], x[0, :40])
+    assert int(st[0, 3]) == int(st[0, 0]) and not st[0, [1, 2, 4, 5]].any()
+    _, rc, st = pa.pallas_ragged_all_to_all(x, counts, group=group, monitor=True,
+                                            max_poll_rounds=1000, inject_send_fault=True)
+    torch.cuda.synchronize()
+    assert int(rc[0]) == 0 and st[0].tolist() == [1000, 1, 0, 1000, 1, 0]
+    got, rc = pa.pallas_ragged_all_to_all(x, counts, group=group)
+    torch.cuda.synchronize()
+    assert int(rc[0]) == 40 and torch.equal(got[0, :40], x[0, :40])
+
+
+def _deep_moe_inputs(gen, dev, t, e=32, k=8, h=512, i=256, dead=0.0):
+    from sgl_kernel_npu_tpu_torch.parallel.fused_moe import quantize_expert_weights
+
+    w = quantize_expert_weights(*(torch.randn(s, generator=gen, device=dev) * 0.05
+                                  for s in ((e, h, i), (e, h, i), (e, i, h))))
+    x = torch.randn((t, h), generator=gen, device=dev).to(torch.bfloat16)
+    idx = torch.argsort(torch.rand((t, e), generator=gen, device=dev), dim=-1)[:, :k]
+    idx = idx.to(torch.int32)
+    idx[torch.rand(idx.shape, generator=gen, device=dev) < dead] = -1
+    return x, idx, torch.rand((t, k), generator=gen, device=dev), w
+
+
+@pytest.mark.parametrize("t,dead", [(1, 0.0), (6, 0.0), (100, 0.2), (300, 0.0)])
+def test_fused_full_kernel_matches_plain_and_unfused(dev, t, dead):
+    """K16b on one NCCL rank against its plain version (counts and drops
+    exact, ``combined`` within 1e-2 of a row's largest |value|) and against
+    the unfused ``fused_deep_moe`` on the window transport (relative mean
+    difference < 4e-4, JAX's bar); empty experts and inactive slots."""
+    from sgl_kernel_npu_tpu_torch.config import EPConfig
+    from sgl_kernel_npu_tpu_torch.parallel import fused_full
+    from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer
+
+    gen = torch.Generator(device=dev).manual_seed(t)
+    x, idx, tw, w = _deep_moe_inputs(gen, dev, t, dead=dead)
+    buf = Buffer(_nccl_group(), 32, EPConfig(comm_backend="pallas_ragged"))
+    before = fused_full.fused_deep_moe_full_rank.launches
+    got, cnt, drop = buf.fused_deep_moe(x, idx, tw, *w, single_kernel=True)
+    want, wcnt, wdrop = buf.fused_deep_moe(x, idx, tw, *w, single_kernel=True, plain=True)
+    unf, ucnt, _ = buf.fused_deep_moe(x, idx, tw, *w)
+    torch.cuda.synchronize()
+    assert fused_full.fused_deep_moe_full_rank.launches == before + 1
+    assert torch.equal(cnt, wcnt) and torch.equal(cnt, ucnt) and int(drop) == int(wdrop) == 0
+    err = (got.float() - want.float()).abs().amax(-1) / want.float().abs().amax(-1).clamp_min(1e-6)
+    assert float(err.max()) <= 1e-2, float(err.max())
+    rel = float((got.float() - unf.float()).abs().mean() / unf.float().abs().mean())
+    assert rel < 4e-4, rel
+
+
+def test_fused_full_kernel_refuses_what_it_does_not_take(dev):
+    """K16b takes H % 128 == 0 and I % 64 == 0 (the plain version on the
+    CPU takes any width)."""
+    from sgl_kernel_npu_tpu_torch.parallel import fused_full
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x, idx, tw, w = _deep_moe_inputs(gen, dev, 4, e=4, k=2, h=192, i=64)
+    with pytest.raises(ValueError, match="H % 128"):
+        fused_full.fused_deep_moe_full_rank(x, idx, tw, *w, group=_nccl_group(), num_experts=4,
+                                            num_ranks=1, seg_capacity=4)
+
+
+def test_two_processes_on_one_card(dev, tmp_path):
+    """Two processes on the one card, ranks of a gloo group over a
+    ``FileStore``: each opens the other's window by CUDA IPC and runs K15b
+    and K16b, held to the plain versions of the same two-rank exchange on
+    the CPU (``tests/_torch_ipc_ranks.py``)."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    here = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(here.parent), OMP_NUM_THREADS="1")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    procs = [subprocess.Popen([sys.executable, str(here / "_torch_ipc_ranks.py"), str(tmp_path),
+                               str(r)], cwd=here.parent, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+        assert "ok" in log, log[-3000:]

@@ -104,6 +104,41 @@ def test_decode_then_prefill_match_jax(scoring):
                          dict(moe_weights_q=moe_t), _close)
 
 
+@pytest.mark.parametrize("mode", ["pallas_ragged", "xla", "eplb"])
+def test_ep_decode_then_prefill_match_jax(mode):
+    """The W8A8 MoE expert parallel (``ep_buffer``: ``Buffer.fused_deep_moe``
+    on a one-rank group, the port on the window transport or the
+    collective) against JAX's ``Buffer`` on a one-device mesh; ``eplb``
+    serves a placement of 20 physical slots for the 16 experts (replicas of
+    the hottest), its tables remapping the routing.  Tolerances as the W8A8
+    cases above (1% of max|hidden|)."""
+    from sgl_kernel_npu_tpu.config import EPConfig as JEPConfig
+    from sgl_kernel_npu_tpu.parallel import eplb as jeplb
+    from sgl_kernel_npu_tpu.parallel.buffer import Buffer as JBuffer
+
+    from _torch_parity import one_rank_group
+    from sgl_kernel_npu_tpu_torch.config import EPConfig
+    from sgl_kernel_npu_tpu_torch.parallel import eplb
+    from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer
+
+    jcfg, tcfg, params, moe_j, tparams, moe_t, rng = _setup("softmax")
+    n_exp = jcfg.num_experts
+    jkw, tkw = dict(moe_weights_q=moe_j), dict(moe_weights_q=moe_t)
+    if mode == "eplb":
+        place = eplb.make_placement(np.arange(n_exp) + 1.0, 1, n_exp + 4)
+        n_exp += 4
+        jkw = dict(moe_weights_q=[tuple(jeplb.physical_expert_weights(a, place) for a in lw)
+                                  for lw in moe_j], eplb_tables=jeplb.make_remap_tables(place, 16))
+        tkw = dict(moe_weights_q=[tuple(eplb.physical_expert_weights(a, place) for a in lw)
+                                  for lw in moe_t],
+                   eplb_tables=eplb.make_remap_tables(place, 16, device="cpu"))
+    mesh1 = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("ep",))
+    jkw["ep_buffer"] = JBuffer(mesh1, "ep", n_exp, JEPConfig())
+    tkw["ep_buffer"] = Buffer(one_rank_group(), n_exp, EPConfig(
+        comm_backend="xla" if mode == "xla" else "pallas_ragged"))
+    _decode_then_prefill(jcfg, tcfg, params, tparams, rng, jkw, tkw, _close)
+
+
 def _w8a8_weights(jcfg, params):
     """The JAX package's fused-prologue and dense W8A8 weights, and the port's
     copies of them (calibrated on one sample of post-embedding scale)."""

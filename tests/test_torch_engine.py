@@ -145,3 +145,35 @@ def test_teacher_forced_logits_match_jax_adapter(model):
                                atol=0.01 * np.abs(want).max())
     want_lp = np32(jlogprobs(jnp.asarray(want), jnp.asarray(toks, jnp.int32)))
     np.testing.assert_allclose(np.asarray(lps), want_lp, atol=2e-2)
+
+
+def test_ep_engine_tokens_match_jax_ep_engine(model):
+    """Expert-parallel serving: the port's ``Engine`` over
+    ``deepseek_adapter(ep_buffer=Buffer(<one-rank group>, comm_backend=
+    "pallas_ragged"))`` emits the JAX EP engine's greedy tokens (its
+    ``Buffer`` on a one-device mesh), as JAX's own suite holds its EP engine
+    to its single-chip one; and the port's EP tokens equal its single-GPU
+    W8A8 engine's."""
+    from sgl_kernel_npu_tpu.config import EPConfig as JEPConfig
+    from sgl_kernel_npu_tpu.parallel.buffer import Buffer as JBuffer
+    from sgl_kernel_npu_tpu.runtime.engine import Engine as JEngine
+    from sgl_kernel_npu_tpu.runtime.engine import deepseek_adapter as jadapter
+
+    from _torch_parity import one_rank_group
+    from sgl_kernel_npu_tpu_torch.config import EPConfig
+    from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer
+
+    jcfg, params, moe_j, tcfg, tparams, moe_t = model
+    prompts, n_new = [PROMPT, [40, 41, 42, 43, 44]], 4
+    mesh1 = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("ep",))
+    jbuf = JBuffer(mesh1, "ep", jcfg.num_experts, JEPConfig(num_max_dispatch_tokens_per_rank=8))
+    want = JEngine(jadapter(jcfg, params, moe_weights_q=moe_j, ep_buffer=jbuf), num_pages=64,
+                   max_batch=8, max_pages_per_req=16, prefill_chunk=8).run(prompts, n_new)
+    buf = Buffer(one_rank_group(), tcfg.num_experts, EPConfig(
+        num_max_dispatch_tokens_per_rank=8, comm_backend="pallas_ragged"))
+    ep = Engine(deepseek_adapter(tcfg, tparams, moe_weights_q=moe_t, ep_buffer=buf,
+                                 device="cpu"),
+                num_pages=64, max_batch=8, max_pages_per_req=16, prefill_chunk=8, device="cpu")
+    got = ep.run(prompts, n_new)
+    assert got == want
+    assert got == _engine(model, max_batch=8).run(prompts, n_new)

@@ -192,26 +192,159 @@ def test_all_to_all_counts_and_differentiates(group):
 
 
 def test_unported_ep_switches_raise(group):
-    """What the slice leaves raises, naming ROADMAP item 16 (K15 for the
-    one-sided transports)."""
-    for cfg in (EPConfig(comm_backend="pallas"), EPConfig(comm_backend="pallas_ragged")):
-        with pytest.raises(NotImplementedError, match="K15"):
-            Buffer(group, num_experts=E, config=cfg)
-    for cfg in (EPConfig(monitor_comm=True), EPConfig(validate_comm=True),
-                EPConfig(normal_round_tokens=8)):
+    """What the port still leaves raises, naming ROADMAP item 16 (queue B
+    for a gate / up packing narrower than 2I); the one-sided transports and
+    the monitored exchange are ported (the window tests below)."""
+    for cfg in (EPConfig(validate_comm=True), EPConfig(normal_round_tokens=8)):
         with pytest.raises(NotImplementedError, match="item 16"):
             Buffer(group, num_experts=E, config=cfg)
+    for backend in ("pallas", "pallas_ragged"):
+        Buffer(group, num_experts=E, config=EPConfig(comm_backend=backend, monitor_comm=True))
     buf = Buffer(group, num_experts=E)
     x, idx = torch.zeros((4, H)), torch.zeros((4, K), dtype=torch.int32)
     for call in (lambda: buf.low_latency_dispatch(x, idx), lambda: buf.low_latency_combine(),
-                 lambda: buf.fused_deep_moe(), lambda: buf.dispatch(x, idx, rounds=2),
+                 lambda: buf.dispatch(x, idx, rounds=2),
                  lambda: tep.dispatch_tp_allgather(x), lambda: tep.dispatch_ragged_multi_round(x),
+                 lambda: tep.dispatch_core(x, idx, group=group, num_experts=E, num_ranks=1,
+                                           pair_capacity=4, seg_capacity=4, use_int8=False,
+                                           validate=True),
                  lambda: tep.make_routing_plan(idx, num_experts=E, num_ranks=1, my_rank=0,
                                                pair_capacity=4, seg_capacity=4,
                                                rank_remap=torch.zeros(1))):
         with pytest.raises(NotImplementedError, match="item 16"):
             call()
-    with pytest.raises(NotImplementedError, match="K15"):
-        buf.dispatch(x, idx, backend="pallas")
+    w1 = torch.zeros((E, H, 2 * 64), dtype=torch.int8)
+    with pytest.raises(NotImplementedError, match="queue B"):
+        buf.fused_deep_moe(x, idx, torch.ones((4, K)), w1, torch.ones((E, 128)),
+                           torch.zeros((E, 64, H), dtype=torch.int8), torch.ones((E, H)),
+                           pack_tn=64)
+    with pytest.raises(ValueError, match="unknown comm backend"):
+        buf.dispatch(x, idx, backend="nccl")
+    with pytest.raises(ValueError, match="pallas_ragged"):
+        tep.dispatch_core(x, idx, group=group, num_experts=E, num_ranks=1, pair_capacity=4,
+                          seg_capacity=4, use_int8=False, backend="pallas", monitor=True)
     with pytest.raises(ValueError, match="divisible"):
         get_dispatch_layout(idx, 7, 2)
+
+
+WINDOWS = ["pallas", "pallas_ragged"]
+
+
+@pytest.mark.parametrize("use_int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("capacity_factor", [None, 0.3], ids=["exact", "dropping"])
+@pytest.mark.parametrize("backend", WINDOWS)
+def test_buffer_window_transports_match_jax(group, mesh1, backend, capacity_factor, use_int8):
+    """``Buffer.dispatch`` / ``combine`` on the one-sided transports against
+    JAX's on the same transport: the rows (int8 scales to 2e-7), group
+    sizes, counts and drops exact, the combine to 1e-6 of its largest."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((T, H)).astype(np.float32)
+    idx, w = _routing(rng)
+    kw = dict(capacity_factor=capacity_factor, num_max_dispatch_tokens_per_rank=4,
+              comm_backend=backend)
+    jbuf, (jxs, jsc, jgs, jh, jst) = _jax_dispatch(mesh1, JEPConfig(**kw), x, idx, use_int8)
+    buf = Buffer(group, num_experts=E, config=EPConfig(**kw))
+    xs, sc, gs, handle, st = buf.dispatch(tt(x), tt(idx), use_int8=use_int8)
+    np.testing.assert_array_equal(np32(xs), np32(jxs[0]))
+    if use_int8:
+        np.testing.assert_allclose(sc.numpy(), np.asarray(jsc[0]), rtol=2e-7, atol=0)
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(jgs[0]))
+    np.testing.assert_array_equal(st["recv_count_matrix"].numpy(),
+                                  np.asarray(jst["recv_count_matrix"][0]))
+    assert int(st["num_dropped"]) == int(jst["num_dropped"][0])
+    y = rng.standard_normal(xs.shape).astype(np.float32)
+    want = np32(jbuf.combine(jx(y)[None], jx(w), jh, out_dtype=jnp.float32))
+    got = buf.combine(tt(y), tt(w), handle, out_dtype=torch.float32)
+    np.testing.assert_allclose(np32(got), want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+def test_buffer_monitored_dispatch_matches_jax(group, mesh1):
+    """``EPConfig(monitor_comm=True)`` on ``"pallas_ragged"``: the payload
+    exchange's statistics keys (JAX's interpret mode: zero, no timeout) and
+    the same rows as the unmonitored dispatch."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((T, H)).astype(np.float32)
+    idx, _ = _routing(rng)
+    kw = dict(num_max_dispatch_tokens_per_rank=4, comm_backend="pallas_ragged",
+              monitor_comm=True)
+    _, (jxs, _, _, _, jst) = _jax_dispatch(mesh1, JEPConfig(**kw), x, idx, True)
+    buf = Buffer(group, num_experts=E, config=EPConfig(**kw))
+    xs, _, _, _, st = buf.dispatch(tt(x), tt(idx))
+    for key in ("wait_recv_cost_stats", "timeout_flags", "payload_wait_cost_stats"):
+        np.testing.assert_array_equal(st[key].numpy(), np.asarray(jst[key][0]), err_msg=key)
+    assert not st["timeout_flags"].any()
+    np.testing.assert_array_equal(np32(xs), np32(jxs[0]))
+    _, _, _, _, st_plain = buf.dispatch(tt(x), tt(idx), monitor=False)
+    assert "wait_recv_cost_stats" not in st_plain
+
+
+@pytest.mark.parametrize("backend", WINDOWS)
+def test_dispatch_core_window_transports_match_jax(group, mesh1, backend):
+    """``dispatch_core`` / ``combine_core`` (JAX's padded layout) on the
+    one-sided transports: the int8 wire, the combine with the float and the
+    int8 return wire (the ragged one moving live rows only), and the
+    monitored ragged combine's statistics."""
+    from jax.sharding import PartitionSpec as P
+
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((T, H)).astype(np.float32)
+    idx, w = _routing(rng)
+    pair, seg = 30, 6
+    y = rng.standard_normal((E, seg, H)).astype(np.float32)
+    common = dict(num_ranks=1, seg_capacity=seg)
+    mon = backend == "pallas_ragged"
+
+    def body(xs, ids, ws, ys):
+        d = jep.dispatch_core(xs, ids, axis_name="ep", num_experts=E, pair_capacity=pair,
+                              use_int8=True, backend=backend, **common)
+        outs = [jep.combine_core(ys, ws, d["handle"], axis_name="ep", out_dtype=jnp.float32,
+                                 use_int8_comm=q, backend=backend, **common) for q in (False, True)]
+        return d["recv_x"], d["recv_scales"], d["recv_count"], outs[0], outs[1]
+
+    want = jax.jit(jax.shard_map(body, mesh=mesh1, in_specs=(P("ep"),) * 4,
+                                 out_specs=(P("ep"),) * 5, check_vma=False))(
+        jx(x), jx(idx), jx(w), jx(y))
+    d = tep.dispatch_core(tt(x), tt(idx), group=group, num_experts=E, pair_capacity=pair,
+                          use_int8=True, backend=backend, monitor=mon, **common)
+    for key, ref in zip(("recv_x", "recv_count"), (want[0], want[2])):
+        np.testing.assert_array_equal(np32(d[key]), np32(ref), err_msg=key)
+    np.testing.assert_allclose(np32(d["recv_scales"]), np32(want[1]), rtol=2e-7, atol=0)
+    if mon:
+        assert not d["timeout_flags"].any() and d["wait_recv_cost_stats"].shape == (1,)
+    for q, ref in zip((False, True), want[3:]):
+        got = tep.combine_core(tt(y), tt(w), d["handle"], group=group, out_dtype=torch.float32,
+                               use_int8_comm=q, backend=backend, monitor=mon, **common)
+        if mon:
+            got, stats = got
+            assert stats.shape == (1, 6) and not stats[:, 1].any()
+        np.testing.assert_allclose(np32(got), np32(ref), rtol=0,
+                                   atol=1e-6 * np.abs(np32(ref)).max())
+
+
+def test_eplb_matches_jax():
+    """``parallel/eplb``: the placement, the remap tables, ``remap_topk``,
+    the physical weights and the folded load, exact against JAX."""
+    from sgl_kernel_npu_tpu.parallel import eplb as jeplb
+    from sgl_kernel_npu_tpu_torch.parallel import eplb
+
+    rng = np.random.default_rng(15)
+    load = rng.integers(0, 100, E).astype(np.float64)
+    load[2] = 0
+    for ranks, slots in ((2, 5), (4, 3), (1, 8)):
+        place = eplb.make_placement(load, ranks, slots)
+        np.testing.assert_array_equal(place, jeplb.make_placement(load, ranks, slots))
+        tables = eplb.make_remap_tables(place, E, device="cpu")
+        for a, b in zip(tables, jeplb.make_remap_tables(place, E)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        idx, _ = _routing(rng)
+        np.testing.assert_array_equal(eplb.remap_topk(tt(idx), *tables).numpy(),
+                                      np.asarray(jeplb.remap_topk(jx(idx), *jeplb.make_remap_tables(
+                                          place, E))))
+        wts = rng.standard_normal((E, 3, 2)).astype(np.float32)
+        np.testing.assert_array_equal(eplb.physical_expert_weights(tt(wts), place).numpy(),
+                                      np.asarray(jeplb.physical_expert_weights(jx(wts), place)))
+        m = rng.integers(0, 9, (ranks, ranks * slots))
+        np.testing.assert_array_equal(eplb.logical_load(tt(m), place, E),
+                                      jeplb.logical_load(m, place, E))
+    with pytest.raises(ValueError, match="slots"):
+        eplb.make_placement(load, 1, 4)

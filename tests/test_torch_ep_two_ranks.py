@@ -8,7 +8,12 @@ that meets through a ``FileStore`` in ``tmp_path`` (no port to pick; safe
 under several pytest workers).  Tolerances as ``test_torch_ep_core.py``: the
 dispatched rows, counts and drops exact, int8 scales an f32 ulp, the combine
 1e-6 of its largest |value|, ``fused_oai_moe`` (bf16 wire) 1e-2 of a row's
-largest; the loss 1e-5 relative (f32 sums in another order).  A mesh of two
+largest; the loss 1e-5 relative (f32 sums in another order).  The window
+transports (K15a / K15b's plain versions on gloo) as the collective;
+``fused_deep_moe`` on each transport, unfused and ``single_kernel`` (K16b's
+plain version), against JAX's unfused form (its suite holds its single
+kernel to that form within 4e-4): receive counts and drops exact, a
+relative mean difference below 4e-4.  A mesh of two
 ranks refuses ``make_train_step`` (its replicated gradients need an
 all-reduce, ROADMAP item 16)."""
 
@@ -34,7 +39,11 @@ from test_torch_ep_core import E, H, K, _routing
 
 T2 = 32              # tokens over both ranks
 CASES = [("exact-float", dict(num_max_dispatch_tokens_per_rank=4), False),
-         ("dropping-int8", dict(num_max_dispatch_tokens_per_rank=4, capacity_factor=0.3), True)]
+         ("dropping-int8", dict(num_max_dispatch_tokens_per_rank=4, capacity_factor=0.3), True),
+         ("window-float", dict(num_max_dispatch_tokens_per_rank=4, comm_backend="pallas"), False),
+         ("ragged-dropping-int8", dict(num_max_dispatch_tokens_per_rank=4, capacity_factor=0.3,
+                                       comm_backend="pallas_ragged"), True)]
+DEEP_E, DEEP_H, DEEP_I, DEEP_K = 8, 128, 64, 2
 HERE = pathlib.Path(__file__).resolve().parent
 
 
@@ -84,6 +93,20 @@ def test_two_ranks_match_jax(tmp_path, mesh2):
         jx(x, jnp.bfloat16), jx(idx_live), jx(w), *(jx(oai[k]) for k in
                                                     ("w_gate_up", "b_gate_up", "w_down", "b_down")))
 
+    from sgl_kernel_npu_tpu.parallel.fused_moe import quantize_expert_weights
+
+    wq = [np.asarray(a) for a in quantize_expert_weights(
+        *(jx(rng.standard_normal(s) * 0.05, jnp.float32) for s in
+          ((DEEP_E, DEEP_H, DEEP_I), (DEEP_E, DEEP_H, DEEP_I), (DEEP_E, DEEP_I, DEEP_H))),
+        tn=2 * DEEP_I)]
+    deep = dict(E=DEEP_E, wq=wq, x=rng.standard_normal((T2, DEEP_H)).astype(np.float32),
+                idx=np.stack([rng.choice(DEEP_E, DEEP_K, replace=False)
+                              for _ in range(T2)]).astype(np.int32),
+                w=rng.random((T2, DEEP_K)).astype(np.float32))
+    inp["deep"] = deep
+    jdeep = JBuffer(mesh2, "ep", num_experts=DEEP_E, config=JEPConfig()).fused_deep_moe(
+        jx(deep["x"]), jx(deep["idx"]), jx(deep["w"]), *map(jx, wq))
+
     jcfg = jm.DeepSeekV3Config(**TINY)
     params = jm.init_weights(jax.random.key(0), jcfg)
     for lw in params["layers"]:
@@ -109,6 +132,13 @@ def test_two_ranks_match_jax(tmp_path, mesh2):
                 np.testing.assert_allclose(g["sc"], ref["sc"][r], rtol=2e-7, atol=0)
             c = ref["combined"][mine]
             np.testing.assert_allclose(g["combined"], c, rtol=0, atol=1e-6 * np.abs(c).max())
+        jo_deep = np32(jdeep[0])[mine]
+        for key in (k for k in got if k.startswith("deep-")):
+            g = got[key]
+            np.testing.assert_array_equal(g["gs"], np.asarray(jdeep[1][r]), err_msg=key)
+            assert g["dropped"] == int(jdeep[2][r]) == 0, key
+            rel = np.abs(g["out"] - jo_deep).mean() / np.abs(jo_deep).mean()
+            assert rel < 4e-4, (key, rel)
         np.testing.assert_array_equal(got["oai"]["gs"], np.asarray(jgs[r]))
         assert got["oai"]["dropped"] == int(jdrop[r]) == 0
         ref = np32(jo)[mine]
