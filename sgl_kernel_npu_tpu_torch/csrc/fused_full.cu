@@ -141,8 +141,8 @@ __global__ void __launch_bounds__(k8::THREADS, 2) fused_full_kernel(Args a) {
       const int r0 = offsets[g] + (item - tile_off[g]) * k8::BM;
       const int r1 = min(r0 + k8::BM, offsets[g + 1]);
       k8::int8_tile<k8::kSwiGLU, false>(
-          sm, reinterpret_cast<const int8_t*>(mine + a.off_x),
-          ptr<const int8_t>(a.w1) + (size_t)g * H * 2 * I, r0, r1, H, 2 * I, bx,
+          sm, reinterpret_cast<const int8_t*>(mine + a.off_x), nullptr,
+          ptr<const int8_t>(a.w1) + (size_t)g * H * 2 * I, r0, r1, H, 2 * I, I, bx,
           reinterpret_cast<const float*>(mine + a.off_s),
           ptr<const float>(a.sw1) + (size_t)g * 2 * I,
           [](int, int, float, float) {}, act, amax);
@@ -172,7 +172,7 @@ __global__ void __launch_bounds__(k8::THREADS, 2) fused_full_kernel(Args a) {
       const int r0 = offsets[g] + (item - tile_off[g]) * k8::BM;
       const int r1 = min(r0 + k8::BM, offsets[g + 1]);
       k8::int8_tile<k8::kDequant, false>(
-          sm, h1, ptr<const int8_t>(a.w2) + (size_t)g * I * H, r0, r1, I, H, bx, hs,
+          sm, h1, nullptr, ptr<const int8_t>(a.w2) + (size_t)g * I * H, r0, r1, I, H, H / 2, bx, hs,
           ptr<const float>(a.sw2) + (size_t)g * H,
           [&](int row, int col, float v0, float v1) {
             const int2 m = __ldcg(meta + row);

@@ -2,7 +2,8 @@
 // layer, for Hopper.
 //
 // Replace the TPU kernels sgl_kernel_npu_tpu/ops/gmm_ring.py:gmm1_ring
-// (_gmm1_ring_kernel) and gmm2_combine_ring (_gmm2_combine_ring_kernel).  Those
+// (_gmm1_ring_kernel, int8 or float tokens: the in-kernel quant mode) and
+// gmm2_combine_ring (_gmm2_combine_ring_kernel).  Those
 // run one sequential grid step that streams each live group's weights through
 // a manual DMA ring and build the row dispatch and the combine as one-hot MXU
 // products.  Here the routing is plain indexing: a block gathers its rows by
@@ -39,6 +40,16 @@
 //   init, in a fixed order (deterministic, no float atomics).
 // Rows outside every group read as zeros (h1 = 0, hs = 0; no combine
 // contribution).
+// GMM1's float-input mode (bf16 or f32 tokens) quantizes in the same kernel,
+// each token once a launch: before a pass, the block claims each of its rows'
+// tokens with a compare-and-swap on a per-token flag (0 fresh, 1 claimed, 2
+// done).  The claimer quantizes the token into the int8 / scale scratch (K5's
+// formula: scale max(amax / 127, 1e-12), true division, round half to even,
+// saturate, so the result is K5 then the int8 mode's bit for bit) and
+// release-stores 2; a block that finds the token claimed spins on an acquire
+// load until it is done.  A block quantizes all its claims before it waits,
+// so no block waits on one that is not running.  The scratch is read back by
+// plain loads ordered after the acquire, never through the read-only path.
 #include "gmm_common.cuh"
 
 namespace gmm {
@@ -51,18 +62,97 @@ constexpr int COLS = 32 * CPT;           // columns of a segment per block
 constexpr int MAX_TOPK = 32;
 
 enum Epilogue { kSwiGLU = 0, kDequant = 1 };
+enum XIn { kInt8 = 0, kBF16In = 1, kF32In = 2 };   // the tokens' type
+
+__device__ __forceinline__ int ld_acquire_gpu(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release_gpu(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ float load_in(const __nv_bfloat16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ float load_in(const float* p, size_t i) { return p[i]; }
+
+// Quantize token t into xq[t] / sx[t] (all threads of the block).
+template <class InT>
+__device__ void quant_token(const InT* __restrict__ xf, int t, int K, int8_t* xq, float* sx) {
+  __shared__ float red[WARPS];
+  const size_t base = (size_t)t * K;
+  float m = 0.f;
+#pragma unroll 8
+  for (int c = threadIdx.x; c < K; c += THREADS) m = fmaxf(m, fabsf(load_in(xf, base + c)));
+  m = sgl::warp_max(m);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < WARPS; ++i) m = fmaxf(m, red[i]);
+  const float s = fmaxf(m / 127.f, 1e-12f);
+#pragma unroll 8
+  for (int c = threadIdx.x; c < K; c += THREADS)
+    xq[base + c] = (int8_t)fminf(fmaxf(rintf(load_in(xf, base + c) / s), -128.f), 127.f);
+  if (threadIdx.x == 0) sx[t] = s;
+  __syncthreads();                   // red is reused; the stores precede the release
+}
+
+// The float-input mode's quant of a pass's rows r0 .. r0 + nr - 1 (all
+// threads of the block): thread r claims row r's token; the block quantizes
+// the tokens it claimed and releases them, then waits for the others.  On
+// return every token of the pass is in xq / sx and visible to the block.
+template <class InT>
+__device__ void quant_pass(const InT* __restrict__ xf, const int* __restrict__ row_src,
+                           int r0, int nr, int n_src, int K, int8_t* xq, float* sx,
+                           int* qflag) {
+  __shared__ int tok[RP], state[RP];   // state: the flag's value before the claim
+  const int r = threadIdx.x;
+  if (r < nr) {
+    const int t = row_src ? row_src[r0 + r] : r0 + r;
+    const bool valid = t >= 0 && t < n_src;
+    tok[r] = t;
+    state[r] = valid ? atomicCAS(qflag + t, 0, 1) : -1;   // -1: a pad row
+  }
+  __syncthreads();
+  for (int rr = 0; rr < nr; ++rr)
+    if (state[rr] == 0) {
+      quant_token(xf, tok[rr], K, xq, sx);
+      if (threadIdx.x == 0) {
+        __threadfence();
+        st_release_gpu(qflag + tok[rr], 2);
+      }
+    }
+  if (r < nr && state[r] > 0) {      // claimed elsewhere, or done: acquire it
+    while (ld_acquire_gpu(qflag + tok[r]) != 2) __nanosleep(64);
+    __threadfence();
+  }
+  __syncthreads();                   // tok and state are reused by the next pass
+}
+
+// A 4-byte word of the int8 rows: the read-only path for int8 tokens; for the
+// scratch this launch writes, a plain (coherent) load, ordered after the
+// flag's acquire by the block barrier.
+template <int XF>
+__device__ __forceinline__ int load_x4(const int8_t* p) {
+  return XF == kInt8 ? __ldg(reinterpret_cast<const int*>(p))
+                     : *reinterpret_cast<const int*>(p);
+}
 
 // x [n_src, K] int8 rows (row r reads x[row_src[r]], or x[r] without row_src),
 // w [G, K, N] int8, offsets [G + 1].  NSEG segments of seg_width columns each
 // (GMM1: gate then up, seg_width = N / 2; GMM2: one of N); lane l's columns
-// are c = blockIdx.y * COLS + 4 l of each segment.  K % 4 == 0.
-template <int NSEG, int EPI>
+// are c = blockIdx.y * COLS + 4 l of each segment.  K % 4 == 0.  XF != kInt8:
+// x and scale_x are scratch that the kernel fills from the float tokens xf
+// (qflag [n_src] zeroed).
+template <int NSEG, int EPI, int XF = kInt8>
 __global__ void __launch_bounds__(THREADS)
-    grouped_w8a8_kernel(const int8_t* __restrict__ x, const int* __restrict__ row_src,
+    grouped_w8a8_kernel(const int8_t* x, const int* __restrict__ row_src,
                         int n_src, const int8_t* __restrict__ w,
-                        const int* __restrict__ offsets, const float* __restrict__ scale_x,
+                        const int* __restrict__ offsets, const float* scale_x,
                         const float* __restrict__ scale_w, int K, int N,
-                        float* __restrict__ out, unsigned* __restrict__ amax) {
+                        float* __restrict__ out, unsigned* __restrict__ amax,
+                        const void* __restrict__ xf = nullptr, int* qflag = nullptr) {
   __shared__ int part[WARPS][RP][NSEG][CPT][32];   // each quarter's partial sums
   const int g = blockIdx.x;
   const int r_begin = offsets[g], r_end = offsets[g + 1];
@@ -77,6 +167,12 @@ __global__ void __launch_bounds__(THREADS)
 
   for (int r0 = r_begin; r0 < r_end; r0 += RP) {
     const int nr = min(RP, r_end - r0);
+    if (XF == kBF16In)
+      quant_pass((const __nv_bfloat16*)xf, row_src, r0, nr, n_src, K, const_cast<int8_t*>(x),
+                 const_cast<float*>(scale_x), qflag);
+    else if (XF == kF32In)
+      quant_pass((const float*)xf, row_src, r0, nr, n_src, K, const_cast<int8_t*>(x),
+                 const_cast<float*>(scale_x), qflag);
     const int8_t* xr[RP];
 #pragma unroll
     for (int rr = 0; rr < RP; ++rr) {
@@ -112,7 +208,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int rr = 0; rr < RP; ++rr) {
           if (xr[rr] == nullptr) continue;
-          const int xv = __ldg(reinterpret_cast<const int*>(xr[rr] + k));
+          const int xv = load_x4<XF>(xr[rr] + k);
 #pragma unroll
           for (int s = 0; s < NSEG; ++s)
 #pragma unroll
@@ -194,24 +290,38 @@ __global__ void combine_kernel(const float* __restrict__ y, const int* __restric
 
 }  // namespace gmm
 
-// xq [n_tok, K] int8, tok_of_row [S] int32, w1 [G, K, N] int8 (N = 2I, gate ||
-// up full width), offsets [G + 1] int32, sx_tok [n_tok] f32, sw [G, N] f32;
-// scratch act [S, I] f32 and amax [S] u32; out h1 [S, I] int8, hs [S] f32.
-// Needs K % 4 == 0 and I % 4 == 0.
+// xq [n_tok, K] int8 tokens, tok_of_row [S] int32, w1 [G, K, N] int8 (N = 2I,
+// gate || up full width), offsets [G + 1] int32, sx_tok [n_tok] f32, sw [G, N]
+// f32; scratch act [S, I] f32 and amax [S] u32; out h1 [S, I] int8, hs [S]
+// f32.  With xf (the float-input mode: [n_tok, K] bf16 if xf_bf16, else f32)
+// xq and sx_tok are scratch that the kernel fills, each token once, and qflag
+// [n_tok] int32 is scratch too.  Needs K % 4 == 0 and I % 4 == 0.
 extern "C" int gmm1_ring_launch(const void* xq, const void* tok_of_row, int n_tok,
                                 const void* w1, const void* offsets, int groups, int S,
                                 int K, int N, const void* sx_tok, const void* sw,
-                                void* act, void* amax, void* h1, void* hs, void* stream) {
+                                void* act, void* amax, void* h1, void* hs, const void* xf,
+                                int xf_bf16, void* qflag, void* stream) {
   if (S == 0) return 0;
   if (K % 4 != 0 || N % (2 * gmm::CPT) != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int I = N / 2;
   cudaMemsetAsync(amax, 0, sizeof(unsigned) * (size_t)S, s);
   dim3 grid(groups, (I + gmm::COLS - 1) / gmm::COLS);
-  gmm::grouped_w8a8_kernel<2, gmm::kSwiGLU><<<grid, gmm::THREADS, 0, s>>>(
-      (const int8_t*)xq, (const int*)tok_of_row, n_tok, (const int8_t*)w1,
-      (const int*)offsets, (const float*)sx_tok, (const float*)sw, K, N, (float*)act,
-      (unsigned*)amax);
+  const auto launch = [&](auto kernel) {
+    kernel<<<grid, gmm::THREADS, 0, s>>>(
+        (const int8_t*)xq, (const int*)tok_of_row, n_tok, (const int8_t*)w1,
+        (const int*)offsets, (const float*)sx_tok, (const float*)sw, K, N, (float*)act,
+        (unsigned*)amax, xf, (int*)qflag);
+  };
+  if (xf == nullptr) {
+    launch(gmm::grouped_w8a8_kernel<2, gmm::kSwiGLU, gmm::kInt8>);
+  } else {
+    cudaMemsetAsync(qflag, 0, sizeof(int) * (size_t)n_tok, s);
+    if (xf_bf16)
+      launch(gmm::grouped_w8a8_kernel<2, gmm::kSwiGLU, gmm::kBF16In>);
+    else
+      launch(gmm::grouped_w8a8_kernel<2, gmm::kSwiGLU, gmm::kF32In>);
+  }
   gmm::swiglu_requant_kernel<<<S, 256, 0, s>>>(
       (const float*)act, (const unsigned*)amax, (const int*)offsets, groups, I,
       (int8_t*)h1, (float*)hs);

@@ -1,6 +1,7 @@
 // The W8A8 tile of the grouped expert GEMMs on mma.sync.m16n8k32 (s8 x s8 ->
-// s32), shared by grouped_matmul (K8a, grouped_matmul.cu) and the fused MoE
-// (K16b, fused_full.cu).  The design is K8a's (grouped_matmul.cu's header
+// s32), shared by grouped_matmul (K8a, grouped_matmul.cu), the fused MoE
+// (K16b, fused_full.cu) and the fused dispatch + GEMM1 (K16a,
+// fused_kernel.cu).  The design is K8a's (grouped_matmul.cu's header
 // comment): 64 sorted rows of one group x one column tile of 128 columns
 // ("dequant") or 64 gate and the 64 matching up columns (SwiGLU), 256
 // threads, 8 warps of 32 rows x 32 columns, 128 bytes of K a stage, the next
@@ -26,7 +27,11 @@ constexpr int LDB = BN + 8;                     // weight tile row stride (one r
 constexpr int A_CHUNKS = BM * BK / 16 / THREADS;  // 16-byte x loads a thread per stage
 constexpr int B_UNITS = KQ / WARPS;             // 4 k-rows x 4 columns a thread per stage
 
-enum Epilogue { kDequant = 0, kSwiGLU = 1 };
+// kDequant: acc x sx[row] x sw[col] (each scale 1 where its pointer is null);
+// kSwiGLU: SwiGLU of the dequantized gate / up pair to an f32 scratch and the
+// row's |max| (the requant follows in another pass); kSwiGLUOut: the same
+// SwiGLU stored through the output functor (K8a's float "dequant_swiglu").
+enum Epilogue { kDequant = 0, kSwiGLU = 1, kSwiGLUOut = 2 };
 
 // The staged x and weight tiles of one block.
 struct TileSmem {
@@ -56,18 +61,26 @@ __device__ __forceinline__ void store_pair(float* out, size_t i, float a, float 
 __device__ __forceinline__ void store_pair(bf16* out, size_t i, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(out + i) = __floats2bfloat162_rn(a, b);
 }
+__device__ __forceinline__ void store_pair(__half* out, size_t i, float a, float b) {
+  *reinterpret_cast<__half2*>(out + i) = __floats2half2_rn(a, b);
+}
+
+// The gate column of SwiGLU output column j when gate / up are packed in
+// slabs of 2 ht columns, [gate ht | up ht] each (pack_gmm1_weights with tn =
+// 2 ht; ht = N / 2 is the full-width packing); its up column is ht further.
+__device__ __forceinline__ int gate_col(int j, int ht) { return (j / ht) * 2 * ht + j % ht; }
 
 // Global column of column c (0 .. BN) of column tile bx, or -1 past the edge.
-// N % 16 == 0 (I % 16 == 0 in SwiGLU mode): 4 aligned columns are all in or
-// all out.
+// N % 16 == 0 (ht % 16 == 0 in the SwiGLU modes): 4 aligned columns are all
+// in or all out, and never straddle a gate / up slab.
 template <int EPI>
-__device__ __forceinline__ int global_col(int bx, int c, int N) {
+__device__ __forceinline__ int global_col(int bx, int c, int N, int ht) {
   if (EPI == kDequant) {
     const int col = bx * BN + c;
     return col < N ? col : -1;
   }
-  const int I = N / 2, j = bx * HALF + c % HALF;
-  return j < I ? j + (c / HALF) * I : -1;
+  const int j = bx * HALF + c % HALF;
+  return j < N / 2 ? gate_col(j, ht) + (c / HALF) * ht : -1;
 }
 
 // The n8 tile (of 16) that warp column wn holds in its slot nj: the gate
@@ -97,32 +110,44 @@ __device__ __forceinline__ T load_x(const T* p) {
   return __ldcg(p);
 }
 
-// One tile: rows [r0, r1) of group g's rows (x [., K] int8, r0 its first)
+// One tile: rows [r0, r1) of group g's rows (x [., K] int8, r0 its first;
+// row r reads x[xrow[r]] where xrow is given, a zero row where that is < 0)
 // times column tile bx of wg = w[g] ([K, N] int8), sx [rows] and swg = sw[g]
-// [N] scales.  "dequant": out(row, col, v, v') stores the pair of columns
-// (col, col + 1) of acc x sx[row] x swg[col]; SwiGLU: act [rows, N / 2] f32
-// and the per-row |max| into amax (u32 float bits, zeroed before).  Every
-// thread of the block calls it (it syncs the block).
+// [N] scales (null: 1).  "dequant": out(row, col, v, v') stores the pair of
+// columns (col, col + 1) of acc x sx[row] x swg[col]; the SwiGLU modes pair
+// gate and up by slabs of 2 ht columns (gate_col), and kSwiGLU writes act
+// [rows, N / 2] f32 and the per-row |max| into amax (u32 float bits, zeroed
+// before), kSwiGLUOut stores the pair of output columns (j, j + 1) through
+// out.  Every thread of the block calls it (it syncs the block).
 template <int EPI, bool RO, class Out>
 __device__ __forceinline__ void int8_tile(TileSmem& sm, const int8_t* __restrict__ x,
+                                          const int* __restrict__ xrow,
                                           const int8_t* __restrict__ wg, int r0, int r1, int K,
-                                          int N, int bx, const float* __restrict__ sx,
+                                          int N, int ht, int bx, const float* __restrict__ sx,
                                           const float* __restrict__ swg, Out out,
                                           float* __restrict__ act,
                                           unsigned* __restrict__ amax) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g8 = lane >> 2, tq = lane & 3;       // mma fragment row / column pair
   const int wm = warp & 1, wn = warp >> 1;
-  const int bcol = global_col<EPI>(bx, 4 * lane, N);   // this thread's 4 weight columns
+  const int bcol = global_col<EPI>(bx, 4 * lane, N, ht);   // this thread's 4 weight columns
 
+  // the x rows this thread stages (the same rows at every k stage)
+  const int8_t* xsrc[A_CHUNKS];
+#pragma unroll
+  for (int i = 0; i < A_CHUNKS; ++i) {
+    const int row = r0 + (tid + i * THREADS) / (BK / 16);
+    const int src = row < r1 ? (xrow ? xrow[row] : row) : -1;
+    xsrc[i] = src >= 0 ? x + (size_t)src * K : nullptr;
+  }
   uint4 xa[A_CHUNKS];
   uint32_t wb[B_UNITS][4];
   auto load_stage = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < A_CHUNKS; ++i) {
-      const int c = tid + i * THREADS, row = r0 + c / (BK / 16), kk = k0 + 16 * (c % (BK / 16));
-      xa[i] = (row < r1 && kk < K)
-                  ? load_x<RO>(reinterpret_cast<const uint4*>(x + (size_t)row * K + kk))
+      const int kk = k0 + 16 * ((tid + i * THREADS) % (BK / 16));
+      xa[i] = (xsrc[i] != nullptr && kk < K)
+                  ? load_x<RO>(reinterpret_cast<const uint4*>(xsrc[i] + kk))
                   : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
@@ -189,15 +214,16 @@ __device__ __forceinline__ void int8_tile(TileSmem& sm, const int8_t* __restrict
     for (int h = 0; h < 2; ++h) {
       const int row = r0 + 32 * wm + 16 * mi + g8 + 8 * h;
       const bool live = row < r1;
-      const float sxr = live ? load_x<RO>(sx + row) : 0.f;
+      const float sxr = live ? (sx ? load_x<RO>(sx + row) : 1.f) : 0.f;
       if (EPI == kDequant) {
         if (!live) continue;
 #pragma unroll
         for (int nj = 0; nj < 4; ++nj) {
-          const int col = global_col<kDequant>(bx, 8 * warp_tile(wn, nj) + 2 * tq, N);
+          const int col = global_col<kDequant>(bx, 8 * warp_tile(wn, nj) + 2 * tq, N, ht);
           if (col < 0) continue;
-          out(row, col, __int2float_rn(acc[mi][nj][2 * h]) * sxr * swg[col],
-              __int2float_rn(acc[mi][nj][2 * h + 1]) * sxr * swg[col + 1]);
+          const float sw0 = swg ? swg[col] : 1.f, sw1 = swg ? swg[col + 1] : 1.f;
+          out(row, col, __int2float_rn(acc[mi][nj][2 * h]) * sxr * sw0,
+              __int2float_rn(acc[mi][nj][2 * h + 1]) * sxr * sw1);
         }
       } else {
         const int I = N / 2;
@@ -206,19 +232,23 @@ __device__ __forceinline__ void int8_tile(TileSmem& sm, const int8_t* __restrict
         for (int jj = 0; jj < 2; ++jj) {       // gate slot jj pairs with up slot 2 + jj
           const int j = bx * HALF + 8 * (2 * wn + jj) + 2 * tq;
           if (!live || j >= I) continue;
+          const int gc = gate_col(j, ht);      // j and j + 1 share a slab (ht even)
           float a2[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float d0 = __int2float_rn(acc[mi][jj][2 * h + e]) * sxr * swg[j + e];
-            const float d1 = __int2float_rn(acc[mi][2 + jj][2 * h + e]) * sxr * swg[I + j + e];
+            const float d0 = __int2float_rn(acc[mi][jj][2 * h + e]) * sxr * swg[gc + e];
+            const float d1 = __int2float_rn(acc[mi][2 + jj][2 * h + e]) * sxr * swg[gc + ht + e];
             a2[e] = d0 * (1.f / (1.f + expf(-d0))) * d1;
             m = fmaxf(m, fabsf(a2[e]));
           }
-          store_pair(act, (size_t)row * I + j, a2[0], a2[1]);
+          if (EPI == kSwiGLU) store_pair(act, (size_t)row * I + j, a2[0], a2[1]);
+          else out(row, j, a2[0], a2[1]);
         }
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-        if (tq == 0 && live) atomicMax(amax + row, __float_as_uint(m));
+        if (EPI == kSwiGLU) {
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+          if (tq == 0 && live) atomicMax(amax + row, __float_as_uint(m));
+        }
       }
     }
 }

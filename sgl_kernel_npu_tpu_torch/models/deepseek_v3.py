@@ -6,7 +6,8 @@ dense_wq=...)``: MLA attention over the paged latent cache, bf16 or int8
 (``kv_cache_dtype``; ``decode_mla`` K2, ``mla_prefill_pallas`` K9), and the
 routed experts either float (``moe_weights_q`` None: the dense MoE, every
 expert for every token, as JAX on one chip) or W8A8 through the ring GEMMs
-(``gmm1_ring`` K3, ``gmm2_combine_ring`` K4) up to 512 tokens and through
+(``gmm1_ring`` K3, ``gmm2_combine_ring`` K4) up to 512 tokens (at other
+widths K8a with ``dispatch_p`` and ``grouped_matmul_combine`` K8b) and through
 ``grouped_matmul`` (K8a, twice) with a gather combine above, behind either
 the float MLA prologue or the fused W8A8 one (``mla_wq``: ``mla_preprocess`` on
 ``quant_matmul`` K1), and with the output projection and the shared expert
@@ -31,10 +32,10 @@ around three ``gmm_train`` products, K8a's ``none`` mode forward and
 through ``Buffer.fused_deep_moe`` (its exchanges on the buffer's transport,
 K8a twice), after ``eplb_tables`` (``parallel.eplb.make_remap_tables``)
 remap the routing to physical expert slots, in JAX's branch order.  The
-switches this slice does not take raise ``NotImplementedError``: the
-gradients over a mesh of more than one rank (ROADMAP item 16), and the W8A8
-MoE of at most 512 tokens at widths the ring GEMMs do not take, which needs
-K8b.
+switch this port does not take raises ``NotImplementedError``: the
+gradients over a mesh of more than one rank (ROADMAP item 16).  The W8A8
+MoE of at most 512 tokens at widths the ring GEMMs do not take runs K8a with
+``dispatch_p`` and ``grouped_matmul_combine`` (K8b), as JAX's.
 
 Weights are a plain dict of tensors (``layers`` a list of per-layer dicts),
 with the JAX package's names and layouts; caches are a list of per-layer
@@ -84,8 +85,12 @@ from sgl_kernel_npu_tpu_torch.ops.gmm_ring import (
     gmm2_combine_ring_ref,
 )
 from sgl_kernel_npu_tpu_torch.ops.grouped_matmul import (
+    combine_masks,
+    dispatch_onehot,
     gmm_train,
     grouped_matmul,
+    grouped_matmul_combine,
+    grouped_matmul_combine_plain,
     grouped_matmul_plain,
 )
 from sgl_kernel_npu_tpu_torch.ops.mem_cache.kv_cache import (
@@ -221,11 +226,12 @@ _INDEXER_SEED = 1 << 20   # the indexer projections' stream: seed + this
 _EXPERT_CHUNK = 16   # experts made in f32 at once: 2.8 GB at DeepSeek-V3 width
 
 
-def init_quantized_experts(cfg: DeepSeekV3Config, seed: int = 1,
-                           device="cuda") -> list[tuple]:
+def init_quantized_experts(cfg: DeepSeekV3Config, seed: int = 1, device="cuda",
+                           tn: int | None = None) -> list[tuple]:
     """W8A8 routed experts of every layer, made from ``seed`` a chunk of
     experts at a time: the float experts (2 bytes x 3 x H x I each in bf16) are
-    never all resident, only one chunk of them in f32."""
+    never all resident, only one chunk of them in f32.  Gate / up are packed
+    at width ``tn`` (:func:`quantize_expert_weights`)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     e, h, i = cfg.num_experts, cfg.hidden, cfg.moe_intermediate
@@ -240,7 +246,7 @@ def init_quantized_experts(cfg: DeepSeekV3Config, seed: int = 1,
             wg = _randn(gen, (c, h, i), h ** -0.5, torch.float32, dev)
             wu = _randn(gen, (c, h, i), h ** -0.5, torch.float32, dev)
             wd = _randn(gen, (c, i, h), i ** -0.5, torch.float32, dev)
-            q = quantize_expert_weights(wg, wu, wd)
+            q = quantize_expert_weights(wg, wu, wd, tn=tn)
             w1[e0 : e0 + c], s1[e0 : e0 + c], w2[e0 : e0 + c], s2[e0 : e0 + c] = q
             del wg, wu, wd, q
         out.append((w1, s1, w2, s2))
@@ -273,9 +279,10 @@ def from_jax_params(params_np: dict, moe_weights_q_np: list | None = None,
     return params, moe, mla, dense
 
 
-def quantize_moe_weights(cfg: DeepSeekV3Config, params: dict):
-    """Per-layer W8A8 expert weights for the ring-GEMM MoE."""
-    return [quantize_expert_weights(lw["w_gate"], lw["w_up"], lw["w_down"])
+def quantize_moe_weights(cfg: DeepSeekV3Config, params: dict, tn: int | None = None):
+    """Per-layer W8A8 expert weights for the fused MoE path, gate / up packed
+    at width ``tn`` (``moe_pack_tn``'s by default: full width)."""
+    return [quantize_expert_weights(lw["w_gate"], lw["w_up"], lw["w_down"], tn=tn)
             for lw in params["layers"]]
 
 
@@ -501,44 +508,81 @@ def _combine(y: torch.Tensor, dest: torch.Tensor, topk_w: torch.Tensor) -> torch
     return out
 
 
-def _gmm_moe(cfg: DeepSeekV3Config, wq: tuple, x, topk_idx, topk_w, *, plain: bool = False):
-    """Single-GPU W8A8 grouped MoE: per-token int8 quant → counting sort of the
-    (token, k) pairs by expert → up to 512 tokens (widths permitting, JAX's
-    branch conditions) ``gmm1_ring`` (gather, GMM1, SwiGLU, requant) and
-    ``gmm2_combine_ring`` (GMM2 and the weighted top-k combine); above 512
-    tokens the gather ``xq_tok[tok_of_row]``, ``grouped_matmul`` (K8a) with
-    the ``dequant_swiglu_quant`` and then the ``dequant`` (bf16) epilogue, and
-    the gather combine."""
-    w1, s1, w2, s2 = wq
-    n, hidden = x.shape
-    k = topk_idx.shape[1]
-    ring = (n <= 512 and hidden % 128 == 0 and w2.shape[1] % 128 == 0
-            and w1.shape[2] % 256 == 0)
-    if n <= 512 and not ring:
-        raise NotImplementedError(
-            f"MoE of {n} <= 512 tokens at hidden {hidden} / intermediate {w2.shape[1]} "
-            "needs grouped_matmul's dispatch_p mode and grouped_matmul_combine (K8b), "
-            "not ported yet (ROADMAP queue B)")
+def _moe_rows(x, topk_idx, num_experts: int):
+    """The routing glue of the W8A8 MoE, as JAX's ``_gmm_moe``: per-token int8
+    quant ``(xq_tok [n, H], sx_tok [n])``, then a counting sort of the (token,
+    k) pairs by expert: ``group_sizes [E]``, ``dest [n, k]`` (each pair's
+    sorted row) and ``tok_of_row [S]`` (each sorted row's token)."""
+    n, k = topk_idx.shape
     xf = x.float()
     sx_tok = torch.clamp_min(row_scale(xf), 1e-12)
     xq_tok = saturate_int8(xf / sx_tok[:, None])
     flat_e = topk_idx.reshape(-1).long()
-    gsizes = torch.bincount(flat_e, minlength=w1.shape[0]).to(torch.int32)
+    gsizes = torch.bincount(flat_e, minlength=num_experts).to(torch.int32)
     src = torch.argsort(flat_e, stable=True).to(torch.int32)      # sorted slot → pair row
     dest = torch.empty_like(src)
     dest[src.long()] = torch.arange(n * k, dtype=torch.int32, device=x.device)
-    tok_of_row = src // k
-    if not ring:
-        rows = tok_of_row.long()
-        gm = grouped_matmul_plain if plain else grouped_matmul
-        h1, hs = gm(xq_tok[rows], w1, gsizes, sx_tok[rows], s1, epilogue="dequant_swiglu_quant")
-        y = gm(h1, w2, gsizes, hs, s2, epilogue="dequant")
-        return _combine(y, dest.reshape(n, k), topk_w).to(x.dtype)
+    return xq_tok, sx_tok, gsizes, dest.reshape(n, k), src // k
+
+
+def _gmm_moe_ring(wq: tuple, rows: tuple, topk_w, *, plain: bool = False):
+    """``_gmm_moe``'s branch up to 512 tokens at the ring GEMMs' widths:
+    ``gmm1_ring`` (gather, GMM1, SwiGLU, requant) and ``gmm2_combine_ring``
+    (GMM2 and the weighted top-k combine) → f32 ``[n, H]``."""
+    w1, s1, w2, s2 = wq
+    xq_tok, sx_tok, gsizes, dest, tok_of_row = rows
     gm1, gm2 = (gmm1_ring_ref, gmm2_combine_ring_ref) if plain else (gmm1_ring,
                                                                     gmm2_combine_ring)
     h1, hs = gm1(xq_tok, tok_of_row, w1, gsizes, sx_tok, s1)
-    out = gm2(h1, w2, gsizes, hs, s2, dest.reshape(n, k), topk_w.float())
-    return out.to(x.dtype)
+    return gm2(h1, w2, gsizes, hs, s2, dest, topk_w.float())
+
+
+def _gmm_moe_dispatch(wq: tuple, rows: tuple, topk_w, *, plain: bool = False):
+    """``_gmm_moe``'s branch up to 512 tokens at other widths: the one-hot
+    dispatch matrix (``dispatch_onehot``) into K8a's
+    ``dequant_swiglu_quant`` with ``dispatch_p``, then K8b
+    (``grouped_matmul_combine``) on the combine mask's bf16 hi / lo split →
+    f32 ``[n, H]``."""
+    w1, s1, w2, s2 = wq
+    xq_tok, sx_tok, gsizes, dest, tok_of_row = rows
+    n, k = dest.shape
+    m_hi, m_lo = combine_masks(dest, topk_w, n * k)
+    gm, comb = ((grouped_matmul_plain, grouped_matmul_combine_plain) if plain
+                else (grouped_matmul, grouped_matmul_combine))
+    h1, hs = gm(xq_tok, w1, gsizes, sx_tok[tok_of_row.long()], s1,
+                epilogue="dequant_swiglu_quant", dispatch_p=dispatch_onehot(tok_of_row, n))
+    return comb(h1, w2, gsizes, hs, s2, m_hi, m_lo)
+
+
+def _gmm_moe_gather(wq: tuple, rows: tuple, topk_w, *, plain: bool = False):
+    """``_gmm_moe``'s branch above 512 tokens: the gather ``xq_tok[tok_of_row]``,
+    K8a's ``dequant_swiglu_quant`` then ``dequant`` (bf16), and the gather
+    combine (:func:`_combine`) → f32 ``[n, H]``."""
+    w1, s1, w2, s2 = wq
+    xq_tok, sx_tok, gsizes, dest, tok_of_row = rows
+    idx = tok_of_row.long()
+    gm = grouped_matmul_plain if plain else grouped_matmul
+    h1, hs = gm(xq_tok[idx], w1, gsizes, sx_tok[idx], s1, epilogue="dequant_swiglu_quant")
+    y = gm(h1, w2, gsizes, hs, s2, epilogue="dequant")
+    return _combine(y, dest, topk_w)
+
+
+def _gmm_moe(cfg: DeepSeekV3Config, wq: tuple, x, topk_idx, topk_w, *, plain: bool = False):
+    """Single-GPU W8A8 grouped MoE, JAX's ``_gmm_moe``: the routing glue
+    (:func:`_moe_rows`), then on JAX's conditions up to 512 tokens
+    :func:`_gmm_moe_ring` (widths permitting: H % 128, I % 128, 2I % 256) or
+    :func:`_gmm_moe_dispatch`, above 512 tokens :func:`_gmm_moe_gather`;
+    the result in x's dtype."""
+    w1, _, w2, _ = wq
+    n, hidden = x.shape
+    rows = _moe_rows(x, topk_idx, w1.shape[0])
+    if n > 512:
+        branch = _gmm_moe_gather
+    elif hidden % 128 == 0 and w2.shape[1] % 128 == 0 and w1.shape[2] % 256 == 0:
+        branch = _gmm_moe_ring
+    else:
+        branch = _gmm_moe_dispatch
+    return branch(wq, rows, topk_w, plain=plain).to(x.dtype)
 
 
 def _dense_moe(cfg: DeepSeekV3Config, lw: dict, x, topk_idx, topk_w):

@@ -8,7 +8,9 @@ gather rows by ``tok_of_row`` and combine by ``dest`` directly, and keep the
 JAX names so the counterpart is easy to find.
 
 - :func:`gmm1_ring` — grouped W8A8 GEMM1 over expert-sorted rows, dequant,
-  SwiGLU on the full-width gate ‖ up packing, per-row int8 requant.
+  SwiGLU on the full-width gate ‖ up packing, per-row int8 requant; on int8
+  tokens, or on bf16 / f32 tokens quantized per token first (JAX's in-kernel
+  quant mode).
 - :func:`gmm2_combine_ring` — grouped W8A8 GEMM2, dequant, weighted top-k
   combine into ``[n_tok, N]`` f32 (optionally on top of ``init``).  The combine
   weights stay f32 (the TPU kernel's hi/lo bf16 split is an MXU artefact).
@@ -23,9 +25,10 @@ from sgl_kernel_npu_tpu_torch.ops.grouped_matmul import (
     gmm_dequant_ref,
     swiglu_requant_ref,
 )
+from sgl_kernel_npu_tpu_torch.ops.quant import quant_per_token_ref
 from sgl_kernel_npu_tpu_torch.utils import cuda_lib
 from sgl_kernel_npu_tpu_torch.utils.common import on_cuda
-from sgl_kernel_npu_tpu_torch.utils.counters import counted
+from sgl_kernel_npu_tpu_torch.utils.counters import counted, launched
 
 MAX_TOPK = 32   # csrc/gmm_ring.cu: the kernels read 4-byte words of K and N
 
@@ -38,7 +41,11 @@ def _check_int8(name: str, t: torch.Tensor) -> None:
 def gmm1_ring_ref(xq, tok_of_row, w1, group_sizes, scale_x_tok, scale_w):
     """Plain GMM1: rows ``xq[tok_of_row]`` (a token id outside ``[0, n_tok)``
     reads as zero) → ``(h1 [S, N/2] int8, hs [S] f32)``; rows past the groups'
-    total are zeros."""
+    total are zeros.  Float ``xq`` is quantized per token first
+    (:func:`~sgl_kernel_npu_tpu_torch.ops.quant.quant_per_token_ref`) and
+    ``scale_x_tok`` is ignored."""
+    if xq.dtype != torch.int8:
+        xq, scale_x_tok = quant_per_token_ref(xq)
     n_tok = xq.shape[0]
     valid = (tok_of_row >= 0) & (tok_of_row < n_tok)
     tok = torch.where(valid, tok_of_row, 0).long()
@@ -60,32 +67,38 @@ def gmm2_combine_ring_ref(x, w2, group_sizes, scale_x, scale_w, dest, topk_w, *,
     return out if init is None else out + init.float()
 
 
-@counted
+@counted(modes=("float_x",))
 def gmm1_ring(xq, tok_of_row, w1, group_sizes, scale_x_tok, scale_w):
     """Grouped W8A8 GEMM1 + dequant → SwiGLU → per-row requant.
 
     ``xq [n_tok, K]`` int8 tokens, ``tok_of_row [S]`` sorted row → token,
     ``w1 [G, K, 2I]`` int8 (gate ‖ up at full width), ``group_sizes [G]``,
     ``scale_x_tok [n_tok]``, ``scale_w [G, 2I]`` → ``(h1 [S, I] int8, hs [S])``.
-    CUDA tensors launch ``csrc/gmm_ring.cu``; CPU tensors take
-    :func:`gmm1_ring_ref`.  The JAX kernel's in-kernel quant mode (float
-    ``xq``) is not ported yet."""
-    if xq.dtype != torch.int8:
-        raise NotImplementedError(
-            "gmm1_ring with float input (in-kernel quant mode) is not ported yet "
-            "(ROADMAP queue A)")
+    Float tokens (bf16 or f32 ``xq``, JAX's in-kernel quant mode) are
+    quantized per token inside the GEMM kernel, each once a launch (the first
+    block to read a token quantizes it into scratch), and ``scale_x_tok`` is
+    ignored (None).  CUDA tensors launch ``csrc/gmm_ring.cu``; CPU tensors
+    take :func:`gmm1_ring_ref`."""
     args = (xq, tok_of_row, w1, group_sizes, scale_x_tok, scale_w)
-    if not on_cuda(*args):
+    if not on_cuda(*(a for a in args if a is not None)):
         return gmm1_ring_ref(*args)
     s = tok_of_row.shape[0]
     n_tok, k = xq.shape
     g, k_w, n = w1.shape
+    dev = xq.device
+    xf = qflag = None
+    if xq.dtype != torch.int8:                   # the float-input mode
+        if xq.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"gmm1_ring takes int8, bf16 or f32 tokens, got {xq.dtype}")
+        xf = xq.contiguous()
+        xq = torch.empty((n_tok, k), dtype=torch.int8, device=dev)
+        scale_x_tok = torch.empty(n_tok, dtype=torch.float32, device=dev)
+        qflag = torch.empty(n_tok, dtype=torch.int32, device=dev)
     _check_int8("xq", xq)
     _check_int8("w1", w1)
     if k_w != k or k % 4 or n % 8 or scale_w.shape != (g, n):
         raise ValueError(f"gmm1_ring shapes: xq {tuple(xq.shape)}, w1 {tuple(w1.shape)}, "
                          f"scale_w {tuple(scale_w.shape)} (K % 4 and I % 4 must be 0)")
-    dev = xq.device
     tok = tok_of_row.to(torch.int32).contiguous()
     sx = scale_x_tok.float().contiguous()
     sw = scale_w.float().contiguous()
@@ -98,8 +111,10 @@ def gmm1_ring(xq, tok_of_row, w1, group_sizes, scale_x_tok, scale_w):
     cuda_lib.check(lib, lib.gmm1_ring_launch(
         xq.data_ptr(), tok.data_ptr(), n_tok, w1.data_ptr(), offsets.data_ptr(), g, s, k,
         n, sx.data_ptr(), sw.data_ptr(), act.data_ptr(), amax.data_ptr(), h1.data_ptr(),
-        hs.data_ptr(), cuda_lib.stream_ptr(xq)), "gmm1_ring")
-    gmm1_ring.launches += 1
+        hs.data_ptr(), None if xf is None else xf.data_ptr(),
+        int(xf is not None and xf.dtype == torch.bfloat16),
+        None if qflag is None else qflag.data_ptr(), cuda_lib.stream_ptr(xq)), "gmm1_ring")
+    launched(gmm1_ring, *(() if xf is None else ("float_x",)))
     return h1, hs
 
 

@@ -1,29 +1,38 @@
 """Grouped (ragged) expert GEMMs: host helpers, plain versions and the Hopper
-kernel K8a ``grouped_matmul``.
+kernels K8a ``grouped_matmul`` and K8b ``grouped_matmul_combine``.
 
 Counterpart of ``sgl_kernel_npu_tpu/ops/grouped_matmul.py``.  Rows are grouped
 contiguously by expert (``group_sizes [G]``, a device tensor: the kernel path
 never syncs on it); rows past the groups' total come out as zeros.
 
-- :func:`grouped_matmul` (K8a, ``csrc/grouped_matmul.cu``) takes int8 rows and
-  weights with the ``dequant`` epilogue (``out = acc * scale_x[row] *
-  scale_w[g, col]`` cast to bf16) and the
-  ``dequant_swiglu_quant`` one (SwiGLU on the full-width gate ‖ up packing,
-  then a per-row int8 requant; rows past the total get scale 0), and float
-  rows and weights with the ``none`` epilogue (f32 out), which it hands to
-  :func:`grouped_matmul_float` (``out[i] = x[i] @ w[g(i)]``, ``w [G, K, N]``)
-  or, with ``rhs_contract_last``, :func:`grouped_matmul_dx` (``out[i] = x[i]
-  @ w[g(i)]ᵀ``, ``w [G, N, K]``: the dx of :func:`gmm_train`).  On the card
-  the float modes take bf16 rows and weights.  The TPU
-  kernel's tile arguments (``tm``/``tk``/``tn``) and its tile schedule
-  (``make_gmm_metadata``) are TPU schedule, not semantics: the CUDA kernel
-  finds its groups from the offsets and picks its own tiles.
+- :func:`grouped_matmul` (K8a, ``csrc/grouped_matmul.cu``) takes every mode
+  of JAX's: int8 rows and weights with the epilogues ``none`` (the exact
+  int32 sums, f32 out), ``dequant`` (``acc * scale_x[row] * scale_w[g,
+  col]``, bf16 out), ``dequant_swiglu`` (then SwiGLU on the gate / up
+  packing of pack width ``tn``, bf16 out) and ``dequant_swiglu_quant``
+  (SwiGLU on the full-width packing, then a per-row int8 requant; rows past
+  the total get scale 0), each to ``out_dtype``; float rows and weights with
+  ``none``, which it hands to :func:`grouped_matmul_float` (``out[i] = x[i] @
+  w[g(i)]``, ``w [G, K, N]``) or, with ``rhs_contract_last``,
+  :func:`grouped_matmul_dx` (``out[i] = x[i] @ w[g(i)]ᵀ``, ``w [G, N, K]``:
+  the dx of :func:`gmm_train`); and ``dispatch_p`` with any of them: ``x``
+  is then the unsorted token array and each sorted row is ``P @ x``
+  (:func:`dispatch_onehot` builds P).  On the card the float modes take bf16
+  rows and weights, float rows into a dequant epilogue raise (ROADMAP §C),
+  a ``dispatch_p`` whose rows are not one-hot or zero raises, and the
+  kernels write f32, bf16 or f16.  The TPU kernel's ``tm`` / ``tk``
+  and its tile schedule (``make_gmm_metadata``) are TPU schedule, not
+  semantics: the CUDA kernel finds its groups from the offsets and picks its
+  own tiles.  So is ``tn``, except in ``dequant_swiglu``, where it is the
+  pack width of the weights (:func:`pack_gmm1_weights`): there ``tn`` None
+  takes JAX's default, :func:`select_gmm_tiles`'s width.
+- :func:`grouped_matmul_combine` (K8b) is the W8A8 GMM2 with the weighted
+  top-k combine as a product of the bf16 hi / lo split of the f32 combine
+  mask with the bf16-rounded expert rows.
 - :func:`gmm_train` is the differentiable grouped matmul (JAX's
   ``custom_vjp``): forward on ``none``, dx on ``rhs_contract_last``, dw a loop
   of ``torch.matmul`` over the groups, as JAX leaves dw to XLA's
   ``ragged_dot_general``.
-- Not ported yet (ROADMAP queue B): the float epilogue ``dequant_swiglu``,
-  ``dispatch_p``, ``dequant`` to f32, and ``grouped_matmul_combine`` (K8b).
 """
 
 from __future__ import annotations
@@ -33,11 +42,13 @@ import torch
 from sgl_kernel_npu_tpu_torch.ops.quant import row_scale, saturate_int8
 from sgl_kernel_npu_tpu_torch.utils import cuda_lib
 from sgl_kernel_npu_tpu_torch.utils.common import on_cuda
-from sgl_kernel_npu_tpu_torch.utils.counters import counted
+from sgl_kernel_npu_tpu_torch.utils.counters import counted, launched
 
 EPILOGUES = ("none", "dequant", "dequant_swiglu", "dequant_swiglu_quant")
-PORTED_EPILOGUES = ("none", "dequant", "dequant_swiglu_quant")
 TILE_M = 64   # sorted rows per work item of the CUDA kernel (csrc/grouped_matmul.cu BM)
+_OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}   # csrc OutKind
+_P_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}        # dispatch_rows
+_EPI = {"dequant": 0, "none": 0, "dequant_swiglu_quant": 1, "dequant_swiglu": 2}
 
 
 def _offsets(group_sizes: torch.Tensor) -> torch.Tensor:
@@ -45,6 +56,12 @@ def _offsets(group_sizes: torch.Tensor) -> torch.Tensor:
     off = torch.zeros(group_sizes.shape[0] + 1, dtype=torch.int32, device=group_sizes.device)
     off[1:] = torch.cumsum(group_sizes.to(torch.int32), 0)
     return off
+
+
+def _tile_offsets(group_sizes: torch.Tensor) -> torch.Tensor:
+    """``[G + 1]`` prefix sums of each group's 64-row work items."""
+    return _offsets(torch.div(group_sizes.to(torch.int32) + TILE_M - 1, TILE_M,
+                              rounding_mode="floor"))
 
 
 def _row_groups(group_sizes: torch.Tensor, num_rows: int) -> torch.Tensor:
@@ -63,6 +80,57 @@ def _group_slices(group_sizes: torch.Tensor):
         start += size
 
 
+def dispatch_onehot(tok_of_row: torch.Tensor, n_tok: int, dtype=torch.int8) -> torch.Tensor:
+    """One-hot ``[S, n_tok]`` row → token matrix for ``dispatch_p``: row r
+    has its 1 at column ``tok_of_row[r]`` (none for an id outside ``[0,
+    n_tok)``)."""
+    tok = torch.arange(n_tok, dtype=torch.int32, device=tok_of_row.device)
+    return (tok_of_row[:, None] == tok[None, :]).to(dtype)
+
+
+def select_gmm_tiles(s: int, k: int, n: int, in_dtype, *, num_groups: int = 8,
+                     out_esize: int = 2, vmem_budget: int = 12 * 2**20) -> tuple[int, int, int]:
+    """JAX's analytic tile selector (a traffic model under a TPU VMEM
+    budget), kept for one reason: its ``tn`` is the default pack width of
+    ``dequant_swiglu`` when the caller gives none, which is semantics."""
+    esize = torch.empty((), dtype=in_dtype).element_size()
+    best = (min(128, max(8, s)), min(128, k), min(128, n))
+    best_cost = (float("inf"), 0, 0)
+    for tm in (128, 256, 512):
+        if tm > max(128, s):
+            continue
+        steps = max(-(-s // tm), num_groups)
+        for tk in (256, 512, 1024, 2048):
+            if k % tk or tk > k:
+                continue
+            for tn in (256, 512, 1024, 2048):
+                if n % tn or tn > n:
+                    continue
+                vmem = 2 * (tm * tk + tk * tn) * esize + tm * tn * 4 + 2 * tm * tn * out_esize
+                if vmem > vmem_budget:
+                    continue
+                traffic = (steps * k * n * esize + steps * (n // tn) * tm * k * esize
+                           + steps * tm * n * out_esize)
+                cost = (traffic, -tk, -tn)
+                if cost < best_cost:
+                    best, best_cost = (tm, tk, tn), cost
+    return best
+
+
+def _pack_width(x, w, s, out_dtype, tn) -> int:
+    """``dequant_swiglu``'s gate / up pack width: ``tn`` (JAX's default when
+    None), at most N."""
+    n = w.shape[2]
+    if tn is None:
+        esize = torch.empty((), dtype=out_dtype or torch.float32).element_size()
+        tn = select_gmm_tiles(s, x.shape[1], n, x.dtype, num_groups=w.shape[0],
+                              out_esize=esize)[2]
+    tn = min(tn, n)
+    if n % tn or tn % 2:
+        raise ValueError(f"dequant_swiglu's pack width {tn} must be even and divide N = {n}")
+    return tn
+
+
 def grouped_matmul_ref(x, w, group_sizes):
     """``out[i] = x[i] @ w[g(i)]`` in f32 with rows grouped contiguously (the
     golden, JAX's ``ragged_dot``); rows past the total are zeros.  Integer
@@ -79,12 +147,15 @@ def grouped_matmul_float_plain(x, w, group_sizes, *, rhs_contract_last: bool = F
     """The plain version of the float modes: per group, the f32 product of
     the rows and the weights (``w [G, K, N]``, or ``[G, N, K]`` contracted on
     its last dim with ``rhs_contract_last``), each input rounded to its own
-    type and then taken to f32; rows past the groups' total are zeros."""
+    type and then taken to f32; rows past the groups' total are zeros.  Two
+    int8 inputs are summed exactly (in float64), then rounded to f32."""
     n = w.shape[1] if rhs_contract_last else w.shape[2]
+    exact = x.dtype == torch.int8 and w.dtype == torch.int8
+    wide = torch.float64 if exact else torch.float32
     out = torch.zeros((x.shape[0], n), dtype=torch.float32, device=x.device)
     for g, rs in _group_slices(group_sizes):
-        wg = w[g].float()
-        out[rs] = x[rs].float() @ (wg.T if rhs_contract_last else wg)
+        wg = w[g].to(wide)
+        out[rs] = (x[rs].to(wide) @ (wg.T if rhs_contract_last else wg)).float()
     return out
 
 
@@ -108,6 +179,16 @@ def swiglu_block(acc: torch.Tensor) -> torch.Tensor:
     return gate * torch.sigmoid(gate) * up
 
 
+def swiglu_packed(y: torch.Tensor, tn: int) -> torch.Tensor:
+    """SwiGLU of ``y [rows, N]`` packed by :func:`pack_gmm1_weights` at
+    width ``tn``: each ``tn``-wide slab ``[gate tn/2 | up tn/2]`` gives
+    ``tn/2`` output columns (:func:`swiglu_block` of each slab)."""
+    rows, n = y.shape
+    slabs = y.reshape(rows, n // tn, 2, tn // 2)
+    gate, up = slabs[:, :, 0], slabs[:, :, 1]
+    return (gate * torch.sigmoid(gate) * up).reshape(rows, n // 2)
+
+
 def swiglu_requant_ref(y: torch.Tensor, live: torch.Tensor):
     """SwiGLU of the dequantized ``y [rows, gate ‖ up]``, then the per-row int8
     requant: scale ``max(amax / 127, 1e-12)`` by true division, round half to
@@ -118,107 +199,180 @@ def swiglu_requant_ref(y: torch.Tensor, live: torch.Tensor):
     return torch.where(live[:, None], q, 0).to(torch.int8), torch.where(live, scale, 0.0)
 
 
-def grouped_matmul_plain(x, w, group_sizes, scale_x, scale_w, *, epilogue):
-    """The plain version of :func:`grouped_matmul` (its ported modes):
-    :func:`gmm_dequant_ref`, then the bf16 cast (``dequant``) or
-    :func:`swiglu_requant_ref` (``dequant_swiglu_quant``)."""
-    y = gmm_dequant_ref(x, w, group_sizes, scale_x.float(), scale_w.float())
-    if epilogue == "dequant":
-        return y.to(torch.bfloat16)
-    live = torch.arange(x.shape[0], device=x.device) < group_sizes.sum()
-    return swiglu_requant_ref(y, live)
+def dispatch_plain(x: torch.Tensor, dispatch_p: torch.Tensor) -> torch.Tensor:
+    """The sorted rows ``P @ x`` as JAX's kernel forms them: int8 tokens by
+    exact integer sums cast to int8 (a two's-complement wrap, as int32 →
+    int8), float tokens by f32 sums cast to x's type."""
+    if x.dtype == torch.int8:
+        return (dispatch_p.double() @ x.double()).to(torch.int64).to(torch.int8)
+    return (dispatch_p.float() @ x.float()).to(x.dtype)
 
 
-def _check_modes(x, w, epilogue, out_dtype, dispatch_p, rhs_contract_last) -> None:
+def grouped_matmul_plain(x, w, group_sizes, scale_x=None, scale_w=None, *, epilogue="none",
+                         tn=None, out_dtype=None, dispatch_p=None, rhs_contract_last=False):
+    """The plain version of :func:`grouped_matmul`, every mode: the sorted
+    rows (:func:`dispatch_plain` with ``dispatch_p``), their grouped product
+    (:func:`grouped_matmul_float_plain`: exact for int8), then JAX's
+    epilogue: ``* scale_x[row] * scale_w[g]`` (ones where None), SwiGLU by
+    slabs of the pack width (:func:`swiglu_packed`), or
+    :func:`swiglu_requant_ref`; rows past the total zero."""
+    _check_modes(epilogue, rhs_contract_last)
+    rows = x if dispatch_p is None else dispatch_plain(x, dispatch_p)
+    acc = grouped_matmul_float_plain(rows, w, group_sizes, rhs_contract_last=rhs_contract_last)
+    if epilogue == "none":
+        return acc.to(out_dtype or torch.float32)
+    s, n = acc.shape
+    live = torch.arange(s, device=acc.device) < group_sizes.sum()
+    sx = torch.ones(s, device=acc.device) if scale_x is None else scale_x.float()
+    sw = torch.ones((w.shape[0], n), device=acc.device) if scale_w is None else scale_w.float()
+    y = acc * sx[:, None] * sw[_row_groups(group_sizes, s)]
+    y = torch.where(live[:, None], y, 0.0)
+    if epilogue == "dequant_swiglu_quant":
+        return swiglu_requant_ref(y, live)
+    if epilogue == "dequant_swiglu":
+        y = swiglu_packed(y, _pack_width(x, w, s, out_dtype, tn))
+    return y.to(out_dtype or torch.bfloat16)
+
+
+def _check_modes(epilogue, rhs_contract_last) -> None:
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
-    if epilogue not in PORTED_EPILOGUES:
-        raise NotImplementedError(
-            f"grouped_matmul epilogue {epilogue!r} (the float SwiGLU of tile-packed gate / up) "
-            "is not ported yet (ROADMAP queue B, K8a)")
-    if dispatch_p is not None:
-        raise NotImplementedError("grouped_matmul with dispatch_p (the in-kernel one-hot "
-                                  "dispatch) is not ported yet (ROADMAP queue B, K8a)")
     if rhs_contract_last and epilogue != "none":
         raise ValueError("rhs_contract_last takes the epilogue 'none' only, as in JAX")
-    if epilogue == "none":
-        if not (x.dtype.is_floating_point and w.dtype.is_floating_point):
-            raise NotImplementedError(
-                f"grouped_matmul 'none' on {x.dtype} rows and {w.dtype} weights (integer "
-                "products to f32) is not ported yet (ROADMAP queue B, K8a)")
-        if out_dtype not in (None, torch.float32):
-            raise NotImplementedError(f"grouped_matmul 'none' to {out_dtype}: the port writes "
-                                      "f32 only (ROADMAP queue B, K8a)")
-        return
-    if x.dtype != torch.int8 or w.dtype != torch.int8:
-        raise NotImplementedError(
-            f"grouped_matmul {epilogue!r} takes int8 rows and weights in the port; float "
-            f"input ({x.dtype}, {w.dtype}) is not ported yet (ROADMAP queue B, K8a)")
-    if epilogue == "dequant" and out_dtype not in (None, torch.bfloat16):
-        raise NotImplementedError(f"grouped_matmul 'dequant' to {out_dtype}: the port writes "
-                                  "bf16 only (ROADMAP queue B, K8a)")
 
 
-@counted
+def _ptr(t):
+    """A launch argument: the tensor's device pointer, or NULL for None."""
+    return None if t is None else t.data_ptr()
+
+
+def _out_kind(what: str, dtype) -> int:
+    if dtype not in _OUT_KIND:
+        raise ValueError(f"{what} writes f32, bf16 or f16 on the card, not {dtype}")
+    return _OUT_KIND[dtype]
+
+
+def _dispatch_args(what: str, x, dispatch_p, s: int):
+    """``(p, n_tok, p_kind, xrow scratch, bad count)`` of a launch (Nones
+    without P)."""
+    if dispatch_p is None:
+        return None, 0, 0, None, None
+    if (dispatch_p.dim() != 2 or dispatch_p.shape != (s, x.shape[0])
+            or dispatch_p.dtype not in _P_KIND):
+        raise ValueError(f"{what}: dispatch_p must be [S, n_tok] = [{s}, {x.shape[0]}] of int8, "
+                         f"bf16 or f32, got {dispatch_p.dtype} {tuple(dispatch_p.shape)}")
+    p = dispatch_p.contiguous()
+    xrow = torch.empty(s, dtype=torch.int32, device=x.device)
+    bad = torch.empty(1, dtype=torch.int32, device=x.device)
+    return p, x.shape[0], _P_KIND[p.dtype], xrow, bad
+
+
+def _check_one_hot(what: str, bad) -> None:
+    """Refuse a ``dispatch_p`` the card's prologue cannot take: it finds each
+    row's token instead of multiplying, so a row of P must be one-hot (a
+    single 1) or zero.  Reads the prologue's count (one device sync a call
+    with P)."""
+    if bad is not None and int(bad.item()):
+        raise ValueError(f"{what}: {int(bad.item())} rows of dispatch_p are neither one-hot nor "
+                         "zero; the card takes a one-hot P only (the plain version takes any P, "
+                         "ROADMAP §C)")
+
+
+@counted(modes=("dequant", "dequant_f32", "dequant_swiglu", "dequant_swiglu_quant",
+                "none_int8", "dispatch_p"))
 def grouped_matmul(x, w, group_sizes, scale_x=None, scale_w=None, *, epilogue="none",
-                   out_dtype=None, dispatch_p=None, rhs_contract_last=False):
-    """Ragged grouped GEMM with a fused epilogue (K8a).
+                   tn=None, out_dtype=None, dispatch_p=None, rhs_contract_last=False):
+    """Ragged grouped GEMM with a fused epilogue (K8a), JAX's signature.
 
-    ``x [S, K]`` rows grouped contiguously by expert, ``w [G, K, N]``,
-    ``group_sizes [G]``.  ``none`` (float rows and weights, no scales) → f32
-    ``[S, N]`` through :func:`grouped_matmul_float`, or with
-    ``rhs_contract_last`` (``w [G, N, K]``) :func:`grouped_matmul_dx`; those
-    count their own launches.  W8A8 (int8 rows and weights, ``scale_x
-    [S]``, ``scale_w [G, N]``): ``dequant`` → bf16 ``[S, N]``;
-    ``dequant_swiglu_quant`` (gate ‖ up at full width, ``N = 2I``) → ``(int8
-    [S, I], f32 scale [S])``.  CUDA tensors launch
-    ``csrc/grouped_matmul.cu``; CPU tensors take :func:`grouped_matmul_plain`."""
-    _check_modes(x, w, epilogue, out_dtype, dispatch_p, rhs_contract_last)
-    if epilogue == "none":
+    ``x [S, K]`` rows grouped contiguously by expert (with ``dispatch_p [S,
+    n_tok]``: the unsorted tokens ``[n_tok, K]``), ``w [G, K, N]`` (``[G, N,
+    K]`` with ``rhs_contract_last``), ``group_sizes [G]``, ``scale_x [S]`` and
+    ``scale_w [G, N]`` (the dequant epilogues; ones where None).  ``none`` →
+    ``[S, N]`` f32; ``dequant`` → bf16 ``[S, N]``; ``dequant_swiglu`` → bf16
+    ``[S, N / 2]`` from weights packed at width ``tn``;
+    ``dequant_swiglu_quant`` → ``(int8 [S, N / 2], f32 scale [S])``;
+    ``out_dtype`` overrides the output type.  Float rows and weights with
+    ``none`` go to :func:`grouped_matmul_float` / :func:`grouped_matmul_dx`,
+    which count their own launches.  JAX's ``tm`` / ``tk`` are TPU schedule
+    and not taken, nor is ``tn`` outside ``dequant_swiglu``.  On the card a
+    row of ``dispatch_p`` must be one-hot or zero (else ``ValueError``).
+    CUDA tensors launch ``csrc/grouped_matmul.cu``; CPU tensors take
+    :func:`grouped_matmul_plain`."""
+    _check_modes(epilogue, rhs_contract_last)
+    float_rows = x.dtype.is_floating_point
+    if epilogue == "none" and float_rows and w.dtype.is_floating_point:
         return (grouped_matmul_dx if rhs_contract_last else grouped_matmul_float)(
-            x, w, group_sizes)
-    if not on_cuda(x, w, group_sizes, scale_x, scale_w):
-        return grouped_matmul_plain(x, w, group_sizes, scale_x, scale_w, epilogue=epilogue)
-    s, k = x.shape
+            x, w, group_sizes, out_dtype=out_dtype, dispatch_p=dispatch_p)
+    args = (x, w, group_sizes, scale_x, scale_w)
+    kw = dict(epilogue=epilogue, tn=tn, out_dtype=out_dtype, dispatch_p=dispatch_p,
+              rhs_contract_last=rhs_contract_last)
+    if not on_cuda(*(t for t in (*args, dispatch_p) if t is not None)):
+        return grouped_matmul_plain(*args, **kw)
+    if float_rows:
+        raise NotImplementedError(
+            f"grouped_matmul {epilogue!r} on {x.dtype} rows runs on the plain path only: the "
+            "card's kernel takes int8 rows into an epilogue (ROADMAP §C)")
+    if rhs_contract_last:             # the int8 tile reads [K, N]: one transposed copy
+        w = w.transpose(1, 2)
+    s = x.shape[0] if dispatch_p is None else dispatch_p.shape[0]
+    k = x.shape[1]
     g, k_w, n = w.shape
-    swiglu = epilogue == "dequant_swiglu_quant"
-    if (k_w != k or k % 16 or n % (32 if swiglu else 16) or not x.is_contiguous()
-            or not w.is_contiguous() or group_sizes.shape != (g,)):
-        raise ValueError(f"grouped_matmul shapes: x {tuple(x.shape)}, w {tuple(w.shape)}, "
-                         f"groups {tuple(group_sizes.shape)} (contiguous, K % 16 == 0, "
-                         "N % 16 == 0, I % 16 == 0)")
+    if (x.dtype != torch.int8 or w.dtype != torch.int8 or k_w != k or k % 16 or n % 16
+            or group_sizes.shape != (g,)):
+        raise ValueError(f"grouped_matmul takes int8 rows and weights with K % 16 == 0 and N % "
+                         f"16 == 0 on the card: x {x.dtype} {tuple(x.shape)}, w {w.dtype} "
+                         f"{tuple(w.shape)}, groups {tuple(group_sizes.shape)}")
     dev = x.device
-    sx, sw = scale_x.float().contiguous(), scale_w.float().contiguous()
-    if sx.shape != (s,) or sw.shape != (g, n):
-        raise ValueError(f"grouped_matmul scales: {tuple(sx.shape)}, {tuple(sw.shape)}")
-    offsets = _offsets(group_sizes)
-    tile_off = _offsets(torch.div(group_sizes.to(torch.int32) + TILE_M - 1, TILE_M,
-                                  rounding_mode="floor"))
-    lib = cuda_lib.load_library()
-    if swiglu:
+    sx = None if scale_x is None else scale_x.float().contiguous()
+    sw = None if scale_w is None else scale_w.float().contiguous()
+    if (sx is not None and sx.shape != (s,)) or (sw is not None and sw.shape != (g, n)):
+        raise ValueError(f"grouped_matmul scales: {None if sx is None else tuple(sx.shape)}, "
+                         f"{None if sw is None else tuple(sw.shape)}; want ({s},), ({g}, {n})")
+    swiglu = epilogue in ("dequant_swiglu", "dequant_swiglu_quant")
+    if epilogue == "none":
+        sx = sw = None                  # the kernel takes a NULL scale as 1
+    elif swiglu and sw is None:         # the SwiGLU tile reads its weight scales
+        sw = torch.ones((g, n), device=dev)
+    ht = n // 2
+    if epilogue == "dequant_swiglu":
+        ht = _pack_width(x, w, s, out_dtype, tn) // 2
+        if ht % 16:
+            raise ValueError(f"dequant_swiglu on the card needs a pack width divisible by 32, "
+                             f"got {2 * ht}")
+    p, n_tok, p_kind, xrow, bad = _dispatch_args("grouped_matmul", x, dispatch_p, s)
+    x, w = x.contiguous(), w.contiguous()
+    act = amax = hs = None
+    if epilogue == "dequant_swiglu_quant":
+        out = torch.empty((s, n // 2), dtype=torch.int8, device=dev)
         act = torch.empty((s, n // 2), dtype=torch.float32, device=dev)
         amax = torch.empty((s,), dtype=torch.int32, device=dev)
-        out = torch.empty((s, n // 2), dtype=torch.int8, device=dev)
-        scale = torch.empty((s,), dtype=torch.float32, device=dev)
-        rc = lib.grouped_matmul_swiglu_quant_launch(
-            x.data_ptr(), w.data_ptr(), offsets.data_ptr(), tile_off.data_ptr(), g, s, k, n,
-            sx.data_ptr(), sw.data_ptr(), act.data_ptr(), amax.data_ptr(), out.data_ptr(),
-            scale.data_ptr(), cuda_lib.stream_ptr(x))
-        result = out, scale
+        hs = torch.empty((s,), dtype=torch.float32, device=dev)
+        out_kind = 0
     else:
-        out = torch.empty((s, n), dtype=torch.bfloat16, device=dev)
-        rc = lib.grouped_matmul_dequant_launch(
-            x.data_ptr(), w.data_ptr(), offsets.data_ptr(), tile_off.data_ptr(), g, s, k, n,
-            sx.data_ptr(), sw.data_ptr(), out.data_ptr(), cuda_lib.stream_ptr(x))
-        result = out
-    cuda_lib.check(lib, rc, "grouped_matmul")
-    grouped_matmul.launches += 1
-    return result
+        dtype = out_dtype or (torch.float32 if epilogue == "none" else torch.bfloat16)
+        out_kind = _out_kind("grouped_matmul", dtype)
+        out = torch.empty((s, n // 2 if swiglu else n), dtype=dtype, device=dev)
+    offsets, tile_off = _offsets(group_sizes), _tile_offsets(group_sizes)
+    lib = cuda_lib.load_library()
+    cuda_lib.check(lib, lib.grouped_matmul_int8_launch(
+        x.data_ptr(), w.data_ptr(), offsets.data_ptr(), tile_off.data_ptr(), g, s, k, n, ht,
+        _EPI[epilogue], out_kind, _ptr(sx), _ptr(sw), _ptr(p), n_tok, p_kind, _ptr(xrow),
+        _ptr(bad), out.data_ptr(), _ptr(act), _ptr(amax), _ptr(hs), cuda_lib.stream_ptr(x)),
+        "grouped_matmul")
+    _check_one_hot("grouped_matmul", bad)
+    mode = epilogue
+    if epilogue == "none":
+        mode = "none_int8"
+    elif epilogue == "dequant" and out.dtype != torch.bfloat16:
+        mode = "dequant_f32"
+    launched(grouped_matmul, mode, *(("dispatch_p",) if p is not None else ()))
+    return (out, hs) if epilogue == "dequant_swiglu_quant" else out
 
 
-def _launch_float(x, w, group_sizes, contract_last: bool) -> torch.Tensor:
-    """Launch K8a's bf16 mode on ``x [S, K]`` and ``w`` (``[G, K, N]``, or
-    ``[G, N, K]`` with ``contract_last``) → f32 ``[S, N]``."""
+def _launch_float(x, w, group_sizes, contract_last: bool, out_dtype, dispatch_p):
+    """Launch K8a's bf16 mode on ``x [S, K]`` (with ``dispatch_p``: the
+    tokens) and ``w`` (``[G, K, N]``, or ``[G, N, K]`` with
+    ``contract_last``) → ``[S, N]`` in ``out_dtype`` (f32 by default)."""
     what = "grouped_matmul_dx" if contract_last else "grouped_matmul_float"
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise ValueError(f"{what} takes bf16 rows and weights on the card, got {x.dtype} and "
@@ -226,47 +380,135 @@ def _launch_float(x, w, group_sizes, contract_last: bool) -> torch.Tensor:
     if x.dim() != 2 or w.dim() != 3:
         raise ValueError(f"{what} takes x [S, K] and w [G, ., .], got {tuple(x.shape)} and "
                          f"{tuple(w.shape)}")
-    s, k = x.shape
+    k = x.shape[1]
+    s = x.shape[0] if dispatch_p is None else dispatch_p.shape[0]
     g = w.shape[0]
     n, k_w = (w.shape[1], w.shape[2]) if contract_last else (w.shape[2], w.shape[1])
     if (k_w != k or k % 8 or n % 8 or not x.is_contiguous() or not w.is_contiguous()
             or group_sizes.shape != (g,)):
         raise ValueError(f"{what} shapes: x {tuple(x.shape)}, w {tuple(w.shape)}, groups "
                          f"{tuple(group_sizes.shape)} (contiguous, K % 8 == 0, N % 8 == 0)")
-    out = torch.empty((s, n), dtype=torch.float32, device=x.device)
-    offsets = _offsets(group_sizes)
-    tile_off = _offsets(torch.div(group_sizes.to(torch.int32) + TILE_M - 1, TILE_M,
-                                  rounding_mode="floor"))
+    dtype = out_dtype or torch.float32
+    out_kind = _out_kind(what, dtype)
+    p, n_tok, p_kind, xrow, bad = _dispatch_args(what, x, dispatch_p, s)
+    out = torch.empty((s, n), dtype=dtype, device=x.device)
+    offsets, tile_off = _offsets(group_sizes), _tile_offsets(group_sizes)
     lib = cuda_lib.load_library()
     cuda_lib.check(lib, lib.grouped_matmul_bf16_launch(
         x.data_ptr(), w.data_ptr(), offsets.data_ptr(), tile_off.data_ptr(), g, s, k, n,
-        int(contract_last), out.data_ptr(), cuda_lib.stream_ptr(x)), what)
+        int(contract_last), out_kind, _ptr(p), n_tok, p_kind, _ptr(xrow), _ptr(bad),
+        out.data_ptr(), cuda_lib.stream_ptr(x)), what)
+    _check_one_hot(what, bad)
     return out
 
 
-@counted
-def grouped_matmul_float(x, w, group_sizes):
-    """K8a's ``none`` mode: ``out[i] = x[i] @ w[g(i)]`` in f32 for ``x [S, K]``
-    rows grouped contiguously by expert and ``w [G, K, N]``; rows past the
-    groups' total are zeros.  CUDA tensors (bf16) launch
+def _float_modes(out, dispatch_p) -> tuple:
+    return (*(("bf16_out",) if out.dtype != torch.float32 else ()),
+            *(("dispatch_p",) if dispatch_p is not None else ()))
+
+
+@counted(modes=("bf16_out", "dispatch_p"))
+def grouped_matmul_float(x, w, group_sizes, *, out_dtype=None, dispatch_p=None):
+    """K8a's ``none`` mode: ``out[i] = x[i] @ w[g(i)]`` (f32, or
+    ``out_dtype``) for ``x [S, K]`` rows grouped contiguously by expert (with
+    ``dispatch_p``: the tokens, each row ``P @ x``) and ``w [G, K, N]``; rows
+    past the groups' total are zeros.  CUDA tensors (bf16) launch
     ``csrc/grouped_matmul.cu``; CPU tensors take
     :func:`grouped_matmul_float_plain`."""
-    if not on_cuda(x, w, group_sizes):
-        return grouped_matmul_float_plain(x, w, group_sizes)
-    out = _launch_float(x, w, group_sizes, False)
-    grouped_matmul_float.launches += 1
+    if not on_cuda(x, w, group_sizes, *(() if dispatch_p is None else (dispatch_p,))):
+        rows = x if dispatch_p is None else dispatch_plain(x, dispatch_p)
+        return grouped_matmul_float_plain(rows, w, group_sizes).to(out_dtype or torch.float32)
+    out = _launch_float(x, w, group_sizes, False, out_dtype, dispatch_p)
+    launched(grouped_matmul_float, *_float_modes(out, dispatch_p))
     return out
 
 
-@counted
-def grouped_matmul_dx(x, w, group_sizes):
-    """K8a's ``rhs_contract_last`` mode: ``out[i] = x[i] @ w[g(i)]ᵀ`` in f32
-    for ``w [G, N, K]`` (read as stored: no transposed copy), the dx of
+@counted(modes=("bf16_out", "dispatch_p"))
+def grouped_matmul_dx(x, w, group_sizes, *, out_dtype=None, dispatch_p=None):
+    """K8a's ``rhs_contract_last`` mode: ``out[i] = x[i] @ w[g(i)]ᵀ`` for ``w
+    [G, N, K]`` (read as stored: no transposed copy), the dx of
     :func:`gmm_train`; otherwise as :func:`grouped_matmul_float`."""
-    if not on_cuda(x, w, group_sizes):
-        return grouped_matmul_float_plain(x, w, group_sizes, rhs_contract_last=True)
-    out = _launch_float(x, w, group_sizes, True)
-    grouped_matmul_dx.launches += 1
+    if not on_cuda(x, w, group_sizes, *(() if dispatch_p is None else (dispatch_p,))):
+        rows = x if dispatch_p is None else dispatch_plain(x, dispatch_p)
+        return grouped_matmul_float_plain(rows, w, group_sizes, rhs_contract_last=True).to(
+            out_dtype or torch.float32)
+    out = _launch_float(x, w, group_sizes, True, out_dtype, dispatch_p)
+    launched(grouped_matmul_dx, *_float_modes(out, dispatch_p))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K8b: the combine-fused grouped matmul
+# ---------------------------------------------------------------------------
+
+def combine_masks(dest: torch.Tensor, topk_w: torch.Tensor, rows: int):
+    """JAX's combine mask of the ``_gmm_moe`` branch: ``[n, rows]`` f32 with
+    each token's top-k weights at its sorted rows ``dest [n, k]``, split into
+    bf16 ``(hi, lo)`` with ``hi + lo`` the f32 mask to bf16 precision twice."""
+    n = dest.shape[0]
+    mask = torch.zeros((n, rows), dtype=torch.float32, device=dest.device)
+    mask.scatter_add_(1, dest.long(), topk_w.float())
+    hi = mask.to(torch.bfloat16)
+    return hi, (mask - hi.float()).to(torch.bfloat16)
+
+
+def grouped_matmul_combine_plain(x, w, group_sizes, scale_x, scale_w, combine_hi, combine_lo,
+                                 *, out_dtype=torch.float32):
+    """The plain version of :func:`grouped_matmul_combine`: ``d =
+    bf16(gmm_dequant_ref(...))`` with rows outside every group 0, then
+    ``hi @ d + lo @ d`` in f32 with the mask columns past the groups' total
+    0 (JAX masks each tile's columns to its group)."""
+    s = x.shape[0]
+    live = torch.arange(s, device=x.device) < group_sizes.sum()
+    d = gmm_dequant_ref(x, w, group_sizes, scale_x.float(), scale_w.float())
+    d = torch.where(live[:, None], d, 0.0).to(torch.bfloat16).float()
+    hi = torch.where(live[None, :], combine_hi.float(), 0.0)
+    lo = torch.where(live[None, :], combine_lo.float(), 0.0)
+    return (hi @ d + lo @ d).to(out_dtype)
+
+
+@counted
+def grouped_matmul_combine(x, w, group_sizes, scale_x, scale_w, combine_hi, combine_lo, *,
+                           out_dtype=torch.float32):
+    """W8A8 grouped matmul with the weighted top-k combine fused (K8b):
+    ``out [n_tok, N] = hi @ d + lo @ d`` with ``d[r] = bf16(x[r] @ w[g(r)] *
+    scale_x[r] * scale_w[g(r)])`` for the rows in a group (0 elsewhere).
+    ``x [S, K]`` int8 expert-sorted rows, ``w [G, K, N]`` int8, ``scale_x
+    [S]``, ``scale_w [G, N]``, ``combine_hi`` / ``combine_lo [n_tok, S]`` the
+    bf16 hi / lo split of the f32 weight mask (:func:`combine_masks`).
+    JAX's ``tm`` / ``tk`` / ``tn`` are TPU schedule and not taken.  CUDA
+    tensors launch ``csrc/grouped_matmul.cu``; CPU tensors take
+    :func:`grouped_matmul_combine_plain`."""
+    args = (x, w, group_sizes, scale_x, scale_w, combine_hi, combine_lo)
+    if not on_cuda(*args):
+        return grouped_matmul_combine_plain(*args, out_dtype=out_dtype)
+    s, k = x.shape
+    g, k_w, n = w.shape
+    n_tok = combine_hi.shape[0]
+    if (x.dtype != torch.int8 or w.dtype != torch.int8 or k_w != k or k % 16 or n % 16
+            or group_sizes.shape != (g,) or combine_hi.shape != (n_tok, s)
+            or combine_lo.shape != (n_tok, s) or combine_hi.dtype != torch.bfloat16
+            or combine_lo.dtype != torch.bfloat16):
+        raise ValueError(f"grouped_matmul_combine takes int8 x [S, K] and w [G, K, N] (K % 16 == "
+                         f"0, N % 16 == 0) and bf16 masks [n_tok, S]: x {x.dtype} "
+                         f"{tuple(x.shape)}, w {w.dtype} {tuple(w.shape)}, masks "
+                         f"{combine_hi.dtype} {tuple(combine_hi.shape)}")
+    dev = x.device
+    sx, sw = scale_x.float().contiguous(), scale_w.float().contiguous()
+    if sx.shape != (s,) or sw.shape != (g, n):
+        raise ValueError(f"grouped_matmul_combine scales: {tuple(sx.shape)}, {tuple(sw.shape)}")
+    x, w = x.contiguous(), w.contiguous()
+    hi, lo = combine_hi.contiguous(), combine_lo.contiguous()
+    offsets, tile_off = _offsets(group_sizes), _tile_offsets(group_sizes)
+    d = torch.empty((s, n), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((n_tok, n), dtype=out_dtype, device=dev)
+    lib = cuda_lib.load_library()
+    cuda_lib.check(lib, lib.grouped_matmul_combine_launch(
+        x.data_ptr(), w.data_ptr(), offsets.data_ptr(), tile_off.data_ptr(), g, s, k, n,
+        sx.data_ptr(), sw.data_ptr(), hi.data_ptr(), lo.data_ptr(), n_tok,
+        _out_kind("grouped_matmul_combine", out_dtype), d.data_ptr(), out.data_ptr(),
+        cuda_lib.stream_ptr(x)), "grouped_matmul_combine")
+    grouped_matmul_combine.launches += 1
     return out
 
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from sgl_kernel_npu_tpu_torch.config import EPConfig, check_backend, check_supported
 from sgl_kernel_npu_tpu_torch.parallel import ep_core, fused_full, fused_moe
@@ -55,10 +56,28 @@ class Buffer:
         self.num_local_experts = self.num_experts // self.group_size
 
     def _capacities(self, num_tokens: int, topk: int) -> tuple[int, int]:
+        """``(pair, seg)`` capacities of a call on ``num_tokens`` tokens a
+        rank.  Every rank must pass the same count: the exchanges and the
+        windows are sized from it (JAX's global arrays are sharded evenly).
+        On a group of more than one rank one all-reduce of ``[T, -T]`` checks
+        it, and every rank raises ``ValueError`` together on a mismatch."""
+        if self.group_size > 1:
+            self._check_equal_tokens(num_tokens)
         seg = max(self.config.num_max_dispatch_tokens_per_rank, num_tokens)
         pair = self.config.pair_capacity(num_tokens, topk, self.group_size,
                                          self.num_local_experts)
         return pair, seg
+
+    def _check_equal_tokens(self, num_tokens: int) -> None:
+        nccl = dist.get_backend(self.group) == "nccl"
+        dev = torch.device("cuda", torch.cuda.current_device()) if nccl else torch.device("cpu")
+        t = torch.tensor([num_tokens, -num_tokens], dtype=torch.int64, device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        most, least = int(t[0]), -int(t[1])
+        if most != least:
+            raise ValueError(f"the EP group's ranks pass unequal token counts ({least} to "
+                             f"{most}; this rank {num_tokens}): every rank must pass the same "
+                             "T, as JAX's evenly sharded global arrays do")
 
     def _local(self, w: torch.Tensor) -> torch.Tensor:
         """This rank's experts of ``w [E, ...]`` (a view)."""
@@ -169,18 +188,20 @@ class Buffer:
         ``single_kernel`` in one launch
         (:func:`~sgl_kernel_npu_tpu_torch.parallel.fused_full.fused_deep_moe_full_rank`,
         K16b; ``chunks`` and ``use_int8_dispatch`` apply to the unfused form
-        only, as in JAX).  ``w1 [E, H, 2I]`` int8 with gate ‖ up at full
-        width (``pack_tn`` narrower raises: ROADMAP queue B), ``w1_scale [E,
-        2I]``, ``w2 [E, I, H]``, ``w2_scale [E, H]``: the whole expert
-        tensors, each rank reading its slice.  ``gmm_tiles`` and
+        only, as in JAX).  ``w1 [E, H, 2I]`` int8 with gate / up packed at
+        width ``pack_tn`` (``moe_pack_tn``'s by default; narrower than 2I
+        runs K8a's ``dequant_swiglu`` and a requant, and ``single_kernel``
+        then raises: ROADMAP §C), ``w1_scale [E, 2I]``, ``w2 [E, I, H]``,
+        ``w2_scale [E, H]``: the whole expert tensors, each rank reading its
+        slice.  ``gmm_tiles`` and
         ``full_tiles`` (the TPU's tiles) are not taken.  ``plain`` runs the
         plain versions: the group's collective for the exchanges, K8a's or
         K16b's plain version.  Returns ``(combined [T, H] bf16, recv_count
         [E_local], num_dropped [])``."""
-        fused_moe.check_pack_width(w1.shape[-1], pack_tn)
         pair, seg = self._capacities(*topk_idx.shape)
         local = [self._local(w) for w in (w1, w1_scale, w2, w2_scale)]
         if single_kernel:
+            fused_moe.check_full_width(w1.shape[-1], pack_tn)
             return fused_full.fused_deep_moe_full_rank(
                 x, topk_idx, topk_weights, *local, group=self.group,
                 num_experts=self.num_experts, num_ranks=self.group_size, seg_capacity=seg,

@@ -19,8 +19,8 @@ alignment is a Mosaic rule); JAX's tile arguments (``tm``, ``tk1``,
 ``tn1``, ``tk2``, ``tn2``, ``tn3``), ``static_shapes``, ``phases``,
 ``debug_outputs``, ``collective_id`` and ``interpret`` describe a TPU
 schedule or its simulator and are not taken; the gate / up packing must be
-full width (``moe_pack_tn``; narrower packings need K8a's float
-``dequant_swiglu``, ROADMAP queue B); the weighted reduce keeps the f32
+full width (``moe_pack_tn``; a narrower packing runs unfused, on K8a's
+``dequant_swiglu``); the weighted reduce keeps the f32
 router weights where JAX splits them into bf16 hi + lo products.
 """
 

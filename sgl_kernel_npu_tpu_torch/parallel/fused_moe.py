@@ -22,19 +22,29 @@ from sgl_kernel_npu_tpu_torch.ops.grouped_matmul import (
     pack_gmm1_scales,
     pack_gmm1_weights,
 )
-from sgl_kernel_npu_tpu_torch.ops.quant import quant_per_channel, quant_per_token_ref
+from sgl_kernel_npu_tpu_torch.ops.quant import (
+    quant_per_channel,
+    quant_per_token,
+    quant_per_token_ref,
+)
 from sgl_kernel_npu_tpu_torch.parallel import ep_core
 from sgl_kernel_npu_tpu_torch.utils.common import cdiv
 
 
-def check_pack_width(n: int, pack_tn: int | None) -> None:
-    """Raise unless the gate / up packing of a GMM1 weight of ``n = 2I``
-    columns is full width, the packing the port's W8A8 MoE kernels read."""
-    tn = moe_pack_tn(n) if pack_tn is None else min(pack_tn, n)
+def pack_width(n: int, pack_tn: int | None) -> int:
+    """The gate / up pack width of a GMM1 weight of ``n = 2I`` columns:
+    ``pack_tn`` (at most ``n``), else ``moe_pack_tn``'s (JAX's rule)."""
+    return moe_pack_tn(n) if pack_tn is None else min(pack_tn, n)
+
+
+def check_full_width(n: int, pack_tn: int | None) -> None:
+    """Raise unless the packing is full width: the single-kernel MoE (K16b,
+    ``csrc/fused_full.cu``) pairs gate column j with up column I + j."""
+    tn = pack_width(n, pack_tn)
     if tn != n:
         raise NotImplementedError(
-            f"gate/up packing of width {tn} < {n} feeds grouped_matmul's float dequant_swiglu "
-            "epilogue (K8a), not ported yet (ROADMAP queue B)")
+            f"the single-kernel MoE (K16b) reads gate / up packed at full width {n}, not {tn}; "
+            "a narrower packing runs unfused (single_kernel=False; ROADMAP §C)")
 
 
 def fused_deep_moe_rank(x, topk_idx, topk_weights, w1, w1_scale, w2, w2_scale, *, group,
@@ -47,14 +57,15 @@ def fused_deep_moe_rank(x, topk_idx, topk_weights, w1, w1_scale, w2, w2_scale, *
     ``use_int8_dispatch``, else x's dtype and the per-token quant after
     arrival) → ``grouped_matmul`` ``dequant_swiglu_quant`` (K8a: GMM1,
     dequant, SwiGLU, per-row requant) → ``dequant`` (GMM2, bf16) → combine
-    on ``backend`` to bf16.  ``chunks > 1`` runs the token slices one after
-    another with the capacities divided (JAX's overlap of slices is XLA's
-    scheduling; here they run in order).  ``gmm_tiles`` is the TPU's tile
-    choice and is not taken; ``pack_tn`` must be the full width
-    (:func:`check_pack_width`).  ``plain`` runs K8a's plain version.
-    Returns ``(combined [T, H] bf16, group_sizes [E_local], num_dropped
-    [])``."""
-    check_pack_width(w1.shape[-1], pack_tn)
+    on ``backend`` to bf16.  A gate / up packing narrower than 2I
+    (``pack_tn``, :func:`pack_width`) runs GMM1 as K8a ``dequant_swiglu`` to
+    f32, the per-row requant on K5 (``quant_per_token``: the same formula,
+    true division), then K8a ``dequant``, as JAX's wide-N path.  ``chunks >
+    1`` runs the token slices one after another with the capacities divided
+    (JAX's overlap of slices is XLA's scheduling; here they run in order).
+    ``gmm_tiles`` is the TPU's tile choice and is not taken.  ``plain`` runs
+    the plain versions of K8a and K5.  Returns ``(combined [T, H] bf16,
+    group_sizes [E_local], num_dropped [])``."""
     common = dict(group=group, num_experts=num_experts, num_ranks=num_ranks,
                   use_int8_dispatch=use_int8_dispatch, backend=backend, plain=plain)
     if chunks > 1:
@@ -80,7 +91,13 @@ def fused_deep_moe_rank(x, topk_idx, topk_weights, w1, w1_scale, w2, w2_scale, *
         xs, sx = quant_per_token_ref(d["recv_x_sorted"])
     gs = d["group_sizes"]
     gm = grouped_matmul_plain if plain else grouped_matmul
-    q2, s2 = gm(xs, w1, gs, sx, w1_scale, epilogue="dequant_swiglu_quant")
+    tn = pack_width(w1.shape[-1], pack_tn)
+    if tn == w1.shape[-1]:
+        q2, s2 = gm(xs, w1, gs, sx, w1_scale, epilogue="dequant_swiglu_quant")
+    else:
+        h1 = gm(xs, w1, gs, sx, w1_scale, epilogue="dequant_swiglu", tn=tn,
+                out_dtype=torch.float32)
+        q2, s2 = (quant_per_token_ref if plain else quant_per_token)(h1)
     y = gm(q2, w2, gs, s2, w2_scale, epilogue="dequant")
     combined = ep_core.combine_ragged_core(
         y, topk_weights, d["handle"], group=group, num_ranks=num_ranks,
@@ -117,16 +134,14 @@ def fused_oai_moe_rank(x, topk_idx, topk_weights, w_gate_up, b_gate_up, w_down, 
     return combined, gs, d["num_dropped"]
 
 
-def quantize_expert_weights(w_gate, w_up, w_down):
-    """Float expert weights → the W8A8 layout of the ring GEMMs.
+def quantize_expert_weights(w_gate, w_up, w_down, tn: int | None = None):
+    """Float expert weights → the fused MoE's W8A8 layout.
 
     ``w_gate``/``w_up`` ``[E, H, I]``, ``w_down`` ``[E, I, H]`` → ``(w1 int8
-    [E, H, 2I], w1_scale [E, 2I], w2 int8 [E, I, H], w2_scale [E, H])``, gate ‖
-    up packed at full width (the JAX package's ``moe_pack_tn`` rule), which is
-    what the ring GEMMs' SwiGLU pairs up."""
-    n = 2 * w_gate.shape[-1]
-    check_pack_width(n, None)
-    tn = n
+    [E, H, 2I], w1_scale [E, 2I], w2 int8 [E, I, H], w2_scale [E, H])``, gate /
+    up packed in slabs of width ``tn`` (``moe_pack_tn``'s rule by default: full
+    width, what the ring GEMMs' SwiGLU pairs up), as JAX's."""
+    tn = moe_pack_tn(2 * w_gate.shape[-1]) if tn is None else tn
     qg, sg = quant_per_channel(w_gate, dim=1)     # [E, K, N]: per output channel
     qu, su = quant_per_channel(w_up, dim=1)
     qd, sd = quant_per_channel(w_down, dim=1)

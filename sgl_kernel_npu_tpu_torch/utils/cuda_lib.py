@@ -39,16 +39,15 @@ _SIGNATURES = {
     "lightning_indexer_prefill_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                          _I, _P],
     "gmm1_ring_launch": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                         _P, _P],
+                         _P, _P, _I, _P, _P],
     "gmm2_combine_ring_launch": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                                  _I, _I, _P, _P, _P],
     "quant_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "quant_per_token_launch": [_P, _I, _I, _I, _P, _P, _P],
     "swiglu_quant_launch": [_P, _I, _I, _I, _P, _I, _P, _P, _P],
-    "grouped_matmul_dequant_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "grouped_matmul_swiglu_quant_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                                           _P, _P, _P],
-    "grouped_matmul_bf16_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "grouped_matmul_int8_launch": [_P] * 4 + [_I] * 7 + [_P] * 3 + [_I, _I] + [_P] * 7,
+    "grouped_matmul_bf16_launch": [_P] * 4 + [_I] * 6 + [_P, _I, _I, _P, _P, _P, _P],
+    "grouped_matmul_combine_launch": [_P] * 4 + [_I] * 4 + [_P] * 4 + [_I, _I] + [_P] * 3,
     "rms_norm_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "add_rms_norm_launch": [_P] * 8 + [_I] * 6 + [_F, _P],
     "l1_norm_launch": [_P, _P, _I, _I, _I, _P],
@@ -67,6 +66,7 @@ _SIGNATURES = {
     "window_ipc_close": [_P],
     "a2a_launch": [_P, _I, _I, _U, _L, _P, _L, _L, _I, _L, _P, _P, _P, _P, _I, _L, _I, _P],
     "fused_full_launch": [_P, _P],
+    "fused_kernel_launch": [_P, _P],
 }
 
 _lib = None

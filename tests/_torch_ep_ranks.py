@@ -5,10 +5,13 @@ starts two of these processes).
 
 Reads ``inputs.pkl`` from the work directory, joins a two-rank gloo group
 through a ``FileStore`` there (no port of its own to pick; gloo's pair
-connections use the loopback), runs the port's ``Buffer`` methods (on the
-three transports; ``fused_deep_moe`` unfused and as K16b's plain version)
-and the expert-parallel ``train_forward`` on this rank's share of the
-inputs, and writes ``rank<r>.pkl``.  Imports torch and the port, never JAX.
+connections use the loopback), runs its task on this rank's share of the
+inputs and writes ``rank<r>.pkl``: by default the port's ``Buffer``
+methods (on the three transports; ``fused_deep_moe`` unfused and as K16b's
+plain version) and the expert-parallel ``train_forward``; ``"unequal"``
+the ``Buffer`` calls on unequal token counts; ``"fused_kernel"`` K16a's
+plain version and its routed wrapper.  Imports torch and the port, never
+JAX.
 """
 
 import pathlib
@@ -22,15 +25,75 @@ torch.set_num_threads(1)
 
 
 def main(work: pathlib.Path, rank: int) -> None:
+    inp = pickle.loads((work / "inputs.pkl").read_bytes())
+    dist.init_process_group("gloo", store=dist.FileStore(str(work / "store"), 2), rank=rank,
+                            world_size=2)
+    task = inp.get("task")
+    out = (unequal_tokens(rank) if task == "unequal" else
+           fused_kernel_task(inp, rank) if task == "fused_kernel" else buffer_task(inp, rank))
+    (work / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+    dist.destroy_process_group()
+
+
+def unequal_tokens(rank: int) -> dict:
+    """``Buffer.dispatch`` and ``Buffer.fused_deep_moe`` on 4 tokens (rank
+    0) and 6 (rank 1): the ``ValueError`` messages each call raised."""
+    from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer
+
+    t, h, e, i = 4 + 2 * rank, 128, 4, 64
+    x = torch.randn((t, h))
+    idx = torch.stack([torch.randperm(e)[:2] for _ in range(t)]).to(torch.int32)
+    w = torch.full((t, 2), 0.5)
+    wq = (torch.zeros((e, h, 2 * i), dtype=torch.int8), torch.ones((e, 2 * i)),
+          torch.zeros((e, i, h), dtype=torch.int8), torch.ones((e, h)))
+    buf = Buffer(None, num_experts=e)
+    errors = []
+    for call in (lambda: buf.dispatch(x, idx), lambda: buf.fused_deep_moe(x, idx, w, *wq)):
+        try:
+            call()
+        except ValueError as err:
+            errors.append(str(err))
+    return {"errors": errors}
+
+
+def fused_kernel_task(inp: dict, rank: int) -> dict:
+    """K16a's plain version on this rank's ``xsend`` and scales, then the
+    routed wrapper on this rank's half of the tokens."""
+    from sgl_kernel_npu_tpu_torch.parallel import fused_kernel
+    from sgl_kernel_npu_tpu_torch.parallel.ep_core import make_routing_plan
+
+    xs = torch.from_numpy(inp["xsend"][rank].copy())
+    w1, sw = torch.from_numpy(inp["w1"]), torch.from_numpy(inp["sw"])
+    out = fused_kernel.fused_dispatch_gmm1_rank(
+        xs, w1, sw, torch.from_numpy(inp["sx"][rank].copy()), num_ranks=2, seg=inp["seg"])
+    rt = inp["routed"]
+    t = rt["x"].shape[0] // 2
+    mine = slice(rank * t, (rank + 1) * t)
+    e_local = rt["e"] // 2
+    local = slice(rank * e_local, (rank + 1) * e_local)
+    idx = torch.from_numpy(rt["idx"][mine].copy())
+    r_out, counts, _ = fused_kernel.fused_dispatch_gmm1(
+        torch.from_numpy(rt["x"][mine].copy()), idx, torch.from_numpy(rt["w1"][local].copy()),
+        torch.from_numpy(rt["sw"][local].copy()), num_experts=rt["e"], num_ranks=2,
+        seg_capacity=rt["seg"])
+    sent = make_routing_plan(idx, num_experts=rt["e"], num_ranks=2, my_rank=rank,
+                             pair_capacity=e_local * rt["seg"],
+                             seg_capacity=rt["seg"]).counts_per_expert
+    received = sent.clone()
+    dist.all_reduce(received)
+    return {"out": out.float().numpy(), "routed_out": r_out.float().numpy(),
+            "routed_counts": counts.numpy(), "plan_counts": sent.numpy(),
+            "received": received[local].numpy()}
+
+
+def buffer_task(inp: dict, rank: int) -> dict:
+    """The ``Buffer`` methods and ``train_forward`` of the main test."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from sgl_kernel_npu_tpu_torch.config import EPConfig
     from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as tm
     from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer
 
-    inp = pickle.loads((work / "inputs.pkl").read_bytes())
-    dist.init_process_group("gloo", store=dist.FileStore(str(work / "store"), 2), rank=rank,
-                            world_size=2)
     t = inp["x"].shape[0] // 2
     mine = slice(rank * t, (rank + 1) * t)
 
@@ -73,8 +136,7 @@ def main(work: pathlib.Path, rank: int) -> None:
         out["step_refused"] = ""
     except NotImplementedError as e:
         out["step_refused"] = str(e)
-    (work / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
-    dist.destroy_process_group()
+    return out
 
 
 if __name__ == "__main__":

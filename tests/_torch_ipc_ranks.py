@@ -5,11 +5,12 @@
 
 Joins a two-rank gloo group through a ``FileStore`` in the work directory,
 makes the group's window (each process opens the other's by CUDA IPC), runs
-K15b (``pallas_ragged_all_to_all``) and K16b (``fused_deep_moe_full_rank``)
-on CUDA tensors, runs the same calls' plain versions on CPU copies over the
-same group, and prints ``ok`` when they agree (K15b bit-exact on the live
-rows and counts; K16b's counts and drops exact, its output within 1e-2 of a
-row's largest |value|).
+K15b (``pallas_ragged_all_to_all``), K16b (``fused_deep_moe_full_rank``) and
+K16a (``fused_dispatch_gmm1_rank``) on CUDA tensors, runs the same calls'
+plain versions on CPU copies over the same group, and prints ``ok`` when they
+agree (K15b bit-exact on the live rows and counts; K16b's counts and drops
+exact, its output within 1e-2 of a row's largest |value|; K16a within one
+bf16 ulp of each value).
 """
 
 import pathlib
@@ -20,7 +21,7 @@ import torch.distributed as dist
 
 
 def main(work: pathlib.Path, rank: int) -> None:
-    from sgl_kernel_npu_tpu_torch.parallel import fused_full
+    from sgl_kernel_npu_tpu_torch.parallel import fused_full, fused_kernel
     from sgl_kernel_npu_tpu_torch.parallel import pallas_a2a as pa
     from sgl_kernel_npu_tpu_torch.parallel.fused_moe import quantize_expert_weights
 
@@ -54,6 +55,23 @@ def main(work: pathlib.Path, rank: int) -> None:
     assert torch.equal(cnt.cpu(), wcnt) and int(drop) == int(wdrop) == 0
     err = (out.cpu().float() - ref.float()).abs().amax(-1) / ref.float().abs().amax(-1)
     assert float(err.max()) <= 1e-2, float(err.max())
+
+    # K16a: this rank's placed rows to both ranks' windows, ragged counts
+    seg, n = 16, 256
+    xsend = torch.randint(-40, 40, (2, 4 * seg, 256), generator=gen).to(torch.int8)
+    cnt = torch.randint(0, seg + 1, (2, 4), generator=gen).to(torch.int32)
+    live = torch.arange(seg)[None, None, :] < cnt[:, :, None]
+    xsend = torch.where(live.reshape(2, 4 * seg, 1), xsend, 0)
+    w1 = torch.randint(-40, 40, (4, 256, n), generator=wgen).to(torch.int8)
+    sw1 = torch.rand((4, n), generator=wgen) / 100
+    sx = torch.rand((4, 2 * seg), generator=gen) / 10 + 0.01
+    kw = dict(num_ranks=2, seg=seg)
+    got = fused_kernel.fused_dispatch_gmm1_rank(xsend.to(dev), w1.to(dev), sw1.to(dev),
+                                                sx.to(dev), counts=cnt.to(dev), **kw)
+    ref = fused_kernel.fused_dispatch_gmm1_rank(xsend, w1, sw1, sx, counts=cnt, **kw)
+    torch.cuda.synchronize()
+    rel = (got.cpu().float() - ref.float()).abs() / ref.float().abs().clamp_min(1e-30)
+    assert float(rel.max()) <= 2 ** -7, float(rel.max())
     print("ok", flush=True)
     dist.destroy_process_group()
 

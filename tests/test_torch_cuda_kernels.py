@@ -35,7 +35,13 @@ another order), dQ and dK 1e-2 of the tensor's largest |value| plus 1e-4
 (dS rounds to bf16 on both sides, and a rounding tie moved by an f32 ulp
 flips it; at S = 1 the true dQ is 0 and both sides are noise), a
 small DeepSeek-V3 training step through the kernels within 2e-2 of each
-gradient leaf's largest value of the plain step (bf16 end to end)."""
+gradient leaf's largest value of the plain step (bf16 end to end);
+``grouped_matmul``'s int8 ``none`` and ``dequant`` to f32 bit-equal (exact
+sums, the same f32 operations), ``dequant_swiglu`` 1e-5 of the largest |value|
+in f32 (the SiLU's exp) and one ulp in bf16, ``dispatch_p`` bit-equal to the
+gathered rows; ``grouped_matmul_combine`` 1e-5 of the largest |value|; K3 on
+float tokens bit-equal to K5 then K3; ``fused_dispatch_gmm1_rank`` within one
+bf16 ulp of each value."""
 
 import math
 
@@ -1462,3 +1468,254 @@ def test_two_processes_on_one_card(dev, tmp_path):
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-3000:]
         assert "ok" in log, log[-3000:]
+
+
+# --- K8a's remaining modes, K8b, K3 on float tokens, K16a -----------------------------
+
+_MODE_SIZES = [((0, 5, 0, 17, 1, 0, 40, 1), 80, 1024, 256), ((0, 1, 0, 0), 1, 256, 128),
+               ((3, 0, 70, 9), 100, 336, 160), ((130, 64, 65, 0, 200), 500, 512, 512)]
+
+
+def _int8_case(gen, dev, sizes, s, k, n):
+    g = len(sizes)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    x = torch.randint(-127, 128, (s, k), generator=gen, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (g, k, n), generator=gen, device=dev, dtype=torch.int8)
+    sx = torch.rand(s, generator=gen, device=dev) / 50 + 1e-3
+    sw = torch.rand((g, n), generator=gen, device=dev) / 500 + 1e-4
+    return x, w, gs, sx, sw
+
+
+@pytest.mark.parametrize("mode", ["none-f32", "none-bf16", "none-f16", "dequant-f32",
+                                  "dequant-f16", "swiglu-f32-full", "swiglu-bf16-tn64",
+                                  "swiglu-f32-tn32"])
+@pytest.mark.parametrize("sizes,s,k,i", _MODE_SIZES)
+def test_grouped_matmul_remaining_modes_kernel(dev, sizes, s, k, i, mode):
+    """K8a's int8 ``none`` (exact sums to f32 / bf16 / f16: bit-equal),
+    ``dequant`` to f32 / f16 (the same f32 operations: bit-equal) and
+    ``dequant_swiglu`` at
+    full width and at pack widths 64 / 32 (f32 within 1e-5 of the largest
+    |value|: the SiLU's exp; bf16 within one ulp) against the plain version;
+    rows past the total zero; one launch each, counted under its mode."""
+    gen = torch.Generator(device=dev).manual_seed(len(sizes) + s)
+    x, w, gs, sx, sw = _int8_case(gen, dev, sizes, s, k, 2 * i)
+    epi, dt, *tn = mode.split("-")
+    kw = {"epilogue": {"swiglu": "dequant_swiglu"}.get(epi, epi),
+          "out_dtype": {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}[dt]}
+    if tn:
+        kw["tn"] = 2 * i if tn[0] == "full" else int(tn[0][2:])
+    key = {"none": "none_int8", "dequant": "dequant_f32", "swiglu": "dequant_swiglu"}[epi]
+    before = grouped_matmul.grouped_matmul.modes[key]
+    got = grouped_matmul.grouped_matmul(x, w, gs, sx, sw, **kw)
+    want = grouped_matmul.grouped_matmul_plain(x, w, gs, sx, sw, **kw)
+    torch.cuda.synchronize()
+    assert grouped_matmul.grouped_matmul.modes[key] == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    total = sum(sizes)
+    assert not got[total:].any()
+    if epi in ("none", "dequant"):
+        assert torch.equal(got, want)
+    elif dt == "f32":
+        assert max_abs(got, want) <= 1e-5 * float(want.abs().max().clamp_min(1e-30))
+    else:
+        rel = (got.float() - want.float()).abs() / want.float().abs().clamp_min(1e-30)
+        assert float(rel[:total].max()) <= 2 ** -7 if total else True
+
+
+def max_abs(a, b):
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def test_grouped_matmul_int8_rhs_contract_last_kernel(dev):
+    """Int8 ``none`` with ``rhs_contract_last`` (``w [G, N, K]``) on the
+    card: bit-equal to the plain version (exact sums)."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x, w, gs, _, _ = _int8_case(gen, dev, (3, 0, 70, 9), 100, 336, 160)
+    wt = w.transpose(1, 2).contiguous()
+    got = grouped_matmul.grouped_matmul(x, wt, gs, rhs_contract_last=True)
+    want = grouped_matmul.grouped_matmul_plain(x, wt, gs, rhs_contract_last=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("epilogue", ["dequant_swiglu_quant", "dequant", "none"])
+@pytest.mark.parametrize("sizes,s,k,i", _MODE_SIZES[:3])
+def test_grouped_matmul_dispatch_p_kernel(dev, sizes, s, k, i, epilogue):
+    """``dispatch_p``: the one-hot P of ``dispatch_onehot`` (a pad id gives
+    a zero row) into K8a equals K8a on the gathered rows bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(s)
+    _, w, gs, sx, sw = _int8_case(gen, dev, sizes, s, k, 2 * i)
+    n_tok = 9
+    x = torch.randint(-127, 128, (n_tok, k), generator=gen, device=dev, dtype=torch.int8)
+    tok = torch.randint(0, n_tok + 1, (s,), generator=gen, device=dev, dtype=torch.int32)
+    p = grouped_matmul.dispatch_onehot(tok, n_tok)
+    gathered = torch.where((tok < n_tok)[:, None], x[tok.clamp(max=n_tok - 1).long()], 0)
+    before = grouped_matmul.grouped_matmul.modes["dispatch_p"]
+    got = grouped_matmul.grouped_matmul(x, w, gs, sx, sw, epilogue=epilogue, dispatch_p=p)
+    want = grouped_matmul.grouped_matmul(gathered.contiguous(), w, gs, sx, sw, epilogue=epilogue)
+    plain = grouped_matmul.grouped_matmul_plain(x, w, gs, sx, sw, epilogue=epilogue,
+                                                dispatch_p=p)
+    torch.cuda.synchronize()
+    assert grouped_matmul.grouped_matmul.modes["dispatch_p"] == before + 1
+    for a, b, c in zip(*(v if isinstance(v, tuple) else (v,) for v in (got, want, plain))):
+        assert torch.equal(a, b)
+        assert max_abs(a, c) <= (1 if a.dtype == torch.int8 else
+                                 2 ** -7 * float(c.float().abs().max().clamp_min(1e-30)))
+
+
+@pytest.mark.parametrize("contract_last", [False, True])
+def test_grouped_matmul_bf16_out_and_dispatch_kernel(dev, contract_last):
+    """K8a's bf16 modes to a bf16 and an f16 output (the f32 output rounded)
+    and with a bf16 ``dispatch_p`` (bit-equal to the gathered rows)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sizes, k, n, n_tok = (0, 40, 1, 0, 70), 96, 136, 20
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    s = sum(sizes) + 7
+    x = torch.randn((n_tok, k), generator=gen, device=dev).to(torch.bfloat16)
+    shape = (len(sizes), n, k) if contract_last else (len(sizes), k, n)
+    w = (torch.randn(shape, generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+    tok = torch.randint(0, n_tok, (s,), generator=gen, device=dev, dtype=torch.int32)
+    fn = grouped_matmul.grouped_matmul_dx if contract_last else grouped_matmul.grouped_matmul_float
+    rows = x[tok.long()].contiguous()
+    f32 = fn(rows, w, gs)
+    b16 = fn(rows, w, gs, out_dtype=torch.bfloat16)
+    f16 = fn(rows, w, gs, out_dtype=torch.float16)
+    disp = fn(x, w, gs, dispatch_p=grouped_matmul.dispatch_onehot(tok, n_tok, torch.bfloat16))
+    torch.cuda.synchronize()
+    assert b16.dtype == torch.bfloat16 and torch.equal(b16, f32.to(torch.bfloat16))
+    assert f16.dtype == torch.float16 and torch.equal(f16, f32.to(torch.float16))
+    assert torch.equal(disp, f32)
+
+
+@pytest.mark.parametrize("p_kind", ["two-nonzeros", "value-2", "bf16-value-half"])
+def test_grouped_matmul_dispatch_p_not_one_hot_raises_on_card(dev, p_kind):
+    """The card's ``dispatch_p`` prologue finds each row's token instead of
+    multiplying, so a P with a row that is neither one-hot nor zero raises
+    (the plain version computes ``P @ x`` for any P); a one-hot P with zero
+    rows passes."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    sizes, s, k, i = (3, 0, 5), 8, 64, 32
+    _, w, gs, sx, sw = _int8_case(gen, dev, sizes, s, k, 2 * i)
+    n_tok = 4
+    tok = torch.tensor([0, 1, 2, 3, 4, 0, 1, 4], dtype=torch.int32, device=dev)   # 4: zero rows
+    if p_kind.startswith("bf16"):
+        x = torch.randn((n_tok, k), generator=gen, device=dev).to(torch.bfloat16)
+        wb = torch.randn((len(sizes), k, 2 * i), generator=gen, device=dev).to(torch.bfloat16)
+        p = grouped_matmul.dispatch_onehot(tok, n_tok, torch.bfloat16)
+        grouped_matmul.grouped_matmul_float(x, wb, gs, dispatch_p=p)
+        p[2, 2] = 0.5
+        with pytest.raises(ValueError, match="one-hot"):
+            grouped_matmul.grouped_matmul_float(x, wb, gs, dispatch_p=p)
+        return
+    x = torch.randint(-127, 128, (n_tok, k), generator=gen, device=dev, dtype=torch.int8)
+    p = grouped_matmul.dispatch_onehot(tok, n_tok)
+    grouped_matmul.grouped_matmul(x, w, gs, sx, sw, epilogue="dequant", dispatch_p=p)
+    if p_kind == "two-nonzeros":
+        p[5, 3] = 1
+    else:
+        p[1, 1] = 2
+    with pytest.raises(ValueError, match="one-hot"):
+        grouped_matmul.grouped_matmul(x, w, gs, sx, sw, epilogue="dequant", dispatch_p=p)
+
+
+def test_grouped_matmul_float_rows_into_epilogue_raise_on_card(dev):
+    x = torch.zeros((4, 32), device=dev, dtype=torch.bfloat16)
+    w = torch.zeros((1, 32, 32), device=dev, dtype=torch.bfloat16)
+    gs = torch.tensor([4], dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        grouped_matmul.grouped_matmul(x, w, gs, torch.ones(4, device=dev),
+                                      torch.ones((1, 32), device=dev), epilogue="dequant")
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("sizes,s,n_tok", [((30, 26, 0, 40), 100, 24), ((0, 0, 7, 0), 9, 1),
+                                           ((64, 0, 130, 1), 260, 70), ((0, 0, 0, 0), 5, 3)])
+def test_grouped_matmul_combine_kernel(dev, sizes, s, n_tok, out_dtype):
+    """K8b against its plain version: empty groups, S % 64 != 0, rows past
+    the total (their mask columns weigh nothing), within 1e-5 of the largest
+    |value| (exact bf16 products summed in f32 in another order), plus one
+    ulp of each value in a bf16 / f16 output; one launch."""
+    gen = torch.Generator(device=dev).manual_seed(s)
+    k, n = 256, 384
+    x, w, gs, sx, sw = _int8_case(gen, dev, sizes, s, k, n)
+    mask = torch.rand((n_tok, s), generator=gen, device=dev)
+    mask = torch.where(torch.rand((n_tok, s), generator=gen, device=dev) < 0.1, mask, 0.0)
+    hi = mask.to(torch.bfloat16)
+    lo = (mask - hi.float()).to(torch.bfloat16)
+    before = grouped_matmul.grouped_matmul_combine.launches
+    got = grouped_matmul.grouped_matmul_combine(x, w, gs, sx, sw, hi, lo, out_dtype=out_dtype)
+    want = grouped_matmul.grouped_matmul_combine_plain(x, w, gs, sx, sw, hi, lo,
+                                                       out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert grouped_matmul.grouped_matmul_combine.launches == before + 1
+    assert got.shape == (n_tok, n) and got.dtype == out_dtype
+    ulp = {torch.float32: 0.0, torch.bfloat16: 2 ** -8, torch.float16: 2 ** -11}[out_dtype]
+    g, wv = got.float(), want.float()
+    excess = (g - wv).abs() - ulp * 2 * wv.abs() - 1e-5 * float(wv.abs().max().clamp_min(1e-30))
+    assert float(excess.max()) <= 0 if excess.numel() else True
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gmm1_ring_float_input_kernel(dev, dtype):
+    """K3 on float tokens: bit-equal to K5 (``quant_per_token``) then K3 on
+    the int8 tokens, a pad row included; counted under its mode."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g, k, n, n_tok = 8, 256, 512, 6
+    w1 = torch.randint(-127, 128, (g, k, n), generator=gen, device=dev, dtype=torch.int8)
+    s1 = torch.rand((g, n), generator=gen, device=dev) / 100
+    gsizes = torch.tensor([0, 2, 0, 0, 3, 0, 1, 0], dtype=torch.int32, device=dev)
+    tok = torch.tensor([0, 2, 1, 6, 5, 2], dtype=torch.int32, device=dev)   # 6 = pad (n_tok)
+    x = torch.randn((n_tok, k), generator=gen, device=dev).to(dtype)
+    before = gmm_ring.gmm1_ring.modes["float_x"]
+    h1, hs = gmm_ring.gmm1_ring(x, tok, w1, gsizes, None, s1)
+    xq, sx = quant.quant_per_token(x)
+    h1_q, hs_q = gmm_ring.gmm1_ring(xq, tok, w1, gsizes, sx, s1)
+    torch.cuda.synchronize()
+    assert gmm_ring.gmm1_ring.modes["float_x"] == before + 1
+    assert torch.equal(h1, h1_q) and torch.equal(hs, hs_q)
+
+
+@pytest.mark.parametrize("seg,counts", [(8, None), (70, [[0, 5, 70, 1]]), (8, [[8, 0, 3, 2]])])
+def test_fused_dispatch_gmm1_rank_kernel(dev, seg, counts):
+    """K16a on one rank (the window's own sends) against its plain version
+    within one bf16 ulp of each value (exact int sums, the same two f32
+    scale products); rows past a segment's count exactly 0; one launch."""
+    from sgl_kernel_npu_tpu_torch.parallel import fused_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(seg)
+    e, h, n = 4, 512, 256
+    xsend = torch.randint(-40, 40, (1, e * seg, h), generator=gen, device=dev, dtype=torch.int8)
+    cnt = None if counts is None else torch.tensor(counts, dtype=torch.int32, device=dev)
+    if cnt is not None:                    # the wrapper's placement: zeros past the counts
+        live = torch.arange(seg, device=dev)[None, :] < cnt.reshape(e, 1)
+        xsend = torch.where(live.reshape(1, e * seg, 1), xsend, 0)
+    w1 = torch.randint(-40, 40, (e, h, n), generator=gen, device=dev, dtype=torch.int8)
+    sw = torch.rand((e, n), generator=gen, device=dev) / 100
+    sx = torch.rand((e, seg), generator=gen, device=dev) / 10 + 0.01
+    kw = dict(group=_nccl_group(), num_ranks=1, seg=seg, counts=cnt)
+    before = fused_kernel.fused_dispatch_gmm1_rank.launches
+    got = fused_kernel.fused_dispatch_gmm1_rank(xsend, w1, sw, sx, **kw)
+    want = fused_kernel.fused_dispatch_gmm1_rank(xsend, w1, sw, sx, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert fused_kernel.fused_dispatch_gmm1_rank.launches == before + 1
+    rel = (got.float() - want.float()).abs() / want.float().abs().clamp_min(1e-30)
+    assert float(rel.max()) <= 2 ** -7
+    assert torch.equal(got == 0, want == 0)
+
+
+def test_fused_dispatch_gmm1_kernel_matches_plain(dev):
+    """The routed wrapper on one NCCL rank (32 experts, top-8, seg 16 so
+    that pairs drop): K5 and K16a against the plain path, outputs within one
+    bf16 ulp, counts exact."""
+    from sgl_kernel_npu_tpu_torch.parallel import fused_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x, idx, _, w = _deep_moe_inputs(gen, dev, 40, e=32, k=8)
+    idx[:, 0] = 3
+    kw = dict(group=_nccl_group(), num_experts=32, num_ranks=1, seg_capacity=16)
+    got, cnt, _ = fused_kernel.fused_dispatch_gmm1(x, idx, w[0], w[1], **kw)
+    want, wcnt, _ = fused_kernel.fused_dispatch_gmm1(x, idx, w[0], w[1], plain=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(cnt, wcnt) and int(cnt[3]) == 16
+    rel = (got.float() - want.float()).abs() / want.float().abs().clamp_min(1e-30)
+    assert float(rel.max()) <= 2 ** -7

@@ -15,15 +15,14 @@ import torch
 from _torch_parity import TwoRankMesh, jx, np32, port_config, tt
 from sgl_kernel_npu_tpu.models import deepseek_v3 as jm
 from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as tm
-from sgl_kernel_npu_tpu_torch.parallel.fused_moe import quantize_expert_weights
 
 PAGE = 16
 
 
-def _setup(scoring):
+def _setup(scoring, **fields):
     kw = (dict(router_scoring="sigmoid_v3", n_group=4, topk_group=2,
                routed_scaling_factor=2.5) if scoring == "sigmoid_v3" else {})
-    jcfg = jm.DeepSeekV3Config(num_layers=2, page_size=PAGE, vocab_size=64, **kw)
+    jcfg = jm.DeepSeekV3Config(num_layers=2, page_size=PAGE, vocab_size=64, **kw, **fields)
     tcfg = port_config(jcfg, tm.DeepSeekV3Config)
     params = jm.init_weights(jax.random.key(0), jcfg, jnp.float32)
     rng = np.random.default_rng(0)
@@ -102,6 +101,55 @@ def test_decode_then_prefill_match_jax(scoring):
     assert ("router_bias" in tparams["layers"][0]) == (scoring == "sigmoid_v3")
     _decode_then_prefill(jcfg, tcfg, params, tparams, rng, dict(moe_weights_q=moe_j),
                          dict(moe_weights_q=moe_t), _close)
+
+
+def test_decode_then_prefill_dispatch_branch_match_jax():
+    """At ``moe_intermediate=96`` the W8A8 MoE of every step (at most 512
+    tokens, 2I % 256 != 0) runs ``_gmm_moe``'s dispatch_p + K8b branch on
+    both sides.  Tolerances as above."""
+    jcfg, tcfg, params, moe_j, tparams, moe_t, rng = _setup("sigmoid_v3", moe_intermediate=96)
+    _decode_then_prefill(jcfg, tcfg, params, tparams, rng, dict(moe_weights_q=moe_j),
+                         dict(moe_weights_q=moe_t), _close)
+
+
+@pytest.mark.parametrize("n_tok", [8, 64])
+def test_gmm_moe_dispatch_branch_matches_jax(n_tok):
+    """``_gmm_moe`` at widths the ring GEMMs refuse (I 96): K8a with the
+    one-hot ``dispatch_p`` then K8b on the hi / lo combine masks, on the
+    same routing as JAX's; within 1e-2 of each row's largest value (int8
+    requant flips at a rounding tie)."""
+    cfg = jm.DeepSeekV3Config(num_layers=1, moe_intermediate=96)
+    rng = np.random.default_rng(5)
+    e, h, i = cfg.num_experts, cfg.hidden, cfg.moe_intermediate
+    ws = [(rng.standard_normal(s) * s[1] ** -0.5).astype(np.float32)
+          for s in ((e, h, i), (e, h, i), (e, i, h))]
+    moe_j = jm.quantize_moe_weights(cfg, {"layers": [dict(zip(("w_gate", "w_up", "w_down"),
+                                                              map(jx, ws)))]})[0]
+    moe_t = tuple(tt(np.asarray(a)) for a in moe_j)
+    x = rng.standard_normal((n_tok, h)).astype(np.float32)
+    idx = np.stack([rng.choice(e, cfg.topk, replace=False) for _ in range(n_tok)]).astype(np.int32)
+    topw = rng.random((n_tok, cfg.topk)).astype(np.float32)
+    want = np32(jm._gmm_moe(cfg, moe_j, jx(x), jx(idx), jx(topw)))
+    tcfg = port_config(cfg, tm.DeepSeekV3Config)
+    got = tm._gmm_moe(tcfg, moe_t, tt(x), tt(idx), tt(topw))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    err = np.abs(np32(got) - want).max(-1) / np.abs(want).max(-1)
+    assert err.max() <= 1e-2, err.max()
+    rows = tm._moe_rows(tt(x), tt(idx), e)
+    torch.testing.assert_close(tm._gmm_moe_dispatch(moe_t, rows, tt(topw)), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("tn", [64, 128, None])
+def test_quantize_moe_weights_pack_width_matches_jax(tn):
+    """``quantize_moe_weights(tn=...)`` packs gate / up in slabs of ``tn``
+    bit-equal to JAX's (None: ``moe_pack_tn``'s full width)."""
+    cfg = jm.DeepSeekV3Config(num_layers=1)
+    params = jm.init_weights(jax.random.key(2), cfg, jnp.float32)
+    want = jm.quantize_moe_weights(cfg, params, tn=tn)[0]
+    tparams, _, _, _ = tm.from_jax_params(jax.tree.map(np.asarray, params), device="cpu")
+    got = tm.quantize_moe_weights(port_config(cfg, tm.DeepSeekV3Config), tparams, tn=tn)[0]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 @pytest.mark.parametrize("mode", ["pallas_ragged", "xla", "eplb"])
@@ -257,38 +305,15 @@ def test_router_matches_jax():
 
 def test_unported_switches_raise():
     """What the port still leaves to the JAX package raises, naming ROADMAP:
-    the MoE of at most 512 tokens at widths the ring GEMMs do not take (K8b
-    and K8a's dispatch_p), K8a's float SwiGLU epilogue, its integer rows
-    without an epilogue, its outputs other than bf16 (W8A8) and f32 (float),
-    float rows into a W8A8 epilogue, the gradients of a mesh of more than one
-    rank (item 16), and gate/up packing narrower than 2I; K8a refuses
+    the gradients of a mesh of more than one rank (item 16); K8a refuses
     ``rhs_contract_last`` with an epilogue, as JAX asserts."""
     from sgl_kernel_npu_tpu_torch.ops.grouped_matmul import grouped_matmul
 
-    cfg = tm.DeepSeekV3Config(num_layers=1, moe_intermediate=96)   # 2I % 256 != 0
-    params = tm.init_weights(cfg, 0, device="cpu")
-    x = torch.zeros((8, cfg.hidden))
-    idx = torch.zeros((8, cfg.topk), dtype=torch.int32)
-    w = torch.ones((8, cfg.topk))
-    moe = tm.quantize_moe_weights(cfg, params)[0]
-    with pytest.raises(NotImplementedError, match="K8b"):
-        tm._gmm_moe(cfg, moe, x, idx, w)
+    cfg = tm.DeepSeekV3Config(num_layers=1)
     xq, gs = torch.zeros((8, 128), dtype=torch.int8), torch.tensor([8], dtype=torch.int32)
     wq = torch.zeros((1, 128, 256), dtype=torch.int8)
     sx, sw = torch.ones(8), torch.ones((1, 256))
-    for kw in (dict(epilogue="none"), dict(epilogue="dequant_swiglu"),
-               dict(epilogue="dequant", dispatch_p=torch.ones((8, 8), dtype=torch.int8)),
-               dict(epilogue="dequant", out_dtype=torch.float32)):
-        with pytest.raises(NotImplementedError, match="K8a"):
-            grouped_matmul(xq, wq, gs, sx, sw, **kw)
-    with pytest.raises(NotImplementedError, match="K8a"):       # float rows
-        grouped_matmul(xq.float(), wq, gs, sx, sw, epilogue="dequant")
-    with pytest.raises(NotImplementedError, match="K8a"):       # float 'none' to bf16
-        grouped_matmul(xq.float(), wq.float(), gs, out_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="rhs_contract_last"):
         grouped_matmul(xq, wq, gs, sx, sw, epilogue="dequant", rhs_contract_last=True)
     with pytest.raises(NotImplementedError, match="item 16"):
         tm.make_train_step(cfg, mesh=TwoRankMesh())
-    with pytest.raises(NotImplementedError, match="K8"):   # packing narrower than 2I
-        quantize_expert_weights(torch.zeros((1, 128, 8192)), torch.zeros((1, 128, 8192)),
-                                   torch.zeros((1, 8192, 128)))

@@ -177,3 +177,24 @@ def test_ep_engine_tokens_match_jax_ep_engine(model):
     got = ep.run(prompts, n_new)
     assert got == want
     assert got == _engine(model, max_batch=8).run(prompts, n_new)
+
+
+def test_engine_tokens_match_jax_engine_at_dispatch_widths():
+    """At ``moe_intermediate=96`` (2I % 256 != 0) every MoE call of at most
+    512 tokens takes ``_gmm_moe``'s dispatch_p + K8b branch on both sides:
+    the port's ``Engine`` emits the JAX engine's greedy tokens."""
+    from sgl_kernel_npu_tpu.runtime.engine import Engine as JEngine
+    from sgl_kernel_npu_tpu.runtime.engine import deepseek_adapter as jadapter
+
+    jcfg = jm.DeepSeekV3Config(num_layers=1, page_size=4, vocab_size=61, moe_intermediate=96)
+    params = jm.init_weights(jax.random.key(4), jcfg, jnp.float32)
+    moe_j = jm.quantize_moe_weights(jcfg, params)
+    tparams, moe_t, _, _ = tm.from_jax_params(jax.tree.map(np.asarray, params),
+                                              jax.tree.map(np.asarray, moe_j), device="cpu")
+    prompts, n_new = [PROMPT, [40, 41, 42, 43, 44]], 3
+    kw = dict(num_pages=64, max_batch=8, max_pages_per_req=16, prefill_chunk=8)
+    want = JEngine(jadapter(jcfg, params, moe_weights_q=moe_j), **kw).run(prompts, n_new)
+    got = Engine(deepseek_adapter(port_config(jcfg, tm.DeepSeekV3Config), tparams,
+                                  moe_weights_q=moe_t, device="cpu"),
+                 device="cpu", **kw).run(prompts, n_new)
+    assert got == want

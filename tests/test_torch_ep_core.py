@@ -192,9 +192,10 @@ def test_all_to_all_counts_and_differentiates(group):
 
 
 def test_unported_ep_switches_raise(group):
-    """What the port still leaves raises, naming ROADMAP item 16 (queue B
-    for a gate / up packing narrower than 2I); the one-sided transports and
-    the monitored exchange are ported (the window tests below)."""
+    """What the port still leaves raises, naming ROADMAP item 16 (§C for a
+    gate / up packing narrower than 2I into the single-kernel MoE); the
+    one-sided transports and the monitored exchange are ported (the window
+    tests below)."""
     for cfg in (EPConfig(validate_comm=True), EPConfig(normal_round_tokens=8)):
         with pytest.raises(NotImplementedError, match="item 16"):
             Buffer(group, num_experts=E, config=cfg)
@@ -214,10 +215,10 @@ def test_unported_ep_switches_raise(group):
         with pytest.raises(NotImplementedError, match="item 16"):
             call()
     w1 = torch.zeros((E, H, 2 * 64), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="queue B"):
+    with pytest.raises(NotImplementedError, match="K16b"):
         buf.fused_deep_moe(x, idx, torch.ones((4, K)), w1, torch.ones((E, 128)),
                            torch.zeros((E, 64, H), dtype=torch.int8), torch.ones((E, H)),
-                           pack_tn=64)
+                           pack_tn=64, single_kernel=True)
     with pytest.raises(ValueError, match="unknown comm backend"):
         buf.dispatch(x, idx, backend="nccl")
     with pytest.raises(ValueError, match="pallas_ragged"):
@@ -348,3 +349,21 @@ def test_eplb_matches_jax():
                                       jeplb.logical_load(m, place, E))
     with pytest.raises(ValueError, match="slots"):
         eplb.make_placement(load, 1, 4)
+
+
+def test_one_rank_buffer_runs_no_token_count_check(group, monkeypatch):
+    """The equal-token-count check is a collective only a group of more
+    than one rank needs: on one rank no ``Buffer`` entry point all-reduces
+    (the two-rank mismatch is in ``test_torch_ep_two_ranks.py``)."""
+    import torch.distributed as dist
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a one-rank Buffer ran an all-reduce")
+
+    monkeypatch.setattr(dist, "all_reduce", refuse)
+    buf = Buffer(group, num_experts=E)
+    x, idx = torch.randn((4, H)), torch.zeros((4, K), dtype=torch.int32)
+    xs, _, gs, handle, _ = buf.dispatch(x, idx)
+    buf.get_routing_plan(idx)
+    buf.combine(torch.zeros(xs.shape), torch.ones((4, K)), handle)
+    assert int(gs.sum()) == 4 * K

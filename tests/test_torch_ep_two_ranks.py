@@ -47,7 +47,8 @@ DEEP_E, DEEP_H, DEEP_I, DEEP_K = 8, 128, 64, 2
 HERE = pathlib.Path(__file__).resolve().parent
 
 
-def _run_ranks(work: pathlib.Path) -> list[dict]:
+def run_ranks(work: pathlib.Path) -> list[dict]:
+    """Start the two rank processes on ``work/inputs.pkl``; their outputs."""
     env = dict(os.environ, PYTHONPATH=str(HERE.parent), OMP_NUM_THREADS="1")
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")
     procs = [subprocess.Popen([sys.executable, str(HERE / "_torch_ep_ranks.py"), str(work),
@@ -118,7 +119,7 @@ def test_two_ranks_match_jax(tmp_path, mesh2):
                train_params=jax.tree.map(np.asarray, params), tokens=tokens)
     (tmp_path / "inputs.pkl").write_bytes(pickle.dumps(inp))
 
-    ranks = _run_ranks(tmp_path)
+    ranks = run_ranks(tmp_path)
     t = T2 // 2
     for r, got in enumerate(ranks):
         mine = slice(r * t, (r + 1) * t)
@@ -147,3 +148,15 @@ def test_two_ranks_match_jax(tmp_path, mesh2):
         assert abs(got["loss"] - loss) <= 1e-5 * abs(loss), (r, got["loss"], loss)
         assert "item 16" in got["step_refused"]
     assert int(want["dropping-int8"]["dropped"].sum()) > 0
+
+
+def test_unequal_token_counts_raise_on_both_ranks(tmp_path):
+    """Rank 0 passes 4 tokens and rank 1 passes 6 to ``Buffer.dispatch``
+    and to ``Buffer.fused_deep_moe``: the exchanges are sized from the
+    token count, so both ranks raise ``ValueError`` together (one
+    all-reduce of the counts), naming both extremes, instead of hanging."""
+    (tmp_path / "inputs.pkl").write_bytes(pickle.dumps({"task": "unequal"}))
+    for r, got in enumerate(run_ranks(tmp_path)):
+        assert len(got["errors"]) == 2, (r, got)
+        for msg in got["errors"]:
+            assert "4 to 6" in msg and f"this rank {4 + 2 * r}" in msg, msg

@@ -2,7 +2,8 @@
 (K16b's plain version), against JAX's on a one-device mesh.
 
 Widths as JAX's ``test_fused_full.py`` (H 128, I 64, the gate / up packing at
-full width); the JAX weights from its ``quantize_expert_weights`` go to both
+full width, and narrower: 64 and 32 columns, K8a's ``dequant_swiglu``); the JAX
+weights from its ``quantize_expert_weights`` go to both
 sides.  The port runs on a one-rank gloo group of this process
 (``_torch_parity.one_rank_group``).  Tolerances: the receive counts and the
 drops exact; the combined output within a relative mean difference of 4e-4
@@ -27,10 +28,10 @@ from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer
 H, I, E, T, K = 128, 64, 16, 8, 4
 
 
-def _weights(rng, e=E):
+def _weights(rng, e=E, tn=2 * I):
     wg, wu = ((rng.standard_normal((e, H, I)) * 0.05).astype(np.float32) for _ in range(2))
     wd = (rng.standard_normal((e, I, H)) * 0.05).astype(np.float32)
-    return [np.asarray(a) for a in jquant(jx(wg), jx(wu), jx(wd), tn=2 * I)]
+    return [np.asarray(a) for a in jquant(jx(wg), jx(wu), jx(wd), tn=tn)]
 
 
 def _inputs(rng, t=T, e=E, k=K, dead=0.0):
@@ -51,6 +52,9 @@ def mesh1():
 
 
 CASES = [("unfused", dict(), {}), ("unfused-chunks2", dict(chunks=2), {}),
+         ("unfused-narrow-packing", dict(pack_tn=64), {"tn": 64}),
+         ("unfused-narrow-packing-pallas-ragged", dict(pack_tn=32),
+          {"tn": 32, "backend": "pallas_ragged"}),
          ("unfused-float-wire", dict(use_int8_dispatch=False), {}),
          ("single-kernel", dict(single_kernel=True), {}),
          ("single-kernel-dead-slots", dict(single_kernel=True), {"dead": 0.3}),
@@ -61,7 +65,7 @@ CASES = [("unfused", dict(), {}), ("unfused-chunks2", dict(chunks=2), {}),
 @pytest.mark.parametrize("name,kw,opt", CASES, ids=[c[0] for c in CASES])
 def test_fused_deep_moe_matches_jax(mesh1, name, kw, opt):
     rng = np.random.default_rng(5)
-    w = _weights(rng)
+    w = _weights(rng, tn=opt.get("tn", 2 * I))
     x, idx, tw = _inputs(rng, dead=opt.get("dead", 0.0))
     cfg = dict(num_max_dispatch_tokens_per_rank=T)
     jbuf = JBuffer(mesh1, "ep", E, JEPConfig(**cfg))
@@ -94,13 +98,18 @@ def test_single_kernel_matches_unfused_with_drops():
     assert _rel_mean(got, want) < 4e-4
 
 
-def test_fused_deep_moe_refuses_narrow_packing():
-    """A gate / up packing narrower than 2I needs K8a's float dequant_swiglu
-    (ROADMAP queue B)."""
+def test_single_kernel_refuses_narrow_packing():
+    """K16b (``single_kernel=True``) reads gate / up at full width: a
+    narrower packing raises (ROADMAP §C), and the unfused form serves it
+    (the narrow-packing cases above), its plain switch equal to its own
+    plain path."""
     rng = np.random.default_rng(7)
-    w = [tt(a) for a in _weights(rng)]
+    w = [tt(a) for a in _weights(rng, tn=64)]
     x, idx, tw = (tt(a) for a in _inputs(rng))
     buf = Buffer(one_rank_group(), E)
-    for single in (False, True):
-        with pytest.raises(NotImplementedError, match="queue B"):
-            buf.fused_deep_moe(x, idx, tw, *w, pack_tn=64, single_kernel=single)
+    with pytest.raises(NotImplementedError, match="K16b"):
+        buf.fused_deep_moe(x, idx, tw, *w, pack_tn=64, single_kernel=True)
+    got = buf.fused_deep_moe(x, idx, tw, *w, pack_tn=64)
+    want = buf.fused_deep_moe(x, idx, tw, *w, pack_tn=64, plain=True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

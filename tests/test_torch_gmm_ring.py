@@ -1,4 +1,5 @@
-"""Port parity: the W8A8 ring GEMMs (K3 ``gmm1_ring``, K4 ``gmm2_combine_ring``).
+"""Port parity: the W8A8 ring GEMMs (K3 ``gmm1_ring``, on int8 and on float
+tokens, and K4 ``gmm2_combine_ring``).
 
 Mirrors tests/test_gmm_ring.py: the JAX kernels run in Pallas interpret mode,
 the port takes its plain path on CPU tensors.  Tolerances: int8 outputs
@@ -9,6 +10,7 @@ the port keeps f32."""
 
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import jx, np32, tt
 from sgl_kernel_npu_tpu.ops import gmm_ring as jring
@@ -16,6 +18,7 @@ from sgl_kernel_npu_tpu.ops.grouped_matmul import pack_gmm1_scales as jpack_s
 from sgl_kernel_npu_tpu.ops.grouped_matmul import pack_gmm1_weights as jpack_w
 from sgl_kernel_npu_tpu_torch.ops import gmm_ring as tring
 from sgl_kernel_npu_tpu_torch.ops.grouped_matmul import pack_gmm1_scales, pack_gmm1_weights
+from sgl_kernel_npu_tpu_torch.ops.quant import quant_per_token_ref
 
 
 def _gmm1_inputs(rng, n_tok, k, n, g, s):
@@ -104,11 +107,43 @@ def test_ring_kernels_rows_below_one_tile():
     _check_gmm2(x2, w2, gs, sx2, sw2, dest, topw, None, tm=128, ring=3)
 
 
-def test_gmm1_ring_float_input_not_ported():
-    with pytest.raises(NotImplementedError):
-        tring.gmm1_ring(tt(np.zeros((2, 128), np.float32)), tt(np.zeros(2, np.int32)),
-                        tt(np.zeros((1, 128, 256), np.int8)), tt(np.asarray([2], np.int32)),
-                        None, tt(np.ones((1, 256), np.float32)))
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_gmm1_ring_float_input_matches_jax(dtype):
+    """The in-kernel quant mode (float tokens, ``scale_x_tok`` None) against
+    JAX's kernel in interpret mode: each token quantized once (amax / 127,
+    true division, half to even), then the int8 GMM1; a zero group and
+    capacity past the total."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(9)
+    _, tok, w1, _, sw = _gmm1_inputs(rng, 16, 256, 512, 4, 96)
+    x = rng.standard_normal((16, 256)).astype(np.float32)
+    gs = np.asarray([30, 0, 41, 10], np.int32)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (None, None)
+    h1_j, hs_j = jring.gmm1_ring(jx(x, jdt), jx(tok), jx(w1), jx(gs), None, jx(sw), tm=128,
+                                 ring=3)
+    h1_t, hs_t = tring.gmm1_ring(tt(x, tdt), tt(tok), tt(w1), tt(gs), None, tt(sw))
+    total = int(gs.sum())
+    diff = np.abs(h1_t.numpy().astype(np.int32) - np.asarray(h1_j, np.int32))
+    assert diff[:total].max() <= 1 and (diff == 0).mean() > 0.99
+    np.testing.assert_allclose(np32(hs_t)[:total], np32(hs_j)[:total], rtol=1e-5)
+    assert not h1_t[total:].any() and not hs_t[total:].any()
+    assert tring.gmm1_ring.launches == 0
+
+
+def test_gmm1_ring_float_input_is_quant_then_int8():
+    """Float tokens give, bit for bit, ``quant_per_token`` (K5's plain
+    version) followed by the int8 mode; the scale argument is ignored."""
+    rng = np.random.default_rng(10)
+    _, tok, w1, _, sw = _gmm1_inputs(rng, 8, 128, 256, 3, 40)
+    x = tt(rng.standard_normal((8, 128)).astype(np.float32), torch.bfloat16)
+    gs = tt(np.asarray([12, 20, 0], np.int32))
+    xq, sx = quant_per_token_ref(x)
+    want = tring.gmm1_ring(xq, tt(tok), tt(w1), gs, sx, tt(sw))
+    for scale in (None, torch.full((8,), 7.0)):
+        got = tring.gmm1_ring(x, tt(tok), tt(w1), gs, scale, tt(sw))
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_pad_token_rows_read_as_zero():

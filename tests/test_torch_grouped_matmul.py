@@ -228,3 +228,201 @@ def test_gmm_train_plain_switch_matches_default_on_cpu():
         grads.append((out.detach(), x.grad, w.grad))
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# --- K8a's remaining modes, K8b and dispatch_onehot ----------------------------------
+#
+# JAX's kernel in interpret mode (tm 64, tk 128) against the port's plain version
+# on the same int8 rows.  Tolerances: the integer sums are exact on both sides, so
+# ``none`` is bit-equal and ``dequant`` (the same two f32 scale products) within
+# an f32 ulp; the SwiGLU modes 1e-5 of the output's largest |value| in f32 (the
+# SiLU's exp differs by ulps between libraries), one bf16 ulp (2^-7 relative) in
+# bf16; the dispatched rows bit-equal to the gathered ones.
+
+MODE_CASES = [
+    ("none-f32", dict(epilogue="none"), {}),
+    ("none-bf16", dict(epilogue="none", out_dtype="bf16"), {}),
+    ("dequant-f32", dict(epilogue="dequant", out_dtype="f32"), {}),
+    ("dequant_swiglu-tn128-f32", dict(epilogue="dequant_swiglu", out_dtype="f32"), {"tn": 128}),
+    ("dequant_swiglu-tn64-bf16", dict(epilogue="dequant_swiglu"), {"tn": 64}),
+    ("dequant_swiglu-tn256-f32", dict(epilogue="dequant_swiglu", out_dtype="f32"), {"tn": 256}),
+]
+_DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _mode_kw(kw):
+    out = kw.get("out_dtype")
+    jkw = {**kw, "out_dtype": _DT[out][0]} if out else dict(kw)
+    tkw = {**kw, "out_dtype": _DT[out][1]} if out else dict(kw)
+    return jkw, tkw
+
+
+def _close(got, want, kw):
+    got, want = np32(got), np32(want)
+    if kw["epilogue"] == "none":
+        np.testing.assert_array_equal(got, want)
+    elif kw["epilogue"] == "dequant":
+        np.testing.assert_allclose(got, want, rtol=2e-7, atol=0)
+    elif kw.get("out_dtype") == "f32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+    else:
+        np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("name,kw,opt", MODE_CASES, ids=[c[0] for c in MODE_CASES])
+def test_grouped_matmul_remaining_modes_match_jax(name, kw, opt):
+    rng = np.random.default_rng(20)
+    x, w, sx, sw = _inputs(rng)
+    jkw, tkw = _mode_kw(kw)
+    tn = opt.get("tn", 128)
+    want = jgm.grouped_matmul(jx(x), jx(w), jx(SIZES), jx(sx), jx(sw), tm=64, tk=128, tn=tn,
+                              **jkw)
+    got = tgm.grouped_matmul(tt(x), tt(w), tt(SIZES), tt(sx), tt(sw), tn=tn, **tkw)
+    assert tuple(got.shape) == want.shape and got.dtype == _DT[kw.get("out_dtype") or (
+        "f32" if kw["epilogue"] == "none" else "bf16")][1]
+    _close(got, want, kw)
+    assert not got[int(SIZES.sum()):].any()
+    assert tgm.grouped_matmul.launches == 0
+
+
+@pytest.mark.parametrize("epilogue", ["dequant", "dequant_swiglu_quant", "none"])
+def test_grouped_matmul_dispatch_p_onehot_matches_jax(epilogue):
+    """``dispatch_p`` from :func:`dispatch_onehot` (a token id out of range
+    gives a zero row): the port's rows equal its own gather bit for bit, and
+    JAX's kernel, which forms them as P @ x."""
+    rng = np.random.default_rng(21)
+    n_tok = 24
+    x = rng.integers(-127, 128, (n_tok, K)).astype(np.int8)
+    _, w, sx, sw = _inputs(rng)
+    tok = rng.integers(0, n_tok, ROWS).astype(np.int32)
+    tok[5] = n_tok                                             # the TPU wrapper's pad id
+    p = tgm.dispatch_onehot(tt(tok), n_tok)
+    np.testing.assert_array_equal(p.numpy(), np.asarray(jgm.dispatch_onehot(jx(tok), n_tok)))
+    args = (tt(SIZES), tt(sx), tt(sw))
+    got = tgm.grouped_matmul(tt(x), tt(w), *args, epilogue=epilogue, dispatch_p=p)
+    gathered = torch.where(tt(tok)[:, None] < n_tok, tt(x)[tt(tok).clamp(max=n_tok - 1).long()], 0)
+    same = tgm.grouped_matmul(gathered, tt(w), *args, epilogue=epilogue)
+    want = jgm.grouped_matmul(jx(x), jx(w), jx(SIZES), jx(sx), jx(sw), epilogue=epilogue,
+                              dispatch_p=jx(p.numpy()), tm=64, tk=128, tn=128)
+    for a, b, c in zip(*(v if isinstance(v, tuple) else (v,) for v in (got, same, want))):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        if a.dtype == torch.int8:
+            assert np.abs(a.numpy().astype(np.int32) - np.asarray(c, np.int32)).max() <= 1
+        else:
+            np.testing.assert_allclose(np32(a), np32(c), rtol=1e-2 if epilogue == "dequant"
+                                       else 1e-5, atol=1e-6)
+
+
+def test_grouped_matmul_dispatch_p_general_matches_jax():
+    """A P that is not one-hot (several nonzeros a row, values 0-2): the
+    plain version forms P @ x with the int32 → int8 wrap, as JAX's kernel."""
+    rng = np.random.default_rng(22)
+    n_tok = 16
+    x = rng.integers(-127, 128, (n_tok, K)).astype(np.int8)
+    _, w, _, _ = _inputs(rng)
+    p = rng.integers(0, 3, (ROWS, n_tok)).astype(np.int8) * (rng.random((ROWS, n_tok)) < 0.2)
+    p = p.astype(np.int8)
+    want = jgm.grouped_matmul(jx(x), jx(w), jx(SIZES), dispatch_p=jx(p), tm=64, tk=128, tn=128)
+    got = tgm.grouped_matmul(tt(x), tt(w), tt(SIZES), dispatch_p=tt(p))
+    np.testing.assert_array_equal(np32(got), np32(want))
+
+
+def test_grouped_matmul_dispatch_p_float_rows_match_jax():
+    """bf16 tokens through ``dispatch_p`` into the float ``none`` mode."""
+    rng = np.random.default_rng(23)
+    n_tok = 12
+    xj, wj, xt, wt = _float_inputs(rng, "bf16", False)
+    xj, xt = xj[:n_tok], xt[:n_tok]
+    tok = rng.integers(0, n_tok, ROWS).astype(np.int32)
+    p = tgm.dispatch_onehot(tt(tok), n_tok, torch.bfloat16)
+    want = np32(jgm.grouped_matmul(xj, wj, jx(SIZES), dispatch_p=jx(p.float().numpy(),
+                                                                     jnp.bfloat16)))
+    got = np32(tgm.grouped_matmul(xt, wt, tt(SIZES), dispatch_p=p))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+def test_grouped_matmul_float_rows_dequant_match_jax():
+    """Float rows into the ``dequant`` epilogue (the plain path): the f32
+    product times the two scales."""
+    rng = np.random.default_rng(24)
+    xj, wj, xt, wt = _float_inputs(rng, "f32", False)
+    sx = (rng.random(ROWS) + 0.5).astype(np.float32)
+    sw = (rng.random((len(SIZES), FLOAT_N)) + 0.5).astype(np.float32)
+    want = np32(jgm.grouped_matmul(xj, wj, jx(SIZES), jx(sx), jx(sw), epilogue="dequant",
+                                   out_dtype=jnp.float32, tm=64, tk=32, tn=64))
+    got = np32(tgm.grouped_matmul(xt, wt, tt(SIZES), tt(sx), tt(sw), epilogue="dequant",
+                                  out_dtype=torch.float32))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+def test_select_gmm_tiles_and_default_pack_width_match_jax():
+    """``select_gmm_tiles`` (the default pack width of ``dequant_swiglu``)
+    is JAX's, and ``tn`` None packs as JAX's default does."""
+    for args in ((200, 256, 512, jnp.int8, torch.int8), (4096, 7168, 4096, jnp.int8, torch.int8),
+                 (64, 512, 1024, jnp.bfloat16, torch.bfloat16)):
+        s, k, n, jd, td = args
+        assert tgm.select_gmm_tiles(s, k, n, td, num_groups=7, out_esize=4) == \
+            jgm.select_gmm_tiles(s, k, n, jd, num_groups=7, out_esize=4)
+    rng = np.random.default_rng(25)
+    x, w, sx, sw = _inputs(rng, 512)
+    want = jgm.grouped_matmul(jx(x), jx(w), jx(SIZES), jx(sx), jx(sw), epilogue="dequant_swiglu",
+                              out_dtype=jnp.float32)
+    got = tgm.grouped_matmul(tt(x), tt(w), tt(SIZES), tt(sx), tt(sw), epilogue="dequant_swiglu",
+                             out_dtype=torch.float32)
+    np.testing.assert_allclose(np32(got), np32(want), rtol=0, atol=1e-5 * np.abs(np32(want)).max())
+
+
+@pytest.mark.parametrize("sizes,rows", [((30, 26, 0, 40), 100), ((0, 0, 7, 0), 9)],
+                         ids=["ragged-tail", "one-group"])
+def test_grouped_matmul_combine_matches_jax(sizes, rows):
+    """K8b's plain version against JAX's kernel (tm 64, so S % tm != 0):
+    each expert row rounded to bf16 before the hi + lo products, the mask's
+    columns past the total (and an empty group's) weigh nothing.  The f32
+    products of bf16 values are exact; the sums' order differs: within 1e-5
+    of the largest |value|."""
+    rng = np.random.default_rng(26)
+    g, n_tok, kd, n = len(sizes), 24, 256, 384
+    gs = np.asarray(sizes, np.int32)
+    x = rng.integers(-128, 128, (rows, kd)).astype(np.int8)
+    w = rng.integers(-128, 128, (g, kd, n)).astype(np.int8)
+    sx = (np.abs(rng.standard_normal(rows)) * 0.01 + 0.001).astype(np.float32)
+    sw = (np.abs(rng.standard_normal((g, n))) * 0.01).astype(np.float32)
+    mask = np.zeros((n_tok, rows), np.float32)
+    for t in range(n_tok):
+        mask[t, rng.choice(rows, 3, replace=False)] = rng.random(3)   # some past the total
+    hi = jx(mask, jnp.bfloat16)
+    lo = jx(mask - np.asarray(hi, np.float32), jnp.bfloat16)
+    want = np32(jgm.grouped_matmul_combine(jx(x), jx(w), jx(gs), jx(sx), jx(sw), hi, lo, tm=64,
+                                           tk=128, tn=128))
+    hi_t, lo_t = tt(np32(hi), torch.bfloat16), tt(np32(lo), torch.bfloat16)
+    got = tgm.grouped_matmul_combine(tt(x), tt(w), tt(gs), tt(sx), tt(sw), hi_t, lo_t)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (n_tok, n)
+    np.testing.assert_allclose(np32(got), want, rtol=0, atol=1e-5 * max(np.abs(want).max(), 1))
+    assert tgm.grouped_matmul_combine.launches == 0
+
+
+def test_combine_masks_match_jax():
+    """The masks of ``_gmm_moe``'s branch: JAX's scatter of each token's
+    top-k weights to its sorted rows, split into bf16 hi and lo."""
+    rng = np.random.default_rng(27)
+    n_tok, rows = 24, 100
+    dest = rng.permutation(rows)[: n_tok * 2].reshape(n_tok, 2).astype(np.int32)
+    topw = rng.random((n_tok, 2)).astype(np.float32)
+    m = np.zeros((n_tok, rows), np.float32)
+    np.put_along_axis(m, dest, topw, axis=1)
+    m_hi, m_lo = tgm.combine_masks(tt(dest), tt(topw), rows)
+    np.testing.assert_array_equal(np32(m_hi), np32(jx(m, jnp.bfloat16)))
+    np.testing.assert_array_equal(np32(m_lo), np32(jx(m - np32(jx(m, jnp.bfloat16)),
+                                                      jnp.bfloat16)))
+
+
+def test_grouped_matmul_int8_rhs_contract_last_matches_jax():
+    """Int8 rows with ``rhs_contract_last`` (``w [G, N, K]``): the exact
+    integer sums to f32, bit-equal to JAX's kernel."""
+    rng = np.random.default_rng(28)
+    x, w, _, _ = _inputs(rng)
+    wt = np.ascontiguousarray(w.transpose(0, 2, 1))
+    want = jgm.grouped_matmul(jx(x), jx(wt), jx(SIZES), rhs_contract_last=True, tm=64, tk=128,
+                              tn=128)
+    got = tgm.grouped_matmul(tt(x), tt(wt), tt(SIZES), rhs_contract_last=True)
+    np.testing.assert_array_equal(np32(got), np32(want))
