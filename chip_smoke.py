@@ -23,7 +23,8 @@ Phases (any failure raises and the script exits non-zero without a result):
    of phase 4c: decode contexts of 916-4016 keys on a 33-page table, a
    2048-row chunk at context 4096), grouped_matmul at 2048 and 4096 tokens
    of top-8 routing, the DSA kernels on a 2048-token chunk at context 4096
-   (K9b on pages selected from K10's scores) and small ragged cases; time
+   (K9b on pages selected from K10's scores) and small ragged cases (K9b
+   also at 64 heads); time
    the kernel, the plain version and,
    where one exists, a single PyTorch call computing the same function (CUDA
    events, L2 flushed before each launch); compute each kernel's bound from
@@ -155,7 +156,8 @@ Phases (any failure raises and the script exits non-zero without a result):
    bit-exact against its plain version (``all_to_all_single``) on a
    2048-token chunk's dispatch ([1, 16384, 7168] int8 and its [1, 16384, 2]
    int32 blob) and a decode step's, counts 0 to full; pallas_all_to_all
-   (K15a) on the per-expert counts and on a chunk's payload; the monitored
+   (K15a) on the per-expert counts (one block), just past one block and on a
+   chunk's payload; the monitored
    form (K15c) without a fault and with this rank muted (returns with its
    timeout flags); each timed beside its bound (live bytes read and written
    once), its plain version and ``all_to_all_single``.  fused_deep_moe_full_rank
@@ -862,6 +864,8 @@ def check_dsa_kernels(gen):
     for int8 in (False, True):
         check_block_sparse(gen, "small (dead slots, dead page first, straddling chunk)",
                            CFG.num_heads, 16, [16, 5], [60, 17], 4, small, 8, False, int8)
+        check_block_sparse(gen, "small at 64 heads (a model with fewer heads)", 64, 16,
+                           [16, 5], [60, 17], 4, small, 8, False, int8)
     return r10, r9b, r9b8
 
 
@@ -3033,7 +3037,10 @@ def check_window_fixed(group, label, x, timed):
     if not torch.equal(got, want):
         raise AssertionError(f"pallas_all_to_all disagrees with its plain version: {label}")
     nbytes = x.numel() * x.element_size()
-    log(f"  pallas_all_to_all {label}: {list(x.shape)} {x.dtype} bit-exact")
+    blocks = pallas_a2a.a2a_blocks(x.shape[0], nbytes // x.shape[0], pallas_a2a.FIXED_CHUNK)
+    grid = ("one block" if blocks == 1 else
+            f"{blocks} chunks of {pallas_a2a.FIXED_CHUNK >> 10} KB over a co-resident grid")
+    log(f"  pallas_all_to_all {label}: {list(x.shape)} {x.dtype} ({grid}) bit-exact")
     if not timed:
         return None
     res = dict(err=0.0, ms=time_ms(lambda: pallas_a2a.pallas_all_to_all(x, group=group), 10),
@@ -3152,6 +3159,8 @@ def deepseek_ep_phase(params, moe, mla_wq, eng_q):
     counts = torch.randint(0, 64, (1, CFG.num_experts), generator=gen, device=DEV,
                            dtype=torch.int32)
     k15a = check_window_fixed(group, "the per-expert counts", counts, True)
+    check_window_fixed(group, "just past one block", torch.randint(
+        -2**30, 2**30, (1, 17, 1024), generator=gen, device=DEV, dtype=torch.int32), False)
     big = torch.randint(-128, 128, (1, rows_chunk, CFG.hidden), generator=gen,
                         device=DEV).to(torch.int8)
     check_window_fixed(group, f"a {LONG_CHUNK}-token chunk's payload (the 'pallas' transport)",

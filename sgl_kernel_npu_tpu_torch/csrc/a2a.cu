@@ -16,20 +16,38 @@
 // d's window, in chunks (K15b: chunk_rows rows, JAX's chunk_rows; K15a: 64 KB),
 // fences at system scope and release-stores the arrival flag pay[me] = epoch
 // in d's window.  Receive: wait for pay[s] >= epoch of every source, then copy
-// the live rows of each block from the window into the output.  One rank is
-// its own only peer: the sends are local stores and the flags its own.
+// the live rows of each peer's block from the window into the output.  One
+// rank is its own only peer: its block is copied straight to the output and
+// the flags are its own.
 //
-// Bound on the H100: bytes.  Each live byte is read from x, written into the
-// window, read from it and written to the output: four passes where the TPU
-// kernel moves it once, because the output is a fresh tensor, not the window
-// (the window is fixed memory that peers have mapped).  The copies are 16-byte
-// words over a co-resident grid; chunks of a destination go to all blocks.
+// Bound on the H100: bytes, and for the small payloads the fixed cost of a
+// launch and the flag handshake.  A peer's live byte is read from x, written
+// into the peer's window, read from it and written to the output: four passes
+// where the TPU kernel moves it once, because the output is a fresh tensor,
+// not the window (the window is fixed memory that peers have mapped).  The
+// rank's own block skips the window: x[me] is copied straight to out[me]
+// during the sends (one read, one write, as NCCL's self copy); it still takes
+// part in the entry barrier and the flags, so the protocol across ranks is the
+// same.  The copies are 16-byte words; chunks of a destination go to all
+// blocks.
+//
+// Grid sized to the payload (pallas_a2a.a2a_blocks): ceil(R x block bytes /
+// chunk) blocks for the capacity the host knows (the live counts of K15b are
+// on the device), at most a co-resident grid.  Up to one chunk in all (K15a:
+// R x block bytes <= 64 KB, which holds the per-expert counts [R, 256] int32
+// of up to 64 ranks and a decode step's [R, 8] slots; K15b / K15c: R x rows
+// <= chunk_rows) the kernel is one block, launched plainly: its phases are
+// separated by __syncthreads and it needs no cooperative launch.  A larger
+// payload takes a cooperative grid of only the blocks its chunks need (a
+// 2048-token chunk's dispatch still fills the co-resident grid), its phases
+// separated by grid syncs.
 //
 // Deadlock: on one rank the same kernel sends and waits, and across ranks a
 // rank's wait needs its peer's sends.  Every block issues all its sends before
-// any wait (a grid sync between), and the grid is co-resident (a cooperative
-// launch of the SMs times the blocks an SM holds), so no spinning block keeps
-// a sender from running.
+// any wait (a block or grid sync between), and a grid of several blocks is
+// co-resident (a cooperative launch of at most the SMs times the blocks an SM
+// holds), so no spinning block keeps a sender from running; one block that
+// sends all before it waits cannot deadlock against a peer.
 //
 // K15c (monitor): each wait polls at most max_polls times, checking every
 // peer's abort flag between polls.  A source whose flag does not come in time
@@ -66,6 +84,37 @@ struct Args {
   int fault;
 };
 
+// A flag in this rank's own window is written and read by this GPU alone:
+// gpu-scope release / acquire order it, where a peer's needs system scope
+// (a one-rank call then takes no system-scope fence at all).
+__device__ __forceinline__ void flag_store(unsigned long long* p, unsigned long long v, bool own) {
+  if (own)
+    asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
+  else
+    win::st_release(p, v);
+}
+
+__device__ __forceinline__ unsigned long long flag_load(const unsigned long long* p, bool own) {
+  if (!own) return win::ld_acquire(p);
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// window.cuh's entry barrier with the own flag at gpu scope: block 0's
+// threads t < R flag their entry into peer (me + t) % R's window, then wait
+// for that peer's entry.
+__device__ __forceinline__ void entry_barrier(const unsigned long long* peers, int me, int R,
+                                              unsigned long long epoch) {
+  const int t = threadIdx.x;
+  if (blockIdx.x != 0 || t >= R) return;
+  const int d = (me + t) % R;
+  flag_store(&win::header(peers, d)->entry[me], epoch, d == me);
+  const win::Header* mine = win::header(peers, me);
+  while (flag_load(&mine->entry[d], d == me) < epoch) {
+  }
+}
+
 __device__ __forceinline__ size_t block_stride(long long block_bytes) {
   return ((size_t)block_bytes + 255) / 256 * 256;
 }
@@ -89,15 +138,24 @@ __device__ void copy_chunks(int R, long long chunk, Live live, Src src_of, Dst d
   }
 }
 
+// The phases' barrier: the whole grid, or the one block.
+template <bool COOP>
+__device__ __forceinline__ void sync_all() {
+  if constexpr (COOP)
+    cooperative_groups::this_grid().sync();
+  else
+    __syncthreads();
+}
+
+template <bool COOP>
 __global__ void __launch_bounds__(THREADS) a2a_kernel(Args a) {
-  namespace cg = cooperative_groups;
-  cg::grid_group grid = cg::this_grid();
   const int R = a.R, me = a.me;
   const size_t stride = block_stride(a.block_bytes);
-  win::entry_barrier(a.peers, me, R, a.epoch);
-  grid.sync();
+  entry_barrier(a.peers, me, R, a.epoch);
+  sync_all<COOP>();
 
-  // sends: rotated destination order (rank r starts at r + 1), as JAX's
+  // sends: rotated destination order (rank r starts at r + 1, itself last), as
+  // JAX's; the own block goes straight to the output
   if (!a.fault) {
     auto dst_rank = [&](int i) { return (me + 1 + i) % R; };
     auto rows_to = [&](int d) { return a.counts ? min(max(a.counts[d], 0), a.rows) : a.rows; };
@@ -105,26 +163,28 @@ __global__ void __launch_bounds__(THREADS) a2a_kernel(Args a) {
         R, a.chunk_bytes, [&](int i) { return (long long)rows_to(dst_rank(i)) * a.row_bytes; },
         [&](int i) { return a.x + (size_t)dst_rank(i) * a.block_bytes; },
         [&](int i) {
-          return win::half(a.peers, dst_rank(i), a.epoch, a.half) + COUNTS_BYTES + me * stride;
+          const int d = dst_rank(i);
+          return d == me ? a.out + (size_t)me * a.block_bytes
+                         : win::half(a.peers, d, a.epoch, a.half) + COUNTS_BYTES + me * stride;
         });
     if (a.counts && blockIdx.x == 0 && threadIdx.x < R) {
       const int d = threadIdx.x;
       reinterpret_cast<volatile int*>(win::half(a.peers, d, a.epoch, a.half))[me] = rows_to(d);
     }
-    __threadfence_system();
+    if (R > 1) __threadfence_system();   // one rank wrote no peer's window
   }
-  grid.sync();
+  sync_all<COOP>();
 
   // arrival: block 0's thread t signals destination (me + t) % R, then waits
   // for the same rank as a source
   if (blockIdx.x == 0 && threadIdx.x < R) {
     const int s = (me + threadIdx.x) % R;
-    if (!a.fault) win::st_release(&win::header(a.peers, s)->pay[me], a.epoch);
+    if (!a.fault) flag_store(&win::header(a.peers, s)->pay[me], a.epoch, s == me);
     const win::Header* mine = win::header(a.peers, me);
     long long polls = 0;
     int arrived = 0, aborted = 0;
     for (;;) {
-      if (win::ld_acquire(&mine->pay[s]) >= a.epoch) {
+      if (flag_load(&mine->pay[s], s == me) >= a.epoch) {
         arrived = 1;
         break;
       }
@@ -153,14 +213,17 @@ __global__ void __launch_bounds__(THREADS) a2a_kernel(Args a) {
       st[5] = 0;
     }
   }
-  grid.sync();
+  sync_all<COOP>();
 
-  // receive: the live rows of each source's block, window -> output
+  // receive: the live rows of each peer's block, window -> output (the own
+  // block is already there)
   const char* mine = win::half(a.peers, me, a.epoch, a.half) + COUNTS_BYTES;
   copy_chunks(
       R, a.chunk_bytes,
       [&](int s) {
-        return (long long)reinterpret_cast<volatile const int*>(a.recv_counts)[s] * a.row_bytes;
+        return s == me ? 0ll
+                       : (long long)reinterpret_cast<volatile const int*>(a.recv_counts)[s] *
+                             a.row_bytes;
       },
       [&](int s) { return mine + (size_t)s * stride; },
       [&](int s) { return a.out + (size_t)s * a.block_bytes; });
@@ -202,21 +265,29 @@ extern "C" int window_ipc_close(void* p) { return (int)cudaIpcCloseMemHandle(p);
 
 // One all-to-all over the window (Args above).  counts null: K15a, every row
 // of every block; else K15b / K15c.  recv_counts [R] int32 is written in
-// both modes.
+// both modes.  blocks: the grid the payload needs (pallas_a2a.a2a_blocks);
+// one block is a plain launch, more a cooperative one of at most the
+// co-resident grid.
 extern "C" int a2a_launch(const void* peers, int me, int R, unsigned long long epoch,
                           long long half, const void* x, long long block_bytes,
                           long long row_bytes, int rows, long long chunk_bytes,
                           const void* counts, void* out, void* recv_counts, void* stats,
-                          int monitor, long long max_polls, int fault, void* stream) {
-  if (R < 1 || R > win::RMAX || me < 0 || me >= R || chunk_bytes <= 0)
+                          int monitor, long long max_polls, int fault, int blocks,
+                          void* stream) {
+  if (R < 1 || R > win::RMAX || me < 0 || me >= R || chunk_bytes <= 0 || blocks < 1)
     return (int)cudaErrorInvalidValue;
   a2a::Args a{(const unsigned long long*)peers, me, R, epoch, half, (const char*)x,
               block_bytes, row_bytes, rows, chunk_bytes, (const int*)counts, (char*)out,
               (int*)recv_counts, (int*)stats, monitor, max_polls, fault};
-  static int blocks = 0;
-  if (blocks == 0) blocks = win::coop_blocks((const void*)a2a::a2a_kernel, a2a::THREADS, 2);
+  if (blocks == 1) {
+    a2a::a2a_kernel<false><<<1, a2a::THREADS, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  static int coop = 0;
+  if (coop == 0) coop = win::coop_blocks((const void*)a2a::a2a_kernel<true>, a2a::THREADS, 2);
   void* params[] = {&a};
-  const cudaError_t e = cudaLaunchCooperativeKernel((const void*)a2a::a2a_kernel, dim3(blocks),
+  const cudaError_t e = cudaLaunchCooperativeKernel((const void*)a2a::a2a_kernel<true>,
+                                                    dim3(blocks < coop ? blocks : coop),
                                                     dim3(a2a::THREADS), params, 0,
                                                     (cudaStream_t)stream);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();

@@ -1,0 +1,452 @@
+// K9b's block body (mla_prefill_block_sparse, DeepSeek-V3.2 DSA) for Hopper:
+// 64 query rows a block against the pages the indexer selected for their
+// q-chunk, on warpgroup products (wgmma) fed by TMA (wgmma.cuh).
+//
+// What bounds it.  A 2048-token chunk of 128 heads at context 4096 (16 pages
+// of 128 a 64-token q-chunk) does ~1.2 TFLOP for ~0.3 GB of distinct bytes:
+// operations bound it, 1.14 ms at the bf16 tensor-core rate.  The 16-row
+// mma.sync body of mla_attention.cuh (K9a's) re-streamed every selected key
+// once per 16 rows (~39 GB through L2 at that shape), widened int8 levels
+// once per 16 rows, and ran the softmax row by row on warp shuffles.  Here
+// the keys cross L2 once a block (~9.7 GB bf16, ~5.4 GB int8, at 64 rows a
+// block): a first design whose computing threads issued the ring's 16-byte
+// cp.async stalled on them, so TMA boxes from a loading warpgroup carry
+// them, off the critical path.  What is left between this body and the
+// bound: the softmax, masks and barriers run between the products, not
+// beside them (two stages leave no room to start the next chunk's S first).
+//
+// Design.  Every row of a q-chunk (tokens x heads: MLA has one latent head)
+// sees the same selected pages, so a block owns 64 rows of one q-chunk (the
+// wrapper's sparse_tiling: 1 token x 64 heads at H = 128, 8 tokens x 8 heads
+// at H = 8; rows past seq_len or the head count are dead) and each staged key
+// chunk serves all 64: a quarter of the 16-row body's key traffic.
+//   Loads (warpgroup 0, 40 registers a thread by setmaxnreg): chunks of
+//     KT = 64 keys in a ring of two stages, each stage's full / empty
+//     mbarriers between it and the consumers.  Key i of the walk is offset
+//     i % page of the selected page sel[i / page] (the selection's order), its
+//     cache page looked up once a block (phys[]).  One thread issues the
+//     latent as TMA boxes of up to 64 keys of one page x 128 bytes, landing in
+//     the 128-byte swizzle that wgmma reads (dead keys: rows past the cache,
+//     which TMA fills with zeros); the warpgroup copies the rope [pages, 1,
+//     64, page] (8 keys contiguous a dimension, an MN-major operand) by
+//     cp.async.  A page size not a multiple of 8 takes 16-byte cp.async
+//     pieces into the same swizzle, and the rope element by element.  An int8
+//     latent lands as int8 (half the bytes) and is widened to bf16 once a
+//     chunk into one shared buffer, exactly (levels are bf16 integers).
+//   S = Q K^T (warpgroups 1, 2, 232 registers): warpgroup g takes keys 32 g ..
+//     32 g + 32 of the chunk over the full depth (32 steps m64n32k16 on the
+//     latent, 4 on the rope), Q [64, 576] resident in shared memory.
+//   Softmax: online, in registers (f32, base 2); the two warpgroups swap
+//     their row maxima through shared memory; P rounded to bf16 into shared
+//     memory.  Key positions come from (slot, offset) counters advanced a
+//     chunk at a time: a division by the page size in the loop was a large
+//     share of the first design's time.
+//   O += P V: warpgroup g owns output columns 256 g .. 256 g + 256 (4 steps
+//     m64n256k16, V = the latent chunk, MN-major), a 64 x 256 f32
+//     accumulator of 128 registers a thread; each keeps the denominator of
+//     its own keys, summed at the end.
+// Shared memory: Q 72 KB, two stages of 72 KB (int8: 40 KB, and the 64 KB
+// widened latent), P 8 KB, the selection 2 KB: 226.5 KB, one block an SM.
+//
+// Semantics (JAX's _mla_prefill_pruned_kernel): whole selected pages are
+// walked, masked by position (key <= context - seq_len + token); a masked
+// key scores -1e30 and, while the row's running max is still -1e30, weighs 1,
+// so a row that sees none of its pages gets the mean of the latents it
+// walked; P is rounded to bf16 before the PV product; dead rows write
+// nothing (the caller zeroes the output).
+#pragma once
+
+#include <cuda.h>
+
+#include "common.cuh"
+#include "wgmma.cuh"
+
+namespace mlas {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int DN = 512;                  // latent (nope) width, also V width
+constexpr int DR = 64;                   // rope width
+constexpr int DQ = DN + DR;
+constexpr int M = 64;                    // query rows a block
+constexpr int KT = 64;                   // keys a staged chunk
+constexpr int PRODUCERS = 128;           // warpgroup 0 loads,
+constexpr int CONSUMERS = 256;           // warpgroups 1 and 2 compute
+constexpr int THREADS = PRODUCERS + CONSUMERS;
+constexpr int MAX_SEL = 256;             // selected pages a chunk can name
+constexpr int BOX = 8192;                // bytes of a latent box: 64 keys x 128 bytes
+constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the special-function unit alone (exp2f adds a subnormal fix-up
+// around it): the probabilities are rounded to bf16 next.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Shared memory, in bytes, every latent region 1024-aligned.  Q [72][64][8]
+// (depth / 8, row, depth % 8) is wgmma's layout without swizzle; a stage's
+// latent is TMA's 128-byte swizzle, [column block][64 keys][128 bytes] (bf16:
+// 8 blocks of 64 columns; int8: 4 of 128 levels, widened into WIDE, 8 blocks
+// of bf16); a stage's rope is [8][64][8] (key / 8, dimension, key % 8).
+template <typename KN>
+struct Smem {
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t RAW = KT * DN * sizeof(KN);       // a stage's latent
+  static constexpr uint32_t STAGE = RAW + KT * DR * 2;        // + its rope
+  static constexpr uint32_t STAGES = Q + M * DQ * 2;
+  static constexpr uint32_t WIDE = STAGES + 2 * STAGE;        // int8: the latent as bf16
+  static constexpr uint32_t P = WIDE + (sizeof(KN) == 1 ? KT * DN * 2 : 0);
+  static constexpr uint32_t SEL = P + M * KT * 2;             // [MAX_SEL] page positions
+  static constexpr uint32_t PHYS = SEL + MAX_SEL * 4;         // [MAX_SEL] cache pages
+  static constexpr uint32_t RED = PHYS + MAX_SEL * 4;         // [2][M] f32 row exchange
+  static constexpr uint32_t BARS = RED + 2 * M * 4;           // full[2], empty[2]
+  static constexpr uint32_t NLIVE = BARS + 4 * 8;             // live slots of the chunk
+  static constexpr uint32_t BYTES = NLIVE + 16;
+};
+static_assert(Smem<bf16>::BYTES <= 232448 && Smem<int8_t>::BYTES <= 232448,
+              "K9b's shared memory exceeds a block's 227 KB");
+
+// The producer warpgroup's copies of keys [k0, k0 + KT) of the walk into a
+// stage (keys at or past kend are zeros).  Thread 0: the latent, a TMA box of
+// box_keys keys (they share a page: box_keys divides the page and 64) x 64
+// columns (int8: 128 levels) at a time, rows past the cache (total_rows) for
+// dead keys, which TMA fills with zeros; a box under 8 keys (a page size not
+// a multiple of 8): every thread, 16-byte cp.async pieces into the same
+// swizzled layout.  Every thread (warp w, lane l): the rope of key groups
+// 2 w, 2 w + 1 at dimensions l, l + 32, by cp.async (a page size not a
+// multiple of 8: element by element).
+template <typename KN>
+__device__ __forceinline__ void produce_chunk(unsigned char* stage, const void* kmap,
+                                              const KN* __restrict__ kn,
+                                              const bf16* __restrict__ kr, const int* phys,
+                                              int k0, int kend, int page_size, int box_keys,
+                                              int total_rows, uint64_t* full, int w, int lane) {
+  constexpr int BLOCKS = DN * (int)sizeof(KN) / 128;   // 128-byte column blocks of a key
+  if (box_keys >= 8) {
+    if (w == 0 && lane == 0) {
+      wg::mbar_expect_tx(full, KT * DN * sizeof(KN));
+      for (int r = 0; r < KT; r += box_keys) {
+        const int kg = k0 + r;
+        const int y = kg < kend ? phys[kg / page_size] * page_size + kg % page_size : total_rows;
+#pragma unroll
+        for (int cb = 0; cb < BLOCKS; ++cb)
+          wg::tma_load_2d(stage + cb * BOX + r * 128, kmap, cb * 128 / (int)sizeof(KN), y, full);
+      }
+    }
+  } else {  // pages of fewer than 8 keys' multiple: 16-byte pieces, swizzled as TMA would
+#pragma unroll 1
+    for (int i = 0; i < 2; ++i) {
+      const int key = (lane & 7) + 8 * (2 * w + i), kg = k0 + key;
+      const bool live = kg < kend;
+      const char* src = reinterpret_cast<const char*>(kn);
+      if (live)
+        src += ((size_t)phys[kg / page_size] * page_size + kg % page_size) * DN * sizeof(KN);
+#pragma unroll
+      for (int j = 0; j < BLOCKS * 2; ++j) {
+        const int pc = (lane >> 3) + 4 * j;     // piece of the key's row: block pc / 8
+        wg::cp_async16(stage + (pc >> 3) * BOX + key * 128 + (((pc & 7) ^ (key & 7)) * 16),
+                       src + (live ? pc * 16 : 0), live ? 16 : 0);
+      }
+    }
+  }
+  bf16* rope = reinterpret_cast<bf16*>(stage + Smem<KN>::RAW);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int g = 2 * w + i, kg8 = k0 + 8 * g;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = lane + 32 * h;
+      bf16* dst = rope + (g * DR + d) * 8;
+      if (page_size % 8 == 0) {
+        const bool live8 = kg8 < kend;
+        const bf16* src8 = kr;
+        if (live8) src8 += ((size_t)phys[kg8 / page_size] * DR + d) * page_size + kg8 % page_size;
+        wg::cp_async16(dst, src8, live8 ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int k = kg8 + e;
+          dst[e] = k < kend
+                       ? kr[((size_t)phys[k / page_size] * DR + d) * page_size + k % page_size]
+                       : __float2bfloat16(0.f);
+        }
+      }
+    }
+  }
+}
+
+// 4 int8 levels (a word) -> 4 bf16, exact: each byte (flipped to v + 128)
+// becomes the float 2^23 + v + 128, less 2^23 + 128, whose upper half is v's
+// bf16.
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    f[k] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7650u + k)) - 8388736.0f;
+  return make_uint2(__byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632u),
+                    __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632u));
+}
+
+// A stage's int8 latent -> the bf16 latent (the layout of a bf16 stage), by
+// the consumer threads: piece q of key k holds levels 16 q .. 16 q + 15 (block
+// q / 8, piece q % 8 of its row), which become two pieces of bf16 row k.
+__device__ __forceinline__ void widen_chunk(const unsigned char* raw, unsigned char* wide) {
+#pragma unroll
+  for (int i = 0; i < KT * DN / 16 / CONSUMERS; ++i) {
+    const int p = threadIdx.x - PRODUCERS + CONSUMERS * i, key = p & 63, q = p >> 6;
+    const int sw = key & 7, c = q & 7, cb = 2 * (q >> 3) + (c >> 2), pc = 2 * (c & 3);
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + (q >> 3) * BOX + key * 128 +
+                                                    ((c ^ sw) * 16));
+    const uint2 a = widen4(v.x), b = widen4(v.y), cc = widen4(v.z), d = widen4(v.w);
+    unsigned char* row = wide + cb * BOX + key * 128;
+    *reinterpret_cast<uint4*>(row + ((pc ^ sw) * 16)) = make_uint4(a.x, a.y, b.x, b.y);
+    *reinterpret_cast<uint4*>(row + (((pc + 1) ^ sw) * 16)) = make_uint4(cc.x, cc.y, d.x, d.y);
+  }
+}
+
+// The block: request b's tokens [j0, jend) of one q-chunk (at most tq) x
+// heads [h0, h0 + hb), row r = token j0 + r / hb, head h0 + r % hb; pos_sel_c
+// the chunk's n_sel slots.  Token j sits at packed index tok_base + j and sees
+// positions <= ctx - seq_len + j.  Warpgroup 0 loads (40 registers a
+// thread), warpgroups 1 and 2 compute (232): full[s] completes when stage s
+// has landed, empty[s] when the consumers are done with it.  kmap: the latent
+// cache as [total_rows = pages x page, 512] (TMA, boxes of box_keys rows).
+template <typename KN>
+__device__ __forceinline__ void sparse_block(
+    const bf16* __restrict__ q, const void* kmap, const KN* __restrict__ kn,
+    const bf16* __restrict__ kr,
+    const int* __restrict__ bt_row, const int* __restrict__ pos_sel_c, bf16* __restrict__ out,
+    int tok_base, int j0, int jend, int tq, int seq_len, int ctx, int heads, int h0, int hb,
+    int n_sel, int page_size, int box_keys, int total_rows, float sm_scale) {
+  using L = Smem<KN>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  int* sel = reinterpret_cast<int*>(smem + L::SEL);
+  int* phys = reinterpret_cast<int*>(smem + L::PHYS);
+  float* red = reinterpret_cast<float*>(smem + L::RED);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + 2;
+  int* n_live_s = reinterpret_cast<int*>(smem + L::NLIVE);
+  const bf16* pb = reinterpret_cast<const bf16*>(smem + L::P);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  if (warp == 0) {  // the chunk's live slots, in order, and their cache pages
+    int n = 0;
+    for (int base = 0; base < n_sel; base += 32) {
+      const int v = base + lane < n_sel ? pos_sel_c[base + lane] : -1;
+      const unsigned live = __ballot_sync(0xffffffffu, v >= 0);
+      if (v >= 0) {
+        const int at = n + __popc(live & ((1u << lane) - 1u));
+        sel[at] = v;
+        phys[at] = bt_row[v];
+      }
+      n += __popc(live);
+    }
+    if (lane == 0) {
+      *n_live_s = n;
+      for (int i = 0; i < 2; ++i) {
+        wg::mbar_init(&full[i], 2 * PRODUCERS);   // each producer thread twice
+        wg::mbar_init(&empty[i], CONSUMERS / 32);
+      }
+    }
+  }
+  __syncthreads();
+  const int n_live = *n_live_s, kend = n_live * page_size;
+
+  if (warp < PRODUCERS / 32) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    for (int it = 0, k0 = 0; k0 < kend; ++it, k0 += KT) {
+      const int st = it & 1;
+      if (it >= 2) wg::mbar_wait(&empty[st], ((it >> 1) - 1) & 1);
+      produce_chunk<KN>(smem + L::STAGES + st * L::STAGE, kmap, kn, kr, phys, k0, kend,
+                        page_size, box_keys, total_rows, &full[st], warp, lane);
+      wg::mbar_arrive_cp_async(&full[st]);     // when its rope copies land
+      wg::mbar_arrive(&full[st]);              // its plain stores (a page size not 8 k)
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  const int ctid = tid - PRODUCERS, wgi = ctid >> 7, wq = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  auto row_live = [&](int r) {
+    const int j = j0 + r / hb, h = h0 + r % hb;
+    return r < tq * hb && j < jend && h < heads;
+  };
+  for (int p = ctid; p < M * DQ / 8; p += CONSUMERS) {  // Q: row p % 64, piece p / 64
+    const int r = p & 63, c = p >> 6;
+    const bool live = row_live(r);
+    const bf16* src = q;
+    if (live) src += ((size_t)(tok_base + j0 + r / hb) * heads + h0 + r % hb) * DQ + c * 8;
+    wg::cp_async16(smem + L::Q + (c * M + r) * 16, src, live ? 16 : 0);
+  }
+  wg::cp_async_commit();
+  wg::cp_async_wait_all();
+  wg::fence_proxy();
+  wg::bar_sync(1, CONSUMERS);
+
+  // this thread's rows (r0, r0 + 8) of the accumulators
+  const int r0 = 16 * wq + g;
+  bool live[2];
+  int qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    live[h] = row_live(r);
+    qpos[h] = ctx - seq_len + j0 + r / hb;
+  }
+  // this thread's keys c < 8 of every chunk, 32 wgi + 8 (c / 2) + 2 t4 + c % 2,
+  // as (selected slot, offset in the page), advanced a chunk at a time
+  int slot[8], off[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int kk = 32 * wgi + 8 * (c >> 1) + 2 * t4 + (c & 1);
+    slot[c] = kk / page_size;
+    off[c] = kk % page_size;
+  }
+  const float scale2 = sm_scale * LOG2E;
+  float o[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o[i] = 0.f;
+  float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
+
+  for (int it = 0, k0 = 0; k0 < kend; ++it, k0 += KT) {
+    const int st = it & 1;
+    const unsigned char* stage = smem + L::STAGES + st * L::STAGE;
+    wg::mbar_wait(&full[st], (it >> 1) & 1);
+    wg::fence_proxy();
+    const unsigned char* lat = stage;
+    if constexpr (sizeof(KN) == 1) {
+      if (it > 0) wg::bar_sync(1, CONSUMERS);  // both warpgroups are done with the last chunk
+      widen_chunk(stage, smem + L::WIDE);
+      wg::fence_proxy();
+      wg::bar_sync(1, CONSUMERS);
+      lat = smem + L::WIDE;
+    }
+    const unsigned char* rope = stage + L::RAW;
+
+    // S: rows x this warpgroup's 32 keys, over the latent then the rope
+    float s[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = 0.f;
+    wg::fence_operands(s);
+    wg::fence();
+#pragma unroll
+    for (int ks = 0; ks < DN / 16; ++ks)
+      wg::mma_m64n32k16<0>(s, wg::desc(smem + L::Q + ks * 2 * M * 16, M * 16, 128),
+                           wg::desc_sw128(lat + (ks >> 2) * BOX + 32 * wgi * 128 + (ks & 3) * 32,
+                                          16, 1024));
+#pragma unroll
+    for (int ks = 0; ks < DR / 16; ++ks)
+      wg::mma_m64n32k16<1>(s, wg::desc(smem + L::Q + (DN / 8 + ks * 2) * M * 16, M * 16, 128),
+                           wg::desc(rope + (4 * wgi * DR + 16 * ks) * 16, 128, DR * 16));
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operands(s);
+    if constexpr (sizeof(KN) == 1) {  // int8: the stage's latent was widened, its rope read
+      __syncwarp();
+      if (lane == 0) wg::mbar_arrive(&empty[st]);
+    }
+
+    // masks, row maxima (swapped between the warpgroups), P, denominators
+    bool walked[8];
+    int kpos[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      walked[c] = slot[c] < n_live;
+      kpos[c] = walked[c] ? sel[slot[c]] * page_size + off[c] : 0;
+    }
+    float mx[2] = {NEG, NEG};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int h = (i >> 1) & 1, c = 2 * (i >> 2) + (i & 1);
+      const bool ok = walked[c] && live[h] && kpos[c] <= qpos[h];
+      s[i] = ok ? s[i] * scale2 : NEG;
+      mx[h] = fmaxf(mx[h], s[i]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      if (t4 == 0) red[wgi * M + r0 + 8 * h] = mx[h];
+    }
+    wg::bar_sync(1, CONSUMERS);
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m_run[h], fmaxf(red[r0 + 8 * h], red[M + r0 + 8 * h]));
+      alpha[h] = ex2(m_run[h] - m_new);
+      m_run[h] = m_new;
+    }
+    bf16* pw = reinterpret_cast<bf16*>(smem + L::P);
+#pragma unroll
+    for (int i = 0; i < 16; i += 2) {
+      const int h = (i >> 1) & 1, c = 2 * (i >> 2);
+      // a masked key of the walk weighs 2^(NEG - m): 1 while m is NEG
+      const float p0 = walked[c] ? ex2(s[i] - m_run[h]) : 0.f;
+      const float p1 = walked[c + 1] ? ex2(s[i + 1] - m_run[h]) : 0.f;
+      const __nv_bfloat162 pq = __floats2bfloat162_rn(p0, p1);
+      sum[h] += __low2float(pq) + __high2float(pq);
+      // P [key / 8][row][key % 8]: keys 32 wgi + 8 (i / 4) + 2 t4, + 1
+      *reinterpret_cast<__nv_bfloat162*>(
+          pw + ((4 * wgi + (i >> 2)) * M + r0 + 8 * h) * 8 + 2 * t4) = pq;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l_run[h] = l_run[h] * alpha[h] + sum[h];
+    }
+#pragma unroll
+    for (int i = 0; i < 128; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {  // the next chunk's keys
+      off[c] += KT;
+      while (off[c] >= page_size) {
+        off[c] -= page_size;
+        ++slot[c];
+      }
+    }
+    wg::fence_proxy();
+    wg::bar_sync(1, CONSUMERS);  // both warpgroups' P
+
+    // O += P V over this warpgroup's 256 columns
+    wg::fence_operands(o);
+    wg::fence();
+#pragma unroll
+    for (int ks = 0; ks < KT / 16; ++ks)
+      wg::mma_m64n256k16<1>(o, wg::desc(pb + ks * 2 * M * 8, M * 16, 128),
+                            wg::desc_sw128(lat + 4 * wgi * BOX + 16 * ks * 128, BOX, 1024));
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operands(o);
+    if constexpr (sizeof(KN) == 2) {
+      __syncwarp();
+      if (lane == 0) wg::mbar_arrive(&empty[st]);
+    }
+  }
+
+  // the denominators of both warpgroups' keys; live rows out
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (t4 == 0) red[wgi * M + r0 + 8 * h] = l_run[h];
+  wg::bar_sync(1, CONSUMERS);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!live[h]) continue;
+    const int r = r0 + 8 * h;
+    const float l = red[r] + red[M + r];
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    bf16* orow = out + ((size_t)(tok_base + j0 + r / hb) * heads + h0 + r % hb) * DN +
+                 256 * wgi + 2 * t4;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
+          __floats2bfloat162_rn(o[4 * i + 2 * h] * inv, o[4 * i + 2 * h + 1] * inv);
+  }
+}
+
+}  // namespace mlas

@@ -1,0 +1,186 @@
+// Hopper warpgroup products (wgmma) on shared-memory operands, and the
+// asynchronous copies and mbarriers that feed them: the helpers of
+// mla_sparse.cuh (K9b).
+//
+// Operands use wgmma's layout without swizzle (desc) or with the 128-byte
+// swizzle (desc_sw128).  Without swizzle a matrix is cut into core
+// matrices of 8 rows x 16 bytes (8 bf16), each stored as 128 contiguous
+// bytes, so every read of one is free of bank conflicts.  A descriptor names
+// the first core matrix and two strides in bytes: lbo, between core matrices
+// adjacent along the depth (K) of the product, and sbo, between core matrices
+// adjacent along M (the rows of A) or N (the columns of B).  B is K-major
+// (its rows are the output columns, the depth contiguous: TRANS_B 0) or
+// MN-major (its rows are the depth, the output columns contiguous: TRANS_B
+// 1); the same two strides hold for both.
+//
+// The accumulator of mma_m64nNk16 over a warpgroup: thread t (warp w = t /
+// 32 of the group, lane l) holds d[4 i + 0, 1] at row 16 w + l / 4, columns
+// 8 i + 2 (l % 4) + 0, 1, and d[4 i + 2, 3] at row 16 w + l / 4 + 8, the same
+// columns (i < N / 8): the layout of mma.sync's m16n8 tile, warps stacked
+// along M.
+#pragma once
+
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace wg {
+
+__device__ __forceinline__ uint64_t desc(const void* smem, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = sgl::smem_addr(smem);
+  return (uint64_t)((a >> 4) & 0x3fffu) | (uint64_t)((lbo >> 4) & 0x3fffu) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3fffu) << 32;
+}
+
+// The same for the 128-byte swizzle (what TMA's 128-byte swizzle writes):
+// rows of 128 bytes, atoms of 8 rows (1024 bytes, 1024-aligned) whose 16-byte
+// pieces are permuted by piece ^ (row % 8).  K-major: sbo = 1024 between
+// atoms along M / N (lbo unused), a step along K moves the start 32 bytes
+// within the row.  MN-major: lbo = the stride between blocks of 64 columns,
+// sbo = 1024 between atoms of 8 rows along K.
+__device__ __forceinline__ uint64_t desc_sw128(const void* smem, uint32_t lbo, uint32_t sbo) {
+  return desc(smem, lbo, sbo) | (1ull << 62);
+}
+
+// Before the first product that reads accumulators (or shared memory) that
+// ordinary instructions wrote.
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pins the accumulators in registers at this point of the program, so that
+// ordinary instructions on them are not moved across a fence or a wait.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// Shared-memory writes of this thread (st.shared, cp.async) made visible to
+// the products' asynchronous reads; a barrier follows.
+__device__ __forceinline__ void fence_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 fills zeros.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sgl::smem_addr(smem)),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// mbarriers in shared memory: a producer's copies signal a consumer.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(sgl::smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// An arrival (release at CTA scope: this thread's earlier shared-memory
+// writes are seen by a waiter).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+                   sgl::smem_addr(bar))
+               : "memory");
+}
+// An arrival once every cp.async this thread issued so far has landed.
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(sgl::smem_addr(bar))
+               : "memory");
+}
+// Adds `bytes` to the transfer the barrier's current phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(sgl::smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// A 2D box of a tensor map (TMA) into shared memory, its bytes counted on bar.
+__device__ __forceinline__ void tma_load_2d(void* smem, const void* map, int x, int y,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(sgl::smem_addr(smem)),
+      "l"(map), "r"(x), "r"(y), "r"(sgl::smem_addr(bar))
+      : "memory");
+}
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(sgl::smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// A barrier of the first `threads` threads of the block (id > 0: __syncthreads is 0).
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// d[64 x N] += A[64 x 16] . B[16 x N] (bf16 in, f32 accumulate), A and B
+// from shared memory through descriptors a and b.
+template <int TRANS_B>
+__device__ __forceinline__ void mma_m64n32k16(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void mma_m64n256k16(float (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+}
+
+}  // namespace wg

@@ -68,14 +68,18 @@ def dequant_latent(k_nope: torch.Tensor, ks) -> torch.Tensor:
 
 def fold_q_scale(q: torch.Tensor, ks) -> torch.Tensor:
     """q with ``ks`` folded into its nope part, cast back to q's dtype (JAX
-    ``decode_attention.py:314-317``): scores see ``(q · ks) · k_level``."""
-    qn = (q[..., :D_NOPE].float() * ks).to(q.dtype)
-    return torch.cat([qn, q[..., D_NOPE:]], dim=-1)
+    ``decode_attention.py:314-317``): scores see ``(q · ks) · k_level``.  One
+    pass over q: the nope part times ``ks`` and the rope part times 1, in f32,
+    rounded once to q's dtype."""
+    scale = torch.ones(q.shape[-1], dtype=torch.float32, device=q.device)
+    scale[:D_NOPE] = ks
+    return torch.mul(q, scale, out=torch.empty_like(q))
 
 
 def unfold_out_scale(out: torch.Tensor, ks) -> torch.Tensor:
-    """The kernel's output over int8 levels × ``ks`` (V aliases K)."""
-    return (out.float() * ks).to(out.dtype)
+    """The kernel's output over int8 levels × ``ks`` (V aliases K), in place:
+    the f32 product rounded to out's dtype."""
+    return out.mul_(ks)
 
 
 def check_mla_operands(q, k_nope_buffer, k_rope_buffer) -> None:

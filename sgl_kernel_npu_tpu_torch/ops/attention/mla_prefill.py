@@ -111,6 +111,18 @@ def mla_prefill_pallas(q, k_nope_buffer, k_rope_buffer, seq_lens, block_tables,
 # ---------------------------------------------------------------------------
 
 MAX_SEL = 256   # selected pages a chunk can name in the CUDA kernel
+SPARSE_ROWS = 64   # query rows (tokens x heads of one q-chunk) a K9b block, csrc/mla_sparse.cuh
+
+
+def sparse_tiling(heads: int, cq: int) -> tuple[int, int, int]:
+    """K9b's block tiling: ``(tq, hb, tiles)``, a block holding ``tq`` tokens
+    x ``hb`` heads (at most ``SPARSE_ROWS`` rows), ``tiles`` token tiles a
+    q-chunk of ``cq`` tokens.  All heads when fewer than 64 (8 tokens x 8
+    heads at H = 8), else one token x 64 heads; a block never holds tokens of
+    two chunks, whose pages differ."""
+    hb = min(heads, SPARSE_ROWS)
+    tq = max(1, min(SPARSE_ROWS // hb, cq))
+    return tq, hb, cdiv(cq, tq)
 
 
 def select_prefill_pages(page_scores, seq_lens, context_lens, *, cq: int, page_size: int,
@@ -221,17 +233,17 @@ def mla_prefill_block_sparse(q, k_nope_buffer, k_rope_buffer, seq_lens, block_ta
     ctx = context_lens.to(torch.int32).contiguous()
     bt = block_tables.to(torch.int32).contiguous()
     sel = pos_sel.to(torch.int32).contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k_nope_buffer, k_rope_buffer)):
+        raise ValueError("the block-sparse kernel copies 16-byte pieces: q and the caches "
+                         "must start 16-byte aligned")
     out = torch.zeros((s, h, D_NOPE), dtype=q.dtype, device=q.device)
-    # 16 rows a block: all heads of 16 / H tokens when H < 16, tokens of one chunk
-    tq = ROWS // min(ROWS, 1 << max(h - 1, 0).bit_length())
-    while cq % tq:
-        tq //= 2
+    tq, hb, tiles = sparse_tiling(h, cq)
     lib = cuda_lib.load_library()
     cuda_lib.check(lib, lib.mla_prefill_sparse_launch(
         q.data_ptr(), k_nope_buffer.data_ptr(), k_rope_buffer.data_ptr(), bt.data_ptr(),
         sl.data_ptr(), ctx.data_ptr(), starts.data_ptr(), sel.data_ptr(), out.data_ptr(), bsz,
-        h, bt.shape[1], k_nope_buffer.shape[2], max_q, tq, cq, sel.shape[1], sel.shape[2],
-        float(sm_scale), int(ks is not None), cuda_lib.stream_ptr(q)),
-        "mla_prefill_block_sparse")
+        h, bt.shape[1], k_nope_buffer.shape[2], k_nope_buffer.shape[0], tq, hb, tiles, cq,
+        sel.shape[1], sel.shape[2], float(sm_scale), int(ks is not None),
+        cuda_lib.stream_ptr(q)), "mla_prefill_block_sparse")
     mla_prefill_block_sparse.launches += 1
     return out if ks is None else unfold_out_scale(out, ks)

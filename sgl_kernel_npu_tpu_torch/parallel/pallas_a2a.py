@@ -38,14 +38,14 @@ import torch
 import torch.distributed as dist
 
 from sgl_kernel_npu_tpu_torch.utils import cuda_lib
-from sgl_kernel_npu_tpu_torch.utils.common import on_cuda, round_up
+from sgl_kernel_npu_tpu_torch.utils.common import cdiv, on_cuda, round_up
 from sgl_kernel_npu_tpu_torch.utils.counters import counted
 
 MAX_RANKS = 64             # csrc/window.cuh RMAX
 MAX_SEGMENTS = MAX_RANKS * 256   # csrc/window.cuh: K16b's (source, expert) arrival flags
 HEADER_BYTES = 2048 + 8 * MAX_SEGMENTS   # csrc/window.cuh DATA: the flags before the data
 COUNTS_BYTES = 256         # csrc/a2a.cu: counts [RMAX] int32 at the start of a data half
-FIXED_CHUNK = 1 << 16      # bytes a block copies at a time in K15a
+FIXED_CHUNK = 1 << 16      # bytes a block copies at a time in K15a (one block up to this)
 STATS_COLS = 6
 
 
@@ -146,6 +146,15 @@ def _check_ranks(x: torch.Tensor, group, num_ranks) -> tuple[int, int]:
     return size, me
 
 
+def a2a_blocks(num_ranks: int, block_bytes: int, chunk_bytes: int) -> int:
+    """Blocks of one launch of ``csrc/a2a.cu``: one a chunk of the capacity
+    the host knows (``num_ranks`` blocks of ``block_bytes``), at least one.
+    One block runs without grid syncs or a cooperative launch (K15a's
+    per-expert counts, any payload up to one chunk); the kernel caps a larger
+    grid at the co-resident one."""
+    return max(1, cdiv(num_ranks * block_bytes, chunk_bytes))
+
+
 def _launch(x: torch.Tensor, out: torch.Tensor, counts, group, *, rows: int, row_bytes: int,
             chunk_bytes: int, monitor: bool = False, max_polls: int = 0,
             fault: bool = False):
@@ -161,7 +170,8 @@ def _launch(x: torch.Tensor, out: torch.Tensor, counts, group, *, rows: int, row
         win.peers.data_ptr(), me, size, win.next_epoch(), win.half, x.data_ptr(), block,
         row_bytes, rows, chunk_bytes, None if counts is None else counts.data_ptr(),
         out.data_ptr(), recv_counts.data_ptr(), None if stats is None else stats.data_ptr(),
-        int(monitor), max_polls, int(fault), cuda_lib.stream_ptr(x)), "pallas all-to-all")
+        int(monitor), max_polls, int(fault), a2a_blocks(size, block, chunk_bytes),
+        cuda_lib.stream_ptr(x)), "pallas all-to-all")
     return recv_counts, stats
 
 

@@ -34,8 +34,7 @@ _SIGNATURES = {
     "decode_mla_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "mla_prefill_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _F, _I, _P],
-    "mla_prefill_sparse_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _F, _I, _P],
+    "mla_prefill_sparse_launch": [_P] * 9 + [_I] * 11 + [_F, _I, _P],
     "lightning_indexer_prefill_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                          _I, _P],
     "gmm1_ring_launch": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
@@ -64,7 +63,8 @@ _SIGNATURES = {
     "window_ipc_handle": [_P, _P],
     "window_ipc_open": [_P, _P],
     "window_ipc_close": [_P],
-    "a2a_launch": [_P, _I, _I, _U, _L, _P, _L, _L, _I, _L, _P, _P, _P, _P, _I, _L, _I, _P],
+    "a2a_launch": [_P, _I, _I, _U, _L, _P, _L, _L, _I, _L, _P, _P, _P, _P, _I, _L, _I, _I,
+                   _P],
     "fused_full_launch": [_P, _P],
     "fused_kernel_launch": [_P, _P],
 }

@@ -5,12 +5,13 @@
 
 Joins a two-rank gloo group through a ``FileStore`` in the work directory,
 makes the group's window (each process opens the other's by CUDA IPC), runs
-K15b (``pallas_ragged_all_to_all``), K16b (``fused_deep_moe_full_rank``) and
-K16a (``fused_dispatch_gmm1_rank``) on CUDA tensors, runs the same calls'
-plain versions on CPU copies over the same group, and prints ``ok`` when they
-agree (K15b bit-exact on the live rows and counts; K16b's counts and drops
-exact, its output within 1e-2 of a row's largest |value|; K16a within one
-bf16 ulp of each value).
+K15a (``pallas_all_to_all``: the per-expert counts on one block, a 600 KB
+payload on several), K15b (``pallas_ragged_all_to_all``), K16b
+(``fused_deep_moe_full_rank``) and K16a (``fused_dispatch_gmm1_rank``) on
+CUDA tensors, runs the same calls' plain versions on CPU copies over the same
+group, and prints ``ok`` when they agree (K15a and K15b bit-exact, K15b on
+the live rows and counts; K16b's counts and drops exact, its output within
+1e-2 of a row's largest |value|; K16a within one bf16 ulp of each value).
 """
 
 import pathlib
@@ -29,6 +30,14 @@ def main(work: pathlib.Path, rank: int) -> None:
                             world_size=2)
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(100 + rank)
+    # K15a: the per-expert counts (one block) and a payload of several blocks,
+    # each peer's block through the window
+    for x in (torch.randint(0, 1000, (2, 256), generator=gen).to(torch.int32),
+              torch.randint(-128, 128, (2, 300, 1024), generator=gen).to(torch.int8)):
+        got = pa.pallas_all_to_all(x.to(dev))
+        want = pa.pallas_all_to_all_plain(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), tuple(x.shape)
     x = torch.randint(-128, 128, (2, 96, 1024), generator=gen).to(torch.int8)
     counts = torch.tensor([[0, 96], [37, 5]][rank], dtype=torch.int32)
     got, rc = pa.pallas_ragged_all_to_all(x.to(dev), counts.to(dev), chunk_rows=16)

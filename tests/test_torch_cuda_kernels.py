@@ -505,17 +505,23 @@ def _sparse_case(dev, gen, heads, page, seq, ctx, max_pages, pos_sel, int8):
 
 
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("heads", [128, 8])
-def test_mla_prefill_block_sparse_kernel(dev, heads, int8):
-    """Page 16, chunks of 8 tokens (max_q 16): dead slots, a dead page walked
-    before the live ones, a chunk whose rows straddle two pages, and a chunk
-    whose first rows see none of its pages (the mean of the walked latents,
-    as in JAX)."""
+@pytest.mark.parametrize("heads,page", [(128, 16), (64, 16), (20, 16), (16, 16), (8, 16),
+                                        (16, 24), (128, 12), (8, 12)],
+                         ids=["128", "64", "20", "16", "8", "16-page24", "128-page12", "8-page12"])
+def test_mla_prefill_block_sparse_kernel(dev, heads, page, int8):
+    """Chunks of 8 tokens (max_q 16): dead slots, a dead page walked before
+    the live ones, a chunk whose rows straddle two pages, and a chunk whose
+    first rows see none of its pages (the mean of the walked latents, as in
+    JAX).  Heads 128 and 64 (64 heads of one token a block), 20 (3 tokens a
+    block, a partial last tile), 16 and 8 (4 and 8 tokens a block); the
+    latent in TMA boxes of 16 keys (page 16) and 8 (page 24); page 12 loads
+    it in 16-byte pieces and the rope element by element."""
     gen = torch.Generator(device=dev).manual_seed(8)
-    seq, ctx, max_pages = [16, 5], [60, 20], 4
-    pos_sel = [[[3, 2, 1, 0], [3, -1, 0, -1]],        # request 0: rows at 44..59
+    seq, ctx, max_pages = [16, 5], [60, 20], 60 // page + 1
+    last = 59 // page
+    pos_sel = [[[last, 2, 1, 0], [last, -1, 0, -1]],  # request 0: rows at 44..59
                [[1, -1, -1, 1], [-1, -1, -1, -1]]]    # request 1: rows 15..19; chunk 1 dead
-    args = _sparse_case(dev, gen, heads, 16, seq, ctx, max_pages, pos_sel, int8)
+    args = _sparse_case(dev, gen, heads, page, seq, ctx, max_pages, pos_sel, int8)
     ks = 1 / 32 if int8 else None
     before = mp.mla_prefill_block_sparse.launches
     got = mp.mla_prefill_block_sparse(*args[:6], 0.07, args[6], max_q=16, q_chunk=8, k_scale=ks)
@@ -527,19 +533,43 @@ def test_mla_prefill_block_sparse_kernel(dev, heads, int8):
     assert bool((got[-2:] == 0).all())
 
 
-def test_mla_prefill_block_sparse_all_pages_equals_dense_kernel(dev):
+@pytest.mark.parametrize("heads", [128, 16])
+def test_mla_prefill_block_sparse_all_pages_equals_dense_kernel(dev, heads):
     """Every causal page selected, in reverse order: K9b equals K9a."""
     gen = torch.Generator(device=dev).manual_seed(9)
     seq, ctx, page, max_pages = [64, 40], [300, 40], 128, 3
     n_chunks = 1
     pos_sel = [[[2, 1, 0]], [[0, -1, -1]]]
-    q, kn, kr, seq_t, bt, ctx_t, sel = _sparse_case(dev, gen, 128, page, seq, ctx, max_pages,
+    q, kn, kr, seq_t, bt, ctx_t, sel = _sparse_case(dev, gen, heads, page, seq, ctx, max_pages,
                                                     pos_sel, False)
     assert sel.shape[1] == n_chunks
     got = mp.mla_prefill_block_sparse(q, kn, kr, seq_t, bt, ctx_t, 0.07, sel, max_q=64)
     want = mp.mla_prefill_pallas(q, kn, kr, seq_t, bt, ctx_t, 0.07, max_q=64)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("heads", [128, 16])
+def test_mla_prefill_block_sparse_kernel_long_context(dev, heads, int8):
+    """DeepSeek-V3.2's shape at a few hundred rows: 200 new tokens at context
+    4096, page 128, 16 of each 64-token chunk's causal pages selected
+    (its last causal page among them, in random order); pad rows zero."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    seq, ctx, page, max_pages, n_sel = [200], [4096], 128, 32, 16
+    pos_sel = []
+    for c in range(-(-seq[0] // 64)):
+        last = (ctx[0] - seq[0] + min(64 * (c + 1), seq[0]) - 1) // page
+        others = torch.randperm(last, generator=torch.Generator().manual_seed(c))[: n_sel - 1]
+        pages = torch.cat([torch.tensor([last]), others])[torch.randperm(n_sel)]
+        pos_sel.append(pages.tolist())
+    args = _sparse_case(dev, gen, heads, page, seq, ctx, max_pages, [pos_sel], int8)
+    ks = 1 / 32 if int8 else None
+    got = mp.mla_prefill_block_sparse(*args[:6], 0.07, args[6], max_q=200, k_scale=ks)
+    want = mp.mla_prefill_block_sparse_ref(*args[:6], 0.07, args[6], max_q=200, k_scale=ks)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert bool((got[-2:] == 0).all())
 
 
 @pytest.mark.parametrize("gran", ["page", "token"])
@@ -1371,6 +1401,37 @@ def test_pallas_ragged_all_to_all_kernel(dev, count, chunk):
         assert torch.equal(got[0, :count], want[0, :count])
 
 
+@pytest.mark.parametrize("nbytes", [65535, 65536, 65537, 300 * 1024])
+def test_pallas_all_to_all_one_block_threshold(dev, nbytes):
+    """K15a just below, at and just above one chunk (64 KB, the one-block
+    launch) and at several blocks: bit-exact against ``all_to_all_single``."""
+    from sgl_kernel_npu_tpu_torch.parallel import pallas_a2a as pa
+
+    group = _nccl_group()
+    x = torch.randint(-128, 128, (1, nbytes), device=dev).to(torch.int8)
+    assert (pa.a2a_blocks(1, nbytes, pa.FIXED_CHUNK) == 1) == (nbytes <= pa.FIXED_CHUNK)
+    got = pa.pallas_all_to_all(x, group=group)
+    want = pa.pallas_all_to_all_plain(x, group=group)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows", [31, 32, 33])
+def test_pallas_ragged_all_to_all_one_block_threshold(dev, rows):
+    """K15b at a capacity just below, at and just above one chunk of 32 rows
+    (the one-block launch), full and short counts: bit-exact."""
+    from sgl_kernel_npu_tpu_torch.parallel import pallas_a2a as pa
+
+    group = _nccl_group()
+    x = torch.randint(-128, 128, (1, rows, 7168), device=dev).to(torch.int8)
+    for count in (rows, rows - 1):
+        c = torch.tensor([count], dtype=torch.int32, device=dev)
+        got, rc = pa.pallas_ragged_all_to_all(x, c, group=group, chunk_rows=32)
+        want, wrc = pa.pallas_ragged_all_to_all_plain(x, c, group=group)
+        torch.cuda.synchronize()
+        assert torch.equal(rc, wrc) and torch.equal(got[0, :count], want[0, :count])
+
+
 def test_monitored_kernel_stats_and_timeout(dev):
     """K15c: without a fault the rows arrive and the statistics read no
     timeout (col 3 = col 0, cols 1, 2, 4, 5 zero); with this rank muted the
@@ -1446,9 +1507,10 @@ def test_fused_full_kernel_refuses_what_it_does_not_take(dev):
 
 def test_two_processes_on_one_card(dev, tmp_path):
     """Two processes on the one card, ranks of a gloo group over a
-    ``FileStore``: each opens the other's window by CUDA IPC and runs K15b
-    and K16b, held to the plain versions of the same two-rank exchange on
-    the CPU (``tests/_torch_ipc_ranks.py``)."""
+    ``FileStore``: each opens the other's window by CUDA IPC and runs K15a
+    (the per-expert counts on one block, a payload on several), K15b, K16b
+    and K16a, held to the plain versions of the same two-rank exchange on the
+    CPU (``tests/_torch_ipc_ranks.py``)."""
     import os
     import pathlib
     import subprocess

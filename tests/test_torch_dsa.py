@@ -56,14 +56,17 @@ def _block_sparse_inputs(rng, dtype, lat=64, rope=32, heads=4):
     return q, kn, kr, seq, bt, ctx, np.asarray(POS_SEL, np.int32)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
-def test_mla_prefill_block_sparse_matches_jax_kernel(dtype):
+@pytest.mark.parametrize(
+    "dtype,heads", [(d, h) for h in (4, 64) for d in ("float32", "bfloat16", "int8")],
+    ids=["float32", "bfloat16", "int8", "float32-64heads", "bfloat16-64heads", "int8-64heads"])
+def test_mla_prefill_block_sparse_matches_jax_kernel(dtype, heads):
     """Dead slots, a dead page walked before the live ones
     (``tests/test_dsa.py``), a chunk straddling two pages, rows that see no
-    key of their pages, a dead chunk and two pad rows."""
+    key of their pages, a dead chunk and two pad rows; at 4 heads and at 64
+    (the CUDA kernel's rows a block: one token's heads)."""
     rng = np.random.default_rng(0)
     lat, rope = (512, 64) if dtype == "int8" else (64, 32)
-    q, kn, kr, seq, bt, ctx, pos = _block_sparse_inputs(rng, dtype, lat, rope)
+    q, kn, kr, seq, bt, ctx, pos = _block_sparse_inputs(rng, dtype, lat, rope, heads)
     fdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
     ks = KS if dtype == "int8" else None
     kn_j = jx(kn) if dtype == "int8" else jx(kn, fdt[0])
@@ -77,6 +80,58 @@ def test_mla_prefill_block_sparse_matches_jax_kernel(dtype):
     tol = 2e-4 if dtype == "float32" else 3e-2
     np.testing.assert_allclose(np32(got), want, atol=tol, rtol=0 if dtype == "float32" else tol)
     assert not np32(got)[-2:].any()
+
+
+def _sparse_block_rows(heads, cq, max_q, y, x):
+    """The live (token, head) rows of K9b's block (x head tile, y token tile)
+    for one request of ``max_q`` tokens: the kernel's map
+    (``csrc/mla_prefill.cu`` ``mla_prefill_sparse_kernel``, ``mla_sparse.cuh``
+    ``row_live``), row r = token j0 + r // hb, head x hb + r % hb."""
+    tq, hb, tiles = tpf.sparse_tiling(heads, cq)
+    chunk = y // tiles
+    j0 = chunk * cq + (y % tiles) * tq
+    jend = min(j0 + tq, (chunk + 1) * cq, max_q)
+    return [(j0 + r // hb, x * hb + r % hb) for r in range(tpf.SPARSE_ROWS)
+            if r < tq * hb and j0 + r // hb < jend and x * hb + r % hb < heads]
+
+
+@pytest.mark.parametrize("cq", [8, 16, 64])
+@pytest.mark.parametrize("heads", [1, 8, 64, 128])
+def test_block_sparse_tiling_covers_every_row_once(heads, cq):
+    """K9b's tiling (``sparse_tiling``) under the kernel's row map: over a
+    request of ``max_q`` tokens, every live (token, head) row lies in exactly
+    one block, no block holds tokens of two q-chunks, and a block holds at
+    most 64 rows."""
+    max_q = 3 * cq - 5                              # a partial last chunk
+    tq, hb, tiles = tpf.sparse_tiling(heads, cq)
+    assert tq * hb <= tpf.SPARSE_ROWS and tiles * tq >= cq
+    seen = []
+    for y in range(-(-max_q // cq) * tiles):
+        for x in range(-(-heads // hb)):
+            rows = _sparse_block_rows(heads, cq, max_q, y, x)
+            assert len({j // cq for j, _ in rows}) <= 1
+            seen += rows
+    assert sorted(seen) == [(j, h) for j in range(max_q) for h in range(heads)]
+
+
+@pytest.mark.parametrize("ks", [KS, 0.0123, 1 / 64])
+def test_block_sparse_one_pass_fold_is_bit_equal(ks):
+    """The int8 ``k_scale`` fold of the MLA wrappers (K2, K9a, K9b), one pass
+    over q, and the in-place unfold of their output: bit-equal to the JAX
+    wrapper's ``(x.astype(f32) * ks).astype(bf16)`` on q's nope part and on
+    the output (``decode_attention.py:317``, ``:355``)."""
+    rng = np.random.default_rng(3)
+    q = (rng.standard_normal((40, 5, 576)) * 3).astype(np.float32)
+    out = (rng.standard_normal((40, 5, 512)) * 40).astype(np.float32)
+    jq, jout = jnp.asarray(q).astype(jnp.bfloat16), jnp.asarray(out).astype(jnp.bfloat16)
+    jks = jnp.float32(ks)
+    want_q = jnp.concatenate(
+        [(jq[..., :512].astype(jnp.float32) * jks).astype(jnp.bfloat16), jq[..., 512:]], -1)
+    want_out = (jout.astype(jnp.float32) * jks).astype(jnp.bfloat16)
+    got_q = tda.fold_q_scale(torch.from_numpy(q).to(torch.bfloat16), ks)
+    got_out = tda.unfold_out_scale(torch.from_numpy(out).to(torch.bfloat16), ks)
+    np.testing.assert_array_equal(got_q.float().numpy(), np.asarray(want_q, np.float32))
+    np.testing.assert_array_equal(got_out.float().numpy(), np.asarray(want_out, np.float32))
 
 
 def test_mla_prefill_block_sparse_all_pages_equals_dense():

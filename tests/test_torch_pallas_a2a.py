@@ -123,6 +123,20 @@ def test_monitored_mute_rank_times_out_like_jax(group, mesh1):
     assert st[0, 1] == 1 and st[0, 4] == 1 and st[0, 0] == 16
 
 
+# (ranks, block bytes, chunk bytes, blocks): K15a's per-expert counts [R, 256]
+# int32 of 1 and of 64 ranks, a payload just at and just past K15a's 64 KB
+# chunk, a 2048-token chunk's dispatch in K15b's 32-row chunks (the kernel
+# caps it at the co-resident grid), an empty capacity
+@pytest.mark.parametrize("ranks,block,chunk,blocks", [
+    (1, 1024, ta.FIXED_CHUNK, 1), (64, 1024, ta.FIXED_CHUNK, 1),
+    (1, ta.FIXED_CHUNK, ta.FIXED_CHUNK, 1), (1, ta.FIXED_CHUNK + 1, ta.FIXED_CHUNK, 2),
+    (1, 16384 * 7168, 32 * 7168, 512), (2, 0, 1, 1)])
+def test_window_grid_is_sized_to_the_payload(ranks, block, chunk, blocks):
+    """The window kernels' grid rule (``a2a_blocks``): one block up to one
+    chunk in all, which takes the one-block launch without grid syncs."""
+    assert ta.a2a_blocks(ranks, block, chunk) == blocks
+
+
 def test_window_all_to_alls_refuse_what_they_do_not_take(group):
     with pytest.raises(ValueError, match="monitor=True"):
         ta.pallas_ragged_all_to_all(torch.zeros((1, 4, 8)), torch.ones(1, dtype=torch.int32),
