@@ -85,7 +85,11 @@ Phases (any failure raises and the script exits non-zero without a result):
    weights, untied head, page 16): decode_gqa (K11a, which K11b's wrapper
    also launches) at its heads, bf16 and int8, and on ragged cases (a group
    of 16 at head_dim 32 and 64), and K12d without sinks or window, held to
-   their plain versions and timed; ``Engine(prefill_chunk=512)`` +
+   their plain versions and timed, K11a also with one row at 32768 keys
+   beside [4e]'s rows on a 2048-page table (its keys split across 16
+   blocks); one int8 decode_gqa and one bf16 attention_sinks call under
+   ``torch.profiler`` must launch the decode kernel and nothing else (the
+   int8 scales fold inside it); ``Engine(prefill_chunk=512)`` +
    ``llama_adapter`` serves [4e]'s prompt lengths, float, then W8A8 on the
    int8 cache (its ``kv_scale`` calibrated), with exact launch counts
    (K11a, K12d, K6a; K1, K5, K7a), pages and radix reuse checked and a
@@ -317,6 +321,7 @@ GPT_KERNELS = ("rms_norm", "swiglu_oai", "attention_sinks", "attention_sinks_pre
 # rms_norm_eps 1e-5, an untied lm_head.  Cut: 32 layers -> 2, bf16 weights
 # from a seed, page 16; [4e]'s prompts, chunks and tables.
 LLAMA_FULL_LAYERS = 32
+LONG_DECODE_KEYS = 32768   # a long-context decode row beside [4e]'s, for K11a
 CFG_LLAMA = lm.LlamaConfig(
     vocab_size=128256, hidden=4096, num_layers=2, num_heads=32, num_kv_heads=8, head_dim=128,
     intermediate=14336, page_size=16, rope_theta=500000.0, rms_eps=1e-5)
@@ -1839,14 +1844,17 @@ def check_gpt_oss_kernels(gen):
 
 def check_llama_kernels(gen):
     """K11a ``decode_gqa`` at Llama-3.1-8B's heads (32 / 8 x 128) over [4e]'s
-    decode contexts and pad rows, bf16 and int8, and on ragged cases (a
-    group of 16 at head_dim 32 and 64); K12d without sinks or window at
-    those heads (a 512-row chunk at context 1024, and ragged requests with
-    pad rows), and at head_dim 32.  Returns K11a's bf16 numbers (one
-    layer's call)."""
+    decode contexts and pad rows, bf16 and int8, with one more row at
+    ``LONG_DECODE_KEYS`` keys on a table that holds them (bf16), and on
+    ragged cases (a group of 16 at head_dim 32 and 64); K12d without sinks
+    or window at those heads (a 512-row chunk at context 1024, and ragged
+    requests with pad rows), and at head_dim 32.  Returns K11a's bf16
+    numbers (one layer's call at [4e]'s contexts)."""
     heads = (CFG_LLAMA.num_heads, CFG_LLAMA.num_kv_heads, CFG_LLAMA.head_dim)
     dec_ctx = [n + NEW_TOKENS for n in GPT_PROMPT_LENS]
     pads = MAX_BATCH - len(dec_ctx)
+    check_paged_decode(gen, dec_ctx + [LONG_DECODE_KEYS], 0, pads, True, heads=heads,
+                       with_sinks=False, table_pages=LONG_DECODE_KEYS // 16)
     r11 = {}
     for kind in ("bf16", "int8"):
         r11[kind] = check_paged_decode(gen, dec_ctx, 0, pads, True, heads=heads, kind=kind,
@@ -1864,6 +1872,37 @@ def check_llama_kernels(gen):
     return r11["bf16"]
 
 
+def decode_kernels_only(gen):
+    """One int8 ``decode_gqa`` call at [4f]'s shapes (per-kv-head scales) and
+    one bf16 ``attention_sinks`` call at [4e]'s full layer, each under
+    ``torch.profiler`` after a warm-up: the wrapper enqueues the decode
+    kernel and nothing else (no fold of the int8 scales, no cast of the
+    sinks or the lengths), else the run fails."""
+    dec_ctx = [n + NEW_TOKENS for n in GPT_PROMPT_LENS] + [1] * (MAX_BATCH - len(GPT_PROMPT_LENS))
+    ctx = torch.tensor(dec_ctx, dtype=torch.int32, device=DEV)
+    bt = torch.arange(MAX_BATCH * GPT_PAGES_PER_REQ, dtype=torch.int32,
+                      device=DEV).reshape(MAX_BATCH, GPT_PAGES_PER_REQ)
+    n_pages = MAX_BATCH * GPT_PAGES_PER_REQ
+    hq, hkv, d = CFG_LLAMA.num_heads, CFG_LLAMA.num_kv_heads, CFG_LLAMA.head_dim
+    kc, vc, sc = attn_caches(gen, n_pages, hkv, d, "int8")
+    q = randn(gen, (MAX_BATCH, hq, d))
+    calls = [("decode_gqa, int8 cache", lambda: da.decode_gqa(q, kc, vc, ctx, d ** -0.5, bt, **sc))]
+    hq, hkv, d = GPT_HEADS
+    kg, vg, _ = attn_caches(gen, n_pages, hkv, d, "bf16")
+    qg = randn(gen, (MAX_BATCH, hq * d))
+    sinks = torch.randn(hq, generator=gen, device=DEV)
+    calls.append(("attention_sinks, bf16 cache", lambda: sa.attention_sinks(
+        qg, kg, vg, sinks, bt, ctx, d ** -0.5, 0, hq, hkv)))
+    for label, fn in calls:
+        fn()
+        rows, busy, wall = trace_profile.device_breakdown(fn, top=100)
+        log(f"  {label} under torch.profiler: {[(n[:60], c) for n, _, c in rows]}, device "
+            f"{busy:.4f} ms of {wall:.3f} wall")
+        if [c for n, _, c in rows if "decode_kernel" in n] != [1] or len(rows) != 1:
+            raise AssertionError(f"{label} launched more than the decode kernel: {rows}")
+
+
+NORM_HIDDEN = CFG_LLAMA.hidden     # the add-RMSNorm ops at Llama-3.1-8B's width
 NORM_HIDDEN = CFG_LLAMA.hidden     # the add-RMSNorm ops at Llama-3.1-8B's width
 
 
@@ -3951,6 +3990,7 @@ def serving_phases(card: str):
     log(f"  weights made in {time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
     k11 = check_llama_kernels(torch.Generator(device=DEV).manual_seed(SEED + 7))
+    decode_kernels_only(torch.Generator(device=DEV).manual_seed(SEED + 10))
     eng_l, lps_, launches_ll = llama_serve(lparams, CFG_LLAMA, card)
     llama_decode, llama_prefill = llama_step_checks(eng_l, lparams, lps_, CFG_LLAMA, "Llama")
     lscales = w8a8.calibrate_kv_scales(eng_l.caches)

@@ -31,12 +31,17 @@ from __future__ import annotations
 import torch
 
 from sgl_kernel_npu_tpu_torch.utils import cuda_lib
-from sgl_kernel_npu_tpu_torch.utils.common import cdiv, on_cuda, top_k
+from sgl_kernel_npu_tpu_torch.utils.common import cdiv, on_cuda, round_up, top_k
 from sgl_kernel_npu_tpu_torch.utils.counters import counted
 
 NEG_INF = -1e30
 D_NOPE, D_ROPE = 512, 64   # widths the CUDA kernels are built for
 KERNEL_HEAD_DIMS = (32, 64, 128)   # head widths of the GQA / sinks kernels
+# The decode kernel's splits (csrc/sinks_attention.cu): keys a split at least;
+# splits a row at most (16: a long table's blocks then fit on the card at
+# once; the kernel takes up to 32, one a lane of its merge); keys a staged
+# chunk; q heads a block
+DECODE_SPLIT, DECODE_MAX_SPLITS, DECODE_CHUNK, DECODE_HEADS = 256, 16, 64, 64
 
 
 def _gather_pages(buffer: torch.Tensor, block_table: torch.Tensor, max_len: int,
@@ -246,7 +251,8 @@ def paged_decode_plain(query, k_cache, v_cache, sinks, block_tables, context_len
     """Plain version of :func:`paged_decode` (f32 math over the whole block
     table), on the kernel's terms: an int8 cache's ``k_scale`` folded into q
     (cast back to q's dtype), the levels read as they are, then ``v_scale``
-    folded into the output.  query ``[S, Hq * D]`` → ``[S, Hq * Dv]``."""
+    folded into the output; a row that sees no key (ctx 0) is 0.  query
+    ``[S, Hq * D]`` → ``[S, Hq * Dv]``."""
     s = query.shape[0]
     d = query.shape[-1] // q_head_num
     max_len = block_tables.shape[1] * k_cache.shape[2]
@@ -256,9 +262,129 @@ def paged_decode_plain(query, k_cache, v_cache, sinks, block_tables, context_len
     k = _gather_pages(k_cache, block_tables, max_len, heads_per_row)
     v = _gather_pages(v_cache, block_tables, max_len, heads_per_row)
     out = decode_math(q, k, v, context_lens, scale, window, sinks).to(query.dtype)
+    lo, hi = visible_keys(context_lens.to(q.device), window, max_len)
+    out = torch.where((lo < hi)[:, None, None, None], out, 0)
     if v_cache.dtype == torch.int8:
         out = scale_heads(out, v_scale, k_head_num)
     return out.reshape(s, -1)
+
+
+def visible_keys(context_lens: torch.Tensor, window: int, table_keys: int):
+    """Per decode row, the keys ``[lo, hi)`` it sees: from its window start
+    (0 without a window) to its context, within the block table's
+    ``table_keys`` (torch ops on ``context_lens``' device: no host sync)."""
+    ctx = context_lens.long()
+    lo = (ctx - window).clamp(min=0) if window > 0 else torch.zeros_like(ctx)
+    return lo, ctx.clamp(max=table_keys)
+
+
+def _most_keys(table_keys: int, window: int) -> int:
+    return min(window, table_keys) if window > 0 else table_keys
+
+
+def decode_split_size(table_keys: int, window: int) -> int:
+    """Keys a split of the decode kernel over a block table of
+    ``table_keys`` keys: ``DECODE_SPLIT``, or more (a multiple of the chunk)
+    where a row could otherwise need more than ``DECODE_MAX_SPLITS``.  From
+    shapes alone, so bf16 and int8 caches split alike."""
+    keys = _most_keys(table_keys, window)
+    if cdiv(keys, DECODE_SPLIT) <= DECODE_MAX_SPLITS:
+        return DECODE_SPLIT
+    return round_up(cdiv(keys, DECODE_MAX_SPLITS), DECODE_CHUNK)
+
+
+def split_count(table_keys: int, window: int, split: int) -> int:
+    """Splits of ``split`` keys that cover any row's keys: the grid's split
+    dimension, from shapes alone."""
+    return max(cdiv(_most_keys(table_keys, window), split), 1)
+
+
+def split_plan(context_lens: torch.Tensor, window: int, table_keys: int, split: int):
+    """The decode kernel's split plan → ``(n_splits, lo, hi, n_live)``:
+    :func:`split_count`, then per row (:func:`visible_keys`, no host sync) its keys
+    ``[lo, hi)`` and its live splits, split ``j`` covering ``[lo + j split,
+    min(lo + (j + 1) split, hi))``."""
+    n_splits = split_count(table_keys, window, split)
+    lo, hi = visible_keys(context_lens, window, table_keys)
+    n_live = torch.where(lo < hi, torch.div(hi - lo + split - 1, split, rounding_mode="floor"), 0)
+    return n_splits, lo, hi, n_live
+
+
+def paged_decode_split_plain(query, k_cache, v_cache, sinks, block_tables, context_lens, scale,
+                             window: int, q_head_num: int, k_head_num: int, k_scale=None,
+                             v_scale=None, heads_per_row: int = 1, *, split: int):
+    """The decode kernel's algorithm in plain PyTorch, for the tests: each
+    row's keys in splits of ``split`` (:func:`split_plan`), per split its
+    ``(m, l, o)`` with P rounded to q's dtype for P V (the kernel: bf16) and
+    the f32 P in l, the splits merged in split order, the sink logit joining
+    the denominator at the merge, a row with no key 0, the int8 scales folded
+    as the kernel folds them.  The kernel's warps and chunks within a split,
+    its f32 sums in another order and its exponentials in base 2 differ from
+    this at rounding level only."""
+    s = query.shape[0]
+    d = query.shape[-1] // q_head_num
+    group = q_head_num // k_head_num
+    table_keys = block_tables.shape[1] * k_cache.shape[2]
+    n_splits, lo, hi, n_live = split_plan(context_lens.to(query.device), window, table_keys,
+                                          split)
+    q = query.reshape(s, k_head_num, group, d)
+    if k_cache.dtype == torch.int8:
+        q = scale_heads(q, k_scale, k_head_num)
+    pos = lo[:, None] + torch.arange(n_splits * split, device=query.device)   # [S, n split]
+    valid = (pos < hi[:, None]).reshape(s, 1, 1, n_splits, split)
+    idx = pos.clamp(max=max(table_keys - 1, 0))[:, None, :, None].expand(-1, k_head_num, -1, d)
+    k = torch.gather(_gather_pages(k_cache, block_tables, table_keys, heads_per_row), 2, idx)
+    v = torch.gather(_gather_pages(v_cache, block_tables, table_keys, heads_per_row), 2, idx)
+    logits = torch.einsum("skgd,skld->skgl", q.float(), k.float()) * scale
+    logits = torch.where(valid, logits.reshape(s, k_head_num, group, n_splits, split), NEG_INF)
+    m = logits.amax(-1)                                                      # [S, Hkv, G, n]
+    p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+    l = p.sum(-1)
+    o = torch.einsum("skgnl,sknld->skgnd", p.to(q.dtype).float(),
+                     v.float().reshape(s, k_head_num, n_splits, split, d))
+    m_all = m.amax(-1)
+    w = torch.exp(m - m_all[..., None])
+    l_all = (l * w).sum(-1)
+    o_all = (o * w[..., None]).sum(-2)
+    if sinks is None:
+        e, denom = torch.ones_like(l_all), l_all.clamp(min=1e-30)
+    else:
+        sink = sinks.float().reshape(k_head_num, group)
+        m_fin = torch.maximum(m_all, sink)
+        e = torch.exp(m_all - m_fin)
+        denom = l_all * e + torch.exp(sink - m_fin)
+    out = (o_all * e[..., None] / denom[..., None]).to(query.dtype)
+    out = torch.where((n_live > 0)[:, None, None, None], out, 0)
+    if v_cache.dtype == torch.int8:
+        out = scale_heads(out, v_scale, k_head_num)
+    return out.reshape(s, -1)
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(q: torch.Tensor, n: int) -> torch.Tensor:
+    """The decode kernel's per-(row, kv head) counters on q's device and
+    stream: zero, and left zero by every launch (the merging block resets
+    its own), so only a first use or a growth writes them."""
+    key = (q.device, cuda_lib.stream_ptr(q))
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=q.device)
+    return t
+
+
+def _scale_arg(scale, hkv: int, device) -> tuple:
+    """An int8 cache's scale as the decode kernel takes it: ``(f32 tensor or
+    None, value, step)``, the tensor indexed kv head × step; a Python number
+    goes by value (no copy to the card)."""
+    if scale is None or isinstance(scale, (int, float)):
+        return None, 1.0 if scale is None else float(scale), 0
+    t = torch.as_tensor(scale).to(device=device, dtype=torch.float32).reshape(-1).contiguous()
+    if t.numel() not in (1, hkv):
+        raise ValueError(f"an int8 cache's scale is a scalar or one per kv head ({hkv}), got "
+                         f"{t.numel()} values")
+    return t, 1.0, int(t.numel() > 1)
 
 
 def paged_decode(query, k_cache, v_cache, sinks, block_tables, context_lens, scale,
@@ -267,29 +393,48 @@ def paged_decode(query, k_cache, v_cache, sinks, block_tables, context_lens, sca
     """Launch the decode kernel of ``csrc/sinks_attention.cu`` on CUDA
     tensors: query ``[S, Hq * D]`` (one new token a row, ``context_lens``
     including it) over the paged caches (``heads_per_row`` 2: the packed
-    layout), with the sink logits ``sinks [Hq]`` or none, a sliding
-    ``window`` or none (0) → ``[S, Hq * D]`` bf16.  An int8 cache's scales
-    fold into q and the output here (JAX's wrappers fold them on the host);
-    the kernel reads levels.  Uncounted: each public wrapper counts its own
-    launches."""
+    layout), with the sink logits ``sinks [Hq]`` (f32 or bf16, read as
+    stored) or none, a sliding ``window`` or none (0) → ``[S, Hq * D]`` bf16.
+    One launch and no host sync: the kernel folds an int8 cache's scales
+    into q and the output itself, and the split size comes from shapes
+    (:func:`decode_split_size`); the merge's scratch is ``torch.empty``.
+    Uncounted: each public wrapper counts its own launches."""
     d, group = check_paged_operands(query, k_cache, v_cache, q_head_num, k_head_num,
                                     heads_per_row)
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("the decode kernel reads the caches 16 bytes at a time: they must "
+                         "start 16-byte aligned")
     s = query.shape[0]
     int8 = k_cache.dtype == torch.int8
-    q = query.reshape(s, k_head_num, group, d)
-    q = (scale_heads(q, k_scale, k_head_num) if int8 else q).contiguous()
+    q = query.contiguous()
+    dev = q.device
     bt = block_tables.to(torch.int32).contiguous()
     ctx = context_lens.to(torch.int32).contiguous()
-    sk = None if sinks is None else sinks.float().contiguous()
-    out = torch.empty((s, q_head_num * d), dtype=torch.bfloat16, device=q.device)
+    sk = sinks
+    if sk is not None:
+        if sk.numel() != q_head_num:
+            raise ValueError(f"sinks: one logit a q head ({q_head_num}), got {sk.numel()}")
+        sk = (sk if sk.dtype in (torch.float32, torch.bfloat16) else sk.float()).contiguous()
+    ks, ks_val, ks_step = _scale_arg(k_scale if int8 else None, k_head_num, dev)
+    vs, vs_val, vs_step = _scale_arg(v_scale if int8 else None, k_head_num, dev)
+    table_keys = bt.shape[1] * k_cache.shape[2]
+    split = decode_split_size(table_keys, window)
+    n_splits = split_count(table_keys, window, split)
+    out = torch.empty((s, q_head_num * d), dtype=torch.bfloat16, device=dev)
+    part_o = part_ml = tickets = None
+    if n_splits > 1:
+        part_o = torch.empty(s * q_head_num * n_splits * d, dtype=torch.float32, device=dev)
+        part_ml = torch.empty(s * q_head_num * n_splits * 2, dtype=torch.float32, device=dev)
+        tickets = _tickets(q, s * k_head_num * cdiv(group, DECODE_HEADS))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = cuda_lib.load_library()
     cuda_lib.check(lib, lib.sinks_decode_launch(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), None if sk is None else sk.data_ptr(),
-        bt.data_ptr(), ctx.data_ptr(), out.data_ptr(), s, k_head_num, heads_per_row, group, d,
-        int(int8), k_cache.shape[2], bt.shape[1], int(window), float(scale),
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(sk),
+        int(sk is not None and sk.dtype == torch.bfloat16), ptr(ks), ks_val, ks_step, ptr(vs),
+        vs_val, vs_step, bt.data_ptr(), ctx.data_ptr(), out.data_ptr(), ptr(part_o),
+        ptr(part_ml), ptr(tickets), s, k_head_num, heads_per_row, group, d, int(int8),
+        k_cache.shape[2], bt.shape[1], int(window), split, n_splits, float(scale),
         cuda_lib.stream_ptr(q)), "paged decode")
-    if int8:
-        out = scale_heads(out.reshape(s, k_head_num, group, d), v_scale, k_head_num).reshape(s, -1)
     return out
 
 

@@ -51,7 +51,8 @@ _SIGNATURES = {
     "add_rms_norm_launch": [_P] * 8 + [_I] * 6 + [_F, _P],
     "l1_norm_launch": [_P, _P, _I, _I, _I, _P],
     "swiglu_oai_launch": [_P, _P, _I, _I, _I, _F, _F, _P],
-    "sinks_decode_launch": [_P] * 7 + [_I] * 9 + [_F, _P],
+    "sinks_decode_launch": [_P] * 4 + [_I, _P, _F, _I, _P, _F, _I] + [_P] * 6 + [_I] * 11
+                           + [_F, _P],
     "sinks_prefill_launch": [_P] * 9 + [_I] * 10 + [_F, _P],
     "lora_shrink_launch": [_P] * 6 + [_F] + [_I] * 7 + [_P, _P, _P],
     "lora_expand_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],

@@ -688,15 +688,25 @@ def _sinks_inputs(gen, dev, n_rows, ctx_max, hq, hkv, d, n_tables, page=16):
     return q, kc, vc, bt, sinks
 
 
-@pytest.mark.parametrize("window", [0, 8, 128])
+# decode contexts: none (exactly 0), the new token alone, a page and one
+# more, window 8's first key mid-page (37) and on a page boundary (40); the
+# decode kernel's split boundaries and one key either side: on this 8192-key
+# table full attention splits by 512 (511-513, 1024), a window of 600 by 256
+# from its first key (ctx 855-857: the first key is 256 there); rows across
+# several splits and one at 8192 keys (16 splits); then a pad row (ctx 1, a
+# table of zeros)
+DECODE_CTX = [0, 1, 16, 17, 37, 40, 255, 256, 257, 511, 512, 513, 855, 856, 857, 1024, 2000,
+              8192, 1]
+
+
+@pytest.mark.parametrize("window", [0, 8, 128, 600])
 @pytest.mark.parametrize("hq,hkv,d", [(64, 8, 64), (16, 4, 128), (6, 2, 64)])
 def test_attention_sinks_kernel(dev, hq, hkv, d, window):
-    """Contexts 1, 16, 17, 37 (window 8: first key mid-page), 40 (first key
-    on a page boundary), 300 and 2000, and a pad row (ctx 1, zero table)."""
+    """``DECODE_CTX`` against the golden; window 600 spans three splits."""
     from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa
 
     gen = torch.Generator(device=dev).manual_seed(hq + d + window)
-    ctx_l = [1, 16, 17, 37, 40, 300, 2000, 1]
+    ctx_l = DECODE_CTX
     q, kc, vc, bt, sinks = _sinks_inputs(gen, dev, len(ctx_l), max(ctx_l), hq, hkv, d,
                                          len(ctx_l))
     bt[-1] = 0
@@ -798,16 +808,16 @@ def _cache_mode(kc, vc, kind, hkv, dev):
 
 
 @pytest.mark.parametrize("kind", ["int8", "packed", "packed_int8"])
-@pytest.mark.parametrize("window", [0, 8])
+@pytest.mark.parametrize("window", [0, 8, 600])
 @pytest.mark.parametrize("hq,hkv,d", [(64, 8, 64), (32, 2, 32), (32, 4, 128)])
 def test_attention_sinks_cache_modes_kernel(dev, hq, hkv, d, window, kind):
     """K12a on int8 levels (per-kv-head scales) and K12b / K12c on the
-    packed cache against their plain versions: the contexts of
-    ``test_attention_sinks_kernel``, a group of 16 at head_dim 32."""
+    packed cache against their plain versions: ``DECODE_CTX``, a group of 16
+    at head_dim 32."""
     from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa
 
     gen = torch.Generator(device=dev).manual_seed(hq + d + window + len(kind))
-    ctx_l = [1, 16, 17, 37, 40, 300, 2000, 1]
+    ctx_l = DECODE_CTX
     q, kc, vc, bt, sinks = _sinks_inputs(gen, dev, len(ctx_l), max(ctx_l), hq, hkv, d,
                                          len(ctx_l))
     bt[-1] = 0
@@ -828,10 +838,10 @@ def test_attention_sinks_cache_modes_kernel(dev, hq, hkv, d, window, kind):
 @pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (32, 2, 32), (64, 4, 64)])
 def test_decode_gqa_kernel(dev, hq, hkv, d, int8):
     """K11a at Llama-3.1-8B's heads (32 / 8 x 128), a group of 16 at head_dim
-    32 and 16 at 64, bf16 and int8 (per-kv-head scales); K11b launches the
-    same kernel and counts under K11a."""
+    32 and 16 at 64, bf16 and int8 (per-kv-head scales), over
+    ``DECODE_CTX``; K11b launches the same kernel and counts under K11a."""
     gen = torch.Generator(device=dev).manual_seed(hq + d + int8)
-    ctx_l = [1, 16, 17, 300, 2000, 1]
+    ctx_l = DECODE_CTX
     q, kc, vc, bt, _ = _sinks_inputs(gen, dev, len(ctx_l), max(ctx_l), hq, hkv, d, len(ctx_l))
     bt[-1] = 0
     kc, vc, sc = _cache_mode(kc, vc, "int8" if int8 else "", hkv, dev)
@@ -845,6 +855,64 @@ def test_decode_gqa_kernel(dev, hq, hkv, d, int8):
     assert da.decode_gqa.launches == before + 2 and got.shape == (len(ctx_l), hq, d)
     assert torch.equal(got, hp)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def _decode_case(dev, kind, hq, hkv, d, seed, with_sinks=True):
+    """``DECODE_CTX``'s rows in ``kind``'s cache: the wrapper of the mode and
+    its arguments (``attention_sinks`` / ``_packed``, or ``decode_gqa``
+    without sinks) and the int8 scales."""
+    from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = len(DECODE_CTX)
+    q, kc, vc, bt, sinks = _sinks_inputs(gen, dev, n, max(DECODE_CTX), hq, hkv, d, n)
+    bt[-1] = 0
+    kc, vc, sc = _cache_mode(kc, vc, kind, hkv, dev)
+    ctx = torch.tensor(DECODE_CTX, dtype=torch.int32, device=dev)
+    if not with_sinks:
+        return da.decode_gqa, (q.reshape(n, hq, d), kc, vc, ctx, d ** -0.5, bt), sc
+    fn = sa.attention_sinks_packed if "packed" in kind else sa.attention_sinks
+    return fn, (q, kc, vc, sinks.to(torch.bfloat16), bt, ctx, d ** -0.5, 600, hq, hkv), sc
+
+
+@pytest.mark.parametrize("kind,with_sinks", [("", True), ("int8", True), ("packed_int8", True),
+                                             ("", False), ("int8", False)])
+def test_paged_decode_repeats_bit_identical(dev, kind, with_sinks):
+    """Two calls give the same bits (the splits merge in a fixed order, not
+    in arrival order), and every split counter is back at 0 after each
+    (the merging block resets its own); bf16 sinks are read as stored."""
+    fn, args, sc = _decode_case(dev, kind, 32, 8, 128, 5 + len(kind), with_sinks)
+    first = fn(*args, **sc)
+    torch.cuda.synchronize()
+    assert not any(bool(t.any()) for t in da._TICKETS.values())
+    second = fn(*args, **sc)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert not any(bool(t.any()) for t in da._TICKETS.values())
+
+
+@pytest.mark.parametrize("scales", ["scalar", "per_head"])
+@pytest.mark.parametrize("kind,with_sinks", [("int8", True), ("packed_int8", True),
+                                             ("int8", False)])
+@pytest.mark.parametrize("hq,hkv,d", [(64, 8, 64), (32, 8, 128), (32, 2, 32)])
+def test_paged_decode_int8_fold_bit_equal(dev, hq, hkv, d, kind, with_sinks, scales):
+    """The int8 kernel, which folds k_scale into q and v_scale into the
+    output itself, equals bit for bit the bf16 kernel over the same levels
+    cast to bf16 with the wrappers' old fold (``scale_heads``) applied to q
+    before and to the output after: the same split size, chunks and
+    products (the split size comes from shapes alone, so the two take the
+    same).  Scalar scales go to the kernel by value."""
+    fn, args, sc = _decode_case(dev, kind, hq, hkv, d, hq + d + len(kind), with_sinks)
+    if scales == "scalar":
+        sc = dict(k_scale=0.031, v_scale=0.027)
+    q, kc, vc = args[:3]
+    n = len(DECODE_CTX)
+    got = fn(*args, **sc)
+    qf = da.scale_heads(q.reshape(n, hkv, hq // hkv, d), sc["k_scale"], hkv).reshape(q.shape)
+    ref = fn(qf, kc.to(torch.bfloat16), vc.to(torch.bfloat16), *args[3:])
+    want = da.scale_heads(ref.reshape(n, hkv, hq // hkv, d), sc["v_scale"], hkv)
+    torch.cuda.synchronize()
+    assert torch.equal(got.reshape(want.shape), want)
 
 
 @pytest.mark.parametrize("kind", ["int8", "packed", "packed_int8"])
