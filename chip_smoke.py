@@ -120,8 +120,9 @@ Phases (any failure raises and the script exits non-zero without a result):
    the phases above is dropped (the memory on the card printed at the
    start, the peak at the end): mla_flash_fwd (K14a), mla_flash_bwd_dq
    (K14b) and mla_flash_bwd_dk (K14c) held to their plain versions at B 2 x
-   S 520 x 128 heads and at S 1, 17 and 40 (16 heads), timed beside their
-   bounds, plain versions and SDPA; DeepSeek-V3's published widths cut to
+   S 520 x 128 heads and at ``TRAIN_SMALL``'s shapes (S 1-129, 4-128 heads,
+   B 1-3), K14a also to its tiled CPU mirror and bit-identical over two
+   calls, timed beside their bounds, plain versions and SDPA; DeepSeek-V3's published widths cut to
    1 of 61 layers, bf16, with the float routed experts, served through
    ``Engine`` + ``deepseek_adapter`` without ``moe_weights_q`` (the dense
    float MoE) on [4]'s three shortest prompts (exact K2 / K9a counts, a
@@ -135,8 +136,9 @@ Phases (any failure raises and the script exits non-zero without a result):
    512-token chunks) and before [5]: grouped_matmul_float (K8a's bf16
    ``none`` mode) held to its plain version at a chunk's two expert
    products (2048 rows of top-4 routing over 32 experts), and both bf16
-   modes on ragged cases (an empty group, a group of one row, a total below
-   S), timed beside the bound, the plain version and ``torch._grouped_mm``
+   modes on ragged cases (an empty group, a group of one row, groups of
+   one and of two or three 128-row work items, N = 2880, a total below S),
+   timed beside the bound, the plain version and ``torch._grouped_mm``
    (or a loop of ``torch.matmul``); then ``Engine(prefill_chunk=512)`` +
    ``gpt_oss_adapter(ep_buffer=Buffer(...))`` on a one-rank NCCL group
    (``EPConfig()``: exact capacities) serves [4e]'s prompts: K8a ``none``
@@ -340,6 +342,12 @@ LORA_IDS = [0, 1, 2, 3, 0]
 CFG_TRAIN = dataclasses.replace(CFG, num_layers=1)
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_NEW_TOKENS = 2, 520, 3, 8
 TRAIN_KERNELS = ("mla_flash_fwd", "mla_flash_bwd_dq", "mla_flash_bwd_dk")
+# (B, S, H) beside [2, 520] x 128 heads: one token, rows spanning tokens (4,
+# 16, 20 heads; a K14a block boundary inside a token at 20), K14a's 64-key
+# chunk edges at 128 heads, three batch rows (tests/test_torch_cuda_kernels
+# TRAIN_CASES and more)
+TRAIN_SMALL = ((2, 1, 128), (2, 17, 128), (1, 1, 16), (1, 40, 16), (2, 33, 4), (1, 70, 20),
+               (1, 64, 128), (1, 65, 128), (1, 129, 128), (3, 65, 20))
 # max |g_flash - g| / max |g| per gradient leaf, against the step with K14a-c's
 # plain versions (the same arithmetic: bf16 rounding flips) and against the
 # dense einsum attention (bf16 scores and probabilities), the routing replayed
@@ -1877,7 +1885,9 @@ def decode_kernels_only(gen):
     one bf16 ``attention_sinks`` call at [4e]'s full layer, each under
     ``torch.profiler`` after a warm-up: the wrapper enqueues the decode
     kernel and nothing else (no fold of the int8 scales, no cast of the
-    sinks or the lengths), else the run fails."""
+    sinks or the lengths), else the run fails.  A trace that recorded no
+    device activity at all (the profiler caught nothing) is taken again, up
+    to three times."""
     dec_ctx = [n + NEW_TOKENS for n in GPT_PROMPT_LENS] + [1] * (MAX_BATCH - len(GPT_PROMPT_LENS))
     ctx = torch.tensor(dec_ctx, dtype=torch.int32, device=DEV)
     bt = torch.arange(MAX_BATCH * GPT_PAGES_PER_REQ, dtype=torch.int32,
@@ -1895,7 +1905,10 @@ def decode_kernels_only(gen):
         qg, kg, vg, sinks, bt, ctx, d ** -0.5, 0, hq, hkv)))
     for label, fn in calls:
         fn()
-        rows, busy, wall = trace_profile.device_breakdown(fn, top=100)
+        for _ in range(3):  # a trace that caught no device activity at all shows nothing: again
+            rows, busy, wall = trace_profile.device_breakdown(fn, top=100)
+            if rows:
+                break
         log(f"  {label} under torch.profiler: {[(n[:60], c) for n, _, c in rows]}, device "
             f"{busy:.4f} ms of {wall:.3f} wall")
         if [c for n, _, c in rows if "decode_kernel" in n] != [1] or len(rows) != 1:
@@ -2503,7 +2516,9 @@ def check_mla_train(gen, b, s, h, timed):
     at ``[B, S, H]``: the output within 2e-2 + 2e-2 |plain|, the LSE 1e-4, dQ
     and dK within 1e-2 of the tensor's largest |value| plus 1e-4 (dS and P
     round to bf16 on both sides, a tie moved by an f32 ulp flips one; at S =
-    1 the true dQ is 0 and both sides are f32 cancellation noise).  ``timed``:
+    1 the true dQ is 0 and both sides are f32 cancellation noise); K14a also
+    within those tolerances of its tiled CPU mirror (``mla_flash_fwd_tiled_plain``,
+    the kernel's own walk) and bit-identical over two calls.  ``timed``:
     each kernel, its plain version and SDPA over the latent || rope keys
     expanded to the heads (forward; backward for K14b + K14c together).
     Returns the three kernels' results."""
@@ -2511,7 +2526,9 @@ def check_mla_train(gen, b, s, h, timed):
     x = (r(b, s, h, 512), r(b, s, h, 64), r(b, s, 512), r(b, s, 64))
     sc = CFG.sm_scale
     out, lse = mt.mla_flash_fwd(*x, sc)
+    again = mt.mla_flash_fwd(*x, sc)
     out_p, lse_p = mt.mla_flash_fwd_plain(*x, sc)
+    out_t, lse_t = mt.mla_flash_fwd_tiled_plain(*x, sc)
     do = r(b, s, h, 512)
     delta = (do.float() * out_p.float()).sum(-1)
     args = (*x, do, lse_p, delta, sc)
@@ -2520,6 +2537,9 @@ def check_mla_train(gen, b, s, h, timed):
     torch.cuda.synchronize()
     err_o, ok_o = attention_close(out, out_p)
     err_l = max_abs(lse, lse_p)
+    err_ot, ok_ot = attention_close(out, out_t)
+    err_lt = max_abs(lse, lse_t)
+    same = torch.equal(again[0], out) and torch.equal(again[1], lse)
     errs = {"dq": [max_abs(a, w) for a, w in zip(dq, dq_p)],
             "dk": [max_abs(a, w) for a, w in zip(dk, dk_p)]}
     ok_g = all(max_abs(a, w) <= 1e-2 * float(w.float().abs().max()) + 1e-4
@@ -2529,8 +2549,9 @@ def check_mla_train(gen, b, s, h, timed):
         f"of max {float(dq_p[0].float().abs().max()):.3e} / "
         f"{float(dq_p[1].float().abs().max()):.3e}; dk_lat / dk_pe {errs['dk'][0]:.3e} / "
         f"{errs['dk'][1]:.3e} of max {float(dk_p[0].float().abs().max()):.3e} / "
-        f"{float(dk_p[1].float().abs().max()):.3e} (tol 1e-2 of max + 1e-4)")
-    if not (ok_o and err_l <= 1e-4 and ok_g):
+        f"{float(dk_p[1].float().abs().max()):.3e} (tol 1e-2 of max + 1e-4); K14a against "
+        f"its tiled mirror: out {err_ot:.3e}, lse {err_lt:.3e}; two calls bit-identical: {same}")
+    if not (ok_o and err_l <= 1e-4 and ok_g and ok_ot and err_lt <= 1e-4 and same):
         raise AssertionError("an MLA training kernel disagrees with its plain version")
     res = [dict(err=max(err_o, err_l)), dict(err=max(errs["dq"])), dict(err=max(errs["dk"]))]
     if not timed:
@@ -2706,7 +2727,7 @@ def training_phase():
         f"allocated on the card at the start")
     gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
     k14 = check_mla_train(gen, TRAIN_B, TRAIN_S, CFG.num_heads, True)
-    for b, s, h in ((2, 1, CFG.num_heads), (2, 17, CFG.num_heads), (1, 40, 16)):
+    for b, s, h in TRAIN_SMALL:
         check_mla_train(gen, b, s, h, False)
 
     t0 = time.perf_counter()
@@ -2861,10 +2882,10 @@ def check_grouped_bf16(label, x, w, gs, contract_last, timed):
 
 def check_grouped_bf16_small(gen):
     """K8a's bf16 modes on ragged cases: an empty group, a group of one row,
-    groups of more than one 64-row tile, K past a 64-element stage, and a
-    total below S."""
+    groups of one and of more than one 128-row work item, K past a 64-element
+    stage, N = 2880 (a half 128-column tile), and a total below S."""
     for sizes, s, k, n in (((0, 1, 37, 0, 64, 65), 190, 520, 384), ((0, 0, 1), 5, 64, 136),
-                           ((3, 0, 70, 9), 100, 336, 160)):
+                           ((3, 0, 70, 9), 100, 336, 160), ((129, 0, 257, 3), 400, 520, 2880)):
         gs = torch.tensor(sizes, dtype=torch.int32, device=DEV)
         x = randn(gen, (s, k))
         for contract_last in (False, True):

@@ -58,17 +58,21 @@
 // its group.  The tile itself is in gmm_tile.cuh, shared with the fused MoE
 // (K16b, fused_full.cu) and the fused dispatch + GEMM1 (K16a,
 // fused_kernel.cu).
+#include <string.h>
+
 #include "gmm_tile.cuh"
+#include "wgmma.cuh"
 
 namespace k8 {
 
 // Items past the last tile: zero rows [total, S) of the output columns [c0,
-// c0 + width) (n_out columns a row), the pad items striding over them.
-template <class OutT>
+// c0 + width) (n_out columns a row), the pad items striding over them, ROWS
+// rows an item, NT threads a block.
+template <int ROWS, int NT, class OutT>
 __device__ void zero_tail(OutT* __restrict__ out, int total, int S, int n_out, int c0,
                           int width, int pad, int n_pad) {
-  for (int r = total + pad * BM; r < S; r += n_pad * BM)
-    for (int e = threadIdx.x; e < BM * width / 2; e += THREADS) {
+  for (int r = total + pad * ROWS; r < S; r += n_pad * ROWS)
+    for (int e = threadIdx.x; e < ROWS * width / 2; e += NT) {
       const int row = r + e / (width / 2), col = c0 + 2 * (e % (width / 2));
       if (row < S && col < n_out) store_pair(out, (size_t)row * n_out + col, 0.f, 0.f);
     }
@@ -95,8 +99,8 @@ __global__ void __launch_bounds__(THREADS, 3)
   const int n_out = EPI == kDequant ? N : N / 2, width = EPI == kDequant ? BN : HALF;
   if (item >= n_items) {
     if (EPI != kSwiGLU)
-      zero_tail(out, min(offsets[groups], S), S, n_out, bx * width, width, item - n_items,
-                gridDim.y - n_items);
+      zero_tail<BM, THREADS>(out, min(offsets[groups], S), S, n_out, bx * width, width,
+                             item - n_items, gridDim.y - n_items);
     return;
   }
   const int g = find_group(tile_off, groups, item);
@@ -165,149 +169,183 @@ inline dim3 grid(int S, int groups, int col_tiles) {
 // expert's weights once, 7.5 GB (2.24 ms at 3.35 TB/s) against 0.24 T bf16
 // operations (0.25 ms at 989 TFLOP/s); at GPT-OSS-20B's 512-token chunk (2048
 // rows over 32 experts) a layer's two products read at most 1.59 GB.  A weight
-// byte is worth ~33-64 operations, well below the card's ~295 a byte: the
-// products run on mma.sync.m16n8k16 (bf16 in, f32 accumulate) and the design
-// is the int8 modes' (above): 64-row work items aligned to each group's first
-// row, the group found by a binary search, 128-column tiles, the grid sized
-// for the worst case and the items past the last tile zeroing the rows past
-// the groups' total.  One template flag picks the weight layout: "none" stages
-// the [BK k][128 n] tile as stored and takes the B fragments by
-// ldmatrix.trans, "rhs_contract_last" stages the [128 n][BK k] tile as stored
-// and takes them by plain ldmatrix; neither transposes the weights in memory.
-// Each stage is 64 k: 16-byte global loads (x rows and weight rows contiguous),
-// held in registers while the current stage computes; rows strided 16 bytes
-// past a multiple of 128 keep ldmatrix free of bank conflicts.  8 warps, each
-// 32 rows x 32 columns (2 x 4 mma tiles).
-constexpr int FBK = 64;                         // k elements per stage
-constexpr int FLDA = FBK + 8;                   // x tile row stride (elements)
-constexpr int FLDB_N = BN + 8;                  // [k][n] weight tile row stride
-constexpr int FLDB_K = FBK + 8;                 // [n][k] weight tile row stride
-constexpr int F_A_LOADS = BM * FBK / 8 / THREADS;  // 16-byte x loads a thread per stage
-constexpr int F_B_LOADS = FBK * BN / 8 / THREADS;  // 16-byte weight loads a thread per stage
+// byte is worth ~33-128 operations, well below the card's ~295 a byte.
+//
+// Design (Hopper).  A block has to keep several stages of weights in flight
+// (a single 64-k stage held in registers, with a round trip to HBM per
+// stage, reaches two thirds of the bound at GPT-OSS's shape), and a group's
+// weights should stream once however many rows it has.  So a block owns (work
+// item, column tile): an item is up to WM = 128 sorted rows of one group,
+// aligned to the group's first row (the wrapper's tile offsets of 128-row
+// items), so a group of up to 128 rows streams its weights once; a column
+// tile is WN = 128 columns; two blocks an SM.  Warp 8 loads a ring of
+// WSTAGES stages of 64 k behind full / empty mbarriers, both operands in
+// the 128-byte swizzle that wgmma reads: one lane issues the
+// weight tile by TMA (none: two boxes of 64 k x 64 columns, an MN-major B;
+// rhs_contract_last: one box of 128 columns x 64 k, K-major; neither layout
+// transposed in memory; columns and k past the edges read as zeros) and the
+// item's x rows as TMA boxes of 64 rows x 64 k (K-major A) where they are
+// contiguous; with dispatch_p the warp gathers them by cp.async into the
+// same swizzle (a row map TMA cannot follow; k past K as zeros; slower, as
+// scripts/probe_gmm_bf16.py measures).
+// Warpgroups 0 and 1 each take 64 rows (the second only when the item has
+// more than 64) on wgmma m64n128k16 into 64 f32 accumulators a thread, one
+// stage's products in flight while the next stage's are issued, and release
+// each stage on its empty barrier.  The block's group is found by one
+// warp's parallel count over the tile offsets (no host sync).  Rows of the
+// item past its group are never written; the items past the last one zero
+// the rows past the groups' total.
+constexpr int WM = 128;                         // rows of a bf16 work item
+constexpr int WN = 128;                         // columns of a bf16 block
+constexpr int WK = 64;                          // k of a stage (128 bytes of bf16)
+constexpr int WSTAGES = 3;
+constexpr int WBLOCKS = 2;                      // blocks an SM
+constexpr int WCONSUMERS = 256;                 // warpgroups 0 and 1 compute,
+constexpr int WTHREADS = WCONSUMERS + 32;       // warp 8 loads
+constexpr uint32_t W_BYTES = WK * WN * 2;       // a stage's weights, 1024-aligned
+constexpr uint32_t XBOX = 64 * WK * 2;          // 64 x rows [row][128 bytes]
+constexpr uint32_t WSTAGE = W_BYTES + 2 * XBOX;
+constexpr uint32_t WSRC_OFF = WSTAGES * WSTAGE;         // [WM] source row (-1 zero)
+constexpr uint32_t WITEM_OFF = WSRC_OFF + WM * 4;       // group, first row, rows
+constexpr uint32_t WBARS_OFF = WITEM_OFF + 16;          // full[WSTAGES], empty[WSTAGES]
+constexpr uint32_t WSMEM = WBARS_OFF + 2 * WSTAGES * 8;
+static_assert(WBLOCKS * (WSMEM + 1024) <= 233472,
+              "K8a bf16's blocks exceed an SM's shared memory");
 
 // x [S, K] bf16 rows grouped by expert (row r reads x[xrow[r]] where xrow is
-// given), w [G, K, N] (or [G, N, K] with CL) bf16, offsets / tile_off [G + 1]
-// as above -> out [S, N] f32, bf16 or f16.
+// given; else xmap, x as (K, S), boxes of 64 x 64), wmap the weights' tensor
+// map (none: [G, K, N] as (N, K, G), boxes of 64 x 64; CL: [G, N, K] as (K,
+// N, G), boxes of 64 x 128), offsets / tile_off [G + 1] (row offsets, prefix
+// sums of ceil(size / WM)) -> out [S, N] f32, bf16 or f16.
 template <bool CL, class OutT>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(WTHREADS, WBLOCKS)
     gmm_bf16_kernel(const bf16* __restrict__ x, const int* __restrict__ xrow,
-                    const bf16* __restrict__ w, const int* __restrict__ offsets,
+                    const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap wmap, const int* __restrict__ offsets,
                     const int* __restrict__ tile_off, int groups, int S, int K, int N,
                     OutT* __restrict__ out) {
-  __shared__ __align__(16) bf16 as[BM * FLDA];
-  __shared__ __align__(16) bf16 bs[CL ? BN * FLDB_K : FBK * FLDB_N];
+  extern __shared__ __align__(1024) unsigned char smem[];
+  int* src_s = reinterpret_cast<int*>(smem + WSRC_OFF);
+  int* item_s = reinterpret_cast<int*>(smem + WITEM_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + WBARS_OFF);
+  uint64_t* empty = full + WSTAGES;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g8 = lane >> 2, tq = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int bx = blockIdx.x, item = blockIdx.y;
+  const int n0 = blockIdx.x * WN, item = blockIdx.y;
   const int n_items = tile_off[groups];
   if (item >= n_items) {
-    zero_tail(out, min(offsets[groups], S), S, N, bx * BN, BN, item - n_items,
-              gridDim.y - n_items);
+    zero_tail<WM, WTHREADS>(out, min(offsets[groups], S), S, N, n0, WN, item - n_items,
+                            gridDim.y - n_items);
     return;
   }
-  const int g = find_group(tile_off, groups, item);
-  const int r0 = offsets[g] + (item - tile_off[g]) * BM;
-  const int r1 = min(min(r0 + BM, offsets[g + 1]), S);
-  const bf16* wg = w + (size_t)g * K * N;
-  const int n0 = bx * BN;
-
-  const bf16* xsrc[F_A_LOADS];                   // the x rows this thread stages
+  if (warp == 0) {  // the item's group: the count of groups 1 .. G - 1 starting at or before it
+    int below = 0;
+    for (int i = 1 + lane; i < groups; i += 32) below += tile_off[i] <= item;
 #pragma unroll
-  for (int i = 0; i < F_A_LOADS; ++i) {
-    const int row = r0 + (tid + i * THREADS) / (FBK / 8);
-    const int src = row < r1 ? (xrow ? xrow[row] : row) : -1;
-    xsrc[i] = src >= 0 ? x + (size_t)src * K : nullptr;
+    for (int o = 16; o > 0; o >>= 1) below += __shfl_xor_sync(0xffffffffu, below, o);
+    if (lane == 0) {
+      const int r0 = offsets[below] + (item - tile_off[below]) * WM;
+      item_s[0] = below;
+      item_s[1] = r0;
+      item_s[2] = min(min(r0 + WM, offsets[below + 1]), S) - r0;
+    }
   }
-  uint4 xa[F_A_LOADS], wb[F_B_LOADS];
-  auto load_stage = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < F_A_LOADS; ++i) {
-      const int kk = k0 + 8 * ((tid + i * THREADS) % (FBK / 8));
-      xa[i] = (xsrc[i] != nullptr && kk < K) ? __ldg(reinterpret_cast<const uint4*>(xsrc[i] + kk))
-                                             : make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  const int g = item_s[0], r0 = item_s[1], rows = item_s[2];
+  if (rows <= 0) return;
+  const int active = rows > 64 ? 2 : 1;         // computing warpgroups with live rows
+  const int nk = (K + WK - 1) / WK;
+  if (xrow != nullptr && tid < rows) src_s[tid] = xrow[r0 + tid];
+  if (tid == 0)
+    for (int i = 0; i < WSTAGES; ++i) {
+      wg::mbar_init(&full[i], 2 * 32);          // each producer lane twice
+      wg::mbar_init(&empty[i], 4 * active);     // each computing warp once
     }
-#pragma unroll
-    for (int i = 0; i < F_B_LOADS; ++i) {
-      const int c = tid + i * THREADS;
-      // K % 8 == 0 and N % 8 == 0: 8 consecutive elements are all in or all out
-      const int nn = CL ? n0 + c / (FBK / 8) : n0 + 8 * (c % (BN / 8));
-      const int kk = CL ? k0 + 8 * (c % (FBK / 8)) : k0 + c / (BN / 8);
-      const bf16* src = CL ? wg + (size_t)nn * K + kk : wg + (size_t)kk * N + nn;
-      wb[i] = (nn < N && kk < K) ? __ldg(reinterpret_cast<const uint4*>(src))
-                                 : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
+  __syncthreads();
 
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][nj][r] = 0.f;
-
-  load_stage(0);
-  for (int k0 = 0; k0 < K; k0 += FBK) {
-#pragma unroll
-    for (int i = 0; i < F_A_LOADS; ++i) {
-      const int c = tid + i * THREADS;
-      *reinterpret_cast<uint4*>(as + (c / (FBK / 8)) * FLDA + 8 * (c % (FBK / 8))) = xa[i];
-    }
-#pragma unroll
-    for (int i = 0; i < F_B_LOADS; ++i) {
-      const int c = tid + i * THREADS;
-      bf16* dst = CL ? bs + (c / (FBK / 8)) * FLDB_K + 8 * (c % (FBK / 8))
-                     : bs + (c / (BN / 8)) * FLDB_N + 8 * (c % (BN / 8));
-      *reinterpret_cast<uint4*>(dst) = wb[i];
-    }
-    __syncthreads();
-    if (k0 + FBK < K) load_stage(k0 + FBK);
-
-    const int steps = min(FBK, K - k0 + 15) / 16;   // zero-filled k past K adds nothing
-#pragma unroll
-    for (int s = 0; s < FBK / 16; ++s) {
-      if (s >= steps) break;
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        sgl::ldsm_x4(a[mi], as + (32 * wm + 16 * mi + (lane & 15)) * FLDA + 16 * s + 8 * (lane >> 4));
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {             // n8 tiles 2p and 2p + 1 of the warp's 4
-        const int nc = 32 * wn + 16 * p;
-        uint32_t r[4];
-        if (CL)
-          sgl::ldsm_x4(r, bs + (nc + (lane & 7) + 8 * (lane >> 4)) * FLDB_K + 16 * s
-                              + 8 * ((lane >> 3) & 1));
-        else
-          sgl::ldsm_x4_trans(r, bs + (16 * s + (lane & 15)) * FLDB_N + nc + 8 * (lane >> 4));
-        b[2 * p][0] = r[0];
-        b[2 * p][1] = r[1];
-        b[2 * p + 1][0] = r[2];
-        b[2 * p + 1][1] = r[3];
+  if (warp == WCONSUMERS / 32) {  // the producer warp
+    for (int it = 0; it < nk; ++it) {
+      const int st = it % WSTAGES;
+      if (it >= WSTAGES) wg::mbar_wait(&empty[st], (it / WSTAGES - 1) & 1);
+      unsigned char* stage = smem + st * WSTAGE;
+      unsigned char* xs = stage + W_BYTES;
+      const int k0 = it * WK;
+      if (lane == 0) {
+        wg::mbar_expect_tx(&full[st], W_BYTES + (xrow == nullptr ? active * XBOX : 0));
+        if (CL) {
+          wg::tma_load_3d(stage, &wmap, k0, n0, g, &full[st]);
+        } else {
+          wg::tma_load_3d(stage, &wmap, n0, k0, g, &full[st]);
+          wg::tma_load_3d(stage + W_BYTES / 2, &wmap, n0 + 64, k0, g, &full[st]);
+        }
+        if (xrow == nullptr)
+          for (int h = 0; h < active; ++h)
+            wg::tma_load_2d(xs + h * XBOX, &xmap, k0, r0 + 64 * h, &full[st]);
       }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) sgl::mma_16816(acc[mi][nj], a[mi], b[nj]);
+      if (xrow != nullptr) {  // 4 rows x 8 pieces a copy instruction, swizzled as TMA would
+        const int pc = lane & 7, kk = k0 + 8 * pc;
+        for (int r = lane >> 3; r < rows; r += 4) {
+          const int sr = src_s[r];
+          const bool live = sr >= 0 && kk < K;   // K % 8 == 0: a piece is all in or all out
+          wg::cp_async16(xs + r * 128 + ((pc ^ (r & 7)) << 4),
+                         live ? x + (size_t)sr * K + kk : x, live ? 16 : 0);
+        }
+      }
+      wg::mbar_arrive_cp_async(&full[st]);     // when this lane's x pieces land
+      wg::mbar_arrive(&full[st]);
     }
-    __syncthreads();
+    return;
   }
 
-  // C fragment: rows g8 / g8 + 8 of each m16 tile, columns 2 tq, 2 tq + 1
+  const int wgi = tid >> 7;
+  if (wgi >= active) return;
+  float acc[64];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int it = 0; it < nk; ++it) {
+    const int st = it % WSTAGES;
+    const unsigned char* stage = smem + st * WSTAGE;
+    wg::mbar_wait(&full[st], (it / WSTAGES) & 1);
+    if (xrow != nullptr) wg::fence_proxy();    // the x pieces came by cp.async
+    const unsigned char* xs = stage + W_BYTES + wgi * XBOX;
+    wg::fence_operands(acc);
+    wg::fence();
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r0 + 32 * wm + 16 * mi + g8 + 8 * h;
-      if (row >= r1) continue;
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const int col = n0 + 32 * wn + 8 * nj + 2 * tq;
-        if (col < N) store_pair(out, (size_t)row * N + col, acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
-      }
+    for (int ks = 0; ks < WK / 16; ++ks) {
+      const uint64_t a = wg::desc_sw128(xs + ks * 32, 16, 1024);
+      if (CL)
+        wg::mma_m64n128k16<0>(acc, a, wg::desc_sw128(stage + ks * 32, 16, 1024));
+      else
+        wg::mma_m64n128k16<1>(acc, a, wg::desc_sw128(stage + 16 * ks * 128, W_BYTES / 2, 1024));
     }
+    wg::commit();
+    wg::wait_one();                            // the previous stage's products are done
+    wg::fence_operands(acc);
+    __syncwarp();
+    if (it > 0 && lane == 0) wg::mbar_arrive(&empty[(it - 1) % WSTAGES]);
+  }
+  wg::wait_all();
+  wg::fence_operands(acc);
+
+  // acc[4 i + 2 h + e]: row 16 (warp % 4) + lane / 4 + 8 h of the warpgroup's
+  // 64, column 8 i + 2 (lane % 4) + e of the tile
+  const int wq = warp & 3, g8 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 64 * wgi + 16 * wq + g8 + 8 * h;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int i = 0; i < WN / 8; ++i) {
+      const int col = n0 + 8 * i + 2 * t4;
+      if (col < N)
+        store_pair(out, (size_t)(r0 + r) * N + col, acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+    }
+  }
 }
+
+// K8b's mask-product tile (combine_kernel below): stages of 64 k.
+constexpr int FBK = 64;                         // k elements per stage
+constexpr int FLDB_N = BN + 8;                  // [k][n] tile row stride
+constexpr int F_B_LOADS = FBK * BN / 8 / THREADS;  // 16-byte loads a thread per stage
 
 // ---------------------------------------------------------------------------
 // grouped_matmul_combine (K8b): the W8A8 GMM2 with the weighted top-k combine,
@@ -478,27 +516,49 @@ int launch_int8_out(int out_kind, dim3 grid, cudaStream_t s, const void* x, cons
 }
 
 template <bool CL, class OutT>
-void launch_bf16(dim3 grid, cudaStream_t s, const void* x, const int* xrow, const void* w,
-                 const void* offsets, const void* tile_off, int groups, int S, int K, int N,
-                 void* out) {
-  k8::gmm_bf16_kernel<CL, OutT><<<grid, k8::THREADS, 0, s>>>(
-      (const __nv_bfloat16*)x, xrow, (const __nv_bfloat16*)w, (const int*)offsets,
-      (const int*)tile_off, groups, S, K, N, (OutT*)out);
+int launch_bf16(cudaStream_t s, const void* x, const int* xrow, const void* w,
+                const void* offsets, const void* tile_off, int groups, int S, int K, int N,
+                void* out) {
+  if (K == 0 || groups == 0) {                 // no products: every row is zero
+    return (int)cudaMemsetAsync(out, 0, (size_t)S * N * sizeof(OutT), s);
+  }
+  CUtensorMap wmap, xmap;
+  const uint64_t dims[3] = {(uint64_t)(CL ? K : N), (uint64_t)(CL ? N : K), (uint64_t)groups};
+  const uint64_t strides[2] = {(uint64_t)(CL ? K : N) * 2, (uint64_t)K * N * 2};
+  const uint32_t box[3] = {64, CL ? k8::WN : k8::WK, 1};
+  int rc = wg::tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, w, dims, strides, box);
+  if (rc != 0) return rc;
+  if (xrow == nullptr) {  // x [S, K] as (K, S), boxes of 64 k x 64 rows
+    const uint64_t xdims[2] = {(uint64_t)K, (uint64_t)S}, xstride[1] = {(uint64_t)K * 2};
+    const uint32_t xbox[2] = {64, 64};
+    rc = wg::tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xdims, xstride, xbox);
+    if (rc != 0) return rc;
+  } else {
+    memset(&xmap, 0, sizeof(xmap));           // the gather reads no map
+  }
+  cudaFuncSetAttribute(k8::gmm_bf16_kernel<CL, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)k8::WSMEM);
+  cudaFuncSetAttribute(k8::gmm_bf16_kernel<CL, OutT>,
+                       cudaFuncAttributePreferredSharedMemoryCarveout, 100);   // two blocks an SM
+  const dim3 grid((N + k8::WN - 1) / k8::WN, (S + k8::WM - 1) / k8::WM + groups + 1);
+  k8::gmm_bf16_kernel<CL, OutT><<<grid, k8::WTHREADS, k8::WSMEM, s>>>(
+      (const __nv_bfloat16*)x, xrow, xmap, wmap, (const int*)offsets, (const int*)tile_off,
+      groups, S, K, N, (OutT*)out);
+  return 0;
 }
 
 template <bool CL>
-int launch_bf16_out(int out_kind, dim3 grid, cudaStream_t s, const void* x, const int* xrow,
-                    const void* w, const void* offsets, const void* tile_off, int groups, int S,
-                    int K, int N, void* out) {
+int launch_bf16_out(int out_kind, cudaStream_t s, const void* x, const int* xrow, const void* w,
+                    const void* offsets, const void* tile_off, int groups, int S, int K, int N,
+                    void* out) {
   if (out_kind == kF32)
-    launch_bf16<CL, float>(grid, s, x, xrow, w, offsets, tile_off, groups, S, K, N, out);
-  else if (out_kind == kBF16)
-    launch_bf16<CL, __nv_bfloat16>(grid, s, x, xrow, w, offsets, tile_off, groups, S, K, N, out);
-  else if (out_kind == kF16)
-    launch_bf16<CL, __half>(grid, s, x, xrow, w, offsets, tile_off, groups, S, K, N, out);
-  else
-    return (int)cudaErrorInvalidValue;
-  return 0;
+    return launch_bf16<CL, float>(s, x, xrow, w, offsets, tile_off, groups, S, K, N, out);
+  if (out_kind == kBF16)
+    return launch_bf16<CL, __nv_bfloat16>(s, x, xrow, w, offsets, tile_off, groups, S, K, N,
+                                          out);
+  if (out_kind == kF16)
+    return launch_bf16<CL, __half>(s, x, xrow, w, offsets, tile_off, groups, S, K, N, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -551,9 +611,10 @@ extern "C" int grouped_matmul_int8_launch(const void* x, const void* w, const vo
 }
 
 // K8a's bf16 modes.  x [S, K] bf16 (with p: [n_tok, K], p, xrow and bad as above),
-// w [G, K, N] bf16 (contract_last: [G, N, K]), offsets / tile_off as above ->
-// out [S, N] of out_kind, rows past the groups' total zero.  Needs K % 8 == 0
-// and N % 8 == 0.
+// w [G, K, N] bf16 (contract_last: [G, N, K]) starting 16-byte aligned (TMA),
+// offsets [G + 1] as above, tile_off [G + 1] the prefix sums of ceil(size /
+// 128): the bf16 work items of k8::WM rows -> out [S, N] of out_kind, rows
+// past the groups' total zero.  Needs K % 8 == 0 and N % 8 == 0.
 extern "C" int grouped_matmul_bf16_launch(const void* x, const void* w, const void* offsets,
                                           const void* tile_off, int groups, int S, int K, int N,
                                           int contract_last, int out_kind, const void* p,
@@ -567,12 +628,10 @@ extern "C" int grouped_matmul_bf16_launch(const void* x, const void* w, const vo
     if (rc != 0) return rc;
   }
   const int* xr = p != nullptr ? (const int*)xrow : nullptr;
-  const dim3 grid = k8::grid(S, groups, (N + k8::BN - 1) / k8::BN);
-  const int rc = contract_last
-                     ? launch_bf16_out<true>(out_kind, grid, s, x, xr, w, offsets, tile_off,
-                                             groups, S, K, N, out)
-                     : launch_bf16_out<false>(out_kind, grid, s, x, xr, w, offsets, tile_off,
-                                              groups, S, K, N, out);
+  const int rc = contract_last ? launch_bf16_out<true>(out_kind, s, x, xr, w, offsets, tile_off,
+                                                       groups, S, K, N, out)
+                               : launch_bf16_out<false>(out_kind, s, x, xr, w, offsets, tile_off,
+                                                        groups, S, K, N, out);
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 

@@ -24,7 +24,6 @@
 // chunk (pos_sel[b, chunk, :], -1 = a dead slot).  Its block body of its own
 // (mla_sparse.cuh: 64 rows of a q-chunk, a TMA key ring, wgmma) says
 // what bounds it and what the design does about it.
-#include <cudaTypedefs.h>
 #include <string.h>
 
 #include "mla_attention.cuh"
@@ -90,27 +89,11 @@ __global__ void __launch_bounds__(mlas::THREADS, 1)
 // 512] rows, boxes of box_keys rows x 128 bytes, 128-byte swizzle.
 template <typename KN>
 int latent_map(CUtensorMap* map, const void* kn, int total_rows, int box_keys) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", (void**)&encode, 12000, cudaEnableDefault, &found);
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) {
-      encode = nullptr;
-      return e != cudaSuccess ? (int)e : (int)cudaErrorNotSupported;
-    }
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)mlas::DN, (cuuint64_t)total_rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)mlas::DN * sizeof(KN)};
-  const cuuint32_t box[2] = {(cuuint32_t)(128 / sizeof(KN)), (cuuint32_t)box_keys};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map,
-                            sizeof(KN) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                            : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                            2, const_cast<void*>(kn), dims, strides, box, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  const uint64_t dims[2] = {mlas::DN, (uint64_t)total_rows}, strides[1] = {mlas::DN * sizeof(KN)};
+  const uint32_t box[2] = {128 / sizeof(KN), (uint32_t)box_keys};
+  return wg::tensor_map(map, sizeof(KN) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                             : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                        2, kn, dims, strides, box);
 }
 
 template <typename KN>

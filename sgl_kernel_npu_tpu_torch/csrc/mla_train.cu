@@ -14,19 +14,43 @@
 // 2 (576 + 512) flops, dQ 2 (576 + 512 + 576), dK 2 (576 + 512 + 576 + 512),
 // all at the bf16 tensor-core rate; the bytes (q, dO and out once) are of the
 // same order at S = 520, H = 128 (chip_smoke.py computes which is larger).
-// The products run on the tensor cores through mma.sync.m16n8k16 with f32
-// accumulation; wgmma tiles of 64 rows, a TMA ring and keys shared by more
-// rows are later work (PERF.md, ROADMAP).
 //
-// Design.  K14a and K14b take the block of mla_attention.cuh (K9a's): 16 query
+// K14a runs on the Hopper body of K9b (mla_sparse.cuh), a second body on the
+// same wgmma.cuh helpers with dense keys in place of selected pages.  The
+// 16-row block of K14b and K14c (below) would send every key through L2 once
+// per 16 rows (~2.5 GB at B 2 x S 520 x 128 heads), stage the keys through
+// the computing threads' registers, split the 576-deep Q K^T across warps
+// with partial sums in shared memory and run the softmax row by row; here:
+//   K14a: a block owns 64 consecutive flat rows of one batch row (64 heads of
+//         one token at H = 128; at fewer heads the rows span tokens, each
+//         masking keys past its own) and walks keys 0 .. its last row's token
+//         in 64-key chunks, the longest walks launched first.  Warpgroup 0
+//         loads (one thread issues TMA boxes of 64 keys x 128 bytes: the
+//         latent k_lat [B, S, 512] as 8 boxes, the rope k_pe [B, S, 64] as
+//         one, both K-major for S, 3D maps so keys past the batch row read as
+//         zeros) into a two-stage ring behind full / empty mbarriers;
+//         warpgroups 1 and 2 compute (setmaxnreg 40 / 232).  Q [64, 576]
+//         comes first, as 9 boxes of 64 rows (K-major A), and stays in
+//         shared memory; S on wgmma m64n32k16 over the whole depth
+//         (warpgroup g: keys 32 g .. 32 g + 31); an online base-2 softmax in
+//         registers (sm_scale log2 e folded into the scores, ex2), masked keys
+//         weighing 0, the row maxima swapped through shared memory; P rounded
+//         to bf16 for PV while the denominator sums the unrounded P (the TPU
+//         kernel's probs.astype); O += P V on m64n256k16 (V = the latent
+//         chunk, MN-major; warpgroup g: columns 256 g .. 256 g + 255).
+//         out = acc / max(l, 1e-30), rounded once; lse = m + log(max(l,
+//         1e-30)) in natural-log units from the base-2 running max and sum.
+//         Shared memory: Q 72 KB, two stages of 72 KB, P 8 KB: one block an
+//         SM.  ops/attention/mla_train.mla_flash_fwd_tiled_plain mirrors this
+//         walk on the CPU.
+//
+// Design of K14b and K14c: the block of mla_attention.cuh (K9a's): 16 query
 // rows a block, 8 warps, each 32-key chunk staged once in shared memory for
 // all 16 rows (the next chunk's loads in flight in registers while this one
-// computes), the 576-deep score tile split over the warps (mma_abt), keys
-// walked only up to the block's last causal token.  Where K9a reads a paged
-// cache, these read the dense rows k_lat[b, j], k_pe[b, j] (row-major rope).
-//   K14a: online softmax in f32; P is rounded to bf16 for the PV product, the
-//         denominator sums the unrounded P (the TPU kernel's probs.astype);
-//         out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)).
+// computes), the 576-deep score tile split over the warps (mma_abt) on
+// mma.sync.m16n8k16 with f32 accumulation, keys walked only up to the
+// block's last causal token, the dense rows k_lat[b, j], k_pe[b, j]
+// (row-major rope) in place of K9a's paged cache.
 //   K14b: S = Q K^T, P = exp(S - lse) (0 on dead keys), dP = dO K_lat^T,
 //         dS = P (dP - delta) sm_scale rounded to bf16, dQ += dS K over the
 //         [16, 576] f32 accumulator (72 columns a warp); rounded once.
@@ -43,6 +67,7 @@
 //         f32 partials that a second pass sums in a fixed order and rounds
 //         once.
 #include "mla_attention.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -64,7 +89,6 @@ constexpr int NKV = KT * CV / THREADS;   // pieces of a key chunk a thread loads
 constexpr int COLS = DQ / 8;             // accumulator columns a warp owns in K14b / K14c: 72
 constexpr int NT = COLS / 8;             // their n-tiles: 9
 
-constexpr size_t FWD_SMEM = mla::SMEM_BYTES;
 constexpr size_t DQ_SMEM = sizeof(bf16) * (ROWS * LD + ROWS * LDO + KT * LD + ROWS * LDP) +
                            sizeof(float) * (4 * ROWS * KT + 2 * ROWS);
 constexpr size_t DK_SMEM = sizeof(bf16) * (KT * LD + ROWS * LD + ROWS * LDO + 2 * KT * LDT) +
@@ -170,94 +194,216 @@ __device__ __forceinline__ void dense_rows(int* rows_s, int* tok_s, int b, int f
 }
 
 // ---------------------------------------------------------------------------
-// K14a: forward
+// K14a: forward, on the Hopper body of K9b (mla_sparse.cuh) for dense keys
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-    mla_train_fwd_kernel(const bf16* __restrict__ ql, const bf16* __restrict__ qp,
-                         const bf16* __restrict__ kl, const bf16* __restrict__ kp,
-                         bf16* __restrict__ out, float* __restrict__ lse, int seq, int heads,
-                         float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);          // [ROWS][LD]
-  bf16* ks = qs + ROWS * LD;                              // [KT][LD]
-  bf16* pb = ks + KT * LD;                                // [ROWS][LDP]
-  float* ss = reinterpret_cast<float*>(pb + ROWS * LDP);  // [2][ROWS][KT]
-  float* m_s = ss + 2 * ROWS * KT;
-  float* l_s = m_s + ROWS;
-  float* a_s = l_s + ROWS;
-  __shared__ int rows_s[ROWS], tok_s[ROWS];
+namespace k14a {
 
+constexpr int M = 64;                    // flat rows a block
+constexpr int PRODUCERS = 128;           // warpgroup 0 loads,
+constexpr int CONSUMERS = 256;           // warpgroups 1 and 2 compute
+constexpr int NTHREADS = PRODUCERS + CONSUMERS;
+constexpr int CHUNK = 64;                // keys a staged chunk
+constexpr int BOX = CHUNK * 128;         // bytes of a TMA box: 64 keys x 128 bytes
+constexpr int LAT_BOXES = DN / 64;       // a chunk's latent: 8 boxes of 64 columns
+constexpr uint32_t STAGE = (LAT_BOXES + 1) * BOX;   // + the rope box: 72 KB
+constexpr uint32_t Q_OFF = 0;                       // 9 boxes of [64 rows][128 bytes]: 72 KB
+constexpr uint32_t STAGES_OFF = Q_OFF + STAGE;
+constexpr uint32_t P_OFF = STAGES_OFF + 2 * STAGE;  // [8][64][8] bf16
+constexpr uint32_t RED_OFF = P_OFF + M * CHUNK * 2; // [2][64] f32 row exchange
+constexpr uint32_t BARS_OFF = RED_OFF + 2 * M * 4;  // full[2], empty[2], q
+constexpr uint32_t SMEM = BARS_OFF + 5 * 8;
+static_assert(SMEM <= 232448, "K14a's shared memory exceeds a block's 227 KB");
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Block j of a 1D grid: batch row j % B, flat rows f0 .. f0 + 63 of it with
+// the longest walks first (the last rows' blocks launch first).  The rows
+// come from the tensor maps ql_map [B S H, 512] and qp_map [B S H, 64] (rows
+// past the batch row are dead: read, never written), the keys from kl_map
+// [B, S, 512] and kp_map [B, S, 64] (3D, so keys past the batch row's end
+// read as zeros), 64 keys a chunk.
+__global__ void __launch_bounds__(NTHREADS, 1)
+    fwd_kernel(const __grid_constant__ CUtensorMap ql_map,
+               const __grid_constant__ CUtensorMap qp_map,
+               const __grid_constant__ CUtensorMap kl_map,
+               const __grid_constant__ CUtensorMap kp_map, bf16* __restrict__ out,
+               float* __restrict__ lse, int batch, int seq, int heads, float sm_scale) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem + RED_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BARS_OFF);
+  uint64_t* empty = full + 2;
+  uint64_t* qbar = full + 4;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.y;
-  const int f0 = (gridDim.x - 1 - blockIdx.x) * ROWS;    // the longest rows first
-  dense_rows(rows_s, tok_s, b, f0, seq, heads);
-  if (tid < ROWS) {
-    m_s[tid] = NEG;
-    l_s[tid] = 0.f;
+  const int n = seq * heads, b = blockIdx.x % batch;
+  const int f0 = ((n + M - 1) / M - 1 - (int)(blockIdx.x / batch)) * M;
+  const int kend = (min(f0 + M, n) - 1) / heads + 1;  // keys 0 .. the last row's token
+
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      wg::mbar_init(&full[i], 1);
+      wg::mbar_init(&empty[i], CONSUMERS / 32);
+    }
+    wg::mbar_init(qbar, 1);
   }
   __syncthreads();
-  load_rows(qs, nullptr, rows_s, ql, qp, nullptr);
-  const int kend = (min(f0 + ROWS, seq * heads) - 1) / heads + 1;
-  const bf16* klb = kl + (size_t)b * seq * DN;
-  const bf16* kpb = kp + (size_t)b * seq * DR;
+  const int row0 = b * n + f0;                        // the block's first flat row
 
-  float o[8][4];
+  if (warp < PRODUCERS / 32) {  // the producer: one thread issues the boxes
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      wg::mbar_expect_tx(qbar, STAGE);
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-  uint4 kv[NKV];
-  load_keys(klb, kpb, 0, kend, kv);
-  for (int k0 = 0; k0 < kend; k0 += KT) {
-    store_keys(ks, kv);
-    __syncthreads();
-    if (k0 + KT < kend) load_keys(klb, kpb, k0 + KT, kend, kv);
-    score_tiles(ss, nullptr, qs, nullptr, ks, warp, lane);
-    __syncthreads();
-
-    // online softmax: warp w takes rows w and w + 8, lane = key of the chunk
-    for (int r = warp; r < ROWS; r += THREADS / 32) {
-      const bool live = k0 + lane <= tok_s[r];
-      const float s = live ? (ss[r * KT + lane] + ss[ROWS * KT + r * KT + lane]) * sm_scale : NEG;
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, sgl::warp_max(s));
-      const float p = live ? expf(s - m_new) : 0.f;
-      pb[r * LDP + lane] = __float2bfloat16(p);
-      const float sum = sgl::warp_sum(p);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
+      for (int cb = 0; cb < LAT_BOXES; ++cb)
+        wg::tma_load_2d(smem + Q_OFF + cb * BOX, &ql_map, cb * 64, row0, qbar);
+      wg::tma_load_2d(smem + Q_OFF + LAT_BOXES * BOX, &qp_map, 0, row0, qbar);
+      wg::mbar_arrive(qbar);
+      for (int it = 0, k0 = 0; k0 < kend; ++it, k0 += CHUNK) {
+        const int st = it & 1;
+        if (it >= 2) wg::mbar_wait(&empty[st], ((it >> 1) - 1) & 1);
+        unsigned char* stage = smem + STAGES_OFF + st * STAGE;
+        wg::mbar_expect_tx(&full[st], STAGE);
+#pragma unroll
+        for (int cb = 0; cb < LAT_BOXES; ++cb)
+          wg::tma_load_3d(stage + cb * BOX, &kl_map, cb * 64, k0, b, &full[st]);
+        wg::tma_load_3d(stage + LAT_BOXES * BOX, &kp_map, 0, k0, b, &full[st]);
+        wg::mbar_arrive(&full[st]);
       }
     }
-    __syncthreads();
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
 
-    const float al0 = a_s[g], al1 = a_s[g + 8];
+  const int ctid = tid - PRODUCERS, wgi = ctid >> 7, wq = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  wg::mbar_wait(qbar, 0);
+
+  // this thread's rows (r0, r0 + 8): their tokens (-1: dead, past the batch row)
+  const int r0 = 16 * wq + g;
+  int tok[2];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      o[nt][0] *= al0;
-      o[nt][1] *= al0;
-      o[nt][2] *= al1;
-      o[nt][3] *= al1;
+  for (int h = 0; h < 2; ++h) {
+    const int f = f0 + r0 + 8 * h;
+    tok[h] = f < n ? f / heads : -1;
+  }
+  const float scale2 = sm_scale * LOG2E;
+  float o[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o[i] = 0.f;
+  float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
+
+  for (int it = 0, k0 = 0; k0 < kend; ++it, k0 += CHUNK) {
+    const int st = it & 1;
+    const unsigned char* stage = smem + STAGES_OFF + st * STAGE;
+    wg::mbar_wait(&full[st], (it >> 1) & 1);
+
+    // S: rows x this warpgroup's 32 keys, over the latent then the rope (both K-major)
+    float s[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = 0.f;
+    wg::fence_operands(s);
+    wg::fence();
+#pragma unroll
+    for (int ks = 0; ks < DQ / 16; ++ks) {  // 36 steps: 32 over the latent, 4 over the rope
+      const uint32_t at = (ks >> 2) * BOX + (ks & 3) * 32;
+      wg::mma_m64n32k16<0>(s, wg::desc_sw128(smem + Q_OFF + at, 16, 1024),
+                           wg::desc_sw128(stage + at + 32 * wgi * 128, 16, 1024));
     }
-    mla::mma_ab<KT / 16, 8>(o, pb, LDP, ks, LD, warp * 64, lane);
-    __syncthreads();
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operands(s);
+
+    // causal masks (key <= the row's token), row maxima swapped between the
+    // warpgroups, P (rounded to bf16 for PV) and the denominators of the
+    // unrounded P.  s[i]: row r0 + 8 ((i / 2) % 2), key 8 (i / 4) + 2 t4 + i % 2
+    // of this warpgroup's 32.
+    unsigned ok = 0;
+    float mx[2] = {NEG, NEG};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int h = (i >> 1) & 1;
+      const int kpos = k0 + 32 * wgi + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      if (kpos <= tok[h]) ok |= 1u << i;
+      s[i] = kpos <= tok[h] ? s[i] * scale2 : NEG;
+      mx[h] = fmaxf(mx[h], s[i]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      if (t4 == 0) red[wgi * M + r0 + 8 * h] = mx[h];
+    }
+    wg::bar_sync(1, CONSUMERS);
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m_run[h], fmaxf(red[r0 + 8 * h], red[M + r0 + 8 * h]));
+      alpha[h] = ex2(m_run[h] - m_new);
+      m_run[h] = m_new;
+    }
+    bf16* pw = reinterpret_cast<bf16*>(smem + P_OFF);
+#pragma unroll
+    for (int i = 0; i < 16; i += 2) {
+      const int h = (i >> 1) & 1;
+      const float p0 = (ok >> i) & 1 ? ex2(s[i] - m_run[h]) : 0.f;
+      const float p1 = (ok >> (i + 1)) & 1 ? ex2(s[i + 1] - m_run[h]) : 0.f;
+      sum[h] += p0 + p1;
+      // P [key / 8][row][key % 8]: keys 32 wgi + 8 (i / 4) + 2 t4, + 1
+      *reinterpret_cast<__nv_bfloat162*>(pw + ((4 * wgi + (i >> 2)) * M + r0 + 8 * h) * 8 +
+                                         2 * t4) = __floats2bfloat162_rn(p0, p1);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l_run[h] = l_run[h] * alpha[h] + sum[h];
+    }
+#pragma unroll
+    for (int i = 0; i < 128; ++i) o[i] *= alpha[(i >> 1) & 1];
+    wg::fence_proxy();
+    wg::bar_sync(1, CONSUMERS);  // both warpgroups' P
+
+    // O += P V over this warpgroup's 256 columns (V = the latent chunk, MN-major)
+    wg::fence_operands(o);
+    wg::fence();
+#pragma unroll
+    for (int ks = 0; ks < CHUNK / 16; ++ks)
+      wg::mma_m64n256k16<1>(o, wg::desc(smem + P_OFF + ks * 2 * M * 16, M * 16, 128),
+                            wg::desc_sw128(stage + 4 * wgi * BOX + 16 * ks * 128, BOX, 1024));
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operands(o);
+    __syncwarp();
+    if (lane == 0) wg::mbar_arrive(&empty[st]);
   }
 
+  // the denominators of both warpgroups' keys; live rows out, and their LSE
+  // in natural-log units
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = g + 8 * half, f = rows_s[r];
-    if (f < 0) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
-    bf16* orow = out + (size_t)f * DN + warp * 64 + 2 * t4;
+  for (int h = 0; h < 2; ++h)
+    if (t4 == 0) red[wgi * M + r0 + 8 * h] = l_run[h];
+  wg::bar_sync(1, CONSUMERS);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(orow + nt * 8) =
-          __floats2bfloat162_rn(o[nt][2 * half] / l, o[nt][2 * half + 1] / l);
+  for (int h = 0; h < 2; ++h) {
+    if (tok[h] < 0) continue;
+    const int r = r0 + 8 * h;
+    const float l = fmaxf(red[r] + red[M + r], 1e-30f);
+    bf16* orow = out + (size_t)(row0 + r) * DN + 256 * wgi + 2 * t4;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
+          __floats2bfloat162_rn(o[4 * i + 2 * h] / l, o[4 * i + 2 * h + 1] / l);
+    if (wgi == 0 && t4 == 0) lse[row0 + r] = (m_run[h] + log2f(l)) * LN2;
   }
-  if (tid < ROWS && rows_s[tid] >= 0) lse[rows_s[tid]] = m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
+
+}  // namespace k14a
 
 // ---------------------------------------------------------------------------
 // K14b: dQ
@@ -457,17 +603,32 @@ __global__ void mla_train_dk_sum_kernel(const float* __restrict__ part, bf16* __
 }  // namespace
 
 // bf16 q_lat [B, S, H, 512], q_pe [B, S, H, 64], k_lat [B, S, 512], k_pe [B, S, 64]
-// -> bf16 out [B, S, H, 512] and f32 lse [B, S, H].
+// -> bf16 out [B, S, H, 512] and f32 lse [B, S, H].  The four operands start
+// 16-byte aligned (TMA).
 extern "C" int mla_train_fwd_launch(const void* q_lat, const void* q_pe, const void* k_lat,
                                     const void* k_pe, void* out, void* lse, int batch, int seq,
                                     int heads, float sm_scale, void* stream) {
   if (batch == 0 || seq == 0 || heads == 0) return 0;
-  cudaFuncSetAttribute(mla_train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)FWD_SMEM);
-  dim3 grid((seq * heads + ROWS - 1) / ROWS, batch);
-  mla_train_fwd_kernel<<<grid, THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)q_lat, (const bf16*)q_pe, (const bf16*)k_lat, (const bf16*)k_pe, (bf16*)out,
-      (float*)lse, seq, heads, sm_scale);
+  CUtensorMap ql_map, qp_map, kl_map, kp_map;
+  const uint64_t rows = (uint64_t)batch * seq * heads;
+  const uint64_t ql_dims[2] = {DN, rows}, ql_stride[1] = {DN * 2};
+  const uint64_t qp_dims[2] = {DR, rows}, qp_stride[1] = {DR * 2};
+  const uint64_t kl_dims[3] = {DN, (uint64_t)seq, (uint64_t)batch};
+  const uint64_t kl_strides[2] = {DN * 2, (uint64_t)seq * DN * 2};
+  const uint64_t kp_dims[3] = {DR, (uint64_t)seq, (uint64_t)batch};
+  const uint64_t kp_strides[2] = {DR * 2, (uint64_t)seq * DR * 2};
+  const uint32_t box[3] = {64, 64, 1};              // 64 columns x 64 rows (keys)
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  int rc = wg::tensor_map(&ql_map, BF16, 2, q_lat, ql_dims, ql_stride, box);
+  if (rc == 0) rc = wg::tensor_map(&qp_map, BF16, 2, q_pe, qp_dims, qp_stride, box);
+  if (rc == 0) rc = wg::tensor_map(&kl_map, BF16, 3, k_lat, kl_dims, kl_strides, box);
+  if (rc == 0) rc = wg::tensor_map(&kp_map, BF16, 3, k_pe, kp_dims, kp_strides, box);
+  if (rc != 0) return rc;
+  cudaFuncSetAttribute(k14a::fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)k14a::SMEM);
+  const unsigned blocks = (unsigned)((seq * heads + k14a::M - 1) / k14a::M) * batch;
+  k14a::fwd_kernel<<<blocks, k14a::NTHREADS, k14a::SMEM, (cudaStream_t)stream>>>(
+      ql_map, qp_map, kl_map, kp_map, (bf16*)out, (float*)lse, batch, seq, heads, sm_scale);
   return (int)cudaGetLastError();
 }
 

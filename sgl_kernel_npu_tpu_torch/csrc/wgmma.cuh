@@ -1,6 +1,7 @@
 // Hopper warpgroup products (wgmma) on shared-memory operands, and the
-// asynchronous copies and mbarriers that feed them: the helpers of
-// mla_sparse.cuh (K9b).
+// asynchronous copies, mbarriers and TMA tensor maps that feed them: the
+// helpers of mla_sparse.cuh (K9b), mla_train.cu's K14a and grouped_matmul.cu's
+// bf16 modes (K8a).
 //
 // Operands use wgmma's layout without swizzle (desc) or with the 128-byte
 // swizzle (desc_sw128).  Without swizzle a matrix is cut into core
@@ -20,6 +21,8 @@
 // along M.
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -52,6 +55,10 @@ __device__ __forceinline__ void commit() {
 }
 __device__ __forceinline__ void wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Until at most one committed group of this warpgroup's products is pending.
+__device__ __forceinline__ void wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 // Pins the accumulators in registers at this point of the program, so that
 // ordinary instructions on them are not moved across a fence or a wait.
@@ -111,6 +118,15 @@ __device__ __forceinline__ void tma_load_2d(void* smem, const void* map, int x, 
       "l"(map), "r"(x), "r"(y), "r"(sgl::smem_addr(bar))
       : "memory");
 }
+// A 3D box of a tensor map into shared memory, its bytes counted on bar.
+__device__ __forceinline__ void tma_load_3d(void* smem, const void* map, int x, int y, int z,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(sgl::smem_addr(smem)),
+      "l"(map), "r"(x), "r"(y), "r"(z), "r"(sgl::smem_addr(bar))
+      : "memory");
+}
 // Wait for the completion of the barrier's phase of this parity.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   asm volatile(
@@ -138,6 +154,32 @@ __device__ __forceinline__ void mma_m64n32k16(float (&d)[16], uint64_t a, uint64
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
 }
 
@@ -181,6 +223,36 @@ __device__ __forceinline__ void mma_m64n256k16(float (&d)[128], uint64_t a, uint
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
       : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+}
+
+// A tensor map (host) of `rank` dimensions (at most 3) of `type`, dims[0]
+// contiguous, byte strides of the others, boxes of box[] elements in the
+// 128-byte swizzle (a box row of 128 bytes), elements out of bounds read as
+// zeros.  0 or a CUDA error.  cuTensorMapEncodeTiled is looked up once
+// through the runtime, so the library does not link against libcuda.
+inline int tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                      const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", (void**)&encode, 12000, cudaEnableDefault, &found);
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      encode = nullptr;
+      return e != cudaSuccess ? (int)e : (int)cudaErrorNotSupported;
+    }
+  }
+  cuuint64_t d[3], st[2];
+  cuuint32_t bx[3], elem[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    if (i > 0) st[i - 1] = strides[i - 1];
+  }
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), d, st, bx, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace wg

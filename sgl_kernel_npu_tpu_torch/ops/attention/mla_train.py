@@ -14,9 +14,10 @@ The plain versions follow the TPU kernels' arithmetic: f32 scores of the
 inputs' products, P rounded to the inputs' dtype for the PV product while
 the denominator sums the unrounded P, dS rounded to it before the dQ / dK
 products, f32 sums rounded once.  They compute the whole ``[B, H, S, S]``
-score matrix at once where the kernels walk 32-key chunks (the online
+score matrix at once where the kernels walk key chunks (the online
 softmax's rescaling rounds P at another scale: bf16 rounding-level
-differences).
+differences).  :func:`mla_flash_fwd_tiled_plain` walks K14a's blocks and
+chunks instead, as the CUDA kernel does (tests only).
 
 The CUDA kernels take bf16 with L = 512 and R = 64 (DeepSeek-V3's widths,
 as the MLA serving kernels); f32 or other widths raise ``ValueError`` on the
@@ -36,6 +37,10 @@ from sgl_kernel_npu_tpu_torch.utils.counters import counted
 
 ROWS = 16        # query rows per CUDA block, csrc/mla_train.cu (one K14c step)
 DK_PIECE = 128   # tokens of a K14c block: a key chunk's rows split into such pieces
+FWD_ROWS = 64    # flat rows of a K14a block, csrc/mla_train.cu k14a::M
+FWD_KEYS = 64    # keys of a K14a chunk, k14a::CHUNK
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 
 
 def _causal(s: int, device) -> torch.Tensor:
@@ -67,6 +72,54 @@ def mla_flash_fwd_plain(q_lat, q_pe, k_lat, k_pe, sm_scale):
     acc = torch.einsum("bhqk,bkl->bhql", p.to(k_lat.dtype).float(), k_lat.float())
     out = (acc / l).permute(0, 2, 1, 3).to(q_lat.dtype)
     return out, (m + torch.log(l))[..., 0].permute(0, 2, 1).contiguous()
+
+
+def mla_flash_fwd_tiled_plain(q_lat, q_pe, k_lat, k_pe, sm_scale):
+    """The walk of the CUDA K14a on the CPU, for tests → ``(out, lse)`` as
+    :func:`mla_flash_fwd_plain` (any widths; no caller on the main path).
+
+    Blocks of ``FWD_ROWS`` consecutive flat rows ``f = t H + h`` of one batch
+    row walk ``FWD_KEYS``-key chunks from key 0 up to the chunk that holds
+    their last row's token; each row masks keys past its own token.  The
+    scores are f32 products scaled by ``sm_scale · log2 e`` (rounded to f32
+    once, as the kernel folds it), the online softmax is base 2 (masked keys
+    weigh 0), P is rounded to k's dtype for the PV product while the
+    denominator sums the unrounded P, ``out = acc / max(l, 1e-30)`` is
+    rounded once and ``lse = (m + log2(max(l, 1e-30))) · ln 2``."""
+    b, s, h, dl = q_lat.shape
+    n = s * h
+    blocks = cdiv(n, FWD_ROWS)
+    rows = blocks * FWD_ROWS
+    q = torch.cat([q_lat, q_pe], dim=-1).reshape(b, n, -1).float()
+    q = torch.nn.functional.pad(q, (0, 0, 0, rows - n)).reshape(b, blocks, FWD_ROWS, -1)
+    f = torch.arange(rows, device=q.device)
+    tok = torch.where(f < n, f // h, -1).reshape(blocks, FWD_ROWS)
+    last = (torch.clamp_max(torch.arange(blocks, device=q.device) * FWD_ROWS + FWD_ROWS, n)
+            - 1) // h                                         # each block's last token
+    k = torch.cat([k_lat, k_pe], dim=-1).float()
+    scale2 = torch.tensor(sm_scale, dtype=torch.float32) * torch.tensor(LOG2E,
+                                                                       dtype=torch.float32)
+    m = torch.full((b, blocks, FWD_ROWS), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, blocks, FWD_ROWS, dl), dtype=torch.float32, device=q.device)
+    for k0 in range(0, s, FWD_KEYS):
+        kpos = torch.arange(k0, min(k0 + FWD_KEYS, s), device=q.device)
+        sc = torch.einsum("bnrd,bcd->bnrc", q, k[:, k0:k0 + FWD_KEYS]) * scale2
+        ok = kpos <= tok[..., None]
+        sc = torch.where(ok, sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(ok, torch.exp2(sc - m_new[..., None]), 0.0)
+        pv = torch.einsum("bnrc,bcl->bnrl", p.to(k_lat.dtype).float(),
+                          k_lat[:, k0:k0 + FWD_KEYS].float())
+        walk = (k0 <= last)[None, :, None]                    # blocks still walking
+        l = torch.where(walk, l * alpha + p.sum(dim=-1), l)
+        acc = torch.where(walk[..., None], acc * alpha[..., None] + pv, acc)
+        m = torch.where(walk, m_new, m)
+    l = torch.clamp_min(l, 1e-30)
+    out = (acc / l[..., None]).reshape(b, rows, dl)[:, :n].reshape(b, s, h, dl)
+    lse = ((m + torch.log2(l)) * LN2).reshape(b, rows)[:, :n].reshape(b, s, h)
+    return out.to(q_lat.dtype), lse
 
 
 def _p_ds(q_lat, q_pe, k_lat, k_pe, do, lse, delta, sm_scale):

@@ -45,7 +45,8 @@ from sgl_kernel_npu_tpu_torch.utils.common import on_cuda
 from sgl_kernel_npu_tpu_torch.utils.counters import counted, launched
 
 EPILOGUES = ("none", "dequant", "dequant_swiglu", "dequant_swiglu_quant")
-TILE_M = 64   # sorted rows per work item of the CUDA kernel (csrc/grouped_matmul.cu BM)
+TILE_M = 64   # sorted rows per work item of the CUDA int8 modes (csrc/gmm_tile.cuh BM)
+TILE_M_BF16 = 128   # of the bf16 modes (csrc/grouped_matmul.cu WM): two wgmma row tiles
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}   # csrc OutKind
 _P_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}        # dispatch_rows
 _EPI = {"dequant": 0, "none": 0, "dequant_swiglu_quant": 1, "dequant_swiglu": 2}
@@ -58,9 +59,11 @@ def _offsets(group_sizes: torch.Tensor) -> torch.Tensor:
     return off
 
 
-def _tile_offsets(group_sizes: torch.Tensor) -> torch.Tensor:
-    """``[G + 1]`` prefix sums of each group's 64-row work items."""
-    return _offsets(torch.div(group_sizes.to(torch.int32) + TILE_M - 1, TILE_M,
+def _tile_offsets(group_sizes: torch.Tensor, tile_m: int = TILE_M) -> torch.Tensor:
+    """``[G + 1]`` prefix sums of each group's work items of ``tile_m`` rows
+    (64 for the int8 modes, ``TILE_M_BF16`` for the bf16 ones): a device
+    computation, no host sync."""
+    return _offsets(torch.div(group_sizes.to(torch.int32) + tile_m - 1, tile_m,
                               rounding_mode="floor"))
 
 
@@ -392,7 +395,7 @@ def _launch_float(x, w, group_sizes, contract_last: bool, out_dtype, dispatch_p)
     out_kind = _out_kind(what, dtype)
     p, n_tok, p_kind, xrow, bad = _dispatch_args(what, x, dispatch_p, s)
     out = torch.empty((s, n), dtype=dtype, device=x.device)
-    offsets, tile_off = _offsets(group_sizes), _tile_offsets(group_sizes)
+    offsets, tile_off = _offsets(group_sizes), _tile_offsets(group_sizes, TILE_M_BF16)
     lib = cuda_lib.load_library()
     cuda_lib.check(lib, lib.grouped_matmul_bf16_launch(
         x.data_ptr(), w.data_ptr(), offsets.data_ptr(), tile_off.data_ptr(), g, s, k, n,

@@ -43,8 +43,10 @@ gathered rows; ``grouped_matmul_combine`` 1e-5 of the largest |value|; K3 on
 float tokens bit-equal to K5 then K3; ``fused_dispatch_gmm1_rank`` within one
 bf16 ulp of each value."""
 
+import hashlib
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -356,11 +358,18 @@ def test_grouped_matmul_kernel(dev, sizes, s, k, i):
     assert grouped_matmul.grouped_matmul.launches == before + 2
 
 
+# the bf16 modes' 128-row work items: groups of 65-128 rows (one item) and
+# of 129 and more (two, three), N = 2880 (GPT-OSS-20B's width: a half
+# 128-column tile), K = 520 (a partial 64-k stage)
+GMM_BF16_CASES = GMM_CASES + [((100, 0, 128, 65), 300, 520, 1440),
+                              ((129, 3, 257), 400, 256, 64)]
+
+
 @pytest.mark.parametrize("contract_last", [False, True], ids=["none", "rhs_contract_last"])
-@pytest.mark.parametrize("sizes,s,k,i", GMM_CASES)
+@pytest.mark.parametrize("sizes,s,k,i", GMM_BF16_CASES)
 def test_grouped_matmul_bf16_kernel(dev, sizes, s, k, i, contract_last):
     """K8a's bf16 modes on ragged groups (empty ones, a single row, groups
-    of more than one 64-row tile, rows past the total) against the plain
+    of more than one 128-row item, rows past the total) against the plain
     version."""
     gen = torch.Generator(device=dev).manual_seed(s + k + contract_last)
     g, n = len(sizes), 2 * i
@@ -531,6 +540,41 @@ def test_mla_prefill_block_sparse_kernel(dev, heads, page, int8):
     assert mp.mla_prefill_block_sparse.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
     assert bool((got[-2:] == 0).all())
+
+
+def k9b_digest(dev, int8: bool) -> str:
+    """A fixed K9b case (128 heads, page 16, 40 tokens at context 300, 8
+    selected pages a 16-token chunk), its inputs from a numpy seed: the first
+    16 hex digits of the SHA-256 of its output's bits."""
+    rng = np.random.default_rng(14)
+    seq, ctx, page, heads, max_pages = [40], [300], 16, 128, 19
+    r = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(  # noqa: E731
+        dev, torch.bfloat16)
+    kn, kr = r(max_pages, 1, page, 512), r(max_pages, 1, 64, page)
+    if int8:
+        kn = _int8_latent(kn)
+    q = r(sum(seq), heads, 576)
+    sel = np.stack([rng.permutation((260 + min(16 * c + 15, 39)) // page + 1)[:8]
+                    for c in range(3)])                  # 8 of each chunk's causal pages
+    args = (q, kn, kr, torch.tensor(seq, dtype=torch.int32, device=dev),
+            torch.arange(max_pages, dtype=torch.int32, device=dev)[None],
+            torch.tensor(ctx, dtype=torch.int32, device=dev), 0.07,
+            torch.from_numpy(sel[None].astype(np.int32)).to(dev))
+    out = mp.mla_prefill_block_sparse(*args, max_q=40, q_chunk=16,
+                                      k_scale=1 / 32 if int8 else None)
+    return hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+# k9b_digest of K9b (mla_sparse.cuh) as recorded on an NVIDIA H100 80GB HBM3 before K14a
+# and K8a took its helpers (wgmma.cuh)
+K9B_DIGESTS = {False: "2b3346e6769c9d0f", True: "3a3238fc75290426"}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_mla_prefill_block_sparse_output_unchanged(dev, int8):
+    """K9b's output is bit-identical to its recorded bits on a fixed case:
+    K14a's and K8a's bodies share its helpers (wgmma.cuh), not its source."""
+    assert k9b_digest(dev, int8) == K9B_DIGESTS[int8]
 
 
 @pytest.mark.parametrize("heads", [128, 16])
@@ -1240,8 +1284,10 @@ def test_llama_lora_steps_kernels_match_plain(dev, w8a8):
 
 # (B, S, H): the training slice's shape, one token, a 16-row block of one
 # token's heads, 16 heads, 4 heads (a block spans 4 tokens), 20 heads (K14c's
-# steps cross tokens)
-TRAIN_CASES = [(2, 520, 128), (1, 1, 16), (1, 17, 128), (1, 40, 16), (2, 33, 4), (1, 70, 20)]
+# steps cross tokens; a K14a block boundary inside a token); K14a's 64-key
+# chunk edges at 128 heads (S = 64, 65, 129: two blocks a token); three batch rows
+TRAIN_CASES = [(2, 520, 128), (1, 1, 16), (1, 17, 128), (1, 40, 16), (2, 33, 4), (1, 70, 20),
+               (1, 64, 128), (1, 65, 128), (1, 129, 128), (3, 65, 20)]
 
 
 def _train_inputs(gen, dev, b, s, h):
@@ -1263,7 +1309,9 @@ def test_mla_train_kernels(dev, b, s, h):
     sc = 1 / math.sqrt(192)
     before = [f.launches for f in (mt.mla_flash_fwd, mt.mla_flash_bwd_dq, mt.mla_flash_bwd_dk)]
     out, lse = mt.mla_flash_fwd(*x, sc)
+    out2, lse2 = mt.mla_flash_fwd(*x, sc)
     out_p, lse_p = mt.mla_flash_fwd_plain(*x, sc)
+    out_t, lse_t = mt.mla_flash_fwd_tiled_plain(*x, sc)
     do = torch.randn((b, s, h, 512), generator=gen, device=dev).to(torch.bfloat16)
     delta = (do.float() * out_p.float()).sum(-1)
     args = (*x, do, lse_p, delta, sc)
@@ -1271,9 +1319,11 @@ def test_mla_train_kernels(dev, b, s, h):
     dk, dk_p = mt.mla_flash_bwd_dk(*args), mt.mla_flash_bwd_dk_plain(*args)
     torch.cuda.synchronize()
     after = [f.launches for f in (mt.mla_flash_fwd, mt.mla_flash_bwd_dq, mt.mla_flash_bwd_dk)]
-    assert after == [n + 1 for n in before]
-    torch.testing.assert_close(out.float(), out_p.float(), atol=2e-2, rtol=2e-2)
-    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=0)
+    assert after == [before[0] + 2, before[1] + 1, before[2] + 1]
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)   # K14a is deterministic
+    for want, want_lse in ((out_p, lse_p), (out_t, lse_t)):
+        torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
     for got, want in zip((*dq, *dk), (*dq_p, *dk_p)):
         assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got.float()).all())
         _grad_close(got, want)
@@ -1693,12 +1743,16 @@ def test_grouped_matmul_dispatch_p_kernel(dev, sizes, s, k, i, epilogue):
                                  2 ** -7 * float(c.float().abs().max().clamp_min(1e-30)))
 
 
+@pytest.mark.parametrize("sizes,k,n,n_tok", [((0, 40, 1, 0, 70), 96, 136, 20),
+                                              ((130, 0, 65, 128), 520, 2880, 300)],
+                         ids=["small", "items-of-128"])
 @pytest.mark.parametrize("contract_last", [False, True])
-def test_grouped_matmul_bf16_out_and_dispatch_kernel(dev, contract_last):
+def test_grouped_matmul_bf16_out_and_dispatch_kernel(dev, contract_last, sizes, k, n, n_tok):
     """K8a's bf16 modes to a bf16 and an f16 output (the f32 output rounded)
-    and with a bf16 ``dispatch_p`` (bit-equal to the gathered rows)."""
+    and with a bf16 ``dispatch_p`` (bit-equal to the gathered rows), on
+    small groups and on groups of one and two 128-row items at GPT-OSS's
+    N = 2880 and a partial k stage."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    sizes, k, n, n_tok = (0, 40, 1, 0, 70), 96, 136, 20
     gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
     s = sum(sizes) + 7
     x = torch.randn((n_tok, k), generator=gen, device=dev).to(torch.bfloat16)
@@ -1711,7 +1765,10 @@ def test_grouped_matmul_bf16_out_and_dispatch_kernel(dev, contract_last):
     b16 = fn(rows, w, gs, out_dtype=torch.bfloat16)
     f16 = fn(rows, w, gs, out_dtype=torch.float16)
     disp = fn(x, w, gs, dispatch_p=grouped_matmul.dispatch_onehot(tok, n_tok, torch.bfloat16))
+    want = grouped_matmul.grouped_matmul_float_plain(rows, w, gs, rhs_contract_last=contract_last)
     torch.cuda.synchronize()
+    assert float((f32 - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-6
+    assert not f32[sum(sizes):].any()
     assert b16.dtype == torch.bfloat16 and torch.equal(b16, f32.to(torch.bfloat16))
     assert f16.dtype == torch.float16 and torch.equal(f16, f32.to(torch.float16))
     assert torch.equal(disp, f32)

@@ -426,3 +426,56 @@ def test_grouped_matmul_int8_rhs_contract_last_matches_jax():
                               tn=128)
     got = tgm.grouped_matmul(tt(x), tt(wt), tt(SIZES), rhs_contract_last=True)
     np.testing.assert_array_equal(np32(got), np32(want))
+
+
+def _work_items(group_sizes, tile_m):
+    """The CUDA kernel's work items from the wrapper's offsets, as the kernel
+    finds them (``find_group``: the last group whose first item is at or
+    before the item, a binary search): ``(group, first row, end row)``."""
+    offsets = tgm._offsets(group_sizes).tolist()
+    tile_off = tgm._tile_offsets(group_sizes, tile_m).tolist()
+    g_count = len(offsets) - 1
+    items = []
+    for item in range(tile_off[-1]):
+        lo, hi = 0, g_count
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if tile_off[mid] <= item else (lo, mid)
+        r0 = offsets[lo] + (item - tile_off[lo]) * tile_m
+        items.append((lo, r0, min(r0 + tile_m, offsets[lo + 1])))
+    return items
+
+
+@pytest.mark.parametrize("tile_m", [tgm.TILE_M, tgm.TILE_M_BF16], ids=["int8", "bf16"])
+def test_work_items_cover_each_row_once(tile_m):
+    """Every row below the groups' total lies in exactly one work item, of
+    its own group; the rows past the total in none."""
+    sizes = torch.tensor([0, 1, 64, 65, 0, 128, 129, 300, 0, 7], dtype=torch.int32)
+    total = int(sizes.sum())
+    group_of_row = torch.repeat_interleave(torch.arange(len(sizes)), sizes.long())
+    count = torch.zeros(total + 5, dtype=torch.int64)
+    for g, r0, r1 in _work_items(sizes, tile_m):
+        assert 0 < r1 - r0 <= tile_m
+        assert bool((group_of_row[r0:r1] == g).all())
+        count[r0:r1] += 1
+    assert bool((count[:total] == 1).all()) and not count[total:].any()
+
+
+def test_bf16_work_items_per_group():
+    """Groups of 0, 1, 64, 65, 128 and 129 rows take 0, 1, 1, 1, 1 and 2
+    items of the bf16 modes' 128 rows; the int8 modes keep their 64-row items
+    (0, 1, 1, 2, 2, 3)."""
+    sizes = torch.tensor([0, 1, 64, 65, 128, 129], dtype=torch.int32)
+    assert tgm.TILE_M == 64 and tgm.TILE_M_BF16 == 128
+    assert torch.diff(tgm._tile_offsets(sizes, tgm.TILE_M_BF16)).tolist() == [0, 1, 1, 1, 1, 2]
+    assert torch.diff(tgm._tile_offsets(sizes)).tolist() == [0, 1, 1, 2, 2, 3]
+
+
+def test_work_item_offsets_need_no_host_sync():
+    """The offsets are device computations: on meta tensors (whose values
+    cannot be read) they come out with their shapes and dtypes."""
+    sizes = torch.empty(32, dtype=torch.int32, device="meta")
+    for tile_m in (tgm.TILE_M, tgm.TILE_M_BF16):
+        off = tgm._tile_offsets(sizes, tile_m)
+        assert off.device.type == "meta" and off.shape == (33,) and off.dtype == torch.int32
+    assert tgm._offsets(sizes).shape == (33,)
