@@ -21,7 +21,9 @@ Phases (any failure raises and the script exits non-zero without a result):
    main path's full-width shapes and at small ragged cases, decode_mla and
    mla_prefill_pallas also on an int8 latent cache (there also at the shapes
    of phase 4c: decode contexts of 916-4016 keys on a 33-page table, a
-   2048-row chunk at context 4096), grouped_matmul at 2048 and 4096 tokens
+   2048-row chunk at context 4096), quant_matmul also at a 64-row chunk's wo
+   and at a 2048-row chunk's wdqkv and wuq (its wgmma path; exact at 17, 65
+   and 2047 rows too), grouped_matmul at 2048 and 4096 tokens
    of top-8 routing, the DSA kernels on a 2048-token chunk at context 4096
    (K9b on pages selected from K10's scores) and small ragged cases (K9b
    also at 64 heads); time
@@ -89,7 +91,8 @@ Phases (any failure raises and the script exits non-zero without a result):
    beside [4e]'s rows on a 2048-page table (its keys split across 16
    blocks); one int8 decode_gqa and one bf16 attention_sinks call under
    ``torch.profiler`` must launch the decode kernel and nothing else (the
-   int8 scales fold inside it); ``Engine(prefill_chunk=512)`` +
+   int8 scales fold inside it), and a bf16 and an int8 K12d call its
+   prefill kernel once and nothing else; ``Engine(prefill_chunk=512)`` +
    ``llama_adapter`` serves [4e]'s prompt lengths, float, then W8A8 on the
    int8 cache (its ``kv_scale`` calibrated), with exact launch counts
    (K11a, K12d, K6a; K1, K5, K7a), pages and radix reuse checked and a
@@ -991,8 +994,10 @@ def summed(label, rows):
 
 def check_w8a8_kernels(gen, mla_wq, dense_wq):
     """K1, K5 and K7a at the shapes one layer of the fully W8A8 path gives
-    them at decode (8 rows), ``wo`` also at a prefill chunk's 64 rows, and
-    small ragged cases.  Returns the JSON rows (per-layer sums at decode)."""
+    them at decode (8 rows), ``wo`` also at a prefill chunk's 64 rows, K1's
+    ``wdqkv`` and ``wuq`` at a long chunk's 2048 rows, and ragged cases
+    (K1 at 17, 65 and 2047 rows, untimed).  Returns the JSON rows
+    (per-layer sums at decode)."""
     mw, dq = mla_wq[0], dense_wq[0]
     gemms = [("wdqkv", mw.wdqkv, mw.descale1, mw.bias1), ("wuq", mw.wuq, mw.descale2, mw.bias2),
              ("wo", *dq["wo"], None), ("ws_gate_up", *dq["ws_gate_up"], None),
@@ -1000,6 +1005,14 @@ def check_w8a8_kernels(gen, mla_wq, dense_wq):
     k1 = [check_quant_matmul(gen, name, w, ds, b, MAX_BATCH, timed=True)
           for name, w, ds, b in gemms]
     check_quant_matmul(gen, "wo (prefill chunk)", *dq["wo"], None, PREFILL_CHUNK, timed=True)
+    # the fused prologue's two at a long prefill chunk ([4c] / [4d]), on the
+    # wgmma path; then its ragged row counts (a tile of 17 rows, one row past a
+    # warpgroup's 64, one short of 16 tiles)
+    summed(f"quant_matmul, the prologue's wdqkv + wuq at {LONG_CHUNK} rows",
+           [check_quant_matmul(gen, f"{name} (long prefill chunk)", w, ds, b, LONG_CHUNK,
+                               timed=True) for name, w, ds, b in gemms[:2]])
+    for rows, (name, w, ds, b) in ((17, gemms[0]), (65, gemms[1]), (LONG_CHUNK - 1, gemms[0])):
+        check_quant_matmul(gen, name, w, ds, b, rows, torch.bfloat16)
     pad = torch.zeros((64, mw.wdqkv.shape[1]), dtype=torch.int8, device=DEV)
     check_quant_matmul(gen, "wdqkv lane-padded (the JAX layout)",
                        torch.cat([mw.wdqkv, pad]), torch.cat([mw.descale1, mw.descale1[:64]]),
@@ -1810,8 +1823,9 @@ def check_paged_prefill(gen, seq_list, ctx_list, window, pad_rows, timed, *, hea
     key_bytes = hkv * 2 * d * (1 if "int8" in kind else 2)
     nbytes = 2 * sl * hq * d * 2 + keys * key_bytes + bt.numel() * 4 + (hq * 4 if with_sinks else 0)
     r["bound_ms"], r["bound_by"] = bound(nbytes, pairs * hq * 4 * d, BF16_FLOPS)
-    log(f"    {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, bound "
-        f"{r['bound_ms']:.5f} {r['bound_by']})")
+    log(f"    {kind} {hq}/{hkv} x {d}, window {window}: {r['ms']:.4f} ms (plain "
+        f"{r['plain_ms']:.4f}, SDPA{' + sink key' if with_sinks else ''} "
+        f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} {r['bound_by']})")
     return r
 
 
@@ -1885,7 +1899,9 @@ def decode_kernels_only(gen):
     one bf16 ``attention_sinks`` call at [4e]'s full layer, each under
     ``torch.profiler`` after a warm-up: the wrapper enqueues the decode
     kernel and nothing else (no fold of the int8 scales, no cast of the
-    sinks or the lengths), else the run fails.  A trace that recorded no
+    sinks or the lengths), else the run fails.  Then K12d on a 512-row chunk
+    at [4f]'s heads, bf16 and int8 (per-kv-head scales): each call launches
+    the prefill kernel once and nothing else.  A trace that recorded no
     device activity at all (the profiler caught nothing) is taken again, up
     to three times."""
     dec_ctx = [n + NEW_TOKENS for n in GPT_PROMPT_LENS] + [1] * (MAX_BATCH - len(GPT_PROMPT_LENS))
@@ -1903,7 +1919,7 @@ def decode_kernels_only(gen):
     sinks = torch.randn(hq, generator=gen, device=DEV)
     calls.append(("attention_sinks, bf16 cache", lambda: sa.attention_sinks(
         qg, kg, vg, sinks, bt, ctx, d ** -0.5, 0, hq, hkv)))
-    for label, fn in calls:
+    def launched(label, fn):
         fn()
         for _ in range(3):  # a trace that caught no device activity at all shows nothing: again
             rows, busy, wall = trace_profile.device_breakdown(fn, top=100)
@@ -1911,8 +1927,29 @@ def decode_kernels_only(gen):
                 break
         log(f"  {label} under torch.profiler: {[(n[:60], c) for n, _, c in rows]}, device "
             f"{busy:.4f} ms of {wall:.3f} wall")
+        return rows
+
+    for label, fn in calls:
+        rows = launched(label, fn)
         if [c for n, _, c in rows if "decode_kernel" in n] != [1] or len(rows) != 1:
             raise AssertionError(f"{label} launched more than the decode kernel: {rows}")
+    # K12d at [4f]'s chunk, bf16 and int8: the prefill kernel once and nothing
+    # else (the scales fold inside it, it zeroes the rows past the requests)
+    hq, hkv, d = CFG_LLAMA.num_heads, CFG_LLAMA.num_kv_heads, CFG_LLAMA.head_dim
+    seq = torch.tensor([GPT_CHUNK], dtype=torch.int32, device=DEV)
+    pctx = torch.tensor([2 * GPT_CHUNK], dtype=torch.int32, device=DEV)
+    qp = randn(gen, (GPT_CHUNK, hq * d))
+    kinds = {}
+    for kind in ("bf16", "int8"):
+        kp, vp, psc = attn_caches(gen, 2 * GPT_CHUNK // 16, hkv, d, kind)
+        args = (qp, kp, vp, None, seq, bt[:1], pctx, d ** -0.5, 0, hq, hkv)
+        kinds[kind] = [(n, c) for n, _, c in launched(
+            f"attention_sinks_prefill_pallas, {kind} cache",
+            lambda: sa.attention_sinks_prefill_pallas(*args, max_q=GPT_CHUNK, **psc))]
+    for kind, rows in kinds.items():
+        if len(rows) != 1 or "pre::prefill_kernel" not in rows[0][0] or rows[0][1] != 1:
+            raise AssertionError(f"a {kind} K12d call launched more than the prefill kernel: "
+                                 f"{rows}")
 
 
 NORM_HIDDEN = CFG_LLAMA.hidden     # the add-RMSNorm ops at Llama-3.1-8B's width

@@ -29,11 +29,10 @@
 // the queries to match, doubling their work; a contiguous row on the H100 has
 // no lane padding, so the packed layout reads the bytes of the plain one and
 // is taken by strides, each q head reading only its own kv head.  An int8
-// cache holds levels round(x / scale).  The decode kernel folds k_scale into
-// q and v_scale into the output itself, with the two roundings of the JAX
-// wrappers' fold (q: bf16(f32(q) k_scale); out: bf16(f32(bf16(o)) v_scale));
-// the prefill kernel reads levels, its wrapper folds the scales.  Levels
-// widen to bf16 exactly.
+// cache holds levels round(x / scale).  Both kernels fold k_scale into q and
+// v_scale into the output themselves, with the two roundings of the JAX
+// wrappers' fold (q: bf16(f32(q) k_scale); out: bf16(f32(bf16(o)) v_scale)).
+// Levels widen to bf16 exactly.
 //
 // The sink joins the softmax denominator only:
 //   m_fin = max(m, sink),  out = acc e^(m - m_fin) / (l e^(m - m_fin) + e^(sink - m_fin));
@@ -73,18 +72,48 @@
 // split order (deterministic) and writes the output.  The sink logit joins
 // the denominator at the merge; a row with no key writes exactly 0.
 //
-// Prefill design: one block per (request, kv head, TQ tokens) of 128 query
-// rows (token, head in group): 16 tokens x 8 heads at G = 8.  Warp w owns rows
-// 16 w .. 16 w + 15, one m16 tile of mma.sync.m16n8k16 (bf16 in, f32
-// accumulate), in a flash-attention-2 loop: per 64-key chunk S = Q K^T from Q
-// fragments held in registers for the whole walk, the masks and the online
-// softmax on the accumulators (a row's 4 lanes reduce by shuffles), and P,
-// rounded to bf16 as the TPU kernel feeds its PV product, re-packed in
-// registers as the A fragments of O += P V.  The keys walked run from the
-// block's first row's window start to its last live row's causal end: the
-// TPU kernel's page range, at key granularity.  Queries are read in their
-// packed rows (the JAX wrapper's dense scatter and gather are a TPU grid
-// artefact).
+// Prefill design (Hopper, wgmma.cuh's helpers, as K9b's and K14a's bodies):
+// a block owns 64 query rows of one request and kv head, the flat rows f =
+// j G + h (token j, head h of the group) from f = r0: a staged chunk of keys
+// serves every head of its kv head, at G < 64 a block's rows span tokens and
+// each masks its own keys, at G > 64 a token's heads span blocks.  The blocks
+// of a request's last rows (the longest walks) launch first; at Llama-3.1-8B's
+// group of 4 a 512-row chunk is 256 blocks, two an SM (64-row blocks rather
+// than 128 rows on two warpgroups: the 256 blocks fill the 132 SMs in one
+// wave).  Warp 4 loads 64-key chunks into a ring of 3 stages of bf16 tiles
+// behind full / empty mbarriers: whole pages (a kv head's page is page x D
+// contiguous; the packed layout the same rows at a stride of 2 D, one 3D
+// tensor map covers both) as TMA boxes into the 128-byte swizzle that wgmma
+// reads; pages TMA cannot take (not 8, 16, 32 or a multiple of 64 keys; D =
+// 32, whose rows are 64 bytes) by 16-byte cp.async into the same layout.  An
+// int8 cache takes a loading warpgroup in its place (setmaxnreg 80, the
+// computing one 176): each of its threads copies its own 16-byte pieces of
+// levels (half the bytes of bf16) by cp.async 1-3 chunks ahead into a second
+// ring, their page-table entries read a copy earlier still (read at the copy,
+// their latency stalled the ring), and widens
+// the same pieces once a chunk into the bf16 ring, so no thread waits on
+// another's copies (off the computing warpgroup's path; the int-to-float unit
+// would take 16 values a clock an SM, so widen8 builds them on the integer
+// and FMA pipes).  Warpgroup 0 holds Q [64, D] in shared memory for
+// the walk (D = 32 padded to 64 with zeros; an int8 cache's k_scale folded
+// in as it is loaded) and per chunk: S = Q K^T on wgmma m64n64k16; the
+// causal and window masks (none on a chunk that every row of the block sees
+// whole); the online softmax in base 2 in registers (scale log2 e fused with
+// the running max into one FMA, ex2; a row's 4 lanes reduce by shuffles);
+// P rounded to bf16 into the A registers of O += P V (m64nDk16 with A from
+// registers, V MN-major; P through shared memory measured slower) while the
+// denominator sums the unrounded P; the next chunk's S is issued before this
+// chunk's P V, so the two products overlap; then the stage is released.  The
+// keys walked run from the block's first row's window start to its last
+// live row's causal end (the TPU kernel's page range, at key granularity;
+// chunks aligned to 64 keys); V rows past the end are zero.  The output is
+// rounded to bf16 once, then (int8) scaled by v_scale and rounded again.
+// Queries are read in their packed rows (the JAX wrapper's dense scatter and
+// gather are a TPU grid artefact); a request's first row is the sum of the
+// seq_lens before it, summed by each block.  ops/attention/sinks_attention.
+// attention_sinks_prefill_tiled_plain mirrors this walk on the CPU.
+#include <string.h>
+
 #include <type_traits>
 
 #include "common.cuh"
@@ -94,58 +123,20 @@ namespace sinks {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int THREADS = 256;   // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int KT = 64;         // keys a staged chunk
-constexpr int PROWS = 128;     // prefill query rows a block: 16 a warp
-constexpr int VEC = 8;         // cache values a load
 constexpr float NEG = -1e30f;
-
-template <int D>
-constexpr int NLD = KT * D / VEC / THREADS;   // loads a thread a chunk, K and V each
-
-// Keys [k0, k0 + KT) of kv head kvh -> registers, zeros at or past kend:
-// thread e of the block loads piece e % (D / VEC) of key e / (D / VEC).
-template <int D, typename T, typename V>
-__device__ __forceinline__ void load_kv(const T* __restrict__ kc, const T* __restrict__ vc,
-                                        const int* __restrict__ bt_row, int k0, int kend, int kvh,
-                                        int hkv, int hpr, int page_size, V (&kr)[NLD<D>],
-                                        V (&vr)[NLD<D>]) {
-  constexpr int VPR = D / VEC;
-  const size_t row = (size_t)hpr * D;
-#pragma unroll
-  for (int it = 0; it < NLD<D>; ++it) {
-    const int e = threadIdx.x + it * THREADS, key = k0 + e / VPR;
-    V kv{}, vv{};
-    if (key < kend) {
-      const size_t at =
-          (((size_t)bt_row[key / page_size] * (hkv / hpr) + kvh / hpr) * page_size +
-           key % page_size) * row + (kvh % hpr) * D + (e % VPR) * VEC;
-      kv = *reinterpret_cast<const V*>(kc + at);
-      vv = *reinterpret_cast<const V*>(vc + at);
-    }
-    kr[it] = kv;
-    vr[it] = vv;
-  }
-}
-
-// Registers of load_kv -> the chunk's K and V rows in shared memory as bf16,
-// rows D + 8 apart (16-byte reads of 8 consecutive rows hit distinct banks).
-template <int D, typename V>
-__device__ __forceinline__ void store_kv(bf16* ks, bf16* vs, const V (&kr)[NLD<D>],
-                                         const V (&vr)[NLD<D>]) {
-  constexpr int VPR = D / VEC, LD = D + 8;
-#pragma unroll
-  for (int it = 0; it < NLD<D>; ++it) {
-    const int e = threadIdx.x + it * THREADS, off = (e / VPR) * LD + (e % VPR) * VEC;
-    *reinterpret_cast<uint4*>(ks + off) = sgl::widen(kr[it]);
-    *reinterpret_cast<uint4*>(vs + off) = sgl::widen(vr[it]);
-  }
-}
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// 2^x on the special-function unit (scores are kept in log2 units: exp(x) =
+// 2^(x log2 e), the factor folded into the softmax scale)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------------------
@@ -186,16 +177,6 @@ struct Smem {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-constexpr float LOG2E = 1.4426950408889634f;
-
-// 2^x on the special-function unit (scores are kept in log2 units: exp(x) =
-// 2^(x log2 e), the factor folded into the softmax scale)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The B fragment of S = Q K^T for keys key0 .. key0 + 7 of a staged chunk and
@@ -557,180 +538,452 @@ __global__ void __launch_bounds__(THREADS)
 // prefill
 // ---------------------------------------------------------------------------
 
-template <int D>
-constexpr size_t prefill_smem() {
-  return sizeof(bf16) * (PROWS + 2 * KT) * (D + 8);
+namespace pre {
+
+constexpr int M = 64;                      // query rows a block: one computing warpgroup
+constexpr int KC = 64;                     // keys a staged chunk
+constexpr int CONSUMERS = 128;             // warpgroup 0 computes, warp 4 loads
+constexpr int TILE = M * 128;              // [64][64] bf16 in the 128-byte swizzle: 8 KB
+
+// Shared memory of a block, in bytes: Q as NB tiles of 64 columns; the ring
+// of STAGES (K, V) chunks as bf16 tiles (NB swizzled tiles each); for an int8
+// cache a second ring of STAGES8 chunks of levels (each thread's pieces at
+// 16 e); the full / empty barriers.  Two blocks fit an SM.
+template <int D, typename T>
+struct Smem {
+  static constexpr bool INT8 = std::is_same_v<T, int8_t>;
+  static constexpr int DP = D < 64 ? 64 : D;               // tile width: D = 32 pads with zeros
+  static constexpr int NB = DP / 64;
+  static constexpr int STAGES = INT8 && D == 128 ? 2 : 3;
+  static constexpr int STAGES8 = INT8 ? (D == 128 ? 2 : 4) : 0;
+  static constexpr int WIDENERS = INT8 ? 128 : 0;          // warpgroup 1 widens levels
+  static constexpr int THREADS = CONSUMERS + (INT8 ? WIDENERS : 32);
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t RING = Q + NB * TILE;
+  static constexpr uint32_t KV = NB * TILE;                // a stage's K, then its V
+  static constexpr uint32_t STAGE = 2 * KV;
+  static constexpr uint32_t LEVELS = RING + STAGES * STAGE;
+  static constexpr uint32_t KV8 = KC * D;                  // a chunk's K levels, then its V
+  static constexpr uint32_t BARS = LEVELS + STAGES8 * 2 * KV8;
+  static constexpr uint32_t BYTES = BARS + 2 * STAGES * 8;
+};
+
+__device__ __forceinline__ int warp_sum_int(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
-// gp: the group rounded up to a power of two; a block takes PROWS / gp
-// tokens x gp heads (heads past the group are dead rows).
-template <int D, typename T>
-__global__ void __launch_bounds__(THREADS)
-    sinks_prefill_kernel(const bf16* __restrict__ q, const T* __restrict__ kc,
-                         const T* __restrict__ vc, const float* __restrict__ sinks,
-                         const int* __restrict__ block_tables, const int* __restrict__ seq_lens,
-                         const int* __restrict__ ctx_lens, const int* __restrict__ starts,
-                         bf16* __restrict__ out, int hkv, int hpr, int group, int gp,
-                         int page_size, int max_pages, int window, float scale) {
-  using V = typename sgl::Vec8<T>::type;
-  constexpr int LD = D + 8, QPR = D / 8, NT = D / 8;   // QPR: 16-byte q pieces a row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [PROWS][LD]
-  bf16* ks = qs + PROWS * LD;                     // [KT][LD]
-  bf16* vs = ks + KT * LD;                        // [KT][LD]
-
-  const int b = blockIdx.z, kvh = blockIdx.y;
-  const int tq = PROWS / gp, j0 = blockIdx.x * tq;
-  const int seq_len = seq_lens[b];
-  if (j0 >= seq_len) return;
-  const int tok_base = starts[b], hq = hkv * group;
-  const int pos0 = ctx_lens[b] - seq_len;    // position of the request's new token 0
-  const int* bt_row = block_tables + (size_t)b * max_pages;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;   // mma fragment row / column pair
-
-  for (int i = threadIdx.x; i < PROWS * QPR; i += THREADS) {
-    const int r = i / QPR, j = j0 + r / gp, hg = r % gp;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (j < seq_len && hg < group)
-      v = *reinterpret_cast<const uint4*>(
-          q + ((size_t)(tok_base + j) * hq + kvh * group + hg) * D + (i % QPR) * 8);
-    *reinterpret_cast<uint4*>(qs + r * LD + (i % QPR) * 8) = v;
+// 8 int8 levels -> 8 bf16, exactly, on the integer and FMA pipes (the
+// int-to-float conversion unit takes 16 a clock an SM, too few for a chunk a
+// walk step): a level v's byte with its sign bit flipped, v + 128, placed as
+// the mantissa of 2^23 (0x4B0000xx), is 2^23 + 128 + v in f32; subtracting
+// 2^23 + 128 leaves v exactly, and v's f32 has at most 8 significant bits,
+// so its upper half is its bf16.
+__device__ __forceinline__ uint4 widen8(uint2 v) {
+  const uint32_t w[2] = {v.x ^ 0x80808080u, v.y ^ 0x80808080u};
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t word = w[i >> 1], j = 2 * (i & 1);
+    const float lo = __uint_as_float(__byte_perm(word, 0x4B000000u, 0x7650u + j)) - 8388736.f;
+    const float hi = __uint_as_float(__byte_perm(word, 0x4B000000u, 0x7651u + j)) - 8388736.f;
+    o[i] = __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
   }
-  // keys walked: the first row's window start .. the last live row's causal end
-  const int k_lo = window > 0 ? max(pos0 + j0 - window + 1, 0) : 0;
-  const int k_hi = pos0 + min(j0 + tq, seq_len);
-  // this lane's rows g and g + 8 of the warp's tile
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// 8 bf16 times s in f32, rounded back to bf16 (the wrappers' fold of k_scale into q)
+__device__ __forceinline__ uint4 scale8(uint4 v, float s) {
+  uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    w[i] = pack_bf16(f.x * s, f.y * s);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Block (kv head blockIdx.x, flat rows r0 .. r0 + 63 of request blockIdx.z,
+// r0 = 64 (gridDim.y - 1 - blockIdx.y): the longest walks first); see the
+// file's head for the design.  TMA: the loading warp takes whole pages (or
+// 64-key pieces of one) as boxes of kmap / vmap ([P Hkv / hpr, page, hpr D]:
+// bf16 boxes of 64 columns in the 128-byte swizzle, int8 boxes of D packed
+// bytes); otherwise 16-byte cp.async into the same layouts.
+template <int D, typename T, bool TMA>
+__global__ void __launch_bounds__(Smem<D, T>::THREADS, 2)
+    prefill_kernel(const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ q,
+                   const T* __restrict__ kc, const T* __restrict__ vc,
+                   const void* __restrict__ sinks, int sinks_bf16,
+                   const float* __restrict__ k_scale, float k_scale_val, int k_scale_step,
+                   const float* __restrict__ v_scale, float v_scale_val, int v_scale_step,
+                   const int* __restrict__ block_tables, const int* __restrict__ seq_lens,
+                   const int* __restrict__ ctx_lens, bf16* __restrict__ out, int rows, int hkv,
+                   int hpr, int group, int page_size, int max_pages, int window, float scale) {
+  using L = Smem<D, T>;
+  constexpr int DP = L::DP, NB = L::NB, STAGES = L::STAGES, STAGES8 = L::STAGES8;
+  constexpr bool INT8 = L::INT8;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kvh = blockIdx.x, b = blockIdx.z, hq = hkv * group;
+  int start = 0;   // the request's first packed row: the new tokens of the requests before it
+  for (int i = lane; i < b; i += 32) start += seq_lens[i];
+  start = warp_sum_int(start);
+  if (b == (int)gridDim.z - 1) {   // the blocks past the requests zero the rows past them
+    const size_t lo = (size_t)start * hq * D, n = (size_t)rows * hq * D;
+    const size_t step = (size_t)gridDim.x * gridDim.y * blockDim.x * 8;
+    for (size_t i = lo + ((size_t)(blockIdx.y * gridDim.x + blockIdx.x) * blockDim.x + tid) * 8;
+         i < n; i += step)
+      *reinterpret_cast<uint4*>(out + i) = make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * M;
+  const int seq_len = seq_lens[b];
+  if (r0 >= seq_len * group) return;
+  const int pos0 = ctx_lens[b] - seq_len;
+  // keys walked: the first row's window start .. the last live row's causal
+  // end, in chunks of KC aligned to KC (the pages' boxes)
+  const int j_first = r0 / group, j_last = min((r0 + M - 1) / group, seq_len - 1);
+  const int k_lo = window > 0 ? max(pos0 + j_first - window + 1, 0) : 0;
+  const int k_hi = min(pos0 + j_last + 1, max_pages * page_size);
+  const int c_begin = k_lo & ~(KC - 1);
+  const int n_chunks = k_hi > c_begin ? (k_hi - c_begin + KC - 1) / KC : 0;
+  const int* bt_row = block_tables + (size_t)b * max_pages;
+
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      wg::mbar_init(&full[i], INT8 ? L::WIDENERS : 2 * 32);   // each widening lane once, or
+                                                              // each loading lane twice
+      wg::mbar_init(&empty[i], CONSUMERS / 32);       // each computing warp once
+    }
+  }
+  __syncthreads();
+
+  if constexpr (INT8) if (warp >= CONSUMERS / 32) {  // the widening warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 80;\n");
+    const int wl = tid - CONSUMERS;
+    const int kvrow = kvh / hpr, col0 = (kvh % hpr) * D;
+    const size_t row = (size_t)hpr * D;   // levels a key row
+    // the ring zero once: columns past D (D = 32) stay zero, and 0 x Q's
+    // zero columns must not meet a stale NaN
+    for (int i = wl; i < STAGES * (int)L::STAGE / 16; i += L::WIDENERS)
+      reinterpret_cast<uint4*>(smem + L::RING)[i] = make_uint4(0u, 0u, 0u, 0u);
+    // thread wl takes pieces e = wl + WIDENERS p of a chunk's K and of its V:
+    // 16 levels of key e / P16 at column 16 (e % P16), copied by cp.async
+    // STAGES8 - 1 chunks ahead into the levels' ring (zeros past the walk)
+    // and widened by the same thread, so that no other thread waits on them
+    // The page-table entries of a chunk's pieces are read a copy ahead, so
+    // that their latency does not stall the copies.
+    constexpr int P16 = D / 16, NP = KC * P16 / L::WIDENERS;
+    const bool pow2 = (page_size & (page_size - 1)) == 0;
+    const int shift = __ffs(page_size) - 1;
+    int pages[NP];
+    auto lookup = [&](int it) {
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int key = c_begin + it * KC + (wl + L::WIDENERS * p) / P16;
+        pages[p] = it < n_chunks && key < k_hi ? bt_row[pow2 ? key >> shift : key / page_size] : 0;
+      }
+    };
+    auto copy = [&](int it) {
+      unsigned char* k8 = smem + L::LEVELS + (it % STAGES8) * 2 * L::KV8;
+      const int c0 = c_begin + it * KC;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int e = wl + L::WIDENERS * p, key = c0 + e / P16;
+        const bool live = it < n_chunks && key < k_hi;
+        const int in_page = pow2 ? key & (page_size - 1) : key % page_size;
+        const size_t at = (((size_t)pages[p] * (hkv / hpr) + kvrow) * page_size + in_page) * row +
+                          col0 + (e % P16) * 16;
+        wg::cp_async16(k8 + e * 16, live ? kc + at : kc, live ? 16 : 0);
+        wg::cp_async16(k8 + L::KV8 + e * 16, live ? vc + at : vc, live ? 16 : 0);
+      }
+      wg::cp_async_commit();
+      lookup(it + 1);
+    };
+    lookup(0);
+#pragma unroll
+    for (int it = 0; it < STAGES8 - 1; ++it) copy(it);
+    for (int it = 0; it < n_chunks; ++it) {
+      copy(it + STAGES8 - 1);
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES8 - 1) : "memory");   // chunk it landed
+      const int st = it % STAGES;
+      if (it >= STAGES) wg::mbar_wait(&empty[st], (it / STAGES - 1) & 1);
+      unsigned char* ks = smem + L::RING + st * L::STAGE;
+      unsigned char* vs = ks + L::KV;
+      const unsigned char* k8 = smem + L::LEVELS + (it % STAGES8) * 2 * L::KV8;
+      // the chunk's levels widened to bf16 (exact) into the tiles' swizzle:
+      // a piece's two 16-byte halves, the upper one first where its 64
+      // columns are the odd tile, so that each store of 8 lanes (a row of
+      // each tile) hits 8 distinct bank groups
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int e = wl + L::WIDENERS * p, kk = e / P16, col = (e % P16) * 16;
+        const int p8 = (col % 64) / 8, odd = (col / 64) & 1;
+        const uint4 kl = *reinterpret_cast<const uint4*>(k8 + e * 16);
+        const uint4 vl = *reinterpret_cast<const uint4*>(k8 + L::KV8 + e * 16);
+        unsigned char* kd = ks + (col / 64) * TILE + kk * 128;
+        unsigned char* vd = vs + (col / 64) * TILE + kk * 128;
+        const uint4 k0 = widen8(make_uint2(kl.x, kl.y)), k1 = widen8(make_uint2(kl.z, kl.w));
+        const uint4 v0 = widen8(make_uint2(vl.x, vl.y)), v1 = widen8(make_uint2(vl.z, vl.w));
+        *reinterpret_cast<uint4*>(kd + (((p8 + odd) ^ (kk & 7)) << 4)) = odd ? k1 : k0;
+        *reinterpret_cast<uint4*>(kd + (((p8 + 1 - odd) ^ (kk & 7)) << 4)) = odd ? k0 : k1;
+        *reinterpret_cast<uint4*>(vd + (((p8 + odd) ^ (kk & 7)) << 4)) = odd ? v1 : v0;
+        *reinterpret_cast<uint4*>(vd + (((p8 + 1 - odd) ^ (kk & 7)) << 4)) = odd ? v0 : v1;
+      }
+      wg::mbar_arrive(&full[st]);   // the computing threads fence the proxies
+    }
+    wg::cp_async_wait_all();   // the empty groups past the end
+    return;
+  }
+  if (warp >= CONSUMERS / 32) {  // the loading warp
+    const int kvrow = kvh / hpr, col0 = (kvh % hpr) * D;
+    const size_t row = (size_t)hpr * D;   // elements a key row
+    for (int it = 0; it < n_chunks; ++it) {
+      const int st = it % STAGES;
+      if (it >= STAGES) wg::mbar_wait(&empty[st], (it / STAGES - 1) & 1);
+      unsigned char* ks = smem + L::RING + st * L::STAGE;
+      unsigned char* vs = ks + L::KV;
+      const int c0 = c_begin + it * KC, nk = min(KC, k_hi - c0);
+      if constexpr (TMA) {
+        // lane i: the boxes of keys c0 + i bk .. (a page, or KC keys of one),
+        // 64 columns each; boxes past the walk's end are not loaded
+        const int bk = min(page_size, KC), nseg = (nk + bk - 1) / bk;
+        if (lane == 0) wg::mbar_expect_tx(&full[st], nseg * bk * D * 2 * 2);
+        __syncwarp();
+        if (lane < nseg) {
+          const int key = c0 + lane * bk, y = key % page_size;
+          const int z = bt_row[key / page_size] * (hkv / hpr) + kvrow;
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb) {
+            wg::tma_load_3d(ks + nb * TILE + lane * bk * 128, &kmap, col0 + 64 * nb, y, z,
+                            &full[st]);
+            wg::tma_load_3d(vs + nb * TILE + lane * bk * 128, &vmap, col0 + 64 * nb, y, z,
+                            &full[st]);
+          }
+        }
+      } else {
+        // 16-byte pieces into the tiles' swizzle (columns past D and keys
+        // past the walk as zeros)
+        for (int e = lane; e < KC * DP / 8; e += 32) {
+          const int kk = e / (DP / 8), pc = e % (DP / 8), key = c0 + kk;
+          const bool live = key < k_hi && pc * 8 < D;
+          size_t at = 0;
+          if (live)
+            at = (((size_t)bt_row[key / page_size] * (hkv / hpr) + kvrow) * page_size +
+                  key % page_size) * row + col0 + pc * 8;
+          const int dst = (pc / 8) * TILE + kk * 128 + (((pc % 8) ^ (kk & 7)) << 4);
+          wg::cp_async16(ks + dst, kc + at, live ? 16 : 0);
+          wg::cp_async16(vs + dst, vc + at, live ? 16 : 0);
+        }
+      }
+      wg::mbar_arrive_cp_async(&full[st]);   // once this lane's pieces land
+      wg::mbar_arrive(&full[st]);
+    }
+    return;
+  }
+
+  if constexpr (INT8) asm volatile("setmaxnreg.inc.sync.aligned.u32 176;\n");
+
+  // Q: flat row r -> (token j = (r0 + r) / group, head (r0 + r) % group) as
+  // bf16 (an int8 cache: k_scale folded and rounded to bf16 as the wrappers'
+  // fold rounds); dead rows and columns past D zero
+  const float ksc = INT8 ? (k_scale != nullptr ? k_scale[kvh * k_scale_step] : k_scale_val) : 1.f;
+  const float vsc = INT8 ? (v_scale != nullptr ? v_scale[kvh * v_scale_step] : v_scale_val) : 1.f;
+  for (int i = tid; i < M * NB * 8; i += CONSUMERS) {
+    const int r = i / (NB * 8), pc = i % (NB * 8), f = r0 + r, j = f / group;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (j < seq_len && pc * 8 < D) {
+      v = *reinterpret_cast<const uint4*>(
+          q + ((size_t)(start + j) * hq + kvh * group + f % group) * D + pc * 8);
+      if constexpr (INT8) v = scale8(v, ksc);
+    }
+    *reinterpret_cast<uint4*>(smem + L::Q + (pc / 8) * TILE + r * 128 +
+                              (((pc % 8) ^ (r & 7)) << 4)) = v;
+  }
+  wg::fence_proxy();
+  wg::bar_sync(1, CONSUMERS);
+
+  // this thread's rows r and r + 8 (r = 16 warp + lane / 4) of the accumulators
+  const int g = lane >> 2, t4 = lane & 3;
   int qpos[2], tok[2], head[2];
   bool live[2];
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = 16 * warp + g + 8 * hr, j = j0 + r / gp;
-    head[hr] = r % gp;
-    live[hr] = j < seq_len && head[hr] < group;
-    qpos[hr] = pos0 + j;
-    tok[hr] = tok_base + j;
+  for (int h = 0; h < 2; ++h) {
+    const int f = r0 + 16 * warp + g + 8 * h, j = f / group;
+    live[h] = j < seq_len;
+    qpos[h] = pos0 + j;
+    tok[h] = start + j;
+    head[h] = f % group;
   }
-
-  V kr[NLD<D>], vr[NLD<D>];
-  load_kv<D>(kc, vc, bt_row, k_lo, k_hi, kvh, hkv, hpr, page_size, kr, vr);
-  __syncthreads();
-  uint32_t qa[D / 16][4];   // the warp's Q tile as A fragments, for the whole walk
-  {
-    const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
+  const float scale2 = scale * LOG2E;
+  const unsigned char* qs = smem + L::Q;
+  float o[DP / 2];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      sgl::ldsm_x4(qa[kk], qs + (16 * warp + a_row) * LD + kk * 16 + a_col);
-  }
-  const int b_row = lane & 7, b_col = 8 * ((lane >> 3) & 1);
-
-  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, o[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-
-  for (int k0 = k_lo; k0 < k_hi; k0 += KT) {
-    store_kv<D>(ks, vs, kr, vr);
-    __syncthreads();
-    if (k0 + KT < k_hi)
-      load_kv<D>(kc, vc, bt_row, k0 + KT, k_hi, kvh, hkv, hpr, page_size, kr, vr);
-
-    // S = Q K^T over the chunk's 8 tiles of 8 keys
-    float s[KT / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < KT / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < KT / 8; ++nt) {
-        uint32_t bf[2];
-        sgl::ldsm_x2(bf, ks + (nt * 8 + b_row) * LD + kk * 16 + b_col);
-        sgl::mma_16816(s[nt], qa[kk], bf);
-      }
-    }
-
-    // causal and window masks; online softmax of rows g (hr 0) and g + 8 (hr 1)
-    float alpha[2];
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      uint32_t ok = 0u;
-      float mx = NEG;
-#pragma unroll
-      for (int nt = 0; nt < KT / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = k0 + nt * 8 + 2 * t4 + e;
-          const bool valid = live[hr] && key <= qpos[hr] && (window <= 0 || key > qpos[hr] - window);
-          float& v = s[nt][2 * hr + e];
-          v = valid ? v * scale : NEG;
-          ok |= (uint32_t)valid << (2 * nt + e);
-          mx = fmaxf(mx, v);
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
+  // keys every row of the block sees (its chunks need no mask): all rows
+  // live, keys in [see_lo, see_hi]
+  const bool all_live = r0 + M <= seq_len * group;
+  const int see_hi = min(pos0 + j_first, k_hi - 1);
+  const int see_lo = window > 0 ? pos0 + j_last - window + 1 : 0;
+  auto stage = [&](int it) { return smem + L::RING + (it % STAGES) * L::STAGE; };
+  // chunk it landed; with bf16 boxes its V rows past the walk's end are made
+  // zero (a box's tail past k_hi, or stale): their P is 0, and 0 x a
+  // non-finite value would not be
+  auto ready = [&](int it) {
+    wg::mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
+    if constexpr (INT8) wg::fence_proxy();   // the widened tiles came by ordinary stores
+    if constexpr (!INT8 && TMA) {
+      const int nk = min(KC, k_hi - (c_begin + it * KC));
+      if (nk < KC) {
+        unsigned char* vs = stage(it) + L::KV;
+        for (int i = tid; i < (KC - nk) * NB * 8; i += CONSUMERS) {
+          const int kk = nk + i / (NB * 8), pc = i % (NB * 8);
+          *reinterpret_cast<uint4*>(vs + (pc / 8) * TILE + kk * 128 + (pc % 8) * 16) =
+              make_uint4(0u, 0u, 0u, 0u);
         }
+        wg::fence_proxy();
+        wg::bar_sync(1, CONSUMERS);
       }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[hr], mx);
-      float sum = 0.f;
+    }
+  };
+  // S = Q K^T of chunk it: 64 rows x its 64 keys (both K-major), issued
+  auto scores = [&](float (&acc)[32], int it) {
+    const unsigned char* ks = stage(it);
 #pragma unroll
-      for (int nt = 0; nt < KT / 8; ++nt) {
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    wg::fence_operands(acc);
+    wg::fence();
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& v = s[nt][2 * hr + e];
-          v = (ok >> (2 * nt + e)) & 1u ? expf(v - m_new) : 0.f;
-          sum += v;
-        }
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t at = (kk >> 2) * TILE + (kk & 3) * 32;
+      wg::mma_m64n64k16<0>(acc, wg::desc_sw128(qs + at, 16, 1024),
+                           wg::desc_sw128(ks + at, 16, 1024));
+    }
+    wg::commit();
+  };
+
+  float s[32], s_next[32];
+  if (n_chunks > 0) {
+    ready(0);
+    scores(s, 0);
+    wg::wait_all();
+    wg::fence_operands(s);
+  }
+  for (int it = 0; it < n_chunks; ++it) {
+    const int c0 = c_begin + it * KC;
+    // causal and window masks (none on a chunk every row sees whole), the
+    // online softmax in log2 units (scale log2 e folded into one FMA; a row's
+    // 4 lanes reduce by shuffles); P rounded to bf16 as the A fragments of
+    // P V, the denominators of the unrounded P.  s[i]: row r + 8 ((i / 2) %
+    // 2), key c0 + 8 (i / 4) + 2 t4 + i % 2
+    uint32_t ok = 0xffffffffu;
+    float mx[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)};   // -inf
+    if (all_live && c0 >= see_lo && c0 + KC - 1 <= see_hi) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    } else {
+      ok = 0u;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1, key = c0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        const bool valid = live[h] && key <= qpos[h] && key < k_hi &&
+                           (window <= 0 || key > qpos[h] - window);
+        ok |= (uint32_t)valid << i;
+        if (valid) mx[h] = fmaxf(mx[h], s[i]);
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      alpha[hr] = expf(m[hr] - m_new);
-      l[hr] = l[hr] * alpha[hr] + sum;
-      m[hr] = m_new;
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_run[h], mx[h] * scale2);
+      alpha[h] = ex2(m_run[h] - m_new);
+      m_run[h] = m_new;
+    }
+    uint32_t pa[KC / 16][4];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int h = (i >> 1) & 1;
+      const float p0 = (ok >> i) & 1u ? ex2(fmaf(s[i], scale2, -m_run[h])) : 0.f;
+      const float p1 = (ok >> (i + 1)) & 1u ? ex2(fmaf(s[i + 1], scale2, -m_run[h])) : 0.f;
+      sum[h] += p0 + p1;
+      pa[i >> 3][(i >> 1) & 3] = pack_bf16(p0, p1);
     }
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      o[nt][0] *= alpha[0];
-      o[nt][1] *= alpha[0];
-      o[nt][2] *= alpha[1];
-      o[nt][3] *= alpha[1];
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l_run[h] = l_run[h] * alpha[h] + sum[h];
     }
 
-    // O += P V: the S accumulators of key tiles 2 kk and 2 kk + 1 are the A
-    // fragment of keys 16 kk .. 16 kk + 15
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t bf[2];
-        sgl::ldsm_x2_trans(bf, vs + (kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + nt * 8);
-        sgl::mma_16816(o[nt], a, bf);
-      }
+    // the next chunk's S, issued before this chunk's P V so that the two
+    // products overlap
+    if (it + 1 < n_chunks) {
+      ready(it + 1);
+      scores(s_next, it + 1);
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    // O += P V: P from registers, V the chunk's rows (MN-major)
+    const unsigned char* vs = stage(it) + L::KV;
+    wg::fence_operands(o);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      const uint64_t vd = wg::desc_sw128(vs + 16 * kk * 128, TILE, 1024);
+      if constexpr (DP == 64)
+        wg::mma_rs_m64n64k16<1>(o, pa[kk], vd);
+      else
+        wg::mma_rs_m64n128k16<1>(o, pa[kk], vd);
+    }
+    wg::commit();
+    wg::wait_all();
+    wg::fence_operands(o);
+    wg::fence_operands(s_next);
+    __syncwarp();
+    if (lane == 0) wg::mbar_arrive(&empty[it % STAGES]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = s_next[i];
   }
 
+  // live rows out: the sink joins the denominator; an int8 cache's v_scale
+  // folds into the bf16 value as the wrappers' fold did
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    if (!live[hr]) continue;
-    const int h = kvh * group + head[hr];
+  for (int h = 0; h < 2; ++h) {
+    if (!live[h]) continue;
+    const int hh = kvh * group + head[h];
     float e = 1.f, denom;
     if (sinks != nullptr) {
-      const float sink = sinks[h];
-      const float m_fin = fmaxf(m[hr], sink);
-      e = expf(m[hr] - m_fin);
-      denom = fmaxf(l[hr] * e + expf(sink - m_fin), 1e-30f);
+      const float sink = LOG2E * (sinks_bf16 ? __bfloat162float(static_cast<const bf16*>(sinks)[hh])
+                                             : static_cast<const float*>(sinks)[hh]);
+      const float m_fin = fmaxf(m_run[h], sink);
+      e = ex2(m_run[h] - m_fin);
+      denom = fmaxf(l_run[h] * e + ex2(sink - m_fin), 1e-30f);
     } else {
-      denom = fmaxf(l[hr], 1e-30f);
+      denom = fmaxf(l_run[h], 1e-30f);
     }
-    bf16* orow = out + ((size_t)tok[hr] * hq + h) * D + 2 * t4;
+    bf16* orow = out + ((size_t)tok[h] * hq + hh) * D + 2 * t4;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(orow + nt * 8) = __floats2bfloat162_rn(
-          o[nt][2 * hr] * e / denom, o[nt][2 * hr + 1] * e / denom);
+    for (int i = 0; i < D / 8; ++i) {
+      float2 v = make_float2(o[4 * i + 2 * h] * e / denom, o[4 * i + 2 * h + 1] * e / denom);
+      if constexpr (INT8) {
+        v = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
+        v = make_float2(v.x * vsc, v.y * vsc);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) = __floats2bfloat162_rn(v.x, v.y);
+    }
   }
 }
+
+}  // namespace pre
+
 
 // ---------------------------------------------------------------------------
 // launch
@@ -814,36 +1067,70 @@ extern "C" int sinks_decode_launch(const void* q, const void* kc, const void* vc
   });
 }
 
-// bf16 q [S, Hkv * group * D] packed by request (request b's rows start at
-// starts[b]); caches as sinks_decode_launch's; f32 sinks [Hkv * group] or
-// null; int32 bt [B, max_pages], seq_lens, ctx, starts [B] -> bf16 out
-// [S, Hkv * group * D], live rows written (the caller zero-fills).  D 32, 64
-// or 128, group <= 128; max_q bounds every seq_len.
+// bf16 q [S, Hkv * group * D] packed by request (request b's rows follow
+// those of requests 0 .. b - 1); caches as sinks_decode_launch's, num_pages
+// of them, starting 16-byte aligned; sinks [Hkv * group] f32 or bf16
+// (sinks_bf16) or null; an int8 cache's scales as sinks_decode_launch's;
+// int32 bt [B, max_pages], seq_lens, ctx [B] -> bf16 out [S = rows, Hkv *
+// group * D], the rows past the requests zero.  D 32, 64 or 128, any group;
+// max_q bounds every seq_len.  Pages of 8, 16, 32, 64 or a multiple of 64
+// keys go by TMA (but bf16 at D = 32: its 64-byte rows), others by cp.async.
 extern "C" int sinks_prefill_launch(const void* q, const void* kc, const void* vc,
-                                    const void* sinks, const void* bt, const void* seq_lens,
-                                    const void* ctx, const void* starts, void* out, int bsz,
-                                    int hkv, int heads_per_row, int group, int head_dim,
-                                    int kv_int8, int page_size, int max_pages, int window,
-                                    int max_q, float scale, void* stream) {
-  if (bsz == 0 || max_q == 0) return 0;
-  int gp = 1;
-  while (gp < group) gp *= 2;
-  if (group < 1 || gp > sinks::PROWS || (heads_per_row != 1 && heads_per_row != 2) ||
-      hkv % heads_per_row)
+                                    const void* sinks, int sinks_bf16, const void* k_scale,
+                                    float k_scale_val, int k_scale_step, const void* v_scale,
+                                    float v_scale_val, int v_scale_step, const void* bt,
+                                    const void* seq_lens, const void* ctx, void* out, int rows,
+                                    int bsz, int hkv, int heads_per_row, int group, int head_dim,
+                                    int kv_int8, int page_size, int max_pages, int num_pages,
+                                    int window, int max_q, float scale, void* stream) {
+  if (rows == 0) return 0;
+  if (group < 1 || (heads_per_row != 1 && heads_per_row != 2) || hkv % heads_per_row ||
+      page_size < 1 || bsz > 65534)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int tq = sinks::PROWS / gp;
-  const dim3 grid((max_q + tq - 1) / tq, hkv, bsz);
+  const long long flat = (long long)max_q * group;
+  // the last z slice zeroes the rows past the requests
+  const dim3 grid(hkv, (unsigned)max(1LL, (flat + sinks::pre::M - 1) / sinks::pre::M), bsz + 1);
+  const bool box_page = page_size % 64 == 0 || page_size == 8 || page_size == 16 ||
+                        page_size == 32;
   return sinks::by_width_and_type(head_dim, kv_int8, [&](auto dim, auto type) {
     constexpr int D = decltype(dim)::value;
     using T = typename decltype(type)::type;
-    constexpr size_t smem = sinks::prefill_smem<D>();
-    cudaFuncSetAttribute(sinks::sinks_prefill_kernel<D, T>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    sinks::sinks_prefill_kernel<D, T><<<grid, sinks::THREADS, smem, s>>>(
-        (const __nv_bfloat16*)q, (const T*)kc, (const T*)vc, (const float*)sinks,
-        (const int*)bt, (const int*)seq_lens, (const int*)ctx, (const int*)starts,
-        (__nv_bfloat16*)out, hkv, heads_per_row, group, gp, page_size, max_pages, window, scale);
-    return (int)cudaGetLastError();
+    constexpr bool INT8 = std::is_same_v<T, int8_t>;
+    CUtensorMap kmap, vmap;
+    const bool tma = box_page && !INT8 && D >= 64;
+    if (tma) {
+      // [P Hkv / hpr, page, hpr D] bf16; boxes of 64 columns x min(page, 64) keys
+      const uint64_t dims[3] = {(uint64_t)heads_per_row * D, (uint64_t)page_size,
+                                (uint64_t)num_pages * (hkv / heads_per_row)};
+      const uint64_t strides[2] = {(uint64_t)heads_per_row * D * 2,
+                                   (uint64_t)page_size * heads_per_row * D * 2};
+      const uint32_t box[3] = {64, (uint32_t)(page_size < 64 ? page_size : 64), 1};
+      int rc = wg::tensor_map(&kmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, kc, dims, strides, box);
+      if (rc == 0)
+        rc = wg::tensor_map(&vmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, vc, dims, strides, box);
+      if (rc != 0) return rc;
+    } else {
+      memset(&kmap, 0, sizeof(kmap));   // the cp.async path and int8 read no map
+      memset(&vmap, 0, sizeof(vmap));
+    }
+    auto launch = [&](auto use_tma) {
+      constexpr bool TMA = decltype(use_tma)::value;
+      constexpr int smem = (int)sinks::pre::Smem<D, T>::BYTES;
+      auto kernel = sinks::pre::prefill_kernel<D, T, TMA>;
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+      kernel<<<grid, sinks::pre::Smem<D, T>::THREADS, smem, s>>>(
+          kmap, vmap, (const __nv_bfloat16*)q, (const T*)kc, (const T*)vc, sinks, sinks_bf16,
+          (const float*)k_scale, k_scale_val, k_scale_step, (const float*)v_scale, v_scale_val,
+          v_scale_step, (const int*)bt, (const int*)seq_lens, (const int*)ctx,
+          (__nv_bfloat16*)out, rows, hkv, heads_per_row, group, page_size, max_pages, window,
+          scale);
+      return (int)cudaGetLastError();
+    };
+    if constexpr (INT8)
+      return launch(std::false_type{});   // its widening warpgroup reads the cache itself
+    else
+      return tma ? launch(std::true_type{}) : launch(std::false_type{});
   });
 }

@@ -38,6 +38,7 @@ from sgl_kernel_npu_tpu_torch.ops.attention.decode_attention import (
     NEG_INF,
     _gather_pages,
     _kv_head_scale,
+    _scale_arg,
     check_paged_operands,
     paged_decode,
     paged_decode_plain,
@@ -49,7 +50,7 @@ from sgl_kernel_npu_tpu_torch.utils import cuda_lib
 from sgl_kernel_npu_tpu_torch.utils.common import on_cuda
 from sgl_kernel_npu_tpu_torch.utils.counters import counted
 
-PREFILL_MAX_GROUP = 128   # q heads a kv head in the prefill kernel (a block's 128 rows)
+PREFILL_MAX_GROUP = 128   # q heads a kv head the prefill kernel takes (its ValueError rule)
 
 
 def packed_rows(seq_lens: torch.Tensor, s: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -235,6 +236,106 @@ def attention_sinks_prefill_plain(query, k_cache, v_cache, sinks, seq_lens, bloc
     return out.reshape(s, -1)
 
 
+PREFILL_ROWS, PREFILL_KEYS = 64, 64   # the prefill kernel's flat rows a block, keys a chunk
+LOG2E = 1.4426950408889634
+
+
+def attention_sinks_prefill_tiled_plain(query, k_cache, v_cache, sinks, seq_lens, block_tables,
+                                        context_lens, scale, sliding_window_size: int,
+                                        q_head_num: int, k_head_num: int, *, k_scale=None,
+                                        v_scale=None, packed: bool = False):
+    """The walk of the CUDA K12d on the CPU, for tests (no caller on the main
+    path): :func:`attention_sinks_prefill_plain`'s function, arguments and
+    pad rows (exactly 0).
+
+    Per request and kv head, blocks of ``PREFILL_ROWS`` flat rows ``f = j G
+    + h`` (token j, head h of the group; a block's rows span tokens at G <
+    64, a token's heads span blocks at G > 64) walk ``PREFILL_KEYS``-key
+    chunks aligned to ``PREFILL_KEYS``, from the chunk that holds the block's
+    first row's window start to the one that holds its last live row's
+    causal end; each row masks keys outside its own (qpos - window, qpos].
+    The scores are f32 products scaled by ``scale · log2 e`` (one f32
+    factor; the kernel fuses the product with the running max's subtraction
+    in one FMA, one rounding fewer), the online softmax is base 2 (masked
+    keys weigh 0), P is rounded to the query's dtype at the running max for
+    the PV product while the denominator sums the unrounded P; the sink (times
+    log2 e) joins the denominator at the end, out = acc · e / denom rounded
+    once.  An int8 cache: q is folded as bf16(f32(q) k_scale) and the output
+    as bf16(f32(out) v_scale), the kernel's two roundings."""
+    s = query.shape[0]
+    d = query.shape[-1] // q_head_num
+    group = q_head_num // k_head_num
+    hkv, hpr = k_head_num, _hpr(packed)
+    dt, dev = query.dtype, query.device
+    max_len = block_tables.shape[1] * k_cache.shape[2]
+    scale2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(LOG2E, dtype=torch.float32)
+    out = query.new_zeros((s, hkv, group, d))
+    start = 0
+    for b, (sl, cl) in enumerate(zip(seq_lens.tolist(), context_lens.tolist())):
+        rows = min(sl, s - start)
+        if rows <= 0:
+            continue
+        n = sl * group
+        blocks = -(-n // PREFILL_ROWS)
+        pos0 = cl - sl
+        q = query[start : start + rows].reshape(rows, hkv, group, d)
+        if k_cache.dtype == torch.int8:
+            q = scale_heads(q, k_scale, hkv)
+        q = q.float().permute(1, 0, 2, 3).reshape(hkv, rows * group, d)
+        q = torch.nn.functional.pad(q, (0, 0, 0, blocks * PREFILL_ROWS - rows * group))
+        q = q.reshape(hkv, blocks, PREFILL_ROWS, d)
+        f = torch.arange(blocks * PREFILL_ROWS, device=dev).reshape(blocks, PREFILL_ROWS)
+        live, qpos = f // group < sl, pos0 + f // group
+        first = torch.arange(blocks, device=dev) * PREFILL_ROWS
+        k_lo = (torch.clamp_min(pos0 + first // group - sliding_window_size + 1, 0)
+                if sliding_window_size > 0 else torch.zeros_like(first))
+        k_hi = torch.clamp_max(pos0 + torch.clamp_max((first + PREFILL_ROWS - 1) // group, sl - 1)
+                               + 1, max_len)
+        c_begin = k_lo // PREFILL_KEYS * PREFILL_KEYS
+        span = -(-int(k_hi.max()) // PREFILL_KEYS) * PREFILL_KEYS
+        bt = block_tables[b : b + 1]
+        k = _gather_pages(k_cache, bt, min(cl, max_len), hpr)[0].float()      # [Hkv, L, D]
+        v = _gather_pages(v_cache, bt, min(cl, max_len), hpr)[0].float()
+        k = torch.nn.functional.pad(k, (0, 0, 0, max(span - k.shape[1], 0)))
+        v = torch.nn.functional.pad(v, (0, 0, 0, max(span - v.shape[1], 0)))
+        m = torch.full((hkv, blocks, PREFILL_ROWS), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((hkv, blocks, PREFILL_ROWS, d), dtype=torch.float32, device=dev)
+        for c0 in range(int(c_begin.min()), span, PREFILL_KEYS):
+            kpos = torch.arange(c0, c0 + PREFILL_KEYS, device=dev)
+            walk = (c_begin <= c0) & (c0 < k_hi)                            # [blocks]
+            ok = (live[..., None] & (kpos <= qpos[..., None])
+                  & (kpos < k_hi[:, None, None]))                           # [blocks, rows, keys]
+            if sliding_window_size > 0:
+                ok &= kpos > qpos[..., None] - sliding_window_size
+            sc = torch.einsum("hnrd,hcd->hnrc", q, k[:, c0 : c0 + PREFILL_KEYS])
+            sc = torch.where(ok, sc * scale2, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(ok, torch.exp2(sc - m_new[..., None]), 0.0)
+            pv = torch.einsum("hnrc,hcd->hnrd", p.to(dt).float(), v[:, c0 : c0 + PREFILL_KEYS])
+            w = walk[None, :, None]
+            l = torch.where(w, l * alpha + p.sum(dim=-1), l)
+            acc = torch.where(w[..., None], acc * alpha[..., None] + pv, acc)
+            m = torch.where(w, m_new, m)
+        e = torch.ones_like(m)
+        if sinks is None:
+            denom = torch.clamp_min(l, 1e-30)
+        else:
+            heads = torch.arange(hkv, device=dev)[:, None, None] * group + f % group
+            sink = sinks.float()[heads] * torch.tensor(LOG2E, dtype=torch.float32)
+            m_fin = torch.maximum(m, sink)
+            e = torch.exp2(m - m_fin)
+            denom = torch.clamp_min(l * e + torch.exp2(sink - m_fin), 1e-30)
+        o = (acc * e[..., None] / denom[..., None]).to(dt)
+        o = o.reshape(hkv, blocks * PREFILL_ROWS, d)[:, : rows * group]
+        out[start : start + rows] = o.reshape(hkv, rows, group, d).permute(1, 0, 2, 3)
+        start += sl
+    if v_cache.dtype == torch.int8:
+        out = scale_heads(out, v_scale, hkv)
+    return out.reshape(s, -1)
+
+
 @counted
 def attention_sinks_prefill_pallas(query, k_cache, v_cache, sinks, seq_lens, block_tables,
                                    context_lens, scale, sliding_window_size: int,
@@ -247,8 +348,10 @@ def attention_sinks_prefill_pallas(query, k_cache, v_cache, sinks, seq_lens, blo
     past the requests 0.  ``max_q`` bounds every request's new-token count
     (defaults to ``S``).  CUDA tensors launch ``csrc/sinks_attention.cu``
     (bf16 or int8 caches, D in ``KERNEL_HEAD_DIMS``, at most 128 q heads a
-    kv head), which reads the packed rows directly, the int8 scales folded
-    into q and the output here; CPU tensors take
+    kv head, caches 16-byte aligned): one launch, which reads the packed
+    rows directly, folds an int8 cache's scales into q and the output itself
+    (a Python scalar by value), reads the sinks as stored (f32 or bf16) and
+    zeroes the rows past the requests; CPU tensors take
     :func:`attention_sinks_prefill_plain`."""
     args = (query, k_cache, v_cache, seq_lens, block_tables, context_lens)
     if not on_cuda(*args, *(() if sinks is None else (sinks,))):
@@ -259,26 +362,34 @@ def attention_sinks_prefill_pallas(query, k_cache, v_cache, sinks, seq_lens, blo
     hpr = _hpr(packed)
     d, group = check_paged_operands(query, k_cache, v_cache, q_head_num, k_head_num, hpr,
                                     PREFILL_MAX_GROUP)
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("the prefill kernel reads the caches by TMA boxes and 16-byte copies: "
+                         "they must start 16-byte aligned")
     s = query.shape[0]
     int8 = k_cache.dtype == torch.int8
-    q = query.reshape(s, k_head_num, group, d)
-    q = (scale_heads(q, k_scale, k_head_num) if int8 else q).contiguous()
+    q = query.contiguous()
+    dev = q.device
     sl = seq_lens.to(torch.int32).contiguous()
-    starts = (torch.cumsum(sl, 0, dtype=torch.int32) - sl).contiguous()
     ctx = context_lens.to(torch.int32).contiguous()
     bt = block_tables.to(torch.int32).contiguous()
-    sk = None if sinks is None else sinks.float().contiguous()
-    out = torch.zeros((s, q_head_num * d), dtype=torch.bfloat16, device=q.device)
+    sk = sinks
+    if sk is not None:
+        if sk.numel() != q_head_num:
+            raise ValueError(f"sinks: one logit a q head ({q_head_num}), got {sk.numel()}")
+        sk = (sk if sk.dtype in (torch.float32, torch.bfloat16) else sk.float()).contiguous()
+    ks, ks_val, ks_step = _scale_arg(k_scale if int8 else None, k_head_num, dev)
+    vs, vs_val, vs_step = _scale_arg(v_scale if int8 else None, k_head_num, dev)
+    out = torch.empty((s, q_head_num * d), dtype=torch.bfloat16, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = cuda_lib.load_library()
     cuda_lib.check(lib, lib.sinks_prefill_launch(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        None if sk is None else sk.data_ptr(), bt.data_ptr(), sl.data_ptr(), ctx.data_ptr(),
-        starts.data_ptr(), out.data_ptr(), sl.shape[0], k_head_num, hpr, group, d, int(int8),
-        k_cache.shape[2], bt.shape[1], int(sliding_window_size), int(max_q or s), float(scale),
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(sk),
+        int(sk is not None and sk.dtype == torch.bfloat16), ptr(ks), ks_val, ks_step, ptr(vs),
+        vs_val, vs_step, bt.data_ptr(), sl.data_ptr(), ctx.data_ptr(), out.data_ptr(), s,
+        sl.shape[0], k_head_num, hpr, group, d, int(int8), k_cache.shape[2], bt.shape[1],
+        k_cache.shape[0], int(sliding_window_size), int(max_q or s), float(scale),
         cuda_lib.stream_ptr(q)), "attention_sinks_prefill_pallas")
     attention_sinks_prefill_pallas.launches += 1
-    if int8:
-        out = scale_heads(out.reshape(s, k_head_num, group, d), v_scale, k_head_num).reshape(s, -1)
     return out
 
 

@@ -4,8 +4,9 @@
 Counterpart of ``sgl_kernel_npu_tpu/ops/matmul.py``.  :func:`quant_matmul`
 launches ``csrc/quant_matmul.cu`` for CUDA tensors and takes
 :func:`quant_matmul_ref` for CPU tensors.  The TPU wrapper pads N and K to
-its tiles; the CUDA kernel masks the ragged N edge itself and needs only
-K % 16 == 0.  ``batch_matmul_transpose`` is not ported yet (ROADMAP queue A).
+its tiles; the CUDA kernels (up to 16 rows a decode kernel on mma.sync,
+above it wgmma s8 tiles fed by TMA) mask the ragged edges themselves and
+need only K % 16 == 0.  ``batch_matmul_transpose`` is not ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations

@@ -53,7 +53,8 @@ _SIGNATURES = {
     "swiglu_oai_launch": [_P, _P, _I, _I, _I, _F, _F, _P],
     "sinks_decode_launch": [_P] * 4 + [_I, _P, _F, _I, _P, _F, _I] + [_P] * 6 + [_I] * 11
                            + [_F, _P],
-    "sinks_prefill_launch": [_P] * 9 + [_I] * 10 + [_F, _P],
+    "sinks_prefill_launch": [_P] * 4 + [_I, _P, _F, _I, _P, _F, _I] + [_P] * 4 + [_I] * 12
+                            + [_F, _P],
     "lora_shrink_launch": [_P] * 6 + [_F] + [_I] * 7 + [_P, _P, _P],
     "lora_expand_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "mla_train_fwd_launch": [_P] * 6 + [_I] * 3 + [_F, _P],

@@ -29,7 +29,10 @@ routing replayed); ``add_rms_norm_bias`` / ``add_gemma_rms_norm`` their
 residual sums bit-equal and outputs within one ulp (int8 one level);
 ``l1_norm`` 1e-5 of the largest value; ``bgmv_fused`` and ``sgmv_fused``
 1e-4 of the largest value (f32 sums of the same products in another
-order), dead rows exactly 0; the MLA training kernels (K14a-c): the output
+order), dead rows exactly 0; K12d on int8 levels bit-equal to K12d on the
+levels cast to bf16 with the wrapper's old fold (``scale_heads``) around it
+(the same chunks, products and roundings), and two K12d calls bit-identical;
+the MLA training kernels (K14a-c): the output
 as the MLA kernels (2e-2 + 2e-2 |plain|), the LSE 1e-4 absolute (f32 sums in
 another order), dQ and dK 1e-2 of the tensor's largest |value| plus 1e-4
 (dS rounds to bf16 on both sides, and a rounding tie moved by an f32 ulp
@@ -209,12 +212,16 @@ def test_decode_step_kernels_match_plain(dev):
 
 
 # (M, N, K): the W8A8 GEMMs of the path at DeepSeek-V3 width (wdqkv as made
-# and lane-padded, wuq, wo, shared gate || up, shared down) at decode and
-# prefill-chunk rows, then ragged edges (77 rows: two passes of 64)
-QMM_CASES = ([(m, n, k) for m in (1, 8, 64)
+# and lane-padded, wuq, wo, shared gate || up, shared down) at decode rows,
+# a 64-row prefill chunk and a 2048-row one; then ragged edges on both paths
+# (up to 16 rows the decode kernel, above the wgmma tiles of 128 rows: 17,
+# 63-65 and 77 rows, 2048 = 16 tiles; N not a multiple of the 64- or
+# 128-wide tiles, K not a multiple of a stage's 128 bytes)
+QMM_CASES = ([(m, n, k) for m in (1, 8, 64, 2048)
               for n, k in ((2112, 7168), (2176, 7168), (24576, 1536), (7168, 16384),
                            (4096, 7168), (7168, 2048))]
-             + [(m, n, k) for m in (1, 8, 77) for n, k in ((100, 64), (264, 208))])
+             + [(m, n, k) for m in (1, 8, 16, 17, 63, 64, 65, 77, 2048)
+                for n, k in ((100, 64), (264, 208), (1000, 1552))])
 
 
 @pytest.mark.parametrize("m,n,k", QMM_CASES)
@@ -764,16 +771,26 @@ def test_attention_sinks_kernel(dev, hq, hkv, d, window):
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
+# prefill requests (new tokens, context): one token at context 1, 37 at 50,
+# 63 / 64 / 65 rows (a 64-row block and one row either side at group 1, a
+# chunk edge of keys), 200 at 700; three pad rows follow
+PREFILL_SEQ, PREFILL_CTX = [1, 37, 63, 64, 65, 200], [1, 50, 63, 100, 129, 700]
+
+
+@pytest.mark.parametrize("page", [16, 12, 128])
 @pytest.mark.parametrize("window,with_sinks", [(0, True), (6, True), (128, True), (0, False)])
-@pytest.mark.parametrize("hq,hkv,d", [(64, 8, 64), (16, 4, 128), (3, 3, 64)])
-def test_attention_sinks_prefill_kernel(dev, hq, hkv, d, window, with_sinks):
-    """Ragged requests (1 token at context 1, 37 at 50, 200 at 700) and 3 pad
-    rows, which stay exactly 0; windows across pages of 16."""
+@pytest.mark.parametrize("hq,hkv,d", [(64, 8, 64), (16, 4, 128), (3, 3, 64), (32, 2, 64)])
+def test_attention_sinks_prefill_kernel(dev, hq, hkv, d, window, with_sinks, page):
+    """``PREFILL_SEQ`` / ``PREFILL_CTX`` and 3 pad rows, which stay exactly
+    0; windows across pages; groups 8, 4, 1 and 16 (a 64-row block inside a
+    token's heads at 16 x 5 rows); pages of 16 and 128 keys (TMA boxes of a
+    page and of 64 keys of one) and of 12 (cp.async)."""
     from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa
 
-    gen = torch.Generator(device=dev).manual_seed(hq + d + window + with_sinks)
-    seq_l, ctx_l = [1, 37, 200], [1, 50, 700]
-    q, kc, vc, bt, sinks = _sinks_inputs(gen, dev, sum(seq_l) + 3, max(ctx_l), hq, hkv, d, 3)
+    gen = torch.Generator(device=dev).manual_seed(hq + d + window + with_sinks + page)
+    seq_l, ctx_l = PREFILL_SEQ, PREFILL_CTX
+    q, kc, vc, bt, sinks = _sinks_inputs(gen, dev, sum(seq_l) + 3, max(ctx_l), hq, hkv, d,
+                                         len(seq_l), page)
     seq = torch.tensor(seq_l, dtype=torch.int32, device=dev)
     ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
     args = (q, kc, vc, sinks if with_sinks else None, seq, bt, ctx, d ** -0.5, window, hq, hkv)
@@ -959,30 +976,78 @@ def test_paged_decode_int8_fold_bit_equal(dev, hq, hkv, d, kind, with_sinks, sca
     assert torch.equal(got.reshape(want.shape), want)
 
 
-@pytest.mark.parametrize("kind", ["int8", "packed", "packed_int8"])
-@pytest.mark.parametrize("window,with_sinks", [(128, True), (0, False)])
-@pytest.mark.parametrize("hq,hkv,d", [(64, 8, 64), (32, 8, 128), (16, 2, 32)])
-def test_attention_sinks_prefill_cache_modes_kernel(dev, hq, hkv, d, window, with_sinks, kind):
-    """K12d on int8 levels and on the packed cache, with sinks and a window,
-    and without either (Llama's prefill, group 4 at 128): ragged requests
-    and 3 pad rows, which stay exactly 0."""
-    from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa
-
-    gen = torch.Generator(device=dev).manual_seed(hq + d + window + len(kind))
-    seq_l, ctx_l = [1, 37, 200], [1, 50, 700]
-    q, kc, vc, bt, sinks = _sinks_inputs(gen, dev, sum(seq_l) + 3, max(ctx_l), hq, hkv, d, 3)
+def _prefill_case(dev, kind, hq, hkv, d, window, with_sinks, seed):
+    """``PREFILL_SEQ`` / ``PREFILL_CTX`` and 3 pad rows over ``kind``'s
+    cache: K12d's arguments, keywords and the int8 scales."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    seq_l, ctx_l = PREFILL_SEQ, PREFILL_CTX
+    q, kc, vc, bt, sinks = _sinks_inputs(gen, dev, sum(seq_l) + 3, max(ctx_l), hq, hkv, d,
+                                         len(seq_l))
     kc, vc, sc = _cache_mode(kc, vc, kind, hkv, dev)
-    packed = "packed" in kind
     seq = torch.tensor(seq_l, dtype=torch.int32, device=dev)
     ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
     args = (q, kc, vc, sinks if with_sinks else None, seq, bt, ctx, d ** -0.5, window, hq, hkv)
+    return args, dict(max_q=200, packed="packed" in kind), sc
+
+
+@pytest.mark.parametrize("kind", ["int8", "packed", "packed_int8"])
+@pytest.mark.parametrize("window,with_sinks", [(128, True), (0, False)])
+@pytest.mark.parametrize("hq,hkv,d", [(64, 8, 64), (32, 8, 128), (16, 2, 32), (32, 2, 64)])
+def test_attention_sinks_prefill_cache_modes_kernel(dev, hq, hkv, d, window, with_sinks, kind):
+    """K12d on int8 levels and on the packed cache, with sinks and a window,
+    and without either (Llama's prefill, group 4 at 128; a group of 16):
+    ``PREFILL_SEQ`` / ``PREFILL_CTX`` and 3 pad rows, which stay exactly 0."""
+    from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa
+
+    args, kw, sc = _prefill_case(dev, kind, hq, hkv, d, window, with_sinks,
+                                 hq + d + window + len(kind))
     before = sa.attention_sinks_prefill_pallas.launches
-    got = sa.attention_sinks_prefill_pallas(*args, max_q=200, packed=packed, **sc)
-    want = sa.attention_sinks_prefill_plain(*args, packed=packed, **sc)
+    got = sa.attention_sinks_prefill_pallas(*args, **kw, **sc)
+    want = sa.attention_sinks_prefill_plain(*args, **kw, **sc)
     torch.cuda.synchronize()
     assert sa.attention_sinks_prefill_pallas.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
     assert not got[-3:].any()
+
+
+@pytest.mark.parametrize("scales", ["scalar", "per_head"])
+@pytest.mark.parametrize("kind,with_sinks", [("int8", True), ("packed_int8", True),
+                                             ("int8", False)])
+@pytest.mark.parametrize("hq,hkv,d", [(64, 8, 64), (32, 8, 128), (32, 2, 32)])
+def test_attention_sinks_prefill_int8_fold_bit_equal(dev, hq, hkv, d, kind, with_sinks, scales):
+    """K12d on int8 levels, which folds k_scale into q and v_scale into the
+    output itself, equals bit for bit K12d on the same levels cast to bf16
+    with the wrapper's old fold (``scale_heads``) applied to q before and to
+    the output after: the same chunks, products and roundings.  Scalar
+    scales go to the kernel by value."""
+    from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa
+
+    args, kw, sc = _prefill_case(dev, kind, hq, hkv, d, 128 if with_sinks else 0, with_sinks,
+                                 hq + d + len(kind))
+    if scales == "scalar":
+        sc = dict(k_scale=0.031, v_scale=0.027)
+    q, kc, vc = args[:3]
+    n = q.shape[0]
+    got = sa.attention_sinks_prefill_pallas(*args, **kw, **sc)
+    qf = da.scale_heads(q.reshape(n, hkv, hq // hkv, d), sc["k_scale"], hkv).reshape(q.shape)
+    ref = sa.attention_sinks_prefill_pallas(qf, kc.to(torch.bfloat16), vc.to(torch.bfloat16),
+                                            *args[3:], **kw)
+    want = da.scale_heads(ref.reshape(n, hkv, hq // hkv, d), sc["v_scale"], hkv)
+    torch.cuda.synchronize()
+    assert torch.equal(got.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("kind,with_sinks", [("", True), ("int8", True), ("packed_int8", False)])
+def test_attention_sinks_prefill_repeats_bit_identical(dev, kind, with_sinks):
+    """Two K12d calls give the same bits (no atomics: each row's keys are
+    summed in one order by one block)."""
+    from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa
+
+    args, kw, sc = _prefill_case(dev, kind, 32, 8, 128, 0, with_sinks, 3 + len(kind))
+    first = sa.attention_sinks_prefill_pallas(*args, **kw, **sc)
+    second = sa.attention_sinks_prefill_pallas(*args, **kw, **sc)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_attention_kernels_reject_what_they_do_not_take(dev):
