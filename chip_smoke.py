@@ -39,7 +39,7 @@ Phases (any failure raises and the script exits non-zero without a result):
    just after; every kernel of the path must have run, every request
    finished and every page come back.  After each run one decode step on a
    live batch runs through the kernels and through the plain versions, and
-   their logits are compared.
+   their logits are compared with the routing replayed.
 4b. The fully W8A8 layer (``mla_wq`` + ``dense_wq`` + ``moe_weights_q``)
    through ``decode_step`` on the live batch and ``prefill_step`` on one
    64-token chunk, each against its plain versions; K1, K5 and K7a must
@@ -694,7 +694,7 @@ def check_grouped_matmul(gen, moe, n_tok, topk, timed):
 def check_grouped_matmul_small(gen):
     """K8a on ragged cases: empty groups and rows past the total, a single
     row, K not a multiple of the kernel's 128-byte stage (nor of 32), groups
-    of more than one 64-row tile; both epilogues."""
+    of more than one 128-row work item; both epilogues."""
     cases = [((0, 5, 0, 17, 1, 0, 40, 1), 80, 1024, 256), ((0, 1, 0, 0), 1, 256, 128),
              ((3, 0, 70, 9), 100, 336, 160), ((130, 64, 65, 0, 200), 500, 512, 512)]
     gm, gm_p = grouped_matmul.grouped_matmul, grouped_matmul.grouped_matmul_plain
@@ -1283,16 +1283,16 @@ def decode_step_fn(params, moe, cfg=CFG, **kw):
 def compare_plain_decode(eng, ps, params, moe, mla_wq=None):
     """One decode step on a live batch through the engine's own switches,
     through the kernels and through the plain versions; logits held to
-    :func:`routing_rule` (the float prologue on the rows whose routing
-    agrees; the fused W8A8 prologue, whose int8 steps move more near-ties,
-    with the routing replayed)."""
+    :func:`routing_rule` with the routing replayed (the plain run takes the
+    kernel run's expert choices, so every row is compared; the count of rows
+    whose own routing agreed is printed as a figure)."""
     batch, n = live_batch(eng, ps)
     ok = compare_runs(
         "decode step" + (" (fused W8A8 prologue)" if mla_wq else ""),
         lambda: eng.decode_logits(batch),
         lambda: eng.decode_logits(batch, decode_step_fn(params, moe, mla_wq=mla_wq,
                                                         plain=True)),
-        n, logits=True, forced=mla_wq is not None)
+        n, logits=True, forced=True)
     if not ok:
         raise AssertionError("kernel decode disagrees with the plain path")
     return batch, n

@@ -1,12 +1,14 @@
 // The W8A8 tile of the grouped expert GEMMs on mma.sync.m16n8k32 (s8 x s8 ->
-// s32), shared by grouped_matmul (K8a, grouped_matmul.cu), the fused MoE
-// (K16b, fused_full.cu) and the fused dispatch + GEMM1 (K16a,
-// fused_kernel.cu).  The design is K8a's (grouped_matmul.cu's header
-// comment): 64 sorted rows of one group x one column tile of 128 columns
-// ("dequant") or 64 gate and the 64 matching up columns (SwiGLU), 256
-// threads, 8 warps of 32 rows x 32 columns, 128 bytes of K a stage, the next
-// stage's global loads in registers while the current one computes, weight
-// bytes transposed in registers for the B fragments.
+// s32), shared by the first pass of grouped_matmul_combine (K8b,
+// grouped_matmul.cu's dequant_rows_kernel), the fused MoE (K16b,
+// fused_full.cu) and the fused dispatch + GEMM1 (K16a, fused_kernel.cu).  K8a
+// itself runs an s8 wgmma kernel of its own (grouped_matmul.cu) with the
+// same column tiles and epilogues.  The design: 64 sorted rows of one group x
+// one column tile of 128 columns ("dequant") or 64 gate and the 64 matching
+// up columns (SwiGLU), 256 threads, 8 warps of 32 rows x 32 columns, 128
+// bytes of K a stage, the next stage's global loads in registers while the
+// current one computes, weight bytes transposed in registers for the B
+// fragments.
 #pragma once
 
 #include "gmm_common.cuh"

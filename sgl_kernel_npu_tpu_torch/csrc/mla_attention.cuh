@@ -1,12 +1,14 @@
-// Paged MLA attention over the latent cache: the block body shared by
-// decode_mla (decode_mla.cu) and mla_prefill (mla_prefill.cu).
+// Paged MLA attention over the latent cache: the 16-row block body of K2
+// (decode_mla, decode_mla.cu).  Its constants and mma.sync helpers also
+// serve mla_train.cu's K14b and K14c, which run a body of their own of the
+// same design.  K9a and K9b run the Hopper body of mla_sparse.cuh.
 //
 // Layouts are the JAX package's: q [tokens, H, 512 + 64] (absorbed nope || rope),
 // latent cache kn [pages, 1, page, 512], rope cache transposed
 // kr [pages, 1, 64, page], block table [B, max_pages]; q, kr and the output
 // bf16, the latent bf16 or int8 (the int8_nzcache levels round(k / k_scale):
-// the wrappers fold k_scale into q_nope and the output, as the JAX wrappers
-// do, so the kernels only read levels).  V aliases K_nope.
+// the wrapper folds k_scale into q_nope and the output, as the JAX wrappers
+// do, so the kernel only reads levels).  V aliases K_nope.
 //
 // One block owns ROWS = 16 query rows: TQ consecutive tokens of one request x
 // 16 / TQ heads, which is one m16 tile of the bf16 tensor-core product
@@ -21,22 +23,10 @@
 //               kernel feeds its PV product),
 //   O += P V    warp w owns output columns 64 w .. 64 w + 64 (8 n-tiles), the
 //               [16, 512] f32 accumulator spread over the warps' registers.
-// Keys past the block's last causal position are never read (the causal page
-// pruning of the TPU kernels, at key granularity).
-//
-// The sparse walk (mla_prefill_block_sparse, DSA): the block's keys are the
-// whole pages sel[0 .. n) (positions of pages in the sequence, in the order
-// the indexer ranked them, not in position order), page after page; a key's
-// position is sel[i / page] * page + i % page, and it is masked by that
-// position.  Masked keys follow the TPU kernel's -1e30 convention: a masked
-// score is -1e30 and, while the row's running max is still -1e30, weighs 1
-// (a dead page walked before the live ones accumulates a sum that the first
-// live key wipes out with alpha = exp(-1e30 - m) = 0), so a row with no live
-// key among its pages gets the mean of the latents it walked, as in JAX.
-// An int8 latent is loaded 8
-// levels (8 bytes) at a time, half the bytes of bf16, and widened to bf16 as
-// it is stored to shared memory: levels in [-128, 127] are exact in bf16, so
-// the mma path is the same for both.
+// Keys past the block's last causal position are never read.  An int8 latent
+// is loaded 8 levels (8 bytes) at a time, half the bytes of bf16, and widened
+// to bf16 as it is stored to shared memory: levels in [-128, 127] are exact in
+// bf16, so the mma path is the same for both.
 #pragma once
 
 #include "common.cuh"
@@ -108,29 +98,20 @@ __device__ __forceinline__ void mma_ab(float (&o)[NT][4], const bf16* a, int lda
   }
 }
 
-// Position in the sequence of the block's key i: i itself on the dense walk,
-// on the sparse walk offset i % page of the selected page sel[i / page].
-template <bool SPARSE>
-__device__ __forceinline__ int key_pos(const int* sel, int key, int page_size) {
-  return SPARSE ? sel[key / page_size] * page_size + key % page_size : key;
-}
-
 // Issue the global loads of keys [k0, k0 + KT) into registers: every load of
 // a thread is independent of the others, so they are all in flight at once.
-template <bool SPARSE, typename KN, typename V = typename Chunk<KN>::type>
+template <typename KN, typename V = typename Chunk<KN>::type>
 __device__ __forceinline__ void load_chunk(const KN* __restrict__ kn,
                                            const bf16* __restrict__ kr,
-                                           const int* __restrict__ bt_row, const int* sel,
-                                           int k0, int kend, int page_size, V (&v)[NV],
-                                           bf16 (&r)[NR]) {
+                                           const int* __restrict__ bt_row, int k0, int kend,
+                                           int page_size, V (&v)[NV], bf16 (&r)[NR]) {
 #pragma unroll
   for (int it = 0; it < NV; ++it) {
     const int e = threadIdx.x + it * THREADS;
     const int t = e / (DN / VEC), c = e % (DN / VEC), key = k0 + t;
     V val{};
     if (key < kend) {
-      const int pos = key_pos<SPARSE>(sel, key, page_size);
-      const int pg = bt_row[pos / page_size], off = pos % page_size;
+      const int pg = bt_row[key / page_size], off = key % page_size;
       val = *reinterpret_cast<const V*>(kn + ((size_t)pg * page_size + off) * DN + c * VEC);
     }
     v[it] = val;
@@ -141,8 +122,7 @@ __device__ __forceinline__ void load_chunk(const KN* __restrict__ kn,
     const int t = e % KT, rr = e / KT, key = k0 + t;
     bf16 val = __float2bfloat16(0.f);
     if (key < kend) {
-      const int pos = key_pos<SPARSE>(sel, key, page_size);
-      const int pg = bt_row[pos / page_size], off = pos % page_size;
+      const int pg = bt_row[key / page_size], off = key % page_size;
       val = kr[((size_t)pg * DR + rr) * page_size + off];
     }
     r[it] = val;
@@ -168,15 +148,12 @@ __device__ __forceinline__ void store_chunk(bf16* ks, const V (&v)[NV], const bf
 // Rows r of the block: token j = j0 + r / (ROWS / tq) of the request, head
 // h0 + r % (ROWS / tq).  Token j sits at packed index tok_base + j and sees
 // cache positions <= ctx - seq_len + j.  Rows past seq_len or past the head
-// count are dead: they read nothing and write nothing.  SPARSE: the block
-// walks the n_sel pages sel[] (in shared memory) instead of positions 0 ..
-// of its request.
-template <typename KN, bool SPARSE = false>
+// count are dead: they read nothing and write nothing.
+template <typename KN>
 __device__ __forceinline__ void mla_block(
     const bf16* __restrict__ q, const KN* __restrict__ kn, const bf16* __restrict__ kr,
     const int* __restrict__ bt_row, bf16* __restrict__ out, int tok_base, int j0,
-    int seq_len, int ctx, int heads, int h0, int tq, int page_size, float sm_scale,
-    const int* sel = nullptr, int n_sel = 0) {
+    int seq_len, int ctx, int heads, int h0, int tq, int page_size, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);          // [ROWS][LD]
   bf16* ks = qs + ROWS * LD;                              // [KT][LD]
@@ -202,9 +179,8 @@ __device__ __forceinline__ void mla_block(
     m_s[tid] = NEG;
     l_s[tid] = 0.f;
   }
-  // exclusive key bound: the causal limit of the block's last live token, or
-  // the selected pages' keys
-  const int kend = SPARSE ? n_sel * page_size : ctx - seq_len + min(j0 + tq, seq_len);
+  // exclusive key bound: the causal limit of the block's last live token
+  const int kend = ctx - seq_len + min(j0 + tq, seq_len);
   float o[8][4];
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
@@ -213,14 +189,14 @@ __device__ __forceinline__ void mla_block(
 
   typename Chunk<KN>::type kv_next[NV];
   bf16 kr_next[NR];
-  if (kend > 0) load_chunk<SPARSE>(kn, kr, bt_row, sel, 0, kend, page_size, kv_next, kr_next);
+  if (kend > 0) load_chunk(kn, kr, bt_row, 0, kend, page_size, kv_next, kr_next);
   for (int k0 = 0; k0 < kend; k0 += KT) {
     // the chunk loaded into registers last iteration goes to shared memory;
     // the next chunk's loads are issued before this chunk's arithmetic
     store_chunk(ks, kv_next, kr_next);
     __syncthreads();
     if (k0 + KT < kend)
-      load_chunk<SPARSE>(kn, kr, bt_row, sel, k0 + KT, kend, page_size, kv_next, kr_next);
+      load_chunk(kn, kr, bt_row, k0 + KT, kend, page_size, kv_next, kr_next);
 
     // S half-products: keys s_keys .. + 8, depth [288 s_half, 288 s_half + 288)
     {
@@ -237,15 +213,11 @@ __device__ __forceinline__ void mla_block(
     // online softmax: warp w takes rows w and w + 8; lane = key of the chunk
     for (int r = warp; r < ROWS; r += THREADS / 32) {
       const int j = j0 + r / ht, h = h0 + r % ht, key = k0 + lane;
-      const bool walked = key < kend;
-      const bool ok = walked && j < seq_len && h < heads &&
-                      key_pos<SPARSE>(sel, key, page_size) <= ctx - seq_len + j;
+      const bool ok = key < kend && j < seq_len && h < heads && key <= ctx - seq_len + j;
       const float s = ok ? (ss[r * KT + lane] + ss[ROWS * KT + r * KT + lane]) * sm_scale : NEG;
       const float m_old = m_s[r];
       const float m_new = fmaxf(m_old, sgl::warp_max(s));
-      // sparse: a masked key of the walk weighs exp(NEG - m_new) (the -1e30
-      // convention above); dense: a masked key weighs 0
-      const float p = (SPARSE ? walked : ok) ? expf(s - m_new) : 0.f;
+      const float p = ok ? expf(s - m_new) : 0.f;     // a masked key weighs 0
       const bf16 pq = __float2bfloat16(p);
       pb[r * LDP + lane] = pq;
       const float sum = sgl::warp_sum(__bfloat162float(pq));

@@ -1,59 +1,76 @@
-// K9b's block body (mla_prefill_block_sparse, DeepSeek-V3.2 DSA) for Hopper:
-// 64 query rows a block against the pages the indexer selected for their
-// q-chunk, on warpgroup products (wgmma) fed by TMA (wgmma.cuh).
+// The Hopper block body of MLA prefill over the paged latent cache: 64 query
+// rows a block on warpgroup products (wgmma) fed by TMA (wgmma.cuh), shared
+// by K9a (mla_prefill, the dense causal walk) and K9b
+// (mla_prefill_block_sparse, DeepSeek-V3.2 DSA: the pages the indexer
+// selected for each q-chunk).  The two differ only in their key walk.
 //
-// What bounds it.  A 2048-token chunk of 128 heads at context 4096 (16 pages
-// of 128 a 64-token q-chunk) does ~1.2 TFLOP for ~0.3 GB of distinct bytes:
-// operations bound it, 1.14 ms at the bf16 tensor-core rate.  The 16-row
-// mma.sync body of mla_attention.cuh (K9a's) re-streamed every selected key
-// once per 16 rows (~39 GB through L2 at that shape), widened int8 levels
-// once per 16 rows, and ran the softmax row by row on warp shuffles.  Here
-// the keys cross L2 once a block (~9.7 GB bf16, ~5.4 GB int8, at 64 rows a
-// block): a first design whose computing threads issued the ring's 16-byte
+// What bounds it.  A 2048-token chunk of 128 heads at context 4096 does
+// ~1.7 TFLOP dense (K9a: 1.77 ms at the bf16 tensor-core rate) or ~1.2 TFLOP
+// over 16 selected pages of 128 a q-chunk (K9b: 1.14 ms), for ~0.3 GB of
+// distinct bytes: operations bound both.  The 16-row mma.sync body of
+// mla_attention.cuh, on which both kernels ran first, re-streamed every
+// key once per 16 rows (~39 GB through L2 at K9b's shape), widened int8
+// levels once per 16 rows, and ran the softmax row by row on warp shuffles.
+// Here the keys cross L2 once a block (~9.7 GB bf16, ~5.4 GB int8, at 64 rows
+// a block): a first design whose computing threads issued the ring's 16-byte
 // cp.async stalled on them, so TMA boxes from a loading warpgroup carry
 // them, off the critical path.  What is left between this body and the
 // bound: the softmax, masks and barriers run between the products, not
 // beside them (two stages leave no room to start the next chunk's S first).
 //
-// Design.  Every row of a q-chunk (tokens x heads: MLA has one latent head)
-// sees the same selected pages, so a block owns 64 rows of one q-chunk (the
-// wrapper's sparse_tiling: 1 token x 64 heads at H = 128, 8 tokens x 8 heads
-// at H = 8; rows past seq_len or the head count are dead) and each staged key
-// chunk serves all 64: a quarter of the 16-row body's key traffic.
+// Design.  A block owns 64 rows of one request (K9b: of one q-chunk, whose
+// rows all see the same selected pages), tokens x heads as the wrapper's
+// sparse_tiling gives them: 1 token x 64 heads at H = 128, 8 tokens x 8
+// heads at H = 8 (rows past the tokens or the head count are dead), so each
+// staged key chunk serves all 64 rows: a quarter of the 16-row body's key
+// traffic.
+//   Keys: the walk's key i is, on the dense walk, position i of the request
+//     (keys 0 .. the causal end of the block's last live row), on the sparse
+//     walk offset i % page of the selected page sel[i / page] (the
+//     selection's order; kend = whole pages).  Its cache page comes from the
+//     block table: each of the first 64 loading threads looks up one key of
+//     the next chunk a chunk ahead (the lookup's latency hides behind a
+//     chunk) and parks its (page, offset) in a two-chunk ring in shared
+//     memory for the chunk's copies (a walk at context 32768 and page 16
+//     names 2048 pages: no block-wide table copy fits).
 //   Loads (warpgroup 0, 40 registers a thread by setmaxnreg): chunks of
 //     KT = 64 keys in a ring of two stages, each stage's full / empty
-//     mbarriers between it and the consumers.  Key i of the walk is offset
-//     i % page of the selected page sel[i / page] (the selection's order), its
-//     cache page looked up once a block (phys[]).  One thread issues the
-//     latent as TMA boxes of up to 64 keys of one page x 128 bytes, landing in
-//     the 128-byte swizzle that wgmma reads (dead keys: rows past the cache,
-//     which TMA fills with zeros); the warpgroup copies the rope [pages, 1,
-//     64, page] (8 keys contiguous a dimension, an MN-major operand) by
-//     cp.async.  A page size not a multiple of 8 takes 16-byte cp.async
-//     pieces into the same swizzle, and the rope element by element.  An int8
-//     latent lands as int8 (half the bytes) and is widened to bf16 once a
-//     chunk into one shared buffer, exactly (levels are bf16 integers).
+//     mbarriers between it and the consumers.  One thread issues the latent
+//     as TMA boxes of up to 64 keys of one page x 128 bytes, landing in the
+//     128-byte swizzle that wgmma reads (keys past the walk: rows past the
+//     cache, which TMA fills with zeros); the warpgroup copies the rope
+//     [pages, 1, 64, page] (8 keys contiguous a dimension, an MN-major
+//     operand) by cp.async.  A page size not a multiple of 8 takes 16-byte
+//     cp.async pieces into the same swizzle, and the rope element by element.
+//     An int8 latent lands as int8 (half the bytes) and is widened to bf16
+//     once a chunk into one shared buffer, exactly (levels are bf16 integers).
 //   S = Q K^T (warpgroups 1, 2, 232 registers): warpgroup g takes keys 32 g ..
 //     32 g + 32 of the chunk over the full depth (32 steps m64n32k16 on the
 //     latent, 4 on the rope), Q [64, 576] resident in shared memory.
 //   Softmax: online, in registers (f32, base 2); the two warpgroups swap
 //     their row maxima through shared memory; P rounded to bf16 into shared
-//     memory.  Key positions come from (slot, offset) counters advanced a
-//     chunk at a time: a division by the page size in the loop was a large
-//     share of the first design's time.
+//     memory.  Key positions: the dense walk's are the keys themselves, and
+//     only a chunk past the block's first live row's causal end is masked;
+//     the sparse walk's come from (slot, offset) counters advanced a chunk at
+//     a time (a division by the page size in the loop was a large share of
+//     the first design's time).
 //   O += P V: warpgroup g owns output columns 256 g .. 256 g + 256 (4 steps
 //     m64n256k16, V = the latent chunk, MN-major), a 64 x 256 f32
 //     accumulator of 128 registers a thread; each keeps the denominator of
 //     its own keys, summed at the end.
 // Shared memory: Q 72 KB, two stages of 72 KB (int8: 40 KB, and the 64 KB
-// widened latent), P 8 KB, the selection 2 KB: 226.5 KB, one block an SM.
+// widened latent), P 8 KB, the selection 1 KB, the keys' pages 1 KB:
+// 226.5 KB, one block an SM.
 //
-// Semantics (JAX's _mla_prefill_pruned_kernel): whole selected pages are
-// walked, masked by position (key <= context - seq_len + token); a masked
-// key scores -1e30 and, while the row's running max is still -1e30, weighs 1,
-// so a row that sees none of its pages gets the mean of the latents it
-// walked; P is rounded to bf16 before the PV product; dead rows write
-// nothing (the caller zeroes the output).
+// Semantics.  Dense (JAX's _mla_prefill_kernel): token j sees positions <=
+// ctx - seq_len + j; a masked key weighs 0; a box of bf16 keys past the walk
+// is zeroed before P V (the cache there may hold anything).  Sparse (JAX's
+// _mla_prefill_pruned_kernel): whole selected pages are walked, masked by
+// position; a masked key scores -1e30 and, while the row's running max is
+// still -1e30, weighs 1, so a row that sees none of its pages gets the mean
+// of the latents it walked.  Both: P is rounded to bf16 before the PV
+// product and the denominator sums the rounded P; dead rows write nothing
+// (the caller zeroes the output).
 #pragma once
 
 #include <cuda.h>
@@ -91,6 +108,8 @@ __device__ __forceinline__ float ex2(float x) {
 // latent is TMA's 128-byte swizzle, [column block][64 keys][128 bytes] (bf16:
 // 8 blocks of 64 columns; int8: 4 of 128 levels, widened into WIDE, 8 blocks
 // of bf16); a stage's rope is [8][64][8] (key / 8, dimension, key % 8).
+// KEYS [2][2][KT]: each chunk's keys' cache pages (-1: past the walk) and
+// offsets in the page.
 template <typename KN>
 struct Smem {
   static constexpr uint32_t Q = 0;
@@ -100,37 +119,37 @@ struct Smem {
   static constexpr uint32_t WIDE = STAGES + 2 * STAGE;        // int8: the latent as bf16
   static constexpr uint32_t P = WIDE + (sizeof(KN) == 1 ? KT * DN * 2 : 0);
   static constexpr uint32_t SEL = P + M * KT * 2;             // [MAX_SEL] page positions
-  static constexpr uint32_t PHYS = SEL + MAX_SEL * 4;         // [MAX_SEL] cache pages
-  static constexpr uint32_t RED = PHYS + MAX_SEL * 4;         // [2][M] f32 row exchange
+  static constexpr uint32_t KEYS = SEL + MAX_SEL * 4;         // [2][2][KT] page, offset
+  static constexpr uint32_t RED = KEYS + 2 * 2 * KT * 4;      // [2][M] f32 row exchange
   static constexpr uint32_t BARS = RED + 2 * M * 4;           // full[2], empty[2]
   static constexpr uint32_t NLIVE = BARS + 4 * 8;             // live slots of the chunk
   static constexpr uint32_t BYTES = NLIVE + 16;
 };
 static_assert(Smem<bf16>::BYTES <= 232448 && Smem<int8_t>::BYTES <= 232448,
-              "K9b's shared memory exceeds a block's 227 KB");
+              "the MLA prefill block's shared memory exceeds a block's 227 KB");
 
-// The producer warpgroup's copies of keys [k0, k0 + KT) of the walk into a
-// stage (keys at or past kend are zeros).  Thread 0: the latent, a TMA box of
-// box_keys keys (they share a page: box_keys divides the page and 64) x 64
-// columns (int8: 128 levels) at a time, rows past the cache (total_rows) for
-// dead keys, which TMA fills with zeros; a box under 8 keys (a page size not
-// a multiple of 8): every thread, 16-byte cp.async pieces into the same
-// swizzled layout.  Every thread (warp w, lane l): the rope of key groups
-// 2 w, 2 w + 1 at dimensions l, l + 32, by cp.async (a page size not a
-// multiple of 8: element by element).
+// The producer warpgroup's copies of a chunk of KT keys into a stage: key r
+// of the chunk is offset koff[r] of cache page kpg[r] (kpg -1: past the
+// walk, zeros).  Thread 0: the latent, a TMA box of box_keys keys (they
+// share a page: box_keys divides the page and 64, and chunks start at
+// multiples of 64) x 64 columns (int8: 128 levels) at a time, rows past the
+// cache (total_rows) for dead boxes, which TMA fills with zeros; a box under
+// 8 keys (a page size not a multiple of 8): every thread, 16-byte cp.async
+// pieces into the same swizzled layout.  Every thread (warp w, lane l): the
+// rope of key groups 2 w, 2 w + 1 at dimensions l, l + 32, by cp.async (a
+// page size not a multiple of 8: element by element).
 template <typename KN>
 __device__ __forceinline__ void produce_chunk(unsigned char* stage, const void* kmap,
                                               const KN* __restrict__ kn,
-                                              const bf16* __restrict__ kr, const int* phys,
-                                              int k0, int kend, int page_size, int box_keys,
+                                              const bf16* __restrict__ kr, const int* kpg,
+                                              const int* koff, int page_size, int box_keys,
                                               int total_rows, uint64_t* full, int w, int lane) {
   constexpr int BLOCKS = DN * (int)sizeof(KN) / 128;   // 128-byte column blocks of a key
   if (box_keys >= 8) {
     if (w == 0 && lane == 0) {
       wg::mbar_expect_tx(full, KT * DN * sizeof(KN));
       for (int r = 0; r < KT; r += box_keys) {
-        const int kg = k0 + r;
-        const int y = kg < kend ? phys[kg / page_size] * page_size + kg % page_size : total_rows;
+        const int y = kpg[r] >= 0 ? kpg[r] * page_size + koff[r] : total_rows;
 #pragma unroll
         for (int cb = 0; cb < BLOCKS; ++cb)
           wg::tma_load_2d(stage + cb * BOX + r * 128, kmap, cb * 128 / (int)sizeof(KN), y, full);
@@ -139,11 +158,10 @@ __device__ __forceinline__ void produce_chunk(unsigned char* stage, const void* 
   } else {  // pages of fewer than 8 keys' multiple: 16-byte pieces, swizzled as TMA would
 #pragma unroll 1
     for (int i = 0; i < 2; ++i) {
-      const int key = (lane & 7) + 8 * (2 * w + i), kg = k0 + key;
-      const bool live = kg < kend;
+      const int key = (lane & 7) + 8 * (2 * w + i);
+      const bool live = kpg[key] >= 0;
       const char* src = reinterpret_cast<const char*>(kn);
-      if (live)
-        src += ((size_t)phys[kg / page_size] * page_size + kg % page_size) * DN * sizeof(KN);
+      if (live) src += ((size_t)kpg[key] * page_size + koff[key]) * DN * sizeof(KN);
 #pragma unroll
       for (int j = 0; j < BLOCKS * 2; ++j) {
         const int pc = (lane >> 3) + 4 * j;     // piece of the key's row: block pc / 8
@@ -155,23 +173,22 @@ __device__ __forceinline__ void produce_chunk(unsigned char* stage, const void* 
   bf16* rope = reinterpret_cast<bf16*>(stage + Smem<KN>::RAW);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int g = 2 * w + i, kg8 = k0 + 8 * g;
+    const int g = 2 * w + i;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int d = lane + 32 * h;
       bf16* dst = rope + (g * DR + d) * 8;
       if (page_size % 8 == 0) {
-        const bool live8 = kg8 < kend;
+        const bool live8 = kpg[8 * g] >= 0;
         const bf16* src8 = kr;
-        if (live8) src8 += ((size_t)phys[kg8 / page_size] * DR + d) * page_size + kg8 % page_size;
+        if (live8) src8 += ((size_t)kpg[8 * g] * DR + d) * page_size + koff[8 * g];
         wg::cp_async16(dst, src8, live8 ? 16 : 0);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          const int k = kg8 + e;
-          dst[e] = k < kend
-                       ? kr[((size_t)phys[k / page_size] * DR + d) * page_size + k % page_size]
-                       : __float2bfloat16(0.f);
+          const int k = 8 * g + e;
+          dst[e] = kpg[k] >= 0 ? kr[((size_t)kpg[k] * DR + d) * page_size + koff[k]]
+                               : __float2bfloat16(0.f);
         }
       }
     }
@@ -208,24 +225,26 @@ __device__ __forceinline__ void widen_chunk(const unsigned char* raw, unsigned c
   }
 }
 
-// The block: request b's tokens [j0, jend) of one q-chunk (at most tq) x
-// heads [h0, h0 + hb), row r = token j0 + r / hb, head h0 + r % hb; pos_sel_c
-// the chunk's n_sel slots.  Token j sits at packed index tok_base + j and sees
-// positions <= ctx - seq_len + j.  Warpgroup 0 loads (40 registers a
-// thread), warpgroups 1 and 2 compute (232): full[s] completes when stage s
-// has landed, empty[s] when the consumers are done with it.  kmap: the latent
+// The block: request b's tokens [j0, jend) (at most tq) x heads [h0, h0 +
+// hb), row r = token j0 + r / hb, head h0 + r % hb.  Token j sits at packed
+// index tok_base + j and sees positions <= ctx - seq_len + j.  DENSE: the
+// keys are positions 0 .. ctx - seq_len + jend of the request (bt_row its
+// block table); else the n_sel slots pos_sel_c of its q-chunk (positions of
+// pages, -1 dead), walked whole.  Warpgroup 0 loads (40 registers a thread),
+// warpgroups 1 and 2 compute (232): full[s] completes when stage s has
+// landed, empty[s] when the consumers are done with it.  kmap: the latent
 // cache as [total_rows = pages x page, 512] (TMA, boxes of box_keys rows).
-template <typename KN>
-__device__ __forceinline__ void sparse_block(
+template <typename KN, bool DENSE>
+__device__ __forceinline__ void block(
     const bf16* __restrict__ q, const void* kmap, const KN* __restrict__ kn,
-    const bf16* __restrict__ kr,
-    const int* __restrict__ bt_row, const int* __restrict__ pos_sel_c, bf16* __restrict__ out,
-    int tok_base, int j0, int jend, int tq, int seq_len, int ctx, int heads, int h0, int hb,
-    int n_sel, int page_size, int box_keys, int total_rows, float sm_scale) {
+    const bf16* __restrict__ kr, const int* __restrict__ bt_row,
+    const int* __restrict__ pos_sel_c, bf16* __restrict__ out, int tok_base, int j0, int jend,
+    int tq, int seq_len, int ctx, int heads, int h0, int hb, int n_sel, int page_size,
+    int box_keys, int total_rows, float sm_scale) {
   using L = Smem<KN>;
   extern __shared__ __align__(1024) unsigned char smem[];
   int* sel = reinterpret_cast<int*>(smem + L::SEL);
-  int* phys = reinterpret_cast<int*>(smem + L::PHYS);
+  int* keys = reinterpret_cast<int*>(smem + L::KEYS);
   float* red = reinterpret_cast<float*>(smem + L::RED);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
   uint64_t* empty = full + 2;
@@ -233,18 +252,15 @@ __device__ __forceinline__ void sparse_block(
   const bf16* pb = reinterpret_cast<const bf16*>(smem + L::P);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  if (warp == 0) {  // the chunk's live slots, in order, and their cache pages
+  if (warp == 0) {  // the sparse walk's live slots, in order; the barriers
     int n = 0;
-    for (int base = 0; base < n_sel; base += 32) {
-      const int v = base + lane < n_sel ? pos_sel_c[base + lane] : -1;
-      const unsigned live = __ballot_sync(0xffffffffu, v >= 0);
-      if (v >= 0) {
-        const int at = n + __popc(live & ((1u << lane) - 1u));
-        sel[at] = v;
-        phys[at] = bt_row[v];
+    if (!DENSE)
+      for (int base = 0; base < n_sel; base += 32) {
+        const int v = base + lane < n_sel ? pos_sel_c[base + lane] : -1;
+        const unsigned live = __ballot_sync(0xffffffffu, v >= 0);
+        if (v >= 0) sel[n + __popc(live & ((1u << lane) - 1u))] = v;
+        n += __popc(live);
       }
-      n += __popc(live);
-    }
     if (lane == 0) {
       *n_live_s = n;
       for (int i = 0; i < 2; ++i) {
@@ -254,14 +270,35 @@ __device__ __forceinline__ void sparse_block(
     }
   }
   __syncthreads();
-  const int n_live = *n_live_s, kend = n_live * page_size;
+  // the walk's keys [0, kend): the causal end of the block's last live row,
+  // or the selected pages
+  const int n_live = *n_live_s, kend = DENSE ? ctx - seq_len + jend : n_live * page_size;
 
   if (warp < PRODUCERS / 32) {  // the producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    // thread tid < KT: the cache page and offset of key tid of the next chunk
+    auto lookup = [&](int kg, int& pg, int& off) {
+      pg = -1;
+      off = 0;
+      if (kg < kend) {
+        const int slot = kg / page_size;
+        off = kg - slot * page_size;
+        pg = bt_row[DENSE ? slot : sel[slot]];
+      }
+    };
+    int pg = -1, off = 0;
+    if (tid < KT) lookup(tid, pg, off);
     for (int it = 0, k0 = 0; k0 < kend; ++it, k0 += KT) {
       const int st = it & 1;
+      int* kpg = keys + st * 2 * KT;
       if (it >= 2) wg::mbar_wait(&empty[st], ((it >> 1) - 1) & 1);
-      produce_chunk<KN>(smem + L::STAGES + st * L::STAGE, kmap, kn, kr, phys, k0, kend,
+      if (tid < KT) {
+        kpg[tid] = pg;
+        kpg[KT + tid] = off;
+        lookup(k0 + KT + tid, pg, off);         // a chunk ahead
+      }
+      wg::bar_sync(2, PRODUCERS);
+      produce_chunk<KN>(smem + L::STAGES + st * L::STAGE, kmap, kn, kr, kpg, kpg + KT,
                         page_size, box_keys, total_rows, &full[st], warp, lane);
       wg::mbar_arrive_cp_async(&full[st]);     // when its rope copies land
       wg::mbar_arrive(&full[st]);              // its plain stores (a page size not 8 k)
@@ -298,14 +335,17 @@ __device__ __forceinline__ void sparse_block(
     live[h] = row_live(r);
     qpos[h] = ctx - seq_len + j0 + r / hb;
   }
-  // this thread's keys c < 8 of every chunk, 32 wgi + 8 (c / 2) + 2 t4 + c % 2,
-  // as (selected slot, offset in the page), advanced a chunk at a time
+  // the dense walk: keys up to the first row's causal end are unmasked
+  const int open_end = ctx - seq_len + j0 + 1;
+  // this thread's keys c < 8 of every chunk, kk(c) = 32 wgi + 8 (c / 2) + 2
+  // t4 + c % 2; the sparse walk's as (selected slot, offset in the page),
+  // advanced a chunk at a time
   int slot[8], off[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     const int kk = 32 * wgi + 8 * (c >> 1) + 2 * t4 + (c & 1);
-    slot[c] = kk / page_size;
-    off[c] = kk % page_size;
+    slot[c] = DENSE ? kk : kk / page_size;
+    off[c] = DENSE ? 0 : kk % page_size;
   }
   const float scale2 = sm_scale * LOG2E;
   float o[128];
@@ -315,10 +355,10 @@ __device__ __forceinline__ void sparse_block(
 
   for (int it = 0, k0 = 0; k0 < kend; ++it, k0 += KT) {
     const int st = it & 1;
-    const unsigned char* stage = smem + L::STAGES + st * L::STAGE;
+    unsigned char* stage = smem + L::STAGES + st * L::STAGE;
     wg::mbar_wait(&full[st], (it >> 1) & 1);
     wg::fence_proxy();
-    const unsigned char* lat = stage;
+    unsigned char* lat = stage;
     if constexpr (sizeof(KN) == 1) {
       if (it > 0) wg::bar_sync(1, CONSUMERS);  // both warpgroups are done with the last chunk
       widen_chunk(stage, smem + L::WIDE);
@@ -350,20 +390,31 @@ __device__ __forceinline__ void sparse_block(
       __syncwarp();
       if (lane == 0) wg::mbar_arrive(&empty[st]);
     }
+    if constexpr (DENSE && sizeof(KN) == 2) {
+      // the chunk past the walk's end: its TMA boxes brought cache rows past
+      // kend; P V reads the rows of this warpgroup's columns, zeroed here
+      const int kv = kend - k0;
+      for (int p = ctid & 127; p < (KT - kv) * 32; p += 128) {
+        const int row = kv + (p >> 5), pc = p & 31;
+        *reinterpret_cast<uint4*>(lat + (4 * wgi + (pc >> 3)) * BOX + row * 128 +
+                                  (pc & 7) * 16) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
 
     // masks, row maxima (swapped between the warpgroups), P, denominators
     bool walked[8];
     int kpos[8];
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      walked[c] = slot[c] < n_live;
-      kpos[c] = walked[c] ? sel[slot[c]] * page_size + off[c] : 0;
+      walked[c] = DENSE || slot[c] < n_live;
+      kpos[c] = DENSE ? k0 + slot[c] : walked[c] ? sel[slot[c]] * page_size + off[c] : 0;
     }
+    const bool open = DENSE && k0 + KT <= open_end;   // every key <= every live row's end
     float mx[2] = {NEG, NEG};
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int h = (i >> 1) & 1, c = 2 * (i >> 2) + (i & 1);
-      const bool ok = walked[c] && live[h] && kpos[c] <= qpos[h];
+      const bool ok = walked[c] && live[h] && (open || kpos[c] <= qpos[h]);
       s[i] = ok ? s[i] * scale2 : NEG;
       mx[h] = fmaxf(mx[h], s[i]);
     }
@@ -385,9 +436,14 @@ __device__ __forceinline__ void sparse_block(
 #pragma unroll
     for (int i = 0; i < 16; i += 2) {
       const int h = (i >> 1) & 1, c = 2 * (i >> 2);
-      // a masked key of the walk weighs 2^(NEG - m): 1 while m is NEG
-      const float p0 = walked[c] ? ex2(s[i] - m_run[h]) : 0.f;
-      const float p1 = walked[c + 1] ? ex2(s[i + 1] - m_run[h]) : 0.f;
+      float p0, p1;
+      if (DENSE) {  // a masked key weighs 0
+        p0 = live[h] && (open || kpos[c] <= qpos[h]) ? ex2(s[i] - m_run[h]) : 0.f;
+        p1 = live[h] && (open || kpos[c + 1] <= qpos[h]) ? ex2(s[i + 1] - m_run[h]) : 0.f;
+      } else {  // a masked key of the walk weighs 2^(NEG - m): 1 while m is NEG
+        p0 = walked[c] ? ex2(s[i] - m_run[h]) : 0.f;
+        p1 = walked[c + 1] ? ex2(s[i + 1] - m_run[h]) : 0.f;
+      }
       const __nv_bfloat162 pq = __floats2bfloat162_rn(p0, p1);
       sum[h] += __low2float(pq) + __high2float(pq);
       // P [key / 8][row][key % 8]: keys 32 wgi + 8 (i / 4) + 2 t4, + 1
@@ -402,12 +458,14 @@ __device__ __forceinline__ void sparse_block(
     }
 #pragma unroll
     for (int i = 0; i < 128; ++i) o[i] *= alpha[(i >> 1) & 1];
+    if (!DENSE) {
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {  // the next chunk's keys
-      off[c] += KT;
-      while (off[c] >= page_size) {
-        off[c] -= page_size;
-        ++slot[c];
+      for (int c = 0; c < 8; ++c) {  // the next chunk's keys
+        off[c] += KT;
+        while (off[c] >= page_size) {
+          off[c] -= page_size;
+          ++slot[c];
+        }
       }
     }
     wg::fence_proxy();

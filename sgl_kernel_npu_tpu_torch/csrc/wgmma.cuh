@@ -1,8 +1,8 @@
 // Hopper warpgroup products (wgmma) on shared-memory operands, and the
 // asynchronous copies, mbarriers and TMA tensor maps that feed them: the
-// helpers of mla_sparse.cuh (K9b), mla_train.cu's K14a, grouped_matmul.cu's
-// bf16 modes (K8a), sinks_attention.cu's prefill (K12d) and quant_matmul.cu's
-// prefill rows (K1).
+// helpers of mla_sparse.cuh (K9a, K9b), mla_train.cu's K14a, grouped_matmul.cu's
+// K8a, sinks_attention.cu's prefill (K12d) and quant_matmul.cu's prefill rows
+// (K1).
 //
 // Operands use wgmma's layout without swizzle (desc) or with the 128-byte
 // swizzle (desc_sw128).  Without swizzle a matrix is cut into core
@@ -348,11 +348,13 @@ __device__ __forceinline__ void mma_s8_m64n128k32(int (&d)[64], uint64_t a, uint
 
 // A tensor map (host) of `rank` dimensions (at most 3) of `type`, dims[0]
 // contiguous, byte strides of the others, boxes of box[] elements in the
-// 128-byte swizzle (a box row of 128 bytes), elements out of bounds read as
-// zeros.  0 or a CUDA error.  cuTensorMapEncodeTiled is looked up once
-// through the runtime, so the library does not link against libcuda.
+// 128-byte swizzle (a box row of 128 bytes) or, with swizzle NONE, as dense
+// rows of the box's width; elements out of bounds read as zeros.  0 or a
+// CUDA error.  cuTensorMapEncodeTiled is looked up once through the runtime,
+// so the library does not link against libcuda.
 inline int tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
-                      const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
+                      const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
@@ -371,7 +373,7 @@ inline int tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, cons
     if (i > 0) st[i - 1] = strides[i - 1];
   }
   const CUresult r = encode(map, type, rank, const_cast<void*>(base), d, st, bx, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

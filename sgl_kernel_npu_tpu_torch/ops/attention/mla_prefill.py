@@ -31,6 +31,7 @@ from sgl_kernel_npu_tpu_torch.ops.attention.decode_attention import (
     int8_scale,
     unfold_out_scale,
 )
+from sgl_kernel_npu_tpu_torch.ops.attention.mla_train import LOG2E
 from sgl_kernel_npu_tpu_torch.ops.attention.sinks_attention import (
     _prefill_page_bounds,
     prefill_q_chunk,
@@ -38,8 +39,6 @@ from sgl_kernel_npu_tpu_torch.ops.attention.sinks_attention import (
 from sgl_kernel_npu_tpu_torch.utils import cuda_lib
 from sgl_kernel_npu_tpu_torch.utils.common import cdiv, on_cuda, top_k
 from sgl_kernel_npu_tpu_torch.utils.counters import counted
-
-ROWS = 16   # query rows (tokens x heads) per CUDA block, csrc/mla_attention.cuh
 
 
 def mla_prefill_ref(q, k_nope_buffer, k_rope_buffer, seq_lens, block_tables, context_lens,
@@ -73,6 +72,16 @@ def mla_prefill_ref(q, k_nope_buffer, k_rope_buffer, seq_lens, block_tables, con
     return out
 
 
+SPARSE_ROWS = 64   # query rows (tokens x heads) a K9a / K9b block, csrc/mla_sparse.cuh
+SPARSE_KEYS = 64   # keys a staged chunk of that block
+
+
+def _check_aligned(what: str, *tensors) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: the kernel copies 16-byte pieces: q and the caches must "
+                         "start 16-byte aligned")
+
+
 @counted
 def mla_prefill_pallas(q, k_nope_buffer, k_rope_buffer, seq_lens, block_tables,
                        context_lens, sm_scale, *, max_q: int | None = None, k_scale=None):
@@ -80,7 +89,9 @@ def mla_prefill_pallas(q, k_nope_buffer, k_rope_buffer, seq_lens, block_tables,
 
     ``max_q`` bounds every request's new-token count (defaults to ``S``);
     ``k_scale`` is the dequant scale of an int8 latent cache.  CUDA tensors
-    launch ``csrc/mla_prefill.cu``; CPU tensors take :func:`mla_prefill_ref`."""
+    launch ``csrc/mla_prefill.cu`` (blocks of :func:`sparse_tiling`'s rows
+    with one chunk of ``max_q`` tokens; :func:`mla_prefill_tiled_plain` is
+    its walk on the CPU); CPU tensors take :func:`mla_prefill_ref`."""
     if not on_cuda(q, k_nope_buffer, k_rope_buffer, seq_lens, block_tables, context_lens):
         return mla_prefill_ref(q, k_nope_buffer, k_rope_buffer, seq_lens, block_tables,
                                context_lens, sm_scale, k_scale)
@@ -93,16 +104,81 @@ def mla_prefill_pallas(q, k_nope_buffer, k_rope_buffer, seq_lens, block_tables,
     starts = (torch.cumsum(sl, 0, dtype=torch.int32) - sl).contiguous()
     ctx = context_lens.to(torch.int32).contiguous()
     bt = block_tables.to(torch.int32).contiguous()
+    _check_aligned("mla_prefill", q, k_nope_buffer, k_rope_buffer)
     out = torch.zeros((s, h, D_NOPE), dtype=q.dtype, device=q.device)
-    # a block holds 16 rows: all heads of 16 / H tokens when H < 16
-    heads_per_block = min(ROWS, 1 << max(h - 1, 0).bit_length())
+    max_q = int(max_q or s)
+    tq, hb, _ = sparse_tiling(h, max_q)
     lib = cuda_lib.load_library()
     cuda_lib.check(lib, lib.mla_prefill_launch(
         q.data_ptr(), k_nope_buffer.data_ptr(), k_rope_buffer.data_ptr(), bt.data_ptr(),
         sl.data_ptr(), ctx.data_ptr(), starts.data_ptr(), out.data_ptr(), bsz, h,
-        bt.shape[1], k_nope_buffer.shape[2], int(max_q or s), ROWS // heads_per_block,
+        bt.shape[1], k_nope_buffer.shape[2], k_nope_buffer.shape[0], max_q, tq, hb,
         float(sm_scale), int(ks is not None), cuda_lib.stream_ptr(q)), "mla_prefill")
     mla_prefill_pallas.launches += 1
+    return out if ks is None else unfold_out_scale(out, ks)
+
+
+def mla_prefill_tiled_plain(q, k_nope_buffer, k_rope_buffer, seq_lens, block_tables,
+                            context_lens, sm_scale, *, max_q: int | None = None, k_scale=None):
+    """The walk of the CUDA K9a on the CPU, for tests (any widths; no caller
+    on the main path) → :func:`mla_prefill_pallas`'s output.
+
+    Per request, blocks of :func:`sparse_tiling`'s ``tq`` tokens x ``hb``
+    heads (one chunk of ``max_q`` tokens) walk ``SPARSE_KEYS``-key chunks of
+    positions from 0 up to the causal end of their last live token, each row
+    masking keys past its own (masked keys weigh 0).  An int8 latent is read
+    as levels with ``k_scale`` folded into q and unfolded from the output
+    (``fold_q_scale`` / ``unfold_out_scale``, the wrapper's).  The scores are
+    f32 products scaled by ``sm_scale · log2 e`` (rounded to f32 once, as the
+    kernel folds it), the online softmax is base 2, P is rounded to the
+    latent's dtype (bf16 for int8 levels) for the PV product and for the
+    denominator, and ``out = acc / l`` is rounded once; rows past the
+    requests are zeros."""
+    s, h, _ = q.shape
+    dn = k_nope_buffer.shape[3]
+    tq, hb, _ = sparse_tiling(h, int(max_q or s))
+    ks = int8_scale(k_nope_buffer, k_scale)
+    qf = q if ks is None else fold_q_scale(q, ks)
+    p_dtype = torch.bfloat16 if ks is not None else k_nope_buffer.dtype
+    scale2 = torch.tensor(sm_scale, dtype=torch.float32) * torch.tensor(LOG2E,
+                                                                       dtype=torch.float32)
+    dev = q.device
+    out = q.new_zeros((s, h, dn))
+    r = torch.arange(SPARSE_ROWS, device=dev)
+    start = 0
+    for b, (sl, cl) in enumerate(zip(seq_lens.tolist(), context_lens.tolist())):
+        if sl == 0:
+            continue
+        # blocks [token tile, head tile] of 64 rows: token t tq + r / hb, head h0 + r % hb
+        tiles = torch.arange(cdiv(sl, tq), device=dev)[:, None, None]
+        heads0 = torch.arange(cdiv(h, hb), device=dev)[None, :, None] * hb
+        tok, head = torch.broadcast_tensors(tiles * tq + r // hb, heads0 + r % hb)
+        live = (r < tq * hb) & (tok < sl) & (head < h)
+        qpos = cl - sl + tok
+        rows = qf[start + tok.clamp(max=sl - 1), head.clamp(max=h - 1)].float()
+        rows = torch.where(live[..., None], rows, 0.0)                    # [T, HT, 64, 576]
+        kend = cl - sl + torch.clamp_max(tiles[..., 0] * tq + tq, sl)     # [T, 1]
+        bt = block_tables[b : b + 1]
+        kn = _gather_pages(k_nope_buffer, bt, cl)[0, 0].float()               # levels for int8
+        kr = _gather_pages(k_rope_buffer.transpose(-1, -2), bt, cl)[0, 0].float()
+        keys = torch.cat([kn, kr], dim=-1)
+        m = torch.full(live.shape, NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((*live.shape, dn), dtype=torch.float32, device=dev)
+        for k0 in range(0, cl, SPARSE_KEYS):
+            kpos = torch.arange(k0, min(k0 + SPARSE_KEYS, cl), device=dev)
+            sc = torch.einsum("thrd,cd->thrc", rows, keys[kpos]) * scale2
+            ok = live[..., None] & (kpos <= qpos[..., None]) & (kpos < kend[..., None, None])
+            sc = torch.where(ok, sc, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(ok, torch.exp2(sc - m_new[..., None]), 0.0).to(p_dtype).float()
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("thrc,cd->thrd", p, kn[kpos])
+            m = m_new
+        o = (acc / torch.where(l > 0, l, 1.0)[..., None]).to(q.dtype)
+        out[start + tok[live], head[live]] = o[live]
+        start += sl
     return out if ks is None else unfold_out_scale(out, ks)
 
 
@@ -111,15 +187,15 @@ def mla_prefill_pallas(q, k_nope_buffer, k_rope_buffer, seq_lens, block_tables,
 # ---------------------------------------------------------------------------
 
 MAX_SEL = 256   # selected pages a chunk can name in the CUDA kernel
-SPARSE_ROWS = 64   # query rows (tokens x heads of one q-chunk) a K9b block, csrc/mla_sparse.cuh
 
 
 def sparse_tiling(heads: int, cq: int) -> tuple[int, int, int]:
-    """K9b's block tiling: ``(tq, hb, tiles)``, a block holding ``tq`` tokens
-    x ``hb`` heads (at most ``SPARSE_ROWS`` rows), ``tiles`` token tiles a
-    q-chunk of ``cq`` tokens.  All heads when fewer than 64 (8 tokens x 8
-    heads at H = 8), else one token x 64 heads; a block never holds tokens of
-    two chunks, whose pages differ."""
+    """The block tiling of K9a and K9b: ``(tq, hb, tiles)``, a block holding
+    ``tq`` tokens x ``hb`` heads (at most ``SPARSE_ROWS`` rows), ``tiles``
+    token tiles a q-chunk of ``cq`` tokens (K9a: one chunk of ``max_q``).
+    All heads when fewer than 64 (8 tokens x 8 heads at H = 8), else one
+    token x 64 heads; a K9b block never holds tokens of two chunks, whose
+    pages differ."""
     hb = min(heads, SPARSE_ROWS)
     tq = max(1, min(SPARSE_ROWS // hb, cq))
     return tq, hb, cdiv(cq, tq)
@@ -233,9 +309,7 @@ def mla_prefill_block_sparse(q, k_nope_buffer, k_rope_buffer, seq_lens, block_ta
     ctx = context_lens.to(torch.int32).contiguous()
     bt = block_tables.to(torch.int32).contiguous()
     sel = pos_sel.to(torch.int32).contiguous()
-    if any(t.data_ptr() % 16 for t in (q, k_nope_buffer, k_rope_buffer)):
-        raise ValueError("the block-sparse kernel copies 16-byte pieces: q and the caches "
-                         "must start 16-byte aligned")
+    _check_aligned("mla_prefill_block_sparse", q, k_nope_buffer, k_rope_buffer)
     out = torch.zeros((s, h, D_NOPE), dtype=q.dtype, device=q.device)
     tq, hb, tiles = sparse_tiling(h, cq)
     lib = cuda_lib.load_library()

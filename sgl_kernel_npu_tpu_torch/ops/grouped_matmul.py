@@ -45,8 +45,8 @@ from sgl_kernel_npu_tpu_torch.utils.common import on_cuda
 from sgl_kernel_npu_tpu_torch.utils.counters import counted, launched
 
 EPILOGUES = ("none", "dequant", "dequant_swiglu", "dequant_swiglu_quant")
-TILE_M = 64   # sorted rows per work item of the CUDA int8 modes (csrc/gmm_tile.cuh BM)
-TILE_M_BF16 = 128   # of the bf16 modes (csrc/grouped_matmul.cu WM): two wgmma row tiles
+TILE_M = 64   # sorted rows per work item of csrc/gmm_tile.cuh (K8b, K16a, K16b: BM)
+TILE_M_WG = 128   # of K8a's modes (csrc/grouped_matmul.cu QM / WM): two wgmma row tiles
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}   # csrc OutKind
 _P_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}        # dispatch_rows
 _EPI = {"dequant": 0, "none": 0, "dequant_swiglu_quant": 1, "dequant_swiglu": 2}
@@ -61,8 +61,8 @@ def _offsets(group_sizes: torch.Tensor) -> torch.Tensor:
 
 def _tile_offsets(group_sizes: torch.Tensor, tile_m: int = TILE_M) -> torch.Tensor:
     """``[G + 1]`` prefix sums of each group's work items of ``tile_m`` rows
-    (64 for the int8 modes, ``TILE_M_BF16`` for the bf16 ones): a device
-    computation, no host sync."""
+    (64 for the 64-row tile, ``TILE_M_WG`` for K8a): a device computation,
+    no host sync."""
     return _offsets(torch.div(group_sizes.to(torch.int32) + tile_m - 1, tile_m,
                               rounding_mode="floor"))
 
@@ -237,6 +237,75 @@ def grouped_matmul_plain(x, w, group_sizes, scale_x=None, scale_w=None, *, epilo
     return y.to(out_dtype or torch.bfloat16)
 
 
+def _gate_col(j: torch.Tensor, ht: int) -> torch.Tensor:
+    """The gate column of SwiGLU output column ``j`` when gate / up are packed
+    in slabs of ``2 ht`` columns (csrc/gmm_tile.cuh ``gate_col``); its up
+    column is ``ht`` further."""
+    return torch.div(j, ht, rounding_mode="floor") * 2 * ht + j % ht
+
+
+def grouped_matmul_tiled_plain(x, w, group_sizes, scale_x=None, scale_w=None, *,
+                               epilogue="none", tn=None, out_dtype=None, dispatch_p=None,
+                               rhs_contract_last=False):
+    """The walk of the CUDA K8a int8 kernel on the CPU, for tests (int8 rows
+    and weights; no caller on the main path) → :func:`grouped_matmul`'s
+    output.
+
+    Work items of ``TILE_M_WG`` sorted rows of one group, aligned to the
+    group's first row (the wrapper's tile offsets, each item's group found as
+    the kernel finds it), times column tiles of 128 columns (``dequant``,
+    ``none``) or of 64 gate columns and their 64 up columns (the SwiGLU
+    modes, paired by the pack width's slabs); each tile's exact sum over
+    stages of 128 k, rounded to f32 once, then the kernel's epilogue in its
+    order: ``× scale_x[row] × scale_w[g, col]``, SwiGLU ``d0 · (1 / (1 +
+    exp(-d0))) · d1``, and for ``dequant_swiglu_quant`` the per-row requant
+    pass; rows past the groups' total are zeros (scale 0)."""
+    _check_modes(epilogue, rhs_contract_last)
+    rows_x = x if dispatch_p is None else dispatch_plain(x, dispatch_p)
+    wk = w.transpose(1, 2) if rhs_contract_last else w              # [G, K, N]
+    s = rows_x.shape[0]
+    k, n = wk.shape[1], wk.shape[2]
+    swiglu = epilogue in ("dequant_swiglu", "dequant_swiglu_quant")
+    ht = n // 2
+    if epilogue == "dequant_swiglu":
+        ht = _pack_width(x, w, s, out_dtype, tn) // 2
+    width, n_out = (64, n // 2) if swiglu else (128, n)
+    offsets = _offsets(group_sizes).tolist()
+    tile_off = _tile_offsets(group_sizes, TILE_M_WG).tolist()
+    sx = None if scale_x is None or epilogue == "none" else scale_x.float()
+    sw = None if scale_w is None or epilogue == "none" else scale_w.float()
+    if swiglu and sw is None:
+        sw = torch.ones((wk.shape[0], n))
+    y = torch.zeros((s, n_out), dtype=torch.float32, device=x.device)
+    for item in range(tile_off[-1]):
+        g = sum(1 for t in tile_off[1:-1] if t <= item)           # the kernel's group count
+        r0 = offsets[g] + (item - tile_off[g]) * TILE_M_WG
+        r1 = min(r0 + TILE_M_WG, offsets[g + 1], s)
+        sxr = torch.ones(r1 - r0) if sx is None else sx[r0:r1]
+        for bx in range(-(-n_out // width)):
+            j = bx * width + torch.arange(width)
+            live = j < n_out
+            cols = _gate_col(j, ht) if swiglu else j
+            cols = torch.cat([cols, cols + ht]) if swiglu else cols
+            cols = torch.where(torch.cat([live, live]) if swiglu else live, cols, 0)
+            acc = torch.zeros((r1 - r0, cols.numel()), dtype=torch.float64)
+            for k0 in range(0, k, 128):                             # exact: int8 sums in f64
+                acc += rows_x[r0:r1, k0:k0 + 128].double() @ wk[g, k0:k0 + 128][:, cols].double()
+            acc = acc.float()
+            scw = torch.ones(cols.numel()) if sw is None else sw[g, cols]
+            d = acc * sxr[:, None] * scw[None, :]
+            if swiglu:
+                d0, d1 = d[:, :width], d[:, width:]
+                d = d0 * (1.0 / (1.0 + torch.exp(-d0))) * d1
+            y[r0:r1, j[live]] = d[:, live]
+    if epilogue == "dequant_swiglu_quant":
+        live = torch.arange(s) < offsets[-1]
+        scale = torch.where(live, torch.clamp_min(y.abs().amax(-1) / 127.0, 1e-12), 0.0)
+        q = torch.clamp(torch.round(y / torch.where(live, scale, 1.0)[:, None]), -128, 127)
+        return torch.where(live[:, None], q, 0).to(torch.int8), scale
+    return y.to(out_dtype or (torch.float32 if epilogue == "none" else torch.bfloat16))
+
+
 def _check_modes(epilogue, rhs_contract_last) -> None:
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
@@ -315,11 +384,11 @@ def grouped_matmul(x, w, group_sizes, scale_x=None, scale_w=None, *, epilogue="n
         raise NotImplementedError(
             f"grouped_matmul {epilogue!r} on {x.dtype} rows runs on the plain path only: the "
             "card's kernel takes int8 rows into an epilogue (ROADMAP §C)")
-    if rhs_contract_last:             # the int8 tile reads [K, N]: one transposed copy
-        w = w.transpose(1, 2)
     s = x.shape[0] if dispatch_p is None else dispatch_p.shape[0]
     k = x.shape[1]
     g, k_w, n = w.shape
+    if rhs_contract_last:             # w [G, N, K]: K-major, as the kernel reads it
+        n, k_w = k_w, n
     if (x.dtype != torch.int8 or w.dtype != torch.int8 or k_w != k or k % 16 or n % 16
             or group_sizes.shape != (g,)):
         raise ValueError(f"grouped_matmul takes int8 rows and weights with K % 16 == 0 and N % "
@@ -344,6 +413,8 @@ def grouped_matmul(x, w, group_sizes, scale_x=None, scale_w=None, *, epilogue="n
                              f"got {2 * ht}")
     p, n_tok, p_kind, xrow, bad = _dispatch_args("grouped_matmul", x, dispatch_p, s)
     x, w = x.contiguous(), w.contiguous()
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("grouped_matmul: x and w must start 16-byte aligned (TMA)")
     act = amax = hs = None
     if epilogue == "dequant_swiglu_quant":
         out = torch.empty((s, n // 2), dtype=torch.int8, device=dev)
@@ -355,11 +426,12 @@ def grouped_matmul(x, w, group_sizes, scale_x=None, scale_w=None, *, epilogue="n
         dtype = out_dtype or (torch.float32 if epilogue == "none" else torch.bfloat16)
         out_kind = _out_kind("grouped_matmul", dtype)
         out = torch.empty((s, n // 2 if swiglu else n), dtype=dtype, device=dev)
-    offsets, tile_off = _offsets(group_sizes), _tile_offsets(group_sizes)
+    offsets, tile_off = _offsets(group_sizes), _tile_offsets(group_sizes, TILE_M_WG)
     lib = cuda_lib.load_library()
     cuda_lib.check(lib, lib.grouped_matmul_int8_launch(
         x.data_ptr(), w.data_ptr(), offsets.data_ptr(), tile_off.data_ptr(), g, s, k, n, ht,
-        _EPI[epilogue], out_kind, _ptr(sx), _ptr(sw), _ptr(p), n_tok, p_kind, _ptr(xrow),
+        _EPI[epilogue], int(rhs_contract_last), out_kind, _ptr(sx), _ptr(sw), _ptr(p), n_tok,
+        p_kind, _ptr(xrow),
         _ptr(bad), out.data_ptr(), _ptr(act), _ptr(amax), _ptr(hs), cuda_lib.stream_ptr(x)),
         "grouped_matmul")
     _check_one_hot("grouped_matmul", bad)
@@ -395,7 +467,7 @@ def _launch_float(x, w, group_sizes, contract_last: bool, out_dtype, dispatch_p)
     out_kind = _out_kind(what, dtype)
     p, n_tok, p_kind, xrow, bad = _dispatch_args(what, x, dispatch_p, s)
     out = torch.empty((s, n), dtype=dtype, device=x.device)
-    offsets, tile_off = _offsets(group_sizes), _tile_offsets(group_sizes, TILE_M_BF16)
+    offsets, tile_off = _offsets(group_sizes), _tile_offsets(group_sizes, TILE_M_WG)
     lib = cuda_lib.load_library()
     cuda_lib.check(lib, lib.grouped_matmul_bf16_launch(
         x.data_ptr(), w.data_ptr(), offsets.data_ptr(), tile_off.data_ptr(), g, s, k, n,

@@ -32,8 +32,7 @@ _L, _U = ctypes.c_longlong, ctypes.c_ulonglong
 # C entry points: name -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "decode_mla_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "mla_prefill_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _F, _I, _P],
+    "mla_prefill_launch": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
     "mla_prefill_sparse_launch": [_P] * 9 + [_I] * 11 + [_F, _I, _P],
     "lightning_indexer_prefill_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                          _I, _P],
@@ -44,7 +43,7 @@ _SIGNATURES = {
     "quant_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "quant_per_token_launch": [_P, _I, _I, _I, _P, _P, _P],
     "swiglu_quant_launch": [_P, _I, _I, _I, _P, _I, _P, _P, _P],
-    "grouped_matmul_int8_launch": [_P] * 4 + [_I] * 7 + [_P] * 3 + [_I, _I] + [_P] * 7,
+    "grouped_matmul_int8_launch": [_P] * 4 + [_I] * 8 + [_P] * 3 + [_I, _I] + [_P] * 7,
     "grouped_matmul_bf16_launch": [_P] * 4 + [_I] * 6 + [_P, _I, _I, _P, _P, _P, _P],
     "grouped_matmul_combine_launch": [_P] * 4 + [_I] * 4 + [_P] * 4 + [_I, _I] + [_P] * 3,
     "rms_norm_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _P],

@@ -152,6 +152,74 @@ def test_mla_prefill_kernel(dev, heads):
     assert bool((got[-3:] == 0).all())
 
 
+def _dense_case(dev, gen, heads, page, seq, ctx, int8, pad=3):
+    """Requests packed into q with ``pad`` rows past them, each on its own
+    pages of one shuffled cache (a table of ``ceil(max ctx / page)`` pages)."""
+    max_pages = -(-max(ctx) // page)
+    n_pages = len(seq) * max_pages
+    kn, kr = _cache(gen, dev, n_pages, page, torch.bfloat16)
+    if int8:
+        kn = _int8_latent(kn)
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(page)).to(dev)
+    bt = perm.to(torch.int32).reshape(len(seq), max_pages)
+    q = torch.randn((sum(seq) + pad, heads, 576), generator=gen, device=dev).to(torch.bfloat16)
+    seq_t = torch.tensor(seq, dtype=torch.int32, device=dev)
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    return q, kn, kr, seq_t, bt, ctx_t
+
+
+# K9a's 64-row blocks: 1 token x 64 heads (128), 4 x 16, 8 x 8; pages of 16,
+# 64 and 128 keys (TMA boxes of 16, 64 and 64 keys) and 12 (cp.async); causal
+# ends on and beside 64-key chunk edges
+K9A_SEQ, K9A_CTX = [1, 63, 64, 65, 130], [1, 64, 127, 129, 300]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("page", [16, 64, 128, 12])
+@pytest.mark.parametrize("heads", [128, 16, 8])
+def test_mla_prefill_kernel_pages(dev, heads, page, int8):
+    """K9a on its wgmma body against the plain version; pad rows exactly 0."""
+    gen = torch.Generator(device=dev).manual_seed(heads + page)
+    args = _dense_case(dev, gen, heads, page, K9A_SEQ, K9A_CTX, int8)
+    ks = 1 / 32 if int8 else None
+    before = mp.mla_prefill_pallas.launches
+    got = mp.mla_prefill_pallas(*args, 0.07, max_q=130, k_scale=ks)
+    want = mp.mla_prefill_ref(*args, 0.07, k_scale=ks)
+    torch.cuda.synchronize()
+    assert mp.mla_prefill_pallas.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert bool((got[-3:] == 0).all())
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("heads", [128, 16])
+def test_mla_prefill_kernel_long_context(dev, heads, int8):
+    """A context of 5000 keys at page 16 (313 pages: past the block-sparse
+    kernel's 256-page selection) with 100 new tokens, next to a short
+    request."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    args = _dense_case(dev, gen, heads, 16, [100, 7], [5000, 40], int8)
+    ks = 1 / 32 if int8 else None
+    got = mp.mla_prefill_pallas(*args, 0.07, max_q=100, k_scale=ks)
+    want = mp.mla_prefill_ref(*args, 0.07, k_scale=ks)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert bool((got[-3:] == 0).all())
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_mla_prefill_kernel_repeats_bit_identical(dev, int8):
+    """Two K9a calls on the same inputs give the same bits (each output has
+    one owner and a fixed order of sums)."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    args = _dense_case(dev, gen, 128, 16, K9A_SEQ, K9A_CTX, int8)
+    ks = 1 / 32 if int8 else None
+    a = mp.mla_prefill_pallas(*args, 0.07, max_q=130, k_scale=ks)
+    b = mp.mla_prefill_pallas(*args, 0.07, max_q=130, k_scale=ks)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("sizes", [(0, 5, 0, 17, 1, 0, 40, 1), (16,) * 8])
 def test_gmm_ring_kernels(dev, sizes):
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -330,11 +398,15 @@ def test_fully_w8a8_decode_step_kernels_match_plain(dev):
 
 
 # (group sizes, S, K, I): empty groups and rows past the total; a single row;
-# K not a multiple of the 128-byte stage (and of 32); groups above 64 rows
+# K not a multiple of the 128-byte stage (and of 32); groups above 64 and 128 rows
 GMM_CASES = [((0, 5, 0, 17, 1, 0, 40, 1), 80, 1024, 256),
              ((0, 1, 0, 0), 1, 256, 128),
              ((3, 0, 70, 9), 100, 336, 160),
-             ((130, 64, 65, 0, 200), 500, 512, 512)]
+             ((130, 64, 65, 0, 200), 500, 512, 512),
+             # the 128-row work items at DeepSeek-V3's K: groups of 65-128, 129 and 257
+             # rows (one, two, three items), N = 2880 (a half column tile) and 4096
+             ((100, 0, 129, 257, 1), 500, 7168, 1440),
+             ((65, 128, 0, 257), 460, 7168, 2048)]
 
 
 @pytest.mark.parametrize("sizes,s,k,i", GMM_CASES)
@@ -1781,6 +1853,87 @@ def test_grouped_matmul_int8_rhs_contract_last_kernel(dev):
     want = grouped_matmul.grouped_matmul_plain(x, wt, gs, rhs_contract_last=True)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# K8a's int8 kernel at DeepSeek-V3's K: groups of one, two and three 128-row
+# items, rows past the total
+_WIDE_SIZES = ((100, 0, 129, 257, 1), 500, 7168)
+
+
+@pytest.mark.parametrize("tn", [32, 1024, 4096], ids=["tn32", "tn1024", "full"])
+def test_grouped_matmul_pack_widths_kernel(dev, tn):
+    """``dequant_swiglu`` to f32 at N = 4096 packed at widths 32 (a 64-column
+    gate half of four slabs: boxes of 16 columns), 1024 and full, within
+    1e-5 of the largest |value| of the plain version (the SiLU's exp); the
+    full width's activation equals ``dequant_swiglu_quant``'s before the
+    requant (the same tile and epilogue: its scales and levels match the
+    plain version's within one level)."""
+    gen = torch.Generator(device=dev).manual_seed(tn)
+    sizes, s, k = _WIDE_SIZES
+    x, w, gs, sx, sw = _int8_case(gen, dev, sizes, s, k, 4096)
+    kw = dict(epilogue="dequant_swiglu", tn=tn, out_dtype=torch.float32)
+    got = grouped_matmul.grouped_matmul(x, w, gs, sx, sw, **kw)
+    want = grouped_matmul.grouped_matmul_plain(x, w, gs, sx, sw, **kw)
+    torch.cuda.synchronize()
+    total = sum(sizes)
+    assert not got[total:].any()
+    assert max_abs(got, want) <= 1e-5 * float(want.abs().max())
+    if tn == 4096:
+        h1, hs = grouped_matmul.grouped_matmul(x, w, gs, sx, sw, epilogue="dequant_swiglu_quant")
+        h1_p, hs_p = grouped_matmul.grouped_matmul_plain(x, w, gs, sx, sw,
+                                                         epilogue="dequant_swiglu_quant")
+        torch.cuda.synchronize()
+        assert int((h1.int() - h1_p.int()).abs().max()) <= 1
+        torch.testing.assert_close(hs, hs_p, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("n", [2880, 4096])
+def test_grouped_matmul_int8_contract_last_and_dispatch_wide_kernel(dev, n):
+    """Int8 ``rhs_contract_last`` (``w [G, N, K]`` read K-major as stored,
+    no transposed copy) bit-equal to the plain version, and ``dispatch_p``
+    bit-equal to the gathered rows, on 128-row items at K = 7168."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    sizes, s, k = _WIDE_SIZES
+    x, w, gs, sx, sw = _int8_case(gen, dev, sizes, s, k, n)
+    wt = w.transpose(1, 2).contiguous()
+    got = grouped_matmul.grouped_matmul(x, wt, gs, rhs_contract_last=True)
+    want = grouped_matmul.grouped_matmul_plain(x, wt, gs, rhs_contract_last=True)
+    n_tok = 40
+    xt = torch.randint(-127, 128, (n_tok, k), generator=gen, device=dev, dtype=torch.int8)
+    tok = torch.randint(0, n_tok + 1, (s,), generator=gen, device=dev, dtype=torch.int32)
+    p = grouped_matmul.dispatch_onehot(tok, n_tok)
+    gathered = torch.where((tok < n_tok)[:, None], xt[tok.clamp(max=n_tok - 1).long()], 0)
+    kw = dict(epilogue="dequant", out_dtype=torch.float32)
+    a = grouped_matmul.grouped_matmul(xt, w, gs, sx, sw, dispatch_p=p, **kw)
+    b = grouped_matmul.grouped_matmul(gathered.contiguous(), w, gs, sx, sw, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["none", "dequant", "dequant-f32", "swiglu-tn64",
+                                  "swiglu_quant", "dispatch_p", "contract_last"])
+def test_grouped_matmul_int8_repeats_bit_identical(dev, mode):
+    """Two runs of each int8 mode give the same bits (exact sums; each output
+    has one owner; the requant's per-row atomicMax is order-free)."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    sizes, s, k = _WIDE_SIZES
+    x, w, gs, sx, sw = _int8_case(gen, dev, sizes, s, 1024, 512)
+    kw = {"none": dict(epilogue="none"), "dequant": dict(epilogue="dequant"),
+          "dequant-f32": dict(epilogue="dequant", out_dtype=torch.float32),
+          "swiglu-tn64": dict(epilogue="dequant_swiglu", tn=64),
+          "swiglu_quant": dict(epilogue="dequant_swiglu_quant"),
+          "dispatch_p": dict(epilogue="dequant_swiglu_quant",
+                             dispatch_p=grouped_matmul.dispatch_onehot(
+                                 torch.randint(0, s, (s,), generator=gen, device=dev,
+                                               dtype=torch.int32), s)),
+          "contract_last": dict(rhs_contract_last=True)}[mode]
+    if mode == "contract_last":
+        w = w.transpose(1, 2).contiguous()
+    runs = [grouped_matmul.grouped_matmul(x, w, gs, sx, sw, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*(r if isinstance(r, tuple) else (r,) for r in runs)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("epilogue", ["dequant_swiglu_quant", "dequant", "none"])
