@@ -21,7 +21,10 @@ Phases (any failure raises and the script exits non-zero without a result):
    main path's full-width shapes and at small ragged cases, decode_mla and
    mla_prefill_pallas also on an int8 latent cache (there also at the shapes
    of phase 4c: decode contexts of 916-4016 keys on a 33-page table, a
-   2048-row chunk at context 4096), quant_matmul also at a 64-row chunk's wo
+   2048-row chunk at context 4096), decode_mla also across many of its key
+   splits (those contexts with a row of context 1 and a pad row, bf16 and
+   int8) and with its in-kernel int8 fold bit-equal to the wrapper fold
+   around the same kernel, quant_matmul also at a 64-row chunk's wo
    and at a 2048-row chunk's wdqkv and wuq (its wgmma path; exact at 17, 65
    and 2047 rows too), grouped_matmul at 2048 and 4096 tokens
    of top-8 routing, the DSA kernels on a 2048-token chunk at context 4096
@@ -484,6 +487,27 @@ def check_decode_mla(gen, b, heads, page, ctx_list, pad_rows, timed, int8=False,
         f"{library_ms:.4f}, bound {t_bound:.4f} {by})")
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=t_bound,
                 bound_by=by)
+
+
+def check_decode_mla_fold(gen, ctx_list, table_pages):
+    """K2's int8 fold inside the kernel, bit for bit: ``decode_mla`` on int8
+    levels with ``k_scale`` against the old wrapper path around the same
+    kernel, ``unfold_out_scale(decode_mla(fold_q_scale(q, ks), levels,
+    k_scale=1), ks)`` (the same splits, products and roundings)."""
+    page, b = CFG.page_size, len(ctx_list)
+    kn, kr = paged_cache(gen, b * table_pages + 1, page, True)
+    bt = (torch.randperm(b * table_pages, generator=torch.Generator().manual_seed(b)) + 1).to(
+        DEV, torch.int32).reshape(b, table_pages)
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=DEV)
+    q = randn(gen, (b, CFG.num_heads, 576))
+    ks = CFG.ctkv_scale
+    got = da.decode_mla(q, kn, kr, ctx, CFG.sm_scale, bt, k_scale=ks)
+    inner = da.decode_mla(da.fold_q_scale(q, ks), kn, kr, ctx, CFG.sm_scale, bt, k_scale=1.0)
+    same = bool(torch.equal(got, da.unfold_out_scale(inner, ks)))
+    log(f"  decode_mla int8 fold inside the kernel, ctx {ctx_list} on a {table_pages}-page "
+        f"table: bit-equal to the wrapper fold around the kernel: {same}")
+    if not same:
+        raise AssertionError("decode_mla's in-kernel int8 fold differs from the wrapper fold")
 
 
 def check_mla_prefill(gen, heads, page, seq_list, ctx_list, pad_rows, timed, int8=False,
@@ -3975,6 +3999,13 @@ def serving_phases(card: str):
     long_ctx = [n + NEW_TOKENS for n in LONG_PROMPT_LENS]     # a decode step's longest contexts
     check_decode_mla(gen, len(long_ctx), CFG.num_heads, CFG.page_size, long_ctx,
                      MAX_BATCH - len(long_ctx), True, True, LONG_PAGES_PER_REQ)
+    # K2 across many splits (up to 13 live of 14 a row, merged by the last):
+    # [4c]'s contexts, a row of context 1 and a pad row; the int8 fold
+    for int8 in (False, True):
+        check_decode_mla(gen, len(long_ctx) + 1, CFG.num_heads, CFG.page_size, long_ctx + [1], 1,
+                         False, int8, LONG_PAGES_PER_REQ)
+    check_decode_mla_fold(gen, long_ctx + [1, 300], LONG_PAGES_PER_REQ)
+    check_decode_mla_fold(gen, ctx_decode, -(-max(ctx_decode) // CFG.page_size))
     check_mla_prefill(gen, CFG.num_heads, CFG.page_size, [LONG_CHUNK], [2 * LONG_CHUNK], 0,
                       True, True, LONG_PAGES_PER_REQ)
     k8 = check_grouped_matmul(gen, moe[0], LONG_CHUNK, CFG.topk, True)

@@ -25,8 +25,6 @@
 // restricted to the pages the lightning indexer selected for each 64-token
 // chunk (pos_sel[b, chunk, :], -1 = a dead slot): the same block body on its
 // sparse walk.
-#include <string.h>
-
 #include "mla_sparse.cuh"
 
 using bf16 = __nv_bfloat16;
@@ -72,28 +70,6 @@ __global__ void __launch_bounds__(mlas::THREADS, 1)
                          page_size, box_keys, total_rows, sm_scale);
 }
 
-// The latent cache kn [pages, 1, page, 512] as a TMA map of [pages x page,
-// 512] rows, boxes of box_keys rows x 128 bytes, 128-byte swizzle.
-template <typename KN>
-int latent_map(CUtensorMap* map, const void* kn, int total_rows, int box_keys) {
-  const uint64_t dims[2] = {mlas::DN, (uint64_t)total_rows}, strides[1] = {mlas::DN * sizeof(KN)};
-  const uint32_t box[2] = {128 / sizeof(KN), (uint32_t)box_keys};
-  return wg::tensor_map(map, sizeof(KN) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                             : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                        2, kn, dims, strides, box);
-}
-
-// The latent map of both launches (box_keys: the largest divisor of the page
-// that divides 64; under 8 the cp.async path reads no map).
-template <typename KN>
-int key_map(CUtensorMap* kmap, const void* kn, int page_size, int n_pages, int* box_keys) {
-  *box_keys = mlas::KT;
-  while (page_size % *box_keys) *box_keys /= 2;
-  if (*box_keys >= 8) return latent_map<KN>(kmap, kn, n_pages * page_size, *box_keys);
-  memset(kmap, 0, sizeof(*kmap));
-  return 0;
-}
-
 template <typename KN>
 int launch(const void* q, const void* kn, const void* kr, const void* bt, const void* seq_lens,
            const void* ctx, const void* starts, void* out, int batch, int heads, int max_pages,
@@ -101,7 +77,7 @@ int launch(const void* q, const void* kn, const void* kr, const void* bt, const 
            cudaStream_t stream) {
   CUtensorMap kmap;
   int box_keys;
-  const int rc = key_map<KN>(&kmap, kn, page_size, n_pages, &box_keys);
+  const int rc = mlas::key_map<KN>(&kmap, kn, page_size, n_pages, &box_keys);
   if (rc) return rc;
   constexpr int smem = (int)mlas::Smem<KN>::BYTES;
   cudaFuncSetAttribute(mla_prefill_kernel<KN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -122,7 +98,7 @@ int launch_sparse(const void* q, const void* kn, const void* kr, const void* bt,
                   cudaStream_t stream) {
   CUtensorMap kmap;
   int box_keys;
-  const int rc = key_map<KN>(&kmap, kn, page_size, n_pages, &box_keys);
+  const int rc = mlas::key_map<KN>(&kmap, kn, page_size, n_pages, &box_keys);
   if (rc) return rc;
   constexpr int smem = (int)mlas::Smem<KN>::BYTES;
   cudaFuncSetAttribute(mla_prefill_sparse_kernel<KN>,

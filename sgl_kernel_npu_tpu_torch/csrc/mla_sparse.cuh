@@ -1,8 +1,11 @@
-// The Hopper block body of MLA prefill over the paged latent cache: 64 query
-// rows a block on warpgroup products (wgmma) fed by TMA (wgmma.cuh), shared
-// by K9a (mla_prefill, the dense causal walk) and K9b
+// The Hopper block body of MLA attention over the paged latent cache: 64
+// query rows a block on warpgroup products (wgmma) fed by TMA (wgmma.cuh),
+// shared by K9a (mla_prefill, the dense causal walk), K9b
 // (mla_prefill_block_sparse, DeepSeek-V3.2 DSA: the pages the indexer
-// selected for each q-chunk).  The two differ only in their key walk.
+// selected for each q-chunk) and K2 (decode_mla, decode_mla.cu: the dense
+// walk over one split of a decode row's keys, with a split epilogue and the
+// int8 fold, struct Split).  They differ only in their key walk and
+// epilogue.
 //
 // What bounds it.  A 2048-token chunk of 128 heads at context 4096 does
 // ~1.7 TFLOP dense (K9a: 1.77 ms at the bf16 tensor-core rate) or ~1.2 TFLOP
@@ -74,6 +77,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <string.h>
 
 #include "common.cuh"
 #include "wgmma.cuh"
@@ -103,6 +107,68 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// K2's epilogue (decode_mla.cu; K9a and K9b pass the default: write the
+// output, no fold).  A decode row's keys are cut into splits, one block each:
+// with more than one live split, each block writes its rows' un-normalised
+// O [DN] f32 and (m in log2 units, l) to part_o [n_splits][rows][DN] /
+// part_ml [n_splits][rows] (rows: the batch's rows x heads), and the last
+// block of the (row, head tile) to arrive (an atomic ticket, which it
+// resets) merges them in split order.
+// fold: the int8 cache's k_scale ks, folded into q_nope as Q lands (f32
+// product rounded to bf16, the rope x 1) and into the output (the bf16 value
+// x ks, rounded again): the two roundings of decode_attention.fold_q_scale
+// / unfold_out_scale.
+constexpr int MAX_SPLITS = 16;           // splits of a decode row at most
+struct Split {
+  float* part_o = nullptr;
+  float2* part_ml = nullptr;
+  int* ticket = nullptr;
+  size_t rows = 0;
+  int s = 0, n_live = 1;                 // this block's split, the row's live ones
+  bool fold = false;
+  float ks = 1.f;
+};
+
+// 8 bf16 q values (a 16-byte piece) x ks in f32, each rounded back to bf16.
+__device__ __forceinline__ uint4 fold8(uint4 v, float ks) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    const __nv_bfloat162 y = __floats2bfloat162_rn(__low2float(x) * ks, __high2float(x) * ks);
+    w[i] = *reinterpret_cast<const uint32_t*>(&y);
+  }
+  return v;
+}
+
+// Two output values: o / l (as o x inv) rounded to bf16, then the fold's
+// second rounding.
+__device__ __forceinline__ __nv_bfloat162 out2(float a, float b, float inv, const Split& sp) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a * inv, b * inv);
+  if (sp.fold) v = __floats2bfloat162_rn(__low2float(v) * sp.ks, __high2float(v) * sp.ks);
+  return v;
+}
+
+// The latent cache kn [pages, 1, page, 512] as a TMA map of [pages x page,
+// 512] rows, boxes of box_keys rows x 128 bytes, 128-byte swizzle: box_keys
+// the largest divisor of the page that divides 64; under 8 the cp.async
+// path reads no map (zeroed).  0 or a CUDA error.
+template <typename KN>
+inline int key_map(CUtensorMap* kmap, const void* kn, int page_size, int n_pages,
+                   int* box_keys) {
+  *box_keys = KT;
+  while (page_size % *box_keys) *box_keys /= 2;
+  if (*box_keys < 8) {
+    memset(kmap, 0, sizeof(*kmap));
+    return 0;
+  }
+  const uint64_t dims[2] = {DN, (uint64_t)n_pages * page_size}, strides[1] = {DN * sizeof(KN)};
+  const uint32_t box[2] = {128 / sizeof(KN), (uint32_t)*box_keys};
+  return wg::tensor_map(kmap, sizeof(KN) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                              : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                        2, kn, dims, strides, box);
+}
+
 // Shared memory, in bytes, every latent region 1024-aligned.  Q [72][64][8]
 // (depth / 8, row, depth % 8) is wgmma's layout without swizzle; a stage's
 // latent is TMA's 128-byte swizzle, [column block][64 keys][128 bytes] (bf16:
@@ -122,8 +188,9 @@ struct Smem {
   static constexpr uint32_t KEYS = SEL + MAX_SEL * 4;         // [2][2][KT] page, offset
   static constexpr uint32_t RED = KEYS + 2 * 2 * KT * 4;      // [2][M] f32 row exchange
   static constexpr uint32_t BARS = RED + 2 * M * 4;           // full[2], empty[2]
-  static constexpr uint32_t NLIVE = BARS + 4 * 8;             // live slots of the chunk
-  static constexpr uint32_t BYTES = NLIVE + 16;
+  static constexpr uint32_t NLIVE = BARS + 4 * 8;             // live slots; K2's last split
+  static constexpr uint32_t MERGE = NLIVE + 16;               // K2's merge: 3 bulk barriers
+  static constexpr uint32_t BYTES = MERGE + 3 * 8;
 };
 static_assert(Smem<bf16>::BYTES <= 232448 && Smem<int8_t>::BYTES <= 232448,
               "the MLA prefill block's shared memory exceeds a block's 227 KB");
@@ -228,11 +295,13 @@ __device__ __forceinline__ void widen_chunk(const unsigned char* raw, unsigned c
 // The block: request b's tokens [j0, jend) (at most tq) x heads [h0, h0 +
 // hb), row r = token j0 + r / hb, head h0 + r % hb.  Token j sits at packed
 // index tok_base + j and sees positions <= ctx - seq_len + j.  DENSE: the
-// keys are positions 0 .. ctx - seq_len + jend of the request (bt_row its
-// block table); else the n_sel slots pos_sel_c of its q-chunk (positions of
-// pages, -1 dead), walked whole.  Warpgroup 0 loads (40 registers a thread),
-// warpgroups 1 and 2 compute (232): full[s] completes when stage s has
-// landed, empty[s] when the consumers are done with it.  kmap: the latent
+// keys are positions k_lo .. ctx - seq_len + jend of the request (bt_row its
+// block table; k_lo a multiple of KT), at most up to k_hi; else the n_sel
+// slots pos_sel_c of its q-chunk (positions of pages, -1 dead), walked whole
+// (k_lo 0).  sp: K2's split epilogue and int8 fold (struct Split).
+// Warpgroup 0 loads (40 registers a thread), warpgroups 1 and 2 compute
+// (232): full[s] completes when stage s has landed, empty[s] when the
+// consumers are done with it.  kmap: the latent
 // cache as [total_rows = pages x page, 512] (TMA, boxes of box_keys rows).
 template <typename KN, bool DENSE>
 __device__ __forceinline__ void block(
@@ -240,7 +309,8 @@ __device__ __forceinline__ void block(
     const bf16* __restrict__ kr, const int* __restrict__ bt_row,
     const int* __restrict__ pos_sel_c, bf16* __restrict__ out, int tok_base, int j0, int jend,
     int tq, int seq_len, int ctx, int heads, int h0, int hb, int n_sel, int page_size,
-    int box_keys, int total_rows, float sm_scale) {
+    int box_keys, int total_rows, float sm_scale, int k_lo = 0, int k_hi = 0x7fffffff,
+    Split sp = Split()) {
   using L = Smem<KN>;
   extern __shared__ __align__(1024) unsigned char smem[];
   int* sel = reinterpret_cast<int*>(smem + L::SEL);
@@ -270,9 +340,10 @@ __device__ __forceinline__ void block(
     }
   }
   __syncthreads();
-  // the walk's keys [0, kend): the causal end of the block's last live row,
-  // or the selected pages
-  const int n_live = *n_live_s, kend = DENSE ? ctx - seq_len + jend : n_live * page_size;
+  // the walk's keys [k_lo, kend): to the causal end of the block's last live
+  // row (or k_hi), or the selected pages
+  const int n_live = *n_live_s;
+  const int kend = min(DENSE ? ctx - seq_len + jend : n_live * page_size, k_hi);
 
   if (warp < PRODUCERS / 32) {  // the producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
@@ -287,8 +358,8 @@ __device__ __forceinline__ void block(
       }
     };
     int pg = -1, off = 0;
-    if (tid < KT) lookup(tid, pg, off);
-    for (int it = 0, k0 = 0; k0 < kend; ++it, k0 += KT) {
+    if (tid < KT) lookup(k_lo + tid, pg, off);
+    for (int it = 0, k0 = k_lo; k0 < kend; ++it, k0 += KT) {
       const int st = it & 1;
       int* kpg = keys + st * 2 * KT;
       if (it >= 2) wg::mbar_wait(&empty[st], ((it >> 1) - 1) & 1);
@@ -313,12 +384,32 @@ __device__ __forceinline__ void block(
     const int j = j0 + r / hb, h = h0 + r % hb;
     return r < tq * hb && j < jend && h < heads;
   };
-  for (int p = ctid; p < M * DQ / 8; p += CONSUMERS) {  // Q: row p % 64, piece p / 64
-    const int r = p & 63, c = p >> 6;
-    const bool live = row_live(r);
-    const bf16* src = q;
-    if (live) src += ((size_t)(tok_base + j0 + r / hb) * heads + h0 + r % hb) * DQ + c * 8;
-    wg::cp_async16(smem + L::Q + (c * M + r) * 16, src, live ? 16 : 0);
+  // the global row of block row r: out's [.., 512] and the split scratch's
+  auto row_at = [&](int r) { return (size_t)(tok_base + j0 + r / hb) * heads + h0 + r % hb; };
+  if (sp.fold) {  // K2's int8 fold: q_nope x ks, rounded to bf16; a thread's loads all in flight
+    constexpr int NP = M * DQ / 8 / CONSUMERS;
+    static_assert(NP * CONSUMERS == M * DQ / 8, "Q pieces a consumer thread");
+    uint4 v[NP];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int p = ctid + i * CONSUMERS, r = p & 63, c = p >> 6;
+      v[i] = row_live(r) ? *reinterpret_cast<const uint4*>(q + row_at(r) * DQ + c * 8)
+                         : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int p = ctid + i * CONSUMERS, r = p & 63, c = p >> 6;
+      *reinterpret_cast<uint4*>(smem + L::Q + (c * M + r) * 16) = c < DN / 8 ? fold8(v[i], sp.ks)
+                                                                             : v[i];
+    }
+  } else {
+    for (int p = ctid; p < M * DQ / 8; p += CONSUMERS) {  // Q: row p % 64, piece p / 64
+      const int r = p & 63, c = p >> 6;
+      const bool live = row_live(r);
+      const bf16* src = q;
+      if (live) src += row_at(r) * DQ + c * 8;
+      wg::cp_async16(smem + L::Q + (c * M + r) * 16, src, live ? 16 : 0);
+    }
   }
   wg::cp_async_commit();
   wg::cp_async_wait_all();
@@ -353,7 +444,7 @@ __device__ __forceinline__ void block(
   for (int i = 0; i < 128; ++i) o[i] = 0.f;
   float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
 
-  for (int it = 0, k0 = 0; k0 < kend; ++it, k0 += KT) {
+  for (int it = 0, k0 = k_lo; k0 < kend; ++it, k0 += KT) {
     const int st = it & 1;
     unsigned char* stage = smem + L::STAGES + st * L::STAGE;
     wg::mbar_wait(&full[st], (it >> 1) & 1);
@@ -487,24 +578,138 @@ __device__ __forceinline__ void block(
     }
   }
 
-  // the denominators of both warpgroups' keys; live rows out
+  // the denominators of both warpgroups' keys
 #pragma unroll
   for (int h = 0; h < 2; ++h)
     if (t4 == 0) red[wgi * M + r0 + 8 * h] = l_run[h];
   wg::bar_sync(1, CONSUMERS);
+  if (sp.part_o == nullptr || sp.n_live <= 1) {  // live rows out
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!live[h]) continue;
+      const int r = r0 + 8 * h;
+      const float l = red[r] + red[M + r];
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      bf16* orow = out + row_at(r) * DN + 256 * wgi + 2 * t4;
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
+            out2(o[4 * i + 2 * h], o[4 * i + 2 * h + 1], inv, sp);
+    }
+    return;
+  }
+
+  // a split of a row of several: (m, l, O) straight from the registers to
+  // the scratch, then the ticket
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (!live[h]) continue;
     const int r = r0 + 8 * h;
-    const float l = red[r] + red[M + r];
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    bf16* orow = out + ((size_t)(tok_base + j0 + r / hb) * heads + h0 + r % hb) * DN +
-                 256 * wgi + 2 * t4;
+    const size_t at = sp.s * sp.rows + row_at(r);
+    float* po = sp.part_o + at * DN + 256 * wgi + 2 * t4;
 #pragma unroll
     for (int i = 0; i < 32; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
-          __floats2bfloat162_rn(o[4 * i + 2 * h] * inv, o[4 * i + 2 * h + 1] * inv);
+      *reinterpret_cast<float2*>(po + 8 * i) = make_float2(o[4 * i + 2 * h], o[4 * i + 2 * h + 1]);
+    if (wgi == 0 && t4 == 0) sp.part_ml[at] = make_float2(m_run[h], red[r] + red[M + r]);
   }
+  __threadfence();
+  wg::bar_sync(1, CONSUMERS);
+  int* last = n_live_s + 1;
+  if (ctid == 0) *last = atomicAdd(sp.ticket, 1) == sp.n_live - 1;
+  wg::bar_sync(1, CONSUMERS);
+  if (!*last) return;
+  __threadfence();
+  wg::fence_proxy_global();   // the other splits' scratch, read by the bulk copies
+
+  // The last to arrive merges the row's splits in split order.  Its live
+  // rows (K2: one token, heads h0 .. h0 + nrows) are consecutive in each
+  // split's scratch, so a split comes in as pieces of 32 rows (64 KB) by the
+  // bulk copy engine into a ring of three buffers where Q and the stages
+  // were (rows one at a time through registers were bound by the L2's
+  // latency).  First a thread a row: the splits' max, weights and 1 / l.
+  const int nrows = min(hb, heads - h0);
+  const size_t base = row_at(0);
+  float* wsm = reinterpret_cast<float*>(smem + L::P);   // [M][MAX_SPLITS + 1]
+  uint64_t* mb = reinterpret_cast<uint64_t*>(smem + L::MERGE);
+  if (ctid < nrows) {
+    float2 ml[MAX_SPLITS];
+#pragma unroll
+    for (int j = 0; j < MAX_SPLITS; ++j)
+      ml[j] = j < sp.n_live ? __ldcg(sp.part_ml + j * sp.rows + base + ctid)
+                            : make_float2(NEG, 0.f);
+    float mm = NEG, ll = 0.f;
+#pragma unroll
+    for (int j = 0; j < MAX_SPLITS; ++j) mm = fmaxf(mm, ml[j].x);
+#pragma unroll
+    for (int j = 0; j < MAX_SPLITS; ++j) {
+      const float w = j < sp.n_live ? ex2(ml[j].x - mm) : 0.f;
+      wsm[ctid * (MAX_SPLITS + 1) + j] = w;
+      ll += ml[j].y * w;
+    }
+    wsm[ctid * (MAX_SPLITS + 1) + MAX_SPLITS] = ll > 0.f ? 1.f / ll : 0.f;
+  }
+  constexpr int PIECE = 32, BUF = PIECE * DN * 4;
+  static_assert(3 * BUF <= L::P, "K2's merge ring overlaps the P tile");
+  const int halves = (nrows + PIECE - 1) / PIECE, pieces = sp.n_live * halves;
+  auto issue = [&](int p) {   // piece p: split p / halves, rows 32 (p % halves) ..
+    const int hf = p % halves, k = p % 3;
+    const int bytes = min(PIECE, nrows - PIECE * hf) * DN * 4;
+    wg::mbar_expect_tx(&mb[k], bytes);
+    wg::bulk_load(smem + k * BUF, sp.part_o + ((p / halves) * sp.rows + base + PIECE * hf) * DN,
+                  bytes, &mb[k]);
+    wg::mbar_arrive(&mb[k]);
+  };
+  if (ctid == 0) {
+    for (int k = 0; k < 3; ++k) wg::mbar_init(&mb[k], 1);
+    wg::fence_proxy();
+    for (int p = 0; p < min(3, pieces); ++p) issue(p);
+  }
+  wg::bar_sync(1, CONSUMERS);
+  // then each thread the 4 columns 4 (ctid % 128) of rows 2 i + ctid / 128 of
+  // each piece
+  float4 acc0[PIECE / 2], acc1[PIECE / 2];
+#pragma unroll
+  for (int i = 0; i < PIECE / 2; ++i)
+    acc0[i] = acc1[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto add = [&](float4(&acc)[PIECE / 2], const float4* buf, int row0, int j) {
+#pragma unroll
+    for (int i = 0; i < PIECE / 2; ++i) {
+      const int row = row0 + 2 * i + (ctid >> 7);
+      if (row >= nrows) continue;
+      const float w = wsm[row * (MAX_SPLITS + 1) + j];
+      const float4 v = buf[i * CONSUMERS + ctid];
+      acc[i].x += w * v.x;
+      acc[i].y += w * v.y;
+      acc[i].z += w * v.z;
+      acc[i].w += w * v.w;
+    }
+  };
+  for (int p = 0; p < pieces; ++p) {
+    const int hf = p % halves, k = p % 3;
+    wg::mbar_wait(&mb[k], (p / 3) & 1);
+    const float4* buf = reinterpret_cast<const float4*>(smem + k * BUF);
+    if (hf == 0)
+      add(acc0, buf, 0, p / halves);
+    else
+      add(acc1, buf, PIECE, p / halves);
+    wg::bar_sync(1, CONSUMERS);   // buffer k is free again
+    if (ctid == 0 && p + 3 < pieces) issue(p + 3);
+  }
+  auto emit = [&](const float4(&acc)[PIECE / 2], int row0) {
+#pragma unroll
+    for (int i = 0; i < PIECE / 2; ++i) {
+      const int row = row0 + 2 * i + (ctid >> 7);
+      if (row >= nrows) continue;
+      const float inv = wsm[row * (MAX_SPLITS + 1) + MAX_SPLITS];
+      const __nv_bfloat162 lo = out2(acc[i].x, acc[i].y, inv, sp);
+      const __nv_bfloat162 hi = out2(acc[i].z, acc[i].w, inv, sp);
+      *reinterpret_cast<uint2*>(out + (base + row) * DN + 4 * (ctid & 127)) = make_uint2(
+          *reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+    }
+  };
+  emit(acc0, 0);
+  emit(acc1, PIECE);
+  if (ctid == 0) *sp.ticket = 0;
 }
 
 }  // namespace mlas

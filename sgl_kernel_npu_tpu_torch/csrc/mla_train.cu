@@ -44,13 +44,13 @@
 //         SM.  ops/attention/mla_train.mla_flash_fwd_tiled_plain mirrors this
 //         walk on the CPU.
 //
-// Design of K14b and K14c: the block of mla_attention.cuh (K2's): 16 query
-// rows a block, 8 warps, each 32-key chunk staged once in shared memory for
-// all 16 rows (the next chunk's loads in flight in registers while this one
-// computes), the 576-deep score tile split over the warps (mma_abt) on
-// mma.sync.m16n8k16 with f32 accumulation, keys walked only up to the
-// block's last causal token, the dense rows k_lat[b, j], k_pe[b, j]
-// (row-major rope) in place of K2's paged cache.
+// Design of K14b and K14c: the 16-row block of mla_attention.cuh (on which
+// K2 first ran, over its paged cache): 16 query rows a block, 8 warps, each
+// 32-key chunk staged once in shared memory for all 16 rows (the next
+// chunk's loads in flight in registers while this one computes), the
+// 576-deep score tile split over the warps (mma_abt) on mma.sync.m16n8k16
+// with f32 accumulation, keys walked only up to the block's last causal
+// token, over the dense rows k_lat[b, j], k_pe[b, j] (row-major rope).
 //   K14b: S = Q K^T, P = exp(S - lse) (0 on dead keys), dP = dO K_lat^T,
 //         dS = P (dP - delta) sm_scale rounded to bf16, dQ += dS K over the
 //         [16, 576] f32 accumulator (72 columns a warp); rounded once.

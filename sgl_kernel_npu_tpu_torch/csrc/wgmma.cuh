@@ -1,8 +1,8 @@
 // Hopper warpgroup products (wgmma) on shared-memory operands, and the
 // asynchronous copies, mbarriers and TMA tensor maps that feed them: the
-// helpers of mla_sparse.cuh (K9a, K9b), mla_train.cu's K14a, grouped_matmul.cu's
-// K8a, sinks_attention.cu's prefill (K12d) and quant_matmul.cu's prefill rows
-// (K1).
+// helpers of mla_sparse.cuh (K9a, K9b, K2), lightning_indexer.cu's K10,
+// mla_train.cu's K14a, grouped_matmul.cu's K8a, sinks_attention.cu's prefill
+// (K12d) and quant_matmul.cu's prefill rows (K1).
 //
 // Operands use wgmma's layout without swizzle (desc) or with the 128-byte
 // swizzle (desc_sw128).  Without swizzle a matrix is cut into core
@@ -132,6 +132,20 @@ __device__ __forceinline__ void tma_load_3d(void* smem, const void* map, int x, 
       " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(sgl::smem_addr(smem)),
       "l"(map), "r"(x), "r"(y), "r"(z), "r"(sgl::smem_addr(bar))
       : "memory");
+}
+// `bytes` (a multiple of 16) contiguous bytes global -> shared memory by the
+// bulk copy engine (both 16-byte aligned), counted on bar.
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem, int bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(sgl::smem_addr(smem)), "l"(gmem), "r"(bytes), "r"(sgl::smem_addr(bar))
+      : "memory");
+}
+// Global-memory writes this thread has seen (another block's, released to
+// it) made visible to its later asynchronous-proxy reads (bulk copies, TMA).
+__device__ __forceinline__ void fence_proxy_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 // Wait for the completion of the barrier's phase of this parity.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {

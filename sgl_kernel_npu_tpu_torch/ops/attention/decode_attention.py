@@ -8,8 +8,11 @@ rope), latent cache ``[pages, 1, page, 512]``, rope cache transposed
 ``[pages, 1, 64, page]``; V aliases K_nope; the CUDA kernel is
 ``csrc/decode_mla.cu``.  The latent cache is bf16 or int8: the
 ``int8_nzcache`` levels ``round(k / k_scale)``, where the plain version
-dequantizes and the kernel's wrapper folds ``k_scale`` into q_nope and the
-output, as the JAX wrapper does (the kernel reads levels only).
+dequantizes and the kernel folds ``k_scale`` into q_nope and the output
+itself, with the two roundings of the JAX wrapper's fold (one launch a
+call).  The kernel splits each row's keys across blocks and merges the
+splits (:func:`mla_split_size`; its algorithm on the CPU:
+:func:`decode_mla_split_plain`).
 
 GQA: q ``[B, Hq, D]``, caches ``[pages, Hkv, page, D]`` bf16, f32 or int8
 (levels ``round(x / scale)``, a scalar or per-kv-head scale) → ``[B, Hq,
@@ -42,6 +45,11 @@ KERNEL_HEAD_DIMS = (32, 64, 128)   # head widths of the GQA / sinks kernels
 # once; the kernel takes up to 32, one a lane of its merge); keys a staged
 # chunk; q heads a block
 DECODE_SPLIT, DECODE_MAX_SPLITS, DECODE_CHUNK, DECODE_HEADS = 256, 16, 64, 64
+# K2's splits (csrc/decode_mla.cu): keys a split at least, a multiple of its
+# 64-key chunk (an MLA key costs 128 heads x 1088 x 2 flops, far more than a
+# GQA key, so the splits are shorter; at most DECODE_MAX_SPLITS a row); q
+# heads a block
+MLA_SPLIT, MLA_HEADS = 128, 64
 
 
 def _gather_pages(buffer: torch.Tensor, block_table: torch.Tensor, max_len: int,
@@ -107,6 +115,14 @@ def check_mla_operands(q, k_nope_buffer, k_rope_buffer) -> None:
         raise ValueError("paged caches must be contiguous")
 
 
+def mla_split_size(table_keys: int) -> int:
+    """Keys a split of K2 over a block table of ``table_keys`` keys:
+    ``MLA_SPLIT``, or more (a multiple of the 64-key chunk) where a row
+    could otherwise need more than ``DECODE_MAX_SPLITS``.  From shapes
+    alone (no host sync), so bf16 and int8 caches split alike."""
+    return _split_size(table_keys, 0, MLA_SPLIT)
+
+
 def decode_mla_ref(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale, block_table,
                    k_scale=None):
     """Plain paged MLA decode attention (f32 math).  ``kv_seq_lens`` count the
@@ -127,31 +143,89 @@ def decode_mla_ref(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale, block
     return torch.einsum("bhl,bld->bhd", p, k_nope).to(q.dtype)
 
 
+def decode_mla_split_plain(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale, block_table,
+                           *, k_scale=None, split: int):
+    """K2's algorithm in plain PyTorch, for the tests: an int8 cache's
+    ``k_scale`` folded into q_nope (:func:`fold_q_scale`: f32, rounded to
+    q's dtype) and the levels read as they are; each row's keys in splits of
+    ``split`` keys (:func:`split_plan`, window 0), per split its ``(m, l,
+    o)`` with P rounded to q's dtype for P V (the kernel: bf16) and the
+    denominator over the rounded P, the splits merged in split order; the
+    output rounded, then the fold's ``× k_scale`` rounded again
+    (:func:`unfold_out_scale`); a row of context 0 is 0.  The kernel's
+    chunks and warpgroups within a split, its f32 sums in another order and
+    its exponentials in base 2 differ from this at rounding level only."""
+    ks = int8_scale(k_nope_buffer, k_scale)
+    if ks is not None:
+        q = fold_q_scale(q, ks)
+    b, h, _ = q.shape
+    table_keys = block_table.shape[1] * k_nope_buffer.shape[2]
+    n_splits, _, hi, n_live = split_plan(kv_seq_lens.to(q.device), 0, table_keys, split)
+    pos = torch.arange(n_splits * split, device=q.device)
+    valid = (pos[None, :] < hi[:, None]).reshape(b, 1, n_splits, split)
+    idx = pos.clamp(max=max(table_keys - 1, 0))
+    kn = _gather_pages(k_nope_buffer, block_table, table_keys)[:, 0][:, idx].float()
+    kr = _gather_pages(k_rope_buffer.transpose(-1, -2), block_table,
+                       table_keys)[:, 0][:, idx].float()                   # [B, n split, 64]
+    qk = torch.einsum("bhd,bld->bhl", q[..., :D_NOPE].float(), kn)
+    qk = (qk + torch.einsum("bhd,bld->bhl", q[..., D_NOPE:].float(), kr)) * sm_scale
+    qk = torch.where(valid, qk.reshape(b, h, n_splits, split), NEG_INF)
+    m = qk.amax(-1)                                                        # [B, H, n]
+    p = torch.where(valid, torch.exp(qk - m[..., None]), 0.0).to(q.dtype).float()
+    l = p.sum(-1)
+    o = torch.einsum("bhns,bnsd->bhnd", p, kn.reshape(b, n_splits, split, D_NOPE))
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    l_all = (l * w).sum(-1)
+    o_all = (o * w[..., None]).sum(-2)
+    out = (o_all / l_all.clamp(min=1e-30)[..., None]).to(q.dtype)
+    out = torch.where((n_live > 0)[:, None, None], out, 0)
+    return out if ks is None else unfold_out_scale(out, ks)
+
+
 @counted
 def decode_mla(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale, block_table, *,
                k_scale=None):
     """Paged MLA decode attention → ``[B, Hq, 512]``.
 
-    CUDA tensors launch ``csrc/decode_mla.cu``; CPU tensors take
-    :func:`decode_mla_ref`.  Pad rows (ctx 1, block table of zeros) are safe.
-    ``k_scale``: the dequant scale of an int8 latent cache (``ctkv_scale``)."""
+    CUDA tensors launch ``csrc/decode_mla.cu`` (one launch, no host sync:
+    the split size comes from shapes, :func:`mla_split_size`, the merge's
+    scratch is ``torch.empty`` and the int8 fold is inside); CPU tensors
+    take :func:`decode_mla_ref`.  Pad rows (ctx 1, block table of zeros) are
+    safe.  ``k_scale``: the dequant scale of an int8 latent cache
+    (``ctkv_scale``), a number (a tensor is read to the host)."""
     if not on_cuda(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, block_table):
         return decode_mla_ref(q, k_nope_buffer, k_rope_buffer, kv_seq_lens, sm_scale,
                               block_table, k_scale)
     check_mla_operands(q, k_nope_buffer, k_rope_buffer)
     ks = int8_scale(k_nope_buffer, k_scale)
     b, hq, _ = q.shape
-    q = (q if ks is None else fold_q_scale(q, ks)).contiguous()
+    q = q.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k_nope_buffer, k_rope_buffer)):
+        raise ValueError("decode_mla reads q and the caches 16 bytes at a time (TMA): they must "
+                         "start 16-byte aligned")
     bt = block_table.to(torch.int32).contiguous()
     ctx = kv_seq_lens.to(torch.int32).contiguous()
-    out = torch.empty((b, hq, D_NOPE), dtype=q.dtype, device=q.device)
+    page = k_nope_buffer.shape[2]
+    table_keys = bt.shape[1] * page
+    split = mla_split_size(table_keys)
+    n_splits = split_count(table_keys, 0, split)
+    dev = q.device
+    out = torch.empty((b, hq, D_NOPE), dtype=q.dtype, device=dev)
+    part_o = part_ml = tickets = None
+    if n_splits > 1:
+        part_o = torch.empty(b * hq * n_splits * D_NOPE, dtype=torch.float32, device=dev)
+        part_ml = torch.empty(b * hq * n_splits * 2, dtype=torch.float32, device=dev)
+        tickets = _tickets(q, b * cdiv(hq, MLA_HEADS))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = cuda_lib.load_library()
     cuda_lib.check(lib, lib.decode_mla_launch(
         q.data_ptr(), k_nope_buffer.data_ptr(), k_rope_buffer.data_ptr(), bt.data_ptr(),
-        ctx.data_ptr(), out.data_ptr(), b, hq, bt.shape[1], k_nope_buffer.shape[2],
-        float(sm_scale), int(ks is not None), cuda_lib.stream_ptr(q)), "decode_mla")
+        ctx.data_ptr(), out.data_ptr(), ptr(part_o), ptr(part_ml), ptr(tickets), b, hq,
+        bt.shape[1], page, k_nope_buffer.shape[0], split, n_splits, float(sm_scale),
+        int(ks is not None), float(1.0 if ks is None else ks), cuda_lib.stream_ptr(q)),
+        "decode_mla")
     decode_mla.launches += 1
-    return out if ks is None else unfold_out_scale(out, ks)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -282,15 +356,19 @@ def _most_keys(table_keys: int, window: int) -> int:
     return min(window, table_keys) if window > 0 else table_keys
 
 
+def _split_size(table_keys: int, window: int, split: int) -> int:
+    keys = _most_keys(table_keys, window)
+    if cdiv(keys, split) <= DECODE_MAX_SPLITS:
+        return split
+    return round_up(cdiv(keys, DECODE_MAX_SPLITS), DECODE_CHUNK)
+
+
 def decode_split_size(table_keys: int, window: int) -> int:
     """Keys a split of the decode kernel over a block table of
     ``table_keys`` keys: ``DECODE_SPLIT``, or more (a multiple of the chunk)
     where a row could otherwise need more than ``DECODE_MAX_SPLITS``.  From
     shapes alone, so bf16 and int8 caches split alike."""
-    keys = _most_keys(table_keys, window)
-    if cdiv(keys, DECODE_SPLIT) <= DECODE_MAX_SPLITS:
-        return DECODE_SPLIT
-    return round_up(cdiv(keys, DECODE_MAX_SPLITS), DECODE_CHUNK)
+    return _split_size(table_keys, window, DECODE_SPLIT)
 
 
 def split_count(table_keys: int, window: int, split: int) -> int:
@@ -364,9 +442,10 @@ _TICKETS: dict = {}
 
 
 def _tickets(q: torch.Tensor, n: int) -> torch.Tensor:
-    """The decode kernel's per-(row, kv head) counters on q's device and
-    stream: zero, and left zero by every launch (the merging block resets
-    its own), so only a first use or a growth writes them."""
+    """The decode kernels' split counters (GQA: a (row, kv head, 64 q
+    heads); K2: a (row, 64 heads)) on q's device and stream: zero, and left
+    zero by every launch (the merging block resets its own), so only a first
+    use or a growth writes them."""
     key = (q.device, cuda_lib.stream_ptr(q))
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:

@@ -30,7 +30,12 @@ from sgl_kernel_npu_tpu_torch.utils.counters import counted
 
 NEG_INF = float("-inf")
 IDX_DIM = 128                    # index-key width the CUDA kernel is built for
-IDX_HEADS = (16, 32, 64, 128)    # index heads it takes (a block holds 128 rows)
+IDX_HEADS = (16, 32, 64, 128)    # index heads it takes
+# The kernel's tiles (csrc/lightning_indexer.cu): query rows (tokens x heads)
+# a block; keys a chunk.  Where a call's token tiles give fewer than
+# LI_BLOCKS blocks, each tile's key range is cut into splits of at least
+# LI_MIN_CHUNKS chunks, a block each.
+LI_ROWS, LI_CHUNK, LI_BLOCKS, LI_MIN_CHUNKS = 512, 64, 132, 4
 _ROW_CHUNK = 64                  # query rows a step of the plain version scores
 
 
@@ -62,6 +67,18 @@ def lightning_indexer_scores_prefill_ref(q_dense, w_dense, key, lens_q, lens_k, 
     return out
 
 
+def indexer_splits(blocks: int, width: int) -> tuple[int, int]:
+    """K10's key splits for ``blocks`` (token tile, request) pairs over
+    ``width`` keys → ``(chunks a split, splits)``: one split (the whole
+    table) where the tiles alone give ``LI_BLOCKS`` blocks, else enough
+    splits of at least ``LI_MIN_CHUNKS`` chunks to reach that many.  From
+    shapes alone (no host sync)."""
+    chunks = max(cdiv(width, LI_CHUNK), 1)
+    splits = max(1, min(cdiv(chunks, LI_MIN_CHUNKS), cdiv(LI_BLOCKS, max(blocks, 1))))
+    cps = cdiv(chunks, splits)
+    return cps, cdiv(chunks, cps)
+
+
 @counted
 def lightning_indexer_scores_prefill_pallas(q_dense, w_dense, key, lens_q, lens_k, block_table,
                                             *, causal: bool = True, q_chunk: int = 64):
@@ -73,8 +90,10 @@ def lightning_indexer_scores_prefill_pallas(q_dense, w_dense, key, lens_q, lens_
     rounds ``max_q`` up to the q-chunk (``sinks_attention.prefill_q_chunk``).
 
     CUDA tensors launch ``csrc/lightning_indexer.cu`` (bf16 q and keys of
-    width 128, f32 weights, 16-128 heads, page a multiple of 8); CPU tensors
-    take :func:`lightning_indexer_scores_prefill_ref`."""
+    width 128 starting 16-byte aligned, f32 weights, 16-128 heads, page a
+    multiple of 8; one launch, its key splits from shapes,
+    :func:`indexer_splits`); CPU tensors take
+    :func:`lightning_indexer_scores_prefill_ref`."""
     if not on_cuda(q_dense, w_dense, key, lens_q, lens_k, block_table):
         return lightning_indexer_scores_prefill_ref(q_dense, w_dense, key, lens_q, lens_k,
                                                     block_table, causal=causal, q_chunk=q_chunk)
@@ -96,12 +115,17 @@ def lightning_indexer_scores_prefill_pallas(q_dense, w_dense, key, lens_q, lens_
     bt = block_table.to(torch.int32).contiguous()
     lq = lens_q.to(torch.int32).contiguous()
     lk = lens_k.to(torch.int32).contiguous()
-    out = torch.empty((bsz, mq, bt.shape[1] * page), dtype=torch.float32, device=q.device)
+    if q.data_ptr() % 16 or k.data_ptr() % 16:
+        raise ValueError("the indexer kernel reads q and the keys by TMA: they must start "
+                         "16-byte aligned")
+    width = bt.shape[1] * page
+    out = torch.empty((bsz, mq, width), dtype=torch.float32, device=q.device)
+    cps, splits = indexer_splits(bsz * cdiv(mq, LI_ROWS // n1), width)
     lib = cuda_lib.load_library()
     cuda_lib.check(lib, lib.lightning_indexer_prefill_launch(
         q.data_ptr(), w.data_ptr(), k.data_ptr(), bt.data_ptr(), lq.data_ptr(), lk.data_ptr(),
-        out.data_ptr(), bsz, max_q, mq, n1, bt.shape[1], page, int(causal),
-        cuda_lib.stream_ptr(q)), "lightning_indexer_scores_prefill_pallas")
+        out.data_ptr(), bsz, max_q, mq, n1, bt.shape[1], page, k.shape[0], cps, splits,
+        int(causal), cuda_lib.stream_ptr(q)), "lightning_indexer_scores_prefill_pallas")
     lightning_indexer_scores_prefill_pallas.launches += 1
     return out
 

@@ -31,11 +31,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L, _U = ctypes.c_longlong, ctypes.c_ulonglong
 # C entry points: name -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
-    "decode_mla_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "decode_mla_launch": [_P] * 9 + [_I] * 7 + [_F, _I, _F, _P],
     "mla_prefill_launch": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
     "mla_prefill_sparse_launch": [_P] * 9 + [_I] * 11 + [_F, _I, _P],
-    "lightning_indexer_prefill_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                         _I, _P],
+    "lightning_indexer_prefill_launch": [_P] * 7 + [_I] * 10 + [_P],
     "gmm1_ring_launch": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                          _P, _P, _I, _P, _P],
     "gmm2_combine_ring_launch": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P,

@@ -6,7 +6,9 @@ mode).  On a machine with the card:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
 
 Tolerances: bf16 attention outputs 2e-2 (f32 math, another summation order,
-bf16 rounding of the output); int8 GMM1 outputs 1 level and scales rtol 1e-5;
+bf16 rounding of the output); ``decode_mla`` on int8 levels bit-equal to the
+same kernel with the wrapper's old fold (``fold_q_scale`` / ``unfold_out_scale``)
+around it, and two calls bit-identical (its splits merge in split order); int8 GMM1 outputs 1 level and scales rtol 1e-5;
 f32 GMM2 + combine 1e-5 of the largest value (f32 sums in another order);
 ``quant_matmul`` exact (exact integer sums, the same f32 epilogue);
 ``quant_per_token`` and ``swiglu_quant`` int8 within one level (the SiLU's
@@ -76,8 +78,12 @@ def _cache(gen, dev, n_pages, page, dtype):
     return kn, kr
 
 
-@pytest.mark.parametrize("heads,page", [(128, 128), (8, 16), (20, 4)])
+@pytest.mark.parametrize("heads,page", [(128, 128), (8, 16), (20, 4), (64, 128), (16, 128),
+                                        (128, 16)])
 def test_decode_mla_kernel(dev, heads, page):
+    """Rows of context 1, a page and 3, 5 pages and 2 and a pad row on a
+    6-page table: at page 128 the keys cross K2's splits (768 keys in splits
+    of ``MLA_SPLIT``)."""
     dtype = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(0)
     ctx = [1, page + 3, 5 * page, 2]
@@ -99,7 +105,7 @@ def _int8_latent(kn):
     return torch.clamp(torch.round(kn.float() * 32), -128, 127).to(torch.int8)
 
 
-@pytest.mark.parametrize("heads,page", [(128, 128), (8, 16)])
+@pytest.mark.parametrize("heads,page", [(128, 128), (8, 16), (64, 128), (16, 128)])
 def test_decode_mla_kernel_int8_latent(dev, heads, page):
     """The int8 latent cache (levels round(k * 32), k_scale 1/32) against the
     plain version, which dequantizes."""
@@ -115,6 +121,78 @@ def test_decode_mla_kernel_int8_latent(dev, heads, page):
     want = da.decode_mla_ref(q, kn8, kr, ctx_t, 0.07, bt, 1 / 32)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def _decode_mla_long(dev, heads, int8, seed=9):
+    """[4c]'s decode shape at ``heads``: rows of 916-4016 keys, a row of
+    context 1 and a pad row (ctx 1, a table of zeros) on a 33-page table of
+    128 (4224 keys: 14 splits of 320), random pages; K2's arguments and
+    keywords."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ctx = [916, 1816, 4016, 3516, 2616, 1, 1]
+    b, max_pages, page = len(ctx), 33, 128
+    kn, kr = _cache(gen, dev, b * max_pages + 1, page, torch.bfloat16)
+    if int8:
+        kn = _int8_latent(kn)
+    bt = (torch.randperm(b * max_pages, generator=torch.Generator().manual_seed(seed)) + 1).to(
+        dev, torch.int32).reshape(b, max_pages)
+    bt[-1] = 0
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    q = torch.randn((b, heads, 576), generator=gen, device=dev).to(torch.bfloat16)
+    return (q, kn, kr, ctx_t, 0.07, bt), dict(k_scale=1 / 32 if int8 else None)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("heads", [128, 64, 16])
+def test_decode_mla_kernel_many_splits(dev, heads, int8):
+    """A long table (up to 13 live splits a row, merged by the last split)
+    with a row of context 1 and a pad row, one launch: the kernel against
+    its plain version."""
+    args, kw = _decode_mla_long(dev, heads, int8)
+    before = da.decode_mla.launches
+    got = da.decode_mla(*args, **kw)
+    want = da.decode_mla_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert da.decode_mla.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("heads", [128, 16])
+@pytest.mark.parametrize("table", ["long", "short"])
+def test_decode_mla_int8_fold_bit_equal(dev, table, heads):
+    """K2 on int8 levels with ``k_scale``, which folds it into q_nope and
+    the output itself, equals bit for bit the old wrapper path around the
+    same kernel: ``unfold_out_scale(decode_mla(fold_q_scale(q, ks), levels,
+    k_scale=1), ks)`` (the same splits, chunks, products and roundings)."""
+    if table == "long":
+        args, kw = _decode_mla_long(dev, heads, True, seed=10)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(11)
+        kn, kr = _cache(gen, dev, 25, 16, torch.bfloat16)
+        bt = torch.arange(24, device=dev, dtype=torch.int32).reshape(4, 6) + 1
+        ctx = torch.tensor([1, 19, 80, 96], dtype=torch.int32, device=dev)
+        q = torch.randn((4, heads, 576), generator=gen, device=dev).to(torch.bfloat16)
+        args, kw = (q, _int8_latent(kn), kr, ctx, 0.07, bt), dict(k_scale=1 / 32)
+    ks = kw["k_scale"]
+    got = da.decode_mla(*args, **kw)
+    inner = da.decode_mla(da.fold_q_scale(args[0], ks), *args[1:], k_scale=1.0)
+    want = da.unfold_out_scale(inner, ks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_decode_mla_repeats_bit_identical(dev, int8):
+    """Two K2 calls give the same bits (the splits merge in split order, not
+    in arrival order), and every split counter is back at 0 after each."""
+    args, kw = _decode_mla_long(dev, 128, int8, seed=12)
+    first = da.decode_mla(*args, **kw)
+    torch.cuda.synchronize()
+    assert not any(bool(t.any()) for t in da._TICKETS.values())
+    second = da.decode_mla(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert not any(bool(t.any()) for t in da._TICKETS.values())
 
 
 def test_mla_prefill_kernel_int8_latent(dev):
@@ -551,14 +629,17 @@ def _scores_close(got, want):
 # (lens_q, lens_k, max_q, page, max_pages, causal): full width (a 2048-token
 # chunk at context 4096 on a 33-page table), ragged (page 16, requests of 1, 5
 # and 40 new tokens after earlier context, max_q 45 not a multiple of the
-# chunk), the decode shape (8 rows of one token), and non-causal
+# chunk), the decode shape (8 rows of one token: the key range split across
+# blocks), non-causal, and 300 tokens at context 700 (max_q not a multiple of
+# the kernel's token tile at 16-64 heads; a causal walk over several tiles)
 LI_CASES = [([2048], [4096], 2048, 128, 33, True),
             ([1, 5, 40], [17, 60, 40], 45, 16, 5, True),
             ([1] * 8, [916, 1816, 4016, 3516, 2616, 1, 1, 1], 1, 128, 33, True),
-            ([3, 12], [30, 12], 12, 16, 2, False)]
+            ([3, 12], [30, 12], 12, 16, 2, False),
+            ([300, 37], [700, 37], 300, 16, 45, True)]
 
 
-@pytest.mark.parametrize("heads", [64, 16])
+@pytest.mark.parametrize("heads", [64, 16, 32, 128])
 @pytest.mark.parametrize("lens_q,lens_k,max_q,page,max_pages,causal", LI_CASES)
 def test_lightning_indexer_kernel(dev, heads, lens_q, lens_k, max_q, page, max_pages, causal):
     gen = torch.Generator(device=dev).manual_seed(7)

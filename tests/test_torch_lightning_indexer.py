@@ -166,3 +166,20 @@ def test_select_prefill_pages_matches_jax():
     assert (want[1, 1:] == -1).all() and (want == -1).any()
     last_rows = ctx[0] - seq[0] + np.asarray([7, 15, 23])      # each chunk's last row
     np.testing.assert_array_equal(want[0, :, 0], last_rows // PAGE)
+
+
+@pytest.mark.parametrize("blocks,width", [(256, 4224), (8, 4224), (64, 4224), (3, 80), (1, 8),
+                                          (132, 32768), (1, 32768)])
+def test_indexer_splits_cover_the_table(blocks, width):
+    """K10's key splits, from shapes alone: their chunks cover the table's
+    keys, none of the splits is empty, one split where the token tiles
+    alone fill ``LI_BLOCKS`` blocks, else splits of at least
+    ``LI_MIN_CHUNKS`` chunks (or the whole table) up to that many blocks."""
+    cps, splits = tli.indexer_splits(blocks, width)
+    chunks = -(-width // tli.LI_CHUNK)
+    assert cps * splits >= chunks and cps * (splits - 1) < chunks
+    if blocks >= tli.LI_BLOCKS:
+        assert splits == 1
+    else:
+        assert cps >= min(tli.LI_MIN_CHUNKS, chunks)
+        assert blocks * splits >= min(tli.LI_BLOCKS, blocks * -(-chunks // tli.LI_MIN_CHUNKS))
