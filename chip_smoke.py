@@ -127,8 +127,9 @@ Phases (any failure raises and the script exits non-zero without a result):
    start, the peak at the end): mla_flash_fwd (K14a), mla_flash_bwd_dq
    (K14b) and mla_flash_bwd_dk (K14c) held to their plain versions at B 2 x
    S 520 x 128 heads and at ``TRAIN_SMALL``'s shapes (S 1-129, 4-128 heads,
-   B 1-3), K14a also to its tiled CPU mirror and bit-identical over two
-   calls, timed beside their bounds, plain versions and SDPA; DeepSeek-V3's published widths cut to
+   B 1-3), each also to its tiled mirror (the kernel's own walk) and
+   bit-identical over two calls, timed beside their bounds, plain versions
+   and SDPA; DeepSeek-V3's published widths cut to
    1 of 61 layers, bf16, with the float routed experts, served through
    ``Engine`` + ``deepseek_adapter`` without ``moe_weights_q`` (the dense
    float MoE) on [4]'s three shortest prompts (exact K2 / K9a counts, a
@@ -2577,9 +2578,11 @@ def check_mla_train(gen, b, s, h, timed):
     at ``[B, S, H]``: the output within 2e-2 + 2e-2 |plain|, the LSE 1e-4, dQ
     and dK within 1e-2 of the tensor's largest |value| plus 1e-4 (dS and P
     round to bf16 on both sides, a tie moved by an f32 ulp flips one; at S =
-    1 the true dQ is 0 and both sides are f32 cancellation noise); K14a also
-    within those tolerances of its tiled CPU mirror (``mla_flash_fwd_tiled_plain``,
-    the kernel's own walk) and bit-identical over two calls.  ``timed``:
+    1 the true dQ is 0 and both sides are f32 cancellation noise); each
+    kernel also within those tolerances of its tiled mirror (the kernel's own
+    walk: ``mla_flash_fwd_tiled_plain``, ``mla_flash_bwd_dq_tiled_plain``,
+    ``mla_flash_bwd_dk_tiled_plain`` at the kernel's bands) and
+    bit-identical over two calls.  ``timed``:
     each kernel, its plain version and SDPA over the latent || rope keys
     expanded to the heads (forward; backward for K14b + K14c together).
     Returns the three kernels' results."""
@@ -2595,23 +2598,31 @@ def check_mla_train(gen, b, s, h, timed):
     args = (*x, do, lse_p, delta, sc)
     dq, dq_p = mt.mla_flash_bwd_dq(*args), mt.mla_flash_bwd_dq_plain(*args)
     dk, dk_p = mt.mla_flash_bwd_dk(*args), mt.mla_flash_bwd_dk_plain(*args)
+    grads_again = (*mt.mla_flash_bwd_dq(*args), *mt.mla_flash_bwd_dk(*args))
+    bands = mt.dk_bands(b, s, h, torch.cuda.get_device_properties(DEV).multi_processor_count)
+    grads_t = (*mt.mla_flash_bwd_dq_tiled_plain(*args),
+               *mt.mla_flash_bwd_dk_tiled_plain(*args, bands))
     torch.cuda.synchronize()
     err_o, ok_o = attention_close(out, out_p)
     err_l = max_abs(lse, lse_p)
     err_ot, ok_ot = attention_close(out, out_t)
     err_lt = max_abs(lse, lse_t)
-    same = torch.equal(again[0], out) and torch.equal(again[1], lse)
+    same = (torch.equal(again[0], out) and torch.equal(again[1], lse)
+            and all(torch.equal(a, w) for a, w in zip(grads_again, (*dq, *dk))))
     errs = {"dq": [max_abs(a, w) for a, w in zip(dq, dq_p)],
             "dk": [max_abs(a, w) for a, w in zip(dk, dk_p)]}
+    err_t = [max_abs(a, w) for a, w in zip((*dq, *dk), grads_t)]
     ok_g = all(max_abs(a, w) <= 1e-2 * float(w.float().abs().max()) + 1e-4
-               for a, w in zip((*dq, *dk), (*dq_p, *dk_p)))
+               for a, w in zip((*dq, *dk) * 2, (*dq_p, *dk_p, *grads_t)))
     log(f"  mla_flash_* B={b} S={s} H={h}: out max|err| {err_o:.3e} (tol 2e-2 + 2e-2 |plain|), "
         f"lse {err_l:.3e} (tol 1e-4); dq_lat / dq_pe {errs['dq'][0]:.3e} / {errs['dq'][1]:.3e} "
         f"of max {float(dq_p[0].float().abs().max()):.3e} / "
         f"{float(dq_p[1].float().abs().max()):.3e}; dk_lat / dk_pe {errs['dk'][0]:.3e} / "
         f"{errs['dk'][1]:.3e} of max {float(dk_p[0].float().abs().max()):.3e} / "
-        f"{float(dk_p[1].float().abs().max()):.3e} (tol 1e-2 of max + 1e-4); K14a against "
-        f"its tiled mirror: out {err_ot:.3e}, lse {err_lt:.3e}; two calls bit-identical: {same}")
+        f"{float(dk_p[1].float().abs().max()):.3e} (tol 1e-2 of max + 1e-4); against the "
+        f"tiled mirrors: out {err_ot:.3e}, lse {err_lt:.3e}, dq {err_t[0]:.3e} / "
+        f"{err_t[1]:.3e}, dk {err_t[2]:.3e} / {err_t[3]:.3e} (K14c: {bands} bands a chunk); K14a-c "
+        f"over two calls bit-identical: {same}")
     if not (ok_o and err_l <= 1e-4 and ok_g and ok_ot and err_lt <= 1e-4 and same):
         raise AssertionError("an MLA training kernel disagrees with its plain version")
     res = [dict(err=max(err_o, err_l)), dict(err=max(errs["dq"])), dict(err=max(errs["dk"]))]

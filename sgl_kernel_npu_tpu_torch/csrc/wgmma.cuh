@@ -1,8 +1,8 @@
 // Hopper warpgroup products (wgmma) on shared-memory operands, and the
 // asynchronous copies, mbarriers and TMA tensor maps that feed them: the
 // helpers of mla_sparse.cuh (K9a, K9b, K2), lightning_indexer.cu's K10,
-// mla_train.cu's K14a, grouped_matmul.cu's K8a, sinks_attention.cu's prefill
-// (K12d) and quant_matmul.cu's prefill rows (K1).
+// mla_train.cu's K14a, K14b and K14c, grouped_matmul.cu's K8a,
+// sinks_attention.cu's prefill (K12d) and quant_matmul.cu's prefill rows (K1).
 //
 // Operands use wgmma's layout without swizzle (desc) or with the 128-byte
 // swizzle (desc_sw128).  Without swizzle a matrix is cut into core

@@ -16,8 +16,9 @@ the denominator sums the unrounded P, dS rounded to it before the dQ / dK
 products, f32 sums rounded once.  They compute the whole ``[B, H, S, S]``
 score matrix at once where the kernels walk key chunks (the online
 softmax's rescaling rounds P at another scale: bf16 rounding-level
-differences).  :func:`mla_flash_fwd_tiled_plain` walks K14a's blocks and
-chunks instead, as the CUDA kernel does (tests only).
+differences).  :func:`mla_flash_fwd_tiled_plain`,
+:func:`mla_flash_bwd_dq_tiled_plain` and :func:`mla_flash_bwd_dk_tiled_plain`
+walk the CUDA kernels' blocks, chunks and partial sums instead (tests only).
 
 The CUDA kernels take bf16 with L = 512 and R = 64 (DeepSeek-V3's widths,
 as the MLA serving kernels); f32 or other widths raise ``ValueError`` on the
@@ -28,6 +29,8 @@ fix their own tiles.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from sgl_kernel_npu_tpu_torch.ops.attention.decode_attention import D_NOPE, D_ROPE, NEG_INF
@@ -35,10 +38,11 @@ from sgl_kernel_npu_tpu_torch.utils import cuda_lib
 from sgl_kernel_npu_tpu_torch.utils.common import cdiv, on_cuda
 from sgl_kernel_npu_tpu_torch.utils.counters import counted
 
-ROWS = 16        # query rows per CUDA block, csrc/mla_train.cu (one K14c step)
-DK_PIECE = 128   # tokens of a K14c block: a key chunk's rows split into such pieces
-FWD_ROWS = 64    # flat rows of a K14a block, csrc/mla_train.cu k14a::M
+FWD_ROWS = 64    # flat rows of a K14a / K14b block, csrc/mla_train.cu k14a::M, k14b::M
 FWD_KEYS = 64    # keys of a K14a chunk, k14a::CHUNK
+DQ_KEYS = 32     # keys of a K14b chunk, k14b::KC
+DK_KEYS = 64     # keys of a K14c chunk, k14c::KC
+DK_ROWS = 32     # flat rows of a K14c tile, k14c::RT
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
@@ -153,6 +157,125 @@ def mla_flash_bwd_dk_plain(q_lat, q_pe, k_lat, k_pe, do, lse, delta, sm_scale):
     return dk_lat.to(k_lat.dtype), dk_pe.to(k_pe.dtype)
 
 
+def _bwd_tiled_inputs(q_lat, q_pe, k_lat, k_pe, do, lse, delta, sm_scale):
+    """The backward walks' f32 operands: ``q [B, S H, L + R]``, ``do [B, S H,
+    L]``, the keys ``[B, S, L + R]``, ``lse · log2 e`` and delta ``[B, S H]``,
+    and ``sm_scale · log2 e`` rounded to f32 once, as the kernels fold them."""
+    b, s, h, _ = q_lat.shape
+    q = torch.cat([q_lat, q_pe], dim=-1).reshape(b, s * h, -1).float()
+    log2e = torch.tensor(LOG2E, dtype=torch.float32)
+    lse2 = lse.reshape(b, s * h).float() * log2e
+    scale2 = torch.tensor(sm_scale, dtype=torch.float32) * log2e
+    return (q, do.reshape(b, s * h, -1).float(), torch.cat([k_lat, k_pe], dim=-1).float(),
+            lse2, delta.reshape(b, s * h).float(), scale2)
+
+
+def mla_flash_bwd_dq_tiled_plain(q_lat, q_pe, k_lat, k_pe, do, lse, delta, sm_scale):
+    """The walk of the CUDA K14b on the CPU, for tests → ``(dq_lat, dq_pe)`` as
+    :func:`mla_flash_bwd_dq_plain` (any widths; no caller on the main path).
+
+    K14a's blocks (``FWD_ROWS`` consecutive flat rows ``f = t H + h`` of one
+    batch row) walk ``DQ_KEYS``-key chunks from key 0 up to the chunk that
+    holds their last row's token, each row masking keys past its own token.
+    Per chunk: f32 scores over latent ‖ rope, ``P = 2^(S · sm_scale log2 e −
+    lse · log2 e)`` (0 on dead keys), ``dS = P (dP − delta) sm_scale``
+    rounded to k's dtype, ``dQ += dS K`` in f32 chunk after chunk; dQ is
+    rounded once."""
+    b, s, h, dl = q_lat.shape
+    n = s * h
+    blocks = cdiv(n, FWD_ROWS)
+    rows = blocks * FWD_ROWS
+    q, dof, k, lse2, dlt, scale2 = _bwd_tiled_inputs(q_lat, q_pe, k_lat, k_pe, do, lse, delta,
+                                                     sm_scale)
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, rows - n)).reshape(  # noqa: E731
+        b, blocks, FWD_ROWS, -1)
+    q, dof = pad(q), pad(dof)
+    lse2, dlt = pad(lse2[..., None])[..., 0], pad(dlt[..., None])[..., 0]
+    f = torch.arange(rows, device=q.device)
+    tok = torch.where(f < n, f // h, -1).reshape(blocks, FWD_ROWS)
+    last = (torch.clamp_max(torch.arange(blocks, device=q.device) * FWD_ROWS + FWD_ROWS, n)
+            - 1) // h                                         # each block's last token
+    acc = torch.zeros_like(q)
+    for k0 in range(0, s, DQ_KEYS):
+        kc = k[:, k0:k0 + DQ_KEYS]
+        kpos = torch.arange(k0, k0 + kc.shape[1], device=q.device)
+        sc = torch.einsum("bnrd,bcd->bnrc", q, kc)
+        ok = kpos <= tok[..., None]
+        p = torch.where(ok, torch.exp2(sc * scale2 - lse2[..., None]), 0.0)
+        dp = torch.einsum("bnrl,bcl->bnrc", dof, kc[..., :dl])
+        ds = (p * (dp - dlt[..., None]) * sm_scale).to(k_lat.dtype).float()
+        walk = (k0 <= last)[None, :, None, None]              # blocks still walking
+        acc = torch.where(walk, acc + torch.einsum("bnrc,bcd->bnrd", ds, kc), acc)
+    acc = acc.reshape(b, rows, -1)[:, :n].reshape(b, s, h, -1)
+    return acc[..., :dl].to(q_lat.dtype), acc[..., dl:].to(q_pe.dtype)
+
+
+def dk_items(s: int, h: int, u: int) -> int:
+    """K14c's items of a batch row at ``u`` bands a chunk's width: its flat
+    rows form ``ts = cdiv(S H, DK_ROWS)`` tiles, cut into bands of ``L = 2 H
+    / u`` tiles (key chunk c is seen by tiles ``2 H c ..``, a band's edge);
+    band j is seen by chunks ``0 .. j // u``, one item each."""
+    nb = cdiv(cdiv(s * h, DK_ROWS), 2 * h // u)
+    return sum(j // u + 1 for j in range(nb))
+
+
+def dk_bands(b: int, s: int, h: int, sms: int) -> int:
+    """K14c's ``u``: the fewest bands a chunk's width (a divisor of 2 H) that
+    give at least 4 items an SM over the batch, so that the last wave is
+    short; else one tile a band."""
+    for u in range(1, 2 * h + 1):
+        if 2 * h % u == 0 and b * dk_items(s, h, u) >= 4 * sms:
+            return u
+    return 2 * h
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def mla_flash_bwd_dk_tiled_plain(q_lat, q_pe, k_lat, k_pe, do, lse, delta, sm_scale, u):
+    """The walk of the CUDA K14c on the CPU, for tests → ``(dk_lat, dk_pe)`` as
+    :func:`mla_flash_bwd_dk_plain` (any widths; no caller on the main path).
+
+    A batch row's flat rows form tiles of ``DK_ROWS``, cut into bands of ``2
+    H / u`` tiles (``u`` divides 2 H); key chunk c (``DK_KEYS`` keys) is seen
+    by the bands from ``u c`` on, each (band, chunk) an item.  Per chunk:
+    ``Sᵀ`` in f32 over latent ‖ rope, ``Pᵀ = 2^(Sᵀ · sm_scale log2 e − lse ·
+    log2 e)`` (0 on dead keys and rows), ``dSᵀ = Pᵀ (dPᵀ − delta) sm_scale``
+    rounded to k's dtype and Pᵀ rounded for the ``Pᵀ dO`` term; each item
+    adds its band's ``dSᵀ Q + Pᵀ dO`` into an f32 partial, and a chunk's
+    partials are added in band order from 0 and rounded once."""
+    b, s, h, dl = q_lat.shape
+    n = s * h
+    if u < 1 or 2 * h % u:
+        raise ValueError(f"K14c's bands take a divisor of 2 H = {2 * h}; got {u}")
+    q, dof, k, lse2, dlt, scale2 = _bwd_tiled_inputs(q_lat, q_pe, k_lat, k_pe, do, lse, delta,
+                                                     sm_scale)
+    band = 2 * h // u * DK_ROWS                                 # flat rows a band
+    dk = torch.zeros_like(k)
+    for bi in range(b):
+        for c in range(cdiv(s, DK_KEYS)):
+            k0, r0 = DK_KEYS * c, DK_KEYS * c * h               # r0: band u c's first row
+            kc = k[bi, k0:k0 + DK_KEYS]
+            kpos = torch.arange(k0, k0 + kc.shape[0], device=q.device)
+            f = torch.arange(r0, n, device=q.device)
+            st = torch.einsum("cd,rd->cr", kc, q[bi, r0:])
+            ok = kpos[:, None] <= (f // h)[None]
+            pt = torch.where(ok, torch.exp2(st * scale2 - lse2[bi, r0:]), 0.0)
+            dpt = torch.einsum("cl,rl->cr", kc[:, :dl], dof[bi, r0:])
+            dst = (pt * (dpt - dlt[bi, r0:]) * sm_scale).to(k_lat.dtype).float()
+            pt = pt.to(k_lat.dtype).float()
+            part = torch.zeros_like(kc)
+            for lo in range(0, n - r0, band):
+                rows = slice(lo, lo + band)
+                item = dst[:, rows] @ q[bi, r0:][rows]
+                item[:, :dl] += pt[:, rows] @ dof[bi, r0:][rows]
+                part = part + item
+            dk[bi, k0:k0 + DK_KEYS] = part
+    return dk[..., :dl].to(k_lat.dtype), dk[..., dl:].to(k_pe.dtype)
+
+
 def check_train_operands(q_lat, q_pe, k_lat, k_pe, do=None, lse=None, delta=None) -> None:
     """What the K14 kernels take: bf16 ``q_lat [B, S, H, 512]``, ``q_pe [B, S,
     H, 64]``, ``k_lat [B, S, 512]``, ``k_pe [B, S, 64]`` (and ``do`` like
@@ -216,32 +339,25 @@ def mla_flash_bwd_dq(q_lat, q_pe, k_lat, k_pe, do, lse, delta, sm_scale):
     return dq_lat, dq_pe
 
 
-def dk_head_groups(heads: int) -> int:
-    """K14c's head groups: groups of 16 heads where the heads divide so (8 at
-    DeepSeek-V3's 128, giving 8 blocks a 32-key chunk), else one."""
-    return heads // ROWS if heads % ROWS == 0 else 1
-
-
 @counted
 def mla_flash_bwd_dk(q_lat, q_pe, k_lat, k_pe, do, lse, delta, sm_scale):
-    """K14c → ``(dk_lat, dk_pe)``: f32 partials per group of heads
-    (:func:`dk_head_groups`) and piece of ``DK_PIECE`` tokens, summed in the
-    kernel's second pass.  CUDA tensors launch ``csrc/mla_train.cu``; CPU
-    tensors take :func:`mla_flash_bwd_dk_plain`."""
+    """K14c → ``(dk_lat, dk_pe)``: an f32 partial a (band of rows, key
+    chunk) item (:func:`dk_bands`, :func:`dk_items`), a chunk's summed in
+    band order by the kernel's second pass.  CUDA tensors launch
+    ``csrc/mla_train.cu``; CPU tensors take :func:`mla_flash_bwd_dk_plain`."""
     if not on_cuda(q_lat, q_pe, k_lat, k_pe, do, lse, delta):
         return mla_flash_bwd_dk_plain(q_lat, q_pe, k_lat, k_pe, do, lse, delta, sm_scale)
     check_train_operands(q_lat, q_pe, k_lat, k_pe, do, lse, delta)
     b, s, h, _ = q_lat.shape
-    groups, pieces = dk_head_groups(h), cdiv(s, DK_PIECE)
-    part = torch.empty((groups * pieces, b, s, D_NOPE + D_ROPE), dtype=torch.float32,
+    u = dk_bands(b, s, h, _sm_count(q_lat.device.index))
+    part = torch.empty((b * dk_items(s, h, u), DK_KEYS, D_NOPE + D_ROPE), dtype=torch.float32,
                        device=q_lat.device)
     dk_lat, dk_pe = torch.empty_like(k_lat), torch.empty_like(k_pe)
     lib = cuda_lib.load_library()
     cuda_lib.check(lib, lib.mla_train_bwd_dk_launch(
         q_lat.data_ptr(), q_pe.data_ptr(), k_lat.data_ptr(), k_pe.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), part.data_ptr(), dk_lat.data_ptr(), dk_pe.data_ptr(),
-        b, s, h, groups, DK_PIECE, float(sm_scale), cuda_lib.stream_ptr(q_lat)),
-        "mla_flash_bwd_dk")
+        b, s, h, u, float(sm_scale), cuda_lib.stream_ptr(q_lat)), "mla_flash_bwd_dk")
     mla_flash_bwd_dk.launches += 1
     return dk_lat, dk_pe
 

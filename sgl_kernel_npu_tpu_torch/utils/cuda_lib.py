@@ -57,7 +57,7 @@ _SIGNATURES = {
     "lora_expand_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "mla_train_fwd_launch": [_P] * 6 + [_I] * 3 + [_F, _P],
     "mla_train_bwd_dq_launch": [_P] * 9 + [_I] * 3 + [_F, _P],
-    "mla_train_bwd_dk_launch": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "mla_train_bwd_dk_launch": [_P] * 10 + [_I] * 4 + [_F, _P],
     "window_alloc": [_L, _P],
     "window_free": [_P],
     "window_ipc_handle": [_P, _P],

@@ -1535,16 +1535,47 @@ def test_mla_train_kernels(dev, b, s, h):
     args = (*x, do, lse_p, delta, sc)
     dq, dq_p = mt.mla_flash_bwd_dq(*args), mt.mla_flash_bwd_dq_plain(*args)
     dk, dk_p = mt.mla_flash_bwd_dk(*args), mt.mla_flash_bwd_dk_plain(*args)
+    dq2, dk2 = mt.mla_flash_bwd_dq(*args), mt.mla_flash_bwd_dk(*args)
     torch.cuda.synchronize()
     after = [f.launches for f in (mt.mla_flash_fwd, mt.mla_flash_bwd_dq, mt.mla_flash_bwd_dk)]
-    assert after == [before[0] + 2, before[1] + 1, before[2] + 1]
+    assert after == [before[0] + 2, before[1] + 2, before[2] + 2]
     assert torch.equal(out2, out) and torch.equal(lse2, lse)   # K14a is deterministic
+    assert all(torch.equal(a, w) for a, w in zip((*dq2, *dk2), (*dq, *dk)))  # so are K14b / K14c
     for want, want_lse in ((out_p, lse_p), (out_t, lse_t)):
         torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
         torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
-    for got, want in zip((*dq, *dk), (*dq_p, *dk_p)):
+    dq_t = mt.mla_flash_bwd_dq_tiled_plain(*args)
+    dk_t = mt.mla_flash_bwd_dk_tiled_plain(*args, _dk_bands(dev, b, s, h))
+    for got, want in zip((*dq, *dk) * 2, (*dq_p, *dk_p, *dq_t, *dk_t)):
         assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got.float()).all())
         _grad_close(got, want)
+
+
+def _dk_bands(dev, b, s, h):
+    return mt.dk_bands(b, s, h, torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+def test_mla_train_backward_repeats_at_long_context(dev):
+    """K14b / K14c at B 1 x S 4096 x 128 heads, where K14c adds the most
+    partials a key chunk (64 bands): two calls bit-identical, both within the
+    tolerance of their tiled mirrors (the plain versions' [H, S, S] scores
+    take ~35 GB)."""
+    b, s, h = 1, 4096, 128
+    gen = torch.Generator(device=dev).manual_seed(4096)
+    x = _train_inputs(gen, dev, b, s, h)
+    sc = 1 / math.sqrt(192)
+    out, lse = mt.mla_flash_fwd(*x, sc)
+    do = torch.randn((b, s, h, 512), generator=gen, device=dev).to(torch.bfloat16)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (*x, do, lse, delta, sc)
+    got = [(*mt.mla_flash_bwd_dq(*args), *mt.mla_flash_bwd_dk(*args)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, w) for a, w in zip(*got))
+    want = (*mt.mla_flash_bwd_dq_tiled_plain(*args),
+            *mt.mla_flash_bwd_dk_tiled_plain(*args, _dk_bands(dev, b, s, h)))
+    for a, w in zip(got[0], want):
+        assert bool(torch.isfinite(a.float()).all())
+        _grad_close(a, w)
 
 
 def test_mla_flash_train_function_matches_plain(dev):

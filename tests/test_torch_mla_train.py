@@ -122,4 +122,5 @@ def test_kernel_checks_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         tmt.check_train_operands(q_lat.transpose(1, 2).contiguous().transpose(1, 2), q_pe,
                                  k_lat, k_pe)
-    assert tmt.dk_head_groups(128) == 8 and tmt.dk_head_groups(4) == 1
+    assert tmt.dk_bands(2, 520, 128, 132) == 8 and tmt.dk_items(520, 128, 8) == 297
+    assert tmt.dk_bands(1, 1, 4, 132) == 8 and tmt.dk_items(1, 4, 8) == 1
