@@ -92,8 +92,9 @@ Phases (any failure raises and the script exits non-zero without a result):
    of 16 at head_dim 32 and 64), and K12d without sinks or window, held to
    their plain versions and timed, K11a also with one row at 32768 keys
    beside [4e]'s rows on a 2048-page table (its keys split across 16
-   blocks); one int8 decode_gqa and one bf16 attention_sinks call under
-   ``torch.profiler`` must launch the decode kernel and nothing else (the
+   blocks); one int8 decode_gqa and one bf16 attention_sinks call, each
+   captured into a CUDA graph, must enqueue the decode kernel and nothing
+   else (the
    int8 scales fold inside it), and a bf16 and an int8 K12d call its
    prefill kernel once and nothing else; ``Engine(prefill_chunk=512)`` +
    ``llama_adapter`` serves [4e]'s prompt lengths, float, then W8A8 on the
@@ -107,7 +108,8 @@ Phases (any failure raises and the script exits non-zero without a result):
    and 512 tokens, over 64 at 8, and with ids outside the pool;
    sgmv_fused (K13b) over a 512-row chunk of 4 sequences (one empty, a
    tail), ranks 16 / 8 / 4 / 16 and mixed scalings: each held to its plain
-   version and timed; then the ops that no model calls (K6b-d, K13b) once
+   version, two CUDA kernels a call, the shrink and the expand (a CUDA
+   graph capture), two calls bit-identical, and timed; then the ops that no model calls (K6b-d, K13b) once
    through their entry points with their launches counted.  Then
    ``Engine(prefill_chunk=512)`` + ``llama_adapter(lora=...)`` (4 random
    adapters of rank 16 on q and o, adapter 0 zero) serves [4f]'s prompts
@@ -174,10 +176,13 @@ Phases (any failure raises and the script exits non-zero without a result):
    form (K15c) without a fault and with this rank muted (returns with its
    timeout flags); each timed beside its bound (live bytes read and written
    once), its plain version and ``all_to_all_single``.  fused_deep_moe_full_rank
-   (K16b) at a decode step's rows, 512 and 2048 tokens against its plain
-   version (1e-2 of a row's largest) and the unfused ``fused_deep_moe``
-   (relative mean difference < 4e-4), timed beside the unfused form and
-   ``_gmm_moe``.  Then ``Engine`` + ``deepseek_adapter(moe_weights_q=...,
+   (K16b) at a decode step's rows, a 64-row chunk's, 512 and 2048 tokens
+   against its plain version (1e-2 of a row's largest) and the unfused
+   ``fused_deep_moe`` (relative mean difference < 4e-4), two calls on the
+   same rows around one on other rows bit-identical (the other call held to
+   its plain version), at 8 and 64 tokens bit-equal to its tiled walk
+   (``fused_full.fused_deep_moe_full_tiled_plain``), timed beside the
+   unfused form and ``_gmm_moe``.  Then ``Engine`` + ``deepseek_adapter(moe_weights_q=...,
    mla_wq=..., ep_buffer=Buffer(<one-rank NCCL group>, 256,
    EPConfig(comm_backend="pallas_ragged")))`` serves [4]'s prompts: a MoE
    call launches K15b 3 times, K15a and K5 once, K8a twice, never K3 / K4;
@@ -196,14 +201,16 @@ Phases (any failure raises and the script exits non-zero without a result):
    ``none`` to bf16 beside ``torch._grouped_mm``) and on ragged cases, held
    to their plain versions and timed, the modes no caller reaches once
    through their entry point; ``_gmm_moe``'s dispatch_p + K8b branch
-   (``deepseek_v3._gmm_moe_dispatch``) at 8, 64 and 512 tokens: K8a
+   (``deepseek_v3._gmm_moe_dispatch``) at 8, 64 and 512 tokens (each timed): K8a
    ``dispatch_p`` and grouped_matmul_combine (K8b) once a call, the output
    held to its plain version and to the ring branch (K3 + K4), ``dispatch_p``
    bit-equal to the gathered rows, K8b to its plain version, timed beside K4;
    ``Buffer.fused_deep_moe(pack_tn=1024)`` on the ``"xla"`` and
    ``"pallas_ragged"`` transports at 8, 512 and 2048 tokens (K8a
    ``dequant_swiglu`` and ``dequant`` once a call, held to the full-width
-   call and to ``plain=True``; ``single_kernel=True`` raises);
+   call and to ``plain=True``; with ``single_kernel=True`` K16b once a call,
+   pairing gate and up by the pack width, held to the unfused call, to its
+   plain version and at 8 tokens bit-equal to its tiled walk);
    fused_dispatch_gmm1 (K16a) at 8 tokens and a 64-row chunk on the group's
    window, held to its plain version and to K8a on the placed rows, then
    through K7a, K8a and ``ep_core.combine_core`` to ``_gmm_moe``, timed
@@ -220,6 +227,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import statistics
@@ -255,7 +263,7 @@ from sgl_kernel_npu_tpu_torch.ops.attention import lightning_indexer as li  # no
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_prefill as mp  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_train as mt  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa  # noqa: E402
-from sgl_kernel_npu_tpu_torch.parallel import ep_core, pallas_a2a  # noqa: E402
+from sgl_kernel_npu_tpu_torch.parallel import ep_core, fused_full, pallas_a2a  # noqa: E402
 from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer  # noqa: E402
 from sgl_kernel_npu_tpu_torch.runtime.engine import (  # noqa: E402
     Engine,
@@ -1921,14 +1929,12 @@ def check_llama_kernels(gen):
 
 def decode_kernels_only(gen):
     """One int8 ``decode_gqa`` call at [4f]'s shapes (per-kv-head scales) and
-    one bf16 ``attention_sinks`` call at [4e]'s full layer, each under
-    ``torch.profiler`` after a warm-up: the wrapper enqueues the decode
-    kernel and nothing else (no fold of the int8 scales, no cast of the
-    sinks or the lengths), else the run fails.  Then K12d on a 512-row chunk
-    at [4f]'s heads, bf16 and int8 (per-kv-head scales): each call launches
-    the prefill kernel once and nothing else.  A trace that recorded no
-    device activity at all (the profiler caught nothing) is taken again, up
-    to three times."""
+    one bf16 ``attention_sinks`` call at [4e]'s full layer, each captured
+    into a CUDA graph after a warm-up (``enqueued``): the wrapper enqueues
+    the decode kernel and nothing else (no fold of the int8 scales, no cast
+    of the sinks or the lengths), else the run fails.  Then K12d on a
+    512-row chunk at [4f]'s heads, bf16 and int8 (per-kv-head scales): each
+    call launches the prefill kernel once and nothing else."""
     dec_ctx = [n + NEW_TOKENS for n in GPT_PROMPT_LENS] + [1] * (MAX_BATCH - len(GPT_PROMPT_LENS))
     ctx = torch.tensor(dec_ctx, dtype=torch.int32, device=DEV)
     bt = torch.arange(MAX_BATCH * GPT_PAGES_PER_REQ, dtype=torch.int32,
@@ -1944,19 +1950,9 @@ def decode_kernels_only(gen):
     sinks = torch.randn(hq, generator=gen, device=DEV)
     calls.append(("attention_sinks, bf16 cache", lambda: sa.attention_sinks(
         qg, kg, vg, sinks, bt, ctx, d ** -0.5, 0, hq, hkv)))
-    def launched(label, fn):
-        fn()
-        for _ in range(3):  # a trace that caught no device activity at all shows nothing: again
-            rows, busy, wall = trace_profile.device_breakdown(fn, top=100)
-            if rows:
-                break
-        log(f"  {label} under torch.profiler: {[(n[:60], c) for n, _, c in rows]}, device "
-            f"{busy:.4f} ms of {wall:.3f} wall")
-        return rows
-
     for label, fn in calls:
-        rows = launched(label, fn)
-        if [c for n, _, c in rows if "decode_kernel" in n] != [1] or len(rows) != 1:
+        rows = enqueued(label, fn)
+        if [c for n, c in rows if "decode_kernel" in n] != [1] or len(rows) != 1:
             raise AssertionError(f"{label} launched more than the decode kernel: {rows}")
     # K12d at [4f]'s chunk, bf16 and int8: the prefill kernel once and nothing
     # else (the scales fold inside it, it zeroes the rows past the requests)
@@ -1968,11 +1964,11 @@ def decode_kernels_only(gen):
     for kind in ("bf16", "int8"):
         kp, vp, psc = attn_caches(gen, 2 * GPT_CHUNK // 16, hkv, d, kind)
         args = (qp, kp, vp, None, seq, bt[:1], pctx, d ** -0.5, 0, hq, hkv)
-        kinds[kind] = [(n, c) for n, _, c in launched(
+        kinds[kind] = enqueued(
             f"attention_sinks_prefill_pallas, {kind} cache",
-            lambda: sa.attention_sinks_prefill_pallas(*args, max_q=GPT_CHUNK, **psc))]
+            lambda: sa.attention_sinks_prefill_pallas(*args, max_q=GPT_CHUNK, **psc))
     for kind, rows in kinds.items():
-        if len(rows) != 1 or "pre::prefill_kernel" not in rows[0][0] or rows[0][1] != 1:
+        if len(rows) != 1 or not has_symbol(rows[0][0], "pre::prefill_kernel") or rows[0][1] != 1:
             raise AssertionError(f"a {kind} K12d call launched more than the prefill kernel: "
                                  f"{rows}")
 
@@ -2076,6 +2072,38 @@ def lora_close(label, got, want, dead):
     return err
 
 
+def has_symbol(name: str, qual: str) -> bool:
+    """Whether a kernel's name, demangled or mangled, holds ``qual``
+    (``"ns::kernel"``; mangled as ``2ns6kernel``)."""
+    return qual in name or "".join(f"{len(p)}{p}" for p in qual.split("::")) in name
+
+
+def enqueued(label, fn):
+    """The device work of one ``fn()`` as ``[(name, count)]``, from a CUDA
+    graph capture of it (``trace_profile.graph_kernels``): every kernel,
+    copy and fill it enqueues.  A ``torch.profiler`` trace is not used for
+    these checks: on the H100 machines it at times recorded none, or only
+    some, of a call's kernels."""
+    rows = trace_profile.graph_kernels(fn)
+    log(f"    {label} enqueues {[(n[:60], c) for n, c in rows]}")
+    return rows
+
+
+def lora_launches(label, fn, got):
+    """K13a / K13b: two CUDA kernels a call, the shrink and the expand once
+    each, and nothing else on the device (no scratch fill, no prefix sum),
+    and a second call bit-identical to ``got``."""
+    rows = enqueued(label, fn)
+    again = fn()
+    torch.cuda.synchronize()
+    same = torch.equal(got, again)
+    log(f"    a second call bit-identical: {same}")
+    kinds = sorted((has_symbol(n, "lora::shrink_kernel") + 2 * has_symbol(n, "lora::expand_kernel"),
+                    c) for n, c in rows)
+    if kinds != [(1, 1), (2, 1)] or not same:
+        raise AssertionError(f"{label}: {rows} a call, bit-identical {same}")
+
+
 def lora_bound(x, n_live_rows, ranks_read, d):
     """The least time for a LoRA delta: x read, each adapter a live row uses
     read once (its live ranks' A rows and B columns), f32 out written; 2 r
@@ -2104,6 +2132,7 @@ def check_bgmv(gen, t, n_adapters, timed, out_of_range=False):
     got, want = fn(), plain()
     torch.cuda.synchronize()
     err = lora_close(label, got, want, dead)
+    lora_launches(label, fn, got)
     if not timed:
         return None
     r = dict(err=err, ms=time_ms(fn, 50), plain_ms=time_ms(plain, 10), library_ms=None)
@@ -2141,6 +2170,7 @@ def check_sgmv(gen):
     label = (f"sgmv_fused S {GPT_CHUNK}, sequences {SGMV_LENS} under adapters {SGMV_IDS}, ranks "
              f"{SGMV_RANKS}, scalings {SGMV_SCALINGS}")
     err = lora_close(label, got, want, torch.arange(GPT_CHUNK, device=DEV) >= sum(SGMV_LENS))
+    lora_launches(label, fn, got)
     r = dict(err=err, ms=time_ms(fn, 50), plain_ms=time_ms(plain, 10), library_ms=None)
     live = [(SGMV_RANKS[a], n) for a, n in zip(SGMV_IDS, SGMV_LENS) if n]
     r["bound_ms"], r["bound_by"] = lora_bound(args[0], live, [r_ for r_, _ in live], NORM_HIDDEN)
@@ -3227,38 +3257,68 @@ def deep_routing(gen, n_tok):
     return idx, w / w.sum(-1, keepdim=True)
 
 
-def check_fused_full(gen, group, moe, n_tok, timed):
+def digest(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bits."""
+    raw = t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    return hashlib.sha256(raw).hexdigest()[:16]
+
+
+def fused_full_walk(buf, x, idx, w, moe, pack_tn=None):
+    """K16b's tiled walk (``fused_full.fused_deep_moe_full_tiled_plain``) on
+    the card, on the kernel path's wire quant and layout: its operations
+    are the kernel's, so the kernel must equal it bit for bit."""
+    seg = max(buf.config.num_max_dispatch_tokens_per_rank, x.shape[0])
+    _, lay = fused_full.full_layout(idx, group=buf.group, num_experts=buf.num_experts,
+                                    num_ranks=1, seg_capacity=seg)
+    return fused_full.fused_deep_moe_full_tiled_plain(*quant.wire_quant(x), w, *moe, lay,
+                                                      tn=pack_tn, group=buf.group)
+
+
+def check_fused_full(gen, group, moe, n_tok, timed, walk=False):
     """K16b on one layer's experts at ``n_tok`` tokens of random top-8
     routing, against its plain version (counts and drops exact, ``combined``
     within ``EP_DEEP_TOL`` of a row's largest |value|) and the unfused
     ``fused_deep_moe`` on the window transport (relative mean difference
-    below ``EP_DEEP_REL_MEAN``).  ``timed``: K16b, its plain version, the
-    unfused form (all its launches) and ``_gmm_moe`` on the same rows; the
-    bound is the touched experts' weights and scales read once, the rows
-    read and the output written once, against the GEMMs' int8 operations."""
+    below ``EP_DEEP_REL_MEAN``); a call on other rows (the other window half)
+    held to its plain version, then the first rows again (the first call's
+    half, two epochs on) bit-identical to the first call; ``walk``: the
+    first call bit-equal to its tiled walk.  ``timed``: K16b, its plain
+    version, the unfused form (all its launches) and ``_gmm_moe`` on the
+    same rows; the bound is the touched experts' weights and scales read
+    once, the rows read and the output written once, against the GEMMs'
+    int8 operations."""
     x = randn(gen, (n_tok, CFG.hidden))
     idx, w = deep_routing(gen, n_tok)
     buf = Buffer(group, CFG.num_experts, EPConfig(comm_backend="pallas_ragged"))
     got, cnt, drop = buf.fused_deep_moe(x, idx, w, *moe, single_kernel=True)
     want, wcnt, wdrop = buf.fused_deep_moe(x, idx, w, *moe, single_kernel=True, plain=True)
     unf, ucnt, udrop = buf.fused_deep_moe(x, idx, w, *moe)
+    x2 = randn(gen, (n_tok, CFG.hidden))
+    idx2, w2 = deep_routing(gen, n_tok)
+    other = buf.fused_deep_moe(x2, idx2, w2, *moe, single_kernel=True)[0]
+    other_p = buf.fused_deep_moe(x2, idx2, w2, *moe, single_kernel=True, plain=True)[0]
+    again = buf.fused_deep_moe(x, idx, w, *moe, single_kernel=True)[0]
+    bit = torch.equal(got, fused_full_walk(buf, x, idx, w, moe)) if walk else None
     torch.cuda.synchronize()
-    err = float(((got.float() - want.float()).abs().amax(-1)
-                 / want.float().abs().amax(-1)).max())
+    row_err = lambda a, b: float(((a.float() - b.float()).abs().amax(-1)  # noqa: E731
+                                  / b.float().abs().amax(-1)).max())
+    err, err_o = row_err(got, want), row_err(other, other_p)
     rel = float((got.float() - unf.float()).abs().mean() / unf.float().abs().mean())
     touched = int((cnt > 0).sum())
     exact = torch.equal(cnt, wcnt) and torch.equal(cnt, ucnt)
+    same = torch.equal(got, again)
     log(f"  fused_deep_moe_full_rank {n_tok} tokens x top-8 over {touched} experts: vs plain "
         f"max row rel err {err:.3e} (tol {EP_DEEP_TOL}); vs unfused rel mean diff {rel:.3e} "
         f"(tol {EP_DEEP_REL_MEAN}); counts exact {exact}, drops {int(drop)}/{int(wdrop)}/"
-        f"{int(udrop)}")
-    if not (err <= EP_DEEP_TOL and rel < EP_DEEP_REL_MEAN and exact
-            and int(drop) == int(wdrop) == int(udrop) == 0
+        f"{int(udrop)}; other rows vs plain {err_o:.3e}, the first rows again bit-identical "
+        f"{same}; bit-equal to its tiled walk {bit}; digest {digest(got)}")
+    if not (err <= EP_DEEP_TOL and err_o <= EP_DEEP_TOL and rel < EP_DEEP_REL_MEAN and exact
+            and same and bit is not False and int(drop) == int(wdrop) == int(udrop) == 0
             and bool(torch.isfinite(got.float()).all())):
         raise AssertionError(f"fused_deep_moe_full_rank is wrong at {n_tok} tokens")
     if not timed:
         return None
-    w1, s1, w2, s2 = moe
+    w1, s1, w2_, s2 = moe
     h, n1 = w1.shape[1], w1.shape[2]
     i = n1 // 2
     rows = int(cnt.sum())
@@ -3269,11 +3329,11 @@ def check_fused_full(gen, group, moe, n_tok, timed):
     res["bound_ms"], res["bound_by"] = bound(
         touched * (h * n1 + i * h + 4 * (n1 + h)) + n_tok * h * 2 * 2,
         2 * rows * (h * n1 + i * h), INT8_OPS)
-    unf_ms = time_ms(lambda: buf.fused_deep_moe(x, idx, w, *moe), 5)
-    gmm_ms = time_ms(lambda: m._gmm_moe(CFG, moe, x, idx, w), 5)
+    res["unfused_ms"] = time_ms(lambda: buf.fused_deep_moe(x, idx, w, *moe), 5)
+    res["gmm_moe_ms"] = time_ms(lambda: m._gmm_moe(CFG, moe, x, idx, w), 5)
     log(f"    {res['ms']:.4f} ms (plain {res['plain_ms']:.4f}; unfused fused_deep_moe "
-        f"{unf_ms:.4f}; single-GPU _gmm_moe {gmm_ms:.4f}; bound {res['bound_ms']:.4f} "
-        f"{res['bound_by']}: {touched} experts' weights read once)")
+        f"{res['unfused_ms']:.4f}; single-GPU _gmm_moe {res['gmm_moe_ms']:.4f}; bound "
+        f"{res['bound_ms']:.4f} {res['bound_by']}: {touched} experts' weights read once)")
     return res
 
 
@@ -3300,8 +3360,9 @@ def deepseek_ep_phase(params, moe, mla_wq, eng_q):
     del big
     k15c = check_monitored(gen, group, rows_chunk, CFG.hidden)
     k16 = {}
-    for n_tok in (MAX_BATCH, 512, LONG_CHUNK):
-        k16[n_tok] = check_fused_full(gen, group, moe[0], n_tok, True)
+    for n_tok in (MAX_BATCH, PREFILL_CHUNK, 512, LONG_CHUNK):
+        k16[n_tok] = check_fused_full(gen, group, moe[0], n_tok, True,
+                                      walk=n_tok <= PREFILL_CHUNK)
 
     log(f"  serve [4]'s prompts: Engine + deepseek_adapter(moe_weights_q=..., mla_wq=..., "
         f"ep_buffer=Buffer(<one-rank NCCL group>, {CFG.num_experts}, "
@@ -3727,8 +3788,11 @@ def check_narrow_moe(gen, group, moe, moe_n, n_tok):
     and ``"pallas_ragged"`` transports: K8a ``dequant_swiglu`` once and
     ``dequant`` once a call (counts reset just before, read just after), no
     drop; held to the full-width call on the same quantized weights and to
-    ``plain=True`` (relative mean below ``EP_DEEP_REL_MEAN``);
-    ``single_kernel=True`` raises.  Returns the summed counts."""
+    ``plain=True`` (relative mean below ``EP_DEEP_REL_MEAN``).  Then
+    ``single_kernel=True`` at the same packing: K16b once a call, K8a never,
+    held to the unfused call (``EP_DEEP_REL_MEAN``), to its plain version
+    (``EP_DEEP_TOL`` of a row's largest) and, at 8 tokens, bit-equal to its
+    tiled walk.  Returns the summed counts."""
     x = randn(gen, (n_tok, CFG.hidden))
     idx, w = deep_routing(gen, n_tok)
     total = {}
@@ -3757,12 +3821,29 @@ def check_narrow_moe(gen, group, moe, moe_n, n_tok):
         if not (rel_f < EP_DEEP_REL_MEAN and rel_p < EP_DEEP_REL_MEAN and torch.equal(cnt, fcnt)
                 and torch.equal(cnt, pcnt)):
             raise AssertionError(f"the narrow packing disagrees on {backend!r} at {n_tok} tokens")
-    try:
-        buf.fused_deep_moe(x, idx, w, *moe_n, pack_tn=PACK_TN, single_kernel=True)
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("single_kernel=True took a narrow packing")
+    counters.reset()
+    single, scnt, sdrop = buf.fused_deep_moe(x, idx, w, *moe_n, pack_tn=PACK_TN,
+                                             single_kernel=True)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    want_l = {"fused_deep_moe_full_rank": 1, "grouped_matmul": 0}
+    splain = buf.fused_deep_moe(x, idx, w, *moe_n, pack_tn=PACK_TN, single_kernel=True,
+                                plain=True)[0]
+    bit = None
+    if n_tok == MAX_BATCH:
+        bit = torch.equal(single, fused_full_walk(buf, x, idx, w, moe_n, PACK_TN))
+    torch.cuda.synchronize()
+    rel_u = float((single.float() - got.float()).abs().mean() / got.float().abs().mean())
+    err_p = float(((single.float() - splain.float()).abs().amax(-1)
+                   / splain.float().abs().amax(-1)).max())
+    log(f"  Buffer.fused_deep_moe(pack_tn={PACK_TN}, single_kernel=True), {n_tok} tokens: vs the "
+        f"unfused call {rel_u:.3e} (rel mean, tol {EP_DEEP_REL_MEAN}), vs its plain version "
+        f"{err_p:.3e} (tol {EP_DEEP_TOL}); counts exact {torch.equal(scnt, cnt)}; bit-equal to "
+        f"its tiled walk {bit}; launches {json.dumps({k_: launches[k_] for k_ in want_l})}")
+    if not (rel_u < EP_DEEP_REL_MEAN and err_p <= EP_DEEP_TOL and torch.equal(scnt, cnt)
+            and int(sdrop) == 0 and bit is not False
+            and all(launches[k_] == v for k_, v in want_l.items())):
+        raise AssertionError(f"K16b at the narrow packing disagrees at {n_tok} tokens")
     return total
 
 
@@ -3931,10 +4012,9 @@ def dispatch_routes_phase(moe):
     launches_ops = op_modes(gen, moe0)
     disp_l = {}
     for n_tok in (MAX_BATCH, PREFILL_CHUNK, 512):
-        k8d, k8b, lc = check_dispatch_branch(gen, moe0, n_tok, n_tok in (MAX_BATCH, 512))
+        k8d, k8b, lc = check_dispatch_branch(gen, moe0, n_tok, True)
         disp_l = {k_: disp_l.get(k_, 0) + v for k_, v in lc.items()}
-        if k8b is not None:
-            kept = (k8d, k8b)                          # the last timed: 512 tokens
+        kept = (k8d, k8b)                              # the last: 512 tokens
     narrow_l = {}
     for n_tok in (MAX_BATCH, 512, LONG_CHUNK):
         lc = check_narrow_moe(gen, group, moe0, moe_n, n_tok)

@@ -1,14 +1,13 @@
 // The W8A8 tile of the grouped expert GEMMs on mma.sync.m16n8k32 (s8 x s8 ->
 // s32), shared by the first pass of grouped_matmul_combine (K8b,
-// grouped_matmul.cu's dequant_rows_kernel), the fused MoE (K16b,
-// fused_full.cu) and the fused dispatch + GEMM1 (K16a, fused_kernel.cu).  K8a
-// itself runs an s8 wgmma kernel of its own (grouped_matmul.cu) with the
-// same column tiles and epilogues.  The design: 64 sorted rows of one group x
-// one column tile of 128 columns ("dequant") or 64 gate and the 64 matching
-// up columns (SwiGLU), 256 threads, 8 warps of 32 rows x 32 columns, 128
-// bytes of K a stage, the next stage's global loads in registers while the
-// current one computes, weight bytes transposed in registers for the B
-// fragments.
+// grouped_matmul.cu's dequant_rows_kernel) and the fused dispatch + GEMM1
+// (K16a, fused_kernel.cu).  K8a's int8 modes and the fused MoE (K16b) run the
+// int8 ring of gmm_int8_ring.cuh with the same column tiles and epilogues.
+// The design: 64 sorted rows of one group x one column tile of 128 columns
+// ("dequant") or 64 gate and the 64 matching up columns (SwiGLU), 256
+// threads, 8 warps of 32 rows x 32 columns, 128 bytes of K a stage, the next
+// stage's global loads in registers while the current one computes, weight
+// bytes transposed in registers for the B fragments.
 #pragma once
 
 #include "gmm_common.cuh"
@@ -105,7 +104,7 @@ __device__ __forceinline__ int find_group(const int* __restrict__ tile_off, int 
 }
 
 // x rows: __ldg (read-only for the kernel: K8a) or ld.global.cg (written by
-// other blocks or peers while the kernel runs: K16b's window and scratch).
+// other blocks or peers while the kernel runs: K16a's window).
 template <bool RO, class T>
 __device__ __forceinline__ T load_x(const T* p) {
   if (RO) return __ldg(p);

@@ -28,52 +28,11 @@
 // one stage of weights in registers with a round trip to HBM a stage (43 % of
 // the bytes bound at the shape above); here a block keeps several stages of
 // weights in flight through TMA and multiplies on wgmma, as the bf16 modes
-// do.  A block owns (work item, column tile): an item is up to QM = 128
-// sorted rows of one group, aligned to the group's first row (the wrapper's
-// tile offsets of 128-row items), so a group of up to 128 rows streams its
-// weights once; a column tile is 128 columns: 128 consecutive ones
-// ("dequant", "none"), or 64 gate columns and the 64 matching up columns
-// (the SwiGLU modes: in a packing of width tn, output column j pairs gate
-// column (j / (tn/2)) tn + j % (tn/2) with the up column tn/2 further,
-// gmm_tile.cuh gate_col), so that SwiGLU pairs within a thread; the group is
-// found on the device (no host sync); two blocks an SM.  s8 wgmma reads both
-// operands K-major only, and the weights are [G, K, N] with N contiguous (the
-// layout the ring GEMMs and the fused MoE read; a second, transposed copy
-// would be 11 GB more at DeepSeek-V3), so:
-//   Loads (warps 8 and 9): one lane issues each stage of 128 k as TMA boxes
-//     of the weights, [128 k][run columns] without swizzle (run = 128 for
-//     "dequant"; the SwiGLU halves as boxes of 64, 32 or 16 columns, the
-//     widest that divides the pack's half width: every box is contiguous in
-//     N) into a landing ring of QRAW stages, and the item's x rows, [128
-//     rows][128 k] in the 128-byte swizzle (K-major A), into a ring of QSX
-//     stages, QSX - 1 stages ahead; with dispatch_p the two warps gather the
-//     x rows by cp.async into the same swizzle (a row map TMA cannot
-//     follow).  The two warps transpose each landed stage into the K-major
-//     [128 columns][128 k] weight stage in the 128-byte swizzle, 16 k-rows x
-//     4 columns a lane at a time (16 word loads, four 4 x 4 byte transposes
-//     by __byte_perm, four 16-byte stores), the lanes spread so that neither
-//     the loads nor the stores of a warp meet on a bank (transpose_stage).
-//     rhs_contract_last's [G, N, K] is K-major already: its boxes land in
-//     the weight stage as they are.  Columns and k past the edges read as
-//     zeros.  Shared memory goes to the bytes in flight (three stages of x,
-//     three landed): one transposed weight stage keeps up, since a stage's
-//     products and its transpose take a fraction of the time its bytes take
-//     to stream (2 x / 1 weight / 4 landed and 2 / 2 / 3 were no faster).
-//   Products (warpgroups 0 and 1): 64 rows each (the second only for items
-//     above 64 rows), wgmma m64n128k32 s8 into 64 s32 accumulators a
-//     thread; each stage's x and weights released when its products are
-//     done.
-//   Epilogues keep JAX's order: the int32 sum (exact; JAX sums k-tile
-//   partials in f32) to f32, x scale_x[row], x scale_w[g, col], then SwiGLU
-//   in f32 and the output cast; or, requantized, the activation to an f32
-//   scratch and its |max| to a per-row atomicMax on the float bits
-//   (non-negative floats order as unsigned ints: exact and deterministic),
-//   and a second pass requantizes each row (gmm_common.cuh, the ring GEMM1's
-//   pass).  A block never writes rows of its item outside its group; the
-//   items past the last one zero the rows past the groups' total (the
-//   requant pass does it in the dequant_swiglu_quant mode).  The same
-//   operations as the earlier 64-row tile (gmm_tile.cuh, which K8b's first
-//   pass, K16a and K16b keep): every output is bit-identical to it.
+// do: the int8 ring of gmm_int8_ring.cuh, which the fused MoE (K16b,
+// fused_full.cu) runs too.  A block owns one work unit (work item, column
+// tile), two blocks an SM; its group is found on the device (no host sync).
+// The items past the last one zero the rows past the groups' total (the
+// requant pass does it in the dequant_swiglu_quant mode).
 // With dispatch_p a prologue finds each row's token from its row of P (the
 // column of its nonzero; none: a zero row), and the item loads x[token]: the
 // same rows as P @ x for a one-hot or zero P, without the product.  The
@@ -81,8 +40,7 @@
 // other than 1), and the wrapper refuses such a P.
 #include <string.h>
 
-#include "gmm_tile.cuh"
-#include "wgmma.cuh"
+#include "gmm_int8_ring.cuh"
 
 namespace k8 {
 
@@ -352,83 +310,13 @@ __global__ void __launch_bounds__(WTHREADS, WBLOCKS)
 
 // ---------------------------------------------------------------------------
 // int8 rows x int8 weights on s8 wgmma (the int8 modes; the design is in the
-// header comment).
-constexpr int QM = 128;                         // rows of an int8 work item
-constexpr int QN = 128;                         // columns of a block
-constexpr int QK = 128;                         // k bytes of a stage
-constexpr int QSX = 3;                          // x rows, 128 x 128 k
-constexpr int QSW = 1;                          // K-major weights, 128 columns x 128 k
-constexpr int QRAW = 3;                         // landed [k][n] weights
-constexpr int QCONSUMERS = 256;                 // warpgroups 0 and 1 compute,
-constexpr int QPRODUCERS = 64;                  // warps 8 and 9 load and transpose
-constexpr int QTHREADS = QCONSUMERS + QPRODUCERS;
-constexpr uint32_t QX = QM * QK;                // a stage's x rows, 1024-aligned
-constexpr uint32_t QW = QN * QK;                // a stage's weights
-constexpr uint32_t QW_OFF = QSX * QX;                   // [QSW] K-major weights
-constexpr uint32_t QRAW_OFF = QW_OFF + QSW * QW;        // [QRAW] landed weights
-constexpr uint32_t QSRC_OFF = QRAW_OFF + QRAW * QW;     // [QM] source row (-1 zero)
-constexpr uint32_t QITEM_OFF = QSRC_OFF + QM * 4;       // group, first row, rows
-// xfull[QSX], xempty[QSX], wfull[QSW], wempty[QSW], landed[QRAW]
-constexpr uint32_t QBARS_OFF = QITEM_OFF + 16;
-constexpr uint32_t QSMEM = QBARS_OFF + (2 * QSX + 2 * QSW + QRAW) * 8;
-static_assert(2 * (QSMEM + 1024) <= 233472, "K8a int8's blocks exceed an SM's shared memory");
-
-// The landed weights [k][columns], boxes of `run` columns ([128 k][run] each,
-// without swizzle) -> the stage's K-major [128 columns][128 k] in the 128-byte
-// swizzle, by the producer warp pw and lane.  A unit is 16 k-rows x 4
-// columns: 16 words in, four 4 x 4 byte transposes (__byte_perm), 4 rows of
-// 16 bytes out.  Lane l takes columns 4 l .. 4 l + 3 and the k-blocks kb = l
-// ^ 4 (l % 2) ^ t, so that a warp's loads touch 32 banks and each quarter
-// warp's 16-byte stores 8 distinct ones; in narrow boxes a lane reads its
-// rows in the order j ^ g within each quad (g its box's rank, 2 bits) so that
-// lanes of different boxes meet other banks (boxes of 16 columns: 2 lanes a
-// bank), and its transposes take the rows back in order.
-__device__ __forceinline__ void transpose_stage(const unsigned char* raw, unsigned char* ws,
-                                                int run, int pw, int lane) {
-  const int c0 = 4 * lane;                       // this lane's 4 columns
-  const unsigned char* col = raw + (c0 / run) * run * QK + c0 % run;
-  const int g = (lane / (run / 4)) & 3;
-  const uint32_t s_lo = (g & 1) ? 0x1504u : 0x5140u, s_hi = (g & 1) ? 0x3726u : 0x7362u;
-#pragma unroll 1
-  for (int t = pw; t < 8; t += QPRODUCERS / 32) {
-    const int kb = (lane ^ (4 * (lane & 1)) ^ t) & 7;
-    uint32_t v[16];
-#pragma unroll
-    for (int r = 0; r < 16; ++r)
-      v[r] = *reinterpret_cast<const uint32_t*>(col + (16 * kb + (r ^ g)) * run);
-    uint32_t o[4][4];                            // o[quad][column]: 4 k bytes of a column
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      // v[4 q + j] is row 4 q + (j ^ g): pair A (j = 0, 1), pair B (j = 2, 3)
-      const uint32_t lo_a = __byte_perm(v[4 * q], v[4 * q + 1], s_lo);
-      const uint32_t hi_a = __byte_perm(v[4 * q], v[4 * q + 1], s_hi);
-      const uint32_t lo_b = __byte_perm(v[4 * q + 2], v[4 * q + 3], s_lo);
-      const uint32_t hi_b = __byte_perm(v[4 * q + 2], v[4 * q + 3], s_hi);
-      const uint32_t lo01 = (g & 2) ? lo_b : lo_a, lo23 = (g & 2) ? lo_a : lo_b;
-      const uint32_t hi01 = (g & 2) ? hi_b : hi_a, hi23 = (g & 2) ? hi_a : hi_b;
-      o[q][0] = __byte_perm(lo01, lo23, 0x5410);
-      o[q][1] = __byte_perm(lo01, lo23, 0x7632);
-      o[q][2] = __byte_perm(hi01, hi23, 0x5410);
-      o[q][3] = __byte_perm(hi01, hi23, 0x7632);
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = c0 + c;
-      *reinterpret_cast<uint4*>(ws + n * QK + ((kb ^ (n & 7)) << 4)) =
-          make_uint4(o[0][c], o[1][c], o[2][c], o[3][c]);
-    }
-  }
-}
-
-// x [S, K] int8 rows grouped by expert (row r reads x[xrow[r]] where xrow is
-// given; else xmap, x as (K, S), boxes of 128 k x 64 rows in the 128-byte
-// swizzle), wmap the weights ([G, K, N] as (N, K, G), boxes of run x 128 x 1
-// without swizzle; CL: [G, N, K] as (K, N, G), boxes of 128 x 128 x 1 in the
-// 128-byte swizzle), offsets / tile_off [G + 1] (row offsets, prefix sums of
-// ceil(size / QM)), sx [S] and sw [G, N] (null: unscaled, the "none"
-// epilogue).  "dequant": out [S, N]; kSwiGLUOut: out [S, N / 2] from the
-// packing of half width ht; kSwiGLU: act [S, N / 2] f32 scratch and amax [S]
-// (zeroed) for the requant pass.
+// header comment and gmm_int8_ring.cuh): one work unit a block.  x [S, K]
+// int8 rows grouped by expert (row r reads x[xrow[r]] where xrow is given;
+// else xmap), wmap the weights (int8_ring), offsets / tile_off [G + 1] (row
+// offsets, prefix sums of ceil(size / QM)), sx [S] and sw [G, N] (null:
+// unscaled, the "none" epilogue).  "dequant": out [S, N]; kSwiGLUOut: out [S,
+// N / 2] from the packing of half width ht; kSwiGLU: act [S, N / 2] f32
+// scratch and amax [S] (zeroed) for the requant pass.
 template <int EPI, bool CL, class OutT>
 __global__ void __launch_bounds__(QTHREADS, 2)
     gmm_int8_kernel(const int8_t* __restrict__ x, const int* __restrict__ xrow,
@@ -439,13 +327,7 @@ __global__ void __launch_bounds__(QTHREADS, 2)
                     OutT* __restrict__ out, float* __restrict__ act,
                     unsigned* __restrict__ amax) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  int* src_s = reinterpret_cast<int*>(smem + QSRC_OFF);
   int* item_s = reinterpret_cast<int*>(smem + QITEM_OFF);
-  uint64_t* xfull = reinterpret_cast<uint64_t*>(smem + QBARS_OFF);
-  uint64_t* xempty = xfull + QSX;
-  uint64_t* wfull = xempty + QSX;
-  uint64_t* wempty = wfull + QSW;
-  uint64_t* landed = wempty + QSW;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bx = blockIdx.x, item = blockIdx.y;
   const int n_items = tile_off[groups];
@@ -468,169 +350,17 @@ __global__ void __launch_bounds__(QTHREADS, 2)
       item_s[2] = min(min(r0 + QM, offsets[below + 1]), S) - r0;
     }
   }
+  if (tid == 0) ring_init(smem);
   __syncthreads();
-  const int g = item_s[0], r0 = item_s[1], rows = item_s[2];
-  if (rows <= 0) return;
-  const int active = rows > 64 ? 2 : 1;         // computing warpgroups with live rows
-  const int nk = (K + QK - 1) / QK;
-  if (xrow != nullptr && tid < rows) src_s[tid] = xrow[r0 + tid];
-  if (tid == 0) {
-    for (int i = 0; i < QSX; ++i) {
-      wg::mbar_init(&xfull[i], QPRODUCERS);     // each producer thread once
-      wg::mbar_init(&xempty[i], 4 * active);    // each computing warp once
-    }
-    for (int i = 0; i < QSW; ++i) {
-      wg::mbar_init(&wfull[i], QPRODUCERS);
-      wg::mbar_init(&wempty[i], 4 * active);
-    }
-    for (int i = 0; i < QRAW; ++i) wg::mbar_init(&landed[i], 1);
-  }
-  __syncthreads();
-
-  if (warp >= QCONSUMERS / 32) {  // the producer warps
-    const int ptid = tid - QCONSUMERS, pw = ptid >> 5;
-    unsigned char* raw = smem + QRAW_OFF;
-    const CUtensorMap *wm = &wmap, *xm = &xmap;
-    auto land = [&](int it) {      // stage it's weights into landing slot it % QRAW
-      uint64_t* bar = &landed[it % QRAW];
-      unsigned char* dst = raw + (it % QRAW) * QW;
-      const int k0 = it * QK;
-      wg::mbar_expect_tx(bar, QW);
-      if (EPI == kDequant) {
-        wg::tma_load_3d(dst, wm, bx * QN, k0, g, bar);
-      } else {
-        for (int c = 0; c < QN / 2; c += run) {  // gate columns c .. c + run, then up
-          const int gc = gate_col(bx * (QN / 2) + c, ht);
-          wg::tma_load_3d(dst + c * QK, wm, gc, k0, g, bar);
-          wg::tma_load_3d(dst + (QN / 2 + c) * QK, wm, gc + ht, k0, g, bar);
-        }
-      }
-      wg::mbar_arrive(bar);
-    };
-    auto load_x = [&](int it) {    // stage it's x rows into slot it % QSX
-      uint64_t* bar = &xfull[it % QSX];
-      unsigned char* xs = smem + (it % QSX) * QX;
-      const int k0 = it * QK;
-      if (xrow == nullptr) {
-        if (ptid == 0) {
-          wg::mbar_expect_tx(bar, active * 64 * QK);
-          for (int h = 0; h < active; ++h)
-            wg::tma_load_2d(xs + h * 64 * QK, xm, k0, r0 + 64 * h, bar);
-        }
-      } else {  // 16-byte pieces swizzled as TMA would (K % 16 == 0)
-        for (int e = ptid; e < rows * (QK / 16); e += QPRODUCERS) {
-          const int r = e >> 3, pc = e & 7, kk = k0 + 16 * pc, sr = src_s[r];
-          const bool live = sr >= 0 && kk < K;
-          wg::cp_async16(xs + r * QK + ((pc ^ (r & 7)) << 4), live ? x + (size_t)sr * K + kk : x,
-                         live ? 16 : 0);
-        }
-      }
-      wg::mbar_arrive_cp_async(bar);           // when this thread's x pieces land
-    };
-    if (!CL && ptid == 0)
-      for (int it = 0; it < QRAW && it < nk; ++it) land(it);
-    for (int it = 0; it < QSX && it < nk; ++it) load_x(it);
-    for (int it = 0; it < nk; ++it) {
-      const int ws = it % QSW;
-      unsigned char* wst = smem + QW_OFF + ws * QW;
-      if (it >= QSW) wg::mbar_wait(&wempty[ws], (it / QSW - 1) & 1);
-      if (CL) {
-        if (ptid == 0) {
-          wg::mbar_expect_tx(&wfull[ws], QW);
-          wg::tma_load_3d(wst, wm, it * QK, bx * QN, g, &wfull[ws]);
-        }
-        wg::mbar_arrive(&wfull[ws]);
-      } else {
-        wg::mbar_wait(&landed[it % QRAW], (it / QRAW) & 1);
-        transpose_stage(raw + (it % QRAW) * QW, wst, EPI == kDequant ? QN : run, pw, lane);
-        wg::fence_proxy();
-        wg::mbar_arrive(&wfull[ws]);
-        wg::bar_sync(1, QPRODUCERS);           // both warps are done with the landing slot
-        if (ptid == 0 && it + QRAW < nk) land(it + QRAW);
-      }
-      // x rows QSX - 1 stages ahead, into the slot that stage it - 1 frees
-      if (it >= 1 && it - 1 + QSX < nk) {
-        wg::mbar_wait(&xempty[(it - 1) % QSX], ((it - 1) / QSX) & 1);
-        load_x(it - 1 + QSX);
-      }
-    }
-    return;
-  }
-
-  const int wgi = tid >> 7;
-  if (wgi >= active) return;
-  int acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0;
-  for (int it = 0; it < nk; ++it) {
-    const unsigned char* xs = smem + (it % QSX) * QX;
-    const unsigned char* wst = smem + QW_OFF + (it % QSW) * QW;
-    wg::mbar_wait(&xfull[it % QSX], (it / QSX) & 1);
-    wg::mbar_wait(&wfull[it % QSW], (it / QSW) & 1);
-    wg::fence_proxy();                         // pieces by cp.async and the transposed stores
-    wg::fence_operands(acc);
-    wg::fence();
-#pragma unroll
-    for (int ks = 0; ks < QK / 32; ++ks)
-      wg::mma_s8_m64n128k32(acc, wg::desc_sw128(xs + wgi * 64 * QK + ks * 32, 16, 1024),
-                            wg::desc_sw128(wst + ks * 32, 16, 1024));
-    wg::commit();
-    wg::wait_all();                            // this stage's products are done: free it
-    wg::fence_operands(acc);
-    __syncwarp();
-    if (lane == 0) {
-      wg::mbar_arrive(&xempty[it % QSX]);
-      wg::mbar_arrive(&wempty[it % QSW]);
-    }
-  }
-
-  // acc[4 i + 2 h + e]: row 16 (warp % 4) + lane / 4 + 8 h of the warpgroup's
-  // 64, column 8 i + 2 (lane % 4) + e of the tile (SwiGLU: gate columns i < 8,
-  // their up columns i + 8)
-  const int wq = warp & 3, g8 = lane >> 2, t4 = lane & 3;
-  const float* swg = sw ? sw + (size_t)g * N : nullptr;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = 64 * wgi + 16 * wq + g8 + 8 * h;
-    const bool live = r < rows;
-    const int row = r0 + r;
-    const float sxr = live ? (sx ? sx[row] : 1.f) : 0.f;
-    if (EPI == kDequant) {
-      if (!live) continue;
-#pragma unroll
-      for (int i = 0; i < QN / 8; ++i) {
-        const int col = bx * QN + 8 * i + 2 * t4;
-        if (col >= N) continue;
-        const float sw0 = swg ? swg[col] : 1.f, sw1 = swg ? swg[col + 1] : 1.f;
-        store_pair(out, (size_t)row * N + col, __int2float_rn(acc[4 * i + 2 * h]) * sxr * sw0,
-                   __int2float_rn(acc[4 * i + 2 * h + 1]) * sxr * sw1);
-      }
-    } else {
-      const int I = N / 2;
-      float m = 0.f;
-#pragma unroll
-      for (int i = 0; i < QN / 16; ++i) {
-        const int j = bx * (QN / 2) + 8 * i + 2 * t4;
-        if (!live || j >= I) continue;
-        const int gc = gate_col(j, ht);        // j and j + 1 share a slab (ht even)
-        float a2[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float d0 = __int2float_rn(acc[4 * i + 2 * h + e]) * sxr * swg[gc + e];
-          const float d1 = __int2float_rn(acc[4 * (i + 8) + 2 * h + e]) * sxr * swg[gc + ht + e];
-          a2[e] = d0 * (1.f / (1.f + expf(-d0))) * d1;
-          m = fmaxf(m, fabsf(a2[e]));
-        }
-        if (EPI == kSwiGLU) store_pair(act, (size_t)row * I + j, a2[0], a2[1]);
-        else store_pair(out, (size_t)row * I + j, a2[0], a2[1]);
-      }
-      if (EPI == kSwiGLU) {
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-        if (t4 == 0 && live) atomicMax(amax + row, __float_as_uint(m));
-      }
-    }
-  }
+  const Unit unit{item_s[0], item_s[1], item_s[2], bx};
+  if (unit.rows <= 0) return;
+  int8_ring<EPI, CL, true>(
+      smem, 0, 1, [&](int) { return unit; }, &xmap, &wmap, x, xrow, K, N, ht,
+      run, sx, sw,
+      [&](int row, int col, float v0, float v1) {
+        store_pair(out, (size_t)row * n_out + col, v0, v1);
+      },
+      act, amax);
 }
 
 // K8b's mask-product tile (combine_kernel below): stages of 64 k.

@@ -16,14 +16,18 @@
 // same adapter is re-read by every token of its sequence, from L2.
 //
 // Design: two launches, no per-call transpose and no work for other adapters.
+// (One launch, with blocks taking shrink then expand items by an atomic
+// ticket and the expand waiting on the shrink's flags, was measured slower on
+// the H100 at every bgmv shape: the ticket -> shrink -> flag -> expand chain
+// is longer than the gap between two launches.)
 //   shrink: a block per (token, 4 rank components), a warp per component:
 //     the warp's lanes stride over H with 16-byte loads of x and of A's row
 //     (both read in their stored layout), sum in f32, scale in f32, mask
 //     components at or above the adapter's rank, and write s [T, R] f32
 //     (which stays in f32, never rounded to x's type) and each token's
 //     adapter (-1 for a dead token: an id outside [0, L), or a row past the
-//     packed sequences).  sgmv finds a row's sequence by a binary search over
-//     the device prefix sum of the sequence lengths (no host sync); a
+//     packed sequences).  sgmv finds a row's sequence by a block-wide scan of
+//     the sequence lengths (no prefix-sum launch, no host sync); a
 //     zero-length sequence owns no row.
 //   expand: a block per (token, 256 output columns), a thread per column:
 //     the token's s in shared memory, the column's R weights read from B's
@@ -68,31 +72,50 @@ __device__ __forceinline__ void load_v(const float* p, float (&f)[V]) {
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// The sequence of packed row t: the first g with ends[g] > t, nseq if none.
-__device__ __forceinline__ int sequence_of(const int* ends, int nseq, int t) {
-  int lo = 0, hi = nseq;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (ends[mid] <= t) lo = mid + 1;
-    else hi = mid;
+// The sequence of packed row t: the number of sequence ends at or below t
+// (nseq if none is above it), the lengths summed a block's width at a time by
+// an inclusive scan.  Every thread of the block calls it and gets the answer.
+__device__ __forceinline__ int sequence_of(const int* lens, int nseq, int t) {
+  constexpr int N = SHRINK_WARPS * 32;
+  __shared__ int warp_total[SHRINK_WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int base = 0, seq = 0;
+  for (int g0 = 0; g0 < nseq && base <= t; g0 += N) {   // base is uniform over the block
+    const int g = g0 + threadIdx.x;
+    int end = g < nseq ? lens[g] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, end, o);
+      if (lane >= o) end += v;
+    }
+    if (lane == 31) warp_total[warp] = end;
+    __syncthreads();
+    int chunk = 0;
+#pragma unroll
+    for (int w = 0; w < SHRINK_WARPS; ++w) {
+      if (w < warp) end += warp_total[w];
+      chunk += warp_total[w];
+    }
+    seq += __syncthreads_count(g < nseq && base + end <= t);   // also: warp_total read
+    base += chunk;
   }
-  return lo;
+  return seq;
 }
 
-// x [T, H] of TX, a [L, R, H] of TW.  bgmv (ends null): ids [T] per token,
-// every component live, scale `scaling`.  sgmv: ids [nseq] per sequence, ends
-// [nseq] the prefix sum of the lengths, ranks [L] int32 and scalings [L] f32
-// per adapter.  -> s [T, R] f32, row_adapter [T] int32 (-1 dead).
+// x [T, H] of TX, a [L, R, H] of TW.  bgmv (lens null): ids [T] per token,
+// every component live, scale `scaling`.  sgmv: ids [nseq] per sequence, lens
+// [nseq] the sequence lengths, ranks [L] int32 and scalings [L] f32 per
+// adapter.  -> s [T, R] f32, row_adapter [T] int32 (-1 dead).
 template <typename TX, typename TW, int V>
 __global__ void __launch_bounds__(SHRINK_WARPS * 32)
     shrink_kernel(const TX* __restrict__ x, const TW* __restrict__ a, const int* __restrict__ ids,
-                  const int* __restrict__ ends, const int* __restrict__ ranks,
+                  const int* __restrict__ lens, const int* __restrict__ ranks,
                   const float* __restrict__ scalings, float scaling, int nseq, int H, int L,
                   int R, float* __restrict__ s, int* __restrict__ row_adapter) {
   const int t = blockIdx.x;
   int adapter;
-  if (ends != nullptr) {
-    const int g = sequence_of(ends, nseq, t);
+  if (lens != nullptr) {
+    const int g = sequence_of(lens, nseq, t);
     adapter = g < nseq ? ids[g] : -1;
   } else {
     adapter = ids[t];
@@ -100,7 +123,7 @@ __global__ void __launch_bounds__(SHRINK_WARPS * 32)
   const bool live = adapter >= 0 && adapter < L;
   int rank = R;
   float scale = scaling;
-  if (live && ends != nullptr) {
+  if (live && lens != nullptr) {
     rank = min(max(ranks[adapter], 0), R);
     scale = scalings[adapter];
   }
@@ -163,17 +186,17 @@ __global__ void __launch_bounds__(EXPAND_THREADS)
 __host__ __forceinline__ bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 template <typename TX, typename TW>
-int shrink(const void* x, const void* a, const int* ids, const int* ends, const int* ranks,
+int shrink(const void* x, const void* a, const int* ids, const int* lens, const int* ranks,
            const float* scalings, float scaling, int nseq, int T, int H, int L, int R, float* s,
            int* row_adapter, cudaStream_t st) {
   const dim3 grid(T, (R + SHRINK_WARPS - 1) / SHRINK_WARPS);
   if (H % 8 == 0 && aligned16(x) && aligned16(a))
     shrink_kernel<TX, TW, 8><<<grid, SHRINK_WARPS * 32, 0, st>>>(
-        (const TX*)x, (const TW*)a, ids, ends, ranks, scalings, scaling, nseq, H, L, R, s,
+        (const TX*)x, (const TW*)a, ids, lens, ranks, scalings, scaling, nseq, H, L, R, s,
         row_adapter);
   else
     shrink_kernel<TX, TW, 1><<<grid, SHRINK_WARPS * 32, 0, st>>>(
-        (const TX*)x, (const TW*)a, ids, ends, ranks, scalings, scaling, nseq, H, L, R, s,
+        (const TX*)x, (const TW*)a, ids, lens, ranks, scalings, scaling, nseq, H, L, R, s,
         row_adapter);
   return (int)cudaGetLastError();
 }
@@ -195,11 +218,11 @@ int expand(const float* s, const int* row_adapter, const void* b, int T, int D, 
 }  // namespace lora
 
 // x [T, H] (bf16 if x_bf16 else f32), a [L, R, H] (bf16 if w_bf16 else f32).
-// bgmv: ids [T] int32, ends / ranks / scalings null, `scaling` for every
-// token.  sgmv: ids [nseq] int32 per sequence, ends [nseq] int32 (prefix sum
-// of the lengths), ranks [L] int32, scalings [L] f32.  -> s [T, R] f32 and
+// bgmv: ids [T] int32, lens / ranks / scalings null, `scaling` for every
+// token.  sgmv: ids [nseq] int32 per sequence, lens [nseq] int32 (the
+// sequence lengths), ranks [L] int32, scalings [L] f32.  -> s [T, R] f32 and
 // row_adapter [T] int32.
-extern "C" int lora_shrink_launch(const void* x, const void* a, const void* ids, const void* ends,
+extern "C" int lora_shrink_launch(const void* x, const void* a, const void* ids, const void* lens,
                                   const void* ranks, const void* scalings, float scaling,
                                   int nseq, int T, int H, int L, int R, int x_bf16, int w_bf16,
                                   void* s, void* row_adapter, void* stream) {
@@ -207,7 +230,7 @@ extern "C" int lora_shrink_launch(const void* x, const void* a, const void* ids,
   cudaStream_t st = (cudaStream_t)stream;
   using bf16 = __nv_bfloat16;
   const int* id = (const int*)ids;
-  const int* en = (const int*)ends;
+  const int* ln = (const int*)lens;
   const int* rk = (const int*)ranks;
   const float* sc = (const float*)scalings;
   float* so = (float*)s;
@@ -215,7 +238,7 @@ extern "C" int lora_shrink_launch(const void* x, const void* a, const void* ids,
   auto run = [&](auto tx, auto tw) {
     using TX = decltype(tx);
     using TW = decltype(tw);
-    return lora::shrink<TX, TW>(x, a, id, en, rk, sc, scaling, nseq, T, H, L, R, so, ra, st);
+    return lora::shrink<TX, TW>(x, a, id, ln, rk, sc, scaling, nseq, T, H, L, R, so, ra, st);
   };
   if (x_bf16) return w_bf16 ? run(bf16(), bf16()) : run(bf16(), 0.f);
   return w_bf16 ? run(0.f, bf16()) : run(0.f, 0.f);

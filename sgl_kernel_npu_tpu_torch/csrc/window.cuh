@@ -100,15 +100,17 @@ __device__ __forceinline__ void copy_bytes(char* dst, const char* src, size_t n,
   }
 }
 
-// Blocks of a co-resident grid of `kernel` at `threads` a block: the SMs
-// times the blocks an SM holds.  A cooperative launch refuses a larger grid,
-// so every block of the kernel is resident and a spinning block never
-// starves an unlaunched sender.
-inline int coop_blocks(const void* kernel, int threads, int max_per_sm) {
+// Blocks of a co-resident grid of `kernel` at `threads` a block and
+// `dyn_smem` bytes of dynamic shared memory a block (a kernel above 48 KB has
+// its cudaFuncAttributeMaxDynamicSharedMemorySize set first): the SMs times
+// the blocks an SM holds.  A cooperative launch refuses a larger grid, so
+// every block of the kernel is resident and a spinning block never starves
+// an unlaunched sender.
+inline int coop_blocks(const void* kernel, int threads, int max_per_sm, size_t dyn_smem = 0) {
   int dev = 0, sms = 0, per = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, threads, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, threads, dyn_smem);
   if (per > max_per_sm) per = max_per_sm;
   return per * sms;
 }

@@ -45,8 +45,8 @@ from sgl_kernel_npu_tpu_torch.utils.common import on_cuda
 from sgl_kernel_npu_tpu_torch.utils.counters import counted, launched
 
 EPILOGUES = ("none", "dequant", "dequant_swiglu", "dequant_swiglu_quant")
-TILE_M = 64   # sorted rows per work item of csrc/gmm_tile.cuh (K8b, K16a, K16b: BM)
-TILE_M_WG = 128   # of K8a's modes (csrc/grouped_matmul.cu QM / WM): two wgmma row tiles
+TILE_M = 64   # sorted rows per work item of csrc/gmm_tile.cuh (K8b, K16a: BM)
+TILE_M_WG = 128   # of K8a's modes and K16b (gmm_int8_ring.cuh QM, grouped_matmul.cu WM)
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}   # csrc OutKind
 _P_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}        # dispatch_rows
 _EPI = {"dequant": 0, "none": 0, "dequant_swiglu_quant": 1, "dequant_swiglu": 2}

@@ -4,7 +4,9 @@ the Hopper kernels (K13a ``bgmv_fused``, K13b ``sgmv_fused``).
 Counterpart of ``sgl_kernel_npu_tpu/ops/lora_pallas.py``.  CUDA tensors
 launch ``csrc/lora.cu`` (a shrink launch into an f32 ``[T, R]`` scratch, then
 an expand launch; the two count once); CPU tensors take
-:func:`bgmv_fused_plain` / :func:`sgmv_fused_plain`.  Each token works with
+:func:`bgmv_fused_plain` / :func:`sgmv_fused_plain`;
+:func:`lora_kernel_order_plain` is the kernels' order of work on the CPU,
+for tests.  Each token works with
 its own adapter only: the TPU kernel's "every adapter for every token, then
 mask" (L times the products, to fill the MXU) is not carried over.  B is
 read in its stored ``[L, D, R]`` layout, or from ``bt [L, R, D]`` when the
@@ -83,7 +85,72 @@ def _check(name, x, a, w, transposed):
                          f"{'bt' if transposed else 'b'} {w.dtype} {tuple(w.shape)}")
 
 
-def _launch(name, x, a, w, transposed, ids, ends, ranks, scalings, scaling):
+LANES = 32   # a shrink warp's lanes, striding over H (csrc/lora.cu)
+
+
+def lora_kernel_order_plain(x, a, w, adapter, rank, scale, *, transposed: bool = False):
+    """K13a / K13b's order of work on the CPU, for tests → ``[T, D]`` f32.
+    ``adapter [T]`` each row's adapter (-1 dead: zeros), ``rank [T]`` its
+    live rank components, ``scale [T]`` its scaling; ``w`` B ``[L, D, R]``
+    or, ``transposed``, ``bt [L, R, D]``.  The shrink: a row's component is
+    a warp's, lane ``l`` summing elements ``l V + 32 V k + i`` (``V`` 8 when
+    H is a multiple of 8, else 1) in order, the lanes then summed by the
+    butterfly of ``sgl::warp_sum`` (xor 16, 8, 4, 2, 1), times the scale,
+    components at or above the rank 0.  The expand: each output the sum over
+    r ascending of the row's shrink times B.  In f32, each product rounded
+    before its add (the card fuses them)."""
+    t, h = x.shape
+    v = 8 if h % 8 == 0 else 1
+    step = LANES * v
+    hp = -(-h // step) * step
+    ad = adapter.long()
+    live = ad >= 0
+    safe = torch.where(live, ad, torch.zeros_like(ad))
+    xs = torch.nn.functional.pad(x.float(), (0, hp - h))
+    af = torch.nn.functional.pad(a.float(), (0, hp - h))
+    acc = torch.zeros((t, a.shape[1], LANES), dtype=torch.float32, device=x.device)
+    for k in range(0, hp, step):                           # a stride of the warp's lanes
+        prod = xs[:, None, k:k + step] * af[:, :, k:k + step][safe]
+        prod = prod.reshape(t, a.shape[1], LANES, v)
+        for i in range(v):
+            acc = acc + prod[..., i]
+    lanes = torch.arange(LANES, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, :, lanes ^ o]
+    s = acc[:, :, 0] * scale.float()[:, None]
+    keep = torch.arange(a.shape[1], device=x.device)[None, :] < rank.long()[:, None]
+    s = torch.where(keep & live[:, None], s, torch.zeros_like(s))
+    wr = w[safe].float()                                   # [T, R, D] or [T, D, R]
+    out = torch.zeros((t, wr.shape[2] if transposed else wr.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for r in range(a.shape[1]):
+        out = out + s[:, r:r + 1] * (wr[:, r, :] if transposed else wr[:, :, r])
+    return torch.where(live[:, None], out, torch.zeros_like(out))
+
+
+def bgmv_rows(idx, num_adapters, rank, scaling):
+    """``(adapter, rank, scale)`` of each row of a bgmv call (the kernel
+    order's inputs): ids outside ``[0, L)`` dead."""
+    live, safe = _live(idx, num_adapters)
+    ad = torch.where(live, safe, -1)
+    return ad, torch.full_like(ad, rank), torch.full(ad.shape, scaling, dtype=torch.float32,
+                                                    device=ad.device)
+
+
+def sgmv_rows(s, weight_indices, seq_lengths, lora_ranks, lora_scalings, num_adapters, rank):
+    """``(adapter, rank, scale)`` of each of ``s`` packed rows of a sgmv call
+    (the kernel order's inputs): rows past the sequences and ids outside
+    ``[0, L)`` dead; ranks clamped to ``[0, rank]``."""
+    ends = torch.cumsum(seq_lengths.long(), 0)
+    seq = torch.searchsorted(ends, torch.arange(s, device=ends.device), right=True)
+    in_seq = seq < ends.shape[0]
+    adapter = weight_indices.long()[seq.clamp(max=ends.shape[0] - 1)]
+    live, safe = _live(torch.where(in_seq, adapter, torch.full_like(adapter, -1)), num_adapters)
+    return (torch.where(live, safe, -1), lora_ranks.long()[safe].clamp(0, rank),
+            lora_scalings.float()[safe])
+
+
+def _launch(name, x, a, w, transposed, ids, lens, ranks, scalings, scaling):
     """Shrink then expand on the card → ``[T, D]`` f32."""
     x, a, w = x.contiguous(), a.contiguous(), w.contiguous()
     t, h = x.shape
@@ -96,10 +163,10 @@ def _launch(name, x, a, w, transposed, ids, ends, ranks, scalings, scaling):
     lib = cuda_lib.load_library()
     stream = cuda_lib.stream_ptr(x)
     ptr = lambda v: 0 if v is None else v.data_ptr()   # noqa: E731
-    nseq = 0 if ends is None else ends.shape[0]
+    nseq = 0 if lens is None else lens.shape[0]
     bf16 = lambda v: int(v.dtype == torch.bfloat16)   # noqa: E731
     cuda_lib.check(lib, lib.lora_shrink_launch(
-        x.data_ptr(), a.data_ptr(), ids.data_ptr(), ptr(ends), ptr(ranks), ptr(scalings),
+        x.data_ptr(), a.data_ptr(), ids.data_ptr(), ptr(lens), ptr(ranks), ptr(scalings),
         float(scaling), nseq, t, h, l, r, bf16(x), bf16(a), shrink.data_ptr(),
         row_adapter.data_ptr(), stream), name)
     cuda_lib.check(lib, lib.lora_expand_launch(
@@ -136,9 +203,9 @@ def sgmv_fused(x, a, b, weight_indices, seq_lengths, lora_ranks, lora_scalings):
     H]`` (sequences contiguous, ``Σ seq_lengths ≤ S``; rows past them give
     0), a ``[L, R, H]``, b ``[L, D, R]``, weight_indices / seq_lengths
     ``[nseq]``, lora_ranks / lora_scalings ``[L]`` → ``[S, D]`` f32.  CUDA
-    tensors launch ``csrc/lora.cu`` (a row finds its sequence by a binary
-    search over the device prefix sum of the lengths: no host sync); CPU
-    tensors take :func:`sgmv_fused_plain`."""
+    tensors launch ``csrc/lora.cu`` (two launches, counted once; a row finds
+    its sequence by a scan of the lengths in the shrink: no prefix-sum
+    launch, no host sync); CPU tensors take :func:`sgmv_fused_plain`."""
     args = (weight_indices, seq_lengths, lora_ranks, lora_scalings)
     if not on_cuda(x, a, b, *args):
         return sgmv_fused_plain(x, a, b, *args)
@@ -149,8 +216,7 @@ def sgmv_fused(x, a, b, weight_indices, seq_lengths, lora_ranks, lora_scalings):
         raise ValueError(f"sgmv_fused takes weight_indices and seq_lengths [nseq > 0] and "
                          f"lora_ranks and lora_scalings [{l}], got "
                          f"{[tuple(t.shape) for t in args]}")
-    ends = torch.cumsum(seq_lengths.to(torch.int32), 0, dtype=torch.int32)
-    out = _launch("sgmv_fused", x, a, b, False, _int32(weight_indices), ends, _int32(lora_ranks),
-                  lora_scalings.float().contiguous(), 1.0)
+    out = _launch("sgmv_fused", x, a, b, False, _int32(weight_indices), _int32(seq_lengths),
+                  _int32(lora_ranks), lora_scalings.float().contiguous(), 1.0)
     sgmv_fused.launches += 1
     return out

@@ -190,9 +190,9 @@ class Buffer:
         K16b; ``chunks`` and ``use_int8_dispatch`` apply to the unfused form
         only, as in JAX).  ``w1 [E, H, 2I]`` int8 with gate / up packed at
         width ``pack_tn`` (``moe_pack_tn``'s by default; narrower than 2I
-        runs K8a's ``dequant_swiglu`` and a requant, and ``single_kernel``
-        then raises: ROADMAP §C), ``w1_scale [E, 2I]``, ``w2 [E, I, H]``,
-        ``w2_scale [E, H]``: the whole expert tensors, each rank reading its
+        the unfused form runs K8a's ``dequant_swiglu`` and a requant, K16b
+        pairs gate and up by the pack width), ``w1_scale [E, 2I]``, ``w2 [E,
+        I, H]``, ``w2_scale [E, H]``: the whole expert tensors, each rank reading its
         slice.  ``gmm_tiles`` and
         ``full_tiles`` (the TPU's tiles) are not taken.  ``plain`` runs the
         plain versions: the group's collective for the exchanges, K8a's or
@@ -201,11 +201,10 @@ class Buffer:
         pair, seg = self._capacities(*topk_idx.shape)
         local = [self._local(w) for w in (w1, w1_scale, w2, w2_scale)]
         if single_kernel:
-            fused_moe.check_full_width(w1.shape[-1], pack_tn)
             return fused_full.fused_deep_moe_full_rank(
                 x, topk_idx, topk_weights, *local, group=self.group,
                 num_experts=self.num_experts, num_ranks=self.group_size, seg_capacity=seg,
-                plain=plain)
+                pack_tn=pack_tn, plain=plain)
         return fused_moe.fused_deep_moe_rank(
             x, topk_idx, topk_weights, *local, group=self.group, num_experts=self.num_experts,
             num_ranks=self.group_size, pair_capacity=pair, seg_capacity=seg, pack_tn=pack_tn,

@@ -37,16 +37,6 @@ def pack_width(n: int, pack_tn: int | None) -> int:
     return moe_pack_tn(n) if pack_tn is None else min(pack_tn, n)
 
 
-def check_full_width(n: int, pack_tn: int | None) -> None:
-    """Raise unless the packing is full width: the single-kernel MoE (K16b,
-    ``csrc/fused_full.cu``) pairs gate column j with up column I + j."""
-    tn = pack_width(n, pack_tn)
-    if tn != n:
-        raise NotImplementedError(
-            f"the single-kernel MoE (K16b) reads gate / up packed at full width {n}, not {tn}; "
-            "a narrower packing runs unfused (single_kernel=False; ROADMAP §C)")
-
-
 def fused_deep_moe_rank(x, topk_idx, topk_weights, w1, w1_scale, w2, w2_scale, *, group,
                         num_experts: int, num_ranks: int, pair_capacity: int,
                         seg_capacity: int, gmm_tiles=None, pack_tn: int | None = None,

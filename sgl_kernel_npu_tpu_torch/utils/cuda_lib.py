@@ -66,6 +66,7 @@ _SIGNATURES = {
     "a2a_launch": [_P, _I, _I, _U, _L, _P, _L, _L, _I, _L, _P, _P, _P, _P, _I, _L, _I, _I,
                    _P],
     "fused_full_launch": [_P, _P],
+    "fused_full_blocks": [],
     "fused_kernel_launch": [_P, _P],
 }
 
@@ -108,8 +109,12 @@ def _build(target: pathlib.Path) -> None:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp_so = work / target.name
+    # the shared CUDA runtime: the one PyTorch has loaded serves the kernels'
+    # launches too, so torch.profiler's CUPTI tracing sees them as it sees
+    # PyTorch's (with a static runtime in the library it at times recorded none)
     link = subprocess.run(
-        [nvcc, *_NVCC_FLAGS, "-shared", *[str(o) for _, o, _ in procs], "-o", str(tmp_so)],
+        [nvcc, *_NVCC_FLAGS, "-shared", "-cudart", "shared", *[str(o) for _, o, _ in procs],
+         "-o", str(tmp_so)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + link.stdout)

@@ -46,7 +46,13 @@ sums, the same f32 operations), ``dequant_swiglu`` 1e-5 of the largest |value|
 in f32 (the SiLU's exp) and one ulp in bf16, ``dispatch_p`` bit-equal to the
 gathered rows; ``grouped_matmul_combine`` 1e-5 of the largest |value|; K3 on
 float tokens bit-equal to K5 then K3; ``fused_dispatch_gmm1_rank`` within one
-bf16 ulp of each value."""
+bf16 ulp of each value; ``fused_deep_moe_full_rank`` bit-equal to its tiled
+walk run on the card (``fused_full.fused_deep_moe_full_tiled_plain``: the same
+exact sums and f32 operations in the same order), at any gate / up packing,
+and over calls on other inputs (each call reads its own window half);
+``bgmv_fused`` / ``sgmv_fused`` two CUDA kernels a call, the shrink and the
+expand (a CUDA graph capture of a call), two calls bit-identical, and a call right after
+an empty one (T = 0) right."""
 
 import hashlib
 import math
@@ -1437,11 +1443,13 @@ def test_bgmv_fused_kernel(dev, t, h, l, r, d, layout, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("lens,s", [([100, 0, 250, 140], 512), ([1], 3), ([0, 0, 7], 9)])
+@pytest.mark.parametrize("lens,s", [([100, 0, 250, 140], 512), ([1], 3), ([0, 0, 7], 9),
+                                    ([i % 3 for i in range(300)], 310)])
 def test_sgmv_fused_kernel(dev, lens, s, dtype):
     """K13b against its plain version within 1e-4 of the largest value:
     empty sequences, a tail of rows past the sequences (exactly 0), ranks
-    below the stored 16 and mixed scalings."""
+    below the stored 16 and mixed scalings; 300 sequences take the shrink's
+    scan of the lengths over three chunks of 128."""
     from sgl_kernel_npu_tpu_torch.ops import lora_pallas as lp
 
     gen = torch.Generator(device=dev).manual_seed(s + len(lens))
@@ -1457,6 +1465,39 @@ def test_sgmv_fused_kernel(dev, lens, s, dtype):
     assert lp.sgmv_fused.launches == before + 1
     assert not got[sum(lens):].any()
     assert _rel_err(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("t,l", [(8, 4), (512, 4), (8, 64)])
+def test_lora_kernels_two_launches_and_repeat_bit_identical(dev, t, l):
+    """K13a (bgmv, both B layouts) and K13b (sgmv) each enqueue exactly two
+    CUDA kernels a call, the shrink and the expand, and nothing else (no
+    scratch fill, no prefix sum); two calls are bit-identical, and so is a
+    third after a call on no rows."""
+    from sgl_kernel_npu_tpu_torch.ops import lora_pallas as lp
+    from sgl_kernel_npu_tpu_torch.utils.trace_profile import graph_kernels
+
+    gen = torch.Generator(device=dev).manual_seed(t + l)
+    x, a, b = _lora_weights(gen, dev, t, 4096, l, 16, 4096, torch.bfloat16)
+    idx = torch.randint(0, l, (t,), generator=gen, device=dev, dtype=torch.int32)
+    bt = b.transpose(1, 2).contiguous()
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    sg = (i32([(3 * i + 1) % l for i in range(4)]), i32([t // 4, 0, t // 2, t - t // 4 - t // 2]),
+          i32([16, 8, 4, 16] + [16] * (l - 4)), torch.rand(l, generator=gen, device=dev))
+    calls = {"bgmv": lambda n=t: lp.bgmv_fused(x[:n], a, b, idx[:n]),
+             "bgmv bt": lambda n=t: lp.bgmv_fused(x[:n], a, None, idx[:n], bt=bt),
+             "sgmv": lambda n=t: lp.sgmv_fused(x[:n], a, b, sg[0], sg[1] if n else 0 * sg[1],
+                                               *sg[2:])}
+    for name, fn in calls.items():
+        acts = graph_kernels(fn)
+        assert len(acts) == 2 and [c for _, c in acts] == [1, 1] and any(
+            "shrink_kernel" in n for n, _ in acts) and any(
+            "expand_kernel" in n for n, _ in acts), (name, acts)
+        first, second = fn(), fn()
+        empty = fn(0)
+        third = fn()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second) and torch.equal(first, third), name
+        assert empty.shape == (0, 4096), name
 
 
 @pytest.mark.parametrize("w8a8", [False, True])
@@ -1858,6 +1899,87 @@ def test_fused_full_kernel_matches_plain_and_unfused(dev, t, dead):
     assert float(err.max()) <= 1e-2, float(err.max())
     rel = float((got.float() - unf.float()).abs().mean() / unf.float().abs().mean())
     assert rel < 4e-4, rel
+
+
+def _k16b_and_walk(buf, x, idx, tw, w, tn):
+    """K16b through ``Buffer.fused_deep_moe(single_kernel=True)`` at pack
+    width ``tn`` and its tiled walk on the card, on the same wire quant and
+    layout."""
+    from sgl_kernel_npu_tpu_torch.ops.quant import wire_quant
+    from sgl_kernel_npu_tpu_torch.parallel import fused_full
+
+    got, cnt, drop = buf.fused_deep_moe(x, idx, tw, *w, pack_tn=tn, single_kernel=True)
+    seg = max(buf.config.num_max_dispatch_tokens_per_rank, x.shape[0])
+    _, lay = fused_full.full_layout(idx, group=buf.group, num_experts=buf.num_experts,
+                                    num_ranks=1, seg_capacity=seg)
+    want = fused_full.fused_deep_moe_full_tiled_plain(*wire_quant(x), tw, *w, lay, tn=tn,
+                                                      group=buf.group)
+    return got, want, cnt, lay
+
+
+@pytest.mark.parametrize("tn", [512, 128, 64], ids=["full", "tn128", "tn64"])
+@pytest.mark.parametrize("t,dead", [(3, 0.0), (300, 0.3)])
+def test_fused_full_kernel_bit_equal_to_tiled_walk(dev, t, dead, tn):
+    """K16b at the full gate / up packing and two narrower ones, bit-equal
+    to its tiled walk on the card (the walk's operations are the kernel's:
+    exact sums, CUDA's ``expf``, true divisions, the reduce's fused
+    multiply-add), and within 4e-4 (relative mean) of the unfused form;
+    experts of 0 to ~150 rows, dead slots."""
+    from sgl_kernel_npu_tpu_torch.config import EPConfig
+    from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer
+    from sgl_kernel_npu_tpu_torch.ops.grouped_matmul import pack_gmm1_scales, pack_gmm1_weights
+
+    gen = torch.Generator(device=dev).manual_seed(t + tn)
+    x, idx, tw, w = _deep_moe_inputs(gen, dev, t, dead=dead)
+    if tn != 512:                                      # repack gate / up at width tn
+        i = w[0].shape[-1] // 2
+        w1, s1 = w[0], w[1]
+        w = [pack_gmm1_weights(w1[..., :i], w1[..., i:], tn),
+             pack_gmm1_scales(s1[..., :i], s1[..., i:], tn), w[2], w[3]]
+    buf = Buffer(_nccl_group(), 32, EPConfig(comm_backend="pallas_ragged"))
+    got, want, cnt, _ = _k16b_and_walk(buf, x, idx, tw, w, tn)
+    unf, ucnt, _ = buf.fused_deep_moe(x, idx, tw, *w, pack_tn=tn)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(cnt, ucnt)
+    rel = float((got.float() - unf.float()).abs().mean() / unf.float().abs().mean())
+    assert rel < 4e-4, rel
+
+
+def test_fused_full_kernel_repeats_and_reads_this_calls_window(dev):
+    """Calls on inputs A, B, A, C: the two A calls bit-identical; B and C (C
+    in the window half B used, two epochs on) bit-equal to the tiled walk
+    of their own inputs: no TMA read sees a row of an earlier call."""
+    from sgl_kernel_npu_tpu_torch.config import EPConfig
+    from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer
+
+    gen = torch.Generator(device=dev).manual_seed(77)
+    buf = Buffer(_nccl_group(), 32, EPConfig(comm_backend="pallas_ragged"))
+    cases = [_deep_moe_inputs(gen, dev, 200) for _ in range(3)]
+    w = cases[0][3]
+    runs = [_k16b_and_walk(buf, *cases[c][:3], w, 512) for c in (0, 1, 0, 2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[2][0])
+    for got, want, _, _ in runs:
+        assert torch.equal(got, want)
+    assert not torch.equal(runs[1][0], runs[3][0])
+
+
+def test_fused_full_kernel_phase_stamps(dev):
+    """``phase_stamps`` takes each block's 11 phase times (``%globaltimer``),
+    in order within a block, and leaves the output as without them."""
+    from sgl_kernel_npu_tpu_torch.parallel import fused_full
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x, idx, tw, w = _deep_moe_inputs(gen, dev, 50)
+    kw = dict(group=_nccl_group(), num_experts=32, num_ranks=1, seg_capacity=50)
+    st = torch.zeros((fused_full.fused_full_blocks(), fused_full.PHASE_STAMPS),
+                     dtype=torch.int64, device=dev)
+    got = fused_full.fused_deep_moe_full_rank(x, idx, tw, *w, phase_stamps=st, **kw)[0]
+    want = fused_full.fused_deep_moe_full_rank(x, idx, tw, *w, **kw)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((st > 0).all()) and bool((st.diff(dim=1) >= 0).all())
 
 
 def test_fused_full_kernel_refuses_what_it_does_not_take(dev):

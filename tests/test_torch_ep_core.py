@@ -192,10 +192,10 @@ def test_all_to_all_counts_and_differentiates(group):
 
 
 def test_unported_ep_switches_raise(group):
-    """What the port still leaves raises, naming ROADMAP item 16 (§C for a
-    gate / up packing narrower than 2I into the single-kernel MoE); the
-    one-sided transports and the monitored exchange are ported (the window
-    tests below)."""
+    """What the port still leaves raises, naming ROADMAP item 16; the
+    one-sided transports, the monitored exchange and the single-kernel MoE
+    at any gate / up packing are ported (the window tests below), and a pack
+    width that does not divide 2I is refused."""
     for cfg in (EPConfig(validate_comm=True), EPConfig(normal_round_tokens=8)):
         with pytest.raises(NotImplementedError, match="item 16"):
             Buffer(group, num_experts=E, config=cfg)
@@ -215,10 +215,10 @@ def test_unported_ep_switches_raise(group):
         with pytest.raises(NotImplementedError, match="item 16"):
             call()
     w1 = torch.zeros((E, H, 2 * 64), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="K16b"):
+    with pytest.raises(ValueError, match="pack width 48"):
         buf.fused_deep_moe(x, idx, torch.ones((4, K)), w1, torch.ones((E, 128)),
                            torch.zeros((E, 64, H), dtype=torch.int8), torch.ones((E, H)),
-                           pack_tn=64, single_kernel=True)
+                           pack_tn=48, single_kernel=True)
     with pytest.raises(ValueError, match="unknown comm backend"):
         buf.dispatch(x, idx, backend="nccl")
     with pytest.raises(ValueError, match="pallas_ragged"):

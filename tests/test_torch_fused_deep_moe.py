@@ -2,7 +2,8 @@
 (K16b's plain version), against JAX's on a one-device mesh.
 
 Widths as JAX's ``test_fused_full.py`` (H 128, I 64, the gate / up packing at
-full width, and narrower: 64 and 32 columns, K8a's ``dequant_swiglu``); the JAX
+full width, and narrower: 64 and 32 columns, K8a's ``dequant_swiglu`` unfused,
+64 in K16b); the JAX
 weights from its ``quantize_expert_weights`` go to both
 sides.  The port runs on a one-rank gloo group of this process
 (``_torch_parity.one_rank_group``).  Tolerances: the receive counts and the
@@ -98,18 +99,23 @@ def test_single_kernel_matches_unfused_with_drops():
     assert _rel_mean(got, want) < 4e-4
 
 
-def test_single_kernel_refuses_narrow_packing():
-    """K16b (``single_kernel=True``) reads gate / up at full width: a
-    narrower packing raises (ROADMAP §C), and the unfused form serves it
-    (the narrow-packing cases above), its plain switch equal to its own
-    plain path."""
+def test_single_kernel_takes_narrow_packing(mesh1):
+    """K16b (``single_kernel=True``) at a gate / up packing narrower than 2I
+    (pack width 64 of 128: SwiGLU pairs each slab's halves) against JAX's
+    single kernel at ``tn1`` 64 and against the unfused form on the same
+    weights: counts exact, relative mean difference below 4e-4."""
     rng = np.random.default_rng(7)
-    w = [tt(a) for a in _weights(rng, tn=64)]
-    x, idx, tw = (tt(a) for a in _inputs(rng))
-    buf = Buffer(one_rank_group(), E)
-    with pytest.raises(NotImplementedError, match="K16b"):
-        buf.fused_deep_moe(x, idx, tw, *w, pack_tn=64, single_kernel=True)
-    got = buf.fused_deep_moe(x, idx, tw, *w, pack_tn=64)
-    want = buf.fused_deep_moe(x, idx, tw, *w, pack_tn=64, plain=True)
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    w = _weights(rng, tn=64)
+    x, idx, tw = _inputs(rng)
+    cfg = dict(num_max_dispatch_tokens_per_rank=T)
+    jbuf = JBuffer(mesh1, "ep", E, JEPConfig(**cfg))
+    want, jcnt, _ = jbuf.fused_deep_moe(jx(x), jx(idx), jx(tw), *(jx(a) for a in w), pack_tn=64,
+                                        single_kernel=True)
+    buf = Buffer(one_rank_group(), E, EPConfig(**cfg))
+    args = (tt(x), tt(idx), tt(tw), *(tt(a) for a in w))
+    got, cnt, drop = buf.fused_deep_moe(*args, pack_tn=64, single_kernel=True)
+    unf, ucnt, _ = buf.fused_deep_moe(*args, pack_tn=64)
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt[0]))
+    assert torch.equal(cnt, ucnt) and int(drop) == 0
+    assert _rel_mean(got, want) < 4e-4, _rel_mean(got, want)
+    assert _rel_mean(got, unf) < 4e-4, _rel_mean(got, unf)
