@@ -204,7 +204,9 @@ Phases (any failure raises and the script exits non-zero without a result):
    (``deepseek_v3._gmm_moe_dispatch``) at 8, 64 and 512 tokens (each timed): K8a
    ``dispatch_p`` and grouped_matmul_combine (K8b) once a call, the output
    held to its plain version and to the ring branch (K3 + K4), ``dispatch_p``
-   bit-equal to the gathered rows, K8b to its plain version, timed beside K4;
+   bit-equal to the gathered rows, K8b to its plain version, its rows d
+   bit-equal to K8a ``dequant``, a call's CUDA graph holding K8b's three
+   kernels once each and nothing else, timed beside K4;
    ``Buffer.fused_deep_moe(pack_tn=1024)`` on the ``"xla"`` and
    ``"pallas_ragged"`` transports at 8, 512 and 2048 tokens (K8a
    ``dequant_swiglu`` and ``dequant`` once a call, held to the full-width
@@ -212,9 +214,10 @@ Phases (any failure raises and the script exits non-zero without a result):
    pairing gate and up by the pack width, held to the unfused call, to its
    plain version and at 8 tokens bit-equal to its tiled walk);
    fused_dispatch_gmm1 (K16a) at 8 tokens and a 64-row chunk on the group's
-   window, held to its plain version and to K8a on the placed rows, then
-   through K7a, K8a and ``ep_core.combine_core`` to ``_gmm_moe``, timed
-   beside K15b + K8a; gmm1_ring on bf16 tokens (K3's float-input mode)
+   window, held to its plain version and to K8a on the placed rows, a
+   call's CUDA graph holding its one kernel alone, then through K7a, K8a
+   and ``ep_core.combine_core`` to ``_gmm_moe``, timed beside K15b + K8a;
+   gmm1_ring on bf16 tokens (K3's float-input mode)
    bit-equal to K5 + K3 and timed.
 6. Print the kernels' JSON line (38 rows for the 32 TPU kernel sites, K8a's
    modes and K3's float-input mode in rows of their own, each from its own
@@ -3523,6 +3526,8 @@ PACK_TN = 1024            # [4l]'s narrow gate / up packing (DeepSeek-V3's 2I is
 MOE_TOL = 1e-2            # _gmm_moe's dispatch_p + K8b branch vs plain and the ring branch
 K8B_TOL = 1e-4            # K8b vs its plain version: a row's largest |value|
 K16A_MOE_TOL = 5e-2       # K16a -> K7a -> K8a -> combine_core vs _gmm_moe
+# K8b's CUDA kernels, each once a call (a CUDA graph capture's kernel names hold these)
+K8B_KERNELS = ("combine_offsets_kernel", "combine_rows_kernel", "combine_kernel")
 
 
 def row_rel(got, want) -> float:
@@ -3739,7 +3744,13 @@ def check_dispatch_branch(gen, moe, n_tok, timed):
     comb_p = lambda: grouped_matmul.grouped_matmul_combine_plain(h1_p, w2, gs, hs_p, s2,  # noqa
                                                                  m_hi, m_lo)
     o, o_p = comb(), comb_p()
+    _, d_k = grouped_matmul._combine_launch(h1_p, w2, gs, hs_p, s2, m_hi, m_lo, torch.float32)
+    bit_d = torch.equal(d_k, grouped_matmul.grouped_matmul(h1_p, w2, gs, hs_p, s2,
+                                                           epilogue="dequant"))
     torch.cuda.synchronize()
+    graph = trace_profile.graph_kernels(comb)
+    graph_ok = [c for _, c in graph] == [1, 1, 1] and all(
+        any(k_ in n_ for n_, _ in graph) for k_ in K8B_KERNELS)
     err_p, err_r, err_b = row_rel(got, plain), row_rel(got, ring), row_rel(o, o_p)
     bit = torch.equal(disp[0], gath[0]) and torch.equal(disp[1], gath[1])
     err_d = max_abs(disp[0], h1_p)
@@ -3747,12 +3758,14 @@ def check_dispatch_branch(gen, moe, n_tok, timed):
     touched = int((gs > 0).sum())
     log(f"  _gmm_moe dispatch_p + K8b branch, {n_tok} tokens x top-8 over {touched} experts: "
         f"vs plain {err_p:.3e}, vs the ring branch (K3 + K4) {err_r:.3e} (tol {MOE_TOL} of a "
-        f"row's largest); K8b vs plain {err_b:.3e} (tol {K8B_TOL}); dispatch_p bit-equal to "
+        f"row's largest); K8b vs plain {err_b:.3e} (tol {K8B_TOL}), its rows d bit-equal to "
+        f"K8a dequant {bit_d}, a call's CUDA graph holds {len(graph)} kernels, one each of "
+        f"{'/'.join(K8B_KERNELS)} {graph_ok}; dispatch_p bit-equal to "
         f"the gathered rows {bit}, vs plain max|h1 err| {err_d:.0f} int8 levels (tol 1), "
         f"scale rel err {err_ds:.2e} (tol 1e-6); launches "
         f"{json.dumps({k_: launches[k_] for k_ in want_l})}")
-    if not (err_p <= MOE_TOL and err_r <= MOE_TOL and err_b <= K8B_TOL and bit
-            and err_d <= 1 and err_ds <= 1e-6 and bool(torch.isfinite(got).all())):
+    if not (err_p <= MOE_TOL and err_r <= MOE_TOL and err_b <= K8B_TOL and bit and bit_d
+            and graph_ok and err_d <= 1 and err_ds <= 1e-6 and bool(torch.isfinite(got).all())):
         raise AssertionError(f"_gmm_moe's dispatch_p + K8b branch is wrong at {n_tok} tokens")
     if not timed:
         return None, None, launches
@@ -3892,13 +3905,19 @@ def check_fused_dispatch(gen, group, moe, n_tok, timed):
         f"max rel {err:.3e} (tol 2^-7: a bf16 ulp), vs K8a dequant on the placed rows "
         f"bit-equal {bit}; counts exact {torch.equal(cnt, cnt_p)}; K16a -> K7a -> K8a -> "
         f"combine_core vs _gmm_moe {err_moe:.3e} (tol {K16A_MOE_TOL} of a row's largest)")
-    if not (err <= 2 ** -7 and bit and err_moe <= K16A_MOE_TOL and torch.equal(cnt, cnt_p)):
-        raise AssertionError(f"fused_dispatch_gmm1 is wrong at {n_tok} tokens")
-    if not timed:
-        return None, launches
     counts = plan.counts_per_expert.reshape(1, e)
     rank = lambda: fused_kernel.fused_dispatch_gmm1_rank(xsend, w1, s1, sx, group=group,  # noqa
                                                          num_ranks=1, seg=seg, counts=counts)
+    graph = trace_profile.graph_kernels(rank)
+    graph_ok = len(graph) == 1 and graph[0][1] == 1 and "fused_kernel_kernel" in graph[0][0]
+    log(f"    a K16a call's CUDA graph holds {graph[0][1] if graph else 0} x "
+        f"{graph[0][0][:40] if graph else 'nothing'} and {len(graph) - 1} other kernels "
+        f"(want fused_kernel_kernel alone: {graph_ok})")
+    if not (err <= 2 ** -7 and bit and err_moe <= K16A_MOE_TOL and torch.equal(cnt, cnt_p)
+            and graph_ok):
+        raise AssertionError(f"fused_dispatch_gmm1 is wrong at {n_tok} tokens")
+    if not timed:
+        return None, launches
     res = dict(err=max_abs(out, out_p), ms=time_ms(rank, 10), library_ms=None,
                plain_ms=time_ms(lambda: fused_kernel.fused_dispatch_gmm1_rank(
                    xsend, w1, s1, sx, group=group, num_ranks=1, seg=seg, counts=counts,

@@ -60,8 +60,8 @@
 // polling the ring's barriers beside them (gmm_int8_ring.cuh).  The sends
 // and the returns move 117 MB and 235 MB at a 2048-token chunk; they are not
 // overlapped with the GEMMs.  The int32 sums are exact and the epilogues
-// those of the earlier 64-row tile (gmm_tile.cuh): the output is
-// bit-identical to it.
+// those of the 64-row mma.sync tile that the GEMMs ran before the ring
+// (gmm_int8_ring.cuh): the output is bit-identical to it.
 #include <string.h>
 
 #include "gmm_int8_ring.cuh"

@@ -1,5 +1,8 @@
 // The int8 GEMM ring for Hopper, shared by K8a's int8 modes
-// (grouped_matmul.cu, gmm_int8_kernel: one work unit a block) and the fused
+// (grouped_matmul.cu, gmm_int8_kernel: one work unit a block), the first pass
+// of grouped_matmul_combine (K8b, grouped_matmul.cu's combine_rows_kernel: a
+// persistent block walking a list of units), the fused dispatch + GEMM1
+// (K16a, fused_kernel.cu: a unit at a time, claimed by ticket) and the fused
 // MoE's two GEMM phases (fused_full.cu, K16b: a persistent block walking a
 // list of units).  A work unit is (work item, column tile): an item is up to
 // QM = 128 sorted rows of one group, aligned to the group's first row (the
@@ -7,8 +10,8 @@
 // streams its weights once; a column tile is 128 columns: 128 consecutive ones
 // ("dequant", "none"), or 64 gate columns and the 64 matching up columns (the
 // SwiGLU modes: in a packing of width tn = 2 ht, output column j pairs gate
-// column (j / ht) 2 ht + j % ht with the up column ht further, gmm_tile.cuh
-// gate_col), so that SwiGLU pairs within a thread.
+// column (j / ht) 2 ht + j % ht with the up column ht further, gate_col
+// below), so that SwiGLU pairs within a thread.
 //
 // s8 wgmma reads both operands K-major only, and the weights are [G, K, N]
 // with N contiguous (the layout the ring GEMMs and the fused MoE read; a
@@ -47,8 +50,9 @@
 //   f32 scratch and its |max| to a per-row atomicMax on the float bits
 //   (non-negative floats order as unsigned ints: exact and deterministic),
 //   and a later pass requantizes each row.  A unit never writes rows of its
-//   item outside its group.  The same operations as the 64-row tile of
-//   gmm_tile.cuh: every output is bit-identical to it.
+//   item outside its group.  These are the operations of the 64-row
+//   mma.sync tile that ran K8a, K8b and K16a before the ring: every output
+//   is bit-identical to it.
 //
 // mbarrier phases: every ring's stage s is number base + s of the block's
 // stream (base: the stages the block ran before, returned by int8_ring), and
@@ -58,10 +62,54 @@
 // call take slots whose last release the loading warps did not wait for.
 #pragma once
 
-#include "gmm_tile.cuh"
+#include "gmm_common.cuh"
 #include "wgmma.cuh"
 
 namespace k8 {
+
+using bf16 = __nv_bfloat16;
+
+// kDequant: acc x sx[row] x sw[col] (each scale 1 where its pointer is null);
+// kSwiGLU: SwiGLU of the dequantized gate / up pair to an f32 scratch and the
+// row's |max| (the requant follows in another pass); kSwiGLUOut: the same
+// SwiGLU stored through the output functor (K8a's float "dequant_swiglu").
+enum Epilogue { kDequant = 0, kSwiGLU = 1, kSwiGLUOut = 2 };
+
+__device__ __forceinline__ void store_pair(float* out, size_t i, float a, float b) {
+  *reinterpret_cast<float2*>(out + i) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(bf16* out, size_t i, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(out + i) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(__half* out, size_t i, float a, float b) {
+  *reinterpret_cast<__half2*>(out + i) = __floats2half2_rn(a, b);
+}
+
+// The gate column of SwiGLU output column j when gate / up are packed in
+// slabs of 2 ht columns, [gate ht | up ht] each (pack_gmm1_weights with tn =
+// 2 ht; ht = N / 2 is the full-width packing); its up column is ht further.
+__device__ __forceinline__ int gate_col(int j, int ht) { return (j / ht) * 2 * ht + j % ht; }
+
+// The group of work item ``item``: tile_off[g] <= item < tile_off[g + 1], by a
+// binary search over the device prefix sum of items (no host sync).
+__device__ __forceinline__ int find_group(const int* __restrict__ tile_off, int groups,
+                                          int item) {
+  int lo = 0, hi = groups;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (tile_off[mid] <= item) lo = mid;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// x scales: __ldg (read-only for the kernel) or ld.global.cg (written by
+// other blocks or peers while the kernel runs: K16b's window).
+template <bool RO, class T>
+__device__ __forceinline__ T load_x(const T* p) {
+  if (RO) return __ldg(p);
+  return __ldcg(p);
+}
 
 constexpr int QM = 128;                         // rows of an int8 work item
 constexpr int QN = 128;                         // columns of a unit
@@ -89,7 +137,8 @@ __device__ __forceinline__ void mbar_arrive_n(uint64_t* bar, int count) {
                : "memory");
 }
 
-// One work unit: rows [r0, r0 + rows) of group g (rows >= 1) x column tile bx.
+// One work unit: rows [r0, r0 + rows) of group g x column tile bx (a unit of
+// no rows loads and multiplies but stores nothing).
 struct Unit {
   int g, r0, rows, bx;
 };

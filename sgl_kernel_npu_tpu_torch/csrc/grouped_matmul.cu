@@ -57,34 +57,6 @@ __device__ void zero_tail(OutT* __restrict__ out, int total, int S, int n_out, i
     }
 }
 
-// K8b's first pass: d = bf16(x @ w[g] x sx[row] x sw[g, col]) on the 64-row
-// tile of gmm_tile.cuh.  x [S, K] int8 rows grouped by expert, w [G, K, N]
-// int8, offsets / tile_off [G + 1] (row offsets, prefix sums of ceil(size /
-// BM)), sx [S], sw [G, N] -> d [S, N] bf16.  3 blocks an SM (80 registers, a
-// few bytes of spill): the loop waits on its global loads, and a third
-// resident block keeps more of them in flight.
-__global__ void __launch_bounds__(THREADS, 3)
-    dequant_rows_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                        const int* __restrict__ offsets, const int* __restrict__ tile_off,
-                        int groups, int S, int K, int N, const float* __restrict__ sx,
-                        const float* __restrict__ sw, bf16* __restrict__ d) {
-  __shared__ TileSmem sm;
-  const int bx = blockIdx.x, item = blockIdx.y;
-  const int n_items = tile_off[groups];
-  if (item >= n_items) {
-    zero_tail<BM, THREADS>(d, min(offsets[groups], S), S, N, bx * BN, BN, item - n_items,
-                           gridDim.y - n_items);
-    return;
-  }
-  const int g = find_group(tile_off, groups, item);
-  const int r0 = offsets[g] + (item - tile_off[g]) * BM;
-  const int r1 = min(min(r0 + BM, offsets[g + 1]), S);
-  int8_tile<kDequant, true>(
-      sm, x, nullptr, w + (size_t)g * K * N, r0, r1, K, N, N / 2, bx, sx, sw + (size_t)g * N,
-      [&](int row, int col, float v0, float v1) { store_pair(d, (size_t)row * N + col, v0, v1); },
-      nullptr, nullptr);
-}
-
 // dispatch_p's prologue: xrow[r] = the column of the nonzero of P's row r (a
 // one-hot row's token), -1 for a zero row; a row that is neither (more than
 // one nonzero, or a value other than 1) adds one to *bad.  A warp a row.
@@ -363,11 +335,6 @@ __global__ void __launch_bounds__(QTHREADS, 2)
       act, amax);
 }
 
-// K8b's mask-product tile (combine_kernel below): stages of 64 k.
-constexpr int FBK = 64;                         // k elements per stage
-constexpr int FLDB_N = BN + 8;                  // [k][n] tile row stride
-constexpr int F_B_LOADS = FBK * BN / 8 / THREADS;  // 16-byte loads a thread per stage
-
 // ---------------------------------------------------------------------------
 // grouped_matmul_combine (K8b): the W8A8 GMM2 with the weighted top-k combine,
 // out [n_tok, N] = m_hi @ d + m_lo @ d, d[r] = bf16(acc[r] x sx[r] x sw[g(r),
@@ -384,104 +351,230 @@ constexpr int F_B_LOADS = FBK * BN / 8 / THREADS;  // 16-byte loads a thread per
 // 512 tokens all 256 experts' w2, 3.76 GB: 1.12 ms); the combine's
 // 4 n_tok S N bf16 operations (60 G at 512 tokens, 0.06 ms) are small.
 //
-// Design: two passes.  (1) The 64-row "dequant" tile of gmm_tile.cuh
-// (dequant_rows_kernel) writes d in bf16 (the rounding JAX applies before
-// its combine products) to a scratch [S, N]
-// (59 MB at 512 tokens: ~35 us of traffic against the weights' 1.12 ms).
-// (2) A bf16 GEMM of the two masks against d: a block owns 64 tokens x 128
-// columns and walks every row of d below the total in order, 64 rows a stage,
-// hi then lo products into one f32 accumulator on mma.sync.m16n8k16 (the
-// products of two bf16 values are exact in f32; only the order of the sums
-// differs from the TPU's).  Each output value has one owner and a fixed
-// order: no atomics, the result does not depend on block order.  The masks
-// are staged element by element (any S); d's rows by 16-byte loads.
+// Design: three launches, no host sync.  (0) One block turns the group sizes
+// into the row offsets and the prefix sums of 128-row items (in place of ~13
+// small PyTorch launches of ~2.5 us each).  (1) combine_rows_kernel: the int8
+// ring of gmm_int8_ring.cuh in persistent blocks, two an SM, each walking
+// (128-row item, 128-column tile) units blockIdx.x, + gridDim.x, ... (at 8
+// to 512 tokens an expert has 1-16 rows, a unit 16 stages of weights: a
+// block's loading warps run into its next unit's stages), "dequant" to bf16
+// (the rounding JAX applies before its combine products) into a scratch d [S,
+// N] (59 MB at 512 tokens: ~35 us of traffic against the weights' 1.12 ms);
+// the rows past the total are zeros.  (2) combine_kernel: a block owns 128
+// tokens (a warpgroup each 64) x 128 columns and walks the rows of d below
+// the total in order, 64 a stage through a 4-stage ring: d's rows as two TMA
+// boxes of 64 rows x 64 columns (128-byte swizzle, an MN-major B), the masks'
+// 64 tokens x 64 rows as TMA boxes (K-major A) where a mask row's 2 S bytes
+// are a multiple of 16 and the stage lies below the total, else gathered by
+// the loading warp with 2-byte loads into the same swizzle (any S; columns
+// past the total as zeros); bf16 wgmma m64n128k16, the hi then the lo
+// product of each 16 rows into one f32 accumulator (the products of two bf16
+// values are exact in f32; only the order of the sums differs from the
+// TPU's).  Each output value has one owner and a fixed order: no atomics,
+// the result does not depend on block order.  Fusing the combine into (1)'s
+// epilogue would save only d's round trip, and an output column tile sums
+// the rows of every expert, which several blocks hold: atomics or a second
+// pass over partials all the same.
 // ---------------------------------------------------------------------------
-constexpr int CLDA = FBK + 8;                   // mask tile row stride (elements)
 
-template <class OutT>
-__global__ void __launch_bounds__(THREADS, 2)
-    combine_kernel(const bf16* __restrict__ mhi, const bf16* __restrict__ mlo,
-                   const bf16* __restrict__ d, const int* __restrict__ offsets, int groups,
-                   int n_tok, int S, int N, OutT* __restrict__ out) {
-  __shared__ __align__(16) bf16 ahi[BM * CLDA];
-  __shared__ __align__(16) bf16 alo[BM * CLDA];
-  __shared__ __align__(16) bf16 bs[FBK * FLDB_N];
+// (0): offsets [G + 1] and tile_off [G + 1] (prefix sums of ceil(size / QM))
+// of the group sizes, by one block of OFF_THREADS threads.
+constexpr int OFF_THREADS = 1024;
+
+__global__ void __launch_bounds__(OFF_THREADS)
+    combine_offsets_kernel(const int* __restrict__ sizes, int groups, int* __restrict__ offsets,
+                           int* __restrict__ tile_off) {
+  __shared__ int warp_rows[32], warp_items[32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g8 = lane >> 2, tq = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int n0 = blockIdx.x * BN, t0 = blockIdx.y * BM;
-  const int total = min(offsets[groups], S);
-  const bf16 zero = __float2bfloat16_rn(0.f);
+  const int per = (groups + OFF_THREADS - 1) / OFF_THREADS;
+  const int g0 = min(tid * per, groups), g1 = min(g0 + per, groups);
+  int rows = 0, items = 0;
+  for (int g = g0; g < g1; ++g) {
+    rows += sizes[g];
+    items += (sizes[g] + QM - 1) / QM;
+  }
+  int r = rows, it = items;                      // inclusive scan over the warp
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int pr = __shfl_up_sync(0xffffffffu, r, o), pi = __shfl_up_sync(0xffffffffu, it, o);
+    if (lane >= o) r += pr, it += pi;
+  }
+  if (lane == 31) warp_rows[warp] = r, warp_items[warp] = it;
+  __syncthreads();
+  if (warp == 0) {                               // ... and over the warps
+    int wr = warp_rows[lane], wi = warp_items[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int pr = __shfl_up_sync(0xffffffffu, wr, o), pi = __shfl_up_sync(0xffffffffu, wi, o);
+      if (lane >= o) wr += pr, wi += pi;
+    }
+    warp_rows[lane] = wr, warp_items[lane] = wi;
+  }
+  __syncthreads();
+  int br = r - rows + (warp ? warp_rows[warp - 1] : 0);
+  int bi = it - items + (warp ? warp_items[warp - 1] : 0);
+  for (int g = g0; g < g1; ++g) {
+    offsets[g] = br, tile_off[g] = bi;
+    br += sizes[g];
+    bi += (sizes[g] + QM - 1) / QM;
+  }
+  if (tid == OFF_THREADS - 1) offsets[groups] = br, tile_off[groups] = bi;
+}
 
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][nj][r] = 0.f;
+// (1): d = bf16(x @ w[g] x sx[row] x sw[g, col]) for the rows in a group, 0
+// past the total.  xmap: x [S, K] int8 as (K, S), boxes of 128 k x 64 rows in
+// the 128-byte swizzle; wmap: w [G, K, N] int8 as (N, K, G), boxes of 128 x
+// 128 x 1; offsets / tile_off from (0); sx [S], sw [G, N] -> d [S, N] bf16.
+__global__ void __launch_bounds__(QTHREADS, 2)
+    combine_rows_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap wmap, const int* __restrict__ offsets,
+                        const int* __restrict__ tile_off, int groups, int S, int K, int N,
+                        const float* __restrict__ sx, const float* __restrict__ sw,
+                        bf16* __restrict__ d) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int tid = threadIdx.x;
+  if (tid == 0) ring_init(smem);
+  const int total = min(offsets[groups], S), vec = N / 8;   // 8 bf16 a store
+  for (size_t i = (size_t)blockIdx.x * QTHREADS + tid; i < (size_t)(S - total) * vec;
+       i += (size_t)gridDim.x * QTHREADS)
+    *reinterpret_cast<uint4*>(d + (size_t)(total + i / vec) * N + 8 * (i % vec)) =
+        make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  const int ct = (N + QN - 1) / QN, n = tile_off[groups] * ct;
+  const int count = n > (int)blockIdx.x ? (n - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  int8_ring<kDequant, false, true>(
+      smem, 0, count,
+      [&](int j) {
+        const int w = blockIdx.x + j * gridDim.x, item = w / ct;
+        const int g = find_group(tile_off, groups, item);
+        const int r0 = offsets[g] + (item - tile_off[g]) * QM;
+        return Unit{g, r0, min(min(r0 + QM, offsets[g + 1]), S) - r0, w % ct};
+      },
+      &xmap, &wmap, nullptr, nullptr, K, N, N / 2, QN, sx, sw,
+      [&](int row, int col, float v0, float v1) { store_pair(d, (size_t)row * N + col, v0, v1); },
+      nullptr, nullptr);
+}
 
-  for (int k0 = 0; k0 < total; k0 += FBK) {
-    for (int e = tid; e < BM * FBK; e += THREADS) {
-      const int t = t0 + e / FBK, k = k0 + e % FBK;
-      const bool in = t < n_tok && k < total;
-      const size_t at = (size_t)t * S + k;
-      ahi[(e / FBK) * CLDA + e % FBK] = in ? mhi[at] : zero;
-      alo[(e / FBK) * CLDA + e % FBK] = in ? mlo[at] : zero;
+// (2): the mask products.
+constexpr int CM = 128;                         // tokens a block: a computing warpgroup each 64
+constexpr int CN = 128;                         // columns a block
+constexpr int CK = 64;                          // rows of d (k) a stage: 128 bytes of a mask row
+constexpr int CSTAGES = 4;
+constexpr int CCONSUMERS = 256;                 // warpgroups 0 and 1 compute,
+constexpr int CTHREADS = CCONSUMERS + 32;       // warp 8 loads
+constexpr uint32_t C_B = CK * CN * 2;           // d: two boxes of 64 rows x 64 columns
+constexpr uint32_t C_A = 64 * CK * 2;           // a mask box: 64 tokens x 64 rows
+constexpr uint32_t C_STAGE = C_B + 4 * C_A;     // d, then hi / lo of warpgroup 0, then of 1
+constexpr uint32_t C_BARS_OFF = CSTAGES * C_STAGE;      // full[CSTAGES], empty[CSTAGES]
+constexpr uint32_t C_SMEM = C_BARS_OFF + 2 * CSTAGES * 8;
+static_assert(C_SMEM + 1024 <= 233472, "K8b's combine block exceeds an SM's shared memory");
+
+// hmap / lmap: m_hi / m_lo [n_tok, S] bf16 as (S, n_tok), boxes of 64 x 64 in
+// the 128-byte swizzle (tma_a; else unused: the loading warp reads mhi /
+// mlo), dmap: d [S, N] as (N, S), boxes of 64 x 64 -> out [n_tok, N].
+template <class OutT>
+__global__ void __launch_bounds__(CTHREADS, 1)
+    combine_kernel(const __grid_constant__ CUtensorMap hmap,
+                   const __grid_constant__ CUtensorMap lmap,
+                   const __grid_constant__ CUtensorMap dmap, const bf16* __restrict__ mhi,
+                   const bf16* __restrict__ mlo, const int* __restrict__ offsets, int groups,
+                   int n_tok, int S, int N, int tma_a, OutT* __restrict__ out) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C_BARS_OFF);
+  uint64_t* empty = full + CSTAGES;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t0 = blockIdx.x * CM, n0 = blockIdx.y * CN;
+  const int total = min(offsets[groups], S), nk = (total + CK - 1) / CK;
+  const int active = n_tok - t0 > 64 ? 2 : 1;   // computing warpgroups with live tokens
+  if (tid == 0)
+    for (int i = 0; i < CSTAGES; ++i) {
+      wg::mbar_init(&full[i], 32);              // each producer lane once
+      wg::mbar_init(&empty[i], 4 * active);     // each computing warp once
     }
-#pragma unroll
-    for (int i = 0; i < F_B_LOADS; ++i) {
-      const int c = tid + i * THREADS;
-      const int kk = k0 + c / (BN / 8), nn = n0 + 8 * (c % (BN / 8));
-      *reinterpret_cast<uint4*>(bs + (c / (BN / 8)) * FLDB_N + 8 * (c % (BN / 8))) =
-          (kk < total && nn < N) ? __ldg(reinterpret_cast<const uint4*>(d + (size_t)kk * N + nn))
-                                 : make_uint4(0u, 0u, 0u, 0u);
-    }
-    __syncthreads();
-    const int steps = min(FBK, total - k0 + 15) / 16;
-#pragma unroll
-    for (int s = 0; s < FBK / 16; ++s) {
-      if (s >= steps) break;
-      uint32_t b[4][2];
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        uint32_t r[4];
-        sgl::ldsm_x4_trans(r, bs + (16 * s + (lane & 15)) * FLDB_N + 32 * wn + 16 * p
-                                  + 8 * (lane >> 4));
-        b[2 * p][0] = r[0];
-        b[2 * p][1] = r[1];
-        b[2 * p + 1][0] = r[2];
-        b[2 * p + 1][1] = r[3];
+  __syncthreads();
+
+  if (warp == CCONSUMERS / 32) {  // the producer warp
+    for (int it = 0; it < nk; ++it) {
+      const int st = it % CSTAGES, k0 = it * CK;
+      if (it >= CSTAGES) wg::mbar_wait(&empty[st], (it / CSTAGES - 1) & 1);
+      unsigned char* stage = smem + st * C_STAGE;
+      const bool box_a = tma_a && k0 + CK <= total;
+      if (lane == 0) {
+        wg::mbar_expect_tx(&full[st], C_B + (box_a ? 2 * active * C_A : 0));
+        wg::tma_load_2d(stage, &dmap, n0, k0, &full[st]);
+        wg::tma_load_2d(stage + C_B / 2, &dmap, n0 + 64, k0, &full[st]);
+        if (box_a)
+          for (int h = 0; h < active; ++h) {
+            wg::tma_load_2d(stage + C_B + 2 * h * C_A, &hmap, k0, t0 + 64 * h, &full[st]);
+            wg::tma_load_2d(stage + C_B + (2 * h + 1) * C_A, &lmap, k0, t0 + 64 * h, &full[st]);
+          }
       }
+      if (!box_a) {  // 16-byte pieces of 8 mask values, swizzled as TMA would; 0 past the edges
+        for (int e = lane; e < active * 64 * (CK / 8); e += 32) {
+          const int r = e >> 3, pc = e & 7, t = t0 + r, kk = k0 + 8 * pc;
+          uint32_t hv[4], lv[4];
 #pragma unroll
-      for (int part = 0; part < 2; ++part) {    // the hi products, then the lo ones
-        const bf16* as = part ? alo : ahi;
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          sgl::ldsm_x4(a[mi], as + (32 * wm + 16 * mi + (lane & 15)) * CLDA + 16 * s
-                                  + 8 * (lane >> 4));
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int nj = 0; nj < 4; ++nj) sgl::mma_16816(acc[mi][nj], a[mi], b[nj]);
+          for (int j = 0; j < 4; ++j) {
+            __nv_bfloat162 h2 = __floats2bfloat162_rn(0.f, 0.f), l2 = h2;
+            const size_t at = (size_t)t * S + kk + 2 * j;
+            if (t < n_tok && kk + 2 * j < total) h2.x = mhi[at], l2.x = mlo[at];
+            if (t < n_tok && kk + 2 * j + 1 < total) h2.y = mhi[at + 1], l2.y = mlo[at + 1];
+            hv[j] = *reinterpret_cast<uint32_t*>(&h2);
+            lv[j] = *reinterpret_cast<uint32_t*>(&l2);
+          }
+          unsigned char* a =
+              stage + C_B + 2 * (r >> 6) * C_A + (r & 63) * 128 + ((pc ^ (r & 7)) << 4);
+          *reinterpret_cast<uint4*>(a) = make_uint4(hv[0], hv[1], hv[2], hv[3]);
+          *reinterpret_cast<uint4*>(a + C_A) = make_uint4(lv[0], lv[1], lv[2], lv[3]);
+        }
+        wg::fence_proxy();                      // the products read these stores
       }
+      wg::mbar_arrive(&full[st]);
     }
-    __syncthreads();
+    return;
   }
 
+  const int wgi = tid >> 7;
+  if (wgi >= active) return;
+  float acc[64];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int it = 0; it < nk; ++it) {
+    const int st = it % CSTAGES;
+    const unsigned char* stage = smem + st * C_STAGE;
+    const unsigned char* ah = stage + C_B + 2 * wgi * C_A;
+    wg::mbar_wait(&full[st], (it / CSTAGES) & 1);
+    wg::fence_proxy();                          // a stage's masks may come by plain stores
+    wg::fence_operands(acc);
+    wg::fence();
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int t = t0 + 32 * wm + 16 * mi + g8 + 8 * h;
-      if (t >= n_tok) continue;
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const int col = n0 + 32 * wn + 8 * nj + 2 * tq;
-        if (col < N) store_pair(out, (size_t)t * N + col, acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
-      }
+    for (int ks = 0; ks < CK / 16; ++ks) {      // 16 rows of d: the hi product, then the lo
+      const uint64_t b = wg::desc_sw128(stage + 16 * ks * 128, C_B / 2, 1024);
+      wg::mma_m64n128k16<1>(acc, wg::desc_sw128(ah + ks * 32, 16, 1024), b);
+      wg::mma_m64n128k16<1>(acc, wg::desc_sw128(ah + C_A + ks * 32, 16, 1024), b);
     }
+    wg::commit();
+    wg::wait_one();                            // the previous stage's products are done
+    wg::fence_operands(acc);
+    __syncwarp();
+    if (it > 0 && lane == 0) wg::mbar_arrive(&empty[(it - 1) % CSTAGES]);
+  }
+  wg::wait_all();
+  wg::fence_operands(acc);
+
+  // acc[4 i + 2 h + e]: token 16 (warp % 4) + lane / 4 + 8 h of the
+  // warpgroup's 64, column 8 i + 2 (lane % 4) + e of the tile
+  const int wq = warp & 3, g8 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = t0 + 64 * wgi + 16 * wq + g8 + 8 * h;
+    if (t >= n_tok) continue;
+#pragma unroll
+    for (int i = 0; i < CN / 8; ++i) {
+      const int col = n0 + 8 * i + 2 * t4;
+      if (col < N) store_pair(out, (size_t)t * N + col, acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+    }
+  }
 }
 
 }  // namespace k8
@@ -686,36 +779,90 @@ extern "C" int grouped_matmul_bf16_launch(const void* x, const void* w, const vo
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
-// K8b.  x [S, K] int8 (GMM1 output), w [G, K, N] int8, offsets / tile_off as
-// above, sx [S] f32, sw [G, N] f32, m_hi / m_lo [n_tok, S] bf16; scratch d [S,
+// K8b.  x [S, K] int8 (GMM1 output), w [G, K, N] int8 (both 16-byte
+// aligned: TMA), sizes [G] int32 (the group sizes), sx [S] f32, sw [G, N]
+// f32, m_hi / m_lo [n_tok, S] bf16; scratch offs [2 (G + 1)] int32 and d [S,
 // N] bf16 -> out [n_tok, N] of out_kind.  Needs K % 16 == 0 and N % 16 == 0.
-extern "C" int grouped_matmul_combine_launch(const void* x, const void* w, const void* offsets,
-                                             const void* tile_off, int groups, int S, int K,
-                                             int N, const void* sx, const void* sw,
-                                             const void* mhi, const void* mlo, int n_tok,
-                                             int out_kind, void* d, void* out, void* stream) {
+extern "C" int grouped_matmul_combine_launch(const void* x, const void* w, const void* sizes,
+                                             int groups, int S, int K, int N, const void* sx,
+                                             const void* sw, const void* mhi, const void* mlo,
+                                             int n_tok, int out_kind, void* offs, void* d,
+                                             void* out, void* stream) {
   if (n_tok == 0 || N == 0) return 0;
-  if (K % 16 != 0 || N % 16 != 0 || out_kind < kF32 || out_kind > kF16)
+  if (K % 16 != 0 || N % 16 != 0 || out_kind < kF32 || out_kind > kF16 || groups < 0 ||
+      (uintptr_t)x % 16 != 0 || (uintptr_t)w % 16 != 0 || (uintptr_t)d % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (S > 0)
-    k8::dequant_rows_kernel<<<dim3((N + k8::BN - 1) / k8::BN, (S + k8::BM - 1) / k8::BM + groups + 1),
-                              k8::THREADS, 0, s>>>(
-        (const int8_t*)x, (const int8_t*)w, (const int*)offsets, (const int*)tile_off, groups, S,
-        K, N, (const float*)sx, (const float*)sw, (__nv_bfloat16*)d);
-  const dim3 grid((N + k8::BN - 1) / k8::BN, (n_tok + k8::BM - 1) / k8::BM);
+  int* offsets = (int*)offs;
+  int* tile_off = offsets + groups + 1;
+  k8::combine_offsets_kernel<<<1, k8::OFF_THREADS, 0, s>>>((const int*)sizes, groups, offsets,
+                                                           tile_off);
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaFuncSetAttribute(k8::combine_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)k8::QSMEM);
+    cudaFuncSetAttribute(k8::combine_rows_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                         100);
+  }
+  if (S > 0) {
+    CUtensorMap xmap, wmap;
+    memset(&xmap, 0, sizeof(xmap));           // no k: no loads
+    memset(&wmap, 0, sizeof(wmap));
+    if (K > 0 && groups > 0) {
+      // x [S, K] as (K, S), boxes of 128 k x 64 rows; w [G, K, N] as (N, K, G)
+      const uint64_t xdims[2] = {(uint64_t)K, (uint64_t)S}, xstride[1] = {(uint64_t)K};
+      const uint32_t xbox[2] = {k8::QK, 64};
+      int rc = wg::tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, x, xdims, xstride, xbox);
+      const uint64_t wdims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)groups};
+      const uint64_t wstride[2] = {(uint64_t)N, (uint64_t)K * N};
+      const uint32_t wbox[3] = {k8::QN, k8::QK, 1};
+      if (rc == 0)
+        rc = wg::tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, w, wdims, wstride, wbox,
+                            CU_TENSOR_MAP_SWIZZLE_NONE);
+      if (rc != 0) return rc;
+    }
+    // units: at most (S / 128 + G) items x the column tiles
+    const long long units =
+        ((long long)(S + k8::QM - 1) / k8::QM + groups) * ((N + k8::QN - 1) / k8::QN);
+    const int blocks = (int)(units < 2LL * sms ? units : 2LL * sms);
+    k8::combine_rows_kernel<<<blocks, k8::QTHREADS, k8::QSMEM, s>>>(
+        xmap, wmap, offsets, tile_off, groups, S, K, N, (const float*)sx, (const float*)sw,
+        (__nv_bfloat16*)d);
+  }
+  // the masks by TMA where a row's 2 S bytes and both bases are 16-byte aligned
+  const int tma_a = S % 8 == 0 && (uintptr_t)mhi % 16 == 0 && (uintptr_t)mlo % 16 == 0;
+  CUtensorMap hmap, lmap, dmap;
+  memset(&hmap, 0, sizeof(hmap));
+  memset(&lmap, 0, sizeof(lmap));
+  memset(&dmap, 0, sizeof(dmap));
+  if (S > 0) {
+    const uint32_t box[2] = {64, 64};
+    const uint64_t ddims[2] = {(uint64_t)N, (uint64_t)S}, dstride[1] = {(uint64_t)N * 2};
+    int rc = wg::tensor_map(&dmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, d, ddims, dstride, box);
+    if (rc == 0 && tma_a) {
+      const uint64_t mdims[2] = {(uint64_t)S, (uint64_t)n_tok}, mstride[1] = {(uint64_t)S * 2};
+      rc = wg::tensor_map(&hmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, mhi, mdims, mstride, box);
+      if (rc == 0)
+        rc = wg::tensor_map(&lmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, mlo, mdims, mstride, box);
+    }
+    if (rc != 0) return rc;
+  }
+  const dim3 grid((n_tok + k8::CM - 1) / k8::CM, (N + k8::CN - 1) / k8::CN);
   const auto* hi = (const __nv_bfloat16*)mhi;
   const auto* lo = (const __nv_bfloat16*)mlo;
-  const auto* dd = (const __nv_bfloat16*)d;
-  const int* off = (const int*)offsets;
+  auto launch = [&](auto kernel, auto* o) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)k8::C_SMEM);
+    kernel<<<grid, k8::CTHREADS, k8::C_SMEM, s>>>(hmap, lmap, dmap, hi, lo, offsets, groups, n_tok,
+                                                  S, N, tma_a, o);
+  };
   if (out_kind == kF32)
-    k8::combine_kernel<<<grid, k8::THREADS, 0, s>>>(hi, lo, dd, off, groups, n_tok, S, N,
-                                                    (float*)out);
+    launch(k8::combine_kernel<float>, (float*)out);
   else if (out_kind == kBF16)
-    k8::combine_kernel<<<grid, k8::THREADS, 0, s>>>(hi, lo, dd, off, groups, n_tok, S, N,
-                                                    (__nv_bfloat16*)out);
+    launch(k8::combine_kernel<__nv_bfloat16>, (__nv_bfloat16*)out);
   else
-    k8::combine_kernel<<<grid, k8::THREADS, 0, s>>>(hi, lo, dd, off, groups, n_tok, S, N,
-                                                    (__half*)out);
+    launch(k8::combine_kernel<__half>, (__half*)out);
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,9 @@ never syncs on it); rows past the groups' total come out as zeros.
   takes JAX's default, :func:`select_gmm_tiles`'s width.
 - :func:`grouped_matmul_combine` (K8b) is the W8A8 GMM2 with the weighted
   top-k combine as a product of the bf16 hi / lo split of the f32 combine
-  mask with the bf16-rounded expert rows.
+  mask with the bf16-rounded expert rows;
+  :func:`grouped_matmul_combine_tiled_plain` is its kernel's order of work
+  on the CPU, for tests.
 - :func:`gmm_train` is the differentiable grouped matmul (JAX's
   ``custom_vjp``): forward on ``none``, dx on ``rhs_contract_last``, dw a loop
   of ``torch.matmul`` over the groups, as JAX leaves dw to XLA's
@@ -36,6 +38,8 @@ never syncs on it); rows past the groups' total come out as zeros.
 """
 
 from __future__ import annotations
+
+import bisect
 
 import torch
 
@@ -45,8 +49,7 @@ from sgl_kernel_npu_tpu_torch.utils.common import on_cuda
 from sgl_kernel_npu_tpu_torch.utils.counters import counted, launched
 
 EPILOGUES = ("none", "dequant", "dequant_swiglu", "dequant_swiglu_quant")
-TILE_M = 64   # sorted rows per work item of csrc/gmm_tile.cuh (K8b, K16a: BM)
-TILE_M_WG = 128   # of K8a's modes and K16b (gmm_int8_ring.cuh QM, grouped_matmul.cu WM)
+TILE_M_WG = 128   # item rows of K8a, K8b, K16a, K16b (gmm_int8_ring.cuh QM, grouped_matmul.cu WM)
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}   # csrc OutKind
 _P_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}        # dispatch_rows
 _EPI = {"dequant": 0, "none": 0, "dequant_swiglu_quant": 1, "dequant_swiglu": 2}
@@ -59,10 +62,9 @@ def _offsets(group_sizes: torch.Tensor) -> torch.Tensor:
     return off
 
 
-def _tile_offsets(group_sizes: torch.Tensor, tile_m: int = TILE_M) -> torch.Tensor:
+def _tile_offsets(group_sizes: torch.Tensor, tile_m: int = TILE_M_WG) -> torch.Tensor:
     """``[G + 1]`` prefix sums of each group's work items of ``tile_m`` rows
-    (64 for the 64-row tile, ``TILE_M_WG`` for K8a): a device computation,
-    no host sync."""
+    (``TILE_M_WG`` for the kernels): a device computation, no host sync."""
     return _offsets(torch.div(group_sizes.to(torch.int32) + tile_m - 1, tile_m,
                               rounding_mode="floor"))
 
@@ -239,7 +241,7 @@ def grouped_matmul_plain(x, w, group_sizes, scale_x=None, scale_w=None, *, epilo
 
 def _gate_col(j: torch.Tensor, ht: int) -> torch.Tensor:
     """The gate column of SwiGLU output column ``j`` when gate / up are packed
-    in slabs of ``2 ht`` columns (csrc/gmm_tile.cuh ``gate_col``); its up
+    in slabs of ``2 ht`` columns (csrc/gmm_int8_ring.cuh ``gate_col``); its up
     column is ``ht`` further."""
     return torch.div(j, ht, rounding_mode="floor") * 2 * ht + j % ht
 
@@ -542,21 +544,62 @@ def grouped_matmul_combine_plain(x, w, group_sizes, scale_x, scale_w, combine_hi
     return (hi @ d + lo @ d).to(out_dtype)
 
 
-@counted
-def grouped_matmul_combine(x, w, group_sizes, scale_x, scale_w, combine_hi, combine_lo, *,
-                           out_dtype=torch.float32):
-    """W8A8 grouped matmul with the weighted top-k combine fused (K8b):
-    ``out [n_tok, N] = hi @ d + lo @ d`` with ``d[r] = bf16(x[r] @ w[g(r)] *
-    scale_x[r] * scale_w[g(r)])`` for the rows in a group (0 elsewhere).
-    ``x [S, K]`` int8 expert-sorted rows, ``w [G, K, N]`` int8, ``scale_x
-    [S]``, ``scale_w [G, N]``, ``combine_hi`` / ``combine_lo [n_tok, S]`` the
-    bf16 hi / lo split of the f32 weight mask (:func:`combine_masks`).
-    JAX's ``tm`` / ``tk`` / ``tn`` are TPU schedule and not taken.  CUDA
-    tensors launch ``csrc/grouped_matmul.cu``; CPU tensors take
-    :func:`grouped_matmul_combine_plain`."""
-    args = (x, w, group_sizes, scale_x, scale_w, combine_hi, combine_lo)
-    if not on_cuda(*args):
-        return grouped_matmul_combine_plain(*args, out_dtype=out_dtype)
+COMBINE_BLOCKS = 264   # K8b's first pass on an H100: two blocks on each of 132 SMs
+
+
+def combine_row_units(group_sizes, s: int, n: int, blocks: int = COMBINE_BLOCKS) -> list[list]:
+    """The units of K8b's first pass (csrc/grouped_matmul.cu
+    ``combine_rows_kernel``) by block: (128-row item, 128-column tile) units
+    ``w = item · ct + bx``, block b taking ``b, b + blocks, ...``, each as
+    ``(g, r0, rows, bx)`` with its group found as the kernel finds it (the
+    last group whose first item is at or before it) and its rows cut at the
+    group's end and at ``s`` (syncs on the sizes)."""
+    offsets = _offsets(group_sizes).tolist()
+    tile_off = _tile_offsets(group_sizes, TILE_M_WG).tolist()
+    ct = -(-n // TILE_M_WG)
+    by_block = []
+    for b in range(blocks):
+        units = []
+        for w in range(b, tile_off[-1] * ct, blocks):
+            item = w // ct
+            g = bisect.bisect_right(tile_off, item, 0, len(tile_off) - 1) - 1
+            r0 = offsets[g] + (item - tile_off[g]) * TILE_M_WG
+            units.append((g, r0, min(r0 + TILE_M_WG, offsets[g + 1], s) - r0, w % ct))
+        by_block.append(units)
+    return by_block
+
+
+def grouped_matmul_combine_tiled_plain(x, w, group_sizes, scale_x, scale_w, combine_hi,
+                                       combine_lo, *, out_dtype=torch.float32):
+    """The CUDA K8b kernels' order of work on the CPU, for tests (no caller
+    on the main path) → :func:`grouped_matmul_combine`'s output.  ``d`` unit
+    by unit of :func:`combine_row_units` (each unit's exact sum, rounded to
+    f32 once, ``× scale_x[row] × scale_w[g, col]``, to bf16; rows past the
+    total 0), then the mask products over the rows of d below the total in
+    order, in steps of 16 rows (a ``wgmma`` k-step), each the hi product then
+    the lo product, its exact sum (f64) added into one f32 accumulator; the
+    mask columns past the total are never read."""
+    s, n = x.shape[0], w.shape[2]
+    sx, sw = scale_x.float(), scale_w.float()
+    d = torch.zeros((s, n), dtype=torch.float32)
+    for units in combine_row_units(group_sizes, s, n):
+        for g, r0, rows, bx in units:
+            cols = slice(bx * TILE_M_WG, min((bx + 1) * TILE_M_WG, n))
+            acc = (x[r0:r0 + rows].double() @ w[g, :, cols].double()).float()   # exact
+            d[r0:r0 + rows, cols] = acc * sx[r0:r0 + rows, None] * sw[g, cols][None, :]
+    d = d.to(torch.bfloat16).double()
+    total = min(int(group_sizes.sum()), s)
+    acc = torch.zeros((combine_hi.shape[0], n), dtype=torch.float32)
+    for k0 in range(0, total, 16):
+        k1 = min(k0 + 16, total)
+        for m in (combine_hi, combine_lo):
+            acc = (acc.double() + m[:, k0:k1].double() @ d[k0:k1]).float()
+    return acc.to(out_dtype)
+
+
+def _combine_launch(x, w, group_sizes, scale_x, scale_w, combine_hi, combine_lo, out_dtype):
+    """K8b's three launches → ``(out, d)``: the wrapper's output and its first
+    pass's bf16 rows (a scratch the caller may read)."""
     s, k = x.shape
     g, k_w, n = w.shape
     n_tok = combine_hi.shape[0]
@@ -573,16 +616,39 @@ def grouped_matmul_combine(x, w, group_sizes, scale_x, scale_w, combine_hi, comb
     if sx.shape != (s,) or sw.shape != (g, n):
         raise ValueError(f"grouped_matmul_combine scales: {tuple(sx.shape)}, {tuple(sw.shape)}")
     x, w = x.contiguous(), w.contiguous()
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("grouped_matmul_combine reads x and w by TMA: both must start 16-byte "
+                         "aligned")
     hi, lo = combine_hi.contiguous(), combine_lo.contiguous()
-    offsets, tile_off = _offsets(group_sizes), _tile_offsets(group_sizes)
+    sizes = group_sizes.to(torch.int32).contiguous()
+    offs = torch.empty(2 * (g + 1), dtype=torch.int32, device=dev)
     d = torch.empty((s, n), dtype=torch.bfloat16, device=dev)
     out = torch.empty((n_tok, n), dtype=out_dtype, device=dev)
     lib = cuda_lib.load_library()
     cuda_lib.check(lib, lib.grouped_matmul_combine_launch(
-        x.data_ptr(), w.data_ptr(), offsets.data_ptr(), tile_off.data_ptr(), g, s, k, n,
-        sx.data_ptr(), sw.data_ptr(), hi.data_ptr(), lo.data_ptr(), n_tok,
-        _out_kind("grouped_matmul_combine", out_dtype), d.data_ptr(), out.data_ptr(),
-        cuda_lib.stream_ptr(x)), "grouped_matmul_combine")
+        x.data_ptr(), w.data_ptr(), sizes.data_ptr(), g, s, k, n, sx.data_ptr(), sw.data_ptr(),
+        hi.data_ptr(), lo.data_ptr(), n_tok, _out_kind("grouped_matmul_combine", out_dtype),
+        offs.data_ptr(), d.data_ptr(), out.data_ptr(), cuda_lib.stream_ptr(x)),
+        "grouped_matmul_combine")
+    return out, d
+
+
+@counted
+def grouped_matmul_combine(x, w, group_sizes, scale_x, scale_w, combine_hi, combine_lo, *,
+                           out_dtype=torch.float32):
+    """W8A8 grouped matmul with the weighted top-k combine fused (K8b):
+    ``out [n_tok, N] = hi @ d + lo @ d`` with ``d[r] = bf16(x[r] @ w[g(r)] *
+    scale_x[r] * scale_w[g(r)])`` for the rows in a group (0 elsewhere).
+    ``x [S, K]`` int8 expert-sorted rows, ``w [G, K, N]`` int8, ``scale_x
+    [S]``, ``scale_w [G, N]``, ``combine_hi`` / ``combine_lo [n_tok, S]`` the
+    bf16 hi / lo split of the f32 weight mask (:func:`combine_masks`).
+    JAX's ``tm`` / ``tk`` / ``tn`` are TPU schedule and not taken.  CUDA
+    tensors launch ``csrc/grouped_matmul.cu`` (x and w 16-byte aligned);
+    CPU tensors take :func:`grouped_matmul_combine_plain`."""
+    args = (x, w, group_sizes, scale_x, scale_w, combine_hi, combine_lo)
+    if not on_cuda(*args):
+        return grouped_matmul_combine_plain(*args, out_dtype=out_dtype)
+    out, _ = _combine_launch(*args, out_dtype)
     grouped_matmul_combine.launches += 1
     return out
 

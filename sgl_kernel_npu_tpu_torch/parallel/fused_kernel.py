@@ -16,7 +16,9 @@ Counterpart of ``sgl_kernel_npu_tpu/parallel/fused_kernel.py``:
 
 CPU tensors (and ``plain=True``) take :func:`fused_dispatch_gmm1_rank_plain`:
 ``all_to_all_single`` of ``xsend`` by source, then ``gmm_dequant_ref`` per
-expert, cast to bf16.
+expert, cast to bf16.  :func:`fused_dispatch_gmm1_rank_tiled_plain` walks
+the kernel's units (:func:`gemm1_units`) on the CPU, for tests: bit-equal to
+the plain version.
 
 Departures: the TPU's chunk-major window ``[NK, R, ER, tk]``, its
 per-chunk semaphores and ``_fused_tiles`` (the tile selector) are a TPU
@@ -51,8 +53,38 @@ class _Args(ctypes.Structure):
     """``csrc/fused_kernel.cu``'s Args: every field 8 bytes."""
 
     _fields_ = [(name, ctypes.c_longlong) for name in (
-        "peers", "me", "R", "epoch", "half", "E", "seg", "H", "N", "off_x", "off_c", "xsend",
-        "counts", "w1", "sw1", "sx", "out")]
+        "peers", "mine", "me", "R", "epoch", "half", "E", "seg", "H", "N", "off_x", "off_c",
+        "xsend", "counts", "w1", "sw1", "sx", "out", "ticket")]
+
+
+ITEM_ROWS = 128    # rows of a unit's item (csrc/gmm_int8_ring.cuh QM)
+UNIT_COLS = 128    # columns of a unit (QN)
+_TICKETS: dict = {}
+
+
+def _ticket(t: torch.Tensor) -> torch.Tensor:
+    """The kernel's unit counter on t's device and stream: zero, and set back
+    to zero by every launch (after its grid sync), so only a first use writes
+    it."""
+    key = (t.device, cuda_lib.stream_ptr(t))
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=t.device)
+    return _TICKETS[key]
+
+
+def gemm1_units(e_local: int, num_ranks: int, seg: int, n: int) -> list[tuple]:
+    """The kernel's GEMM1 units in ticket order: ``(e, s, r0, tile_rows,
+    bx)``, expert e's rows from source s, the segment's rows ``r0 ..
+    r0 + tile_rows`` (items of ``ITEM_ROWS`` aligned to the segment's first
+    row) times column tile bx of ``UNIT_COLS`` columns.  Its output rows are
+    ``(e R + s) seg + r0 + i``: the window's rows, expert-major."""
+    tiles, ct = -(-seg // ITEM_ROWS), -(-n // UNIT_COLS)
+    units = []
+    for w in range(e_local * num_ranks * tiles * ct):
+        item, bx = divmod(w, ct)
+        e, s, t = item // (num_ranks * tiles), (item // tiles) % num_ranks, item % tiles
+        units.append((e, s, t * ITEM_ROWS, min(ITEM_ROWS, seg - t * ITEM_ROWS), bx))
+    return units
 
 
 def _check(xsend, w1, sw1, sx, num_ranks, seg):
@@ -88,6 +120,43 @@ def fused_dispatch_gmm1_rank_plain(xsend, w1, sw1, sx, *, group=None, num_ranks:
     return out
 
 
+def fused_dispatch_gmm1_rank_tiled_plain(xsend, w1, sw1, sx, *, group=None, num_ranks: int,
+                                         seg: int, counts=None):
+    """The CUDA kernel's walk on the CPU, for tests (no caller on the main
+    path) → :func:`fused_dispatch_gmm1_rank`'s output.  The blocks of
+    ``xsend`` and the send counts exchanged as the kernel's sends land them:
+    the received rows in the window's expert-major order (row ``(e R + s) seg
+    + i``) with the count that came with each (source, expert) segment; then
+    each unit of :func:`gemm1_units`: zeros for its rows past the count (all
+    of them in a dead segment), and for its live rows the exact sum over
+    stages of 128 k, rounded to f32 once, ``× sx[row] × sw1[e, col]``, cast
+    to bf16.  Rows past a count are never read, whatever ``xsend`` holds
+    there."""
+    _check(xsend, w1, sw1, sx, num_ranks, seg)
+    e_local, h, n = w1.shape
+    r = num_ranks
+    sent = (torch.full((r, e_local), seg, dtype=torch.int32) if counts is None
+            else counts.to(torch.int32).clamp(0, seg).cpu())
+    rcnt = pallas_all_to_all_plain(sent.to(xsend.device), group=group).cpu()   # [R src, E]
+    recv = pallas_all_to_all_plain(xsend.contiguous(), group=group)          # [R src, E·seg, H]
+    win = recv.reshape(r, e_local, seg, h).transpose(0, 1).reshape(e_local * r * seg, h)
+    sxf = sx.float().reshape(-1)
+    out = torch.empty((e_local * r * seg, n), dtype=torch.bfloat16, device=xsend.device)
+    for e, s, r0, tile_rows, bx in gemm1_units(e_local, r, seg, n):
+        rows = min(max(int(rcnt[s, e]) - r0, 0), tile_rows)
+        row0 = (e * r + s) * seg + r0
+        cols = slice(bx * UNIT_COLS, min((bx + 1) * UNIT_COLS, n))
+        out[row0 + rows:row0 + tile_rows, cols] = 0
+        if rows:
+            acc = torch.zeros((rows, cols.stop - cols.start), dtype=torch.float64)
+            for k0 in range(0, h, 128):                              # exact: int8 sums in f64
+                acc += (win[row0:row0 + rows, k0:k0 + 128].double()
+                        @ w1[e, k0:k0 + 128, cols].double())
+            d = acc.float() * sxf[row0:row0 + rows, None] * sw1[e, cols].float()[None, :]
+            out[row0:row0 + rows, cols] = d.to(torch.bfloat16)
+    return out.reshape(e_local, r * seg, n)
+
+
 @counted
 def fused_dispatch_gmm1_rank(xsend, w1, sw1, sx, *, group=None, num_ranks: int, seg: int,
                              counts=None, plain: bool = False):
@@ -118,18 +187,20 @@ def fused_dispatch_gmm1_rank(xsend, w1, sw1, sx, *, group=None, num_ranks: int, 
         raise ValueError(f"{num_ranks} ranks x {e_local} local experts exceed the window's "
                          f"{MAX_SEGMENTS} arrival flags")
     dev = xsend.device
+    ws = [w1.contiguous(), sw1.float().contiguous(), sx.float().contiguous()]
+    if ws[0].data_ptr() % 16:
+        raise ValueError("fused_dispatch_gmm1_rank reads w1 by TMA: it must start 16-byte aligned")
     off_c = round_up(num_ranks * e_local * seg * h, 256)
     win = window(group, dev)
     win.ensure(off_c + num_ranks * e_local * 4)
     xs = xsend.contiguous()
     cnt = None if counts is None else counts.to(torch.int32).contiguous()
-    ws = [w1.contiguous(), sw1.float().contiguous(), sx.float().contiguous()]
     out = torch.empty((e_local, num_ranks * seg, n), dtype=torch.bfloat16, device=dev)
-    args = _Args(peers=win.peers.data_ptr(), me=me, R=num_ranks, epoch=win.next_epoch(),
-                 half=win.half, E=e_local, seg=seg, H=h, N=n, off_x=0, off_c=off_c,
-                 xsend=xs.data_ptr(), counts=0 if cnt is None else cnt.data_ptr(),
+    args = _Args(peers=win.peers.data_ptr(), mine=win.base, me=me, R=num_ranks,
+                 epoch=win.next_epoch(), half=win.half, E=e_local, seg=seg, H=h, N=n, off_x=0,
+                 off_c=off_c, xsend=xs.data_ptr(), counts=0 if cnt is None else cnt.data_ptr(),
                  w1=ws[0].data_ptr(), sw1=ws[1].data_ptr(), sx=ws[2].data_ptr(),
-                 out=out.data_ptr())
+                 out=out.data_ptr(), ticket=_ticket(xs).data_ptr())
     lib = cuda_lib.load_library()
     cuda_lib.check(lib, lib.fused_kernel_launch(ctypes.addressof(args), cuda_lib.stream_ptr(xs)),
                    "fused_dispatch_gmm1_rank")

@@ -2268,12 +2268,16 @@ def test_grouped_matmul_float_rows_into_epilogue_raise_on_card(dev):
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("sizes,s,n_tok", [((30, 26, 0, 40), 100, 24), ((0, 0, 7, 0), 9, 1),
-                                           ((64, 0, 130, 1), 260, 70), ((0, 0, 0, 0), 5, 3)])
+                                           ((64, 0, 130, 1), 260, 70), ((0, 0, 0, 0), 5, 3),
+                                           ((30, 26, 0, 40), 104, 24), ((64, 64, 64, 64), 256, 130),
+                                           ((0, 3, 0, 0), 8, 200), ((200, 0, 56, 0), 256, 8)])
 def test_grouped_matmul_combine_kernel(dev, sizes, s, n_tok, out_dtype):
-    """K8b against its plain version: empty groups, S % 64 != 0, rows past
-    the total (their mask columns weigh nothing), within 1e-5 of the largest
-    |value| (exact bf16 products summed in f32 in another order), plus one
-    ulp of each value in a bf16 / f16 output; one launch."""
+    """K8b against its plain version: empty groups, S % 64 != 0, S % 8 != 0
+    (the masks gathered by plain loads) and S % 8 == 0 (the masks by TMA, a
+    stage straddling the total by plain loads), rows past the total (their
+    mask columns weigh nothing), more than 128 tokens, within 1e-5 of the
+    largest |value| (exact bf16 products summed in f32 in another order),
+    plus one ulp of each value in a bf16 / f16 output; one launch."""
     gen = torch.Generator(device=dev).manual_seed(s)
     k, n = 256, 384
     x, w, gs, sx, sw = _int8_case(gen, dev, sizes, s, k, n)
@@ -2292,6 +2296,54 @@ def test_grouped_matmul_combine_kernel(dev, sizes, s, n_tok, out_dtype):
     g, wv = got.float(), want.float()
     excess = (g - wv).abs() - ulp * 2 * wv.abs() - 1e-5 * float(wv.abs().max().clamp_min(1e-30))
     assert float(excess.max()) <= 0 if excess.numel() else True
+
+
+@pytest.mark.parametrize("sizes,s,n_tok", [((30, 26, 0, 40), 100, 24), ((64, 64, 64, 64), 256, 130),
+                                           ((200, 0, 56, 0), 300, 8)])
+def test_grouped_matmul_combine_rows_bit_equal_to_k8a_dequant(dev, sizes, s, n_tok):
+    """K8b's first pass writes d bit-equal to K8a ``dequant`` to bf16 on the
+    same rows (the same ring and epilogue), rows past the total 0; its
+    output within 1e-5 of the largest |value| of the mask products of that
+    d in f64 (the kernel's f32 sums in another order)."""
+    gen = torch.Generator(device=dev).manual_seed(s + n_tok)
+    x, w, gs, sx, sw = _int8_case(gen, dev, sizes, s, 256, 384)
+    mask = torch.rand((n_tok, s), generator=gen, device=dev)
+    hi = mask.to(torch.bfloat16)
+    lo = (mask - hi.float()).to(torch.bfloat16)
+    out, d = grouped_matmul._combine_launch(x, w, gs, sx, sw, hi, lo, torch.float32)
+    want_d = grouped_matmul.grouped_matmul(x, w, gs, sx, sw, epilogue="dequant",
+                                           out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(d, want_d)
+    total = min(sum(sizes), s)
+    ref = (hi[:, :total].double() @ d[:total].double() + lo[:, :total].double()
+           @ d[:total].double())
+    assert float((out.double() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_k8b_and_k16a_enqueue_their_kernels_alone(dev):
+    """A CUDA graph capture of a K8b call holds its three kernels once each
+    (the offsets, the rows, the mask products) and nothing else; of a K16a
+    call, its one cooperative kernel."""
+    from sgl_kernel_npu_tpu_torch.parallel import fused_kernel
+    from sgl_kernel_npu_tpu_torch.utils.trace_profile import graph_kernels
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x, w, gs, sx, sw = _int8_case(gen, dev, (30, 26, 0, 40), 96, 256, 384)
+    hi = torch.rand((24, 96), generator=gen, device=dev).to(torch.bfloat16)
+    acts = graph_kernels(lambda: grouped_matmul.grouped_matmul_combine(x, w, gs, sx, sw, hi, hi))
+    names = [n for n, _ in acts]
+    assert [c for _, c in acts] == [1, 1, 1] and all(
+        any(k in n for n in names) for k in ("combine_offsets_kernel", "combine_rows_kernel",
+                                             "combine_kernel")), acts
+    e, seg, h, n = 4, 70, 512, 256
+    xsend = torch.randint(-40, 40, (1, e * seg, h), generator=gen, device=dev, dtype=torch.int8)
+    w1 = torch.randint(-40, 40, (e, h, n), generator=gen, device=dev, dtype=torch.int8)
+    sw1 = torch.rand((e, n), generator=gen, device=dev) / 100
+    sx1 = torch.rand((e, seg), generator=gen, device=dev) / 10 + 0.01
+    acts = graph_kernels(lambda: fused_kernel.fused_dispatch_gmm1_rank(
+        xsend, w1, sw1, sx1, group=_nccl_group(), num_ranks=1, seg=seg))
+    assert len(acts) == 1 and acts[0][1] == 1 and "fused_kernel_kernel" in acts[0][0], acts
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -2340,6 +2392,67 @@ def test_fused_dispatch_gmm1_rank_kernel(dev, seg, counts):
     rel = (got.float() - want.float()).abs() / want.float().abs().clamp_min(1e-30)
     assert float(rel.max()) <= 2 ** -7
     assert torch.equal(got == 0, want == 0)
+
+
+def _k16a_case(gen, dev, seg, counts, e=4, h=512, n=256):
+    """K16a's inputs on one rank: rows placed as the wrapper places them
+    (zeros past each segment's count), and the K8a ``dequant`` call on the
+    same placed rows (every segment a group of seg rows)."""
+    xsend = torch.randint(-40, 40, (1, e * seg, h), generator=gen, device=dev, dtype=torch.int8)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=dev).reshape(1, e)
+    live = torch.arange(seg, device=dev)[None, :] < cnt.reshape(e, 1)
+    xsend = torch.where(live.reshape(1, e * seg, 1), xsend, 0)
+    w1 = torch.randint(-40, 40, (e, h, n), generator=gen, device=dev, dtype=torch.int8)
+    sw = torch.rand((e, n), generator=gen, device=dev) / 100
+    sx = torch.rand((e, seg), generator=gen, device=dev) / 10 + 0.01
+    gs = torch.full((e,), seg, dtype=torch.int32, device=dev)
+    k8a = lambda: grouped_matmul.grouped_matmul(xsend.reshape(e * seg, h), w1, gs,  # noqa: E731
+                                                sx.reshape(-1), sw, epilogue="dequant")
+    return xsend, w1, sw, sx, cnt, k8a
+
+
+@pytest.mark.parametrize("seg,counts", [(8, [0, 5, 8, 1]), (70, [0, 70, 33, 0]),
+                                        (128, [128, 0, 1, 127]), (256, [256, 129, 0, 64]),
+                                        (200, [0, 0, 0, 0])])
+def test_fused_dispatch_gmm1_rank_bit_equal_to_k8a_dequant(dev, seg, counts):
+    """K16a on one rank bit-equal to K8a ``dequant`` on the placed rows (the
+    same ring and epilogue; rows past a count 0 on both sides) at segments
+    of 8, 70 (items not aligned to 128 rows in the window), 128 and 256 rows
+    (two items a segment) with dead, partial and full segments; one launch,
+    the unit counter back at 0."""
+    from sgl_kernel_npu_tpu_torch.parallel import fused_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(seg + 1)
+    xsend, w1, sw, sx, cnt, k8a = _k16a_case(gen, dev, seg, counts)
+    before = fused_kernel.fused_dispatch_gmm1_rank.launches
+    got = fused_kernel.fused_dispatch_gmm1_rank(xsend, w1, sw, sx, group=_nccl_group(),
+                                                num_ranks=1, seg=seg, counts=cnt)
+    want = k8a()
+    torch.cuda.synchronize()
+    assert fused_kernel.fused_dispatch_gmm1_rank.launches == before + 1
+    assert torch.equal(got.reshape(want.shape), want)
+    assert all(int(t.item()) == 0 for t in fused_kernel._TICKETS.values())
+
+
+def test_fused_dispatch_gmm1_rank_after_a_call_on_no_rows(dev):
+    """A K16a call whose counts are all zero (every unit zero fill) between
+    two real calls on other rows: it gives zeros, and the third call is
+    right (bit-equal to K8a ``dequant``): the window's epoch, its flags and
+    the unit counter carry nothing over."""
+    from sgl_kernel_npu_tpu_torch.parallel import fused_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    kw = dict(group=_nccl_group(), num_ranks=1, seg=70)
+    first = _k16a_case(gen, dev, 70, [5, 70, 0, 33])
+    empty = _k16a_case(gen, dev, 70, [0, 0, 0, 0])
+    third = _k16a_case(gen, dev, 70, [70, 1, 69, 0])
+    outs = [fused_kernel.fused_dispatch_gmm1_rank(*c[:4], counts=c[4], **kw)
+            for c in (first, empty, third)]
+    wants = [c[5]() for c in (first, third)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0].reshape(wants[0].shape), wants[0])
+    assert not outs[1].any()
+    assert torch.equal(outs[2].reshape(wants[1].shape), wants[1])
 
 
 def test_fused_dispatch_gmm1_kernel_matches_plain(dev):

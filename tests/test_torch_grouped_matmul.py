@@ -446,8 +446,8 @@ def _work_items(group_sizes, tile_m):
     return items
 
 
-# ids: the 64-row tile (int8 only: K8b, K16a, K16b) and K8a's 128-row items
-@pytest.mark.parametrize("tile_m", [tgm.TILE_M, tgm.TILE_M_WG], ids=["int8", "bf16"])
+# ids: items of 64 rows (any tile size the offsets take) and the kernels' 128
+@pytest.mark.parametrize("tile_m", [64, tgm.TILE_M_WG], ids=["int8", "bf16"])
 def test_work_items_cover_each_row_once(tile_m):
     """Every row below the groups' total lies in exactly one work item, of
     its own group; the rows past the total in none."""
@@ -464,19 +464,19 @@ def test_work_items_cover_each_row_once(tile_m):
 
 def test_bf16_work_items_per_group():
     """Groups of 0, 1, 64, 65, 128 and 129 rows take 0, 1, 1, 1, 1 and 2
-    items of K8a's 128 rows (its bf16 and int8 modes); the 64-row tile of
-    K8b, K16a and K16b takes 0, 1, 1, 2, 2, 3."""
+    items of the kernels' 128 rows (the offsets' default: K8a's modes, K8b,
+    K16a, K16b); items of 64 rows would be 0, 1, 1, 2, 2, 3."""
     sizes = torch.tensor([0, 1, 64, 65, 128, 129], dtype=torch.int32)
-    assert tgm.TILE_M == 64 and tgm.TILE_M_WG == 128
-    assert torch.diff(tgm._tile_offsets(sizes, tgm.TILE_M_WG)).tolist() == [0, 1, 1, 1, 1, 2]
-    assert torch.diff(tgm._tile_offsets(sizes)).tolist() == [0, 1, 1, 2, 2, 3]
+    assert tgm.TILE_M_WG == 128
+    assert torch.diff(tgm._tile_offsets(sizes)).tolist() == [0, 1, 1, 1, 1, 2]
+    assert torch.diff(tgm._tile_offsets(sizes, 64)).tolist() == [0, 1, 1, 2, 2, 3]
 
 
 def test_work_item_offsets_need_no_host_sync():
     """The offsets are device computations: on meta tensors (whose values
     cannot be read) they come out with their shapes and dtypes."""
     sizes = torch.empty(32, dtype=torch.int32, device="meta")
-    for tile_m in (tgm.TILE_M, tgm.TILE_M_WG):
+    for tile_m in (64, tgm.TILE_M_WG):
         off = tgm._tile_offsets(sizes, tile_m)
         assert off.device.type == "meta" and off.shape == (33,) and off.dtype == torch.int32
     assert tgm._offsets(sizes).shape == (33,)
