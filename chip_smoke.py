@@ -6,7 +6,8 @@
 Phases (any failure raises and the script exits non-zero without a result):
 
 1. Build the hand-written kernels from ``sgl_kernel_npu_tpu_torch/csrc`` with
-   nvcc for sm_90a; print the build time and the card's name and power limit.
+   nvcc for sm_90a; print the build time and the card's name and power limit;
+   time an empty kernel's launch (the launch floor of the kernels' times).
 2. Weights (after a one-rank NCCL group is made for [4i] / [4j]):
    DeepSeek-V3 at its published widths (depth cut from 61 to 2
    layers, random weights from a seed) with DeepSeek-V3.2's indexer
@@ -24,7 +25,10 @@ Phases (any failure raises and the script exits non-zero without a result):
    2048-row chunk at context 4096), decode_mla also across many of its key
    splits (those contexts with a row of context 1 and a pad row, bf16 and
    int8) and with its in-kernel int8 fold bit-equal to the wrapper fold
-   around the same kernel, quant_matmul also at a 64-row chunk's wo
+   around the same kernel, quant_per_token bit-equal to its plain version
+   at a decode step's two widths, at [4k]'s 64-token and a 2048-token
+   chunk's rows, in f32 and on the element path, quant_matmul also at a
+   64-row chunk's wo
    and at a 2048-row chunk's wdqkv and wuq (its wgmma path; exact at 17, 65
    and 2047 rows too), grouped_matmul at 2048 and 4096 tokens
    of top-8 routing, the DSA kernels on a 2048-token chunk at context 4096
@@ -67,8 +71,9 @@ Phases (any failure raises and the script exits non-zero without a result):
    replayed; then a decode step in token mode (K10 through
    ``lightning_indexer``), its token selections replayed.
 4e. GPT-OSS-20B at its published widths (2 of 24 layers, random bf16
-   weights from a seed, nonzero biases, untied head): rms_norm (K6a),
-   swiglu_oai (K7b), attention_sinks (K12a) and, over the packed cache,
+   weights from a seed, nonzero biases, untied head): rms_norm (K6a, also
+   bit-equal to its CPU mirror ``rms_norm_rows_plain``; at Llama's width in
+   [4f]), swiglu_oai (K7b), attention_sinks (K12a) and, over the packed cache,
    attention_sinks_packed (K12b / K12c), attention_sinks_prefill_pallas
    (K12d) held to their plain versions over bf16, int8, packed and packed
    int8 caches at the shapes the serve gives them and on ragged cases (ctx
@@ -221,8 +226,8 @@ Phases (any failure raises and the script exits non-zero without a result):
    bit-equal to K5 + K3 and timed.
 6. Print the kernels' JSON line (38 rows for the 32 TPU kernel sites, K8a's
    modes and K3's float-input mode in rows of their own, each from its own
-   result), the card line, and last the result line ``{"ok": true,
-   "device": {...}}``.
+   result; and ``launch_floor_ms``, the empty kernel's time), the card line,
+   and last the result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -260,6 +265,7 @@ from sgl_kernel_npu_tpu_torch.ops import (  # noqa: E402
     matmul,
     norm,
     quant,
+    row_reduce,
 )
 from sgl_kernel_npu_tpu_torch.ops.attention import decode_attention as da  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import lightning_indexer as li  # noqa: E402
@@ -955,27 +961,28 @@ def check_quant_matmul(gen, label, w, ds, bias, m, out_dtype=torch.float32, time
     return r
 
 
-def check_quant_per_token(gen, rows, hidden, timed):
-    """K5 on bf16 ``[rows, hidden]`` with a zero row: int8 within one level
-    (the kernel and torch may round a tie differently after an ulp of the
-    scale), scales rtol 1e-6."""
-    x = randn(gen, (rows, hidden), scale=3.0)
+def check_quant_per_token(gen, rows, hidden, timed, dtype=torch.bfloat16):
+    """K5 on ``[rows, hidden]`` with a zero row: q and the scales bit-equal to
+    its plain version (the row's max does not depend on the order; IEEE
+    division, round half to even, saturate)."""
+    x = randn(gen, (rows, hidden), dtype, scale=3.0)
     x[rows // 2] = 0
     q, s = quant.quant_per_token(x)
     q_p, s_p = quant.quant_per_token_ref(x)
     torch.cuda.synchronize()
     err = max_abs(q, q_p)
-    rel = float(((s - s_p).abs() / s_p).max())
-    log(f"  quant_per_token [{rows}, {hidden}] bf16, zero row: max|q err| {err:.0f} level "
-        f"(tol 1), scale rel err {rel:.2e} (tol 1e-6)")
-    if not (err <= 1 and rel <= 1e-6 and not q[rows // 2].any()):
-        raise AssertionError(f"quant_per_token disagrees with its plain version: {err}, {rel}")
+    same = bool(torch.equal(q, q_p) and torch.equal(s, s_p))
+    log(f"  quant_per_token [{rows}, {hidden}] {str(dtype)[6:]}, zero row "
+        f"({row_reduce.launch_plan(x, q)}): q and scales bit-equal to plain {same} (max|q err| "
+        f"{err:.0f} level)")
+    if not same:
+        raise AssertionError(f"quant_per_token disagrees with its plain version: {err}")
     if not timed:
         return None
     r = dict(err=err, ms=time_ms(lambda: quant.quant_per_token(x), 50),
              plain_ms=time_ms(lambda: quant.quant_per_token_ref(x), 20), library_ms=None)
-    r["bound_ms"], r["bound_by"] = bound(3 * rows * hidden + 4 * rows, 4 * rows * hidden,
-                                         F32_FLOPS)
+    r["bound_ms"], r["bound_by"] = bound(
+        (x.element_size() + 1) * rows * hidden + 4 * rows, 4 * rows * hidden, F32_FLOPS)
     log(f"    {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} "
         f"{r['bound_by']})")
     return r
@@ -1061,6 +1068,12 @@ def check_w8a8_kernels(gen, mla_wq, dense_wq):
             check_quant_matmul(gen, "small ragged", w_small, ds_small, b, 1, dt)
     k5 = [check_quant_per_token(gen, MAX_BATCH, h, True)
           for h in (dq["wo"][0].shape[1], dq["ws_gate_up"][0].shape[1])]
+    # K5 as the expert-parallel wire quant ([4k]'s 64-token chunk) and at a
+    # long chunk's rows; f32 rows, and a width that takes the element path
+    for rows in (PREFILL_CHUNK, LONG_CHUNK):
+        check_quant_per_token(gen, rows, CFG.hidden, True)
+    check_quant_per_token(gen, MAX_BATCH, dq["wo"][0].shape[1], False, torch.float32)
+    check_quant_per_token(gen, 3, 100, False)
     k7 = check_swiglu_quant(gen, MAX_BATCH, dq["ws_gate_up"][0].shape[0], None, True)
     check_swiglu_quant(gen, MAX_BATCH, dq["ws_gate_up"][0].shape[0], 1, False)
     return (summed("quant_matmul, a layer's 5 GEMMs at decode", k1),
@@ -1649,20 +1662,22 @@ def ulp_close(got, want):
     return err, err <= 2.0 ** (math.floor(math.log2(float(want.float().abs().max()))) - 7)
 
 
-def check_rms_norm(gen, rows, timed):
-    """K6a at ``[rows, 2880]`` bf16 (bf16 weight, eps 1e-5) against its plain
-    version within a bf16 ulp; timed with ``torch.nn.functional.rms_norm``
-    as the library call."""
-    h = CFG_GPT.hidden
+def check_rms_norm(gen, rows, timed, h=CFG_GPT.hidden):
+    """K6a at ``[rows, h]`` bf16 (bf16 weight, eps 1e-5) against its plain
+    version within a bf16 ulp, and bit-equal to its CPU mirror
+    ``rms_norm_rows_plain`` (the kernel's order of operations); timed with
+    ``torch.nn.functional.rms_norm`` as the library call."""
     x = randn(gen, (rows, h), scale=3.0)
     w = (1 + 0.1 * torch.randn(h, generator=gen, device=DEV)).to(torch.bfloat16)
     eps = CFG_GPT.rms_eps
-    err, ok = ulp_close(norm.rms_norm(x, w, eps), norm.rms_norm_ref(x, w, eps))
-    torch.cuda.synchronize()
-    log(f"  rms_norm [{rows}, {h}] bf16: max|err| {err:.3e} (tol one bf16 ulp of the largest "
-        f"output)")
-    if not ok:
-        raise AssertionError(f"rms_norm disagrees with its plain version: {err}")
+    got = norm.rms_norm(x, w, eps)
+    err, ok = ulp_close(got, norm.rms_norm_ref(x, w, eps))
+    plan = row_reduce.launch_plan(x, w)
+    mirror = bool(torch.equal(got.cpu(), norm.rms_norm_rows_plain(x.cpu(), w.cpu(), eps, plan)))
+    log(f"  rms_norm [{rows}, {h}] bf16 ({plan}): max|err| {err:.3e} (tol one bf16 ulp of the "
+        f"largest output); bit-equal to rms_norm_rows_plain {mirror}")
+    if not (ok and mirror):
+        raise AssertionError(f"rms_norm disagrees with its plain version: {err}, mirror {mirror}")
     if not timed:
         return None
     r = dict(err=err, ms=time_ms(lambda: norm.rms_norm(x, w, eps), 50),
@@ -1906,8 +1921,11 @@ def check_llama_kernels(gen):
     ``LONG_DECODE_KEYS`` keys on a table that holds them (bf16), and on
     ragged cases (a group of 16 at head_dim 32 and 64); K12d without sinks
     or window at those heads (a 512-row chunk at context 1024, and ragged
-    requests with pad rows), and at head_dim 32.  Returns K11a's bf16
-    numbers (one layer's call at [4e]'s contexts)."""
+    requests with pad rows), and at head_dim 32; K6a at Llama's width (a
+    decode step's and a chunk's rows, timed).  Returns K11a's bf16 numbers
+    (one layer's call at [4e]'s contexts)."""
+    for rows in (MAX_BATCH, GPT_CHUNK):                 # K6a at Llama's width
+        check_rms_norm(gen, rows, True, CFG_LLAMA.hidden)
     heads = (CFG_LLAMA.num_heads, CFG_LLAMA.num_kv_heads, CFG_LLAMA.head_dim)
     dec_ctx = [n + NEW_TOKENS for n in GPT_PROMPT_LENS]
     pads = MAX_BATCH - len(dec_ctx)
@@ -1976,7 +1994,6 @@ def decode_kernels_only(gen):
                                  f"{rows}")
 
 
-NORM_HIDDEN = CFG_LLAMA.hidden     # the add-RMSNorm ops at Llama-3.1-8B's width
 NORM_HIDDEN = CFG_LLAMA.hidden     # the add-RMSNorm ops at Llama-3.1-8B's width
 
 
@@ -4309,6 +4326,11 @@ def main() -> None:
     comm_s = ep_group()
     log(f"  EP group: one NCCL rank over an in-process store (torch.distributed); its first "
         f"all-to-all, which makes the communicator, {comm_s:.2f} s")
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = cuda_lib.load_library()
+    floor_ms = time_ms(lambda: cuda_lib.check(lib, lib.empty_launch(stream), "empty"),
+                       50)
+    log(f"  launch floor (an empty kernel, csrc/launch_floor.cu): {floor_ms:.4f} ms")
     rows, path_launches = serving_phases(card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4331,7 +4353,7 @@ def main() -> None:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
     } for name, cu, replaces, r in rows]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "launch_floor_ms": floor_ms}))
     print(card)
     dist.destroy_process_group()
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,17 +14,23 @@
 // operations an element.  At the serving path's sizes (8 decode rows, a
 // 512-row prefill chunk) a call is mostly its launch.
 //
-// Design: one block of 128 threads per row, two passes.  Pass 1 sums x^2 in
-// f32 with 16-byte loads (8 bf16 or 4 f32 a load: hidden = 2880 is 360 bf16
-// loads, not a power of two, so the threads stride over the row) and reduces
-// it over the block in a fixed order; pass 2 re-reads the row (from L1) and
-// writes x * (1 / sqrt(mean + eps)) * w in f32, rounded once to x's type.
-// Rows whose width or address does not allow 16-byte loads take the same
-// passes one element at a time.
+// rms_norm (K6a) runs on csrc/row_reduce.cuh: at decode a row is split
+// across a cluster of up to 8 blocks (the wrapper's plan), at chunk sizes a
+// block takes `block_rows` rows one after another.  Each thread loads its
+// 16-byte vectors of x once into registers (8 bf16 or 4 f32 a load: hidden
+// = 2880 is 360 bf16 vectors, not a power of two, so the last threads hold
+// fewer), sums x^2 in f32 in a fixed order (__fmul_rn / __fadd_rn, its
+// vectors in order, then the block and the cluster: ops/norm.py
+// rms_norm_rows_plain repeats it bit for bit), and writes
+// x * (1 / sqrt(sum / hidden + eps)) * w in f32, rounded once to x's type,
+// from the same registers.  The weight is loaded with 16-byte vectors once
+// per block into registers and reused over the block's rows.  Rows whose
+// width or address does not allow 16-byte accesses take the same kernel one
+// element a vector.
 //
 // add_rms_norm (K6b / K6c) is bound by bytes too: x and the residual read,
-// the sum and the output written (4 x 2 B an element in bf16).  The same
-// block per row: pass 1 forms a = x + r in f32, rounds it to x's type (as the
+// the sum and the output written (4 x 2 B an element in bf16).  One block
+// of 128 threads per row, two passes: pass 1 forms a = x + r in f32, rounds it to x's type (as the
 // TPU kernel's astype), writes it as `added` and sums a^2; pass 2 forms a
 // again (bit-equal) and writes a * r * w + b (or a * r * (w + 1)) in f32,
 // rounded once to x's type, or quantized to int8: round half to even, then
@@ -36,13 +42,11 @@
 // pass 2 divides each element by that sum in IEEE division (__fdiv_rn, not a
 // multiply by the reciprocal), f32 out.
 #include "common.cuh"
+#include "row_reduce.cuh"
 
 namespace rmsnorm {
 
 constexpr int THREADS = 128;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // N consecutive elements as f32: one 16-byte load for N > 1.
 template <int N>
@@ -109,29 +113,72 @@ __device__ float block_sum(float v) {
   return s;
 }
 
-// x, out [rows, hidden] of T; w [hidden] of W.  N: elements a load (1, or
-// 16 bytes' worth).
-template <typename T, typename W, int N>
-__global__ void __launch_bounds__(THREADS)
+// x, out [rows, hidden] of T; w [hidden] of W.  N: elements a vector (16
+// bytes of x, or 1); VM: vectors a thread held in registers (the launch's
+// vecs rounded up to 1, 2, 4 or 8).  Grid: rowr::Rows (a row's cluster, or
+// block_rows rows a block).
+template <typename T, typename W, int N, int VM>
+__global__ void __launch_bounds__(rowr::MAX_THREADS)
     rms_norm_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__ out,
-                    int hidden, float eps) {
-  const size_t base = (size_t)blockIdx.x * hidden;
-  const T* xr = x + base;
-  float ss = 0.f;
-  for (int c = threadIdx.x * N; c < hidden; c += THREADS * N) {
-    float v[N];
-    load_n(xr + c, v);
+                    int rows, int hidden, int cluster, int vecs, int block_rows, float eps) {
+  __shared__ float red[2][rowr::MAX_THREADS / 32];
+  __shared__ float part;
+  const rowr::Rows rw(rows, cluster, block_rows);
+  const rowr::Span span(hidden / N, cluster, rw.rank);
+  rowr::Pack<W, N> wh[VM];
+  rowr::load_held(wh, w, span, vecs);
+  rowr::Pack<T, N> cur[VM], nxt[VM];
+  rowr::load_held(cur, x + (size_t)rw.lo * hidden, span, vecs);
+  for (int row = rw.lo; row < rw.hi; ++row) {
+    const T* xr = x + (size_t)row * hidden;
+    T* yr = out + (size_t)row * hidden;
+    if constexpr (rowr::AHEAD<VM>)
+      if (row + 1 < rw.hi) rowr::load_held(nxt, xr + hidden, span, vecs);
+    float ss = 0.f;
 #pragma unroll
-    for (int i = 0; i < N; ++i) ss += v[i] * v[i];
-  }
-  const float r = 1.f / sqrtf(block_sum(ss) / (float)hidden + eps);
-  for (int c = threadIdx.x * N; c < hidden; c += THREADS * N) {
-    float v[N];
-    load_n(xr + c, v);
+    for (int v = 0; v < VM; ++v)
+      if (v < vecs && span.at(v) >= 0)
 #pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = v[i] * r * to_f(w[c + i]);
-    store_n(out + base + c, v);
+        for (int i = 0; i < N; ++i) ss = __fadd_rn(ss, __fmul_rn(cur[v].get(i), cur[v].get(i)));
+    for (int v = VM; v < vecs && span.at(v) >= 0; ++v) {   // a row past the registers
+      rowr::Pack<T, N> p;
+      p.load(xr + (size_t)span.at(v) * N);
+#pragma unroll
+      for (int i = 0; i < N; ++i) ss = __fadd_rn(ss, __fmul_rn(p.get(i), p.get(i)));
+    }
+    const float total = rowr::cluster_all<rowr::Sum>(
+        rowr::block_all<rowr::Sum>(ss, red[(row - rw.lo) & 1]), &part, cluster);
+    const float r =
+        __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(__fdiv_rn(total, (float)hidden), eps)));
+#pragma unroll
+    for (int v = 0; v < VM; ++v) {
+      if (v < vecs && span.at(v) >= 0) {
+        float f[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) f[i] = __fmul_rn(__fmul_rn(cur[v].get(i), r), wh[v].get(i));
+        rowr::store(yr + (size_t)span.at(v) * N, f);
+      }
+    }
+    for (int v = VM; v < vecs && span.at(v) >= 0; ++v) {
+      rowr::Pack<T, N> p;
+      rowr::Pack<W, N> q;
+      p.load(xr + (size_t)span.at(v) * N);
+      q.load(w + (size_t)span.at(v) * N);
+      float f[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) f[i] = __fmul_rn(__fmul_rn(p.get(i), r), q.get(i));
+      rowr::store(yr + (size_t)span.at(v) * N, f);
+    }
+    if (row + 1 < rw.hi) {
+      if constexpr (rowr::AHEAD<VM>) {
+#pragma unroll
+        for (int v = 0; v < VM; ++v) cur[v] = nxt[v];
+      } else {
+        rowr::load_held(cur, xr + hidden, span, vecs);
+      }
+    }
   }
+  rowr::cluster_done(cluster);
 }
 
 // f32 value of element i of a bf16 or f32 vector (the weight and bias may be
@@ -278,34 +325,44 @@ int launch_l1(const void* x, void* out, int rows, int hidden, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+template <typename T, typename W, int N>
+int launch_n(const void* x, const void* w, void* out, int rows, int hidden, float eps,
+             int cluster, int threads, int vecs, int block_rows, cudaStream_t s) {
+  auto kernel = vecs <= 1   ? rms_norm_kernel<T, W, N, 1>
+                : vecs <= 2 ? rms_norm_kernel<T, W, N, 2>
+                : vecs <= 4 ? rms_norm_kernel<T, W, N, 4>
+                            : rms_norm_kernel<T, W, N, rowr::VMAX>;
+  const int blocks = cluster > 1 ? rows * cluster : (rows + block_rows - 1) / block_rows;
+  return rowr::launch(kernel, blocks, threads, cluster, s, (const T*)x, (const W*)w, (T*)out,
+                      rows, hidden, cluster, vecs, block_rows, eps);
+}
+
 template <typename T, typename W>
-int launch(const void* x, const void* w, void* out, int rows, int hidden, float eps,
-           cudaStream_t s) {
+int launch(const void* x, const void* w, void* out, int rows, int hidden, float eps, int cluster,
+           int threads, int vecs, int elems, int block_rows, cudaStream_t s) {
   constexpr int N = 16 / sizeof(T);
-  const bool vec = hidden % N == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
-  if (vec)
-    rms_norm_kernel<T, W, N><<<rows, THREADS, 0, s>>>((const T*)x, (const W*)w, (T*)out,
-                                                      hidden, eps);
-  else
-    rms_norm_kernel<T, W, 1><<<rows, THREADS, 0, s>>>((const T*)x, (const W*)w, (T*)out,
-                                                      hidden, eps);
-  return (int)cudaGetLastError();
+  return elems == N ? launch_n<T, W, N>(x, w, out, rows, hidden, eps, cluster, threads, vecs,
+                                        block_rows, s)
+                    : launch_n<T, W, 1>(x, w, out, rows, hidden, eps, cluster, threads, vecs,
+                                        block_rows, s);
 }
 
 }  // namespace rmsnorm
 
 // x [rows, hidden] (bf16 if x_bf16 else f32), w [hidden] (bf16 if w_bf16 else
-// f32) -> out [rows, hidden] in x's type.
+// f32) -> out [rows, hidden] in x's type, on the wrapper's plan
+// (ops/row_reduce.py _row_plan): `cluster` blocks a row (or, with cluster 1,
+// `block_rows` rows a block) of `threads` threads, `vecs` vectors a thread of
+// `elems` elements (16 bytes of x, or 1).
 extern "C" int rms_norm_launch(const void* x, const void* w, void* out, int rows, int hidden,
-                               int x_bf16, int w_bf16, float eps, void* stream) {
+                               int x_bf16, int w_bf16, float eps, int cluster, int threads,
+                               int vecs, int elems, int block_rows, void* stream) {
   if (rows == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   using bf16 = __nv_bfloat16;
-  if (x_bf16)
-    return w_bf16 ? rmsnorm::launch<bf16, bf16>(x, w, out, rows, hidden, eps, s)
-                  : rmsnorm::launch<bf16, float>(x, w, out, rows, hidden, eps, s);
-  return w_bf16 ? rmsnorm::launch<float, bf16>(x, w, out, rows, hidden, eps, s)
-                : rmsnorm::launch<float, float>(x, w, out, rows, hidden, eps, s);
+  auto run = x_bf16 ? (w_bf16 ? rmsnorm::launch<bf16, bf16> : rmsnorm::launch<bf16, float>)
+                    : (w_bf16 ? rmsnorm::launch<float, bf16> : rmsnorm::launch<float, float>);
+  return run(x, w, out, rows, hidden, eps, cluster, threads, vecs, elems, block_rows, s);
 }
 
 // x, r [rows, hidden] (bf16 if x_bf16 else f32), w, b [hidden] (bf16 if

@@ -9,20 +9,29 @@
 // 4,096-16,384 values, 0.1-2 MB) really the launch: a call is a few
 // microseconds of fixed cost against a bound of well under one.
 //
-// Design: one block per row, two passes over the row.  Pass 1 takes the row's
-// |max| (block reduction in a fixed order: deterministic); pass 2 re-reads the
-// row (from L1/L2) and writes round_half_even(v / scale) saturated to int8.
-// The division is IEEE division (no fast math), as the plain versions divide:
-// a reciprocal multiply would flip values at rounding ties by one level
+// quant_per_token (K5) runs on csrc/row_reduce.cuh: at decode a row wider
+// than 16 KB split across a cluster of up to 8 blocks, at chunk sizes two
+// rows a block (the wrapper's plan); each thread's 16-byte vectors held in
+// registers from the load to the int8 store (8 bytes a bf16 vector), the
+// row's |max| reduced over the block and the cluster.  Max does not depend
+// on the order, and each level is IEEE division's (`level` below), so the
+// bits are the plain version's.  scale = max(amax / 127, 1e-12), and that
+// clamped scale is returned (written by cluster rank 0, thread 0).
+//
+// swiglu_quant (K7a): one block per row, two passes over the row.  Pass 1
+// takes the row's |max| (block reduction in a fixed order: deterministic);
+// pass 2 re-reads the row (from L1/L2) and writes round_half_even(v / scale)
+// saturated to int8.  v = silu(gate) * up in f32 over the gate || up
+// halves, rows at or past `total` (a device scalar: the group list's total)
+// are zeros; the returned scale is amax / 127 UNCLAMPED (a zero row returns
+// 0), only the division uses max(scale, 1e-12).  Without quant the
+// activation is written in the input's type and the scales are zeros.
+//
+// Both round as IEEE division (no fast math), as the plain versions divide:
+// a bare reciprocal multiply would flip values at rounding ties by one level
 // (sgl_kernel_npu_tpu/ops/quant.py:wire_quant records the same hazard).
-// - quant_per_token: scale = max(amax / 127, 1e-12), and that clamped scale
-//   is returned.
-// - swiglu_quant: v = silu(gate) * up in f32 over the gate || up halves, rows
-//   at or past `total` (a device scalar: the group list's total) are zeros;
-//   the returned scale is amax / 127 UNCLAMPED (a zero row returns 0), only
-//   the division uses max(scale, 1e-12).  Without quant the activation is
-//   written in the input's type and the scales are zeros.
 #include "common.cuh"
+#include "row_reduce.cuh"
 
 namespace quant {
 
@@ -58,16 +67,85 @@ __device__ __forceinline__ float silu_mul(float gate, float up) {
   return gate * (1.f / (1.f + expf(-gate))) * up;
 }
 
-template <typename InT>
-__global__ void __launch_bounds__(THREADS)
-    quant_per_token_kernel(const InT* __restrict__ x, int hidden, int8_t* __restrict__ q,
-                           float* __restrict__ scale) {
-  const size_t base = (size_t)blockIdx.x * hidden;
-  float m = 0.f;
-  for (int c = threadIdx.x; c < hidden; c += THREADS) m = fmaxf(m, fabsf(load_f(x, base + c)));
-  const float s = fmaxf(block_max(m) / 127.f, 1e-12f);
-  for (int c = threadIdx.x; c < hidden; c += THREADS) q[base + c] = saturate(load_f(x, base + c) / s);
-  if (threadIdx.x == 0) scale[blockIdx.x] = s;
+// The int8 level of v: round_half_even(v / s) saturated, v / s by IEEE
+// division (ops/quant.py quant_levels_plain repeats the rule on the CPU).
+// rs = 1 / s rounded once, and |v / s| <= 127 (s >= amax / 127), so
+// q = v rs lies within 2^-16 of v / s, and the IEEE quotient within 2^-18:
+// where q lies at least 2^-15 from a half-integer both round to one level,
+// read off q (rounded half to even by adding 1.5 2^23); elsewhere __fdiv_rn
+// decides, as it does for NaN.  (Dividing every value made a 2048-row chunk
+// 15 % slower than the two-pass kernel this one replaced: PERF.md §6.)
+__device__ __forceinline__ int level(float v, float s, float rs) {
+  constexpr float MAGIC = 12582912.f;   // 1.5 2^23: a sum in [2^23, 2^24) is an integer
+  const float q = __fmul_rn(v, rs);
+  const float t = __fadd_rn(q, MAGIC);
+  if (fabsf(__fadd_rn(q, -__fadd_rn(t, -MAGIC))) <= 0.5f - 0x1p-15f)
+    return min(max(__float_as_int(t) - __float_as_int(MAGIC), -128), 127);
+  return saturate(__fdiv_rn(v, s));
+}
+
+// x [rows, hidden] of T -> q [rows, hidden] int8, scale [rows] f32.  Grid:
+// rowr::Rows (a row's cluster, or block_rows rows a block); N elements a
+// vector (16 bytes' worth, or 1); VM vectors a thread held in registers (the
+// launch's vecs rounded up to 1, 2, 4 or 8).
+template <typename T, int N, int VM>
+__global__ void __launch_bounds__(rowr::MAX_THREADS)
+    quant_per_token_kernel(const T* __restrict__ x, int rows, int hidden, int cluster, int vecs,
+                           int block_rows, int8_t* __restrict__ q, float* __restrict__ scale) {
+  __shared__ float red[2][rowr::MAX_THREADS / 32];
+  __shared__ float part;
+  const rowr::Rows rw(rows, cluster, block_rows);
+  const rowr::Span span(hidden / N, cluster, rw.rank);
+  rowr::Pack<T, N> cur[VM], nxt[VM];
+  rowr::load_held(cur, x + (size_t)rw.lo * hidden, span, vecs);
+  for (int row = rw.lo; row < rw.hi; ++row) {
+    const T* xr = x + (size_t)row * hidden;
+    int8_t* qr = q + (size_t)row * hidden;
+    if constexpr (rowr::AHEAD<VM>)
+      if (row + 1 < rw.hi) rowr::load_held(nxt, xr + hidden, span, vecs);
+    float m = 0.f;
+#pragma unroll
+    for (int v = 0; v < VM; ++v)
+      if (v < vecs && span.at(v) >= 0)
+#pragma unroll
+        for (int i = 0; i < N; ++i) m = fmaxf(m, fabsf(cur[v].get(i)));
+    for (int v = VM; v < vecs && span.at(v) >= 0; ++v) {   // a row past the registers
+      rowr::Pack<T, N> p;
+      p.load(xr + (size_t)span.at(v) * N);
+#pragma unroll
+      for (int i = 0; i < N; ++i) m = fmaxf(m, fabsf(p.get(i)));
+    }
+    m = rowr::cluster_all<rowr::Max>(rowr::block_all<rowr::Max>(m, red[(row - rw.lo) & 1]),
+                                     &part, cluster);
+    const float s = fmaxf(__fdiv_rn(m, 127.f), 1e-12f), rs = __fdiv_rn(1.f, s);
+#pragma unroll
+    for (int v = 0; v < VM; ++v) {
+      if (v < vecs && span.at(v) >= 0) {
+        int l[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) l[i] = level(cur[v].get(i), s, rs);
+        rowr::store(qr + (size_t)span.at(v) * N, l);
+      }
+    }
+    for (int v = VM; v < vecs && span.at(v) >= 0; ++v) {
+      rowr::Pack<T, N> p;
+      p.load(xr + (size_t)span.at(v) * N);
+      int l[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) l[i] = level(p.get(i), s, rs);
+      rowr::store(qr + (size_t)span.at(v) * N, l);
+    }
+    if (rw.rank == 0 && threadIdx.x == 0) scale[row] = s;
+    if (row + 1 < rw.hi) {
+      if constexpr (rowr::AHEAD<VM>) {
+#pragma unroll
+        for (int v = 0; v < VM; ++v) cur[v] = nxt[v];
+      } else {
+        rowr::load_held(cur, xr + hidden, span, vecs);
+      }
+    }
+  }
+  rowr::cluster_done(cluster);
 }
 
 // x [rows, 2I]; out [rows, I] int8 (QUANT) or InT; scale [rows].
@@ -97,21 +175,42 @@ __global__ void __launch_bounds__(THREADS)
   if (threadIdx.x == 0) scale[row] = s;
 }
 
+template <typename T, int N>
+int launch_per_token_n(const void* x, int rows, int hidden, int cluster, int threads, int vecs,
+                       int block_rows, void* q, void* scale, cudaStream_t s) {
+  auto kernel = vecs <= 1   ? quant_per_token_kernel<T, N, 1>
+                : vecs <= 2 ? quant_per_token_kernel<T, N, 2>
+                : vecs <= 4 ? quant_per_token_kernel<T, N, 4>
+                            : quant_per_token_kernel<T, N, rowr::VMAX>;
+  const int blocks = cluster > 1 ? rows * cluster : (rows + block_rows - 1) / block_rows;
+  return rowr::launch(kernel, blocks, threads, cluster, s, (const T*)x, rows, hidden, cluster,
+                      vecs, block_rows, (int8_t*)q, (float*)scale);
+}
+
+template <typename T>
+int launch_per_token(const void* x, int rows, int hidden, int cluster, int threads, int vecs,
+                     int elems, int block_rows, void* q, void* scale, cudaStream_t s) {
+  constexpr int N = 16 / sizeof(T);
+  return elems == N ? launch_per_token_n<T, N>(x, rows, hidden, cluster, threads, vecs,
+                                               block_rows, q, scale, s)
+                    : launch_per_token_n<T, 1>(x, rows, hidden, cluster, threads, vecs,
+                                               block_rows, q, scale, s);
+}
+
 }  // namespace quant
 
 // x [rows, hidden] (bf16 if in_bf16 else f32) -> q [rows, hidden] int8,
-// scale [rows] f32.
-extern "C" int quant_per_token_launch(const void* x, int rows, int hidden, int in_bf16, void* q,
-                                      void* scale, void* stream) {
+// scale [rows] f32, on the wrapper's plan (ops/row_reduce.py _row_plan):
+// `cluster` blocks a row (or, with cluster 1, `block_rows` rows a block) of
+// `threads` threads, `vecs` vectors a thread of `elems` elements (16 bytes'
+// worth, or 1).
+extern "C" int quant_per_token_launch(const void* x, int rows, int hidden, int in_bf16,
+                                      int cluster, int threads, int vecs, int elems,
+                                      int block_rows, void* q, void* scale, void* stream) {
   if (rows == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (in_bf16)
-    quant::quant_per_token_kernel<<<rows, quant::THREADS, 0, s>>>(
-        (const __nv_bfloat16*)x, hidden, (int8_t*)q, (float*)scale);
-  else
-    quant::quant_per_token_kernel<<<rows, quant::THREADS, 0, s>>>(
-        (const float*)x, hidden, (int8_t*)q, (float*)scale);
-  return (int)cudaGetLastError();
+  auto run = in_bf16 ? quant::launch_per_token<__nv_bfloat16> : quant::launch_per_token<float>;
+  return run(x, rows, hidden, cluster, threads, vecs, elems, block_rows, q, scale, s);
 }
 
 // x [rows, 2I] (bf16 if in_bf16 else f32), total = device int32 row count or

@@ -6,7 +6,9 @@ DeepSeek path calls the plain version, GPT-OSS and Llama the kernel),
 per-channel int8 quant), ``add_gemma_rms_norm`` (K6c: residual add, RMSNorm
 scaled by ``w + 1``; K6b's kernel launches it) and ``l1_norm`` (K6d: each row
 over its signed sum, f32 out).  The kernels live in ``csrc/norm.cu``; no
-model calls K6b-d, they are ops.
+model calls K6b-d, they are ops.  K6a is a row reduction on
+``csrc/row_reduce.cuh`` (its plan from ``ops/row_reduce.py``);
+:func:`rms_norm_rows_plain` repeats its order of operations on the CPU.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from sgl_kernel_npu_tpu_torch.ops.quant import quant_static_per_channel_ref
+from sgl_kernel_npu_tpu_torch.ops.row_reduce import RowPlan, launch_plan, row_vectors
 from sgl_kernel_npu_tpu_torch.utils import cuda_lib
 from sgl_kernel_npu_tpu_torch.utils.common import on_cuda
 from sgl_kernel_npu_tpu_torch.utils.counters import counted
@@ -25,6 +28,43 @@ def rms_norm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> to
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def rms_norm_rows_plain(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                        plan: RowPlan) -> torch.Tensor:
+    """K6a's arithmetic in the CUDA kernel's order on ``plan``, bit for bit:
+    each thread sums x² (f32, each product and sum rounded) over its vectors
+    in order, a warp adds by butterfly, the block adds its warps in index
+    order and the cluster its blocks in rank order; then ``1 / sqrt(sum /
+    hidden + eps)``, and ``(x · r) · w`` rounded once to x's type."""
+    rows, hidden = x.shape
+    f32 = lambda v: torch.full((), v, dtype=torch.float32)  # noqa: E731
+    n = plan.elems
+    xf = x.float()
+    sq = (xf * xf).reshape(rows, hidden // n, n)
+    index, live = row_vectors(plan, hidden)                    # [cluster, vecs, threads]
+    vals = torch.where(live[None, ..., None], sq[:, index.clamp(max=max(hidden // n - 1, 0))],
+                       f32(0.0))                               # [rows, C, V, T, n]
+    acc = torch.zeros((rows, plan.cluster, plan.threads))
+    for v in range(plan.vecs):
+        for i in range(n):
+            acc = acc + vals[:, :, v, :, i]
+    acc = acc.reshape(rows, plan.cluster, plan.threads // 32, 32)
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ o]
+    warps = acc[..., 0]                                        # [rows, C, warps]
+    blocks = warps[..., 0]
+    for w in range(1, warps.shape[-1]):
+        blocks = blocks + warps[..., w]
+    total = blocks[:, 0]
+    for r in range(1, plan.cluster):
+        total = total + blocks[:, r]
+    mean = total / f32(float(hidden)) + f32(eps)
+    # sqrt rounded once, as the kernel's __fsqrt_rn: torch.sqrt on the CPU
+    # (MKL) misses the nearest f32 now and then; f64 then f32 does not
+    scale = f32(1.0) / torch.sqrt(mean.double()).float()
+    return (xf * scale[:, None] * weight.float()).to(x.dtype)
 
 
 def add_rms_norm_bias_ref(x, residual, norm_weight, norm_bias, eps, quant_scale=None,
@@ -156,8 +196,9 @@ def l1_norm(x: torch.Tensor) -> torch.Tensor:
 @counted
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last dim of ``x [rows, hidden]`` in f32, out in x's
-    dtype.  CUDA tensors launch ``csrc/norm.cu`` (bf16 or f32 x and weight);
-    CPU tensors take :func:`rms_norm_ref`."""
+    dtype.  CUDA tensors launch ``csrc/norm.cu`` (bf16 or f32 x and weight;
+    bit-equal to :func:`rms_norm_rows_plain` on the launch's plan); CPU
+    tensors take :func:`rms_norm_ref`."""
     if not on_cuda(x, weight):
         return rms_norm_ref(x, weight, eps)
     if x.dim() != 2 or weight.shape != (x.shape[1],) or x.dtype not in _KERNEL_DTYPES \
@@ -166,10 +207,11 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
                          f"got {x.dtype} {tuple(x.shape)}, {weight.dtype} {tuple(weight.shape)}")
     x, weight = x.contiguous(), weight.contiguous()
     out = torch.empty_like(x)
+    plan = launch_plan(x, weight, out)
     lib = cuda_lib.load_library()
     cuda_lib.check(lib, lib.rms_norm_launch(
         x.data_ptr(), weight.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-        int(x.dtype == torch.bfloat16), int(weight.dtype == torch.bfloat16), float(eps),
+        int(x.dtype == torch.bfloat16), int(weight.dtype == torch.bfloat16), float(eps), *plan,
         cuda_lib.stream_ptr(x)), "rms_norm")
     rms_norm.launches += 1
     return out

@@ -1,7 +1,8 @@
 """Per-token dynamic INT8 quantization: plain helpers and the Hopper kernel (K5).
 
 Counterpart of ``sgl_kernel_npu_tpu/ops/quant.py``.  :func:`quant_per_token`
-launches ``csrc/quant.cu`` for a CUDA tensor and takes
+launches ``csrc/quant.cu`` (a row reduction on ``csrc/row_reduce.cuh``, its
+plan from ``ops/row_reduce.py``) for a CUDA tensor and takes
 :func:`quant_per_token_ref` for a CPU tensor.  :func:`wire_quant`, the
 expert-parallel exchange's wire quant, rides the same kernel.
 """
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from sgl_kernel_npu_tpu_torch.ops.row_reduce import launch_plan
 from sgl_kernel_npu_tpu_torch.utils import cuda_lib
 from sgl_kernel_npu_tpu_torch.utils.common import on_cuda
 from sgl_kernel_npu_tpu_torch.utils.counters import counted
@@ -46,6 +48,25 @@ def quant_per_channel(w: torch.Tensor, dim: int):
     return saturate_int8(wf / s.unsqueeze(dim)), s
 
 
+_MAGIC = 12582912.0   # 1.5 2^23: an f32 sum in [2^23, 2^24) is an integer
+
+
+def quant_levels_plain(xf: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """K5's rule for its int8 levels (``csrc/quant.cu`` ``level``), in f32 on
+    the CPU: ``q = x · (1 / s)`` with the reciprocal rounded once, rounded half
+    to even by adding 1.5 2^23 where ``q`` lies at least 2^-15 from a
+    half-integer, else ``saturate_int8(x / s)`` by IEEE division.  For rows
+    whose scale is ``max(amax / 127, 1e-12)`` it equals
+    ``saturate_int8(x / s)``: ``q`` lies within 2^-16 of ``x / s`` and the
+    IEEE quotient within 2^-18 (the CPU tests hold it on every bf16 value)."""
+    s = scale[..., None]
+    q = xf * (torch.ones_like(s) / s)
+    t = q + _MAGIC
+    fast = (q - (t - _MAGIC)).abs() <= 0.5 - 2.0 ** -15
+    level = (t.view(torch.int32) - 0x4B400000).clamp(-128, 127).to(torch.int8)
+    return torch.where(fast, level, saturate_int8(xf / s))
+
+
 def quant_static_per_channel_ref(x: torch.Tensor, scale: torch.Tensor,
                                  offset: torch.Tensor) -> torch.Tensor:
     """Static per-channel quant: ``saturate_int8(x · scale + offset)`` in f32."""
@@ -60,7 +81,8 @@ def dequant_per_token(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16
 def quant_per_token(x: torch.Tensor):
     """Per-token dynamic int8 quant of ``x [rows, hidden]`` (bf16 or f32) →
     ``(int8 [rows, hidden], f32 scales [rows])``, the scale clamped at 1e-12.
-    CUDA tensors launch ``csrc/quant.cu``; CPU tensors take
+    CUDA tensors launch ``csrc/quant.cu`` (bit-equal to the plain version: the
+    row's max does not depend on the order); CPU tensors take
     :func:`quant_per_token_ref`."""
     if not on_cuda(x):
         return quant_per_token_ref(x)
@@ -71,9 +93,10 @@ def quant_per_token(x: torch.Tensor):
     rows, hidden = x.shape
     q = torch.empty((rows, hidden), dtype=torch.int8, device=x.device)
     scale = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    plan = launch_plan(x, q)
     lib = cuda_lib.load_library()
     cuda_lib.check(lib, lib.quant_per_token_launch(
-        x.data_ptr(), rows, hidden, int(x.dtype == torch.bfloat16), q.data_ptr(),
+        x.data_ptr(), rows, hidden, int(x.dtype == torch.bfloat16), *plan, q.data_ptr(),
         scale.data_ptr(), cuda_lib.stream_ptr(x)), "quant_per_token")
     quant_per_token.launches += 1
     return q, scale

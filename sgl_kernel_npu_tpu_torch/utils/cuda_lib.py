@@ -40,12 +40,12 @@ _SIGNATURES = {
     "gmm2_combine_ring_launch": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                                  _I, _I, _P, _P, _P],
     "quant_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "quant_per_token_launch": [_P, _I, _I, _I, _P, _P, _P],
+    "quant_per_token_launch": [_P] + [_I] * 8 + [_P, _P, _P],
     "swiglu_quant_launch": [_P, _I, _I, _I, _P, _I, _P, _P, _P],
     "grouped_matmul_int8_launch": [_P] * 4 + [_I] * 8 + [_P] * 3 + [_I, _I] + [_P] * 7,
     "grouped_matmul_bf16_launch": [_P] * 4 + [_I] * 6 + [_P, _I, _I, _P, _P, _P, _P],
     "grouped_matmul_combine_launch": [_P] * 3 + [_I] * 4 + [_P] * 4 + [_I, _I] + [_P] * 4,
-    "rms_norm_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "rms_norm_launch": [_P, _P, _P, _I, _I, _I, _I, _F] + [_I] * 5 + [_P],
     "add_rms_norm_launch": [_P] * 8 + [_I] * 6 + [_F, _P],
     "l1_norm_launch": [_P, _P, _I, _I, _I, _P],
     "swiglu_oai_launch": [_P, _P, _I, _I, _I, _F, _F, _P],
@@ -68,6 +68,7 @@ _SIGNATURES = {
     "fused_full_launch": [_P, _P],
     "fused_full_blocks": [],
     "fused_kernel_launch": [_P, _P],
+    "empty_launch": [_P],
 }
 
 _lib = None

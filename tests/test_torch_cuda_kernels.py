@@ -12,7 +12,11 @@ around it, and two calls bit-identical (its splits merge in split order); int8 G
 f32 GMM2 + combine 1e-5 of the largest value (f32 sums in another order);
 ``quant_matmul`` exact (exact integer sums, the same f32 epilogue);
 ``quant_per_token`` and ``swiglu_quant`` int8 within one level (the SiLU's
-exp differs by ulps between libraries), scales rtol 1e-6; ``grouped_matmul``
+exp differs by ulps between libraries), scales rtol 1e-6, and
+``quant_per_token`` also bit-equal (its row max does not depend on the
+order); ``rms_norm`` also bit-equal to ``rms_norm_rows_plain`` (its order of
+operations on the CPU) and the same bits over 20 calls; each of the two one
+CUDA kernel a call; ``grouped_matmul``
 ``dequant`` within one bf16 ulp (the same f32 operations; exact in f32 out),
 ``dequant_swiglu_quant`` int8 within one level and scales rtol 1e-6, its
 bf16 modes (``grouped_matmul_float``, ``grouped_matmul_dx``) 1e-4 of the
@@ -416,6 +420,28 @@ def test_quant_per_token_kernel(dev, rows, hidden, dtype):
     assert int((q.int() - q_p.int()).abs().max()) <= 1
     torch.testing.assert_close(s, s_p, rtol=1e-6, atol=0)
     assert float(s[1]) == pytest.approx(1e-12) and not q[1].any()
+
+
+@pytest.mark.parametrize("rows,hidden", [(8, 16384), (8, 7168), (64, 7168), (2048, 7168),
+                                         (3, 100)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quant_per_token_kernel_bit_equal(dev, rows, hidden, dtype):
+    """K5 on ``csrc/row_reduce.cuh``: q and the scales bit-equal to the plain
+    version, a zero row included (the row's max does not depend on the order;
+    IEEE division, round half to even, saturate), on clusters of 8 / 8 / 4 /
+    1 blocks and the element path of (3, 100); and again from a tensor that
+    starts 2 bytes past a 16-byte boundary (the element path)."""
+    gen = torch.Generator(device=dev).manual_seed(7 * rows + hidden)
+    x = (torch.randn((rows, hidden), generator=gen, device=dev) * 3).to(dtype)
+    x[rows // 2] = 0
+    flat = torch.empty(rows * hidden + 1, dtype=dtype, device=dev)
+    shifted = flat[1:].view(rows, hidden)
+    shifted.copy_(x)
+    for t in (x, shifted):
+        q, s = quant.quant_per_token(t)
+        q_p, s_p = quant.quant_per_token_ref(t)
+        torch.cuda.synchronize()
+        assert torch.equal(q, q_p) and torch.equal(s, s_p), int((q.int() - q_p.int()).abs().max())
 
 
 @pytest.mark.parametrize("rows,h", [(8, 4096), (64, 4096), (5, 200)])
@@ -869,6 +895,71 @@ def test_rms_norm_kernel(dev, rows, hidden, x_dt, w_dt):
     torch.cuda.synchronize()
     assert norm.rms_norm.launches == before + 1 and got.dtype == x_dt
     _ulp_close(got, want, x_dt)
+
+
+# one shape for each cluster size on the H100 (8, 4, 2, 1 blocks a row in
+# bf16; 1 with two rows a block at 512), and the element path (a width not a
+# multiple of 16 bytes; in a cluster of 8 at 32771)
+ROW_PLAN_SHAPES = [(8, 32768), (8, 16384), (100, 16384), (512, 2880), (8, 2880), (3, 100),
+                   (3, 32771)]
+
+
+def test_row_plan_clusters_on_card(dev):
+    from sgl_kernel_npu_tpu_torch.ops import row_reduce
+
+    x = {(r, h): torch.zeros((r, h), dtype=torch.bfloat16, device=dev)
+         for r, h in ROW_PLAN_SHAPES}
+    plans = {k: row_reduce.launch_plan(t) for k, t in x.items()}
+    assert {p.cluster for p in plans.values()} == {1, 2, 4, 8}, plans
+    assert plans[(3, 100)].elems == 1 and plans[(8, 2880)].elems == 8
+
+
+@pytest.mark.parametrize("x_dt,w_dt", [(torch.bfloat16, torch.bfloat16),
+                                       (torch.float32, torch.float32),
+                                       (torch.bfloat16, torch.float32),
+                                       (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("rows,hidden", ROW_PLAN_SHAPES)
+def test_rms_norm_kernel_bit_equal_to_row_plain(dev, rows, hidden, x_dt, w_dt):
+    """K6a on ``csrc/row_reduce.cuh`` is bit-equal to its CPU mirror
+    ``rms_norm_rows_plain`` on the launch's plan, the same bits over 20
+    calls, and within a bf16 ulp of the plain version; from a tensor 4 bytes
+    past a 16-byte boundary it takes the element path, bit-equal too."""
+    from sgl_kernel_npu_tpu_torch.ops import norm, row_reduce
+
+    gen = torch.Generator(device=dev).manual_seed(3 * rows + hidden)
+    x = (torch.randn((rows, hidden), generator=gen, device=dev) * 3).to(x_dt)
+    w = (1 + 0.1 * torch.randn(hidden, generator=gen, device=dev)).to(w_dt)
+    first = norm.rms_norm(x, w, 1e-5)
+    runs = [norm.rms_norm(x, w, 1e-5) for _ in range(20)]
+    torch.cuda.synchronize()
+    want = norm.rms_norm_rows_plain(x.cpu(), w.cpu(), 1e-5, row_reduce.launch_plan(x, w))
+    assert torch.equal(first.cpu(), want)
+    assert all(torch.equal(first, r) for r in runs)
+    _ulp_close(first, norm.rms_norm_ref(x, w, 1e-5), x_dt)
+    flat = torch.empty(rows * hidden + 4 // x.element_size(), dtype=x_dt, device=dev)
+    shifted = flat[4 // x.element_size():].view(rows, hidden)
+    shifted.copy_(x)
+    plan = row_reduce.launch_plan(shifted, w)
+    assert plan.elems == 1
+    got = norm.rms_norm(shifted, w, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), norm.rms_norm_rows_plain(x.cpu(), w.cpu(), 1e-5, plan))
+
+
+def test_row_reduce_kernels_one_launch(dev):
+    """K5 and K6a each enqueue exactly one CUDA kernel a call (a CUDA graph
+    capture), at a decode shape (a cluster launch) and a chunk's."""
+    from sgl_kernel_npu_tpu_torch.ops import norm
+    from sgl_kernel_npu_tpu_torch.utils.trace_profile import graph_kernels
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for rows, hidden in ((8, 16384), (512, 2880)):
+        x = torch.randn((rows, hidden), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.ones(hidden, dtype=torch.bfloat16, device=dev)
+        for name, fn in (("quant_per_token_kernel", lambda: quant.quant_per_token(x)),
+                         ("rms_norm_kernel", lambda: norm.rms_norm(x, w, 1e-5))):
+            acts = graph_kernels(fn)
+            assert len(acts) == 1 and acts[0][1] == 1 and name in acts[0][0], (rows, acts)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
