@@ -97,10 +97,10 @@ Phases (any failure raises and the script exits non-zero without a result):
    of 16 at head_dim 32 and 64), and K12d without sinks or window, held to
    their plain versions and timed, K11a also with one row at 32768 keys
    beside [4e]'s rows on a 2048-page table (its keys split across 16
-   blocks); one int8 decode_gqa and one bf16 attention_sinks call, each
-   captured into a CUDA graph, must enqueue the decode kernel and nothing
-   else (the
-   int8 scales fold inside it), and a bf16 and an int8 K12d call its
+   blocks); swiglu_quant (K7a) at its W8A8 MLP's gate || up [8 / 512,
+   28672], also with rows past a group total; one int8 decode_gqa and one
+   bf16 attention_sinks call, each captured into a CUDA graph, must enqueue
+   the decode kernel and nothing else (the int8 scales fold inside it), and a bf16 and an int8 K12d call its
    prefill kernel once and nothing else; ``Engine(prefill_chunk=512)`` +
    ``llama_adapter`` serves [4e]'s prompt lengths, float, then W8A8 on the
    int8 cache (its ``kv_scale`` calibrated), with exact launch counts
@@ -109,7 +109,8 @@ Phases (any failure raises and the script exits non-zero without a result):
 4g. Multi-LoRA on [4f]'s Llama, and the add-RMSNorm ops: add_rms_norm_bias
    (K6b, with and without its static int8 quant), add_gemma_rms_norm (K6c,
    on K6b's kernel) and l1_norm (K6d, bf16 and f32) at [512, 4096] and [8,
-   4096]; bgmv_fused (K13a) at H = D = 4096, rank 16, over 4 adapters at 8
+   4096], K6b / K6c also bit-equal to their CPU mirror
+   add_rms_norm_rows_plain; bgmv_fused (K13a) at H = D = 4096, rank 16, over 4 adapters at 8
    and 512 tokens, over 64 at 8, and with ids outside the pool;
    sgmv_fused (K13b) over a 512-row chunk of 4 sequences (one empty, a
    tail), ranks 16 / 8 / 4 / 16 and mixed scalings: each held to its plain
@@ -1921,11 +1922,16 @@ def check_llama_kernels(gen):
     ``LONG_DECODE_KEYS`` keys on a table that holds them (bf16), and on
     ragged cases (a group of 16 at head_dim 32 and 64); K12d without sinks
     or window at those heads (a 512-row chunk at context 1024, and ragged
-    requests with pad rows), and at head_dim 32; K6a at Llama's width (a
-    decode step's and a chunk's rows, timed).  Returns K11a's bf16 numbers
-    (one layer's call at [4e]'s contexts)."""
+    requests with pad rows), and at head_dim 32; K6a at Llama's width and K7a
+    at its gate || up (a decode step's and a chunk's rows, timed).  Returns
+    K11a's bf16 numbers (one layer's call at [4e]'s contexts)."""
     for rows in (MAX_BATCH, GPT_CHUNK):                 # K6a at Llama's width
         check_rms_norm(gen, rows, True, CFG_LLAMA.hidden)
+    # K7a at the W8A8 serve's gate || up (2 x 14336): a decode step's rows (a
+    # cluster of 8 a row) and a chunk's, then with rows past a group total
+    for rows in (MAX_BATCH, GPT_CHUNK):
+        check_swiglu_quant(gen, rows, 2 * CFG_LLAMA.intermediate, None, True)
+        check_swiglu_quant(gen, rows, 2 * CFG_LLAMA.intermediate, 1, False)
     heads = (CFG_LLAMA.num_heads, CFG_LLAMA.num_kv_heads, CFG_LLAMA.head_dim)
     dec_ctx = [n + NEW_TOKENS for n in GPT_PROMPT_LENS]
     pads = MAX_BATCH - len(dec_ctx)
@@ -2003,8 +2009,10 @@ def check_add_rms_norm(gen, rows, mode, timed):
     4096]`` bf16, bf16 weight and bias, eps 1e-5: the residual sum bit-equal
     to the plain version's, the output within one bf16 ulp of its largest
     value (int8: one level, and equal on 99 % of elements: 1 / sqrt against
-    rsqrt can move a value at a rounding tie).  No single PyTorch call
-    computes either function."""
+    rsqrt can move a value at a rounding tie), and both bit-equal to the CPU
+    mirror ``add_rms_norm_rows_plain`` on the launch's plan (the kernel's
+    order of operations).  No single PyTorch call computes either
+    function."""
     h = NORM_HIDDEN
     x = randn(gen, (rows, h), scale=2.0)
     res = randn(gen, (rows, h))
@@ -2030,10 +2038,17 @@ def check_add_rms_norm(gen, rows, mode, timed):
     else:
         err, ok = ulp_close(got, want)
         tol = "one bf16 ulp of the largest output"
-    log(f"  {name} ({mode}) [{rows}, {h}] bf16: max|err| {err:.3e} ({tol}); residual sum "
-        f"bit-equal: {torch.equal(added, want_added)}")
-    if not ok or not torch.equal(added, want_added):
-        raise AssertionError(f"{name} ({mode}) disagrees with its plain version: {err}")
+    plan = row_reduce.launch_plan(x, res, w, inputs=2)
+    qm = (q["quant_scale"].cpu(), q["quant_offset"].cpu()) if q else (None, None)
+    m_out, m_added = norm.add_rms_norm_rows_plain(x.cpu(), res.cpu(), w.cpu(), b.cpu(), *qm, mode,
+                                                  1e-5, plan)
+    mirror = bool(torch.equal(got.cpu(), m_out) and torch.equal(added.cpu(), m_added))
+    log(f"  {name} ({mode}) [{rows}, {h}] bf16 ({plan}): max|err| {err:.3e} ({tol}); residual "
+        f"sum bit-equal: {torch.equal(added, want_added)}; bit-equal to add_rms_norm_rows_plain "
+        f"{mirror}")
+    if not ok or not torch.equal(added, want_added) or not mirror:
+        raise AssertionError(f"{name} ({mode}) disagrees with its plain version: {err}, mirror "
+                             f"{mirror}")
     if not timed:
         return None
     r = dict(err=err, ms=time_ms(fn, 50), plain_ms=time_ms(ref, 20), library_ms=None)

@@ -161,12 +161,14 @@ def _divide_every_level():
     return so
 
 
-def _plans(rows, h, clusters, block_rows):
-    """The default plan and its neighbours: each cluster size, one, two or
-    four bf16 vectors a thread (at most 512 threads), each rows-a-block."""
+def _plans(rows, h, clusters, block_rows, **plan_kw):
+    """The default plan (``_row_plan(..., **plan_kw)``) and its neighbours:
+    each cluster size, one, two or four bf16 vectors a thread (at most 512
+    threads), each rows-a-block."""
     from sgl_kernel_npu_tpu_torch.ops import row_reduce as rr
 
-    out = {rr._row_plan(rows, h, 2, torch.cuda.get_device_properties(0).multi_processor_count)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {rr._row_plan(rows, h, 2, sms, **plan_kw)}
     for c in clusters:
         per = -(-(h // 8) // c)
         for tv in (1, 2, 4):

@@ -29,14 +29,23 @@
 // element a vector.
 //
 // add_rms_norm (K6b / K6c) is bound by bytes too: x and the residual read,
-// the sum and the output written (4 x 2 B an element in bf16).  One block
-// of 128 threads per row, two passes: pass 1 forms a = x + r in f32, rounds it to x's type (as the
-// TPU kernel's astype), writes it as `added` and sums a^2; pass 2 forms a
-// again (bit-equal) and writes a * r * w + b (or a * r * (w + 1)) in f32,
-// rounded once to x's type, or quantized to int8: round half to even, then
-// clamp to [-128, 127].  The epilogue uses __fmul_rn / __fadd_rn so that nvcc
-// contracts no product into an FMA: the plain version rounds each operation,
-// and a contracted one would move int8 levels at rounding ties.
+// the sum and the output written (4 x 2 B an element in bf16).  It runs on
+// row_reduce.cuh with K6a's plan: each thread loads its 16-byte vectors of x
+// and r once, forms a = x + r in f32 rounded to x's type (as the TPU
+// kernel's astype), writes it as `added` from the registers and sums a^2 in
+// K6a's fixed order (ops/norm.py add_rms_norm_rows_plain repeats it bit for
+// bit); then r = 1 / sqrt(sum / hidden + eps) as K6a, and a * r * w + b (or
+// a * r * (w + 1)) in f32 from the same registers, rounded once to x's type,
+// or quantized to int8 by a static per-channel scale and offset: round half
+// to even, then clamp to [-128, 127].  The weight and bias (and the quant
+// scale and offset, see HOLD_QUANT) are loaded with 16-byte vectors once per
+// block and reused over its rows; their types are template parameters.  The
+// plan reads two inputs a vector (ops/row_reduce.py, inputs = 2): one vector
+// a thread up to 512, four rows a block at chunk sizes; a block loads the
+// next row's x and r into the same registers once `added` is formed.
+// The epilogue uses __fmul_rn / __fadd_rn so that nvcc contracts no product
+// into an FMA: the plain version rounds each operation, and a contracted
+// one would move int8 levels at rounding ties.
 //
 // l1_norm (K6d): the same block per row; pass 1 sums the row (signed) in f32,
 // pass 2 divides each element by that sum in IEEE division (__fdiv_rn, not a
@@ -73,30 +82,6 @@ __device__ __forceinline__ void load_n(const __nv_bfloat16* p, float (&f)[N]) {
       const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
       f[2 * i] = t.x, f[2 * i + 1] = t.y;
     }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_n(float* p, const float (&f)[N]) {
-  if constexpr (N == 1) {
-    p[0] = f[0];
-  } else {
-    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_n(__nv_bfloat16* p, const float (&f)[N]) {
-  if constexpr (N == 1) {
-    p[0] = __float2bfloat16_rn(f[0]);
-  } else {
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 t = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-      w[i] = *reinterpret_cast<const uint32_t*>(&t);
-    }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
@@ -181,32 +166,9 @@ __global__ void __launch_bounds__(rowr::MAX_THREADS)
   rowr::cluster_done(cluster);
 }
 
-// f32 value of element i of a bf16 or f32 vector (the weight and bias may be
-// either type: a uniform branch).
-__device__ __forceinline__ float load_any(const void* p, int bf16, int i) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
-}
-
 __device__ __forceinline__ float round_as(float v, const float*) { return v; }
 __device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// N int8 values, one store for N > 1 (N bytes, aligned by the caller).
-template <int N>
-__device__ __forceinline__ void store_i8(int8_t* p, const float (&f)[N]) {
-  int8_t q[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) q[i] = (int8_t)fminf(fmaxf(rintf(f[i]), -128.f), 127.f);
-  if constexpr (N == 1) {
-    p[0] = q[0];
-  } else if constexpr (N == 4) {
-    *reinterpret_cast<uint32_t*>(p) = *reinterpret_cast<const uint32_t*>(q);
-  } else {
-    static_assert(N == 8, "4 or 8 int8 a store");
-    *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(q);
-  }
 }
 
 // N f32 values: float4 stores for N >= 4.
@@ -223,54 +185,156 @@ __device__ __forceinline__ void store_f32(float* p, const float (&f)[N]) {
 
 enum AddMode { kBias = 0, kBiasQuant = 1, kGemma = 2 };
 
-// a = x + r at columns [c, c + N), rounded to T.
-template <typename T, int N>
-__device__ __forceinline__ void added_n(const T* x, const T* r, int c, float (&a)[N]) {
-  float v[N];
-  load_n(x + c, a);
-  load_n(r + c, v);
-#pragma unroll
-  for (int i = 0; i < N; ++i) a[i] = round_as(a[i] + v[i], x);
+// Whether the quantized mode holds the quant scale and offset in registers
+// for a block of several rows (true) or reads them a row through the
+// read-only cache (false): the faster at [512, 4096] and [512, 7168] on the
+// H100 (PERF.md §6).  A block of one row (decode) reads them once either
+// way, in its epilogue, after the row's loads; and they are held only up to
+// 4 vectors a thread: at 8 the two alone would take 128 registers.
+constexpr bool HOLD_QUANT = true;
+
+// The output value of a = x + r: (a * rs) * w + b, (a * rs) * (w + 1) in
+// the Gemma mode, then * qs + qo in the quantized mode; each operation
+// rounded (no FMA contraction).
+template <int MODE>
+__device__ __forceinline__ float add_norm_value(float a, float rs, float w, float b, float qs,
+                                                float qo) {
+  float v = __fmul_rn(__fmul_rn(a, rs), MODE == kGemma ? __fadd_rn(w, 1.f) : w);
+  if (MODE != kGemma) v = __fadd_rn(v, b);
+  if (MODE == kBiasQuant) v = __fadd_rn(__fmul_rn(v, qs), qo);
+  return v;
 }
 
-// x, r, added [rows, hidden] of T; w, b [hidden] (bf16 if w_bf16 / b_bf16,
-// else f32); qs, qo [hidden] f32 (kBiasQuant only); out [rows, hidden] of T,
-// or int8 in kBiasQuant.  b is unread in kGemma.
-template <typename T, int N>
-__global__ void __launch_bounds__(THREADS)
+// The N outputs at element `at` of out from a = x + r there and the
+// vectors' values: int8 levels in kBiasQuant, else T.
+template <typename T, int MODE, int N, typename W, typename B>
+__device__ __forceinline__ void put_add(void* out, size_t at, const float (&a)[N], float rs,
+                                        const rowr::Pack<W, N>& w, const rowr::Pack<B, N>& b,
+                                        const rowr::Pack<float, N>& qs,
+                                        const rowr::Pack<float, N>& qo) {
+  float f[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    f[i] = add_norm_value<MODE>(a[i], rs, w.get(i), MODE == kGemma ? 0.f : b.get(i),
+                                MODE == kBiasQuant ? qs.get(i) : 0.f,
+                                MODE == kBiasQuant ? qo.get(i) : 0.f);
+  if constexpr (MODE == kBiasQuant) {
+    int l[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) l[i] = (int)fminf(fmaxf(rintf(f[i]), -128.f), 127.f);
+    rowr::store(static_cast<int8_t*>(out) + at, l);
+  } else {
+    rowr::store(static_cast<T*>(out) + at, f);
+  }
+}
+
+// x, r, added [rows, hidden] of T; w [hidden] of W, b [hidden] of B (unread
+// in kGemma); qs, qo [hidden] f32 (kBiasQuant only); out [rows, hidden] of
+// T, or int8 in kBiasQuant.  Grid and vectors as rms_norm_kernel's.
+template <typename T, typename W, typename B, int MODE, int N, int VM>
+__global__ void __launch_bounds__(rowr::MAX_THREADS)
     add_rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ r,
-                        const void* __restrict__ w, const void* __restrict__ b,
+                        const W* __restrict__ w, const B* __restrict__ b,
                         const float* __restrict__ qs, const float* __restrict__ qo,
-                        void* __restrict__ out, T* __restrict__ added, int hidden, int w_bf16,
-                        int b_bf16, int mode, float eps) {
-  const size_t base = (size_t)blockIdx.x * hidden;
-  const T* xr = x + base;
-  const T* rr = r + base;
-  float ss = 0.f;
-  for (int c = threadIdx.x * N; c < hidden; c += THREADS * N) {
-    float a[N];
-    added_n(xr, rr, c, a);
-    store_n(added + base + c, a);   // exact: a already lies on T's grid
-#pragma unroll
-    for (int i = 0; i < N; ++i) ss += a[i] * a[i];
+                        void* __restrict__ out, T* __restrict__ added, int rows, int hidden,
+                        int cluster, int vecs, int block_rows, float eps) {
+  constexpr bool QUANT = MODE == kBiasQuant, GEMMA = MODE == kGemma;
+  constexpr bool HOLDQ = QUANT && HOLD_QUANT && VM <= 4;
+  __shared__ float red[2][rowr::MAX_THREADS / 32];
+  __shared__ float part;
+  const rowr::Rows rw(rows, cluster, block_rows);
+  const rowr::Span span(hidden / N, cluster, rw.rank);
+  rowr::Pack<W, N> wh[VM];
+  rowr::Pack<B, N> bh[VM];
+  rowr::Pack<float, N> sh[VM], oh[VM];
+  rowr::load_held(wh, w, span, vecs);
+  if constexpr (!GEMMA) rowr::load_held(bh, b, span, vecs);
+  const bool hold = HOLDQ && rw.hi - rw.lo > 1;
+  if (hold) {
+    rowr::load_held(sh, qs, span, vecs);
+    rowr::load_held(oh, qo, span, vecs);
   }
-  const float rs = 1.f / sqrtf(block_sum(ss) / (float)hidden + eps);
-  for (int c = threadIdx.x * N; c < hidden; c += THREADS * N) {
-    float a[N];
-    added_n(xr, rr, c, a);
+  rowr::Pack<T, N> xc[VM], rc[VM], ah[VM];
+  rowr::load_held(xc, x + (size_t)rw.lo * hidden, span, vecs);
+  rowr::load_held(rc, r + (size_t)rw.lo * hidden, span, vecs);
+  for (int row = rw.lo; row < rw.hi; ++row) {
+    const size_t at = (size_t)row * hidden;
+    float ss = 0.f;
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const float wi = load_any(w, w_bf16, c + i);
-      float v = __fmul_rn(__fmul_rn(a[i], rs), mode == kGemma ? __fadd_rn(wi, 1.f) : wi);
-      if (mode != kGemma) v = __fadd_rn(v, load_any(b, b_bf16, c + i));
-      if (mode == kBiasQuant) v = __fadd_rn(__fmul_rn(v, qs[c + i]), qo[c + i]);
-      a[i] = v;
+    for (int v = 0; v < VM; ++v) {
+      if (v < vecs && span.at(v) >= 0) {
+        float a[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          a[i] = round_as(__fadd_rn(xc[v].get(i), rc[v].get(i)), x);
+          ss = __fadd_rn(ss, __fmul_rn(a[i], a[i]));
+        }
+        ah[v].set(a);                                    // exact: a lies on T's grid
+        ah[v].store(added + at + (size_t)span.at(v) * N);
+      }
     }
-    if (mode == kBiasQuant)
-      store_i8(static_cast<int8_t*>(out) + base + c, a);
-    else
-      store_n(static_cast<T*>(out) + base + c, a);
+    // the next row's vectors land in the same registers while this one is
+    // reduced and written
+    if (row + 1 < rw.hi) {
+      rowr::load_held(xc, x + at + hidden, span, vecs);
+      rowr::load_held(rc, r + at + hidden, span, vecs);
+    }
+    for (int v = VM; v < vecs && span.at(v) >= 0; ++v) {   // a row past the registers
+      rowr::Pack<T, N> p, q;
+      p.load(x + at + (size_t)span.at(v) * N);
+      q.load(r + at + (size_t)span.at(v) * N);
+      float f[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        f[i] = round_as(__fadd_rn(p.get(i), q.get(i)), x);
+        ss = __fadd_rn(ss, __fmul_rn(f[i], f[i]));
+      }
+      rowr::store(added + at + (size_t)span.at(v) * N, f);
+    }
+    const float total = rowr::cluster_all<rowr::Sum>(
+        rowr::block_all<rowr::Sum>(ss, red[(row - rw.lo) & 1]), &part, cluster);
+    const float rs =
+        __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(__fdiv_rn(total, (float)hidden), eps)));
+#pragma unroll
+    for (int v = 0; v < VM; ++v) {
+      if (v < vecs && span.at(v) >= 0) {
+        const int g = span.at(v);
+        rowr::Pack<float, N> sv, ov;
+        if constexpr (QUANT) {
+          if (hold) {
+            sv = sh[v], ov = oh[v];
+          } else {                      // through the read-only cache, a row
+            sv.load(qs + (size_t)g * N);
+            ov.load(qo + (size_t)g * N);
+          }
+        }
+        float a[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) a[i] = ah[v].get(i);
+        put_add<T, MODE>(out, at + (size_t)g * N, a, rs, wh[v], bh[v], sv, ov);
+      }
+    }
+    for (int v = VM; v < vecs && span.at(v) >= 0; ++v) {
+      const int g = span.at(v);
+      rowr::Pack<T, N> p, q;
+      rowr::Pack<W, N> wv;
+      rowr::Pack<B, N> bv;
+      rowr::Pack<float, N> sv, ov;
+      p.load(x + at + (size_t)g * N);
+      q.load(r + at + (size_t)g * N);
+      wv.load(w + (size_t)g * N);
+      if constexpr (!GEMMA) bv.load(b + (size_t)g * N);
+      if constexpr (QUANT) {
+        sv.load(qs + (size_t)g * N);
+        ov.load(qo + (size_t)g * N);
+      }
+      float f[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) f[i] = round_as(__fadd_rn(p.get(i), q.get(i)), x);
+      put_add<T, MODE>(out, at + (size_t)g * N, f, rs, wv, bv, sv, ov);
+    }
   }
+  rowr::cluster_done(cluster);
 }
 
 // x [rows, hidden] of T -> out [rows, hidden] f32 = x / (signed row sum).
@@ -297,22 +361,49 @@ __global__ void __launch_bounds__(THREADS)
 
 __host__ __forceinline__ bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
-template <typename T>
+template <typename T, typename W, typename B, int MODE>
 int launch_add(const void* x, const void* r, const void* w, const void* b, const void* qs,
-               const void* qo, void* out, void* added, int rows, int hidden, int w_bf16,
-               int b_bf16, int mode, float eps, cudaStream_t s) {
+               const void* qo, void* out, void* added, int rows, int hidden, float eps,
+               int cluster, int threads, int vecs, int elems, int block_rows, cudaStream_t s) {
   constexpr int N = 16 / sizeof(T);
-  const bool vec = hidden % N == 0 && aligned16(x) && aligned16(r) && aligned16(added) &&
-                   (uintptr_t)out % 16 == 0;
-  if (vec)
-    add_rms_norm_kernel<T, N><<<rows, THREADS, 0, s>>>(
-        (const T*)x, (const T*)r, w, b, (const float*)qs, (const float*)qo, out, (T*)added,
-        hidden, w_bf16, b_bf16, mode, eps);
-  else
-    add_rms_norm_kernel<T, 1><<<rows, THREADS, 0, s>>>(
-        (const T*)x, (const T*)r, w, b, (const float*)qs, (const float*)qo, out, (T*)added,
-        hidden, w_bf16, b_bf16, mode, eps);
-  return (int)cudaGetLastError();
+  // the element path holds VMAX single elements: few registers, one instance
+  auto kernel = elems == 1  ? add_rms_norm_kernel<T, W, B, MODE, 1, rowr::VMAX>
+                : vecs <= 1 ? add_rms_norm_kernel<T, W, B, MODE, N, 1>
+                : vecs <= 2 ? add_rms_norm_kernel<T, W, B, MODE, N, 2>
+                : vecs <= 4 ? add_rms_norm_kernel<T, W, B, MODE, N, 4>
+                            : add_rms_norm_kernel<T, W, B, MODE, N, rowr::VMAX>;
+  const int blocks = cluster > 1 ? rows * cluster : (rows + block_rows - 1) / block_rows;
+  return rowr::launch(kernel, blocks, threads, cluster, s, (const T*)x, (const T*)r, (const W*)w,
+                      (const B*)b, (const float*)qs, (const float*)qo, out, (T*)added, rows,
+                      hidden, cluster, vecs, block_rows, eps);
+}
+
+// launch_add for the mode and the weight's and bias's types (the Gemma mode
+// reads no bias: it takes the weight's type)
+template <typename T>
+int launch_add_mode(const void* x, const void* r, const void* w, const void* b, const void* qs,
+                    const void* qo, void* out, void* added, int rows, int hidden, int w_bf16,
+                    int b_bf16, int mode, float eps, int cluster, int threads, int vecs,
+                    int elems, int block_rows, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  using Fn = int (*)(const void*, const void*, const void*, const void*, const void*,
+                     const void*, void*, void*, int, int, float, int, int, int, int, int,
+                     cudaStream_t);
+  static constexpr Fn bias[2][2] = {{launch_add<T, float, float, kBias>,
+                                     launch_add<T, float, bf16, kBias>},
+                                    {launch_add<T, bf16, float, kBias>,
+                                     launch_add<T, bf16, bf16, kBias>}};
+  static constexpr Fn quant[2][2] = {{launch_add<T, float, float, kBiasQuant>,
+                                      launch_add<T, float, bf16, kBiasQuant>},
+                                     {launch_add<T, bf16, float, kBiasQuant>,
+                                      launch_add<T, bf16, bf16, kBiasQuant>}};
+  static constexpr Fn gemma[2] = {launch_add<T, float, float, kGemma>,
+                                  launch_add<T, bf16, bf16, kGemma>};
+  const Fn run = mode == kGemma       ? gemma[w_bf16 != 0]
+                 : mode == kBiasQuant ? quant[w_bf16 != 0][b_bf16 != 0]
+                                      : bias[w_bf16 != 0][b_bf16 != 0];
+  return run(x, r, w, b, qs, qo, out, added, rows, hidden, eps, cluster, threads, vecs, elems,
+             block_rows, s);
 }
 
 template <typename T>
@@ -370,17 +461,16 @@ extern "C" int rms_norm_launch(const void* x, const void* w, void* out, int rows
 // hidden] (int8 in mode 1, else x's type) and added [rows, hidden] in x's
 // type.  mode 0: rmsnorm(x + r) * w + b (K6b); 1: the same quantized
 // (K6b with a quant scale); 2: rmsnorm(x + r) * (w + 1) (K6c, b unread).
+// On the wrapper's plan, as rms_norm_launch's.
 extern "C" int add_rms_norm_launch(const void* x, const void* r, const void* w, const void* b,
                                    const void* qs, const void* qo, void* out, void* added,
                                    int rows, int hidden, int x_bf16, int w_bf16, int b_bf16,
-                                   int mode, float eps, void* stream) {
+                                   int mode, float eps, int cluster, int threads, int vecs,
+                                   int elems, int block_rows, void* stream) {
   if (rows == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (x_bf16)
-    return rmsnorm::launch_add<__nv_bfloat16>(x, r, w, b, qs, qo, out, added, rows, hidden,
-                                              w_bf16, b_bf16, mode, eps, s);
-  return rmsnorm::launch_add<float>(x, r, w, b, qs, qo, out, added, rows, hidden, w_bf16, b_bf16,
-                                    mode, eps, s);
+  auto run = x_bf16 ? rmsnorm::launch_add_mode<__nv_bfloat16> : rmsnorm::launch_add_mode<float>;
+  return run(x, r, w, b, qs, qo, out, added, rows, hidden, w_bf16, b_bf16, mode, eps, cluster,
+             threads, vecs, elems, block_rows, (cudaStream_t)stream);
 }
 
 // x [rows, hidden] (bf16 if x_bf16 else f32) -> out [rows, hidden] f32.

@@ -6,26 +6,34 @@
 // (_swiglu_quant_kernel), which quantize a block of rows held whole in VMEM.
 //
 // Bound on the H100: bytes, and at the serving path's sizes (8-64 rows of
-// 4,096-16,384 values, 0.1-2 MB) really the launch: a call is a few
+// 4,096-28,672 values, 0.1-2 MB) really the launch: a call is a few
 // microseconds of fixed cost against a bound of well under one.
 //
-// quant_per_token (K5) runs on csrc/row_reduce.cuh: at decode a row wider
-// than 16 KB split across a cluster of up to 8 blocks, at chunk sizes two
-// rows a block (the wrapper's plan); each thread's 16-byte vectors held in
-// registers from the load to the int8 store (8 bytes a bf16 vector), the
-// row's |max| reduced over the block and the cluster.  Max does not depend
-// on the order, and each level is IEEE division's (`level` below), so the
-// bits are the plain version's.  scale = max(amax / 127, 1e-12), and that
-// clamped scale is returned (written by cluster rank 0, thread 0).
+// Both run on csrc/row_reduce.cuh: at decode a row of over 16 KB of input
+// split across a cluster of up to 8 blocks, at chunk sizes several rows a
+// block (the wrapper's plan, ops/row_reduce.py); each thread's 16-byte
+// vectors held in registers from the load to the int8 store, the row's
+// |max| reduced over the block and the cluster.  Max does not depend on the order, and each
+// level is IEEE division's (`level` below), so the bits are the plain
+// version's.
 //
-// swiglu_quant (K7a): one block per row, two passes over the row.  Pass 1
-// takes the row's |max| (block reduction in a fixed order: deterministic);
-// pass 2 re-reads the row (from L1/L2) and writes round_half_even(v / scale)
-// saturated to int8.  v = silu(gate) * up in f32 over the gate || up
-// halves, rows at or past `total` (a device scalar: the group list's total)
-// are zeros; the returned scale is amax / 127 UNCLAMPED (a zero row returns
-// 0), only the division uses max(scale, 1e-12).  Without quant the
-// activation is written in the input's type and the scales are zeros.
+// quant_per_token (K5): scale = max(amax / 127, 1e-12), and that clamped
+// scale is returned (written by cluster rank 0, thread 0).
+//
+// swiglu_quant (K7a): the output row of I is the reduced row; a thread's
+// vector j is made from the gate's 16 bytes at column jN and the up's at
+// I + jN, each loaded once, and v = silu(gate) * up is computed once in f32
+// (a precise expf and an IEEE division, as the plain version's sigmoid) and
+// held in registers through the |max| and the levels, while the next row's
+// gate and up land in the registers they left.  Its plan reads two inputs
+// a vector (ops/row_reduce.py, inputs = 2): Llama's decode rows (57 KB of
+// gate || up) in clusters of 8, one vector a thread up to 512, four rows a
+// block at chunk sizes.  Rows at or past
+// `total` (a device scalar: the group list's total) are zeros; they still
+// take the row's reductions, so every block of a cluster meets its barriers.
+// The returned scale is amax / 127 UNCLAMPED (a zero row returns 0), only
+// the division uses max(scale, 1e-12).  Without quant v is written in the
+// input's type on the same plan, no reduction, and the scales are zeros.
 //
 // Both round as IEEE division (no fast math), as the plain versions divide:
 // a bare reciprocal multiply would flip values at rounding ties by one level
@@ -35,32 +43,8 @@
 
 namespace quant {
 
-constexpr int THREADS = 256;
-
-__device__ __forceinline__ float load_f(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f(float* p, size_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, size_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-
 __device__ __forceinline__ int8_t saturate(float v) {
   return (int8_t)fminf(fmaxf(rintf(v), -128.f), 127.f);
-}
-
-// Max over the block, in a fixed order; every thread gets the result.
-__device__ float block_max(float v) {
-  __shared__ float red[THREADS / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = sgl::warp_max(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float m = 0.f;
-#pragma unroll
-  for (int i = 0; i < THREADS / 32; ++i) m = fmaxf(m, red[i]);
-  return m;
 }
 
 __device__ __forceinline__ float silu_mul(float gate, float up) {
@@ -148,31 +132,90 @@ __global__ void __launch_bounds__(rowr::MAX_THREADS)
   rowr::cluster_done(cluster);
 }
 
-// x [rows, 2I]; out [rows, I] int8 (QUANT) or InT; scale [rows].
-template <typename InT, bool QUANT>
-__global__ void __launch_bounds__(THREADS)
-    swiglu_quant_kernel(const InT* __restrict__ x, int I, const int* __restrict__ total,
-                        void* __restrict__ out, float* __restrict__ scale) {
-  const int row = blockIdx.x;
-  const bool live = total == nullptr || row < *total;
-  const size_t in = (size_t)row * 2 * I, o = (size_t)row * I;
-  if (!QUANT) {
-    InT* y = static_cast<InT*>(out);
-    for (int c = threadIdx.x; c < I; c += THREADS)
-      store_f(y, o + c, live ? silu_mul(load_f(x, in + c), load_f(x, in + I + c)) : 0.f);
-    if (threadIdx.x == 0) scale[row] = 0.f;
-    return;
+// N output values of K7a at element `at` of out: levels with QUANT, else f in T.
+template <typename T, bool QUANT, int N>
+__device__ __forceinline__ void put_swiglu(void* out, size_t at, const float (&f)[N], float s,
+                                           float rs) {
+  if constexpr (QUANT) {
+    int l[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) l[i] = level(f[i], s, rs);
+    rowr::store(static_cast<int8_t*>(out) + at, l);
+  } else {
+    rowr::store(static_cast<T*>(out) + at, f);
   }
-  int8_t* q = static_cast<int8_t*>(out);
-  float m = 0.f;
-  if (live)
-    for (int c = threadIdx.x; c < I; c += THREADS)
-      m = fmaxf(m, fabsf(silu_mul(load_f(x, in + c), load_f(x, in + I + c))));
-  const float s = block_max(m) / 127.f;
-  const float safe = fmaxf(s, 1e-12f);
-  for (int c = threadIdx.x; c < I; c += THREADS)
-    q[o + c] = live ? saturate(silu_mul(load_f(x, in + c), load_f(x, in + I + c)) / safe) : 0;
-  if (threadIdx.x == 0) scale[row] = s;
+}
+
+// x [rows, 2I] of T (gate || up) -> out [rows, I] (int8 levels with QUANT,
+// else T), scale [rows] f32.  Grid and vectors as quant_per_token_kernel's,
+// over the output row of I: vector j of a row reads x[row, jN ..] (gate)
+// and x[row, I + jN ..] (up).  total: device row count or null.
+template <typename T, bool QUANT, int N, int VM>
+__global__ void __launch_bounds__(rowr::MAX_THREADS)
+    swiglu_quant_kernel(const T* __restrict__ x, int rows, int I, const int* __restrict__ total,
+                        int cluster, int vecs, int block_rows, void* __restrict__ out,
+                        float* __restrict__ scale) {
+  __shared__ float red[2][rowr::MAX_THREADS / 32];
+  __shared__ float part;
+  const rowr::Rows rw(rows, cluster, block_rows);
+  const rowr::Span span(I / N, cluster, rw.rank);
+  const int live = total == nullptr ? rows : *total;   // rows [0, live) are live
+  const size_t in = 2 * (size_t)I;
+  rowr::Pack<T, N> g[VM], u[VM];
+  if (rw.lo < live) {
+    rowr::load_held(g, x + rw.lo * in, span, vecs);
+    rowr::load_held(u, x + rw.lo * in + I, span, vecs);
+  }
+  for (int row = rw.lo; row < rw.hi; ++row) {
+    const T* xr = x + row * in;
+    const bool on = row < live;
+    float v[VM][N];
+    float m = 0.f;
+#pragma unroll
+    for (int j = 0; j < VM; ++j)
+      if (j < vecs && span.at(j) >= 0)
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          v[j][i] = on ? silu_mul(g[j].get(i), u[j].get(i)) : 0.f;
+          m = fmaxf(m, fabsf(v[j][i]));
+        }
+    // the next row's vectors land in the same registers while this one is
+    // reduced and written
+    if (row + 1 < rw.hi && row + 1 < live) {
+      rowr::load_held(g, xr + in, span, vecs);
+      rowr::load_held(u, xr + in + I, span, vecs);
+    }
+    if constexpr (QUANT) {
+      for (int j = VM; on && j < vecs && span.at(j) >= 0; ++j) {   // a row past the registers
+        rowr::Pack<T, N> a, b;
+        a.load(xr + (size_t)span.at(j) * N);
+        b.load(xr + I + (size_t)span.at(j) * N);
+#pragma unroll
+        for (int i = 0; i < N; ++i) m = fmaxf(m, fabsf(silu_mul(a.get(i), b.get(i))));
+      }
+      m = rowr::cluster_all<rowr::Max>(rowr::block_all<rowr::Max>(m, red[(row - rw.lo) & 1]),
+                                       &part, cluster);
+    }
+    const float s = __fdiv_rn(m, 127.f), safe = fmaxf(s, 1e-12f), rs = __fdiv_rn(1.f, safe);
+    const size_t o = (size_t)row * I;
+#pragma unroll
+    for (int j = 0; j < VM; ++j)
+      if (j < vecs && span.at(j) >= 0)
+        put_swiglu<T, QUANT>(out, o + (size_t)span.at(j) * N, v[j], safe, rs);
+    for (int j = VM; j < vecs && span.at(j) >= 0; ++j) {
+      float f[N] = {};
+      if (on) {
+        rowr::Pack<T, N> a, b;
+        a.load(xr + (size_t)span.at(j) * N);
+        b.load(xr + I + (size_t)span.at(j) * N);
+#pragma unroll
+        for (int i = 0; i < N; ++i) f[i] = silu_mul(a.get(i), b.get(i));
+      }
+      put_swiglu<T, QUANT>(out, o + (size_t)span.at(j) * N, f, safe, rs);
+    }
+    if (rw.rank == 0 && threadIdx.x == 0) scale[row] = QUANT ? s : 0.f;
+  }
+  if constexpr (QUANT) rowr::cluster_done(cluster);
 }
 
 template <typename T, int N>
@@ -197,6 +240,21 @@ int launch_per_token(const void* x, int rows, int hidden, int cluster, int threa
                                                block_rows, q, scale, s);
 }
 
+template <typename T, bool QUANT>
+int launch_swiglu(const void* x, int rows, int I, const int* total, int cluster, int threads,
+                  int vecs, int elems, int block_rows, void* out, void* scale, cudaStream_t s) {
+  constexpr int N = 16 / sizeof(T);
+  // the element path holds VMAX single elements: few registers, one instance
+  auto kernel = elems == 1  ? swiglu_quant_kernel<T, QUANT, 1, rowr::VMAX>
+                : vecs <= 1 ? swiglu_quant_kernel<T, QUANT, N, 1>
+                : vecs <= 2 ? swiglu_quant_kernel<T, QUANT, N, 2>
+                : vecs <= 4 ? swiglu_quant_kernel<T, QUANT, N, 4>
+                            : swiglu_quant_kernel<T, QUANT, N, rowr::VMAX>;
+  const int blocks = cluster > 1 ? rows * cluster : (rows + block_rows - 1) / block_rows;
+  return rowr::launch(kernel, blocks, threads, cluster, s, (const T*)x, rows, I, total, cluster,
+                      vecs, block_rows, out, (float*)scale);
+}
+
 }  // namespace quant
 
 // x [rows, hidden] (bf16 if in_bf16 else f32) -> q [rows, hidden] int8,
@@ -215,26 +273,18 @@ extern "C" int quant_per_token_launch(const void* x, int rows, int hidden, int i
 
 // x [rows, 2I] (bf16 if in_bf16 else f32), total = device int32 row count or
 // null (every row live) -> out [rows, I] (int8 if need_quant, else x's type),
-// scale [rows] f32.
+// scale [rows] f32, on the wrapper's plan over the output row of I
+// (ops/row_reduce.py _row_plan with halves = 2), as quant_per_token_launch's.
 extern "C" int swiglu_quant_launch(const void* x, int rows, int I, int in_bf16,
-                                   const void* total, int need_quant, void* out, void* scale,
+                                   const void* total, int need_quant, int cluster, int threads,
+                                   int vecs, int elems, int block_rows, void* out, void* scale,
                                    void* stream) {
   if (rows == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int* tot = (const int*)total;
-  float* sc = (float*)scale;
-  if (in_bf16) {
-    auto xb = (const __nv_bfloat16*)x;
-    if (need_quant)
-      quant::swiglu_quant_kernel<__nv_bfloat16, true><<<rows, quant::THREADS, 0, s>>>(xb, I, tot, out, sc);
-    else
-      quant::swiglu_quant_kernel<__nv_bfloat16, false><<<rows, quant::THREADS, 0, s>>>(xb, I, tot, out, sc);
-  } else {
-    auto xf = (const float*)x;
-    if (need_quant)
-      quant::swiglu_quant_kernel<float, true><<<rows, quant::THREADS, 0, s>>>(xf, I, tot, out, sc);
-    else
-      quant::swiglu_quant_kernel<float, false><<<rows, quant::THREADS, 0, s>>>(xf, I, tot, out, sc);
-  }
-  return (int)cudaGetLastError();
+  using bf16 = __nv_bfloat16;
+  auto run = in_bf16 ? (need_quant ? quant::launch_swiglu<bf16, true>
+                                   : quant::launch_swiglu<bf16, false>)
+                     : (need_quant ? quant::launch_swiglu<float, true>
+                                   : quant::launch_swiglu<float, false>);
+  return run(x, rows, I, (const int*)total, cluster, threads, vecs, elems, block_rows, out, scale,
+             (cudaStream_t)stream);
 }

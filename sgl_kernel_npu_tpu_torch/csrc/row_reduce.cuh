@@ -1,5 +1,6 @@
 // A row reduction held in registers, across a thread-block cluster: the
-// shared routine of quant_per_token (K5, csrc/quant.cu) and rms_norm (K6a,
+// shared routine of quant_per_token (K5) and swiglu_quant (K7a, both
+// csrc/quant.cu), rms_norm (K6a) and add_rms_norm (K6b / K6c, both
 // csrc/norm.cu).
 //
 // Bound on the H100: bytes, and at decode-sized row counts the latency of a
@@ -70,35 +71,43 @@ struct Pack {
       return __uint_as_float((i & 1) ? (w[i >> 1] & 0xffff0000u) : (w[i >> 1] << 16));
     }
   }
+
+  // the N values f as T (bf16 rounded to nearest even)
+  __device__ __forceinline__ void set(const float (&f)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        w[i] = __float_as_uint(f[i]);
+      } else {
+        const uint32_t b = __bfloat16_as_ushort(__float2bfloat16_rn(f[i]));
+        w[i >> 1] = (i & 1) ? (w[i >> 1] | (b << 16)) : b;
+      }
+    }
+  }
+
+  // the words to p, in one access as load's
+  __device__ __forceinline__ void store(T* p) const {
+    if constexpr (BYTES >= 16) {
+#pragma unroll
+      for (int i = 0; i < BYTES / 16; ++i)
+        reinterpret_cast<uint4*>(p)[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2],
+                                                    w[4 * i + 3]);
+    } else if constexpr (BYTES == 8) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    } else if constexpr (BYTES == 4) {
+      *reinterpret_cast<uint32_t*>(p) = w[0];
+    } else {
+      *reinterpret_cast<unsigned short*>(p) = (unsigned short)w[0];
+    }
+  }
 };
 
 // Store N values as T (f32, or bf16 rounded to nearest even) in one access.
 template <typename T, int N>
 __device__ __forceinline__ void store(T* p, const float (&f)[N]) {
-  constexpr int BYTES = N * (int)sizeof(T);
-  uint32_t o[BYTES < 4 ? 1 : BYTES / 4] = {};
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if constexpr (sizeof(T) == 4) {
-      o[i] = __float_as_uint(f[i]);
-    } else {
-      static_assert(sizeof(T) == 2, "f32 or bf16");
-      const uint32_t b = __bfloat16_as_ushort(__float2bfloat16_rn(f[i]));
-      o[i >> 1] |= b << (16 * (i & 1));
-    }
-  }
-  if constexpr (BYTES >= 16) {
-#pragma unroll
-    for (int i = 0; i < BYTES / 16; ++i)
-      reinterpret_cast<uint4*>(p)[i] =
-          make_uint4(o[4 * i], o[4 * i + 1], o[4 * i + 2], o[4 * i + 3]);
-  } else if constexpr (BYTES == 8) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(o[0], o[1]);
-  } else if constexpr (BYTES == 4) {
-    *reinterpret_cast<uint32_t*>(p) = o[0];
-  } else {
-    *reinterpret_cast<unsigned short*>(p) = (unsigned short)o[0];
-  }
+  Pack<T, N> o;
+  o.set(f);
+  o.store(p);
 }
 
 // Store N int8 levels (each in [-128, 127]) in one access.

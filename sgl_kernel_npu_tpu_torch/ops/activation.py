@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from sgl_kernel_npu_tpu_torch.ops.quant import row_scale, saturate_int8
+from sgl_kernel_npu_tpu_torch.ops.row_reduce import launch_plan
 from sgl_kernel_npu_tpu_torch.utils import cuda_lib
 from sgl_kernel_npu_tpu_torch.utils.common import on_cuda
 from sgl_kernel_npu_tpu_torch.utils.counters import counted
@@ -56,7 +57,9 @@ def swiglu_quant_ref(x, group_list=None, group_list_type: int = 1, need_quant: b
 def swiglu_quant(x, group_list=None, group_list_type: int = 1, need_quant: bool = True):
     """Fused SwiGLU + per-row dynamic int8 quant over ``x [rows, 2H]`` (gate ‖
     up) → ``(out [rows, H] int8, or x.dtype without quant; scale [rows]
-    f32)``.  CUDA tensors launch ``csrc/quant.cu``; CPU tensors take
+    f32)``.  CUDA tensors launch ``csrc/quant.cu`` (a row reduction on
+    ``csrc/row_reduce.cuh`` over the output row, its plan from
+    ``ops/row_reduce.launch_plan(..., halves=2)``); CPU tensors take
     :func:`swiglu_quant_ref`."""
     args = (x, *(() if group_list is None else (group_list,)))
     if not on_cuda(*args):
@@ -71,10 +74,11 @@ def swiglu_quant(x, group_list=None, group_list_type: int = 1, need_quant: bool 
                       device=x.device)
     scale = torch.empty((rows,), dtype=torch.float32, device=x.device)
     tot = None if total is None else total.reshape(1).contiguous()
+    plan = launch_plan(x, out, halves=2)
     lib = cuda_lib.load_library()
     cuda_lib.check(lib, lib.swiglu_quant_launch(
         x.data_ptr(), rows, h // 2, int(x.dtype == torch.bfloat16),
-        None if tot is None else tot.data_ptr(), int(need_quant), out.data_ptr(),
+        None if tot is None else tot.data_ptr(), int(need_quant), *plan, out.data_ptr(),
         scale.data_ptr(), cuda_lib.stream_ptr(x)), "swiglu_quant")
     swiglu_quant.launches += 1
     return out, scale

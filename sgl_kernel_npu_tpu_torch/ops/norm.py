@@ -6,9 +6,10 @@ DeepSeek path calls the plain version, GPT-OSS and Llama the kernel),
 per-channel int8 quant), ``add_gemma_rms_norm`` (K6c: residual add, RMSNorm
 scaled by ``w + 1``; K6b's kernel launches it) and ``l1_norm`` (K6d: each row
 over its signed sum, f32 out).  The kernels live in ``csrc/norm.cu``; no
-model calls K6b-d, they are ops.  K6a is a row reduction on
-``csrc/row_reduce.cuh`` (its plan from ``ops/row_reduce.py``);
-:func:`rms_norm_rows_plain` repeats its order of operations on the CPU.
+model calls K6b-d, they are ops.  K6a and K6b / K6c are row reductions on
+``csrc/row_reduce.cuh`` (their plan from ``ops/row_reduce.py``);
+:func:`rms_norm_rows_plain` and :func:`add_rms_norm_rows_plain` repeat their
+order of operations on the CPU.
 """
 
 from __future__ import annotations
@@ -30,21 +31,17 @@ def rms_norm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> to
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
 
 
-def rms_norm_rows_plain(x: torch.Tensor, weight: torch.Tensor, eps: float,
-                        plan: RowPlan) -> torch.Tensor:
-    """K6a's arithmetic in the CUDA kernel's order on ``plan``, bit for bit:
-    each thread sums x² (f32, each product and sum rounded) over its vectors
-    in order, a warp adds by butterfly, the block adds its warps in index
-    order and the cluster its blocks in rank order; then ``1 / sqrt(sum /
-    hidden + eps)``, and ``(x · r) · w`` rounded once to x's type."""
-    rows, hidden = x.shape
-    f32 = lambda v: torch.full((), v, dtype=torch.float32)  # noqa: E731
+def _row_sum_squares(xf: torch.Tensor, plan: RowPlan) -> torch.Tensor:
+    """Each row's f32 sum of x² in the row-reduction kernels' order on
+    ``plan`` (K6a, K6b / K6c): each thread sums its vectors' squares in order
+    (each product and sum rounded), a warp adds by butterfly, the block adds
+    its warps in index order and the cluster its blocks in rank order."""
+    rows, hidden = xf.shape
     n = plan.elems
-    xf = x.float()
     sq = (xf * xf).reshape(rows, hidden // n, n)
     index, live = row_vectors(plan, hidden)                    # [cluster, vecs, threads]
     vals = torch.where(live[None, ..., None], sq[:, index.clamp(max=max(hidden // n - 1, 0))],
-                       f32(0.0))                               # [rows, C, V, T, n]
+                       torch.zeros((), dtype=torch.float32))   # [rows, C, V, T, n]
     acc = torch.zeros((rows, plan.cluster, plan.threads))
     for v in range(plan.vecs):
         for i in range(n):
@@ -60,11 +57,48 @@ def rms_norm_rows_plain(x: torch.Tensor, weight: torch.Tensor, eps: float,
     total = blocks[:, 0]
     for r in range(1, plan.cluster):
         total = total + blocks[:, r]
+    return total
+
+
+def _row_rsqrt(total: torch.Tensor, hidden: int, eps: float) -> torch.Tensor:
+    """``1 / sqrt(total / hidden + eps)`` in f32, each operation rounded."""
+    f32 = lambda v: torch.full((), v, dtype=torch.float32)  # noqa: E731
     mean = total / f32(float(hidden)) + f32(eps)
     # sqrt rounded once, as the kernel's __fsqrt_rn: torch.sqrt on the CPU
     # (MKL) misses the nearest f32 now and then; f64 then f32 does not
-    scale = f32(1.0) / torch.sqrt(mean.double()).float()
+    return f32(1.0) / torch.sqrt(mean.double()).float()
+
+
+def rms_norm_rows_plain(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                        plan: RowPlan) -> torch.Tensor:
+    """K6a's arithmetic in the CUDA kernel's order on ``plan``, bit for bit:
+    the sum of x² as :func:`_row_sum_squares`, then ``1 / sqrt(sum / hidden +
+    eps)``, and ``(x · r) · w`` rounded once to x's type."""
+    xf = x.float()
+    scale = _row_rsqrt(_row_sum_squares(xf, plan), x.shape[1], eps)
     return (xf * scale[:, None] * weight.float()).to(x.dtype)
+
+
+def add_rms_norm_rows_plain(x, residual, weight, bias, quant_scale, quant_offset, mode: str,
+                            eps: float, plan: RowPlan):
+    """K6b / K6c's arithmetic in the CUDA kernel's order on ``plan``, bit for
+    bit → ``(out, added)``: ``added = x + residual`` in f32 rounded to x's
+    type, its sum of squares in K6a's order (:func:`_row_sum_squares`), ``r =
+    1 / sqrt(sum / hidden + eps)``, then ``(a · r) · w + b`` (mode
+    ``"bias"``), the same ``· qs + qo`` saturated to int8 (``"quant"``), or
+    ``(a · r) · (w + 1)`` (``"gemma"``, no bias), each operation rounded, the
+    float output rounded once to x's type."""
+    added = (x.float() + residual.float()).to(x.dtype)
+    af = added.float()
+    scale = _row_rsqrt(_row_sum_squares(af, plan), x.shape[1], eps)
+    wf = weight.float()
+    out = af * scale[:, None] * (wf + 1.0 if mode == "gemma" else wf)
+    if mode == "gemma":
+        return out.to(x.dtype), added
+    out = out + bias.float()
+    if mode == "quant":
+        return quant_static_per_channel_ref(out, quant_scale, quant_offset), added
+    return out.to(x.dtype), added
 
 
 def add_rms_norm_bias_ref(x, residual, norm_weight, norm_bias, eps, quant_scale=None,
@@ -115,25 +149,27 @@ def _check_vectors(name: str, hidden: int, *vectors: torch.Tensor) -> None:
 
 
 # modes of add_rms_norm_launch (csrc/norm.cu)
-_BIAS, _BIAS_QUANT, _GEMMA = 0, 1, 2
+_MODES = {"bias": 0, "quant": 1, "gemma": 2}
 
 
-def _add_rms_norm(x, residual, weight, bias, qs, qo, mode: int, eps: float):
+def _add_rms_norm(x, residual, weight, bias, qs, qo, mode: str, eps: float):
     """Launch the fused add + RMSNorm kernel → ``(out, added)``."""
     x, residual = x.contiguous(), residual.contiguous()
     weight = weight.contiguous()
     bias = weight if bias is None else bias.contiguous()   # unread in the Gemma mode
-    out = torch.empty(x.shape, dtype=torch.int8 if mode == _BIAS_QUANT else x.dtype,
+    out = torch.empty(x.shape, dtype=torch.int8 if mode == "quant" else x.dtype,
                       device=x.device)
     added = torch.empty_like(x)
+    quant = [t for t in (qs, qo) if t is not None]
+    plan = launch_plan(x, residual, added, out, weight, bias, *quant, inputs=2)
     lib = cuda_lib.load_library()
     ptr = lambda t: 0 if t is None else t.data_ptr()   # noqa: E731
     cuda_lib.check(lib, lib.add_rms_norm_launch(
         x.data_ptr(), residual.data_ptr(), weight.data_ptr(), bias.data_ptr(), ptr(qs), ptr(qo),
         out.data_ptr(), added.data_ptr(), x.shape[0], x.shape[1],
         int(x.dtype == torch.bfloat16), int(weight.dtype == torch.bfloat16),
-        int(bias.dtype == torch.bfloat16), mode, float(eps), cuda_lib.stream_ptr(x)),
-        "add_rms_norm")
+        int(bias.dtype == torch.bfloat16), _MODES[mode], float(eps), *plan,
+        cuda_lib.stream_ptr(x)), "add_rms_norm")
     return out, added
 
 
@@ -142,7 +178,8 @@ def add_rms_norm_bias(x, residual, norm_weight, norm_bias, eps: float = 1e-6, qu
                       quant_offset=None):
     """Fused residual add + RMSNorm + bias (K6b), optionally quantized to
     int8 with a static per-channel scale and offset → ``(out, x +
-    residual)``.  CUDA tensors launch ``csrc/norm.cu``; CPU tensors take
+    residual)``.  CUDA tensors launch ``csrc/norm.cu`` (bit-equal to
+    :func:`add_rms_norm_rows_plain` on the launch's plan); CPU tensors take
     :func:`add_rms_norm_bias_ref`."""
     quantize = quant_scale is not None
     vectors = (norm_weight, norm_bias) + ((quant_scale, quant_offset) if quantize else ())
@@ -155,7 +192,7 @@ def add_rms_norm_bias(x, residual, norm_weight, norm_bias, eps: float = 1e-6, qu
     if quantize:
         qs, qo = quant_scale.float().contiguous(), quant_offset.float().contiguous()
     out = _add_rms_norm(x, residual, norm_weight, norm_bias, qs, qo,
-                        _BIAS_QUANT if quantize else _BIAS, eps)
+                        "quant" if quantize else "bias", eps)
     add_rms_norm_bias.launches += 1
     return out
 
@@ -170,7 +207,7 @@ def add_gemma_rms_norm(hidden_state, weight, residual, eps: float = 1e-6):
         return add_gemma_rms_norm_ref(hidden_state, weight, residual, eps)
     _check_rows("add_gemma_rms_norm", hidden_state, residual)
     _check_vectors("add_gemma_rms_norm", hidden_state.shape[1], weight)
-    out = _add_rms_norm(hidden_state, residual, weight, None, None, None, _GEMMA, eps)
+    out = _add_rms_norm(hidden_state, residual, weight, None, None, None, "gemma", eps)
     add_gemma_rms_norm.launches += 1
     return out
 

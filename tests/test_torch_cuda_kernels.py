@@ -1483,6 +1483,123 @@ def test_add_rms_norm_kernel(dev, rows, hidden, x_dt, w_dt, mode):
         _ulp_close(got, want, x_dt)
 
 
+# K6b / K6c on row_reduce.cuh (in bf16): clusters of 8, 4 and 2 blocks a
+# row, four rows a block at 512 (Llama's width and DeepSeek's), one block a
+# row at [8, 4096], the element path
+ADD_ROW_SHAPES = [(8, 32768), (8, 8192), (100, 8192), (512, 4096), (512, 7168), (8, 4096),
+                  (7, 100), (3, 4097)]
+
+
+@pytest.mark.parametrize("mode", ["bias", "quant", "gemma"])
+@pytest.mark.parametrize("x_dt,w_dt", [(torch.bfloat16, torch.bfloat16),
+                                       (torch.float32, torch.float32),
+                                       (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("rows,hidden", ADD_ROW_SHAPES)
+def test_add_rms_norm_kernel_bit_equal_to_row_plain(dev, rows, hidden, x_dt, w_dt, mode):
+    """K6b (with and without its quant) and K6c are bit-equal to their CPU
+    mirror ``add_rms_norm_rows_plain`` on the launch's plan, ``added``
+    bit-equal to the plain version's, the same bits over 5 calls; from
+    tensors 4 bytes past a 16-byte boundary they take the element path,
+    bit-equal too."""
+    from sgl_kernel_npu_tpu_torch.ops import norm, row_reduce
+
+    gen = torch.Generator(device=dev).manual_seed(5 * rows + hidden)
+    x = (torch.randn((rows, hidden), generator=gen, device=dev) * 2).to(x_dt)
+    res = torch.randn((rows, hidden), generator=gen, device=dev).to(x_dt)
+    w = (1 + 0.1 * torch.randn(hidden, generator=gen, device=dev)).to(w_dt)
+    b = (0.1 * torch.randn(hidden, generator=gen, device=dev)).to(w_dt)
+    qs = 60 + 40 * torch.rand(hidden, generator=gen, device=dev)
+    qo = 6 * torch.rand(hidden, generator=gen, device=dev) - 3
+
+    def call(xx, rr):
+        if mode == "gemma":
+            return norm.add_gemma_rms_norm(xx, w, rr, 1e-5)
+        q = {"quant_scale": qs, "quant_offset": qo} if mode == "quant" else {}
+        return norm.add_rms_norm_bias(xx, rr, w, b, 1e-5, **q)
+
+    def mirror(plan):
+        q = (qs.cpu(), qo.cpu()) if mode == "quant" else (None, None)
+        return norm.add_rms_norm_rows_plain(x.cpu(), res.cpu(), w.cpu(), b.cpu(), *q, mode, 1e-5,
+                                            plan)
+
+    got, added = call(x, res)
+    runs = [call(x, res) for _ in range(5)]
+    torch.cuda.synchronize()
+    want, want_added = mirror(row_reduce.launch_plan(x, res, w, inputs=2))
+    assert torch.equal(got.cpu(), want) and torch.equal(added.cpu(), want_added)
+    assert torch.equal(added, (x + res).to(x_dt))
+    assert all(torch.equal(got, g) and torch.equal(added, a) for g, a in runs)
+    shift = 4 // x.element_size()
+    flat = torch.empty((2, rows * hidden + shift), dtype=x_dt, device=dev)
+    xs, rs = (flat[i, shift:].view(rows, hidden) for i in range(2))
+    xs.copy_(x)
+    rs.copy_(res)
+    plan = row_reduce.launch_plan(xs, rs, w, inputs=2)
+    assert plan.elems == 1
+    got, added = call(xs, rs)
+    torch.cuda.synchronize()
+    want, want_added = mirror(plan)
+    assert torch.equal(got.cpu(), want) and torch.equal(added.cpu(), want_added)
+
+
+@pytest.mark.parametrize("need_quant", [True, False])
+@pytest.mark.parametrize("rows,width,total", [(8, 28672, None), (8, 28672, 3),
+                                              (512, 28672, None), (512, 28672, 301),
+                                              (8, 4096, 5), (2048, 4096, None), (5, 200, 4),
+                                              (3, 16400, None)])
+def test_swiglu_quant_kernel_row_reduce(dev, rows, width, total, need_quant):
+    """K7a on ``csrc/row_reduce.cuh`` at Llama-3.1-8B's gate ‖ up (clusters
+    of 8 at decode, two rows a block at a 512-row chunk), DeepSeek-V3's, a
+    ragged width (the element path) and a width whose halves take 16-byte
+    vectors in a cluster: int8 within one level of the plain version (the
+    SiLU's exp differs by ulps between libraries), scales rtol 1e-6, rows
+    past the group list's total zeros with scale 0 (at 3 a cluster whose row
+    is dead, at 301 a block of one live and one dead row), two calls
+    bit-identical; without quant within 1e-2."""
+    from sgl_kernel_npu_tpu_torch.ops import row_reduce
+
+    gen = torch.Generator(device=dev).manual_seed(rows + width)
+    x = (torch.randn((rows, width), generator=gen, device=dev) * 2).to(torch.bfloat16)
+    x[0] = 0
+    gl = None if total is None else torch.tensor([total], dtype=torch.int32, device=dev)
+    kw = dict(group_list_type=1, need_quant=need_quant)
+    out, s = activation.swiglu_quant(x, gl, **kw)
+    again = activation.swiglu_quant(x, gl, **kw)
+    out_p, s_p = activation.swiglu_quant_ref(x, gl, **kw)
+    torch.cuda.synchronize()
+    plan = row_reduce.launch_plan(x, out, halves=2)
+    if width == 28672:
+        assert plan.cluster == (8 if rows == 8 else 1) and plan.elems == 8
+    assert plan.elems == (1 if width == 200 else 8)
+    live = rows if total is None else total
+    assert torch.equal(out, again[0]) and torch.equal(s, again[1])
+    assert float(s[0]) == 0.0 and not s[live:].any() and not out[live:].any()
+    if need_quant:
+        assert int((out.int() - out_p.int()).abs().max()) <= 1
+        torch.testing.assert_close(s, s_p, rtol=1e-6, atol=0)
+    else:
+        assert out.dtype == torch.bfloat16 and not s.any()
+        torch.testing.assert_close(out.float(), out_p.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_k7a_k6b_one_launch(dev):
+    """K7a, K6b and K6c each enqueue exactly one CUDA kernel a call (a CUDA
+    graph capture), at a decode shape (a cluster launch) and a chunk's."""
+    from sgl_kernel_npu_tpu_torch.ops import norm
+    from sgl_kernel_npu_tpu_torch.utils.trace_profile import graph_kernels
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for rows, hidden in ((8, 16384), (512, 4096)):
+        x = torch.randn((rows, 2 * hidden), generator=gen, device=dev).to(torch.bfloat16)
+        h, r = x[:, :hidden].contiguous(), x[:, hidden:].contiguous()
+        w = torch.ones(hidden, dtype=torch.bfloat16, device=dev)
+        for name, fn in (("swiglu_quant_kernel", lambda: activation.swiglu_quant(x)),
+                         ("add_rms_norm_kernel", lambda: norm.add_rms_norm_bias(h, r, w, w)),
+                         ("add_rms_norm_kernel", lambda: norm.add_gemma_rms_norm(h, w, r))):
+            acts = graph_kernels(fn)
+            assert len(acts) == 1 and acts[0][1] == 1 and name in acts[0][0], (rows, acts)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("rows,hidden", [(1, 4096), (512, 4096), (7, 100), (3, 4097)])
 def test_l1_norm_kernel(dev, rows, hidden, dtype):

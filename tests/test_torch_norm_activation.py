@@ -8,7 +8,16 @@ sums in another order); bf16 within 2e-2 of it (both round the f32 result
 once to bf16: one ulp, 2^-8 relative, apart at a rounding boundary); the
 residual sums bit-equal (one addition, rounded once); int8 outputs within
 one level (the f32 rsqrt of the two libraries may differ by an ulp, which
-moves a value at a rounding tie)."""
+moves a value at a rounding tie).
+
+``add_rms_norm_rows_plain`` (K6b / K6c's order of operations on the CUDA
+kernel's plan, which the kernel matches bit for bit on the card) is held to
+the plain versions within one ulp of the output's largest value in bf16
+(1e-5 of it in f32: its sum of squares runs in another order) or one int8
+level on 99 % equal, to JAX's functions at the tolerances above, and to
+K6a's order (``rms_norm_rows_plain``) bit for bit."""
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +29,7 @@ from sgl_kernel_npu_tpu.ops import activation as ja
 from sgl_kernel_npu_tpu.ops import norm as jn
 from sgl_kernel_npu_tpu_torch.ops import activation as ta
 from sgl_kernel_npu_tpu_torch.ops import norm as tn
+from sgl_kernel_npu_tpu_torch.ops import row_reduce as rr
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5), "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 
@@ -149,3 +159,114 @@ def test_cpu_wrappers_count_no_launch():
         x, w, x, 1e-6))
     torch.testing.assert_close(tn.l1_norm(x), tn.l1_norm_ref(x))
     assert [f.launches for f in wrappers] == before
+
+
+SMS = 132   # the H100's SMs
+MODES = ("bias", "quant", "gemma")
+
+
+def _add_inputs(rows, hidden, x_dt, w_dt, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((rows, hidden)) * 2).astype(np.float32)
+    res = rng.standard_normal((rows, hidden)).astype(np.float32)
+    w, b = _vectors(rng, hidden)
+    qs = rng.uniform(60, 100, hidden).astype(np.float32)
+    qo = rng.uniform(-3, 3, hidden).astype(np.float32)
+    return tt(x, x_dt), tt(res, x_dt), tt(w, w_dt), tt(b, w_dt), tt(qs), tt(qo)
+
+
+def _mirror(x, res, w, b, qs, qo, mode, plan=None):
+    plan = plan or rr._row_plan(x.shape[0], x.shape[1], x.element_size(), SMS, inputs=2)
+    q = (qs, qo) if mode == "quant" else (None, None)
+    return tn.add_rms_norm_rows_plain(x, res, w, None if mode == "gemma" else b, *q, mode, 1e-5,
+                                      plan)
+
+
+# one plan for each cluster size (8 at decode, 1 with four rows a block at
+# 512), one block of one vector a thread ([8, 4096]), and the element path
+ADD_SHAPES = [(8, 32768), (8, 16384), (512, 4096), (8, 4096), (7, 100), (3, 4097)]
+ADD_TYPES = {"bf16": (torch.bfloat16, torch.bfloat16), "f32": (torch.float32, torch.float32),
+             "bf16-x f32-w": (torch.bfloat16, torch.float32)}
+
+
+@pytest.mark.parametrize("types", sorted(ADD_TYPES))
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("rows,hidden", ADD_SHAPES)
+def test_add_rms_norm_rows_plain_matches_ref(rows, hidden, mode, types):
+    """The mirror against ``add_rms_norm_bias_ref`` / ``add_gemma_rms_norm_ref``:
+    ``added`` bit-equal; the output within one ulp of x's type of its largest
+    value (1e-5 of it in f32), int8 within one level and equal on 99 %."""
+    x_dt, w_dt = ADD_TYPES[types]
+    x, res, w, b, qs, qo = _add_inputs(rows, hidden, x_dt, w_dt, rows * 3 + hidden)
+    got, added = _mirror(x, res, w, b, qs, qo, mode)
+    if mode == "gemma":
+        want, want_added = tn.add_gemma_rms_norm_ref(x, w, res, 1e-5)
+    else:
+        q = {"quant_scale": qs, "quant_offset": qo} if mode == "quant" else {}
+        want, want_added = tn.add_rms_norm_bias_ref(x, res, w, b, 1e-5, **q)
+    assert torch.equal(added, want_added) and got.dtype == want.dtype
+    if mode == "quant":
+        diff = (got.int() - want.int()).abs()
+        assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) > 0.99
+    else:
+        scale = float(want.float().abs().max())
+        tol = 2.0 ** (math.floor(math.log2(scale)) - 7) if x_dt == torch.bfloat16 else 1e-5 * scale
+        assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("rows,hidden", [(9, 4096), (40, 100)])
+def test_add_rms_norm_rows_plain_matches_jax(rows, hidden, mode, dt):
+    """The mirror against JAX's ``add_rms_norm_bias`` (its Pallas kernel in
+    interpret mode; with and without the quant) and ``add_gemma_rms_norm`` on
+    the same numpy inputs, at ``test_add_rms_norm_bias_matches_jax``'s
+    tolerances."""
+    jdt, tdt, rel = DTYPES[dt]
+    rng = np.random.default_rng(rows + 7 * hidden)
+    x = (rng.standard_normal((rows, hidden)) * 2).astype(np.float32)
+    res = rng.standard_normal((rows, hidden)).astype(np.float32)
+    w, b = _vectors(rng, hidden)
+    qs = rng.uniform(60, 100, hidden).astype(np.float32)
+    qo = rng.uniform(-3, 3, hidden).astype(np.float32)
+    if mode == "gemma":
+        oj, aj = jn.add_gemma_rms_norm(jx(x, jdt), jx(w, jdt), jx(res, jdt), 1e-5)
+    else:
+        qj = {"quant_scale": jx(qs), "quant_offset": jx(qo)} if mode == "quant" else {}
+        oj, aj = jn.add_rms_norm_bias(jx(x, jdt), jx(res, jdt), jx(w, jdt), jx(b, jdt), 1e-5,
+                                      **qj)
+    ot, at = _mirror(tt(x, tdt), tt(res, tdt), tt(w, tdt), tt(b, tdt), tt(qs), tt(qo), mode)
+    np.testing.assert_array_equal(np32(at), np32(aj))
+    if mode == "quant":
+        diff = np.abs(ot.numpy().astype(np.int32) - np.asarray(oj).astype(np.int32))
+        assert diff.max() <= 1 and (dt == "bf16" or (diff == 0).mean() > 0.99)
+    else:
+        _close(ot, oj, rel)
+
+
+def test_add_rms_norm_rows_plain_order():
+    """The mirror's sum runs in K6a's order: in the Gemma mode with w = 0 (a
+    scale of w + 1 = 1) its output is ``rms_norm_rows_plain`` of ``added``
+    bit for bit on the same plan, for a one-warp butterfly (checked against
+    numpy f32) and clusters of 1 and 8; a permuted order (another plan)
+    changes the bits."""
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((4, 32)) * 3).astype(np.float32)
+    r = rng.standard_normal((4, 32)).astype(np.float32)
+    a = x + r
+    v = a * a
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[:, np.arange(32) ^ o]
+    s = np.float32(1) / np.sqrt(v[:, 0] / np.float32(32) + np.float32(1e-5))
+    got, _ = tn.add_rms_norm_rows_plain(tt(x), tt(r), torch.zeros(32), None, None, None, "gemma",
+                                        1e-5, rr.RowPlan(1, 32, 1, 1))
+    assert np.array_equal(got.numpy(), a * s[:, None])
+    x, res, w, b, qs, qo = _add_inputs(4, 4096, torch.bfloat16, torch.bfloat16, 11)
+    zero = torch.zeros(4096, dtype=torch.bfloat16)
+    outs = []
+    for c in (1, 8):
+        plan = rr.RowPlan(c, 32, 4096 // (8 * 32 * c), 8)
+        got, added = _mirror(x, res, zero, b, qs, qo, "gemma", plan)
+        assert torch.equal(got, tn.rms_norm_rows_plain(added, torch.ones(4096), 1e-5, plan))
+        outs.append(_mirror(x.float(), res.float(), zero.float(), b, qs, qo, "gemma", plan)[0])
+    assert not torch.equal(outs[0], outs[1])

@@ -167,3 +167,70 @@ def test_quant_levels_near_ties(amax):
     x = torch.nextafter(x, x + torch.randn(x.shape, generator=gen).sign())
     x = torch.cat([x[x.abs() <= amax], torch.tensor([amax])])
     assert _levels_equal(x[None])
+
+
+# K7a (swiglu_quant) over gate ‖ up: (rows, output width I, element bytes) at
+# its timed shapes (DeepSeek-V3's shared expert at decode and a 2048-row
+# chunk, Llama-3.1-8B's MLP at decode and a 512-row chunk), f32 rows and
+# ragged widths
+K7A_TIMED = [(8, 2048, 2), (8, 14336, 2), (512, 14336, 2), (2048, 2048, 2), (8, 14336, 4)]
+K7A_RAGGED = [(5, 100, 2), (3, 4100, 2), (1, 1, 2), (7, 2050, 4)]
+
+
+@pytest.mark.parametrize("rows,width,nbytes", K7A_TIMED + K7A_RAGGED)
+def test_swiglu_plan_covers_each_vector_once(rows, width, nbytes):
+    """K7a's plan is over the output row: each output vector in exactly one
+    (cluster rank, thread, vector) slot, and through it each of the input's
+    gate and up vectors (vector j reads column j N of each half) read once."""
+    plan = rr._row_plan(rows, width, nbytes, SMS, inputs=2)
+    assert plan.elems == (16 // nbytes if width % (16 // nbytes) == 0 else 1)
+    assert _covers_once(plan, width)
+    index, live = rr.row_vectors(plan, width)
+    nvec = width // plan.elems
+    both = torch.cat([index[live], index[live] + nvec])           # gate, then up vectors
+    assert torch.equal(torch.sort(both).values, torch.arange(2 * nvec))
+    if (rows, width, nbytes) in K7A_TIMED:
+        assert plan.vecs <= rr.VMAX
+
+
+def test_two_input_plan_shapes():
+    """K7a's and K6b / K6c's plans (two inputs an output vector) split on the
+    input's bytes: Llama's K7a decode rows (57 KB of gate ‖ up) take clusters
+    of 8, DeepSeek's [8, 4096] (8 KB) and K6b's [8, 4096] (16 KB of x and r)
+    one block a row; one vector a thread up to 512 of them at any row count;
+    chunk sizes four rows a block."""
+    assert rr._row_plan(8, 14336, 2, SMS, inputs=2) == rr.RowPlan(8, 224, 1, 8, 1)
+    assert rr._row_plan(8, 14336, 2, SMS).cluster == 4            # one input span: half the bytes
+    assert rr._row_plan(8, 2048, 2, SMS, inputs=2) == rr.RowPlan(1, 256, 1, 8, 1)
+    assert rr._row_plan(8, 4096, 2, SMS, inputs=2) == rr.RowPlan(1, 512, 1, 8, 1)
+    assert rr._row_plan(512, 14336, 2, SMS, inputs=2) == rr.RowPlan(1, 512, 4, 8, 4)
+    assert rr._row_plan(2048, 2048, 2, SMS, inputs=2) == rr.RowPlan(1, 256, 1, 8, 4)
+    assert rr._row_plan(512, 4096, 2, SMS, inputs=2) == rr.RowPlan(1, 512, 1, 8, 4)
+    assert rr._row_plan(512, 7168, 2, SMS, inputs=2) == rr.RowPlan(1, 448, 2, 8, 4)
+
+
+@pytest.mark.parametrize("rows,hidden,nbytes", TIMED + RAGGED)
+def test_two_input_plan_covers_each_vector_once(rows, hidden, nbytes):
+    """K6b / K6c's plan (``inputs=2``) at K5's and K6a's shapes and ragged
+    widths: each vector in exactly one slot, within the registers at the
+    timed shapes."""
+    plan = rr._row_plan(rows, hidden, nbytes, SMS, inputs=2)
+    assert plan.cluster in (1, 2, 4, 8) and plan.threads % 32 == 0
+    assert _covers_once(plan, hidden)
+    if (rows, hidden, nbytes) in TIMED:
+        assert plan.vecs <= rr.VMAX
+
+
+def test_launch_plan_checks_each_half(monkeypatch):
+    """``launch_plan(..., halves=2)`` takes 16-byte vectors only where each
+    half of x starts 16-byte aligned: a tensor 2 bytes past a boundary, or a
+    width whose up half starts mid-vector, takes the element path."""
+    monkeypatch.setattr(rr, "_sm_count", lambda device: SMS)
+    flat = torch.zeros(8 * 4096 + 8, dtype=torch.bfloat16)
+    x = flat[:8 * 4096].view(8, 4096)
+    out = torch.zeros((8, 2048), dtype=torch.int8)
+    assert rr.launch_plan(x, out, halves=2).elems == 8
+    assert rr.launch_plan(flat[1:8 * 4096 + 1].view(8, 4096), out, halves=2).elems == 1
+    ragged = torch.zeros((8, 4100), dtype=torch.bfloat16)         # the up half at 4100 bytes
+    assert rr.launch_plan(ragged, out, halves=2).elems == 1
+    assert rr.launch_plan(x, out, halves=2) == rr._row_plan(8, 2048, 2, SMS, inputs=2)
