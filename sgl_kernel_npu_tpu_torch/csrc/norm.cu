@@ -47,56 +47,24 @@
 // into an FMA: the plain version rounds each operation, and a contracted
 // one would move int8 levels at rounding ties.
 //
-// l1_norm (K6d): the same block per row; pass 1 sums the row (signed) in f32,
-// pass 2 divides each element by that sum in IEEE division (__fdiv_rn, not a
-// multiply by the reciprocal), f32 out.
+// l1_norm (K6d) is bound by bytes: x read once and the f32 output written
+// once (6 B an element from bf16).  It runs on row_reduce.cuh with K6a's
+// kernel shape (one input) on a plan of its own (ops/row_reduce.py l1_plan):
+// a vector is 16 bytes of the f32 output (4 elements: an 8-byte load of bf16,
+// so that a warp's loads and its stores each cover one contiguous span; 16
+// bytes of bf16 made two 16-byte stores a thread, each warp store half of
+// every sector, and ran 1.3-1.7x slower), four a thread at chunk sizes.
+// Each thread loads its vectors of x once into registers, sums them signed
+// in f32 in K6a's fixed order (its vectors in order, then the warp
+// butterfly, the warps in index order and the cluster's blocks in rank
+// order: ops/norm.py l1_norm_rows_plain repeats it bit for bit), and writes
+// x / sum in IEEE division (__fdiv_rn, as JAX divides; not a multiply by the
+// reciprocal) from the same registers.  A row that sums to 0 gives +-inf or
+// NaN, as the reference does.
 #include "common.cuh"
 #include "row_reduce.cuh"
 
 namespace rmsnorm {
-
-constexpr int THREADS = 128;
-
-// N consecutive elements as f32: one 16-byte load for N > 1.
-template <int N>
-__device__ __forceinline__ void load_n(const float* p, float (&f)[N]) {
-  if constexpr (N == 1) {
-    f[0] = p[0];
-  } else {
-    static_assert(N == 4, "4 floats a 16-byte load");
-    const float4 u = *reinterpret_cast<const float4*>(p);
-    f[0] = u.x, f[1] = u.y, f[2] = u.z, f[3] = u.w;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_n(const __nv_bfloat16* p, float (&f)[N]) {
-  if constexpr (N == 1) {
-    f[0] = __bfloat162float(p[0]);
-  } else {
-    static_assert(N == 8, "8 bf16 a 16-byte load");
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-      f[2 * i] = t.x, f[2 * i + 1] = t.y;
-    }
-  }
-}
-
-// Sum over the block, in a fixed order; every thread gets the result.
-__device__ float block_sum(float v) {
-  __shared__ float red[THREADS / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = sgl::warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < THREADS / 32; ++i) s += red[i];
-  return s;
-}
 
 // x, out [rows, hidden] of T; w [hidden] of W.  N: elements a vector (16
 // bytes of x, or 1); VM: vectors a thread held in registers (the launch's
@@ -169,18 +137,6 @@ __global__ void __launch_bounds__(rowr::MAX_THREADS)
 __device__ __forceinline__ float round_as(float v, const float*) { return v; }
 __device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// N f32 values: float4 stores for N >= 4.
-template <int N>
-__device__ __forceinline__ void store_f32(float* p, const float (&f)[N]) {
-  if constexpr (N == 1) {
-    p[0] = f[0];
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; i += 4)
-      *reinterpret_cast<float4*>(p + i) = make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
-  }
 }
 
 enum AddMode { kBias = 0, kBiasQuant = 1, kGemma = 2 };
@@ -337,29 +293,66 @@ __global__ void __launch_bounds__(rowr::MAX_THREADS)
   rowr::cluster_done(cluster);
 }
 
-// x [rows, hidden] of T -> out [rows, hidden] f32 = x / (signed row sum).
-template <typename T, int N>
-__global__ void __launch_bounds__(THREADS)
-    l1_norm_kernel(const T* __restrict__ x, float* __restrict__ out, int hidden) {
-  const size_t base = (size_t)blockIdx.x * hidden;
-  float sum = 0.f;
-  for (int c = threadIdx.x * N; c < hidden; c += THREADS * N) {
-    float v[N];
-    load_n(x + base + c, v);
+// x [rows, hidden] of T -> out [rows, hidden] f32 = x / (its signed row
+// sum).  N: elements a vector (16 bytes of out, or 1); VM: vectors a thread
+// held in registers.  Grid and vectors as rms_norm_kernel's.
+template <typename T, int N, int VM>
+__global__ void __launch_bounds__(rowr::MAX_THREADS)
+    l1_norm_kernel(const T* __restrict__ x, float* __restrict__ out, int rows, int hidden,
+                   int cluster, int vecs, int block_rows) {
+  __shared__ float red[2][rowr::MAX_THREADS / 32];
+  __shared__ float part;
+  const rowr::Rows rw(rows, cluster, block_rows);
+  const rowr::Span span(hidden / N, cluster, rw.rank);
+  rowr::Pack<T, N> cur[VM], nxt[VM];
+  rowr::load_held(cur, x + (size_t)rw.lo * hidden, span, vecs);
+  for (int row = rw.lo; row < rw.hi; ++row) {
+    const T* xr = x + (size_t)row * hidden;
+    float* yr = out + (size_t)row * hidden;
+    if constexpr (rowr::AHEAD<VM>)
+      if (row + 1 < rw.hi) rowr::load_held(nxt, xr + hidden, span, vecs);
+    float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < N; ++i) sum += v[i];
-  }
-  const float total = block_sum(sum);
-  for (int c = threadIdx.x * N; c < hidden; c += THREADS * N) {
-    float v[N];
-    load_n(x + base + c, v);
+    for (int v = 0; v < VM; ++v)
+      if (v < vecs && span.at(v) >= 0)
 #pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = __fdiv_rn(v[i], total);
-    store_f32(out + base + c, v);
+        for (int i = 0; i < N; ++i) s = __fadd_rn(s, cur[v].get(i));
+    for (int v = VM; v < vecs && span.at(v) >= 0; ++v) {   // a row past the registers
+      rowr::Pack<T, N> p;
+      p.load(xr + (size_t)span.at(v) * N);
+#pragma unroll
+      for (int i = 0; i < N; ++i) s = __fadd_rn(s, p.get(i));
+    }
+    const float total = rowr::cluster_all<rowr::Sum>(
+        rowr::block_all<rowr::Sum>(s, red[(row - rw.lo) & 1]), &part, cluster);
+#pragma unroll
+    for (int v = 0; v < VM; ++v) {
+      if (v < vecs && span.at(v) >= 0) {
+        float f[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) f[i] = __fdiv_rn(cur[v].get(i), total);
+        rowr::store(yr + (size_t)span.at(v) * N, f);
+      }
+    }
+    for (int v = VM; v < vecs && span.at(v) >= 0; ++v) {
+      rowr::Pack<T, N> p;
+      p.load(xr + (size_t)span.at(v) * N);
+      float f[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) f[i] = __fdiv_rn(p.get(i), total);
+      rowr::store(yr + (size_t)span.at(v) * N, f);
+    }
+    if (row + 1 < rw.hi) {
+      if constexpr (rowr::AHEAD<VM>) {
+#pragma unroll
+        for (int v = 0; v < VM; ++v) cur[v] = nxt[v];
+      } else {
+        rowr::load_held(cur, xr + hidden, span, vecs);
+      }
+    }
   }
+  rowr::cluster_done(cluster);
 }
-
-__host__ __forceinline__ bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 template <typename T, typename W, typename B, int MODE>
 int launch_add(const void* x, const void* r, const void* w, const void* b, const void* qs,
@@ -406,14 +399,24 @@ int launch_add_mode(const void* x, const void* r, const void* w, const void* b, 
              block_rows, s);
 }
 
+template <typename T, int N>
+int launch_l1_n(const void* x, void* out, int rows, int hidden, int cluster, int threads,
+                int vecs, int block_rows, cudaStream_t s) {
+  auto kernel = vecs <= 1   ? l1_norm_kernel<T, N, 1>
+                : vecs <= 2 ? l1_norm_kernel<T, N, 2>
+                : vecs <= 4 ? l1_norm_kernel<T, N, 4>
+                            : l1_norm_kernel<T, N, rowr::VMAX>;
+  const int blocks = cluster > 1 ? rows * cluster : (rows + block_rows - 1) / block_rows;
+  return rowr::launch(kernel, blocks, threads, cluster, s, (const T*)x, (float*)out, rows, hidden,
+                      cluster, vecs, block_rows);
+}
+
+// elems: 16 bytes of the output (4: an 8-byte load of bf16), or 1
 template <typename T>
-int launch_l1(const void* x, void* out, int rows, int hidden, cudaStream_t s) {
-  constexpr int N = 16 / sizeof(T);
-  if (hidden % N == 0 && aligned16(x) && aligned16(out))
-    l1_norm_kernel<T, N><<<rows, THREADS, 0, s>>>((const T*)x, (float*)out, hidden);
-  else
-    l1_norm_kernel<T, 1><<<rows, THREADS, 0, s>>>((const T*)x, (float*)out, hidden);
-  return (int)cudaGetLastError();
+int launch_l1(const void* x, void* out, int rows, int hidden, int cluster, int threads, int vecs,
+              int elems, int block_rows, cudaStream_t s) {
+  auto run = elems == 4 ? launch_l1_n<T, 4> : launch_l1_n<T, 1>;
+  return run(x, out, rows, hidden, cluster, threads, vecs, block_rows, s);
 }
 
 template <typename T, typename W, int N>
@@ -473,11 +476,13 @@ extern "C" int add_rms_norm_launch(const void* x, const void* r, const void* w, 
              threads, vecs, elems, block_rows, (cudaStream_t)stream);
 }
 
-// x [rows, hidden] (bf16 if x_bf16 else f32) -> out [rows, hidden] f32.
+// x [rows, hidden] (bf16 if x_bf16 else f32) -> out [rows, hidden] f32, on
+// the wrapper's plan, as rms_norm_launch's.
 extern "C" int l1_norm_launch(const void* x, void* out, int rows, int hidden, int x_bf16,
+                              int cluster, int threads, int vecs, int elems, int block_rows,
                               void* stream) {
   if (rows == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  return x_bf16 ? rmsnorm::launch_l1<__nv_bfloat16>(x, out, rows, hidden, s)
-                : rmsnorm::launch_l1<float>(x, out, rows, hidden, s);
+  auto run = x_bf16 ? rmsnorm::launch_l1<__nv_bfloat16> : rmsnorm::launch_l1<float>;
+  return run(x, out, rows, hidden, cluster, threads, vecs, elems, block_rows,
+             (cudaStream_t)stream);
 }

@@ -1,7 +1,7 @@
 // A row reduction held in registers, across a thread-block cluster: the
 // shared routine of quant_per_token (K5) and swiglu_quant (K7a, both
-// csrc/quant.cu), rms_norm (K6a) and add_rms_norm (K6b / K6c, both
-// csrc/norm.cu).
+// csrc/quant.cu), rms_norm (K6a), add_rms_norm (K6b / K6c) and l1_norm (K6d,
+// all csrc/norm.cu).
 //
 // Bound on the H100: bytes, and at decode-sized row counts the latency of a
 // launch: 8 rows of 16384 bf16 are 0.26 MB, 0.1 us at 3.35 TB/s, where one

@@ -6,10 +6,10 @@ DeepSeek path calls the plain version, GPT-OSS and Llama the kernel),
 per-channel int8 quant), ``add_gemma_rms_norm`` (K6c: residual add, RMSNorm
 scaled by ``w + 1``; K6b's kernel launches it) and ``l1_norm`` (K6d: each row
 over its signed sum, f32 out).  The kernels live in ``csrc/norm.cu``; no
-model calls K6b-d, they are ops.  K6a and K6b / K6c are row reductions on
-``csrc/row_reduce.cuh`` (their plan from ``ops/row_reduce.py``);
-:func:`rms_norm_rows_plain` and :func:`add_rms_norm_rows_plain` repeat their
-order of operations on the CPU.
+model calls K6b-d, they are ops.  K6a, K6b / K6c and K6d are row reductions
+on ``csrc/row_reduce.cuh`` (their plan from ``ops/row_reduce.py``);
+:func:`rms_norm_rows_plain`, :func:`add_rms_norm_rows_plain` and
+:func:`l1_norm_rows_plain` repeat their order of operations on the CPU.
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 
 from sgl_kernel_npu_tpu_torch.ops.quant import quant_static_per_channel_ref
-from sgl_kernel_npu_tpu_torch.ops.row_reduce import RowPlan, launch_plan, row_vectors
+from sgl_kernel_npu_tpu_torch.ops.row_reduce import (L1_CHUNK_VECS, L1_ELEM_BYTES, RowPlan,
+                                                      launch_plan, row_vectors)
 from sgl_kernel_npu_tpu_torch.utils import cuda_lib
 from sgl_kernel_npu_tpu_torch.utils.common import on_cuda
 from sgl_kernel_npu_tpu_torch.utils.counters import counted
@@ -31,16 +32,17 @@ def rms_norm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> to
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
 
 
-def _row_sum_squares(xf: torch.Tensor, plan: RowPlan) -> torch.Tensor:
-    """Each row's f32 sum of x² in the row-reduction kernels' order on
-    ``plan`` (K6a, K6b / K6c): each thread sums its vectors' squares in order
-    (each product and sum rounded), a warp adds by butterfly, the block adds
-    its warps in index order and the cluster its blocks in rank order."""
-    rows, hidden = xf.shape
+def _row_sum(vals: torch.Tensor, plan: RowPlan) -> torch.Tensor:
+    """Each row's signed f32 sum of ``vals [rows, hidden]`` in the
+    row-reduction kernels' order on ``plan`` (K6d's; K6a's and K6b / K6c's
+    over x²): each thread sums its vectors' elements in order (each sum
+    rounded), a warp adds by butterfly, the block adds its warps in index
+    order and the cluster its blocks in rank order."""
+    rows, hidden = vals.shape
     n = plan.elems
-    sq = (xf * xf).reshape(rows, hidden // n, n)
+    vals = vals.reshape(rows, hidden // n, n)
     index, live = row_vectors(plan, hidden)                    # [cluster, vecs, threads]
-    vals = torch.where(live[None, ..., None], sq[:, index.clamp(max=max(hidden // n - 1, 0))],
+    vals = torch.where(live[None, ..., None], vals[:, index.clamp(max=max(hidden // n - 1, 0))],
                        torch.zeros((), dtype=torch.float32))   # [rows, C, V, T, n]
     acc = torch.zeros((rows, plan.cluster, plan.threads))
     for v in range(plan.vecs):
@@ -58,6 +60,12 @@ def _row_sum_squares(xf: torch.Tensor, plan: RowPlan) -> torch.Tensor:
     for r in range(1, plan.cluster):
         total = total + blocks[:, r]
     return total
+
+
+def _row_sum_squares(xf: torch.Tensor, plan: RowPlan) -> torch.Tensor:
+    """Each row's f32 sum of x² (each product rounded) in the order of
+    :func:`_row_sum` (K6a, K6b / K6c)."""
+    return _row_sum(xf * xf, plan)
 
 
 def _row_rsqrt(total: torch.Tensor, hidden: int, eps: float) -> torch.Tensor:
@@ -99,6 +107,14 @@ def add_rms_norm_rows_plain(x, residual, weight, bias, quant_scale, quant_offset
     if mode == "quant":
         return quant_static_per_channel_ref(out, quant_scale, quant_offset), added
     return out.to(x.dtype), added
+
+
+def l1_norm_rows_plain(x: torch.Tensor, plan: RowPlan) -> torch.Tensor:
+    """K6d's arithmetic in the CUDA kernel's order on ``plan``, bit for bit:
+    the signed sum as :func:`_row_sum`, then ``x / sum`` in IEEE division, f32
+    out (a row summing to 0 gives ±inf or NaN, as :func:`l1_norm_ref`)."""
+    xf = x.float()
+    return xf / _row_sum(xf, plan)[:, None]
 
 
 def add_rms_norm_bias_ref(x, residual, norm_weight, norm_bias, eps, quant_scale=None,
@@ -212,20 +228,29 @@ def add_gemma_rms_norm(hidden_state, weight, residual, eps: float = 1e-6):
     return out
 
 
+def l1_launch_plan(x: torch.Tensor, out: torch.Tensor) -> RowPlan:
+    """K6d's launch plan over ``x`` into ``out`` (``ops/row_reduce.l1_plan``
+    on the card's SMs): vectors of 16 bytes of the f32 output where both
+    start 16-byte aligned, else the element path."""
+    return launch_plan(x, out, elem_bytes=L1_ELEM_BYTES, chunk_vecs=L1_CHUNK_VECS)
+
+
 @counted
 def l1_norm(x: torch.Tensor) -> torch.Tensor:
     """Each row of ``x [rows, hidden]`` over its signed sum, f32 out (K6d).
-    CUDA tensors launch ``csrc/norm.cu``; CPU tensors take
+    CUDA tensors launch ``csrc/norm.cu`` (bit-equal to
+    :func:`l1_norm_rows_plain` on :func:`l1_launch_plan`); CPU tensors take
     :func:`l1_norm_ref`."""
     if not on_cuda(x):
         return l1_norm_ref(x)
     _check_rows("l1_norm", x)
     x = x.contiguous()
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    plan = l1_launch_plan(x, out)
     lib = cuda_lib.load_library()
     cuda_lib.check(lib, lib.l1_norm_launch(
         x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], int(x.dtype == torch.bfloat16),
-        cuda_lib.stream_ptr(x)), "l1_norm")
+        *plan, cuda_lib.stream_ptr(x)), "l1_norm")
     l1_norm.launches += 1
     return out
 

@@ -1,6 +1,6 @@
 """Launch plan of the row-reduction kernels on ``csrc/row_reduce.cuh``: K5
 (``quant_per_token``), K6a (``rms_norm``), K6b / K6c (``add_rms_norm_bias``,
-``add_gemma_rms_norm``) and K7a (``swiglu_quant``).
+``add_gemma_rms_norm``), K6d (``l1_norm``) and K7a (``swiglu_quant``).
 
 A row of ``hidden`` elements is cut into vectors of 16 bytes (or of one
 element, where the width or an address does not allow 16-byte accesses).
@@ -10,11 +10,13 @@ sizes ``cluster`` is 1.  Block ``r`` of a row's cluster takes the span of
 vectors ``[r per, (r + 1) per)``, ``per = ceil(nvec / cluster)``; its thread
 ``t`` holds the span's vectors ``t, t + threads, ...`` (``vecs`` of them) in
 registers.  :func:`row_vectors` gives that map, which the kernels, the CPU
-mirrors ``ops/norm.rms_norm_rows_plain`` / ``add_rms_norm_rows_plain`` and the
-tests share.  K6b / K6c read two inputs an output vector (x and the
-residual), K7a too (its gate ‖ up: vector ``j`` reads 16 bytes at column ``j
-N`` of each half of the row); their plan (``inputs = 2``) splits on the
-input's bytes and keeps one vector a thread further.
+mirrors ``ops/norm.rms_norm_rows_plain`` / ``add_rms_norm_rows_plain`` /
+``l1_norm_rows_plain`` and the tests share.  K6b / K6c read two inputs an
+output vector (x and the residual), K7a too (its gate ‖ up: vector ``j``
+reads 16 bytes at column ``j N`` of each half of the row); their plan
+(``inputs = 2``) splits on the input's bytes and keeps one vector a thread
+further.  K6d (:func:`l1_plan`) writes f32: its vectors are 16 bytes of the
+output, so that each warp's loads and stores are whole contiguous spans.
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ CHUNK_BLOCKS = 2      # chunk sizes: more rows than CHUNK_BLOCKS x SMs, two rows
 # two inputs an output vector (K6b / K6c, K7a): one vector a thread up to
 # MAX_THREADS of them at any row count, four rows a block at chunk sizes
 TWO_INPUT_BLOCK_ROWS = 4
+# K6d writes f32 from bf16 or f32: its vectors are 16 bytes of the output (4
+# elements: an 8-byte load of bf16), four a thread at chunk sizes
+L1_ELEM_BYTES, L1_CHUNK_VECS = 4, 4
 
 
 class RowPlan(NamedTuple):
@@ -45,14 +50,15 @@ class RowPlan(NamedTuple):
 
 
 def _row_plan(rows: int, hidden: int, elem_bytes: int, sms: int,
-              aligned: bool = True, inputs: int = 1) -> RowPlan:
+              aligned: bool = True, inputs: int = 1, chunk_vecs: int = 2) -> RowPlan:
     """The launch of a row reduction over ``[rows, hidden]`` of
     ``elem_bytes``-byte elements on a card of ``sms`` SMs; ``aligned``: every
     row's tensor starts 16-byte aligned (else the element path); ``inputs``:
     input spans of ``hidden`` read for each output row (1, or 2 for K6b /
-    K6c and K7a), whose bytes decide the split.  The constants are the
-    fastest of a sweep on the H100 at K5's, K6a's, K6b's and K7a's main path
-    shapes (PERF.md §6)."""
+    K6c and K7a), whose bytes decide the split; ``chunk_vecs``: vectors a
+    thread at chunk sizes (one input).  The constants are the fastest of a
+    sweep on the H100 at K5's, K6a's, K6b's, K6d's and K7a's main path shapes
+    (PERF.md §6)."""
     n = 16 // elem_bytes
     elems = n if aligned and hidden % n == 0 else 1
     nvec = hidden // elems
@@ -64,7 +70,7 @@ def _row_plan(rows: int, hidden: int, elem_bytes: int, sms: int,
     chunk = rows > CHUNK_BLOCKS * sms
     per = -(-nvec // cluster)
     one = per <= MAX_THREADS if inputs > 1 else per <= ONE_VEC and not chunk
-    target = per if one else -(-per // 2)
+    target = per if one else -(-per // (chunk_vecs if chunk and inputs == 1 else 2))
     threads = min(MAX_THREADS, max(32, -(-target // 32) * 32))
     block_rows = (TWO_INPUT_BLOCK_ROWS if inputs > 1 else 2) if chunk else 1
     return RowPlan(cluster, threads, -(-per // threads), elems, block_rows)
@@ -89,15 +95,23 @@ def _sm_count(device: torch.device) -> int:
 
 
 def launch_plan(x: torch.Tensor, *tensors: torch.Tensor, halves: int = 1,
-                inputs: int | None = None) -> RowPlan:
+                inputs: int | None = None, elem_bytes: int | None = None,
+                chunk_vecs: int = 2) -> RowPlan:
     """The plan of a launch over ``x [rows, halves x hidden]`` on its card
     (output rows of ``hidden``; ``inputs`` spans of it read an output row,
-    ``halves`` unless given): 16-byte vectors where each of ``x``'s
-    ``halves`` spans and ``tensors`` (the other rows and vectors the kernel
-    moves) start 16-byte aligned."""
+    ``halves`` unless given): vectors of 16 bytes of ``elem_bytes``-byte
+    elements (x's unless given) where each of ``x``'s ``halves`` spans and
+    ``tensors`` (the other rows and vectors the kernel moves) start 16-byte
+    aligned; ``chunk_vecs`` as :func:`_row_plan`'s."""
     rows, width = x.shape
     hidden = width // halves
     starts = [x.data_ptr() + k * hidden * x.element_size() for k in range(halves)]
     aligned = all(p % 16 == 0 for p in starts + [t.data_ptr() for t in tensors])
-    return _row_plan(rows, hidden, x.element_size(), _sm_count(x.device), aligned,
-                     halves if inputs is None else inputs)
+    return _row_plan(rows, hidden, elem_bytes or x.element_size(), _sm_count(x.device), aligned,
+                     halves if inputs is None else inputs, chunk_vecs)
+
+
+def l1_plan(rows: int, hidden: int, sms: int, aligned: bool = True) -> RowPlan:
+    """K6d's plan over ``[rows, hidden]`` (bf16 or f32 in, f32 out): vectors
+    of 16 bytes of the output, four a thread at chunk sizes."""
+    return _row_plan(rows, hidden, L1_ELEM_BYTES, sms, aligned, chunk_vecs=L1_CHUNK_VECS)

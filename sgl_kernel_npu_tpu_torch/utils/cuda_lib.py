@@ -47,7 +47,7 @@ _SIGNATURES = {
     "grouped_matmul_combine_launch": [_P] * 3 + [_I] * 4 + [_P] * 4 + [_I, _I] + [_P] * 4,
     "rms_norm_launch": [_P, _P, _P, _I, _I, _I, _I, _F] + [_I] * 5 + [_P],
     "add_rms_norm_launch": [_P] * 8 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
-    "l1_norm_launch": [_P, _P, _I, _I, _I, _P],
+    "l1_norm_launch": [_P, _P, _I, _I, _I] + [_I] * 5 + [_P],
     "swiglu_oai_launch": [_P, _P, _I, _I, _I, _F, _F, _P],
     "sinks_decode_launch": [_P] * 4 + [_I, _P, _F, _I, _P, _F, _I] + [_P] * 6 + [_I] * 11
                            + [_F, _P],

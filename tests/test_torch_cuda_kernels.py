@@ -1617,6 +1617,69 @@ def test_l1_norm_kernel(dev, rows, hidden, dtype):
     assert _rel_err(got, want) < 1e-5
 
 
+# K6d on row_reduce.cuh: clusters of 8 and 4 blocks a row, two rows a block
+# at chunk sizes, one block a row at [8, 4096], the element path
+L1_ROW_SHAPES = [(8, 32768), (8, 16384), (512, 4096), (2048, 4096), (8, 4096), (1, 4096),
+                 (7, 100), (3, 4097)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,hidden", L1_ROW_SHAPES)
+def test_l1_norm_kernel_bit_equal_to_row_plain(dev, rows, hidden, dtype):
+    """K6d is bit-equal to its CPU mirror ``l1_norm_rows_plain`` on the
+    launch's plan, the same bits over 5 calls; from a tensor 4 bytes past a
+    16-byte boundary it takes the element path, bit-equal too."""
+    from sgl_kernel_npu_tpu_torch.ops import norm, row_reduce
+
+    gen = torch.Generator(device=dev).manual_seed(3 * rows + hidden)
+    x = (torch.randn((rows, hidden), generator=gen, device=dev) + 0.5).to(dtype)
+    got = norm.l1_norm(x)
+    runs = [norm.l1_norm(x) for _ in range(5)]
+    torch.cuda.synchronize()
+    out = torch.empty(x.shape, device=dev)
+    assert torch.equal(got.cpu(), norm.l1_norm_rows_plain(x.cpu(), norm.l1_launch_plan(x, out)))
+    assert all(torch.equal(got, g) for g in runs)
+    shift = 4 // x.element_size()
+    flat = torch.empty(rows * hidden + shift, dtype=dtype, device=dev)
+    xs = flat[shift:].view(rows, hidden)
+    xs.copy_(x)
+    plan = norm.l1_launch_plan(xs, out)
+    assert plan.elems == 1
+    got = norm.l1_norm(xs)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), norm.l1_norm_rows_plain(x.cpu(), plan))
+
+
+def test_sample_tokens_card_equals_cpu(dev):
+    """``sample_tokens`` and ``apply_penalties`` on the card against the
+    CPU's on a copy of the same f32 logits (DeepSeek-V3's vocabulary): the
+    PRNG's bits bit-equal, penalties bit-equal (IEEE division on both), the
+    same tokens for greedy, temperature, top-k, top-p, min-p and composed
+    rows."""
+    from sgl_kernel_npu_tpu_torch.ops import sampling
+    from sgl_kernel_npu_tpu_torch.utils import prng
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, v = 12, 129280
+    logits = torch.randn((b, v), generator=gen, device=dev) * 3
+    counts = torch.randint(0, 3, (b, v), generator=gen, device=dev, dtype=torch.int32)
+    host = (torch.arange(b, dtype=torch.int32) * 5 - 20, torch.arange(b, dtype=torch.int32) * 3,
+            torch.tensor([0.0, 0.7, 1.0, 1.0, 1.0, 0.9, 1.2, 0.8, 0.0, 1.0, 0.6, 1.0]),
+            torch.tensor([0, 0, 50, 0, 0, 40, 0, 50, 5, 1, 0, 0], dtype=torch.int32),
+            torch.tensor([1.0, 1.0, 1.0, 0.9, 1.0, 0.95, 0.8, 0.9, 1.0, 1.0, 1.0, 0.5]),
+            torch.tensor([0.0, 0.0, 0.0, 0.0, 0.1, 0.05, 0.0, 0.05, 0.0, 0.0, 0.2, 0.0]))
+    pen = (torch.rand(b) + 0.5, torch.rand(b), torch.rand(b))
+    pc = sampling.apply_penalties(logits, counts, *(t.to(dev) for t in pen))
+    ph = sampling.apply_penalties(logits.cpu(), counts.cpu(), *pen)
+    assert torch.equal(pc.cpu(), ph)
+    got = sampling.sample_tokens(pc, *(t.to(dev) for t in host))
+    want = sampling.sample_tokens(ph, *host)
+    assert torch.equal(got.cpu(), want)
+    key = prng.fold_in(prng.key(host[0]), host[1])
+    card = prng.random_bits(tuple(k.to(dev) for k in key), v).cpu()
+    assert torch.equal(card, prng.random_bits(key, v))
+
+
 def _lora_weights(gen, dev, t, h, l, r, d, dtype):
     x = torch.randn((t, h), generator=gen, device=dev).to(dtype)
     a = (0.1 * torch.randn((l, r, h), generator=gen, device=dev)).to(dtype)

@@ -15,7 +15,10 @@ kernel's plan, which the kernel matches bit for bit on the card) is held to
 the plain versions within one ulp of the output's largest value in bf16
 (1e-5 of it in f32: its sum of squares runs in another order) or one int8
 level on 99 % equal, to JAX's functions at the tolerances above, and to
-K6a's order (``rms_norm_rows_plain``) bit for bit."""
+K6a's order (``rms_norm_rows_plain``) bit for bit.  ``l1_norm_rows_plain``
+(K6d's order on its plan) is held to ``l1_norm_ref`` and to JAX's
+``l1_norm`` within 1e-5 of the output's largest value (the signed sum in
+another order), and to a numpy f32 butterfly bit for bit."""
 
 import math
 
@@ -270,3 +273,60 @@ def test_add_rms_norm_rows_plain_order():
         assert torch.equal(got, tn.rms_norm_rows_plain(added, torch.ones(4096), 1e-5, plan))
         outs.append(_mirror(x.float(), res.float(), zero.float(), b, qs, qo, "gemma", plan)[0])
     assert not torch.equal(outs[0], outs[1])
+
+
+# K6d's plans: clusters of 8, 4 and 2 blocks a row at decode, two rows a
+# block at chunk sizes, one block a row at [8, 4096], the element path
+L1_SHAPES = [(8, 32768), (8, 16384), (100, 16384), (512, 4096), (8, 4096), (7, 100), (3, 4097)]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("rows,hidden", L1_SHAPES)
+def test_l1_norm_rows_plain_matches_ref(rows, hidden, dt):
+    """K6d's mirror on the launch's plan against ``l1_norm_ref``: f32 out,
+    within 1e-5 of the largest value (a row of negative sum included)."""
+    tdt = DTYPES[dt][1]
+    rng = np.random.default_rng(rows * 7 + hidden)
+    x = (rng.standard_normal((rows, hidden)) + 0.5).astype(np.float32)
+    x[0] -= 1.0
+    xt = tt(x, tdt)
+    got = tn.l1_norm_rows_plain(xt, rr.l1_plan(rows, hidden, SMS))
+    want = tn.l1_norm_ref(xt)
+    assert got.dtype == torch.float32 and float(xt.float().sum(-1)[0]) < 0
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("rows,hidden", [(1, 256), (9, 4096), (40, 100)])
+def test_l1_norm_rows_plain_matches_jax(rows, hidden, dt):
+    """K6d's mirror against JAX's ``l1_norm`` (its Pallas kernel in interpret
+    mode) on the same numpy inputs, within 1e-5 of the largest value."""
+    jdt, tdt, _ = DTYPES[dt]
+    rng = np.random.default_rng(rows + 5 * hidden)
+    x = (rng.standard_normal((rows, hidden)) + 0.5).astype(np.float32)
+    x[0] -= 1.0
+    xt = tt(x, tdt)
+    got = tn.l1_norm_rows_plain(xt, rr.l1_plan(rows, hidden, SMS))
+    _close(got, jn.l1_norm(jx(x, jdt)), 1e-5)
+
+
+def test_l1_norm_rows_plain_order():
+    """The mirror's signed sum runs in K6a's order: one warp of one element a
+    lane adds by butterfly (checked against numpy f32, then x / sum), and
+    another plan (a cluster of 8) changes the bits; a row summing to 0
+    gives ±inf or NaN, as the reference."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((4, 32)).astype(np.float32) + np.float32(0.5)
+    v = x.copy()
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[:, np.arange(32) ^ o]
+    got = tn.l1_norm_rows_plain(torch.from_numpy(x), rr.RowPlan(1, 32, 1, 1))
+    assert np.array_equal(got.numpy(), x / v[:, :1])
+    xl = torch.from_numpy(rng.standard_normal((4, 4096)).astype(np.float32) + np.float32(0.5))
+    outs = [tn.l1_norm_rows_plain(xl, rr.RowPlan(c, 32, 4096 // (32 * c), 1)) for c in (1, 8)]
+    assert not torch.equal(outs[0], outs[1])
+    z = torch.tensor([[1.0, -1.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0]])
+    out = tn.l1_norm_rows_plain(z, rr.RowPlan(1, 32, 1, 1))
+    assert torch.isinf(out[0, :2]).all() and torch.isnan(out[1]).all()
+    ref = tn.l1_norm_ref(z)
+    assert torch.isinf(ref[0, :2]).all() and torch.isnan(ref[1]).all()

@@ -234,3 +234,31 @@ def test_launch_plan_checks_each_half(monkeypatch):
     ragged = torch.zeros((8, 4100), dtype=torch.bfloat16)         # the up half at 4100 bytes
     assert rr.launch_plan(ragged, out, halves=2).elems == 1
     assert rr.launch_plan(x, out, halves=2) == rr._row_plan(8, 2048, 2, SMS, inputs=2)
+
+
+# K6d's shapes (f32 out from bf16 or f32): decode and chunk sizes, a cluster
+# of 8, the element path
+L1_PLANS = [(512, 4096), (8, 4096), (2048, 4096), (8, 32768), (100, 16384), (7, 100),
+            (3, 4097)]
+
+
+@pytest.mark.parametrize("rows,hidden", L1_PLANS)
+def test_l1_plan_covers_each_vector_once(rows, hidden):
+    """K6d's plan: vectors of 16 bytes of the f32 output (4 elements, or 1 on
+    the element path), each in one slot, the row in registers at every timed
+    shape."""
+    plan = rr.l1_plan(rows, hidden, SMS)
+    assert plan.elems == (4 if hidden % 4 == 0 else 1)
+    assert _covers_once(plan, hidden)
+    assert plan.vecs <= rr.VMAX and plan.cluster in (1, 2, 4, 8)
+    assert rr.l1_plan(rows, hidden, SMS, aligned=False).elems == 1
+
+
+def test_l1_plan_shapes():
+    """The plans the sweep chose on the H100 (PERF.md §6): four vectors a
+    thread and two rows a block at chunk sizes, two a thread at decode, a
+    decode row over 16 KB of output split across a cluster."""
+    assert rr.l1_plan(512, 4096, SMS) == rr.RowPlan(1, 256, 4, 4, 2)
+    assert rr.l1_plan(2048, 4096, SMS) == rr.RowPlan(1, 256, 4, 4, 2)
+    assert rr.l1_plan(8, 4096, SMS) == rr.RowPlan(1, 512, 2, 4, 1)
+    assert rr.l1_plan(8, 32768, SMS).cluster == 8
