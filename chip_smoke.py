@@ -248,6 +248,25 @@ Phases (any failure raises and the script exits non-zero without a result):
    must be within 5e-2 of the row's largest |logit|; no page leaks; K1, K2, K9a, K3 and K4 counted exactly from each part's
    model calls; rounds, drafts accepted a round and decode tok/s beside the
    reference's.
+4n. The host KV tier on [4c]'s setup (int8 latent cache, fused prologue,
+   W8A8 experts, 2048-token chunks, its five prompts), after [4m]: a prefill
+   engine P and a decode engine D over one ``HostKVPool`` (128 pinned host
+   pages).  P serves the prompts for one token each and offloads their 83
+   distinct full pages; P's caches, every tensor registered in a
+   ``MemorySaver``, are paused with ``cpu_backup=True`` (at least 90 % of
+   their bytes released to CUDA by ``torch.cuda.mem_get_info``, ``pause``
+   returning exactly their bytes) and resumed (digests equal); P serves them
+   again with 16 new tokens (device radix hits), and D serves them,
+   restoring every full page from the host pool: D's tokens equal P's
+   second serve's, its restored pages bit-equal to P's, its stats exact
+   (the prefix two prompts share restored once), K1, K2, K9a, K8a, K3 and
+   K4 counted exactly from its model calls, every page returned; offload
+   and restore GB/s, pause / resume ms and time to first token of P and D.
+   Then ``transfer_kv_dim_exchange`` over DeepSeek-V3's 61 layers of that
+   cache (256 pages, 1.28 GB) both ways, bit-equal, sentinel host pages and
+   unnamed device pages untouched, each direction timed beside a plain
+   pinned ``copy_`` of the same bytes; and the slot and cache-location ops
+   (``ops/mem_cache``) once on the card, each equal to its CPU result.
 6. Print the kernels' JSON line (38 rows for the 32 TPU kernel sites, K8a's
    modes and K3's float-input mode in rows of their own, each from its own
    result; and ``launch_floor_ms``, the empty kernel's time), the card line,
@@ -298,15 +317,18 @@ from sgl_kernel_npu_tpu_torch.ops.attention import mla_train as mt  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa  # noqa: E402
 from sgl_kernel_npu_tpu_torch.parallel import ep_core, fused_full, pallas_a2a  # noqa: E402
 from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer  # noqa: E402
-from sgl_kernel_npu_tpu_torch.ops import sampling  # noqa: E402
+from sgl_kernel_npu_tpu_torch.ops import mem_cache, sampling  # noqa: E402
 from sgl_kernel_npu_tpu_torch.runtime.engine import (  # noqa: E402
     Engine,
+    HostKVPool,
+    cache_tensors,
     SamplingParams,
     deepseek_adapter,
     gpt_oss_adapter,
     llama_adapter,
 )
-from sgl_kernel_npu_tpu_torch.utils import counters, cuda_lib, prng, trace_profile  # noqa: E402
+from sgl_kernel_npu_tpu_torch.utils import counters, cuda_lib, kvcacheio, prng, trace_profile  # noqa: E402
+from sgl_kernel_npu_tpu_torch.utils.memory_saver import MemorySaver  # noqa: E402
 
 SEED = 0
 DEV = torch.device("cuda")
@@ -4146,22 +4168,26 @@ FEATURE_KERNELS = ("quant_matmul", "decode_mla", "mla_prefill_pallas", "gmm1_rin
                    "gmm2_combine_ring")
 
 
-class DecodeTimer:
-    """Synchronized wall time of an engine's decode rounds (plain or
-    speculative), wrapped around its decode methods."""
+class MethodTimer:
+    """Synchronized wall time of an object's methods, wrapped around them:
+    seconds in all (``s``) and of each call (``each``); with ``count`` (a
+    callable) what it counts moved by each call (``moved``)."""
 
-    def __init__(self, eng):
-        self.s = 0.0
-        for name in ("_decode", "_spec_decode_tree"):
-            setattr(eng, name, self._wrap(getattr(eng, name)))
+    def __init__(self, obj, names, count=lambda: 0):
+        self.s, self.each, self.moved, self.count = 0.0, [], [], count
+        for name in names:
+            setattr(obj, name, self._wrap(getattr(obj, name)))
 
     def _wrap(self, fn):
-        def run(live):
+        def run(*args):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn(live)
+            c0, t0 = self.count(), time.perf_counter()
+            out = fn(*args)
             torch.cuda.synchronize()
-            self.s += time.perf_counter() - t0
+            self.each.append(time.perf_counter() - t0)
+            self.moved.append(self.count() - c0)
+            self.s += self.each[-1]
+            return out
         return run
 
 
@@ -4180,7 +4206,7 @@ def feature_engine(params, moe, mla_wq, *, spec_k=0, width=1, mixed=True):
     eng = Engine(adapter, NUM_PAGES, max_batch=MAX_BATCH, max_pages_per_req=MAX_PAGES_PER_REQ,
                  prefill_chunk=PREFILL_CHUNK, mixed=mixed, spec_k=spec_k, draft_adapter=draft,
                  spec_tree_width=width)
-    return eng, timer, dtimer, DecodeTimer(eng)
+    return eng, timer, dtimer, MethodTimer(eng, ("_decode", "_spec_decode_tree"))
 
 
 def feature_run(label, eng, requests, timers):
@@ -4504,6 +4530,280 @@ def _copy_ms(a) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+# [4n]: the host KV tier on [4c]'s setup (int8 latent cache, fused prologue,
+# W8A8 experts, 2048-token chunks, its five prompts); a host pool of 128
+# pages holds their 83 distinct full pages.  transfer_kv_dim_exchange at
+# DeepSeek-V3's 61 layers of that cache, all 256 pages, 16 sentinel host
+# pages on each side of the named ones.
+HOST_POOL_PAGES = 128
+XFER_SENTINEL, XFER_ITERS = 16, 5
+
+
+def serve_ttft(eng, ps, n_new):
+    """Serve ``ps`` (all arriving at once, ``n_new`` tokens each) with the
+    launch counts reset just before and read just after → (tokens, each
+    request's time to first token in s, wall s, counts).  A step reads its
+    new tokens to the host, so the clock after it sees them."""
+    counters.reset()
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, n_new) for p in ps]
+    first = {}
+    while eng.waiting or eng.running:
+        eng.step()
+        now = time.perf_counter() - t0
+        for rid in [r.rid for r in eng.running if r.out_tokens] + list(eng.finished):
+            first.setdefault(rid, now)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [eng.finished[r] for r in rids], [first[r] for r in rids], wall, counters.read()
+
+
+def page_prefixes(ps, spans, page) -> int:
+    """The distinct full-page prefixes among ``ps[i][:spans[i]]``: the pages
+    a radix holds for them."""
+    return len({tuple(p[: k * page]) for p, n in zip(ps, spans) for k in range(1, n // page + 1)})
+
+
+def held_pages(eng, tokens):
+    """The device pages ``eng``'s radix holds for ``tokens`` (the hold taken
+    by the match released)."""
+    toks = torch.tensor(tokens, dtype=torch.int32).numpy()
+    n, pages = eng.cm.match(toks)
+    if n:
+        eng.cm.release(toks[:n])
+    if n != len(tokens):
+        raise AssertionError(f"the radix holds {n} of {len(tokens)} tokens")
+    return torch.from_numpy(pages.astype("int64")).to(DEV)
+
+
+def tier_rate(timer, page_bytes) -> str:
+    """A host-tier timer's calls: each one's pages and ms, and GB/s over
+    the calls after the first."""
+    calls = ", ".join(f"{n} / {t * 1e3:.2f}" for n, t in zip(timer.moved, timer.each))
+    gb = sum(timer.moved[1:]) * page_bytes / 1e9
+    return (f"pages / ms a call {calls}; after the first {gb * 1e3:.2f} MB in "
+            f"{sum(timer.each[1:]) * 1e3:.2f} ms = {gb / sum(timer.each[1:]):.2f} GB/s")
+
+
+def pd_disaggregation(params, moe, mla_wq8, lps, card):
+    """[4n] part 1: a prefill engine P and a decode engine D over one
+    ``HostKVPool``; P's caches paused and resumed through ``MemorySaver``."""
+    page = CFG_INT8.page_size
+    pool = HostKVPool(HOST_POOL_PAGES, page)
+
+    def engine():
+        adapter = deepseek_adapter(CFG_INT8, params, torch.bfloat16, moe_weights_q=moe,
+                                   mla_wq=mla_wq8)
+        timer = StepTimer(adapter)
+        eng = Engine(adapter, LONG_NUM_PAGES, max_batch=MAX_BATCH,
+                     max_pages_per_req=LONG_PAGES_PER_REQ, prefill_chunk=LONG_CHUNK,
+                     host_pool=pool)
+        return (eng, timer,
+                MethodTimer(eng, ("_host_offload",), lambda: eng.stats["host_offloaded_pages"]),
+                MethodTimer(eng, ("_host_restore",),
+                            lambda: eng.stats["host_restored_tokens"] // page))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    p_eng, _, p_off, _ = engine()
+    page_bytes = sum(t[0].nbytes for t in cache_tensors(p_eng.caches))
+    _, ttft_p, wall_p, _ = serve_ttft(p_eng, lps, 1)
+    want_off = page_prefixes(lps, [len(p) for p in lps], page)
+    if p_eng.stats["host_offloaded_pages"] != want_off:
+        raise AssertionError(f"P offloaded {p_eng.stats['host_offloaded_pages']} pages, want "
+                             f"{want_off}")
+    log(f"  P (prefill engine) served the {len(lps)} prompts for one token each in {wall_p:.2f} s "
+        f"and offloaded {want_off} pages ({page_bytes} bytes a page) in {len(p_off.each)} calls: "
+        f"{tier_rate(p_off, page_bytes)}; the first call shapes the {HOST_POOL_PAGES}-page pinned "
+        f"pool")
+
+    saver = MemorySaver()
+    tensors = cache_tensors(p_eng.caches)
+    for i, t in enumerate(tensors):
+        saver.register(f"kv{i}", t, tag="kv")
+    before = [digest(t) for t in tensors]
+    registered = sum(t.nbytes for t in tensors)
+    gc.collect()
+    torch.cuda.empty_cache()              # only the regions' segments are left to free
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    freed = saver.pause("kv")
+    pause_ms = (time.perf_counter() - t0) * 1e3
+    back = torch.cuda.mem_get_info()[0] - free0
+    t0 = time.perf_counter()
+    saver.resume("kv")
+    torch.cuda.synchronize()
+    resume_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  MemorySaver: P's {len(tensors)} cache tensors, {registered} bytes: pause "
+        f"{pause_ms:.2f} ms returned {freed} bytes, {back} released to CUDA "
+        f"({back / registered:.3f} of them by mem_get_info); resume {resume_ms:.2f} ms")
+    if freed != registered or back < 0.9 * registered:
+        raise AssertionError("pause freed too little")
+    if [digest(t) for t in cache_tensors(p_eng.caches)] != before:
+        raise AssertionError("the resumed caches differ from the paused ones")
+
+    matched = [(len(p) - 1) // page * page for p in lps]
+    cached0 = p_eng.stats["cached_tokens"]
+    t_p2, ttft_p2, _, _ = serve_ttft(p_eng, lps, NEW_TOKENS)
+    if p_eng.stats["cached_tokens"] - cached0 != sum(matched):
+        raise AssertionError("P's second serve missed its device radix")
+    d_eng, d_timer, _, d_res = engine()
+    t_d, ttft_d, _, launches = serve_ttft(d_eng, lps, NEW_TOKENS)
+    # the prefix two prompts share is restored once: the second finds it in
+    # D's device radix
+    want_restored = page_prefixes(lps, matched, page) * page
+    st = d_eng.stats
+    if (st["cached_tokens"], st["host_restored_tokens"], st["prefill_tokens"]) != (
+            sum(matched), want_restored, sum(len(p) for p in lps) - sum(matched)):
+        raise AssertionError(f"D's stats {st}: want cached {sum(matched)}, restored "
+                             f"{want_restored}, prefill {sum(len(p) for p in lps) - sum(matched)}")
+    if t_d != t_p2:
+        raise AssertionError(f"D's tokens differ from P's second serve: {t_d} vs {t_p2}")
+    for p, m in zip(lps, matched):
+        pp, dp = held_pages(p_eng, p[:m]), held_pages(d_eng, p[:m])
+        for tp, td in zip(cache_tensors(p_eng.caches), cache_tensors(d_eng.caches), strict=True):
+            if digest(tp[pp]) != digest(td[dp]):
+                raise AssertionError("a restored page differs from P's")
+    for eng in (p_eng, d_eng):
+        if eng.cm.free_pages + eng.cm.cached_pages != LONG_NUM_PAGES:
+            raise AssertionError("KV pages leaked")
+    layers, pre, dec = CFG_INT8.num_layers, d_timer.calls["prefill"], d_timer.calls["decode"]
+    want = {"quant_matmul": 2 * layers * (pre + dec), "decode_mla": layers * dec,
+            "mla_prefill_pallas": layers * pre, "grouped_matmul": 2 * layers * pre,
+            "gmm1_ring": layers * dec, "gmm2_combine_ring": layers * dec}
+    got = {k: launches[k] for k in want}
+    if got != want or pre != len(lps):
+        raise AssertionError(f"D's launches {got} over {pre} prefill and {dec} decode calls; "
+                             f"want {want} and {len(lps)} prefill calls")
+    log(f"  D (decode engine) restored {want_restored} tokens in {len(d_res.each)} admissions: "
+        f"{tier_rate(d_res, page_bytes)}; prefilled {st['prefill_tokens']} tail tokens in {pre} calls of {LONG_CHUNK} rows; its "
+        f"{len(t_d)} x {NEW_TOKENS} tokens equal P's second serve's; restored pages bit-equal "
+        f"to P's; launches {json.dumps(got)}; all pages returned")
+    log(f"  time to first token ({card}), mean / max over the {len(lps)} prompts: P "
+        f"{1e3 * statistics.mean(ttft_p):.1f} / {1e3 * max(ttft_p):.1f} ms, P again (device "
+        f"radix) {1e3 * statistics.mean(ttft_p2):.1f} / {1e3 * max(ttft_p2):.1f} ms, D (host "
+        f"restore) {1e3 * statistics.mean(ttft_d):.1f} / {1e3 * max(ttft_d):.1f} ms")
+
+
+def timed_s(fn) -> float:
+    """Median synchronized wall seconds of ``XFER_ITERS`` calls."""
+    out = []
+    for _ in range(XFER_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return statistics.median(out)
+
+
+def transfer_at_scale(gen, card):
+    """[4n] part 2: ``transfer_kv_dim_exchange`` over DeepSeek-V3's 61
+    layers of the int8 latent cache (nope int8 ``[256, 1, 128, 512]``, rope
+    bf16 ``[256, 1, 64, 128]``), every page, against a plain pinned
+    ``copy_`` of the same bytes."""
+    n, L, s = LONG_NUM_PAGES, FULL_LAYERS, XFER_SENTINEL
+    nope = [torch.randint(-128, 128, (n, 1, CFG.page_size, CFG.kv_lora_rank), generator=gen,
+                          dtype=torch.int8, device=DEV) for _ in range(L)]
+    rope = [randn(gen, (n, 1, CFG.qk_rope_dim, CFG.page_size)) for _ in range(L)]
+    orig = [t.clone() for t in nope + rope]
+    host = [torch.full((n + 2 * s, L) + tuple(t.shape[1:]), 7, dtype=t.dtype, pin_memory=True)
+            for t in (nope[0], rope[0])]
+    nbytes = sum(t.nbytes for t in orig)
+    d_idx = torch.randperm(n, generator=torch.Generator().manual_seed(SEED)).numpy()
+    h_idx = torch.arange(s, s + n).numpy()
+    D2H, H2D = kvcacheio.TransferDirection.D2H, kvcacheio.TransferDirection.H2D
+
+    def move(direction, d=d_idx, h=h_idx):
+        kvcacheio.transfer_kv_dim_exchange(d, h, nope, host[0], rope, host[1],
+                                           page_size=CFG.page_size, direction=direction)
+
+    d2h_s = timed_s(lambda: move(D2H))
+    for pool in host:
+        if not ((pool[:s] == 7).all() and (pool[s + n:] == 7).all()):
+            raise AssertionError("D2H wrote host pages it was not given")
+    for t in nope + rope:
+        t.zero_()
+    h2d_s = timed_s(lambda: move(H2D))
+    if not all(torch.equal(t, o) for t, o in zip(nope + rope, orig)):
+        raise AssertionError("the 61-layer round trip is not bit-equal")
+    # 64 named pages in two runs of host ids, out of order: the others stay 0
+    for t in nope + rope:
+        t.zero_()
+    d_sel, h_sel = d_idx[:64], h_idx[list(range(32, 64)) + list(range(32))]
+    move(H2D, d_sel, h_sel)
+    rest = torch.from_numpy(d_idx[64:]).to(DEV)
+    pos = {int(h): i for i, h in enumerate(h_idx)}
+    src_pages = torch.tensor([int(d_idx[pos[int(h)]]) for h in h_sel], device=DEV)
+    dst_pages = torch.from_numpy(d_sel).to(DEV)
+    for t, o in zip(nope + rope, orig):
+        if not torch.equal(t[dst_pages], o[src_pages]) or t[rest].any():
+            raise AssertionError("a partial H2D moved the wrong pages")
+    staged = [torch.empty((n,) + tuple(p.shape[1:]), dtype=p.dtype, device=DEV) for p in host]
+    copy_d2h = timed_s(lambda: [p[s:s + n].copy_(g, non_blocking=True)
+                                for p, g in zip(host, staged)])
+    copy_h2d = timed_s(lambda: [g.copy_(p[s:s + n], non_blocking=True)
+                                for p, g in zip(host, staged)])
+    gb = nbytes / 1e9
+    log(f"  transfer_kv_dim_exchange, {L} layers x {n} pages ({gb:.3f} GB: int8 latent + bf16 "
+        f"rope; {card}; medians of {XFER_ITERS}): D2H {d2h_s * 1e3:.2f} ms = "
+        f"{gb / d2h_s:.2f} GB/s against a pinned copy_ of the same bytes {copy_d2h * 1e3:.2f} ms "
+        f"= {gb / copy_d2h:.2f} GB/s ({copy_d2h / d2h_s:.3f} of it); H2D {h2d_s * 1e3:.2f} ms = "
+        f"{gb / h2d_s:.2f} GB/s against {copy_h2d * 1e3:.2f} ms = {gb / copy_h2d:.2f} GB/s "
+        f"({copy_h2d / h2d_s:.3f}); round trip bit-equal, sentinel host pages and unnamed device "
+        f"pages untouched")
+
+
+def slot_ops_on_card():
+    """[4n] part 3: the slot and cache-location ops once on the card at an
+    engine's size, each equal to its CPU result."""
+    g = torch.Generator().manual_seed(SEED + 11)
+    page, b = CFG.page_size, MAX_BATCH
+    pre = torch.randint(0, 4000, (b,), generator=g, dtype=torch.int32)
+    seq = pre + torch.randint(1, LONG_CHUNK + 1, (b,), generator=g, dtype=torch.int32)
+    last = pre * 7 + 3
+    free = torch.randperm(4096, generator=g).to(torch.int32)
+    pool = torch.randint(0, 1 << 20, (64, 8192), generator=g, dtype=torch.int32)
+    req = torch.randperm(64, generator=g)[:b].to(torch.int32)
+    start = torch.randint(0, 4096, (b,), generator=g, dtype=torch.int32)
+    end = start + torch.randint(0, 2048, (b,), generator=g, dtype=torch.int32)
+    total = int((end - start).sum())
+    locs = torch.randint(0, 1 << 20, (total,), generator=g, dtype=torch.int32)
+    kv_dst = torch.randn((16384, 576), generator=g).to(torch.bfloat16)
+    kv_src = torch.randn((16384, 576), generator=g).to(torch.bfloat16)
+    ops = {
+        "alloc_extend": lambda t: mem_cache.alloc_extend(
+            t(pre), t(seq), t(last), t(free), page_size=page,
+            max_extend_tokens=b * LONG_CHUNK),
+        "alloc_decode": lambda t: mem_cache.alloc_decode(t(seq), t(last), t(free),
+                                                         page_size=page),
+        "cache_loc_assign": lambda t: mem_cache.cache_loc_assign(t(req), t(pool).clone(),
+                                                                 t(start), t(end), t(locs)),
+        "cache_loc_update": lambda t: mem_cache.cache_loc_update(t(req), t(pool), t(start),
+                                                                 t(end), total + 64),
+        "assign_cache_op": lambda t: mem_cache.assign_cache_op(t(kv_dst).clone(), t(kv_src), 100,
+                                                               9000, 2048, 16000),
+    }
+    for name, op in ops.items():
+        got, want = op(lambda a: a.to(DEV)), op(lambda a: a)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{name} on the card differs from its CPU result")
+    log(f"  slot and cache-location ops on the card equal to the CPU's: {', '.join(ops)} "
+        f"({b} requests, page {page}, {total} locations, a [16384, 576] bf16 ranged copy)")
+
+
+def host_tier_phase(params, moe, mla_wq8, lps, card):
+    """[4n] (see the module docstring)."""
+    t0 = time.perf_counter()
+    pd_disaggregation(params, moe, mla_wq8, lps, card)
+    transfer_at_scale(torch.Generator(device=DEV).manual_seed(SEED + 12), card)
+    slot_ops_on_card()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  [4n] took {time.perf_counter() - t0:.1f} s")
+
+
 def serving_phases(card: str):
     """Phases [2] to [5]: the serving paths, their kernels and their
     profiles.  Returns the kernel rows (name, source, replaced TPU kernel,
@@ -4622,6 +4922,10 @@ def serving_phases(card: str):
     log("[4m] the engine's sampling, stop tokens, prefill-first scheduling and speculative "
         "decoding (chain, tree) on [4]'s setup: fused prologue, W8A8 experts, a 1-layer draft")
     engine_features_phase(params, moe, mla_wq, ps, card)
+    log("[4n] the host KV tier and prefill / decode disaggregation on [4c]'s setup: two "
+        "Engines over one HostKVPool, MemorySaver, transfer_kv_dim_exchange at 61 layers, the "
+        "slot ops")
+    host_tier_phase(params, moe, mla_wq8, lps, card)
     log(f"[4f] Llama-3.1-8B widths, {CFG_LLAMA.num_layers} of {LLAMA_FULL_LAYERS} layers, seed "
         f"{SEED}: Engine(prefill_chunk={GPT_CHUNK}) + llama_adapter")
     t0 = time.perf_counter()

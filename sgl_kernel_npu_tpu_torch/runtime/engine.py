@@ -26,18 +26,30 @@ names a dtype: the card's attention kernels take bf16 or int8 caches, where
 JAX defaults to f32 everywhere.  Multi-LoRA: ``llama_adapter(lora=...)`` and
 ``add_request(lora_id=...)``; every model call passes each row's adapter
 (``lora_idx``: the request's on every prefill row, 0 on decode pad rows),
-and the other adapters ignore it.  Not ported yet (ROADMAP): the host KV
-tier and prefill / decode disaggregation (``HostKVPool``), the context- and
-pipeline-parallel Llama adapters, and the other model adapters; a target
+and the other adapters ignore it.  Not ported yet (ROADMAP): the context-
+and pipeline-parallel Llama adapters and the other model adapters; a target
 with recurrent state or one-request prefill (Qwen3-Next) under speculative
 decoding raises.
+
+The L2 host KV tier (``HostKVPool``, ``Engine(host_pool_pages=...)`` or
+``Engine(host_pool=...)``): a finished prompt's full pages are offloaded into
+a second radix cache over a host pool (the adapters' ``gather_pages`` hook,
+then the pool's rows), and admission restores a longer prefix from it after
+a device-radix miss (the pool's rows, then ``scatter_pages``).  Engines over
+one model that share a ``HostKVPool`` disaggregate prefill and decode: a
+prefill engine offloads, a decode engine restores and prefills only the
+tail.  On the card the pool is pinned host memory; each leaf moves by one
+device gather or scatter and one asynchronous copy a run of consecutive
+host pages (``utils/kvcacheio.py``), synchronised before the host reads the
+pool.  The tier is refused with a draft adapter, as in JAX.
 
 Prefix reuse and LoRA (a departure from the JAX engine, whose radix is keyed
 by tokens alone): LoRA on the q and o projections makes every layer's K / V
 after the first depend on the adapter, so a request with ``lora_id != 0``
 neither matches nor inserts into the radix; adapter-0 requests share pages
-as before.  JAX reuses one adapter's pages for another's request on the same
-prompt.
+as before; likewise it neither restores from the host tier nor offloads to
+it.  JAX reuses one adapter's pages for another's request on the same
+prompt, on the device and through the host pool.
 
 Radix refcount protocol (single-threaded engine; see csrc/cache_manager.cpp):
   admit       — match(prompt[:-1]) holds the shared prefix; allocate the tail
@@ -60,6 +72,7 @@ from sgl_kernel_npu_tpu_torch.ops.sampling import apply_penalties, sample_tokens
 from sgl_kernel_npu_tpu_torch.ops.speculative import verify_tree_greedy
 from sgl_kernel_npu_tpu_torch.runtime.cache_manager import RadixCacheManager
 from sgl_kernel_npu_tpu_torch.utils.common import resolve_device, top_k
+from sgl_kernel_npu_tpu_torch.utils.kvcacheio import rows_to_device, rows_to_host, synchronize
 
 
 @dataclasses.dataclass
@@ -78,6 +91,40 @@ class ModelAdapter:
     snapshot_state: Callable | None = None
     restore_state: Callable | None = None
     prefill_single: bool = False
+    # host-tier hooks: gather_pages(caches, ids [n]) → every cache tensor's
+    # rows at those pages (the caches' structure); scatter_pages(caches, ids,
+    # payload) writes them back in place → caches
+    gather_pages: Callable | None = None
+    scatter_pages: Callable | None = None
+
+
+def _map_cache(fn, caches):
+    """``caches``' structure (a layer's ``(k, v)`` tuple or its ``{"nope",
+    "rope"[, "kidx"]}`` dict) with ``fn(tensor)`` at each tensor."""
+    return [{k: fn(t) for k, t in layer.items()} if isinstance(layer, dict)
+            else tuple(fn(t) for t in layer) for layer in caches]
+
+
+def cache_tensors(caches) -> list[torch.Tensor]:
+    """Every tensor of every layer's cache, layer by layer."""
+    return [t for layer in caches for t in (layer.values() if isinstance(layer, dict) else layer)]
+
+
+def paged_gather_pages(caches, page_ids: torch.Tensor):
+    """The host-offload gather for any cache whose tensors lead with the
+    page dimension (Llama's and GPT-OSS's ``(k, v)``, plain, int8 or packed;
+    DeepSeek's latent, rope and index-key caches): each tensor's rows at
+    ``page_ids`` (int64, on the caches' device), in the caches' structure."""
+    return _map_cache(lambda t: t.index_select(0, page_ids), caches)
+
+
+def paged_scatter_pages(caches, page_ids: torch.Tensor, payload):
+    """Write ``payload`` (:func:`paged_gather_pages`' structure) into pages
+    ``page_ids`` of every cache tensor, cast to its dtype, in place; returns
+    ``caches``."""
+    for t, p in zip(cache_tensors(caches), cache_tensors(payload), strict=True):
+        t.index_copy_(0, page_ids, p.to(t.dtype))
+    return caches
 
 
 def _cache_dtype(dtype, dev: torch.device):
@@ -124,6 +171,8 @@ def deepseek_adapter(cfg, params, dtype=None, *, moe_weights_q=None, mla_wq=None
             cfg, params, x, pos, c, bt, ctx, slots, moe_weights_q=moe_weights_q,
             mla_wq=mla_wq, **ep),
         init_cache=lambda n: m.init_kv_cache(cfg, n, dtype, device=dev),
+        gather_pages=paged_gather_pages,
+        scatter_pages=paged_scatter_pages,
     )
 
 
@@ -152,6 +201,8 @@ def gpt_oss_adapter(cfg, params, dtype=None, *, weights_q=None, ep_buffer=None,
         decode_step=lambda x, pos, c, bt, ctx, slots, li: m.decode_step(
             cfg, params, x, pos, c, bt, ctx, slots, weights_q=weights_q, ep_buffer=ep_buffer),
         init_cache=lambda n: m.init_kv_cache(cfg, n, dtype, device=dev),
+        gather_pages=paged_gather_pages,
+        scatter_pages=paged_scatter_pages,
     )
 
 
@@ -179,6 +230,8 @@ def llama_adapter(cfg, params, dtype=None, *, lora=None, weights_q=None,
         decode_step=lambda x, pos, c, bt, ctx, slots, li: m.decode_step(
             cfg, params, x, pos, c, bt, ctx, slots, lora=lora, lora_idx=li, weights_q=weights_q),
         init_cache=lambda n: m.init_kv_cache(cfg, n, dtype, device=dev),
+        gather_pages=paged_gather_pages,
+        scatter_pages=paged_scatter_pages,
     )
 
 
@@ -246,11 +299,28 @@ class DecodeBatch:
 
 def _copy_pages(caches, src: torch.Tensor, dst: torch.Tensor) -> None:
     """Copy pages ``src`` onto pages ``dst`` in every tensor of every
-    layer's cache (each leads with the page dimension: K / V, the latent and
-    rope caches, DSA's index keys), in place."""
-    for layer in caches:
-        for t in (layer.values() if isinstance(layer, dict) else layer):
-            t.index_copy_(0, dst, t.index_select(0, src))
+    layer's cache, in place."""
+    paged_scatter_pages(caches, dst, paged_gather_pages(caches, src))
+
+
+class HostKVPool:
+    """A host KV pool and its radix index, shareable by several engines over
+    one model.
+
+    Engines that share one pool disaggregate prefill and decode: a prefill
+    engine offloads each finished prompt's pages here, and a decode engine
+    matches the same prompt at admission, restores the prefix from the pool
+    and decodes without computing that prefill again.  This is the serving
+    role of the reference's ``transfer_kv_dim_exchange`` (device <-> host KV
+    migration, ``utils/kvcacheio.py``).  ``pool`` has the caches' structure:
+    a CPU tensor ``[num_pages, ...]`` for each cache tensor, in its dtype,
+    made at the first offload (pinned when the caches are on the card).
+    """
+
+    def __init__(self, num_pages: int, page_size: int):
+        self.cm = RadixCacheManager(num_pages, page_size)
+        self.pool = None
+        self.page = page_size
 
 
 class Engine:
@@ -262,12 +332,14 @@ class Engine:
     own KV pool on the same pages) decodes speculatively: ``spec_k`` draft
     tokens a round, one varlen verify; ``spec_tree_width > 1`` branches the
     first draft token top-B with copy-on-write suffix pages (width 1: the
-    chain)."""
+    chain).  ``host_pool_pages > 0`` gives the engine an L2 host KV tier of
+    its own, ``host_pool`` attaches a shared one (:class:`HostKVPool`)."""
 
     def __init__(self, adapter: ModelAdapter, num_pages: int, *, max_batch: int = 8,
                  max_pages_per_req: int = 16, prefill_chunk: int = 64, mixed: bool = True,
                  spec_k: int = 0, draft_adapter: ModelAdapter | None = None,
-                 spec_tree_width: int = 1, device="cuda"):
+                 spec_tree_width: int = 1, host_pool_pages: int = 0,
+                 host_pool: HostKVPool | None = None, device="cuda"):
         dev = resolve_device(device)
         if dev.type != adapter.device.type:
             raise ValueError(f"engine device {dev} differs from the adapter's "
@@ -286,8 +358,23 @@ class Engine:
         self.finished: dict[int, list[int]] = {}
         self.logprobs: dict[int, list[float]] = {}
         self.stats = {"prefill_tokens": 0, "decode_steps": 0, "cached_tokens": 0,
-                      "spec_rounds": 0, "spec_accepted": 0}
+                      "spec_rounds": 0, "spec_accepted": 0,
+                      "host_offloaded_pages": 0, "host_restored_tokens": 0}
         self._next_rid = 0
+        # --- L2 host KV tier: finished prompts' pages offload into a second
+        # radix cache over a host pool; admission checks it after the device
+        # radix and restores the longer prefix ---
+        self._host = host_pool
+        if host_pool_pages > 0 and self._host is None:
+            self._host = HostKVPool(host_pool_pages, self.page)
+        if self._host is not None:
+            if adapter.gather_pages is None or adapter.scatter_pages is None:
+                raise ValueError("adapter lacks gather/scatter_pages hooks")
+            if draft_adapter is not None:
+                raise ValueError("host KV tier + speculative decoding is not supported (the "
+                                 "draft pool is not offloaded)")
+            if self._host.page != self.page:
+                raise ValueError("host pool page size != engine page size")
         # --- speculative decoding (EAGLE-chain style; paged-KV adapters) ---
         # The draft model shares the target's page geometry, so one block
         # table and slot mapping drive both KV pools.  Rejected tokens need no
@@ -328,6 +415,19 @@ class Engine:
             self.draft_caches = draft_adapter.init_cache(num_pages)
 
     # ---------------- public API ----------------
+
+    @property
+    def host_cm(self):
+        """Radix index of the attached host tier (None: no L2 tier)."""
+        return self._host.cm if self._host is not None else None
+
+    @property
+    def host_pool(self):
+        return self._host.pool if self._host is not None else None
+
+    @host_pool.setter
+    def host_pool(self, v):
+        self._host.pool = v
 
     def add_request(self, prompt, max_new_tokens: int, lora_id: int = 0,
                     sampling: SamplingParams | None = None, stop_tokens=(),
@@ -444,11 +544,83 @@ class Engine:
             # request's K / V depend on its adapter, so it shares no pages
             matched, pages = (0, []) if r.lora_id else self.cm.match(
                 r.prompt[: r.prompt_len - 1])
+            pages = [int(p) for p in pages]
+            if self.host_cm is not None and not r.lora_id and matched < r.prompt_len - 1:
+                matched, pages = self._host_restore(r, matched, pages)
             r.admit_matched = matched
-            r.pages = [int(p) for p in pages]
+            r.pages = pages
             r.pos = matched
             self.stats["cached_tokens"] += matched
             self.running.append(r)
+
+    def _host_restore(self, r: _Request, matched: int, pages: list):
+        """Extend a device-radix miss from the host tier: copy the host
+        pool's longer prefix into fresh device pages and register it in the
+        device radix, so that refcounting and sharing work as if it had been
+        computed here."""
+        hm, hpages = self.host_cm.match(r.prompt[: r.prompt_len - 1])
+        try:
+            if hm <= matched or self.host_pool is None:
+                return matched, pages
+            s_pg, n_pg = matched // self.page, hm // self.page
+            new_dev = self.cm.alloc(n_pg - s_pg)
+            if len(new_dev) < n_pg - s_pg:
+                self.cm.free(new_dev)
+                return matched, pages
+            sel = hpages[s_pg:n_pg]
+            payload = _map_cache(lambda pool: rows_to_device(pool, sel, self.device),
+                                 self.host_pool)
+            self.caches = self.a.scatter_pages(
+                self.caches, self._tensor(new_dev.astype(np.int64)), payload)
+            synchronize(self.device)
+            allp = pages + [int(p) for p in new_dev]
+            _, dup = self.cm.insert(r.prompt[:hm], np.asarray(allp, np.int32), ref=0)
+            m2, canon = self.cm.match(r.prompt[:hm])      # the long-term hold
+            if matched:
+                self.cm.release(r.prompt[:matched])        # swap the short hold
+            if len(dup) > s_pg:
+                self.cm.free(dup[s_pg:])
+            self.stats["host_restored_tokens"] += m2 - matched
+            return m2, [int(p) for p in canon]
+        finally:
+            if hm:
+                self.host_cm.release(r.prompt[:hm])
+
+    def _host_offload(self, r: _Request) -> None:
+        """Copy a finished prompt's cached span into the host pool and index
+        it in the host radix (ref=0: the L2 tier is best-effort, evicted
+        least recently used first)."""
+        span = r.inserted_span
+        if not span:
+            return
+        npg = span // self.page
+        have, hpages = self.host_cm.match(r.prompt[:span])
+        try:
+            h_pg = have // self.page
+            if h_pg >= npg:
+                return
+            got = self.host_cm.alloc(npg - h_pg)
+            if len(got) < npg - h_pg:
+                self.host_cm.free(got)
+                return
+            payload = self.a.gather_pages(
+                self.caches, self._tensor(np.asarray(r.pages[h_pg:npg], np.int64)))
+            if self.host_pool is None:
+                n_host, pin = self.host_cm.num_pages, self.device.type == "cuda"
+                self.host_pool = _map_cache(
+                    lambda a: torch.zeros((n_host,) + tuple(a.shape[1:]), dtype=a.dtype,
+                                          pin_memory=pin), payload)
+            for pool, rows in zip(cache_tensors(self.host_pool), cache_tensors(payload)):
+                rows_to_host(pool, got, rows)
+            synchronize(self.device)
+            allp = [int(p) for p in hpages] + [int(p) for p in got]
+            _, dup = self.host_cm.insert(r.prompt[:span], np.asarray(allp, np.int32), ref=0)
+            if len(dup) > h_pg:
+                self.host_cm.free(dup[h_pg:])
+            self.stats["host_offloaded_pages"] += npg - h_pg
+        finally:
+            if have:
+                self.host_cm.release(r.prompt[:have])
 
     def _ensure_pages(self, r: _Request, upto_tokens: int) -> None:
         need = -(-upto_tokens // self.page) - len(r.pages)
@@ -757,6 +929,8 @@ class Engine:
 
     def _retire(self) -> None:
         for r in [x for x in self.running if x.done]:
+            if self.host_cm is not None:
+                self._host_offload(r)
             if r.inserted_span:
                 self.cm.release(r.prompt[: r.inserted_span])
             elif r.admit_matched:
