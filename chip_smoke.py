@@ -267,10 +267,31 @@ Phases (any failure raises and the script exits non-zero without a result):
    unnamed device pages untouched, each direction timed beside a plain
    pinned ``copy_`` of the same bytes; and the slot and cache-location ops
    (``ops/mem_cache``) once on the card, each equal to its CPU result.
-6. Print the kernels' JSON line (38 rows for the 32 TPU kernel sites, K8a's
-   modes and K3's float-input mode in rows of their own, each from its own
-   result; and ``launch_floor_ms``, the empty kernel's time), the card line,
-   and last the result line ``{"ok": true, "device": {...}}``.
+4o. Qwen3-Next-80B-A3B at its published widths (4 of 48 layers: three
+   gated-delta-rule layers and one gated attention layer at head_dim 256,
+   512 experts top-10 on every layer; bf16 weights from a seed), once [2]-[5]'s
+   weights are dropped and before [4h]: K11a (decode_gqa) and K12d at head_dim
+   256 held to their plain versions at [4o]'s decode contexts and a 512-row
+   chunk at context 2048 (timed beside SDPA and the bound) and on ragged cases
+   (context 1, a pad row, rows straddling pages, pad rows); then ``Engine(
+   prefill_chunk=512, max_batch=4)`` + ``qwen3_hybrid_adapter`` serves six
+   prompts of 300-2000 tokens (the last repeats the first), 16 new tokens
+   each: state slots reused, every page and slot back, no radix reuse (the
+   repeated prompt finds 0 cached tokens and gives its first serve's tokens),
+   exact launch counts (K12d once a prefill call, K11a once a decode call: the
+   one attention layer); a decode step and a 512-row chunk held to
+   ``plain=True`` with the routing replayed, each run from the same restored
+   state; a 700-token prompt prefilled in 512-row chunks then 4 tokens decoded
+   against one prefill over the sequence (the routing replayed); the same
+   serve with W8A8 ``weights_q`` (K1 and K5 counted exactly) and its steps
+   held by ``w8a8_verdict``; device time of a decode step and a 512-row
+   prefill call by region (GDN chunk loop, recurrent update, conv, dense MoE,
+   K11a / K12d), the busy share and the chunk loop's launches.
+6. Print the kernels' JSON line (40 rows for the 32 TPU kernel sites, K8a's
+   modes, K3's float-input mode and K11a / K12d at head_dim 256 in rows of
+   their own, each from its own result; and ``launch_floor_ms``, the empty
+   kernel's time), the card line, and last the result line ``{"ok": true,
+   "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -298,6 +319,7 @@ from sgl_kernel_npu_tpu_torch.config import EPConfig  # noqa: E402
 from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as m  # noqa: E402
 from sgl_kernel_npu_tpu_torch.models import gpt_oss as g  # noqa: E402
 from sgl_kernel_npu_tpu_torch.models import llama as lm  # noqa: E402
+from sgl_kernel_npu_tpu_torch.models import qwen3_next as qn  # noqa: E402
 from sgl_kernel_npu_tpu_torch.models import w8a8  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops import (  # noqa: E402
     activation,
@@ -326,6 +348,7 @@ from sgl_kernel_npu_tpu_torch.runtime.engine import (  # noqa: E402
     deepseek_adapter,
     gpt_oss_adapter,
     llama_adapter,
+    qwen3_hybrid_adapter,
 )
 from sgl_kernel_npu_tpu_torch.utils import counters, cuda_lib, kvcacheio, prng, trace_profile  # noqa: E402
 from sgl_kernel_npu_tpu_torch.utils.memory_saver import MemorySaver  # noqa: E402
@@ -433,6 +456,28 @@ TRAIN_TOL_PLAIN, TRAIN_TOL_DENSE = 5e-2, 1e-1
 # against their plain versions: f32 outputs within 1e-2 of the largest |value|
 EP_KERNELS = ("grouped_matmul_float", "grouped_matmul_dx")
 EP_TOL = 1e-2
+
+# [4o] Qwen/Qwen3-Next-80B-A3B-Instruct config.json: hidden 2048, vocab
+# 151936, 48 layers (full_attention_interval 4: three gated-delta-rule layers,
+# then a gated attention layer), 16 q heads and 2 kv heads of 256
+# (partial_rotary_factor 0.25: rotary 64; rope_theta 1e7; the output gate and
+# q / k norms), linear attention 16 k heads and 32 v heads of 128 with conv
+# kernel 4, 512 experts top-10 (norm_topk_prob) of 512 and a shared expert of
+# 512 on every layer, rms_norm_eps 1e-6, an untied lm_head.  Cut: 48 layers
+# -> 4 (one interleave); the GDN chunk 16 (the JAX config's); bf16 weights
+# from a seed; page 16.  Six prompts of 300-2000 tokens on 4 state slots (the
+# last repeats the first), 512-token chunks.
+QWEN_FULL_LAYERS = 48
+CFG_QWEN = qn.Qwen3NextHybridConfig(
+    vocab_size=151936, hidden=2048, num_layers=4, attn_every=4, num_k_heads=16, num_v_heads=32,
+    head_k_dim=128, head_v_dim=128, conv_width=4, chunk_size=16, num_heads=16, num_kv_heads=2,
+    head_dim=256, page_size=16, rope_theta=1e7, mlp_intermediate=5120, rotary_dim=64,
+    attn_gate=True, qk_norm=True, rms_eps=1e-6, moe_experts=512, moe_topk=10,
+    moe_intermediate=512, shared_expert_intermediate=512, norm_topk_prob=True)
+QWEN_CHUNK, QWEN_BATCH, QWEN_PAGES_PER_REQ, QWEN_NUM_PAGES = 512, 4, 128, 640
+QWEN_PROMPT_LENS = [300, 1200, 2000, 700, 1500]     # then the first prompt again
+QWEN_NEW_TOKENS = NEW_TOKENS
+QWEN_KERNELS = ("decode_gqa", "attention_sinks_prefill_pallas")
 
 _flush_buf = None
 SPIN_CYCLES = 1_000_000        # ~500 us at the H100's 1.98 GHz boost clock
@@ -1385,7 +1430,7 @@ def live_batch(eng, ps, lora_ids=None):
 
 
 def decode_step_fn(params, moe, cfg=CFG, **kw):
-    return lambda x, pos, c, bt, ctx, slots, lora_idx: m.decode_step(
+    return lambda x, pos, c, bt, ctx, slots, state_idx, lora_idx: m.decode_step(
         cfg, params, x, pos, c, bt, ctx, slots, moe_weights_q=moe, **kw)
 
 
@@ -1408,39 +1453,36 @@ def compare_plain_decode(eng, ps, params, moe, mla_wq=None):
 
 
 @contextlib.contextmanager
+def swapped(module, swaps: dict):
+    """``module``'s names in ``swaps`` bound to the functions given there,
+    the old bindings restored on exit."""
+    old = {name: getattr(module, name) for name in swaps}
+    for name, fn in swaps.items():
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in old.items():
+            setattr(module, name, fn)
+
+
 def base_kernels():
     """The plain path with the attention kernels (K2, K9a, and DSA's K10 and
     K9b) and the ring GEMMs (K3, K4) in place of their plain versions: only
     K1, K5, K7a and K8a stay plain."""
-    swaps = {"decode_mla_ref": "decode_mla", "mla_prefill_ref": "mla_prefill_pallas",
-             "gmm1_ring_ref": "gmm1_ring", "gmm2_combine_ring_ref": "gmm2_combine_ring",
-             "lightning_indexer_scores_prefill_ref": "lightning_indexer_scores_prefill_pallas",
-             "mla_prefill_block_sparse_ref": "mla_prefill_block_sparse"}
-    refs = {ref: getattr(m, ref) for ref in swaps}
-    for ref, kernel in swaps.items():
-        setattr(m, ref, getattr(m, kernel))
-    try:
-        yield
-    finally:
-        for ref, fn in refs.items():
-            setattr(m, ref, fn)
+    return swapped(m, {"decode_mla_ref": m.decode_mla, "mla_prefill_ref": m.mla_prefill_pallas,
+                       "gmm1_ring_ref": m.gmm1_ring, "gmm2_combine_ring_ref": m.gmm2_combine_ring,
+                       "lightning_indexer_scores_prefill_ref":
+                           m.lightning_indexer_scores_prefill_pallas,
+                       "mla_prefill_block_sparse_ref": m.mla_prefill_block_sparse})
 
 
-@contextlib.contextmanager
 def llama_base_kernels():
     """Llama's plain path with K11a, K12d, K6a and K13a in place of their
     plain versions: only K1, K5 and K7a stay plain."""
-    swaps = {"decode_gqa_plain": lm.decode_gqa,
-             "attention_sinks_prefill_plain": lm.attention_sinks_prefill_pallas,
-             "rms_norm_ref": lm.rms_norm, "bgmv_fused_plain": lora_pallas.bgmv_fused}
-    refs = {ref: getattr(lm, ref) for ref in swaps}
-    for ref, kernel in swaps.items():
-        setattr(lm, ref, kernel)
-    try:
-        yield
-    finally:
-        for ref, fn in refs.items():
-            setattr(lm, ref, fn)
+    return swapped(lm, {"decode_gqa_plain": lm.decode_gqa,
+                        "attention_sinks_prefill_plain": lm.attention_sinks_prefill_pallas,
+                        "rms_norm_ref": lm.rms_norm, "bgmv_fused_plain": lora_pallas.bgmv_fused})
 
 
 def w8a8_rule(label, kernel_run, run_plain, n, logits: bool, plain_set="K1, K5 and K7a"):
@@ -2510,9 +2552,9 @@ def gpt_oss_modes(params, eng_bf16, ps):
     cfg_p8 = dataclasses.replace(CFG_GPT, packed_kv=True, kv_cache_dtype="int8")
     adapter = gpt_oss_adapter(cfg_p8, params)
     # the engine's own steps write and read the cache at the calibrated scales
-    adapter.prefill_step = lambda x, sl, c, bt, ctx, slots, lora_idx: g.prefill_step(
+    adapter.prefill_step = lambda x, sl, c, bt, ctx, slots, state_idx, lora_idx: g.prefill_step(
         cfg_p8, params, x, sl, c, bt, ctx, slots, max_q=x.shape[0], kv_scales=scales)
-    adapter.decode_step = lambda x, pos, c, bt, ctx, slots, lora_idx: g.decode_step(
+    adapter.decode_step = lambda x, pos, c, bt, ctx, slots, state_idx, lora_idx: g.decode_step(
         cfg_p8, params, x, pos, c, bt, ctx, slots, kv_scales=scales)
     eng_p8 = Engine(adapter, GPT_NUM_PAGES, max_batch=MAX_BATCH,
                     max_pages_per_req=GPT_PAGES_PER_REQ, prefill_chunk=GPT_CHUNK)
@@ -4804,6 +4846,394 @@ def host_tier_phase(params, moe, mla_wq8, lps, card):
     log(f"  [4n] took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 4o: Qwen3-Next-80B-A3B hybrid serving
+# ---------------------------------------------------------------------------
+
+def qwen_prompts():
+    """[4o]'s prompts: ``QWEN_PROMPT_LENS`` random tokens, then the first
+    prompt again."""
+    ps = prompts(torch.Generator().manual_seed(SEED + 11), QWEN_PROMPT_LENS + [1], (0, 0),
+                 CFG_QWEN.vocab_size)
+    ps[-1] = list(ps[0])
+    return ps
+
+
+def check_qwen_kernels(gen):
+    """K11a and K12d at head_dim 256 on bf16 caches, Qwen3-Next's 16 / 2
+    heads, page 16: K11a over a decode step's contexts of [4o]'s serve (its
+    four requests at 16 new tokens) and on ragged rows (context 1, a page and
+    one more, 300, 2000, a pad row); K12d on a 512-row chunk at context 2048
+    and on ragged requests (one token at context 1, 37 at 50 and 100 at 300:
+    rows straddling pages) with 3 pad rows.  Returns the timed K11a and K12d
+    results."""
+    heads = (CFG_QWEN.num_heads, CFG_QWEN.num_kv_heads, CFG_QWEN.head_dim)
+    kw = dict(heads=heads, with_sinks=False, table_pages=QWEN_PAGES_PER_REQ)
+    dec_ctx = [n + QWEN_NEW_TOKENS for n in QWEN_PROMPT_LENS[:QWEN_BATCH]]
+    k11 = check_paged_decode(gen, dec_ctx, 0, 0, True, **kw)
+    check_paged_decode(gen, [1, 16, 17, 300, 2000], 0, 1, False, **kw)
+    k12 = check_paged_prefill(gen, [QWEN_CHUNK], [4 * QWEN_CHUNK], 0, 0, True, **kw)
+    check_paged_prefill(gen, [1, 37, 100], [1, 50, 300], 0, 3, False, **kw)
+    return k11, k12
+
+
+def qwen_layers():
+    """(attention layers, GDN layers) of ``CFG_QWEN``."""
+    n_attn = sum(CFG_QWEN.is_attn(li) for li in range(CFG_QWEN.num_layers))
+    return n_attn, CFG_QWEN.num_layers - n_attn
+
+
+def qwen_serve(params, card, weights_q=None):
+    """[4o]'s serve: ``Engine(prefill_chunk=512, max_batch=4)`` +
+    ``qwen3_hybrid_adapter`` over six prompts (the last repeats the first),
+    16 new tokens each, so that state slots are reused.  Checks the caches'
+    types, every request's tokens, every page and state slot back, no radix
+    reuse (a request on a recurrent-state adapter neither matches nor
+    inserts) and the repeated prompt's tokens equal to its first serve's, and
+    exact launch counts from the engine's own calls: K12d once an attention
+    layer a prefill call, K11a once a decode call, with ``weights_q`` K1 four
+    times an attention layer and twice a GDN layer a model call, K5 twice a
+    layer; nothing else.  Returns the engine, the prompts and the counts."""
+    cfg = CFG_QWEN
+    adapter = qwen3_hybrid_adapter(cfg, params, weights_q=weights_q)
+    timer = StepTimer(adapter)
+    eng = Engine(adapter, QWEN_NUM_PAGES, max_batch=QWEN_BATCH,
+                 max_pages_per_req=QWEN_PAGES_PER_REQ, prefill_chunk=QWEN_CHUNK)
+    attn = next(c for li, c in enumerate(eng.caches) if cfg.is_attn(li))
+    gdn = eng.caches[0]
+    if (attn["k"].dtype != torch.bfloat16 or gdn["ssm"].dtype != torch.float32
+            or tuple(gdn["ssm"].shape) != (QWEN_BATCH + 1, cfg.num_v_heads, cfg.head_k_dim,
+                                           cfg.head_v_dim)):
+        raise AssertionError(f"caches: K {attn['k'].dtype}, ssm {gdn['ssm'].dtype} "
+                             f"{tuple(gdn['ssm'].shape)}")
+    ps = qwen_prompts()
+    counters.reset()
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, QWEN_NEW_TOKENS) for p in ps]
+    slot_of = {}
+    while eng.waiting or eng.running:
+        eng.step()
+        slot_of.update({r.rid: r.state_slot for r in eng.running})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    outs = [eng.finished[r] for r in rids]
+    if not all(len(o) == QWEN_NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o)
+               for o in outs):
+        raise AssertionError(f"unfinished or invalid outputs: {[len(o) for o in outs]}")
+    if eng.cm.free_pages != QWEN_NUM_PAGES or eng.cm.cached_pages:
+        raise AssertionError(f"pages: {eng.cm.free_pages} free, {eng.cm.cached_pages} cached of "
+                             f"{QWEN_NUM_PAGES}")
+    if sorted(eng._free_state_slots) != list(range(QWEN_BATCH)) or \
+            len(set(slot_of.values())) > QWEN_BATCH or len(slot_of) != len(ps):
+        raise AssertionError(f"state slots: {slot_of}, free {eng._free_state_slots}")
+    if eng.stats["cached_tokens"] or outs[-1] != outs[0]:
+        raise AssertionError(f"the repeated prompt: {eng.stats['cached_tokens']} cached tokens "
+                             f"(want 0), tokens {outs[-1]} vs its first serve's {outs[0]}")
+    n_pre, n_dec = timer.calls["prefill"], timer.calls["decode"]
+    n_attn, n_gdn = qwen_layers()
+    want = {k: 0 for k in launches}
+    want.update({"attention_sinks_prefill_pallas": n_attn * n_pre, "decode_gqa": n_attn * n_dec})
+    if weights_q is not None:
+        calls = n_pre + n_dec
+        want.update({"quant_matmul": (4 * n_attn + 2 * n_gdn) * calls,
+                     "quant_per_token": 2 * (n_attn + n_gdn) * calls})
+    if launches != want:
+        raise AssertionError(f"launches {launches} over {n_pre} prefill and {n_dec} decode "
+                             f"calls; want {want}")
+    log_serve(eng, rids, ps, wall, timer,
+              f"bf16 cache and state pools{', W8A8' if weights_q is not None else ''}; {card}")
+    log(f"  state slots by request {[slot_of[r] for r in rids]} (6 requests on "
+        f"{QWEN_BATCH} slots); the repeated prompt: 0 cached tokens, its tokens equal its "
+        f"first serve's {outs[0][:6]}...")
+    log(f"  launches on the main path: "
+        f"{json.dumps({k: v for k, v in launches.items() if v})} (every other kernel 0)")
+    return eng, ps, launches
+
+
+def zero_state(eng, si):
+    """Set the state slots ``si`` of ``eng``'s pools to a zero state."""
+    snap = qn.hybrid_state_snapshot(CFG_QWEN, eng.caches, si)
+    qn.hybrid_state_restore(CFG_QWEN, eng.caches,
+                            [tuple(torch.zeros_like(t) for t in pair) for pair in snap], si)
+
+
+def qwen_sequence(eng, tokens):
+    """Pages for ``tokens`` (from ``eng``'s pool) → (ids, block table [1,
+    QWEN_PAGES_PER_REQ], slot of each position, the pages)."""
+    page = CFG_QWEN.page_size
+    pages = eng.cm.alloc(-(-len(tokens) // page))
+    bt = torch.zeros((1, QWEN_PAGES_PER_REQ), dtype=torch.int32, device=DEV)
+    bt[0, : len(pages)] = torch.tensor([int(p) for p in pages], dtype=torch.int32)
+    pos = torch.arange(len(tokens), device=DEV)
+    slots = (bt[0, pos // page] * page + pos % page).to(torch.int32)
+    return torch.tensor(tokens, dtype=torch.int32, device=DEV), bt, slots, pages
+
+
+def qwen_base_kernels():
+    """The hybrid's plain path with K11a and K12d in place of their plain
+    versions: only K1 and K5 stay plain."""
+    return swapped(qn, {"decode_gqa_plain": qn.decode_gqa,
+                        "attention_sinks_prefill_plain": qn.attention_sinks_prefill_pallas})
+
+
+def qwen_step_checks(eng, params, ps, label, weights_q=None):
+    """A decode step on a live batch of [4o]'s first four prompts and a
+    512-row prefill chunk at context 1024 (on the pools' spare state slot,
+    its first chunk run once), through the kernels and through
+    ``plain=True``, the routing replayed; each run starts from the same
+    recurrent state (restored from a snapshot: a GDN step is not idempotent
+    as a K / V write is).  Float: :func:`routing_rule`; W8A8:
+    :func:`w8a8_verdict` against the path with only K1 and K5 plain.  The
+    kernel run must launch K11a / K12d once (the attention layer) and, with
+    ``weights_q``, K1 and K5 their counts.  Returns the kernel-path decode
+    (logits) and chunk for the profile."""
+    cfg = CFG_QWEN
+    kw = dict(weights_q=weights_q)
+    batch, n = live_batch(eng, ps[:QWEN_BATCH])
+    live = batch.state_idx[:n].long()
+    snap = qn.hybrid_state_snapshot(cfg, eng.caches, live)
+
+    def decode(plain):
+        qn.hybrid_state_restore(cfg, eng.caches, snap, live)
+        h, _ = qn.hybrid_decode_step(cfg, params, qn.hybrid_embed(params, batch.ids), batch.pos,
+                                     eng.caches, batch.block_table, batch.ctx, batch.slots,
+                                     batch.state_idx, plain=plain, **kw)
+        return qn.hybrid_lm_head(params, h)
+
+    ids, bt, slots, pages = qwen_sequence(eng, ps[2][: 2 * QWEN_CHUNK])
+    si = torch.tensor([QWEN_BATCH], dtype=torch.int32, device=DEV)   # the spare slot
+    sl = torch.tensor([QWEN_CHUNK], dtype=torch.int32, device=DEV)
+
+    def chunk(c, plain):
+        rows = slice(c * QWEN_CHUNK, (c + 1) * QWEN_CHUNK)
+        ctx = torch.tensor([(c + 1) * QWEN_CHUNK], dtype=torch.int32, device=DEV)
+        if c:
+            qn.hybrid_state_restore(cfg, eng.caches, snap_c, si)
+        h, _ = qn.hybrid_prefill_step(cfg, params, qn.hybrid_embed(params, ids[rows]), sl,
+                                      eng.caches, bt, ctx, slots[rows], si, max_q=QWEN_CHUNK,
+                                      plain=plain, **kw)
+        return h
+
+    zero_state(eng, si)
+    chunk(0, False)                          # the chunk's context and state, written once
+    snap_c = qn.hybrid_state_snapshot(cfg, eng.caches, si)
+    n_attn, n_gdn = qwen_layers()
+    w8 = weights_q is not None
+    for label_, run, rows, logits, attn in (
+            (f"{label} decode step (logits)", decode, n, True, "decode_gqa"),
+            (f"{label} prefill chunk of {QWEN_CHUNK} rows at context {2 * QWEN_CHUNK} (hidden)",
+             lambda plain: chunk(1, plain), QWEN_CHUNK, False, "attention_sinks_prefill_pallas")):
+        counters.reset()
+        if w8:
+            got, rec_k = with_routes(lambda: run(False)[:rows].float(), model=qn)
+            launches = counters.read()
+            _, rec_p = with_routes(lambda: run(True)[:rows].float(), model=qn)
+            want, _ = with_routes(lambda: run(True)[:rows].float(), rec_k, model=qn)
+            with qwen_base_kernels():
+                want_base, _ = with_routes(lambda: run(True)[:rows].float(), rec_k, model=qn)
+            same = same_routing(rec_k, rec_p, rows)
+            ok = w8a8_verdict(label_, got, want, want_base, rows, logits, "K1 and K5",
+                              f"routing agrees in every layer on {int(same.sum())}/{rows} rows "
+                              f"on its own, replayed for the comparisons; ")
+        else:
+            ok = compare_runs(label_, lambda: run(False), lambda: run(True), rows,
+                              logits=logits, forced=True, model=qn)
+            launches = counters.read()
+        want = {attn: n_attn, "quant_matmul": (4 * n_attn + 2 * n_gdn) if w8 else 0,
+                "quant_per_token": 2 * (n_attn + n_gdn) if w8 else 0}
+        if not ok or any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"{label_}: the kernels disagree with the plain path (rule held "
+                                 f"{ok}) or launched {launches}, want {want}")
+    eng.cm.free(pages)
+    return (lambda: decode(False)), (lambda: chunk(1, False))
+
+
+def qwen_state_resume(eng, params, ps, k=4, head_rows=16):
+    """The state on the card (JAX's ``test_hybrid_chunked_prefill_resumes_state``
+    property): [4o]'s 700-token prompt prefilled in 512-row chunks (the
+    engine's padded width) and then k tokens decoded one at a time give, for
+    the second chunk's first ``head_rows`` rows (which resume the first
+    chunk's state) and for each decoded row (which resume the prefill's),
+    the logits of one prefill over the whole sequence at that row, within
+    :func:`routing_rule`'s tolerance: each router call of the chunked run
+    takes the one prefill's routing for its rows.  Both runs
+    start from a zero state on the pools' spare slot and end on the same
+    sequence: every GDN layer's conv and ssm state of the two within 5e-2 of
+    the state's largest |value| (bf16 activations upstream; a chunk that
+    started from a stale state moves it by the order of the values)."""
+    cfg = CFG_QWEN
+    prompt = ps[3]
+    n_p = len(prompt)
+    tokens = prompt + ps[0][:k]
+    total = len(tokens)
+    ids, bt, slots, pages = qwen_sequence(eng, tokens)
+    si = torch.tensor([QWEN_BATCH], dtype=torch.int32, device=DEV)
+    i32 = lambda v: torch.tensor([v], dtype=torch.int32, device=DEV)  # noqa: E731
+
+    head_rows = min(head_rows, n_p - QWEN_CHUNK)
+    resumed = torch.cat([torch.arange(QWEN_CHUNK, QWEN_CHUNK + head_rows, device=DEV),
+                         torch.arange(n_p, total, device=DEV)])
+
+    def whole():
+        h, _ = qn.hybrid_prefill_step(cfg, params, qn.hybrid_embed(params, ids), i32(total),
+                                      eng.caches, bt, i32(total), slots, si, max_q=total)
+        return qn.hybrid_lm_head(params, h[resumed]).float()
+
+    def chunked():
+        out = []
+        for c0 in range(0, n_p, QWEN_CHUNK):
+            n = min(QWEN_CHUNK, n_p - c0)
+            x_ids = torch.zeros(QWEN_CHUNK, dtype=torch.int32, device=DEV)
+            x_ids[:n] = ids[c0 : c0 + n]
+            sl_ = torch.full((QWEN_CHUNK,), -1, dtype=torch.int32, device=DEV)
+            sl_[:n] = slots[c0 : c0 + n]
+            h, _ = qn.hybrid_prefill_step(cfg, params, qn.hybrid_embed(params, x_ids), i32(n),
+                                          eng.caches, bt, i32(c0 + n), sl_, si,
+                                          max_q=QWEN_CHUNK)
+            if c0 == QWEN_CHUNK:
+                out.append(qn.hybrid_lm_head(params, h[:head_rows]).float())
+        for j in range(k):
+            p = n_p + j
+            h, _ = qn.hybrid_decode_step(cfg, params, qn.hybrid_embed(params, ids[p : p + 1]),
+                                         i32(p), eng.caches, bt, i32(p + 1), slots[p : p + 1],
+                                         si)
+            out.append(qn.hybrid_lm_head(params, h).float())
+        return torch.cat(out)
+
+    zero_state(eng, si)
+    want, rec = with_routes(whole, model=qn)
+    state_whole = qn.hybrid_state_snapshot(cfg, eng.caches, si)
+    forced = Record()
+    for c0 in range(0, n_p, QWEN_CHUNK):
+        rows = (torch.arange(c0, c0 + QWEN_CHUNK, device=DEV)).clamp(max=n_p - 1)
+        forced.extend((ids_[rows], w_[rows]) for ids_, w_ in rec)
+    for j in range(k):
+        forced.extend((ids_[n_p + j : n_p + j + 1], w_[n_p + j : n_p + j + 1]) for ids_, w_ in rec)
+    zero_state(eng, si)
+    got, _ = with_routes(chunked, forced, model=qn)
+    state_err = max(max_abs(a, b) / float(b.float().abs().max()) for pa, pb in
+                    zip(qn.hybrid_state_snapshot(cfg, eng.caches, si), state_whole)
+                    for a, b in zip(pa, pb))
+    log(f"  state on the card: the GDN conv / ssm states after the chunked prefill and "
+        f"{k} decode steps vs after one prefill: max rel err {state_err:.3e} (tol 5e-2)")
+    ok = state_err <= 5e-2 and routing_rule(
+        f"state on the card: the second {QWEN_CHUNK}-row chunk's first {head_rows} rows and {k} "
+        f"decode rows after a {n_p}-token prompt", got, want,
+        torch.ones(len(resumed), dtype=torch.bool, device=DEV), True, forced=True,
+        vs=f"one prefill over the {total}-token sequence")
+    eng.cm.free(pages)
+    if not ok:
+        raise AssertionError("the chunked prefill and decode disagree with one prefill")
+
+
+QWEN_REGIONS = (("GDN chunk loop (chunk_gated_delta_rule)", "chunk_gated_delta_rule"),
+                ("GDN recurrent update", "fused_sigmoid_gating_delta_rule_update"),
+                ("conv (causal_conv1d_fn / _update)", "causal_conv1d_fn"),
+                ("conv (causal_conv1d_fn / _update)", "causal_conv1d_update"),
+                ("dense MoE + shared expert (_hybrid_mlp)", "_hybrid_mlp"))
+# the attention kernels by name: the profiler links a kernel launched through
+# the port's library to no PyTorch op, so a range around its wrapper holds none
+QWEN_KERNEL_NAMES = (("K11a decode_gqa", "decode_kernel"),
+                     ("K12d attention_sinks_prefill_pallas", "prefill_kernel"))
+
+
+def region_profile(fn):
+    """Run ``fn`` once under ``torch.profiler`` with each of ``QWEN_REGIONS``'
+    functions of ``models.qwen3_next`` wrapped in a ``record_function`` range
+    → ``({region: [device ms, kernels]}, busy ms, kernels, wall ms)``: a
+    range's device time and kernel count are those of the kernels its
+    PyTorch ops launched; K11a / K12d are their kernels by name; busy sums
+    every device activity but the ranges' own device-side spans."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    saved = {}
+    for label, name in QWEN_REGIONS:
+        f = getattr(qn, name)
+        saved[name] = f
+
+        def wrapped(*a, _f=f, _label=label, **k):
+            with record_function(_label):
+                return _f(*a, **k)
+        setattr(qn, name, wrapped)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, f in saved.items():
+            setattr(qn, name, f)
+
+    def kernels(e):
+        return len(e.kernels) + sum(kernels(c) for c in e.cpu_children)
+
+    regions = {label: [0.0, 0] for label, _ in QWEN_REGIONS + QWEN_KERNEL_NAMES}
+    busy, n_device = 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.is_user_annotation or e.name in regions:
+                continue                          # a range's span on the device
+            ms = e.device_time_total / 1e3
+            busy += ms
+            n_device += 1
+            for label, key in QWEN_KERNEL_NAMES:
+                if "sinks" in e.name and key in e.name:
+                    regions[label][0] += ms
+                    regions[label][1] += 1
+        elif e.name in regions:
+            regions[e.name][0] += e.device_time_total / 1e3
+            regions[e.name][1] += kernels(e)
+    return regions, busy, n_device, wall
+
+
+def qwen_profiles(decode_fn, prefill_fn):
+    """The device time of a decode step and of a 512-row prefill call by
+    region (the GDN chunk loop, the recurrent update, the conv, the dense
+    MoE, K11a / K12d), the busy share and the chunk loop's launches."""
+    for what, fn in (("decode step (logits)", decode_fn),
+                     (f"{QWEN_CHUNK}-row prefill call at context {2 * QWEN_CHUNK}", prefill_fn)):
+        regions, busy, n_device, wall = region_profile(fn)
+        log(f"  Qwen3-Next {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+            f"({100 * busy / wall:.1f} %) in {n_device} device activities")
+        if busy == 0:
+            log("    the profiler recorded no device time on this machine")
+        for label, (ms, n) in regions.items():
+            log(f"    {ms:9.3f} ms  {n:5d} kernels  {label}")
+
+
+def qwen_phase(card: str):
+    """Phase [4o] (see the module docstring).  Returns the K11a / K12d rows'
+    results and their launches on [4o]'s float serve."""
+    log(f"[4o] Qwen3-Next-80B-A3B widths, {CFG_QWEN.num_layers} of {QWEN_FULL_LAYERS} layers "
+        f"(3 GDN + 1 attention), seed {SEED}: Engine(prefill_chunk={QWEN_CHUNK}, "
+        f"max_batch={QWEN_BATCH}) + qwen3_hybrid_adapter; {card}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = qn.init_hybrid_weights(CFG_QWEN, SEED, torch.bfloat16, untied_lm_head=True)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for lw in params["layers"] for t in lw.values()
+                   if isinstance(t, torch.Tensor)) + params["wte"].numel() + params["w_lm"].numel()
+    log(f"  weights made in {time.perf_counter() - t0:.1f} s: {n_params / 1e9:.2f} B parameters; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    k11, k12 = check_qwen_kernels(torch.Generator(device=DEV).manual_seed(SEED + 12))
+    eng, ps, launches = qwen_serve(params, card)
+    decode_fn, prefill_fn = qwen_step_checks(eng, params, ps, "Qwen3-Next")
+    qwen_state_resume(eng, params, ps)
+    log("  W8A8 (weights_q: attention q / k / v / o, GDN qkvz / out; the MoE stays float)")
+    weights_q = qn.quantize_hybrid_weights(CFG_QWEN, params)
+    eng_q, _, _ = qwen_serve(params, card, weights_q)
+    qwen_step_checks(eng_q, params, ps, "Qwen3-Next W8A8 (weights_q)", weights_q)
+    del eng_q
+    log("  device time by region (torch.profiler)")
+    qwen_profiles(decode_fn, prefill_fn)
+    log(f"  peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB allocated on the card in "
+        f"[4o]")
+    return (k11, k12), {k: launches[k] for k in QWEN_KERNELS}
+
+
 def serving_phases(card: str):
     """Phases [2] to [5]: the serving paths, their kernels and their
     profiles.  Returns the kernel rows (name, source, replaced TPU kernel,
@@ -5062,8 +5492,17 @@ def main() -> None:
     rows, path_launches = serving_phases(card)
     gc.collect()
     torch.cuda.empty_cache()
+    (k11_256, k12_256), launches_o = qwen_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
     (k14a, k14b, k14c), launches_t, (k8f_train, k8dx), launches_j = training_phase()
     src, tpu = "sgl_kernel_npu_tpu_torch/csrc/", "sgl_kernel_npu_tpu/ops/"
+    # K11a / K12d at head_dim 256, their launches on [4o]'s float serve
+    rows += [("k11a_d256", "sinks_attention.cu", "attention/decode_attention.py:696 and :539",
+              k11_256),
+             ("k12d_d256", "sinks_attention.cu", "attention/sinks_attention.py:721", k12_256)]
+    path_launches["k11a_d256"] = launches_o["decode_gqa"]
+    path_launches["k12d_d256"] = launches_o["attention_sinks_prefill_pallas"]
     rows += [("mla_flash_fwd", "mla_train.cu", "attention/mla_train.py:222", k14a),
              ("mla_flash_bwd_dq", "mla_train.cu", "attention/mla_train.py:277", k14b),
              ("mla_flash_bwd_dk", "mla_train.cu", "attention/mla_train.py:294", k14c),

@@ -59,12 +59,14 @@
 // the split from shapes alone (no host sync), so that a decode step's live
 // blocks cover the SMs, and a block whose split lies past its row's keys
 // exits at once.  A block streams its split in chunks of 64 keys through a
-// cp.async ring of 3 or 4 chunks in shared memory (int8 stays int8 there).  Its 4
+// cp.async ring of 2 to 4 chunks in shared memory (int8 stays int8 there; each
+// (D, row tiles) instance takes as many as fit, asserted at compile time).  Its 4
 // warps share each chunk: the group's q heads are the rows of mma.sync
 // m16n8k16 tiles (bf16 in, f32 accumulate; G < 16 pads the tile, a group
 // above 16 takes 2 or 4 tiles, every key read once), Q held as A fragments
-// for the whole walk, and each warp takes a slice of the chunk's keys with
-// an online softmax of its own; P is rounded to bf16 for P V, the
+// for the whole walk (at D = 256 read from shared memory at each product:
+// O alone takes 128 registers a thread there), and each warp takes a slice
+// of the chunk's keys with an online softmax of its own; P is rounded to bf16 for P V, the
 // denominator takes the f32 P.  The warps' (m, l, o) combine in shared
 // memory.  A row of one split writes its output; otherwise each split
 // writes its (m, l, o) to scratch and the last to arrive, found by an atomic
@@ -103,7 +105,9 @@
 // P rounded to bf16 into the A registers of O += P V (m64nDk16 with A from
 // registers, V MN-major; P through shared memory measured slower) while the
 // denominator sums the unrounded P; the next chunk's S is issued before this
-// chunk's P V, so the two products overlap; then the stage is released.  The
+// chunk's P V, so the two products overlap (not at D = 256, bf16 only: O
+// [64, 256] is 128 f32 registers a thread, one block an SM, and S waits for
+// its own chunk); then the stage is released.  The
 // keys walked run from the block's first row's window start to its last
 // live row's causal end (the TPU kernel's page range, at key granularity;
 // chunks aligned to 64 keys); V rows past the end are zero.  The output is
@@ -151,6 +155,9 @@ constexpr int KT = 64;               // keys a staged chunk
 constexpr int HEADS = 64;            // q heads a block at most: 4 row tiles of 16
 constexpr int MAX_SPLITS = 32;       // splits of a row at most: the merge takes one a lane
 constexpr int SMEM_2 = 113 * 1024;   // shared memory a block when two share an SM
+// a block's dynamic shared memory at most: the H100's 227 KB less room for
+// the static `last`
+constexpr int SMEM_MAX = 227 * 1024 - 64;
 
 // Shared memory of a block, in bytes: the block's q rows as bf16 [16 RT][D +
 // 8], then the ring of STAGES (K, V) chunks, [KT][ROW] each in the cache's
@@ -165,13 +172,17 @@ struct Smem {
   static constexpr int OLD = D + 4;                         // f32 a row of a warp's o
   static constexpr int Q = 16 * RT * QLD * 2;
   // chunks in the ring: 4 (a 256-key split in flight at once) where two
-  // blocks still fit an SM, else 3 (bf16 at D = 128)
-  static constexpr int STAGES = Q + 4 * 2 * CHUNK <= SMEM_2 ? 4 : 3;
+  // blocks still fit an SM, else 3 (bf16 at D = 128; D = 256 up to 32 heads
+  // a block), else 2 (D = 256 at 64 heads: 3 would take 236,544 B)
+  static constexpr int STAGES = Q + 4 * 2 * CHUNK <= SMEM_2     ? 4
+                                : Q + 3 * 2 * CHUNK <= SMEM_MAX ? 3
+                                                                : 2;
   static constexpr int RING = STAGES * 2 * CHUNK;
   static constexpr int COMBINE = WARPS * 16 * (2 + OLD) * 4;
   static constexpr int MERGE = 16 * RT * (MAX_SPLITS + 2) * 4;
   static constexpr int TAIL = COMBINE > MERGE ? COMBINE : MERGE;
   static constexpr int BYTES = Q + (RING > TAIL ? RING : TAIL);
+  static_assert(BYTES <= SMEM_MAX, "decode: a block's shared memory past the H100's limit");
 };
 
 template <int N>
@@ -321,12 +332,15 @@ __global__ void __launch_bounds__(THREADS)
   __syncthreads();
   const int rt = warp % RT, sl = warp / RT;       // the warp's row tile and key slice
   const int g = lane >> 2, t4 = lane & 3;         // mma fragment row / column pair
-  uint32_t qa[D / 16][4];                         // its Q tile as A fragments, for the walk
-  {
-    const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
+  // its Q tile as A fragments, held for the walk up to D = 128; at D = 256
+  // they would take 64 more registers a thread beside O's 128, so each S
+  // product reads them from shared memory
+  constexpr bool QREG = D <= 128;
+  const bf16* qrow = qs + (16 * rt + (lane & 7) + 8 * ((lane >> 3) & 1)) * L::QLD + 8 * (lane >> 4);
+  uint32_t qa[QREG ? D / 16 : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      sgl::ldsm_x4(qa[kk], qs + (16 * rt + a_row) * L::QLD + kk * 16 + a_col);
+    for (int kk = 0; kk < D / 16; ++kk) sgl::ldsm_x4(qa[kk], qrow + kk * 16);
   }
 
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, o[D / 8][4];
@@ -353,11 +367,16 @@ __global__ void __launch_bounds__(THREADS)
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qf[4];
+      if constexpr (!QREG) sgl::ldsm_x4(qf, qrow + kk * 16);
 #pragma unroll
       for (int nt = 0; nt < KW / 8; ++nt) {
         uint32_t b[2];
         k_frag<T, L::ROW>(b, kst, kw0 + nt * 8, kk, lane);
-        sgl::mma_16816(kk % 2 ? sd[nt] : sc[nt], qa[kk], b);
+        if constexpr (QREG)
+          sgl::mma_16816(kk % 2 ? sd[nt] : sc[nt], qa[kk], b);
+        else
+          sgl::mma_16816(kk % 2 ? sd[nt] : sc[nt], qf, b);
       }
     }
 #pragma unroll
@@ -554,6 +573,8 @@ struct Smem {
   static constexpr bool INT8 = std::is_same_v<T, int8_t>;
   static constexpr int DP = D < 64 ? 64 : D;               // tile width: D = 32 pads with zeros
   static constexpr int NB = DP / 64;
+  // D = 256 (bf16 only): Q's 32 KB and three 64 KB stages, one block an SM
+  static constexpr int MIN_BLOCKS = D == 256 ? 1 : 2;
   static constexpr int STAGES = INT8 && D == 128 ? 2 : 3;
   static constexpr int STAGES8 = INT8 ? (D == 128 ? 2 : 4) : 0;
   static constexpr int WIDENERS = INT8 ? 128 : 0;          // warpgroup 1 widens levels
@@ -566,6 +587,8 @@ struct Smem {
   static constexpr uint32_t KV8 = KC * D;                  // a chunk's K levels, then its V
   static constexpr uint32_t BARS = LEVELS + STAGES8 * 2 * KV8;
   static constexpr uint32_t BYTES = BARS + 2 * STAGES * 8;
+  static_assert(BYTES <= 227 * 1024, "prefill: a block's shared memory past the H100's limit");
+  static_assert(!(INT8 && D == 256), "prefill: no int8 instance at D = 256");
 };
 
 __device__ __forceinline__ int warp_sum_int(int v) {
@@ -611,7 +634,7 @@ __device__ __forceinline__ uint4 scale8(uint4 v, float s) {
 // bf16 boxes of 64 columns in the 128-byte swizzle, int8 boxes of D packed
 // bytes); otherwise 16-byte cp.async into the same layouts.
 template <int D, typename T, bool TMA>
-__global__ void __launch_bounds__(Smem<D, T>::THREADS, 2)
+__global__ void __launch_bounds__(Smem<D, T>::THREADS, Smem<D, T>::MIN_BLOCKS)
     prefill_kernel(const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ q,
                    const T* __restrict__ kc, const T* __restrict__ vc,
@@ -867,15 +890,27 @@ __global__ void __launch_bounds__(Smem<D, T>::THREADS, 2)
     wg::commit();
   };
 
-  float s[32], s_next[32];
-  if (n_chunks > 0) {
-    ready(0);
-    scores(s, 0);
-    wg::wait_all();
-    wg::fence_operands(s);
+  // up to D = 128 the next chunk's S is issued before this chunk's P V; at
+  // D = 256 O takes 128 registers a thread and S is issued in its own step
+  // (a second S would spill)
+  constexpr bool OVERLAP = D <= 128;
+  float s[32], s_next[OVERLAP ? 32 : 1];
+  if constexpr (OVERLAP) {
+    if (n_chunks > 0) {
+      ready(0);
+      scores(s, 0);
+      wg::wait_all();
+      wg::fence_operands(s);
+    }
   }
   for (int it = 0; it < n_chunks; ++it) {
     const int c0 = c_begin + it * KC;
+    if constexpr (!OVERLAP) {
+      ready(it);
+      scores(s, it);
+      wg::wait_all();
+      wg::fence_operands(s);
+    }
     // causal and window masks (none on a chunk every row sees whole), the
     // online softmax in log2 units (scale log2 e folded into one FMA; a row's
     // 4 lanes reduce by shuffles); P rounded to bf16 as the A fragments of
@@ -924,9 +959,11 @@ __global__ void __launch_bounds__(Smem<D, T>::THREADS, 2)
 
     // the next chunk's S, issued before this chunk's P V so that the two
     // products overlap
-    if (it + 1 < n_chunks) {
-      ready(it + 1);
-      scores(s_next, it + 1);
+    if constexpr (OVERLAP) {
+      if (it + 1 < n_chunks) {
+        ready(it + 1);
+        scores(s_next, it + 1);
+      }
     }
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
@@ -940,17 +977,21 @@ __global__ void __launch_bounds__(Smem<D, T>::THREADS, 2)
       const uint64_t vd = wg::desc_sw128(vs + 16 * kk * 128, TILE, 1024);
       if constexpr (DP == 64)
         wg::mma_rs_m64n64k16<1>(o, pa[kk], vd);
-      else
+      else if constexpr (DP == 128)
         wg::mma_rs_m64n128k16<1>(o, pa[kk], vd);
+      else
+        wg::mma_rs_m64n256k16<1>(o, pa[kk], vd);
     }
     wg::commit();
     wg::wait_all();
     wg::fence_operands(o);
-    wg::fence_operands(s_next);
+    if constexpr (OVERLAP) wg::fence_operands(s_next);
     __syncwarp();
     if (lane == 0) wg::mbar_arrive(&empty[it % STAGES]);
+    if constexpr (OVERLAP) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = s_next[i];
+      for (int i = 0; i < 32; ++i) s[i] = s_next[i];
+    }
   }
 
   // live rows out: the sink joins the denominator; an int8 cache's v_scale
@@ -1008,6 +1049,9 @@ int by_width_and_type(int head_dim, int kv_int8, F&& f) {
     case 128:
       return kv_int8 ? f(std::integral_constant<int, 128>{}, Type<int8_t>{})
                      : f(std::integral_constant<int, 128>{}, Type<bf16>{});
+    case 256:   // bf16 caches only (Qwen3-Next's attention layers)
+      return kv_int8 ? (int)cudaErrorInvalidValue
+                     : f(std::integral_constant<int, 256>{}, Type<bf16>{});
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1021,7 +1065,7 @@ int by_width_and_type(int head_dim, int kv_int8, F&& f) {
 // logit); an int8 cache's k_scale / v_scale as f32 pointers indexed kv head x
 // step (step 0: one scale), or null and the value given; int32 bt [tokens,
 // max_pages], ctx [tokens] -> bf16 out [tokens, Hkv * group * D].  D 32, 64 or
-// 128; any group.  Each row's keys in splits of `split` from its window start,
+// 128, or 256 with bf16 caches; any group.  Each row's keys in splits of `split` from its window start,
 // n_splits of them at most (<= dec::MAX_SPLITS); with n_splits > 1, part_o
 // [tokens * Hq * n_splits * D] and part_ml [tokens * Hq * n_splits] f32
 // scratch and tickets [tokens * Hkv * ceil(group / 64)] int32, zero at the
@@ -1052,7 +1096,9 @@ extern "C" int sinks_decode_launch(const void* q, const void* kc, const void* vc
       constexpr int RT = decltype(row_tiles)::value;
       constexpr int smem = sinks::dec::Smem<D, T, RT>::BYTES;
       auto kernel = sinks::dec::decode_kernel<D, T, RT>;
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      const cudaError_t attr =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (attr != cudaSuccess) return (int)attr;
       kernel<<<grid, sinks::dec::THREADS, smem, s>>>(
           (const __nv_bfloat16*)q, (const T*)kc, (const T*)vc, sinks, sinks_bf16,
           (const float*)k_scale, k_scale_val, k_scale_step, (const float*)v_scale, v_scale_val,
@@ -1072,7 +1118,8 @@ extern "C" int sinks_decode_launch(const void* q, const void* kc, const void* vc
 // of them, starting 16-byte aligned; sinks [Hkv * group] f32 or bf16
 // (sinks_bf16) or null; an int8 cache's scales as sinks_decode_launch's;
 // int32 bt [B, max_pages], seq_lens, ctx [B] -> bf16 out [S = rows, Hkv *
-// group * D], the rows past the requests zero.  D 32, 64 or 128, any group;
+// group * D], the rows past the requests zero.  D 32, 64 or 128, or 256 with
+// bf16 caches (one block an SM: Q and three stages take 229,424 B), any group;
 // max_q bounds every seq_len.  Pages of 8, 16, 32, 64 or a multiple of 64
 // keys go by TMA (but bf16 at D = 32: its 64-byte rows), others by cp.async.
 extern "C" int sinks_prefill_launch(const void* q, const void* kc, const void* vc,
@@ -1118,7 +1165,9 @@ extern "C" int sinks_prefill_launch(const void* q, const void* kc, const void* v
       constexpr bool TMA = decltype(use_tma)::value;
       constexpr int smem = (int)sinks::pre::Smem<D, T>::BYTES;
       auto kernel = sinks::pre::prefill_kernel<D, T, TMA>;
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      const cudaError_t attr =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (attr != cudaSuccess) return (int)attr;
       cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
       kernel<<<grid, sinks::pre::Smem<D, T>::THREADS, smem, s>>>(
           kmap, vmap, (const __nv_bfloat16*)q, (const T*)kc, (const T*)vc, sinks, sinks_bf16,

@@ -39,7 +39,8 @@ from sgl_kernel_npu_tpu_torch.utils.counters import counted
 
 NEG_INF = -1e30
 D_NOPE, D_ROPE = 512, 64   # widths the CUDA kernels are built for
-KERNEL_HEAD_DIMS = (32, 64, 128)   # head widths of the GQA / sinks kernels
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)   # head widths of the GQA / sinks kernels
+INT8_HEAD_DIMS = (32, 64, 128)          # of those, the widths built for int8 caches
 # The decode kernel's splits (csrc/sinks_attention.cu): keys a split at least;
 # splits a row at most (16: a long table's blocks then fit on the card at
 # once; the kernel takes up to 32, one a lane of its merge); keys a staged
@@ -277,7 +278,9 @@ def check_paged_operands(query, k_cache, v_cache, q_head_num: int, k_head_num: i
                          heads_per_row: int, max_group: int | None = None) -> tuple[int, int]:
     """What the CUDA kernels of ``csrc/sinks_attention.cu`` take → ``(head_dim,
     group)``: a bf16 query, bf16 or int8 caches alike in the layout of
-    ``heads_per_row``, Dk = Dv in ``KERNEL_HEAD_DIMS``, contiguous caches."""
+    ``heads_per_row``, Dk = Dv in ``KERNEL_HEAD_DIMS`` (int8 caches in
+    ``INT8_HEAD_DIMS``: no int8 instance is built at 256), contiguous
+    caches."""
     d = query.shape[-1] // q_head_num
     group = q_head_num // k_head_num
     if query.dtype != torch.bfloat16 or k_cache.dtype != v_cache.dtype \
@@ -294,6 +297,9 @@ def check_paged_operands(query, k_cache, v_cache, q_head_num: int, k_head_num: i
                          + ("" if max_group is None else f", at most {max_group} q heads a kv head")
                          + f"; got query {tuple(query.shape)} with {q_head_num} heads, caches "
                          f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    if k_cache.dtype == torch.int8 and d not in INT8_HEAD_DIMS:
+        raise ValueError(f"the attention kernels take int8 caches at head_dim {INT8_HEAD_DIMS}, "
+                         f"got {d}")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("paged caches must be contiguous")
     return d, group
@@ -545,7 +551,8 @@ def decode_gqa(q, k_buffer, v_buffer, kv_seq_lens, sm_scale, block_table, *, k_s
     keys each row sees.  Int8 caches hold ``round(x / scale)`` levels,
     ``k_scale`` / ``v_scale`` scalar or ``[Hkv]``.  CUDA tensors launch
     ``csrc/sinks_attention.cu``'s decode kernel without a sink (bf16 or int8
-    caches, D in ``KERNEL_HEAD_DIMS``, Dk = Dv; anything else raises); CPU
+    caches, D in ``KERNEL_HEAD_DIMS``, int8 in ``INT8_HEAD_DIMS``, Dk = Dv;
+    anything else raises); CPU
     tensors take :func:`decode_gqa_plain`.  Pad rows (ctx 1, block table of
     zeros) are safe."""
     if not on_cuda(q, k_buffer, v_buffer, kv_seq_lens, block_table):

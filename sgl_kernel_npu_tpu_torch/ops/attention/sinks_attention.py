@@ -347,7 +347,8 @@ def attention_sinks_prefill_pallas(query, k_cache, v_cache, sinks, seq_lens, blo
     layout): query ``[S, Hq * D]`` packed by request → ``[S, Hq * D]``, rows
     past the requests 0.  ``max_q`` bounds every request's new-token count
     (defaults to ``S``).  CUDA tensors launch ``csrc/sinks_attention.cu``
-    (bf16 or int8 caches, D in ``KERNEL_HEAD_DIMS``, at most 128 q heads a
+    (bf16 or int8 caches, D in ``KERNEL_HEAD_DIMS``, int8 in
+    ``INT8_HEAD_DIMS``, at most 128 q heads a
     kv head, caches 16-byte aligned): one launch, which reads the packed
     rows directly, folds an int8 cache's scales into q and the output itself
     (a Python scalar by value), reads the sinks as stored (f32 or bf16) and

@@ -1302,7 +1302,8 @@ def test_attention_sinks_prefill_repeats_bit_identical(dev, kind, with_sinks):
 
 def test_attention_kernels_reject_what_they_do_not_take(dev):
     """What the kernels do not take raises ValueError on the card, nothing
-    falls back: Dk ≠ Dv, head_dim 256, an f32 cache, K and V of two types."""
+    falls back: Dk ≠ Dv, an f32 cache, K and V of two types, and an int8
+    cache at head_dim 256 (bf16 caches at 256 are taken)."""
     from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa
 
     bt = torch.zeros((1, 2), dtype=torch.int32, device=dev)
@@ -1312,12 +1313,17 @@ def test_attention_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="Dk = Dv"):
         da.decode_gqa(q, k, k[..., :128].contiguous(), ctx, 0.1, bt)
     q256 = torch.zeros((1, 8 * 256), dtype=torch.bfloat16, device=dev)
-    k256 = torch.zeros((2, 2, 16, 256), dtype=torch.bfloat16, device=dev)
+    k256 = torch.zeros((2, 2, 16, 256), dtype=torch.int8, device=dev)
     sinks = torch.zeros(8, device=dev)
-    with pytest.raises(ValueError, match="head_dim"):
-        sa.attention_sinks(q256, k256, k256, sinks, bt, ctx, 0.1, 0, 8, 2)
-    with pytest.raises(ValueError, match="head_dim"):
-        sa.attention_sinks_prefill_pallas(q256, k256, k256, None, ctx, bt, ctx, 0.1, 0, 8, 2)
+    with pytest.raises(ValueError, match="int8 caches at head_dim"):
+        sa.attention_sinks(q256, k256, k256, sinks, bt, ctx, 0.1, 0, 8, 2, k_scale=0.1,
+                           v_scale=0.1)
+    with pytest.raises(ValueError, match="int8 caches at head_dim"):
+        da.decode_gqa(q256.reshape(1, 8, 256), k256, k256, ctx, 0.1, bt, k_scale=0.1,
+                      v_scale=0.1)
+    with pytest.raises(ValueError, match="int8 caches at head_dim"):
+        sa.attention_sinks_prefill_pallas(q256, k256, k256, None, ctx, bt, ctx, 0.1, 0, 8, 2,
+                                          k_scale=0.1, v_scale=0.1)
     q64 = torch.zeros((1, 8 * 64), dtype=torch.bfloat16, device=dev)
     k64 = torch.zeros((2, 2, 16, 64), device=dev)
     with pytest.raises(ValueError, match="bf16 or int8"):
@@ -1325,6 +1331,9 @@ def test_attention_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="bf16 or int8"):
         sa.attention_sinks(q64, k64.to(torch.int8), k64.to(torch.bfloat16), sinks, bt, ctx, 0.1,
                            0, 8, 2)
+    with pytest.raises(ValueError, match="bf16 or int8"):
+        sa.attention_sinks_prefill_pallas(q256, k256.float(), k256.float(), None, ctx, bt, ctx,
+                                          0.1, 0, 8, 2)
 
 
 def _small_gpt_oss(dev, **fields):
