@@ -286,7 +286,44 @@ Phases (any failure raises and the script exits non-zero without a result):
    serve with W8A8 ``weights_q`` (K1 and K5 counted exactly) and its steps
    held by ``w8a8_verdict``; device time of a decode step and a 512-row
    prefill call by region (GDN chunk loop, recurrent update, conv, dense MoE,
-   K11a / K12d), the busy share and the chunk loop's launches.
+   K11a / K12d), the busy share and the chunk loop's launches.  Then chain
+   speculation (``spec_k=2``) of the float target with a 1-layer
+   Llama-shaped draft at Qwen3-Next's vocabulary on the first four prompts,
+   against the plain greedy run, both serves' launches exact (K12d once an
+   attention layer a target prefill call, verifies and catch-ups included,
+   and once a draft prefill call; K11a once a decode call of either; K6a
+   three times a draft call; nothing else): every emitted token's verify
+   row (a one-request prefill) held to the decode path on the same tokens
+   with the routing forced ([4m]'s ``spec_rule``: router near-ties and head
+   near-ties within 5e-2 of a row's largest); from the same restored state
+   with the routing replayed, every verify held to the same verify on the
+   plain path (``routing_rule``) and the recurrent state after every
+   rolled-back round (restore + catch-up) to the same catch-up on the plain
+   path (2e-2) and to plain decoding of the same tokens (5e-2); rounds,
+   drafts accepted a round and decode tok/s beside plain.  Last,
+   the expert-parallel MoE: the layers' W8A8 experts
+   (``quantize_hybrid_moe_weights``) and the float experts dropped (no dense
+   MoE can run after); K5, K15b, K8a (GMM1 ``dequant_swiglu_quant`` at 512
+   groups, N 1024; GMM2 ``dequant``, K 512) and K16b (``E_local`` 512) held
+   to their plain versions at a decode step's 4 tokens and a 512-row chunk
+   (K16b at 4 tokens also bit-equal to its tiled walk), K15a on the counts
+   ``[1, 512]``, each timed beside its bound; the six prompts served through
+   ``qwen3_hybrid_adapter(weights_q=..., moe_weights_q=..., ep_buffer=Buffer(
+   <one-rank NCCL group>, 512, EPConfig(comm_backend="pallas_ragged")))``
+   with exact launch counts (a MoE call: K15b 3, K15a 1, K5 1, K8a 2, GMM1
+   once), no row dropped, pages and slots back, tok/s beside the dense-MoE
+   W8A8 serve's; a decode step and a 512-row chunk held to ``plain=True``
+   from a restored state, the routing replayed (5e-2 of a row's largest);
+   the decode step bit-identical on the ``"pallas_ragged"``, ``"pallas"``
+   and ``"xla"`` transports and with ``single_kernel=True`` (K16b once a
+   layer) held to its plain version; the region profile with the EP
+   kernels by name (the MoE's device ms, launches, busy share); chain
+   speculation of this W8A8 + EP target as of the float one (its launches
+   with the EP MoE's, every verify and catch-up a MoE call a layer), its
+   verifies and rolled-back states held to the plain path's, and against
+   the decode path (``spec_rule``, plain decoding) only printed: the chunk
+   rule's bf16 roundings move the int8 levels of the next layer's input, so
+   the two recurrences part by more than 5e-2 (PERF.md §6).
 6. Print the kernels' JSON line (40 rows for the 32 TPU kernel sites, K8a's
    modes, K3's float-input mode and K11a / K12d at head_dim 256 in rows of
    their own, each from its own result; and ``launch_floor_ms``, the empty
@@ -1310,9 +1347,13 @@ class Record(list):
 
 
 def router_choice(cfg, lw, x):
-    """DeepSeek-V3's router selection scores ``sigmoid(x W) + bias`` ``[n,
-    E]`` in f32: what ``models/deepseek_v3._router`` ranks (by group, then by
-    expert) before it masks the groups."""
+    """A router's selection scores ``[n, E]`` in f32: DeepSeek-V3's
+    ``sigmoid(x W) + bias``, what ``models/deepseek_v3._router`` ranks (by
+    group, then by expert) before it masks the groups; Qwen3-Next's softmax
+    over all experts (a layer with ``moe_router``), what
+    ``models/qwen3_next._router`` takes the top-k of."""
+    if "moe_router" in lw:
+        return torch.softmax((x @ lw["moe_router"]).float(), dim=-1)
     return torch.sigmoid(x.float() @ lw["router"].float()) + lw["router_bias"].float()[None, :]
 
 
@@ -1402,12 +1443,14 @@ def routing_rule(label, got, want, same, logits: bool, *, forced: bool = False,
 
 
 def compare_runs(label, run_kernel, run_plain, n, *, logits: bool, forced: bool, model=m,
-                 vs: str = "plain versions"):
+                 vs: str = "plain versions", after_kernel=lambda: None):
     """Run one model call through the kernels and through the plain versions
     (each run writes the same KV rows itself before it reads) and hold them
     to :func:`routing_rule`; with ``forced`` the plain versions run a second
-    time on the kernel run's routing.  Returns whether the rule held."""
+    time on the kernel run's routing.  ``after_kernel()`` runs between the
+    kernel run and the plain ones.  Returns whether the rule held."""
     got, rec_k = with_routes(lambda: run_kernel()[:n].float(), model=model)
+    after_kernel()
     want, rec_p = with_routes(lambda: run_plain()[:n].float(), model=model)
     if got.shape != want.shape:
         raise AssertionError(f"{label}: kernel path {tuple(got.shape)} vs plain "
@@ -3388,11 +3431,12 @@ def check_monitored(gen, group, rows, width):
     return res
 
 
-def deep_routing(gen, n_tok):
-    """Random top-8 routing over DeepSeek-V3's 256 experts with sum-one weights."""
-    idx = torch.topk(torch.rand((n_tok, CFG.num_experts), generator=gen, device=DEV),
-                     CFG.topk, dim=-1).indices.to(torch.int32)
-    w = torch.rand((n_tok, CFG.topk), generator=gen, device=DEV)
+def deep_routing(gen, n_tok, n_exp=CFG.num_experts, topk=CFG.topk):
+    """Random top-k routing (DeepSeek-V3's top-8 of 256 by default) with
+    sum-one weights."""
+    idx = torch.topk(torch.rand((n_tok, n_exp), generator=gen, device=DEV),
+                     topk, dim=-1).indices.to(torch.int32)
+    w = torch.rand((n_tok, topk), generator=gen, device=DEV)
     return idx, w / w.sum(-1, keepdim=True)
 
 
@@ -3413,10 +3457,12 @@ def fused_full_walk(buf, x, idx, w, moe, pack_tn=None):
                                                       tn=pack_tn, group=buf.group)
 
 
-def check_fused_full(gen, group, moe, n_tok, timed, walk=False):
-    """K16b on one layer's experts at ``n_tok`` tokens of random top-8
-    routing, against its plain version (counts and drops exact, ``combined``
-    within ``EP_DEEP_TOL`` of a row's largest |value|) and the unfused
+def check_fused_full(gen, group, moe, n_tok, timed, walk=False, topk=CFG.topk,
+                     gmm_moe=True):
+    """K16b on one layer's experts at ``n_tok`` tokens of random top-k
+    routing over all of ``moe``'s experts, against its plain version (counts
+    and drops exact, ``combined`` within ``EP_DEEP_TOL`` of a row's largest
+    |value|) and the unfused
     ``fused_deep_moe`` on the window transport (relative mean difference
     below ``EP_DEEP_REL_MEAN``); a call on other rows (the other window half)
     held to its plain version, then the first rows again (the first call's
@@ -3425,15 +3471,17 @@ def check_fused_full(gen, group, moe, n_tok, timed, walk=False):
     version, the unfused form (all its launches) and ``_gmm_moe`` on the
     same rows; the bound is the touched experts' weights and scales read
     once, the rows read and the output written once, against the GEMMs'
-    int8 operations."""
-    x = randn(gen, (n_tok, CFG.hidden))
-    idx, w = deep_routing(gen, n_tok)
-    buf = Buffer(group, CFG.num_experts, EPConfig(comm_backend="pallas_ragged"))
+    int8 operations.  ``gmm_moe``: also time DeepSeek-V3's single-GPU
+    ``_gmm_moe`` (its config's experts and top-k)."""
+    n_exp, hidden = moe[0].shape[:2]
+    x = randn(gen, (n_tok, hidden))
+    idx, w = deep_routing(gen, n_tok, n_exp, topk)
+    buf = Buffer(group, n_exp, EPConfig(comm_backend="pallas_ragged"))
     got, cnt, drop = buf.fused_deep_moe(x, idx, w, *moe, single_kernel=True)
     want, wcnt, wdrop = buf.fused_deep_moe(x, idx, w, *moe, single_kernel=True, plain=True)
     unf, ucnt, udrop = buf.fused_deep_moe(x, idx, w, *moe)
-    x2 = randn(gen, (n_tok, CFG.hidden))
-    idx2, w2 = deep_routing(gen, n_tok)
+    x2 = randn(gen, (n_tok, hidden))
+    idx2, w2 = deep_routing(gen, n_tok, n_exp, topk)
     other = buf.fused_deep_moe(x2, idx2, w2, *moe, single_kernel=True)[0]
     other_p = buf.fused_deep_moe(x2, idx2, w2, *moe, single_kernel=True, plain=True)[0]
     again = buf.fused_deep_moe(x, idx, w, *moe, single_kernel=True)[0]
@@ -3446,7 +3494,8 @@ def check_fused_full(gen, group, moe, n_tok, timed, walk=False):
     touched = int((cnt > 0).sum())
     exact = torch.equal(cnt, wcnt) and torch.equal(cnt, ucnt)
     same = torch.equal(got, again)
-    log(f"  fused_deep_moe_full_rank {n_tok} tokens x top-8 over {touched} experts: vs plain "
+    log(f"  fused_deep_moe_full_rank {n_tok} tokens x top-{topk} over {touched} of {n_exp} "
+        f"experts: vs plain "
         f"max row rel err {err:.3e} (tol {EP_DEEP_TOL}); vs unfused rel mean diff {rel:.3e} "
         f"(tol {EP_DEEP_REL_MEAN}); counts exact {exact}, drops {int(drop)}/{int(wdrop)}/"
         f"{int(udrop)}; other rows vs plain {err_o:.3e}, the first rows again bit-identical "
@@ -3469,10 +3518,13 @@ def check_fused_full(gen, group, moe, n_tok, timed, walk=False):
         touched * (h * n1 + i * h + 4 * (n1 + h)) + n_tok * h * 2 * 2,
         2 * rows * (h * n1 + i * h), INT8_OPS)
     res["unfused_ms"] = time_ms(lambda: buf.fused_deep_moe(x, idx, w, *moe), 5)
-    res["gmm_moe_ms"] = time_ms(lambda: m._gmm_moe(CFG, moe, x, idx, w), 5)
+    gmm = ""
+    if gmm_moe:
+        res["gmm_moe_ms"] = time_ms(lambda: m._gmm_moe(CFG, moe, x, idx, w), 5)
+        gmm = f"; single-GPU _gmm_moe {res['gmm_moe_ms']:.4f}"
     log(f"    {res['ms']:.4f} ms (plain {res['plain_ms']:.4f}; unfused fused_deep_moe "
-        f"{res['unfused_ms']:.4f}; single-GPU _gmm_moe {res['gmm_moe_ms']:.4f}; bound "
-        f"{res['bound_ms']:.4f} {res['bound_by']}: {touched} experts' weights read once)")
+        f"{res['unfused_ms']:.4f}{gmm}; bound {res['bound_ms']:.4f} {res['bound_by']}: "
+        f"{touched} experts' weights read once)")
     return res
 
 
@@ -4251,13 +4303,24 @@ def feature_engine(params, moe, mla_wq, *, spec_k=0, width=1, mixed=True):
     return eng, timer, dtimer, MethodTimer(eng, ("_decode", "_spec_decode_tree"))
 
 
-def feature_run(label, eng, requests, timers):
+def feature_want(launches, calls, dcalls):
+    """[4]'s launches from its adapters' ``calls`` (and the draft's
+    ``dcalls``, or None): K1, K2, K9a, K3 and K4 as the calls say (2 layers
+    the target, 1 the draft; every MoE call at most 512 rows: the ring
+    GEMMs; two K1 a layer a call)."""
+    layer_calls = [(CFG.num_layers, calls)] + ([] if dcalls is None else [(1, dcalls)])
+    pre = sum(nl * c["prefill"] for nl, c in layer_calls)
+    dec = sum(nl * c["decode"] for nl, c in layer_calls)
+    return {"decode_mla": dec, "mla_prefill_pallas": pre, "gmm1_ring": pre + dec,
+            "gmm2_combine_ring": pre + dec, "quant_matmul": 2 * (pre + dec)}
+
+
+def feature_run(label, eng, requests, timers, want=feature_want):
     """Serve ``requests`` (``add_request`` keyword dicts) with the launch
-    counts reset just before and read just after; checks that every page came
-    back and that K1, K2, K9a, K3 and K4 launched exactly as the adapters'
-    calls say (2 layers the target, 1 the draft; every MoE call at most 512
-    rows: the ring GEMMs; two K1 a layer a call) → (tokens, counts, decode
-    tok/s)."""
+    counts reset just before and read just after; checks that every page and
+    state slot came back and that the kernels ``want(launches, target calls,
+    draft calls or None)`` names launched exactly as often as it says →
+    (tokens, counts, decode tok/s)."""
     timer, dtimer, dec = timers
     counters.reset()
     t0 = time.perf_counter()
@@ -4268,21 +4331,19 @@ def feature_run(label, eng, requests, timers):
     wall = time.perf_counter() - t0
     launches = counters.read()
     outs = [eng.finished[r] for r in rids]
-    if eng.cm.free_pages + eng.cm.cached_pages != NUM_PAGES:
-        raise AssertionError(f"{label}: KV pages leaked")
-    calls = [(CFG.num_layers, timer.calls)] + ([] if dtimer is None else [(1, dtimer.calls)])
-    pre = sum(nl * c["prefill"] for nl, c in calls)
-    dec_calls = sum(nl * c["decode"] for nl, c in calls)
-    want = {"decode_mla": dec_calls, "mla_prefill_pallas": pre, "gmm1_ring": pre + dec_calls,
-            "gmm2_combine_ring": pre + dec_calls, "quant_matmul": 2 * (pre + dec_calls)}
-    got = {k: launches[k] for k in FEATURE_KERNELS}
-    if got != want:
-        raise AssertionError(f"{label}: launches {got}, want {want} from the model calls "
-                             f"{[c for _, c in calls]}")
+    if (eng.cm.free_pages + eng.cm.cached_pages != eng.cm.num_pages
+            or sorted(eng._free_state_slots) != list(range(eng.max_batch))):
+        raise AssertionError(f"{label}: KV pages or state slots leaked")
+    expected = want(launches, timer.calls, None if dtimer is None else dtimer.calls)
+    got = {k: launches[k] for k in expected}
+    if got != expected:
+        raise AssertionError(f"{label}: launches {got}, want {expected} from the model calls "
+                             f"{[timer.calls] + ([] if dtimer is None else [dtimer.calls])}")
     n_dec = sum(len(o) - 1 for o in outs)
     log(f"  {label}: {len(outs)} requests in {wall:.2f} s wall; decode {n_dec} tokens in "
-        f"{dec.s:.3f} s = {n_dec / dec.s:.1f} tok/s; launches {json.dumps(got)}; all pages "
-        f"returned")
+        f"{dec.s:.3f} s = {n_dec / dec.s:.1f} tok/s; launches "
+        f"{json.dumps({k: v for k, v in got.items() if v})} (of {len(got)} counted); all pages "
+        f"and state slots returned")
     return outs, got, n_dec / dec.s
 
 
@@ -4291,30 +4352,49 @@ class VerifyRecorder:
     first, the verify row that emitted it: the target's logits there (f32),
     each layer's routing (expert ids and weights) and router selection
     scores.  Wraps the engine's rounds (to know the round's requests), its
-    verify call (routing recorded by :func:`with_routes`, the head's output
-    captured) and ``_commit`` (which tokens of the round a request took:
-    token ``j`` comes from the row at position ``prompt + j - 1`` of the
-    branch whose earlier rows carry the accepted tokens)."""
+    verify calls (routing recorded by :func:`with_routes` on ``model``'s
+    router, the head's output captured: the packed verify, or a one-request
+    target's verifies, a request each, joined in the round's request order;
+    its catch-up prefills, under k + 1 rows, are not verifies) and
+    ``_commit`` (which tokens of the round a request took: token ``j`` comes
+    from the row at position ``prompt + j - 1`` of the branch whose earlier
+    rows carry the accepted tokens)."""
 
-    def __init__(self, eng):
-        self.eng, self.rows, self.live, self.last = eng, {}, None, None
-        verify, commit, tree_round = eng._verify, eng._commit, eng._spec_tree_round
+    def __init__(self, eng, model=m):
+        self.eng, self.rows, self.live, self.last, self.parts = eng, {}, None, None, []
+        verify, verify_one = eng._verify, eng._verify_one
+        commit, tree_round = eng._commit, eng._spec_tree_round
 
         def recorded_round(live):
-            self.live = live
+            self.live, self.parts = live, []
             return tree_round(live)
 
-        def recorded_verify(*args):
+        def recording(call, *args):
             head, seen = eng.a.lm_head, []
             eng.a.lm_head = lambda x: seen.append(head(x)) or seen[-1]
             try:
-                out, rec = with_routes(lambda: verify(*args), scores=True)
+                out, rec = with_routes(lambda: call(*args), model=model, scores=True)
             finally:
                 eng.a.lm_head = head
-            self.last = (seen[0].float(), rec, args[0].tolist())
+            self.parts.append((seen[0].float(), rec, args[0].tolist()))
             return out
 
+        def recorded_one(ids, seq_len, *rest):
+            if seq_len < eng.spec_k + 1:                 # a catch-up prefill
+                return verify_one(ids, seq_len, *rest)
+            return recording(verify_one, ids, seq_len, *rest)
+
         def recorded_commit(r, new):
+            if self.parts:                               # the round's verifies, joined
+                rec = Record()
+                rec.extend((torch.cat([p[1][li][0] for p in self.parts]),
+                            torch.cat([p[1][li][1] for p in self.parts]))
+                           for li in range(len(self.parts[0][1])))
+                rec.scores.extend(torch.cat([p[1].scores[li] for p in self.parts])
+                                  for li in range(len(self.parts[0][1].scores)))
+                self.last = (torch.cat([p[0] for p in self.parts]), rec,
+                             sum((p[2] for p in self.parts), []))
+                self.parts = []
             j0 = len(r.out_tokens)
             commit(r, new)
             i = next(n for n, x in enumerate(self.live) if x is r)
@@ -4327,37 +4407,46 @@ class VerifyRecorder:
                 self.rows[(r.rid, j0 + t)] = (logits[row], [(ri[row], rw[row]) for ri, rw in rec],
                                               [sc[row] for sc in rec.scores])
 
-        eng._spec_tree_round, eng._verify, eng._commit = (recorded_round, recorded_verify,
-                                                          recorded_commit)
+        eng._spec_tree_round, eng._commit = recorded_round, recorded_commit
+        eng._verify = lambda *args: recording(verify, *args)
+        eng._verify_one = recorded_one
 
 
-def teacher_forced(params, moe, mla_wq, ps, toks, forced_rows):
-    """The decode path on the speculative run's own tokens: [4]'s engine,
-    prefill first, then one decode call a token index ``j >= 1`` over the
-    requests that emitted one, each row's input its token ``j - 1``; run
-    once on its own routing and once with each row's routing forced to the
-    verify row's (``forced_rows[(rid, j)]``; pad rows to experts 0..7 at
-    weight 0).  Returns ``(own, forced)``: ``{(rid, j): (logits, routing,
-    router scores)}`` of the first run and ``{(rid, j): logits}`` of the
-    second."""
-    eng = feature_engine(params, moe, mla_wq, mixed=False)[0]
+def teacher_forced(make_engine, ps, toks, forced_rows, n_new=NEW_TOKENS, model=m):
+    """The decode path on the speculative run's own tokens: a plain engine
+    (``make_engine()``, ``mixed=False``), prefill first, then one decode call
+    a token index ``j >= 1`` over the requests that emitted one, each row's
+    input its token ``j - 1``; run once on its own routing (``model``'s
+    router) and once with each row's routing forced to the verify row's
+    (``forced_rows[(rid, j)]``; pad rows to experts 0..k-1 at weight 0).  A
+    target with recurrent state (its adapter's snapshot hooks) has the state
+    restored between the two calls, so that each call advances it once, and
+    goes on from the forced call: a router flip between the two paths would
+    otherwise leave the decode path's state on another history than the
+    speculative engine's for every later token.  Returns ``(own, forced)``:
+    ``{(rid, j): (logits, routing, router scores)}`` of the first run and
+    ``{(rid, j): logits}`` of the second."""
+    eng = make_engine()
     for p in ps:
-        eng.add_request(p, NEW_TOKENS)
+        eng.add_request(p, n_new)
     while eng.waiting or any(r.pos < r.prompt_len for r in eng.running):
         eng.step()
     reqs = sorted(eng.running, key=lambda r: r.rid)
     if [r.out_tokens for r in reqs] != [t[:1] for t in toks]:
         raise AssertionError("teacher forcing: the first tokens differ from the run's")
     own, forced = {}, {}
-    for j in range(1, NEW_TOKENS):
+    for j in range(1, n_new):
         live = [r for r in reqs if len(toks[r.rid]) > j]
         if not live:
             break
         for r in live:
             r.out_tokens = list(toks[r.rid][:j])
         batch = eng.decode_inputs(live)
+        si = batch.state_idx[: len(live)]
+        if eng.a.snapshot_state is not None:
+            snap = eng.a.snapshot_state(eng.caches, si)
         logits, rec = with_routes(lambda: eng.decode_logits(batch)[: len(live)].float(),
-                                  scores=True)
+                                  model=model, scores=True)
         forced_rec = Record()
         for li, (ids, w) in enumerate(rec):
             fi = torch.arange(ids.shape[1], dtype=ids.dtype, device=DEV).expand_as(ids).clone()
@@ -4365,8 +4454,10 @@ def teacher_forced(params, moe, mla_wq, ps, toks, forced_rows):
             for n, r in enumerate(live):
                 fi[n], fw[n] = forced_rows[(r.rid, j)][1][li]
             forced_rec.append((fi, fw))
+        if eng.a.snapshot_state is not None:
+            eng.caches = eng.a.restore_state(eng.caches, snap, si)
         flogits, _ = with_routes(lambda: eng.decode_logits(batch)[: len(live)].float(),
-                                 forced_rec)
+                                 forced_rec, model=model)
         for n, r in enumerate(live):
             own[(r.rid, j)] = (logits[n], [(ids[n], w[n]) for ids, w in rec],
                                [sc[n] for sc in rec.scores])
@@ -4374,7 +4465,7 @@ def teacher_forced(params, moe, mla_wq, ps, toks, forced_rows):
     return own, forced
 
 
-def flip_margin(c, mine, other):
+def flip_margin(c, mine, other, n_group=CFG.n_group, topk_group=CFG.topk_group):
     """How far the router selection scores ``c [E]`` (one row, one layer;
     :func:`router_choice`) prefer the expert set ``mine``, the router's
     choice on them, to another set ``other`` → ``(margin, scale)``, the
@@ -4383,10 +4474,11 @@ def flip_margin(c, mine, other):
     two best experts' sum, as the router's), the margin is between groups:
     the weakest chosen group's score less the best of ``other``'s outside
     ones; else between experts: the weakest of ``mine`` not in ``other``
-    less the best of ``other`` not in ``mine``.  0 is a tie."""
-    per = c.shape[0] // CFG.n_group
-    gs = torch.topk(c.reshape(CFG.n_group, per), 2, dim=-1).values.sum(-1)
-    groups = set(torch.topk(gs, CFG.topk_group).indices.tolist())
+    less the best of ``other`` not in ``mine``.  0 is a tie.  A router
+    without groups (Qwen3-Next's) is one group of all experts."""
+    per = c.shape[0] // n_group
+    gs = torch.topk(c.reshape(n_group, per), 2, dim=-1).values.sum(-1)
+    groups = set(torch.topk(gs, topk_group).indices.tolist())
     outside = {int(e) // per for e in other} - groups
     if outside:
         return (float(min(gs[g] for g in groups) - max(gs[g] for g in outside)),
@@ -4395,14 +4487,16 @@ def flip_margin(c, mine, other):
     return float(min(c[e] for e in a - b) - max(c[e] for e in b - a)), float(c.abs().max())
 
 
-def spec_rule(label, got, want, ps, recorder, params, moe, mla_wq):
+def spec_rule(label, got, want, recorder, replay, margin=flip_margin, held=True):
     """Speculative tokens ``got`` against the greedy reference ``want``.
-    Verify and decode run different kernels (a verify is one varlen
-    prefill: K9a over short sequences, K1 / K3 / K4 at B·(k+1) rows), so a
-    near-tie of the head's argmax or of a router's top-8 can flip a token,
-    and the run diverges from there.  Every emitted token's verify row
-    (``recorder``) is replayed on the decode path on the same tokens
-    (:func:`teacher_forced`), and the run fails unless:
+    Verify and decode run different kernels (DeepSeek-V3's verify is one
+    varlen prefill: K9a over short sequences, K1 / K3 / K4 at B·(k+1) rows;
+    Qwen3-Next's a prefill a request: the GDN chunk rule and K12d, where
+    decode runs the recurrent update and K11a), so a near-tie of the head's
+    argmax or of a router's top-k can flip a token, and the run diverges
+    from there.  Every emitted token's verify row (``recorder``) is replayed
+    on the decode path on the same tokens (``replay(got, recorder.rows)`` →
+    ``(own, forced)``, :func:`teacher_forced`'s), and the run fails unless:
 
     - with the routing forced to the verify row's, every row holds to
       :func:`routing_rule` ([4]'s steps' rule: 5e-2 of a row's largest
@@ -4411,15 +4505,16 @@ def spec_rule(label, got, want, ps, recorder, params, moe, mla_wq):
     - every row whose verify routing differs from the decode path's own
       does so at a near-tie: at the first layer where the expert sets
       differ, the decode router prefers its own choice by at most 5e-2 of
-      its largest score there (:func:`flip_margin`);
+      its largest score there (``margin``, :func:`flip_margin`);
     - at each request's first token that differs from ``want`` where the
       routing agrees, the decode path's own logits' top-2 gap is at most
       5e-2 of the row's largest |logit| (where it differs, the rule above
       holds it).
 
+    With ``held`` False the figures are printed and nothing is held.
     Returns the count of requests that needed the replay."""
     tol = 5e-2
-    own, forced = teacher_forced(params, moe, mla_wq, ps, got, recorder.rows)
+    own, forced = replay(got, recorder.rows)
     keys = sorted(forced)
     if set(keys) != set(recorder.rows):
         raise AssertionError(f"{label}: {len(keys)} decode rows, {len(recorder.rows)} verify rows")
@@ -4434,7 +4529,7 @@ def spec_rule(label, got, want, ps, recorder, params, moe, mla_wq):
                   None)
         if li is not None:
             c = own[k][2][li]
-            flipped[k] = (li, *flip_margin(c, own[k][1][li][0], recorder.rows[k][1][li][0]),
+            flipped[k] = (li, *margin(c, own[k][1][li][0], recorder.rows[k][1][li][0]),
                           float((recorder.rows[k][2][li] - c).abs().max()))
     ok = routing_rule(f"{label}: every emitted token's verify row", torch.stack(
         [recorder.rows[k][0] for k in keys]), torch.stack([forced[k] for k in keys]),
@@ -4471,6 +4566,9 @@ def spec_rule(label, got, want, ps, recorder, params, moe, mla_wq):
     log(f"  {label}: {len(got) - replays} of {len(got)} requests equal to the reference's "
         f"tokens, {replays} replayed at their first differing token ({len(gaps)} with the "
         f"routing agreeing, top-2 gap at most {max(gaps, default=0.0):.3e})")
+    if not held:
+        log(f"  {label}: the rule above is a reading here, not held")
+        return replays
     if not ok:
         raise AssertionError(f"{label}: verify rows disagree with the decode path")
     if wide:
@@ -4558,7 +4656,10 @@ def engine_features_phase(params, moe, mla_wq, ps, card):
         st = eng[0].stats
         log(f"    {st['spec_rounds']} rounds, {st['spec_accepted']} drafts accepted "
             f"({st['spec_accepted'] / st['spec_rounds']:.2f} a round over the live requests)")
-        spec_rule(label, outs, ref, ps, recorder, params, moe, mla_wq)
+        spec_rule(label, outs, ref, recorder,
+                  lambda toks, rows: teacher_forced(
+                      lambda: feature_engine(params, moe, mla_wq, mixed=False)[0], ps, toks,
+                      rows))
         rates["chain" if width == 1 else "tree"] = rate
     log(f"  decode tok/s ({card}): plain {rates['plain']:.1f}, chain {rates['chain']:.1f}, "
         f"tree {rates['tree']:.1f}")
@@ -4877,25 +4978,31 @@ def check_qwen_kernels(gen):
     return k11, k12
 
 
-def qwen_layers():
-    """(attention layers, GDN layers) of ``CFG_QWEN``."""
-    n_attn = sum(CFG_QWEN.is_attn(li) for li in range(CFG_QWEN.num_layers))
-    return n_attn, CFG_QWEN.num_layers - n_attn
-
-
-def qwen_serve(params, card, weights_q=None):
+def qwen_serve(params, card, weights_q=None, ep=None):
     """[4o]'s serve: ``Engine(prefill_chunk=512, max_batch=4)`` +
     ``qwen3_hybrid_adapter`` over six prompts (the last repeats the first),
     16 new tokens each, so that state slots are reused.  Checks the caches'
     types, every request's tokens, every page and state slot back, no radix
     reuse (a request on a recurrent-state adapter neither matches nor
     inserts) and the repeated prompt's tokens equal to its first serve's, and
-    exact launch counts from the engine's own calls: K12d once an attention
-    layer a prefill call, K11a once a decode call, with ``weights_q`` K1 four
-    times an attention layer and twice a GDN layer a model call, K5 twice a
-    layer; nothing else.  Returns the engine, the prompts and the counts."""
+    exact launch counts from the engine's own calls (:func:`qwen_want`); with
+    ``ep = (moe_weights_q, buffer)`` every layer's MoE on
+    ``buffer.fused_deep_moe``, no row dropped.  Returns the engine, the
+    prompts, the counts and (prefill, decode) tok/s."""
     cfg = CFG_QWEN
-    adapter = qwen3_hybrid_adapter(cfg, params, weights_q=weights_q)
+    moe_q, buf = ep or (None, None)
+    drops = []
+    if buf is not None:
+        fused = buf.fused_deep_moe
+
+        def recording(*args, **kw):
+            out = fused(*args, **kw)
+            drops.append(out[2])
+            return out
+
+        buf.fused_deep_moe = recording
+    adapter = qwen3_hybrid_adapter(cfg, params, weights_q=weights_q, moe_weights_q=moe_q,
+                                   ep_buffer=buf)
     timer = StepTimer(adapter)
     eng = Engine(adapter, QWEN_NUM_PAGES, max_batch=QWEN_BATCH,
                  max_pages_per_req=QWEN_PAGES_PER_REQ, prefill_chunk=QWEN_CHUNK)
@@ -4930,25 +5037,28 @@ def qwen_serve(params, card, weights_q=None):
     if eng.stats["cached_tokens"] or outs[-1] != outs[0]:
         raise AssertionError(f"the repeated prompt: {eng.stats['cached_tokens']} cached tokens "
                              f"(want 0), tokens {outs[-1]} vs its first serve's {outs[0]}")
-    n_pre, n_dec = timer.calls["prefill"], timer.calls["decode"]
-    n_attn, n_gdn = qwen_layers()
-    want = {k: 0 for k in launches}
-    want.update({"attention_sinks_prefill_pallas": n_attn * n_pre, "decode_gqa": n_attn * n_dec})
-    if weights_q is not None:
-        calls = n_pre + n_dec
-        want.update({"quant_matmul": (4 * n_attn + 2 * n_gdn) * calls,
-                     "quant_per_token": 2 * (n_attn + n_gdn) * calls})
+    want = qwen_want(launches, timer.calls, w8=weights_q is not None, ep=buf is not None)
+    moe_calls = cfg.num_layers * (timer.calls["prefill"] + timer.calls["decode"])
+    if buf is not None:
+        dropped = int(torch.stack(drops).sum())
+        if len(drops) != moe_calls or dropped:
+            raise AssertionError(f"EP serve: {len(drops)} fused_deep_moe calls for {moe_calls} "
+                                 f"MoE calls; {dropped} rows dropped")
     if launches != want:
-        raise AssertionError(f"launches {launches} over {n_pre} prefill and {n_dec} decode "
-                             f"calls; want {want}")
-    log_serve(eng, rids, ps, wall, timer,
-              f"bf16 cache and state pools{', W8A8' if weights_q is not None else ''}; {card}")
+        raise AssertionError(f"launches {launches} over {timer.calls}; want {want}")
+    what = ", W8A8" if weights_q is not None else ""
+    if buf is not None:
+        what += (f", the routed experts expert parallel (Buffer.fused_deep_moe, "
+                 f"{buf.config.comm_backend}; {moe_calls} MoE calls, no row dropped)")
+    log_serve(eng, rids, ps, wall, timer, f"bf16 cache and state pools{what}; {card}")
     log(f"  state slots by request {[slot_of[r] for r in rids]} (6 requests on "
         f"{QWEN_BATCH} slots); the repeated prompt: 0 cached tokens, its tokens equal its "
         f"first serve's {outs[0][:6]}...")
     log(f"  launches on the main path: "
         f"{json.dumps({k: v for k, v in launches.items() if v})} (every other kernel 0)")
-    return eng, ps, launches
+    rates = (eng.stats["prefill_tokens"] / timer.t["prefill"],
+             len(rids) * (QWEN_NEW_TOKENS - 1) / timer.t["decode"])
+    return eng, ps, launches, rates
 
 
 def zero_state(eng, si):
@@ -4977,55 +5087,58 @@ def qwen_base_kernels():
                         "attention_sinks_prefill_plain": qn.attention_sinks_prefill_pallas})
 
 
-def qwen_step_checks(eng, params, ps, label, weights_q=None):
+def qwen_step_checks(eng, params, ps, label, weights_q=None, ep=None):
     """A decode step on a live batch of [4o]'s first four prompts and a
     512-row prefill chunk at context 1024 (on the pools' spare state slot,
     its first chunk run once), through the kernels and through
     ``plain=True``, the routing replayed; each run starts from the same
     recurrent state (restored from a snapshot: a GDN step is not idempotent
-    as a K / V write is).  Float: :func:`routing_rule`; W8A8:
-    :func:`w8a8_verdict` against the path with only K1 and K5 plain.  The
-    kernel run must launch K11a / K12d once (the attention layer) and, with
-    ``weights_q``, K1 and K5 their counts.  Returns the kernel-path decode
-    (logits) and chunk for the profile."""
+    as a K / V write is).  Float, and with ``ep = (moe_weights_q, buffer)``
+    (the routed experts on ``buffer.fused_deep_moe``): :func:`routing_rule`;
+    W8A8 alone: :func:`w8a8_verdict` against the path with only K1 and K5
+    plain.  The kernel run must launch what :func:`qwen_want` says of one
+    model call, and nothing else.  Returns the kernel-path decode (logits)
+    and chunk for the profile, each taking the steps' keywords to replace
+    (``ep_buffer=...``)."""
     cfg = CFG_QWEN
     kw = dict(weights_q=weights_q)
+    if ep is not None:
+        kw.update(moe_weights_q=ep[0], ep_buffer=ep[1])
     batch, n = live_batch(eng, ps[:QWEN_BATCH])
     live = batch.state_idx[:n].long()
     snap = qn.hybrid_state_snapshot(cfg, eng.caches, live)
 
-    def decode(plain):
+    def decode(plain, **over):
         qn.hybrid_state_restore(cfg, eng.caches, snap, live)
         h, _ = qn.hybrid_decode_step(cfg, params, qn.hybrid_embed(params, batch.ids), batch.pos,
                                      eng.caches, batch.block_table, batch.ctx, batch.slots,
-                                     batch.state_idx, plain=plain, **kw)
+                                     batch.state_idx, plain=plain, **{**kw, **over})
         return qn.hybrid_lm_head(params, h)
 
     ids, bt, slots, pages = qwen_sequence(eng, ps[2][: 2 * QWEN_CHUNK])
     si = torch.tensor([QWEN_BATCH], dtype=torch.int32, device=DEV)   # the spare slot
     sl = torch.tensor([QWEN_CHUNK], dtype=torch.int32, device=DEV)
 
-    def chunk(c, plain):
+    def chunk(c, plain, **over):
         rows = slice(c * QWEN_CHUNK, (c + 1) * QWEN_CHUNK)
         ctx = torch.tensor([(c + 1) * QWEN_CHUNK], dtype=torch.int32, device=DEV)
         if c:
             qn.hybrid_state_restore(cfg, eng.caches, snap_c, si)
         h, _ = qn.hybrid_prefill_step(cfg, params, qn.hybrid_embed(params, ids[rows]), sl,
                                       eng.caches, bt, ctx, slots[rows], si, max_q=QWEN_CHUNK,
-                                      plain=plain, **kw)
+                                      plain=plain, **{**kw, **over})
         return h
 
     zero_state(eng, si)
     chunk(0, False)                          # the chunk's context and state, written once
     snap_c = qn.hybrid_state_snapshot(cfg, eng.caches, si)
-    n_attn, n_gdn = qwen_layers()
     w8 = weights_q is not None
-    for label_, run, rows, logits, attn in (
-            (f"{label} decode step (logits)", decode, n, True, "decode_gqa"),
+    for label_, run, rows, logits in (
+            (f"{label} decode step (logits)", decode, n, True),
             (f"{label} prefill chunk of {QWEN_CHUNK} rows at context {2 * QWEN_CHUNK} (hidden)",
-             lambda plain: chunk(1, plain), QWEN_CHUNK, False, "attention_sinks_prefill_pallas")):
+             lambda plain: chunk(1, plain), QWEN_CHUNK, False)):
         counters.reset()
-        if w8:
+        if w8 and ep is None:
             got, rec_k = with_routes(lambda: run(False)[:rows].float(), model=qn)
             launches = counters.read()
             _, rec_p = with_routes(lambda: run(True)[:rows].float(), model=qn)
@@ -5037,16 +5150,18 @@ def qwen_step_checks(eng, params, ps, label, weights_q=None):
                               f"routing agrees in every layer on {int(same.sum())}/{rows} rows "
                               f"on its own, replayed for the comparisons; ")
         else:
-            ok = compare_runs(label_, lambda: run(False), lambda: run(True), rows,
-                              logits=logits, forced=True, model=qn)
-            launches = counters.read()
-        want = {attn: n_attn, "quant_matmul": (4 * n_attn + 2 * n_gdn) if w8 else 0,
-                "quant_per_token": 2 * (n_attn + n_gdn) if w8 else 0}
-        if not ok or any(launches[k] != v for k, v in want.items()):
+            launches = {}
+            ok = compare_runs(label_, lambda: run(False), lambda: run(True), rows, logits=logits,
+                              forced=True, model=qn,
+                              after_kernel=lambda: launches.update(counters.read()))
+        one_call = {"prefill": int(not logits), "decode": int(logits)}
+        want = qwen_want(launches, one_call, w8=w8, ep=ep is not None)
+        if not ok or launches != want:
             raise AssertionError(f"{label_}: the kernels disagree with the plain path (rule held "
                                  f"{ok}) or launched {launches}, want {want}")
     eng.cm.free(pages)
-    return (lambda: decode(False)), (lambda: chunk(1, False))
+    return ((lambda plain=False, **over: decode(plain, **over)),
+            (lambda plain=False, **over: chunk(1, plain, **over)))
 
 
 def qwen_state_resume(eng, params, ps, k=4, head_rows=16):
@@ -5127,15 +5242,23 @@ def qwen_state_resume(eng, params, ps, k=4, head_rows=16):
         raise AssertionError("the chunked prefill and decode disagree with one prefill")
 
 
+QWEN_MLP = "MoE + shared expert (_hybrid_mlp: its PyTorch ops)"
 QWEN_REGIONS = (("GDN chunk loop (chunk_gated_delta_rule)", "chunk_gated_delta_rule"),
                 ("GDN recurrent update", "fused_sigmoid_gating_delta_rule_update"),
                 ("conv (causal_conv1d_fn / _update)", "causal_conv1d_fn"),
                 ("conv (causal_conv1d_fn / _update)", "causal_conv1d_update"),
-                ("dense MoE + shared expert (_hybrid_mlp)", "_hybrid_mlp"))
-# the attention kernels by name: the profiler links a kernel launched through
-# the port's library to no PyTorch op, so a range around its wrapper holds none
-QWEN_KERNEL_NAMES = (("K11a decode_gqa", "decode_kernel"),
-                     ("K12d attention_sinks_prefill_pallas", "prefill_kernel"))
+                (QWEN_MLP, "_hybrid_mlp"))
+# the port's kernels by name (every listed piece in the kernel's name): the
+# profiler links a kernel launched through the port's library to no PyTorch
+# op, so a range around its wrapper holds none
+QWEN_KERNEL_NAMES = (("K11a decode_gqa", ("sinks", "decode_kernel")),
+                     ("K12d attention_sinks_prefill_pallas", ("sinks", "prefill_kernel")),
+                     ("K8a grouped_matmul (the EP MoE's GMM1 / GMM2)", ("k8::",)),
+                     ("K15a / K15b window all-to-alls (the EP MoE's exchanges)", ("a2a_kernel",)),
+                     ("K16b fused_deep_moe_full_rank", ("ffull::",)),
+                     ("K5 quant_per_token (W8A8 projections, the EP wire)", ("quant::",)))
+# the EP MoE's own kernels, added to the _hybrid_mlp range's device time
+QWEN_EP_NAMES = QWEN_KERNEL_NAMES[2:5]
 
 
 def region_profile(fn):
@@ -5143,8 +5266,9 @@ def region_profile(fn):
     functions of ``models.qwen3_next`` wrapped in a ``record_function`` range
     → ``({region: [device ms, kernels]}, busy ms, kernels, wall ms)``: a
     range's device time and kernel count are those of the kernels its
-    PyTorch ops launched; K11a / K12d are their kernels by name; busy sums
-    every device activity but the ranges' own device-side spans."""
+    PyTorch ops launched; K11a / K12d and the EP MoE's kernels are theirs by
+    name; busy sums every device activity but the ranges' own device-side
+    spans."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     saved = {}
@@ -5179,8 +5303,8 @@ def region_profile(fn):
             ms = e.device_time_total / 1e3
             busy += ms
             n_device += 1
-            for label, key in QWEN_KERNEL_NAMES:
-                if "sinks" in e.name and key in e.name:
+            for label, keys in QWEN_KERNEL_NAMES:
+                if all(key in e.name for key in keys):
                     regions[label][0] += ms
                     regions[label][1] += 1
         elif e.name in regions:
@@ -5189,19 +5313,360 @@ def region_profile(fn):
     return regions, busy, n_device, wall
 
 
-def qwen_profiles(decode_fn, prefill_fn):
+def qwen_profiles(decode_fn, prefill_fn, label="Qwen3-Next"):
     """The device time of a decode step and of a 512-row prefill call by
-    region (the GDN chunk loop, the recurrent update, the conv, the dense
-    MoE, K11a / K12d), the busy share and the chunk loop's launches."""
+    region (the GDN chunk loop, the recurrent update, the conv, the MoE's
+    PyTorch ops, K11a / K12d, the EP MoE's kernels, K5), the busy share and
+    the chunk loop's launches; the MoE's device time (its range and its EP
+    kernels: K8a, K15a / K15b, K16b; the EP wire's K5 is in K5's row, with
+    the W8A8 projections')."""
     for what, fn in (("decode step (logits)", decode_fn),
                      (f"{QWEN_CHUNK}-row prefill call at context {2 * QWEN_CHUNK}", prefill_fn)):
         regions, busy, n_device, wall = region_profile(fn)
-        log(f"  Qwen3-Next {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        log(f"  {label} {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
             f"({100 * busy / wall:.1f} %) in {n_device} device activities")
         if busy == 0:
             log("    the profiler recorded no device time on this machine")
-        for label, (ms, n) in regions.items():
-            log(f"    {ms:9.3f} ms  {n:5d} kernels  {label}")
+        for name, (ms, n) in regions.items():
+            log(f"    {ms:9.3f} ms  {n:5d} kernels  {name}")
+        moe = [regions[QWEN_MLP]] + [regions[k] for k, _ in QWEN_EP_NAMES]
+        moe_ms, moe_n = sum(r[0] for r in moe), sum(r[1] for r in moe)
+        log(f"    the MoE: {moe_ms:.3f} ms in {moe_n} kernels, "
+            f"{100 * moe_ms / busy if busy else 0.0:.1f} % of the busy time")
+
+
+def qwen_buffer(backend="pallas_ragged"):
+    """A ``Buffer`` for Qwen3-Next's 512 experts on the one-rank NCCL group."""
+    return Buffer(dist.group.WORLD, CFG_QWEN.moe_experts, EPConfig(comm_backend=backend))
+
+
+def check_qwen_ep_kernels(gen, group, moe0):
+    """The EP MoE's kernels at Qwen3-Next's widths (512 experts top-10, H
+    2048, I 512) on layer 0's W8A8 experts, at a decode step's 4 tokens and a
+    512-row chunk, each held to its plain version and timed beside its bound:
+    K5 (the wire quant of the rows, bit-equal), K15b (the dispatch payload
+    of the routed rows, bit-exact), K8a GMM1 (``dequant_swiglu_quant``, N
+    1024, 512 groups, most empty at decode) and GMM2 (``dequant``, K 512),
+    K16b at ``E_local`` 512 (at 4 tokens also bit-equal to its tiled walk);
+    K15a on the per-expert counts ``[1, 512]``."""
+    h, topk = CFG_QWEN.hidden, CFG_QWEN.moe_topk
+    for n_tok in (QWEN_BATCH, QWEN_CHUNK):
+        rows = n_tok * topk
+        check_quant_per_token(gen, n_tok, h, True)
+        check_window_a2a(gen, group, f"at Qwen3-Next's {n_tok}-token dispatch", rows, h,
+                         [0, rows // 3, rows], True)
+        check_grouped_matmul(gen, moe0, n_tok, topk, True)
+        check_fused_full(gen, group, moe0, n_tok, True, walk=n_tok == QWEN_BATCH, topk=topk,
+                         gmm_moe=False)
+    counts = torch.randint(0, 64, (1, CFG_QWEN.moe_experts), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    check_window_fixed(group, "Qwen3-Next's per-expert counts", counts, True)
+
+
+def qwen_ep_phase(params, weights_q, card, dense_rates, draft):
+    """[4o]'s expert-parallel MoE (see the module docstring): the layers'
+    W8A8 experts, the float experts dropped (so no dense MoE can run), the
+    kernels at 512 experts, the serve beside the dense-MoE W8A8 serve's
+    tok/s, the steps against ``plain=True``, the transports, K16b, the
+    profile; then chain speculation of this target with the 1-layer draft
+    (its weights ``draft``)."""
+    cfg, group = CFG_QWEN, dist.group.WORLD
+    t0 = time.perf_counter()
+    moe_q = qn.quantize_hybrid_moe_weights(cfg, params)
+    for lw in params["layers"]:
+        for name in ("moe_gate", "moe_up", "moe_down"):
+            del lw[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    log(f"  W8A8 experts (quantize_hybrid_moe_weights) in {time.perf_counter() - t0:.1f} s; the "
+        f"float experts dropped: {torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    check_qwen_ep_kernels(torch.Generator(device=DEV).manual_seed(SEED + 14), group, moe_q[0])
+    buf = qwen_buffer()
+    eng, ps, _, rates = qwen_serve(params, card, weights_q, (moe_q, buf))
+    log(f"  EP serve (W8A8 projections, the routed experts on Buffer.fused_deep_moe): prefill "
+        f"{rates[0]:.1f}, decode {rates[1]:.1f} tok/s; the dense-MoE W8A8 serve of this call "
+        f"{dense_rates[0]:.1f} / {dense_rates[1]:.1f} ({card})")
+    decode_fn, prefill_fn = qwen_step_checks(eng, params, ps, "Qwen3-Next EP (W8A8)", weights_q,
+                                             (moe_q, qwen_buffer()))
+    n = QWEN_BATCH
+    outs, first = {}, None
+    for backend in ("pallas_ragged", "pallas", "xla"):
+        b = qwen_buffer(backend)
+        outs[backend], rec = with_routes(lambda: decode_fn(ep_buffer=b)[:n].float(), first,
+                                         model=qn)
+        first = first or rec
+    diffs = {k: max_abs(v, outs["pallas_ragged"]) for k, v in outs.items()}
+    log(f"  the EP decode step on the transports 'pallas_ragged', 'pallas', 'xla' (routing "
+        f"replayed): max |logit diff| to 'pallas_ragged' {diffs}")
+    if any(d != 0.0 for d in diffs.values()):
+        raise AssertionError(f"the transports disagree on one rank: {diffs}")
+    sbuf = qwen_buffer()
+    single = sbuf.fused_deep_moe
+    sbuf.fused_deep_moe = lambda *a, **kw: single(*a, **{**kw, "single_kernel": True})
+    counters.reset()
+    got_s, rec_s = with_routes(lambda: decode_fn(ep_buffer=sbuf)[:n].float(), model=qn)
+    launches_s = counters.read()
+    layers = cfg.num_layers
+    want_s = {"fused_deep_moe_full_rank": layers, "pallas_all_to_all": layers,
+              "pallas_ragged_all_to_all": 0, "grouped_matmul": 0}
+    if any(launches_s[k] != v for k, v in want_s.items()):
+        raise AssertionError(f"single-kernel EP decode step: launches {launches_s}, "
+                             f"want {want_s}")
+    plain_s, _ = with_routes(lambda: decode_fn(ep_buffer=sbuf, plain=True)[:n].float(), rec_s,
+                             model=qn)
+    if not routing_rule("Qwen3-Next EP decode step, single_kernel=True (logits)", got_s,
+                        plain_s, torch.ones(n, dtype=torch.bool, device=DEV), True, forced=True):
+        raise AssertionError("the single-kernel EP decode step disagrees with its plain path")
+    log("  device time by region, the EP MoE (torch.profiler)")
+    qwen_profiles(decode_fn, prefill_fn, "Qwen3-Next EP (W8A8)")
+    del eng, decode_fn, prefill_fn
+    log(f"  speculative decoding of the W8A8 + EP target: spec_k={SPEC_K}, the same draft")
+    # against the decode path (the recurrent update) its rolled-back states
+    # and verify rows are readings (PERF.md §6): the chunk rule's bf16
+    # roundings move int8 levels of the next layer's input, so the two
+    # recurrences part; its verifies and catch-ups are held to the plain path
+    qwen_spec_phase(params, draft, card, "the W8A8 + EP target", decode_held=False,
+                    weights_q=weights_q, moe_weights_q=moe_q, ep_buffer=qwen_buffer())
+
+
+# [4o]'s speculative serves: a 1-layer Llama-shaped draft at Qwen3-Next's
+# vocabulary and hidden width (16 / 2 heads of 128, intermediate 5120), random
+# bf16 weights from a seed, an untied head; [4o]'s first four prompts, one
+# state slot each
+QWEN_DRAFT = lm.LlamaConfig(
+    vocab_size=CFG_QWEN.vocab_size, hidden=CFG_QWEN.hidden, num_layers=1, num_heads=16,
+    num_kv_heads=2, head_dim=128, intermediate=5120, page_size=CFG_QWEN.page_size,
+    rope_theta=1e7, rms_eps=1e-6)
+QWEN_STATE_TOL = 5e-2          # [4o]'s state-resume tolerance
+# a rolled-back state against the same restore + catch-up on the plain path:
+# one algorithm, the kernels' bf16 roundings and int8 levels apart (the EP
+# steps sit within 1.1e-2 of a row's largest logit of plain=True)
+QWEN_ROLLBACK_TOL = 2e-2
+
+
+def qwen_want(launches, calls, dcalls=None, *, w8=False, ep=False):
+    """[4o]'s launches from the hybrid adapter's ``calls`` and the 1-layer
+    Llama draft's ``dcalls`` (or None), for every counted kernel, so that
+    nothing else may launch: K12d once an attention layer a prefill call
+    (prompt chunks, verifies and catch-ups alike), K11a once a decode call;
+    with ``w8`` K1 four times an attention layer and twice a GDN layer a
+    model call, K5 twice a layer; with ``ep`` every layer's MoE on the window
+    transport (``EP_DEEP_CALL``: K15b three times, K15a and K5 once, K8a
+    twice: GMM1 ``dequant_swiglu_quant``, GMM2 ``dequant`` or
+    ``dequant_f32``); the draft K12d a prefill call, K11a a decode call, K6a
+    three times a call."""
+    n_attn = sum(CFG_QWEN.is_attn(li) for li in range(CFG_QWEN.num_layers))
+    n_gdn = CFG_QWEN.num_layers - n_attn
+    model_calls = calls["prefill"] + calls["decode"]
+    want = dict.fromkeys(launches, 0)
+    want["attention_sinks_prefill_pallas"] = n_attn * calls["prefill"]
+    want["decode_gqa"] = n_attn * calls["decode"]
+    if w8:
+        want["quant_matmul"] = (4 * n_attn + 2 * n_gdn) * model_calls
+        want["quant_per_token"] = 2 * (n_attn + n_gdn) * model_calls
+    if ep:
+        moe_calls = CFG_QWEN.num_layers * model_calls
+        for k, v in EP_DEEP_CALL.items():
+            want[k] += v * moe_calls
+        f32 = launches["grouped_matmul:dequant_f32"]
+        want.update({"grouped_matmul:dequant_swiglu_quant": moe_calls,
+                     "grouped_matmul:dequant_f32": f32,
+                     "grouped_matmul:dequant": moe_calls - f32})
+    if dcalls is not None:
+        want["attention_sinks_prefill_pallas"] += dcalls["prefill"]
+        want["decode_gqa"] += dcalls["decode"]
+        want["rms_norm"] += 3 * (dcalls["prefill"] + dcalls["decode"])
+    return want
+
+
+def qwen_engine(params, *, draft=None, mixed=True, **kw):
+    """[4o]'s target ``qwen3_hybrid_adapter(cfg, params, **kw)`` in
+    ``Engine(prefill_chunk=512, max_batch=4)``; with ``draft`` (the draft's
+    weights) chain speculation (``spec_k=2``) with a 1-layer Llama adapter
+    → ``(engine, target timer, draft timer or None, decode timer)`` as
+    :func:`feature_engine`."""
+    adapter = qwen3_hybrid_adapter(CFG_QWEN, params, **kw)
+    timer, dtimer, dadapter = StepTimer(adapter), None, None
+    if draft is not None:
+        dadapter = llama_adapter(QWEN_DRAFT, draft)
+        dtimer = StepTimer(dadapter)
+    eng = Engine(adapter, QWEN_NUM_PAGES, max_batch=QWEN_BATCH,
+                 max_pages_per_req=QWEN_PAGES_PER_REQ, prefill_chunk=QWEN_CHUNK, mixed=mixed,
+                 spec_k=SPEC_K if draft is not None else 0, draft_adapter=dadapter)
+    return eng, timer, dtimer, MethodTimer(eng, ("_decode", "_spec_decode_tree"))
+
+
+def state_errs(got, want):
+    """Each GDN layer's largest |difference| between two snapshots' conv and
+    ssm states, over that state's largest |value| in ``want``."""
+    return [max(max_abs(a, b) / float(b.float().abs().max()) for a, b in zip(pg, pw))
+            for pg, pw in zip(got, want)]
+
+
+def qwen_verifies(eng, params, verifies, kw):
+    """Every verify of a speculative serve against the same verify on the
+    plain path: ``verifies`` holds, in the serve's order, each one's state
+    ``s0`` (its snapshot), rows ``ids`` at positions ``ctx - len(ids) ..``
+    (block table ``bt``, cache slots ``slots``), routing ``rec`` and the
+    head's f32 ``logits``.  Each is run again from ``s0`` on the pools'
+    spare slot with ``plain=True`` and the routing replayed, writing its own
+    K / V rows as the serve's did (in the serve's order, so that every
+    earlier position holds its accepted token), and the two held to
+    :func:`routing_rule` on every row.  Run on the speculative engine once
+    it has served."""
+    cfg = CFG_QWEN
+    spare = torch.tensor([QWEN_BATCH], dtype=torch.int32, device=DEV)
+    i32 = lambda v: torch.tensor([v], dtype=torch.int32, device=DEV)  # noqa: E731
+    got, want = [], []
+    for v in verifies:
+        qn.hybrid_state_restore(cfg, eng.caches, v["s0"], spare)
+        n = v["ids"].shape[0]
+        (h, _), _ = with_routes(lambda: qn.hybrid_prefill_step(
+            cfg, params, qn.hybrid_embed(params, v["ids"]), i32(n), eng.caches, v["bt"],
+            i32(v["ctx"]), v["slots"], spare, max_q=n, plain=True, **kw), v["rec"], model=qn)
+        want.append(qn.hybrid_lm_head(params, h).float())
+        got.append(v["logits"])
+    if not verifies or not routing_rule(
+            f"{len(verifies)} verifies (a request each)", torch.cat(got), torch.cat(want),
+            torch.ones(sum(g.shape[0] for g in got), dtype=torch.bool, device=DEV),
+            logits=True, forced=True, vs="the same verify on the plain path from the same state"):
+        raise AssertionError("the verifies disagree with their plain path")
+
+
+def qwen_rollbacks(eng, params, rounds, kw, decode_tol):
+    """The recurrent state after each rolled-back request-round: ``rounds``
+    holds, for each, the state ``s0`` its verify snapshotted, the state
+    ``s1`` after the restore and the catch-up prefill through the kernels,
+    that prefill's rows ``ids`` (``m`` of them real, the rest padding, at
+    positions ``ctx - m ..``) and routing ``rec``, the request's pages.
+    Each round starts from ``s0`` on the pools' spare slot twice:
+
+    - the same catch-up on the plain path (``plain=True``: every kernel's
+      plain version, the EP MoE's transports and GEMMs too), the routing
+      replayed: one algorithm, so every GDN layer's conv and ssm state
+      within ``QWEN_ROLLBACK_TOL`` of ``s1``'s largest |value|;
+    - the accepted tokens decoded one at a time (the recurrent update,
+      K11a), each taking the catch-up's routing for its row: within
+      ``decode_tol`` ([4o]'s state-resume tolerance) where it is given,
+      else the reading is only printed.
+
+    No K / V is written (slots -1): the attention layer, the last, reads the
+    rows the serve wrote.  Run on the speculative engine once it has served.
+    """
+    cfg = CFG_QWEN
+    spare = torch.tensor([QWEN_BATCH], dtype=torch.int32, device=DEV)
+    i32 = lambda v: torch.tensor([v], dtype=torch.int32, device=DEV)  # noqa: E731
+    plain_errs, dec_errs = [], []
+    moved = min((max(state_errs(rd["s1"], rd["s0"])) for rd in rounds), default=0.0)
+    log(f"  every catch-up moves some GDN layer's state by at least {moved:.3e} of its largest "
+        f"|value|")
+    for rd in rounds:
+        bt = torch.zeros((1, QWEN_PAGES_PER_REQ), dtype=torch.int32, device=DEV)
+        bt[0, : len(rd["pages"])] = torch.tensor(rd["pages"], dtype=torch.int32)
+        ids, m = rd["ids"], rd["m"]
+        qn.hybrid_state_restore(cfg, eng.caches, rd["s0"], spare)
+        with_routes(lambda: qn.hybrid_prefill_step(
+            cfg, params, qn.hybrid_embed(params, ids), i32(m), eng.caches, bt, i32(rd["ctx"]),
+            torch.full_like(ids, -1), spare, max_q=ids.shape[0], plain=True, **kw),
+            rd["rec"], model=qn)
+        plain_errs.append(state_errs(qn.hybrid_state_snapshot(cfg, eng.caches, spare), rd["s1"]))
+        qn.hybrid_state_restore(cfg, eng.caches, rd["s0"], spare)
+        for t in range(m):
+            p = rd["ctx"] - m + t
+            forced = Record()
+            forced.extend((ri[t : t + 1], rw[t : t + 1]) for ri, rw in rd["rec"])
+            with_routes(lambda: qn.hybrid_decode_step(
+                cfg, params, qn.hybrid_embed(params, ids[t : t + 1]), i32(p), eng.caches, bt,
+                i32(p + 1), i32(-1), spare, **kw), forced, model=qn)
+        dec_errs.append(state_errs(rd["s1"], qn.hybrid_state_snapshot(cfg, eng.caches, spare)))
+    for what, errs, tol in (("the same catch-up on the plain path", plain_errs,
+                             QWEN_ROLLBACK_TOL),
+                            ("plain decoding of the same tokens", dec_errs, decode_tol)):
+        worst = [max(col) for col in zip(*errs)]
+        flat = [max(e) for e in errs]
+        held = f"tol {tol}" if tol is not None else "a reading, not held"
+        log(f"  the state after {len(errs)} rolled-back request-rounds (restore + catch-up of "
+            f"{sum(rd['m'] for rd in rounds)} accepted rows) vs {what} from the same restored "
+            f"state, the routing replayed: max rel err {max(flat, default=0.0):.3e}, median "
+            f"{statistics.median(flat) if flat else 0.0:.3e}; by GDN layer "
+            f"{[f'{e:.3e}' for e in worst]} ({held}; every conv and ssm state)")
+        if not errs or (tol is not None and max(flat) > tol):
+            raise AssertionError(f"the rolled-back state disagrees with {what}: {flat}")
+
+
+def qwen_spec_phase(params, draft, card, label, decode_held=True, **kw):
+    """[4o]'s speculative serve of the target ``qwen3_hybrid_adapter(cfg,
+    params, **kw)`` (see the module docstring): its greedy serve (the
+    reference), then chain speculation with the 1-layer draft (its weights
+    ``draft``), each serve's launches held exactly (:func:`qwen_want`);
+    every verify held to the plain path's (:func:`qwen_verifies`); every
+    rolled-back round's state to the plain path's catch-up and to plain
+    decoding (:func:`qwen_rollbacks`); every emitted token's verify row to
+    the decode path by :func:`spec_rule` through :func:`teacher_forced`.
+    With ``decode_held`` False the last two comparisons with the decode
+    path are readings, not held."""
+    cfg = CFG_QWEN
+    ps = qwen_prompts()[:QWEN_BATCH]
+    reqs = [dict(prompt=p, max_new_tokens=QWEN_NEW_TOKENS) for p in ps]
+    flags = dict(w8=kw.get("weights_q") is not None, ep=kw.get("ep_buffer") is not None)
+
+    def want(launches, calls, dcalls):
+        return qwen_want(launches, calls, dcalls, **flags)
+
+    eng = qwen_engine(params, **kw)
+    ref, _, rate = feature_run(f"{label}, greedy reference", eng[0], reqs, eng[1:], want)
+    del eng
+    eng, *timers = qwen_engine(params, draft=draft, **kw)
+    recorder = VerifyRecorder(eng, model=qn)
+    s0, catch, rounds, verifies = {}, {}, [], []
+    snapshot = eng.a.snapshot_state
+    verify_one, tree_round = eng._verify_one, eng._spec_tree_round
+
+    def snapshotting(c, si):                     # the verify's snapshot, by slot
+        snap = snapshot(c, si)
+        s0[int(si[0])] = snap
+        return snap
+
+    def catching(ids, seq_len, bt, ctx, slots, r):
+        if seq_len == eng.spec_k + 1:            # a verify, recorded by the recorder
+            out = verify_one(ids, seq_len, bt, ctx, slots, r)
+            logits, rec, _ = recorder.parts[-1]
+            verifies.append(dict(ids=ids, ctx=ctx, slots=slots, s0=s0[r.state_slot], rec=rec,
+                                 logits=logits, bt=torch.from_numpy(bt[None]).to(DEV)))
+            return out
+        out, rec = with_routes(lambda: verify_one(ids, seq_len, bt, ctx, slots, r), model=qn)
+        catch[r.state_slot] = dict(ids=ids, m=seq_len, ctx=ctx, rec=rec)
+        return out
+
+    def keeping(live):
+        catch.clear()
+        out = tree_round(live)
+        for r in live:
+            if r.state_slot in catch:
+                si = torch.tensor([r.state_slot], dtype=torch.int32, device=DEV)
+                rounds.append(dict(catch[r.state_slot], s0=s0[r.state_slot],
+                                   s1=qn.hybrid_state_snapshot(cfg, eng.caches, si),
+                                   pages=list(r.pages)))
+        return out
+
+    eng.a.snapshot_state = snapshotting
+    eng._verify_one, eng._spec_tree_round = catching, keeping
+    outs, _, spec_rate = feature_run(f"{label}, chain speculation (spec_k={SPEC_K})", eng, reqs,
+                                     timers, want)
+    st = eng.stats
+    log(f"    {st['spec_rounds']} rounds, {st['spec_accepted']} drafts accepted "
+        f"({st['spec_accepted'] / st['spec_rounds']:.2f} a round over the live requests); "
+        f"{len(rounds)} request-rounds rolled back (restore + catch-up)")
+    qwen_verifies(eng, params, verifies, kw)
+    qwen_rollbacks(eng, params, rounds, kw, QWEN_STATE_TOL if decode_held else None)
+    del eng, verifies, rounds
+    spec_rule(f"{label}, chain speculation", outs, ref, recorder,
+              lambda toks, rows: teacher_forced(lambda: qwen_engine(params, mixed=False, **kw)[0],
+                                                ps, toks, rows, QWEN_NEW_TOKENS, model=qn),
+              margin=lambda c, mine, other: flip_margin(c, mine, other, 1, 1), held=decode_held)
+    log(f"  {label}: decode tok/s ({card}): plain {rate:.1f}, chain speculation "
+        f"{spec_rate:.1f}")
 
 
 def qwen_phase(card: str):
@@ -5219,16 +5684,26 @@ def qwen_phase(card: str):
     log(f"  weights made in {time.perf_counter() - t0:.1f} s: {n_params / 1e9:.2f} B parameters; "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
     k11, k12 = check_qwen_kernels(torch.Generator(device=DEV).manual_seed(SEED + 12))
-    eng, ps, launches = qwen_serve(params, card)
+    eng, ps, launches, _ = qwen_serve(params, card)
     decode_fn, prefill_fn = qwen_step_checks(eng, params, ps, "Qwen3-Next")
     qwen_state_resume(eng, params, ps)
     log("  W8A8 (weights_q: attention q / k / v / o, GDN qkvz / out; the MoE stays float)")
     weights_q = qn.quantize_hybrid_weights(CFG_QWEN, params)
-    eng_q, _, _ = qwen_serve(params, card, weights_q)
+    eng_q, _, _, dense_rates = qwen_serve(params, card, weights_q)
     qwen_step_checks(eng_q, params, ps, "Qwen3-Next W8A8 (weights_q)", weights_q)
     del eng_q
     log("  device time by region (torch.profiler)")
     qwen_profiles(decode_fn, prefill_fn)
+    del eng, decode_fn, prefill_fn
+    t0 = time.perf_counter()
+    draft = lm.init_weights(QWEN_DRAFT, SEED + 13, torch.bfloat16, untied_lm_head=True)
+    log(f"  speculative decoding: spec_k={SPEC_K}, a 1-layer Llama draft at Qwen3-Next's "
+        f"vocabulary, hidden {QWEN_DRAFT.hidden}, made in {time.perf_counter() - t0:.1f} s")
+    qwen_spec_phase(params, draft, card, "the float target")
+    log(f"  expert parallel: qwen3_hybrid_adapter(weights_q=..., moe_weights_q="
+        f"quantize_hybrid_moe_weights(...), ep_buffer=Buffer(<one-rank NCCL group>, "
+        f"{CFG_QWEN.moe_experts}, EPConfig(comm_backend='pallas_ragged')))")
+    qwen_ep_phase(params, weights_q, card, dense_rates, draft)
     log(f"  peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB allocated on the card in "
         f"[4o]")
     return (k11, k12), {k: launches[k] for k in QWEN_KERNELS}

@@ -4,7 +4,7 @@
 bounds, plain versions and the unfused MoE, with K8a's int8 modes, K8b and
 K16a as yardsticks.
 
-    python3 scripts/probe_k16b_k13a.py [--out probe.json] [--only k16b|k13|yard]
+    python3 scripts/probe_k16b_k13a.py [--out probe.json] [--only k16b|k13|yard|qwen]
 
 Run from a repository root (or with it on ``sys.path``): the cases go through
 that tree's package and ``chip_smoke`` helpers (the timer evicts the L2 before
@@ -30,6 +30,12 @@ group (``chip_smoke.ep_group``):
   ``dequant_swiglu_quant`` and GMM2 ``dequant``, times and digests), K8b
   at 8, 64 and 512 tokens (``check_dispatch_branch``), K16a at 8 tokens
   (``check_fused_dispatch``) and its digest.
+
+``--only qwen`` times K16b at Qwen3-Next-80B-A3B's widths instead (512
+experts top-10, H 2048, I 512: layer 0's W8A8 experts of weights drawn at
+``chip_smoke.CFG_QWEN``'s widths) at 4 and 512 tokens, with its phases,
+its fixed cost and the unfused form (``_gmm_moe`` is DeepSeek-V3's: not
+timed there).
 
 Prints one line a case (chip_smoke's log) and the card, and writes the
 numbers as JSON.
@@ -60,7 +66,7 @@ def digest(t: torch.Tensor) -> str:
     return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
 
 
-def phase_split(ff, x, idx, w, moe0, seg) -> dict | None:
+def phase_split(ff, x, idx, w, moe0, seg, n_exp=cs.CFG.num_experts) -> dict | None:
     """K16b's phases from its stamps (ms; None where the tree has none)."""
     if not hasattr(ff, "fused_full_blocks"):
         return None
@@ -69,7 +75,7 @@ def phase_split(ff, x, idx, w, moe0, seg) -> dict | None:
     for _ in range(5):
         cs._flush_buf.sum()
         ff.fused_deep_moe_full_rank(x, idx, w, *moe0, group=cs.dist.group.WORLD,
-                                    num_experts=cs.CFG.num_experts, num_ranks=1,
+                                    num_experts=n_exp, num_ranks=1,
                                     seg_capacity=seg, phase_stamps=st)
         torch.cuda.synchronize()
         s = st.double().cpu() / 1e6
@@ -84,18 +90,18 @@ def phase_split(ff, x, idx, w, moe0, seg) -> dict | None:
             "GMM2 end spread": med[-1]}
 
 
-def k16b(moe0):
+def k16b(moe0, sizes=SIZES, topk=cs.CFG.topk, gmm_moe=True):
     from sgl_kernel_npu_tpu_torch.parallel import fused_full as ff
 
     group = cs.dist.group.WORLD
     w1, _, w2, _ = moe0
-    h, n1, i = w1.shape[1], w1.shape[2], w2.shape[1]
+    n_exp, h, n1, i = w1.shape[0], w1.shape[1], w1.shape[2], w2.shape[1]
     out = {}
-    for n in SIZES:
+    for n in sizes:
         gen = torch.Generator(device=cs.DEV).manual_seed(1000 + n)
-        x = cs.randn(gen, (n, cs.CFG.hidden))
-        idx, w = cs.deep_routing(gen, n)
-        buf = cs.Buffer(group, cs.CFG.num_experts, cs.EPConfig(comm_backend="pallas_ragged"))
+        x = cs.randn(gen, (n, h))
+        idx, w = cs.deep_routing(gen, n, n_exp, topk)
+        buf = cs.Buffer(group, n_exp, cs.EPConfig(comm_backend="pallas_ragged"))
         call = lambda ix=idx, **kw: buf.fused_deep_moe(x, ix, w, *moe0,  # noqa: E731
                                                        single_kernel=True, **kw)
         got, cnt, drop = call()
@@ -106,12 +112,13 @@ def k16b(moe0):
         r = dict(digest=digest(got), experts=touched, drops=int(drop), bound_ms=bms, bound_by=by,
                  ms=cs.time_ms(call, 10), dead_ms=cs.time_ms(lambda: call(dead), 10),
                  unfused_ms=cs.time_ms(lambda: buf.fused_deep_moe(x, idx, w, *moe0), 10),
-                 gmm_moe_ms=cs.time_ms(lambda: cs.m._gmm_moe(cs.CFG, moe0, x, idx, w), 5),
+                 gmm_moe_ms=(cs.time_ms(lambda: cs.m._gmm_moe(cs.CFG, moe0, x, idx, w), 5)
+                             if gmm_moe else None),
                  phases=phase_split(ff, x, idx, w, moe0,
-                                    max(buf.config.num_max_dispatch_tokens_per_rank, n)))
-        cs.log(f"  K16b {n} tokens over {touched} experts: {r['ms']:.4f} ms (all pairs dead "
-               f"{r['dead_ms']:.4f}; unfused {r['unfused_ms']:.4f}; _gmm_moe "
-               f"{r['gmm_moe_ms']:.4f}; bound {bms:.4f} {by}); digest {r['digest']}; phases "
+                                    max(buf.config.num_max_dispatch_tokens_per_rank, n), n_exp))
+        cs.log(f"  K16b {n} tokens over {touched} of {n_exp} experts: {r['ms']:.4f} ms (all "
+               f"pairs dead {r['dead_ms']:.4f}; unfused {r['unfused_ms']:.4f}; _gmm_moe "
+               f"{r['gmm_moe_ms']}; bound {bms:.4f} {by}); digest {r['digest']}; phases "
                f"{json.dumps(r['phases'])}")
         out[f"{n} tokens"] = r
     return out
@@ -166,7 +173,7 @@ def yardsticks(moe0):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the numbers here as JSON")
-    ap.add_argument("--only", choices=("k16b", "k13", "yard"), default=None,
+    ap.add_argument("--only", choices=("k16b", "k13", "yard", "qwen"), default=None,
                     help="these cases alone")
     args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -184,6 +191,13 @@ def main() -> None:
             res["k16b"] = k16b(moe0)
         if args.only in (None, "yard"):
             res["yard"] = yardsticks(moe0)
+        cs.dist.destroy_process_group()
+    if args.only == "qwen":
+        cs.ep_group()
+        cfg = dataclasses.replace(cs.CFG_QWEN, num_layers=1)
+        moe0 = cs.qn.quantize_hybrid_moe_weights(
+            cfg, cs.qn.init_hybrid_weights(cfg, cs.SEED, torch.bfloat16))[0]
+        res["k16b_qwen"] = k16b(moe0, (cs.QWEN_BATCH, cs.QWEN_CHUNK), cfg.moe_topk, False)
         cs.dist.destroy_process_group()
     if args.out:
         pathlib.Path(args.out).write_text(json.dumps(res, indent=1, default=str))

@@ -25,8 +25,15 @@ the JAX package's names and layouts (the layers' ``kind`` tags kept);
 caches a list per layer, ``{"k", "v"}`` pages ``[P, Hkv, page, D]`` or
 ``{"conv" [slots, qkv, W - 1], "ssm" [slots, HV, K, V] f32}`` state pools,
 all updated in place.  The steps return the un-normed hidden state, as
-JAX's; :func:`hybrid_lm_head` applies the final norm.  Not ported (ROADMAP
-item 14): the expert-parallel MoE (``moe_weights_q`` / ``ep_buffer``).
+JAX's; :func:`hybrid_lm_head` applies the final norm.
+
+``moe_weights_q`` (:func:`quantize_hybrid_moe_weights`) with ``ep_buffer``
+(a ``parallel.buffer.Buffer`` built for ``moe_experts``) serves the routed
+experts expert parallel through ``Buffer.fused_deep_moe`` (DeepSeek-V3's
+W8A8 chain: the wire quant K5, the exchanges K15a / K15b, K8a twice, or K16b
+with ``single_kernel``); the shared expert stays local and float.  Passing
+one of the two without the other raises ``ValueError`` (JAX serves the dense
+MoE then).
 """
 
 from __future__ import annotations
@@ -54,11 +61,8 @@ from sgl_kernel_npu_tpu_torch.ops.mem_cache.kv_cache import write_kv
 from sgl_kernel_npu_tpu_torch.ops.norm import rms_norm_ref
 from sgl_kernel_npu_tpu_torch.ops.quant import quant_per_token, quant_per_token_ref
 from sgl_kernel_npu_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from sgl_kernel_npu_tpu_torch.parallel.fused_moe import quantize_expert_weights
 from sgl_kernel_npu_tpu_torch.utils.common import resolve_device, to_torch, top_k
-
-EP_REFUSAL = ("the hybrid's expert-parallel MoE (moe_weights_q / ep_buffer on "
-              "Buffer.fused_deep_moe) is not ported yet (ROADMAP item 14)")
-
 
 @dataclasses.dataclass(frozen=True)
 class Qwen3NextConfig:
@@ -262,9 +266,21 @@ def quantize_hybrid_weights(cfg: Qwen3NextHybridConfig, params: dict) -> dict:
         for li, lw in enumerate(params["layers"])]}
 
 
-def quantize_hybrid_moe_weights(cfg: Qwen3NextHybridConfig, params: dict, tn=None):
-    """JAX's per-layer W8A8 experts for the expert-parallel MoE: not ported."""
-    raise NotImplementedError(EP_REFUSAL)
+def quantize_hybrid_moe_weights(cfg: Qwen3NextHybridConfig, params: dict, tn=None) -> list:
+    """Per-layer W8A8 experts for the expert-parallel MoE: JAX's
+    ``quantize_expert_weights`` over each layer's ``moe_gate`` / ``moe_up``
+    / ``moe_down`` → ``(w1 [E, H, 2I], w1_scale [E, 2I], w2 [E, I, H],
+    w2_scale [E, H])``, gate / up packed at width ``tn`` (full width by
+    default)."""
+    return [quantize_expert_weights(lw["moe_gate"], lw["moe_up"], lw["moe_down"], tn=tn)
+            for lw in params["layers"]]
+
+
+def from_jax_moe_weights_q(moe_weights_q_np: list, device="cuda") -> list:
+    """JAX's :func:`quantize_hybrid_moe_weights` output (numpy leaves) → the
+    port's per-layer 4-tuples on ``device``; the layouts already agree."""
+    dev = resolve_device(device)
+    return [tuple(to_torch(a, dev) for a in t) for t in moe_weights_q_np]
 
 
 def hybrid_embed(params: dict, ids: torch.Tensor) -> torch.Tensor:
@@ -341,19 +357,27 @@ def _router(cfg: Qwen3NextHybridConfig, lw: dict, x):
     return topi, topw
 
 
-def _hybrid_mlp(cfg: Qwen3NextHybridConfig, lw: dict, lq, x, plain: bool):
-    """The layer's MLP: the MoE (every expert for every token, batched over
-    the stored weights into ``[E, N, .]``, then the top-k combined by one-hot
-    weights) plus the sigmoid-gated shared expert; or the dense SwiGLU
-    (W8A8 with ``lq``)."""
+def _hybrid_mlp(cfg: Qwen3NextHybridConfig, lw: dict, lq, x, plain: bool, ep=None):
+    """The layer's MLP: the MoE plus the sigmoid-gated shared expert, or the
+    dense SwiGLU (W8A8 with ``lq``).  The MoE's routed experts run expert
+    parallel with ``ep = (buffer, the layer's W8A8 experts)``
+    (``Buffer.fused_deep_moe`` on bf16 rows, cast back to x's type), else
+    every expert for every token, batched over the stored weights into
+    ``[E, N, .]``, the top-k combined by one-hot weights."""
     if cfg.moe_experts > 0:
         topi, topw = _router(cfg, lw, x)
-        g = torch.matmul(x, lw["moe_gate"])                          # [E, N, I]
-        u = torch.matmul(x, lw["moe_up"])
-        y = torch.matmul(_swiglu(g, u), lw["moe_down"])              # [E, N, H]
-        onehot = torch.nn.functional.one_hot(topi.long(), cfg.moe_experts).to(x.dtype)
-        w = (topw[..., None].to(x.dtype) * onehot).sum(dim=1)        # [N, E]
-        out = torch.einsum("ne,enh->nh", w, y)
+        if ep is not None:
+            buf, wq = ep
+            out, _, _ = buf.fused_deep_moe(x.to(torch.bfloat16), topi.to(torch.int32),
+                                           topw.float(), *wq, plain=plain)
+            out = out.to(x.dtype)
+        else:
+            g = torch.matmul(x, lw["moe_gate"])                      # [E, N, I]
+            u = torch.matmul(x, lw["moe_up"])
+            y = torch.matmul(_swiglu(g, u), lw["moe_down"])          # [E, N, H]
+            onehot = torch.nn.functional.one_hot(topi.long(), cfg.moe_experts).to(x.dtype)
+            w = (topw[..., None].to(x.dtype) * onehot).sum(dim=1)    # [N, E]
+            out = torch.einsum("ne,enh->nh", w, y)
         shared = _swiglu(x @ lw["ws_gate"], x @ lw["ws_up"]) @ lw["ws_down"]
         return out + torch.sigmoid(x @ lw["ws_gate_w"]) * shared
     if lq is not None:
@@ -363,7 +387,7 @@ def _hybrid_mlp(cfg: Qwen3NextHybridConfig, lw: dict, lq, x, plain: bool):
 
 
 def _finish(cfg: Qwen3NextConfig, w: dict, core_out, z, x, lq=None, hybrid_cfg=None,
-            plain: bool = False):
+            plain: bool = False, ep=None):
     """The gated RMSNorm of the rule's output, the out-projection and the
     residual, then the MLP block (the hybrid's, or the GDN stack's dense
     SwiGLU)."""
@@ -373,7 +397,7 @@ def _finish(cfg: Qwen3NextConfig, w: dict, core_out, z, x, lq=None, hybrid_cfg=N
     x = x + (o @ w["w_out"] if lq is None else w8a8.project(o, lq["w_out"], x.dtype, plain=plain))
     if hybrid_cfg is not None:
         h2 = rms_norm_ref(x, w["ln2"], hybrid_cfg.rms_eps)
-        return x + _hybrid_mlp(hybrid_cfg, w, lq, h2, plain)
+        return x + _hybrid_mlp(hybrid_cfg, w, lq, h2, plain, ep)
     h2 = rms_norm_ref(x, w["ln2"])
     if lq is not None:
         return x + w8a8.mlp_swiglu(h2, lq["w_gate_up"], lq["w_down"], x.dtype, plain=plain)
@@ -411,7 +435,7 @@ def _apply_rope_partial(cfg: Qwen3NextHybridConfig, x, cos, sin):
 
 
 def _attn_layer(cfg: Qwen3NextHybridConfig, lw: dict, lq, x, cache: dict, slot_mapping, cos,
-                sin, attend, plain: bool):
+                sin, attend, plain: bool, ep=None):
     """An attention layer: projections, rope, the K / V rows written into
     the paged cache, ``attend(q [N, Hq, D], k_cache, v_cache)``, the output
     gate, the out-projection and the MLP block."""
@@ -427,12 +451,23 @@ def _attn_layer(cfg: Qwen3NextHybridConfig, lw: dict, lq, x, cache: dict, slot_m
         attn = attn * torch.sigmoid(gate)
     x = x + (attn @ lw["wo"] if lq is None
              else w8a8.project(attn, lq["wo"], x.dtype, plain=plain))
-    return x + _hybrid_mlp(cfg, lw, lq, rms_norm_ref(x, lw["ln2"], cfg.rms_eps), plain)
+    return x + _hybrid_mlp(cfg, lw, lq, rms_norm_ref(x, lw["ln2"], cfg.rms_eps), plain, ep)
 
 
-def _no_ep(moe_weights_q, ep_buffer) -> None:
-    if moe_weights_q is not None or ep_buffer is not None:
-        raise NotImplementedError(EP_REFUSAL)
+def check_ep(moe_weights_q, ep_buffer) -> None:
+    """The expert-parallel MoE takes both ``moe_weights_q`` and
+    ``ep_buffer``: one alone raises ``ValueError`` (JAX silently serves the
+    dense MoE then, which would hide the EP path)."""
+    if (moe_weights_q is None) != (ep_buffer is None):
+        given, missing = (("moe_weights_q", "ep_buffer") if ep_buffer is None
+                          else ("ep_buffer", "moe_weights_q"))
+        raise ValueError(f"the expert-parallel MoE takes {given} with {missing}: pass both "
+                         "or neither")
+
+
+def _layer_ep(moe_weights_q, ep_buffer, li: int):
+    """Layer ``li``'s ``(buffer, W8A8 experts)``, or None (the dense MoE)."""
+    return None if ep_buffer is None else (ep_buffer, moe_weights_q[li])
 
 
 # ---------------------------------------------------------------------------
@@ -487,7 +522,7 @@ def hybrid_prefill_step(cfg: Qwen3NextHybridConfig, params: dict, x, seq_lens, c
     the slot's conv and ssm states and write them back; pad rows touch
     neither.  Returns ``(hidden [S, hidden], caches)``, the caches updated
     in place."""
-    _no_ep(moe_weights_q, ep_buffer)
+    check_ep(moe_weights_q, ep_buffer)
     gd = cfg.gdn
     s = x.shape[0]
     dev = x.device
@@ -507,9 +542,10 @@ def hybrid_prefill_step(cfg: Qwen3NextHybridConfig, params: dict, x, seq_lens, c
 
     for li, lw in enumerate(params["layers"]):
         lq = None if weights_q is None else weights_q["layers"][li]
+        ep = _layer_ep(moe_weights_q, ep_buffer, li)
         cache = caches[li]
         if cfg.is_attn(li):
-            x = _attn_layer(cfg, lw, lq, x, cache, slot_mapping, cos, sin, attend, plain)
+            x = _attn_layer(cfg, lw, lq, x, cache, slot_mapping, cos, sin, attend, plain, ep)
             continue
         qkv, z, b, a = _project(gd, lw, x, lq, plain)
         qkv = torch.where(mask[:, None], qkv, 0.0)            # pads must not touch the state
@@ -529,7 +565,7 @@ def hybrid_prefill_step(cfg: Qwen3NextHybridConfig, params: dict, x, seq_lens, c
                                           chunk_size=gd.chunk_size,
                                           initial_state=cache["ssm"].index_select(0, slot),
                                           use_qk_l2norm_in_kernel=True)
-        x = _finish(gd, lw, o[0], z, x, lq, hybrid_cfg=cfg, plain=plain)
+        x = _finish(gd, lw, o[0], z, x, lq, hybrid_cfg=cfg, plain=plain, ep=ep)
         cache["conv"].index_copy_(0, slot, new_conv.to(cache["conv"].dtype))
         cache["ssm"].index_copy_(0, slot, final)
     return x, caches
@@ -542,7 +578,7 @@ def hybrid_decode_step(cfg: Qwen3NextHybridConfig, params: dict, x, positions, c
     include the new token; ``state_idx [B]`` each row's state slot, -1 on
     pad rows (which read zeros and write nothing), slot ``-1`` rows write no
     K / V.  Returns ``(hidden [B, hidden], caches)``, updated in place."""
-    _no_ep(moe_weights_q, ep_buffer)
+    check_ep(moe_weights_q, ep_buffer)
     gd = cfg.gdn
     bsz = x.shape[0]
     cos, sin = rope_cos_sin(positions.to(x.device), cfg.rotary_dim or cfg.head_dim,
@@ -555,9 +591,10 @@ def hybrid_decode_step(cfg: Qwen3NextHybridConfig, params: dict, x, positions, c
 
     for li, lw in enumerate(params["layers"]):
         lq = None if weights_q is None else weights_q["layers"][li]
+        ep = _layer_ep(moe_weights_q, ep_buffer, li)
         cache = caches[li]
         if cfg.is_attn(li):
-            x = _attn_layer(cfg, lw, lq, x, cache, slot_mapping, cos, sin, attend, plain)
+            x = _attn_layer(cfg, lw, lq, x, cache, slot_mapping, cos, sin, attend, plain, ep)
             continue
         qkv, z, b, a = _project(gd, lw, x, lq, plain)
         qkv_tok, _ = causal_conv1d_update(qkv, cache["conv"], lw["conv_w"], lw["conv_b"],
@@ -566,7 +603,7 @@ def hybrid_decode_step(cfg: Qwen3NextHybridConfig, params: dict, x, positions, c
         o, _ = fused_sigmoid_gating_delta_rule_update(
             lw["A_log"], a[:, None], lw["dt_bias"], q[:, None], k[:, None], v[:, None],
             b[:, None], cache["ssm"], state_idx, use_qk_l2norm_in_kernel=True)
-        x = _finish(gd, lw, o[:, 0], z, x, lq, hybrid_cfg=cfg, plain=plain)
+        x = _finish(gd, lw, o[:, 0], z, x, lq, hybrid_cfg=cfg, plain=plain, ep=ep)
     return x, caches
 
 

@@ -261,14 +261,17 @@ def qwen3_hybrid_adapter(cfg, params, dtype=None, *, weights_q=None, moe_weights
     one request a prefill call (``prefill_single``), the snapshot / restore
     hooks over the pools.  ``dtype`` is the KV cache's and the conv pools'
     (:func:`_cache_dtype`; the ssm pools are f32); ``weights_q``
-    (``models.qwen3_next.quantize_hybrid_weights``) serves W8A8.  No host
-    tier (no page hooks, as JAX's).  The expert-parallel MoE
-    (``moe_weights_q`` / ``ep_buffer``) is not ported: NotImplementedError
-    (ROADMAP item 14).  Each prefill call takes ``max_q`` = its row count."""
+    (``models.qwen3_next.quantize_hybrid_weights``) serves W8A8;
+    ``moe_weights_q`` (``models.qwen3_next.quantize_hybrid_moe_weights``)
+    with ``ep_buffer`` (a ``parallel.buffer.Buffer`` built for
+    ``cfg.moe_experts``) serves the routed experts expert parallel through
+    ``Buffer.fused_deep_moe``; one of the two alone raises ``ValueError``.
+    No host tier (no page hooks, as JAX's).  Each prefill call takes
+    ``max_q`` = its row count."""
     from sgl_kernel_npu_tpu_torch.models import qwen3_next as m
 
-    if moe_weights_q is not None or ep_buffer is not None:
-        raise NotImplementedError(m.EP_REFUSAL)
+    m.check_ep(moe_weights_q, ep_buffer)
+    kw = dict(weights_q=weights_q, moe_weights_q=moe_weights_q, ep_buffer=ep_buffer)
     dev = resolve_device(device)
     dtype = _cache_dtype(dtype, dev)
     return ModelAdapter(
@@ -277,9 +280,9 @@ def qwen3_hybrid_adapter(cfg, params, dtype=None, *, weights_q=None, moe_weights
         embed=lambda ids: m.hybrid_embed(params, ids),
         lm_head=lambda x: m.hybrid_lm_head(params, x),
         prefill_step=lambda x, sl, c, bt, ctx, slots, si, li: m.hybrid_prefill_step(
-            cfg, params, x, sl, c, bt, ctx, slots, si, max_q=x.shape[0], weights_q=weights_q),
+            cfg, params, x, sl, c, bt, ctx, slots, si, max_q=x.shape[0], **kw),
         decode_step=lambda x, pos, c, bt, ctx, slots, si, li: m.hybrid_decode_step(
-            cfg, params, x, pos, c, bt, ctx, slots, si, weights_q=weights_q),
+            cfg, params, x, pos, c, bt, ctx, slots, si, **kw),
         init_cache=lambda n, s_: m.init_hybrid_cache(cfg, n, s_, dtype, device=dev),
         snapshot_state=lambda c, si: m.hybrid_state_snapshot(cfg, c, si),
         restore_state=lambda c, snap, si: m.hybrid_state_restore(cfg, c, snap, si),
@@ -384,10 +387,12 @@ class Engine:
     prefills one chunk each tick; ``mixed=False`` prefills first.
     ``spec_k > 0`` with a ``draft_adapter`` (the target's page geometry; its
     own KV pool on the same pages) decodes speculatively: ``spec_k`` draft
-    tokens a round, one varlen verify; ``spec_tree_width > 1`` branches the
-    first draft token top-B with copy-on-write suffix pages (width 1: the
-    chain).  ``host_pool_pages > 0`` gives the engine an L2 host KV tier of
-    its own, ``host_pool`` attaches a shared one (:class:`HostKVPool`)."""
+    tokens a round, one varlen verify (a verify a request, the recurrent
+    state rolled back, for a target with ``prefill_single`` or the snapshot
+    hooks); ``spec_tree_width > 1`` branches the first draft token top-B
+    with copy-on-write suffix pages (width 1: the chain).
+    ``host_pool_pages > 0`` gives the engine an L2 host KV tier of its own,
+    ``host_pool`` attaches a shared one (:class:`HostKVPool`)."""
 
     def __init__(self, adapter: ModelAdapter, num_pages: int, *, max_batch: int = 8,
                  max_pages_per_req: int = 16, prefill_chunk: int = 64, mixed: bool = True,
@@ -430,14 +435,17 @@ class Engine:
                                  "draft pool is not offloaded)")
             if self._host.page != self.page:
                 raise ValueError("host pool page size != engine page size")
-        # --- speculative decoding (EAGLE-chain style; paged-KV adapters) ---
+        # --- speculative decoding (EAGLE-chain style) ---
         # The draft model shares the target's page geometry, so one block
         # table and slot mapping drive both KV pools.  Rejected tokens need no
-        # rollback: their stale cache rows sit beyond every later context
-        # length until the position is written again.
+        # rollback in paged KV: their stale cache rows sit beyond every later
+        # context length until the position is written again.  A target with
+        # recurrent state or one-request prefill is verified a request at a
+        # time, its state rolled back past rejected tokens (the chain only).
         self.spec_k = spec_k
         self.draft = draft_adapter
         self.spec_width = spec_tree_width
+        self._one_request = adapter.prefill_single or adapter.snapshot_state is not None
         if spec_k > 0 and draft_adapter is None:
             raise ValueError("spec_k > 0 requires a draft_adapter")
         if draft_adapter is not None:
@@ -454,19 +462,11 @@ class Engine:
         if spec_tree_width > 1:
             if draft_adapter is None:
                 raise ValueError("spec_tree_width > 1 requires a draft_adapter")
-            if adapter.snapshot_state is not None or adapter.prefill_single:
+            if self._one_request:
                 raise ValueError("tree speculation needs a paged-KV target "
                                  "(no recurrent state / single-prefill)")
             if spec_tree_width > max_batch:
                 raise ValueError("spec_tree_width must be <= max_batch")
-        if draft_adapter is not None and (adapter.prefill_single
-                                          or adapter.snapshot_state is not None):
-            # JAX verifies such a target one request at a time, rolling its
-            # recurrent state back (_verify_one_call)
-            raise NotImplementedError(
-                "speculative decoding of a target with recurrent state or one-request "
-                "prefill (Qwen3-Next's hybrid) is not ported: JAX's one-request verify "
-                "with the state rolled back (ROADMAP item 14)")
         if draft_adapter is not None:
             self.draft_caches = draft_adapter.init_cache(num_pages, max_batch + 1)
 
@@ -762,6 +762,20 @@ class Engine:
                                              self._dead_states(seq_lens.shape[0]), lora)
         return torch.argmax(self.a.lm_head(h), dim=-1).to(torch.int32)
 
+    def _verify_one(self, ids, seq_len: int, bt, ctx: int, slots, r: _Request) -> torch.Tensor:
+        """One request's verify or catch-up prefill on its own state slot
+        (JAX's ``_verify_one_call``, for targets whose prefill takes one
+        request: a recurrence is per request) → every row's argmax on the
+        device."""
+        t = self._tensor
+        n = ids.shape[0]
+        x = self.a.embed(ids)
+        h, self.caches = self.a.prefill_step(
+            x, t(np.asarray([seq_len], np.int32)), self.caches, t(bt[None]),
+            t(np.asarray([ctx], np.int32)), slots, t(np.asarray([r.state_slot], np.int32)),
+            t(np.full((n,), r.lora_id, np.int32)))
+        return torch.argmax(self.a.lm_head(h), dim=-1).to(torch.int32)
+
     def _prefill(self, r: _Request) -> None:
         chunk = min(self.prefill_chunk, r.prompt_len - r.pos)
         self._ensure_pages(r, r.pos + chunk)
@@ -948,10 +962,10 @@ class Engine:
             chains.append(torch.stack(chain, dim=1))
         drafts = torch.stack(chains, dim=1)                # [n, B, k]
 
-        # --- one packed varlen verify over n*B virtual chain-requests ---
+        # --- one packed varlen verify over n*B virtual chain-requests, or
+        # (one-request targets, B = 1) a verify a request, its recurrent
+        # state snapshotted first ---
         cand = torch.cat([t(root[:n])[:, None, None].expand(n, B, 1), drafts], dim=2)
-        ids = torch.zeros((b * d,), dtype=torch.int32, device=self.device)
-        ids[: n * B * d] = cand.reshape(-1)
         seq_lens = np.zeros((b,), np.int32)
         vctx = np.ones((b,), np.int32)
         vslots = np.full((b * d,), -1, np.int32)
@@ -964,9 +978,23 @@ class Engine:
                 btv[vi] = btp[p, i]
                 vslots[vi * d : (vi + 1) * d] = [path_slot(i, p, Ls[i] - 1 + j)
                                                  for j in range(d)]
-        target = self._verify(ids, t(seq_lens), t(btv), t(vctx), t(vslots),
-                              t(np.repeat(vlora, d)))
-        target = target.reshape(b, d)[: n * B].reshape(n, B, d)
+        vslots_t = t(vslots)
+        snaps = []
+        if self._one_request:
+            rows = []
+            for i, r in enumerate(live):
+                if self.a.snapshot_state is not None:
+                    snaps.append(self.a.snapshot_state(self.caches,
+                                                       t(np.asarray([r.state_slot], np.int32))))
+                rows.append(self._verify_one(cand[i, 0], d, btv[i], Ls[i] + k,
+                                             vslots_t[i * d : (i + 1) * d], r))
+            target = torch.stack(rows)[:, None]
+        else:
+            ids = torch.zeros((b * d,), dtype=torch.int32, device=self.device)
+            ids[: n * B * d] = cand.reshape(-1)
+            target = self._verify(ids, t(seq_lens), t(btv), t(vctx), vslots_t,
+                                  t(np.repeat(vlora, d)))
+            target = target.reshape(b, d)[: n * B].reshape(n, B, d)
 
         # --- acceptance over the REAL tree (root + B sibling chains) ---
         nodes = 1 + B * k
@@ -999,6 +1027,18 @@ class Engine:
                 dst_ids += r.pages[plo[i] : plo[i] + len(scratch[(i, win)])]
             self._commit(r, new)
             self.stats["spec_accepted"] += n_acc
+            if snaps and n_acc < k:
+                # the verify advanced the state through rejected rows: roll it
+                # back, then advance it through exactly the accepted ones
+                # ([last, d1..d_nacc]); n_acc == k needs neither
+                m = n_acc + 1
+                self.caches = self.a.restore_state(self.caches, snaps[i],
+                                                   t(np.asarray([r.state_slot], np.int32)))
+                cu_ids = np.zeros((d,), np.int32)
+                cu_ids[:m] = cand_nodes[i, :m]
+                cu_slots = np.full((d,), -1, np.int32)
+                cu_slots[:m] = vslots[i * d : i * d + m]
+                self._verify_one(t(cu_ids), m, btv[i], Ls[i] - 1 + m, t(cu_slots), r)
         if src_ids:
             src_t, dst_t = t(np.asarray(src_ids, np.int64)), t(np.asarray(dst_ids, np.int64))
             _copy_pages(self.caches, src_t, dst_t)

@@ -63,12 +63,9 @@ def _slots(bt_row, positions):
     return np.asarray([bt_row[p // PAGE] * PAGE + p % PAGE for p in positions], np.int32)
 
 
-def run_steps(jcfg, tcfg, jp, tp, seed, jdt, tdt, rel, kw_j=None, kw_t=None):
-    """A decode step (3 live rows at contexts 5, 13, 22 on state slots 2, 0,
-    3, and a pad row: slot -1, state -1), then one request's 12-row prefill
-    chunk (9 tokens at context 30, 3 pad rows) on state slot 1, both over
-    caches of random history: hidden states, then every cache, compared."""
-    kw_j, kw_t = kw_j or {}, kw_t or {}
+def step_inputs(jcfg, seed, jdt, tdt):
+    """:func:`run_steps`' inputs from ``seed``: caches of random history
+    (JAX's and the port's), the decode batch and the prefill chunk."""
     rng = np.random.default_rng(seed)
     c_j, c_t = _caches(rng, jcfg, 33, 5, jdt, tdt)
     bt = np.arange(1, 33, dtype=np.int32).reshape(4, 8)
@@ -78,28 +75,59 @@ def run_steps(jcfg, tcfg, jp, tp, seed, jdt, tdt, rel, kw_j=None, kw_t=None):
     slots[3] = -1
     state = np.asarray([2, 0, 3, -1], np.int32)
     x = (rng.standard_normal((4, jcfg.hidden)) * 0.5).astype(np.float32)
-    with jax.default_matmul_precision("float32"):
-        dec = jax.jit(lambda *a: jm.hybrid_decode_step(jcfg, jp, *a, **kw_j))
-        yj, c_j = dec(jx(x, jdt), jx(pos), c_j, jx(bt), jx(ctx), jx(slots), jx(state))
-    yt, c_t = tm.hybrid_decode_step(tcfg, tp, tt(x, tdt), tt(pos), c_t, tt(bt), tt(ctx),
-                                    tt(slots), tt(state), **kw_t)
-    assert yt.dtype == tdt
-    _close(yt[:3], yj[:3], rel)
     n, s, c0 = 9, 12, 30
     pslots = np.concatenate([_slots(bt[1], range(c0 - n, c0)), np.full(s - n, -1, np.int32)])
     xp = (rng.standard_normal((s, jcfg.hidden)) * 0.5).astype(np.float32)
-    args = (jx(np.asarray([n], np.int32)), jx(bt[1:2]), jx(np.asarray([c0], np.int32)),
-            jx(pslots), jx(np.asarray([1], np.int32)))
+    return dict(c_j=c_j, c_t=c_t, bt=bt, ctx=ctx, pos=pos, slots=slots, state=state, x=x, n=n,
+                s=s, c0=c0, pslots=pslots, xp=xp)
+
+
+def jax_steps(jcfg, jp, inp, jdt, kw_j=None):
+    """JAX's decode step, then its prefill chunk on the caches the step
+    left → (decode hidden, prefill hidden, caches)."""
+    kw_j = kw_j or {}
+    i = inp
     with jax.default_matmul_precision("float32"):
+        dec = jax.jit(lambda *a: jm.hybrid_decode_step(jcfg, jp, *a, **kw_j))
+        yj, c_j = dec(jx(i["x"], jdt), jx(i["pos"]), i["c_j"], jx(i["bt"]), jx(i["ctx"]),
+                      jx(i["slots"]), jx(i["state"]))
+        args = (jx(np.asarray([i["n"]], np.int32)), jx(i["bt"][1:2]),
+                jx(np.asarray([i["c0"]], np.int32)), jx(i["pslots"]),
+                jx(np.asarray([1], np.int32)))
         pre = jax.jit(lambda x_, c_, sl, b_, cx, ps, si: jm.hybrid_prefill_step(
-            jcfg, jp, x_, sl, c_, b_, cx, ps, si, max_q=s, **kw_j))
-        hj, c_j = pre(jx(xp, jdt), c_j, *args)
+            jcfg, jp, x_, sl, c_, b_, cx, ps, si, max_q=i["s"], **kw_j))
+        hj, c_j = pre(jx(i["xp"], jdt), c_j, *args)
+    return yj, hj, c_j
+
+
+def port_steps(tcfg, tp, inp, want, tdt, rel, kw_t=None):
+    """The port's decode step and prefill chunk on the same inputs, each
+    held to ``want`` (:func:`jax_steps`) within ``rel`` of the largest
+    value, then every cache; returns the port's caches."""
+    kw_t = kw_t or {}
+    i = inp
+    yj, hj, c_j = want
+    c_t = [{k: v.clone() for k, v in c.items()} for c in i["c_t"]]
+    yt, c_t = tm.hybrid_decode_step(tcfg, tp, tt(i["x"], tdt), tt(i["pos"]), c_t, tt(i["bt"]),
+                                    tt(i["ctx"]), tt(i["slots"]), tt(i["state"]), **kw_t)
+    assert yt.dtype == tdt
+    _close(yt[:3], yj[:3], rel)
+    n = i["n"]
     ht, c_t = tm.hybrid_prefill_step(
-        tcfg, tp, tt(xp, tdt), tt(np.asarray([n], np.int32)), c_t, tt(bt[1:2]),
-        tt(np.asarray([c0], np.int32)), tt(pslots), tt(np.asarray([1], np.int32)), max_q=s,
-        **kw_t)
+        tcfg, tp, tt(i["xp"], tdt), tt(np.asarray([n], np.int32)), c_t, tt(i["bt"][1:2]),
+        tt(np.asarray([i["c0"]], np.int32)), tt(i["pslots"]), tt(np.asarray([1], np.int32)),
+        max_q=i["s"], **kw_t)
     _close(ht[:n], hj[:n], rel)
     for lj, lt in zip(c_j, c_t):
         for k in lj:
             _close(lt[k], lj[k], rel)
     return c_t
+
+
+def run_steps(jcfg, tcfg, jp, tp, seed, jdt, tdt, rel, kw_j=None, kw_t=None):
+    """A decode step (3 live rows at contexts 5, 13, 22 on state slots 2, 0,
+    3, and a pad row: slot -1, state -1), then one request's 12-row prefill
+    chunk (9 tokens at context 30, 3 pad rows) on state slot 1, both over
+    caches of random history: hidden states, then every cache, compared."""
+    inp = step_inputs(jcfg, seed, jdt, tdt)
+    return port_steps(tcfg, tp, inp, jax_steps(jcfg, jp, inp, jdt, kw_j), tdt, rel, kw_t)

@@ -2,7 +2,7 @@
 the engine: the W8A8 steps, a prompt prefilled in chunks resumes its GDN
 state, and ``Engine`` +
 ``qwen3_hybrid_adapter`` gives the JAX engine's tokens where the JAX engine
-is right and departs where it is not; the refusals.
+is right and departs where it is not; what it still refuses.
 
 The widths and helpers of ``tests/_torch_qwen3.py``.  Tolerances: the
 port's chunked against its one-shot prefill within 2e-3 of the largest
@@ -139,24 +139,23 @@ def test_hybrid_engine_departures():
 
 
 def test_hybrid_refusals():
-    """The expert-parallel MoE (item 14) raises NotImplementedError at the
-    adapter, the steps and the expert quantizer; the host tier has no page
-    hooks to offload with (ValueError, as JAX); a hybrid target under
-    speculative decoding raises NotImplementedError naming item 14."""
+    """What the hybrid still refuses: ``moe_weights_q`` without
+    ``ep_buffer`` and the reverse (``ValueError`` naming the other, at the
+    adapter and the steps; JAX serves the dense MoE there), the host tier
+    (no page hooks to offload with; ``ValueError``, as JAX) and tree
+    speculation of a hybrid target (``ValueError``, as JAX)."""
     jcfg, tcfg = _cfgs(num_layers=2, moe_experts=4, moe_topk=2)
     tp = tm.init_hybrid_weights(tcfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="moe_weights_q with ep_buffer"):
         qwen3_hybrid_adapter(tcfg, tp, moe_weights_q=[None, None], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="ep_buffer with moe_weights_q"):
         qwen3_hybrid_adapter(tcfg, tp, ep_buffer=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tm.quantize_hybrid_moe_weights(tcfg, tp)
     caches = tm.init_hybrid_cache(tcfg, 4, 2, device="cpu")
     z = torch.zeros((1, tcfg.hidden))
     i = torch.zeros((1,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="ep_buffer with moe_weights_q"):
         tm.hybrid_decode_step(tcfg, tp, z, i, caches, i[None], i + 1, i, i, ep_buffer=object())
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="moe_weights_q with ep_buffer"):
         tm.hybrid_prefill_step(tcfg, tp, z, i + 1, caches, i[None], i + 1, i, i,
                                moe_weights_q=[None, None])
     adapter = qwen3_hybrid_adapter(tcfg, tp, device="cpu")
@@ -166,5 +165,5 @@ def test_hybrid_refusals():
 
     dcfg = tl.LlamaConfig(vocab_size=tcfg.vocab_size, num_layers=1, page_size=tcfg.page_size)
     draft = llama_adapter(dcfg, tl.init_weights(dcfg, 1, device="cpu"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Engine(adapter, 16, spec_k=2, draft_adapter=draft, device="cpu")
+    with pytest.raises(ValueError, match="tree speculation"):
+        Engine(adapter, 16, spec_k=2, draft_adapter=draft, spec_tree_width=2, device="cpu")

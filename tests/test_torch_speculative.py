@@ -11,9 +11,8 @@ speculative engine's; on JAX's tiny DeepSeek-V3 with the 1-layer self-draft
 of ``tests/test_spec_e2e.py`` (float experts, against the JAX engine's
 tokens; W8A8 experts, against the port's plain engine); an oracle draft (the
 target itself) accepts every draft token.  No page leaks; the JAX engine's
-refusals are ``ValueError``s, a target with recurrent state or one-request
-prefill under speculation a ``NotImplementedError`` (Qwen3-Next is not
-ported).  The tree is compared with the port's plain engine and JAX's ops,
+refusals are ``ValueError``s (a target with recurrent state or one-request
+prefill under chain speculation: ``tests/test_torch_qwen3_next_ep_spec.py``).  The tree is compared with the port's plain engine and JAX's ops,
 not with JAX's tree engine (slow to trace on the CPU)."""
 
 import dataclasses
@@ -269,9 +268,9 @@ def test_deepseek_self_draft_matches(deepseek, width):
 
 
 def test_refusals(llama):
-    """The JAX engine's ``ValueError``s, and ``NotImplementedError`` where
-    JAX would verify one request at a time (a target with recurrent state or
-    one-request prefill: Qwen3-Next, not ported)."""
+    """The JAX engine's ``ValueError``s; a target with recurrent state or
+    one-request prefill is refused tree speculation (``ValueError``, as
+    JAX) and builds for the chain (a verify a request, as JAX's)."""
     _, _, _, tcfg, tp, dp = llama
     target, draft = llama_adapter(tcfg, tp, device="cpu"), llama_adapter(tcfg, dp, device="cpu")
     kw = dict(num_pages=32, device="cpu")
@@ -287,8 +286,7 @@ def test_refusals(llama):
               dataclasses.replace(target, snapshot_state=lambda c, s: c)):
         with pytest.raises(ValueError):
             Engine(t, spec_k=2, draft_adapter=draft, spec_tree_width=2, **kw)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            Engine(t, spec_k=2, draft_adapter=draft, **kw)
+        assert Engine(t, spec_k=2, draft_adapter=draft, **kw).spec_k == 2   # chain: builds
     eng = Engine(target, spec_k=2, draft_adapter=draft, **kw)
     with pytest.raises(ValueError):
         eng.add_request([1, 2, 3], 4, sampling=SamplingParams(temperature=1.0))
