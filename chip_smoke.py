@@ -225,6 +225,30 @@ Phases (any failure raises and the script exits non-zero without a result):
    and ``ep_core.combine_core`` to ``_gmm_moe``, timed beside K15b + K8a;
    gmm1_ring on bf16 tokens (K3's float-input mode)
    bit-equal to K5 + K3 and timed.
+4p. The rest of DeepEP's ``Buffer``, after [4l] while [4]'s experts and
+   [4k]'s one-rank NCCL group are alive, at the reference's low-latency
+   default: 128 tokens, H 7168, top-8 of 256 experts, about 25 % of the
+   (token, k) slots at -1.  (a) ``low_latency_dispatch`` (int8, validated;
+   monitored on ``"pallas_ragged"``: K15c) → y = dequant(recv_x) · (global
+   expert id + 1) → ``low_latency_combine`` (bf16) on the ``"xla"``,
+   ``"pallas"`` and ``"pallas_ragged"`` transports: the packed ``[256, 128,
+   7168]`` rows, scales, counts, drops and output bit-identical to
+   ``"xla"``, the flags zero, ``calc_diff`` to the dense golden below 1e-4.
+   (b) The decode MoE on that path: LL dispatch → the live rows gathered by
+   the counts on the device → K8a ``dequant_swiglu_quant`` → K8a ``dequant``
+   → LL combine, on layer 0's experts, held to
+   ``Buffer.fused_deep_moe(single_kernel=True)`` (K16b) and to the unfused
+   normal-mode form (relative mean below 4e-4), counts and drops exact.
+   (c) A 2048-token chunk with ``EPConfig(normal_round_tokens=512)`` (4
+   rounds) on ``"pallas_ragged"`` → K8a → combine, bit-identical to one
+   round, both timed.  (d) On one-rank groups: ``dispatch_tp_allgather`` /
+   ``combine_tp_reduce`` on the LL path, and ``dispatch_layered`` /
+   ``combine_layered`` and their normal forms (int8, node hop
+   ``dcn_transport="monitored"``: K15c), each equal to the EP path.
+   (e) Every path's launch counts reset just before it and held exactly
+   just after.  (f) LL dispatch and combine timed on each transport beside
+   ``Buffer.dispatch`` / ``combine`` on the same tokens and each call's
+   bytes bound, with the card's name and power limit.
 4m. The engine's features on [4]'s setup (fused prologue, W8A8 experts,
    after [4l], [4]'s weights alive): [4]'s prompts served greedy (the
    reference), then with half the requests sampled (temperature 0.8, top-k
@@ -374,7 +398,7 @@ from sgl_kernel_npu_tpu_torch.ops.attention import lightning_indexer as li  # no
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_prefill as mp  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_train as mt  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa  # noqa: E402
-from sgl_kernel_npu_tpu_torch.parallel import ep_core, fused_full, pallas_a2a  # noqa: E402
+from sgl_kernel_npu_tpu_torch.parallel import ep_core, fused_full, layered, pallas_a2a  # noqa: E402
 from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops import mem_cache, sampling  # noqa: E402
 from sgl_kernel_npu_tpu_torch.runtime.engine import (  # noqa: E402
@@ -524,12 +548,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int) -> float:
+def time_ms(fn, iters: int, spin: int = SPIN_CYCLES) -> float:
     """Median device time of ``fn`` over ``iters`` launches.  Before each: a
     64 MB read that evicts the 50 MB L2 and leaves it clean (the main path
     finds these inputs cold: a layer's weights and cache were last touched a
     layer ago; a write would leave dirty lines whose write-back the timed
-    kernel would pay), then a ~500 us device spin, so that the host has
+    kernel would pay), then a device spin of ``spin`` cycles (~500 us by
+    default), so that the host has
     enqueued ``fn``'s launches before the start event runs and the events time
     the device's work, not the host's Python overhead before the launch (a
     wrapper that folds int8 scales enqueues ~20 operations, which outlast a
@@ -542,7 +567,7 @@ def time_ms(fn, iters: int) -> float:
     events = []
     for _ in range(iters):
         _flush_buf.sum()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -559,6 +584,11 @@ def bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def rel_mean(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Mean |a - b| over mean |b|: the reference's fused-MoE bar."""
+    return float((a.float() - b.float()).abs().mean() / b.float().abs().mean())
 
 
 def attention_close(got: torch.Tensor, want: torch.Tensor) -> tuple[float, bool]:
@@ -3490,7 +3520,7 @@ def check_fused_full(gen, group, moe, n_tok, timed, walk=False, topk=CFG.topk,
     row_err = lambda a, b: float(((a.float() - b.float()).abs().amax(-1)  # noqa: E731
                                   / b.float().abs().amax(-1)).max())
     err, err_o = row_err(got, want), row_err(other, other_p)
-    rel = float((got.float() - unf.float()).abs().mean() / unf.float().abs().mean())
+    rel = rel_mean(got, unf)
     touched = int((cnt > 0).sum())
     exact = torch.equal(cnt, wcnt) and torch.equal(cnt, ucnt)
     same = torch.equal(got, again)
@@ -4013,8 +4043,7 @@ def check_narrow_moe(gen, group, moe, moe_n, n_tok):
         full, fcnt, _ = buf.fused_deep_moe(x, idx, w, *moe)
         plain, pcnt, _ = buf.fused_deep_moe(x, idx, w, *moe_n, pack_tn=PACK_TN, plain=True)
         torch.cuda.synchronize()
-        rel_f = float((got.float() - full.float()).abs().mean() / full.float().abs().mean())
-        rel_p = float((got.float() - plain.float()).abs().mean() / plain.float().abs().mean())
+        rel_f, rel_p = rel_mean(got, full), rel_mean(got, plain)
         log(f"  Buffer.fused_deep_moe(pack_tn={PACK_TN}) on {backend!r}, {n_tok} tokens: vs the "
             f"full-width packing {rel_f:.3e}, vs plain=True {rel_p:.3e} (rel mean, tol "
             f"{EP_DEEP_REL_MEAN}); counts exact {torch.equal(cnt, fcnt) and torch.equal(cnt, pcnt)}"
@@ -4034,7 +4063,7 @@ def check_narrow_moe(gen, group, moe, moe_n, n_tok):
     if n_tok == MAX_BATCH:
         bit = torch.equal(single, fused_full_walk(buf, x, idx, w, moe_n, PACK_TN))
     torch.cuda.synchronize()
-    rel_u = float((single.float() - got.float()).abs().mean() / got.float().abs().mean())
+    rel_u = rel_mean(single, got)
     err_p = float(((single.float() - splain.float()).abs().amax(-1)
                    / splain.float().abs().amax(-1)).max())
     log(f"  Buffer.fused_deep_moe(pack_tn={PACK_TN}, single_kernel=True), {n_tok} tokens: vs the "
@@ -4252,6 +4281,323 @@ def dispatch_routes_phase(moe):
     log(f"  [4l] launches on the paths: {json.dumps(launches)}")
     return results, launches
 
+
+
+# [4p]: the rest of DeepEP's Buffer at DeepSeek-V3's decode width: the
+# reference's low-latency default, 128 tokens a rank, top-8 of 256 experts,
+# about a quarter of the (token, k) slots at -1 (its --topk-drop-prob)
+LL_TOKENS = 128
+LL_DROP = 0.25
+LL_CALC_DIFF = 1e-4           # the reference's int8 bar (test_low_latency.py)
+MR_TOKENS, MR_ROUND = 2048, 512          # multi-round: a prefill chunk in 512-token rounds
+LL_TRANSPORTS = ("xla", "pallas", "pallas_ragged")
+
+
+def calc_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The reference's ``calc_diff``: 1 - 2 <a, b> / (|a|^2 + |b|^2), in f64."""
+    a, b = a.double(), b.double()
+    return float(1 - 2 * (a * b).sum() / (a * a + b * b).sum())
+
+
+def ll_inputs(gen, n_tok):
+    """bf16 tokens, DeepSeek-V3's routing with ``LL_DROP`` of the slots at -1."""
+    x = randn(gen, (n_tok, CFG.hidden))
+    idx, w = deep_routing(gen, n_tok)
+    idx = torch.where(torch.rand(idx.shape, generator=gen, device=DEV) < LL_DROP, -1, idx)
+    return x, idx, w
+
+
+def held_launches(label, launches, want):
+    """Every kernel's count of ``launches`` equal to ``want``'s (0 where not
+    named)."""
+    named = {k_: want.get(k_, 0) for k_ in launches}
+    bad = {k_: (v, named[k_]) for k_, v in launches.items() if v != named[k_]}
+    if bad:
+        raise AssertionError(f"{label}: launches (got, want) {bad}")
+    return {k_: v for k_, v in want.items() if v}
+
+
+def ll_expert_step(rx, sc):
+    """JAX's sweep step on the packed layout of one rank (every expert
+    local): y = dequant(recv_x) · (global expert id + 1), in bf16."""
+    eid = torch.arange(1, rx.shape[0] + 1, device=DEV, dtype=torch.float32)
+    return (rx.float() * sc[..., None] * eid[:, None, None]).to(torch.bfloat16)
+
+
+def ll_round_trip(group, x, idx, w, backend):
+    """One low-latency round trip on ``backend``: int8 dispatch (validated;
+    monitored on ``"pallas_ragged"``), the expert step, the bf16 combine;
+    the counts reset just before and read just after."""
+    buf = Buffer(group, CFG.num_experts, EPConfig(comm_backend=backend))
+    mon = backend == "pallas_ragged"
+    counters.reset()
+    rx, sc, cnt, h, st = buf.low_latency_dispatch(x, idx, use_int8=True, monitor=mon,
+                                                  validate=True)
+    out = buf.low_latency_combine(ll_expert_step(rx, sc), w, h, monitor=mon)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    out, cst = out if mon else (out, {})
+    flags = [st["validation_flags"]] + ([st["timeout_flags"], cst["timeout_flags"]] if mon
+                                        else [])
+    if any(bool(f.any()) for f in flags):
+        raise AssertionError(f"low-latency round trip on {backend!r}: flags {flags}")
+    # "pallas": counts, rows, slots, scales and the return on K15a; "pallas_ragged":
+    # the counts on K15a, the slot / scale blob on K15b, the rows both ways on K15c
+    want = {"quant_per_token": 1,
+            "pallas_all_to_all": {"xla": 0, "pallas": 5, "pallas_ragged": 1}[backend],
+            "pallas_ragged_all_to_all": int(mon),
+            "pallas_ragged_all_to_all_monitored": 2 * mon}
+    return (rx, sc, cnt, st["recv_count_matrix"], st["num_dropped"], out), \
+        held_launches(f"low-latency round trip on {backend!r}", launches, want)
+
+
+def ll_golden(x, idx, w):
+    """The dense golden of the round trip: Σ_k w · (e + 1) · x over the live
+    slots, in f64."""
+    live = idx >= 0
+    scale = (torch.where(live, w.double() * (idx.double() + 1), 0.0)).sum(-1)
+    return x.double() * scale[:, None]
+
+
+def ll_round_trips(gen, group):
+    """[4p] (a): the round trip on the three transports, bit-identical to
+    ``"xla"``, held to the dense golden by ``calc_diff``."""
+    x, idx, w = ll_inputs(gen, LL_TOKENS)
+    ref, launches = None, {}
+    for backend in LL_TRANSPORTS:
+        res, launches[backend] = ll_round_trip(group, x, idx, w, backend)
+        if ref is None:
+            ref = res
+        elif not all(torch.equal(a, b) for a, b in zip(res, ref)):
+            raise AssertionError(f"the low-latency round trip on {backend!r} differs from 'xla'")
+        del res
+    rx, sc, cnt, cmat, dropped, out = ref
+    diff = calc_diff(out, ll_golden(x, idx, w))
+    live = int((idx >= 0).sum())
+    log(f"  [4p a] low_latency_dispatch / combine, {LL_TOKENS} tokens x {CFG.hidden}, top-"
+        f"{CFG.topk} of {CFG.num_experts}, {live} of {idx.numel()} slots live: packed "
+        f"{list(rx.shape)} int8 ({rx.numel() / 1e6:.0f} MB), rows, scales, counts, "
+        f"{int(dropped)} drops and the bf16 combine bit-identical on {list(LL_TRANSPORTS)}; "
+        f"validation flags 0 on each, timeout flags 0 (K15c); calc_diff vs the dense golden "
+        f"{diff:.3e} (bar {LL_CALC_DIFF}); launches {json.dumps(launches)}")
+    if not (diff < LL_CALC_DIFF and int(cnt.sum()) == live and int(cmat.sum()) == live
+            and int(dropped) == 0):
+        raise AssertionError(f"the low-latency round trip is wrong: calc_diff {diff:.3e}")
+    return x, idx, w
+
+
+def ll_decode_moe(buf, x, idx, w, moe):
+    """The decode MoE on the low-latency path: int8 dispatch → the live rows
+    gathered by the counts → K8a ``dequant_swiglu_quant`` → K8a ``dequant`` →
+    the rows back in the packed layout → combine (bf16)."""
+    w1, s1, w2, s2 = moe
+    rx, sc, cnt, h, st = buf.low_latency_dispatch(x, idx, use_int8=True)
+    pair = x.shape[0] * min(CFG.topk, buf.num_local_experts)
+    xs, ss, tgt = ep_core.packed_to_sorted(rx, sc, st["recv_count_matrix"], pair)
+    q2, sq = grouped_matmul.grouped_matmul(xs, w1, cnt, ss, s1, epilogue="dequant_swiglu_quant")
+    yv = grouped_matmul.grouped_matmul(q2, w2, cnt, sq, s2, epilogue="dequant")
+    y = ep_core.sorted_to_packed(yv, tgt, rx.shape[0])
+    return buf.low_latency_combine(y, w, h), cnt, st["num_dropped"]
+
+
+def ll_moe_check(gen, group, moe, x, idx, w):
+    """[4p] (b): the decode MoE on the low-latency path held to K16b and to
+    the unfused normal-mode form (relative mean below ``EP_DEEP_REL_MEAN``),
+    receive counts and drops exact."""
+    buf = Buffer(group, CFG.num_experts, EPConfig(comm_backend="pallas_ragged"))
+    counters.reset()
+    got, cnt, drop = ll_decode_moe(buf, x, idx, w, moe)
+    torch.cuda.synchronize()
+    launches = held_launches("the low-latency decode MoE", counters.read(), {
+        "quant_per_token": 1, "pallas_all_to_all": 1, "pallas_ragged_all_to_all": 3,
+        "grouped_matmul": 2, "grouped_matmul:dequant_swiglu_quant": 1,
+        "grouped_matmul:dequant": 1})
+    counters.reset()
+    k16b, kcnt, kdrop = buf.fused_deep_moe(x, idx, w, *moe, single_kernel=True)
+    torch.cuda.synchronize()
+    # K16b's call: its wire quant (K5) and the counts' exchange (K15a), then the kernel
+    launches_k16b = held_launches("K16b on the low-latency tokens", counters.read(), {
+        "fused_deep_moe_full_rank": 1, "quant_per_token": 1, "pallas_all_to_all": 1})
+    unfused, ucnt, udrop = buf.fused_deep_moe(x, idx, w, *moe)
+    torch.cuda.synchronize()
+    rel_k, rel_u = rel_mean(got, k16b), rel_mean(got, unfused)
+    exact = (torch.equal(cnt, kcnt) and torch.equal(cnt, ucnt)
+             and int(drop) == int(kdrop) == int(udrop) == 0)
+    log(f"  [4p b] decode MoE on the low-latency path (pallas_ragged; live rows gathered by "
+        f"the counts on the device, {int(cnt.sum())} of {cnt.numel() * x.shape[0]} packed "
+        f"slots; K8a dequant_swiglu_quant + dequant on [4]'s layer-0 experts): vs K16b "
+        f"{rel_k:.3e}, vs the unfused normal-mode form {rel_u:.3e} (rel mean, bar "
+        f"{EP_DEEP_REL_MEAN}); counts and drops exact {exact}; launches {json.dumps(launches)}, "
+        f"K16b's {json.dumps(launches_k16b)}")
+    if not (rel_k < EP_DEEP_REL_MEAN and rel_u < EP_DEEP_REL_MEAN and exact):
+        raise AssertionError("the low-latency decode MoE disagrees with K16b or the unfused form")
+    return launches
+
+
+def mr_moe(buf, x, idx, w, moe, rounds):
+    """Normal-mode dispatch in ``rounds`` rounds → K8a twice → combine."""
+    w1, s1, w2, s2 = moe
+    xs, sx, gs, h, st = buf.dispatch(x, idx, rounds=rounds)
+    q2, sq = grouped_matmul.grouped_matmul(xs, w1, gs, sx, s1, epilogue="dequant_swiglu_quant")
+    y = grouped_matmul.grouped_matmul(q2, w2, gs, sq, s2, epilogue="dequant")
+    return buf.combine(y, w, h), gs, st["num_dropped"]
+
+
+def multi_round_check(gen, group, moe):
+    """[4p] (c): a 2048-token chunk in 512-token rounds
+    (``normal_round_tokens``) on ``"pallas_ragged"``, K8a, combine:
+    bit-identical to one round.  Each timed beside the other."""
+    x = randn(gen, (MR_TOKENS, CFG.hidden))
+    idx, w = deep_routing(gen, MR_TOKENS)
+    buf = Buffer(group, CFG.num_experts, EPConfig(comm_backend="pallas_ragged",
+                                                  normal_round_tokens=MR_ROUND))
+    rounds = MR_TOKENS // MR_ROUND
+    runs, launches = {}, {}
+    for r in (rounds, 1):
+        counters.reset()
+        runs[r] = mr_moe(buf, x, idx, w, moe, None if r > 1 else 1)
+        torch.cuda.synchronize()
+        launches[r] = held_launches(f"{r}-round dispatch", counters.read(), {
+            "quant_per_token": r, "pallas_all_to_all": r, "pallas_ragged_all_to_all": 3 * r,
+            "grouped_matmul": 2, "grouped_matmul:dequant_swiglu_quant": 1,
+            "grouped_matmul:dequant": 1})
+    same = all(torch.equal(a, b) for a, b in zip(runs[rounds], runs[1]))
+    times = {r: (time_ms(lambda r=r: buf.dispatch(x, idx, rounds=r), 5),
+                 time_ms(lambda r=r: mr_moe(buf, x, idx, w, moe, r), 5)) for r in (rounds, 1)}
+    log(f"  [4p c] multi-round dispatch: {MR_TOKENS} tokens x {CFG.hidden}, top-{CFG.topk}, "
+        f"EPConfig(normal_round_tokens={MR_ROUND}) = {rounds} rounds on 'pallas_ragged', K8a, "
+        f"combine: bit-identical to one round {same}; launches {json.dumps(launches)}")
+    log(f"    dispatch {times[rounds][0]:.4f} ms in {rounds} rounds vs {times[1][0]:.4f} ms in "
+        f"one; dispatch + K8a + combine {times[rounds][1]:.4f} vs {times[1][1]:.4f} ms")
+    if not same:
+        raise AssertionError("multi-round dispatch differs from one round")
+    return launches[rounds]
+
+
+def tp_layered_check(gen, group, x, idx, w):
+    """[4p] (d): the TP all-gather / reduce and the layered dispatch /
+    combine (normal and low-latency forms, int8, the node hop monitored on
+    K15c) on one-rank groups, each equal to the plain EP path on the same
+    inputs."""
+    buf = Buffer(group, CFG.num_experts, EPConfig())
+    rx, sc, cnt, h, st = buf.low_latency_dispatch(x, idx)
+    want = buf.low_latency_combine(ll_expert_step(rx, sc), w, h, out_dtype=torch.float32)
+    counters.reset()
+    rx2, sc2, _, h2, st2 = buf.low_latency_dispatch(x, idx)
+    gx, gsc, gcnt = ep_core.dispatch_tp_allgather(rx2, sc2, st2["recv_count_matrix"],
+                                                  tp_group=group)
+    y = ep_core.combine_tp_reduce(ll_expert_step(gx, gsc), tp_group=group,
+                                  seg_total=rx2.shape[1])
+    got_tp = buf.low_latency_combine(y, w, h2, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    l_tp = held_launches("the TP all-gather path", counters.read(), {"quant_per_token": 1})
+    ok_tp = (torch.equal(gx, rx) and torch.equal(gsc, sc)
+             and torch.equal(gcnt, st2["recv_count_matrix"]) and torch.equal(got_tp, want))
+    del rx2, sc2, gx, gsc, y
+    kw = dict(node_group=group, ici_group=group, num_nodes=1, ranks_per_node=1,
+              seg_capacity=rx.shape[1])           # the low-latency layout's segment
+    t, k = idx.shape
+    opts = dict(num_experts=CFG.num_experts, phase1_capacity=t, phase2_capacity=t * k,
+                use_int8=True, monitor=True, dcn_transport="monitored", **kw)
+    counters.reset()
+    d = layered.dispatch_layered(x, idx, **opts)
+    got_l = layered.combine_layered(ll_expert_step(d["recv_x"], d["recv_scales"]), w,
+                                    d["handle"], num_tokens=t, out_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    l_ll = held_launches("the layered low-latency form", counters.read(), {
+        "quant_per_token": 1, "pallas_ragged_all_to_all_monitored": 1})
+    err_l = max_abs(got_l, want) / float(want.abs().max())
+    ok_l = (torch.equal(d["recv_x"], rx) and torch.equal(d["recv_scales"], sc)
+            and torch.equal(d["recv_count"], cnt) and err_l <= 1e-6
+            and not d["stats"]["dcn_timeout_flags"].any())
+    del d
+    xs, sx, gs, hn, _ = buf.dispatch(x, idx)
+    eid = torch.arange(1, CFG.num_experts + 1, device=DEV, dtype=torch.float32)
+
+    def rows_y(rows, scales, sizes):
+        e, live = ep_core.sorted_row_expert(sizes, rows.shape[0])
+        y = rows.float() * scales[:, None] * eid[e][:, None]
+        return torch.where(live[:, None], y, 0.0).to(torch.bfloat16)
+
+    want_n = buf.combine(rows_y(xs, sx, gs), w, hn, out_dtype=torch.float32)
+    counters.reset()
+    dn = layered.dispatch_layered_normal(x, idx, **opts)
+    got_n = layered.combine_layered_normal(
+        rows_y(dn["recv_x_sorted"], dn["recv_scales_sorted"], dn["group_sizes"]), w,
+        dn["handle"], num_tokens=t, out_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    l_n = held_launches("the layered normal form", counters.read(), {
+        "quant_per_token": 1, "pallas_ragged_all_to_all_monitored": 1})
+    n = xs.shape[0]
+    err_n = max_abs(got_n, want_n) / float(want_n.abs().max())
+    ok_n = (torch.equal(dn["recv_x_sorted"][:n], xs) and not dn["recv_x_sorted"][n:].any()
+            and torch.equal(dn["recv_scales_sorted"][:n], sx)
+            and torch.equal(dn["group_sizes"], gs) and err_n <= 1e-6)
+    del dn
+    log(f"  [4p d] one-rank groups: dispatch_tp_allgather / combine_tp_reduce on the LL path "
+        f"equal to it {ok_tp} (launches {json.dumps(l_tp)}); dispatch_layered / combine_layered "
+        f"(int8, dcn_transport='monitored') rows, scales and counts bit-equal to "
+        f"low_latency_dispatch's, combine {err_l:.2e} of its largest (f32 sums in another "
+        f"order), no timeout: {ok_l} (launches {json.dumps(l_ll)}); dispatch_layered_normal / "
+        f"combine_layered_normal vs Buffer.dispatch / combine: rows, scales and group sizes "
+        f"bit-equal, combine {err_n:.2e}: {ok_n} (launches {json.dumps(l_n)})")
+    if not (ok_tp and ok_l and ok_n):
+        raise AssertionError("the TP all-gather or the layered path differs from the EP path")
+    return l_ll
+
+
+def ll_times(group, x, idx, w, card):
+    """[4p] (f): the low-latency dispatch and combine on each transport,
+    ``Buffer.dispatch`` / ``combine`` on the same tokens, and each call's
+    bytes bound: the dispatch reads x and writes its output (the packed
+    layout, zeros included: its contract), the combine reads the live rows
+    and writes the tokens."""
+    t, hidden = x.shape
+    e_local = CFG.num_experts
+    live = int((idx >= 0).sum())
+    packed = e_local * t * hidden * 1 + e_local * t * 4
+    b_disp = bound(t * hidden * 2 + idx.numel() * 4 + packed, 0, INT8_OPS)[0]
+    b_comb = bound(live * hidden * 2 + t * hidden * 2 + w.numel() * 4, 0, INT8_OPS)[0]
+    lines = []
+    for backend in LL_TRANSPORTS:
+        buf = Buffer(group, CFG.num_experts, EPConfig(comm_backend=backend))
+        rx, sc, _, h, _ = buf.low_latency_dispatch(x, idx)
+        y = ll_expert_step(rx, sc)
+        d_ms = time_ms(lambda: buf.low_latency_dispatch(x, idx), 5)
+        c_ms = time_ms(lambda: buf.low_latency_combine(y, w, h), 5)
+        xs, _, _, hn, _ = buf.dispatch(x, idx)
+        ys = xs.to(torch.bfloat16)
+        nd_ms = time_ms(lambda: buf.dispatch(x, idx), 5)
+        nc_ms = time_ms(lambda: buf.combine(ys, w, hn), 5)
+        lines.append(f"    {card}, {backend}: low_latency_dispatch {d_ms:.4f} ms (bound {b_disp:.4f}), "
+                     f"low_latency_combine {c_ms:.4f} ms (bound {b_comb:.4f}); Buffer.dispatch "
+                     f"{nd_ms:.4f} ms, Buffer.combine {nc_ms:.4f} ms")
+        del rx, sc, y, h
+    log(f"  [4p f] times, {card}, {t} tokens x {hidden} int8, {live} live slots "
+        f"(dispatch bound: x read, the {packed / 1e6:.0f} MB packed layout written; combine "
+        f"bound: the live rows read, the tokens written; at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    for line in lines:
+        log(line)
+
+
+def low_latency_phase(moe, card):
+    """Phase [4p] (see the module docstring): the rest of DeepEP's Buffer at
+    DeepSeek-V3's decode width on [4]'s layer-0 experts and [4k]'s one-rank
+    NCCL group.  Returns the launches of the low-latency round trip on
+    ``"pallas_ragged"``, the decode MoE, multi-round dispatch and the
+    layered hop."""
+    group = dist.group.WORLD
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 23)
+    x, idx, w = ll_round_trips(gen, group)
+    gc.collect()
+    torch.cuda.empty_cache()
+    l_moe = ll_moe_check(gen, group, moe[0], x, idx, w)
+    l_mr = multi_round_check(gen, group, moe[0])
+    l_lay = tp_layered_check(gen, group, x, idx, w)
+    ll_times(group, x, idx, w, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"moe": l_moe, "multi_round": l_mr, "layered": l_lay}
 
 
 # [4m]: sampling parameters of the sampled requests (a seed each, by request index)
@@ -5824,6 +6170,13 @@ def serving_phases(card: str):
         "[4k]'s one-rank group: K8a's remaining modes, _gmm_moe's dispatch_p + K8b branch, "
         f"the gate / up packing at {PACK_TN}, K16a, K3 on bf16 tokens")
     k4l, launches_l4 = dispatch_routes_phase(moe)
+    log(f"[4p] the rest of DeepEP's Buffer at DeepSeek-V3's decode width ({LL_TOKENS} tokens, "
+        f"top-{CFG.topk} of {CFG.num_experts}, {LL_DROP:.0%} of the slots -1) on [4]'s layer-0 "
+        "experts and [4k]'s one-rank group: the low-latency round trip on the three "
+        "transports, the decode MoE on it against K16b, multi-round dispatch, the TP "
+        "all-gather and the layered hop")
+    launches_p = low_latency_phase(moe, card)
+    log(f"  [4p] launches on the paths: {json.dumps(launches_p)}")
     log("[4m] the engine's sampling, stop tokens, prefill-first scheduling and speculative "
         "decoding (chain, tree) on [4]'s setup: fused prologue, W8A8 experts, a 1-layer draft")
     engine_features_phase(params, moe, mla_wq, ps, card)

@@ -6,9 +6,9 @@ the three transports of JAX's ``comm_backend``: ``"xla"`` (an all-to-all
 collective of the process group, NCCL on the card), ``"pallas"`` and
 ``"pallas_ragged"`` (the one-sided window all-to-alls K15a / K15b,
 ``parallel/pallas_a2a.py``).  ``monitor_comm`` takes effect on
-``"pallas_ragged"`` (K15c), as in JAX.  Where a config is read, the
-validated exchange and multi-round dispatch raise ``NotImplementedError``
-(:func:`check_supported`; ROADMAP item 16).
+``"pallas_ragged"`` (K15c), as in JAX; ``validate_comm`` (the dispatch's
+checksum guard) and ``normal_round_tokens`` (multi-round dispatch) on every
+transport.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ class EPConfig:
             ``"pallas_ragged"`` (the one-sided window all-to-alls).
         monitor_comm: the ragged exchange's wait-cost and timeout statistics
             (``"pallas_ragged"`` only, as in JAX).
-        validate_comm: the exchange's checksum guard (not ported).
+        validate_comm: the dispatch's per-source payload checksum guard
+            (``stats["validation_flags"]``), on every transport.
     """
 
     num_max_dispatch_tokens_per_rank: int = 128
@@ -65,11 +66,6 @@ def check_backend(backend: str) -> None:
 
 
 def check_supported(config: EPConfig) -> None:
-    """Raise on every setting of ``config`` the port does not take."""
+    """Raise on a setting of ``config`` the port does not take: an unknown
+    transport."""
     check_backend(config.comm_backend)
-    if config.validate_comm:
-        raise NotImplementedError("validate_comm (the exchange's checksum guard) is not ported "
-                                  "yet (ROADMAP item 16)")
-    if config.normal_round_tokens:
-        raise NotImplementedError("normal_round_tokens (multi-round dispatch) is not ported "
-                                  "yet (ROADMAP item 16)")

@@ -8,22 +8,29 @@ rank's rows and return this rank's results: the ``shard_map`` body's view,
 without the leading rank dimension (ROADMAP §C).  Shapes are static worst
 cases, as in JAX: no host sync on the serving path.
 
-Ported: :meth:`Buffer.get_dispatch_layout`, :meth:`~Buffer.get_routing_plan`,
-the normal mode :meth:`~Buffer.dispatch` / :meth:`~Buffer.combine`,
+JAX's whole surface: :meth:`Buffer.get_dispatch_layout`,
+:meth:`~Buffer.get_routing_plan`, the low-latency (decode) mode
+:meth:`~Buffer.low_latency_dispatch` / :meth:`~Buffer.low_latency_combine`
+(JAX's packed layout ``[E_local, R·seg, H]``), the normal mode
+:meth:`~Buffer.dispatch` / :meth:`~Buffer.combine` (multi-round with
+``rounds`` or ``config.normal_round_tokens``: a :class:`MultiRoundHandle`),
 DeepSeek-V3's :meth:`~Buffer.fused_deep_moe` (unfused, or the single kernel
 K16b) and GPT-OSS's :meth:`~Buffer.fused_oai_moe`, on the three transports
 of ``config.comm_backend`` (the collective, and the one-sided window
-all-to-alls K15a / K15b).  The low-latency (decode) mode raises
-``NotImplementedError`` (ROADMAP item 16).
+all-to-alls K15a / K15b), with the monitored exchange (K15c) and the
+checksum guard (``validate``).  The four exchange entry points log their
+parameters at DEBUG level (:func:`~sgl_kernel_npu_tpu_torch.utils.common.log_parameters`),
+as JAX's.
 
-``fused_deep_moe`` honours ``config.comm_backend``, where JAX's always runs
-its default transport (its ``fused_deep_moe_rank`` passes no backend): the
-results are the same, and the serve then runs on the window kernels.
+``fused_deep_moe`` and multi-round dispatch honour ``config.comm_backend``,
+where JAX's always run their default transport: the results are the same,
+and the serve then runs on the window kernels.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -31,6 +38,26 @@ import torch.distributed as dist
 from sgl_kernel_npu_tpu_torch.config import EPConfig, check_backend, check_supported
 from sgl_kernel_npu_tpu_torch.parallel import ep_core, fused_full, fused_moe
 from sgl_kernel_npu_tpu_torch.parallel.layout import get_dispatch_layout
+from sgl_kernel_npu_tpu_torch.utils.common import log_parameters
+
+
+class EventOverlap:
+    """JAX's no-op event, kept for the reference API: the exchanges run on
+    the caller's stream, in order with its other work."""
+
+    def current_stream_wait(self) -> None:
+        pass
+
+
+class MultiRoundHandle(NamedTuple):
+    """What a multi-round :meth:`Buffer.dispatch` hands :meth:`Buffer.combine`
+    (JAX's dict): each round's handle and its rows' places in the merged
+    matrix (``ep_core.dispatch_ragged_multi_round``)."""
+
+    rounds: int
+    seg: int
+    handles: tuple
+    positions: tuple
 
 
 @dataclasses.dataclass
@@ -100,18 +127,77 @@ class Buffer:
                                          num_ranks=self.group_size, my_rank=self.rank,
                                          pair_capacity=pair, seg_capacity=seg)
 
-    # -- not ported --------------------------------------------------------------
+    # -- low latency (decode) ---------------------------------------------------
 
-    def low_latency_dispatch(self, *args, **kwargs):
-        raise NotImplementedError("Buffer.low_latency_dispatch (the decode mode) is not "
-                                  "ported yet (ROADMAP item 16)")
+    @log_parameters
+    def low_latency_dispatch(self, x: torch.Tensor, topk_idx: torch.Tensor,
+                             num_max_dispatch_tokens_per_rank: int | None = None, *,
+                             use_int8: bool | None = None, backend: str | None = None,
+                             monitor: bool | None = None, validate: bool | None = None):
+        """Decode-mode dispatch of this rank's ``x [T, H]`` by ``topk_idx [T,
+        K]`` → ``(packed_recv_x [E_local, R·seg, H], packed_recv_scales
+        [E_local, R·seg] | None, packed_recv_count [E_local], handle,
+        stats)``: JAX's packed layout, a segment per (local expert, source
+        rank), ``seg`` = ``num_max_dispatch_tokens_per_rank`` (the config's,
+        at least T, by default).  int8 with ``use_int8``
+        (``config.use_int8_dispatch`` by default), on ``backend``
+        (``config.comm_backend``).  ``stats`` holds ``recv_count_matrix [R,
+        E_local]`` and ``num_dropped``; with ``monitor`` (``"pallas_ragged"``
+        only, K15c) ``wait_recv_cost_stats`` and ``timeout_flags [R]``; with
+        ``validate`` (``config.validate_comm``) ``validation_flags [R]``."""
+        use_int8 = self.config.use_int8_dispatch if use_int8 is None else use_int8
+        backend = backend or self.config.comm_backend
+        check_backend(backend)
+        monitor = self.config.monitor_comm if monitor is None else monitor
+        monitor = monitor and backend == "pallas_ragged"
+        validate = self.config.validate_comm if validate is None else validate
+        pair, seg = self._capacities(*topk_idx.shape)
+        res = ep_core.dispatch_core(
+            x, topk_idx, group=self.group, num_experts=self.num_experts,
+            num_ranks=self.group_size, pair_capacity=pair,
+            seg_capacity=num_max_dispatch_tokens_per_rank or seg, use_int8=use_int8,
+            backend=backend, monitor=monitor, validate=validate)
+        stats = {"recv_count_matrix": res["recv_count_matrix"], "num_dropped": res["num_dropped"]}
+        if monitor:
+            stats.update({k: res[k] for k in ("wait_recv_cost_stats", "timeout_flags")})
+        if validate:
+            stats["validation_flags"] = res["validation_flags"]
+        return (res["recv_x"], res.get("recv_scales"), res["recv_count"], res["handle"], stats)
 
-    def low_latency_combine(self, *args, **kwargs):
-        raise NotImplementedError("Buffer.low_latency_combine (the decode mode) is not "
-                                  "ported yet (ROADMAP item 16)")
+    @log_parameters
+    def low_latency_combine(self, y: torch.Tensor, topk_weights: torch.Tensor,
+                            handle: ep_core.DispatchHandle, *, out_dtype=torch.bfloat16,
+                            backend: str | None = None, monitor: bool | None = None):
+        """Decode-mode combine: the experts' outputs ``y`` in
+        :meth:`low_latency_dispatch`'s packed layout back to this rank's
+        tokens, weighed by ``topk_weights [T, K]`` in f32 → ``[T, H]`` in
+        ``out_dtype``.  ``"pallas_ragged"`` returns only the live rows (K15b);
+        ``monitor`` (K15c) also returns ``{"combine_wait_cost_stats",
+        "payload_wait_cost_stats", "timeout_flags"}`` (each ``[R]``).  A
+        handle without send counts combines with zero counts, as JAX's."""
+        backend = backend or self.config.comm_backend
+        check_backend(backend)
+        monitor = self.config.monitor_comm if monitor is None else monitor
+        monitor = monitor and backend == "pallas_ragged"
+        if self.group_size > 1:
+            self._check_equal_tokens(topk_weights.shape[0])
+        if handle.sent_counts is None:
+            zero = torch.zeros((self.group_size, self.num_local_experts), dtype=torch.int32,
+                               device=y.device)
+            handle = handle._replace(sent_counts=zero, recv_counts=zero)
+        out = ep_core.combine_core(
+            y, topk_weights, handle, group=self.group, num_ranks=self.group_size,
+            seg_capacity=y.shape[1] // self.group_size, out_dtype=out_dtype, backend=backend,
+            monitor=monitor)
+        if not monitor:
+            return out
+        out, st = out
+        return out, {"combine_wait_cost_stats": st[:, 0], "payload_wait_cost_stats": st[:, 3],
+                     "timeout_flags": st[:, 1] | st[:, 4]}
 
     # -- normal mode (prefill) ---------------------------------------------------
 
+    @log_parameters
     def dispatch(self, x: torch.Tensor, topk_idx: torch.Tensor, *, use_int8: bool | None = None,
                  rounds: int | None = None, backend: str | None = None,
                  monitor: bool | None = None):
@@ -124,15 +210,26 @@ class Buffer:
         ``recv_count_matrix`` and ``num_dropped``, and with ``monitor``
         (``config.monitor_comm`` by default; ``"pallas_ragged"`` only, K15c)
         ``wait_recv_cost_stats``, ``timeout_flags`` and
-        ``payload_wait_cost_stats [R]`` of the payload exchange."""
+        ``payload_wait_cost_stats [R]`` of the payload exchange.
+
+        ``rounds`` (by default ``T // config.normal_round_tokens``, at least
+        1, where that is set) above 1 moves ``T / rounds`` tokens a round
+        through a round's buffers and merges the rows
+        (``ep_core.dispatch_ragged_multi_round``: the same rows, ``R·C``
+        and the handle a round's; T must divide into the rounds): the
+        handle is then a :class:`MultiRoundHandle` and ``monitor`` is not
+        taken, as in JAX."""
         use_int8 = self.config.use_int8_dispatch if use_int8 is None else use_int8
         backend = backend or self.config.comm_backend
         check_backend(backend)
         monitor = self.config.monitor_comm if monitor is None else monitor
         monitor = monitor and backend == "pallas_ragged"
-        if (rounds or 1) > 1:
-            raise NotImplementedError("multi-round dispatch is not ported yet (ROADMAP item 16)")
-        pair, seg = self._capacities(*topk_idx.shape)
+        t, k = topk_idx.shape
+        if rounds is None and self.config.normal_round_tokens:
+            rounds = max(1, t // self.config.normal_round_tokens)
+        if rounds and rounds > 1:
+            return self._dispatch_multi_round(x, topk_idx, use_int8, rounds, backend)
+        pair, seg = self._capacities(t, k)
         res = ep_core.dispatch_ragged_core(
             x, topk_idx, group=self.group, num_experts=self.num_experts,
             num_ranks=self.group_size, pair_capacity=pair, seg_capacity=seg, use_int8=use_int8,
@@ -144,15 +241,40 @@ class Buffer:
         return (res["recv_x_sorted"], res.get("recv_scales_sorted"), res["group_sizes"],
                 res["handle"], stats)
 
-    def combine(self, y_sorted: torch.Tensor, topk_weights: torch.Tensor,
-                handle: ep_core.DispatchHandle, *, out_dtype=torch.bfloat16,
-                backend: str | None = None) -> torch.Tensor:
+    def _dispatch_multi_round(self, x, topk_idx, use_int8, rounds, backend):
+        t, k = topk_idx.shape
+        if self.group_size > 1:
+            self._check_equal_tokens(t)
+        seg = t // rounds
+        pair = self.config.pair_capacity(seg, k, self.group_size, self.num_local_experts)
+        res = ep_core.dispatch_ragged_multi_round(
+            x, topk_idx, rounds=rounds, group=self.group, num_experts=self.num_experts,
+            num_ranks=self.group_size, pair_capacity=pair, seg_capacity=seg, use_int8=use_int8,
+            backend=backend)
+        handle = MultiRoundHandle(rounds, seg, tuple(res["round_handles"]),
+                                  tuple(res["round_positions"]))
+        stats = {"recv_count_matrix": res["recv_count_matrix"], "num_dropped": res["num_dropped"]}
+        return (res["recv_x_sorted"], res.get("recv_scales_sorted"), res["group_sizes"], handle,
+                stats)
+
+    @log_parameters
+    def combine(self, y_sorted: torch.Tensor, topk_weights: torch.Tensor, handle, *,
+                out_dtype=torch.bfloat16, backend: str | None = None) -> torch.Tensor:
         """Normal-mode combine: the experts' outputs ``y_sorted`` (in
         :meth:`dispatch`'s order) back to this rank's tokens, weighed by
         ``topk_weights [T, K]`` in f32 → ``[T, H]`` in ``out_dtype``, on
-        ``backend`` (``config.comm_backend`` by default)."""
+        ``backend`` (``config.comm_backend`` by default).  ``handle`` is a
+        :class:`~sgl_kernel_npu_tpu_torch.parallel.ep_core.DispatchHandle`
+        or a :class:`MultiRoundHandle`."""
         backend = backend or self.config.comm_backend
         check_backend(backend)
+        if isinstance(handle, MultiRoundHandle):
+            if self.group_size > 1:
+                self._check_equal_tokens(topk_weights.shape[0])
+            return ep_core.combine_ragged_multi_round(
+                y_sorted, topk_weights, handle.handles, handle.positions, group=self.group,
+                num_ranks=self.group_size, num_local_experts=self.num_local_experts,
+                seg_capacity=handle.seg, out_dtype=out_dtype, backend=backend)
         _, seg = self._capacities(*topk_weights.shape)
         return ep_core.combine_ragged_core(
             y_sorted, topk_weights, handle, group=self.group, num_ranks=self.group_size,

@@ -33,9 +33,19 @@ all-to-all K15a (:func:`~sgl_kernel_npu_tpu_torch.parallel.pallas_a2a.pallas_all
 the ragged window all-to-all K15b (live rows only, after a count phase), the
 per-expert counts on K15a, and on the combine's return hop again only the
 live rows (K15b).  ``monitor`` (``"pallas_ragged"`` only) runs the payload
-exchange as K15c and returns JAX's wait-cost and timeout statistics.  The
-validated exchange, the TP all-gather, multi-round dispatch, elastic rank
-remaps and shared-expert ranks are not ported (ROADMAP item 16) and raise.
+exchange as K15c and returns JAX's wait-cost and timeout statistics.
+``validate`` adds JAX's checksum guard to :func:`dispatch_core`
+(:func:`payload_checksum`; the expected sums on the group's collective).
+
+Also JAX's placements (``rank_remap``: dead and rehomed ranks;
+``expert_owner`` / ``expert_slot``: shared-expert ranks,
+:func:`shared_expert_layout`), the TP all-gather of the low-latency layout
+(:func:`dispatch_tp_allgather` / :func:`combine_tp_reduce`, on a TP process
+group) and multi-round normal dispatch (:func:`dispatch_ragged_multi_round`
+/ :func:`combine_ragged_multi_round`, on any transport where JAX's runs its
+default one).  Where JAX scatters with a slot of -1, XLA wraps it to the
+layout's last slot; the port drops it (a scratch row past the end), which
+differs only where that last slot holds a row.
 """
 
 from __future__ import annotations
@@ -55,10 +65,6 @@ from sgl_kernel_npu_tpu_torch.parallel.pallas_a2a import (
 
 STAT_KEYS = ("wait_recv_cost_stats", "timeout_flags", "abort_observed",
              "payload_wait_cost_stats", "payload_timeout_flags")   # stats columns 0-4
-
-
-def _unported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP item 16)")
 
 
 # ---------------------------------------------------------------------------
@@ -148,36 +154,49 @@ def make_routing_plan(topk_idx: torch.Tensor, *, num_experts: int, num_ranks: in
                       expert_owner=None, expert_slot=None,
                       num_local_slots: int | None = None) -> RoutingPlan:
     """One stable sort of ``topk_idx [T, K]`` (global expert ids, -1
-    inactive) by (destination rank, local expert) → every routing decision
+    inactive) by (destination rank, local slot) → every routing decision
     (JAX's ``make_routing_plan``: equal keys keep their order).
     ``pair_capacity`` bounds the rows sent to one rank, ``seg_capacity`` the
-    rows landing in one (expert, source rank) segment; rows past either are
-    dropped and counted.  Elastic remaps and shared-expert placements
-    (``rank_remap``, ``expert_owner`` / ``expert_slot``) raise."""
+    rows landing in one (slot, source rank) segment; rows past either are
+    dropped and counted.  ``rank_remap [R]`` maps each owner rank to the
+    rank that serves it now, below 0 dead (its rows dropped and counted);
+    ``expert_owner`` / ``expert_slot [E_total]`` place every expert id
+    (ids past ``E_total`` inactive), ``num_local_slots`` slots a rank
+    (:func:`shared_expert_layout`).  The tables are moved to ``topk_idx``'s
+    device."""
     e_local = num_experts // num_ranks
-    if (rank_remap is not None or expert_owner is not None or expert_slot is not None
-            or num_local_slots not in (None, e_local)):
-        _unported("make_routing_plan's rank_remap / expert_owner placements (elastic and "
-                  "shared-expert ranks)")
+    slots = num_local_slots or e_local
     dev = topk_idx.device
     t, k = topk_idx.shape
     n = t * k
     flat_e = topk_idx.reshape(n).long()
-    valid = flat_e >= 0
+    # an id past the experts is inactive (JAX's sorts past every live key)
+    n_ids = num_ranks * e_local if expert_owner is None else expert_owner.shape[0]
+    valid = (flat_e >= 0) & (flat_e < n_ids)
     safe_e = torch.where(valid, flat_e, 0)
-    sentinel = num_ranks * e_local
-    key = torch.where(valid, safe_e, sentinel)       # dst * slots + slot = the expert id
+    if expert_owner is not None:
+        dst = expert_owner.to(dev, torch.long)[safe_e]
+        slot = expert_slot.to(dev, torch.long)[safe_e]
+    else:
+        dst, slot = safe_e // e_local, safe_e % e_local
+    dead_drops = 0
+    if rank_remap is not None:
+        dst = rank_remap.to(dev, torch.long)[dst]
+        dead_drops = (valid & (dst < 0)).sum()
+        valid = valid & (dst >= 0)
+    sentinel = num_ranks * slots
+    key = torch.where(valid, dst * slots + slot, sentinel)
     sorted_key, order = torch.sort(key, stable=True)
     pos = torch.arange(n, device=dev)
     idx_in_expert = pos - torch.searchsorted(sorted_key, sorted_key)
     sorted_valid = sorted_key < sentinel
-    sorted_dst = torch.where(sorted_valid, sorted_key // e_local, num_ranks)
+    sorted_dst = torch.where(sorted_valid, sorted_key // slots, num_ranks)
     idx_in_dst = pos - torch.searchsorted(sorted_dst, sorted_dst)
     ok = sorted_valid & (idx_in_dst < pair_capacity) & (idx_in_expert < seg_capacity)
-    slot_id = torch.where(sorted_valid, sorted_key % e_local, 0)
+    slot_id = torch.where(sorted_valid, sorted_key % slots, 0)
     dest_slot = torch.where(ok, slot_id * (num_ranks * seg_capacity) + my_rank * seg_capacity
                             + idx_in_expert, -1)
-    gather = torch.where(ok, sorted_dst * (e_local * seg_capacity) + slot_id * seg_capacity
+    gather = torch.where(ok, sorted_dst * (slots * seg_capacity) + slot_id * seg_capacity
                          + idx_in_expert, 0)
     send_pos = torch.where(ok, torch.cumsum(ok.long(), 0) - 1, n)
     counts = torch.zeros(sentinel + 1, dtype=torch.int32, device=dev).scatter_add_(
@@ -192,7 +211,28 @@ def make_routing_plan(topk_idx: torch.Tensor, *, num_experts: int, num_ranks: in
         dst_rank=unsort(sorted_dst), send_slot=unsort(idx_in_dst),
         dest_slot=unsort(dest_slot), gather_idx=unsort(gather), ok=unsort(ok),
         src_token=pos // k, counts_per_expert=counts,
-        num_dropped=(sorted_valid & ~ok).sum().to(torch.int32), send_pos=unsort(send_pos))
+        num_dropped=((sorted_valid & ~ok).sum() + dead_drops).to(torch.int32),
+        send_pos=unsort(send_pos))
+
+
+def shared_expert_layout(num_experts: int, num_ranks: int, num_shared_ranks: int,
+                         device="cuda"):
+    """Placement with dedicated shared-expert ranks (JAX's): the first
+    ``num_shared_ranks`` ranks serve only the shared expert, the routed
+    experts live on the others; virtual id ``num_experts + j`` addresses
+    shared rank j's slot 0.  Returns ``(expert_owner [E + Ns], expert_slot
+    [E + Ns], num_local_slots)`` (int32 tensors on ``device``: the card
+    unless the caller asks for the CPU)."""
+    moe_ranks = num_ranks - num_shared_ranks
+    if num_shared_ranks >= num_ranks or num_experts % moe_ranks:
+        raise ValueError(f"{num_experts} experts do not spread over the {moe_ranks} ranks left "
+                         f"of {num_ranks} beside {num_shared_ranks} shared ones")
+    e_local = num_experts // moe_ranks
+    ids = torch.arange(num_experts, dtype=torch.int32, device=device)
+    shared = torch.arange(num_shared_ranks, dtype=torch.int32, device=device)
+    owner = torch.cat([num_shared_ranks + ids // e_local, shared])
+    slot = torch.cat([ids % e_local, torch.zeros_like(shared)])
+    return owner, slot, e_local
 
 
 def _send_sources(plan: RoutingPlan, num_ranks: int, pair_capacity: int) -> torch.Tensor:
@@ -221,23 +261,41 @@ def _pack_send_buffers(plan: RoutingPlan, payload: torch.Tensor, num_ranks: int,
     return _take(payload, tok).reshape((num_ranks, pair_capacity) + payload.shape[1:])
 
 
+def payload_checksum(a: torch.Tensor, dims) -> torch.Tensor:
+    """JAX's order-independent checksum: the wrapping int32 sum over
+    ``dims`` of the raw bits (int8 widened, bf16 viewed as int16 and
+    sign-extended, f32 viewed as int32, other dtypes cast).  The sum runs in
+    int64 and is reduced modulo 2^32 back to int32, so it equals XLA's
+    wrapping int32 sum bit for bit."""
+    if a.dtype == torch.bfloat16:
+        v = a.contiguous().view(torch.int16)
+    elif a.dtype == torch.float32:
+        v = a.contiguous().view(torch.int32)
+    else:
+        v = a
+    s = v.to(torch.int64).sum(dim=dims)
+    return ((s + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
+
+
 class _Exchanged(NamedTuple):
     plan: RoutingPlan
     recv: torch.Tensor            # [R, C, H] rows received from each source rank
     recv_meta: torch.Tensor       # [R, C] their slots in the padded layout, -1 none
-    counts: torch.Tensor          # [R, E_local] rows received from (src, local expert)
+    counts: torch.Tensor          # [R, slots] rows received from (src, local slot)
     recv_scale: torch.Tensor | None   # [R, C] int8 wire scales
     stats: torch.Tensor | None = None  # [R, 6] the monitored payload exchange's
+    validation_flags: torch.Tensor | None = None   # [R] checksum mismatch by source
 
 
 def _dispatch_exchange(x, topk_idx, *, group, num_experts, num_ranks, pair_capacity,
-                       seg_capacity, use_int8, backend="xla", monitor=False) -> _Exchanged:
+                       seg_capacity, use_int8, backend="xla", monitor=False, validate=False,
+                       placement=None) -> _Exchanged:
     size, me = group_info(group)
     if size != num_ranks:
         raise ValueError(f"num_ranks {num_ranks} but the group has {size} ranks")
     plan = make_routing_plan(topk_idx, num_experts=num_experts, num_ranks=num_ranks,
                              my_rank=me, pair_capacity=pair_capacity,
-                             seg_capacity=seg_capacity)
+                             seg_capacity=seg_capacity, **(placement or {}))
     payload, scale = wire_quant(x) if use_int8 else (x, None)
     src = _send_sources(plan, num_ranks, pair_capacity)
     send_x = _pack_send_buffers(plan, payload, num_ranks, pair_capacity, src)
@@ -249,30 +307,36 @@ def _dispatch_exchange(x, topk_idx, *, group, num_experts, num_ranks, pair_capac
         a2a = _make_a2a(group, backend)
         counts = a2a(send_counts)
         recv, recv_meta = a2a(send_x), a2a(send_meta)
-        return _Exchanged(plan, recv, recv_meta, counts,
-                          a2a(send_scale) if use_int8 else None)
-    # the payload, then its slots (and scale bits) as one int32 blob, live rows
-    # only; the per-expert counts on K15a (JAX's ep_core.py:298-336)
-    rows_to_dst = send_counts.sum(-1, dtype=torch.int32)
-    res = pallas_ragged_all_to_all(send_x, rows_to_dst, group=group, monitor=monitor)
-    recv, rcnt = res[0], res[1]
-    blob = send_meta[:, :, None]
-    if use_int8:
-        blob = torch.cat([blob, send_scale.float().view(torch.int32)[:, :, None]], dim=-1)
-    recv_blob, _ = pallas_ragged_all_to_all(blob, rows_to_dst, group=group)
-    # rows past rcnt[s] are undefined window memory: their slots must not scatter
-    live = torch.arange(pair_capacity, device=x.device)[None, :] < rcnt[:, None]
-    recv_meta = torch.where(live, recv_blob[:, :, 0], -1)
-    recv_scale = recv_blob[:, :, 1].contiguous().view(torch.float32) if use_int8 else None
-    counts = pallas_all_to_all(send_counts.contiguous(), group=group)
-    return _Exchanged(plan, recv, recv_meta, counts, recv_scale,
-                      res[2] if monitor else None)
+        ex = _Exchanged(plan, recv, recv_meta, counts, a2a(send_scale) if use_int8 else None)
+        live = None
+    else:
+        # the payload, then its slots (and scale bits) as one int32 blob, live
+        # rows only; the per-expert counts on K15a (JAX's ep_core.py:298-336)
+        rows_to_dst = send_counts.sum(-1, dtype=torch.int32)
+        res = pallas_ragged_all_to_all(send_x, rows_to_dst, group=group, monitor=monitor)
+        recv, rcnt = res[0], res[1]
+        blob = send_meta[:, :, None]
+        if use_int8:
+            blob = torch.cat([blob, send_scale.float().view(torch.int32)[:, :, None]], dim=-1)
+        recv_blob, _ = pallas_ragged_all_to_all(blob, rows_to_dst, group=group)
+        # rows past rcnt[s] are undefined window memory: their slots must not scatter
+        live = torch.arange(pair_capacity, device=x.device)[None, :] < rcnt[:, None]
+        recv_meta = torch.where(live, recv_blob[:, :, 0], -1)
+        recv_scale = recv_blob[:, :, 1].contiguous().view(torch.float32) if use_int8 else None
+        counts = pallas_all_to_all(send_counts.contiguous(), group=group)
+        ex = _Exchanged(plan, recv, recv_meta, counts, recv_scale, res[2] if monitor else None)
+    if not validate:
+        return ex
+    # JAX's guard: each source's checksum of the rows it sent rides the
+    # group's collective; the receiver sums what landed (on the ragged
+    # transport the rows past a source's count zeroed first)
+    expect = all_to_all(payload_checksum(send_x, (1, 2))[:, None], group)[:, 0]
+    got = ex.recv if live is None else torch.where(live[..., None], ex.recv, 0)
+    return ex._replace(validation_flags=(payload_checksum(got, (1, 2)) != expect).to(torch.int32))
 
 
-def _check_transport(backend: str, monitor: bool = False, validate: bool = False) -> None:
+def _check_transport(backend: str, monitor: bool = False) -> None:
     check_backend(backend)
-    if validate:
-        _unported("the validated exchange (validate_comm)")
     if monitor and backend != "pallas_ragged":
         raise ValueError(f"monitor needs the 'pallas_ragged' transport, not {backend!r}")
 
@@ -283,20 +347,27 @@ def _stat_columns(stats: torch.Tensor | None) -> dict:
 
 
 def dispatch_core(x, topk_idx, *, group, num_experts: int, num_ranks: int, pair_capacity: int,
-                  seg_capacity: int, use_int8: bool, backend: str = "xla",
+                  seg_capacity: int, use_int8: bool, rank_remap=None, expert_owner=None,
+                  expert_slot=None, num_local_slots: int | None = None, backend: str = "xla",
                   monitor: bool = False, validate: bool = False) -> dict:
     """Per-rank dispatch into JAX's padded receiver layout: ``recv_x
-    [E_local, R·seg, H]`` (int8 with ``use_int8``, then ``recv_scales
-    [E_local, R·seg]``), ``recv_count [E_local]``, ``recv_count_matrix [R,
-    E_local]``, ``num_dropped`` and the combine ``handle``; with ``monitor``
-    also JAX's statistics keys (``wait_recv_cost_stats`` …)."""
-    _check_transport(backend, monitor, validate)
+    [slots, R·seg, H]`` (``slots`` = ``num_local_slots`` or E_local; int8
+    with ``use_int8``, then ``recv_scales [slots, R·seg]``), ``recv_count
+    [slots]``, ``recv_count_matrix [R, slots]``, ``num_dropped`` and the
+    combine ``handle``; with ``monitor`` also JAX's statistics keys
+    (``wait_recv_cost_stats`` …), with ``validate`` ``validation_flags
+    [R]`` (1 where the rows from a source do not sum to its checksum).  The
+    placements (``rank_remap``, ``expert_owner`` …) are
+    :func:`make_routing_plan`'s."""
+    _check_transport(backend, monitor)
     t, hidden = x.shape
-    e_local = num_experts // num_ranks
+    e_local = num_local_slots or num_experts // num_ranks
+    placement = dict(rank_remap=rank_remap, expert_owner=expert_owner, expert_slot=expert_slot,
+                     num_local_slots=e_local)
     ex = _dispatch_exchange(x, topk_idx, group=group, num_experts=num_experts,
                             num_ranks=num_ranks, pair_capacity=pair_capacity,
                             seg_capacity=seg_capacity, use_int8=use_int8, backend=backend,
-                            monitor=monitor)
+                            monitor=monitor, validate=validate, placement=placement)
     n_slots = e_local * num_ranks * seg_capacity
     meta = ex.recv_meta.reshape(-1).long()
     meta = torch.where(meta >= 0, meta, n_slots)
@@ -320,6 +391,8 @@ def dispatch_core(x, topk_idx, *, group, num_experts: int, num_ranks: int, pair_
     }
     if use_int8:
         out["recv_scales"] = packed(ex.recv_scale.reshape(-1), e_local, num_ranks * seg_capacity)
+    if validate:
+        out["validation_flags"] = ex.validation_flags
     return out
 
 
@@ -391,6 +464,43 @@ def combine_core(y, topk_weights, handle: DispatchHandle, *, group, num_ranks: i
     return (out, stats) if monitor else out
 
 
+def packed_to_sorted(recv_x, recv_scales, counts_matrix, rows: int | None = None):
+    """The live rows of :func:`dispatch_core`'s packed layout ``recv_x
+    [E_local, R·seg, H]`` grouped by local expert (within one by source rank),
+    gathered on the device with no host sync → ``(x_sorted [rows, H],
+    scales_sorted [rows] | None, tgt [E_local·R·seg])``: rows past the live
+    ones zero, ``tgt`` each slot's sorted row (``rows`` for an empty slot).
+    A segment's live rows are its first ``counts_matrix [R, E_local]``
+    entries; ``rows`` (every slot by default) must hold them all."""
+    e_local, slots, hidden = recv_x.shape
+    seg = slots // counts_matrix.shape[0]
+    n = e_local * slots
+    rows = n if rows is None else rows
+    dev = recv_x.device
+    occ = (torch.arange(seg, device=dev)[None, None, :] < counts_matrix.T[:, :, None]).reshape(-1)
+    tgt = torch.where(occ, torch.cumsum(occ.long(), 0) - 1, rows)
+    src = torch.full((rows + 1,), n, dtype=torch.long, device=dev).scatter_(
+        0, tgt, torch.arange(n, device=dev))[:rows]
+    scales = None if recv_scales is None else _take(recv_scales.reshape(n), src)
+    return _take(recv_x.reshape(n, hidden), src), scales, tgt
+
+
+def sorted_to_packed(y_sorted: torch.Tensor, tgt: torch.Tensor, e_local: int) -> torch.Tensor:
+    """Reverse of :func:`packed_to_sorted`: ``y_sorted [rows, H]`` back in
+    the packed layout ``[E_local, R·seg, H]``, zero in the empty slots."""
+    return _take(y_sorted, tgt).reshape(e_local, -1, y_sorted.shape[-1])
+
+
+def sorted_row_expert(group_sizes: torch.Tensor, n_rows: int):
+    """``(expert [n_rows], live [n_rows])`` of rows grouped by local expert
+    in ``group_sizes`` order: each row's local expert (the last one past the
+    live rows) and whether it is a live row."""
+    ends = torch.cumsum(group_sizes, 0)
+    rows = torch.arange(n_rows, device=group_sizes.device)
+    expert = torch.searchsorted(ends, rows, right=True).clamp(max=group_sizes.numel() - 1)
+    return expert, rows < ends[-1]
+
+
 def dispatch_ragged_core(x, topk_idx, *, group, num_experts: int, num_ranks: int,
                          pair_capacity: int, seg_capacity: int, use_int8: bool,
                          backend: str = "xla", monitor: bool = False) -> dict:
@@ -457,11 +567,97 @@ def combine_ragged_core(y_sorted, topk_weights, handle: DispatchHandle, *, group
                          out_dtype or y_sorted.dtype)
 
 
-def dispatch_tp_allgather(*args, **kwargs):
-    """JAX's TP all-gather of the low-latency dispatch: not ported."""
-    _unported("dispatch_tp_allgather (the TP all-gather of low-latency dispatch)")
+def _all_gather(x: torch.Tensor, group) -> list[torch.Tensor]:
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return parts
 
 
-def dispatch_ragged_multi_round(*args, **kwargs):
-    """JAX's multi-round normal dispatch: not ported."""
-    _unported("dispatch_ragged_multi_round (multi-round dispatch)")
+def dispatch_tp_allgather(recv_x: torch.Tensor, recv_scales: torch.Tensor | None,
+                          counts_matrix: torch.Tensor, *, tp_group):
+    """JAX's TP variant of the low-latency dispatch: the experts' weights
+    split over the TP group, every TP rank gathers its peers' packed rows
+    along the slot axis, in TP rank order.  ``recv_x [E_local, R·seg, H]``
+    → ``[E_local, TP·R·seg, H]``, ``recv_scales`` likewise, ``counts_matrix
+    [R, E_local]`` → ``[TP·R, E_local]``."""
+    gathered = torch.cat(_all_gather(recv_x, tp_group), dim=1)
+    counts = torch.cat(_all_gather(counts_matrix, tp_group), dim=0)
+    scales = (torch.cat(_all_gather(recv_scales, tp_group), dim=1)
+              if recv_scales is not None else None)
+    return gathered, scales, counts
+
+
+def combine_tp_reduce(y: torch.Tensor, *, tp_group, seg_total: int) -> torch.Tensor:
+    """Reverse of :func:`dispatch_tp_allgather`: the TP ranks' partial expert
+    outputs summed (an all-reduce in y's dtype, as JAX's ``psum``), then this
+    TP rank's ``seg_total`` slots taken back for the EP combine."""
+    y = y.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, group=tp_group)
+    me = dist.get_rank(tp_group)
+    return y[:, me * seg_total:(me + 1) * seg_total]
+
+
+def dispatch_ragged_multi_round(x, topk_idx, *, rounds: int, group, num_experts: int,
+                                num_ranks: int, pair_capacity: int, seg_capacity: int,
+                                use_int8: bool, backend: str = "xla") -> dict:
+    """Normal-mode dispatch of ``T / rounds`` tokens a round
+    (:func:`dispatch_ragged_core` each, ``pair_capacity`` / ``seg_capacity``
+    a round's), the received rows merged into one matrix sorted by local
+    expert, experts major and rounds minor, so one grouped GEMM covers the
+    batch (JAX's).  Returns :func:`dispatch_ragged_core`'s keys (the counts
+    and drops summed over the rounds; ``recv_x_sorted [rounds·R·C, H]``)
+    with ``round_handles`` and ``round_positions`` (each round's sorted rows'
+    places in the merged matrix, its length for none).  ``backend`` is every
+    round's transport (JAX's runs its default)."""
+    t, hidden = x.shape
+    if t % rounds:
+        raise ValueError(f"{t} tokens do not split into {rounds} equal rounds")
+    tr = t // rounds
+    per = [dispatch_ragged_core(x[r * tr:(r + 1) * tr], topk_idx[r * tr:(r + 1) * tr],
+                                group=group, num_experts=num_experts, num_ranks=num_ranks,
+                                pair_capacity=pair_capacity, seg_capacity=seg_capacity,
+                                use_int8=use_int8, backend=backend) for r in range(rounds)]
+    cap_r = num_ranks * pair_capacity
+    total = rounds * cap_r
+    gs = torch.stack([p["group_sizes"] for p in per]).long()       # [rounds, E_local]
+    group_sizes = gs.sum(0)
+    seg_off = (torch.cumsum(group_sizes, 0) - group_sizes)[None] + torch.cumsum(gs, 0) - gs
+    # JAX writes with mode="drop": a row past the end goes to a scratch row
+    merged = x.new_zeros((total + 1, hidden), dtype=per[0]["recv_x_sorted"].dtype)
+    merged_scale = x.new_zeros(total + 1, dtype=torch.float32) if use_int8 else None
+    positions = []
+    for r, p in enumerate(per):
+        e_of_row, live = sorted_row_expert(gs[r], cap_r)
+        pos = seg_off[r, e_of_row] + torch.arange(cap_r, device=x.device) - (
+            torch.cumsum(gs[r], 0) - gs[r])[e_of_row]
+        pos = torch.where(live, pos, total)
+        merged.index_copy_(0, pos, p["recv_x_sorted"])
+        if use_int8:
+            merged_scale.index_copy_(0, pos, p["recv_scales_sorted"])
+        positions.append(pos)
+    out = {
+        "recv_x_sorted": merged[:total],
+        "group_sizes": group_sizes.to(torch.int32),
+        "recv_count_matrix": sum(p["recv_count_matrix"] for p in per),
+        "num_dropped": sum(p["num_dropped"] for p in per),
+        "round_handles": [p["handle"] for p in per],
+        "round_positions": positions,
+    }
+    if use_int8:
+        out["recv_scales_sorted"] = merged_scale[:total]
+    return out
+
+
+def combine_ragged_multi_round(y_sorted, topk_weights, round_handles, round_positions, *,
+                               group, num_ranks: int, num_local_experts: int,
+                               seg_capacity: int, out_dtype=None, backend: str = "xla"):
+    """Reverse of :func:`dispatch_ragged_multi_round`: each round's rows taken
+    from the merged matrix, then that round's :func:`combine_ragged_core` on
+    its tokens → ``[T, H]``."""
+    t_r = topk_weights.shape[0] // len(round_handles)
+    return torch.cat([
+        combine_ragged_core(_take(y_sorted, pos), topk_weights[r * t_r:(r + 1) * t_r], h,
+                            group=group, num_ranks=num_ranks,
+                            num_local_experts=num_local_experts, seg_capacity=seg_capacity,
+                            out_dtype=out_dtype, backend=backend)
+        for r, (h, pos) in enumerate(zip(round_handles, round_positions))])

@@ -9,6 +9,10 @@ from one to the other.
 
 from __future__ import annotations
 
+import functools
+import inspect
+import logging
+
 import numpy as np
 import torch
 
@@ -65,3 +69,43 @@ def to_torch(a, dev: torch.device) -> torch.Tensor:
     if a.dtype.name == "bfloat16":       # ml_dtypes bfloat16: reinterpret the bits
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
     return torch.from_numpy(a).to(dev)
+
+
+def get_logger() -> logging.Logger:
+    """The port's package logger."""
+    return logging.getLogger("sgl_kernel_npu_tpu_torch")
+
+
+def _describe(v) -> str:
+    """A parameter as :func:`log_parameters` logs it: a tensor by shape,
+    dtype and device (its values never read, so no host sync), a long list
+    or tuple by its length, a short one (a handle too) item by item."""
+    if isinstance(v, torch.Tensor):
+        return f"Tensor{tuple(v.shape)}:{str(v.dtype).removeprefix('torch.')}@{v.device}"
+    if isinstance(v, (list, tuple)):
+        if len(v) > 4:
+            return f"{type(v).__name__}(len={len(v)})"
+        return f"{type(v).__name__}({', '.join(_describe(i) for i in v)})"
+    return repr(v)
+
+
+def log_parameters(fn):
+    """Log every call's parameters at DEBUG level on :func:`get_logger`
+    (JAX's ``log_parameters``): ``self`` left out, tensors described by
+    :func:`_describe`.  Nothing is formatted while DEBUG is off."""
+    sig = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        logger = get_logger()
+        if logger.isEnabledFor(logging.DEBUG):
+            try:
+                bound = sig.bind(*args, **kwargs)
+                params = ", ".join(f"{k}={_describe(v)}" for k, v in bound.arguments.items()
+                                   if k != "self")
+                logger.debug("%s(%s)", fn.__qualname__, params)
+            except TypeError:
+                logger.debug("%s(<unbindable args>)", fn.__qualname__)
+        return fn(*args, **kwargs)
+
+    return wrapped

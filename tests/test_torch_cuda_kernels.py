@@ -2751,3 +2751,144 @@ def test_fused_dispatch_gmm1_kernel_matches_plain(dev):
     assert torch.equal(cnt, wcnt) and int(cnt[3]) == 16
     rel = (got.float() - want.float()).abs() / want.float().abs().clamp_min(1e-30)
     assert float(rel.max()) <= 2 ** -7
+
+
+# ---------------------------------------------------------------------------
+# the rest of the Buffer surface on one NCCL rank: low-latency mode,
+# validated exchange, multi-round dispatch, the layered node hop
+# ---------------------------------------------------------------------------
+
+def _ll_inputs(dev, t=64, h=512, e=32, k=8, seed=40):
+    """Tokens, top-k ids with about a quarter of the slots -1, and weights."""
+    gen = torch.Generator().manual_seed(seed)
+    idx = torch.stack([torch.randperm(e, generator=gen)[:k] for _ in range(t)]).to(torch.int32)
+    idx[torch.rand((t, k), generator=gen) < 0.25] = -1
+    x = torch.randn((t, h), generator=gen).to(torch.bfloat16)
+    w = torch.rand((t, k), generator=gen)
+    return x.to(dev), idx.to(dev), w.to(dev)
+
+
+@pytest.mark.parametrize("use_int8", [True, False], ids=["int8", "bf16"])
+def test_low_latency_window_transports_bit_identical(dev, use_int8):
+    """``low_latency_dispatch`` / ``combine`` on ``"pallas"`` (K15a) and
+    ``"pallas_ragged"`` (K15b; monitored, K15c) against ``"xla"``: packed
+    rows, scales, counts, drops and the combine bit-identical, the
+    validation flags and timeout flags zero, each window kernel launched."""
+    from sgl_kernel_npu_tpu_torch.config import EPConfig
+    from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer
+    from sgl_kernel_npu_tpu_torch.utils import counters
+
+    x, idx, w = _ll_inputs(dev)
+    eid = torch.arange(1, 33, device=dev, dtype=torch.float32)
+    runs = {}
+    for backend in ("xla", "pallas", "pallas_ragged"):
+        buf = Buffer(_nccl_group(), 32, EPConfig(comm_backend=backend))
+        counters.reset()
+        mon = backend == "pallas_ragged"
+        rx, sc, cnt, h, st = buf.low_latency_dispatch(x, idx, use_int8=use_int8, monitor=mon,
+                                                      validate=True)
+        deq = rx.float() * sc[..., None] if use_int8 else rx.float()
+        out = buf.low_latency_combine((deq * eid[:, None, None]).to(torch.bfloat16), w, h,
+                                      monitor=mon)
+        torch.cuda.synchronize()
+        if mon:
+            out, cst = out
+            assert not st["timeout_flags"].any() and not cst["timeout_flags"].any()
+        # "pallas": the counts, rows, slots (and scales) and the return on K15a;
+        # "pallas_ragged": the counts on K15a, the slot blob on K15b, the rows
+        # both ways on K15c
+        launched = counters.read()
+        assert launched["pallas_all_to_all"] == {"xla": 0, "pallas": 4 + use_int8,
+                                                 "pallas_ragged": 1}[backend]
+        assert launched["pallas_ragged_all_to_all"] == int(mon)
+        assert launched["pallas_ragged_all_to_all_monitored"] == 2 * mon
+        assert launched["quant_per_token"] == int(use_int8)
+        assert not st["validation_flags"].any()
+        runs[backend] = (rx, sc, cnt, st["recv_count_matrix"], st["num_dropped"], out)
+    for backend in ("pallas", "pallas_ragged"):
+        for a, b in zip(runs[backend], runs["xla"]):
+            assert (a is None and b is None) or torch.equal(a, b), backend
+
+
+def test_placements_on_card_tensors(dev):
+    """``shared_expert_layout``'s tables on their default device (the card)
+    and a ``rank_remap`` on the card: ``dispatch_core`` on one NCCL rank
+    equals the call without placements, and ``make_routing_plan`` at 4 ranks
+    (rank 0 shared, rank 1's experts rehomed to rank 3, rank 2 dead) on card ids equals the
+    same plan on the CPU, with the tables given on either device."""
+    from sgl_kernel_npu_tpu_torch.parallel import ep_core
+
+    x, idx, _ = _ll_inputs(dev)
+    owner, slot, slots = ep_core.shared_expert_layout(32, 1, 0)
+    assert owner.device.type == slot.device.type == "cuda"
+    kw = dict(group=_nccl_group(), num_experts=32, num_ranks=1, pair_capacity=64 * 8,
+              seg_capacity=64, use_int8=True)
+    d = ep_core.dispatch_core(x, idx, rank_remap=torch.zeros(1, dtype=torch.int32, device=dev),
+                              expert_owner=owner, expert_slot=slot, num_local_slots=slots, **kw)
+    ref = ep_core.dispatch_core(x, idx, **kw)
+    for key in ("recv_x", "recv_scales", "recv_count_matrix", "num_dropped"):
+        assert torch.equal(d[key], ref[key]), key
+    ids = idx.clone()
+    ids[:, 0] = 24                                     # the shared expert's virtual id
+    remap = torch.tensor([0, 3, -1, 3], dtype=torch.int32)
+    plan_kw = dict(num_experts=24, num_ranks=4, my_rank=1, pair_capacity=64 * 8,
+                   seg_capacity=64)
+    cpu_tables = ep_core.shared_expert_layout(24, 4, 1, device="cpu")
+    want = ep_core.make_routing_plan(ids.cpu(), rank_remap=remap, expert_owner=cpu_tables[0],
+                                     expert_slot=cpu_tables[1], num_local_slots=cpu_tables[2],
+                                     **plan_kw)
+    assert int(want.num_dropped) > 0
+    for owner, slot, slots, rm in (ep_core.shared_expert_layout(24, 4, 1) + (remap.to(dev),),
+                                   cpu_tables + (remap,)):
+        got = ep_core.make_routing_plan(ids, rank_remap=rm, expert_owner=owner,
+                                        expert_slot=slot, num_local_slots=slots, **plan_kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas_ragged"])
+def test_multi_round_dispatch_equals_one_round(dev, backend):
+    """``dispatch(rounds=4)`` of 256 tokens (int8), the experts' step per
+    row, ``combine``: group sizes and the combine bit-identical to one round
+    (the rows and their scales are the same, each row requantized alone)."""
+    from sgl_kernel_npu_tpu_torch.config import EPConfig
+    from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer, MultiRoundHandle
+
+    x, idx, w = _ll_inputs(dev, t=256)
+    buf = Buffer(_nccl_group(), 32, EPConfig(comm_backend=backend))
+    outs = []
+    for rounds in (4, 1):
+        xs, sc, gs, h, _ = buf.dispatch(x, idx, rounds=rounds)
+        assert isinstance(h, MultiRoundHandle) == (rounds > 1)
+        out = buf.combine((xs.float() * sc[:, None] * 3.0).to(torch.bfloat16), w, h)
+        outs.append((gs, out))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+def test_layered_monitored_node_hop_on_one_rank_groups(dev):
+    """``dispatch_layered`` on one-rank node and ICI groups (NCCL), int8:
+    the monitored node hop (K15c, once) gives the collective hop's rows,
+    scales and counts bit for bit, no timeout, and the same combine."""
+    from sgl_kernel_npu_tpu_torch.parallel import layered
+    from sgl_kernel_npu_tpu_torch.parallel import pallas_a2a as pa
+
+    group = _nccl_group()
+    x, idx, w = _ll_inputs(dev, t=32)
+    kw = dict(node_group=group, ici_group=group, num_nodes=1, ranks_per_node=1)
+    runs = []
+    for transport in ("xla", "monitored"):
+        before = pa.pallas_ragged_all_to_all_monitored.launches
+        d = layered.dispatch_layered(x, idx, num_experts=32, phase1_capacity=32,
+                                     phase2_capacity=32 * 8, seg_capacity=32, use_int8=True,
+                                     monitor=True, dcn_transport=transport, **kw)
+        y = d["recv_x"].float() * d["recv_scales"][..., None]
+        out = layered.combine_layered(y, w, d["handle"], seg_capacity=32, num_tokens=32,
+                                      out_dtype=torch.float32, **kw)
+        torch.cuda.synchronize()
+        assert pa.pallas_ragged_all_to_all_monitored.launches == before + (
+            transport == "monitored")
+        runs.append((d["recv_x"], d["recv_scales"], d["recv_count_matrix"], out))
+    assert not d["stats"]["dcn_timeout_flags"].any()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

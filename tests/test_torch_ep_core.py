@@ -30,6 +30,7 @@ from sgl_kernel_npu_tpu.parallel import ep_core as jep
 from sgl_kernel_npu_tpu.parallel.buffer import Buffer as JBuffer
 from sgl_kernel_npu_tpu.parallel.layout import get_dispatch_layout as jlayout
 from sgl_kernel_npu_tpu_torch.config import EPConfig
+from sgl_kernel_npu_tpu_torch.ops.quant import quant_per_token_ref
 from sgl_kernel_npu_tpu_torch.parallel import ep_core as tep
 from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer
 from sgl_kernel_npu_tpu_torch.parallel.layout import get_dispatch_layout
@@ -192,28 +193,42 @@ def test_all_to_all_counts_and_differentiates(group):
 
 
 def test_unported_ep_switches_raise(group):
-    """What the port still leaves raises, naming ROADMAP item 16; the
-    one-sided transports, the monitored exchange and the single-kernel MoE
-    at any gate / up packing are ported (the window tests below), and a pack
-    width that does not divide 2I is refused."""
-    for cfg in (EPConfig(validate_comm=True), EPConfig(normal_round_tokens=8)):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            Buffer(group, num_experts=E, config=cfg)
+    """The EP switches that raised before this slice now run on one rank:
+    both configs build a ``Buffer``, the low-latency round trip, two rounds,
+    the validated exchange, the placements, the TP all-gather on a one-rank
+    TP group and the multi-round core (each held to JAX in
+    ``test_torch_ep_modes.py``).  What stays refused raises ``ValueError``:
+    a token count the rounds do not divide, a pack width that does not
+    divide 2I, an unknown transport, a monitor off ``"pallas_ragged"``."""
+    for cfg in (EPConfig(validate_comm=True), EPConfig(normal_round_tokens=2)):
+        buf = Buffer(group, num_experts=E, config=cfg)
     for backend in ("pallas", "pallas_ragged"):
         Buffer(group, num_experts=E, config=EPConfig(comm_backend=backend, monitor_comm=True))
+    x = torch.randn((4, H), generator=torch.Generator().manual_seed(0))
+    idx, w = torch.tensor([[0, 3, -1]] * 4, dtype=torch.int32), torch.ones((4, K))
+    _, _, _, handle, st = buf.dispatch(x, idx)          # normal_round_tokens 2: two rounds
+    assert handle.rounds == 2 and int(st["recv_count_matrix"].sum()) == 8
     buf = Buffer(group, num_experts=E)
-    x, idx = torch.zeros((4, H)), torch.zeros((4, K), dtype=torch.int32)
-    for call in (lambda: buf.low_latency_dispatch(x, idx), lambda: buf.low_latency_combine(),
-                 lambda: buf.dispatch(x, idx, rounds=2),
-                 lambda: tep.dispatch_tp_allgather(x), lambda: tep.dispatch_ragged_multi_round(x),
-                 lambda: tep.dispatch_core(x, idx, group=group, num_experts=E, num_ranks=1,
-                                           pair_capacity=4, seg_capacity=4, use_int8=False,
-                                           validate=True),
-                 lambda: tep.make_routing_plan(idx, num_experts=E, num_ranks=1, my_rank=0,
-                                               pair_capacity=4, seg_capacity=4,
-                                               rank_remap=torch.zeros(1))):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            call()
+    rx, sc, cnt, h, st = buf.low_latency_dispatch(x, idx, validate=True)
+    assert rx.shape == (E, 128, H) and int(cnt.sum()) == 8 and not st["validation_flags"].any()
+    out = buf.low_latency_combine(rx.float() * sc[..., None], w, h, out_dtype=torch.float32)
+    q, scale = quant_per_token_ref(x)
+    torch.testing.assert_close(out, 2 * q.float() * scale[:, None])
+    xs, _, gs, h2, _ = buf.dispatch(x, idx, rounds=2, use_int8=False)
+    torch.testing.assert_close(buf.combine(xs, w, h2, out_dtype=torch.float32), 2 * x)
+    kw = dict(group=group, num_experts=E, num_ranks=1, pair_capacity=12, seg_capacity=4,
+              use_int8=False)
+    d = tep.dispatch_core(x, idx, validate=True, rank_remap=torch.zeros(1, dtype=torch.int32),
+                          **kw)
+    assert d["validation_flags"].tolist() == [0] and int(d["recv_count"].sum()) == 8
+    gx, _, gcnt = tep.dispatch_tp_allgather(d["recv_x"], None, d["recv_count_matrix"],
+                                            tp_group=group)
+    assert torch.equal(gx, d["recv_x"]) and torch.equal(gcnt, d["recv_count_matrix"])
+    assert torch.equal(tep.combine_tp_reduce(gx, tp_group=group, seg_total=4), gx)
+    mr = tep.dispatch_ragged_multi_round(x, idx, rounds=2, **kw)
+    assert mr["group_sizes"].tolist() == d["recv_count"].tolist()
+    with pytest.raises(ValueError, match="3 equal rounds"):
+        tep.dispatch_ragged_multi_round(x, idx, rounds=3, **kw)
     w1 = torch.zeros((E, H, 2 * 64), dtype=torch.int8)
     with pytest.raises(ValueError, match="pack width 48"):
         buf.fused_deep_moe(x, idx, torch.ones((4, K)), w1, torch.ones((E, 128)),

@@ -47,13 +47,14 @@ DEEP_E, DEEP_H, DEEP_I, DEEP_K = 8, 128, 64, 2
 HERE = pathlib.Path(__file__).resolve().parent
 
 
-def run_ranks(work: pathlib.Path) -> list[dict]:
-    """Start the two rank processes on ``work/inputs.pkl``; their outputs."""
+def run_ranks(work: pathlib.Path, world: int = 2) -> list[dict]:
+    """Start the ``world`` rank processes on ``work/inputs.pkl`` (which
+    names the same ``world`` where it is not 2); their outputs."""
     env = dict(os.environ, PYTHONPATH=str(HERE.parent), OMP_NUM_THREADS="1")
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")
     procs = [subprocess.Popen([sys.executable, str(HERE / "_torch_ep_ranks.py"), str(work),
                                str(r)], cwd=HERE.parent, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
     try:
         logs = [p.communicate(timeout=120)[0] for p in procs]
     finally:
@@ -61,7 +62,7 @@ def run_ranks(work: pathlib.Path) -> list[dict]:
             p.kill()
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-3000:]
-    return [pickle.loads((work / f"rank{r}.pkl").read_bytes()) for r in (0, 1)]
+    return [pickle.loads((work / f"rank{r}.pkl").read_bytes()) for r in range(world)]
 
 
 def test_two_ranks_match_jax(tmp_path, mesh2):
