@@ -348,11 +348,47 @@ Phases (any failure raises and the script exits non-zero without a result):
    the decode path (``spec_rule``, plain decoding) only printed: the chunk
    rule's bf16 roundings move the int8 levels of the next layer's input, so
    the two recurrences part by more than 5e-2 (PERF.md §6).
-6. Print the kernels' JSON line (40 rows for the 32 TPU kernel sites, K8a's
-   modes, K3's float-input mode and K11a / K12d at head_dim 256 in rows of
-   their own, each from its own result; and ``launch_floor_ms``, the empty
-   kernel's time), the card line, and last the result line ``{"ok": true,
-   "device": {...}}``.
+6. The multi-rank serving layouts (after [4h] / [4j], every earlier weight
+   freed): each phase starts this script twice in its rank mode
+   (``python3 chip_smoke.py --rank <task> <dir> <r>``), two processes on
+   the one card in a gloo group over a ``FileStore`` in a temporary
+   directory (the exchanges staged through the host,
+   ``parallel/collectives.py``); the kernels are loaded, not rebuilt.  The
+   parent prints both logs, checks both return codes (a failing child stops
+   the other; its last lines are printed) and holds what they report.
+   [4q] DeepSeek-V3 head-parallel decode: CFG's widths cut to 1 layer
+   (bf16, the float experts, 23.3 GiB a process), each rank its 64 of 128
+   heads (``tp_shard_layer``), [4]'s batch of 8 at [3]'s decode contexts on
+   a bf16 cache of random history: ``decode_step_tp`` with K2 exactly once
+   a layer a step on each rank and nothing else counted, the two ranks'
+   outputs and caches bit-equal, each within 5e-2 of a row's largest of the
+   one-rank ``decode_step`` on the same card and inputs (the routing
+   replayed) and its caches bit-equal to that step's; K2 at 128, 64 and 16
+   heads (a rank's share at tp 2 and 8) held to its plain version and
+   timed; the step's wall and device busy beside the one-rank step's, the
+   all-reduce alone, the bytes staged.  [4r] Llama-3.1-8B ([4f]'s
+   weights): rank 0 alone serves [4f]'s prompts through ``llama_adapter``;
+   then ``Engine(llama_pp_adapter)`` on 2 stages of 1 layer (the ranks'
+   tokens equal each other and rank 0's serve, a stage's cache half the
+   one-rank cache, K11a / K12d / K6a exact); rank 0 alone serves [4f]'s
+   prompts and one of 8000 tokens at ``prefill_chunk`` 8192 in [4f]'s
+   arrival order, then ``Engine(llama_cp_adapter)`` on the ring of 2 serves
+   them so (no prefix matched: the CP prefill starts every prompt at 0;
+   the ranks' tokens and prefill logits bit-equal; each prefill's last-row
+   logits within 5e-2 of the row's largest of the one-rank serve's; the
+   greedy tokens equal up to a near-tie, [4m]'s rule; K11a / K6a exact,
+   K12d never); the 8000-token prefill's cache from ``prefill_step_cp``
+   against the one-rank ``prefill_step``'s (2e-2) and bit-equal across
+   ranks; the CP prefill's attention (``gathered_attention``) held to JAX's
+   ring (``ring_attention``, 1e-2) and both timed against K12d;
+   ``pipeline_forward`` with [4f]'s SwiGLU MLP as the stage, 8
+   microbatches, forward and gradient against the sequential stages; tok/s
+   of every serve.
+7. Print the kernels' JSON line (41 rows for the 32 TPU kernel sites, K8a's
+   modes, K3's float-input mode, K11a / K12d at head_dim 256 and K2 at a
+   tp-2 rank's 64 heads in rows of their own, each from its own result; and
+   ``launch_floor_ms``, the empty kernel's time), the card line, and last
+   the result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -363,9 +399,13 @@ import gc
 import hashlib
 import json
 import math
+import os
+import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -398,7 +438,18 @@ from sgl_kernel_npu_tpu_torch.ops.attention import lightning_indexer as li  # no
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_prefill as mp  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import mla_train as mt  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops.attention import sinks_attention as sa  # noqa: E402
-from sgl_kernel_npu_tpu_torch.parallel import ep_core, fused_full, layered, pallas_a2a  # noqa: E402
+from sgl_kernel_npu_tpu_torch.parallel import (  # noqa: E402
+    collectives,
+    ep_core,
+    fused_full,
+    layered,
+    pallas_a2a,
+)
+from sgl_kernel_npu_tpu_torch.parallel.pipeline import pipeline_forward  # noqa: E402
+from sgl_kernel_npu_tpu_torch.parallel.ring_attention import (  # noqa: E402
+    gathered_attention,
+    ring_attention,
+)
 from sgl_kernel_npu_tpu_torch.parallel.buffer import Buffer  # noqa: E402
 from sgl_kernel_npu_tpu_torch.ops import mem_cache, sampling  # noqa: E402
 from sgl_kernel_npu_tpu_torch.runtime.engine import (  # noqa: E402
@@ -409,6 +460,8 @@ from sgl_kernel_npu_tpu_torch.runtime.engine import (  # noqa: E402
     deepseek_adapter,
     gpt_oss_adapter,
     llama_adapter,
+    llama_cp_adapter,
+    llama_pp_adapter,
     qwen3_hybrid_adapter,
 )
 from sgl_kernel_npu_tpu_torch.utils import counters, cuda_lib, kvcacheio, prng, trace_profile  # noqa: E402
@@ -1334,13 +1387,15 @@ def serve(params, moe, mla_wq=None, *, cfg=CFG, ps=None, share=(1, SHARED_PREFIX
     return eng, ps, launches
 
 
-def run_requests(eng, ps, share, num_pages, vocab):
+def run_requests(eng, ps, share, num_pages, vocab, reuse: bool = True):
     """Serve ``ps`` through ``eng``, 16 new tokens each, the last prompt
     arriving once prompt ``share[0]`` is through prefill (so its admission
     finds their ``share[1]`` shared tokens in the radix cache), with the
     launch counts reset just before and read just after.  Checks that every
     request finished with valid tokens, every page came back and the prefix
-    was reused.  Returns the request ids, the wall time and the counts."""
+    was reused (``reuse=False``: that no prefix was matched, as an adapter
+    that prefills whole prompts does).  Returns the request ids, the wall
+    time and the counts."""
     counters.reset()
     t0 = time.perf_counter()
     rids = [eng.add_request(p, NEW_TOKENS) for p in ps[:-1]]
@@ -1359,8 +1414,11 @@ def run_requests(eng, ps, share, num_pages, vocab):
         raise AssertionError(f"unfinished or invalid outputs: {[len(o) for o in outs]}")
     if eng.cm.free_pages + eng.cm.cached_pages != num_pages:
         raise AssertionError("KV pages leaked")
-    if eng.stats["cached_tokens"] < share[1]:
+    if reuse and eng.stats["cached_tokens"] < share[1]:
         raise AssertionError(f"radix reuse missed: {eng.stats['cached_tokens']} cached tokens")
+    if not reuse and eng.stats["cached_tokens"]:
+        raise AssertionError(f"{eng.stats['cached_tokens']} tokens matched in the radix by an "
+                             "engine that takes no prefix")
     return rids, wall, launches
 
 
@@ -6295,6 +6353,505 @@ def serving_phases(card: str):
     return rows, path_launches
 
 
+# ---------------------------------------------------------------------------
+# [4q] / [4r]: the multi-rank serving layouts, two rank processes on the card
+# ---------------------------------------------------------------------------
+
+RANKS = 2
+RANK_TIMEOUT_S = 480
+TP_CTX = [716, 612, 556, 470, 320, 166, 112, 400]   # [3]'s decode contexts, [4]'s batch of 8
+CP_CHUNK, CP_LONG = 8192, 8000
+CP_PAGES_PER_REQ = CP_CHUNK // CFG_LLAMA.page_size + 2
+PIPE_MICRO, PIPE_ROWS = 8, 64
+STEP_TOL = 5e-2                 # [4]'s step rule: a row's error over its largest |value|
+
+
+def rank_phases(card: str):
+    """Phases [4q] and [4r]: each starts this script twice in its rank mode,
+    two processes on the one card, and holds what they report.  Returns the
+    K2 row at a tp-2 rank's 64 heads and its launches, and each path's
+    launch counts (for the log)."""
+    free, total = torch.cuda.mem_get_info()
+    log(f"[4q] DeepSeek-V3 head-parallel decode: decode_step_tp at tp {RANKS}, two rank processes "
+        f"of this script on the one card (a gloo group over a FileStore; {free / 2**30:.1f} of "
+        f"{total / 2**30:.1f} GiB free, {torch.cuda.memory_allocated() / 2**30:.2f} GiB held "
+        "here)")
+    tp = two_ranks("tp")
+    check_tp(tp)
+    log(f"[4r] Llama-3.1-8B context- and pipeline-parallel serving on [4f]'s setup, two rank "
+        f"processes: Engine(llama_pp_adapter) on 2 stages of {CFG_LLAMA.num_layers // RANKS} "
+        f"layer, Engine(llama_cp_adapter) on a ring of {RANKS} with a {CP_LONG}-token prompt, "
+        f"pipeline_forward over {PIPE_MICRO} microbatches")
+    serve = two_ranks("serve")
+    check_serve(serve, card)
+    return tp[0]["k2_64"], tp[0]["launches"]["decode_mla"], {
+        "[4q] a TP decode step (a rank)": tp[0]["launches"],
+        "[4r] the PP serve (a stage)": serve[0]["pp"]["launches"],
+        "[4r] the CP serve (a rank)": serve[0]["cp"]["launches"]}
+
+
+def two_ranks(task: str) -> list[dict]:
+    """Run ``python3 chip_smoke.py --rank <task> <dir> <r>`` for r = 0, 1 on
+    the one card: a gloo group over a ``FileStore`` in a temporary
+    directory.  Prints each rank's log; a child that exits non-zero stops
+    the other and fails the phase with its last log lines.  Returns the
+    ranks' results."""
+    work = pathlib.Path(tempfile.mkdtemp(prefix=f"chip_smoke_{task}_"))
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    outs = [open(work / f"rank{r}.log", "w") for r in range(RANKS)]
+    procs = [subprocess.Popen([sys.executable, str(pathlib.Path(__file__).resolve()), "--rank",
+                               task, str(work), str(r)], stdout=outs[r], stderr=subprocess.STDOUT,
+                              env=env) for r in range(RANKS)]
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.perf_counter() - t0 > RANK_TIMEOUT_S:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in outs:
+            f.close()
+    texts = [(work / f"rank{r}.log").read_text() for r in range(RANKS)]
+    for r, text in enumerate(texts):
+        for line in text.splitlines():
+            log(f"  r{r}| {line}")
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        for r, text in enumerate(texts):
+            log(f"  rank {r} exited {codes[r]}; its last lines:")
+            for line in text.splitlines()[-30:]:
+                log(f"    {line}")
+        raise AssertionError(f"[{task}] rank processes exited {codes} after "
+                             f"{time.perf_counter() - t0:.0f} s")
+    results = [json.loads((work / f"rank{r}.json").read_text()) for r in range(RANKS)]
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"  both ranks exited 0 in {time.perf_counter() - t0:.1f} s")
+    return results
+
+
+def same_on_ranks(label: str, values: list) -> None:
+    if any(v != values[0] for v in values[1:]):
+        raise AssertionError(f"{label} differs between the ranks: {values}")
+
+
+def check_tp(res: list[dict]) -> None:
+    """[4q]'s holds across the ranks: the outputs and caches bit-equal (each
+    rank held its own against the one-rank step, K2 once a layer)."""
+    same_on_ranks("the TP step's output digest", [r["h"] for r in res])
+    same_on_ranks("the TP step's cache digest", [r["cache"] for r in res])
+    log(f"  [4q] the two ranks' outputs bit-equal ({res[0]['h']}) and their caches bit-equal "
+        f"({res[0]['cache']}); within {max(r['err'] for r in res):.3e} of the one-rank step "
+        f"(tol {STEP_TOL}); caches bit-equal to its; K2 {res[0]['launches']['decode_mla']} launch "
+        "a layer a step on each rank, nothing else")
+
+
+def check_serve(res: list[dict], card: str) -> None:
+    """[4r]'s holds across the ranks and against rank 0's one-rank serves."""
+    one, pp, cp = res[0]["one"], [r["pp"] for r in res], [r["cp"] for r in res]
+    same_on_ranks("the PP tokens", [p["tokens"] for p in pp])
+    if pp[0]["tokens"] != one["tokens"]:
+        raise AssertionError("the PP serve's tokens differ from the one-rank llama_adapter serve's")
+    for p in pp:
+        if 2 * p["cache_bytes"] != one["cache_bytes"]:
+            raise AssertionError(f"a stage's cache {p['cache_bytes']} B is not half the one-rank "
+                                 f"cache's {one['cache_bytes']} B")
+    same_on_ranks("the CP tokens", [c["tokens"] for c in cp])
+    same_on_ranks("the CP prefill logits' digest", [c["logits"] for c in cp])
+    same_on_ranks("the CP cache digest", [c["cache"] for c in cp])
+    same_on_ranks("pipeline_forward's output digest", [r["pipe"]["y"] for r in res])
+    log(f"  [4r] PP: the ranks' tokens equal each other and the one-rank serve's, bit for bit "
+        f"(predicted); a stage's cache {pp[0]['cache_bytes'] / 2**20:.1f} MiB = half of one "
+        f"rank's {one['cache_bytes'] / 2**20:.1f} MiB; CP: the ranks' tokens, prefill logits "
+        f"and caches bit-equal; pipeline_forward's output bit-equal on both ranks")
+    log(f"  [4r] tok/s ({card}): one rank prefill {one['prefill_tok_s']:.1f} / decode "
+        f"{one['decode_tok_s']:.1f}; PP {pp[0]['prefill_tok_s']:.1f} / "
+        f"{pp[0]['decode_tok_s']:.1f}; "
+        f"one rank at prefill_chunk {CP_CHUNK} {res[0]['one_cp']['prefill_tok_s']:.1f} / "
+        f"{res[0]['one_cp']['decode_tok_s']:.1f}; CP {cp[0]['prefill_tok_s']:.1f} / "
+        f"{cp[0]['decode_tok_s']:.1f}")
+
+
+def rank_main(task: str, work: pathlib.Path, rank: int) -> None:
+    """A rank process of [4q] / [4r]: join the gloo group, run the task,
+    write its results; the kernels were built by the parent (loaded here)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_lib.load_library()
+    dist.init_process_group("gloo", store=dist.FileStore(str(work / "store"), RANKS), rank=rank,
+                            world_size=RANKS)
+    try:
+        out = {"tp": tp_rank, "serve": serve_rank}[task](rank, dist.group.WORLD)
+        (work / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def wall_and_busy(fn, group=None, iters: int = 5) -> tuple[float, float]:
+    """Median wall ms of ``fn()`` (synchronised; with ``group`` every rank of
+    it runs the calls at once, after a barrier each) and the device busy ms
+    of one more call by the profiler."""
+    fn()
+    walls = []
+    for _ in range(iters):
+        if group is not None:
+            dist.barrier(group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    if group is not None:
+        dist.barrier(group)
+    _, busy, _ = trace_profile.device_breakdown(fn)
+    return statistics.median(walls), busy
+
+
+def tp_rank(rank: int, group) -> dict:
+    """[4q] on one rank: CFG_TRAIN's layer (published widths, bf16, the float
+    experts), this rank's 64 heads (``tp_shard_layer``), a bf16 cache of
+    random history; [4]'s batch of 8 at [3]'s decode contexts."""
+    cfg = CFG_TRAIN
+    t0 = time.perf_counter()
+    for r in range(RANKS):      # in turn: making the experts takes 15 GiB of f32 beside them
+        if r == rank:
+            params = m.init_weights(cfg, SEED, torch.bfloat16)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    mine = {**params, "layers": [m.tp_shard_layer(lw, rank, RANKS) for lw in params["layers"]]}
+    heads = mine["layers"][0]["wuk"].shape[0]
+    log(f"rank {rank}: weights made in {time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB); {heads} of {cfg.num_heads} heads")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 30)
+    b, page = len(TP_CTX), cfg.page_size
+    max_pages = -(-max(TP_CTX) // page)
+    base = m.init_kv_cache(cfg, b * max_pages + 1, torch.bfloat16)
+    for c in base:
+        c["nope"].copy_(randn(gen, c["nope"].shape))
+        c["rope"].copy_(randn(gen, c["rope"].shape))
+    bt = (torch.arange(b * max_pages, dtype=torch.int32, device=DEV) + 1).reshape(b, max_pages)
+    ctx = torch.tensor(TP_CTX, dtype=torch.int32, device=DEV)
+    pos = (ctx - 1).long()
+    slots = (bt[torch.arange(b, device=DEV), pos // page] * page + pos % page).int()
+    x = m.embed(params, torch.randint(0, cfg.vocab_size, (b,), generator=gen, device=DEV))
+    caches = {k: [{n: t.clone() for n, t in c.items()} for c in base] for k in ("tp", "one")}
+
+    def tp_step():
+        return m.decode_step_tp(cfg, mine, x, pos, caches["tp"], bt, ctx, slots, group=group)[0]
+
+    def one_step():
+        return m.decode_step(cfg, params, x, pos, caches["one"], bt, ctx, slots)[0]
+
+    tp_step()
+    collectives.reset_staged()
+    counters.reset()
+    h = tp_step()
+    torch.cuda.synchronize()
+    launches = held_launches(f"rank {rank}: a TP decode step", counters.read(),
+                             {"decode_mla": cfg.num_layers})
+    staged = collectives.staged_bytes()
+    got, rec = with_routes(lambda: tp_step().float())
+    _, rec_one = with_routes(one_step)
+    want, _ = with_routes(lambda: one_step().float(), rec)
+    err = float(((got - want).abs().amax(-1) / want.abs().amax(-1)).max())
+    log(f"rank {rank}: decode_step_tp vs the one-rank decode_step on the same card and inputs, "
+        f"the routing replayed (its own agrees on {int(same_routing(rec, rec_one, b).sum())}/{b} "
+        f"rows): max rel err {err:.3e} (tol {STEP_TOL}); launches a step "
+        f"{launches}; {staged} bytes staged through the host a step (the all-reduce of "
+        f"[{b}, {cfg.hidden}] bf16, each way)")
+    if not err <= STEP_TOL:
+        raise AssertionError(f"rank {rank}: decode_step_tp {err:.3e} from the one-rank step")
+    for li in range(cfg.num_layers):
+        for n in ("nope", "rope"):
+            if not torch.equal(caches["tp"][li][n], caches["one"][li][n]):
+                raise AssertionError(f"rank {rank}: the TP step's {n} cache differs from the "
+                                     "one-rank step's")
+    wall_tp, busy_tp = wall_and_busy(tp_step, group)
+    o = torch.zeros((b, cfg.hidden), dtype=torch.bfloat16, device=DEV)
+    exch, _ = wall_and_busy(lambda: collectives.all_sum(o, group), group, iters=20)
+    log(f"rank {rank}: a TP step {wall_tp:.3f} ms wall, {busy_tp:.3f} ms device busy (both "
+        f"ranks at once); the all-reduce alone {exch:.3f} ms wall "
+        f"({100 * exch / wall_tp:.1f} % of the step)")
+    out = {"h": digest(h), "cache": digest(torch.cat([t.reshape(-1).view(torch.uint8)
+                                                      for c in caches["tp"] for t in c.values()])),
+           "err": err, "launches": launches, "staged": staged, "wall_tp": wall_tp,
+           "busy_tp": busy_tp, "exchange_ms": exch}
+    dist.barrier()
+    if rank == 0:           # alone on the card: the one-rank step, K2 at each rank's share
+        wall_one, busy_one = wall_and_busy(one_step)
+        log(f"rank 0 alone: the one-rank step {wall_one:.3f} ms wall, {busy_one:.3f} ms busy")
+        k2 = {h_: check_decode_mla(gen, b, h_, page, TP_CTX, 0, True)
+              for h_ in (cfg.num_heads, cfg.num_heads // RANKS, cfg.num_heads // 8)}
+        log(f"rank 0: K2 at [3]'s decode shape, 128 / 64 / 16 heads: "
+            + " / ".join(f"{k2[h_]['ms']:.4f}" for h_ in sorted(k2, reverse=True)) + " ms")
+        out.update(wall_one=wall_one, busy_one=busy_one, k2_64=k2[cfg.num_heads // RANKS])
+    dist.barrier()
+    return out
+
+
+def serve_rank(rank: int, group) -> dict:
+    """[4r] on one rank (see the module docstring)."""
+    cfg = CFG_LLAMA
+    params = lm.init_weights(cfg, SEED, torch.bfloat16, untied_lm_head=True)
+    ps = prompts(torch.Generator().manual_seed(SEED + 6), GPT_PROMPT_LENS, (0, GPT_SHARED),
+                 cfg.vocab_size)
+    kw = dict(max_batch=MAX_BATCH, max_pages_per_req=GPT_PAGES_PER_REQ, prefill_chunk=GPT_CHUNK)
+    lps, layers = cfg.num_layers // RANKS, cfg.num_layers
+    out = {}
+    if rank == 0:
+        out["one"] = rank_serve("one rank, llama_adapter", lambda: llama_adapter(cfg, params),
+                                ps, kw)
+    dist.barrier()
+    collectives.reset_staged()
+    pp = rank_serve(f"rank {rank}: PP stage {rank}", lambda: llama_pp_adapter(cfg, params, group),
+                    ps, kw,
+                    want=lambda n_pre, n_dec: {
+                        "attention_sinks_prefill_pallas": lps * n_pre, "decode_gqa": lps * n_dec,
+                        "rms_norm": (2 * lps + 1) * (n_pre + n_dec)})
+    log(f"rank {rank}: a PP serve staged {collectives.staged_bytes() / 2 / 2**20:.1f} MiB "
+        "through the host (the hops and the broadcasts, each way)")
+    out["pp"] = pp
+    long_prompt = torch.randint(0, cfg.vocab_size, (CP_LONG,),
+                                generator=torch.Generator().manual_seed(SEED + 31)).tolist()
+    ps_cp = ps[:-1] + [long_prompt] + ps[-1:]       # [4f]'s order: the 5th after the 1st's prefill
+    kw_cp = dict(max_batch=MAX_BATCH, max_pages_per_req=CP_PAGES_PER_REQ, prefill_chunk=CP_CHUNK)
+    if rank == 0:
+        out["one_cp"] = rank_serve(f"one rank, llama_adapter, prefill_chunk {CP_CHUNK}",
+                                   lambda: llama_adapter(cfg, params), ps_cp, kw_cp)
+    dist.barrier()
+    cp = rank_serve(f"rank {rank}: CP", lambda: llama_cp_adapter(cfg, params, group), ps_cp,
+                    kw_cp, reuse=False, want=lambda n_pre, n_dec: {
+                        "decode_gqa": layers * n_dec,
+                        "rms_norm": (2 * layers + 1) * (n_pre + n_dec)})
+    if rank == 0:
+        cp_rule(params, ps_cp, out["one_cp"], cp)
+    out["cp"] = cp
+    out["cp"]["cache"] = cp_cache_check(rank, group, params, long_prompt)
+    out["pipe"] = pipeline_check(rank, group)
+    for run in out.values():
+        run.pop("last_logits", None)
+    return out
+
+
+def rank_serve(label, make_adapter, ps, kw, *, reuse=True, want=None) -> dict:
+    """Serve ``ps`` (16 new tokens each) twice, each time on a fresh
+    ``make_adapter()`` and ``Engine``: the first run warms the process up
+    (its tokens must equal the second's), the second is timed and counted.
+    [4f]'s arrival order (``run_requests``; ``reuse=False``: no prefix
+    matched, the CP engine's rule).  Each prefill call's last live row's
+    logits are kept.  With
+    ``want(n_prefill_calls, n_decode_calls)`` the launch counts are held
+    exactly.  Returns tokens, tok/s, cache bytes, launches and the logits."""
+    runs = [serve_once(make_adapter(), ps, kw, reuse) for _ in range(2)]
+    if runs[0]["tokens"] != runs[1]["tokens"]:
+        raise AssertionError(f"{label}: two serves of the same prompts gave different tokens")
+    res = runs[1]
+    eng, timer, wall = res.pop("eng"), res.pop("timer"), res.pop("wall")
+    n_pre, n_dec = timer.calls["prefill"], timer.calls["decode"]
+    if want is not None:
+        res["launches"] = held_launches(label, res["launches"], want(n_pre, n_dec))
+    res["launches"] = {k: v for k, v in res["launches"].items() if v}
+    dec_tokens = len(ps) * (NEW_TOKENS - 1)
+    res.update(prefill_tok_s=eng.stats["prefill_tokens"] / timer.t["prefill"],
+               decode_tok_s=dec_tokens / timer.t["decode"])
+    log(f"{label}: {len(ps)} requests (prompts {[len(p) for p in ps]}) in {wall:.2f} s (the "
+        f"second of two serves); prefill {eng.stats['prefill_tokens']} tokens in {n_pre} calls "
+        f"of {kw['prefill_chunk']} rows, {timer.t['prefill']:.3f} s = "
+        f"{res['prefill_tok_s']:.1f} tok/s; decode {dec_tokens} tokens in {n_dec} steps, "
+        f"{timer.t['decode']:.3f} s = {res['decode_tok_s']:.1f} tok/s; cache "
+        f"{res['cache_bytes'] / 2**20:.1f} MiB; launches {res['launches']}; radix cached tokens "
+        f"{eng.stats['cached_tokens']}")
+    return res
+
+
+def serve_once(adapter, ps, kw, reuse) -> dict:
+    """One serve of :func:`rank_serve` with the launch counts reset before."""
+    timer = StepTimer(adapter)
+    last = []
+    prefill = adapter.prefill_step
+
+    def recording(x, sl, *a):
+        h, c = prefill(x, sl, *a)
+        n = int(sl[0])
+        last.append(adapter.lm_head(h[n - 1:n]).float())
+        return h, c
+
+    adapter.prefill_step = recording
+    eng = Engine(adapter, GPT_NUM_PAGES, **kw)
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache_tensors(eng.caches))
+    rids, wall, launches = run_requests(eng, ps, (0, GPT_SHARED), GPT_NUM_PAGES,
+                                        CFG_LLAMA.vocab_size, reuse)
+    return {"tokens": [eng.finished[r] for r in rids], "cache_bytes": cache_bytes,
+            "launches": launches, "last_logits": last, "logits": digest(torch.cat(last)),
+            "eng": eng, "timer": timer, "wall": wall}
+
+
+def cp_rule(params, ps, one, cp) -> None:
+    """The CP serve against the one-rank serve on K12d: each prefill's last
+    row's logits within ``STEP_TOL`` of the row's largest |logit|; each
+    request's greedy tokens equal up to its first difference, which must
+    sit at a near-tie: the one-rank path's own top-2 gap at that token, by
+    a one-rank prefill over the prompt and the tokens before it, within
+    ``STEP_TOL`` of its largest |logit| ([4m]'s rule)."""
+    errs = [float((c - o).abs().max() / o.abs().max())
+            for c, o in zip(cp["last_logits"], one["last_logits"])]
+    log(f"rank 0: CP vs one rank, each prefill's last-row logits: max rel err "
+        f"{max(errs):.3e} (tol {STEP_TOL}; per prefill {[f'{e:.2e}' for e in errs]})")
+    if not max(errs) <= STEP_TOL:
+        raise AssertionError(f"CP prefill logits {max(errs):.3e} from the one-rank prefill's")
+    parted = []
+    for i, (a, b) in enumerate(zip(cp["tokens"], one["tokens"])):
+        k = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if k is None:
+            continue
+        ids = torch.tensor(ps[i] + b[:k], dtype=torch.int32, device=DEV)
+        logits = prefill_logits(params, ids)
+        top2 = torch.topk(logits, 2).values
+        gap = float((top2[0] - top2[1]) / logits.abs().max())
+        parted.append((i, k, gap))
+        if not gap <= STEP_TOL:
+            raise AssertionError(f"request {i} parts at token {k} with a top-2 gap of {gap:.3e} "
+                                 "of its largest |logit|: not a near-tie")
+    log(f"rank 0: CP greedy tokens equal the one-rank serve's on "
+        f"{len(ps) - len(parted)}/{len(ps)} requests; parted at a near-tie (request, token, "
+        f"top-2 gap over the largest |logit|): {[(i, k, round(g, 5)) for i, k, g in parted]}")
+
+
+def prefill_logits(params, ids) -> torch.Tensor:
+    """The one-rank prefill's (K12d) logits at the last of ``ids``."""
+    n, page = ids.shape[0], CFG_LLAMA.page_size
+    pages = -(-n // page)
+    caches = lm.init_kv_cache(CFG_LLAMA, pages + 1, torch.bfloat16)
+    bt = torch.arange(1, pages + 1, dtype=torch.int32, device=DEV)[None]
+    seq = torch.tensor([n], dtype=torch.int32, device=DEV)
+    slots = torch.arange(page, page + n, dtype=torch.int32, device=DEV)
+    h, _ = lm.prefill_step(CFG_LLAMA, params, lm.embed(params, ids), seq, caches, bt, seq, slots,
+                           max_q=n)
+    return lm.lm_head(params, h[n - 1]).float()
+
+
+def cp_cache_check(rank, group, params, prompt) -> str:
+    """The long prompt's prefill alone, ``prefill_step_cp`` against the
+    one-rank ``prefill_step`` on fresh caches: each layer's K / V rows
+    within 2e-2 of the largest |value| (layer 0's bit-equality reported);
+    the CP ring's attention against K12d's, timed.  Returns the CP caches'
+    digest."""
+    cfg, page = CFG_LLAMA, CFG_LLAMA.page_size
+    n, s = len(prompt), CP_CHUNK
+    pages = s // page
+    bt = torch.arange(1, pages + 1, dtype=torch.int32, device=DEV)[None]
+    seq = torch.tensor([n], dtype=torch.int32, device=DEV)
+    slots = torch.full((s,), -1, dtype=torch.int32, device=DEV)
+    slots[:n] = torch.arange(page, page + n, dtype=torch.int32, device=DEV)
+    ids = torch.zeros((s,), dtype=torch.int32, device=DEV)
+    ids[:n] = torch.tensor(prompt, dtype=torch.int32, device=DEV)
+    x = lm.embed(params, ids)
+    caches = {k: lm.init_kv_cache(cfg, pages + 1, torch.bfloat16) for k in ("cp", "one")}
+    lm.prefill_step_cp(cfg, params, x, seq, caches["cp"], bt, seq, slots, group=group)
+    lm.prefill_step(cfg, params, x, seq, caches["one"], bt, seq, slots, max_q=s)
+    rows = slice(1, 1 + -(-n // page))
+    errs, equal0 = [], None
+    for li in range(cfg.num_layers):
+        for got, want in zip(caches["cp"][li], caches["one"][li]):
+            g, w = got[rows].float(), want[rows].float()
+            errs.append(float((g - w).abs().max() / w.abs().max()))
+            if li == 0:
+                equal0 = bool(torch.equal(got, want)) if equal0 is None else equal0 and bool(
+                    torch.equal(got, want))
+    log(f"rank {rank}: the {n}-token prefill's cache, prefill_step_cp vs the one-rank "
+        f"prefill_step: K / V max rel err by layer {[f'{e:.2e}' for e in errs]} (tol 2e-2); "
+        f"layer 0 bit-equal: {equal0}")
+    if not max(errs) <= 2e-2:
+        raise AssertionError(f"rank {rank}: the CP cache {max(errs):.3e} from the one-rank cache")
+    cache_digest = digest(torch.cat([t.reshape(-1).view(torch.uint8)
+                                     for layer in caches["cp"] for t in layer]))
+    # the attention alone: the CP prefill's (this rank's rows against the
+    # gathered K / V), JAX's ring over the same rows, K12d on all of them
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 33)
+    tl = s // RANKS
+    q = randn(gen, (1, tl, cfg.num_heads, cfg.head_dim))
+    k = randn(gen, (1, s, cfg.num_kv_heads, cfg.head_dim))
+    v = randn(gen, (1, s, cfg.num_kv_heads, cfg.head_dim))
+    mine = slice(rank * tl, (rank + 1) * tl)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    gathered = lambda: gathered_attention(q, k, v, scale, q_offset=rank * tl)  # noqa: E731
+    ring = lambda: ring_attention(q, k[:, mine], v[:, mine], scale, group=group)  # noqa: E731
+    want = ring()
+    err = float((gathered() - want).abs().max() / want.abs().max())
+    cp_ms, cp_busy = wall_and_busy(gathered, group, iters=3)
+    ring_ms, ring_busy = wall_and_busy(ring, group, iters=3)
+    log(f"rank {rank}: the CP prefill's attention (gathered_attention), {tl} rows a rank of "
+        f"{s}, {cfg.num_heads} / {cfg.num_kv_heads} heads: {cp_ms:.2f} ms wall, {cp_busy:.2f} ms "
+        f"device busy; JAX's ring (ring_attention) on the same rows {ring_ms:.2f} / "
+        f"{ring_busy:.2f} ms (both ranks at once); they differ by {err:.3e} of the largest "
+        "|value| (tol 1e-2: bf16 outputs of f32 sums in another order)")
+    if not err <= 1e-2:
+        raise AssertionError(f"rank {rank}: gathered_attention {err:.3e} from ring_attention")
+    dist.barrier()
+    if rank == 0:
+        kc, vc = caches["one"][0]
+        qf = randn(gen, (s, cfg.num_heads * cfg.head_dim))
+        k12d = time_ms(lambda: sa.attention_sinks_prefill_pallas(
+            qf, kc, vc, None, seq, bt, seq, scale, 0, cfg.num_heads, cfg.num_kv_heads,
+            max_q=s), 5)
+        log(f"rank 0 alone: K12d over the same {n} live rows of {s}: {k12d:.4f} ms; the CP "
+            f"attention takes {cp_ms / k12d:.1f}x its time, the ring {ring_ms / k12d:.1f}x")
+    dist.barrier()
+    return cache_digest
+
+
+def pipeline_check(rank, group) -> dict:
+    """``pipeline_forward`` over the two ranks, stage = [4f]'s SwiGLU MLP with
+    a residual (4096 x 14336, bf16), ``PIPE_MICRO`` microbatches of
+    ``PIPE_ROWS`` rows, the loss sum(y²) and its gradient, against the
+    sequential application on this rank: y within 2e-2 and this stage's
+    gradients within 5e-2 of their largest |value|."""
+    h, inter = CFG_LLAMA.hidden, CFG_LLAMA.intermediate
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 32)
+    weights = {"w_gate": randn(gen, (RANKS, h, inter), scale=0.02),
+               "w_up": randn(gen, (RANKS, h, inter), scale=0.02),
+               "w_down": randn(gen, (RANKS, inter, h), scale=0.02)}
+    x = randn(gen, (PIPE_ROWS, h))
+
+    def stage(p, t):
+        return t + lm._mlp(p, t)
+
+    def run(parallel):
+        sp = {k: w.clone().requires_grad_() for k, w in weights.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if parallel:
+            y = pipeline_forward(stage, sp, x, group=group, num_micro=PIPE_MICRO)
+        else:
+            y = x
+            for s_ in range(RANKS):
+                y = stage({k: w[s_] for k, w in sp.items()}, y)
+        (y.float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        return y.detach(), {k: w.grad[rank] for k, w in sp.items()}, time.perf_counter() - t0
+
+    run(True)
+    y, g, t_pipe = run(True)
+    y1, g1, t_seq = run(False)
+    err_y = float((y.float() - y1.float()).abs().max() / y1.float().abs().max())
+    err_g = max(float((g[k].float() - g1[k].float()).abs().max() / g1[k].float().abs().max())
+                for k in g)
+    log(f"rank {rank}: pipeline_forward ({RANKS} stages, {PIPE_MICRO} microbatches of "
+        f"{PIPE_ROWS // PIPE_MICRO} rows) vs the sequential stages: y max rel err {err_y:.3e} "
+        f"(tol 2e-2), stage {rank}'s gradients {err_g:.3e} (tol 5e-2); forward + backward "
+        f"{t_pipe * 1e3:.1f} ms against {t_seq * 1e3:.1f} ms sequential on one rank")
+    if not (err_y <= 2e-2 and err_g <= 5e-2):
+        raise AssertionError(f"rank {rank}: pipeline_forward off the sequential model")
+    return {"y": digest(y), "err_y": err_y, "err_g": err_g}
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False     # f32 matmuls in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -6324,6 +6881,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     (k14a, k14b, k14c), launches_t, (k8f_train, k8dx), launches_j = training_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    k2_tp, launches_k2_tp, launches_ranks = rank_phases(card)
+    log(f"  [4q] / [4r] launches on the paths: {json.dumps(launches_ranks)}")
     src, tpu = "sgl_kernel_npu_tpu_torch/csrc/", "sgl_kernel_npu_tpu/ops/"
     # K11a / K12d at head_dim 256, their launches on [4o]'s float serve
     rows += [("k11a_d256", "sinks_attention.cu", "attention/decode_attention.py:696 and :539",
@@ -6337,6 +6898,9 @@ def main() -> None:
              ("grouped_matmul_dx", "grouped_matmul.cu", "grouped_matmul.py:538", k8dx)]
     path_launches.update({k: launches_t[k] for k in TRAIN_KERNELS})
     path_launches["grouped_matmul_dx"] = launches_j["grouped_matmul_dx"]
+    # K2 at a tp-2 rank's 64 heads, its launches on [4q]'s TP decode step (rank 0)
+    rows.append(("decode_mla_tp2", "decode_mla.cu", "attention/decode_attention.py:346", k2_tp))
+    path_launches["decode_mla_tp2"] = launches_k2_tp
     log(f"  grouped_matmul_float at [4j]'s training shapes: {k8f_train['ms']:.4f} ms a layer's 3 "
         f"forward products (bound {k8f_train['bound_ms']:.4f}); its JSON row holds [4i]'s")
     if len({id(r) for *_, r in rows}) != len(rows):
@@ -6357,4 +6921,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:         # a rank process of [4q] / [4r]
+        rank_main(sys.argv[2], pathlib.Path(sys.argv[3]), int(sys.argv[4]))
+    else:
+        main()

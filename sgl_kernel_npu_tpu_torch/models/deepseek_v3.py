@@ -31,7 +31,9 @@ around three ``gmm_train`` products, K8a's ``none`` mode forward and
 ``parallel.buffer.Buffer``) with ``moe_weights_q`` runs the W8A8 MoE
 through ``Buffer.fused_deep_moe`` (its exchanges on the buffer's transport,
 K8a twice), after ``eplb_tables`` (``parallel.eplb.make_remap_tables``)
-remap the routing to physical expert slots, in JAX's branch order.  The
+remap the routing to physical expert slots, in JAX's branch order.
+Head-parallel decode: :func:`decode_step_tp` over a process group (each
+rank's heads from :func:`tp_shard_layer`, K2 on them).  The
 switch this port does not take raises ``NotImplementedError``: the
 gradients over a mesh of more than one rank (ROADMAP item 16).  The W8A8
 MoE of at most 512 tokens at widths the ring GEMMs do not take runs K8a with
@@ -157,7 +159,8 @@ class DeepSeekV3Config:
 # ---------------------------------------------------------------------------
 
 def _randn(gen, shape, scale, dtype, device):
-    return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+    # scaled in place: one f32 temporary (15 GiB for a layer's experts), not two
+    return torch.randn(shape, generator=gen, device=device).mul_(scale).to(dtype)
 
 
 def init_weights(cfg: DeepSeekV3Config, seed: int = 0, dtype=torch.float32,
@@ -811,6 +814,71 @@ def prefill_step(cfg: DeepSeekV3Config, params: dict, hidden, seq_lens, kv_cache
         x = x + _mla_output(cfg, lw, attn, dq, plain)
         x = _moe_and_shared(cfg, lw, wq, dq, x, plain, (ep_buffer, use_int8_dispatch,
                                                          eplb_tables))
+    return x, kv_caches
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: heads over a process group
+# ---------------------------------------------------------------------------
+
+def tp_shard_layer(lw: dict, rank: int, ntp: int) -> dict:
+    """Rank ``rank``'s heads of one layer's weights under head TP over
+    ``ntp`` ranks (JAX's ``_tp_layer_specs``): ``wuq [q_lora, H·qk_dim]`` by
+    columns, ``wuk [H, nope, lat]`` and ``wvu [H, lat, v]`` by heads, ``wo
+    [H·v, hidden]`` by rows; every other weight the same tensor
+    (replicated: MLA's latent K / V is shared by the heads)."""
+    h = lw["wuk"].shape[0]
+    if h % ntp:
+        raise ValueError(f"{h} heads do not divide over {ntp} TP ranks")
+    hl = h // ntp
+    qk, v = lw["wuq"].shape[1] // h, lw["wvu"].shape[2]
+    heads = slice(rank * hl, (rank + 1) * hl)
+    # copies, not views: a rank keeps only its own heads' storage
+    return {**lw, "wuq": lw["wuq"][:, rank * hl * qk:(rank + 1) * hl * qk].contiguous(),
+            "wuk": lw["wuk"][heads].contiguous(), "wvu": lw["wvu"][heads].contiguous(),
+            "wo": lw["wo"][rank * hl * v:(rank + 1) * hl * v].contiguous()}
+
+
+def tp_attention_block(cfg: DeepSeekV3Config, lw: dict, x, cos, sin, cache, block_table,
+                       seq_lens, slot_mapping, *, group, plain: bool = False):
+    """One MLA decode attention block on this rank's heads (``lw`` from
+    :func:`tp_shard_layer`): every rank computes the head-free latent K / V
+    and writes the same cache pages, attends its ``H / ntp`` heads on
+    ``decode_mla`` (K2; its plain version with ``plain``), and the output
+    projections are summed over ``group``.  Returns ``[N, hidden]``, the
+    same bits on every rank."""
+    from sgl_kernel_npu_tpu_torch.parallel.collectives import all_sum, group_size
+
+    local = dataclasses.replace(cfg, num_heads=cfg.num_heads // group_size(group))
+    if lw["wuk"].shape[0] != local.num_heads:
+        raise ValueError(f"the layer holds {lw['wuk'].shape[0]} heads; this rank's share is "
+                         f"{local.num_heads}: pass tp_shard_layer's weights")
+    q = _attention_inputs(local, lw, None, x, cos, sin, cache, slot_mapping, plain)
+    attend = decode_mla_ref if plain else decode_mla
+    attn = attend(q, cache["nope"], cache["rope"], seq_lens, cfg.sm_scale, block_table,
+                  k_scale=_nope_scale(cfg))
+    return all_sum(_mla_output(local, lw, attn), group)
+
+
+def decode_step_tp(cfg: DeepSeekV3Config, params: dict, hidden, positions, kv_caches,
+                   block_table, seq_lens, slot_mapping, *, group, plain: bool = False):
+    """:func:`decode_step` with head-TP attention over ``group`` (JAX's
+    ``decode_step_tp``): ``params["layers"]`` are this rank's
+    (:func:`tp_shard_layer`), the float dense MoE and the shared expert run
+    replicated, the latent cache is replicated (each rank writes all of it).
+    A DSA config (``sparse_count > 0``) raises ``NotImplementedError``, as
+    JAX's does.  Returns ``(hidden, kv_caches)``, the caches updated in
+    place."""
+    if cfg.sparse_count > 0:
+        raise NotImplementedError(
+            "decode_step_tp does not run the DSA sparse branch (and would drop the kidx "
+            "cache leaf): use dense configs for TP serving")
+    cos, sin = rope_cos_sin(positions, cfg.qk_rope_dim)
+    x = hidden
+    for li, lw in enumerate(params["layers"]):
+        x = x + tp_attention_block(cfg, lw, x, cos, sin, kv_caches[li], block_table, seq_lens,
+                                   slot_mapping, group=group, plain=plain)
+        x = _moe_and_shared(cfg, lw, None, None, x, plain)
     return x, kv_caches
 
 

@@ -20,8 +20,11 @@ in place; ``plain=True`` runs the kernels' plain versions.  Multi-LoRA
 (``lora`` from :func:`init_lora` or :func:`from_jax_lora`, ``lora_idx`` an
 adapter per row, 0 = adapter 0, all zeros) adds a delta to the q and o
 projections through ``fused_lora_delta`` (K13a ``bgmv_fused``), on the float
-and the W8A8 path alike.  Not ported yet: the context-parallel prefill
-(``prefill_step_cp``, ROADMAP item 16).
+and the W8A8 path alike.  :func:`prefill_step_cp` prefills one request's
+prompt context parallel over a process group (each rank's rows attend the
+all-gathered K / V, ``parallel/ring_attention.gathered_attention``);
+``models/llama_pp.py`` runs the layer stack
+in pipeline stages on :func:`_stack`.
 """
 
 from __future__ import annotations
@@ -204,20 +207,31 @@ def _qkv_attn_proj(lq: dict, hidden_n, plain: bool):
                  for nm in ("wq", "wk", "wv"))
 
 
-def _layers(cfg: LlamaConfig, params: dict, x, positions, caches, slot_mapping, attend,
-            weights_q, kv_scales, lora, lora_idx, plain: bool):
-    """The layer stack over ``x [N, hidden]``, then the final norm: each
-    layer writes its K / V rows (int8 levels on the int8 path) at
-    ``slot_mapping``, then ``attend(q [N, Hq, D], k_cache, v_cache, k_scale,
-    v_scale)`` reads them back.  With ``lora`` the q and o projections add
-    each row's adapter delta (``lora_idx [N]``)."""
+def _write(slot_mapping):
+    """The default K / V store of :func:`_stack`: each row at its slot."""
+    def store(k, v, k_cache, v_cache, ks, vs):
+        write_kv(k, k_cache, slot_mapping, ks)
+        write_kv(v, v_cache, slot_mapping, vs)
+
+    return store
+
+
+def _stack(cfg: LlamaConfig, layers: list, x, positions, caches, store, attend, weights_q,
+           kv_scales, lora, lora_idx, plain: bool):
+    """``layers`` over ``x [N, hidden]`` (no final norm): each layer hands
+    its K / V rows to ``store(k, v, k_cache, v_cache, k_scale, v_scale)``
+    (:func:`_write`: int8 levels on the int8 path), then ``attend(q [N, Hq,
+    D], k, v, k_cache, v_cache, k_scale, v_scale)`` gives the attention rows
+    (from the caches, or from the fresh ``k`` / ``v [N, Hkv, D]``).  With
+    ``lora`` the q and o projections add each row's adapter delta
+    (``lora_idx [N]``)."""
     norm = rms_norm_ref if plain else rms_norm
     n, d = x.shape[0], cfg.head_dim
     if lora is not None and (lora_idx is None or lora_idx.shape != (n,)):
         raise ValueError(f"lora needs lora_idx [{n}], an adapter per row, got "
                          f"{None if lora_idx is None else tuple(lora_idx.shape)}")
     cos, sin = rope_cos_sin(positions, d, base=cfg.rope_theta)
-    for li, lw in enumerate(params["layers"]):
+    for li, lw in enumerate(layers):
         lq = None if weights_q is None else weights_q["layers"][li]
         k_cache, v_cache = caches[li]
         hidden_n = norm(x, lw["ln1"], cfg.rms_eps)
@@ -230,18 +244,71 @@ def _layers(cfg: LlamaConfig, params: dict, x, positions, caches, slot_mapping, 
             qp = qp + _lora_delta(hidden_n, la["qA"], la["qB"], lora_idx, plain)
         q = apply_rope(qp.reshape(n, cfg.num_heads, d), cos, sin)
         k = apply_rope(kp.reshape(n, cfg.num_kv_heads, d), cos, sin)
+        v = vp.reshape(n, cfg.num_kv_heads, d)
         ks, vs = (None, None) if kv_scales is None else kv_scales[li]
         ks, vs = _kv_scale(cfg, ks), _kv_scale(cfg, vs)
-        write_kv(k, k_cache, slot_mapping, ks)
-        write_kv(vp.reshape(n, cfg.num_kv_heads, d), v_cache, slot_mapping, vs)
-        attn = attend(q, k_cache, v_cache, ks, vs).reshape(n, -1)
+        store(k, v, k_cache, v_cache, ks, vs)
+        attn = attend(q, k, v, k_cache, v_cache, ks, vs).reshape(n, -1)
         op = attn @ lw["wo"] if lq is None else w8a8.project(attn, lq["wo"], x.dtype, plain=plain)
         if lora is not None:
             op = op + _lora_delta(attn, la["oA"], la["oB"], lora_idx, plain)
         x = x + op
         mlp_in = norm(x, lw["ln2"], cfg.rms_eps)
         x = x + (_mlp(lw, mlp_in) if lq is None else _mlp_q(lq, mlp_in, plain))
-    return norm(x, params["ln_f"], cfg.rms_eps), caches
+    return x, caches
+
+
+def _final_norm(cfg: LlamaConfig, params: dict, x, plain: bool = False):
+    """The final RMSNorm (``ln_f``) the steps end with."""
+    return (rms_norm_ref if plain else rms_norm)(x, params["ln_f"], cfg.rms_eps)
+
+
+def _layers(cfg: LlamaConfig, params: dict, x, positions, caches, slot_mapping, attend,
+            weights_q, kv_scales, lora, lora_idx, plain: bool):
+    """The whole stack with the K / V rows written at ``slot_mapping``, then
+    the final norm."""
+    x, caches = _stack(cfg, params["layers"], x, positions, caches, _write(slot_mapping),
+                       attend, weights_q, kv_scales, lora, lora_idx, plain)
+    return _final_norm(cfg, params, x, plain), caches
+
+
+def _decode_attend(cfg: LlamaConfig, block_tables, context_lens, plain: bool = False):
+    """A decode step's ``attend`` for :func:`_stack`: K11a over the cache
+    (its plain version with ``plain``)."""
+    decode = decode_gqa_plain if plain else decode_gqa
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+
+    def attend(q, k, v, kc, vc, ks, vs):
+        return decode(q, kc, vc, context_lens, scale, block_tables, k_scale=ks, v_scale=vs)
+
+    return attend
+
+
+def _prefill_positions(seq_lens, context_lens, s: int, dev):
+    """Each packed prefill row's position: its request's context before the
+    chunk plus its place in the chunk (pad rows past the requests: the last
+    request's next places)."""
+    sl = seq_lens.to(dev).long()
+    req, j = packed_rows(sl, s)
+    return context_lens.to(dev).long()[req] - sl[req] + j
+
+
+def _prefill_attend(cfg: LlamaConfig, s: int, seq_lens, block_tables, context_lens,
+                    max_q: int | None = None, use_pallas: bool = True, plain: bool = False):
+    """A varlen prefill's ``attend`` for :func:`_stack` over ``s`` packed
+    rows: K12d without sinks or window (its plain version with ``plain``,
+    the golden :func:`attention_sinks_prefill` with ``use_pallas=False``)."""
+    prefill = attention_sinks_prefill_plain if plain else attention_sinks_prefill_pallas
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+
+    def attend(q, k, v, kc, vc, ks, vs):
+        args = (q.reshape(s, -1), kc, vc, None, seq_lens, block_tables, context_lens, scale, 0,
+                cfg.num_heads, cfg.num_kv_heads)
+        if not use_pallas:
+            return attention_sinks_prefill(*args, ks, vs)
+        return prefill(*args, max_q=max_q, k_scale=ks, v_scale=vs)
+
+    return attend
 
 
 # ---------------------------------------------------------------------------
@@ -255,12 +322,7 @@ def decode_step(cfg: LlamaConfig, params: dict, x, positions, caches, block_tabl
     ``context_lens`` include the new token; slot ``-1`` rows write nothing;
     ``lora_idx [B]`` is each row's adapter under ``lora``.  Returns
     ``(final-normed hidden, caches)``, the caches updated in place."""
-    decode = decode_gqa_plain if plain else decode_gqa
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-
-    def attend(q, kc, vc, ks, vs):
-        return decode(q, kc, vc, context_lens, scale, block_tables, k_scale=ks, v_scale=vs)
-
+    attend = _decode_attend(cfg, block_tables, context_lens, plain)
     return _layers(cfg, params, x, positions, caches, slot_mapping, attend, weights_q,
                    kv_scales, lora, lora_idx, plain)
 
@@ -275,19 +337,62 @@ def prefill_step(cfg: LlamaConfig, params: dict, x, seq_lens, caches, block_tabl
     ``use_pallas=False`` attends with the golden
     :func:`attention_sinks_prefill`; ``lora_idx [S]`` is each row's adapter
     under ``lora``.  Returns ``(final-normed hidden, caches)``."""
-    prefill = attention_sinks_prefill_plain if plain else attention_sinks_prefill_pallas
     s = x.shape[0]
-    sl = seq_lens.to(x.device).long()
-    req, j = packed_rows(sl, s)
-    positions = context_lens.to(x.device).long()[req] - sl[req] + j
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-
-    def attend(q, kc, vc, ks, vs):
-        args = (q.reshape(s, -1), kc, vc, None, seq_lens, block_tables, context_lens, scale, 0,
-                cfg.num_heads, cfg.num_kv_heads)
-        if not use_pallas:
-            return attention_sinks_prefill(*args, ks, vs)
-        return prefill(*args, max_q=max_q, k_scale=ks, v_scale=vs)
-
+    positions = _prefill_positions(seq_lens, context_lens, s, x.device)
+    attend = _prefill_attend(cfg, s, seq_lens, block_tables, context_lens, max_q, use_pallas,
+                            plain)
     return _layers(cfg, params, x, positions, caches, slot_mapping, attend, weights_q,
                    kv_scales, lora, lora_idx, plain)
+
+
+def prefill_step_cp(cfg: LlamaConfig, params: dict, x, seq_lens, caches, block_tables,
+                    context_lens, slot_mapping, *, group, plain: bool = False):
+    """Context-parallel prefill of ONE request's whole prompt over the ranks
+    of ``group`` (JAX's ``prefill_step_cp``): ``x [S, hidden]`` the prompt
+    and its pad rows (the same on every rank), ``S % R == 0``,
+    ``context_lens == seq_lens`` (a fresh prompt: no chunk continues an
+    earlier one), pad rows at slot ``-1``.  Rank r runs the layers on rows
+    ``[r S/R, (r+1) S/R)``.  Each rank's K / V rows are all-gathered before
+    the cache write, so every rank's cache holds all S rows (int8 levels on
+    the int8 cache), as JAX's replicated cache does, and decode runs on it
+    as usual.  Attention reads the same gathered, fresh K / V at full
+    precision (:func:`gathered_attention`: this rank's rows against rows
+    ``[0, (r+1) S/R)``), where JAX's ring rotates the blocks: the same
+    numbers with no second exchange.  Returns ``(final-normed hidden [S,
+    hidden], caches)``, the rows all-gathered: the same bits on every
+    rank."""
+    from sgl_kernel_npu_tpu_torch.parallel.collectives import (
+        all_gather,
+        group_rank,
+        group_size,
+    )
+    from sgl_kernel_npu_tpu_torch.parallel.ring_attention import gathered_attention
+
+    r, me = group_size(group), group_rank(group)
+    s = x.shape[0]
+    if s % r:
+        raise ValueError(f"prefill_step_cp: {s} rows do not divide by the ring of {r} ranks "
+                         "(the engine's prefill_chunk must)")
+    if seq_lens.shape != (1,) or not torch.equal(context_lens.to(seq_lens.device), seq_lens):
+        raise ValueError("prefill_step_cp prefills one request's whole prompt from position 0 "
+                         "(context_lens == seq_lens): a prompt longer than the engine's "
+                         "prefill_chunk, or one whose prefix was already cached, cannot take it")
+    tl = s // r
+    mine = slice(me * tl, (me + 1) * tl)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+
+    fresh = {}
+
+    def store(k, v, k_cache, v_cache, ks, vs):
+        fresh["k"], fresh["v"] = all_gather(k, group), all_gather(v, group)
+        write_kv(fresh["k"], k_cache, slot_mapping, ks)
+        write_kv(fresh["v"], v_cache, slot_mapping, vs)
+
+    def attend(q, k, v, kc, vc, ks, vs):
+        return gathered_attention(q[None], fresh["k"][None], fresh["v"][None], scale,
+                                  q_offset=me * tl)[0]
+
+    positions = torch.arange(s, device=x.device)[mine]
+    h, caches = _stack(cfg, params["layers"], x[mine], positions, caches, store, attend, None,
+                       None, None, None, plain)
+    return all_gather(_final_norm(cfg, params, h, plain), group), caches

@@ -6,7 +6,9 @@ launches ``csrc/quant_matmul.cu`` for CUDA tensors and takes
 :func:`quant_matmul_ref` for CPU tensors.  The TPU wrapper pads N and K to
 its tiles; the CUDA kernels (up to 16 rows a decode kernel on mma.sync,
 above it wgmma s8 tiles fed by TMA) mask the ragged edges themselves and
-need only K % 16 == 0.  ``batch_matmul_transpose`` is not ported yet (ROADMAP queue A).
+need only K % 16 == 0.  :func:`batch_matmul_transpose` (JAX's einsum,
+no Pallas kernel) is torch ops: its int8 products are summed exactly in
+float64, on the card as on the CPU (``torch.bmm`` takes no int8 on CUDA).
 """
 
 from __future__ import annotations
@@ -75,3 +77,45 @@ def quant_matmul(x_q, w_q, de_scale, bias=None, *, out_dtype=torch.bfloat16):
         cuda_lib.stream_ptr(x_q)), "quant_matmul")
     quant_matmul.launches += 1
     return out
+
+
+QUANT_MODES = ("per_channel_symm", "per_channel_asymm", "per_token_symm")
+
+
+def batch_matmul_transpose(a: torch.Tensor, b: torch.Tensor, out_dtype=None, *,
+                           quant_mode: str | None = None, de_scale=None, bias=None,
+                           per_token_scale=None) -> torch.Tensor:
+    """``out[i, j] = a[i, j, :] @ b[j]`` (einsum ``bmk,mkn->bmn``; JAX's
+    ``batch_matmul_transpose``).  Float: f32 accumulation, out in
+    ``out_dtype`` (a's dtype by default).  ``quant_mode`` (int8 ``a`` /
+    ``b``, out bf16 by default): the int32 sums ``acc`` (exact: summed in
+    float64, which holds them for any K below 2^37), then
+
+    - ``per_channel_symm``:  ``acc · de_scale[m, n]``
+    - ``per_channel_asymm``: ``(acc + bias[m, n]) · de_scale[m, n]`` (``bias``
+      the int32 zero-point correction)
+    - ``per_token_symm``:    ``acc · de_scale[m, n] · per_token_scale[b, m]``
+
+    ``de_scale`` broadcasts from ``[m, n]`` or ``[n]``, ``per_token_scale``
+    from ``[b, m]`` or ``[b]``; the products in f32, as JAX's."""
+    if quant_mode is None:
+        return torch.einsum("bmk,mkn->bmn", a.float(), b.float()).to(out_dtype or a.dtype)
+    if quant_mode not in QUANT_MODES:
+        raise ValueError(f"unsupported quant_mode {quant_mode!r}; one of {QUANT_MODES}")
+    if de_scale is None:
+        raise ValueError("quantized modes need de_scale")
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise ValueError(f"quantized modes take int8 a and b, got {a.dtype} and {b.dtype}")
+    acc = torch.einsum("bmk,mkn->bmn", a.double(), b.double()).to(torch.int32)
+    if quant_mode == "per_channel_asymm":
+        if bias is None:
+            raise ValueError("per_channel_asymm needs the int32 bias term")
+        acc = acc + bias.to(torch.int32)[None]
+    ds = de_scale.float()
+    out = acc.float() * (ds[None] if ds.ndim == 1 else ds)[None]
+    if quant_mode == "per_token_symm":
+        if per_token_scale is None:
+            raise ValueError("per_token_symm needs per_token_scale")
+        pts = per_token_scale.float()
+        out = out * (pts[:, None] if pts.ndim == 1 else pts)[..., None]
+    return out.to(out_dtype or torch.bfloat16)

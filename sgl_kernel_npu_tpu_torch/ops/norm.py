@@ -5,7 +5,8 @@ DeepSeek path calls the plain version, GPT-OSS and Llama the kernel),
 ``add_rms_norm_bias`` (K6b: residual add, RMSNorm, bias, optional static
 per-channel int8 quant), ``add_gemma_rms_norm`` (K6c: residual add, RMSNorm
 scaled by ``w + 1``; K6b's kernel launches it) and ``l1_norm`` (K6d: each row
-over its signed sum, f32 out).  The kernels live in ``csrc/norm.cu``; no
+over its signed sum, f32 out), and ``split_qkv_rmsnorm_rope`` (JAX's jnp
+chain, no Pallas kernel: torch ops).  The kernels live in ``csrc/norm.cu``; no
 model calls K6b-d, they are ops.  K6a, K6b / K6c and K6d are row reductions
 on ``csrc/row_reduce.cuh`` (their plan from ``ops/row_reduce.py``);
 :func:`rms_norm_rows_plain`, :func:`add_rms_norm_rows_plain` and
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from sgl_kernel_npu_tpu_torch.ops.quant import quant_static_per_channel_ref
+from sgl_kernel_npu_tpu_torch.ops.rope import apply_rope
 from sgl_kernel_npu_tpu_torch.ops.row_reduce import (L1_CHUNK_VECS, L1_ELEM_BYTES, RowPlan,
                                                       launch_plan, row_vectors)
 from sgl_kernel_npu_tpu_torch.utils import cuda_lib
@@ -277,3 +279,27 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
         cuda_lib.stream_ptr(x)), "rms_norm")
     rms_norm.launches += 1
     return out
+
+
+def split_qkv_rmsnorm_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
+                           q_hidden_size: int, kv_hidden_size: int, head_dim: int,
+                           eps: float | None = None, q_weight=None, k_weight=None, q_bias=None,
+                           k_bias=None):
+    """Split ``x [B, q_hidden + 2 kv_hidden]`` into q / k / v; q and k get a
+    per-head RMSNorm (:func:`rms_norm_ref` over ``head_dim``, scaled by
+    ``q_weight`` / ``k_weight``, plus the optional bias; none where ``eps``
+    is None) and rotate-half RoPE (``ops.rope.apply_rope``, ``sin`` / ``cos
+    [B, head_dim]``), in f32, back to x's dtype; v passes through.  Returns
+    ``(q, k, v)`` (JAX's)."""
+    b = x.shape[0]
+    q, k, v = torch.split(x, [q_hidden_size, kv_hidden_size, kv_hidden_size], dim=-1)
+
+    def norm_rope(t, w, bias):
+        th = t.reshape(b, -1, head_dim).float()
+        if eps is not None:
+            th = rms_norm_ref(th, w, eps)
+            if bias is not None:
+                th = th + bias.float()
+        return apply_rope(th, cos, sin).to(x.dtype).reshape(b, -1)
+
+    return norm_rope(q, q_weight, q_bias), norm_rope(k, k_weight, k_bias), v

@@ -1,7 +1,7 @@
 """Rotate-half rotary position embedding.
 
 Counterpart of ``sgl_kernel_npu_tpu/ops/rope.py`` (``rope_cos_sin``,
-``apply_rope``).
+``apply_rope``, ``apply_rope_interleaved``).
 """
 
 from __future__ import annotations
@@ -30,3 +30,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     """``x*cos + rotate_half(x)*sin`` for ``x [N, heads, D]``, ``cos/sin [N, D]``."""
     xf = x.float()
     return (xf * cos.float()[:, None, :] + rotate_half(xf) * sin.float()[:, None, :]).to(x.dtype)
+
+
+def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """GPT-J (interleaved) RoPE: the pairs are adjacent elements ``(2i, 2i+1)``,
+    rotated by the first half of ``cos/sin [N, D]``; ``x [N, heads, D]``."""
+    xf = x.float()
+    x1, x2 = xf[..., 0::2], xf[..., 1::2]
+    half = cos.shape[-1] // 2
+    c = cos.float()[:, None, :half]
+    s = sin.float()[:, None, :half]
+    return torch.stack([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).reshape(xf.shape).to(x.dtype)

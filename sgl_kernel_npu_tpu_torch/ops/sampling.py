@@ -62,6 +62,10 @@ def sample_tokens(logits: torch.Tensor, seeds: torch.Tensor, steps: torch.Tensor
     return torch.where(temperature <= 0.0, greedy, sampled)
 
 
+# JAX's un-jitted golden entry: the same function here
+sample_tokens_ref = sample_tokens
+
+
 def token_logprobs(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """log P(token) per row under the unfiltered distribution ``[B]``."""
     logp = torch.log_softmax(logits.float(), dim=-1)

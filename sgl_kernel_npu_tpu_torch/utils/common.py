@@ -25,6 +25,11 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def next_power_of_2(x: int) -> int:
+    """The least power of 2 at or above ``x`` (1 for ``x <= 1``)."""
+    return 1 if x <= 1 else 1 << (x - 1).bit_length()
+
+
 def kernels_available() -> bool:
     """True where the hand-written kernels can run: a CUDA device is present.
     (Replaces ``interpret_default``: there is no interpret mode for CUDA.)"""

@@ -11,7 +11,9 @@ payload on several), K15b (``pallas_ragged_all_to_all``), K16b
 CUDA tensors, runs the same calls' plain versions on CPU copies over the same
 group, and prints ``ok`` when they agree (K15a and K15b bit-exact, K15b on
 the live rows and counts; K16b's counts and drops exact, its output within
-1e-2 of a row's largest |value|; K16a within one bf16 ulp of each value).
+1e-2 of a row's largest |value|; K16a within one bf16 ulp of each value);
+then K15a on two groups of the same two ranks in turn, two windows in
+flight, each call bit-exact.
 """
 
 import pathlib
@@ -81,6 +83,21 @@ def main(work: pathlib.Path, rank: int) -> None:
     torch.cuda.synchronize()
     rel = (got.cpu().float() - ref.float()).abs() / ref.float().abs().clamp_min(1e-30)
     assert float(rel.max()) <= 2 ** -7, float(rel.max())
+
+    # two windows in flight: a second group over the same two ranks has a
+    # window and epochs of its own (no id pool, as JAX's collective ids are);
+    # calls on the two groups interleave, each bit-exact
+    second = dist.new_group([0, 1])
+    card = torch.device("cuda", torch.cuda.current_device())
+    for _ in range(3):
+        for g in (None, second):
+            x = torch.randint(-128, 128, (2, 64, 512), generator=gen).to(torch.int8)
+            got = pa.pallas_all_to_all(x.to(dev), group=g)
+            want = pa.pallas_all_to_all_plain(x, group=g)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want)
+    first, other = pa.window(None, card), pa.window(second, card)
+    assert first is not other and other.epoch == 3 and first.epoch > other.epoch
     print("ok", flush=True)
     dist.destroy_process_group()
 
